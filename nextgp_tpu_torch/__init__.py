@@ -1,14 +1,15 @@
 """nextgp_tpu_torch: the PyTorch/CUDA port of nextgp_tpu.
 
-The slice ported so far is the BayesR main path: residual + fixed effects +
-BayesR marker sets, genotypes stored 2-bit planar-packed, V-batched block
-schedule. Its three passes run through hand-written CUDA kernels for
-Hopper (csrc/, built with nvcc at first use) on CUDA tensors and through
-their plain PyTorch versions on CPU tensors. The JAX package `nextgp_tpu`
+The slices ported so far: residual (plain "I" or weighted "D") + fixed
+effects + BayesPR, BayesB, BayesC and BayesR marker sets, genotypes stored
+2-bit planar-packed, V-batched block schedule. The packed passes and the
+in-block scans run through hand-written CUDA kernels for Hopper (csrc/,
+built with nvcc at first use) on CUDA tensors and through their plain
+PyTorch versions on CPU tensors. The JAX package `nextgp_tpu`
 is the reference the port is held to; this package never imports it or
 jax.
 """
-from .api.priors import BayesR, RandomEffect  # noqa: F401
+from .api.priors import BayesB, BayesC, BayesPR, BayesR, RandomEffect  # noqa: F401
 from .api.spec import FixedTerm, MarkerTerm, ModelSpec  # noqa: F401
 from .data.ingest import MarkerData, from_array, from_packed  # noqa: F401
 from .engine.plan import assemble  # noqa: F401

@@ -13,13 +13,18 @@
 //   Bound: device-memory bytes of the panel (each byte read once) and, next,
 //   the shared-memory reads of y (16 bytes of y per packed byte).
 //   Design: one warp per group of kRowsPerWarp rows, lanes read a row in
-//   16-byte chunks (coalesced), and the chunk's y values are loaded once from
-//   shared memory and reused for all rows of the group. y sits in shared
-//   memory transposed so that neighbouring lanes read neighbouring float4s
-//   (no bank conflicts). The TPU kernel carried a partial sum across its
-//   sequential q grid axis; here that axis is the in-warp loop over chunks,
-//   closed by a fixed-order warp reduction. Blocks are persistent (grid-
-//   stride over row groups) so y is staged once per block.
+//   16-byte chunks (coalesced), and the chunk's y values are loaded once and
+//   reused for all rows of the group. y is read transposed so that
+//   neighbouring lanes read neighbouring float4s (no bank conflicts, and
+//   coalesced from device memory). The TPU kernel carried a partial sum
+//   across its sequential q grid axis; here that axis is the in-warp loop
+//   over chunks, closed by a fixed-order warp reduction. Blocks are
+//   persistent (grid-stride over row groups). Where the 16*q bytes of y fit a
+//   block's shared memory (q <= 14,528, about 58,000 individuals) each block
+//   stages y there once; above that a first kernel writes the transposed y
+//   to a device-memory scratch (400 KB at 100,000 individuals, resident in
+//   the 50 MB L2) and the gather reads it from there. Both paths sum in the
+//   same order, so the result does not depend on which one ran.
 //
 // K2 scatter, out[k, j] = sum_r u[r] * plane_k(pk[r, j]), planar (4, q).
 //   Replaces `_make_rank_kernel("vpu")` behind `pack2.rank_update_step` /
@@ -58,19 +63,33 @@ __device__ __forceinline__ float word_dot(uint32_t w, const float4 (&y)[4]) {
   return a;
 }
 
+// yt[(k * 4 + w) * nchunk + c] = y4[k, 16c + 4w .. 16c + 4w + 3]
+__device__ __forceinline__ float4 y_chunk(const float* __restrict__ y4, int q, int nchunk,
+                                          int idx) {
+  const int c = idx % nchunk;
+  const int kw = idx / nchunk;
+  return *reinterpret_cast<const float4*>(y4 + (size_t)(kw >> 2) * q + 16 * c + 4 * (kw & 3));
+}
+
+__global__ void y_transpose_kernel(const float* __restrict__ y4, float4* __restrict__ yt, int q) {
+  const int nchunk = q >> 4;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < 16 * nchunk) yt[idx] = y_chunk(y4, q, nchunk, idx);
+}
+
+// kStaged: y is staged transposed into shared memory; otherwise it is read
+// from yt, the transposed copy in device memory.
+template <bool kStaged>
 __global__ void __launch_bounds__(kMatvecThreads)
 matvec_kernel(const uint8_t* __restrict__ pk, const float* __restrict__ y4,
-              float* __restrict__ out, long long rows, int q) {
-  // ys[(k * 4 + w) * nchunk + c] = y4[k, 16c + 4w .. 16c + 4w + 3]
-  extern __shared__ float4 ys[];
+              const float4* __restrict__ yt, float* __restrict__ out, long long rows, int q) {
+  extern __shared__ float4 ys_smem[];
   const int nchunk = q >> 4;
-  for (int idx = threadIdx.x; idx < 16 * nchunk; idx += blockDim.x) {
-    const int c = idx % nchunk;
-    const int kw = idx / nchunk;
-    ys[idx] = *reinterpret_cast<const float4*>(
-        y4 + (size_t)(kw >> 2) * q + 16 * c + 4 * (kw & 3));
+  if (kStaged) {
+    for (int idx = threadIdx.x; idx < 16 * nchunk; idx += blockDim.x)
+      ys_smem[idx] = y_chunk(y4, q, nchunk, idx);
+    __syncthreads();
   }
-  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const long long wpb = blockDim.x >> 5;
@@ -91,7 +110,10 @@ matvec_kernel(const uint8_t* __restrict__ pk, const float* __restrict__ y4,
       for (int w = 0; w < 4; ++w) {
         float4 y[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) y[k] = ys[(k * 4 + w) * nchunk + c];
+        for (int k = 0; k < 4; ++k) {
+          const int idx = (k * 4 + w) * nchunk + c;
+          y[k] = kStaged ? ys_smem[idx] : __ldg(yt + idx);
+        }
 #pragma unroll
         for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] += word_dot(word_of(ch[rr], w), y);
       }
@@ -152,26 +174,39 @@ extern "C" {
 const char* ngt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // pk: (rows, q) uint8, y4: (4, q) f32, out: (rows,) f32; q a multiple of 16,
-// pk and y4 16-byte aligned, rows > 0.
-int ngt_pack2_matvec(const void* pk, const void* y4, void* out, long long rows,
+// pk and y4 16-byte aligned, rows > 0. yt: null to stage y in shared memory
+// (16*q bytes must fit a block), else a 16-byte aligned (4, q) f32 scratch
+// that receives the transposed y.
+int ngt_pack2_matvec(const void* pk, const void* y4, void* yt, void* out, long long rows,
                      long long q, void* stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)16 * (size_t)q;  // 4 planes x q floats
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(matvec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const long long groups = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
   const long long wpb = kMatvecThreads / 32;
   long long blocks = (groups + wpb - 1) / wpb;
   if (blocks > 4LL * sms) blocks = 4LL * sms;
-  matvec_kernel<<<(unsigned)blocks, kMatvecThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)pk, (const float*)y4, (float*)out, rows, (int)q);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (yt == nullptr) {
+    const size_t smem = (size_t)16 * (size_t)q;  // 4 planes x q floats
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(matvec_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    matvec_kernel<true><<<(unsigned)blocks, kMatvecThreads, smem, st>>>(
+        (const uint8_t*)pk, (const float*)y4, nullptr, (float*)out, rows, (int)q);
+    return (int)cudaGetLastError();
+  }
+  const long long n = q;  // 16 * (q / 16) float4s
+  y_transpose_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)y4, (float4*)yt,
+                                                                  (int)q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  matvec_kernel<false><<<(unsigned)blocks, kMatvecThreads, 0, st>>>(
+      (const uint8_t*)pk, (const float*)y4, (const float4*)yt, (float*)out, rows, (int)q);
   return (int)cudaGetLastError();
 }
 

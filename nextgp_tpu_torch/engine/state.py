@@ -1,21 +1,24 @@
 """The Gibbs state as frozen dataclasses of tensors.
 
 Counterparts of the pytrees in `nextgp_tpu/engine/state.py`, with the same
-field names, for the terms the port carries: residual, fixed blocks and
-BayesR marker sets. A sweep returns a new state (`utils.replace`).
+field names, for the terms the port carries: residual (plain or weighted),
+fixed blocks and BayesPR/B/C/R marker sets. A sweep returns a new state
+(`utils.replace`). A field that the JAX state leaves None for a model is
+None here too.
 
 Marker storage has one layout for every V (V=1 included), with
 T = n_blocks / V block-steps and global block g = v*T + t:
-    mt     (T, V, B, q) uint8, 2-bit planar-packed rows
-    center (T, V, B)
-    gram   (T, B, V, B) centered Gram blocks, locus-major
+    mt       (T, V, B, q) uint8, 2-bit planar-packed rows
+    center   (T, V, B)
+    gram     (T, B, V, B) centered (weighted) Gram blocks, locus-major
+    gram_raw (T, B, V, B) unweighted Gram blocks, weighted models only
 The JAX package stores V=1 as (nb, B, q) / (nb, B) / (nb, B, B); those are
 the same bytes, and `state_from_numpy` reshapes them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +27,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class FixedState:
     x: torch.Tensor  # (n, k)
-    xp: torch.Tensor  # (k, n)
-    xpx: torch.Tensor  # (k, k), ridge-jittered when k > 1
+    xp: torch.Tensor  # (k, n) = X' or (X .* d_inv)' when weighted
+    xpx: torch.Tensor  # (k, k) = xp @ X, ridge-jittered when k > 1
     lhs_ss: torch.Tensor  # (k,) summary-statistic offsets (zero in the port)
     rhs_ss: torch.Tensor  # (k,)
     b: torch.Tensor  # (k,)
@@ -33,35 +36,37 @@ class FixedState:
 
 @dataclasses.dataclass(frozen=True)
 class MarkerState:
-    """One BayesR marker set. B = block size, nb = n_blocks."""
+    """One marker set. B = block size, nb = n_blocks."""
 
     mt: torch.Tensor  # (T, V, B, q) uint8
     center: torch.Tensor  # (T, V, B)
-    gram: torch.Tensor  # (T, B, V, B)
-    mpm: torch.Tensor  # (nb, B) diag of the Gram, global block order
+    gram: torch.Tensor  # (T, B, V, B), weighted (Mc D^-1 Mc') when the residual is
+    gram_raw: Optional[torch.Tensor]  # (T, B, V, B) Mc Mc' when weighted, else None
+    mpm: torch.Tensor  # (nb, B) diag of gram, global block order
     lhs_ss: torch.Tensor  # (nb, B) summary-statistic offsets (zero in the port)
     rhs_ss: torch.Tensor  # (nb, B)
     mask: torch.Tensor  # (nb, B) bool, False on padded loci
-    region_id: torch.Tensor  # (p_pad,) int32, all 0: BayesR has one variance
+    region_id: torch.Tensor  # (p_pad,) int32; BayesPR regions, padded loci -> n_regions
     beta: torch.Tensor  # (p_pad,)
-    delta: torch.Tensor  # (p_pad,) int32, 1-based class (0 on padded loci)
-    var_beta: torch.Tensor  # (1,)
+    delta: torch.Tensor  # (p_pad,) int32: 1-based class (R), indicator (B/C)
+    var_beta: torch.Tensor  # (n_var,): regions (PR), per locus (B), one (C/R)
     scale: torch.Tensor  # ()
-    log_pi: torch.Tensor  # (K,)
-    pi_hat: torch.Tensor  # (K,)
-    v_class: torch.Tensor  # (K,)
+    log_pi: Optional[torch.Tensor]  # (K,); None for BayesPR
+    pi_hat: Optional[torch.Tensor]  # (K,); None for BayesPR
+    v_class: Optional[torch.Tensor]  # (K,); None for BayesPR
 
 
 @dataclasses.dataclass(frozen=True)
 class ResidualState:
     scale: torch.Tensor  # ()
+    d_inv: Optional[torch.Tensor]  # (n,) 1/weights of a weighted residual, else None
     var_e: torch.Tensor  # () last drawn value
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelState:
     y: torch.Tensor  # (n,)
-    ycorr: torch.Tensor  # (n,)
+    ycorr: torch.Tensor  # (n,) raw residual y - Xb - Mc beta, weighted or not
     e: ResidualState
     fixed: Tuple[FixedState, ...]
     markers: Tuple[MarkerState, ...]
@@ -72,15 +77,31 @@ _INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32, "mt": torch.uint8
                "mask": torch.bool}
 
 
+def _none_fields(plan):
+    """Keys whose field the plan leaves None (the JAX tree drops them)."""
+    out = set() if plan.weighted else {"e.d_inv"}
+    for i, mp in enumerate(plan.markers):
+        if not mp.weighted:
+            out.add(f"markers.{i}.gram_raw")
+        if mp.n_classes == 0:  # BayesPR: no indicator probabilities
+            out.update(f"markers.{i}.{f}" for f in ("log_pi", "pi_hat", "v_class"))
+    return out
+
+
 def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
     """Build a ModelState on plan.device from numpy arrays keyed by the JAX
     field paths ("ycorr", "e.var_e", "fixed.0.b", "markers.0.gram", ...,
     "sweep_index"), for instance a flattened JAX ModelState. Every field
-    must be given and no other; float fields take plan.dtype, and marker
-    storage is reshaped to the port's layout."""
+    must be given and no other, except that a field the plan leaves None
+    (gram_raw and e.d_inv unweighted, log_pi/pi_hat/v_class for BayesPR)
+    must be absent; float fields take plan.dtype, and marker storage is
+    reshaped to the port's layout."""
     used = set()
+    none = _none_fields(plan)
 
     def get(key, dtype=None, shape=None):
+        if key in none:
+            return None
         if key not in arrays:
             raise KeyError(f"state_from_numpy: missing {key!r}")
         used.add(key)
@@ -100,7 +121,8 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
         T = mp.n_blocks // V
         q = arrays[f"markers.{i}.mt"].shape[-1]
         markers.append(fields(MarkerState, f"markers.{i}.", {
-            "mt": (T, V, B, q), "center": (T, V, B), "gram": (T, B, V, B)}))
+            "mt": (T, V, B, q), "center": (T, V, B), "gram": (T, B, V, B),
+            "gram_raw": (T, B, V, B)}))
     state = ModelState(
         y=get("y"),
         ycorr=get("ycorr"),

@@ -13,7 +13,7 @@ from typing import Any, Dict
 import torch
 
 from ..utils import replace
-from .plan import SweepPlan
+from .plan import METHOD_B, METHOD_C, METHOD_R, SweepPlan
 from .rng import STAGE_FIXED, STAGE_MARKER, STAGE_VAR_E, Site
 from .samplers.fixed import sample_fixed_block
 from .samplers.markers import sample_marker_set
@@ -39,7 +39,8 @@ def make_sweep(plan: SweepPlan):
 
         markers = []
         for i, (ms, mp) in enumerate(zip(state.markers, plan.markers)):
-            ms, ycorr = sample_marker_set(stream, Site(s, STAGE_MARKER, i), ms, mp, ycorr, var_e)
+            ms, ycorr = sample_marker_set(stream, Site(s, STAGE_MARKER, i), ms, mp, ycorr, var_e,
+                                          state.e.d_inv)
             markers.append(ms)
 
         return replace(state, ycorr=ycorr, e=replace(state.e, var_e=var_e), fixed=tuple(fixed),
@@ -50,15 +51,18 @@ def make_sweep(plan: SweepPlan):
 
 def collect_sample(state: ModelState, plan: SweepPlan) -> Dict[str, Any]:
     """The tracked quantities the reference streams per kept iteration
-    (samplers.jl:56-104): b, varE, and beta/delta/var/pi per marker set."""
+    (samplers.jl:56-104): b, varE, and beta/delta/var per marker set, with
+    the per-locus variances cut to p (BayesB) and pi where the method has
+    one (BayesB/C/R)."""
     out: Dict[str, Any] = {"varE": state.e.var_e}
     if state.fixed:
         out["b"] = torch.cat([fs.b for fs in state.fixed])
     for ms, mp in zip(state.markers, plan.markers):
         out[f"beta{mp.name}"] = ms.beta[: mp.p]
         out[f"delta{mp.name}"] = ms.delta[: mp.p]
-        out[f"var{mp.name}"] = ms.var_beta
-        out[f"pi{mp.name}"] = ms.pi_hat
+        out[f"var{mp.name}"] = ms.var_beta[: mp.p] if mp.n_var == mp.p_pad else ms.var_beta
+        if mp.method in (METHOD_B, METHOD_C, METHOD_R):
+            out[f"pi{mp.name}"] = ms.pi_hat
     return out
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-The sources in `nextgp_tpu_torch/csrc/` are compiled at first use into one
-shared library with a plain C interface for `sm_90a` (Hopper), cached in
+The sources in `nextgp_tpu_torch/csrc/` are compiled at first use (one
+`nvcc` per source, all started together, then one link) into one shared
+library with a plain C interface for `sm_90a` (Hopper), cached in
 `nextgp_tpu_torch/_build/<hash of sources and flags>/`. Each C entry point
 launches on the stream it is given and returns `cudaGetLastError()`;
 `check` raises on anything but 0. There is no fallback: a missing `nvcc`,
@@ -24,10 +25,11 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0}
+LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
+            "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0}
 
 _lib = None
 
@@ -60,12 +62,24 @@ def build() -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".build-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f".build-{os.getpid()}"
+    objs = [out_dir / f"{src.stem}{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(src.name, p.returncode, log) for src, p, log in zip(sources, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n} ({rc}):\n{log}" for n, rc, log in failed))
+    tmp = out_dir / f"{tag}.so"
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    (out_dir / "ptxas.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return so
 
@@ -85,10 +99,14 @@ def lib() -> ctypes.CDLL:
         P, I, S = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p
         L.ngt_error_string.argtypes = [ctypes.c_int]
         L.ngt_error_string.restype = ctypes.c_char_p
-        L.ngt_pack2_matvec.argtypes = [P, P, P, I, I, S]
+        L.ngt_pack2_matvec.argtypes = [P, P, P, P, I, I, S]
         L.ngt_pack2_rank_update.argtypes = [P, P, P, P, I, I, I, S]
         L.ngt_r_block_scan_v.argtypes = [P, P, P, P, P, I, I, I, S]
-        for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v):
+        L.ngt_gauss_block_scan_v.argtypes = [P, P, P, P, I, I, S]
+        L.ngt_bc_block_scan_v.argtypes = [P, P, P, P, P, I, I, S]
+        L.ngt_bc_block_scan_wv.argtypes = [P, P, P, P, P, P, I, I, S]
+        for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
+                   L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

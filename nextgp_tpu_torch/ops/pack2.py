@@ -27,6 +27,7 @@ from ..utils import cdiv
 from . import _cuda
 
 _LANES = 128
+Y_STAGE_BYTES = 227 * 1024  # a block's shared memory on Hopper: K1 stages y up to here
 
 
 def packed_q(n: int) -> int:
@@ -106,11 +107,13 @@ def _matvec_kernel(pk_all, row0, rows, y4):
                   f"pack2.matvec: y4 must be an aligned (4, {q}) tensor, got {tuple(y4.shape)}")
     _cuda.require(0 < rows and 0 <= row0 and row0 + rows <= pk_all.shape[0],
                   "pack2.matvec: step rows out of range")
-    _cuda.require(16 * q <= 227 * 1024, f"pack2.matvec: q={q} exceeds the shared-memory stage of y")
     L = _cuda.lib()
     out = torch.empty(rows, dtype=torch.float32, device=pk_all.device)
-    err = L.ngt_pack2_matvec(pk_all.data_ptr() + row0 * q, y4.data_ptr(), out.data_ptr(),
-                             rows, q, _cuda.stream_of(pk_all))
+    # y is staged in shared memory where it fits, else read from a transposed copy
+    yt = None if 16 * q <= Y_STAGE_BYTES else torch.empty_like(y4)
+    err = L.ngt_pack2_matvec(pk_all.data_ptr() + row0 * q, y4.data_ptr(),
+                             None if yt is None else yt.data_ptr(), out.data_ptr(), rows, q,
+                             _cuda.stream_of(pk_all))
     _cuda.check(err, "pack2.matvec")
     _cuda.LAUNCHES["pack2_matvec"] += 1
     return out

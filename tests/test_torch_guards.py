@@ -54,8 +54,8 @@ def _fields(cls):
     return out
 
 
-@pytest.mark.parametrize("name", ["BayesR", "RandomEffect", "FixedTerm", "MarkerTerm", "ModelSpec",
-                                  "MarkerData"])
+@pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "RandomEffect",
+                                  "FixedTerm", "MarkerTerm", "ModelSpec", "MarkerData"])
 def test_copied_dataclasses_match(name):
     jcls = getattr(j_ingest, name, None) or getattr(ng, name)
     tcls = getattr(t_ingest, name, None) or getattr(ngt, name)

@@ -1,12 +1,15 @@
-"""The port's BayesR slice against the JAX package, end to end, in float64.
+"""The port's marker methods against the JAX package, end to end, in float64.
 
-Both packages assemble one spec (intercept + one packed BayesR set with
-estimatePi); the port runs on the CPU through its plain versions and draws
-from `JaxStream`, which reproduces the JAX package's keys with jax.random,
-so the two chains see the same numbers. Continuous fields agree to rtol
-1e-9 (the two evaluate the same algebra in another order: the JAX pure path
-restores beta_old explicitly, the port folds it into the coefficients);
-delta is exactly equal.
+Both packages assemble one spec (intercept + one packed marker set) for
+each of BayesPR (windows of 20 SNPs on an interleaved two-chromosome map),
+BayesB, BayesC (both with estimatePi) and BayesR (estimatePi), each with a
+plain ("I") and a weighted ("D") residual, at V = 1 and V = 4. The port runs
+on the CPU through its plain versions and draws from `JaxStream`, which
+reproduces the JAX package's keys with jax.random, so the two chains see
+the same numbers. Continuous fields agree to rtol 1e-9 (the two evaluate
+the same algebra in another order: the JAX pure path restores beta_old
+explicitly, the port folds it into the coefficients); delta is exactly
+equal.
 """
 import dataclasses
 
@@ -53,6 +56,14 @@ class JaxStream:
         return torch.from_numpy(np.array(jax.random.gamma(self._key(site), a)))
 
 
+METHODS = ("BayesPR", "BayesB", "BayesC", "BayesR")
+CASES = [(m, w) for m in METHODS for w in (False, True)]
+
+
+def _case_id(case):
+    return f"{case[0]}-{'D' if case[1] else 'I'}"
+
+
 def _data():
     rng = np.random.default_rng(20)
     g = rng.integers(0, 3, (N, P)).astype(float)
@@ -62,16 +73,26 @@ def _data():
     return g, y
 
 
-def _specs():
+def _prior(mod, method):
+    if method == "BayesPR":
+        return mod.BayesPR(20, 0.05)
+    if method in ("BayesB", "BayesC"):
+        return getattr(mod, method)(0.3, 0.05, estimatePi=True)
+    return mod.BayesR([0.85, 0.08, 0.05, 0.02], [0.0, 1e-3, 1e-2, 1e-1], 1.0, estimatePi=True)
+
+
+def _specs(method="BayesR", weighted=False):
     g, y = _data()
-    pi, cls = [0.85, 0.08, 0.05, 0.02], [0.0, 1e-3, 1e-2, 1e-1]
-    js = ng.ModelSpec(y=y, fixed=[ng.FixedTerm("int", np.ones(N))],
-                      markers=[ng.MarkerTerm("M", ng.from_array(g), ng.BayesR(pi, cls, 1.0, estimatePi=True))],
-                      block_size=BLOCK)
-    ts = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))],
-                       markers=[ngt.MarkerTerm("M", ngt.from_array(g), ngt.BayesR(pi, cls, 1.0, estimatePi=True))],
-                       block_size=BLOCK)
-    return js, ts
+    chr_ids = (np.arange(P) // 48) % 2 + 1  # chromosomes 1 and 2, interleaved
+    weights = np.random.default_rng(21).uniform(0.5, 2.0, N) if weighted else None
+    out = []
+    for mod in (ng, ngt):
+        out.append(mod.ModelSpec(
+            y=y, fixed=[mod.FixedTerm("int", np.ones(N))],
+            markers=[mod.MarkerTerm("M", mod.from_array(g, chr_ids=chr_ids), _prior(mod, method))],
+            residual=None if weights is None else mod.RandomEffect(weights, 1.0),
+            block_size=BLOCK))
+    return tuple(out)
 
 
 def _flatten(state):
@@ -88,11 +109,13 @@ def _port_layout(key, a, plan):
     mp = plan.markers[0]
     T, V, B = mp.n_blocks // mp.vshards, mp.vshards, mp.block
     shapes = {"markers.0.mt": (T, V, B, -1), "markers.0.center": (T, V, B),
-              "markers.0.gram": (T, B, V, B)}
+              "markers.0.gram": (T, B, V, B), "markers.0.gram_raw": (T, B, V, B)}
     return a.reshape(shapes[key]) if key in shapes else a
 
 
 def _port_flat(state):
+    """Port ModelState -> the same keys, leaving out None fields as JAX's
+    tree flatten does."""
     out = {"y": state.y, "ycorr": state.ycorr, "sweep_index": np.asarray(state.sweep_index)}
     for f in dataclasses.fields(state.e):
         out[f"e.{f.name}"] = getattr(state.e, f.name)
@@ -102,24 +125,28 @@ def _port_flat(state):
     for i, ms in enumerate(state.markers):
         for f in dataclasses.fields(ms):
             out[f"markers.{i}.{f.name}"] = getattr(ms, f.name)
-    return {k: np.asarray(v) for k, v in out.items()}
+    return {k: np.asarray(v) for k, v in out.items() if v is not None}
 
 
 def _assert_chains_agree(port_state, jax_state, plan):
     jf = _flatten(jax_state)
     tf = _port_flat(port_state)
-    for key in ("ycorr", "e.var_e", "fixed.0.b", "markers.0.beta", "markers.0.var_beta",
-                "markers.0.pi_hat", "markers.0.log_pi"):
+    keys = ["ycorr", "e.var_e", "fixed.0.b", "markers.0.beta", "markers.0.var_beta"]
+    if plan.markers[0].method != "BayesPR":
+        keys += ["markers.0.pi_hat", "markers.0.log_pi"]
+    for key in keys:
         np.testing.assert_allclose(tf[key], jf[key], rtol=1e-9, atol=1e-12, err_msg=key)
     np.testing.assert_array_equal(tf["markers.0.delta"], jf["markers.0.delta"])
     assert int(tf["sweep_index"]) == int(jf["sweep_index"])
 
 
-@pytest.fixture(scope="module", params=[1, 4], ids=["V1", "V4"])
+@pytest.fixture(scope="module", params=[(m, w, V) for m, w in CASES for V in (1, 4)],
+                ids=lambda c: f"{_case_id(c[:2])}-V{c[2]}")
 def both(request):
-    """Both packages' assembled (plan, state) and 5 JAX sweeps for one V."""
-    V = request.param
-    js, ts = _specs()
+    """Both packages' assembled (plan, state) and 5 JAX sweeps for one
+    method, residual and V."""
+    method, weighted, V = request.param
+    js, ts = _specs(method, weighted)
     jplan, jstate0 = ng.assemble(js, use_pallas=False, pack2=True, vshards=V)
     tplan, tstate0 = ngt.assemble(ts, device="cpu", dtype=torch.float64, vshards=V)
     jsweep = jax.jit(ng.make_sweep(jplan))
@@ -127,12 +154,17 @@ def both(request):
     jstates = [jstate0]
     for _ in range(5):
         jstates.append(jsweep(jstates[-1], key))
-    return dict(V=V, jplan=jplan, tplan=tplan, tstate0=tstate0, jstates=jstates)
+    return dict(V=V, method=method, weighted=weighted, jplan=jplan, tplan=tplan, tstate0=tstate0,
+                jstates=jstates)
 
 
 def test_assemble_matches(both):
     tplan, jstates = both["tplan"], both["jstates"]
-    assert tplan.markers[0].vshards == both["V"]
+    mp, jmp = tplan.markers[0], both["jplan"].markers[0]
+    assert mp.vshards == both["V"] and mp.method == jmp.method == both["method"]
+    assert (mp.n_var, mp.n_regions, mp.n_classes, mp.est_pi, mp.df, mp.weighted) == (
+        jmp.n_var, jmp.n_regions, jmp.n_classes, jmp.est_pi, jmp.df, jmp.weighted)
+    assert tplan.weighted == both["jplan"].weighted == both["weighted"]
     jf = {k: _port_layout(k, a, tplan) for k, a in _flatten(jstates[0]).items()}
     tf = _port_flat(both["tstate0"])
     assert set(tf) == set(jf)
@@ -167,10 +199,15 @@ def test_continue_from_jax_state(both):
 
 
 def test_state_from_numpy_is_strict(both):
+    """Every field the plan carries must be given, and no other: a field
+    the plan leaves None (JAX's flatten drops it) is unknown when given."""
     arrays = _flatten(both["jstates"][0])
     with pytest.raises(KeyError, match="unknown"):
-        ngt.state_from_numpy(both["tplan"], {**arrays, "markers.0.gram_raw": arrays["y"]})
-    del arrays["markers.0.pi_hat"]
+        ngt.state_from_numpy(both["tplan"], {**arrays, "markers.0.annot_cat": arrays["y"]})
+    if not both["weighted"]:
+        with pytest.raises(KeyError, match="unknown"):
+            ngt.state_from_numpy(both["tplan"], {**arrays, "e.d_inv": arrays["y"]})
+    del arrays["markers.0.beta"]
     with pytest.raises(KeyError, match="missing"):
         ngt.state_from_numpy(both["tplan"], arrays)
 
@@ -186,10 +223,12 @@ def test_genomic_values_state_matches(both):
     assert drift.abs().max().item() < 1e-9
 
 
-def test_run_lmem_matches():
-    js, ts = _specs()
-    jres = ng.run_lmem(js, n_chain=9, n_burn=3, n_thin=2, out_folder=None, seed=5)
-    tres = ngt.run_lmem(ts, n_chain=9, n_burn=3, n_thin=2, seed=5, device="cpu",
+@pytest.mark.parametrize("V", [1, 4], ids=["V1", "V4"])
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_run_lmem_matches(case, V):
+    js, ts = _specs(*case)
+    jres = ng.run_lmem(js, n_chain=9, n_burn=3, n_thin=2, out_folder=None, seed=5, vshards=V)
+    tres = ngt.run_lmem(ts, n_chain=9, n_burn=3, n_thin=2, seed=5, device="cpu", vshards=V,
                         stream=JaxStream(jax.random.key(5)))
     assert set(tres.draws) == set(jres.draws)
     for name in jres.draws:
@@ -214,11 +253,16 @@ def test_unsupported_terms_raise():
     g, _ = _data()
     with pytest.raises(ValueError, match="not been measured"):
         ngt.assemble(ts, device="cpu", vshards="auto")
-    bad = dataclasses.replace(ts, residual=ngt.RandomEffect(np.ones(N), 1.0))
+    bad = dataclasses.replace(ts, residual=ngt.RandomEffect("A", 1.0))
     with pytest.raises(NotImplementedError, match="residual"):
         ngt.assemble(bad, device="cpu")
-    bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm("M2", ngt.from_array(g), None)])
+    bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm("M2", ngt.from_array(g),
+                                                          ngt.RandomEffect("I", 1.0))])
     with pytest.raises(NotImplementedError, match="M2"):
+        ngt.assemble(bad, device="cpu")
+    bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm("M3", ngt.from_array(g),
+                                                          ngt.BayesPR(9999, np.eye(2)))])
+    with pytest.raises(NotImplementedError, match="M9"):
         ngt.assemble(bad, device="cpu")
     bad = dataclasses.replace(ts, random=[js.markers[0]])
     with pytest.raises(NotImplementedError, match="random term M"):

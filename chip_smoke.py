@@ -6,21 +6,31 @@ Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
   2. build the kernels from nextgp_tpu_torch/csrc (one nvcc per source, sm_90a)
   3. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, with its median time beside the plain version's: K1
-     gather, K2 scatter, K3 BayesR scan, K6 Gaussian scan, K8 B/C scan, K10
-     weighted B/C scan, and K1 at 100,000 individuals (y past shared memory)
+     paths' shapes, with its median time beside the plain version's and the
+     least time the card could take (the bytes the function needs over
+     3.35 TB/s or its operations over 67 TFLOP/s; a scan needs the Gram's
+     lower triangle only): K1 gather, K2 scatter, K3 BayesR scan, K6 Gaussian scan, K8
+     B/C scan, K10 weighted B/C scan, K12 BayesRCpi scan, K14 BayesRCplus
+     scan, K1 at 100,000 individuals (y past shared memory) and K12 with a
+     chain's coefficient rows past shared memory (A = 8, K = 4)
   4. the paths at full size on one simulated 10,000 x 49,152 panel, 2-bit
      packed once and shared, V=96, 100 sweeps of run_lmem each: BayesR with
-     estimatePi, BayesC, BayesC with a weighted ("D") residual, and BayesPR
-     (one whole-genome region); per-path launch counts, residual drift, pi,
+     estimatePi, BayesC, BayesC with a weighted ("D") residual, BayesPR
+     (one whole-genome region), BayesRCpi with estimatePi, BayesRCplus (three
+     annotations each) and BayesLV (three variance covariates); per-path
+     launch counts, residual drift, finite draws, pi, annotation state,
      EBV correlation with the planted signal, steady sweep time and a
-     profiled window. Then BayesC, BayesC+D and BayesPR again at V=1, the
-     reference-sequential block order: with V=96 every step updates half the
-     loci against one residual, which overshoots under these dense priors
-     (PERF.md), so BayesC's EBV limit is held at V=1
+     profiled window. Then BayesC, BayesC+D, BayesPR, BayesRCpi, BayesRCplus
+     and BayesLV again at V=1, the reference-sequential block order: with
+     V=96 every step updates half the loci against one residual, which
+     overshoots under dense priors (PERF.md), so BayesC's, BayesRCpi's and
+     BayesLV's EBV limits (and BayesLV's ceiling on varE) are held at V=1.
+     Last, BayesLV at V=8 and V=32, and at V=96 and V=1 with a column of
+     ones before its covariates, which its design on the main path lacks
   5. kernel chain against plain chain on a small model, from identical
-     draws, for BayesR, BayesB, BayesC, BayesC+D and BayesPR; two kernel
-     runs from one seed must give bit-identical beta
+     draws, for all seven methods and BayesC+D; two kernel runs from one
+     seed must give bit-identical beta; BayesLV's float32 kernel chain also
+     against the float64 plain chain over 20 sweeps
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -42,19 +52,49 @@ N_CHAIN, N_BURN, N_THIN = 100, 50, 5
 N_BIG, ROWS_BIG = 100_000, 1000  # K1 past its shared-memory stage of y
 PRIOR_R = dict(pi=[0.9, 0.05, 0.03, 0.02], class_=[0.0, 1e-4, 1e-3, 1e-2], v=1.0, estimatePi=True)
 PI_BC, V_BC, V_PR = 0.95, 0.05, 0.05  # scripts/bench_methods.py:43-58
+PRIOR_RC = dict(pi=[0.9, 0.05, 0.05], class_=[0.0, 1e-3, 1e-2], v=1.0)  # bench_methods.py:48-50
+V_LV, VZETA_LV = 0.01, 0.01  # bench_methods.py:51
+
+
+def annotations(p, seed=3):
+    """Three 0/1 annotations, the first on every locus, and three variance
+    covariates per locus (scripts/bench_methods.py:38-40)."""
+    rng = np.random.default_rng(seed)
+    annot = (rng.integers(0, 2, (p, 3)) | np.array([1, 0, 0])).astype(np.int8)
+    return annot, rng.normal(0, 1, (p, 3))
+
+
+ANNOT, LVCOV = annotations(P)
 # path -> (prior, weighted residual, its scan kernel, K1 launches per block-step)
 PATHS = {
     "BayesR": (ngt.BayesR(**PRIOR_R), False, "r_block_scan_v", 1),
     "BayesC": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), False, "bc_block_scan_v", 1),
     "BayesC+D": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), True, "bc_block_scan_wv", 2),
     "BayesPR": (ngt.BayesPR(9999, V_PR), False, "gauss_block_scan_v", 1),
+    "BayesRCpi": (ngt.BayesRCpi(annot=ANNOT, estimatePi=True, **PRIOR_RC), False,
+                  "rcpi_block_scan_v", 1),
+    "BayesRCplus": (ngt.BayesRCplus(annot=ANNOT, **PRIOR_RC), False, "rcplus_block_scan_v", 1),
+    "BayesLV": (ngt.BayesLV(V_LV, LVCOV, VZETA_LV), False, "gauss_block_scan_v", 1),
 }
+# Not a main path: BayesLV with a column of ones before its covariates. The
+# main path's design has none, so its log-variances are drawn around C c = 0
+# and var_beta settles at 1, a hundred times its start; this run shows what
+# the same sweep does when the design can carry the mean log-variance.
+LV_ONES = "BayesLV+1"
+EXTRA_PATHS = {LV_ONES: (ngt.BayesLV(V_LV, np.column_stack([np.ones(P), LVCOV]), VZETA_LV), False,
+                         "gauss_block_scan_v", 1)}
 # (path, V) -> EBV correlation limit; every other run prints its correlation
-EBV_LIMITS = {("BayesR", V_MAIN): 0.95, ("BayesC", 1): 0.95}
+EBV_LIMITS = {("BayesR", V_MAIN): 0.95, ("BayesC", 1): 0.95, ("BayesRCpi", 1): 0.95,
+              ("BayesLV", 1): 0.8, (LV_ONES, 1): 0.85}
+# (path, V) -> ceiling on the residual variance (the simulated one is 1): a
+# log-variance sweep that went wrong shows here before anywhere else
+VAR_E_LIMITS = {("BayesLV", 1): 10.0, (LV_ONES, 1): 3.0}
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12  # the H100 SXM data sheet's peaks
 TOL_PASS = 1e-5  # K1, K2: relative to the output's scale (f32 sums in another order)
 TOL_SCAN = 1e-4  # K3, K6, K8, K10: beta and u, relative to their scale; delta exact
 CDF_MARGIN = 1e-5  # K3 inputs keep every uniform this far from a CDF edge
 BC_MARGIN = 1e-4  # K8/K10 inputs keep every w this far (relative) from its threshold
+RC_MARGIN = 1e-4  # K12/K14 inputs keep every uniform this far from a CDF edge
 DEV = torch.device("cuda")
 
 
@@ -128,7 +168,7 @@ def simulate():
     weights = np.random.default_rng(3).uniform(0.5, 2.0, N)
 
     def spec_for(path):
-        prior, weighted = PATHS[path][:2]
+        prior, weighted = {**PATHS, **EXTRA_PATHS}[path][:2]
         return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))],
                              markers=[ngt.MarkerTerm("M1", md, prior)],
                              residual=ngt.RandomEffect(weights, 1.0) if weighted else None,
@@ -137,6 +177,25 @@ def simulate():
 
 
 # ------------------------------------------------------------------ phase 3
+
+
+def pass_work(rows, q):
+    """K1/K2 on a (rows, q) packed step: the packed bytes, the vector of 4q
+    floats and the rows floats (one read, one written); a multiply and an
+    add per genotype."""
+    return rows * q + 16 * q + 4 * rows, 2 * rows * 4 * q
+
+
+def scan_work(V, B, width, grams, out_words, rule_ops, diag=False):
+    """A V-batched scan over `grams` (B, V, B) float32 Gram steps and the
+    (V, B, width) coefficient rows, out_words 4-byte outputs per locus
+    written. u starts at 0 and u[j] is set only once locus j has run, so the
+    dot of locus j needs G[j, :j] alone: B(B-1)/2 Gram words per chain and
+    Gram, a multiply and an add for each, plus the B diagonal words where
+    the rule reads G[j, j] (diag: K14), and rule_ops per locus."""
+    tri = B * (B - 1) // 2
+    words = grams * tri + (B if diag else 0) + B * (width + out_words)
+    return 4 * V * words, V * (grams * 2 * tri + B * rule_ops)
 
 
 def locus_pre(gram_t, pk_t, u, slot):
@@ -198,7 +257,7 @@ class Step0:
         unif[glob] = torch.rand(glob.numel(), generator=gen, dtype=unif.dtype, device=DEV)
 
 
-def held_scan(name, report, kern, plain, make_rows, unif, gen, step, near, note):
+def held_scan(name, report, kern, plain, make_rows, unif, gen, step, near, work, note):
     """Redraw the uniforms of loci near a decision edge until none is, then
     hold the kernel against its plain version: delta exact, u and beta
     within TOL_SCAN of their scale."""
@@ -216,7 +275,7 @@ def held_scan(name, report, kern, plain, make_rows, unif, gen, step, near, note)
     check(e_u <= TOL_SCAN * s_u, f"{name}: u differs by {e_u:.3e} (scale {s_u:.3e})")
     e_b, s_b = rel_err(got[0], ref[0])
     report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20), median_ms(lambda: plain(pk_t), 3),
-           f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; {note}; delta exact, "
+           work, f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; {note}; delta exact, "
            f"counts {torch.bincount(got[2].reshape(-1)).tolist()})")
 
 
@@ -238,8 +297,129 @@ def big_gather(report):
     e, s = rel_err(got, pack2.matvec_plain(sl, y4))
     report("pack2_matvec_100k", e, s, TOL_PASS,
            median_ms(lambda: pack2.matvec_step(pk, 1, y4, ROWS_BIG), 20),
-           median_ms(lambda: pack2.matvec_plain(sl, y4), 5),
+           median_ms(lambda: pack2.matvec_plain(sl, y4), 5), pass_work(ROWS_BIG, q),
            f" ({ROWS_BIG} x {q} step, n = {N_BIG:,}; y {16 * q:,} bytes read from device memory)")
+
+
+def held_rc_scan(name, report, kern, plain, pk_t, slots, discrete, gen, work, note):
+    """K12/K14 against their plain versions. The plain version runs on the
+    rows, on the rows with every uniform (the `slots` of a row) lowered by
+    RC_MARGIN and on the rows with every uniform raised by it; a locus whose
+    discrete outputs differ between the three has a uniform within the
+    margin of a CDF edge, or follows one that has, and gets new uniforms.
+    When the three agree everywhere no uniform is near an edge (the draws
+    are monotone in the uniform, and equal draws give every later locus and
+    component the same edges), so the kernel's discrete outputs must be
+    exactly equal and its continuous ones within TOL_SCAN of their scale."""
+    V, B, _ = pk_t.shape
+
+    def shifted(d):
+        out = pk_t.clone()
+        out[:, :, slots] += d
+        return out
+
+    for _ in range(30):
+        ref = plain(pk_t)
+        close = torch.zeros((V, B), dtype=torch.bool, device=DEV)
+        for other in (plain(shifted(-RC_MARGIN)), plain(shifted(RC_MARGIN))):
+            for i in discrete:
+                close |= (ref[i] != other[i]).reshape(V, B, -1).any(-1)
+        if not close.any():
+            break
+        fresh = torch.rand((V, B, len(slots)), generator=gen, dtype=pk_t.dtype, device=DEV)
+        pk_t[:, :, slots] = torch.where(close[..., None], fresh, pk_t[:, :, slots])
+    check(not close.any(), f"{name}: could not keep the inputs away from decision edges")
+    got = kern(pk_t)
+    torch.cuda.synchronize()
+    errs = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if i in discrete:
+            check(torch.equal(g, r), f"{name}: discrete output {i} differs from the plain version")
+        else:
+            check(torch.isfinite(g).all().item(), f"{name}: output {i} is not finite")
+            e, sc = rel_err(g, r)
+            check(e <= TOL_SCAN * sc, f"{name}: output {i} differs by {e:.3e} (scale {sc:.3e})")
+            errs.append((i, e, sc))
+    (_, e_b, s_b), rest = errs[0], errs[1:]
+    others = "; ".join(f"output {i} max_abs_err {e:.3e} of scale {sc:.3e}" for i, e, sc in rest)
+    report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20),
+           median_ms(lambda: plain(pk_t), 3), work,
+           f" (beta; {others}; {note}; discrete outputs {list(discrete)} exact, delta counts "
+           f"{torch.bincount(got[2].reshape(-1)).tolist()})")
+    return pk_t, got
+
+
+def rc_kernels(spec_for, report, z):
+    """K12 and K14 at step t = 0 of the BayesRCpi model, a first sweep's
+    coefficients on the real data (both methods start from the same state);
+    then K12 with A = 8, K = 4 on the same Gram blocks, where a chain's rows
+    exceed a block's shared memory (the kernel holds two rows at a time)."""
+    plan, st = ngt.assemble(spec_for("BayesRCpi"), vshards=V_MAIN)
+    ms, mp = st.markers[0], plan.markers[0]
+    T, V, B, _ = ms.mt.shape
+    A, K = mp.n_annot, mp.n_classes
+    step = Step0(st)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    dt = st.ycorr.dtype
+    var_e = st.ycorr.var()
+    coef = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
+                mask=ms.mask.reshape(-1), ive=1.0 / var_e, var_e=var_e)
+    gram0 = ms.gram[0]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, dtype=dt, device=DEV)
+
+    def rcpi_rows(annot_input, aprob, anz, varc, logpi):
+        g1 = torch._standard_gamma(torch.clamp(annot_input, min=1e-6), generator=gen)
+        g2 = torch._standard_gamma(annot_input + 1.0, generator=gen)
+        check(torch.isfinite(g1).all().item() and torch.isfinite(g2).all().item(),
+              "gamma draws at shape 1e-6 are not finite")
+        return step.rows(gibbs_kernels.rcpi_block_pack(
+            ms.beta, z, rand(mp.p_pad), rand(mp.p_pad), g1, g2, aprob, anz, varc=varc,
+            logpi=logpi, **coef))
+
+    def rcpi(a, k, gram_t=(ms.gram, 0)):
+        return (lambda pk_t: gibbs_kernels.rcpi_block_scan_v(gram_t, pk_t, a, k),
+                lambda pk_t: gibbs_kernels.rcpi_block_scan_v_plain(gram0, pk_t, a, k))
+
+    varc = ms.var_beta[:, None] * ms.v_class[None, :]
+    _, got_pi = held_rc_scan(
+        "rcpi_block_scan_v", report, *rcpi(A, K),
+        rcpi_rows(ms.annot_input, ms.annot_prob, ms.annot_nz, varc, ms.log_pi), [2, 3], (2, 3),
+        gen, scan_work(V, B, 8 + 8 * A * K, 1, 4 + A, 12 * A * K), f"V={V}, B={B}, A={A}, K={K}")
+    on = ms.mask.view(V, T, B)[:, 0]
+    acat, aprob = got_pi[3], got_pi[4]
+    picked = ms.annot_nz.view(V, T, B, A)[:, 0].gather(-1, (acat.long() - 1).clamp(min=0)[..., None])
+    check((picked[..., 0] | ~on).all().item() and ((acat >= 1) | ~on).all().item(),
+          "rcpi_block_scan_v: an annotation that is zero on its locus was drawn")
+    check(((aprob.sum(-1) - 1.0).abs() < 1e-5)[on].all().item(),
+          "rcpi_block_scan_v: new annotation probabilities do not sum to 1")
+
+    pk_plus = step.rows(gibbs_kernels.rcplus_block_pack(
+        ms.beta, torch.randn((mp.p_pad, A), generator=gen, dtype=dt, device=DEV),
+        rand(mp.p_pad, A), ms.annot_nz, varc=varc, logpi=ms.log_pi, **coef))
+    held_rc_scan(
+        "rcplus_block_scan_v", report,
+        lambda pk_t: gibbs_kernels.rcplus_block_scan_v((ms.gram, 0), pk_t, A, K),
+        lambda pk_t: gibbs_kernels.rcplus_block_scan_v_plain(gram0, pk_t, A, K),
+        pk_plus, [8 + a * K for a in range(A)], (2, 3, 5), gen,
+        scan_work(V, B, 8 + 6 * A * K, 1, 3 + 3 * A, 14 * A * K, diag=True),
+        f"V={V}, B={B}, A={A}, K={K}")
+
+    A8, K8 = 8, 4
+    check(4 * B * (8 + 8 * A8 * K8) > gibbs_kernels.SMEM_BYTES, "A = 8, K = 4 rows fit shared memory")
+    anz8 = rand(mp.p_pad, A8) < 0.5
+    anz8[:, 0] = True
+    anz8 &= coef["mask"][:, None]
+    count = anz8.sum(-1, keepdim=True).to(dt)
+    logpi8 = torch.log(torch.tensor(PRIOR_R["pi"], dtype=dt, device=DEV)).expand(A8, K8)
+    varc8 = ms.var_beta[0] * torch.tensor(PRIOR_R["class_"], dtype=dt, device=DEV).expand(A8, K8)
+    held_rc_scan(
+        "rcpi_block_scan_v_wide", report, *rcpi(A8, K8),
+        rcpi_rows(anz8.to(dt), anz8 / count.clamp(min=1.0), anz8, varc8.contiguous(), logpi8.contiguous()),
+        [2, 3], (2, 3), gen, scan_work(V, B, 8 + 8 * A8 * K8, 1, 4 + A8, 12 * A8 * K8),
+        f"V={V}, B={B}, A={A8}, K={K8}: {4 * B * (8 + 8 * A8 * K8):,} bytes of rows per chain, "
+        f"more than shared memory holds")
 
 
 def kernels_phase(spec_for):
@@ -258,24 +438,33 @@ def kernels_phase(spec_for):
     sl = slice(rows, 2 * rows)  # step t = 1: a real offset into the panel
     out = {}
 
-    def report(name, err, scale, tol, ms_k, ms_p, note=""):
+    def report(name, err, scale, tol, ms_k, ms_p, work, note=""):
+        """work: (bytes moved with each input read and each output written
+        once, floating-point operations) of one call, from its shapes."""
+        t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / F32_FLOP_PER_S
+        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
         print(f"[3 kernels] {name}: max_abs_err {err:.3e} (scale {scale:.3e}, tol {tol:g} x scale), "
-              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms{note}")
+              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({work[0]:,} bytes, {work[1]:,} operations; no single PyTorch call computes "
+              f"it){note}")
         check(err <= tol * scale, f"{name} disagrees with its plain version")
-        out[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+        out[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
 
     e, s = rel_err(pack2.matvec_step(mt_rows, 1, y4, rows), pack2.matvec_plain(mt_rows[sl], y4))
     report("pack2_matvec", e, s, TOL_PASS,
            median_ms(lambda: pack2.matvec_step(mt_rows, 1, y4, rows), 20),
-           median_ms(lambda: pack2.matvec_plain(mt_rows[sl], y4), 5), f" ({rows} x {q} step)")
+           median_ms(lambda: pack2.matvec_plain(mt_rows[sl], y4), 5), pass_work(rows, q),
+           f" ({rows} x {q} step)")
     e, s = rel_err(pack2.rank_update_step(mt_rows, 1, u), pack2.rank_update_plain(mt_rows[sl], u))
     report("pack2_rank_update", e, s, TOL_PASS,
            median_ms(lambda: pack2.rank_update_step(mt_rows, 1, u), 20),
-           median_ms(lambda: pack2.rank_update_plain(mt_rows[sl], u), 5), f" ({rows} x {q} step)")
+           median_ms(lambda: pack2.rank_update_plain(mt_rows[sl], u), 5), pass_work(rows, q),
+           f" ({rows} x {q} step)")
     e, s = rel_err(pack2.rank_update(mt_rows, u_all), pack2.rank_update_plain(mt_rows, u_all))
     report("pack2_rank_update_panel", e, s, TOL_PASS,
            median_ms(lambda: pack2.rank_update(mt_rows, u_all), 20),
-           median_ms(lambda: pack2.rank_update_plain(mt_rows, u_all), 5),
+           median_ms(lambda: pack2.rank_update_plain(mt_rows, u_all), 5), pass_work(T * rows, q),
            f" ({T * rows} x {q} whole panel, serving)")
     big_gather(report)
 
@@ -296,7 +485,8 @@ def kernels_phase(spec_for):
         lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, K),
         lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc,
                                                         logpi=ms.log_pi, ive=ive, var_e=var_e)),
-        unif, gen, step, lambda pk_t, uu: cdf_near(gram0, pk_t, uu, K), f"V={V}, B={B}, K={K}")
+        unif, gen, step, lambda pk_t, uu: cdf_near(gram0, pk_t, uu, K),
+        scan_work(V, B, 8 + 4 * K, 1, 3, 10 * K), f"V={V}, B={B}, K={K}")
 
     ivb = torch.full_like(ms.beta, 1.0 / V_PR)
     pk_t = step.rows(gibbs_kernels.gauss_block_pack(torch.zeros_like(ms.beta), ms.beta, z, ivb,
@@ -310,7 +500,7 @@ def kernels_phase(spec_for):
     report("gauss_block_scan_v", e_b, s_b, TOL_SCAN,
            median_ms(lambda: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t), 20),
            median_ms(lambda: gibbs_kernels.gauss_block_scan_v_plain(gram0, pk_t), 3),
-           f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; V={V}, B={B})")
+           scan_work(V, B, 8, 1, 2, 4), f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; V={V}, B={B})")
 
     vb = torch.full_like(ms.beta, V_BC)
     lp0, lp1 = np.log(1.0 - PI_BC), np.log(PI_BC)
@@ -326,7 +516,8 @@ def kernels_phase(spec_for):
         lambda pk_t: gibbs_kernels.bc_block_scan_v((ms.gram, 0), pk_t),
         lambda pk_t: gibbs_kernels.bc_block_scan_v_plain(gram0, pk_t),
         lambda un: bc_rows(step, ms, un), unif, gen, step,
-        lambda pk_t, uu: bc_near(gram0, pk_t, uu, 0), f"V={V}, B={B}")
+        lambda pk_t, uu: bc_near(gram0, pk_t, uu, 0), scan_work(V, B, 8, 1, 3, 8),
+        f"V={V}, B={B}")
     del plan, st, step
 
     _, st_w = ngt.assemble(spec_for("BayesC+D"), vshards=V_MAIN)
@@ -338,8 +529,10 @@ def kernels_phase(spec_for):
         lambda pk_t: gibbs_kernels.bc_block_scan_wv((mw.gram, 0), (mw.gram_raw, 0), pk_t),
         lambda pk_t: gibbs_kernels.bc_block_scan_wv_plain(mw.gram[0], mw.gram_raw[0], pk_t),
         lambda un: bc_rows(step_w, mw, un, raw_diag), unif, gen, step_w,
-        lambda pk_t, uu: bc_near(mw.gram_raw[0], pk_t, uu, 7),
+        lambda pk_t, uu: bc_near(mw.gram_raw[0], pk_t, uu, 7), scan_work(V, B, 8, 2, 3, 8),
         f"V={V}, B={B}, weighted and raw Gram")
+    del st_w, mw, step_w
+    rc_kernels(spec_for, report, z)
     return out
 
 
@@ -348,8 +541,8 @@ def kernels_phase(spec_for):
 
 def slice_phase(path, spec, sig, card, V):
     """One path through run_lmem at full size, launch counts read from 0."""
-    _, _, scan, gathers = PATHS[path]
-    ebv_limit = EBV_LIMITS.get((path, V))
+    _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
+    ebv_limit, var_e_limit = EBV_LIMITS.get((path, V)), VAR_E_LIMITS.get((path, V))
     _cuda.reset_launches()
     res = ngt.run_lmem(spec, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, seed=7, vshards=V)
     launches = dict(_cuda.LAUNCHES)
@@ -368,6 +561,8 @@ def slice_phase(path, spec, sig, card, V):
     check(torch.isfinite(beta).all().item() and torch.isfinite(st.ycorr).all().item(),
           f"{path}: non-finite beta or ycorr")
     check(res.draws["betaM1"].shape == ((N_CHAIN - N_BURN) // N_THIN, P), f"{path}: draws shape")
+    bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
+    check(not bad, f"{path}: kept draws of {bad} are not finite")
     gv = ngt.genomic_values_state(plan, st)
     drift = ((st.ycorr - (st.y - st.fixed[0].b[0] - gv)).abs().max() / st.y.abs().max()).item()
 
@@ -382,14 +577,47 @@ def slice_phase(path, spec, sig, card, V):
     limit = "printed only" if ebv_limit is None else f"limit {ebv_limit}"
     print(f"[4 {path}] ycorr drift {drift:.3e} of max|y| (limit 1e-2); EBV corr over 2,048 "
           f"individuals {corr:.4f} from the posterior mean of {res.draws['betaM1'].shape[0]} kept "
-          f"draws ({limit}), {corr_draw:.4f} from the last draw; varE {st.e.var_e.item():.4f}; "
+          f"draws ({limit}), {corr_draw:.4f} from the last draw; varE {st.e.var_e.item():.4f}"
+          f"{'' if var_e_limit is None else f' (limit {var_e_limit})'}; "
           f"pi {None if pi is None else pi.tolist()}; var_beta[:4] "
           f"{st.markers[0].var_beta[:4].tolist()}")
     check(drift < 1e-2, f"{path}: ycorr drifted from y - Xb - Mc beta")
     check(ebv_limit is None or corr >= ebv_limit,
           f"{path}: EBV correlation with the planted signal below {ebv_limit}")
-    check(pi is None or abs(pi.sum().item() - 1.0) < 1e-5, f"{path}: pi does not sum to 1")
+    check(var_e_limit is None or st.e.var_e.item() <= var_e_limit,
+          f"{path}: varE {st.e.var_e.item():.4f} above {var_e_limit}")
+    check(pi is None or ((pi.sum(-1) - 1.0).abs() < 1e-5).all().item(),
+          f"{path}: pi does not sum to 1")
+    method_checks(path, plan.markers[0], st.markers[0], res)
     return launches, res
+
+
+def method_checks(path, mp, ms, res):
+    """What only the annotation and log-variance methods carry."""
+    if mp.method == "BayesRCpi":
+        acat, nz = ms.annot_cat[:mp.p].long(), ms.annot_nz[:mp.p]
+        check(((acat >= 1) & (acat <= mp.n_annot)).all().item(),
+              f"{path}: annot_cat outside 1..{mp.n_annot}")
+        check(nz.gather(1, (acat - 1).clamp(min=0)[:, None]).all().item(),
+              f"{path}: annot_cat points at an annotation that is zero on its locus")
+        rows = ms.annot_prob[:mp.p]
+        check(((rows.sum(-1) - 1.0).abs() < 1e-5).all().item() and (rows[~nz] == 0).all().item(),
+              f"{path}: annot_prob rows do not sum to 1 over the non-zero annotations")
+        print(f"[4 {path}] annot_cat counts {torch.bincount(acat)[1:].tolist()}, pi rows "
+              f"{ms.pi_hat.tolist()}, var_beta {ms.var_beta.tolist()}")
+        check(set(res.draws) >= {"piM1", "annotM1"}, f"{path}: draws lack pi or annot")
+    if mp.method == "BayesRCplus":
+        check(((ms.delta >= 0) & (ms.delta <= mp.n_classes)).all().item(), f"{path}: delta range")
+        print(f"[4 {path}] delta counts {torch.bincount(ms.delta[:mp.p]).tolist()}, var_beta "
+              f"{ms.var_beta.tolist()}")
+    if mp.method == "BayesLV":
+        vb = ms.var_beta[:mp.p]
+        check((torch.isfinite(vb) & (vb > 0)).all().item(), f"{path}: var_beta not finite and > 0")
+        check(torch.isfinite(ms.lv_c).all().item() and torch.isfinite(ms.log_var).all().item(),
+              f"{path}: c or log_var not finite")
+        print(f"[4 {path}] var_beta min {vb.min().item():.3e}, median {vb.median().item():.3e}, "
+              f"max {vb.max().item():.3e}; c {ms.lv_c.tolist()}; varZeta {ms.var_zeta.item():.4e}")
+        check(set(res.draws) >= {"cM1", "varZetaM1"}, f"{path}: draws lack c or varZeta")
 
 
 def timing_window(path, res, n_timed=50, n_sweeps=10):
@@ -444,11 +672,15 @@ def chain_phase():
     g = rng.integers(0, 3, (n, p))
     y = (g - g.mean(0)) @ rng.normal(0, 0.1, p) + rng.normal(0, 1, n)
     weights = rng.uniform(0.5, 2.0, n)
+    annot, lvcov = annotations(p)
     methods = {"BayesR": (ngt.BayesR(**PRIOR_R), False),
                "BayesB": (ngt.BayesB(PI_BC, V_BC, estimatePi=True), False),
                "BayesC": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), False),
                "BayesC+D": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), True),
-               "BayesPR": (ngt.BayesPR(9999, V_PR), False)}
+               "BayesPR": (ngt.BayesPR(9999, V_PR), False),
+               "BayesRCpi": (ngt.BayesRCpi(annot=annot, estimatePi=True, **PRIOR_RC), False),
+               "BayesRCplus": (ngt.BayesRCplus(annot=annot, **PRIOR_RC), False),
+               "BayesLV": (ngt.BayesLV(V_LV, lvcov, VZETA_LV), False)}
 
     for name, (prior, weighted) in methods.items():
         spec = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))],
@@ -456,25 +688,39 @@ def chain_phase():
                              residual=ngt.RandomEffect(weights, 1.0) if weighted else None,
                              block_size=block)
 
-        def run(device, V):
-            plan, st = ngt.assemble(spec, device=device, dtype=torch.float32, vshards=V)
-            sweep, draws = ngt.make_sweep(plan), HostStream(11, device)
-            for _ in range(sweeps):
+        def run(device, V, n_sweeps=sweeps, dtype=torch.float32):
+            plan, st = ngt.assemble(spec, device=device, dtype=dtype, vshards=V)
+            sweep, draws = ngt.make_sweep(plan), HostStream(11, device, dtype)
+            for _ in range(n_sweeps):
                 st = sweep(st, draws)
-            return st.markers[0].beta.cpu().numpy(), st.ycorr.cpu().numpy()
+            m = st.markers[0]
+            return (m.beta.cpu().numpy(), st.ycorr.cpu().numpy(),
+                    None if m.log_var is None else m.log_var.cpu().numpy(), st.e.var_e.item())
 
         for V in (1, 4):
-            bk, yk = run(DEV, V)
-            bp, yp = run("cpu", V)
+            bk, yk = run(DEV, V)[:2]
+            bp, yp = run("cpu", V)[:2]
             cb, cy = np.corrcoef(bk, bp)[0, 1], np.corrcoef(yk, yp)[0, 1]
             dy = np.abs(yk - yp).max() / np.abs(yp).max()
-            bk2, _ = run(DEV, V)
+            bk2 = run(DEV, V)[0]
             print(f"[5 chain] {name} V={V}: corr(beta) {cb:.6f}, corr(ycorr) {cy:.6f}, "
                   f"max|dycorr|/scale {dy:.3e} (limits 0.999, 0.999, 0.05); two kernel runs "
                   f"{'bit-identical' if np.array_equal(bk, bk2) else 'DIFFER'}")
             check(cb > 0.999 and cy > 0.999 and dy < 0.05,
                   f"kernel chain departs from plain chain, {name} V={V}")
             check(np.array_equal(bk, bk2), f"two kernel runs from one seed differ, {name} V={V}")
+        if name == "BayesLV":
+            # float32 on the card against float64 on the CPU over a longer chain: the
+            # powers, exponentials and logarithms of the variance draw lose nothing
+            # that matters in float32, also where the V=4 schedule inflates varE
+            for V in (1, 4):
+                k32, p64 = run(DEV, V, 20), run("cpu", V, 20, torch.float64)
+                cb, cv = (np.corrcoef(a, b)[0, 1] for a, b in zip(k32[::2], p64[::2]))
+                print(f"[5 chain] BayesLV V={V}, 20 sweeps, float32 kernels against float64 plain: "
+                      f"corr(beta) {cb:.6f}, corr(log_var) {cv:.6f} (limits 0.999); varE "
+                      f"{k32[3]:.4f} against {p64[3]:.4f} (limit 1e-3 relative)")
+                check(cb > 0.999 and cv > 0.999 and abs(k32[3] / p64[3] - 1.0) < 1e-3,
+                      f"BayesLV V={V}: the float32 kernel chain departs from the float64 plain chain")
 
 
 SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
@@ -487,26 +733,37 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                         "nextgp_tpu/ops/gibbs_kernels.py:422"),
     "bc_block_scan_wv": ("nextgp_tpu_torch/csrc/gauss_bc_scan.cu",
                          "nextgp_tpu/ops/gibbs_kernels.py:457"),
+    "rcpi_block_scan_v": ("nextgp_tpu_torch/csrc/rc_scan.cu",
+                          "nextgp_tpu/ops/gibbs_kernels.py:718"),
+    "rcplus_block_scan_v": ("nextgp_tpu_torch/csrc/rc_scan.cu",
+                            "nextgp_tpu/ops/gibbs_kernels.py:952"),
 }
 
 
 def main():
+    t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     spec_for, sig = simulate()
     timings = kernels_phase(spec_for)
-    launches = {name: 0 for name in SOURCES}  # summed over the V=96 paths
+    by_path = {name: {} for name in SOURCES}  # kernel -> {V=96 path: launches in its run_lmem}
     for path in PATHS:
         counted, res = slice_phase(path, spec_for(path), sig, card, V_MAIN)
         for name in SOURCES:
-            launches[name] += counted[name]
+            if counted[name]:
+                by_path[name][path] = counted[name]
         timing_window(path, res)
         del res
-    for path in ("BayesC", "BayesC+D", "BayesPR"):
+    for path in ("BayesC", "BayesC+D", "BayesPR", "BayesRCpi", "BayesRCplus", "BayesLV"):
         slice_phase(path, spec_for(path), sig, card, 1)
+    # BayesLV between the two schedules, and with a column of ones in its design
+    for path, V in (("BayesLV", 8), ("BayesLV", 32), (LV_ONES, V_MAIN), (LV_ONES, 1)):
+        slice_phase(path, spec_for(path), sig, card, V)
     chain_phase()
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=sum(by_path[name].values()), launches_by_path=by_path[name],
                     **timings[name]) for name, (src, rep) in SOURCES.items()]
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,19 @@
 """nextgp_tpu_torch: the PyTorch/CUDA port of nextgp_tpu.
 
 The slices ported so far: residual (plain "I" or weighted "D") + fixed
-effects + BayesPR, BayesB, BayesC and BayesR marker sets, genotypes stored
-2-bit planar-packed, V-batched block schedule. The packed passes and the
+effects + the seven marker methods (BayesPR, BayesB, BayesC, BayesR, the
+annotation samplers BayesRCpi and BayesRCplus, and BayesLV) with summary
+statistics, genotypes stored 2-bit planar-packed, V-batched block schedule. The packed passes and the
 in-block scans run through hand-written CUDA kernels for Hopper (csrc/,
 built with nvcc at first use) on CUDA tensors and through their plain
 PyTorch versions on CPU tensors. The JAX package `nextgp_tpu`
 is the reference the port is held to; this package never imports it or
 jax.
 """
-from .api.priors import BayesB, BayesC, BayesPR, BayesR, RandomEffect  # noqa: F401
+from .api.priors import (  # noqa: F401
+    BayesB, BayesC, BayesLV, BayesPR, BayesR, BayesRCpi, BayesRCplus, RandomEffect,
+    SummaryStatistics,
+)
 from .api.spec import FixedTerm, MarkerTerm, ModelSpec  # noqa: F401
 from .data.ingest import MarkerData, from_array, from_packed  # noqa: F401
 from .engine.plan import assemble  # noqa: F401

@@ -1,7 +1,8 @@
 """Prior constructors the port supports, as plain dataclasses.
 
-Copies of `nextgp_tpu.api.priors.BayesPR`, `BayesB`, `BayesC`, `BayesR` and
-`RandomEffect` with the same field names and defaults
+Copies of `nextgp_tpu.api.priors.BayesPR`, `BayesB`, `BayesC`, `BayesR`,
+`BayesRCpi`, `BayesRCplus`, `BayesLV`, `RandomEffect`, `SummaryStatistics`
+and `normalize_annot` with the same field names and defaults
 (tests/test_torch_guards.py holds them to the originals). They are copied
 rather than imported because importing any `nextgp_tpu` submodule runs
 `nextgp_tpu/__init__.py`, which imports jax.
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Sequence, Union
+
+import numpy as np
 
 ArrayLike = Any
 
@@ -71,6 +74,53 @@ class BayesR:
 
 
 @dataclasses.dataclass(frozen=True)
+class BayesRCpi:
+    """BayesR with SNP annotations; the annotation category is sampled per
+    locus (runTime.jl:95-112; sampler functions.jl:291-360)."""
+
+    pi: Sequence[float]
+    class_: Sequence[float]
+    v: float
+    annot: ArrayLike  # (nSNP, nAnnot) 0/1
+    estimatePi: bool = False
+    name: str = "BayesRCpi"
+
+
+@dataclasses.dataclass(frozen=True)
+class BayesRCplus:
+    """BayesR with SNP annotations; every non-zero annotation contributes an
+    additive effect component (runTime.jl:113; sampler functions.jl:362-419)."""
+
+    pi: Sequence[float]
+    class_: Sequence[float]
+    v: float
+    annot: ArrayLike
+    estimatePi: bool = False
+    name: str = "BayesRCplus"
+
+
+@dataclasses.dataclass(frozen=True)
+class BayesLV:
+    """Log-linear variance model: log sigma2_j = C_j c + zeta_j
+    (runTime.jl:116-133; sampler functions.jl:421-486).
+
+    covariates: the variance-model design, a prebuilt (nSNP, k) matrix used
+    raw (no centering). The JAX package also takes an R-style formula
+    string built against `covariate_table`; the port raises
+    NotImplementedError for that form until the formula front end is ported.
+    estimateVarZeta: False = keep varZeta fixed; True = varZeta <- var(resid);
+    float f = varZeta <- f * var(logVar)  (functions.jl:479-485).
+    """
+
+    v: float
+    covariates: ArrayLike
+    varZeta: float
+    estimateVarZeta: Union[bool, float] = False
+    name: str = "BayesLV"
+    covariate_table: Any = None  # the table a formula string is built against
+
+
+@dataclasses.dataclass(frozen=True)
 class RandomEffect:
     """Prior for a non-marker random effect or the residual
     (NextGP.jl runTime.jl:135-146). The port uses it for the residual
@@ -83,3 +133,20 @@ class RandomEffect:
     type: int = 1
     name: str = "Random"
     sampler: str = "scan"
+
+
+@dataclasses.dataclass(frozen=True)
+class SummaryStatistics:
+    """External (GWAS) summary-statistic prior offsets (runTime.jl:149-152),
+    folded into per-effect lhs/rhs as 1/v and m/v (mme.jl:144-147, 313-322),
+    with Inf/NaN guards for v == 0 entries on marker sets."""
+
+    m: ArrayLike
+    v: ArrayLike
+
+
+def normalize_annot(annot) -> np.ndarray:
+    a = np.asarray(annot)
+    if a.ndim != 2:
+        raise ValueError("annot must be (nSNP, nAnnot)")
+    return a.astype(np.int32)

@@ -2,8 +2,10 @@
 
 Counterpart of `nextgp_tpu/engine/plan.py:assemble` for the terms the port
 carries: the residual ("I", or weighted "D" from a weight vector),
-fixed-effect blocks, and BayesPR, BayesB, BayesC and BayesR marker sets
-stored 2-bit planar-packed in the (T, V, B, q) layout of engine/state.py.
+fixed-effect blocks, marker sets of all seven methods (BayesPR, BayesB,
+BayesC, BayesR, BayesRCpi, BayesRCplus, BayesLV with a covariate matrix)
+stored 2-bit planar-packed in the (T, V, B, q) layout of engine/state.py,
+and summary-statistic offsets on single fixed columns and marker sets.
 Defaults follow the JAX package (and NextGP.jl's mme.jl): residual df 4 and
 scale v*(df-2)/df with the 0.0005 zero-variance guard; marker df 3 + 1; a
 marker set without a prior is BayesPR(9999, 0.05); multi-column fixed
@@ -32,7 +34,9 @@ METHOD_PR = "BayesPR"
 METHOD_B = "BayesB"
 METHOD_C = "BayesC"
 METHOD_R = "BayesR"
-_NOT_PORTED = ("BayesRCpi", "BayesRCplus", "BayesLV")
+METHOD_RCPI = "BayesRCpi"
+METHOD_RCPLUS = "BayesRCplus"
+METHOD_LV = "BayesLV"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +56,16 @@ class MarkerPlan:
     n_blocks: int
     n_var: int  # len(var_beta)
     n_regions: int  # BayesPR region count (== n_var)
-    n_classes: int  # 0 for BayesPR, 2 for B/C, K for R
+    n_classes: int  # 0 for BayesPR/LV, 2 for B/C, K for R/RCpi/RCplus
     est_pi: bool
     df: float
     weighted: bool
     # V block chains advance per block-step; chain v owns the contiguous
     # blocks [v*T, (v+1)*T). V=1 is the reference-sequential order.
     vshards: int = 1
+    n_annot: int = 0  # annotations A (BayesRCpi/RCplus)
+    n_lv_cov: int = 0  # columns of BayesLV's variance-model design
+    est_var_zeta: Union[bool, float] = False  # BayesLV: False | True | float
     # BayesPR's region sums without float atomics: the loci < p in a stable
     # order grouped by region, and each region's size (constant)
     region_order: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
@@ -76,12 +83,36 @@ class SweepPlan:
     device: torch.device
 
 
-def _build_fixed(term_mats, name, d_inv, dtype, device):
+def _ss_offsets(k, ss):
+    """Summary-statistic lhs/rhs offsets 1/v and m/v (mme.jl:144-147)."""
+    lhs = np.zeros(k)
+    rhs = np.zeros(k)
+    if ss is not None:
+        v = np.asarray(ss.v, dtype=np.float64)
+        m = np.asarray(ss.m, dtype=np.float64)
+        v = np.diag(v) if v.ndim == 2 else np.broadcast_to(v, (k,))
+        m = np.broadcast_to(m, (k,))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lhs = 1.0 / v
+            rhs = lhs * m
+    return lhs, rhs
+
+
+def _marker_ss_offsets(k, ss):
+    """Marker variant with the Inf/NaN guards for v == 0 (mme.jl:319-321)."""
+    lhs, rhs = _ss_offsets(k, ss)
+    lhs[np.isinf(lhs)] = 0.0
+    rhs[np.isnan(rhs)] = 0.0
+    return lhs, rhs
+
+
+def _build_fixed(term_mats, name, d_inv, ss, dtype, device):
     """Cross-products + jitter for one fixed block (mme.jl:132-153)."""
     x = np.concatenate(list(term_mats), axis=1)
     k = x.shape[1]
     xp = (x * d_inv[:, None]).T if d_inv is not None else x.T
     xpx = xp @ x
+    lhs, rhs = _ss_offsets(k, ss)
     if k > 1:  # the reference jitters only a Matrix xpx (mme.jl:149-152)
         xpx = xpx + np.eye(k) * np.min(np.abs(np.diag(xpx))) / 10000.0
 
@@ -89,7 +120,7 @@ def _build_fixed(term_mats, name, d_inv, dtype, device):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     st = FixedState(x=dev(x), xp=dev(np.ascontiguousarray(xp)), xpx=dev(xpx),
-                    lhs_ss=dev(np.zeros(k)), rhs_ss=dev(np.zeros(k)), b=dev(np.zeros(k)))
+                    lhs_ss=dev(lhs), rhs_ss=dev(rhs), b=dev(np.zeros(k)))
     return st, FixedPlan(name=name, k=k, single=(k == 1))
 
 
@@ -106,12 +137,13 @@ def _scale_for(v, df):
 def _method_of(prior, name):
     if prior is None or isinstance(prior, P.BayesPR):
         return METHOD_PR
-    for cls, method in ((P.BayesB, METHOD_B), (P.BayesC, METHOD_C), (P.BayesR, METHOD_R)):
+    for cls, method in ((P.BayesB, METHOD_B), (P.BayesC, METHOD_C), (P.BayesR, METHOD_R),
+                        (P.BayesRCpi, METHOD_RCPI), (P.BayesRCplus, METHOD_RCPLUS),
+                        (P.BayesLV, METHOD_LV)):
         if isinstance(prior, cls):
             return method
-    kind = type(prior).__name__
-    what = "is not ported yet" if kind in _NOT_PORTED else "is not a marker prior"
-    raise NotImplementedError(f"marker set {name}: prior {kind} {what}")
+    raise NotImplementedError(
+        f"marker set {name}: prior {type(prior).__name__} is not a marker prior")
 
 
 def _resolve_vshards(vshards, nb, name):
@@ -176,7 +208,30 @@ def _region_segments(info, device):
             torch.as_tensor(info.sizes, dtype=torch.int64, device=device))
 
 
-def _build_marker(term: MarkerTerm, d_inv, block, dtype, device, vshards):
+def _pad_rows(a, p_pad):
+    """(p, ...) -> (p_pad, ...), zero rows on the padded loci."""
+    pad = p_pad - a.shape[0]
+    return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]) if pad else a
+
+
+def _lv_design(prior, p, name):
+    """BayesLV's (p, kC) variance-model design from a covariate matrix."""
+    if isinstance(prior.covariates, str):
+        raise NotImplementedError(
+            f"marker set {name}: BayesLV covariates given as a formula string need the "
+            "formula front end (ROADMAP M12), which is not ported yet; pass the (nSNP, k) "
+            "design matrix")
+    C = np.asarray(prior.covariates, dtype=np.float64)
+    if C.ndim == 1:
+        C = C[:, None]
+    if C.shape[0] != p:
+        raise ValueError("BayesLV covariates must have nSNP rows")
+    return C
+
+
+def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rng):
+    """rng: the host generator BayesLV's starting c and residuals come from
+    (the reference draws them from its global RNG, mme.jl:429-430)."""
     md, prior = term.data, term.prior
     method = _method_of(prior, term.name)
     if prior is not None and np.ndim(prior.v) > 0:
@@ -220,18 +275,24 @@ def _build_marker(term: MarkerTerm, d_inv, block, dtype, device, vshards):
     region_id = np.zeros(p_pad, np.int32)
     order = lengths = None
     log_pi = pi_hat = v_class = None
-    n_classes = 0
+    n_classes = n_annot = n_lv_cov = 0
+    est_var_zeta = False
+    extra = {}  # the annotation or log-variance fields of the state
     if method == METHOD_PR:
         info = build_regions(p, prior.r if prior is not None else 9999, md.chr_ids)
         region_id = np.concatenate([info.region_id, np.full(pad, info.n_regions, np.int32)])
         n_var = info.n_regions
         var_beta = np.full(n_var, v0)
         order, lengths = _region_segments(info, device)
-    elif method == METHOD_B:
+    elif method in (METHOD_B, METHOD_LV):
         region_id = np.arange(p_pad, dtype=np.int32)
         n_var = p_pad
         var_beta = np.zeros(p_pad)
         var_beta[:p] = v0
+    elif method in (METHOD_RCPI, METHOD_RCPLUS):
+        annot = P.normalize_annot(prior.annot).astype(np.float64)
+        n_var = n_annot = annot.shape[1]
+        var_beta = np.full(n_annot, v0)
     else:
         n_var = 1
         var_beta = np.full(1, v0)
@@ -245,12 +306,45 @@ def _build_marker(term: MarkerTerm, d_inv, block, dtype, device, vshards):
         log_pi, pi_hat = np.log(pi), pi
         v_class = np.asarray(prior.class_, dtype=np.float64)
         n_classes = len(v_class)
+    elif method in (METHOD_RCPI, METHOD_RCPLUS):
+        pi = np.asarray(prior.pi, dtype=np.float64)
+        v_class = np.asarray(prior.class_, dtype=np.float64)
+        n_classes = len(v_class)
+        log_pi = np.tile(np.log(pi), (n_annot, 1))
+        pi_hat = np.tile(pi, (n_annot, 1))
+        with np.errstate(invalid="ignore"):
+            ap = annot / annot.sum(axis=1, keepdims=True)
+        annot_input = _pad_rows(annot, p_pad)
+        extra = dict(annot_input=annot_input, annot_prob=_pad_rows(ap, p_pad),
+                     annot_nz=torch.as_tensor(annot_input != 0, device=device),
+                     annot_cat=torch.zeros(p_pad, dtype=torch.int32, device=device))
+    elif method == METHOD_LV:
+        C = _lv_design(prior, p, term.name)
+        n_lv_cov = C.shape[1]
+        icpc = C.T @ C
+        if n_lv_cov > 1:
+            icpc += np.eye(n_lv_cov) * np.min(np.abs(np.diag(icpc))) / 10000.0
+        icpc = np.linalg.inv(icpc)
+        log_var = np.full(p_pad, np.log(v0))
+        log_var[p:] = 0.0
+        lv_c = rng.uniform(size=n_lv_cov)
+        lv_resid = np.zeros(p_pad)
+        lv_resid[:p] = rng.uniform(size=p)
+        extra = dict(log_var=log_var, lv_design=_pad_rows(C, p_pad), lv_icpc=icpc,
+                     lv_icpc_chol=np.linalg.cholesky((icpc + icpc.T) / 2.0), lv_c=lv_c,
+                     lv_resid=lv_resid, var_zeta=float(prior.varZeta))
+        est_var_zeta = prior.estimateVarZeta
+        if isinstance(est_var_zeta, np.floating):
+            est_var_zeta = float(est_var_zeta)
 
+    lhs_ss, rhs_ss = _marker_ss_offsets(p, ss)
     mask = torch.zeros(p_pad, dtype=torch.bool, device=device)
     mask[:p] = True
 
     def dev(a):
-        return None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+        if a is None or (isinstance(a, torch.Tensor) and not a.is_floating_point()):
+            return a  # absent, or already placed (bool and int fields)
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
     ms = MarkerState(
         mt=mt,
@@ -258,8 +352,8 @@ def _build_marker(term: MarkerTerm, d_inv, block, dtype, device, vshards):
         gram=locus_major(gram_flat),
         gram_raw=None if raw_flat is None else locus_major(raw_flat),
         mpm=mpm.reshape(nb, block).contiguous(),
-        lhs_ss=torch.zeros((nb, block), dtype=dtype, device=device),
-        rhs_ss=torch.zeros((nb, block), dtype=dtype, device=device),
+        lhs_ss=dev(_pad_rows(lhs_ss, p_pad)).reshape(nb, block),
+        rhs_ss=dev(_pad_rows(rhs_ss, p_pad)).reshape(nb, block),
         mask=mask.reshape(nb, block),
         region_id=torch.as_tensor(region_id, device=device),
         beta=torch.zeros(p_pad, dtype=dtype, device=device),
@@ -269,12 +363,14 @@ def _build_marker(term: MarkerTerm, d_inv, block, dtype, device, vshards):
         log_pi=dev(log_pi),
         pi_hat=dev(pi_hat),
         v_class=dev(v_class),
+        **{k: dev(v) for k, v in extra.items()},
     )
     mp = MarkerPlan(
         name=term.name, method=method, p=p, p_pad=p_pad, block=block, n_blocks=nb,
         n_var=n_var, n_regions=n_var, n_classes=n_classes,
         est_pi=bool(getattr(prior, "estimatePi", False)), df=df, weighted=d_inv is not None,
-        vshards=V, region_order=order, region_len=lengths,
+        vshards=V, n_annot=n_annot, n_lv_cov=n_lv_cov, est_var_zeta=est_var_zeta,
+        region_order=order, region_len=lengths,
     )
     return ms, mp
 
@@ -297,10 +393,7 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
         raise NotImplementedError(f"random term {t.name}: random effects are not ported yet")
     for t in spec.corr_markers:
         raise NotImplementedError(f"correlated marker sets {t.names}: not ported yet")
-    if spec.summary_stats:
-        raise NotImplementedError(
-            f"summary statistics on {list(spec.summary_stats)}: not ported yet")
-
+    rng = np.random.default_rng(20240509)  # the JAX planner's host generator and seed
     y = np.asarray(spec.y, dtype=np.float64).ravel()
     res_prior = spec.residual or P.RandomEffect("I", 100.0)
     d_inv = None
@@ -318,22 +411,38 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
     blocked = set()
     by_name = {t.name: t for t in spec.fixed}
     for blk in spec.blocks:
-        st, fp = _build_fixed([by_name[nm].matrix() for nm in blk], tuple(blk), d_inv, dtype,
-                              device)
+        st, fp = _build_fixed([by_name[nm].matrix() for nm in blk], tuple(blk), d_inv,
+                              spec.summary_stats.get(tuple(blk)), dtype, device)
         fixed_states.append(st)
         fixed_plans.append(fp)
         blocked.update(blk)
     for t in spec.fixed:
         if t.name not in blocked:
-            st, fp = _build_fixed([t.matrix()], t.name, d_inv, dtype, device)
+            st, fp = _build_fixed([t.matrix()], t.name, d_inv, spec.summary_stats.get(t.name),
+                                  dtype, device)
             fixed_states.append(st)
             fixed_plans.append(fp)
 
     marker_states, marker_plans = [], []
     for t in spec.markers:
-        st, mp = _build_marker(t, d_inv, block_size or spec.block_size, dtype, device, vshards)
+        st, mp = _build_marker(t, d_inv, spec.summary_stats.get(t.name),
+                               block_size or spec.block_size, dtype, device, vshards, rng)
         marker_states.append(st)
         marker_plans.append(mp)
+
+    # Keys that nothing consumed: single fixed columns and marker sets use
+    # their offsets (mme.jl:144-147, 316-322); multi-column blocks ignore
+    # them in the reference too (sampleb!, functions.jl:22-36). Warn, as the
+    # JAX package does, so that such a prior is not silently a no-op.
+    if spec.summary_stats:
+        consumed = {t.name for t in spec.markers} | {fp.name for fp in fixed_plans if fp.k == 1}
+        dead = [k for k in spec.summary_stats if k not in consumed]
+        if dead:
+            warnings.warn(
+                f"SummaryStatistics attached to {dead} are not consumed: the reference applies "
+                "them only to single-column fixed effects and marker sets (its multi-column "
+                "sampleb! never reads the stored offsets); this engine mirrors that behavior.",
+                stacklevel=2)
 
     y_dev = torch.as_tensor(y, dtype=dtype, device=device)
     state = ModelState(

@@ -88,19 +88,21 @@ class PhiloxStream:
 
 class HostStream:
     """Draws made on the host by a float32 CPU PhiloxStream and copied to
-    `device`. A chain on the card and a chain on the CPU that each take a
-    HostStream of one seed see the same numbers, which is how a kernel chain
-    is compared with the plain chain."""
+    `device` as `dtype`. A chain on the card and a chain on the CPU that each
+    take a HostStream of one seed see the same numbers, which is how a kernel
+    chain is compared with the plain chain, in float32 or (the same float32
+    draws widened) in float64."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, dtype=torch.float32):
         self.cpu = PhiloxStream(seed, "cpu", torch.float32)
         self.device = torch.device(device)
+        self.dtype = dtype
 
     def normal(self, site, shape):
-        return self.cpu.normal(site, shape).to(self.device)
+        return self.cpu.normal(site, shape).to(self.device, self.dtype)
 
     def uniform(self, site, shape):
-        return self.cpu.uniform(site, shape).to(self.device)
+        return self.cpu.uniform(site, shape).to(self.device, self.dtype)
 
     def gamma(self, site, alpha):
-        return self.cpu.gamma(site, alpha.cpu()).to(self.device)
+        return self.cpu.gamma(site, alpha.cpu().float()).to(self.device, self.dtype)

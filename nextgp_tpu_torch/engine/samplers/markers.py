@@ -1,16 +1,18 @@
-"""Blocked single-site Gibbs for marker effects: BayesPR, BayesB, BayesC
-and BayesR, with a plain or a weighted ("D") residual
-(sampleBayesPR!/B!/C!/R!, NextGP.jl functions.jl:118-289).
+"""Blocked single-site Gibbs for marker effects: BayesPR, BayesB, BayesC,
+BayesR, BayesRCpi, BayesRCplus and BayesLV, with a plain or a weighted ("D")
+residual (sampleBayesPR!/B!/C!/R!/RCpi!/RCplus!/LV!, NextGP.jl
+functions.jl:118-486).
 
 Counterpart of `nextgp_tpu/engine/samplers/markers.py` (`_blocked_sweep`,
-`_gauss_effect_sweep`, `_sweep_pr`, `_sweep_bc`, `_sweep_r`,
-`sample_marker_set`) for packed storage and the one (T, V, B, q) layout.
+`_gauss_effect_sweep`, `_sweep_pr`, `_sweep_bc`, `_sweep_r`, `_sweep_rcpi`,
+`_sweep_rcplus`, `_sweep_lv`, `sample_marker_set`) for packed storage and
+the one (T, V, B, q) layout.
 Each block-step t touches the residual through the packed passes of
 ops/pack2.py:
 
     r0 = Mc_t @ (d_inv * ycorr)  (gather, K1; d_inv = 1 unweighted)
     r0_raw = Mc_t @ ycorr        (a second gather, weighted B/C only)
-    scan the V blocks' B loci    (ops/gibbs_kernels, K3 / K6 / K8 / K10)
+    scan the V blocks' B loci    (ops/gibbs_kernels, K3 / K6 / K8 / K10 / K12 / K14)
     ycorr += u @ Mc_t            (scatter, K2)
 
 and the in-block chain stays exact through the centered Gram blocks (see
@@ -32,7 +34,9 @@ import torch
 from ...ops import gibbs_kernels, pack2
 from ...ops.dists import sample_beta_dist, sample_chi2, sample_dirichlet
 from ...utils import replace
-from ..plan import METHOD_B, METHOD_C, METHOD_PR, METHOD_R, MarkerPlan
+from ..plan import (
+    METHOD_B, METHOD_C, METHOD_LV, METHOD_PR, METHOD_R, METHOD_RCPI, METHOD_RCPLUS, MarkerPlan,
+)
 
 
 def _padded(v, n4):
@@ -44,12 +48,13 @@ def _padded(v, n4):
 def _blocked_sweep(ms, ycorr, pk, scan, d_inv=None, need_raw=False):
     """Run every block-step of one marker set.
 
-    pk: (p_pad, 8 or 8 + 4K) per-locus coefficient rows in global locus
-    order. scan(t, pk_t) runs step t's V blocks and returns (beta (V, B),
-    u (V, B), delta (V, B) int32 or None). d_inv: (n,) inverse residual
-    weights of a weighted model; need_raw adds the raw r0 to slot 7 of the
-    rows (weighted B/C). Returns (ycorr, beta (p_pad,), delta (p_pad,) or
-    None) with beta and delta in global flat locus order.
+    pk: (p_pad, W) per-locus coefficient rows in global locus order.
+    scan(t, pk_t) runs step t's V blocks and returns (beta (V, B), u (V, B),
+    *more), each further output (V, B, ...) per locus (delta, and what the
+    annotation scans add). d_inv: (n,) inverse residual weights of a
+    weighted model; need_raw adds the raw r0 to slot 7 of the rows
+    (weighted B/C). Returns (ycorr, beta (p_pad,), more) with beta and every
+    further output (p_pad, ...) in global flat locus order.
     """
     T, V, B, q = ms.mt.shape
     n = ycorr.shape[0]
@@ -60,7 +65,7 @@ def _blocked_sweep(ms, ycorr, pk, scan, d_inv=None, need_raw=False):
     # (nb, B, W) in global block order g = v*T + t  ->  per step (V, B, W)
     pk_g = pk.view(V, T, B, -1)
     beta = torch.empty((V, T, B), dtype=ycorr.dtype, device=ycorr.device)
-    delta = None
+    more = None
 
     def gather(t, yv, cb):
         return pack2.matvec_step(mt_rows, t, pack2.y_planar(yv), rows).view(V, B) - cb * yv.sum()
@@ -71,15 +76,15 @@ def _blocked_sweep(ms, ycorr, pk, scan, d_inv=None, need_raw=False):
         pk_t[:, :, 0] += gather(t, y if dw is None else dw * y, cb)
         if need_raw and dw is not None:
             pk_t[:, :, 7] += gather(t, y, cb)
-        beta_t, u, delta_t = scan(t, pk_t)
+        beta_t, u, *more_t = scan(t, pk_t)
         corr = pack2.rank_update_step(mt_rows, t, u.reshape(-1)).reshape(-1) - (u * cb).sum()
         y[:n] += corr[:n]  # the padded entries stay zero
         beta[:, t] = beta_t
-        if delta_t is not None:
-            if delta is None:
-                delta = torch.empty((V, T, B), dtype=torch.int32, device=ycorr.device)
-            delta[:, t] = delta_t
-    return y[:n], beta.reshape(-1), None if delta is None else delta.reshape(-1)
+        if more is None:
+            more = [x.new_empty((V, T) + x.shape[1:]) for x in more_t]
+        for buf, x in zip(more, more_t):
+            buf[:, t] = x
+    return y[:n], beta.reshape(-1), tuple(x.reshape((V * T * B,) + x.shape[3:]) for x in more)
 
 
 def _gram_raw_diag(ms):
@@ -109,7 +114,7 @@ def _gauss_effect_sweep(ms, mp: MarkerPlan, ycorr, var_e, d_inv, z, ivb_locus):
         ms.lhs_ss.reshape(-1), ms.rhs_ss.reshape(-1), ms.mask.reshape(-1), ive)
 
     def scan(t, pk_t):
-        return (*gibbs_kernels.gauss_block_scan_v((ms.gram, t), pk_t), None)
+        return gibbs_kernels.gauss_block_scan_v((ms.gram, t), pk_t)
 
     ycorr, beta, _ = _blocked_sweep(ms, ycorr, pk, scan, d_inv)
     return ycorr, beta
@@ -155,7 +160,7 @@ def _sweep_bc(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv, common: boo
             return gibbs_kernels.bc_block_scan_wv((ms.gram, t), (ms.gram_raw, t), pk_t)
         return gibbs_kernels.bc_block_scan_v((ms.gram, t), pk_t)
 
-    ycorr, beta, delta = _blocked_sweep(ms, ycorr, pk, scan, d_inv, need_raw=True)
+    ycorr, beta, (delta,) = _blocked_sweep(ms, ycorr, pk, scan, d_inv, need_raw=True)
     n_in = delta.sum().to(beta.dtype)
 
     if common:
@@ -192,7 +197,7 @@ def _sweep_r(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv):
     def scan(t, pk_t):
         return gibbs_kernels.r_block_scan_v((ms.gram, t), pk_t, K)
 
-    ycorr, beta, delta = _blocked_sweep(ms, ycorr, pk, scan, d_inv)
+    ycorr, beta, (delta,) = _blocked_sweep(ms, ycorr, pk, scan, d_inv)
 
     cls0 = torch.clamp(delta - 1, 0, K - 1).long()
     vsel = ms.v_class[cls0]
@@ -211,6 +216,161 @@ def _sweep_r(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv):
     return out, ycorr
 
 
+# ------------------------------------------------------------------ BayesRCpi / BayesRCplus
+
+
+def _annot_variances(stream, site, ms, mp: MarkerPlan, contrib, n_nz):
+    """Per-annotation variance draw from the (p_pad, A) contributions
+    beta^2 / v_class and the (p_pad, A) counts of non-null draws. The sums
+    over loci are plain reductions along the locus axis (a fixed order, no
+    float atomics)."""
+    chi = sample_chi2(stream, site, mp.df + n_nz.sum(dim=0).to(contrib.dtype))
+    return ((ms.scale * mp.df + contrib.sum(dim=0)) / chi).to(ms.var_beta.dtype)
+
+
+def _annot_pi(stream, site, ms, joint):
+    """Per-annotation Dirichlet over the class counts (functions.jl:352-357);
+    joint (p_pad, A, K) bool."""
+    pi_hat = sample_dirichlet(stream, site, joint.sum(dim=0).to(ms.beta.dtype) + 1.0)
+    return dict(pi_hat=pi_hat, log_pi=torch.log(pi_hat))
+
+
+def _sweep_rcpi(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv):
+    """sampleBayesRCpi! (functions.jl:291-360)."""
+    sz, sua, suv, sg1, sg2, sv, sp = site.split(7)
+    A, K = mp.n_annot, mp.n_classes
+    z = stream.normal(sz, (mp.p_pad,))
+    unif_a = stream.uniform(sua, (mp.p_pad,))
+    unif_v = stream.uniform(suv, (mp.p_pad,))
+    # the gammas of sampleProb's Dirichlet (functions.jl:541-544): shape
+    # annot_input, plus 1 at the annotation the scan draws
+    g1 = stream.gamma(sg1, torch.clamp(ms.annot_input, min=1e-6))
+    g2 = stream.gamma(sg2, ms.annot_input + 1.0)
+    ive = 1.0 / var_e
+    varc = ms.var_beta[:, None] * ms.v_class[None, :]  # (A, K)
+    pk = gibbs_kernels.rcpi_block_pack(
+        ms.beta, z, unif_a, unif_v, g1, g2, ms.annot_prob, ms.annot_nz, ms.mpm.reshape(-1),
+        ms.lhs_ss.reshape(-1), ms.rhs_ss.reshape(-1), ms.mask.reshape(-1), varc, ms.log_pi, ive,
+        var_e)
+
+    def scan(t, pk_t):
+        return gibbs_kernels.rcpi_block_scan_v((ms.gram, t), pk_t, A, K)
+
+    ycorr, beta, (delta, acat, annot_prob) = _blocked_sweep(ms, ycorr, pk, scan, d_inv)
+
+    cls0 = torch.clamp(delta - 1, 0, K - 1).long()
+    a0 = torch.clamp(acat - 1, 0, A - 1)
+    vsel = ms.v_class[cls0]
+    active = (delta > 0) & (vsel > 0)
+    one = torch.ones((), dtype=beta.dtype, device=beta.device)
+    zero = torch.zeros((), dtype=beta.dtype, device=beta.device)
+    contrib = torch.where(active, beta * beta / torch.where(active, vsel, one), zero)
+    annots = torch.arange(A, device=beta.device)
+    onehot_a = (a0[:, None] == annots[None, :]) & (acat > 0)[:, None]
+    var_beta = _annot_variances(stream, sv, ms, mp,
+                                torch.where(onehot_a, contrib[:, None], zero),
+                                onehot_a & active[:, None])
+    out = replace(ms, beta=beta, delta=delta, annot_cat=acat, annot_prob=annot_prob,
+                  var_beta=var_beta)
+    if mp.est_pi:
+        classes = torch.arange(K, device=beta.device)
+        joint = (onehot_a[:, :, None] & (cls0[:, None, None] == classes[None, None, :])
+                 & (delta > 0)[:, None, None])
+        out = replace(out, **_annot_pi(stream, sp, ms, joint))
+    return out, ycorr
+
+
+def _sweep_rcplus(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv):
+    """sampleBayesRCplus! (functions.jl:362-419): every non-zero annotation
+    adds a component to the locus effect, and the rhs is refreshed after
+    each (functions.jl:379, 400). The scan excludes the locus's own
+    coefficient (functions.jl:376) and restores it per component through the
+    Gram diagonal."""
+    sz, su, sv, sp = site.split(4)
+    A, K = mp.n_annot, mp.n_classes
+    z = stream.normal(sz, (mp.p_pad, A))
+    unif = stream.uniform(su, (mp.p_pad, A))
+    ive = 1.0 / var_e
+    varc = ms.var_beta[:, None] * ms.v_class[None, :]  # (A, K)
+    pk = gibbs_kernels.rcplus_block_pack(
+        ms.beta, z, unif, ms.annot_nz, ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1),
+        ms.rhs_ss.reshape(-1), ms.mask.reshape(-1), varc, ms.log_pi, ive, var_e)
+
+    def scan(t, pk_t):
+        return gibbs_kernels.rcplus_block_scan_v((ms.gram, t), pk_t, A, K)
+
+    ycorr, beta, (delta, cls_a, bs_a, nz_a) = _blocked_sweep(ms, ycorr, pk, scan, d_inv)
+
+    nz_a = nz_a > 0
+    vsel = ms.v_class[torch.clamp(cls_a - 1, 0, K - 1).long()]
+    one = torch.ones((), dtype=beta.dtype, device=beta.device)
+    zero = torch.zeros((), dtype=beta.dtype, device=beta.device)
+    contrib = torch.where(nz_a, bs_a * bs_a / torch.where(nz_a, vsel, one), zero)
+    out = replace(ms, beta=beta, delta=delta,
+                  var_beta=_annot_variances(stream, sv, ms, mp, contrib, nz_a))
+    if mp.est_pi:
+        classes = torch.arange(1, K + 1, device=beta.device, dtype=cls_a.dtype)
+        out = replace(out, **_annot_pi(stream, sp, ms,
+                                       cls_a[:, :, None] == classes[None, None, :]))
+    return out, ycorr
+
+
+# ------------------------------------------------------------------ BayesLV
+
+
+def _sweep_lv(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv):
+    """sampleBayesLV! (functions.jl:421-486): the Gaussian effect update with
+    per-locus variances, then the bounded-uniform draw of each variance
+    through three auxiliary variables, the log-linear coefficient draw, and
+    varZeta. A locus whose bounds cross ("trapped") keeps its variance."""
+    sz, su, sc = site.split(3)
+    z = stream.normal(sz, (mp.p_pad,))
+    u4 = stream.uniform(su, (mp.p_pad, 4))
+    inf = torch.full_like(ms.var_beta, float("inf"))
+    ivb_locus = torch.where(ms.var_beta > 0, 1.0 / ms.var_beta, inf)
+    ycorr, bi = _gauss_effect_sweep(ms, mp, ycorr, var_e, d_inv, z, ivb_locus)
+
+    # per-locus variance: bounded-uniform slice draw (functions.jl:444-470)
+    vz = ms.var_zeta
+    mask = ms.mask.reshape(-1)
+    zero = torch.zeros((), dtype=bi.dtype, device=bi.device)
+    vari = torch.where(mask, ms.var_beta, torch.ones_like(ms.var_beta))
+    zeta = ms.lv_resid
+    u1, u2, u3, uu = u4[:, 0], u4[:, 1], u4[:, 2], u4[:, 3]
+    var_mui = ms.log_var - zeta
+    c1 = vari ** (-1.5) * u1
+    log_c2 = -0.5 * bi * bi / vari + torch.log(u2)
+    temp = torch.sqrt(zeta * zeta - 2.0 * vz * torch.log(u3))  # = sqrt(-2 vz log c3)
+    lb = torch.exp(var_mui - temp)
+    rb = torch.exp(var_mui + temp)
+    rb = torch.minimum(rb, torch.exp((-2.0 / 3.0) * torch.log(c1)))
+    lb = torch.maximum(lb, -0.5 * bi * bi / log_c2)
+    newv = lb + uu * (rb - lb)
+    upd = mask & ~(lb >= rb)
+    var_beta = torch.where(upd, newv, ms.var_beta)
+    log_var = torch.where(upd, torch.log(newv), ms.log_var)
+
+    # c ~ MvNormal(iCpC C' logVar, iCpC * varZeta) (functions.jl:473-476)
+    zc = stream.normal(sc, (mp.n_lv_cov,))
+    mean_c = ms.lv_icpc @ (ms.lv_design.T @ log_var)
+    c = mean_c + torch.sqrt(vz) * (ms.lv_icpc_chol @ zc)
+    resid = log_var - ms.lv_design @ c
+
+    # varZeta rule (functions.jl:479-485); sample variance (ddof = 1) over loci < p
+    def var_of(x):
+        s1 = torch.where(mask, x, zero).sum()
+        s2 = torch.where(mask, x * x, zero).sum()
+        mean = s1 / mp.p
+        return (s2 - mp.p * mean * mean) / (mp.p - 1)
+
+    if isinstance(mp.est_var_zeta, bool):
+        var_zeta = var_of(resid) if mp.est_var_zeta else vz
+    else:
+        var_zeta = mp.est_var_zeta * var_of(log_var)
+    return replace(ms, beta=bi, var_beta=var_beta, log_var=log_var, lv_c=c, lv_resid=resid,
+                   var_zeta=var_zeta), ycorr
+
+
 # ------------------------------------------------------------------ dispatch
 
 
@@ -223,4 +383,10 @@ def sample_marker_set(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv=None
         return _sweep_bc(stream, site, ms, mp, ycorr, var_e, d_inv, True)
     if mp.method == METHOD_R:
         return _sweep_r(stream, site, ms, mp, ycorr, var_e, d_inv)
-    raise NotImplementedError(f"marker method {mp.method} is not ported yet")
+    if mp.method == METHOD_RCPI:
+        return _sweep_rcpi(stream, site, ms, mp, ycorr, var_e, d_inv)
+    if mp.method == METHOD_RCPLUS:
+        return _sweep_rcplus(stream, site, ms, mp, ycorr, var_e, d_inv)
+    if mp.method == METHOD_LV:
+        return _sweep_lv(stream, site, ms, mp, ycorr, var_e, d_inv)
+    raise NotImplementedError(f"marker method {mp.method} is not a marker method of the port")

@@ -2,7 +2,7 @@
 
 Counterparts of the pytrees in `nextgp_tpu/engine/state.py`, with the same
 field names, for the terms the port carries: residual (plain or weighted),
-fixed blocks and BayesPR/B/C/R marker sets. A sweep returns a new state
+fixed blocks and marker sets of all seven methods. A sweep returns a new state
 (`utils.replace`). A field that the JAX state leaves None for a model is
 None here too.
 
@@ -29,8 +29,8 @@ class FixedState:
     x: torch.Tensor  # (n, k)
     xp: torch.Tensor  # (k, n) = X' or (X .* d_inv)' when weighted
     xpx: torch.Tensor  # (k, k) = xp @ X, ridge-jittered when k > 1
-    lhs_ss: torch.Tensor  # (k,) summary-statistic offsets (zero in the port)
-    rhs_ss: torch.Tensor  # (k,)
+    lhs_ss: torch.Tensor  # (k,) summary-statistic offsets 1/v (single columns use them)
+    rhs_ss: torch.Tensor  # (k,) m/v
     b: torch.Tensor  # (k,)
 
 
@@ -43,17 +43,30 @@ class MarkerState:
     gram: torch.Tensor  # (T, B, V, B), weighted (Mc D^-1 Mc') when the residual is
     gram_raw: Optional[torch.Tensor]  # (T, B, V, B) Mc Mc' when weighted, else None
     mpm: torch.Tensor  # (nb, B) diag of gram, global block order
-    lhs_ss: torch.Tensor  # (nb, B) summary-statistic offsets (zero in the port)
-    rhs_ss: torch.Tensor  # (nb, B)
+    lhs_ss: torch.Tensor  # (nb, B) summary-statistic offsets 1/v, Inf guarded to 0
+    rhs_ss: torch.Tensor  # (nb, B) m/v, NaN guarded to 0
     mask: torch.Tensor  # (nb, B) bool, False on padded loci
     region_id: torch.Tensor  # (p_pad,) int32; BayesPR regions, padded loci -> n_regions
     beta: torch.Tensor  # (p_pad,)
     delta: torch.Tensor  # (p_pad,) int32: 1-based class (R), indicator (B/C)
-    var_beta: torch.Tensor  # (n_var,): regions (PR), per locus (B), one (C/R)
+    var_beta: torch.Tensor  # (n_var,): regions (PR), per locus (B/LV), one (C/R), annotations (RC)
     scale: torch.Tensor  # ()
-    log_pi: Optional[torch.Tensor]  # (K,); None for BayesPR
-    pi_hat: Optional[torch.Tensor]  # (K,); None for BayesPR
-    v_class: Optional[torch.Tensor]  # (K,); None for BayesPR
+    log_pi: Optional[torch.Tensor] = None  # (2,) | (K,) | (A, K); None for BayesPR/LV
+    pi_hat: Optional[torch.Tensor] = None
+    v_class: Optional[torch.Tensor] = None  # (K,)
+    # annotation state (BayesRCpi / BayesRCplus)
+    annot_input: Optional[torch.Tensor] = None  # (p_pad, A) the 0/1 annotations as floats
+    annot_prob: Optional[torch.Tensor] = None  # (p_pad, A) row-normalized
+    annot_nz: Optional[torch.Tensor] = None  # (p_pad, A) bool
+    annot_cat: Optional[torch.Tensor] = None  # (p_pad,) int32, 1-based; 0 on padded loci
+    # log-linear variance state (BayesLV, mme.jl:418-441)
+    log_var: Optional[torch.Tensor] = None  # (p_pad,)
+    lv_design: Optional[torch.Tensor] = None  # (p_pad, kC) variance-model design C
+    lv_icpc: Optional[torch.Tensor] = None  # (kC, kC) = inv(C'C + jitter)
+    lv_icpc_chol: Optional[torch.Tensor] = None  # chol(lv_icpc)
+    lv_c: Optional[torch.Tensor] = None  # (kC,)
+    lv_resid: Optional[torch.Tensor] = None  # (p_pad,)
+    var_zeta: Optional[torch.Tensor] = None  # ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +87,10 @@ class ModelState:
 
 
 _INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32, "mt": torch.uint8,
-               "mask": torch.bool}
+               "mask": torch.bool, "annot_nz": torch.bool, "annot_cat": torch.int32}
+_MIX_FIELDS = ("log_pi", "pi_hat", "v_class")
+_ANNOT_FIELDS = ("annot_input", "annot_prob", "annot_nz", "annot_cat")
+_LV_FIELDS = ("log_var", "lv_design", "lv_icpc", "lv_icpc_chol", "lv_c", "lv_resid", "var_zeta")
 
 
 def _none_fields(plan):
@@ -83,8 +99,10 @@ def _none_fields(plan):
     for i, mp in enumerate(plan.markers):
         if not mp.weighted:
             out.add(f"markers.{i}.gram_raw")
-        if mp.n_classes == 0:  # BayesPR: no indicator probabilities
-            out.update(f"markers.{i}.{f}" for f in ("log_pi", "pi_hat", "v_class"))
+        absent = () if mp.n_classes else _MIX_FIELDS  # BayesPR/LV: no indicator probabilities
+        absent += () if mp.n_annot else _ANNOT_FIELDS
+        absent += () if mp.n_lv_cov else _LV_FIELDS
+        out.update(f"markers.{i}.{f}" for f in absent)
     return out
 
 
@@ -93,7 +111,8 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
     field paths ("ycorr", "e.var_e", "fixed.0.b", "markers.0.gram", ...,
     "sweep_index"), for instance a flattened JAX ModelState. Every field
     must be given and no other, except that a field the plan leaves None
-    (gram_raw and e.d_inv unweighted, log_pi/pi_hat/v_class for BayesPR)
+    (gram_raw and e.d_inv unweighted, log_pi/pi_hat/v_class for BayesPR and
+    BayesLV, the annotation and log-variance fields of the other methods)
     must be absent; float fields take plan.dtype, and marker storage is
     reshaped to the port's layout."""
     used = set()

@@ -13,7 +13,9 @@ from typing import Any, Dict
 import torch
 
 from ..utils import replace
-from .plan import METHOD_B, METHOD_C, METHOD_R, SweepPlan
+from .plan import (
+    METHOD_B, METHOD_C, METHOD_LV, METHOD_R, METHOD_RCPI, METHOD_RCPLUS, SweepPlan,
+)
 from .rng import STAGE_FIXED, STAGE_MARKER, STAGE_VAR_E, Site
 from .samplers.fixed import sample_fixed_block
 from .samplers.markers import sample_marker_set
@@ -52,8 +54,9 @@ def make_sweep(plan: SweepPlan):
 def collect_sample(state: ModelState, plan: SweepPlan) -> Dict[str, Any]:
     """The tracked quantities the reference streams per kept iteration
     (samplers.jl:56-104): b, varE, and beta/delta/var per marker set, with
-    the per-locus variances cut to p (BayesB) and pi where the method has
-    one (BayesB/C/R)."""
+    the per-locus variances cut to p (BayesB, BayesLV), pi where the method
+    has one (BayesB/C/R; flattened (A, K) for BayesRCpi/RCplus, with the
+    annotation categories), and c and varZeta for BayesLV."""
     out: Dict[str, Any] = {"varE": state.e.var_e}
     if state.fixed:
         out["b"] = torch.cat([fs.b for fs in state.fixed])
@@ -63,6 +66,12 @@ def collect_sample(state: ModelState, plan: SweepPlan) -> Dict[str, Any]:
         out[f"var{mp.name}"] = ms.var_beta[: mp.p] if mp.n_var == mp.p_pad else ms.var_beta
         if mp.method in (METHOD_B, METHOD_C, METHOD_R):
             out[f"pi{mp.name}"] = ms.pi_hat
+        if mp.method in (METHOD_RCPI, METHOD_RCPLUS):
+            out[f"pi{mp.name}"] = ms.pi_hat.reshape(-1)
+            out[f"annot{mp.name}"] = ms.annot_cat[: mp.p]
+        if mp.method == METHOD_LV:
+            out[f"c{mp.name}"] = ms.lv_c
+            out[f"varZeta{mp.name}"] = ms.var_zeta
     return out
 
 

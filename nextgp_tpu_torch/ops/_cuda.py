@@ -29,7 +29,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
-            "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0}
+            "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
+            "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0}
 
 _lib = None
 
@@ -105,8 +106,11 @@ def lib() -> ctypes.CDLL:
         L.ngt_gauss_block_scan_v.argtypes = [P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_v.argtypes = [P, P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_wv.argtypes = [P, P, P, P, P, P, I, I, S]
+        L.ngt_rcpi_block_scan_v.argtypes = [P] * 7 + [I] * 4 + [S]
+        L.ngt_rcplus_block_scan_v.argtypes = [P] * 8 + [I] * 4 + [S]
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
-                   L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv):
+                   L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
+                   L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

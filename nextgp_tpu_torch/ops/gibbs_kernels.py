@@ -9,9 +9,13 @@ kernel:
     BayesPR      gauss_block_pack  gauss_block_scan_v K6, csrc/gauss_bc_scan.cu
     BayesB/C     bc_block_pack     bc_block_scan_v    K8, csrc/gauss_bc_scan.cu
     BayesB/C+D   bc_block_pack     bc_block_scan_wv   K10, csrc/gauss_bc_scan.cu
+    BayesRCpi    rcpi_block_pack   rcpi_block_scan_v  K12, csrc/rc_scan.cu
+    BayesRCplus  rcplus_block_pack rcplus_block_scan_v K14, csrc/rc_scan.cu
 
 V=1 is each scan's single-chain form (`r_block_scan`, `gauss_block_scan`,
-`bc_block_scan`, `bc_block_scan_w` in the JAX package).
+`bc_block_scan`, `bc_block_scan_w`, `rcpi_block_scan`, `rcplus_block_scan`
+in the JAX package). BayesLV runs the Gaussian scan with per-locus
+variances.
 
 Everything per locus that does not depend on the chain state is computed
 up front by the pack, so one locus of a scan costs one Gram-row dot product
@@ -20,6 +24,12 @@ docstring for the algebra). Packed coefficient rows:
     gauss (8):     [adj, bold, b, c, pad*4]
     bc (8):        [adj, bold, q0, q1, w, b, c, adj_raw]
     r (8 + 4K):    [adj, bold, unif, mask, pad*4 | q0(K), q1(K), b(K), c(K)]
+    rcpi (8 + 8AK):   [adj, bold, ua, uv, mask, pad*3 | aprob, g1, g2, anz (each
+                      per annotation, repeated K times), q0, q1, b, c (A x K)]
+    rcplus (8 + 6AK): [adj, bold, mask, pad*5 | ua, anz (per annotation,
+                      repeated K times), q0, q1, b, c (A x K)]
+The annotation methods keep the JAX packs' row layouts, so a per-annotation
+value sits at every K-th slot of its section; the scans read it there once.
 The caller adds r0 to slot 0 per block (the restore of beta_old is folded
 into `adj`), and for the weighted B/C scan the raw r0 to slot 7. Unlike the
 JAX packs, which always emit float32, the packs here keep their input's
@@ -32,7 +42,8 @@ import torch
 from . import _cuda
 from .dists import categorical_from_probs
 
-MAX_CLASSES = 16  # the kernel's per-thread class buffer
+MAX_CLASSES = 16  # K3's per-thread class buffer (K12/K14 keep theirs in shared memory: no cap)
+SMEM_BYTES = 227 * 1024  # what one thread block may use on Hopper
 
 
 def _pack8(*cols):
@@ -79,27 +90,80 @@ def bc_block_pack(beta_old, z, unif, vb, ivb, mpm, lss, rss, mask, ive, var_e, l
     return _pack8(*cols)
 
 
+def _class_coeffs(mpm, lss, mask, varc, logpi, ive):
+    """Per locus and variance class: q0, q1 of logl = q0 + q1 * pre^2 and
+    1/lhs (0 for a null class, varc = 0). varc and logpi are (K,) or (A, K);
+    the results are (p, K) or (p, A, K)."""
+    nz = varc > 0
+    one = torch.ones((), dtype=mpm.dtype, device=mpm.device)
+    zero = torch.zeros((), dtype=mpm.dtype, device=mpm.device)
+    per_locus = (slice(None),) + (None,) * varc.ndim
+    varc_s = torch.where(nz, varc, one)
+    mpm_safe = torch.where(mask, mpm, one)
+    lhs = torch.where(nz, mpm_safe[per_locus] * ive + lss[per_locus] + 1.0 / varc_s, zero)
+    lhs_s = torch.where(nz, lhs, one)
+    invlhs = torch.where(nz, 1.0 / lhs_s, zero)
+    q0 = torch.where(nz, -0.5 * torch.log(varc_s * lhs_s), zero) + logpi
+    q1 = 0.5 * invlhs * ive * ive
+    return q0, q1, invlhs
+
+
 def r_block_pack(beta_old, z, unif, mpm, lss, rss, mask, varc, logpi, ive, var_e):
     """BayesR coefficients for all p loci -> (p, 8 + 4K) in beta_old's dtype:
     logl_k = q0_k + q1_k * pre^2, beta = c_k + b_k * pre, with rss folded
     into the additive slot (rhs = (r0 + dot + mpm*bold + rss*varE) * iVarE)."""
     dtype = beta_old.dtype
-    nz = varc > 0
-    one = torch.ones((), dtype=dtype, device=beta_old.device)
     zero = torch.zeros((), dtype=dtype, device=beta_old.device)
-    varc_s = torch.where(nz, varc, one)
-    mpm_safe = torch.where(mask, mpm, one)
-    lhs = torch.where(nz[None, :], mpm_safe[:, None] * ive + lss[:, None] + 1.0 / varc_s[None, :], zero)
-    lhs_s = torch.where(nz[None, :], lhs, one)
-    invlhs = torch.where(nz[None, :], 1.0 / lhs_s, zero)
-    q0 = torch.where(nz[None, :], -0.5 * torch.log(varc_s[None, :] * lhs_s), zero) + logpi[None, :]
-    q1 = 0.5 * invlhs * ive * ive
+    q0, q1, invlhs = _class_coeffs(mpm, lss, mask, varc, logpi, ive)
     bco = torch.where(mask[:, None], ive * invlhs, zero)
     cco = torch.where(mask[:, None], z[:, None] * torch.sqrt(invlhs), zero)
     adj = mpm * beta_old + rss * var_e
     head = torch.stack([adj, beta_old, unif, mask.to(dtype)], dim=1)
     pad = torch.zeros((beta_old.shape[0], 4), dtype=dtype, device=beta_old.device)
     return torch.cat([head, pad, q0, q1, bco, cco], dim=1)
+
+
+def _rc_rows(head, per_annot, per_class, K):
+    """[head (8) | per-annotation (p, A) sections, each value repeated K
+    times | per-class (p, A, K) sections, flattened]."""
+    p = head.shape[0]
+    return torch.cat([head] + [x.to(head.dtype).repeat_interleave(K, dim=1) for x in per_annot]
+                     + [x.reshape(p, -1) for x in per_class], dim=1)
+
+
+def rcpi_block_pack(beta_old, z, ua, uv, g1, g2, aprob, anz, mpm, lss, rss, mask, varc, logpi,
+                    ive, var_e):
+    """BayesRCpi coefficients -> (p, 8 + 8AK). ua, uv: the annotation and
+    class uniforms (p,); g1, g2 (p, A): the gammas of the annotation-prob
+    Dirichlet (shape annot_input, and annot_input + 1 for the annotation
+    drawn); aprob (p, A), anz (p, A) bool; varc, logpi (A, K)."""
+    dtype = beta_old.dtype
+    K = varc.shape[1]
+    zero = torch.zeros((), dtype=dtype, device=beta_old.device)
+    q0, q1, invlhs = _class_coeffs(mpm, lss, mask, varc, logpi, ive)
+    on = mask[:, None, None]
+    bco = torch.where(on, ive * invlhs, zero)
+    cco = torch.where(on, z[:, None, None] * torch.sqrt(invlhs), zero)
+    head = _pack8(mpm * beta_old + rss * var_e, beta_old, ua, uv, mask.to(dtype))
+    return _rc_rows(head, (aprob, g1, g2, anz), (q0, q1, bco, cco), K)
+
+
+def rcplus_block_pack(beta_old, z, ua, anz, mpm, lss, rss, mask, varc, logpi, ive, var_e):
+    """BayesRCplus coefficients -> (p, 8 + 6AK). z, ua (p, A): one normal
+    and one uniform per annotation component; anz (p, A) bool. b and c are
+    zero for a null class and for a component that is not active (padded
+    locus or zero annotation), which the scan's nz output relies on. Slot 0
+    carries rss * var_e only: the scan excludes the locus's own coefficient
+    and adds it back per component through the Gram diagonal."""
+    dtype = beta_old.dtype
+    K = varc.shape[1]
+    zero = torch.zeros((), dtype=dtype, device=beta_old.device)
+    q0, q1, invlhs = _class_coeffs(mpm, lss, mask, varc, logpi, ive)
+    active = (mask[:, None] & anz)[:, :, None]
+    bco = torch.where(active, ive * invlhs, zero)
+    cco = torch.where(active, z[:, :, None] * torch.sqrt(invlhs), zero)
+    head = _pack8(rss * var_e, beta_old, mask.to(dtype))
+    return _rc_rows(head, (ua, anz), (q0, q1, bco, cco), K)
 
 
 def r_block_scan_v_plain(gram, pk, n_classes):
@@ -171,9 +235,121 @@ def bc_block_scan_wv_plain(gram, graw, pk):
     return _bc_plain(gram, graw, pk)
 
 
-def _launch(name, entry, grams, pk, width, with_delta, *extra):
+def _sections(s, first, count, A, K):
+    """`count` consecutive A*K-wide sections of the rows s (V, W), from
+    slot `first`, each as (V, A, K)."""
+    AK = A * K
+    return [s[:, first + k * AK:first + (k + 1) * AK].reshape(-1, A, K) for k in range(count)]
+
+
+def _pick(x, idx):
+    """x (V, n), idx (V,) -> x[v, idx[v]]."""
+    return x.gather(1, idx[:, None])[:, 0]
+
+
+def rcpi_block_scan_v_plain(gram, pk, n_annot, n_classes):
+    """Plain version of the BayesRCpi scan. gram (B, V, B) locus-major, pk
+    (V, B, 8 + 8AK) -> beta, u (V, B), delta, acat (V, B) int32 (1-based, 0
+    on padded loci), aprob (V, B, A).
+
+    Per locus: the annotation is drawn from aprob_a * sum_k exp(logl_ak)
+    over the non-zero annotations, then the class within it; both inverse
+    CDFs are clamped to their last entry. The new annotation probabilities
+    are the normalized gammas (g2 at the drawn annotation, g1 elsewhere).
+    A padded locus has no non-zero annotation, so its sums are 0 and its
+    probabilities NaN: every comparison with them is false (annotation and
+    class 0), and the selects keep beta = 0 and the old aprob."""
+    A, K = n_annot, n_classes
+    V, B, _ = pk.shape
+    dtype, device = pk.dtype, pk.device
+    zero = torch.zeros((), dtype=dtype, device=device)
+    u = torch.zeros((V, B), dtype=dtype, device=device)
+    beta = torch.zeros_like(u)
+    delta = torch.zeros((V, B), dtype=torch.int32, device=device)
+    acat = torch.zeros_like(delta)
+    aprob_out = torch.zeros((V, B, A), dtype=dtype, device=device)
+    annots = torch.arange(A, device=device)
+    for j in range(B):
+        s = pk[:, j]
+        pre = s[:, 0] + (gram[j] * u).sum(-1)
+        aprob, g1, g2, anz = (x[:, :, 0] for x in _sections(s, 8, 4, A, K))
+        q0, q1, bco, cco = _sections(s, 8 + 4 * A * K, 4, A, K)
+        on = s[:, 4] != 0
+        logl = q0 + q1 * (pre * pre)[:, None, None]
+        logl = logl - logl.reshape(V, -1).max(dim=-1).values[:, None, None]
+        e = torch.where((anz != 0)[:, :, None], torch.exp(logl), zero)
+        rowsum = e.sum(-1)
+        pa = aprob * rowsum
+        a_sel = categorical_from_probs(s[:, 2], pa / pa.sum(-1, keepdim=True)).long()
+        row = e[torch.arange(V, device=device), a_sel]  # (V, K)
+        cls = categorical_from_probs(s[:, 3], row / row.sum(-1, keepdim=True)).long()
+        idx = a_sel * K + cls
+        bnew = _pick(cco.reshape(V, -1), idx) + _pick(bco.reshape(V, -1), idx) * pre
+        gam = torch.where(annots[None, :] == a_sel[:, None], g2, g1) * anz
+        aprob_out[:, j] = torch.where(on[:, None], gam / gam.sum(-1, keepdim=True), aprob)
+        beta[:, j] = bnew
+        u[:, j] = s[:, 1] - bnew
+        delta[:, j] = torch.where(on, cls + 1, 0).to(torch.int32)
+        acat[:, j] = torch.where(on, a_sel + 1, 0).to(torch.int32)
+    return beta, u, delta, acat, aprob_out
+
+
+def rcplus_block_scan_v_plain(gram, pk, n_annot, n_classes):
+    """Plain version of the BayesRCplus scan. gram (B, V, B) locus-major, pk
+    (V, B, 8 + 6AK) -> beta, u (V, B), delta (V, B) int32 (the class of the
+    last active annotation), and per annotation cls (V, B, A) int32
+    (1-based, 0 where inactive), bs (V, B, A) the component drawn, nz
+    (V, B, A) int32 (1 where a non-null class of an active component was
+    drawn, read off b > 0).
+
+    The locus effect is the sum of one component per annotation; after each
+    component the rhs is refreshed through the Gram diagonal g_jj, read
+    from the row: pre_a = base + g_jj * (beta_old - components so far)."""
+    A, K = n_annot, n_classes
+    V, B, _ = pk.shape
+    dtype, device = pk.dtype, pk.device
+    u = torch.zeros((V, B), dtype=dtype, device=device)
+    beta = torch.zeros_like(u)
+    delta = torch.zeros((V, B), dtype=torch.int32, device=device)
+    cls_out = torch.zeros((V, B, A), dtype=torch.int32, device=device)
+    bs_out = torch.zeros((V, B, A), dtype=dtype, device=device)
+    nz_out = torch.zeros_like(cls_out)
+    for j in range(B):
+        s = pk[:, j]
+        base = s[:, 0] + (gram[j] * u).sum(-1)  # u[:, j] is 0: own coefficient excluded
+        gjj = gram[j][:, j]
+        on = s[:, 2] != 0
+        ua, anz = (x[:, :, 0] for x in _sections(s, 8, 2, A, K))
+        q0, q1, bco, cco = _sections(s, 8 + 2 * A * K, 4, A, K)
+        ujc = s[:, 1]
+        total = torch.zeros_like(ujc)
+        dj = torch.zeros((V,), dtype=torch.int64, device=device)
+        for a in range(A):
+            prea = base + gjj * ujc
+            logl = q0[:, a] + q1[:, a] * (prea * prea)[:, None]
+            e = torch.exp(logl - logl.max(dim=-1, keepdim=True).values)
+            cls = categorical_from_probs(ua[:, a], e / e.sum(-1, keepdim=True)).long()
+            bsel = _pick(bco[:, a], cls)
+            bs = _pick(cco[:, a], cls) + bsel * prea
+            active = (anz[:, a] != 0) & on
+            ujc = ujc - bs
+            total = total + bs
+            dj = torch.where(active, cls + 1, dj)
+            cls_out[:, j, a] = torch.where(active, cls + 1, 0).to(torch.int32)
+            bs_out[:, j, a] = bs
+            nz_out[:, j, a] = (bsel > 0).to(torch.int32)
+        beta[:, j] = total
+        u[:, j] = ujc
+        delta[:, j] = dj.to(torch.int32)
+    return beta, u, delta, cls_out, bs_out, nz_out
+
+
+def _launch(name, entry, grams, pk, width, more_outs, *extra, rows_in_smem=True):
     """Launch one V-batched scan kernel. grams: the step-indexed
-    ((T, B, V, B), t) pairs the kernel reads; returns beta, u[, delta]."""
+    ((T, B, V, B), t) pairs the kernel reads. more_outs: (trailing shape,
+    dtype) of each output after beta and u (V, B), all (V, B, ...).
+    rows_in_smem: the kernel keeps all coefficient rows of a chain in
+    shared memory, so they must fit. Returns (beta, u, *more)."""
     tensors = [g for g, _ in grams] + [pk]
     _cuda.require(all(x.is_cuda and x.device == pk.device for x in tensors),
                   f"{name}: gram and pk must be on one CUDA device")
@@ -185,13 +361,10 @@ def _launch(name, entry, grams, pk, width, with_delta, *extra):
                   f"{name}: gram must be (T, B, V, B) and 0 <= t < T")
     _cuda.require(pk.shape == (V, B, width), f"{name}: pk must be ({V}, {B}, {width})")
     _cuda.require(B <= 1024, f"{name}: needs B <= 1024")
-    _cuda.require(4 * (B + 64 + B * width) <= 227 * 1024,
+    _cuda.require(not rows_in_smem or 4 * (B + 64 + B * width) <= SMEM_BYTES,
                   f"{name}: coefficient rows of B={B}, width {width} exceed shared memory")
-    beta = torch.empty((V, B), dtype=torch.float32, device=pk.device)
-    u = torch.empty_like(beta)
-    outs = [beta, u]
-    if with_delta:
-        outs.append(torch.empty((V, B), dtype=torch.int32, device=pk.device))
+    outs = [torch.empty((V, B) + tuple(tail), dtype=dtype, device=pk.device)
+            for tail, dtype in [((), torch.float32)] * 2 + list(more_outs)]
     ptrs = [g.data_ptr() + t * B * V * B * 4 for g, t in grams]
     err = entry(_cuda.lib())(*ptrs, pk.data_ptr(), *(o.data_ptr() for o in outs), V, B, *extra,
                              _cuda.stream_of(pk))
@@ -210,6 +383,9 @@ def _step(gram_t, on_cuda):
     return gram if t is None else gram[t]
 
 
+_DELTA = [((), torch.int32)]  # the one extra output of K3, K8 and K10
+
+
 def r_block_scan_v(gram_t, pk, n_classes):
     """V-batched BayesR scan (K3). gram_t is the locus-major (B, V, B) Gram
     block or the step-indexed pair ((T, B, V, B), t); pk (V, B, 8 + 4K).
@@ -218,7 +394,7 @@ def r_block_scan_v(gram_t, pk, n_classes):
     if pk.is_cuda:
         _cuda.require(1 <= K <= MAX_CLASSES, f"r_block_scan_v: needs K <= {MAX_CLASSES}")
         return _launch("r_block_scan_v", lambda L: L.ngt_r_block_scan_v, [_step(gram_t, True)],
-                       pk, 8 + 4 * K, True, K)
+                       pk, 8 + 4 * K, _DELTA, K)
     return r_block_scan_v_plain(_step(gram_t, False), pk, K)
 
 
@@ -227,7 +403,7 @@ def gauss_block_scan_v(gram_t, pk):
     pk (V, B, 8). Returns beta (V, B), u (V, B)."""
     if pk.is_cuda:
         return _launch("gauss_block_scan_v", lambda L: L.ngt_gauss_block_scan_v,
-                       [_step(gram_t, True)], pk, 8, False)
+                       [_step(gram_t, True)], pk, 8, [])
     return gauss_block_scan_v_plain(_step(gram_t, False), pk)
 
 
@@ -235,7 +411,7 @@ def bc_block_scan_v(gram_t, pk):
     """V-batched BayesB/C scan (K8). Returns beta, u, delta (V, B)."""
     if pk.is_cuda:
         return _launch("bc_block_scan_v", lambda L: L.ngt_bc_block_scan_v, [_step(gram_t, True)],
-                       pk, 8, True)
+                       pk, 8, _DELTA)
     return bc_block_scan_v_plain(_step(gram_t, False), pk)
 
 
@@ -245,5 +421,42 @@ def bc_block_scan_wv(gram_t, graw_t, pk):
     step-indexed pair. Returns beta, u, delta (V, B)."""
     if pk.is_cuda:
         return _launch("bc_block_scan_wv", lambda L: L.ngt_bc_block_scan_wv,
-                       [_step(gram_t, True), _step(graw_t, True)], pk, 8, True)
+                       [_step(gram_t, True), _step(graw_t, True)], pk, 8, _DELTA)
     return bc_block_scan_wv_plain(_step(gram_t, False), _step(graw_t, False), pk)
+
+
+def _rc_launch(name, entry, gram_t, pk, A, K, sections, more_outs):
+    """K12 and K14: rows of 8 + sections*A*K floats, which the kernel reads
+    from device memory one locus ahead, so shared memory holds two rows and
+    the per-locus scratch whatever B is."""
+    _cuda.require(A >= 1 and K >= 1, f"{name}: needs A >= 1 and K >= 1")
+    width = 8 + sections * A * K
+    B = pk.shape[1]
+    # u, the partial dots, g_jj, the per-locus scratch, two rows
+    _cuda.require(4 * (B + 36 + A * K + A + 2 * width) <= SMEM_BYTES,
+                  f"{name}: B={B}, A={A}, K={K}: two coefficient rows exceed shared memory")
+    return _launch(name, entry, [_step(gram_t, True)], pk, width, more_outs, A, K,
+                   rows_in_smem=False)
+
+
+def rcpi_block_scan_v(gram_t, pk, n_annot, n_classes):
+    """V-batched BayesRCpi scan (K12). gram_t as for r_block_scan_v; pk
+    (V, B, 8 + 8AK). Returns beta, u (V, B), delta, acat (V, B) int32 and
+    the new annotation probabilities (V, B, A)."""
+    A, K = n_annot, n_classes
+    if pk.is_cuda:
+        return _rc_launch("rcpi_block_scan_v", lambda L: L.ngt_rcpi_block_scan_v, gram_t, pk, A, K,
+                          8, [((), torch.int32), ((), torch.int32), ((A,), torch.float32)])
+    return rcpi_block_scan_v_plain(_step(gram_t, False), pk, A, K)
+
+
+def rcplus_block_scan_v(gram_t, pk, n_annot, n_classes):
+    """V-batched BayesRCplus scan (K14). gram_t as for r_block_scan_v; pk
+    (V, B, 8 + 6AK). Returns beta, u, delta (V, B) and cls, bs, nz
+    (V, B, A) (cls, nz int32)."""
+    A, K = n_annot, n_classes
+    if pk.is_cuda:
+        return _rc_launch("rcplus_block_scan_v", lambda L: L.ngt_rcplus_block_scan_v, gram_t, pk,
+                          A, K, 6, [((), torch.int32), ((A,), torch.int32), ((A,), torch.float32),
+                                    ((A,), torch.int32)])
+    return rcplus_block_scan_v_plain(_step(gram_t, False), pk, A, K)

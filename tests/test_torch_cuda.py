@@ -7,7 +7,10 @@ a 100k-individual width whose y no longer fits shared memory (the gather
 then reads a transposed copy from device memory), blocks narrower than a
 warp or not a multiple of 32, K from 2 to 16, V from 1 to 96 chains, and
 short chains through the whole sweep (BayesR, and BayesC with a weighted
-residual). CUDA kernels have no CPU mode, so every test here skips without
+residual); for the annotation scans K12 and K14 also one annotation, K = 16
+(K3's cap; these two have none), coefficient rows that no longer fit shared memory, a chain
+that is all padding, and short BayesRCpi, BayesRCplus and BayesLV chains.
+CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
 
@@ -178,6 +181,142 @@ def test_scan8_kernels_match_plain(dev, kind, B, V):
         assert all(torch.equal(x, y) for x, y in zip(sliced, got))
 
 
+RC_SCANS = {  # kind -> (pack, scan, plain scan, row sections, uniform slots, discrete outputs)
+    "rcpi": (gibbs_kernels.rcpi_block_pack, gibbs_kernels.rcpi_block_scan_v,
+             gibbs_kernels.rcpi_block_scan_v_plain, 8, lambda A, K: [2, 3], (2, 3)),
+    "rcplus": (gibbs_kernels.rcplus_block_pack, gibbs_kernels.rcplus_block_scan_v,
+               gibbs_kernels.rcplus_block_scan_v_plain, 6,
+               lambda A, K: [8 + a * K for a in range(A)], (2, 3, 5)),
+}
+
+
+def _rc_inputs(dev, kind, T, V, B, A, K, seed):
+    """Step-indexed Gram blocks with a diagonal near 30 and coefficient rows
+    from the port's own pack: the first annotation on every locus and the
+    others on about half, a null first class, the last three loci of every
+    chain padded and the whole last chain padded when V > 2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    m = min(2 * B, 256)
+    a = randn(T, V, B, m)
+    gram = (torch.einsum("tvbn,tvcn->tbvc", a, a) * (30.0 / m)).contiguous()
+    p = V * B
+    mask = torch.ones(V, B, dtype=torch.bool, device=dev)
+    mask[:, -3:] = False
+    if V > 2:
+        mask[-1] = False
+    mask = mask.reshape(-1)
+    anz = rand(p, A) < 0.5
+    anz[:, 0] = True
+    anz &= mask[:, None]
+    varc = (0.5 + 1.5 * rand(A, 1)) * torch.cat([torch.zeros(1, device=dev), 1e-3 + 0.1 * rand(K - 1)])
+    common = dict(beta_old=0.1 * randn(p) * mask, mpm=torch.einsum("bvb->vb", gram[0]).reshape(-1) * mask,
+                  lss=rand(p), rss=0.1 * randn(p), mask=mask, varc=varc,
+                  logpi=torch.log_softmax(randn(A, K), dim=-1), ive=torch.tensor(0.7, device=dev),
+                  var_e=torch.tensor(1 / 0.7, device=dev))
+    if kind == "rcpi":
+        aprob = anz / anz.sum(-1, keepdim=True).clamp(min=1)
+        args = dict(z=randn(p), ua=rand(p), uv=rand(p),
+                    g1=torch._standard_gamma(anz.float().clamp(min=1e-6), generator=g),
+                    g2=torch._standard_gamma(anz.float() + 1.0, generator=g), aprob=aprob, anz=anz)
+    else:
+        args = dict(z=randn(p, A), ua=rand(p, A), anz=anz)
+    pk = RC_SCANS[kind][0](**args, **common).reshape(V, B, -1).contiguous()
+    pk[:, :, 0] += 5.0 * randn(V, B)
+    return gram, pk, g
+
+
+def _keep_off_cdf_edges(pk, plain, slots, discrete, gen, margin=1e-4):
+    """Redraw uniforms until the plain scan gives the same discrete outputs
+    with every uniform lowered and raised by `margin`: then none lies
+    within the margin of a CDF edge, and a rounding difference cannot flip
+    a draw."""
+    V, B, _ = pk.shape
+    for _ in range(30):
+        ref = plain(pk)
+        near = torch.zeros(V, B, dtype=torch.bool, device=pk.device)
+        for d in (-margin, margin):
+            moved = pk.clone()
+            moved[:, :, slots] += d
+            for i in discrete:
+                near |= (plain(moved)[i] != ref[i]).reshape(V, B, -1).any(-1)
+        if not near.any():
+            return ref
+        fresh = torch.rand((V, B, len(slots)), generator=gen, device=pk.device)
+        pk[:, :, slots] = torch.where(near[..., None], fresh, pk[:, :, slots])
+    raise AssertionError("could not keep the uniforms away from the CDF edges")
+
+
+@pytest.mark.parametrize("V,B,A,K", [
+    (1, 8, 3, 3),  # a single chain (K11, K13), narrower than a warp
+    (3, 33, 1, 4),  # one annotation, B not a multiple of 32, one chain all padding
+    (5, 64, 2, 16),  # K at K3's cap (K12 and K14 have none)
+    (2, 256, 8, 4),  # a chain's rcpi rows (8 + 8AK floats) exceed shared memory
+    (2, 256, 10, 4),  # a chain's rcplus rows (8 + 6AK floats) too
+    (96, 256, 3, 3),  # the main path's shape
+    (1, 1024, 2, 3),  # the widest block
+])
+@pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
+def test_rc_scan_kernels_match_plain(dev, kind, V, B, A, K):
+    """K12 and K14 against their plain versions, step-indexed and sliced.
+    The kernels read each locus's coefficient row from device memory, so a
+    chain's rows need not fit shared memory."""
+    _, scan, plain_fn, sections, slots, discrete = RC_SCANS[kind]
+    T = 2
+    gram, pk, gen = _rc_inputs(dev, kind, T, V, B, A, K, V * 10_000 + B + A + K)
+    if (kind, A) in {("rcpi", 8), ("rcplus", 10)}:
+        assert 4 * B * (8 + sections * A * K) > gibbs_kernels.SMEM_BYTES
+    for t in range(T):
+        ref = _keep_off_cdf_edges(pk, lambda p: plain_fn(gram[t], p, A, K), slots(A, K), discrete, gen)
+        before = _cuda.LAUNCHES[f"{kind}_block_scan_v"]
+        got = scan((gram, t), pk, A, K)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[f"{kind}_block_scan_v"] == before + 1
+        for i, (x, r) in enumerate(zip(got, ref)):
+            if i in discrete:
+                assert torch.equal(x, r), f"output {i}"
+            else:
+                assert torch.isfinite(x).all() and _rel(x, r) < 1e-4, f"output {i}"
+        # padded loci: beta 0 and every discrete output 0
+        assert (got[0][:, -3:] == 0).all() and all((got[i][:, -3:] == 0).all() for i in discrete)
+        if V > 2:
+            assert (got[0][-1] == 0).all() and (got[2][-1] == 0).all()
+        sliced = scan(gram[t].contiguous(), pk, A, K)
+        assert all(torch.equal(x, y) for x, y in zip(sliced, got))
+
+
+def test_rcpi_scan_kernel_clamps_the_annotation_draw(dev):
+    """A uniform above the annotation CDF's last entry selects the last
+    annotation, with every output finite, as the plain version does."""
+    V, B, A, K = 2, 16, 3, 3
+    gram, pk, _ = _rc_inputs(dev, "rcpi", 1, V, B, A, K, 11)
+    pk[..., 2] = 2.0
+    got = gibbs_kernels.rcpi_block_scan_v((gram, 0), pk, A, K)
+    ref = gibbs_kernels.rcpi_block_scan_v_plain(gram[0], pk, A, K)
+    on = pk[..., 4] != 0
+    assert (got[3][on] == A).all() and (got[3][~on] == 0).all()
+    assert torch.equal(got[3], ref[3]) and all(torch.isfinite(x).all() for x in got)
+
+
+def test_rc_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    gram = torch.zeros(1, 8, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="A >= 1 and K >= 1"):
+        gibbs_kernels.rcpi_block_scan_v((gram, 0), torch.zeros(2, 8, 8, device=dev), 0, 3)
+    with pytest.raises(ValueError, match="two coefficient rows exceed shared memory"):
+        gibbs_kernels.rcpi_block_scan_v((gram, 0), torch.zeros(2, 8, 8 + 8 * 8000, device=dev), 500, 16)
+    with pytest.raises(ValueError, match="pk must be"):
+        gibbs_kernels.rcplus_block_scan_v((gram, 0), torch.zeros(2, 8, 8 + 8 * 6, device=dev), 2, 3)
+    with pytest.raises(ValueError, match="float32"):
+        gibbs_kernels.rcplus_block_scan_v((gram, 0),
+                                          torch.zeros(2, 8, 8 + 6 * 6, dtype=torch.float64, device=dev), 2, 3)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     pk = torch.zeros(4, 128, dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="float32"):
@@ -191,11 +330,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 12, device=dev), 2)
 
 
+N_SMALL, P_SMALL = 300, 512
+
+
 def _card_and_cpu_chains(dev, prior, weighted=False):
     """A short chain through assemble / make_sweep on the card and the same
     chain on the CPU in float32 from the same draws."""
     rng = np.random.default_rng(3)
-    n, p = 300, 512
+    n, p = N_SMALL, P_SMALL
     g = rng.integers(0, 3, (n, p))
     y = (g - g.mean(0)) @ rng.normal(0, 0.1, p) + rng.normal(0, 1, n)
     res = ngt.RandomEffect(rng.uniform(0.5, 2.0, n), 1.0) if weighted else None
@@ -233,3 +375,36 @@ def test_sweep_on_card_matches_plain_chain(dev):
     assert torch.equal(k.markers[0].delta.cpu(), c.markers[0].delta)
     assert _rel(k.markers[0].beta.cpu(), c.markers[0].beta) < 1e-3
     assert _rel(k.ycorr.cpu(), c.ycorr) < 1e-4
+
+
+def _annot():
+    return np.random.default_rng(6).integers(0, 2, (P_SMALL, 3)) | np.array([1, 0, 0])
+
+
+@pytest.mark.parametrize("method", ["BayesRCpi", "BayesRCplus", "BayesLV"])
+def test_annotation_and_lv_sweeps_on_card_match_plain_chain(dev, method):
+    """BayesRCpi (K12), BayesRCplus (K14) and BayesLV (K6) through assemble /
+    make_sweep on the card, against the CPU chain from the same draws."""
+    if method == "BayesLV":
+        prior, scan = ngt.BayesLV(0.01, np.random.default_rng(7).normal(0, 1, (P_SMALL, 3)), 0.01,
+                                  estimateVarZeta=True), "gauss_block_scan_v"
+    else:
+        prior = getattr(ngt, method)([0.9, 0.05, 0.05], [0.0, 1e-3, 1e-2], 1.0, _annot(),
+                                     estimatePi=True)
+        scan = {"BayesRCpi": "rcpi_block_scan_v", "BayesRCplus": "rcplus_block_scan_v"}[method]
+    before = dict(_cuda.LAUNCHES)
+    k, c = _card_and_cpu_chains(dev, prior)
+    T = P_SMALL // 32 // 4
+    assert _cuda.LAUNCHES[scan] - before[scan] == 3 * T
+    assert _cuda.LAUNCHES["pack2_matvec"] - before["pack2_matvec"] == 3 * T
+    km, cm = k.markers[0], c.markers[0]
+    assert torch.equal(km.delta.cpu(), cm.delta)
+    assert _rel(km.beta.cpu(), cm.beta) < 1e-3 and _rel(k.ycorr.cpu(), c.ycorr) < 1e-4
+    assert _rel(km.var_beta.cpu(), cm.var_beta) < 1e-3
+    if method == "BayesRCpi":
+        assert torch.equal(km.annot_cat.cpu(), cm.annot_cat)
+        assert _rel(km.annot_prob.cpu(), cm.annot_prob) < 1e-4
+    if method != "BayesLV":
+        assert _rel(km.pi_hat.cpu(), cm.pi_hat) < 1e-4
+    else:
+        assert _rel(km.lv_c.cpu(), cm.lv_c) < 1e-3 and (km.var_beta[:P_SMALL] > 0).all()

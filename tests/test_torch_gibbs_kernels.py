@@ -1,14 +1,18 @@
 """The port's in-block scans and their coefficients against the JAX package.
 
-Packs (`r_block_pack`, `gauss_block_pack`, `bc_block_pack`): the JAX
+Packs (`r_block_pack`, `gauss_block_pack`, `bc_block_pack`,
+`rcpi_block_pack`, `rcplus_block_pack`): the JAX
 functions always emit float32 (their `_pack` casts), so their arithmetic is
 evaluated in float64 by running the unjitted functions with the module's
 F32 name pointed at float64; the port's float64 result must agree to
 1e-12 (q0 is +inf on padded loci in both). The plain scans
 (`r_block_scan_v`, `gauss_block_scan_v`, `bc_block_scan_v`,
-`bc_block_scan_wv`) must match the Pallas kernels in interpret mode
-(float32, atol 1e-5 on beta and u; delta exact), sliced and step-indexed,
-and at V=1 also the single-chain kernels. The CUDA kernels are checked
+`bc_block_scan_wv`, `rcpi_block_scan_v`, `rcplus_block_scan_v`) must match
+the Pallas kernels in interpret mode (float32, atol 1e-5 on the continuous
+outputs; delta and the other discrete outputs exact), sliced and
+step-indexed, and at V=1 also the single-chain kernels. The annotation
+fixtures carry padded loci, annotations that are zero on some loci and a
+null class. The CUDA kernels are checked
 against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -224,3 +228,141 @@ def test_bc_block_scan_wv_matches_interpret(V, B):
         if V == 1:
             ref = jgk.bc_block_scan_w(jg[t][:, 0], jr[t][:, 0], jp[0], interpret=True)
             _same([x[0] for x in out], ref)
+
+
+# ------------------------------------------------------------ BayesRCpi / BayesRCplus
+
+
+def _rc_pack_inputs(rng, p, A, K, dtype=np.float64):
+    """Planner-like inputs of the annotation packs: three padded loci at the
+    end (no annotation there), the first annotation on every other locus and
+    the rest on about half of them, and a null first class."""
+    mask = np.ones(p, bool)
+    mask[-3:] = False
+    anz = rng.integers(0, 2, (p, A)).astype(bool)
+    anz[:, 0] = True
+    anz[~mask] = False
+    aprob = anz / np.maximum(anz.sum(1, keepdims=True), 1)
+    varc = rng.uniform(0.5, 2.0, (A, 1)) * np.concatenate([[0.0], rng.uniform(1e-3, 1e-1, K - 1)])
+    common = dict(
+        beta_old=rng.normal(0, 0.1, p) * mask, mpm=rng.uniform(10, 50, p) * mask,
+        lss=rng.uniform(0, 1, p), rss=rng.normal(0, 0.1, p), mask=mask, varc=varc,
+        logpi=np.log(rng.dirichlet(np.ones(K), A)), ive=dtype(0.7), var_e=dtype(1 / 0.7))
+    rcpi = dict(z=rng.normal(0, 1, p), ua=rng.uniform(0, 1, p), uv=rng.uniform(0, 1, p),
+                g1=rng.gamma(np.maximum(anz, 1e-6)), g2=rng.gamma(anz + 1.0), aprob=aprob, anz=anz,
+                **common)
+    rcplus = dict(z=rng.normal(0, 1, (p, A)), ua=rng.uniform(0, 1, (p, A)), anz=anz, **common)
+    cast = lambda d: {k: v.astype(dtype) if getattr(v, "dtype", None) == np.float64 else v
+                      for k, v in d.items()}
+    return cast(rcpi), cast(rcplus)
+
+
+@pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
+def test_rc_block_pack_f64(monkeypatch, kind):
+    A, K, p = 3, 4, 40
+    args = _rc_pack_inputs(np.random.default_rng(6), p, A, K)[kind == "rcplus"]
+    monkeypatch.setattr(jgk, "F32", jnp.float64)
+    jfn, tfn = getattr(jgk, f"{kind}_block_pack"), getattr(tgk, f"{kind}_block_pack")
+    ref = np.asarray(jfn.__wrapped__(**{k: jnp.asarray(v) for k, v in args.items()}))
+    out = tfn(**{k: torch.as_tensor(v) for k, v in args.items()})
+    width = 8 + (8 if kind == "rcpi" else 6) * A * K
+    assert ref.dtype == np.float64 and out.dtype == torch.float64
+    assert out.shape == ref.shape == (p, width)
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-12)
+    # b and c are zero on padded loci and for the null class; for rcplus also
+    # where the annotation is zero
+    b = out[:, width - 2 * A * K:width - A * K].reshape(p, A, K)
+    assert (b[-3:] == 0).all() and (b[:, :, 0] == 0).all() and (b[:-3, 0, 1:] > 0).all()
+    if kind == "rcplus":
+        assert (b[~torch.as_tensor(args["anz"])] == 0).all()
+
+
+def _rc_scan_inputs(kind, seed, T, V, B, A, K):
+    """Step-indexed Gram blocks with a dominant diagonal near 30 and
+    coefficient rows from the port's own pack in float32, with r0 added to
+    slot 0 as the sweep does."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0, 1, (T, V, B, 3 * B))
+    gram = (np.einsum("tvbn,tvcn->tbvc", a, a) * (30.0 / (3 * B))).astype(np.float32)
+    args = _rc_pack_inputs(rng, V * B, A, K, np.float32)[kind == "rcplus"]
+    args["mpm"] = (np.einsum("bvb->vb", gram[0]).reshape(-1) * args["mask"]).astype(np.float32)
+    pk = getattr(tgk, f"{kind}_block_pack")(**{k: torch.as_tensor(v) for k, v in args.items()})
+    pk = pk.reshape(V, B, -1).clone()
+    pk[:, :, 0] += torch.as_tensor(rng.normal(0, 5, (V, B)).astype(np.float32))
+    assert pk.dtype == torch.float32
+    return gram, pk.numpy()
+
+
+def _same_rc(port, ref, discrete):
+    assert len(port) == len(ref)
+    for i, (x, r) in enumerate(zip(port, ref)):
+        if i in discrete:
+            np.testing.assert_array_equal(x.numpy(), np.asarray(r), err_msg=f"output {i}")
+        else:
+            np.testing.assert_allclose(x.numpy(), np.asarray(r), atol=1e-5, err_msg=f"output {i}")
+
+
+RC_KINDS = {  # kind -> (V-batched Pallas kernel, its single-chain form, discrete outputs)
+    "rcpi": (jgk.rcpi_block_scan_v, jgk.rcpi_block_scan, (2, 3)),
+    "rcplus": (jgk.rcplus_block_scan_v, jgk.rcplus_block_scan, (2, 3, 5)),
+}
+
+
+@pytest.mark.parametrize("V,B,A,K", [(1, 8, 3, 3), (4, 8, 2, 4)])
+@pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
+def test_rc_block_scan_v_matches_interpret(kind, V, B, A, K):
+    T = 2
+    jscan_v, jscan, discrete = RC_KINDS[kind]
+    tscan = getattr(tgk, f"{kind}_block_scan_v")
+    gram, pk = _rc_scan_inputs(kind, V * 10 + K, T, V, B, A, K)
+    gram_t, pk_t = torch.from_numpy(gram), torch.from_numpy(pk)
+    for t in range(T):
+        out = tscan(gram_t[t], pk_t, A, K)
+        _same_rc(out, jscan_v(jnp.asarray(gram[t]), jnp.asarray(pk), A, K, interpret=True), discrete)
+        _same_rc(tscan((gram_t, t), pk_t, A, K),
+                 jscan_v((jnp.asarray(gram), t), jnp.asarray(pk), A, K, interpret=True), discrete)
+        assert all(torch.isfinite(x).all() for x in out)
+        # the padded loci: beta 0, every discrete output 0
+        assert (out[0][-1, -3:] == 0).all() and (out[2][-1, -3:] == 0).all()
+        assert (out[3][-1, -3:] == 0).all()
+        if V == 1:  # the single-chain kernel is the V=1 case
+            ref = jscan(jnp.asarray(gram[t][:, 0]), jnp.asarray(pk[0]), A, K, interpret=True)
+            _same_rc([x[0] for x in out], ref, discrete)
+    delta = out[2].numpy()
+    assert len(np.unique(delta)) > 2  # the padded 0 and at least two classes occur
+    if kind == "rcpi":
+        acat, aprob = out[3].numpy(), out[4].numpy()
+        on = pk[:, :, 4] != 0
+        anz = pk[:, :, 8 + 3 * A * K:8 + 4 * A * K:K] != 0
+        assert (np.take_along_axis(anz, np.maximum(acat - 1, 0)[..., None], -1)[..., 0] | ~on).all()
+        np.testing.assert_allclose(aprob.sum(-1)[on], 1.0, atol=1e-6)
+        assert (aprob[~anz] == 0).all()
+    else:
+        cls, bs, nz = (x.numpy() for x in out[3:])
+        anz = pk[:, :, 8 + A * K:8 + 2 * A * K:K] != 0
+        assert (cls[~anz] == 0).all() and (bs[~anz] == 0).all() and (nz[~anz] == 0).all()
+        np.testing.assert_allclose(bs.sum(-1), out[0].numpy(), atol=1e-6)
+        assert ((cls > 1) == (nz == 1)).all()  # class 1 is the null class
+
+
+def test_rcpi_scan_clamps_annotation_at_cdf_edge():
+    """A uniform above the annotation CDF's last entry must select the last
+    annotation (the JAX pure path's clamp; its TPU kernel leaves the draw
+    unclamped and would index past the grid), with every output finite."""
+    A, K, V, B = 3, 3, 2, 8
+    gram, pk = _rc_scan_inputs("rcpi", 7, 1, V, B, A, K)
+    pk[..., 2] = 2.0  # above every CDF entry
+    out = tgk.rcpi_block_scan_v(torch.from_numpy(gram[0]), torch.from_numpy(pk), A, K)
+    on = pk[:, :, 4] != 0
+    assert (out[3].numpy()[on] == A).all() and (out[3].numpy()[~on] == 0).all()
+    assert all(torch.isfinite(x).all() for x in out)
+    pk[..., 3] = 2.0  # and the class draw likewise
+    out = tgk.rcpi_block_scan_v(torch.from_numpy(gram[0]), torch.from_numpy(pk), A, K)
+    # where the clamped annotation is zero on the locus its class row is 0/0:
+    # class 0 (the null class) there, as on a padded locus
+    last = pk[:, :, 8 + 3 * A * K + (A - 1) * K] != 0
+    delta = out[2].numpy()
+    assert (delta[on & last] == K).all() and (delta[on & ~last] == 1).all()
+    assert (out[0].numpy()[on & ~last] == 0).all()
+    assert all(torch.isfinite(x).all() for x in out)

@@ -54,7 +54,8 @@ def _fields(cls):
     return out
 
 
-@pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "RandomEffect",
+@pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi",
+                                  "BayesRCplus", "BayesLV", "SummaryStatistics", "RandomEffect",
                                   "FixedTerm", "MarkerTerm", "ModelSpec", "MarkerData"])
 def test_copied_dataclasses_match(name):
     jcls = getattr(j_ingest, name, None) or getattr(ng, name)
@@ -67,3 +68,16 @@ def test_chip_smoke_fails_without_gpu():
     assert res.returncode != 0
     last = (res.stdout.strip().splitlines() or [""])[-1]
     assert '"ok": true' not in last
+
+
+def test_normalize_annot_matches():
+    import numpy as np
+
+    from nextgp_tpu.api import priors as j_priors
+    from nextgp_tpu_torch.api import priors as t_priors
+
+    annot = np.random.default_rng(0).integers(0, 2, (7, 3)).astype(float)
+    out, ref = t_priors.normalize_annot(annot), j_priors.normalize_annot(annot)
+    assert out.dtype == ref.dtype and (out == ref).all()
+    with pytest.raises(ValueError, match="nSNP, nAnnot"):
+        t_priors.normalize_annot(annot[:, 0])

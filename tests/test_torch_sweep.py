@@ -2,14 +2,18 @@
 
 Both packages assemble one spec (intercept + one packed marker set) for
 each of BayesPR (windows of 20 SNPs on an interleaved two-chromosome map),
-BayesB, BayesC (both with estimatePi) and BayesR (estimatePi), each with a
-plain ("I") and a weighted ("D") residual, at V = 1 and V = 4. The port runs
+BayesB, BayesC, BayesR, BayesRCpi, BayesRCplus (all with estimatePi; three
+annotations, one of them on every locus) and BayesLV (a three-column
+covariate matrix; estimateVarZeta False, True and 0.5), each with a plain
+("I") and a weighted ("D") residual, at V = 1 and V = 4. The port runs
 on the CPU through its plain versions and draws from `JaxStream`, which
 reproduces the JAX package's keys with jax.random, so the two chains see
 the same numbers. Continuous fields agree to rtol 1e-9 (the two evaluate
 the same algebra in another order: the JAX pure path restores beta_old
-explicitly, the port folds it into the coefficients); delta is exactly
-equal.
+explicitly, the port folds it into the coefficients); delta and the
+annotation categories are exactly equal. Summary statistics (a fixed column
+and a marker set, with a v = 0 entry) and panels with padded loci are held
+to the JAX package the same way.
 """
 import dataclasses
 
@@ -56,7 +60,9 @@ class JaxStream:
         return torch.from_numpy(np.array(jax.random.gamma(self._key(site), a)))
 
 
-METHODS = ("BayesPR", "BayesB", "BayesC", "BayesR")
+METHODS = ("BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi", "BayesRCplus", "BayesLV",
+           "BayesLV-est", "BayesLV-0.5")
+RC_PI, RC_CLASSES = [0.85, 0.1, 0.05], [0.0, 1e-3, 1e-2]
 CASES = [(m, w) for m in METHODS for w in (False, True)]
 
 
@@ -64,33 +70,43 @@ def _case_id(case):
     return f"{case[0]}-{'D' if case[1] else 'I'}"
 
 
-def _data():
+def _data(p=P):
     rng = np.random.default_rng(20)
-    g = rng.integers(0, 3, (N, P)).astype(float)
-    bt = np.zeros(P)
-    bt[rng.choice(P, 12, replace=False)] = rng.normal(0, 0.4, 12)
+    g = rng.integers(0, 3, (N, p)).astype(float)
+    bt = np.zeros(p)
+    bt[rng.choice(p, 12, replace=False)] = rng.normal(0, 0.4, 12)
     y = 1.0 + (g - g.mean(0)) @ bt + rng.normal(0, 1, N)
     return g, y
 
 
-def _prior(mod, method):
+def _prior(mod, method, p=P):
     if method == "BayesPR":
         return mod.BayesPR(20, 0.05)
     if method in ("BayesB", "BayesC"):
         return getattr(mod, method)(0.3, 0.05, estimatePi=True)
+    if method in ("BayesRCpi", "BayesRCplus"):
+        # the first annotation on every locus, the others on about half of them
+        annot = np.random.default_rng(22).integers(0, 2, (p, 3)) | np.array([1, 0, 0])
+        return getattr(mod, method)(RC_PI, RC_CLASSES, 1.0, annot, estimatePi=True)
+    if method.startswith("BayesLV"):
+        cov = np.random.default_rng(23).normal(0, 1, (p, 3))
+        est = {"BayesLV": False, "BayesLV-est": True, "BayesLV-0.5": 0.5}[method]
+        return mod.BayesLV(0.01, cov, 0.01, estimateVarZeta=est)
     return mod.BayesR([0.85, 0.08, 0.05, 0.02], [0.0, 1e-3, 1e-2, 1e-1], 1.0, estimatePi=True)
 
 
-def _specs(method="BayesR", weighted=False):
-    g, y = _data()
-    chr_ids = (np.arange(P) // 48) % 2 + 1  # chromosomes 1 and 2, interleaved
+def _specs(method="BayesR", weighted=False, p=P, summary_stats=None):
+    g, y = _data(p)
+    chr_ids = (np.arange(p) // 48) % 2 + 1  # chromosomes 1 and 2, interleaved
     weights = np.random.default_rng(21).uniform(0.5, 2.0, N) if weighted else None
     out = []
     for mod in (ng, ngt):
         out.append(mod.ModelSpec(
             y=y, fixed=[mod.FixedTerm("int", np.ones(N))],
-            markers=[mod.MarkerTerm("M", mod.from_array(g, chr_ids=chr_ids), _prior(mod, method))],
+            markers=[mod.MarkerTerm("M", mod.from_array(g, chr_ids=chr_ids),
+                                    _prior(mod, method, p))],
             residual=None if weights is None else mod.RandomEffect(weights, 1.0),
+            summary_stats={k: mod.SummaryStatistics(*mv) for k, mv in (summary_stats or {}).items()},
             block_size=BLOCK))
     return tuple(out)
 
@@ -131,12 +147,20 @@ def _port_flat(state):
 def _assert_chains_agree(port_state, jax_state, plan):
     jf = _flatten(jax_state)
     tf = _port_flat(port_state)
+    mp = plan.markers[0]
     keys = ["ycorr", "e.var_e", "fixed.0.b", "markers.0.beta", "markers.0.var_beta"]
-    if plan.markers[0].method != "BayesPR":
+    exact = ["markers.0.delta"]
+    if mp.n_classes:
         keys += ["markers.0.pi_hat", "markers.0.log_pi"]
+    if mp.n_annot:
+        keys += ["markers.0.annot_prob"]
+        exact += ["markers.0.annot_cat"]
+    if mp.n_lv_cov:
+        keys += [f"markers.0.{f}" for f in ("log_var", "lv_c", "lv_resid", "var_zeta")]
     for key in keys:
         np.testing.assert_allclose(tf[key], jf[key], rtol=1e-9, atol=1e-12, err_msg=key)
-    np.testing.assert_array_equal(tf["markers.0.delta"], jf["markers.0.delta"])
+    for key in exact:
+        np.testing.assert_array_equal(tf[key], jf[key], err_msg=key)
     assert int(tf["sweep_index"]) == int(jf["sweep_index"])
 
 
@@ -161,9 +185,11 @@ def both(request):
 def test_assemble_matches(both):
     tplan, jstates = both["tplan"], both["jstates"]
     mp, jmp = tplan.markers[0], both["jplan"].markers[0]
-    assert mp.vshards == both["V"] and mp.method == jmp.method == both["method"]
-    assert (mp.n_var, mp.n_regions, mp.n_classes, mp.est_pi, mp.df, mp.weighted) == (
-        jmp.n_var, jmp.n_regions, jmp.n_classes, jmp.est_pi, jmp.df, jmp.weighted)
+    assert mp.vshards == both["V"] and mp.method == jmp.method == both["method"].split("-")[0]
+    assert (mp.n_var, mp.n_regions, mp.n_classes, mp.est_pi, mp.df, mp.weighted, mp.n_annot,
+            mp.n_lv_cov, mp.est_var_zeta) == (
+        jmp.n_var, jmp.n_regions, jmp.n_classes, jmp.est_pi, jmp.df, jmp.weighted, jmp.n_annot,
+        jmp.n_lv_cov, jmp.est_var_zeta)
     assert tplan.weighted == both["jplan"].weighted == both["weighted"]
     jf = {k: _port_layout(k, a, tplan) for k, a in _flatten(jstates[0]).items()}
     tf = _port_flat(both["tstate0"])
@@ -203,7 +229,10 @@ def test_state_from_numpy_is_strict(both):
     the plan leaves None (JAX's flatten drops it) is unknown when given."""
     arrays = _flatten(both["jstates"][0])
     with pytest.raises(KeyError, match="unknown"):
-        ngt.state_from_numpy(both["tplan"], {**arrays, "markers.0.annot_cat": arrays["y"]})
+        ngt.state_from_numpy(both["tplan"], {**arrays, "markers.0.no_such_field": arrays["y"]})
+    absent = "lv_c" if both["tplan"].markers[0].n_lv_cov == 0 else "annot_cat"
+    with pytest.raises(KeyError, match="unknown"):
+        ngt.state_from_numpy(both["tplan"], {**arrays, f"markers.0.{absent}": arrays["y"]})
     if not both["weighted"]:
         with pytest.raises(KeyError, match="unknown"):
             ngt.state_from_numpy(both["tplan"], {**arrays, "e.d_inv": arrays["y"]})
@@ -235,6 +264,112 @@ def test_run_lmem_matches(case, V):
         assert tres.draws[name].shape == jres.draws[name].shape, name
         np.testing.assert_allclose(tres.posterior_mean(name), jres.posterior_mean(name),
                                    rtol=1e-9, atol=1e-12, err_msg=name)
+
+
+def _three_sweeps_agree(js, ts):
+    jplan, jst = ng.assemble(js, use_pallas=False, pack2=True)
+    tplan, tst = ngt.assemble(ts, device="cpu", dtype=torch.float64)
+    jf, tf = _flatten(jst), _port_flat(tst)
+    for key in ("fixed.0.lhs_ss", "fixed.0.rhs_ss", "markers.0.lhs_ss", "markers.0.rhs_ss",
+                "markers.0.mask"):
+        np.testing.assert_allclose(tf[key], jf[key], rtol=1e-12, err_msg=key)
+    jsweep, tsweep = jax.jit(ng.make_sweep(jplan)), ngt.make_sweep(tplan)
+    stream = JaxStream(jax.random.key(CHAIN_KEY))
+    for _ in range(3):
+        jst = jsweep(jst, jax.random.key(CHAIN_KEY))
+        tst = tsweep(tst, stream)
+    _assert_chains_agree(tst, jst, tplan)
+    return tplan, tst
+
+
+def test_summary_statistics_match():
+    """Offsets 1/v and m/v on a single fixed column and on a marker set; two
+    entries with v = 0 and m = 0 (lhs = inf and rhs = nan, both guarded to
+    0) reach the marker guards."""
+    rng = np.random.default_rng(24)
+    v = rng.uniform(0.5, 2.0, P)
+    m = rng.normal(0, 0.05, P)
+    v[3] = v[7] = m[3] = m[7] = 0.0
+    ss = {"int": (np.array([0.8]), np.array([0.25])), "M": (m, v)}
+    tplan, tst = _three_sweeps_agree(*_specs("BayesR", summary_stats=ss))
+    lhs = tst.markers[0].lhs_ss.reshape(-1)
+    rhs = tst.markers[0].rhs_ss.reshape(-1)
+    assert lhs[3] == 0 and lhs[7] == 0 and rhs[3] == 0 and rhs[7] == 0 and (lhs > 0).sum() == P - 2
+    assert torch.isfinite(tst.markers[0].rhs_ss).all() and tst.fixed[0].lhs_ss[0] == 4.0
+
+
+def test_unconsumed_summary_statistics_warn():
+    """Offsets on a multi-column block are read by no sampler, in the
+    reference too; both packages say so."""
+    x = np.random.default_rng(3).normal(0, 1, (N, 2))
+    y = np.random.default_rng(4).normal(0, 1, N)
+    for mod in (ng, ngt):
+        spec = mod.ModelSpec(y=y, fixed=[mod.FixedTerm("a", x[:, 0]), mod.FixedTerm("b", x[:, 1])],
+                             blocks=[("a", "b")],
+                             summary_stats={("a", "b"): mod.SummaryStatistics(np.zeros(2), np.ones(2))})
+        with pytest.warns(UserWarning, match="not consumed"):
+            mod.assemble(spec, **({"device": "cpu"} if mod is ngt else {}))
+
+
+@pytest.mark.parametrize("method", ["BayesRCpi", "BayesRCplus", "BayesLV-est"])
+def test_padded_loci_match(method):
+    """250 loci in blocks of 16: six padded loci, whose annotation rows are
+    empty (the scans' NaN probabilities there must stay out of the state)."""
+    tplan, tst = _three_sweeps_agree(*_specs(method, p=250))
+    ms = tst.markers[0]
+    assert tplan.markers[0].p_pad == 256 and not ms.mask.reshape(-1)[250:].any()
+    assert (ms.beta[250:] == 0).all() and torch.isfinite(ms.beta).all()
+    if tplan.markers[0].n_annot:
+        assert (ms.annot_prob[250:] == 0).all() and (ms.annot_cat[250:] == 0).all()
+
+
+def test_bayeslv_formula_string_raises():
+    """The formula-string form of BayesLV's covariates belongs to the formula
+    front end, which the port does not carry yet."""
+    _, ts = _specs()
+    g, _ = _data()
+    bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm(
+        "M", ngt.from_array(g), ngt.BayesLV(0.01, "1 + x1", 0.01, covariate_table={"x1": g[0]}))])
+    with pytest.raises(NotImplementedError, match="M12"):
+        ngt.assemble(bad, device="cpu")
+    bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm(
+        "M", ngt.from_array(g), ngt.BayesLV(0.01, np.ones((P - 1, 2)), 0.01))])
+    with pytest.raises(ValueError, match="nSNP rows"):
+        ngt.assemble(bad, device="cpu")
+
+
+@pytest.mark.parametrize("V", [1, 4], ids=["V1", "V4"])
+@pytest.mark.parametrize("ones", [False, True], ids=["covariates", "ones+covariates"])
+def test_bayeslv_float32_follows_float64(ones, V):
+    """The variance draw's powers, exponentials and logarithms in float32:
+    30 sweeps from the same host draws stay on the float64 chain. Without a
+    column of ones the design cannot carry the mean log-variance, so the
+    variances are drawn around exp(0) = 1 whatever they started from; with
+    one they stay near their start."""
+    from nextgp_tpu_torch.engine.rng import HostStream
+
+    g, y = _data()
+    cov = np.random.default_rng(23).normal(0, 1, (P, 3))
+    if ones:
+        cov = np.column_stack([np.ones(P), cov])
+    spec = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))],
+                         markers=[ngt.MarkerTerm("M", ngt.from_array(g), ngt.BayesLV(0.01, cov, 0.01))],
+                         block_size=BLOCK)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        plan, st = ngt.assemble(spec, device="cpu", dtype=dtype, vshards=V)
+        sweep, draws = ngt.make_sweep(plan), HostStream(5, "cpu", dtype)
+        for _ in range(30):
+            st = sweep(st, draws)
+        out[dtype] = st
+    m32, m64 = out[torch.float32].markers[0], out[torch.float64].markers[0]
+    assert m32.var_beta.dtype == torch.float32 and torch.isfinite(m32.var_beta).all()
+    np.testing.assert_allclose(m32.log_var.numpy(), m64.log_var.numpy(), atol=1e-3)
+    np.testing.assert_allclose(m32.beta.numpy(), m64.beta.numpy(), atol=1e-3 * m64.beta.abs().max().item())
+    np.testing.assert_allclose(out[torch.float32].e.var_e.item(), out[torch.float64].e.var_e.item(),
+                               rtol=1e-3)
+    median = m64.var_beta[:P].median().item()
+    assert (median < 0.05) if ones else (0.5 < median < 2.0)
 
 
 def test_philox_stream_reproducible():

@@ -11,8 +11,10 @@ Phases (any failed check raises and the script exits non-zero):
      3.35 TB/s or its operations over 67 TFLOP/s; a scan needs the Gram's
      lower triangle only): K1 gather, K2 scatter, K3 BayesR scan, K6 Gaussian scan, K8
      B/C scan, K10 weighted B/C scan, K12 BayesRCpi scan, K14 BayesRCplus
-     scan, K1 at 100,000 individuals (y past shared memory) and K12 with a
-     chain's coefficient rows past shared memory (A = 8, K = 4)
+     scan, K1 at 100,000 individuals (y past shared memory), K12 with a
+     chain's coefficient rows past shared memory (A = 8, K = 4), K1 and K2
+     over the whole panel (K1', K2'), and every scan again at V = 1, the
+     single-chain launch the V=1 paths make (K4, K5, K7, K9, K11, K13)
   4. the paths at full size on one simulated 10,000 x 49,152 panel, 2-bit
      packed once and shared, V=96, 100 sweeps of run_lmem each: BayesR with
      estimatePi, BayesC, BayesC with a weighted ("D") residual, BayesPR
@@ -20,8 +22,9 @@ Phases (any failed check raises and the script exits non-zero):
      annotations each) and BayesLV (three variance covariates); per-path
      launch counts, residual drift, finite draws, pi, annotation state,
      EBV correlation with the planted signal, steady sweep time and a
-     profiled window. Then BayesC, BayesC+D, BayesPR, BayesRCpi, BayesRCplus
-     and BayesLV again at V=1, the reference-sequential block order: with
+     profiled window; for BayesR also a window under diag.trace with host
+     and device time by stage scope, and diag.roofline beside the measured
+     sweep. Then all seven again at V=1, the reference-sequential block order: with
      V=96 every step updates half the loci against one residual, which
      overshoots under dense priors (PERF.md), so BayesC's, BayesRCpi's and
      BayesLV's EBV limits (and BayesLV's ceiling on varE) are held at V=1.
@@ -31,21 +34,33 @@ Phases (any failed check raises and the script exits non-zero):
      draws, for all seven methods and BayesC+D; two kernel runs from one
      seed must give bit-identical beta; BayesLV's float32 kernel chain also
      against the float64 plain chain over 20 sweeps
+  6. the measurement ladder at the JAX scripts' full sizes: its six kernels
+     (read-only pass, 1- and 4-byte-load gathers, dense int8 gather and
+     scatter, fused scatter||gather) against their plain versions on the same
+     inputs, then `nextgp_tpu_torch.micro` through its entry point, one
+     experiment at a time with launch counts: K1 and K2 over 16 fresh steps
+     of a 7.4 GB panel beside the read-only roof, the fused step against the
+     sequential pair, load widths, dense against packed (K1', K2')
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 import nextgp_tpu_torch as ngt
+from nextgp_tpu_torch import diag, micro
 from nextgp_tpu_torch.engine.rng import HostStream, PhiloxStream
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
 from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2
+from nextgp_tpu_torch.ops import micro as mk
 
 N, P, BLOCK, V_MAIN = 10_000, 49_152, 256, 96
 N_CHAIN, N_BURN, N_THIN = 100, 50, 5
@@ -120,15 +135,32 @@ def rel_err(out, ref):
     return (out - ref).abs().max().item(), ref.abs().max().item()
 
 
+TIMINGS = {}  # kernels-line name -> what `report` measured for it
+
+
+def report(name, err, scale, tol, ms_k, ms_p, work, note="", library_ms=None, phase="3 kernels"):
+    """Hold one kernel to its plain version and keep its numbers. work: (bytes
+    moved with each input read and each output written once, operations) of
+    one call, from its shapes. library_ms: the time of the one PyTorch call
+    that computes the same function, where there is one."""
+    t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / F32_FLOP_PER_S
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    lib = ("no single PyTorch call computes it" if library_ms is None
+           else f"the one PyTorch call {library_ms:.4f} ms")
+    print(f"[{phase}] {name}: max_abs_err {err:.3e} (scale {scale:.3e}, tol {tol:g} x scale), "
+          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+          f"({work[0]:,} bytes, {work[1]:,} operations; {lib}){note}")
+    check(err <= tol * scale, f"{name} disagrees with its plain version")
+    TIMINGS[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+
+
 # ------------------------------------------------------------------ phase 1
 
 
 def device_phase():
     check(torch.cuda.is_available(), "no CUDA device: the port's main path needs the card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = micro.card_line(DEV)
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True, timeout=60)
     print(f"[1 device] {card} | torch {torch.__version__}, CUDA {torch.version.cuda} | "
           f"{nvcc.stdout.strip().splitlines()[-1]} | cards: {torch.cuda.device_count()}")
@@ -257,7 +289,7 @@ class Step0:
         unif[glob] = torch.rand(glob.numel(), generator=gen, dtype=unif.dtype, device=DEV)
 
 
-def held_scan(name, report, kern, plain, make_rows, unif, gen, step, near, work, note):
+def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note):
     """Redraw the uniforms of loci near a decision edge until none is, then
     hold the kernel against its plain version: delta exact, u and beta
     within TOL_SCAN of their scale."""
@@ -279,7 +311,7 @@ def held_scan(name, report, kern, plain, make_rows, unif, gen, step, near, work,
            f"counts {torch.bincount(got[2].reshape(-1)).tolist()})")
 
 
-def big_gather(report):
+def big_gather():
     """K1 at 100,000 individuals (q = 25,088): 16*q bytes of y exceed a
     block's shared memory, so the gather reads a transposed copy of y from
     device memory; step t = 1 of 1,000-row steps."""
@@ -301,7 +333,7 @@ def big_gather(report):
            f" ({ROWS_BIG} x {q} step, n = {N_BIG:,}; y {16 * q:,} bytes read from device memory)")
 
 
-def held_rc_scan(name, report, kern, plain, pk_t, slots, discrete, gen, work, note):
+def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
     """K12/K14 against their plain versions. The plain version runs on the
     rows, on the rows with every uniform (the `slots` of a row) lowered by
     RC_MARGIN and on the rows with every uniform raised by it; a locus whose
@@ -349,12 +381,13 @@ def held_rc_scan(name, report, kern, plain, pk_t, slots, discrete, gen, work, no
     return pk_t, got
 
 
-def rc_kernels(spec_for, report, z):
+def rc_kernels(spec_for, z, V, tag):
     """K12 and K14 at step t = 0 of the BayesRCpi model, a first sweep's
     coefficients on the real data (both methods start from the same state);
-    then K12 with A = 8, K = 4 on the same Gram blocks, where a chain's rows
-    exceed a block's shared memory (the kernel holds two rows at a time)."""
-    plan, st = ngt.assemble(spec_for("BayesRCpi"), vshards=V_MAIN)
+    then, at the main paths' V, K12 with A = 8, K = 4 on the same Gram blocks,
+    where a chain's rows exceed a block's shared memory (the kernel holds two
+    rows at a time)."""
+    plan, st = ngt.assemble(spec_for("BayesRCpi"), vshards=V)
     ms, mp = st.markers[0], plan.markers[0]
     T, V, B, _ = ms.mt.shape
     A, K = mp.n_annot, mp.n_classes
@@ -384,7 +417,7 @@ def rc_kernels(spec_for, report, z):
 
     varc = ms.var_beta[:, None] * ms.v_class[None, :]
     _, got_pi = held_rc_scan(
-        "rcpi_block_scan_v", report, *rcpi(A, K),
+        f"rcpi_block_scan_v{tag}", *rcpi(A, K),
         rcpi_rows(ms.annot_input, ms.annot_prob, ms.annot_nz, varc, ms.log_pi), [2, 3], (2, 3),
         gen, scan_work(V, B, 8 + 8 * A * K, 1, 4 + A, 12 * A * K), f"V={V}, B={B}, A={A}, K={K}")
     on = ms.mask.view(V, T, B)[:, 0]
@@ -399,12 +432,14 @@ def rc_kernels(spec_for, report, z):
         ms.beta, torch.randn((mp.p_pad, A), generator=gen, dtype=dt, device=DEV),
         rand(mp.p_pad, A), ms.annot_nz, varc=varc, logpi=ms.log_pi, **coef))
     held_rc_scan(
-        "rcplus_block_scan_v", report,
+        f"rcplus_block_scan_v{tag}",
         lambda pk_t: gibbs_kernels.rcplus_block_scan_v((ms.gram, 0), pk_t, A, K),
         lambda pk_t: gibbs_kernels.rcplus_block_scan_v_plain(gram0, pk_t, A, K),
         pk_plus, [8 + a * K for a in range(A)], (2, 3, 5), gen,
         scan_work(V, B, 8 + 6 * A * K, 1, 3 + 3 * A, 14 * A * K, diag=True),
         f"V={V}, B={B}, A={A}, K={K}")
+    if V != V_MAIN:
+        return
 
     A8, K8 = 8, 4
     check(4 * B * (8 + 8 * A8 * K8) > gibbs_kernels.SMEM_BYTES, "A = 8, K = 4 rows fit shared memory")
@@ -415,41 +450,26 @@ def rc_kernels(spec_for, report, z):
     logpi8 = torch.log(torch.tensor(PRIOR_R["pi"], dtype=dt, device=DEV)).expand(A8, K8)
     varc8 = ms.var_beta[0] * torch.tensor(PRIOR_R["class_"], dtype=dt, device=DEV).expand(A8, K8)
     held_rc_scan(
-        "rcpi_block_scan_v_wide", report, *rcpi(A8, K8),
+        "rcpi_block_scan_v_wide", *rcpi(A8, K8),
         rcpi_rows(anz8.to(dt), anz8 / count.clamp(min=1.0), anz8, varc8.contiguous(), logpi8.contiguous()),
         [2, 3], (2, 3), gen, scan_work(V, B, 8 + 8 * A8 * K8, 1, 4 + A8, 12 * A8 * K8),
         f"V={V}, B={B}, A={A8}, K={K8}: {4 * B * (8 + 8 * A8 * K8):,} bytes of rows per chain, "
         f"more than shared memory holds")
 
 
-def kernels_phase(spec_for):
-    plan, st = ngt.assemble(spec_for("BayesR"), vshards=V_MAIN)
-    ms, mp = st.markers[0], plan.markers[0]
+def pass_kernels(st):
+    """K1, K2 and their whole-panel forms K1' and K2' on the BayesR model's
+    panel, then K1 at 100,000 individuals."""
+    ms = st.markers[0]
     T, V, B, q = ms.mt.shape
-    rows, K = V * B, mp.n_classes
-    check(V == V_MAIN and q == pack2.packed_q(N), f"layout (T, V, B, q) = {(T, V, B, q)}")
+    rows = V * B
     mt_rows = ms.mt.view(-1, q)
     g = torch.Generator(device=DEV).manual_seed(1)
     dt = st.ycorr.dtype  # float32 on the card
-    step = Step0(st)
-    y4 = pack2.y_planar(step.y)
+    y4 = pack2.y_planar(Step0(st).y)
     u = torch.randn(rows, generator=g, dtype=dt, device=DEV) * 0.01
     u_all = torch.randn(T * rows, generator=g, dtype=dt, device=DEV) * 0.01
     sl = slice(rows, 2 * rows)  # step t = 1: a real offset into the panel
-    out = {}
-
-    def report(name, err, scale, tol, ms_k, ms_p, work, note=""):
-        """work: (bytes moved with each input read and each output written
-        once, floating-point operations) of one call, from its shapes."""
-        t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / F32_FLOP_PER_S
-        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-        print(f"[3 kernels] {name}: max_abs_err {err:.3e} (scale {scale:.3e}, tol {tol:g} x scale), "
-              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({work[0]:,} bytes, {work[1]:,} operations; no single PyTorch call computes "
-              f"it){note}")
-        check(err <= tol * scale, f"{name} disagrees with its plain version")
-        out[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
 
     e, s = rel_err(pack2.matvec_step(mt_rows, 1, y4, rows), pack2.matvec_plain(mt_rows[sl], y4))
     report("pack2_matvec", e, s, TOL_PASS,
@@ -466,7 +486,26 @@ def kernels_phase(spec_for):
            median_ms(lambda: pack2.rank_update(mt_rows, u_all), 20),
            median_ms(lambda: pack2.rank_update_plain(mt_rows, u_all), 5), pass_work(T * rows, q),
            f" ({T * rows} x {q} whole panel, serving)")
-    big_gather(report)
+    e, s = rel_err(pack2.matvec(mt_rows, y4), pack2.matvec_plain(mt_rows, y4))
+    report("pack2_matvec_panel", e, s, TOL_PASS, median_ms(lambda: pack2.matvec(mt_rows, y4), 20),
+           median_ms(lambda: pack2.matvec_plain(mt_rows, y4), 5), pass_work(T * rows, q),
+           f" ({T * rows} x {q} whole panel)")
+    big_gather()
+
+
+def kernels_phase(spec_for, V=V_MAIN, tag=""):
+    """Every kernel of the sweep against its plain version at the paths'
+    shapes for this V; with V = 1 (tag "_v1") the single-chain launches of
+    the scans, as the V=1 paths make them 192 times per sweep."""
+    plan, st = ngt.assemble(spec_for("BayesR"), vshards=V)
+    ms, mp = st.markers[0], plan.markers[0]
+    T, V_got, B, q = ms.mt.shape
+    K = mp.n_classes
+    check(V_got == V and q == pack2.packed_q(N), f"layout (T, V, B, q) = {(T, V_got, B, q)}")
+    dt = st.ycorr.dtype
+    step = Step0(st)
+    if V == V_MAIN:
+        pass_kernels(st)
 
     # the scans at step t=0 with the coefficients of a first sweep on the real data
     gen = torch.Generator(device=DEV).manual_seed(2)
@@ -480,7 +519,7 @@ def kernels_phase(spec_for):
 
     varc = ms.var_beta[0] * ms.v_class
     held_scan(
-        "r_block_scan_v", report,
+        f"r_block_scan_v{tag}",
         lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, K),
         lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, K),
         lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc,
@@ -497,7 +536,7 @@ def kernels_phase(spec_for):
     e_u, s_u = rel_err(got[1], ref[1])
     check(e_u <= TOL_SCAN * s_u, f"gauss_block_scan_v: u differs by {e_u:.3e} (scale {s_u:.3e})")
     e_b, s_b = rel_err(got[0], ref[0])
-    report("gauss_block_scan_v", e_b, s_b, TOL_SCAN,
+    report(f"gauss_block_scan_v{tag}", e_b, s_b, TOL_SCAN,
            median_ms(lambda: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t), 20),
            median_ms(lambda: gibbs_kernels.gauss_block_scan_v_plain(gram0, pk_t), 3),
            scan_work(V, B, 8, 1, 2, 4), f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; V={V}, B={B})")
@@ -512,7 +551,7 @@ def kernels_phase(spec_for):
             mpm_raw=mpm_raw), raw=mpm_raw is not None)
 
     held_scan(
-        "bc_block_scan_v", report,
+        f"bc_block_scan_v{tag}",
         lambda pk_t: gibbs_kernels.bc_block_scan_v((ms.gram, 0), pk_t),
         lambda pk_t: gibbs_kernels.bc_block_scan_v_plain(gram0, pk_t),
         lambda un: bc_rows(step, ms, un), unif, gen, step,
@@ -520,20 +559,19 @@ def kernels_phase(spec_for):
         f"V={V}, B={B}")
     del plan, st, step
 
-    _, st_w = ngt.assemble(spec_for("BayesC+D"), vshards=V_MAIN)
+    _, st_w = ngt.assemble(spec_for("BayesC+D"), vshards=V)
     mw = st_w.markers[0]
     step_w = Step0(st_w)
     raw_diag = _gram_raw_diag(mw)
     held_scan(
-        "bc_block_scan_wv", report,
+        f"bc_block_scan_wv{tag}",
         lambda pk_t: gibbs_kernels.bc_block_scan_wv((mw.gram, 0), (mw.gram_raw, 0), pk_t),
         lambda pk_t: gibbs_kernels.bc_block_scan_wv_plain(mw.gram[0], mw.gram_raw[0], pk_t),
         lambda un: bc_rows(step_w, mw, un, raw_diag), unif, gen, step_w,
         lambda pk_t, uu: bc_near(mw.gram_raw[0], pk_t, uu, 7), scan_work(V, B, 8, 2, 3, 8),
         f"V={V}, B={B}, weighted and raw Gram")
     del st_w, mw, step_w
-    rc_kernels(spec_for, report, z)
-    return out
+    rc_kernels(spec_for, z, V, tag)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -645,9 +683,9 @@ def timing_window(path, res, n_timed=50, n_sweeps=10):
             st = sweep(st, stream)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
+    # the sweep's stage scopes are spans, not work: on the device from a stage's
+    # first kernel to its last, on the host around everything a stage calls
+    events = [e for e in prof.key_averages() if not e.key.startswith("gibbs.")]
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
                       if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
@@ -723,20 +761,192 @@ def chain_phase():
                       f"BayesLV V={V}: the float32 kernel chain departs from the float64 plain chain")
 
 
-SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
-    "pack2_matvec": ("nextgp_tpu_torch/csrc/pack2.cu", "nextgp_tpu/ops/pack2.py:302"),
-    "pack2_rank_update": ("nextgp_tpu_torch/csrc/pack2.cu", "nextgp_tpu/ops/pack2.py:329"),
-    "r_block_scan_v": ("nextgp_tpu_torch/csrc/r_scan.cu", "nextgp_tpu/ops/gibbs_kernels.py:518"),
-    "gauss_block_scan_v": ("nextgp_tpu_torch/csrc/gauss_bc_scan.cu",
-                           "nextgp_tpu/ops/gibbs_kernels.py:389"),
-    "bc_block_scan_v": ("nextgp_tpu_torch/csrc/gauss_bc_scan.cu",
-                        "nextgp_tpu/ops/gibbs_kernels.py:422"),
-    "bc_block_scan_wv": ("nextgp_tpu_torch/csrc/gauss_bc_scan.cu",
-                         "nextgp_tpu/ops/gibbs_kernels.py:457"),
-    "rcpi_block_scan_v": ("nextgp_tpu_torch/csrc/rc_scan.cu",
-                          "nextgp_tpu/ops/gibbs_kernels.py:718"),
-    "rcplus_block_scan_v": ("nextgp_tpu_torch/csrc/rc_scan.cu",
-                            "nextgp_tpu/ops/gibbs_kernels.py:952"),
+# ------------------------------------------------------------------ phase 6
+
+LADDER = dict(rows=36_864, q=12_544, T=16, load_rows=24_576, L=16_384, N=10_240)  # the scripts' sizes
+
+
+def per_launch_ms(walk, launches):
+    """Median time of one launch from five walks of `launches` launches each."""
+    return statistics.median(micro.walk_ms(walk, DEV, 5)) / launches
+
+
+def ladder_kernels():
+    """The six ladder kernels against their plain versions at the scripts'
+    full shapes, on the same inputs: integers exactly equal, floats to
+    TOL_PASS of the output's scale, each scatter's two runs bit-identical.
+    The S3/S4 kernels are timed over the T fresh steps of the 7.4 GB panel."""
+    rows, q, T = LADDER["rows"], LADDER["q"], LADDER["T"]
+    ph = "6 ladder kernels"
+    pk_all, u, y4 = micro.step_inputs(rows, q, T, DEV, 0)
+    got, ref = mk.read_step(pk_all, 1, rows), mk.read_step_plain(pk_all, 1, rows)
+    check(torch.equal(got, ref), "read_step: row sums differ from the plain version")
+    lib = median_ms(lambda: pk_all[rows:2 * rows].sum(dim=1, dtype=torch.int32), 5)
+    report("read_step", 0.0, float(ref.max()), 0.0,
+           per_launch_ms(lambda: [mk.read_step(pk_all, t, rows) for t in range(T)], T), lib,
+           (rows * q + 4 * rows, rows * q), f" ({rows} x {q} step, T={T} fresh steps; int32 sums "
+           f"exactly equal; one addition per byte, taken at the f32 rate; the plain version is "
+           f"the one PyTorch call)", library_ms=lib, phase=ph)
+
+    (r0, dy), (ref_r0, ref_dy) = mk.fused_step(pk_all, 0, 1, u, y4), mk.fused_step_plain(pk_all, 0, 1, u, y4)
+    again = mk.fused_step(pk_all, 0, 1, u, y4)
+    check(torch.equal(r0, again[0]) and torch.equal(dy, again[1]), "fused_step: two runs differ")
+    e_d, s_d = rel_err(dy, ref_dy)
+    check(e_d <= TOL_PASS * s_d, f"fused_step: dy differs by {e_d:.3e} (scale {s_d:.3e})")
+    e_r, s_r = rel_err(r0, ref_r0)
+    g_b, g_o = pass_work(rows, q)
+    report("fused_step", e_r, s_r, TOL_PASS,
+           per_launch_ms(lambda: [mk.fused_step(pk_all, t, (t + 1) % T, u, y4) for t in range(T)], T),
+           median_ms(lambda: mk.fused_step_plain(pk_all, 0, 1, u, y4), 3), (2 * g_b, 2 * g_o),
+           f" (r0; dy max_abs_err {e_d:.3e} of scale {s_d:.3e}; gather of one {rows} x {q} step "
+           f"and scatter of another, T={T} fresh steps; two runs bit-identical)", phase=ph)
+    del pk_all, ref_r0, ref_dy
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    R = LADDER["load_rows"]
+    pk = micro.panel(R, q, DEV, gen, high=256)
+    yb = torch.randn((4, q), generator=gen, device=DEV)
+    for width, pkw in ((1, pk), (4, pk.view(torch.int32))):
+        yw = mk.y_words(yb, width)
+        e, s = rel_err(mk.gather_width(pkw, yw), mk.gather_width_plain(pkw, yw))
+        report(f"gather_width{width}", e, s, TOL_PASS, median_ms(lambda: mk.gather_width(pkw, yw), 10),
+               median_ms(lambda: mk.gather_width_plain(pkw, yw), 3), pass_work(R, q),
+               f" ({R} x {q} bytes, {width}-byte loads)", phase=ph)
+    del pk, pkw
+
+    L, Nn = LADDER["L"], LADDER["N"]
+    mt = torch.randint(0, 3, (L, Nn), generator=gen, device=DEV, dtype=torch.int8)
+    yv, uv = torch.randn(Nn, generator=gen, device=DEV), torch.randn(L, generator=gen, device=DEV)
+    mts = micro.copies(mt)  # rotate: 168 MB is not far enough above the 50 MB L2
+    work = (L * Nn + 4 * Nn + 4 * L, 2 * L * Nn)
+    e, s = rel_err(mk.dense_gather(mt, yv), mk.dense_gather_plain(mt, yv))
+    report("dense_gather", e, s, TOL_PASS,
+           per_launch_ms(lambda: [mk.dense_gather(m, yv) for m in mts], len(mts)),
+           median_ms(lambda: mk.dense_gather_plain(mt, yv), 5), work,
+           f" ({L} x {Nn} int8, rotating over {len(mts)} copies)", phase=ph)
+    ds = mk.dense_scatter(mt, uv)
+    check(torch.equal(ds, mk.dense_scatter(mt, uv)), "dense_scatter: two runs differ")
+    e, s = rel_err(ds, mk.dense_scatter_plain(mt, uv))
+    report("dense_scatter", e, s, TOL_PASS,
+           per_launch_ms(lambda: [mk.dense_scatter(m, uv) for m in mts], len(mts)),
+           median_ms(lambda: mk.dense_scatter_plain(mt, uv), 5), work,
+           f" ({L} x {Nn} int8, rotating over {len(mts)} copies; two runs bit-identical)", phase=ph)
+
+
+def ladder_phase(card):
+    """The ladder through its entry point at the scripts' sizes, one
+    experiment at a time with the launch counts read from 0."""
+    ladder_kernels()
+    counted = {}
+    for name in micro.EXPERIMENTS:
+        _cuda.reset_launches()
+        print(f"[6 ladder] {name}:")
+        rec, = micro.main([name])
+        counted[f"ladder {name}"] = dict(_cuda.LAUNCHES)
+        check(rec["card"] == card and rec["device"].startswith("cuda"), f"ladder {name}: not on the card")
+        times = [c["ms_per_launch"] for c in rec["cases"].values()]
+        check(all(np.isfinite(t) and t > 0 for t in times), f"ladder {name}: a case has no time")
+    return counted
+
+
+def stage_phase(path, res, n_sweeps=10):
+    """One profiled window of sweeps through diag.trace: host and device time
+    by the sweep's stage scopes, and diag.roofline beside the measured sweep."""
+    sweep = ngt.make_sweep(res.plan)
+    stream = PhiloxStream(9, DEV, res.plan.dtype)
+    st = sweep(res.state, stream)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with diag.trace(log_dir) as prof:
+            for _ in range(n_sweeps):
+                st = sweep(st, stream)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        trace_bytes = os.path.getsize(os.path.join(log_dir, diag.TRACE_FILE))
+    # The scopes appear twice: on the host, and on the device as the span from
+    # a stage's first kernel to its last. Kernels launched through ctypes hang
+    # on no PyTorch operator, so the profiler's own sums by scope miss them:
+    # a stage's busy time is the kernels and copies that lie inside its span.
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    work = [e.time_range for e in on_card if not e.name.startswith("gibbs.")]
+    host = {e.key: e for e in prof.key_averages()
+            if e.key.startswith("gibbs.") and e.device_type == DeviceType.CPU}
+    expect = {"gibbs.var_e", "gibbs.fixed.0", f"gibbs.marker.{res.plan.markers[0].name}"}
+    check(set(host) == expect, f"{path}: traced stages {sorted(host)}, expected {sorted(expect)}")
+    span, busy = dict.fromkeys(expect, 0.0), dict.fromkeys(expect, 0.0)
+    for e in on_card:
+        if e.name in expect:
+            r = e.time_range
+            span[e.name] += r.end - r.start
+            busy[e.name] += sum(w.end - w.start for w in work
+                                if w.start >= r.start - 0.5 and w.end <= r.end + 0.5)  # microseconds
+    all_busy = sum(w.end - w.start for w in work)
+    print(f"[6 stages {path}] {n_sweeps} sweeps under diag.trace ({trace_bytes:,} bytes of Chrome "
+          f"trace; profiler and export in the wall time: {wall_ms / n_sweeps:.4f} ms/sweep); device "
+          f"busy {all_busy / 1e3 / n_sweeps:.4f} ms/sweep in {len(work) / n_sweeps:.1f} kernels and copies")
+    for key in sorted(expect):
+        check(host[key].count == n_sweeps, f"{path}: stage {key} seen {host[key].count} times")
+        print(f"  {key:<20} host {host[key].cpu_time_total / 1e3 / n_sweeps:9.4f} ms/sweep, device busy "
+              f"{busy[key] / 1e3 / n_sweeps:9.4f} ms/sweep within a span of "
+              f"{span[key] / 1e3 / n_sweeps:9.4f} ms/sweep")
+    check(all(b > 0 for b in busy.values()), f"{path}: a stage shows no device time: {busy}")
+    check(sum(busy.values()) >= 0.9 * all_busy,
+          f"{path}: the stages hold {sum(busy.values()):.0f} of {all_busy:.0f} us of device time")
+    st_t = sweep(st, stream)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_sweeps):
+        st_t = sweep(st_t, stream)
+    torch.cuda.synchronize()
+    ms_sweep = (time.perf_counter() - t0) * 1e3 / n_sweeps
+    roof = diag.roofline(res.plan, "h100")
+    print(f"[6 roofline {path}] {roof} (data sheet: 3,350 GB/s, 67 TFLOP/s f32): least "
+          f"{1e3 / roof.sweeps_per_sec_roof:.4f} ms/sweep; measured {ms_sweep:.4f} ms/sweep "
+          f"({n_sweeps} sweeps, profiler off), {ms_sweep * roof.sweeps_per_sec_roof / 1e3:.1f}x the roof")
+
+
+CU = "nextgp_tpu_torch/csrc/"
+GK = "nextgp_tpu/ops/gibbs_kernels.py:"
+V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
+STEP_LADDER, PANEL_LADDER = ("ladder fused", "ladder frontier"), ("ladder load32", "ladder matvec")
+# kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
+# the runs whose launches count for it). The single-chain scans (K4, K5, K7,
+# K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
+# K1 and K2 over a whole panel, which the ladder launches.
+SOURCES = {
+    "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", V96 + STEP_LADDER),
+    "pack2_matvec_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:171", "pack2_matvec", PANEL_LADDER),
+    "pack2_rank_update": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
+                          V96 + STEP_LADDER),
+    "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
+                                ("ladder matvec",)),
+    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96),
+    "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1),
+    "gauss_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v", V96),
+    "gauss_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v", V1),
+    "bc_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "422", "bc_block_scan_v", V96),
+    "bc_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v", V1),
+    "bc_block_scan_wv": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv", V96),
+    "bc_block_scan_wv_v1": (CU + "gauss_bc_scan.cu", GK + "189", "bc_block_scan_wv", V1),
+    "rcpi_block_scan_v": (CU + "rc_scan.cu", GK + "718", "rcpi_block_scan_v", V96),
+    "rcpi_block_scan_v_v1": (CU + "rc_scan.cu", GK + "627", "rcpi_block_scan_v", V1),
+    "rcplus_block_scan_v": (CU + "rc_scan.cu", GK + "952", "rcplus_block_scan_v", V96),
+    "rcplus_block_scan_v_v1": (CU + "rc_scan.cu", GK + "847", "rcplus_block_scan_v", V1),
+    "gather_width1": (CU + "micro.cu", "scripts/micro_load32.py:80", "gather_width1", ("ladder load32",)),
+    "gather_width4": (CU + "micro.cu", "scripts/micro_load32.py:95", "gather_width4", ("ladder load32",)),
+    "dense_gather": (CU + "micro.cu", "scripts/micro_matvec.py:69", "dense_gather", ("ladder matvec",)),
+    "dense_scatter": (CU + "micro.cu", "scripts/micro_matvec.py:94", "dense_scatter", ("ladder matvec",)),
+    "fused_step": (CU + "micro.cu", "scripts/micro_fused.py:118", "fused_step", ("ladder fused",)),
+    "read_step": (CU + "micro.cu", "scripts/micro_frontier.py:87", "read_step", ("ladder frontier",)),
+}
+# the scripts' other kernels compute what these compute; the ladder launches these at their shapes
+ALSO_REPLACES = {
+    "pack2_matvec": ["scripts/micro_frontier.py:111"],
+    "pack2_rank_update": ["scripts/micro_frontier.py:135"],
+    "pack2_matvec_panel": ["scripts/micro_matvec.py:163", "scripts/micro_matvec.py:226"],
+    "pack2_rank_update_panel": ["scripts/micro_matvec.py:191"],
 }
 
 
@@ -745,24 +955,30 @@ def main():
     card = device_phase()
     build_phase()
     spec_for, sig = simulate()
-    timings = kernels_phase(spec_for)
-    by_path = {name: {} for name in SOURCES}  # kernel -> {V=96 path: launches in its run_lmem}
+    kernels_phase(spec_for)
+    kernels_phase(spec_for, V=1, tag="_v1")
+    counted = {}  # run -> launches by counter, each read from 0
     for path in PATHS:
-        counted, res = slice_phase(path, spec_for(path), sig, card, V_MAIN)
-        for name in SOURCES:
-            if counted[name]:
-                by_path[name][path] = counted[name]
+        counted[path], res = slice_phase(path, spec_for(path), sig, card, V_MAIN)
         timing_window(path, res)
+        if path == "BayesR":
+            stage_phase(path, res)
         del res
-    for path in ("BayesC", "BayesC+D", "BayesPR", "BayesRCpi", "BayesRCplus", "BayesLV"):
-        slice_phase(path, spec_for(path), sig, card, 1)
+    for path in PATHS:
+        counted[f"{path} V=1"], _ = slice_phase(path, spec_for(path), sig, card, 1)
     # BayesLV between the two schedules, and with a column of ones in its design
     for path, V in (("BayesLV", 8), ("BayesLV", 32), (LV_ONES, V_MAIN), (LV_ONES, 1)):
         slice_phase(path, spec_for(path), sig, card, V)
     chain_phase()
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=sum(by_path[name].values()), launches_by_path=by_path[name],
-                    **timings[name]) for name, (src, rep) in SOURCES.items()]
+    counted.update(ladder_phase(card))
+    kernels = []
+    for name, (src, rep, counter, runs) in SOURCES.items():
+        by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}
+        check(by_path, f"{name}: launched in none of its runs {runs}")
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                            also_replaces=ALSO_REPLACES.get(name, []),
+                            launches=sum(by_path.values()), launches_by_path=by_path,
+                            **TIMINGS[name]))
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -66,6 +66,7 @@ class MarkerPlan:
     n_annot: int = 0  # annotations A (BayesRCpi/RCplus)
     n_lv_cov: int = 0  # columns of BayesLV's variance-model design
     est_var_zeta: Union[bool, float] = False  # BayesLV: False | True | float
+    packed: bool = True  # mt is 2-bit planar-packed uint8 (T, V, B, q): the port's only storage
     # BayesPR's region sums without float atomics: the loci < p in a stable
     # order grouped by region, and each region's size (constant)
     region_order: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)

@@ -4,13 +4,17 @@ Stage order as in `nextgp_tpu/engine/sweep.py` (and NextGP.jl's
 runSampler!, samplers.jl:29-53): residual variance -> fixed-effect blocks
 -> marker sets. PyTorch runs eagerly, so a thinning interval is a Python
 loop of sweeps; each sweep launches its kernels on the current CUDA stream
-without waiting for them.
+without waiting for them. The stages carry the JAX package's scope names
+(`gibbs.var_e`, `gibbs.fixed.<i>`, `gibbs.marker.<set>`) as
+`torch.profiler.record_function` scopes, so a trace (`diag.trace`)
+attributes host and device time to them.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.profiler import record_function
 
 from ..utils import replace
 from .plan import (
@@ -31,18 +35,21 @@ def make_sweep(plan: SweepPlan):
     def sweep(state: ModelState, stream) -> ModelState:
         s = state.sweep_index
         ycorr = state.ycorr
-        var_e = sample_var_e(stream, Site(s, STAGE_VAR_E), state.e, ycorr, plan.n, plan.e_df)
+        with record_function("gibbs.var_e"):
+            var_e = sample_var_e(stream, Site(s, STAGE_VAR_E), state.e, ycorr, plan.n, plan.e_df)
 
         fixed = []
         for i, (fs, fp) in enumerate(zip(state.fixed, plan.fixed)):
-            b, ycorr = sample_fixed_block(stream, Site(s, STAGE_FIXED, i), fs, ycorr, var_e,
-                                          fp.single)
+            with record_function(f"gibbs.fixed.{i}"):
+                b, ycorr = sample_fixed_block(stream, Site(s, STAGE_FIXED, i), fs, ycorr, var_e,
+                                              fp.single)
             fixed.append(replace(fs, b=b))
 
         markers = []
         for i, (ms, mp) in enumerate(zip(state.markers, plan.markers)):
-            ms, ycorr = sample_marker_set(stream, Site(s, STAGE_MARKER, i), ms, mp, ycorr, var_e,
-                                          state.e.d_inv)
+            with record_function(f"gibbs.marker.{mp.name}"):
+                ms, ycorr = sample_marker_set(stream, Site(s, STAGE_MARKER, i), ms, mp, ycorr,
+                                              var_e, state.e.d_inv)
             markers.append(ms)
 
         return replace(state, ycorr=ycorr, e=replace(state.e, var_e=var_e), fixed=tuple(fixed),

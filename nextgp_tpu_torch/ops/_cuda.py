@@ -30,7 +30,9 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
-            "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0}
+            "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
+            "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
+            "dense_scatter": 0, "fused_step": 0}
 
 _lib = None
 
@@ -108,9 +110,15 @@ def lib() -> ctypes.CDLL:
         L.ngt_bc_block_scan_wv.argtypes = [P, P, P, P, P, P, I, I, S]
         L.ngt_rcpi_block_scan_v.argtypes = [P] * 7 + [I] * 4 + [S]
         L.ngt_rcplus_block_scan_v.argtypes = [P] * 8 + [I] * 4 + [S]
+        L.ngt_gather_width.argtypes = [P, P, P, I, I, I, I, S]
+        L.ngt_read_step.argtypes = [P, P, I, I, I, S]
+        L.ngt_dense_gather.argtypes = [P, P, P, I, I, I, S]
+        L.ngt_dense_scatter.argtypes = [P, P, P, P, I, I, I, S]
+        L.ngt_fused_step.argtypes = [P] * 8 + [I] * 3 + [S]
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
-                   L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v):
+                   L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
+                   L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

@@ -119,11 +119,12 @@ def _matvec_kernel(pk_all, row0, rows, y4):
     return out
 
 
-def rank_slices(rows: int, q: int) -> int:
-    """Row slices of the scatter's first pass: about 1024 blocks in all,
-    each slice at least 32 rows. Depends on the shape only, so the summation
-    order (and the result) is the same on every run and every card."""
-    col_blocks = cdiv(q // 4, 128)
+def rank_slices(rows: int, q: int, threads: int = 128) -> int:
+    """Row slices of a scatter's first pass (a 4-byte column word per thread,
+    `threads` a block): about 1024 blocks in all, each slice at least 32
+    rows. Depends on the shape only, so the summation order (and the result)
+    is the same on every run and every card."""
+    col_blocks = cdiv(q // 4, threads)
     return max(1, min(cdiv(rows, 32), cdiv(1024, col_blocks)))
 
 

@@ -9,7 +9,10 @@ warp or not a multiple of 32, K from 2 to 16, V from 1 to 96 chains, and
 short chains through the whole sweep (BayesR, and BayesC with a weighted
 residual); for the annotation scans K12 and K14 also one annotation, K = 16
 (K3's cap; these two have none), coefficient rows that no longer fit shared memory, a chain
-that is all padding, and short BayesRCpi, BayesRCplus and BayesLV chains.
+that is all padding, and short BayesRCpi, BayesRCplus and BayesLV chains;
+for the measurement ladder's kernels odd row counts, q = 16, one step (T = 1),
+grids of one and of more blocks than row groups, signed dosages, and each
+wrapper's refusals.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -408,3 +411,103 @@ def test_annotation_and_lv_sweeps_on_card_match_plain_chain(dev, method):
         assert _rel(km.pi_hat.cpu(), cm.pi_hat) < 1e-4
     else:
         assert _rel(km.lv_c.cpu(), cm.lv_c) < 1e-3 and (km.var_beta[:P_SMALL] > 0).all()
+
+
+# ------------------------------------------------------------ the ladder's kernels
+
+
+def _ladder_inputs(dev, rows, q, T, seed=0):
+    from nextgp_tpu_torch import micro
+
+    return micro.step_inputs(rows, q, T, dev, seed)
+
+
+@pytest.mark.parametrize("rows,q,T", [(1, 16, 1), (7, 48, 3), (130, 256, 2), (1000, 12_544, 2),
+                                      (2051, 2560, 1)])
+def test_ladder_step_kernels_match_plain(dev, rows, q, T):
+    """read_step (exact) and fused_step on odd row counts, q = 16, rows that
+    are no multiple of a warp's four, T = 1 (both jobs on one step), a
+    50k-individual width; fused dy bit-identical across two runs."""
+    from nextgp_tpu_torch.ops import micro as mk
+
+    pk_all, u, y4 = _ladder_inputs(dev, rows, q, T, seed=rows)
+    before = dict(_cuda.LAUNCHES)
+    for t in range(T):
+        assert torch.equal(mk.read_step(pk_all, t, rows), mk.read_step_plain(pk_all, t, rows))
+        for blocks in (1, 3, 1000):
+            assert torch.equal(mk.read_step(pk_all, t, rows, blocks), mk.read_step_plain(pk_all, t, rows))
+        t1 = (t + 1) % T
+        r0, dy = mk.fused_step(pk_all, t, t1, u, y4)
+        ref_r0, ref_dy = mk.fused_step_plain(pk_all, t, t1, u, y4)
+        assert _rel(r0, ref_r0) < 1e-5 and _rel(dy, ref_dy) < 1e-5
+        again = mk.fused_step(pk_all, t, t1, u, y4)
+        assert torch.equal(r0, again[0]) and torch.equal(dy, again[1])
+        # the fused gather sums in K1's order past its stage, the scatter in K2's slices' order
+        assert _rel(r0, pack2.matvec_step(pk_all, t1, y4, rows)) < 1e-5
+    assert _cuda.LAUNCHES["read_step"] == before["read_step"] + 4 * T
+    assert _cuda.LAUNCHES["fused_step"] == before["fused_step"] + 2 * T
+
+
+@pytest.mark.parametrize("rows,q", [(1, 16), (7, 48), (130, 256), (515, 12_544)])
+def test_gather_width_kernels_match_plain_and_k1(dev, rows, q):
+    from nextgp_tpu_torch.ops import micro as mk
+
+    g = torch.Generator(device=dev).manual_seed(q)
+    pk = torch.randint(0, 256, (rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev)
+    y16, pk32 = mk.y_words(y4, 4), pk.view(torch.int32)
+    before = dict(_cuda.LAUNCHES)
+    ref = pack2.matvec_plain(pk, y4)
+    for out, plain in ((mk.gather_width(pk, y4), mk.gather_width_plain(pk, y4)),
+                       (mk.gather_width(pk32, y16), mk.gather_width_plain(pk32, y16))):
+        assert _rel(out, plain) < 1e-5 and _rel(out, ref) < 1e-5
+    assert _cuda.LAUNCHES["gather_width1"] == before["gather_width1"] + 1
+    assert _cuda.LAUNCHES["gather_width4"] == before["gather_width4"] + 1
+
+
+@pytest.mark.parametrize("rows,n", [(1, 16), (7, 48), (130, 1024), (2051, 10_240)])
+def test_dense_kernels_match_plain(dev, rows, n):
+    from nextgp_tpu_torch.ops import micro as mk
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    mt = torch.randint(-3, 4, (rows, n), generator=g, device=dev, dtype=torch.int8)  # signed too
+    y, u = torch.randn(n, generator=g, device=dev), torch.randn(rows, generator=g, device=dev)
+    before = dict(_cuda.LAUNCHES)
+    assert _rel(mk.dense_gather(mt, y), mk.dense_gather_plain(mt, y)) < 1e-5
+    out = mk.dense_scatter(mt, u)
+    assert _rel(out, mk.dense_scatter_plain(mt, u)) < 1e-5
+    assert torch.equal(out, mk.dense_scatter(mt, u))
+    assert _cuda.LAUNCHES["dense_gather"] == before["dense_gather"] + 1
+    assert _cuda.LAUNCHES["dense_scatter"] == before["dense_scatter"] + 2
+
+
+def test_ladder_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from nextgp_tpu_torch.ops import micro as mk
+
+    pk = torch.zeros(8, 64, dtype=torch.uint8, device=dev)
+    y4, u = torch.zeros(4, 64, device=dev), torch.zeros(4, device=dev)
+    with pytest.raises(ValueError, match="out of range"):
+        mk.read_step(pk, 2, 4)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mk.read_step(pk[:, :40].contiguous(), 0, 4)
+    with pytest.raises(ValueError, match="blocks must be"):
+        mk.read_step(pk, 0, 4, blocks=0)
+    with pytest.raises(ValueError, match="out of range"):
+        mk.fused_step(pk, 0, 2, u, y4)
+    with pytest.raises(ValueError, match="float32"):
+        mk.fused_step(pk, 0, 1, u.double(), y4)
+    with pytest.raises(ValueError, match="float32"):
+        mk.gather_width(pk, torch.zeros(16, 64, device=dev))  # y16 with byte loads
+    with pytest.raises(ValueError, match="uint8 or int32"):
+        mk.gather_width(pk.to(torch.int16), y4)
+    with pytest.raises(ValueError, match="exceed a block's shared memory"):
+        mk.gather_width(torch.zeros(2, 16_000, dtype=torch.uint8, device=dev),
+                        torch.zeros(4, 16_000, device=dev))
+    mt = torch.zeros(8, 64, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        mk.dense_gather(pk, torch.zeros(64, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        mk.dense_scatter(mt, torch.zeros(7, device=dev))
+    with pytest.raises(ValueError, match="exceed a block's shared memory"):
+        mk.dense_gather(torch.zeros(2, 64_000, dtype=torch.int8, device=dev),
+                        torch.zeros(64_000, device=dev))

@@ -37,13 +37,31 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'nextgp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nextgp_tpu')]\n"
-        "print(len([m for m in sys.modules if m.startswith('nextgp_tpu_torch')]), bad)\n"
+        "mods = [m for m in sys.modules if m.startswith('nextgp_tpu_torch')]\n"
+        "print(len(mods), bad, '|', ' '.join(mods))\n"
         "assert not bad, bad\n"
     )
     res = _run(code)
     assert res.returncode == 0, res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 15  # every module of the package was imported
+    assert n_mods >= 26  # every module of the package was imported, the ladder and diag too
+    assert {"nextgp_tpu_torch.micro", "nextgp_tpu_torch.ops.micro", "nextgp_tpu_torch.diag"} <= set(
+        res.stdout.split("|")[1].split())
+
+
+def test_importing_the_ladder_runs_nothing():
+    """`nextgp_tpu_torch.micro` is an entry point: importing it (and the
+    kernels' module) prints nothing, launches nothing and builds nothing."""
+    code = (
+        "import nextgp_tpu_torch.micro, nextgp_tpu_torch.diag\n"
+        "from nextgp_tpu_torch.ops import _cuda\n"
+        "assert not any(_cuda.LAUNCHES.values()) and _cuda._lib is None\n"
+        "assert {'gather_width1', 'gather_width4', 'read_step', 'dense_gather', 'dense_scatter',\n"
+        "        'fused_step'} <= set(_cuda.LAUNCHES)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == ""
 
 
 def _fields(cls):

@@ -1,6 +1,7 @@
 """Run the PyTorch/CUDA port's marker methods on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
+    python3 chip_smoke.py rc     # phases 1-2 and the annotation scans of phase 3 alone
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -12,9 +13,14 @@ Phases (any failed check raises and the script exits non-zero):
      lower triangle only): K1 gather, K2 scatter, K3 BayesR scan, K6 Gaussian scan, K8
      B/C scan, K10 weighted B/C scan, K12 BayesRCpi scan, K14 BayesRCplus
      scan, K1 at 100,000 individuals (y past shared memory), K12 with a
-     chain's coefficient rows past shared memory (A = 8, K = 4), K1 and K2
-     over the whole panel (K1', K2'), and every scan again at V = 1, the
-     single-chain launch the V=1 paths make (K4, K5, K7, K9, K11, K13)
+     chain's coefficient rows past shared memory (A = 8, K = 4), K12 and K14
+     with one annotation and one class (what their skeleton costs per locus),
+     K1 and K2 over the whole panel (K1', K2'), and every scan again at V = 1,
+     the single-chain launch the V=1 paths make (K4, K5, K7, K9, K11, K13).
+     A time is the median of event pairs around one call, which holds the
+     host's share of a launch; beside it, for K1, K2 and the scans, stands the
+     kernels' time on the card alone, from the profiler (`device_ms` in the
+     kernels line)
   4. the paths at full size on one simulated 10,000 x 49,152 panel, 2-bit
      packed once and shared, V=96, 100 sweeps of run_lmem each: BayesR with
      estimatePi, BayesC, BayesC with a weighted ("D") residual, BayesPR
@@ -48,6 +54,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -131,6 +138,24 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps):
+    """Mean time the card spends in the kernels that one call of fn launches,
+    from the profiler's device durations. An event pair around one call
+    (median_ms) also holds what the host needs to get the launch out, which
+    for a kernel of a tenth of a millisecond is much of the reading."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    check(busy > 0, "the profiler saw no device time")
+    return busy / reps / 1e3
+
+
 def rel_err(out, ref):
     return (out - ref).abs().max().item(), ref.abs().max().item()
 
@@ -138,21 +163,24 @@ def rel_err(out, ref):
 TIMINGS = {}  # kernels-line name -> what `report` measured for it
 
 
-def report(name, err, scale, tol, ms_k, ms_p, work, note="", library_ms=None, phase="3 kernels"):
+def report(name, err, scale, tol, ms_k, ms_p, work, note="", library_ms=None, phase="3 kernels",
+           dev_ms=None):
     """Hold one kernel to its plain version and keep its numbers. work: (bytes
     moved with each input read and each output written once, operations) of
     one call, from its shapes. library_ms: the time of the one PyTorch call
-    that computes the same function, where there is one."""
+    that computes the same function, where there is one. dev_ms: the kernel's
+    time on the card alone (device_ms), where it was taken."""
     t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / F32_FLOP_PER_S
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     lib = ("no single PyTorch call computes it" if library_ms is None
            else f"the one PyTorch call {library_ms:.4f} ms")
+    on_card = "" if dev_ms is None else f" ({dev_ms:.4f} ms of it on the card)"
     print(f"[{phase}] {name}: max_abs_err {err:.3e} (scale {scale:.3e}, tol {tol:g} x scale), "
-          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+          f"kernel {ms_k:.4f} ms{on_card}, plain {ms_p:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
           f"({work[0]:,} bytes, {work[1]:,} operations; {lib}){note}")
     check(err <= tol * scale, f"{name} disagrees with its plain version")
     TIMINGS[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms)
+                         bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -308,7 +336,7 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note):
     e_b, s_b = rel_err(got[0], ref[0])
     report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20), median_ms(lambda: plain(pk_t), 3),
            work, f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; {note}; delta exact, "
-           f"counts {torch.bincount(got[2].reshape(-1)).tolist()})")
+           f"counts {torch.bincount(got[2].reshape(-1)).tolist()})", dev_ms=device_ms(lambda: kern(pk_t), 20))
 
 
 def big_gather():
@@ -330,7 +358,8 @@ def big_gather():
     report("pack2_matvec_100k", e, s, TOL_PASS,
            median_ms(lambda: pack2.matvec_step(pk, 1, y4, ROWS_BIG), 20),
            median_ms(lambda: pack2.matvec_plain(sl, y4), 5), pass_work(ROWS_BIG, q),
-           f" ({ROWS_BIG} x {q} step, n = {N_BIG:,}; y {16 * q:,} bytes read from device memory)")
+           f" ({ROWS_BIG} x {q} step, n = {N_BIG:,}; y {16 * q:,} bytes read from device memory)",
+           dev_ms=device_ms(lambda: pack2.matvec_step(pk, 1, y4, ROWS_BIG), 20))
 
 
 def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
@@ -363,6 +392,7 @@ def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
     check(not close.any(), f"{name}: could not keep the inputs away from decision edges")
     got = kern(pk_t)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, kern(pk_t))), f"{name}: two runs differ")
     errs = []
     for i, (g, r) in enumerate(zip(got, ref)):
         if i in discrete:
@@ -377,7 +407,7 @@ def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
     report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20),
            median_ms(lambda: plain(pk_t), 3), work,
            f" (beta; {others}; {note}; discrete outputs {list(discrete)} exact, delta counts "
-           f"{torch.bincount(got[2].reshape(-1)).tolist()})")
+           f"{torch.bincount(got[2].reshape(-1)).tolist()})", dev_ms=device_ms(lambda: kern(pk_t), 20))
     return pk_t, got
 
 
@@ -438,6 +468,22 @@ def rc_kernels(spec_for, z, V, tag):
         pk_plus, [8 + a * K for a in range(A)], (2, 3, 5), gen,
         scan_work(V, B, 8 + 6 * A * K, 1, 3 + 3 * A, 14 * A * K, diag=True),
         f"V={V}, B={B}, A={A}, K={K}")
+    # one annotation and one class: nothing left of the rule but its fixed steps,
+    # so this is what the scans' skeleton costs per locus
+    one = torch.ones((1, 1), dtype=dt, device=DEV)
+    on1 = coef["mask"][:, None]
+    held_rc_scan(
+        f"rcpi_block_scan_v_floor{tag}", *rcpi(1, 1),
+        rcpi_rows(on1.to(dt), on1.to(dt), on1, varc[:1, -1:].contiguous(), 0.0 * one), [2, 3],
+        (2, 3), gen, scan_work(V, B, 16, 1, 5, 12), f"V={V}, B={B}, A=1, K=1")
+    held_rc_scan(
+        f"rcplus_block_scan_v_floor{tag}",
+        lambda pk_t: gibbs_kernels.rcplus_block_scan_v((ms.gram, 0), pk_t, 1, 1),
+        lambda pk_t: gibbs_kernels.rcplus_block_scan_v_plain(gram0, pk_t, 1, 1),
+        step.rows(gibbs_kernels.rcplus_block_pack(
+            ms.beta, torch.randn((mp.p_pad, 1), generator=gen, dtype=dt, device=DEV),
+            rand(mp.p_pad, 1), on1, varc=varc[:1, -1:].contiguous(), logpi=0.0 * one, **coef)),
+        [8], (2, 3, 5), gen, scan_work(V, B, 14, 1, 6, 14, diag=True), f"V={V}, B={B}, A=1, K=1")
     if V != V_MAIN:
         return
 
@@ -475,21 +521,22 @@ def pass_kernels(st):
     report("pack2_matvec", e, s, TOL_PASS,
            median_ms(lambda: pack2.matvec_step(mt_rows, 1, y4, rows), 20),
            median_ms(lambda: pack2.matvec_plain(mt_rows[sl], y4), 5), pass_work(rows, q),
-           f" ({rows} x {q} step)")
+           f" ({rows} x {q} step)", dev_ms=device_ms(lambda: pack2.matvec_step(mt_rows, 1, y4, rows), 20))
     e, s = rel_err(pack2.rank_update_step(mt_rows, 1, u), pack2.rank_update_plain(mt_rows[sl], u))
     report("pack2_rank_update", e, s, TOL_PASS,
            median_ms(lambda: pack2.rank_update_step(mt_rows, 1, u), 20),
            median_ms(lambda: pack2.rank_update_plain(mt_rows[sl], u), 5), pass_work(rows, q),
-           f" ({rows} x {q} step)")
+           f" ({rows} x {q} step)", dev_ms=device_ms(lambda: pack2.rank_update_step(mt_rows, 1, u), 20))
     e, s = rel_err(pack2.rank_update(mt_rows, u_all), pack2.rank_update_plain(mt_rows, u_all))
     report("pack2_rank_update_panel", e, s, TOL_PASS,
            median_ms(lambda: pack2.rank_update(mt_rows, u_all), 20),
            median_ms(lambda: pack2.rank_update_plain(mt_rows, u_all), 5), pass_work(T * rows, q),
-           f" ({T * rows} x {q} whole panel, serving)")
+           f" ({T * rows} x {q} whole panel, serving)",
+           dev_ms=device_ms(lambda: pack2.rank_update(mt_rows, u_all), 20))
     e, s = rel_err(pack2.matvec(mt_rows, y4), pack2.matvec_plain(mt_rows, y4))
     report("pack2_matvec_panel", e, s, TOL_PASS, median_ms(lambda: pack2.matvec(mt_rows, y4), 20),
            median_ms(lambda: pack2.matvec_plain(mt_rows, y4), 5), pass_work(T * rows, q),
-           f" ({T * rows} x {q} whole panel)")
+           f" ({T * rows} x {q} whole panel)", dev_ms=device_ms(lambda: pack2.matvec(mt_rows, y4), 20))
     big_gather()
 
 
@@ -539,7 +586,8 @@ def kernels_phase(spec_for, V=V_MAIN, tag=""):
     report(f"gauss_block_scan_v{tag}", e_b, s_b, TOL_SCAN,
            median_ms(lambda: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t), 20),
            median_ms(lambda: gibbs_kernels.gauss_block_scan_v_plain(gram0, pk_t), 3),
-           scan_work(V, B, 8, 1, 2, 4), f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; V={V}, B={B})")
+           scan_work(V, B, 8, 1, 2, 4), f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; V={V}, B={B})",
+           dev_ms=device_ms(lambda: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t), 20))
 
     vb = torch.full_like(ms.beta, V_BC)
     lp0, lp1 = np.log(1.0 - PI_BC), np.log(PI_BC)
@@ -950,11 +998,25 @@ ALSO_REPLACES = {
 }
 
 
-def main():
+def rc_only(spec_for, card):
+    """`python3 chip_smoke.py rc`: K12 and K14 alone, held and timed at V=96 and
+    V=1 as phase 3 does; the quick form for work on csrc/rc_scan.cu. It
+    prints no result line."""
+    z = torch.randn(P, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV)
+    for V, tag in ((V_MAIN, ""), (1, "_v1")):
+        rc_kernels(spec_for, z, V, tag)
+    print(json.dumps({"card": card, "ms": {name: t["ms"] for name, t in TIMINGS.items()},
+                      "device_ms": {name: t["device_ms"] for name, t in TIMINGS.items()}}))
+
+
+def main(argv=()):
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     spec_for, sig = simulate()
+    if list(argv) == ["rc"]:
+        return rc_only(spec_for, card)
+    check(not argv, f"unknown arguments {list(argv)}: none, or rc")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     counted = {}  # run -> launches by counter, each read from 0
@@ -987,4 +1049,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

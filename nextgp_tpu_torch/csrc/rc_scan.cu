@@ -13,11 +13,12 @@
 // V independent chains of B sequential loci over A annotations and K
 // variance classes. The coefficient row s = pk[v, j, :] keeps the JAX packs'
 // layout (gibbs_kernels.rcpi_block_pack, rcplus_block_pack): a head of 8,
-// then per-annotation sections in which each value is repeated K times
-// (read here once, at slot a*K), then (A, K) sections.
+// then per-annotation sections in which each value is repeated K times, then
+// (A, K) sections; slot a*K + k of a section belongs to annotation a and
+// class k.
 //
 //   rcpi (8 + 8AK): [adj, bold, ua, uv, mask, pad*3 | aprob, g1, g2, anz | q0, q1, b, c]
-//     pre   = s0 + G[j, v, :] . u_v
+//     pre   = s0 + sum_{i<j} G[j, v, i] * u_v[i]
 //     e_ak  = anz_a ? exp(q0_ak + q1_ak * pre^2 - max over all a, k) : 0
 //     a_sel = #{a : cdf_a < ua} over aprob_a * sum_k e_ak, clamped to A-1
 //     cls   = #{k : cdf_k < uv} over e[a_sel, :], clamped to K-1
@@ -26,7 +27,7 @@
 //     delta = cls + 1, acat = a_sel + 1; on a padded locus (mask = 0) both
 //     are 0 and aprob' = aprob
 //   rcplus (8 + 6AK): [adj, bold, mask, pad*5 | ua, anz | q0, q1, b, c]
-//     base = s0 + G[j, v, :] . u_v   (u_v[j] = 0: own coefficient excluded)
+//     base = s0 + sum_{i<j} G[j, v, i] * u_v[i]  (own coefficient excluded)
 //     for a in 0..A-1, with ujc = bold at first:
 //       pre_a = base + G[j, v, j] * ujc
 //       cls_a = #{k : cdf_k < ua_a} over softmax_k(q0_ak + q1_ak * pre_a^2)
@@ -35,32 +36,60 @@
 //     and per annotation cls (0 where inactive), bs, nz = b[a, cls_a] > 0
 // and for rcpi u_v[j] = bold - beta. The caller has added r0 to slot 0.
 //
-// The TPU kernels build (AK, AK) triangular masks for their prefix sums,
-// and write the new probabilities AK wide to be decimated afterwards; here a
-// prefix sum over a few classes is a short loop and the outputs are written
-// (V, B, A) directly. The annotation draw is clamped to A-1 as the class
-// draw is (the JAX pure path clamps both, nextgp_tpu/ops/dists.py:86-98; its
-// TPU kernel clamps only the class).
+// The annotation draw is clamped to A-1 as the class draw is (the JAX pure
+// path clamps both, nextgp_tpu/ops/dists.py:86-98; its TPU kernel clamps only
+// the class).
 //
 // NaN on purpose: a padded locus has no non-zero annotation, so its sums are
-// 0 and its normalized probabilities 0/0. Every comparison with NaN is
-// false (a_sel = cls = 0), b = c = 0 there and pre is finite, so beta = 0;
-// the outputs are chosen by selects on the mask, never by multiplying with
-// it (NaN * 0 = NaN). So the comparisons must stay IEEE: no fast-math.
+// 0 and every probability of it 0/0. Every comparison made for it is false
+// (a_sel = cls = 0), b = c = 0 there and pre is finite, so beta = 0; the
+// outputs are chosen by selects on the mask, never by multiplying with it
+// (NaN * 0 = NaN). So the comparisons must stay IEEE: no fast-math.
 //
-// Bound: latency, as K3 (csrc/r_scan.cu): each locus depends on the one
-// before; the bytes are one 4*B-byte Gram row and one coefficient row per
-// locus. Design, as K3's: one thread block per chain, one thread per locus
-// of the block; Gram rows stream from device memory, each prefetched one
-// locus ahead into a register; the dot is a fixed-order warp-shuffle plus
-// per-warp reduction and thread 0 applies the rule with every sum in a fixed
-// order, so two runs give the same bits. A chain's coefficient rows (B * W
-// floats) would fit a block's 227 KB of shared memory only up to AK = 27
-// (rcpi) or 36 (rcplus) at B = 256, so they are not held there: each locus's
-// row is copied from device memory into one of two shared-memory slots with
-// cp.async while thread 0 applies the rule to the locus before it, which
-// costs no time (measured on the H100 against a form that held all rows)
-// and leaves no limit on A * K but two rows and the scratch.
+// Bound: latency. Each locus depends on the one before; the bytes are the
+// Gram's lower triangle and one coefficient row per locus, read once. What a
+// chain costs is B times the dependent chain of one locus, so the design
+// keeps that chain short: nothing block-wide and nothing serial on it.
+//
+// Design: one thread block per chain, one thread per locus, one warp per
+// group of 32 consecutive loci.
+//  * Right-looking sums, no reduction. Thread i keeps
+//    acc_i = s0_i + sum_{k<j} G[i, v, k] * u_v[k] in a register, in ascending
+//    k, so when locus j's turn comes its pre is ready in thread j: one
+//    shuffle, where the kernel before reduced a 256-wide dot over the block
+//    (a shuffle tree, a barrier and a serial sum of the warps' partials) for
+//    every locus. The Gram elements are the ones the plain version reads
+//    (row i, columns below i); the sum's order differs.
+//  * A warp runs its 32 loci alone, without a block barrier. Inside the group
+//    lane i adds G[i, v, j] * u_v[j] as soon as u_v[j] is known, from the
+//    group's 32 x 32 diagonal tile, which each warp copies to shared memory at
+//    the start (padded to 33 columns: the column reads hit 32 banks). After
+//    the group one __syncthreads publishes its 32 u's, and every later thread
+//    adds its 32 products, from 32 consecutive words of its own Gram row that
+//    it loaded while it waited (eight 16-byte loads where B is a multiple of
+//    4). So a block of 256 loci passes 8 barriers, not 512.
+//  * The rule on the warp (A * K <= 32), one lane per (annotation, class):
+//    each lane forms its own q0 + q1 * pre^2, the maximum is one integer
+//    `redux` on an order-preserving image of the floats, one expf per lane,
+//    the class sums a segmented shuffle scan over K lanes, the annotation
+//    sums a scan with stride K, and both inverse CDFs a ballot and a
+//    popcount of `cum < u * total` (a product where the kernel before divided
+//    per class; a padded locus gives 0 < 0, false, as 0/0 < u was). rcplus's A
+//    components stay sequential, as the method has them; each takes the lanes
+//    of its annotation. A group's coefficients (six words per lane and locus,
+//    a per-annotation value from its first copy at slot a * K) are copied into
+//    one of two shared-memory slots with cp.async by the warp that will run
+//    the group, while the group before it runs: the rule reads them at
+//    shared-memory latency, its loop holds no address arithmetic for device
+//    memory, and no coefficient row is held whole. Every sum has a fixed order
+//    and nothing is atomic: two runs give the same bits.
+//  * A * K > 32: lane 0 applies the rule serially to the row, which the warp
+//    copies into one of two shared-memory slots with cp.async one locus ahead;
+//    shared memory then needs two rows and the scratch.
+//  * Outputs per locus stay in the registers of the thread that owns it and
+//    are written once, coalesced, at the end; rcpi's new annotation
+//    probabilities are formed there too, off the chain. rcplus's three
+//    per-annotation outputs go out from A lanes at once.
 #include <cuda_pipeline.h>
 #include <math.h>
 
@@ -69,6 +98,8 @@
 namespace {
 
 enum Rule { kRCpi = 0, kRCplus = 1 };
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 32 * 33;  // a 32 x 32 Gram tile, rows padded to 33 words
 
 struct Outs {
   float* beta;  // (V, B)
@@ -79,15 +110,156 @@ struct Outs {
   int* ib;      // rcplus: nz (V, B, A)
 };
 
-// One BayesRCpi locus on thread 0. e (AK) and rowsum (A) are shared-memory
-// scratch; at = v * B + j. Returns beta.
-__device__ __forceinline__ float rcpi_locus(const float* s, float pre, int A, int K, float* e,
-                                            float* rowsum, size_t at, const Outs& o) {
+// What the owner of a locus keeps until the end of the kernel.
+struct Mine {
+  float beta, u;
+  int delta, a_sel;
+};
+
+// A lane's share of one coefficient row: the slot `lane` = a * K + k of each
+// (A, K) section the rule reads, and its annotation's x0 (aprob for rcpi, ua
+// for rcplus) and non-zero flag nz. A per-annotation value is read at slot
+// a * K, its first copy, as the row's layout has it.
+struct Coef {
+  float x0, nz, q0, q1, b, c;
+};
+constexpr int kCoefWords = 6 * 32;           // one locus's Coefs, lane-major per field
+constexpr int kCoefGroup = 32 * kCoefWords;  // a group's
+
+// Copy the Coefs of the loci j0 .. j0 + 31 into buf with cp.async; each lane
+// copies the words it will read itself, so once it has waited for its own
+// copies it needs no barrier. The caller commits and waits.
+template <int R>
+__device__ __forceinline__ void stage_coefs(const float* __restrict__ pkv, float* buf, int j0,
+                                            int B, int W, int AK, int K, int lane) {
+  if (lane >= AK) return;
+  const int first = lane / K * K;
+  const int nz_at = (R == kRCpi ? 3 : 1) * AK + first;
+  const int cls_at = (R == kRCpi ? 4 : 2) * AK + lane;
+  const int nj = min(32, B - j0);
+  for (int jj = 0; jj < nj; ++jj) {
+    const float* s = pkv + (size_t)(j0 + jj) * W + 8;
+    float* d = buf + jj * kCoefWords + lane;
+    __pipeline_memcpy_async(d, s + first, 4);
+    __pipeline_memcpy_async(d + 32, s + nz_at, 4);
+    __pipeline_memcpy_async(d + 64, s + cls_at, 4);
+    __pipeline_memcpy_async(d + 96, s + cls_at + AK, 4);
+    __pipeline_memcpy_async(d + 128, s + cls_at + 2 * AK, 4);
+    __pipeline_memcpy_async(d + 160, s + cls_at + 3 * AK, 4);
+  }
+}
+
+__device__ __forceinline__ Coef read_coef(const float* buf, int jj, int AK, int lane) {
+  Coef r{0.f, 0.f, -INFINITY, 0.f, 0.f, 0.f};  // a lane past A * K takes no part
+  if (lane < AK) {
+    const float* d = buf + jj * kCoefWords + lane;
+    r.x0 = d[0];
+    r.nz = d[32];
+    r.q0 = d[64];
+    r.q1 = d[96];
+    r.b = d[128];
+    r.c = d[160];
+  }
+  return r;
+}
+
+// Maximum over the warp by one integer `redux`: floats map to integers of the
+// same order (negative floats with their magnitude bits flipped).
+__device__ __forceinline__ int ordered(int bits) { return bits >= 0 ? bits : bits ^ 0x7fffffff; }
+
+__device__ __forceinline__ float warp_max(float x) {
+  return __int_as_float(ordered(__reduce_max_sync(kFull, ordered(__float_as_int(x)))));
+}
+
+// Inclusive sums over the lanes l, l - step, l - 2 * step, ... >= l - pos.
+// step = 1 with pos = k sums within an annotation's K lanes; step = K with
+// pos = lane sums one class over the annotations.
+__device__ __forceinline__ float scan_up(float x, int step, int end, int pos) {
+  for (int off = step; off < end; off <<= 1) {
+    const float t = __shfl_up_sync(kFull, x, off);
+    if (pos >= off) x += t;
+  }
+  return x;
+}
+
+// The lanes' positions in the (annotation, class) grid of one warp.
+struct Grid {
+  int a, k;
+  bool valid;
+};
+
+// One BayesRCpi locus on the warp. Returns beta to every lane.
+__device__ __forceinline__ float rcpi_warp(const Coef& s, const Grid& g, int lane, float pre,
+                                           float ua, float uv, int A, int K, int* a_sel_out,
+                                           int* cls_out) {
+  const int AK = A * K;
+  const float e = fmaf(s.q1, pre * pre, s.q0);
+  const float bl = fmaf(s.b, pre, s.c);
+  const float m = warp_max(e);
+  const float x = (s.nz != 0.f) ? expf(e - m) : 0.f;
+  const float cum = scan_up(x, 1, K, g.k);  // within the annotation
+  const float rs = __shfl_sync(kFull, cum, g.valid ? g.a * K + K - 1 : lane);
+  const float wcum = scan_up(s.x0 * rs, K, AK, lane);  // over the annotations
+  const float wsum = __shfl_sync(kFull, wcum, AK - 1);
+  const unsigned ba = __ballot_sync(kFull, g.valid && g.k == 0 && wcum < ua * wsum);
+  const unsigned bc = __ballot_sync(kFull, g.valid && cum < uv * rs);
+  const int a_sel = min(__popc(ba), A - 1);
+  const unsigned seg = K == 32 ? kFull : ((1u << K) - 1u);
+  const int cls = min(__popc((bc >> (a_sel * K)) & seg), K - 1);
+  *a_sel_out = a_sel;
+  *cls_out = cls;
+  return __shfl_sync(kFull, bl, a_sel * K + cls);
+}
+
+// One BayesRCplus locus on the warp: the A components in turn, each on the
+// lanes of its annotation. Lane a keeps component a's outputs and lanes < A
+// write them. Returns beta; *u_j is the locus's u.
+__device__ __forceinline__ float rcplus_warp(const Coef& s, const Grid& g, int lane, float base,
+                                             float gjj, float bold, bool on, int A, int K,
+                                             size_t at, const Outs& o, float* u_j, int* delta) {
+  const unsigned act = __ballot_sync(kFull, g.valid && g.k == 0 && s.nz != 0.f);
+  float ujc = bold, total = 0.f, my_bs = 0.f;
+  int dj = 0, my_cls = 0, my_nz = 0;
+  for (int a = 0; a < A; ++a) {
+    const int first = a * K;
+    const bool mine = g.valid && g.a == a;
+    const float prea = fmaf(gjj, ujc, base);
+    const float e = mine ? fmaf(s.q1, prea * prea, s.q0) : -INFINITY;
+    const float bl = fmaf(s.b, prea, s.c);
+    const float m = warp_max(e);
+    const float x = mine ? expf(e - m) : 0.f;
+    const float cum = scan_up(x, 1, K, g.k);
+    const float tot = __shfl_sync(kFull, cum, first + K - 1);
+    const int cls = min(__popc(__ballot_sync(kFull, mine && cum < s.x0 * tot)), K - 1);
+    const float bs = __shfl_sync(kFull, bl, first + cls);
+    const float bsel = __shfl_sync(kFull, s.b, first + cls);  // 0: null class or inactive
+    const bool active = on && ((act >> first) & 1u);
+    ujc -= bs;
+    total += bs;
+    if (active) dj = cls + 1;
+    if (lane == a) {
+      my_cls = active ? cls + 1 : 0;
+      my_bs = bs;
+      my_nz = (bsel > 0.f) ? 1 : 0;
+    }
+  }
+  if (lane < A) {
+    o.ia[at * A + lane] = my_cls;
+    o.fa[at * A + lane] = my_bs;
+    o.ib[at * A + lane] = my_nz;
+  }
+  *u_j = ujc;
+  *delta = dj;
+  return total;
+}
+
+// One BayesRCpi locus on one thread (A * K > 32), from the row s in shared
+// memory. e (AK) and rowsum (A) are shared-memory scratch. Returns beta.
+__device__ __forceinline__ float rcpi_serial(const float* s, float pre, int A, int K, float* e,
+                                             float* rowsum, int* a_sel_out, int* cls_out) {
   const int AK = A * K;
   const float* aprob = s + 8;
-  const float* g1 = aprob + AK;
-  const float* g2 = g1 + AK;
-  const float* anz = g2 + AK;
+  const float* anz = aprob + 3 * AK;
   const float* q0 = anz + AK;
   const float* q1 = q0 + AK;
   const float* bco = q1 + AK;
@@ -113,37 +285,29 @@ __device__ __forceinline__ float rcpi_locus(const float* s, float pre, int A, in
   int a_sel = 0;
   float cum = 0.f;
   for (int a = 0; a < A; ++a) {
-    cum += aprob[a * K] * rowsum[a] / wsum;
-    a_sel += (cum < s[2]) ? 1 : 0;
+    cum += aprob[a * K] * rowsum[a];
+    a_sel += (cum < s[2] * wsum) ? 1 : 0;
   }
   a_sel = min(a_sel, A - 1);
   const float rs = rowsum[a_sel];
   int cls = 0;
   cum = 0.f;
   for (int k = 0; k < K; ++k) {
-    cum += e[a_sel * K + k] / rs;
-    cls += (cum < s[3]) ? 1 : 0;
+    cum += e[a_sel * K + k];
+    cls += (cum < s[3] * rs) ? 1 : 0;
   }
   cls = min(cls, K - 1);
+  *a_sel_out = a_sel;
+  *cls_out = cls;
   const int idx = a_sel * K + cls;
-  const float bnew = cco[idx] + bco[idx] * pre;
-  const bool on = s[4] != 0.f;
-  float gsum = 0.f;
-  for (int a = 0; a < A; ++a) {
-    const float gam = ((a == a_sel) ? g2[a * K] : g1[a * K]) * anz[a * K];
-    rowsum[a] = gam;
-    gsum += gam;
-  }
-  for (int a = 0; a < A; ++a) o.fa[at * A + a] = on ? rowsum[a] / gsum : aprob[a * K];
-  o.delta[at] = on ? cls + 1 : 0;
-  o.ia[at] = on ? a_sel + 1 : 0;
-  return bnew;
+  return cco[idx] + bco[idx] * pre;
 }
 
-// One BayesRCplus locus on thread 0. e (K) is shared-memory scratch; gjj the
-// Gram diagonal of the locus. Returns beta and writes the locus's u.
-__device__ __forceinline__ float rcplus_locus(const float* s, float base, float gjj, int A, int K,
-                                              float* e, size_t at, const Outs& o, float* u_j) {
+// One BayesRCplus locus on one thread (A * K > 32). e (K) is shared-memory
+// scratch; gjj the Gram diagonal of the locus. Returns beta.
+__device__ __forceinline__ float rcplus_serial(const float* s, float base, float gjj, int A, int K,
+                                               float* e, size_t at, const Outs& o, float* u_j,
+                                               int* delta) {
   const int AK = A * K;
   const float* ua = s + 8;
   const float* anz = ua + AK;
@@ -157,7 +321,7 @@ __device__ __forceinline__ float rcplus_locus(const float* s, float base, float 
   int dj = 0;
   for (int a = 0; a < A; ++a) {
     const int r = a * K;
-    const float prea = base + gjj * ujc;
+    const float prea = fmaf(gjj, ujc, base);
     const float pre2 = prea * prea;
     float m = -INFINITY;
     for (int k = 0; k < K; ++k) {
@@ -172,8 +336,8 @@ __device__ __forceinline__ float rcplus_locus(const float* s, float base, float 
     int cls = 0;
     float cum = 0.f;
     for (int k = 0; k < K; ++k) {
-      cum += e[k] / tot;
-      cls += (cum < ua[r]) ? 1 : 0;
+      cum += e[k];
+      cls += (cum < ua[r] * tot) ? 1 : 0;
     }
     cls = min(cls, K - 1);
     const float bsel = bco[r + cls];  // 0 for a null class and for an inactive component
@@ -186,81 +350,220 @@ __device__ __forceinline__ float rcplus_locus(const float* s, float base, float 
     o.fa[at * A + a] = bs;
     o.ib[at * A + a] = (bsel > 0.f) ? 1 : 0;
   }
-  o.delta[at] = dj;
+  *delta = dj;
   *u_j = ujc;
   return total;
 }
 
-// One thread per locus of the block, up to 1024: the bound keeps the kernel
-// within the 64 registers a thread may have at that size (uncapped it takes
-// 72 and a launch at B = 1024 is refused). One block per SM is asked for and
-// no more, or ptxas aims at two and spills down to 32 registers, which slows
-// the one-thread rule.
+// rcpi's new annotation probabilities of one locus, by the thread that owns
+// it, from its row in device memory.
+__device__ __forceinline__ void rcpi_aprob(const float* __restrict__ s, int A, int K, int a_sel,
+                                           float* __restrict__ out) {
+  const int AK = A * K;
+  const float* aprob = s + 8;
+  const float* g1 = aprob + AK;
+  const float* g2 = g1 + AK;
+  const float* anz = g2 + AK;
+  if (s[4] == 0.f) {
+    for (int a = 0; a < A; ++a) out[a] = aprob[a * K];
+    return;
+  }
+  float gsum = 0.f;
+  for (int a = 0; a < A; ++a) gsum += ((a == a_sel) ? g2[a * K] : g1[a * K]) * anz[a * K];
+  for (int a = 0; a < A; ++a) out[a] = ((a == a_sel) ? g2[a * K] : g1[a * K]) * anz[a * K] / gsum;
+}
+
+// The loci j0 .. j0 + nj - 1 on the calling warp. acc holds each lane's
+// right-looking sum; on return `mine` holds the outputs of the lane's locus.
+// tile is the warp's diagonal Gram tile, head (bold, ua, uv, mask) the head
+// of the lane's own row; coefs the group's staged Coefs (A * K <= 32), fb the
+// serial rule's shared memory (A * K > 32).
 template <int R>
-__global__ void __launch_bounds__(1024, 1)
+__device__ __forceinline__ void run_group(const float* __restrict__ pkv, const float* tile,
+                                          const float* coefs, float* fb, int j0, int nj, int v,
+                                          int B, int A, int K, int lane, float& acc,
+                                          const float4& head, const Outs& o, Mine& mine) {
+  const int AK = A * K;
+  const int W = 8 + (R == kRCpi ? 8 : 6) * AK;
+  const bool on_warp = AK <= 32;
+  Grid g;
+  g.valid = lane < AK;
+  g.a = lane / K;
+  g.k = lane - g.a * K;
+  float* e = fb;                  // AK
+  float* rowsum = e + AK;         // A
+  float* rows = rowsum + A;       // 2 * W
+  if (!on_warp) {
+    for (int idx = lane; idx < W; idx += 32)
+      __pipeline_memcpy_async(rows + idx, pkv + (size_t)j0 * W + idx, 4);
+    __pipeline_commit();
+  }
+  for (int jj = 0; jj < nj; ++jj) {
+    const int j = j0 + jj;
+    const size_t at = (size_t)v * B + j;
+    const float gcol = tile[lane * 33 + jj];  // G[j0 + lane, v, j]
+    const float gjj = tile[jj * 33 + jj];
+    const float pre = __shfl_sync(kFull, acc, jj);
+    const float bold = __shfl_sync(kFull, head.x, jj);
+    const bool on = __shfl_sync(kFull, head.w, jj) != 0.f;
+    float bnew = 0.f, uj = 0.f;
+    int a_sel = 0, cls = 0, dj = 0;
+    if (on_warp) {
+      const Coef c0 = read_coef(coefs, jj, AK, lane);
+      if (R == kRCpi) {
+        const float ua = __shfl_sync(kFull, head.y, jj);
+        const float uv = __shfl_sync(kFull, head.z, jj);
+        bnew = rcpi_warp(c0, g, lane, pre, ua, uv, A, K, &a_sel, &cls);
+        uj = bold - bnew;
+        dj = on ? cls + 1 : 0;
+      } else {
+        bnew = rcplus_warp(c0, g, lane, pre, gjj, bold, on, A, K, at, o, &uj, &dj);
+      }
+    } else {
+      // row j has arrived; row j + 1 goes into the other slot meanwhile
+      __pipeline_wait_prior(0);
+      __syncwarp();
+      const float* s = rows + (jj & 1) * W;
+      if (jj + 1 < nj) {
+        float* dst = rows + ((jj + 1) & 1) * W;
+        for (int idx = lane; idx < W; idx += 32)
+          __pipeline_memcpy_async(dst + idx, pkv + (size_t)(j + 1) * W + idx, 4);
+      }
+      __pipeline_commit();
+      if (lane == 0) {
+        if (R == kRCpi) {
+          bnew = rcpi_serial(s, pre, A, K, e, rowsum, &a_sel, &cls);
+          uj = bold - bnew;
+          dj = on ? cls + 1 : 0;
+        } else {
+          bnew = rcplus_serial(s, pre, gjj, A, K, e, at, o, &uj, &dj);
+        }
+      }
+      bnew = __shfl_sync(kFull, bnew, 0);
+      uj = __shfl_sync(kFull, uj, 0);
+      dj = __shfl_sync(kFull, dj, 0);
+      a_sel = __shfl_sync(kFull, a_sel, 0);
+    }
+    acc = fmaf(gcol, uj, acc);
+    if (lane == jj) {
+      mine.beta = bnew;
+      mine.u = uj;
+      mine.delta = dj;
+      mine.a_sel = a_sel;
+    }
+  }
+}
+
+// One thread per locus of the block. MAXT bounds the block: at 1024 threads a
+// thread has 64 registers and part of the prefetched panel spills; blocks of
+// up to 256 loci take the instance that leaves the compiler free.
+template <int R, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
     rc_scan_v_kernel(const float* __restrict__ gram, const float* __restrict__ pk, Outs o, int V,
                      int B, int A, int K) {
   extern __shared__ float sm[];
-  const int AK = A * K;
-  const int W = 8 + (R == kRCpi ? 8 : 6) * AK;
-  float* us = sm;            // B: the chain's correction vector u_v
-  float* red = us + B;       // 32: per-warp partial dots
-  float* gjj = red + 32;     // 4, one used: the Gram diagonal of the locus (rcplus)
-  float* e = gjj + 4;        // AK: per-locus class scratch
-  float* rowsum = e + AK;    // A: per-locus annotation scratch
-  float* rows = rowsum + A;  // 2 * W: the rows of this locus and the next
   const int v = blockIdx.x;
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
   const int nwarps = blockDim.x >> 5;
-  // the threads that copy the rows: every warp but thread 0's, or its other
-  // lanes in a block of one warp
-  const int copier0 = blockDim.x > 32 ? 32 : 1;
+  const int AK = A * K;
+  const int W = 8 + (R == kRCpi ? 8 : 6) * AK;
+  const bool on_warp = AK <= 32;
+  float* us = sm;                                // 32 * nwarps: the chain's u_v
+  float* tile = us + blockDim.x + warp * kTile;  // this warp's diagonal Gram tile
+  // A * K <= 32: two groups' Coefs; else the serial rule's scratch and two rows
+  float* fb = us + blockDim.x + nwarps * kTile;
 
   const float* pkv = pk + (size_t)v * B * W;
-  for (int idx = i; idx < W; idx += blockDim.x) rows[idx] = pkv[idx];  // row 0
-  if (i < B) us[i] = 0.f;
   // gram is locus-major (B, V, B): row j of chain v starts at (j * V + v) * B
   const size_t jstride = (size_t)V * B;
   const float* gv = gram + (size_t)v * B;
-  float g = (i < B) ? __ldg(gv + i) : 0.f;
-  __syncthreads();
+  const int j0 = warp * 32;
+  for (int r = 0; r < 32; ++r) {
+    const bool in = j0 + r < B && i < B;
+    tile[r * 33 + lane] = in ? __ldg(gv + (size_t)(j0 + r) * jstride + i) : 0.f;
+  }
+  float acc = 0.f;
+  float4 head = make_float4(0.f, 0.f, 0.f, 0.f);  // bold, ua, uv, mask of the lane's locus
+  if (i < B) {
+    const float* s = pkv + (size_t)i * W;
+    acc = __ldg(s);
+    head.x = __ldg(s + 1);
+    if (R == kRCpi) {
+      head.y = __ldg(s + 2);
+      head.z = __ldg(s + 3);
+      head.w = __ldg(s + 4);
+    } else {
+      head.w = __ldg(s + 2);
+    }
+  }
+  if (on_warp && warp == 0) stage_coefs<R>(pkv, fb, 0, B, W, AK, K, lane);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
 
-  for (int j = 0; j < B; ++j) {
-    const float gnext = (i < B && j + 1 < B) ? __ldg(gv + (size_t)(j + 1) * jstride + i) : 0.f;
-    const float part = ngt::warp_sum((i < B) ? g * us[i] : 0.f);
-    if (lane == 0) red[warp] = part;
-    if (R == kRCplus && i == j) gjj[0] = g;
-    __syncthreads();
-    if (i == 0) {
-      float dot = 0.f;
-      for (int w = 0; w < nwarps; ++w) dot += red[w];
-      const float* s = rows + (j & 1) * W;
-      const size_t at = (size_t)v * B + j;
-      const float pre = s[0] + dot;
-      float bnew;
-      if (R == kRCpi) {
-        bnew = rcpi_locus(s, pre, A, K, e, rowsum, at, o);
-        us[j] = s[1] - bnew;
+  Mine mine{0.f, 0.f, 0, 0};
+  const float* grow = gv + (size_t)i * jstride;  // this thread's Gram row
+  // rows are 16-byte aligned
+  const bool wide = (B & 3) == 0 && (reinterpret_cast<uintptr_t>(gram) & 15) == 0;
+  for (int w = 0; w < nwarps; ++w) {
+    float gp[32];  // G[i, v, 32 w .. 32 w + 31], for the threads after group w
+    if (warp == w) {
+      run_group<R>(pkv, tile, fb + (w & 1) * kCoefGroup, fb, j0, min(32, B - j0), v, B, A, K,
+                   lane, acc, head, o, mine);
+      us[i] = mine.u;
+    } else if (warp == w + 1 && on_warp) {
+      // the next group's Coefs go into the slot that group w - 1 has left
+      stage_coefs<R>(pkv, fb + (warp & 1) * kCoefGroup, j0, B, W, AK, K, lane);
+    }
+    if (warp > w && i < B) {
+      if (wide) {
+        const float4* src = reinterpret_cast<const float4*>(grow + 32 * w);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float4 q = __ldg(src + c);
+          gp[4 * c] = q.x;
+          gp[4 * c + 1] = q.y;
+          gp[4 * c + 2] = q.z;
+          gp[4 * c + 3] = q.w;
+        }
       } else {
-        bnew = rcplus_locus(s, pre, gjj[0], A, K, e, at, o, us + j);
+#pragma unroll
+        for (int c = 0; c < 32; ++c) gp[c] = __ldg(grow + 32 * w + c);
       }
-      o.beta[at] = bnew;
-    } else if (i >= copier0 && j + 1 < B) {
-      // while thread 0 applies the rule: row j + 1 into the slot that locus
-      // j - 1 used
-      float* dst = rows + ((j + 1) & 1) * W;
-      const float* src = pkv + (size_t)(j + 1) * W;
-      for (int idx = i - copier0; idx < W; idx += blockDim.x - copier0)
-        __pipeline_memcpy_async(dst + idx, src + idx, 4);
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
-    g = gnext;
+    if (warp > w && i < B) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) acc = fmaf(gp[c], us[32 * w + c], acc);
+    }
   }
-  if (i < B) o.u[(size_t)v * B + i] = us[i];
+
+  if (i < B) {
+    const size_t at = (size_t)v * B + i;
+    o.beta[at] = mine.beta;
+    o.u[at] = mine.u;
+    o.delta[at] = mine.delta;
+    if (R == kRCpi) {
+      o.ia[at] = head.w != 0.f ? mine.a_sel + 1 : 0;
+      rcpi_aprob(pkv + (size_t)i * W, A, K, mine.a_sel, o.fa + at * A);
+    }
+  }
+}
+
+template <int R, int MAXT>
+int launch_as(const float* gram, const float* pk, const Outs& o, int V, int B, int A, int K,
+              int threads, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rc_scan_v_kernel<R, MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rc_scan_v_kernel<R, MAXT><<<(unsigned)V, threads, smem, stream>>>(gram, pk, o, V, B, A, K);
+  return (int)cudaGetLastError();
 }
 
 template <int R>
@@ -269,15 +572,15 @@ int launch(const void* gram, const void* pk, const Outs& o, long long V, long lo
   const int threads = (int)((B + 31) / 32) * 32;
   const long long AK = A * K;
   const long long W = 8 + (R == kRCpi ? 8 : 6) * AK;
-  const size_t smem = sizeof(float) * (size_t)(B + 36 + AK + A + 2 * W);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rc_scan_v_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  rc_scan_v_kernel<R><<<(unsigned)V, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)gram, (const float*)pk, o, (int)V, (int)B, (int)A, (int)K);
-  return (int)cudaGetLastError();
+  // gibbs_kernels.rc_scan_smem_bytes is this sum
+  size_t words = (size_t)threads + (size_t)(threads / 32) * kTile;
+  words += AK <= 32 ? (size_t)(2 * kCoefGroup) : (size_t)(AK + A + 2 * W);
+  const size_t smem = sizeof(float) * words;
+  return threads <= 256
+             ? launch_as<R, 256>((const float*)gram, (const float*)pk, o, (int)V, (int)B, (int)A,
+                                 (int)K, threads, smem, (cudaStream_t)stream)
+             : launch_as<R, 1024>((const float*)gram, (const float*)pk, o, (int)V, (int)B, (int)A,
+                                  (int)K, threads, smem, (cudaStream_t)stream);
 }
 
 }  // namespace

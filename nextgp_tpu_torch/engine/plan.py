@@ -379,8 +379,9 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
 def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=1):
     """Build (SweepPlan, ModelState) from a validated ModelSpec.
 
-    device: where the state lives and the sweep runs (default CUDA when
-    present). dtype: default float32 on CUDA, float64 on the CPU.
+    device: where the state lives and the sweep runs (default CUDA; without
+    a CUDA device that raises, and only device="cpu" runs on the CPU).
+    dtype: default float32 on CUDA, float64 on the CPU.
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its

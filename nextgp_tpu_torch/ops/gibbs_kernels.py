@@ -42,7 +42,7 @@ import torch
 from . import _cuda
 from .dists import categorical_from_probs
 
-MAX_CLASSES = 16  # K3's per-thread class buffer (K12/K14 keep theirs in shared memory: no cap)
+MAX_CLASSES = 16  # K3's per-thread class buffer (K12/K14 have no cap)
 SMEM_BYTES = 227 * 1024  # what one thread block may use on Hopper
 
 
@@ -425,24 +425,43 @@ def bc_block_scan_wv(gram_t, graw_t, pk):
     return bc_block_scan_wv_plain(_step(gram_t, False), _step(graw_t, False), pk)
 
 
+def rc_scan_smem_bytes(B, A, K, sections):
+    """Shared memory one block of K12 (sections = 8) or K14 (6) needs, as
+    `csrc/rc_scan.cu` lays it out: per warp of 32 loci its 32 u's and its
+    diagonal 32 x 33 Gram tile; then, up to A * K = 32 (the rule on a warp),
+    two groups' coefficients at 6 words per lane and locus whatever A and K
+    are, and above that the serial rule's scratch (A * K + A) and two
+    coefficient rows of 8 + sections * A * K floats."""
+    warps = -(-B // 32)
+    words = warps * (32 + 32 * 33)
+    if A * K <= 32:
+        words += 2 * 32 * 6 * 32
+    else:
+        words += A * K + A + 2 * (8 + sections * A * K)
+    return 4 * words
+
+
 def _rc_launch(name, entry, gram_t, pk, A, K, sections, more_outs):
     """K12 and K14: rows of 8 + sections*A*K floats, which the kernel reads
-    from device memory one locus ahead, so shared memory holds two rows and
-    the per-locus scratch whatever B is."""
+    from device memory ahead of the locus they belong to, so no chain's rows
+    need fit shared memory whatever B is."""
     _cuda.require(A >= 1 and K >= 1, f"{name}: needs A >= 1 and K >= 1")
-    width = 8 + sections * A * K
     B = pk.shape[1]
-    # u, the partial dots, g_jj, the per-locus scratch, two rows
-    _cuda.require(4 * (B + 36 + A * K + A + 2 * width) <= SMEM_BYTES,
+    _cuda.require(rc_scan_smem_bytes(B, A, K, sections) <= SMEM_BYTES,
                   f"{name}: B={B}, A={A}, K={K}: two coefficient rows exceed shared memory")
-    return _launch(name, entry, [_step(gram_t, True)], pk, width, more_outs, A, K,
+    return _launch(name, entry, [_step(gram_t, True)], pk, 8 + sections * A * K, more_outs, A, K,
                    rows_in_smem=False)
 
 
 def rcpi_block_scan_v(gram_t, pk, n_annot, n_classes):
     """V-batched BayesRCpi scan (K12). gram_t as for r_block_scan_v; pk
     (V, B, 8 + 8AK). Returns beta, u (V, B), delta, acat (V, B) int32 and
-    the new annotation probabilities (V, B, A)."""
+    the new annotation probabilities (V, B, A). The kernel reads the Gram
+    elements the plain version reads (row j, columns below j), sums them in
+    ascending column order, and compares `cum < u * total` where the plain
+    version compares `cum / total < u`: results agree to rounding, and a
+    draw can differ only where a uniform lies within rounding of a CDF
+    edge. A * K <= 32 runs the rule on a warp, above that on one thread."""
     A, K = n_annot, n_classes
     if pk.is_cuda:
         return _rc_launch("rcpi_block_scan_v", lambda L: L.ngt_rcpi_block_scan_v, gram_t, pk, A, K,
@@ -453,7 +472,8 @@ def rcpi_block_scan_v(gram_t, pk, n_annot, n_classes):
 def rcplus_block_scan_v(gram_t, pk, n_annot, n_classes):
     """V-batched BayesRCplus scan (K14). gram_t as for r_block_scan_v; pk
     (V, B, 8 + 6AK). Returns beta, u, delta (V, B) and cls, bs, nz
-    (V, B, A) (cls, nz int32)."""
+    (V, B, A) (cls, nz int32). Sums and comparisons as in
+    rcpi_block_scan_v."""
     A, K = n_annot, n_classes
     if pk.is_cuda:
         return _rc_launch("rcplus_block_scan_v", lambda L: L.ngt_rcplus_block_scan_v, gram_t, pk,

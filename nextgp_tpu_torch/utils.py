@@ -22,7 +22,12 @@ def cdiv(a: int, b: int) -> int:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. There is no silent CPU path: without a CUDA device this
+    raises, and the CPU is used only where the caller passes device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port runs on the card by default; '
+                           'pass device="cpu" to run the plain versions on the CPU')
+    return torch.device("cuda")
 
 
 def default_dtype(device) -> torch.dtype:

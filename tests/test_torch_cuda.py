@@ -7,9 +7,11 @@ a 100k-individual width whose y no longer fits shared memory (the gather
 then reads a transposed copy from device memory), blocks narrower than a
 warp or not a multiple of 32, K from 2 to 16, V from 1 to 96 chains, and
 short chains through the whole sweep (BayesR, and BayesC with a weighted
-residual); for the annotation scans K12 and K14 also one annotation, K = 16
-(K3's cap; these two have none), coefficient rows that no longer fit shared memory, a chain
-that is all padding, and short BayesRCpi, BayesRCplus and BayesLV chains;
+residual); for the annotation scans K12 and K14 also one annotation, one
+class, K = 16 (K3's cap; these two have none), A * K at, just past and twice
+a warp's 32 lanes, coefficient rows that no longer fit shared memory, a chain
+that is all padding, the same bits from two launches, and short BayesRCpi,
+BayesRCplus and BayesLV chains;
 for the measurement ladder's kernels odd row counts, q = 16, one step (T = 1),
 grids of one and of more blocks than row groups, signed dosages, and each
 wrapper's refusals.
@@ -264,11 +266,14 @@ def _keep_off_cdf_edges(pk, plain, slots, discrete, gen, margin=1e-4):
     (2, 256, 10, 4),  # a chain's rcplus rows (8 + 6AK floats) too
     (96, 256, 3, 3),  # the main path's shape
     (1, 1024, 2, 3),  # the widest block
+    (2, 64, 1, 1),  # one annotation, one class: nothing to draw
+    (2, 40, 11, 3),  # A * K = 33, one pair past a warp: the rule on one thread
+    (1, 256, 16, 4),  # A * K = 64
 ])
 @pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
 def test_rc_scan_kernels_match_plain(dev, kind, V, B, A, K):
     """K12 and K14 against their plain versions, step-indexed and sliced.
-    The kernels read each locus's coefficient row from device memory, so a
+    The kernels read each locus's coefficients from device memory, so a
     chain's rows need not fit shared memory."""
     _, scan, plain_fn, sections, slots, discrete = RC_SCANS[kind]
     T = 2
@@ -292,6 +297,22 @@ def test_rc_scan_kernels_match_plain(dev, kind, V, B, A, K):
             assert (got[0][-1] == 0).all() and (got[2][-1] == 0).all()
         sliced = scan(gram[t].contiguous(), pk, A, K)
         assert all(torch.equal(x, y) for x, y in zip(sliced, got))
+
+
+@pytest.mark.parametrize("V,B,A,K", [(96, 256, 3, 3), (3, 100, 8, 4), (2, 40, 11, 3)])
+@pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
+def test_rc_scan_kernels_give_the_same_bits_twice(dev, kind, V, B, A, K):
+    """Every sum in K12 and K14 has a fixed order and nothing is atomic: two
+    launches on the same inputs give bit-identical outputs, with the rule on
+    a warp (A * K <= 32) and on one thread."""
+    scan = RC_SCANS[kind][1]
+    gram, pk, _ = _rc_inputs(dev, kind, 1, V, B, A, K, 17 + B)
+    first = scan((gram, 0), pk, A, K)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        again = scan((gram, 0), pk, A, K)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert all(torch.isfinite(x).all() for x in first)
 
 
 def test_rcpi_scan_kernel_clamps_the_annotation_draw(dev):

@@ -366,3 +366,24 @@ def test_rcpi_scan_clamps_annotation_at_cdf_edge():
     assert (delta[on & last] == K).all() and (delta[on & ~last] == 1).all()
     assert (out[0].numpy()[on & ~last] == 0).all()
     assert all(torch.isfinite(x).all() for x in out)
+
+
+@pytest.mark.parametrize("B,A,K,sections,need,fits", [
+    (256, 3, 3, 8, 83_968, True),  # the main paths' shape
+    (256, 3, 3, 6, 83_968, True),
+    (1024, 8, 4, 8, 188_416, True),  # the widest block, a full warp of (annotation, class) pairs
+    (1024, 8, 4, 6, 188_416, True),
+    (256, 10, 4, 8, 37_640, True),  # past a warp: the serial rule's two rows and scratch
+    (1024, 16, 16, 8, 156_800, True),
+    (8, 500, 16, 8, 550_416, False),  # one row alone is 256 KB
+    (8, 500, 16, 6, 422_416, False),
+])
+def test_rc_scan_shared_memory_need(B, A, K, sections, need, fits):
+    """The annotation scans' shared memory as a function of the shape: a
+    warp's u's and 32 x 33 Gram tile per 32 loci; up to A * K = 32 two groups'
+    staged coefficients (2 x 32 loci x 6 words x 32 lanes), independent of A
+    and K; above that two coefficient rows and the scratch."""
+    assert tgk.rc_scan_smem_bytes(B, A, K, sections) == need
+    assert (need <= tgk.SMEM_BYTES) == fits
+    if A * K <= 32:
+        assert need == tgk.rc_scan_smem_bytes(B, 1, 1, sections)

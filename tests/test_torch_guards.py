@@ -6,6 +6,8 @@
   field names and defaults.
 * `chip_smoke.py` has no CPU fallback: without a CUDA device it exits
   non-zero and prints no result.
+* Neither has the package: without a CUDA device `default_device()` raises,
+  and so does every entry point that is not told `device="cpu"`.
 """
 import dataclasses
 import os
@@ -86,6 +88,43 @@ def test_chip_smoke_fails_without_gpu():
     assert res.returncode != 0
     last = (res.stdout.strip().splitlines() or [""])[-1]
     assert '"ok": true' not in last
+
+
+def _tiny_spec():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    g = rng.integers(0, 3, (20, 16))
+    return ngt.ModelSpec(y=rng.normal(size=20), fixed=[ngt.FixedTerm("int", np.ones(20))],
+                         markers=[ngt.MarkerTerm("M", ngt.from_array(g), ngt.BayesC(0.9, 0.05))],
+                         block_size=8)
+
+
+def test_default_device_is_the_card_or_an_error(monkeypatch):
+    import torch
+
+    from nextgp_tpu_torch import utils
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        utils.default_device()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert utils.default_device() == torch.device("cuda")
+
+
+@pytest.mark.parametrize("entry", ["assemble", "run_lmem"])
+def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, entry):
+    """Without a CUDA device and without device="cpu" nothing is built on the
+    CPU; with device="cpu" the same call goes through."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = _tiny_spec()
+    call = {"assemble": lambda **kw: ngt.assemble(spec, **kw)[1].ycorr,
+            "run_lmem": lambda **kw: ngt.run_lmem(spec, 2, 0, 1, seed=1, **kw).state.ycorr}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert call(device="cpu").device.type == "cpu"
 
 
 def test_normalize_annot_matches():

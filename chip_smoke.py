@@ -1,6 +1,7 @@
 """Run the PyTorch/CUDA port's marker methods on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
+    python3 chip_smoke.py scans  # phases 1-2 and every scan of phase 3 alone
     python3 chip_smoke.py rc     # phases 1-2 and the annotation scans of phase 3 alone
 
 Phases (any failed check raises and the script exits non-zero):
@@ -12,15 +13,20 @@ Phases (any failed check raises and the script exits non-zero):
      3.35 TB/s or its operations over 67 TFLOP/s; a scan needs the Gram's
      lower triangle only): K1 gather, K2 scatter, K3 BayesR scan, K6 Gaussian scan, K8
      B/C scan, K10 weighted B/C scan, K12 BayesRCpi scan, K14 BayesRCplus
-     scan, K1 at 100,000 individuals (y past shared memory), K12 with a
-     chain's coefficient rows past shared memory (A = 8, K = 4), K12 and K14
-     with one annotation and one class (what their skeleton costs per locus),
-     K1 and K2 over the whole panel (K1', K2'), and every scan again at V = 1,
-     the single-chain launch the V=1 paths make (K4, K5, K7, K9, K11, K13).
+     scan, K1 at 100,000 individuals (y past shared memory), K3 with 8, 9
+     (the two sides of its two rules' boundary) and 20 classes (past the 16
+     it once took), K12 with a chain's
+     coefficient rows past shared memory (A = 8, K = 4), K3 with one class
+     and K12 and K14 with one annotation and one class (what their skeleton
+     costs per locus), K1 and K2 over the whole panel (K1', K2'), and every
+     scan again at V = 1, the single-chain launch the V=1 paths make (K4, K5,
+     K7, K9, K11, K13).
      A time is the median of event pairs around one call, which holds the
      host's share of a launch; beside it, for K1, K2 and the scans, stands the
      kernels' time on the card alone, from the profiler (`device_ms` in the
-     kernels line)
+     kernels line). A digest of each scan's inputs and outputs (the
+     `[3 digests]` line) shows two trees giving the same bits on the same
+     inputs. `scans` runs phase 3's scans alone (not K3 at K = 20)
   4. the paths at full size on one simulated 10,000 x 49,152 panel, 2-bit
      packed once and shared, V=96, 100 sweeps of run_lmem each: BayesR with
      estimatePi, BayesC, BayesC with a weighted ("D") residual, BayesPR
@@ -50,8 +56,10 @@ Phases (any failed check raises and the script exits non-zero):
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
+import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -120,6 +128,17 @@ RC_MARGIN = 1e-4  # K12/K14 inputs keep every uniform this far from a CDF edge
 DEV = torch.device("cuda")
 
 
+def digest(*tensors):
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+DIGESTS = {}  # scan name -> digests of its inputs and of its outputs
+
+
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -142,18 +161,49 @@ def device_ms(fn, reps):
     """Mean time the card spends in the kernels that one call of fn launches,
     from the profiler's device durations. An event pair around one call
     (median_ms) also holds what the host needs to get the launch out, which
-    for a kernel of a tenth of a millisecond is much of the reading."""
+    for a kernel of a tenth of a millisecond is much of the reading.
+
+    The profiler now and then hands back a few kernel records more or fewer
+    than were launched in the window, most often one short. A short spin
+    kernel opens and one closes each window, so that a record lost at either
+    end is theirs; they are not counted. A window counts only where it is
+    whole: each
+    kernel built from csrc/ has as many records as the wrappers' launch
+    counters rose in it, and every other kernel (PyTorch's own, for outputs)
+    a multiple of reps. Else the window is taken again; after five the time
+    is left out (None), which decides no check."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    check(busy > 0, "the profiler saw no device time")
-    return busy / reps / 1e3
+    seen = []
+    for _ in range(5):
+        before = sum(_cuda.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
+        launched = sum(_cuda.LAUNCHES.values()) - before
+        records = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count and "spin_kernel" not in e.key]
+        ours = [e.count for e in records if _built_here(e.key)]
+        whole = (launched > 0 and ours and all(n == launched for n in ours)
+                 and all(e.count % reps == 0 for e in records))
+        if whole:
+            return sum(e.self_device_time_total for e in records) / reps / 1e3
+        seen.append(f"{launched} launched, records {sorted(ours)}")
+    print(f"chip_smoke: note: no whole profiler window of {reps} calls in five ({'; '.join(seen)});"
+          " time on the card not measured")
+    return None
+
+
+def _built_here(kernel):
+    """Whether a kernel name is one of the port's (csrc/): PyTorch's are in
+    at:: (or cub::), or are copies and fills."""
+    return not re.search(r"\b(at|cub)::", kernel) and not kernel.startswith(("Memcpy", "Memset"))
 
 
 def rel_err(out, ref):
@@ -204,7 +254,7 @@ def build_phase():
     _cuda.lib()
     print(f"[2 build] {time.perf_counter() - t0:.2f} s -> {so.relative_to(so.parents[3])}")
     for line in (so.parent / "ptxas.log").read_text().splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
 
@@ -269,6 +319,8 @@ def locus_pre(gram_t, pk_t, u, slot):
 
 def cdf_near(gram_t, pk_t, u, K):
     """Loci whose uniform lies within CDF_MARGIN of an inner CDF edge (K3)."""
+    if K == 1:  # no inner edge
+        return torch.zeros(pk_t.shape[:2], dtype=torch.bool, device=DEV)
     pre = locus_pre(gram_t, pk_t, u, 0)
     logl = pk_t[:, :, 8:8 + K] + pk_t[:, :, 8 + K:8 + 2 * K] * (pre * pre)[..., None]
     cum = torch.cumsum(torch.softmax(logl, dim=-1), dim=-1)[..., :K - 1]
@@ -330,6 +382,9 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note):
         step.redraw(unif, close, gen)
     check(not close.any(), f"{name}: could not keep the inputs away from decision edges")
     got = kern(pk_t)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, kern(pk_t))), f"{name}: two runs differ")
+    DIGESTS[name] = dict(inputs=digest(pk_t), outputs=digest(*got))
     check(torch.equal(got[2], ref[2]), f"{name}: delta differs from the plain version")
     e_u, s_u = rel_err(got[1], ref[1])
     check(e_u <= TOL_SCAN * s_u, f"{name}: u differs by {e_u:.3e} (scale {s_u:.3e})")
@@ -393,6 +448,7 @@ def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
     got = kern(pk_t)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, kern(pk_t))), f"{name}: two runs differ")
+    DIGESTS[name] = dict(inputs=digest(pk_t), outputs=digest(*got))
     errs = []
     for i, (g, r) in enumerate(zip(got, ref)):
         if i in discrete:
@@ -540,10 +596,21 @@ def pass_kernels(st):
     big_gather()
 
 
-def kernels_phase(spec_for, V=V_MAIN, tag=""):
+def r_classes(K):
+    """Variance classes and log prior probabilities of a K-class BayesR
+    beside the main path's four: 0 and K - 1 classes from 1e-4 to 1e-1
+    (one class: the largest of the main path's), with 0.62 on the null class."""
+    if K == 1:
+        return torch.tensor([PRIOR_R["class_"][-1]], device=DEV), torch.zeros(1, device=DEV)
+    varc = torch.tensor([0.0] + list(np.geomspace(1e-4, 1e-1, K - 1)), device=DEV)
+    return varc, torch.log(torch.tensor([0.62] + [0.38 / (K - 1)] * (K - 1), device=DEV))
+
+
+def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
     """Every kernel of the sweep against its plain version at the paths'
     shapes for this V; with V = 1 (tag "_v1") the single-chain launches of
-    the scans, as the V=1 paths make them 192 times per sweep."""
+    the scans, as the V=1 paths make them 192 times per sweep. full = False
+    leaves out all but the scans, and K3 at K = 20."""
     plan, st = ngt.assemble(spec_for("BayesR"), vshards=V)
     ms, mp = st.markers[0], plan.markers[0]
     T, V_got, B, q = ms.mt.shape
@@ -551,7 +618,7 @@ def kernels_phase(spec_for, V=V_MAIN, tag=""):
     check(V_got == V and q == pack2.packed_q(N), f"layout (T, V, B, q) = {(T, V_got, B, q)}")
     dt = st.ycorr.dtype
     step = Step0(st)
-    if V == V_MAIN:
+    if V == V_MAIN and full:
         pass_kernels(st)
 
     # the scans at step t=0 with the coefficients of a first sweep on the real data
@@ -564,21 +631,30 @@ def kernels_phase(spec_for, V=V_MAIN, tag=""):
                 mask=ms.mask.reshape(-1))
     gram0 = ms.gram[0]
 
-    varc = ms.var_beta[0] * ms.v_class
-    held_scan(
-        f"r_block_scan_v{tag}",
-        lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, K),
-        lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, K),
-        lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc,
-                                                        logpi=ms.log_pi, ive=ive, var_e=var_e)),
-        unif, gen, step, lambda pk_t, uu: cdf_near(gram0, pk_t, uu, K),
-        scan_work(V, B, 8 + 4 * K, 1, 3, 10 * K), f"V={V}, B={B}, K={K}")
+    def r_scan(name, varc, logpi):
+        k = varc.numel()
+        held_scan(
+            name, lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, k),
+            lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, k),
+            lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc,
+                                                            logpi=logpi, ive=ive, var_e=var_e)),
+            unif, gen, step, lambda pk_t, uu: cdf_near(gram0, pk_t, uu, k),
+            scan_work(V, B, 8 + 4 * k, 1, 3, 10 * k), f"V={V}, B={B}, K={k}")
+
+    r_scan(f"r_block_scan_v{tag}", ms.var_beta[0] * ms.v_class, ms.log_pi)
+    # one class: nothing left of the rule but a multiply-add, so this is what
+    # the skeleton costs per locus
+    r_scan(f"r_block_scan_v_floor{tag}", *(x.to(dt) for x in r_classes(1)))
+    if V == V_MAIN:
+        for k in (8, 9, 20) if full else (8, 9):
+            r_scan(f"r_block_scan_v_k{k}", *(x.to(dt) for x in r_classes(k)))
 
     ivb = torch.full_like(ms.beta, 1.0 / V_PR)
     pk_t = step.rows(gibbs_kernels.gauss_block_pack(torch.zeros_like(ms.beta), ms.beta, z, ivb,
                                                     flat["mpm"], flat["lss"], flat["rss"],
                                                     flat["mask"], ive))
     got = gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t)
+    DIGESTS[f"gauss_block_scan_v{tag}"] = dict(inputs=digest(pk_t), outputs=digest(*got))
     ref = gibbs_kernels.gauss_block_scan_v_plain(gram0, pk_t)
     e_u, s_u = rel_err(got[1], ref[1])
     check(e_u <= TOL_SCAN * s_u, f"gauss_block_scan_v: u differs by {e_u:.3e} (scale {s_u:.3e})")
@@ -976,8 +1052,8 @@ SOURCES = {
     "gauss_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v", V1),
     "bc_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "422", "bc_block_scan_v", V96),
     "bc_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v", V1),
-    "bc_block_scan_wv": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv", V96),
-    "bc_block_scan_wv_v1": (CU + "gauss_bc_scan.cu", GK + "189", "bc_block_scan_wv", V1),
+    "bc_block_scan_wv": (CU + "bcw_scan.cu", GK + "457", "bc_block_scan_wv", V96),
+    "bc_block_scan_wv_v1": (CU + "bcw_scan.cu", GK + "189", "bc_block_scan_wv", V1),
     "rcpi_block_scan_v": (CU + "rc_scan.cu", GK + "718", "rcpi_block_scan_v", V96),
     "rcpi_block_scan_v_v1": (CU + "rc_scan.cu", GK + "627", "rcpi_block_scan_v", V1),
     "rcplus_block_scan_v": (CU + "rc_scan.cu", GK + "952", "rcplus_block_scan_v", V96),
@@ -998,15 +1074,22 @@ ALSO_REPLACES = {
 }
 
 
-def rc_only(spec_for, card):
-    """`python3 chip_smoke.py rc`: K12 and K14 alone, held and timed at V=96 and
-    V=1 as phase 3 does; the quick form for work on csrc/rc_scan.cu. It
-    prints no result line."""
+def scans_only(spec_for, card, which):
+    """`python3 chip_smoke.py scans` (every scan of phase 3, as phase 3 holds
+    and times them, at V=96 and V=1) or `rc` (K12 and K14 alone): the quick
+    forms for work on the scan kernels. They print one JSON line of times and
+    digests, and no result line. `scans` keeps to shapes that every version
+    of the kernels has taken (K3 at K = 20 is the full run's), so that the
+    same script can time two trees and compare their digests."""
     z = torch.randn(P, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV)
     for V, tag in ((V_MAIN, ""), (1, "_v1")):
-        rc_kernels(spec_for, z, V, tag)
+        if which == "scans":
+            kernels_phase(spec_for, V, tag, full=False)
+        else:
+            rc_kernels(spec_for, z, V, tag)
     print(json.dumps({"card": card, "ms": {name: t["ms"] for name, t in TIMINGS.items()},
-                      "device_ms": {name: t["device_ms"] for name, t in TIMINGS.items()}}))
+                      "device_ms": {name: t["device_ms"] for name, t in TIMINGS.items()},
+                      "digests": DIGESTS}))
 
 
 def main(argv=()):
@@ -1014,11 +1097,12 @@ def main(argv=()):
     card = device_phase()
     build_phase()
     spec_for, sig = simulate()
-    if list(argv) == ["rc"]:
-        return rc_only(spec_for, card)
-    check(not argv, f"unknown arguments {list(argv)}: none, or rc")
+    if list(argv) in (["scans"], ["rc"]):
+        return scans_only(spec_for, card, argv[0])
+    check(not argv, f"unknown arguments {list(argv)}: none, scans or rc")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
+    print(f"[3 digests] {json.dumps(DIGESTS)}")
     counted = {}  # run -> launches by counter, each read from 0
     for path in PATHS:
         counted[path], res = slice_phase(path, spec_for(path), sig, card, V_MAIN)

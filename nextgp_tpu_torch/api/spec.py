@@ -2,9 +2,11 @@
 
 Copies of `nextgp_tpu.api.spec.FixedTerm`, `MarkerTerm` and `ModelSpec`
 with the same field names and defaults. The port's planner accepts the
-residual, fixed terms and BayesR marker sets; `random` and `corr_markers`
-exist so a spec written for the JAX package carries over, and `assemble`
-raises NotImplementedError naming any such term.
+residual ("I" or weighted "D"), fixed terms, summary statistics and marker
+sets under any of the seven marker priors (BayesPR, BayesB, BayesC, BayesR,
+BayesRCpi, BayesRCplus, BayesLV with a covariate matrix); `random` and
+`corr_markers` exist so a spec written for the JAX package carries over, and
+`assemble` raises NotImplementedError naming any such term.
 """
 from __future__ import annotations
 

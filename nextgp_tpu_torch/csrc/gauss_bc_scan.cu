@@ -1,5 +1,5 @@
-// V-batched Gaussian and BayesB/C in-block scans for Hopper (sm_90a):
-// K6, K8 and K10.
+// V-batched Gaussian and BayesB/C in-block scans for Hopper (sm_90a): K6
+// and K8.
 //
 // Replaces the Pallas kernels behind
 //   K6  `gibbs_kernels.gauss_block_scan_v` (`_gauss_kernel_v`,
@@ -7,9 +7,8 @@
 //       (K5, `_gauss_kernel`, :80-109)
 //   K8  `gibbs_kernels.bc_block_scan_v` (`_bc_kernel_v`, :396-425); V=1 is
 //       `bc_block_scan` (K7, `_bc_kernel`, :115-164)
-//   K10 `gibbs_kernels.bc_block_scan_wv` (`_bc_kernel_wv`, :428-469); V=1 is
-//       `bc_block_scan_w` (K9, `_bc_kernel_w`, :167-203)
-// all called through `_pallas_step_call` (:293-355).
+// both called through `_pallas_step_call` (:293-355). The weighted B/C scan
+// K10 runs on the newer skeleton (csrc/bcw_scan.cu, csrc/scan_skeleton.cuh).
 //
 // V independent chains of B sequential loci, each locus one Gram-row dot
 // against the chain's u (u[j] is still 0 when locus j runs) and a few
@@ -17,38 +16,35 @@
 //   gauss  pre = s0 + G[j].u;  beta = s3 + s2*pre
 //   bc     pre = s0 + G[j].u;  inc = s2 + s3*pre^2 < s4;
 //          beta = inc ? s6 + s5*pre : 0;  delta = inc
-//   bc_w   as bc, but pre_raw = s7 + Graw[j].u decides inc and pre (from the
-//          weighted Gram G) sets beta
 // and then u[j] = s1 - beta. Rows are laid out by
 // gibbs_kernels.gauss_block_pack ([adj, bold, b, c, pad*4]) and
 // bc_block_pack ([adj, bold, q0, q1, w, b, c, adj_raw]); the caller has added
-// r0 to slot 0 (and r0_raw to slot 7 for bc_w).
+// r0 to slot 0.
 //
-// Bound: latency, as K3 (csrc/r_scan.cu): each locus depends on the one
-// before. Design, as K3's: one thread block per chain, one thread per locus
-// of the block; the chain's Gram rows stream from device memory (one chain's
-// B x B block is 256 KB at B = 256, more than a block's 227 KB of shared
-// memory), each row prefetched one locus ahead into a register (two rows for
-// bc_w); u and the chain's coefficient rows sit in shared memory; the dot is
-// a fixed-order warp-shuffle plus per-warp reduction (bit-reproducible), and
-// thread 0 applies the rule. Padded loci carry q0 = +inf and a uniform at 0
-// gives w = +inf, so the comparison must stay IEEE: no fast-math.
+// Bound: latency: each locus depends on the one before. Design (the older
+// skeleton): one thread block per chain, one thread per locus of the block;
+// the chain's Gram rows stream from device memory (one chain's B x B block is
+// 256 KB at B = 256, more than a block's 227 KB of shared memory), each row
+// prefetched one locus ahead into a register; u and the chain's coefficient
+// rows sit in shared memory; the dot is a fixed-order warp-shuffle plus
+// per-warp reduction (bit-reproducible), and thread 0 applies the rule: two
+// barriers per locus. Padded loci carry q0 = +inf and a uniform at 0 gives
+// w = +inf, so the comparison must stay IEEE: no fast-math.
 #include "common.cuh"
 
 namespace {
 
-enum Rule { kGauss = 0, kBC = 1, kBCW = 2 };
+enum Rule { kGauss = 0, kBC = 1 };
 constexpr int kW = 8;  // coefficient row width
 
 template <int R>
-__global__ void scan8_v_kernel(const float* __restrict__ gram, const float* __restrict__ graw,
-                               const float* __restrict__ pk, float* __restrict__ beta,
-                               float* __restrict__ u_out, int* __restrict__ delta, int V, int B) {
+__global__ void scan8_v_kernel(const float* __restrict__ gram, const float* __restrict__ pk,
+                               float* __restrict__ beta, float* __restrict__ u_out,
+                               int* __restrict__ delta, int V, int B) {
   extern __shared__ float sm[];
-  float* us = sm;          // B: the chain's correction vector u_v
-  float* red = us + B;     // 32: per-warp partial dots against G
-  float* red2 = red + 32;  // 32: per-warp partial dots against Graw (bc_w)
-  float* pks = red2 + 32;  // B * kW: the chain's coefficient rows
+  float* us = sm;         // B: the chain's correction vector u_v
+  float* red = us + B;    // 32: per-warp partial dots against G
+  float* pks = red + 32;  // B * kW: the chain's coefficient rows
   const int v = blockIdx.x;
   const int i = threadIdx.x;
   const int lane = i & 31;
@@ -61,22 +57,15 @@ __global__ void scan8_v_kernel(const float* __restrict__ gram, const float* __re
   // locus-major (B, V, B): row j of chain v starts at (j * V + v) * B
   const size_t jstride = (size_t)V * B;
   const float* gv = gram + (size_t)v * B;
-  const float* rv = (R == kBCW) ? graw + (size_t)v * B : nullptr;
   float g = (i < B) ? __ldg(gv + i) : 0.f;
-  float gr = (R == kBCW && i < B) ? __ldg(rv + i) : 0.f;
   __syncthreads();
 
   for (int j = 0; j < B; ++j) {
     const bool more = i < B && j + 1 < B;
     const float gnext = more ? __ldg(gv + (size_t)(j + 1) * jstride + i) : 0.f;
-    const float grnext = (R == kBCW && more) ? __ldg(rv + (size_t)(j + 1) * jstride + i) : 0.f;
     const float ui = (i < B) ? us[i] : 0.f;
     const float part = ngt::warp_sum(g * ui);
     if (lane == 0) red[warp] = part;
-    if (R == kBCW) {
-      const float part2 = ngt::warp_sum(gr * ui);
-      if (lane == 0) red2[warp] = part2;
-    }
     __syncthreads();
     if (i == 0) {
       float dot = 0.f;
@@ -87,13 +76,7 @@ __global__ void scan8_v_kernel(const float* __restrict__ gram, const float* __re
       if (R == kGauss) {
         bnew = s[3] + s[2] * pre;
       } else {
-        float prer = pre;
-        if (R == kBCW) {
-          float dot2 = 0.f;
-          for (int w = 0; w < nwarps; ++w) dot2 += red2[w];
-          prer = s[7] + dot2;
-        }
-        const bool inc = s[2] + s[3] * prer * prer < s[4];
+        const bool inc = s[2] + s[3] * pre * pre < s[4];
         bnew = inc ? s[6] + s[5] * pre : 0.f;
         delta[(size_t)v * B + j] = inc ? 1 : 0;
       }
@@ -102,24 +85,22 @@ __global__ void scan8_v_kernel(const float* __restrict__ gram, const float* __re
     }
     __syncthreads();
     g = gnext;
-    gr = grnext;
   }
   if (i < B) u_out[(size_t)v * B + i] = us[i];
 }
 
 template <int R>
-int launch(const void* gram, const void* graw, const void* pk, void* beta, void* u, void* delta,
-           long long V, long long B, void* stream) {
+int launch(const void* gram, const void* pk, void* beta, void* u, void* delta, long long V,
+           long long B, void* stream) {
   const int threads = (int)((B + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (size_t)(B + 64 + B * kW);
+  const size_t smem = sizeof(float) * (size_t)(B + 32 + B * kW);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         scan8_v_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   scan8_v_kernel<R><<<(unsigned)V, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)gram, (const float*)graw, (const float*)pk, (float*)beta, (float*)u,
-      (int*)delta, (int)V, (int)B);
+      (const float*)gram, (const float*)pk, (float*)beta, (float*)u, (int*)delta, (int)V, (int)B);
   return (int)cudaGetLastError();
 }
 
@@ -127,21 +108,16 @@ int launch(const void* gram, const void* graw, const void* pk, void* beta, void*
 
 extern "C" {
 
-// gram, graw: (B, V, B) f32 (already offset to step t); pk: (V, B, 8) f32;
+// gram: (B, V, B) f32 (already offset to step t); pk: (V, B, 8) f32;
 // beta, u: (V, B) f32; delta: (V, B) int32. 1 <= B <= 1024.
 int ngt_gauss_block_scan_v(const void* gram, const void* pk, void* beta, void* u, long long V,
                            long long B, void* stream) {
-  return launch<kGauss>(gram, nullptr, pk, beta, u, nullptr, V, B, stream);
+  return launch<kGauss>(gram, pk, beta, u, nullptr, V, B, stream);
 }
 
 int ngt_bc_block_scan_v(const void* gram, const void* pk, void* beta, void* u, void* delta,
                         long long V, long long B, void* stream) {
-  return launch<kBC>(gram, nullptr, pk, beta, u, delta, V, B, stream);
-}
-
-int ngt_bc_block_scan_wv(const void* gram, const void* graw, const void* pk, void* beta, void* u,
-                         void* delta, long long V, long long B, void* stream) {
-  return launch<kBCW>(gram, graw, pk, beta, u, delta, V, B, stream);
+  return launch<kBC>(gram, pk, beta, u, delta, V, B, stream);
 }
 
 }  // extern "C"

@@ -46,28 +46,9 @@
 // outputs are chosen by selects on the mask, never by multiplying with it
 // (NaN * 0 = NaN). So the comparisons must stay IEEE: no fast-math.
 //
-// Bound: latency. Each locus depends on the one before; the bytes are the
-// Gram's lower triangle and one coefficient row per locus, read once. What a
-// chain costs is B times the dependent chain of one locus, so the design
-// keeps that chain short: nothing block-wide and nothing serial on it.
-//
-// Design: one thread block per chain, one thread per locus, one warp per
-// group of 32 consecutive loci.
-//  * Right-looking sums, no reduction. Thread i keeps
-//    acc_i = s0_i + sum_{k<j} G[i, v, k] * u_v[k] in a register, in ascending
-//    k, so when locus j's turn comes its pre is ready in thread j: one
-//    shuffle, where the kernel before reduced a 256-wide dot over the block
-//    (a shuffle tree, a barrier and a serial sum of the warps' partials) for
-//    every locus. The Gram elements are the ones the plain version reads
-//    (row i, columns below i); the sum's order differs.
-//  * A warp runs its 32 loci alone, without a block barrier. Inside the group
-//    lane i adds G[i, v, j] * u_v[j] as soon as u_v[j] is known, from the
-//    group's 32 x 32 diagonal tile, which each warp copies to shared memory at
-//    the start (padded to 33 columns: the column reads hit 32 banks). After
-//    the group one __syncthreads publishes its 32 u's, and every later thread
-//    adds its 32 products, from 32 consecutive words of its own Gram row that
-//    it loaded while it waited (eight 16-byte loads where B is a multiple of
-//    4). So a block of 256 loci passes 8 barriers, not 512.
+// Bound: latency, as for every scan (csrc/scan_skeleton.cuh: one block per
+// chain, right-looking sums, a warp per group of 32 loci, one barrier per
+// group, outputs written once by each locus's owner). The rules:
 //  * The rule on the warp (A * K <= 32), one lane per (annotation, class):
 //    each lane forms its own q0 + q1 * pre^2, the maximum is one integer
 //    `redux` on an order-preserving image of the floats, one expf per lane,
@@ -81,25 +62,24 @@
 //    one of two shared-memory slots with cp.async by the warp that will run
 //    the group, while the group before it runs: the rule reads them at
 //    shared-memory latency, its loop holds no address arithmetic for device
-//    memory, and no coefficient row is held whole. Every sum has a fixed order
-//    and nothing is atomic: two runs give the same bits.
+//    memory, and no coefficient row is held whole.
 //  * A * K > 32: lane 0 applies the rule serially to the row, which the warp
 //    copies into one of two shared-memory slots with cp.async one locus ahead;
 //    shared memory then needs two rows and the scratch.
-//  * Outputs per locus stay in the registers of the thread that owns it and
-//    are written once, coalesced, at the end; rcpi's new annotation
-//    probabilities are formed there too, off the chain. rcplus's three
-//    per-annotation outputs go out from A lanes at once.
-#include <cuda_pipeline.h>
+//  * rcpi's new annotation probabilities are formed by each locus's owner at
+//    the end, off the chain. rcplus's three per-annotation outputs go out from
+//    A lanes at once.
 #include <math.h>
 
-#include "common.cuh"
+#include "scan_skeleton.cuh"
 
 namespace {
 
+using ngt::scan::kFull;
+using ngt::scan::scan_up;
+using ngt::scan::warp_max;
+
 enum Rule { kRCpi = 0, kRCplus = 1 };
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 32 * 33;  // a 32 x 32 Gram tile, rows padded to 33 words
 
 struct Outs {
   float* beta;  // (V, B)
@@ -161,25 +141,6 @@ __device__ __forceinline__ Coef read_coef(const float* buf, int jj, int AK, int 
     r.c = d[160];
   }
   return r;
-}
-
-// Maximum over the warp by one integer `redux`: floats map to integers of the
-// same order (negative floats with their magnitude bits flipped).
-__device__ __forceinline__ int ordered(int bits) { return bits >= 0 ? bits : bits ^ 0x7fffffff; }
-
-__device__ __forceinline__ float warp_max(float x) {
-  return __int_as_float(ordered(__reduce_max_sync(kFull, ordered(__float_as_int(x)))));
-}
-
-// Inclusive sums over the lanes l, l - step, l - 2 * step, ... >= l - pos.
-// step = 1 with pos = k sums within an annotation's K lanes; step = K with
-// pos = lane sums one class over the annotations.
-__device__ __forceinline__ float scan_up(float x, int step, int end, int pos) {
-  for (int off = step; off < end; off <<= 1) {
-    const float t = __shfl_up_sync(kFull, x, off);
-    if (pos >= off) x += t;
-  }
-  return x;
 }
 
 // The lanes' positions in the (annotation, class) grid of one warp.
@@ -373,43 +334,86 @@ __device__ __forceinline__ void rcpi_aprob(const float* __restrict__ s, int A, i
   for (int a = 0; a < A; ++a) out[a] = ((a == a_sel) ? g2[a * K] : g1[a * K]) * anz[a * K] / gsum;
 }
 
-// The loci j0 .. j0 + nj - 1 on the calling warp. acc holds each lane's
-// right-looking sum; on return `mine` holds the outputs of the lane's locus.
-// tile is the warp's diagonal Gram tile, head (bold, ua, uv, mask) the head
-// of the lane's own row; coefs the group's staged Coefs (A * K <= 32), fb the
-// serial rule's shared memory (A * K > 32).
+// The rules of K12 and K14 on the scan skeleton (csrc/scan_skeleton.cuh).
+// head (bold, ua, uv, mask) is the head of the thread's own row; the rule's
+// shared memory is two groups' staged Coefs (A * K <= 32) or the serial
+// rule's scratch and two rows (A * K > 32).
 template <int R>
-__device__ __forceinline__ void run_group(const float* __restrict__ pkv, const float* tile,
-                                          const float* coefs, float* fb, int j0, int nj, int v,
-                                          int B, int A, int K, int lane, float& acc,
-                                          const float4& head, const Outs& o, Mine& mine) {
-  const int AK = A * K;
-  const int W = 8 + (R == kRCpi ? 8 : 6) * AK;
-  const bool on_warp = AK <= 32;
+struct RcRule {
+  static constexpr int kGrams = 1;
+  struct Params {
+    const float* pk;  // (V, B, W)
+    Outs o;
+    int A, K;
+  };
+
+  const float* pkv;
+  Outs o;
+  float* sm;
+  const float* coefs = nullptr;  // the staged Coefs of the locus that runs next
+  int v, B, A, K, AK, W;
+  bool on_warp;
   Grid g;
-  g.valid = lane < AK;
-  g.a = lane / K;
-  g.k = lane - g.a * K;
-  float* e = fb;                  // AK
-  float* rowsum = e + AK;         // A
-  float* rows = rowsum + A;       // 2 * W
-  if (!on_warp) {
-    for (int idx = lane; idx < W; idx += 32)
-      __pipeline_memcpy_async(rows + idx, pkv + (size_t)j0 * W + idx, 4);
-    __pipeline_commit();
+  float s0;
+  float4 head;  // bold, ua, uv, mask of the thread's locus
+  Mine mine;
+
+  __device__ __forceinline__ RcRule(const Params& p, float* smem, int v_, int B_, int i)
+      : o(p.o), sm(smem), v(v_), B(B_), A(p.A), K(p.K) {
+    AK = A * K;
+    W = 8 + (R == kRCpi ? 8 : 6) * AK;
+    on_warp = AK <= 32;
+    const int lane = i & 31;
+    g.valid = lane < AK;
+    g.a = lane / K;
+    g.k = lane - g.a * K;
+    pkv = p.pk + (size_t)v * B * W;
+    s0 = 0.f;
+    head = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < B) {
+      const float* s = pkv + (size_t)i * W;
+      s0 = __ldg(s);
+      head.x = __ldg(s + 1);
+      if (R == kRCpi) {
+        head.y = __ldg(s + 2);
+        head.z = __ldg(s + 3);
+        head.w = __ldg(s + 4);
+      } else {
+        head.w = __ldg(s + 2);
+      }
+    }
+    mine = Mine{0.f, 0.f, 0, 0};
   }
-  for (int jj = 0; jj < nj; ++jj) {
+
+  __device__ __forceinline__ float start(int) const { return s0; }
+
+  __device__ __forceinline__ void stage(int slot, int j0, int lane) {
+    if (on_warp) stage_coefs<R>(pkv, sm + slot * kCoefGroup, j0, B, W, AK, K, lane);
+  }
+
+  // the group's staged Coefs, or the serial rule's first row of the group
+  __device__ __forceinline__ void begin_group(int slot, int j0, int, int lane) {
+    coefs = sm + slot * kCoefGroup;
+    if (!on_warp) {
+      float* rows = sm + AK + A;
+      for (int idx = lane; idx < W; idx += 32)
+        __pipeline_memcpy_async(rows + idx, pkv + (size_t)j0 * W + idx, 4);
+      __pipeline_commit();
+    }
+  }
+
+  __device__ __forceinline__ float locus(int j0, int jj, const float (&pre_g)[1], float gjj,
+                                         int lane) {
     const int j = j0 + jj;
     const size_t at = (size_t)v * B + j;
-    const float gcol = tile[lane * 33 + jj];  // G[j0 + lane, v, j]
-    const float gjj = tile[jj * 33 + jj];
-    const float pre = __shfl_sync(kFull, acc, jj);
+    const float pre = pre_g[0];
     const float bold = __shfl_sync(kFull, head.x, jj);
     const bool on = __shfl_sync(kFull, head.w, jj) != 0.f;
     float bnew = 0.f, uj = 0.f;
     int a_sel = 0, cls = 0, dj = 0;
     if (on_warp) {
-      const Coef c0 = read_coef(coefs, jj, AK, lane);
+      const Coef c0 = read_coef(coefs, 0, AK, lane);
+      coefs += kCoefWords;
       if (R == kRCpi) {
         const float ua = __shfl_sync(kFull, head.y, jj);
         const float uv = __shfl_sync(kFull, head.z, jj);
@@ -420,11 +424,14 @@ __device__ __forceinline__ void run_group(const float* __restrict__ pkv, const f
         bnew = rcplus_warp(c0, g, lane, pre, gjj, bold, on, A, K, at, o, &uj, &dj);
       }
     } else {
+      float* e = sm;             // AK
+      float* rowsum = e + AK;    // A
+      float* rows = rowsum + A;  // 2 * W
       // row j has arrived; row j + 1 goes into the other slot meanwhile
       __pipeline_wait_prior(0);
       __syncwarp();
       const float* s = rows + (jj & 1) * W;
-      if (jj + 1 < nj) {
+      if (j + 1 < min(B, j0 + 32)) {
         float* dst = rows + ((jj + 1) & 1) * W;
         for (int idx = lane; idx < W; idx += 32)
           __pipeline_memcpy_async(dst + idx, pkv + (size_t)(j + 1) * W + idx, 4);
@@ -444,105 +451,18 @@ __device__ __forceinline__ void run_group(const float* __restrict__ pkv, const f
       dj = __shfl_sync(kFull, dj, 0);
       a_sel = __shfl_sync(kFull, a_sel, 0);
     }
-    acc = fmaf(gcol, uj, acc);
     if (lane == jj) {
       mine.beta = bnew;
       mine.u = uj;
       mine.delta = dj;
       mine.a_sel = a_sel;
     }
-  }
-}
-
-// One thread per locus of the block. MAXT bounds the block: at 1024 threads a
-// thread has 64 registers and part of the prefetched panel spills; blocks of
-// up to 256 loci take the instance that leaves the compiler free.
-template <int R, int MAXT>
-__global__ void __launch_bounds__(MAXT, 1)
-    rc_scan_v_kernel(const float* __restrict__ gram, const float* __restrict__ pk, Outs o, int V,
-                     int B, int A, int K) {
-  extern __shared__ float sm[];
-  const int v = blockIdx.x;
-  const int i = threadIdx.x;
-  const int lane = i & 31;
-  const int warp = i >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int AK = A * K;
-  const int W = 8 + (R == kRCpi ? 8 : 6) * AK;
-  const bool on_warp = AK <= 32;
-  float* us = sm;                                // 32 * nwarps: the chain's u_v
-  float* tile = us + blockDim.x + warp * kTile;  // this warp's diagonal Gram tile
-  // A * K <= 32: two groups' Coefs; else the serial rule's scratch and two rows
-  float* fb = us + blockDim.x + nwarps * kTile;
-
-  const float* pkv = pk + (size_t)v * B * W;
-  // gram is locus-major (B, V, B): row j of chain v starts at (j * V + v) * B
-  const size_t jstride = (size_t)V * B;
-  const float* gv = gram + (size_t)v * B;
-  const int j0 = warp * 32;
-  for (int r = 0; r < 32; ++r) {
-    const bool in = j0 + r < B && i < B;
-    tile[r * 33 + lane] = in ? __ldg(gv + (size_t)(j0 + r) * jstride + i) : 0.f;
-  }
-  float acc = 0.f;
-  float4 head = make_float4(0.f, 0.f, 0.f, 0.f);  // bold, ua, uv, mask of the lane's locus
-  if (i < B) {
-    const float* s = pkv + (size_t)i * W;
-    acc = __ldg(s);
-    head.x = __ldg(s + 1);
-    if (R == kRCpi) {
-      head.y = __ldg(s + 2);
-      head.z = __ldg(s + 3);
-      head.w = __ldg(s + 4);
-    } else {
-      head.w = __ldg(s + 2);
-    }
-  }
-  if (on_warp && warp == 0) stage_coefs<R>(pkv, fb, 0, B, W, AK, K, lane);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncwarp();
-
-  Mine mine{0.f, 0.f, 0, 0};
-  const float* grow = gv + (size_t)i * jstride;  // this thread's Gram row
-  // rows are 16-byte aligned
-  const bool wide = (B & 3) == 0 && (reinterpret_cast<uintptr_t>(gram) & 15) == 0;
-  for (int w = 0; w < nwarps; ++w) {
-    float gp[32];  // G[i, v, 32 w .. 32 w + 31], for the threads after group w
-    if (warp == w) {
-      run_group<R>(pkv, tile, fb + (w & 1) * kCoefGroup, fb, j0, min(32, B - j0), v, B, A, K,
-                   lane, acc, head, o, mine);
-      us[i] = mine.u;
-    } else if (warp == w + 1 && on_warp) {
-      // the next group's Coefs go into the slot that group w - 1 has left
-      stage_coefs<R>(pkv, fb + (warp & 1) * kCoefGroup, j0, B, W, AK, K, lane);
-    }
-    if (warp > w && i < B) {
-      if (wide) {
-        const float4* src = reinterpret_cast<const float4*>(grow + 32 * w);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float4 q = __ldg(src + c);
-          gp[4 * c] = q.x;
-          gp[4 * c + 1] = q.y;
-          gp[4 * c + 2] = q.z;
-          gp[4 * c + 3] = q.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 32; ++c) gp[c] = __ldg(grow + 32 * w + c);
-      }
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    if (warp > w && i < B) {
-#pragma unroll
-      for (int c = 0; c < 32; ++c) acc = fmaf(gp[c], us[32 * w + c], acc);
-    }
+    return uj;
   }
 
-  if (i < B) {
+  __device__ __forceinline__ float u() const { return mine.u; }
+
+  __device__ __forceinline__ void finish(int i) {
     const size_t at = (size_t)v * B + i;
     o.beta[at] = mine.beta;
     o.u[at] = mine.u;
@@ -552,35 +472,17 @@ __global__ void __launch_bounds__(MAXT, 1)
       rcpi_aprob(pkv + (size_t)i * W, A, K, mine.a_sel, o.fa + at * A);
     }
   }
-}
-
-template <int R, int MAXT>
-int launch_as(const float* gram, const float* pk, const Outs& o, int V, int B, int A, int K,
-              int threads, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rc_scan_v_kernel<R, MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  rc_scan_v_kernel<R, MAXT><<<(unsigned)V, threads, smem, stream>>>(gram, pk, o, V, B, A, K);
-  return (int)cudaGetLastError();
-}
+};
 
 template <int R>
 int launch(const void* gram, const void* pk, const Outs& o, long long V, long long B, long long A,
            long long K, void* stream) {
-  const int threads = (int)((B + 31) / 32) * 32;
   const long long AK = A * K;
   const long long W = 8 + (R == kRCpi ? 8 : 6) * AK;
-  // gibbs_kernels.rc_scan_smem_bytes is this sum
-  size_t words = (size_t)threads + (size_t)(threads / 32) * kTile;
-  words += AK <= 32 ? (size_t)(2 * kCoefGroup) : (size_t)(AK + A + 2 * W);
-  const size_t smem = sizeof(float) * words;
-  return threads <= 256
-             ? launch_as<R, 256>((const float*)gram, (const float*)pk, o, (int)V, (int)B, (int)A,
-                                 (int)K, threads, smem, (cudaStream_t)stream)
-             : launch_as<R, 1024>((const float*)gram, (const float*)pk, o, (int)V, (int)B, (int)A,
-                                  (int)K, threads, smem, (cudaStream_t)stream);
+  // gibbs_kernels.rc_scan_smem_bytes is the skeleton's words and these
+  const size_t rule_words = AK <= 32 ? (size_t)(2 * kCoefGroup) : (size_t)(AK + A + 2 * W);
+  const typename RcRule<R>::Params prm{(const float*)pk, o, (int)A, (int)K};
+  return ngt::scan::launch<RcRule<R>>(gram, nullptr, prm, V, B, rule_words, stream);
 }
 
 }  // namespace

@@ -8,7 +8,7 @@ kernel:
     BayesR       r_block_pack      r_block_scan_v     K3, csrc/r_scan.cu
     BayesPR      gauss_block_pack  gauss_block_scan_v K6, csrc/gauss_bc_scan.cu
     BayesB/C     bc_block_pack     bc_block_scan_v    K8, csrc/gauss_bc_scan.cu
-    BayesB/C+D   bc_block_pack     bc_block_scan_wv   K10, csrc/gauss_bc_scan.cu
+    BayesB/C+D   bc_block_pack     bc_block_scan_wv   K10, csrc/bcw_scan.cu
     BayesRCpi    rcpi_block_pack   rcpi_block_scan_v  K12, csrc/rc_scan.cu
     BayesRCplus  rcplus_block_pack rcplus_block_scan_v K14, csrc/rc_scan.cu
 
@@ -42,7 +42,6 @@ import torch
 from . import _cuda
 from .dists import categorical_from_probs
 
-MAX_CLASSES = 16  # K3's per-thread class buffer (K12/K14 have no cap)
 SMEM_BYTES = 227 * 1024  # what one thread block may use on Hopper
 
 
@@ -344,12 +343,11 @@ def rcplus_block_scan_v_plain(gram, pk, n_annot, n_classes):
     return beta, u, delta, cls_out, bs_out, nz_out
 
 
-def _launch(name, entry, grams, pk, width, more_outs, *extra, rows_in_smem=True):
+def _launch(name, entry, grams, pk, width, more_outs, *extra):
     """Launch one V-batched scan kernel. grams: the step-indexed
     ((T, B, V, B), t) pairs the kernel reads. more_outs: (trailing shape,
     dtype) of each output after beta and u (V, B), all (V, B, ...).
-    rows_in_smem: the kernel keeps all coefficient rows of a chain in
-    shared memory, so they must fit. Returns (beta, u, *more)."""
+    Returns (beta, u, *more)."""
     tensors = [g for g, _ in grams] + [pk]
     _cuda.require(all(x.is_cuda and x.device == pk.device for x in tensors),
                   f"{name}: gram and pk must be on one CUDA device")
@@ -361,8 +359,6 @@ def _launch(name, entry, grams, pk, width, more_outs, *extra, rows_in_smem=True)
                   f"{name}: gram must be (T, B, V, B) and 0 <= t < T")
     _cuda.require(pk.shape == (V, B, width), f"{name}: pk must be ({V}, {B}, {width})")
     _cuda.require(B <= 1024, f"{name}: needs B <= 1024")
-    _cuda.require(not rows_in_smem or 4 * (B + 64 + B * width) <= SMEM_BYTES,
-                  f"{name}: coefficient rows of B={B}, width {width} exceed shared memory")
     outs = [torch.empty((V, B) + tuple(tail), dtype=dtype, device=pk.device)
             for tail, dtype in [((), torch.float32)] * 2 + list(more_outs)]
     ptrs = [g.data_ptr() + t * B * V * B * 4 for g, t in grams]
@@ -386,13 +382,38 @@ def _step(gram_t, on_cuda):
 _DELTA = [((), torch.int32)]  # the one extra output of K3, K8 and K10
 
 
+def _skeleton_words(B, grams):
+    """Shared memory of the scans' skeleton (`csrc/scan_skeleton.cuh`) in
+    4-byte words: the chain's u's, one per thread of the block, and two
+    rotating slots of `grams` diagonal 32 x 33 Gram tiles."""
+    return 32 * -(-B // 32) + 2 * grams * 32 * 33
+
+
+R_LANE_MAX_K = 8  # csrc/r_scan.cu's kLaneMaxK: the largest K whose rule runs in one lane
+
+
+def r_scan_smem_bytes(B, K):
+    """Shared memory one block of K3 needs, as `csrc/r_scan.cu` lays it
+    out after the skeleton's: for the rule in one lane's registers
+    (K <= R_LANE_MAX_K) two groups' whole coefficient rows (2 x 32 rows of
+    8 + 4K floats), above that two rows and K words of the serial rule's
+    scratch."""
+    W = 8 + 4 * K
+    return 4 * (_skeleton_words(B, 1) + (2 * 32 * W if K <= R_LANE_MAX_K else 2 * W + K))
+
+
 def r_block_scan_v(gram_t, pk, n_classes):
     """V-batched BayesR scan (K3). gram_t is the locus-major (B, V, B) Gram
     block or the step-indexed pair ((T, B, V, B), t); pk (V, B, 8 + 4K).
-    Returns beta (V, B), u (V, B), delta (V, B) int32."""
+    Returns beta (V, B), u (V, B), delta (V, B) int32. The kernel stages
+    each group's coefficients as it goes, so no chain's rows need fit shared
+    memory and K has no cap; sums and comparisons as in rcpi_block_scan_v."""
     K = n_classes
     if pk.is_cuda:
-        _cuda.require(1 <= K <= MAX_CLASSES, f"r_block_scan_v: needs K <= {MAX_CLASSES}")
+        _cuda.require(K >= 1, "r_block_scan_v: needs K >= 1")
+        B = pk.shape[1]
+        _cuda.require(r_scan_smem_bytes(B, K) <= SMEM_BYTES,
+                      f"r_block_scan_v: B={B}, K={K}: two coefficient rows exceed shared memory")
         return _launch("r_block_scan_v", lambda L: L.ngt_r_block_scan_v, [_step(gram_t, True)],
                        pk, 8 + 4 * K, _DELTA, K)
     return r_block_scan_v_plain(_step(gram_t, False), pk, K)
@@ -418,7 +439,9 @@ def bc_block_scan_v(gram_t, pk):
 def bc_block_scan_wv(gram_t, graw_t, pk):
     """V-batched weighted BayesB/C scan (K10): two Gram streams, the
     weighted gram_t and the raw graw_t, each a (B, V, B) block or a
-    step-indexed pair. Returns beta, u, delta (V, B)."""
+    step-indexed pair. Returns beta, u, delta (V, B). The kernel's shared
+    memory (the skeleton's with two Grams and two groups' rows, 23 KB at
+    B = 1,024) fits whatever B the scans take."""
     if pk.is_cuda:
         return _launch("bc_block_scan_wv", lambda L: L.ngt_bc_block_scan_wv,
                        [_step(gram_t, True), _step(graw_t, True)], pk, 8, _DELTA)
@@ -427,13 +450,11 @@ def bc_block_scan_wv(gram_t, graw_t, pk):
 
 def rc_scan_smem_bytes(B, A, K, sections):
     """Shared memory one block of K12 (sections = 8) or K14 (6) needs, as
-    `csrc/rc_scan.cu` lays it out: per warp of 32 loci its 32 u's and its
-    diagonal 32 x 33 Gram tile; then, up to A * K = 32 (the rule on a warp),
-    two groups' coefficients at 6 words per lane and locus whatever A and K
-    are, and above that the serial rule's scratch (A * K + A) and two
-    coefficient rows of 8 + sections * A * K floats."""
-    warps = -(-B // 32)
-    words = warps * (32 + 32 * 33)
+    `csrc/rc_scan.cu` lays it out after the skeleton's: up to A * K = 32 (the
+    rule on a warp), two groups' coefficients at 6 words per lane and locus
+    whatever A and K are, and above that the serial rule's scratch
+    (A * K + A) and two coefficient rows of 8 + sections * A * K floats."""
+    words = _skeleton_words(B, 1)
     if A * K <= 32:
         words += 2 * 32 * 6 * 32
     else:
@@ -449,8 +470,7 @@ def _rc_launch(name, entry, gram_t, pk, A, K, sections, more_outs):
     B = pk.shape[1]
     _cuda.require(rc_scan_smem_bytes(B, A, K, sections) <= SMEM_BYTES,
                   f"{name}: B={B}, A={A}, K={K}: two coefficient rows exceed shared memory")
-    return _launch(name, entry, [_step(gram_t, True)], pk, 8 + sections * A * K, more_outs, A, K,
-                   rows_in_smem=False)
+    return _launch(name, entry, [_step(gram_t, True)], pk, 8 + sections * A * K, more_outs, A, K)
 
 
 def rcpi_block_scan_v(gram_t, pk, n_annot, n_classes):

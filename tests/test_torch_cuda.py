@@ -5,13 +5,14 @@ that are not a multiple of the gather's rows per warp, the smallest packed
 width, a 50k-individual width that needs more than 48 KB of shared memory,
 a 100k-individual width whose y no longer fits shared memory (the gather
 then reads a transposed copy from device memory), blocks narrower than a
-warp or not a multiple of 32, K from 2 to 16, V from 1 to 96 chains, and
-short chains through the whole sweep (BayesR, and BayesC with a weighted
+warp or not a multiple of 32, K from 1 to 40 (each of K3's two rules: every
+instance in one lane's registers, K = 1 to 8, and on one thread above),
+V from 1 to 96 chains, the same bits from two launches of K3 and K10,
+and short chains through the whole sweep (BayesR, and BayesC with a weighted
 residual); for the annotation scans K12 and K14 also one annotation, one
-class, K = 16 (K3's cap; these two have none), A * K at, just past and twice
-a warp's 32 lanes, coefficient rows that no longer fit shared memory, a chain
-that is all padding, the same bits from two launches, and short BayesRCpi,
-BayesRCplus and BayesLV chains;
+class, K = 16, A * K at, just past and twice a warp's 32 lanes, coefficient
+rows that no longer fit shared memory, a chain that is all padding, the same
+bits from two launches, and short BayesRCpi, BayesRCplus and BayesLV chains;
 for the measurement ladder's kernels odd row counts, q = 16, one step (T = 1),
 grids of one and of more blocks than row groups, signed dosages, and each
 wrapper's refusals.
@@ -85,10 +86,10 @@ def test_gather_past_the_shared_memory_stage(dev, monkeypatch):
     assert torch.equal(staged, pack2.matvec_step(small, 2, y4[:, :4096].contiguous(), rows))
 
 
-@pytest.mark.parametrize("V,B,K", [(1, 8, 2), (3, 16, 4), (5, 33, 16), (2, 256, 4), (1, 1024, 3)])
-def test_scan_kernel_matches_plain(dev, V, B, K):
-    g = torch.Generator(device=dev).manual_seed(V * 1000 + B + K)
-    T = 2
+def _r_inputs(dev, T, V, B, K, seed):
+    """Step-indexed Gram blocks and BayesR-shaped coefficient rows: a null
+    class 0 (q1 = b = c = 0) and K - 1 classes with q1, b > 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.randn(T, V, B, 2 * B, generator=g, device=dev)
     gram = torch.einsum("tvbn,tvcn->tbvc", a, a).contiguous() / (2 * B)
     pk = torch.zeros(V, B, 8 + 4 * K, device=dev)
@@ -100,10 +101,30 @@ def test_scan_kernel_matches_plain(dev, V, B, K):
     pk[..., 8 + K + 1:8 + 2 * K] = 0.3 * torch.rand(V, B, K - 1, generator=g, device=dev)
     pk[..., 8 + 2 * K + 1:8 + 3 * K] = 0.3 * torch.rand(V, B, K - 1, generator=g, device=dev)
     pk[..., 8 + 3 * K + 1:] = 0.1 * torch.randn(V, B, K - 1, generator=g, device=dev)
+    return gram, pk, g
+
+
+@pytest.mark.parametrize("V,B,K", [
+    (1, 8, 2), (3, 16, 4), (5, 33, 16), (2, 256, 4), (1, 1024, 3),
+    (2, 40, 1),  # one class: the skeleton and a multiply-add
+    (3, 70, 5), (2, 256, 6), (1, 1024, 7),  # every other instance of the rule in one lane
+    (4, 96, 8),  # the largest rule in one lane's registers
+    (2, 96, 9),  # one class past it: the serial rule
+    (2, 256, 20), (1, 1024, 16),  # past K3's old cap of 16 classes; 16 at the widest block
+    (2, 64, 32), (3, 64, 40),
+])
+def test_scan_kernel_matches_plain(dev, V, B, K):
+    """K3 against its plain version, step-indexed and sliced, with every
+    uniform kept 1e-4 off the CDF edges: the kernel compares cum < u * total
+    in its own sum order, so only such inputs fix the class exactly."""
+    T = 2
+    gram, pk, g = _r_inputs(dev, T, V, B, K, V * 1000 + B + K)
     for t in range(T):
+        rb, ru, rd = _keep_off_cdf_edges(pk, lambda p: gibbs_kernels.r_block_scan_v_plain(gram[t], p, K),
+                                         [2], (2,), g)
+        before = _cuda.LAUNCHES["r_block_scan_v"]
         beta, u, delta = gibbs_kernels.r_block_scan_v((gram, t), pk, K)
-        rb, ru, rd = gibbs_kernels.r_block_scan_v_plain(gram[t], pk, K)
-        # a flipped class (a uniform within rounding of a CDF edge) would show in delta
+        assert _cuda.LAUNCHES["r_block_scan_v"] == before + 1
         assert torch.equal(delta, rd)
         assert _rel(beta, rb) < 1e-4 and _rel(u, ru) < 1e-4
         sliced = gibbs_kernels.r_block_scan_v(gram[t].contiguous(), pk, K)
@@ -261,7 +282,7 @@ def _keep_off_cdf_edges(pk, plain, slots, discrete, gen, margin=1e-4):
 @pytest.mark.parametrize("V,B,A,K", [
     (1, 8, 3, 3),  # a single chain (K11, K13), narrower than a warp
     (3, 33, 1, 4),  # one annotation, B not a multiple of 32, one chain all padding
-    (5, 64, 2, 16),  # K at K3's cap (K12 and K14 have none)
+    (5, 64, 2, 16),  # K = 16, once the most that K3 took
     (2, 256, 8, 4),  # a chain's rcpi rows (8 + 8AK floats) exceed shared memory
     (2, 256, 10, 4),  # a chain's rcplus rows (8 + 6AK floats) too
     (96, 256, 3, 3),  # the main path's shape
@@ -315,6 +336,30 @@ def test_rc_scan_kernels_give_the_same_bits_twice(dev, kind, V, B, A, K):
     assert all(torch.isfinite(x).all() for x in first)
 
 
+@pytest.mark.parametrize("kind,V,B,K", [("r", 96, 256, 4), ("r", 3, 100, 20), ("r", 2, 64, 40),
+                                        ("bc_w", 96, 256, 0), ("bc_w", 2, 1024, 0)])
+def test_scan_kernels_give_the_same_bits_twice(dev, kind, V, B, K):
+    """K3 (in one lane's registers, and on one thread at K = 20 and 40) and K10 (two
+    Grams; at B = 1,024 the instance whose prefetched rows spill): two
+    launches on the same inputs give bit-identical outputs."""
+    if kind == "r":
+        gram, pk, _ = _r_inputs(dev, 1, V, B, K, 17 + B)
+
+        def run():
+            return gibbs_kernels.r_block_scan_v((gram, 0), pk, K)
+    else:
+        gram, graw, pk = _scan8_inputs(dev, 1, V, B, 17 + B, "bc_w")
+
+        def run():
+            return gibbs_kernels.bc_block_scan_wv((gram, 0), (graw, 0), pk)
+    first = run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        again = run()
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert all(torch.isfinite(x).all() for x in first)
+
+
 def test_rcpi_scan_kernel_clamps_the_annotation_draw(dev):
     """A uniform above the annotation CDF's last entry selects the last
     annotation, with every output finite, as the plain version does."""
@@ -352,6 +397,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     gram = torch.zeros(1, 8, 2, 8, device=dev)
     with pytest.raises(ValueError, match="pk must be"):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 12, device=dev), 2)
+    with pytest.raises(ValueError, match="K >= 1"):
+        gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 8, device=dev), 0)
+    with pytest.raises(ValueError, match="two coefficient rows exceed shared memory"):
+        gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 8 + 4 * 6600, device=dev), 6600)
 
 
 N_SMALL, P_SMALL = 300, 512

@@ -72,8 +72,10 @@ def _same(port, ref):
     np.testing.assert_array_equal(delta, rd)
 
 
-@pytest.mark.parametrize("V,B,K", [(1, 8, 3), (4, 8, 4)])
+@pytest.mark.parametrize("V,B,K", [(1, 8, 3), (4, 8, 4), (2, 8, 20)])
 def test_r_block_scan_v_matches_interpret(V, B, K):
+    """K = 20 is past the 16 classes the port's kernel once took; the JAX
+    kernel has no cap."""
     T = 2
     gram, pk = _scan_inputs(np.random.default_rng(V * 10 + K), T, V, B, K)
     gram_t, pk_t = torch.from_numpy(gram), torch.from_numpy(pk)
@@ -369,21 +371,41 @@ def test_rcpi_scan_clamps_annotation_at_cdf_edge():
 
 
 @pytest.mark.parametrize("B,A,K,sections,need,fits", [
-    (256, 3, 3, 8, 83_968, True),  # the main paths' shape
-    (256, 3, 3, 6, 83_968, True),
-    (1024, 8, 4, 8, 188_416, True),  # the widest block, a full warp of (annotation, class) pairs
-    (1024, 8, 4, 6, 188_416, True),
-    (256, 10, 4, 8, 37_640, True),  # past a warp: the serial rule's two rows and scratch
-    (1024, 16, 16, 8, 156_800, True),
-    (8, 500, 16, 8, 550_416, False),  # one row alone is 256 KB
-    (8, 500, 16, 6, 422_416, False),
+    (256, 3, 3, 8, 58_624, True),  # the main paths' shape
+    (256, 3, 3, 6, 58_624, True),
+    (1024, 8, 4, 8, 61_696, True),  # the widest block, a full warp of (annotation, class) pairs
+    (1024, 8, 4, 6, 61_696, True),
+    (256, 10, 4, 8, 12_296, True),  # past a warp: the serial rule's two rows and scratch
+    (1024, 16, 16, 8, 30_080, True),
+    (8, 500, 16, 8, 554_640, False),  # one row alone is 256 KB
+    (8, 500, 16, 6, 426_640, False),
 ])
 def test_rc_scan_shared_memory_need(B, A, K, sections, need, fits):
-    """The annotation scans' shared memory as a function of the shape: a
-    warp's u's and 32 x 33 Gram tile per 32 loci; up to A * K = 32 two groups'
-    staged coefficients (2 x 32 loci x 6 words x 32 lanes), independent of A
-    and K; above that two coefficient rows and the scratch."""
+    """The annotation scans' shared memory as a function of the shape: the
+    skeleton's u per thread and two rotating slots of a 32 x 33 Gram tile; up
+    to A * K = 32 two groups' staged coefficients (2 x 32 loci x 6 words x 32
+    lanes), independent of A and K; above that two coefficient rows and the
+    scratch."""
     assert tgk.rc_scan_smem_bytes(B, A, K, sections) == need
     assert (need <= tgk.SMEM_BYTES) == fits
     if A * K <= 32:
         assert need == tgk.rc_scan_smem_bytes(B, 1, 1, sections)
+
+
+@pytest.mark.parametrize("B,K,need,fits", [
+    (256, 4, 15_616, True),  # the main path's shape
+    (1024, 8, 22_784, True),  # the largest rule in one lane: two groups of 32 rows of 40 floats
+    (1024, 9, 12_932, True),  # one class past it: the serial rule's two rows and K words of scratch
+    (1024, 16, 13_184, True),  # 16 classes at the widest block: once past what K3 took
+    (1024, 33, 13_796, True),
+    (32, 6_600, 246_240, False),  # two rows of 26,408 floats
+])
+def test_r_scan_shared_memory_need(B, K, need, fits):
+    """K3's shared memory: the skeleton's u per thread and two rotating slots
+    of a 32 x 33 Gram tile; for the rule in one lane (K <= 8) two groups'
+    whole coefficient rows, above that two rows and the serial rule's K
+    words. No chain's rows are held whole, so neither B nor K alone runs out
+    of shared memory."""
+    assert tgk.R_LANE_MAX_K == 8
+    assert tgk.r_scan_smem_bytes(B, K) == need
+    assert (need <= tgk.SMEM_BYTES) == fits

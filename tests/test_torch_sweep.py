@@ -282,6 +282,32 @@ def _three_sweeps_agree(js, ts):
     return tplan, tst
 
 
+R20_PI = [0.62] + [0.02] * 19
+R20_CLASSES = [0.0] + list(np.geomspace(1e-4, 1e-1, 19))
+
+
+@pytest.mark.parametrize("V", [1, 4], ids=["V1", "V4"])
+def test_bayesr_20_classes_matches(V):
+    """A 20-class BayesR, which the port's K3 kernel refused on the card while
+    it took at most 16 classes, on the CPU against the JAX package: five
+    sweeps from the same draws, continuous fields at rtol 1e-9, delta exact."""
+    g, y = _data()
+    js, ts = (mod.ModelSpec(y=y, fixed=[mod.FixedTerm("int", np.ones(N))],
+                            markers=[mod.MarkerTerm("M", mod.from_array(g),
+                                                    mod.BayesR(R20_PI, R20_CLASSES, 1.0, estimatePi=True))],
+                            block_size=BLOCK) for mod in (ng, ngt))
+    jplan, jst = ng.assemble(js, use_pallas=False, pack2=True, vshards=V)
+    tplan, tst = ngt.assemble(ts, device="cpu", dtype=torch.float64, vshards=V)
+    assert tplan.markers[0].n_classes == jplan.markers[0].n_classes == 20
+    jsweep, tsweep = jax.jit(ng.make_sweep(jplan)), ngt.make_sweep(tplan)
+    stream = JaxStream(jax.random.key(CHAIN_KEY))
+    for _ in range(5):
+        jst = jsweep(jst, jax.random.key(CHAIN_KEY))
+        tst = tsweep(tst, stream)
+    _assert_chains_agree(tst, jst, tplan)
+    assert tst.markers[0].delta.max().item() > 16  # classes past the old cap were drawn
+
+
 def test_summary_statistics_match():
     """Offsets 1/v and m/v on a single fixed column and on a marker set; two
     entries with v = 0 and m = 0 (lhs = inf and rhs = nan, both guarded to

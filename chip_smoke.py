@@ -3,6 +3,8 @@
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
     python3 chip_smoke.py scans  # phases 1-2 and every scan of phase 3 alone
     python3 chip_smoke.py rc     # phases 1-2 and the annotation scans of phase 3 alone
+    python3 chip_smoke.py passes # phases 1-2, phase 3's K1/K2/K1'/K2', the ladder's
+                                 # frontier and fused, and the 50k BayesR path alone
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -13,7 +15,9 @@ Phases (any failed check raises and the script exits non-zero):
      3.35 TB/s or its operations over 67 TFLOP/s; a scan needs the Gram's
      lower triangle only): K1 gather, K2 scatter, K3 BayesR scan, K6 Gaussian scan, K8
      B/C scan, K10 weighted B/C scan, K12 BayesRCpi scan, K14 BayesRCplus
-     scan, K1 at 100,000 individuals (y past shared memory), K3 with 8, 9
+     scan, K1 and K2 on a step of the 50,000-individual path (y 200 KB,
+     through L1) and at 100,000 individuals (y 400 KB, past L1), K1 with
+     four grids (the same bits), K3 with 8, 9
      (the two sides of its two rules' boundary) and 20 classes (past the 16
      it once took), K12 with a chain's
      coefficient rows past shared memory (A = 8, K = 4), K3 with one class
@@ -40,8 +44,12 @@ Phases (any failed check raises and the script exits non-zero):
      V=96 every step updates half the loci against one residual, which
      overshoots under dense priors (PERF.md), so BayesC's, BayesRCpi's and
      BayesLV's EBV limits (and BayesLV's ceiling on varE) are held at V=1.
-     Last, BayesLV at V=8 and V=32, and at V=96 and V=1 with a column of
-     ones before its covariates, which its design on the main path lacks
+     Then BayesLV at V=8 and V=32, and at V=96 and V=1 with a column of
+     ones before its covariates, which its design on the main path lacks.
+     Last, BayesR (estimatePi, V=96) at 50,000 x 49,152, simulated on the
+     card as the 10k panel is: 30 sweeps of run_lmem (10 burn-in, thin 5)
+     with launch counts, drift and finite draws, its EBV correlation
+     printed, then the steady sweep time and a profiled window (busy share)
   5. kernel chain against plain chain on a small model, from identical
      draws, for all seven methods and BayesC+D; two kernel runs from one
      seed must give bit-identical beta; BayesLV's float32 kernel chain also
@@ -51,8 +59,10 @@ Phases (any failed check raises and the script exits non-zero):
      scatter, fused scatter||gather) against their plain versions on the same
      inputs, then `nextgp_tpu_torch.micro` through its entry point, one
      experiment at a time with launch counts: K1 and K2 over 16 fresh steps
-     of a 7.4 GB panel beside the read-only roof, the fused step against the
-     sequential pair, load widths, dense against packed (K1', K2')
+     of a 7.4 GB panel beside the read-only roof, the fused step (which runs
+     K1's and K2's bodies as they were before their redesign) against the
+     sequential pair of today's K2 and K1, load widths, dense against packed
+     (K1', K2')
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -79,7 +89,9 @@ from nextgp_tpu_torch.ops import micro as mk
 
 N, P, BLOCK, V_MAIN = 10_000, 49_152, 256, 96
 N_CHAIN, N_BURN, N_THIN = 100, 50, 5
-N_BIG, ROWS_BIG = 100_000, 1000  # K1 past its shared-memory stage of y
+N_BIG, ROWS_BIG = 100_000, 1000  # K1/K2 where y exceeds L1 and shared memory
+N_50K = 50_000  # the wide BayesR path: 50,000 x 49,152, V=96 (q = 12,544)
+N_CHAIN_50K, N_BURN_50K, N_THIN_50K = 30, 10, 5
 PRIOR_R = dict(pi=[0.9, 0.05, 0.03, 0.02], class_=[0.0, 1e-4, 1e-3, 1e-2], v=1.0, estimatePi=True)
 PI_BC, V_BC, V_PR = 0.95, 0.05, 0.05  # scripts/bench_methods.py:43-58
 PRIOR_RC = dict(pi=[0.9, 0.05, 0.05], class_=[0.0, 1e-3, 1e-2], v=1.0)  # bench_methods.py:48-50
@@ -261,25 +273,27 @@ def build_phase():
 # ------------------------------------------------------------------ data
 
 
-def simulate():
-    """10,000 x 49,152 dosages on the card, 500 expected causal loci with
-    N(0, 0.1^2) effects and N(0, 1) noise (as bench.py does); packed once
-    with the port's packer. Returns spec_for(path) and the planted signal."""
+def simulate(n=N, p=P, chunk=8192):
+    """n x p dosages on the card (10,000 x 49,152 unless asked), 500 expected
+    causal loci with N(0, 0.1^2) effects and N(0, 1) noise (as bench.py
+    does); packed once with the port's packer. The signal and the column
+    means are taken `chunk` individuals at a time (50,000 x 49,152 floats
+    would be 9.8 GB). Returns spec_for(path) and the planted signal."""
     g = torch.Generator(device=DEV).manual_seed(0)
-    geno = torch.randint(0, 3, (N, P), generator=g, device=DEV, dtype=torch.int8)
-    bt = torch.where(torch.rand(P, generator=g, device=DEV) < 500.0 / P,
-                     torch.randn(P, generator=g, device=DEV) * 0.1, 0.0)
-    sig = geno.float() @ bt
+    geno = torch.randint(0, 3, (n, p), generator=g, device=DEV, dtype=torch.int8)
+    bt = torch.where(torch.rand(p, generator=g, device=DEV) < 500.0 / p,
+                     torch.randn(p, generator=g, device=DEV) * 0.1, 0.0)
+    sig = torch.cat([geno[i:i + chunk].float() @ bt for i in range(0, n, chunk)])
     sig = sig - sig.mean()
-    y = (sig + torch.randn(N, generator=g, device=DEV)).double().cpu().numpy()
-    center = geno.sum(0, dtype=torch.int64).double() / N
-    md = ngt.from_packed(pack2.pack2(geno), N, center)
+    y = (sig + torch.randn(n, generator=g, device=DEV)).double().cpu().numpy()
+    center = sum(geno[i:i + chunk].sum(0, dtype=torch.int64) for i in range(0, n, chunk)).double() / n
+    md = ngt.from_packed(pack2.pack2(geno), n, center)
     del geno
-    weights = np.random.default_rng(3).uniform(0.5, 2.0, N)
+    weights = np.random.default_rng(3).uniform(0.5, 2.0, n)
 
     def spec_for(path):
         prior, weighted = {**PATHS, **EXTRA_PATHS}[path][:2]
-        return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))],
+        return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))],
                              markers=[ngt.MarkerTerm("M1", md, prior)],
                              residual=ngt.RandomEffect(weights, 1.0) if weighted else None,
                              block_size=BLOCK)
@@ -394,27 +408,47 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note):
            f"counts {torch.bincount(got[2].reshape(-1)).tolist()})", dev_ms=device_ms(lambda: kern(pk_t), 20))
 
 
-def big_gather():
-    """K1 at 100,000 individuals (q = 25,088): 16*q bytes of y exceed a
-    block's shared memory, so the gather reads a transposed copy of y from
-    device memory; step t = 1 of 1,000-row steps."""
-    g = torch.Generator(device=DEV).manual_seed(4)
-    pk = pack2.pack2(torch.randint(0, 3, (N_BIG, 3 * ROWS_BIG), generator=g, device=DEV,
-                                   dtype=torch.int8))
-    q = pk.shape[1]
-    check(q == pack2.packed_q(N_BIG) and 16 * q > pack2.Y_STAGE_BYTES, f"q = {q} at n = {N_BIG}")
-    y = torch.zeros(4 * q, device=DEV)
-    y[:N_BIG] = torch.randn(N_BIG, generator=g, device=DEV)
-    y4 = pack2.y_planar(y)
-    sl = pk[ROWS_BIG:2 * ROWS_BIG]
-    got = pack2.matvec_step(pk, 1, y4, ROWS_BIG)
-    check(torch.equal(got, pack2.matvec_step(pk, 1, y4, ROWS_BIG)), "K1 at 100k: not bit-reproducible")
-    e, s = rel_err(got, pack2.matvec_plain(sl, y4))
-    report("pack2_matvec_100k", e, s, TOL_PASS,
-           median_ms(lambda: pack2.matvec_step(pk, 1, y4, ROWS_BIG), 20),
-           median_ms(lambda: pack2.matvec_plain(sl, y4), 5), pass_work(ROWS_BIG, q),
-           f" ({ROWS_BIG} x {q} step, n = {N_BIG:,}; y {16 * q:,} bytes read from device memory)",
-           dev_ms=device_ms(lambda: pack2.matvec_step(pk, 1, y4, ROWS_BIG), 20))
+def wide_passes():
+    """K1 and K2 at wider panels than the 10k main path's: a 50,000-individual
+    step of the BayesR sweep at V=96 (24,576 x 12,544, step t = 1 of two:
+    y is 200 KB, read through L1), and 1,000-row steps at 100,000
+    individuals (q = 25,088: y is 400 KB, more than L1 and shared memory
+    hold, so its reads go to L2)."""
+    for n, rows, tag, seed in ((N_50K, V_MAIN * BLOCK, "50k", 6), (N_BIG, ROWS_BIG, "100k", 4)):
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        q = pack2.packed_q(n)
+        pk = micro.panel(3 * rows, q, DEV, g, high=256)
+        y = torch.zeros(4 * q, device=DEV)
+        y[:n] = torch.randn(n, generator=g, device=DEV)
+        y4 = pack2.y_planar(y)
+        u = torch.randn(rows, generator=g, device=DEV) * 0.01
+        sl = pk[rows:2 * rows]
+        for name, kern, plain in (
+                (f"pack2_matvec_{tag}", lambda: pack2.matvec_step(pk, 1, y4, rows),
+                 lambda: pack2.matvec_plain(sl, y4)),
+                (f"pack2_rank_update_{tag}", lambda: pack2.rank_update_step(pk, 1, u),
+                 lambda: pack2.rank_update_plain(sl, u))):
+            got = kern()
+            check(torch.equal(got, kern()), f"{name}: not bit-reproducible")
+            DIGESTS[name] = dict(outputs=digest(got))
+            e, s = rel_err(got, plain())
+            report(name, e, s, TOL_PASS, median_ms(kern, 20), median_ms(plain, 3), pass_work(rows, q),
+                   f" ({rows} x {q} step, n = {n:,}; y {16 * q:,} bytes)", dev_ms=device_ms(kern, 20))
+        del pk, sl
+
+
+def k1_grids(st):
+    """K1's grid is a parameter: one block, seven and as many as are resident
+    give the same bits on a step of the main path."""
+    ms = st.markers[0]
+    T, V, B, q = ms.mt.shape
+    mt_rows = ms.mt.view(-1, q)
+    y4 = pack2.y_planar(Step0(st).y)
+    ref = pack2._matvec_kernel(mt_rows, V * B, V * B, y4)
+    for blocks in (1, 7, 4096):
+        check(torch.equal(ref, pack2._matvec_kernel(mt_rows, V * B, V * B, y4, blocks)),
+              f"pack2_matvec: {blocks} blocks give other bits than the default grid")
+    print("[3 kernels] pack2_matvec: grids of 1, 7, 4096 blocks and the default give the same bits")
 
 
 def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
@@ -561,7 +595,7 @@ def rc_kernels(spec_for, z, V, tag):
 
 def pass_kernels(st):
     """K1, K2 and their whole-panel forms K1' and K2' on the BayesR model's
-    panel, then K1 at 100,000 individuals."""
+    panel, then K1 and K2 at 50,000 and 100,000 individuals."""
     ms = st.markers[0]
     T, V, B, q = ms.mt.shape
     rows = V * B
@@ -573,6 +607,11 @@ def pass_kernels(st):
     u_all = torch.randn(T * rows, generator=g, dtype=dt, device=DEV) * 0.01
     sl = slice(rows, 2 * rows)  # step t = 1: a real offset into the panel
 
+    for name, kern in (("pack2_matvec", lambda: pack2.matvec_step(mt_rows, 1, y4, rows)),
+                       ("pack2_rank_update", lambda: pack2.rank_update_step(mt_rows, 1, u))):
+        got = kern()
+        check(torch.equal(got, kern()), f"{name}: two runs differ")
+        DIGESTS[name] = dict(inputs=digest(mt_rows[sl], y4, u), outputs=digest(got))
     e, s = rel_err(pack2.matvec_step(mt_rows, 1, y4, rows), pack2.matvec_plain(mt_rows[sl], y4))
     report("pack2_matvec", e, s, TOL_PASS,
            median_ms(lambda: pack2.matvec_step(mt_rows, 1, y4, rows), 20),
@@ -593,7 +632,7 @@ def pass_kernels(st):
     report("pack2_matvec_panel", e, s, TOL_PASS, median_ms(lambda: pack2.matvec(mt_rows, y4), 20),
            median_ms(lambda: pack2.matvec_plain(mt_rows, y4), 5), pass_work(T * rows, q),
            f" ({T * rows} x {q} whole panel)", dev_ms=device_ms(lambda: pack2.matvec(mt_rows, y4), 20))
-    big_gather()
+    wide_passes()
 
 
 def r_classes(K):
@@ -620,6 +659,7 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
     step = Step0(st)
     if V == V_MAIN and full:
         pass_kernels(st)
+        k1_grids(st)
 
     # the scans at step t=0 with the coefficients of a first sweep on the real data
     gen = torch.Generator(device=DEV).manual_seed(2)
@@ -701,28 +741,29 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
 # ------------------------------------------------------------------ phase 4
 
 
-def slice_phase(path, spec, sig, card, V):
+def slice_phase(path, spec, sig, card, V, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, tag=""):
     """One path through run_lmem at full size, launch counts read from 0."""
     _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
-    ebv_limit, var_e_limit = EBV_LIMITS.get((path, V)), VAR_E_LIMITS.get((path, V))
+    ebv_limit, var_e_limit = EBV_LIMITS.get((path + tag, V)), VAR_E_LIMITS.get((path, V))
     _cuda.reset_launches()
-    res = ngt.run_lmem(spec, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, seed=7, vshards=V)
+    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, seed=7, vshards=V)
     launches = dict(_cuda.LAUNCHES)
     plan, st = res.plan, res.state
     T = plan.markers[0].n_blocks // plan.markers[0].vshards
     check(plan.markers[0].vshards == V, f"{path}: V = {plan.markers[0].vshards}, asked for {V}")
-    path = f"{path} V={V}"
-    print(f"[4 {path}] {N} x {P}, V={plan.markers[0].vshards} (T={T} block-steps), "
-          f"{N_CHAIN} sweeps: {res.sweeps_per_sec:.2f} sweeps/s on {card}")
+    path = f"{path}{tag} V={V}"
+    n, p = st.y.shape[0], plan.markers[0].p
+    print(f"[4 {path}] {n} x {p}, V={plan.markers[0].vshards} (T={T} block-steps), "
+          f"{n_chain} sweeps: {res.sweeps_per_sec:.2f} sweeps/s on {card}")
     print(f"[4 {path}] launches in run_lmem: {launches}")
     expect = {name: 0 for name in launches}
-    expect.update({"pack2_matvec": gathers * N_CHAIN * T, "pack2_rank_update": N_CHAIN * T,
-                   scan: N_CHAIN * T})
+    expect.update({"pack2_matvec": gathers * n_chain * T, "pack2_rank_update": n_chain * T,
+                   scan: n_chain * T})
     check(launches == expect, f"{path}: launches {launches}, expected {expect}")
     beta = st.markers[0].beta
     check(torch.isfinite(beta).all().item() and torch.isfinite(st.ycorr).all().item(),
           f"{path}: non-finite beta or ycorr")
-    check(res.draws["betaM1"].shape == ((N_CHAIN - N_BURN) // N_THIN, P), f"{path}: draws shape")
+    check(res.draws["betaM1"].shape == ((n_chain - n_burn) // n_thin, p), f"{path}: draws shape")
     bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
     check(not bad, f"{path}: kept draws of {bad} are not finite")
     gv = ngt.genomic_values_state(plan, st)
@@ -823,6 +864,22 @@ def timing_window(path, res, n_timed=50, n_sweeps=10):
         print(f"  device {ms_ / n_sweeps:9.4f} ms/sweep  x{cnt / n_sweeps:<5.1f} {key[:80]}")
     for key, ms_, cnt in host[:8]:
         print(f"  host   {ms_ / n_sweeps:9.4f} ms/sweep  x{cnt / n_sweeps:<5.1f} {key[:80]}")
+    return dict(median_ms_per_sweep=q[1], profiled_ms_per_sweep=wall_ms / n_sweeps,
+                device_busy_ms_per_sweep=busy / n_sweeps, device_busy_share=busy / wall_ms,
+                kernels_per_sweep=launched / n_sweeps)
+
+
+def wide_phase(card):
+    """BayesR (estimatePi, V=96) at 50,000 x 49,152, simulated on the card
+    as the 10k panel is: a short chain through run_lmem with its launch
+    counts, drift and finite draws, then the steady sweep time and a
+    profiled window."""
+    spec_for, sig = simulate(N_50K)
+    launches, res = slice_phase("BayesR", spec_for("BayesR"), sig, card, V_MAIN, N_CHAIN_50K,
+                                N_BURN_50K, N_THIN_50K, tag=" 50k")
+    window = timing_window("BayesR 50k", res)
+    window.update(run_lmem_sweeps_per_s=res.sweeps_per_sec, launches=launches)
+    return launches, window
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1046,6 +1103,9 @@ SOURCES = {
                           V96 + STEP_LADDER),
     "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
                                 ("ladder matvec",)),
+    "pack2_matvec_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", ("BayesR 50k",)),
+    "pack2_rank_update_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
+                              ("BayesR 50k",)),
     "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96),
     "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1),
     "gauss_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v", V96),
@@ -1092,6 +1152,26 @@ def scans_only(spec_for, card, which):
                       "digests": DIGESTS}))
 
 
+def passes_only(spec_for, card):
+    """`python3 chip_smoke.py passes`: K1, K2, K1' and K2' as phase 3 holds
+    and times them (with the 50k and 100k steps), the ladder's frontier and
+    fused experiments, and the 50k BayesR path of phase 4: the quick form for
+    work on the panel passes. One JSON line of times, digests and the 50k
+    sweep's numbers, and no result line. It calls only what every tree of
+    the port has, so that the same script can time two trees."""
+    _, st = ngt.assemble(spec_for("BayesR"), vshards=V_MAIN)
+    pass_kernels(st)
+    del st
+    ladder = {}
+    for name in ("frontier", "fused"):
+        print(f"[6 ladder] {name}:")
+        ladder[name], = micro.main([name])
+    _, wide = wide_phase(card)
+    print(json.dumps({"card": card, "ms": {name: t["ms"] for name, t in TIMINGS.items()},
+                      "device_ms": {name: t["device_ms"] for name, t in TIMINGS.items()},
+                      "digests": DIGESTS, "ladder": ladder, "bayesr_50k": wide}))
+
+
 def main(argv=()):
     t_start = time.perf_counter()
     card = device_phase()
@@ -1099,7 +1179,9 @@ def main(argv=()):
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
-    check(not argv, f"unknown arguments {list(argv)}: none, scans or rc")
+    if list(argv) == ["passes"]:
+        return passes_only(spec_for, card)
+    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc or passes")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -1115,6 +1197,8 @@ def main(argv=()):
     # BayesLV between the two schedules, and with a column of ones in its design
     for path, V in (("BayesLV", 8), ("BayesLV", 32), (LV_ONES, V_MAIN), (LV_ONES, 1)):
         slice_phase(path, spec_for(path), sig, card, V)
+    del spec_for, sig
+    counted["BayesR 50k"], _ = wide_phase(card)
     chain_phase()
     counted.update(ladder_phase(card))
     kernels = []

@@ -4,7 +4,8 @@
 // computes what that kernel computes. The TPU kernels carried their sums
 // across a sequential grid axis; here a gather closes its column loop inside
 // one warp with a fixed-order reduction and a scatter sums row slices in a
-// second fixed-order pass, as K1 and K2 do (pack2.cu). No float atomics:
+// second fixed-order pass, as K1 and K2 did before their redesign (pack2.cu
+// now closes K2's slices in the same launch). No float atomics:
 // every output is bit-reproducible for a given shape. All are bound by the
 // device-memory bytes of the panel they stream.
 //
@@ -12,7 +13,7 @@
 //   out[r] = sum_j sum_m ((pk[r, j] >> 2m) & 3) * yw[m, j], m over the 4W
 //   two-bit fields of a W-byte word: W = 1 is the packed gather with one byte
 //   per thread per load, W = 4 the same bytes as little-endian 32-bit words
-//   with y as (16, q/4). Everything but the load is K1's: one warp per group
+//   with y as (16, q/4). Everything but the load is K1's earlier body: one warp per group
 //   of four rows, y staged in shared memory (16 q bytes either way), the
 //   fields' y values loaded once for the four rows, a warp reduction.
 // read_step  replaces `make_dma_step` (scripts/micro_frontier.py:62-92).
@@ -20,23 +21,159 @@
 //   (16-byte loads, four rows per warp) with one __dp4a per word so that
 //   arithmetic cannot bind it. The grid is the caller's.
 // dense_gather  replaces `pl_r0` (scripts/micro_matvec.py:58-79).
-//   out[l] = sum_n mt[l, n] * y[n], mt int8: K1's design on unpacked dosages,
+//   out[l] = sum_n mt[l, n] * y[n], mt int8: K1's earlier design on unpacked dosages,
 //   y staged transposed in shared memory (4 n bytes).
 // dense_scatter  replaces `pl_corr` (scripts/micro_matvec.py:81-104).
-//   out[n] = sum_l u[l] * mt[l, n]: K2's design, one 4-byte column word per
+//   out[n] = sum_l u[l] * mt[l, n]: K2's earlier design, one 4-byte column word per
 //   thread over a row slice, then the fixed-order slice reduction.
 // fused_step  replaces `make_fused_step` (scripts/micro_fused.py:64-129).
 //   One launch gathers step t1's rows (r0 = unpack(pk[t1]) @ y4) and scatters
 //   step t's rows (dy = u @ planes(pk[t])). The TPU version had to give both
 //   jobs one tile grid; here blocks are split by role, even blocks scatter
-//   and odd blocks gather (K2's and K1's bodies, pack2_device.cuh), so both
-//   streams are in flight on every SM at once. With roles split no block can
-//   reserve K1's 16 q bytes of shared memory (the scatter blocks would
-//   reserve them too), so the gather reads the transposed y from device
-//   memory (200 KB at q = 12,544: L1/L2 resident), as K1 does past its
-//   shared-memory stage. The scatter's partials are reduced by the same
-//   second pass as K2's.
-#include "pack2_device.cuh"
+//   and odd blocks gather, so both streams are in flight on every SM at
+//   once. The bodies are the sequential pair's as they were before K1 and K2
+//   were redesigned (below, kept verbatim: same outputs, same bits): the
+//   gather reads a transposed y from device memory (200 KB at q = 12,544:
+//   L1/L2 resident), the scatter gives each thread a 4-byte column word of a
+//   row slice and a second pass adds the slices.
+// The sequential pair's bodies as they were before K1 and K2 were redesigned
+// for this card (pack2.cu): the fused step runs them, so its outputs keep
+// their bits; dense_scatter shares the slice reduction.
+#include "common.cuh"
+
+namespace ngt {
+
+constexpr int kRowsPerWarp = 4;
+
+__device__ __forceinline__ uint32_t word_of(const uint4& c, int w) {
+  return w == 0 ? c.x : w == 1 ? c.y : w == 2 ? c.z : c.w;
+}
+
+// Dot of one 4-byte word (columns col..col+3) against the y planes of those
+// columns; y[k] holds y4[k, col..col+3].
+__device__ __forceinline__ float word_dot(uint32_t w, const float4 (&y)[4]) {
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a = fmaf(small_u2f((w >> (2 * k)) & 3u), y[k].x, a);
+    a = fmaf(small_u2f((w >> (8 + 2 * k)) & 3u), y[k].y, a);
+    a = fmaf(small_u2f((w >> (16 + 2 * k)) & 3u), y[k].z, a);
+    a = fmaf(small_u2f((w >> (24 + 2 * k)) & 3u), y[k].w, a);
+  }
+  return a;
+}
+
+// yt[(k * 4 + w) * nchunk + c] = y4[k, 16c + 4w .. 16c + 4w + 3]
+__device__ __forceinline__ float4 y_chunk(const float* __restrict__ y4, int q, int nchunk,
+                                          int idx) {
+  const int c = idx % nchunk;
+  const int kw = idx / nchunk;
+  return *reinterpret_cast<const float4*>(y4 + (size_t)(kw >> 2) * q + 16 * c + 4 * (kw & 3));
+}
+
+static __global__ void y_transpose_kernel(const float* __restrict__ y4, float4* __restrict__ yt,
+                                          int q) {
+  const int nchunk = q >> 4;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < 16 * nchunk) yt[idx] = y_chunk(y4, q, nchunk, idx);
+}
+
+// The calling warp gathers the row groups first_row, first_row + row_stride,
+// ... (kRowsPerWarp rows each): out[r] = sum_k sum_j plane_k(pk[r, j]) * y4[k, j].
+// ys: the transposed y (y_chunk's order), in shared memory (kStaged) or in
+// device memory. Lanes read a row in 16-byte chunks; the chunk's y values are
+// loaded once for all rows of the group; a fixed-order warp reduction closes
+// the sum.
+template <bool kStaged>
+__device__ __forceinline__ void gather_rows(const uint8_t* __restrict__ pk,
+                                            const float4* __restrict__ ys,
+                                            float* __restrict__ out, long long rows, int q,
+                                            long long first_row, long long row_stride) {
+  const int nchunk = q >> 4;
+  const int lane = threadIdx.x & 31;
+  for (long long r0 = first_row; r0 < rows; r0 += row_stride) {  // warp-uniform loop
+    float acc[kRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] = 0.f;
+    for (int c = lane; c < nchunk; c += 32) {
+      uint4 ch[kRowsPerWarp];
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerWarp; ++rr)
+        ch[rr] = (r0 + rr < rows)
+                     ? __ldg(reinterpret_cast<const uint4*>(pk + (r0 + rr) * q) + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        float4 y[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int idx = (k * 4 + w) * nchunk + c;
+          y[k] = kStaged ? ys[idx] : __ldg(ys + idx);
+        }
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] += word_dot(word_of(ch[rr], w), y);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const float s = warp_sum(acc[rr]);
+      if (lane == 0 && r0 + rr < rows) out[r0 + rr] = s;
+    }
+  }
+}
+
+// The calling thread owns column word wi (16 outputs) over rows
+// [r_begin, r_end) and writes its partial sums to ps, one slice's (4, q):
+// ps[k, 4 wi + i] = sum_r u[r] * plane_k(pk[r, 4 wi + i]).
+__device__ __forceinline__ void scatter_slice(const uint8_t* __restrict__ pk,
+                                              const float* __restrict__ u,
+                                              float* __restrict__ ps, long long r_begin,
+                                              long long r_end, int q, int wi) {
+  const int nw = q >> 2;
+  float acc[16];  // acc[k * 4 + i]: plane k, column 4 * wi + i
+#pragma unroll
+  for (int a = 0; a < 16; ++a) acc[a] = 0.f;
+  const uint32_t* pw = reinterpret_cast<const uint32_t*>(pk) + wi;
+#pragma unroll 4
+  for (long long r = r_begin; r < r_end; ++r) {
+    const uint32_t w = __ldg(pw + r * nw);
+    const float ur = __ldg(u + r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[k * 4 + i] = fmaf(small_u2f((w >> (8 * i + 2 * k)) & 3u), ur, acc[k * 4 + i]);
+    }
+  }
+  ps += 4 * (size_t)wi;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    *reinterpret_cast<float4*>(ps + (size_t)k * q) =
+        make_float4(acc[k * 4], acc[k * 4 + 1], acc[k * 4 + 2], acc[k * 4 + 3]);
+}
+
+constexpr int kReduceThreads = 256;
+
+// out[i] = sum over slices, in slice order, of partial[s, i]: the second,
+// fixed-order pass of every scatter (no float atomics).
+static __global__ void __launch_bounds__(kReduceThreads)
+slice_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, long long slices,
+                    long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float a = 0.f;
+  for (long long s = 0; s < slices; ++s) a += partial[s * n + i];
+  out[i] = a;
+}
+
+inline cudaError_t launch_slice_reduce(const float* partial, float* out, long long slices,
+                                       long long n, cudaStream_t st) {
+  slice_reduce_kernel<<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads), kReduceThreads, 0,
+                        st>>>(partial, out, slices, n);
+  return cudaGetLastError();
+}
+
+}  // namespace ngt
 
 namespace {
 

@@ -15,8 +15,7 @@ one JSON line:
             bandwidth for K1's access pattern, beside the data sheet's), K1
             and K2 over T fresh steps, and the two-pass floor of a sweep
   fused     the sequential K2 -> K1 pair against `fused_step`, timed in the
-            order pair, fused, fused, pair; WIN below 0.95x, LOSS above 1.05x;
-            then the pair with K1 reading y as the fused gather reads it
+            order pair, fused, fused, pair; WIN below 0.95x, LOSS above 1.05x
   load32    the packed gather with 16-byte (K1), 4-byte and 1-byte loads
   matvec    dense int8 gather and scatter against the packed K1' and K2' on
             the same dosages
@@ -46,7 +45,7 @@ ANCHOR = 512  # rows every kernel is checked on
 TOL = 1e-5  # of the output's scale: f32 sums of the same products in another order
 L2_BYTES = 50e6  # the H100's L2
 DATASHEET_GB_S = 3350.0  # the H100 SXM data sheet's device-memory rate
-READ_GRIDS = (1, 2, 4, 8, 16)  # read_step's blocks per SM (K1's grid is 4 per SM)
+READ_GRIDS = (1, 2, 4, 8, 16)  # read_step's blocks per SM (its default grid is 4 per SM)
 
 
 def card_line(device) -> str:
@@ -193,23 +192,13 @@ def fused(rows, q, T, device, seed=0, reps=5):
         for t in range(T):
             K.fused_step(pk_all, t, (t + 1) % T, u, y4)
 
-    def pair_unstaged():
-        """The pair with K1 reading y from device memory, as the fused gather
-        does: what of the difference is the fusion and what the y path."""
-        stage, pack2.Y_STAGE_BYTES = pack2.Y_STAGE_BYTES, 0
-        try:
-            pair()
-        finally:
-            pack2.Y_STAGE_BYTES = stage
-
-    runs = [walk_ms(walk, device, reps) for walk in (pair, one, one, pair, pair_unstaged)]
+    runs = [walk_ms(walk, device, reps) for walk in (pair, one, one, pair)]
     nbytes = 2 * T * rows * q  # both passes over the panel
     seq, fus = _case(runs[0] + runs[3], 2 * T, nbytes), _case(runs[1] + runs[2], T, nbytes)
     ratio = fus["ms_per_pass"] / seq["ms_per_pass"]
     rec = _header("fused", device, rows=rows, q=q, T=T, panel_gb=nbytes / 2e9)
-    rec.update(cases={"sequential K2 then K1": seq, "fused": fus,
-                      "sequential, K1 reading y from device memory": _case(runs[4], 2 * T, nbytes)},
-               order_ms=[statistics.median(r) for r in runs[:4]], fused_over_sequential=ratio,
+    rec.update(cases={"sequential K2 then K1": seq, "fused": fus},
+               order_ms=[statistics.median(r) for r in runs], fused_over_sequential=ratio,
                verdict="WIN" if ratio < 0.95 else "NEUTRAL" if ratio < 1.05 else "LOSS")
     return rec
 

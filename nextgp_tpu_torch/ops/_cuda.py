@@ -102,8 +102,8 @@ def lib() -> ctypes.CDLL:
         P, I, S = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p
         L.ngt_error_string.argtypes = [ctypes.c_int]
         L.ngt_error_string.restype = ctypes.c_char_p
-        L.ngt_pack2_matvec.argtypes = [P, P, P, P, I, I, S]
-        L.ngt_pack2_rank_update.argtypes = [P, P, P, P, I, I, I, S]
+        L.ngt_pack2_matvec.argtypes = [P, P, P, I, I, I, S]
+        L.ngt_pack2_rank_update.argtypes = [P, P, P, P, P, I, I, I, S]
         L.ngt_r_block_scan_v.argtypes = [P, P, P, P, P, I, I, I, S]
         L.ngt_gauss_block_scan_v.argtypes = [P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_v.argtypes = [P, P, P, P, P, I, I, S]

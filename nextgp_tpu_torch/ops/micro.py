@@ -25,6 +25,7 @@ import torch
 
 from ..utils import cdiv
 from . import _cuda, pack2
+from .gibbs_kernels import SMEM_BYTES
 
 _WIDTH = {torch.uint8: 1, torch.int32: 4}  # bytes per load of `gather_width`
 
@@ -73,8 +74,8 @@ def fused_step_plain(pk_all, t, t1, u, y4):
 
 
 def gather_blocks(rows: int, device) -> int:
-    """K1's grid for a gather over `rows` rows: one warp per four rows, eight
-    warps a block, at most four blocks per SM."""
+    """The ladder's gathers' grid over `rows` rows (K1's before its redesign):
+    one warp per four rows, eight warps a block, at most four blocks per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return min(cdiv(cdiv(rows, 4), 8), 4 * sms)
 
@@ -90,7 +91,7 @@ def gather_width(pk: torch.Tensor, yw: torch.Tensor) -> torch.Tensor:
     """The packed gather with one word per thread per load. pk: (R, q) uint8
     (one byte a load) with yw (4, q), or the same bytes viewed as (R, q/4)
     int32 (one 4-byte word a load) with yw (16, q/4) = y_words(y4, 4). The
-    grid is K1's."""
+    grid is `gather_blocks`'."""
     if not pk.is_cuda:
         return gather_width_plain(pk, yw)
     name = "micro.gather_width"
@@ -99,7 +100,7 @@ def gather_width(pk: torch.Tensor, yw: torch.Tensor) -> torch.Tensor:
     width = _WIDTH[pk.dtype]
     rows, nword = pk.shape
     _check_vec(yw, pk, (4 * width, nword), name)
-    _cuda.require(16 * width * nword <= pack2.Y_STAGE_BYTES,
+    _cuda.require(16 * width * nword <= SMEM_BYTES,
                   f"{name}: {16 * width * nword} bytes of y exceed a block's shared memory")
     out = torch.empty(rows, dtype=torch.float32, device=pk.device)
     err = _cuda.lib().ngt_gather_width(pk.data_ptr(), yw.data_ptr(), out.data_ptr(), rows, nword,
@@ -118,7 +119,8 @@ def _check_bytes(mat, dtype, name):
 
 def read_step(pk_all: torch.Tensor, t: int, rows: int, blocks: int | None = None) -> torch.Tensor:
     """Read-only pass over step t's rows: out[r] = sum_j pk_all[t*rows + r, j]
-    as int32 (q * 255 must stay below 2^31). blocks: the grid (default K1's)."""
+    as int32 (q * 255 must stay below 2^31). blocks: the grid (default
+    `gather_blocks`')."""
     if not pk_all.is_cuda:
         return read_step_plain(pk_all, t, rows)
     name = "micro.read_step"
@@ -139,7 +141,7 @@ def read_step(pk_all: torch.Tensor, t: int, rows: int, blocks: int | None = None
 
 def dense_gather(mt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """out[l] = sum_n mt[l, n] * y[n], mt (L, N) int8 dosages, y (N,). The
-    grid is K1's."""
+    grid is `gather_blocks`'."""
     if not mt.is_cuda:
         return dense_gather_plain(mt, y)
     name = "micro.dense_gather"
@@ -147,7 +149,7 @@ def dense_gather(mt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     rows, n = mt.shape
     _check_vec(y, mt, (n,), name)
     _cuda.require(rows > 0 and y.data_ptr() % 16 == 0, f"{name}: needs rows and an aligned y")
-    _cuda.require(4 * n <= pack2.Y_STAGE_BYTES,
+    _cuda.require(4 * n <= SMEM_BYTES,
                   f"{name}: {4 * n} bytes of y exceed a block's shared memory")
     out = torch.empty(rows, dtype=torch.float32, device=mt.device)
     err = _cuda.lib().ngt_dense_gather(mt.data_ptr(), y.data_ptr(), out.data_ptr(), rows, n,
@@ -167,7 +169,7 @@ def dense_scatter(mt: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     rows, n = mt.shape
     _check_vec(u, mt, (rows,), name)
     _cuda.require(rows > 0, f"{name}: needs rows")
-    slices = pack2.rank_slices(rows, n)  # a 4-byte column word per thread, as K2
+    slices = pack2.rank_slices(rows, n)  # a 4-byte column word per thread
     partial = torch.empty((slices, n), dtype=torch.float32, device=mt.device)
     out = torch.empty(n, dtype=torch.float32, device=mt.device)
     err = _cuda.lib().ngt_dense_scatter(mt.data_ptr(), u.data_ptr(), partial.data_ptr(),

@@ -27,7 +27,6 @@ from ..utils import cdiv
 from . import _cuda
 
 _LANES = 128
-Y_STAGE_BYTES = 227 * 1024  # a block's shared memory on Hopper: K1 stages y up to here
 
 
 def packed_q(n: int) -> int:
@@ -100,32 +99,53 @@ def _check_panel(pk, vec, name):
                   f"{name}: q must be a multiple of 16 and the panel 16-byte aligned")
 
 
-def _matvec_kernel(pk_all, row0, rows, y4):
+def _matvec_kernel(pk_all, row0, rows, y4, blocks=0):
     _check_panel(pk_all, y4, "pack2.matvec")
     q = pk_all.shape[1]
     _cuda.require(y4.shape == (4, q) and y4.data_ptr() % 16 == 0,
                   f"pack2.matvec: y4 must be an aligned (4, {q}) tensor, got {tuple(y4.shape)}")
     _cuda.require(0 < rows and 0 <= row0 and row0 + rows <= pk_all.shape[0],
                   "pack2.matvec: step rows out of range")
-    L = _cuda.lib()
+    _cuda.require(isinstance(blocks, int) and 0 <= blocks < 2 ** 31,
+                  "pack2.matvec: blocks must be 0 (as many as are resident) or a grid size")
     out = torch.empty(rows, dtype=torch.float32, device=pk_all.device)
-    # y is staged in shared memory where it fits, else read from a transposed copy
-    yt = None if 16 * q <= Y_STAGE_BYTES else torch.empty_like(y4)
-    err = L.ngt_pack2_matvec(pk_all.data_ptr() + row0 * q, y4.data_ptr(),
-                             None if yt is None else yt.data_ptr(), out.data_ptr(), rows, q,
-                             _cuda.stream_of(pk_all))
+    err = _cuda.lib().ngt_pack2_matvec(pk_all.data_ptr() + row0 * q, y4.data_ptr(), out.data_ptr(),
+                                       rows, q, blocks, _cuda.stream_of(pk_all))
     _cuda.check(err, "pack2.matvec")
     _cuda.LAUNCHES["pack2_matvec"] += 1
     return out
 
 
+RANK_TILE = 512  # K2's column tile: packed bytes, 16 a lane
+RANK_SLICE_ROWS = 512  # K2's rows per slice: 64 a warp
+
+
 def rank_slices(rows: int, q: int, threads: int = 128) -> int:
-    """Row slices of a scatter's first pass (a 4-byte column word per thread,
-    `threads` a block): about 1024 blocks in all, each slice at least 32
-    rows. Depends on the shape only, so the summation order (and the result)
-    is the same on every run and every card."""
+    """Row slices of the ladder's scatters (`dense_scatter`, `fused_step`),
+    which keep K2's earlier design: a 4-byte column word per thread,
+    `threads` a block, partials added by a second pass. About 1024 blocks in
+    all, each slice at least 32 rows. Depends on the shape only, so the
+    summation order (and the result) is the same on every run and card."""
     col_blocks = cdiv(q // 4, threads)
     return max(1, min(cdiv(rows, 32), cdiv(1024, col_blocks)))
+
+
+def rank_grid(rows: int, q: int) -> tuple[int, int]:
+    """K2's grid, (column tiles, row slices): a block adds RANK_SLICE_ROWS
+    rows of one RANK_TILE-byte column tile. A function of the shape alone, so
+    the summation order (and the result) is the same on every run and card."""
+    return cdiv(q, RANK_TILE), cdiv(rows, RANK_SLICE_ROWS)
+
+
+_TICKETS = {}  # (device, stream) -> int32 tickets of K2's column tiles, 0 between launches
+
+
+def _tickets(device, stream, tiles):
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < tiles:
+        t = _TICKETS[key] = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
+    return t
 
 
 def _rank_kernel(pk_all, row0, u):
@@ -134,12 +154,17 @@ def _rank_kernel(pk_all, row0, u):
     q = pk_all.shape[1]
     _cuda.require(u.dim() == 1 and 0 < rows and 0 <= row0 and row0 + rows <= pk_all.shape[0],
                   "pack2.rank_update: u must be (rows,) within the panel")
-    slices = rank_slices(rows, q)
-    partial = torch.empty((slices, 4, q), dtype=torch.float32, device=pk_all.device)
-    out = torch.empty((4, q), dtype=torch.float32, device=pk_all.device)
-    L = _cuda.lib()
-    err = L.ngt_pack2_rank_update(pk_all.data_ptr() + row0 * q, u.data_ptr(), partial.data_ptr(),
-                                  out.data_ptr(), rows, q, slices, _cuda.stream_of(pk_all))
+    tiles, slices = rank_grid(rows, q)
+    _cuda.require(slices <= 65_535, f"pack2.rank_update: {rows} rows need more than 65,535 slices")
+    dev, stream = pk_all.device, _cuda.stream_of(pk_all)
+    out = torch.empty((4, q), dtype=torch.float32, device=dev)
+    partial = tickets = None
+    if slices > 1:
+        partial = torch.empty((slices, 4, q), dtype=torch.float32, device=dev)
+        tickets = _tickets(dev, stream, tiles)
+    err = _cuda.lib().ngt_pack2_rank_update(
+        pk_all.data_ptr() + row0 * q, u.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), None if tickets is None else tickets.data_ptr(), rows, q, slices, stream)
     _cuda.check(err, "pack2.rank_update")
     _cuda.LAUNCHES["pack2_rank_update"] += 1
     return out

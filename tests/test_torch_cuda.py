@@ -2,9 +2,9 @@
 
 Edge shapes that chip_smoke.py's main-path shapes do not reach: row counts
 that are not a multiple of the gather's rows per warp, the smallest packed
-width, a 50k-individual width that needs more than 48 KB of shared memory,
-a 100k-individual width whose y no longer fits shared memory (the gather
-then reads a transposed copy from device memory), blocks narrower than a
+width, K1's 4-row warp groups and K2's 512-row slices and 512-byte column tiles
+one either side, the 10k, 50k and 100k widths (at 100k y fits neither
+shared memory nor L1), K1 on several grids (the same bits), blocks narrower than a
 warp or not a multiple of 32, K from 1 to 40 (each of K3's two rules: every
 instance in one lane's registers, K = 1 to 8, and on one thread above),
 V from 1 to 96 chains, the same bits from two launches of K3 and K10,
@@ -64,26 +64,61 @@ def test_pack2_kernels_match_plain(dev, rows, n):
     assert _cuda.LAUNCHES["pack2_rank_update"] == before["pack2_rank_update"] + 1 + T
 
 
-def test_gather_past_the_shared_memory_stage(dev, monkeypatch):
-    """n = 100,000 (q = 25,088): 16*q bytes of y exceed a block's shared
-    memory, so K1 reads a transposed copy of y from device memory. It must
-    match the plain version at a step offset > 0, give the same bits on a
-    second call, and sum in the order of the staged path."""
+@pytest.mark.parametrize("rows,q", [(1, 16), (3, 48), (5, 528), (7, 2560), (4095, 496),
+                                    (4097, 16), (511, 12_544), (513, 2560), (1025, 25_088)])
+def test_pack2_kernels_at_their_edges(dev, rows, q):
+    """K1 and K2 at the edges of their design, on step t = 1 of three: rows
+    of 1, one either side of K1's 4-row warp group and of K2's 512-row slice,
+    4k +- 1, 7; q = 16 (one K2 lane of a 512-byte tile), 48, one K2 tile
+    either side (496, 528: a second tile with one lane), the 10k, 50k and
+    100k widths. Both against the plain versions, both bit-identical on a
+    second call."""
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + q)
+    pk = torch.randint(0, 256, (3 * rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev)
+    u = torch.randn(rows, generator=g, device=dev)
+    sl = pk[rows:2 * rows]
+    r0 = pack2.matvec_step(pk, 1, y4, rows)
+    dy = pack2.rank_update_step(pk, 1, u)
+    assert _rel(r0, pack2.matvec_plain(sl, y4)) < 1e-5
+    assert _rel(dy, pack2.rank_update_plain(sl, u)) < 1e-5
+    assert torch.equal(r0, pack2.matvec_step(pk, 1, y4, rows))
+    assert torch.equal(dy, pack2.rank_update_step(pk, 1, u))
+
+
+@pytest.mark.parametrize("rows,q", [(1, 16), (9, 2560), (24_576, 2560), (1000, 12_544)])
+def test_gather_grid_gives_the_same_bits(dev, rows, q):
+    """K1's grid is a parameter: a row's sum is one warp's, in one order,
+    whatever the number of blocks."""
+    g = torch.Generator(device=dev).manual_seed(q)
+    pk = torch.randint(0, 256, (2 * rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev)
+    ref = pack2.matvec_step(pk, 1, y4, rows)
+    for blocks in (1, 3, 1000):
+        assert torch.equal(ref, pack2._matvec_kernel(pk, rows, rows, y4, blocks))
+
+
+def test_gather_past_the_shared_memory_stage(dev):
+    """n = 100,000 (q = 25,088): y's 16*q bytes exceed a block's shared memory
+    and L1, so K1 reads them from L2. K1 and K2 must match the plain versions
+    at a step offset > 0 and give the same bits on a second call; K1 must
+    give the same bits on any grid there too."""
     n, rows, T = 100_000, 1000, 3
     g = torch.Generator(device=dev).manual_seed(5)
     pk = pack2.pack2(torch.randint(0, 3, (n, T * rows), generator=g, device=dev, dtype=torch.int8))
     q = pk.shape[1]
-    assert q == pack2.packed_q(n) == 25_088 and 16 * q > pack2.Y_STAGE_BYTES
+    assert q == pack2.packed_q(n) == 25_088 and 16 * q > gibbs_kernels.SMEM_BYTES
     y = torch.zeros(4 * q, device=dev)
     y[:n] = torch.randn(n, generator=g, device=dev)
     y4 = pack2.y_planar(y)
+    u = torch.randn(rows, generator=g, device=dev)
     out = pack2.matvec_step(pk, 1, y4, rows)
     assert _rel(out, pack2.matvec_plain(pk[rows:2 * rows], y4)) < 1e-5
     assert torch.equal(out, pack2.matvec_step(pk, 1, y4, rows))
-    small = pk[:, :4096].contiguous()  # q = 4096: staged by default
-    staged = pack2.matvec_step(small, 2, y4[:, :4096].contiguous(), rows)
-    monkeypatch.setattr(pack2, "Y_STAGE_BYTES", 0)
-    assert torch.equal(staged, pack2.matvec_step(small, 2, y4[:, :4096].contiguous(), rows))
+    assert torch.equal(out, pack2._matvec_kernel(pk, rows, rows, y4, 5))
+    dy = pack2.rank_update_step(pk, 2, u)
+    assert _rel(dy, pack2.rank_update_plain(pk[2 * rows:], u)) < 1e-5
+    assert torch.equal(dy, pack2.rank_update_step(pk, 2, u))
 
 
 def _r_inputs(dev, T, V, B, K, seed):

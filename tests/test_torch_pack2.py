@@ -72,3 +72,17 @@ def test_rank_slices_cover_rows():
         s = tp2.rank_slices(rows, q)
         per = -(-rows // s)
         assert 1 <= s <= 65_535 and per * s >= rows and per * (s - 1) < rows
+
+
+@pytest.mark.parametrize("rows,q", [(1, 16), (511, 496), (512, 512), (513, 528), (24_576, 2_560),
+                                    (24_576, 12_544), (36_864, 12_544), (1000, 25_088)])
+def test_rank_grid_covers_the_panel(rows, q):
+    """K2's grid depends on the shape only: its column tiles cover the q
+    bytes with less than one tile to spare, and its row slices (the kernel
+    gives each ceil(rows / slices) rows) cover every row, none empty."""
+    tiles, slices = tp2.rank_grid(rows, q)
+    assert (tiles - 1) * tp2.RANK_TILE < q <= tiles * tp2.RANK_TILE
+    per = -(-rows // slices)
+    assert 1 <= slices <= 65_535 and per * slices >= rows and per * (slices - 1) < rows
+    assert per <= tp2.RANK_SLICE_ROWS
+    assert tp2.rank_grid(rows, q) == (tiles, slices)

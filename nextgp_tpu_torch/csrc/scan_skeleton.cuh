@@ -1,5 +1,6 @@
 // The skeleton of the port's V-batched in-block scans for Hopper (sm_90a),
-// shared by K3 (r_scan.cu), K10 (bcw_scan.cu), K12 and K14 (rc_scan.cu).
+// shared by every scan: K3 (r_scan.cu), K6, K8 and K10 (gauss_bc_scan.cu),
+// K12 and K14 (rc_scan.cu).
 //
 // V independent chains of B sequential loci. Locus j of chain v needs
 //   pre_g = s_g + sum_{i<j} G_g[j, v, i] * u_v[i]

@@ -8,9 +8,13 @@ kernel:
     BayesR       r_block_pack      r_block_scan_v     K3, csrc/r_scan.cu
     BayesPR      gauss_block_pack  gauss_block_scan_v K6, csrc/gauss_bc_scan.cu
     BayesB/C     bc_block_pack     bc_block_scan_v    K8, csrc/gauss_bc_scan.cu
-    BayesB/C+D   bc_block_pack     bc_block_scan_wv   K10, csrc/bcw_scan.cu
+    BayesB/C+D   bc_block_pack     bc_block_scan_wv   K10, csrc/gauss_bc_scan.cu
     BayesRCpi    rcpi_block_pack   rcpi_block_scan_v  K12, csrc/rc_scan.cu
     BayesRCplus  rcplus_block_pack rcplus_block_scan_v K14, csrc/rc_scan.cu
+
+Every kernel is a rule class on one skeleton, `csrc/scan_skeleton.cuh`
+(one block per chain, right-looking sums, a warp per group of 32 loci); K8
+and K10 are one B/C rule over one Gram and over two.
 
 V=1 is each scan's single-chain form (`r_block_scan`, `gauss_block_scan`,
 `bc_block_scan`, `bc_block_scan_w`, `rcpi_block_scan`, `rcplus_block_scan`
@@ -420,8 +424,10 @@ def r_block_scan_v(gram_t, pk, n_classes):
 
 
 def gauss_block_scan_v(gram_t, pk):
-    """V-batched Gaussian scan (K6), BayesPR. gram_t as for r_block_scan_v;
-    pk (V, B, 8). Returns beta (V, B), u (V, B)."""
+    """V-batched Gaussian scan (K6), BayesPR and BayesLV. gram_t as for
+    r_block_scan_v; pk (V, B, 8). Returns beta (V, B), u (V, B). The kernel
+    stages each group's 32 rows as it goes (the skeleton's shared memory and
+    2 KB of rows: 15 KB at B = 1,024)."""
     if pk.is_cuda:
         return _launch("gauss_block_scan_v", lambda L: L.ngt_gauss_block_scan_v,
                        [_step(gram_t, True)], pk, 8, [])
@@ -429,7 +435,9 @@ def gauss_block_scan_v(gram_t, pk):
 
 
 def bc_block_scan_v(gram_t, pk):
-    """V-batched BayesB/C scan (K8). Returns beta, u, delta (V, B)."""
+    """V-batched BayesB/C scan (K8): K10's rule with one Gram, whose sum
+    both draws the indicator and gives beta. Returns beta, u, delta (V, B);
+    shared memory as for gauss_block_scan_v."""
     if pk.is_cuda:
         return _launch("bc_block_scan_v", lambda L: L.ngt_bc_block_scan_v, [_step(gram_t, True)],
                        pk, 8, _DELTA)
@@ -439,7 +447,8 @@ def bc_block_scan_v(gram_t, pk):
 def bc_block_scan_wv(gram_t, graw_t, pk):
     """V-batched weighted BayesB/C scan (K10): two Gram streams, the
     weighted gram_t and the raw graw_t, each a (B, V, B) block or a
-    step-indexed pair. Returns beta, u, delta (V, B). The kernel's shared
+    step-indexed pair; the raw sum draws the indicator, the weighted one
+    gives beta. Returns beta, u, delta (V, B). The kernel's shared
     memory (the skeleton's with two Grams and two groups' rows, 23 KB at
     B = 1,024) fits whatever B the scans take."""
     if pk.is_cuda:

@@ -175,7 +175,7 @@ def _scan8_inputs(rng, T, V, B, kind):
     return gram.astype(np.float32), graw.astype(np.float32), pk.astype(np.float32)
 
 
-SCAN8_CASES = [(V, B) for V in (1, 3) for B in (8, 16)]
+SCAN8_CASES = [(V, B) for V in (1, 3) for B in (8, 16, 40)]  # 40: past one 32-locus group
 
 
 def _same2(port, ref):

@@ -5,6 +5,8 @@
     python3 chip_smoke.py rc     # phases 1-2 and the annotation scans of phase 3 alone
     python3 chip_smoke.py passes # phases 1-2, phase 3's K1/K2/K1'/K2', the ladder's
                                  # frontier and fused, and the 50k BayesR path alone
+    python3 chip_smoke.py graph  # phases 1-2 and phase 7 alone
+    python3 chip_smoke.py chains # phases 1-2 and phase 4's default chains, digested
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -63,6 +65,17 @@ Phases (any failed check raises and the script exits non-zero):
      K1's and K2's bodies as they were before their redesign) against the
      sequential pair of today's K2 and K1, load widths, dense against packed
      (K1', K2')
+  7. the whole chain as CUDA-graph replays with a KeyedStream (draws keyed
+     on the card from the state's sweep counter): keyed_rng against its plain
+     version at the main path's shapes (uniforms the same bits, normals
+     within 1e-6 of scale, gammas within 1e-5 relative where both accepted
+     at the same attempt, that share printed, at most 1e-4); BayesR at V=96
+     and V=1 (100 sweeps), the six other paths at V=96 (20 sweeps) and BayesR
+     at 50,000 x 49,152 (30 sweeps), each run eagerly and through run_lmem's
+     replays from the same state with the same stream: draws and final ycorr
+     the same bits, drift, finite draws, BayesR's EBV limit at V=96; sweeps/s
+     and steady ms/sweep of both arms, launches per sweep, device busy from a
+     profiled window of replays and the idle share without the profiler
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -82,6 +95,8 @@ from torch.autograd import DeviceType
 
 import nextgp_tpu_torch as ngt
 from nextgp_tpu_torch import diag, micro
+from nextgp_tpu_torch.engine import rng as keyed
+from nextgp_tpu_torch.engine import sweep as engine_sweep
 from nextgp_tpu_torch.engine.rng import HostStream, PhiloxStream
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
 from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2
@@ -1087,6 +1102,268 @@ def stage_phase(path, res, n_sweeps=10):
           f"({n_sweeps} sweeps, profiler off), {ms_sweep * roof.sweeps_per_sec_roof / 1e3:.1f}x the roof")
 
 
+# ------------------------------------------------------------------ phase 7
+
+GAMMA_SHAPES, N_GAMMA = (0.5, 1.0, 3.0, 5000.0, 25_000.0), 4096
+TOL_NORMAL, TOL_GAMMA, MAX_ATTEMPT_SHARE = 1e-6, 1e-5, 1e-4
+N_CHAIN_OTHERS = 20  # sweeps of each other path in phase 7 (n_keep 4, thin 5)
+# operations a keyed draw does per element, counted as 32-bit operations at
+# the f32 rate (the data sheet lists no integer or float64 CUDA-core rate):
+# ~20 per splitmix64 fold of the key (one per sweep and tail value), ~100 per
+# Philox4x32-10 block, ~100 for Box-Muller's log, cos and sqrt in float64,
+# ~60 more per gamma attempt for its two logs and the acceptance test
+FOLD_OPS, PHILOX_OPS, BOX_MULLER_OPS, ACCEPT_OPS = 20, 100, 100, 60
+
+
+def keyed_work(kind, n, n_tail, attempts=None):
+    """(bytes, operations) of one keyed draw of n elements: each output
+    written once (and a gamma's shapes read once), the operations above;
+    a gamma's count follows the attempts this run's data needed."""
+    fold = FOLD_OPS * (1 + n_tail)
+    if kind == keyed.UNIFORM:
+        return 4 * n, n * (fold + PHILOX_OPS)
+    if kind == keyed.NORMAL:
+        return 4 * n, n * (fold + PHILOX_OPS + BOX_MULLER_OPS)
+    tries = int(attempts.sum().item()) + n  # attempt j is the (j + 1)-th
+    return 8 * n, n * fold + tries * (PHILOX_OPS + BOX_MULLER_OPS + ACCEPT_OPS)
+
+
+def keyed_phase():
+    """7a: keyed_rng against its plain version on the card at the main
+    path's shapes (p_pad = 49,152 normals and uniforms; gammas at each of
+    GAMMA_SHAPES x 4,096): uniforms the same bits, normals within TOL_NORMAL
+    of their scale, gammas within TOL_GAMMA relative where both accepted at
+    the same attempt, the share of elements whose accepting attempt differs
+    printed and at most MAX_ATTEMPT_SHARE; two launches the same bits. The
+    normal draw of 49,152 is the kernels line's time (with torch.randn of
+    the same size as the library call)."""
+    h0, tail = keyed._splitmix64(7), (4, 0, 4, 0)  # BayesR's z: marker stage, set 0, split(4)[0]
+    counter = torch.tensor(50, dtype=torch.int64, device=DEV)
+    alpha = torch.tensor(GAMMA_SHAPES, device=DEV).repeat_interleave(N_GAMMA)
+    ph = "7 graph keyed_rng"
+    out = {}
+    for kind, name, n in ((keyed.UNIFORM, "uniform", P), (keyed.NORMAL, "normal", P),
+                          (keyed.GAMMA, "gamma", alpha.numel())):
+        a = alpha if kind == keyed.GAMMA else None
+
+        def kern():
+            return keyed.keyed_draw(kind, h0, counter, tail, n, torch.float32, a)
+
+        def plain():
+            return keyed.keyed_draw_plain(kind, h0, counter, tail, n, torch.float32, a)
+
+        got, att = keyed.keyed_draw(kind, h0, counter, tail, n, torch.float32, a, iters=True)
+        ref, ref_att = keyed.keyed_draw_plain(kind, h0, counter, tail, n, torch.float32, a, iters=True)
+        check(torch.equal(got, kern()), f"keyed_rng {name}: two launches differ")
+        check(torch.isfinite(got).all().item(), f"keyed_rng {name}: not finite")
+        ms_k, ms_p, dev_ms = median_ms(kern, 20), median_ms(plain, 3), device_ms(kern, 20)
+        bytes_, ops = keyed_work(kind, n, len(tail), att if kind == keyed.GAMMA else None)
+        rec = dict(ms=ms_k, plain_ms=ms_p, device_ms=dev_ms, work=(bytes_, ops))
+        if kind == keyed.UNIFORM:
+            check(torch.equal(got, ref), "keyed_rng uniform: not the plain version's bits")
+            rec["max_abs_err"] = 0.0
+            print(f"[{ph}] uniform x {n:,}: the plain version's bits; kernel {ms_k:.4f} ms "
+                  f"({dev_ms} ms on the card), plain {ms_p:.4f} ms, torch.rand "
+                  f"{median_ms(lambda: torch.rand(n, device=DEV), 20):.4f} ms")
+        elif kind == keyed.NORMAL:
+            lib = median_ms(lambda: torch.randn(n, device=DEV), 20)
+            e, sc = rel_err(got, ref)
+            report("keyed_rng", e, sc, TOL_NORMAL, ms_k, ms_p, (bytes_, ops),
+                   f" (normal x {n:,}, BayesR's z at p_pad; not a TPU kernel: the counterpart of "
+                   f"jax.random under fold_in; operations counted at the f32 rate)",
+                   library_ms=lib, phase=ph, dev_ms=dev_ms)
+            rec["max_abs_err"] = e
+        else:
+            same = att == ref_att
+            check((att >= 0).all().item() and (ref_att >= 0).all().item(),
+                  "keyed_rng gamma: an element never accepted")
+            rel = ((got - ref).abs() / ref.abs())[same].max().item()
+            share = 1.0 - same.float().mean().item()
+            lib = median_ms(lambda: torch._standard_gamma(alpha), 20)
+            per_shape = ", ".join(
+                f"{s:g}: mean {got[i * N_GAMMA:(i + 1) * N_GAMMA].mean().item():.4f}, attempts "
+                f"{(att[i * N_GAMMA:(i + 1) * N_GAMMA] + 1).float().mean().item():.4f}"
+                for i, s in enumerate(GAMMA_SHAPES))
+            print(f"[{ph}] gamma x {n:,}: max rel err {rel:.3e} where the attempts agree (tol "
+                  f"{TOL_GAMMA:g}); accepting attempt differs for a share {share:.3e} (limit "
+                  f"{MAX_ATTEMPT_SHARE:g}); kernel {ms_k:.4f} ms ({dev_ms} ms on the card), plain "
+                  f"{ms_p:.4f} ms, torch._standard_gamma {lib:.4f} ms; by shape {per_shape}")
+            check(rel <= TOL_GAMMA and share <= MAX_ATTEMPT_SHARE,
+                  "keyed_rng gamma departs from its plain version")
+            rec.update(max_abs_err=rel, attempts_differ=share, library_ms=lib)
+        out[name] = rec
+    return out
+
+
+def replay_window(rep, n):
+    """Kernels on the card over n replays of the sweep graph, from the
+    profiler: (device busy ms per sweep, kernels and copies per sweep, the
+    records the profiler missed, per sweep by name). A graph's kernels are
+    counted here, not by the wrappers' counters, which count a capture once.
+    Every node runs once a replay, so a name's count per sweep is its
+    records over n, rounded, and its time its mean record times that count:
+    the profiler drops a few records of a window now and then (device_ms
+    says so), which this leaves out of both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rep.run(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rep.run(n)
+        torch.cuda.synchronize()
+    recs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+    per = {e.key: round(e.count / n) for e in recs}
+    busy = sum(e.self_device_time_total / e.count * per[e.key] for e in recs) / 1e3
+    missed = n * sum(per.values()) - sum(e.count for e in recs)
+    return busy, sum(per.values()), missed, per
+
+
+def steady_ms(step, n):
+    """ms per sweep over n sweeps, CUDA events around the whole window."""
+    step()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        step()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def fit_checks(tag, plan, st, draws, sig, ebv_limit=None):
+    """Drift of ycorr from y - Xb - Mc beta, finite draws, and the EBV
+    correlation of the posterior mean of beta with the planted signal."""
+    bad = [k for k, a in draws.items() if not torch.isfinite(a.double()).all().item()]
+    check(not bad, f"{tag}: kept draws of {bad} are not finite")
+    gv = ngt.genomic_values_state(plan, st)
+    drift = ((st.ycorr - (st.y - st.fixed[0].b[0] - gv)).abs().max() / st.y.abs().max()).item()
+    mean = ngt.genomic_values_state(plan, st, beta=draws["betaM1"].mean(0).cpu().numpy())
+    ebv, tru = mean[:2048] - mean[:2048].mean(), sig[:2048].to(mean.dtype) - sig[:2048].mean()
+    corr = (torch.dot(ebv, tru) / (ebv.norm() * tru.norm())).item()
+    limit = "printed only" if ebv_limit is None else f"limit {ebv_limit}"
+    print(f"[7 {tag}] ycorr drift {drift:.3e} of max|y| (limit 1e-2); EBV corr {corr:.4f} ({limit})")
+    check(drift < 1e-2, f"{tag}: ycorr drifted from y - Xb - Mc beta")
+    check(ebv_limit is None or corr >= ebv_limit, f"{tag}: EBV correlation below {ebv_limit}")
+    return dict(drift=drift, ebv_corr=corr)
+
+
+def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag="", n_window=50):
+    """One path eagerly and replayed with the same KeyedStream from the same
+    state: the eager chain a loop of make_sweep (launches counted by the
+    wrappers), the replayed chain run_lmem with the KeyedStream (burn-in and
+    thinning as graph replays, CUDA events around it). The kept draws and
+    the final ycorr must be the same bits. Then each arm's steady ms/sweep
+    (events around n_window sweeps), the replays' device busy per sweep and
+    kernels per sweep from a profiled window, and the device's idle share
+    without the profiler: 1 - busy / (event ms per sweep)."""
+    name = f"{path}{tag} V={V}"
+    n_keep = (n_chain - n_burn) // n_thin
+    plan, st0 = ngt.assemble(spec, vshards=V)
+    stream = keyed.KeyedStream(7, DEV, plan.dtype)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, kept = st0, []
+    for _ in range(n_burn):
+        st = sweep(st, stream)
+    for _ in range(n_keep):
+        for _ in range(n_thin):
+            st = sweep(st, stream)
+        kept.append(ngt.collect_sample(st, plan))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_launches = dict(_cuda.LAUNCHES)
+    eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
+    _, _, scan, gathers = PATHS[path]
+    T = plan.markers[0].n_blocks // V
+    expect = {k: 0 for k in eager_launches}
+    expect.update({"pack2_matvec": gathers * n_chain * T, "pack2_rank_update": n_chain * T,
+                   scan: n_chain * T, "keyed_rng": eager_launches["keyed_rng"]})
+    check(eager_launches == expect and eager_launches["keyed_rng"] % n_chain == 0
+          and eager_launches["keyed_rng"] > 0, f"{name}: eager launches {eager_launches}")
+
+    _cuda.reset_launches()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, vshards=V, stream=stream)
+    b.record()
+    b.synchronize()
+    captured = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    replay_ms = a.elapsed_time(b)
+    differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), res.draws[k])]
+    check(set(res.draws) == set(eager) and not differ, f"{name}: replayed draws {differ} differ from eager")
+    check(torch.equal(res.state.ycorr, st.ycorr), f"{name}: replayed ycorr differs from eager")
+    check(res.state.sweep_index == st.sweep_index == n_chain and int(res.state.sweep_counter) == n_chain,
+          f"{name}: sweep index {res.state.sweep_index}, counter {int(res.state.sweep_counter)}")
+    fit = fit_checks(name, res.plan, res.state, {k: torch.from_numpy(v) for k, v in res.draws.items()},
+                     sig, ebv_limit)
+    print(f"[7 {name}] {n_chain} sweeps ({n_burn} burn-in, thin {n_thin}), the same KeyedStream: "
+          f"kept draws and final ycorr bit-identical eager and replayed; eager {n_chain / eager_s:.2f} "
+          f"sweeps/s (host clock), replayed run_lmem {res.sweeps_per_sec:.2f} sweeps/s (host clock; "
+          f"CUDA events around it {replay_ms:.3f} ms, capture of two graphs and one warm-up sweep in it)")
+
+    rep = engine_sweep.ReplayedSweep(plan, res.state, stream)
+    state = [res.state]
+
+    def eager_step():
+        state[0] = sweep(state[0], stream)
+
+    ms_eager = steady_ms(eager_step, n_window)
+    ms_replay = steady_ms(lambda: rep.run(1), n_window)
+    busy, per_sweep, missed, by_name = replay_window(rep, 10)
+    idle = 1.0 - busy / ms_replay
+    eager_per_sweep = {k: v / n_chain for k, v in eager_launches.items() if v}
+    print(f"[7 {name}] steady, {n_window} sweeps between CUDA events: eager {ms_eager:.4f} ms/sweep "
+          f"({1e3 / ms_eager:.2f} sweeps/s), replayed {ms_replay:.4f} ms/sweep ({1e3 / ms_replay:.2f} "
+          f"sweeps/s); 10 replays under the profiler: device busy {busy:.4f} ms/sweep, {per_sweep} "
+          f"kernels and copies per sweep ({missed} records missed); idle share without the profiler "
+          f"{idle:.4f}")
+    print(f"[7 {name}] launches per sweep: eager by the wrappers {eager_per_sweep}; replayed, counted "
+          f"by the wrappers at capture (one warm-up sweep and two captured sweeps) {captured}")
+    for key, cnt in sorted(by_name.items(), key=lambda r: -r[1])[:6]:
+        print(f"  replayed x{cnt:<4} {key[:90]}")
+    replay_rate = res.sweeps_per_sec
+    del rep, state, res
+    return dict(eager_sweeps_per_s=n_chain / eager_s, replay_run_lmem_sweeps_per_s=replay_rate,
+                eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay,
+                replay_busy_ms_per_sweep=busy, replay_kernels_per_sweep=per_sweep, idle_share=idle,
+                replay_event_ms=replay_ms, eager_launches=eager_launches, **fit)
+
+
+def graph_phase(spec_for, sig, wide_eager_ms=None):
+    """7: keyed_rng against its plain version (7a); BayesR at V=96 and V=1
+    (7b) and the other six paths at V=96 (7c, N_CHAIN_OTHERS sweeps each, so
+    that every scan runs inside a graph), each eager and replayed with one
+    KeyedStream; BayesR at 50,000 x 49,152 replayed (7d), its ms/sweep
+    beside phase 4's eager number where phase 4 ran. Returns the numbers
+    and the eager launch counts by run."""
+    out = {"keyed_rng": keyed_phase()}
+    counted = {}
+    for V in (V_MAIN, 1):
+        rec = graph_path("BayesR", spec_for("BayesR"), sig, V, N_CHAIN, N_BURN, N_THIN,
+                         EBV_LIMITS.get(("BayesR", V)))
+        counted[f"BayesR keyed V={V}"] = rec.pop("eager_launches")
+        out[f"BayesR V={V}"] = rec
+    for path in PATHS:
+        if path != "BayesR":
+            rec = graph_path(path, spec_for(path), sig, V_MAIN, N_CHAIN_OTHERS, 0, N_THIN)
+            counted[f"{path} keyed V={V_MAIN}"] = rec.pop("eager_launches")
+            out[f"{path} V={V_MAIN}"] = rec
+    del spec_for
+    spec_wide, sig_wide = simulate(N_50K)
+    rec = graph_path("BayesR", spec_wide("BayesR"), sig_wide, V_MAIN, N_CHAIN_50K, N_BURN_50K,
+                     N_THIN_50K, tag=" 50k")
+    counted[f"BayesR 50k keyed V={V_MAIN}"] = rec.pop("eager_launches")
+    rec["phase4_eager_ms_per_sweep"] = wide_eager_ms
+    if wide_eager_ms is not None:
+        print(f"[7 BayesR 50k V={V_MAIN}] replayed {rec['replay_ms_per_sweep']:.4f} ms/sweep beside "
+              f"phase 4's eager {wide_eager_ms:.4f} ms/sweep (sweeps timed one by one) in this call")
+    out[f"BayesR 50k V={V_MAIN}"] = rec
+    return out, counted
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
@@ -1123,7 +1400,12 @@ SOURCES = {
     "dense_scatter": (CU + "micro.cu", "scripts/micro_matvec.py:94", "dense_scatter", ("ladder matvec",)),
     "fused_step": (CU + "micro.cu", "scripts/micro_fused.py:118", "fused_step", ("ladder fused",)),
     "read_step": (CU + "micro.cu", "scripts/micro_frontier.py:87", "read_step", ("ladder frontier",)),
+    "keyed_rng": (CU + "keyed_rng.cu", "nextgp_tpu/engine/rng.py:31", "keyed_rng",
+                  tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
+                                                                  f"BayesR 50k keyed V={V_MAIN}")),
 }
+NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
+                      "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of phase 7"}
 # the scripts' other kernels compute what these compute; the ladder launches these at their shapes
 ALSO_REPLACES = {
     "pack2_matvec": ["scripts/micro_frontier.py:111"],
@@ -1171,6 +1453,35 @@ def passes_only(spec_for, card):
                       "digests": DIGESTS, "ladder": ladder, "bayesr_50k": wide}))
 
 
+def chains_only(spec_for, card):
+    """`python3 chip_smoke.py chains`: phase 4's chains as run_lmem runs them
+    by default (PhiloxStream, eager sweeps), every path at V=96 and at V=1,
+    with a digest of each chain's kept draws and of its final ycorr and its
+    sweeps/s. One JSON line, and no result line. It calls only what every
+    tree of the port has, so the same script run beside a `git archive` of
+    another tree (as `chip_smoke_chains.py`) shows whether a change moved a
+    chain's bits."""
+    out = {}
+    for V in (V_MAIN, 1):
+        for path in PATHS:
+            res = ngt.run_lmem(spec_for(path), n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, seed=7,
+                               vshards=V)
+            draws = [torch.from_numpy(np.ascontiguousarray(res.draws[k])) for k in sorted(res.draws)]
+            out[f"{path} V={V}"] = dict(draws=digest(*draws), ycorr=digest(res.state.ycorr),
+                                        sweeps_per_s=res.sweeps_per_sec)
+            print(f"[chains] {path} V={V}: {out[f'{path} V={V}']}")
+    print(json.dumps({"card": card, "chains": out}))
+
+
+def graph_only(spec_for, sig, card):
+    """`python3 chip_smoke.py graph`: phase 7 alone, the quick form for work
+    on the stream and the replayed runners. One JSON line of its numbers,
+    and no result line."""
+    out, counted = graph_phase(spec_for, sig)
+    print(json.dumps({"card": card, "graph": out, "launches": counted,
+                      "keyed_rng": TIMINGS.get("keyed_rng")}))
+
+
 def main(argv=()):
     t_start = time.perf_counter()
     card = device_phase()
@@ -1180,7 +1491,11 @@ def main(argv=()):
         return scans_only(spec_for, card, argv[0])
     if list(argv) == ["passes"]:
         return passes_only(spec_for, card)
-    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc or passes")
+    if list(argv) == ["graph"]:
+        return graph_only(spec_for, sig, card)
+    if list(argv) == ["chains"]:
+        return chains_only(spec_for, card)
+    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph or chains")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -1196,15 +1511,18 @@ def main(argv=()):
     # BayesLV between the two schedules, and with a column of ones in its design
     for path, V in (("BayesLV", 8), ("BayesLV", 32), (LV_ONES, V_MAIN), (LV_ONES, 1)):
         slice_phase(path, spec_for(path), sig, card, V)
-    del spec_for, sig
-    counted["BayesR 50k"], _ = wide_phase(card)
+    counted["BayesR 50k"], wide = wide_phase(card)
     chain_phase()
     counted.update(ladder_phase(card))
+    graph, by_run = graph_phase(spec_for, sig, wide["median_ms_per_sweep"])
+    counted.update(by_run)
+    print(f"[7 graph] {json.dumps(graph)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}
         check(by_path, f"{name}: launched in none of its runs {runs}")
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
+        extra = {"note": NOTES[name]} if name in NOTES else {}
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep, **extra,
                             also_replaces=ALSO_REPLACES.get(name, []),
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             **TIMINGS[name]))

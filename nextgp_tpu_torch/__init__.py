@@ -17,9 +17,11 @@ from .api.priors import (  # noqa: F401
 from .api.spec import FixedTerm, MarkerTerm, ModelSpec  # noqa: F401
 from .data.ingest import MarkerData, from_array, from_packed  # noqa: F401
 from .engine.plan import assemble  # noqa: F401
-from .engine.rng import PhiloxStream, Site  # noqa: F401
+from .engine.rng import KeyedStream, PhiloxStream, Site  # noqa: F401
 from .engine.state import state_from_numpy  # noqa: F401
-from .engine.sweep import collect_sample, make_chain_runner, make_sweep  # noqa: F401
+from .engine.sweep import (  # noqa: F401
+    collect_sample, make_chain_runner, make_scan_sampler, make_sweep,
+)
 from .predict import genomic_values_state  # noqa: F401
 from .runtime import LMEMResult, run_lmem  # noqa: F401
 

@@ -67,9 +67,10 @@ class MarkerPlan:
     n_lv_cov: int = 0  # columns of BayesLV's variance-model design
     est_var_zeta: Union[bool, float] = False  # BayesLV: False | True | float
     packed: bool = True  # mt is 2-bit planar-packed uint8 (T, V, B, q): the port's only storage
-    # BayesPR's region sums without float atomics: the loci < p in a stable
-    # order grouped by region, and each region's size (constant)
-    region_order: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    # BayesPR's region sums without float atomics or a host sync: (n_regions,
+    # longest region) indices of each region's loci, padded with p, and each
+    # region's size (constant)
+    region_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     region_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
 
@@ -202,11 +203,17 @@ def _centered_grams(mt_blocks, center_blocks, n, dtype, d_inv=None):
 
 
 def _region_segments(info, device):
-    """(order, lengths) for the deterministic region sums of BayesPR: the
-    loci in a stable order grouped by region, and each region's size."""
+    """(rows, lengths) for the deterministic region sums of BayesPR: row r
+    holds region r's loci in locus order, padded with p (the index of a zero
+    appended to the summed vector), and each region's size."""
+    sizes = info.sizes
+    rows = np.full((info.n_regions, max(int(sizes.max()), 1)), info.region_id.size, np.int64)
     order = np.argsort(info.region_id, kind="stable")
-    return (torch.as_tensor(order, dtype=torch.int64, device=device),
-            torch.as_tensor(info.sizes, dtype=torch.int64, device=device))
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    col = np.arange(order.size) - np.repeat(starts, sizes)
+    rows[info.region_id[order], col] = order
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(sizes, dtype=torch.int64, device=device))
 
 
 def _pad_rows(a, p_pad):
@@ -274,7 +281,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
         df, v0 = _df_for(prior.v), float(prior.v)
     scale = _scale_for(v0, df)
     region_id = np.zeros(p_pad, np.int32)
-    order = lengths = None
+    rows = lengths = None
     log_pi = pi_hat = v_class = None
     n_classes = n_annot = n_lv_cov = 0
     est_var_zeta = False
@@ -284,7 +291,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
         region_id = np.concatenate([info.region_id, np.full(pad, info.n_regions, np.int32)])
         n_var = info.n_regions
         var_beta = np.full(n_var, v0)
-        order, lengths = _region_segments(info, device)
+        rows, lengths = _region_segments(info, device)
     elif method in (METHOD_B, METHOD_LV):
         region_id = np.arange(p_pad, dtype=np.int32)
         n_var = p_pad
@@ -371,7 +378,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
         n_var=n_var, n_regions=n_var, n_classes=n_classes,
         est_pi=bool(getattr(prior, "estimatePi", False)), df=df, weighted=d_inv is not None,
         vshards=V, n_annot=n_annot, n_lv_cov=n_lv_cov, est_var_zeta=est_var_zeta,
-        region_order=order, region_len=lengths,
+        region_rows=rows, region_len=lengths,
     )
     return ms, mp
 
@@ -458,6 +465,7 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
         fixed=tuple(fixed_states),
         markers=tuple(marker_states),
         sweep_index=0,
+        sweep_counter=torch.zeros((), dtype=torch.int64, device=device),
     )
     plan = SweepPlan(n=y.size, e_df=e_df, weighted=d_inv is not None, fixed=tuple(fixed_plans),
                      markers=tuple(marker_plans), dtype=dtype, device=device)

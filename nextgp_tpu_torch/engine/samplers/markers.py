@@ -96,11 +96,13 @@ def _gram_raw_diag(ms):
 
 def _region_sum(mp: MarkerPlan, x):
     """Per-region sums of x (p_pad,) over the loci < p, without float
-    atomics: a fixed order grouped by region (mp.region_order, stable),
-    summed segment by segment, so the result is the same on every run."""
+    atomics or a host sync (a sweep captured in a CUDA graph runs it): each
+    region's loci gathered into a row of mp.region_rows (padding reads an
+    appended zero) and the rows summed, in a fixed order, so the result is
+    the same on every run."""
     if mp.n_var == 1:
         return x[:mp.p].sum().reshape(1)
-    return torch.segment_reduce(x[:mp.p][mp.region_order], "sum", lengths=mp.region_len)
+    return torch.cat([x[:mp.p], x.new_zeros(1)])[mp.region_rows].sum(dim=1)
 
 
 # ------------------------------------------------------------------ BayesPR

@@ -84,6 +84,9 @@ class ModelState:
     fixed: Tuple[FixedState, ...]
     markers: Tuple[MarkerState, ...]
     sweep_index: int  # host counter; names the draw sites of the next sweep
+    # the same number as a 0-d int64 tensor on the state's device: the sweep
+    # a KeyedStream keys its draws on, on the card inside a captured sweep
+    sweep_counter: torch.Tensor
 
 
 _INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32, "mt": torch.uint8,
@@ -142,13 +145,15 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
         markers.append(fields(MarkerState, f"markers.{i}.", {
             "mt": (T, V, B, q), "center": (T, V, B), "gram": (T, B, V, B),
             "gram_raw": (T, B, V, B)}))
+    sweep_index = int(get("sweep_index", torch.int64))
     state = ModelState(
         y=get("y"),
         ycorr=get("ycorr"),
         e=fields(ResidualState, "e."),
         fixed=tuple(fields(FixedState, f"fixed.{i}.") for i in range(len(plan.fixed))),
         markers=tuple(markers),
-        sweep_index=int(get("sweep_index", torch.int64)),
+        sweep_index=sweep_index,
+        sweep_counter=torch.tensor(sweep_index, dtype=torch.int64, device=plan.device),
     )
     extra = set(arrays) - used
     if extra:

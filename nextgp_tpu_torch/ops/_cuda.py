@@ -9,7 +9,9 @@ launches on the stream it is given and returns `cudaGetLastError()`;
 a failed build or a failed launch raises.
 
 `LAUNCHES` counts kernel launches per kernel; each wrapper adds one where
-it launches, so a run can show which kernels its path went through.
+it launches, so a run can show which kernels its path went through. A
+launch captured in a CUDA graph counts once, at capture: the graph's
+replays run on the card without the wrappers.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
-            "dense_scatter": 0, "fused_step": 0}
+            "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0}
 
 _lib = None
 
@@ -115,10 +117,13 @@ def lib() -> ctypes.CDLL:
         L.ngt_dense_gather.argtypes = [P, P, P, I, I, I, S]
         L.ngt_dense_scatter.argtypes = [P, P, P, P, I, I, I, S]
         L.ngt_fused_step.argtypes = [P] * 8 + [I] * 3 + [S]
+        L.ngt_keyed_rng.argtypes = [P, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong), I, I,
+                                    P, P, P, I, S]
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
-                   L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step):
+                   L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
+                   L.ngt_keyed_rng):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

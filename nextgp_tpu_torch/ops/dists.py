@@ -19,8 +19,9 @@ def sample_chi2(stream, site, df):
 def sample_scaled_inv_chi2(stream, site, df, scale, ss, n):
     """(df*scale + ss) / chi2(df + n), the conditional of every scalar
     variance in the reference (functions.jl:498-525)."""
-    return (df * scale + ss) / sample_chi2(stream, site, torch.as_tensor(df + n, dtype=ss.dtype,
-                                                                         device=ss.device))
+    # a fill on the device, not a copy from the host: a captured sweep runs it
+    return (df * scale + ss) / sample_chi2(stream, site, torch.full((), df + n, dtype=ss.dtype,
+                                                                    device=ss.device))
 
 
 def sample_beta_dist(stream, site, a, b):

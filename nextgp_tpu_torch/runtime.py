@@ -15,7 +15,7 @@ import torch
 from .api.spec import ModelSpec
 from .engine.plan import SweepPlan, assemble
 from .engine.rng import PhiloxStream
-from .engine.sweep import make_chain_runner, make_sweep
+from .engine.sweep import make_chain_runner, make_sweep, scan_chain
 
 
 @dataclass
@@ -53,10 +53,13 @@ def run_lmem(
     Kept iterations are `(n_burn + n_thin) : n_thin : n_chain`
     (samplers.jl:26), for any (n_burn, n_thin). Draws are returned in
     memory as stacked numpy arrays. `stream` overrides the default
-    PhiloxStream(seed) (engine/rng.py). vshards defaults to 1, the
-    reference-sequential order: the H100 value of V has not been measured.
-    `sweeps_per_sec` counts every sweep run, from the first to the device
-    finishing the last.
+    PhiloxStream(seed) (engine/rng.py), whose chain runs as eager sweeps. A
+    stream that can be captured (KeyedStream) runs burn-in and thinning
+    through engine/sweep.scan_chain: on the card as CUDA-graph replays, with
+    the kept draws on the card until one copy to the host at the end.
+    vshards defaults to 1, the reference-sequential order: the H100 value of
+    V has not been measured. `sweeps_per_sec` counts every sweep run, from
+    the first to the device finishing the last.
     """
     if out_folder is not None:
         raise NotImplementedError("out_folder: output files are not ported yet; "
@@ -68,22 +71,27 @@ def run_lmem(
     sweep = make_sweep(plan)
     runner = make_chain_runner(plan, n_thin)
     n_keep = (n_chain - n_burn) // n_thin
-    draws: Dict[str, list] = {}
+    draws: Dict[str, Any] = {}
 
     _sync(plan.device)
     t0 = time.perf_counter()
-    for _ in range(n_burn):
-        state = sweep(state, stream)
-    for _ in range(n_keep):
-        state, sample = runner(state, stream)
-        for nm, v in sample.items():
-            draws.setdefault(nm, []).append(v.cpu().numpy())
+    if getattr(stream, "capturable", False):
+        state, kept = scan_chain(plan, state, stream, n_burn, n_keep, n_thin)
+        draws = {nm: v.cpu().numpy() for nm, v in kept.items()}
+    else:
+        for _ in range(n_burn):
+            state = sweep(state, stream)
+        for _ in range(n_keep):
+            state, sample = runner(state, stream)
+            for nm, v in sample.items():
+                draws.setdefault(nm, []).append(v.cpu().numpy())
+        draws = {k: np.stack(v) for k, v in draws.items()}
     _sync(plan.device)
     dt = time.perf_counter() - t0
     ran = n_burn + n_keep * n_thin
     return LMEMResult(
         plan=plan,
         state=state,
-        draws={k: np.stack(v) for k, v in draws.items()},
+        draws=draws,
         sweeps_per_sec=ran / dt if dt > 0 else 0.0,
     )

@@ -16,7 +16,11 @@ rows that no longer fit shared memory, a chain that is all padding, the same
 bits from two launches, and short BayesRCpi, BayesRCplus and BayesLV chains;
 for the measurement ladder's kernels odd row counts, q = 16, one step (T = 1),
 grids of one and of more blocks than row groups, signed dosages, and each
-wrapper's refusals.
+wrapper's refusals; for the keyed draws (csrc/keyed_rng.cu) the plain
+version's numbers at the main path's sizes, a draw captured in a CUDA graph
+reading its sweep counter at replay, chains of all seven methods replayed
+by make_scan_sampler and make_chain_runner with the same bits as eager
+sweeps at V = 1 and 4, and the refusal of streams a graph cannot capture.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -628,3 +632,132 @@ def test_ladder_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="exceed a block's shared memory"):
         mk.dense_gather(torch.zeros(2, 64_000, dtype=torch.int8, device=dev),
                         torch.zeros(64_000, device=dev))
+
+
+# ------------------------------------------------------------ keyed draws and replayed chains
+
+GAMMA_SHAPES = (0.5, 1.0, 3.0, 5000.0, 25_000.0)
+
+
+def check_keyed_rng(dev, n_unit, n_gamma, sweep=7, tail=(4, 0, 4, 1)):
+    """keyed_rng against its plain version on the card: uniforms the same
+    bits, normals within 1e-6 of their scale, gammas within 1e-5 relative
+    where both accepted at the same attempt, the share of elements whose
+    accepting attempt differs at most 1e-4, two launches the same bits.
+    Returns the numbers that chip_smoke.py prints."""
+    from nextgp_tpu_torch.engine import rng as R
+
+    h0 = R._splitmix64(5)
+    counter = torch.tensor(sweep, dtype=torch.int64, device=dev)
+    alpha = torch.tensor(GAMMA_SHAPES, device=dev).repeat_interleave(n_gamma)
+    out = {}
+    for kind, n in ((R.UNIFORM, n_unit), (R.NORMAL, n_unit), (R.GAMMA, alpha.numel())):
+        a = alpha if kind == R.GAMMA else None
+        got, att = R.keyed_draw(kind, h0, counter, tail, n, torch.float32, a, iters=True)
+        again = R.keyed_draw(kind, h0, counter, tail, n, torch.float32, a)
+        ref, ref_att = R.keyed_draw_plain(kind, h0, counter, tail, n, torch.float32, a, iters=True)
+        assert torch.equal(got, again)
+        if kind == R.UNIFORM:
+            assert torch.equal(got, ref)
+            out["uniform"] = 0.0
+        elif kind == R.NORMAL:
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-6 * ref.abs().max().item()
+            out["normal"] = err
+        else:
+            same = att == ref_att
+            assert (att >= 0).all() and torch.isfinite(got).all()
+            rel = ((got - ref).abs() / ref.abs())[same].max().item()
+            share = 1.0 - same.float().mean().item()
+            assert rel <= 1e-5 and share <= 1e-4
+            out["gamma"], out["gamma_attempts_differ"] = rel, share
+    return out
+
+
+def test_keyed_rng_matches_plain(dev):
+    before = _cuda.LAUNCHES["keyed_rng"]
+    check_keyed_rng(dev, 49_152, 4096)
+    assert _cuda.LAUNCHES["keyed_rng"] - before == 6
+
+
+def test_keyed_rng_reads_its_counter_at_replay(dev):
+    """A draw captured in a CUDA graph reads the sweep counter when the
+    graph replays: after the counter moves, the replay gives the eager draw
+    at the new sweep."""
+    s = ngt.KeyedStream(3, dev, torch.float32)
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    site = ngt.Site(0, 4, 2, ((4, 1),), counter=counter)
+    s.normal(site, (1000,))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        s.normal(site, (1000,))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        drawn = s.normal(site, (1000,))
+    for sweep in (5, 6):
+        counter.fill_(sweep)
+        graph.replay()
+        assert torch.equal(drawn, s.normal(ngt.Site(sweep, 4, 2, ((4, 1),)), (1000,)))
+
+
+def _small_spec(method):
+    rng = np.random.default_rng(8)
+    n, p = N_SMALL, P_SMALL
+    g = rng.integers(0, 3, (n, p))
+    y = (g - g.mean(0)) @ rng.normal(0, 0.1, p) + rng.normal(0, 1, n)
+    rc = ([0.9, 0.05, 0.05], [0.0, 1e-3, 1e-2], 1.0, _annot())
+    prior = {"BayesR": lambda: ngt.BayesR([0.9, 0.05, 0.03, 0.02], [0.0, 1e-4, 1e-3, 1e-2], 1.0,
+                                          estimatePi=True),
+             "BayesB": lambda: ngt.BayesB(0.1, 0.05, estimatePi=True),
+             "BayesC": lambda: ngt.BayesC(0.1, 0.05, estimatePi=True),
+             "BayesPR": lambda: ngt.BayesPR(32, 0.05),
+             "BayesRCpi": lambda: ngt.BayesRCpi(*rc, estimatePi=True),
+             "BayesRCplus": lambda: ngt.BayesRCplus(*rc, estimatePi=True),
+             "BayesLV": lambda: ngt.BayesLV(0.01, rng.normal(0, 1, (p, 3)), 0.01,
+                                            estimateVarZeta=True)}[method]()
+    chr_ids = (np.arange(p) // 100) % 2 + 1
+    return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))],
+                         markers=[ngt.MarkerTerm("M", ngt.from_array(g, chr_ids=chr_ids), prior)],
+                         block_size=32)
+
+
+@pytest.mark.parametrize("V", [1, 4])
+@pytest.mark.parametrize("method", ["BayesR", "BayesB", "BayesC", "BayesPR", "BayesRCpi",
+                                    "BayesRCplus", "BayesLV"])
+def test_replayed_chain_equals_eager_chain(dev, method, V):
+    """make_scan_sampler's graph replays against eager sweeps of the same
+    KeyedStream from the same state: the same bits in every draw and in the
+    final ycorr, and the same sweep index on the host and on the card
+    (BayesPR with regions of 32 loci: its region sums inside the graph)."""
+    plan, st0 = ngt.assemble(_small_spec(method), device=dev, vshards=V)
+    stream = ngt.KeyedStream(21, dev, torch.float32)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    for name, d in draws.items():
+        assert d.is_cuda and torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+    assert st.sweep_index == eager.sweep_index == 6 and int(st.sweep_counter) == 6
+    # the runner's replayed form gives the same chain
+    run_thin, loop = ngt.make_chain_runner(plan, 2), st0
+    for k in kept:
+        loop, sample = run_thin(loop, stream)
+        assert all(torch.equal(sample[name], k[name]) for name in k)
+    assert torch.equal(loop.ycorr, eager.ycorr)
+
+
+@pytest.mark.parametrize("stream_cls", ["PhiloxStream", "HostStream"])
+def test_scan_sampler_refuses_streams_it_cannot_capture(dev, stream_cls):
+    """On the card only a KeyedStream can be captured: any other stream
+    raises, naming it, and nothing falls back to eager sweeps."""
+    from nextgp_tpu_torch.engine import rng as R
+
+    plan, st = ngt.assemble(_small_spec("BayesR"), device=dev, vshards=4)
+    stream = getattr(R, stream_cls)(1, dev, torch.float32)
+    with pytest.raises(TypeError, match=stream_cls):
+        ngt.make_scan_sampler(plan, 2, 2)(st, stream)

@@ -1,4 +1,5 @@
-"""Run the PyTorch/CUDA port's marker methods on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's marker methods and random effects on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
     python3 chip_smoke.py scans  # phases 1-2 and every scan of phase 3 alone
@@ -7,6 +8,7 @@
                                  # frontier and fused, and the 50k BayesR path alone
     python3 chip_smoke.py graph  # phases 1-2 and phase 7 alone
     python3 chip_smoke.py chains # phases 1-2 and phase 4's default chains, digested
+    python3 chip_smoke.py random # phases 1-2 and phase 8 alone
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -76,6 +78,25 @@ Phases (any failed check raises and the script exits non-zero):
      the same bits, drift, finite draws, BayesR's EBV limit at V=96; sweeps/s
      and steady ms/sweep of both arms, launches per sweep, device busy from a
      profiled window of replays and the idle share without the profiler
+  8. random effects: RE1 (the level scan, csrc/level_scan.cu) against its
+     plain version at q = 10,000 (the dense A^-1 of a simulated 10,000-animal,
+     5-generation pedigree, a second sweep's inputs; within 1e-4 of u's scale,
+     two runs bit-identical) and at q = 1, 1,025 and 3,001; "BayesR+A", the
+     main path (V=96) plus an animal effect over the panel's 10,000
+     individuals (planted polygenic values by the Henderson recursion added
+     to y), and "GBLUP", intercept + a genomic effect with G^-1 of the panel
+     (make_g_inverse, float64 on the card, stored in float32): each 100
+     sweeps of run_lmem with launch counts (K1, K3, K2, RE1), drift of
+     y - Xb - Zu - Mc beta, finite draws, varU > 0 (and for GBLUP the
+     correlation of the posterior-mean u with the planted genetic value over
+     the first 2,048 individuals, at least 0.8), then eager and replayed from
+     one KeyedStream with the same bits, steady ms/sweep, device busy and
+     idle share; "A-cg", an animal effect by perturbed CG on a simulated
+     100,000-animal pedigree with 60,000 records, eager in float64 (every
+     sweep's CG stopped by its tolerance; drift, finite draws, varU > 0;
+     iterations and ms per sweep), 5 sweeps in float32 (iterations printed:
+     float32 cannot reach the default tolerance of 1e-8) and the replayed
+     run_lmem's refusal of the CG term
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -95,11 +116,12 @@ from torch.autograd import DeviceType
 
 import nextgp_tpu_torch as ngt
 from nextgp_tpu_torch import diag, micro
+from nextgp_tpu_torch.data import pedigree
 from nextgp_tpu_torch.engine import rng as keyed
 from nextgp_tpu_torch.engine import sweep as engine_sweep
 from nextgp_tpu_torch.engine.rng import HostStream, PhiloxStream
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
-from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2
+from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2, random_scan
 from nextgp_tpu_torch.ops import micro as mk
 
 N, P, BLOCK, V_MAIN = 10_000, 49_152, 256, 96
@@ -184,7 +206,7 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, records_per_launch=1):
     """Mean time the card spends in the kernels that one call of fn launches,
     from the profiler's device durations. An event pair around one call
     (median_ms) also holds what the host needs to get the launch out, which
@@ -196,8 +218,10 @@ def device_ms(fn, reps):
     end is theirs; they are not counted. A window counts only where it is
     whole: each
     kernel built from csrc/ has as many records as the wrappers' launch
-    counters rose in it, and every other kernel (PyTorch's own, for outputs)
-    a multiple of reps. Else the window is taken again; after five the time
+    counters rose in it (times records_per_launch, where one counted call
+    launches each of its kernels that many times, as RE1 does once per
+    tile), and every other kernel (PyTorch's own, for outputs) a multiple of
+    reps. Else the window is taken again; after five the time
     is left out (None), which decides no check."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -217,7 +241,7 @@ def device_ms(fn, reps):
         records = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.count and "spin_kernel" not in e.key]
         ours = [e.count for e in records if _built_here(e.key)]
-        whole = (launched > 0 and ours and all(n == launched for n in ours)
+        whole = (launched > 0 and ours and all(n == launched * records_per_launch for n in ours)
                  and all(e.count % reps == 0 for e in records))
         if whole:
             return sum(e.self_device_time_total for e in records) / reps / 1e3
@@ -1364,6 +1388,334 @@ def graph_phase(spec_for, sig, wide_eager_ms=None):
     return out, counted
 
 
+# ------------------------------------------------------------------ phase 8
+
+N_CHAIN_RE, N_BURN_RE, N_THIN_RE = 100, 50, 5
+VAR_A = 1.0  # the planted polygenic variance, and the animal effects' prior variance
+GEN_SIZE_A, GENS = 2_000, 5  # the 10,000-animal pedigree over the panel's individuals
+CG_GEN_SIZE, CG_RECORDED_GENS, MAX_PROGENY = 20_000, 3, 50  # the 100,000-animal pedigree
+N_CG_SWEEPS, N_CG_F32 = 20, 5
+GBLUP_EBV_LIMIT = 0.8
+TOL_RE1 = 1e-4  # u relative to its scale: float32 sums in the kernel's order and the plain's
+
+
+def simulate_pedigree(n_gen, size, seed, max_progeny=MAX_PROGENY):
+    """A pedigree of n_gen discrete generations of `size` animals, listed
+    parents first: generation 0 unrelated founders; in each later one every
+    animal has a sire among the first half of the generation before (each
+    sire at most max_progeny offspring) and a dam among its second half.
+    Returns the ordered Pedigree and the planted polygenic values, drawn by
+    the Henderson recursion u_i = (u_sire + u_dam) / 2 + sqrt(d_i VAR_A) e_i
+    (d_i the Mendelian-sampling variance, with inbreeding): no Cholesky."""
+    rng = np.random.default_rng(seed)
+    n = n_gen * size
+    sire, dam = np.full(n, -1), np.full(n, -1)
+    for gen in range(1, n_gen):
+        prev = np.arange((gen - 1) * size, gen * size)
+        n_sires = -(-size // max_progeny)
+        sires = rng.choice(prev[: size // 2], n_sires, replace=False)
+        kids = np.arange(gen * size, (gen + 1) * size)
+        sire[kids] = np.repeat(sires, max_progeny)[rng.permutation(n_sires * max_progeny)[:size]]
+        dam[kids] = rng.choice(prev[size // 2:], size)
+    lbl = [str(i) for i in range(n)]
+    ped = ngt.build_pedigree(lbl, [None if s < 0 else lbl[s] for s in sire],
+                             [None if d < 0 else lbl[d] for d in dam])
+    check(ped.ids == lbl, "the simulated pedigree is listed parents first")
+    _, _, dsq = pedigree.a_inverse_factor(ped)
+    u = np.zeros(n)
+    for gen in range(n_gen):  # parents are in the generation before
+        i = np.arange(gen * size, (gen + 1) * size)
+        par = np.where(ped.sire[i] >= 0, u[ped.sire[i]], 0.0) + np.where(ped.dam[i] >= 0, u[ped.dam[i]], 0.0)
+        u[i] = 0.5 * par + rng.normal(size=size) * np.sqrt(VAR_A) / dsq[i]
+    return ped, u
+
+
+def residual_drift(plan, st):
+    """max |ycorr - (y - Xb - Zu - Mc beta)| / max |y|."""
+    fit = sum(fs.x @ fs.b for fs in st.fixed)
+    for rs, rp in zip(st.random, plan.random):
+        if rp.sampler == "cg":
+            fit = fit + torch.where(rs.z_idx >= 0, rs.u[rs.z_idx.clamp(min=0).long()], 0.0)
+        else:
+            fit = fit + rs.z @ rs.u
+    if plan.markers:
+        fit = fit + ngt.genomic_values_state(plan, st)
+    return ((st.ycorr - (st.y - fit)).abs().max() / st.y.abs().max()).item()
+
+
+def corr(a, b):
+    a, b = a.double() - a.double().mean(), b.double() - b.double().mean()
+    return (torch.dot(a, b) / (a.norm() * b.norm())).item()
+
+
+def work_re1(q):
+    """(bytes, operations) of one level scan: the structure's lower triangle
+    (all the function needs, by symmetry) and yi, zpz, z, the old u read, the
+    new u written; a multiply-add per element of the triangle."""
+    return 4 * q * (q + 1) // 2 + 5 * 4 * q, q * (q + 1)
+
+
+def re1_phase(plan, st):
+    """8.1: RE1 against its plain version on the card at the BayesR+A path's
+    shapes (q = 10,000, the dense A^-1 of a 5-generation pedigree), with a
+    second sweep's inputs (u from a first level scan), then at q = 1,
+    q = 1,025 and q = 3,001 on small random structures."""
+    rs = st.random[0]
+    q = rs.u.shape[0]
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    var_e = st.ycorr.var()
+    ive, ivu = 1.0 / var_e, 1.0 / rs.var_u
+    yi = (rs.zp @ st.ycorr) * ive
+    z = torch.randn(q, generator=gen, device=DEV)
+    u1 = random_scan.level_scan(rs.ivstr, yi, rs.zpz, z, rs.u, ive, ivu)
+    z = torch.randn(q, generator=gen, device=DEV)
+    args = (rs.ivstr, yi, rs.zpz, z, u1, ive, ivu)
+
+    def kern():
+        return random_scan.level_scan_kernel(*args)
+
+    def plain():
+        return random_scan.level_scan_plain(*args)
+
+    out, ref = kern(), plain()
+    check(torch.equal(out, kern()), "level_scan: two runs differ")
+    check(torch.isfinite(out).all().item(), "level_scan: not finite")
+    e, sc = rel_err(out, ref)
+    tiles = -(-q // random_scan.TILE)
+    ms_k, ms_p = median_ms(kern, 20), median_ms(plain, 3)
+    dev_ms = device_ms(kern, 10, records_per_launch=tiles)
+    by_kernel(kern, 10, "8 random", "level_scan")
+    report("level_scan", e, sc, TOL_RE1, ms_k, ms_p, work_re1(q),
+           f" (q = {q:,}, the dense A^-1 of a {GENS}-generation pedigree, a second sweep's inputs, "
+           f"{2 * tiles} launches a call; not a TPU kernel: the counterpart of the "
+           "level lax.scan of sample_random_uni)", phase="8 random", dev_ms=dev_ms)
+    for qs in (1, 1025, 3001):
+        g = torch.Generator(device=DEV).manual_seed(qs)
+        m = torch.randn(qs, qs, generator=g, device=DEV) / qs ** 0.5
+        yi_s, z_s, u_s = (torch.randn(qs, generator=g, device=DEV) for _ in range(3))
+        small = ((m @ m.T + torch.eye(qs, device=DEV)).contiguous(), yi_s,
+                 torch.rand(qs, generator=g, device=DEV) * 3, z_s, u_s, ive, ivu)
+        o, r = random_scan.level_scan_kernel(*small), random_scan.level_scan_plain(*small)
+        same = torch.equal(o, random_scan.level_scan_kernel(*small))
+        e, sc = rel_err(o, r)
+        print(f"[8 random] level_scan at q = {qs:,}: max_abs_err {e:.3e} (scale {sc:.3e}, tol "
+              f"{TOL_RE1:g} x scale); two launches {'bit-identical' if same else 'DIFFER'}")
+        check(e <= TOL_RE1 * sc and same,
+              f"level_scan at q = {qs} disagrees with its plain version or with itself")
+
+
+def by_kernel(fn, reps, ph, name):
+    """Device ms per call of fn by kernel name, from one profiled window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count),
+                    key=lambda e: -e.self_device_time_total):
+        print(f"[{ph}] {name} on the card, per call: {e.self_device_time_total / reps / 1e3:.4f} ms in "
+              f"{e.count / reps:g} launches of {e.key[:80]}")
+
+
+def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=None):
+    """One path with a scan random effect: run_lmem as it runs by default
+    (PhiloxStream, eager; launch counts from 0), then a loop of make_sweep
+    and run_lmem's replays from one KeyedStream (the same bits), then the
+    steady ms/sweep of both arms, the replays' device busy and the idle
+    share. Checks drift (y - Xb - Zu - Mc beta), finite draws, varU > 0 in
+    every kept draw and, where given, the correlation of the posterior-mean
+    u with the planted values over the first 2,048 individuals (and of the
+    marker EBV with marker_truth, printed)."""
+    ph = f"8 {tag}"
+    _cuda.reset_launches()
+    res = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, seed=7, vshards=V)
+    launches = dict(_cuda.LAUNCHES)
+    plan, st = res.plan, res.state
+    name = plan.random[0].name
+    expect = {k: 0 for k in launches}
+    expect["level_scan"] = N_CHAIN_RE
+    if plan.markers:
+        T = plan.markers[0].n_blocks // plan.markers[0].vshards
+        expect.update(pack2_matvec=N_CHAIN_RE * T, pack2_rank_update=N_CHAIN_RE * T,
+                      r_block_scan_v=N_CHAIN_RE * T)
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
+    check(not bad, f"{tag}: kept draws of {bad} are not finite")
+    var_u = res.draws[f"varU{name}"]
+    check((var_u > 0).all(), f"{tag}: varU not > 0")
+    drift = residual_drift(plan, st)
+    u_mean = torch.from_numpy(res.posterior_mean(f"u{name}")).to(DEV)
+    c = corr(u_mean[:2048], truth[:2048])
+    print(f"[{ph}] run_lmem (PhiloxStream, eager) {N_CHAIN_RE} sweeps: {res.sweeps_per_sec:.2f} sweeps/s "
+          f"(host clock); launches {({k: v for k, v in launches.items() if v})}; drift {drift:.3e} of "
+          f"max|y| (limit 1e-2); varU mean {var_u.mean():.4f}; corr(posterior-mean u, {truth_name}) "
+          f"over 2,048 individuals {c:.4f} ({'printed only' if ebv_limit is None else f'limit {ebv_limit}'})"
+          f"; varE {st.e.var_e.item():.4f}")
+    check(drift < 1e-2, f"{tag}: ycorr drifted from y - Xb - Zu - Mc beta")
+    check(ebv_limit is None or c >= ebv_limit, f"{tag}: EBV correlation {c:.4f} below {ebv_limit}")
+    if plan.markers:
+        gv = ngt.genomic_values_state(plan, st, beta=res.posterior_mean("betaM1"))
+        print(f"[{ph}] marker EBV corr with the planted marker signal over 2,048 individuals "
+              f"{corr(gv[:2048], marker_truth[:2048]):.4f} (printed only)")
+    del res, st
+
+    plan, st0 = ngt.assemble(spec, vshards=V)
+    stream = keyed.KeyedStream(7, DEV, plan.dtype)
+    sweep = ngt.make_sweep(plan)
+    n_keep = (N_CHAIN_RE - N_BURN_RE) // N_THIN_RE
+    _cuda.reset_launches()
+    st = st0
+    kept = []
+    t0 = time.perf_counter()
+    for i in range(1, N_CHAIN_RE + 1):
+        st = sweep(st, stream)
+        if i > N_BURN_RE and (i - N_BURN_RE) % N_THIN_RE == 0:
+            kept.append(ngt.collect_sample(st, plan))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    keyed_launches = dict(_cuda.LAUNCHES)
+    check(keyed_launches["level_scan"] == N_CHAIN_RE, f"{tag}: keyed eager launches {keyed_launches}")
+    eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
+    check(len(kept) == n_keep, f"{tag}: kept {len(kept)}")
+    rres = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, vshards=V,
+                        stream=stream)
+    differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), rres.draws[k])]
+    check(set(rres.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
+    check(torch.equal(rres.state.ycorr, st.ycorr), f"{tag}: replayed ycorr differs from eager")
+    check(residual_drift(rres.plan, rres.state) < 1e-2, f"{tag}: replayed ycorr drifted")
+    rep = engine_sweep.ReplayedSweep(plan, rres.state, stream)
+    state = [rres.state]
+
+    def eager_step():
+        state[0] = sweep(state[0], stream)
+
+    ms_eager = steady_ms(eager_step, 20)
+    ms_replay = steady_ms(lambda: rep.run(1), 20)
+    busy, per_sweep, missed, by_name = replay_window(rep, 10)
+    idle = 1.0 - busy / ms_replay
+    print(f"[{ph}] KeyedStream: kept draws and final ycorr bit-identical eager and replayed; eager "
+          f"{N_CHAIN_RE / eager_s:.2f} sweeps/s, replayed run_lmem {rres.sweeps_per_sec:.2f} sweeps/s "
+          f"(host clock); steady, 20 sweeps between CUDA events: eager {ms_eager:.4f} ms/sweep, "
+          f"replayed {ms_replay:.4f} ms/sweep; 10 replays under the profiler: device busy {busy:.4f} "
+          f"ms/sweep, {per_sweep} kernels and copies per sweep ({missed} records missed); idle share "
+          f"without the profiler {idle:.4f}")
+    for key, cnt in sorted(by_name.items(), key=lambda r: -r[1])[:5]:
+        print(f"  replayed x{cnt:<4} {key[:90]}")
+    del rep, state, rres
+    return launches, keyed_launches, dict(eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay,
+                                          replay_busy_ms_per_sweep=busy, idle_share=idle, drift=drift,
+                                          corr_u=c, kernels_per_sweep=per_sweep)
+
+
+def cg_phase():
+    """8.4 A-cg: intercept + an animal effect by perturbed CG over a
+    100,000-animal pedigree (5 generations of 20,000, at most 50 offspring
+    per sire), records on the last 3 generations (n = 60,000), eagerly in
+    float64: every sweep's CG stops by its tolerance, drift, finite draws,
+    varU > 0; iterations per sweep and ms/sweep. Then 5 sweeps in float32
+    (whose epsilon is above the default tolerance of 1e-8: the iterations
+    are printed, as a finding), and the replayed runner's refusal."""
+    ph = "8 A-cg"
+    t0 = time.perf_counter()
+    ped, u_true = simulate_pedigree(GENS, CG_GEN_SIZE, seed=12)
+    idx, val = pedigree.a_inverse_padded(ped)
+    sire, dam, dsq = pedigree.a_inverse_factor(ped)
+    first = (GENS - CG_RECORDED_GENS) * CG_GEN_SIZE
+    animal = np.arange(first, ped.n)
+    rng = np.random.default_rng(13)
+    y = 1.0 + u_true[animal] + rng.normal(size=animal.size)
+    spec = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(animal.size))], random=[
+        ngt.RandomTerm("A", None, prior=ngt.Random("A", VAR_A, sampler="cg"), z_idx=animal,
+                       n_levels=ped.n, sparse_struct=dict(iv_idx=idx, iv_val=val, sire=sire, dam=dam,
+                                                          dinv_sqrt=dsq))])
+    print(f"[{ph}] pedigree of {ped.n:,} animals ({GENS} generations of {CG_GEN_SIZE:,}, max F "
+          f"{ped.inbreeding.max():.4f}), padded A^-1 width {idx.shape[1]}, {animal.size:,} records; "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for dtype, n_sweeps in ((torch.float64, N_CG_SWEEPS), (torch.float32, N_CG_F32)):
+        plan, st = ngt.assemble(spec, dtype=dtype)
+        rp = plan.random[0]
+        sweep, stream = ngt.make_sweep(plan), PhiloxStream(7, DEV, dtype)
+        iters, times = [], []
+        for _ in range(n_sweeps):
+            t1 = time.perf_counter()
+            st = sweep(st, stream)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            iters.append(sweep.cg_iterations[0])
+            check(torch.isfinite(st.random[0].u).all().item() and st.random[0].var_u.item() > 0,
+                  f"A-cg {dtype}: u not finite or varU not > 0")
+        drift = residual_drift(plan, st)
+        c = corr(st.random[0].u, torch.from_numpy(u_true).to(DEV))
+        ms = statistics.median(times)
+        print(f"[{ph}] {dtype}: {n_sweeps} sweeps, CG iterations per sweep {iters} (cap "
+              f"{rp.cg_iters}, tol {rp.cg_tol:g}); median {ms:.3f} ms/sweep ({ms / statistics.median(iters):.4f} "
+              f"ms per iteration); drift {drift:.3e} of max|y|; varU {st.random[0].var_u.item():.4f}; "
+              f"corr(last u, planted) over all animals {c:.4f}")
+        check(drift < 1e-2, f"A-cg {dtype}: ycorr drifted from y - Xb - Zu")
+        if dtype == torch.float64:
+            check(max(iters) < rp.cg_iters, f"A-cg: a sweep's CG ran to its cap ({iters})")
+        out[str(dtype)] = dict(iterations=iters, median_ms_per_sweep=ms, drift=drift, corr_u=c)
+    try:
+        ngt.run_lmem(spec, 2, 0, 1, stream=keyed.KeyedStream(1, DEV, torch.float32))
+    except NotImplementedError as err:
+        print(f"[{ph}] run_lmem with a KeyedStream refuses the CG term: {err}")
+    else:
+        check(False, "A-cg: the replayed run_lmem did not refuse the CG term")
+    return out
+
+
+def random_phase(spec_for, sig):
+    """8: RE1 against its plain version (8.1), BayesR+A (8.2) and GBLUP (8.3)
+    at 10,000 x 49,152, A-cg on 100,000 animals (8.4). Returns the numbers
+    and the launch counts by run."""
+    spec = spec_for("BayesR")
+    y, md = spec.y, spec.markers[0].data
+    t0 = time.perf_counter()
+    ped, u_true = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
+    check(ped.n == N, "one animal per individual of the panel")
+    ainv = pedigree.a_inverse(ped)
+    print(f"[8 random] pedigree of {ped.n:,} animals ({GENS} generations of {GEN_SIZE_A:,}, max F "
+          f"{ped.inbreeding.max():.4f}), dense A^-1 in {time.perf_counter() - t0:.2f} s")
+    u_dev = torch.from_numpy(u_true).to(DEV)
+    eye = np.eye(N)
+    spec_a = ngt.ModelSpec(y=y + u_true, fixed=spec.fixed, markers=spec.markers, block_size=BLOCK,
+                           random=[ngt.RandomTerm("A", eye, prior=ngt.Random("A", VAR_A), ivstr=ainv)])
+    plan, st = ngt.assemble(spec_a, vshards=V_MAIN)
+    re1_phase(plan, st)
+    del plan, st
+    counted, out = {}, {}
+    counted["BayesR+A"], counted["BayesR+A keyed"], out["BayesR+A"] = random_path(
+        "BayesR+A", spec_a, u_dev, V_MAIN, "planted polygenic u", marker_truth=sig)
+    del spec_a
+    t0 = time.perf_counter()
+    dos = pack2.unpack2(torch.as_tensor(md.genotypes, device=DEV), torch.float64)[:, :N].T
+    ginv = ngt.make_g_inverse(dos)
+    del dos
+    torch.cuda.synchronize()
+    print(f"[8 GBLUP] G^-1 of the {N:,} x {P:,} panel (make_g_inverse, float64 on the card) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    spec_g = ngt.ModelSpec(y=y, fixed=spec.fixed, random=[
+        ngt.RandomTerm("G", eye, prior=ngt.Random("G", VAR_A), ivstr=ginv.float())])
+    del ginv
+    counted["GBLUP"], counted["GBLUP keyed"], out["GBLUP"] = random_path(
+        "GBLUP", spec_g, sig, 1, "the planted genetic value", GBLUP_EBV_LIMIT)
+    del spec_g
+    out["A-cg"] = cg_phase()
+    return out, counted
+
+
+def random_only(spec_for, sig, card):
+    """`python3 chip_smoke.py random`: phase 8 alone, the quick form for
+    work on the random effects. One JSON line of its numbers, and no result
+    line."""
+    out, counted = random_phase(spec_for, sig)
+    print(json.dumps({"card": card, "random": out, "launches": counted,
+                      "level_scan": TIMINGS.get("level_scan")}))
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
@@ -1403,9 +1755,14 @@ SOURCES = {
     "keyed_rng": (CU + "keyed_rng.cu", "nextgp_tpu/engine/rng.py:31", "keyed_rng",
                   tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
                                                                   f"BayesR 50k keyed V={V_MAIN}")),
+    "level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
+                   "level_scan", ("BayesR+A", "GBLUP")),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
-                      "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of phase 7"}
+                      "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of phase 7",
+         "level_scan": "not a TPU kernel: the counterpart of the lax.scan over levels of "
+                       "sample_random_uni (nextgp_tpu/engine/samplers/random_effects.py:29-37); "
+                       "launches from phase 8's run_lmem (PhiloxStream, eager) runs"}
 # the scripts' other kernels compute what these compute; the ladder launches these at their shapes
 ALSO_REPLACES = {
     "pack2_matvec": ["scripts/micro_frontier.py:111"],
@@ -1495,7 +1852,9 @@ def main(argv=()):
         return graph_only(spec_for, sig, card)
     if list(argv) == ["chains"]:
         return chains_only(spec_for, card)
-    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph or chains")
+    if list(argv) == ["random"]:
+        return random_only(spec_for, sig, card)
+    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains or random")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -1517,6 +1876,9 @@ def main(argv=()):
     graph, by_run = graph_phase(spec_for, sig, wide["median_ms_per_sweep"])
     counted.update(by_run)
     print(f"[7 graph] {json.dumps(graph)}")
+    random_out, by_run = random_phase(spec_for, sig)
+    counted.update(by_run)
+    print(f"[8 random] {json.dumps(random_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

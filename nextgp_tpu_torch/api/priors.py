@@ -1,8 +1,9 @@
 """Prior constructors the port supports, as plain dataclasses.
 
 Copies of `nextgp_tpu.api.priors.BayesPR`, `BayesB`, `BayesC`, `BayesR`,
-`BayesRCpi`, `BayesRCplus`, `BayesLV`, `RandomEffect`, `SummaryStatistics`
-and `normalize_annot` with the same field names and defaults
+`BayesRCpi`, `BayesRCplus`, `BayesLV`, `RandomEffect` (and its alias
+`Random`), `SummaryStatistics` and `normalize_annot` with the same field
+names and defaults
 (tests/test_torch_guards.py holds them to the originals). They are copied
 rather than imported because importing any `nextgp_tpu` submodule runs
 `nextgp_tpu/__init__.py`, which imports jax.
@@ -123,9 +124,20 @@ class BayesLV:
 @dataclasses.dataclass(frozen=True)
 class RandomEffect:
     """Prior for a non-marker random effect or the residual
-    (NextGP.jl runTime.jl:135-146). The port uses it for the residual
-    prior "e" only: str_="I", or a per-record weight vector (the weighted
-    "D" residual, var(e_i) = varE * w_i).
+    (NextGP.jl runTime.jl:135-146).
+
+    str_: for a random term "I" (identity), "A" (pedigree numerator
+          inverse) or "G" (genomic): a label, the inverse structure itself
+          is the term's `ivstr` (`RandomTerm`); for the residual "I" or a
+          per-record weight vector (the weighted "D" residual,
+          var(e_i) = varE * w_i).
+    v: prior variance (a scalar; a matrix belongs to correlated groups,
+       which the port does not carry yet).
+    type: vanRaden method when str_ == "G" (1 or 2).
+    sampler: "scan" = the reference's per-level sequential Gibbs
+             (functions.jl:57-72); "cg" = the exact joint draw by perturbed
+             conjugate gradient, sparse and scan-free, for large level
+             counts ("I"/"A" structures only).
     """
 
     str_: Any
@@ -133,6 +145,11 @@ class RandomEffect:
     type: int = 1
     name: str = "Random"
     sampler: str = "scan"
+
+
+# NextGP exports this constructor as `Random` (src/NextGP.jl:10), as the JAX
+# package does.
+Random = RandomEffect
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,7 +9,9 @@
 // turns the pre's and the locus's coefficient row into u_v[j] and the
 // locus's outputs. The Grams are locus-major (B, V, B): row j of chain v
 // starts at (j * V + v) * B. The step-indexed Gram ((T, B, V, B), t) is a
-// pointer offset made by the caller.
+// pointer offset made by the caller. `launch_strided` takes another row
+// stride: the level scan (level_scan.cu) runs one chain on a diagonal tile
+// of a (q, q) matrix, whose rows are q apart.
 //
 // Bound: latency. Each locus depends on the one before; the bytes are the
 // Grams' lower triangles and one coefficient row per locus, read once. What a
@@ -143,7 +145,7 @@ __device__ __forceinline__ void run_group(Rule& rule, const float* tiles, int sl
 template <class Rule, int MAXT>
 __global__ void __launch_bounds__(MAXT, 1)
     scan_v_kernel(const float* __restrict__ g0, const float* __restrict__ g1,
-                  const typename Rule::Params prm, int V, int B) {
+                  const typename Rule::Params prm, int V, int B, size_t jstride) {
   extern __shared__ __align__(16) float sm[];
   constexpr int G = Rule::kGrams;
   const int v = blockIdx.x;
@@ -154,7 +156,6 @@ __global__ void __launch_bounds__(MAXT, 1)
   float* us = sm;                   // blockDim.x: the chain's u_v
   float* tiles = us + blockDim.x;   // two slots of G diagonal tiles
   float* rsm = tiles + 2 * G * kTile;  // the rule's
-  const size_t jstride = (size_t)V * B;
   const float* gv[G];
   gv[0] = g0 + (size_t)v * B;
   if constexpr (G == 2) gv[1] = g1 + (size_t)v * B;
@@ -172,7 +173,7 @@ __global__ void __launch_bounds__(MAXT, 1)
   __syncwarp();
 
   // rows are 16-byte aligned
-  bool wide = (B & 3) == 0;
+  bool wide = (B & 3) == 0 && (jstride & 3) == 0;
 #pragma unroll
   for (int g = 0; g < G; ++g) wide = wide && (reinterpret_cast<uintptr_t>(gv[g]) & 15) == 0;
   for (int w = 0; w < nwarps; ++w) {
@@ -222,29 +223,36 @@ __global__ void __launch_bounds__(MAXT, 1)
 
 template <class Rule, int MAXT>
 int launch_as(const float* g0, const float* g1, const typename Rule::Params& prm, int V, int B,
-              int threads, size_t smem, cudaStream_t stream) {
+              size_t jstride, int threads, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         scan_v_kernel<Rule, MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  scan_v_kernel<Rule, MAXT><<<(unsigned)V, threads, smem, stream>>>(g0, g1, prm, V, B);
+  scan_v_kernel<Rule, MAXT><<<(unsigned)V, threads, smem, stream>>>(g0, g1, prm, V, B, jstride);
   return (int)cudaGetLastError();
 }
 
 // Launch V blocks of the scan with the rule's `rule_words` of shared memory
 // after the skeleton's (the ops/gibbs_kernels.py *_smem_bytes functions state
-// the same sums). 1 <= B <= 1024.
+// the same sums), Gram rows `jstride` floats apart. 1 <= B <= 1024.
 template <class Rule>
-int launch(const void* g0, const void* g1, const typename Rule::Params& prm, long long V,
-           long long B, size_t rule_words, void* stream) {
+int launch_strided(const void* g0, const void* g1, const typename Rule::Params& prm, long long V,
+                   long long B, long long jstride, size_t rule_words, void* stream) {
   const int threads = (int)((B + 31) / 32) * 32;
   const size_t smem = sizeof(float) * (skeleton_words(threads, Rule::kGrams) + rule_words);
   return threads <= 256
-             ? launch_as<Rule, 256>((const float*)g0, (const float*)g1, prm, (int)V, (int)B, threads,
-                                    smem, (cudaStream_t)stream)
-             : launch_as<Rule, 1024>((const float*)g0, (const float*)g1, prm, (int)V, (int)B, threads,
-                                     smem, (cudaStream_t)stream);
+             ? launch_as<Rule, 256>((const float*)g0, (const float*)g1, prm, (int)V, (int)B,
+                                    (size_t)jstride, threads, smem, (cudaStream_t)stream)
+             : launch_as<Rule, 1024>((const float*)g0, (const float*)g1, prm, (int)V, (int)B,
+                                     (size_t)jstride, threads, smem, (cudaStream_t)stream);
+}
+
+// The Grams of the V-batched scans: locus-major (B, V, B), rows V * B apart.
+template <class Rule>
+int launch(const void* g0, const void* g1, const typename Rule::Params& prm, long long V,
+           long long B, size_t rule_words, void* stream) {
+  return launch_strided<Rule>(g0, g1, prm, V, B, V * B, rule_words, stream);
 }
 
 // Maximum over the warp by one integer `redux`: floats map to integers of the

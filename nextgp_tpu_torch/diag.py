@@ -73,12 +73,26 @@ class RooflineReport:
         )
 
 
+def _random_bytes(rp, n: int, dtype) -> float:
+    """Bytes one random term's stage reads per sweep. The per-level scan
+    reads Z twice (the old u added back, the new u taken out), Z' once and
+    the (q, q) structure twice (the level scan, RE1, reads all of it; the
+    quadratic form u'Ku for the variance). A CG term counts 0 here: its
+    bytes are those of one sparse matvec per iteration, and its iterations
+    depend on the data (`make_sweep`'s `cg_iterations` gives them)."""
+    if rp.sampler == "cg":
+        return 0.0
+    return (torch.finfo(dtype).bits // 8) * (3.0 * n * rp.q + 2.0 * rp.q * rp.q)
+
+
 def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> RooflineReport:
     """Analytic per-sweep traffic/flops of the blocked marker sweep.
 
     Per marker set: mt is read twice per sweep (r0 matvec + correction
     rank-B update), the Gram blocks once, plus the in-block scan (p x B
-    MACs) — the formula of `nextgp_tpu.diag.roofline`, unchanged.
+    MACs) — the formula of `nextgp_tpu.diag.roofline`, unchanged. Per
+    random term (which that formula does not count): the bytes its stage
+    reads (`_random_bytes`).
     """
     if device not in _DEVICE_PEAKS:
         raise ValueError(
@@ -94,7 +108,8 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> Roofli
         bytes_total += p_local * mp.block * 4  # Gram blocks (f32)
         flops += 2 * 2 * p_local * n  # matvec + rank-B update MACs
         flops += 2 * p_local * mp.block  # in-block Gram-row dots
-    bytes_total += 20 * 4 * n  # ycorr/fixed/random traffic (minor)
+    bytes_total += 20 * 4 * n  # ycorr/fixed traffic (minor)
+    bytes_total += sum(_random_bytes(rp, n, plan.dtype) for rp in plan.random)
     t_bw = bytes_total / (hbm * 1e9)
     t_fl = flops / (f32_tflops * 1e12)
     bound = "bandwidth" if t_bw >= t_fl else "compute"

@@ -2,7 +2,10 @@
 
 Counterpart of `nextgp_tpu/engine/plan.py:assemble` for the terms the port
 carries: the residual ("I", or weighted "D" from a weight vector),
-fixed-effect blocks, marker sets of all seven methods (BayesPR, BayesB,
+fixed-effect blocks, uncorrelated random effects (a dense incidence and
+inverse structure for the per-level scan; a level index, padded sparse
+A^-1 rows and the Henderson factor for the CG sampler), marker sets of all
+seven methods (BayesPR, BayesB,
 BayesC, BayesR, BayesRCpi, BayesRCplus, BayesLV with a covariate matrix)
 stored 2-bit planar-packed in the (T, V, B, q) layout of engine/state.py,
 and summary-statistic offsets on single fixed columns and marker sets.
@@ -11,8 +14,10 @@ scale v*(df-2)/df with the 0.0005 zero-variance guard; marker df 3 + 1; a
 marker set without a prior is BayesPR(9999, 0.05); multi-column fixed
 blocks get the ridge jitter I * min|diag| / 10000. A weighted residual
 (d_inv = 1/weights) weights X'X, the Gram blocks and their diagonal mpm,
-and keeps the unweighted Gram beside the weighted one. Any other term
-raises NotImplementedError naming it.
+and keeps the unweighted Gram beside the weighted one, and weights Z'
+and diag(Z'Z) of a random term. A missing random prior is Random("I", 100)
+(mme.jl:40-44), with df 3 + 1. Any other term raises NotImplementedError
+naming it.
 """
 from __future__ import annotations
 
@@ -24,11 +29,13 @@ import numpy as np
 import torch
 
 from ..api import priors as P
-from ..api.spec import MarkerTerm, ModelSpec
+from ..api.spec import MarkerTerm, ModelSpec, RandomTerm
 from ..data.regions import build_regions
 from ..ops import pack2
-from ..utils import cdiv, default_device, default_dtype
-from .state import FixedState, MarkerState, ModelState, ResidualState
+from ..utils import cdiv, default_device, default_dtype, full_f32
+from .state import (
+    FixedState, MarkerState, ModelState, RandomState, ResidualState, SparseRandomState,
+)
 
 METHOD_PR = "BayesPR"
 METHOD_B = "BayesB"
@@ -44,6 +51,25 @@ class FixedPlan:
     name: Union[str, Tuple[str, ...]]
     k: int
     single: bool  # single-column path (functions.jl:41-47)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomPlan:
+    name: Union[str, Tuple[str, ...]]
+    q: int
+    df: float
+    correlated: bool
+    n_t: int
+    sampler: str = "scan"  # "scan" (the reference's per-level Gibbs) | "cg"
+    cg_tol: float = 1e-8
+    cg_iters: int = 1000
+    # the CG sampler's segment sums without float atomics or a host sync
+    # (static tables, padded with the index of a zero appended to the summed
+    # vector): the records of each level (q, most records of a level), and
+    # the children of each individual as sire and as dam (q, most children)
+    z_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    sire_kids: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    dam_kids: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +106,7 @@ class SweepPlan:
     e_df: float
     weighted: bool
     fixed: Tuple[FixedPlan, ...]
+    random: Tuple[RandomPlan, ...]
     markers: Tuple[MarkerPlan, ...]
     dtype: torch.dtype
     device: torch.device
@@ -129,6 +156,119 @@ def _build_fixed(term_mats, name, d_inv, ss, dtype, device):
 def _df_for(v):
     """3 + dim(v) (mme.jl:264-272); a matrix v raised before this."""
     return 3.0 + 1.0
+
+
+def _segments(idx, n_seg, pad, device):
+    """(n_seg, longest segment) int64: row s holds the positions k with
+    idx[k] == s in ascending order, padded with `pad` (the index of a zero
+    appended to the summed vector); negative idx belong to no segment."""
+    idx = np.asarray(idx, np.int64)
+    pos = np.flatnonzero(idx >= 0)
+    seg = idx[pos]
+    sizes = np.bincount(seg, minlength=n_seg)
+    rows = np.full((n_seg, max(int(sizes.max()) if sizes.size else 0, 1)), pad, np.int64)
+    order = np.argsort(seg, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    col = np.arange(order.size) - np.repeat(starts, sizes)
+    rows[seg[order], col] = pos[order]
+    return torch.as_tensor(rows, device=device)
+
+
+def _as_device(a, dtype, device):
+    """An array or a tensor (e.g. make_g_inverse's, already on the card) as
+    a `dtype` tensor on `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+
+
+def _build_random_sparse(term: RandomTerm, prior, dtype, device):
+    """A random effect for the CG sampler (prior.sampler == 'cg'): a level
+    index per record, the padded-sparse inverse structure and the Henderson
+    factor; no dense (n, q) or (q, q) array. Identity structure unless
+    term.sparse_struct gives one (data/pedigree.py: a_inverse_padded,
+    a_inverse_factor)."""
+    if term.z_idx is not None:
+        z_idx = np.asarray(term.z_idx, np.int64)
+        q = int(term.n_levels if term.n_levels is not None else z_idx.max() + 1)
+    else:  # the level index of a one-hot incidence
+        z = np.asarray(term.z, np.float64)
+        q = z.shape[1]
+        hot = z != 0.0
+        if not (hot.sum(axis=1) <= 1).all() or not ((z == 0) | (z == 1)).all():
+            raise ValueError(
+                f"random term {term.name}: sampler='cg' needs a 0/1 incidence "
+                "(at most one level per row) or an explicit z_idx"
+            )
+        z_idx = np.where(hot.any(axis=1), hot.argmax(axis=1), -1)
+
+    ss = term.sparse_struct
+    if ss is None:  # identity structure
+        ss = {
+            "iv_idx": np.arange(q, dtype=np.int32)[:, None],
+            "iv_val": np.ones((q, 1)),
+            "sire": np.full(q, -1, np.int32),
+            "dam": np.full(q, -1, np.int32),
+            "dinv_sqrt": np.ones(q),
+        }
+    df = _df_for(prior.v)
+
+    def dev(a, int_=False):
+        if int_:
+            return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+
+    st = SparseRandomState(
+        z_idx=dev(z_idx, True),
+        iv_idx=dev(ss["iv_idx"], True),
+        iv_val=dev(ss["iv_val"]),
+        fac_sire=dev(ss["sire"], True),
+        fac_dam=dev(ss["dam"], True),
+        fac_dsqrt=dev(ss["dinv_sqrt"]),
+        u=torch.zeros(q, dtype=dtype, device=device),
+        var_u=torch.tensor(float(prior.v), dtype=dtype, device=device),
+        scale=torch.tensor(_scale_for(prior.v, df), dtype=dtype, device=device),
+    )
+    plan = RandomPlan(term.name, q, float(df), False, 1, sampler="cg",
+                      z_rows=_segments(z_idx, q, z_idx.size, device),
+                      sire_kids=_segments(ss["sire"], q, q, device),
+                      dam_kids=_segments(ss["dam"], q, q, device))
+    return st, plan
+
+
+def _build_random(term: RandomTerm, d_inv, dtype, device):
+    """One random term (mme.jl:170-204): a correlated group (tuple name)
+    raises; sampler 'cg' takes the sparse form, else Z, Z' (weighted by
+    d_inv), diag(Z'Z) and the dense inverse structure for the scan."""
+    prior = term.prior or P.RandomEffect("I", 100.0)
+    cg = getattr(prior, "sampler", "scan") == "cg"
+    if cg and term.correlated:
+        raise ValueError("sampler='cg' is not available for correlated groups")
+    if term.correlated:
+        raise NotImplementedError(
+            f"correlated random group {term.name}: correlated random effects (with their Wishart "
+            "draws) belong to ROADMAP M9, which is not ported yet")
+    if cg:
+        return _build_random_sparse(term, prior, dtype, device)
+    z = _as_device(term.z, torch.float64, device)
+    q = z.shape[1]
+    df = _df_for(prior.v)
+    if d_inv is not None:
+        zw = z * torch.as_tensor(d_inv, dtype=torch.float64, device=device)[:, None]
+    else:
+        zw = z
+    ivstr = (torch.eye(q, dtype=dtype, device=device) if term.ivstr is None
+             else _as_device(term.ivstr, dtype, device))
+    st = RandomState(
+        z=z.to(dtype),
+        zp=zw.T.contiguous().to(dtype),
+        zpz=(zw * z).sum(dim=0).to(dtype),
+        ivstr=ivstr.contiguous(),
+        u=torch.zeros(q, dtype=dtype, device=device),
+        var_u=torch.tensor(float(prior.v), dtype=dtype, device=device),
+        scale=torch.tensor(_scale_for(prior.v, df), dtype=dtype, device=device),
+    )
+    return st, RandomPlan(term.name, q, float(df), False, 1)
 
 
 def _scale_for(v, df):
@@ -185,9 +325,7 @@ def _centered_grams(mt_blocks, center_blocks, n, dtype, d_inv=None):
     out = torch.empty(mt_blocks.shape[:2] + (mt_blocks.shape[1],), dtype=dtype,
                       device=mt_blocks.device)
     raw = None if d_inv is None else torch.empty_like(out)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32():
         for i in range(0, mt_blocks.shape[0], _GRAM_CHUNK):
             sl = slice(i, i + _GRAM_CHUNK)
             mcb = pack2.unpack2(mt_blocks[sl], dtype)[..., :n] - center_blocks[sl, :, None]
@@ -197,8 +335,6 @@ def _centered_grams(mt_blocks, center_blocks, n, dtype, d_inv=None):
             else:
                 out[sl] = torch.bmm(mcb * d_inv, mct)
                 raw[sl] = torch.bmm(mcb, mct)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     return out, raw
 
 
@@ -206,14 +342,8 @@ def _region_segments(info, device):
     """(rows, lengths) for the deterministic region sums of BayesPR: row r
     holds region r's loci in locus order, padded with p (the index of a zero
     appended to the summed vector), and each region's size."""
-    sizes = info.sizes
-    rows = np.full((info.n_regions, max(int(sizes.max()), 1)), info.region_id.size, np.int64)
-    order = np.argsort(info.region_id, kind="stable")
-    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    col = np.arange(order.size) - np.repeat(starts, sizes)
-    rows[info.region_id[order], col] = order
-    return (torch.as_tensor(rows, device=device),
-            torch.as_tensor(sizes, dtype=torch.int64, device=device))
+    return (_segments(info.region_id, info.n_regions, info.region_id.size, device),
+            torch.as_tensor(info.sizes, dtype=torch.int64, device=device))
 
 
 def _pad_rows(a, p_pad):
@@ -398,8 +528,6 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
     spec.validate()
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
-    for t in spec.random:
-        raise NotImplementedError(f"random term {t.name}: random effects are not ported yet")
     for t in spec.corr_markers:
         raise NotImplementedError(f"correlated marker sets {t.names}: not ported yet")
     rng = np.random.default_rng(20240509)  # the JAX planner's host generator and seed
@@ -432,6 +560,12 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
             fixed_states.append(st)
             fixed_plans.append(fp)
 
+    random_states, random_plans = [], []
+    for t in spec.random:
+        st, rp = _build_random(t, d_inv, dtype, device)
+        random_states.append(st)
+        random_plans.append(rp)
+
     marker_states, marker_plans = [], []
     for t in spec.markers:
         st, mp = _build_marker(t, d_inv, spec.summary_stats.get(t.name),
@@ -463,10 +597,12 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
             var_e=torch.tensor(ev if ev > 0 else 0.0005, dtype=dtype, device=device),
         ),
         fixed=tuple(fixed_states),
+        random=tuple(random_states),
         markers=tuple(marker_states),
         sweep_index=0,
         sweep_counter=torch.zeros((), dtype=torch.int64, device=device),
     )
     plan = SweepPlan(n=y.size, e_df=e_df, weighted=d_inv is not None, fixed=tuple(fixed_plans),
-                     markers=tuple(marker_plans), dtype=dtype, device=device)
+                     random=tuple(random_plans), markers=tuple(marker_plans), dtype=dtype,
+                     device=device)
     return plan, state

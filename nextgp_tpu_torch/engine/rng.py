@@ -30,10 +30,13 @@ import torch
 
 from ..ops import _cuda
 
-# Stage identifiers, numbered as in the JAX package; the stages of terms
-# the port does not carry yet (random effects 2-3, GRN 9) keep their numbers.
+# Stage identifiers, numbered as in the JAX package. A random term's
+# variance is drawn from a split of its STAGE_RANDOM site, as the JAX sweep
+# does, so STAGE_RANDOM_VAR (3) stays unused there too; GRN (9) is not
+# ported yet and keeps its number.
 STAGE_VAR_E = 0
 STAGE_FIXED = 1
+STAGE_RANDOM = 2
 STAGE_MARKER = 4
 
 

@@ -1,0 +1,105 @@
+"""Uncorrelated random-effect Gibbs stages (sampleZ!/sampleU, NextGP.jl
+functions.jl:57-72) with their variance draw (sampleVarU, functions.jl:
+498-501).
+
+Counterparts of `sample_random_uni` and `sample_random_cg` in
+`nextgp_tpu/engine/samplers/random_effects.py`. The per-level scan is a
+Gauss-Seidel pass against the dense inverse structure (A^-1, G^-1 or I)
+through RE1 (ops/random_scan.py); the CG sampler draws u jointly by
+perturbed conjugate gradient over a level index and padded sparse rows.
+The whole-matrix products around the scan (Z u, Z' ycorr, u' K u) are
+torch.matmul in full float32. The CG sampler's segment sums (Z' v and the
+Henderson factor's (I - P)' x) are padded gathers over the plan's static
+level->records and parent->children tables, summed in a fixed order: no
+float atomics and no host sync.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops.cg import cg_solve
+from ...ops.dists import sample_scaled_inv_chi2
+from ...ops.random_scan import level_scan
+from ...utils import full_f32
+
+
+def sample_random_uni(stream, site, rs, ycorr, var_e, df):
+    """Univariate random effect by the per-level scan. Returns
+    (u, var_u, ycorr)."""
+    q = rs.u.shape[0]
+    kz, kv = site.split(2)
+    z = stream.normal(kz, (q,))
+    ive = 1.0 / var_e
+    ivu = 1.0 / rs.var_u
+    with full_f32():
+        ycorr = ycorr + rs.z @ rs.u
+        yi = (rs.zp @ ycorr) * ive  # functions.jl:61
+        u = level_scan(rs.ivstr, yi, rs.zpz, z, rs.u, ive, ivu)
+        ycorr = ycorr - rs.z @ u
+        ss = u @ rs.ivstr @ u
+    var_u = sample_scaled_inv_chi2(stream, kv, df, rs.scale, ss, float(q))  # functions.jl:498-501
+    return u, var_u, ycorr
+
+
+def _padded_sum(x, rows):
+    """sum_k x[rows[:, k]] with rows padded by len(x) (a zero appended)."""
+    xp = torch.cat([x, x.new_zeros(1)])
+    return torch.index_select(xp, 0, rows.reshape(-1)).view(rows.shape).sum(dim=1)
+
+
+def sample_random_cg(stream, site, rs, ycorr, var_e, df, rp, d_inv=None):
+    """Exact joint MvNormal draw of u | rest by perturbed conjugate gradient
+    (matrix-free; for large q in place of the per-level scan).
+
+    With C = Z'D^-1 Z / ve + K / vu (K = inverse structure), the draw
+        u = C^-1 [ Z'D^-1 (ycorr + e1) / ve + s ],
+        e1 ~ N(0, ve D),  s ~ N(0, K / vu)
+    has exactly the conditional distribution N(C^-1 Z'D^-1 ycorr / ve, C^-1)
+    that the scan targets one coordinate at a time. s uses the Henderson
+    factorization K = (I-P)' D_f^-1 (I-P) (data/pedigree.py:
+    a_inverse_factor), so no Cholesky of K is formed. Returns (u, var_u,
+    ycorr, iterations): CG's stopping rule is read on the host each
+    iteration, so this stage cannot be captured in a CUDA graph.
+    """
+    q = rs.u.shape[0]
+    n = ycorr.shape[0]
+    k1, k2, kv = site.split(3)
+    idx = torch.where(rs.z_idx >= 0, rs.z_idx, q)
+
+    def Zt(vec_n):  # Z' v: each level's records, summed in record order
+        return _padded_sum(vec_n, rp.z_rows)
+
+    def Z(vec_q):  # Z v by gather (records of no level read the appended 0)
+        return torch.index_select(torch.cat([vec_q, vec_q.new_zeros(1)]), 0, idx)
+
+    def ivmul(v):  # K v from the padded sparse rows
+        return torch.sum(rs.iv_val * torch.index_select(v, 0, rs.iv_idx.reshape(-1)).view(
+            rs.iv_idx.shape), dim=1)
+
+    def factor_t(x):  # (I - P)' x
+        half = 0.5 * x
+        return x - _padded_sum(half, rp.sire_kids) - _padded_sum(half, rp.dam_kids)
+
+    ive = 1.0 / var_e
+    ivu = 1.0 / rs.var_u
+    ycorr = ycorr + Z(rs.u)
+
+    w = (1.0 / d_inv) if d_inv is not None else 1.0
+    e1 = stream.normal(k1, (n,)) * torch.sqrt(var_e * w)
+    xi = stream.normal(k2, (q,))
+    s = factor_t(rs.fac_dsqrt * xi) * torch.sqrt(ivu)
+    yp = ycorr + e1
+    rhs = Zt(d_inv * yp if d_inv is not None else yp) * ive + s
+
+    def matvec(v):
+        zv = Z(v)
+        if d_inv is not None:
+            zv = d_inv * zv
+        return Zt(zv) * ive + ivmul(v) * ivu
+
+    u, iters, _ = cg_solve(matvec, rhs, x0=rs.u, tol=rp.cg_tol, max_iter=rp.cg_iters)
+    ycorr = ycorr - Z(u)
+
+    ss = u @ ivmul(u)
+    var_u = sample_scaled_inv_chi2(stream, kv, df, rs.scale, ss, float(q))
+    return u, var_u, ycorr, iters

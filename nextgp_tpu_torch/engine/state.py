@@ -2,7 +2,8 @@
 
 Counterparts of the pytrees in `nextgp_tpu/engine/state.py`, with the same
 field names, for the terms the port carries: residual (plain or weighted),
-fixed blocks and marker sets of all seven methods. A sweep returns a new state
+fixed blocks, uncorrelated random effects (dense for the per-level scan,
+sparse for the CG sampler) and marker sets of all seven methods. A sweep returns a new state
 (`utils.replace`). A field that the JAX state leaves None for a model is
 None here too.
 
@@ -18,7 +19,7 @@ the same bytes, and `state_from_numpy` reshapes them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +33,37 @@ class FixedState:
     lhs_ss: torch.Tensor  # (k,) summary-statistic offsets 1/v (single columns use them)
     rhs_ss: torch.Tensor  # (k,) m/v
     b: torch.Tensor  # (k,)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomState:
+    """Uncorrelated random effect for the per-level scan (mme.jl:170-204)."""
+
+    z: torch.Tensor  # (n, q)
+    zp: torch.Tensor  # (q, n) = Z' or (Z .* d_inv)' when the residual is weighted
+    zpz: torch.Tensor  # (q,) diag of zp @ Z
+    ivstr: torch.Tensor  # (q, q) inverse structure (I, A^-1, G^-1, user^-1)
+    u: torch.Tensor  # (q,)
+    var_u: torch.Tensor  # ()
+    scale: torch.Tensor  # ()
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseRandomState:
+    """Uncorrelated random effect for the CG sampler, for large level counts:
+    the one-hot incidence as a level index per record, A^-1 as fixed-width
+    padded rows, and the Henderson factor (I-P)' D^-1/2 for exact N(0, A^-1)
+    draws. No dense (n, q) or (q, q) array."""
+
+    z_idx: torch.Tensor  # (n,) int32 level of each record, -1 = none
+    iv_idx: torch.Tensor  # (q, K) int32 padded inverse-structure rows
+    iv_val: torch.Tensor  # (q, K)
+    fac_sire: torch.Tensor  # (q,) int32, -1 = unknown
+    fac_dam: torch.Tensor  # (q,) int32
+    fac_dsqrt: torch.Tensor  # (q,) D^-1/2 of the Henderson factorization
+    u: torch.Tensor  # (q,)
+    var_u: torch.Tensor  # ()
+    scale: torch.Tensor  # ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +114,7 @@ class ModelState:
     ycorr: torch.Tensor  # (n,) raw residual y - Xb - Mc beta, weighted or not
     e: ResidualState
     fixed: Tuple[FixedState, ...]
+    random: Tuple[Union[RandomState, SparseRandomState], ...]
     markers: Tuple[MarkerState, ...]
     sweep_index: int  # host counter; names the draw sites of the next sweep
     # the same number as a 0-d int64 tensor on the state's device: the sweep
@@ -90,7 +123,9 @@ class ModelState:
 
 
 _INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32, "mt": torch.uint8,
-               "mask": torch.bool, "annot_nz": torch.bool, "annot_cat": torch.int32}
+               "mask": torch.bool, "annot_nz": torch.bool, "annot_cat": torch.int32,
+               "z_idx": torch.int32, "iv_idx": torch.int32, "fac_sire": torch.int32,
+               "fac_dam": torch.int32}
 _MIX_FIELDS = ("log_pi", "pi_hat", "v_class")
 _ANNOT_FIELDS = ("annot_input", "annot_prob", "annot_nz", "annot_cat")
 _LV_FIELDS = ("log_var", "lv_design", "lv_icpc", "lv_icpc_chol", "lv_c", "lv_resid", "var_zeta")
@@ -111,8 +146,9 @@ def _none_fields(plan):
 
 def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
     """Build a ModelState on plan.device from numpy arrays keyed by the JAX
-    field paths ("ycorr", "e.var_e", "fixed.0.b", "markers.0.gram", ...,
-    "sweep_index"), for instance a flattened JAX ModelState. Every field
+    field paths ("ycorr", "e.var_e", "fixed.0.b", "random.0.u",
+    "markers.0.gram", ..., "sweep_index"), for instance a flattened JAX
+    ModelState. Every field
     must be given and no other, except that a field the plan leaves None
     (gram_raw and e.d_inv unweighted, log_pi/pi_hat/v_class for BayesPR and
     BayesLV, the annotation and log-variance fields of the other methods)
@@ -151,6 +187,8 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
         ycorr=get("ycorr"),
         e=fields(ResidualState, "e."),
         fixed=tuple(fields(FixedState, f"fixed.{i}.") for i in range(len(plan.fixed))),
+        random=tuple(fields(SparseRandomState if rp.sampler == "cg" else RandomState,
+                            f"random.{i}.") for i, rp in enumerate(plan.random)),
         markers=tuple(markers),
         sweep_index=sweep_index,
         sweep_counter=torch.tensor(sweep_index, dtype=torch.int64, device=plan.device),

@@ -2,11 +2,13 @@
 
 Stage order as in `nextgp_tpu/engine/sweep.py` (and NextGP.jl's
 runSampler!, samplers.jl:29-53): residual variance -> fixed-effect blocks
--> marker sets. PyTorch runs eagerly: a sweep launches its kernels on the
-current CUDA stream without waiting for them. The stages carry the JAX
-package's scope names (`gibbs.var_e`, `gibbs.fixed.<i>`,
-`gibbs.marker.<set>`) as `torch.profiler.record_function` scopes, so a trace
-(`diag.trace`) attributes host and device time to them.
+-> random effects (with their variances) -> marker sets. PyTorch runs
+eagerly: a sweep launches its kernels on the current CUDA stream without
+waiting for them, except that a CG random term reads its stopping rule on
+the host each iteration. The stages carry the JAX package's scope names
+(`gibbs.var_e`, `gibbs.fixed.<i>`, `gibbs.random.<i>`, `gibbs.marker.<set>`)
+as `torch.profiler.record_function` scopes, so a trace (`diag.trace`)
+attributes host and device time to them.
 
 The runners are the counterparts of the JAX package's `make_chain_runner`
 (a jitted `lax.scan` over a thinning interval) and `make_scan_sampler` (the
@@ -15,7 +17,10 @@ whole chain on the device). On the card with a stream that can be captured
 capture one sweep in a CUDA graph, and one sweep that also writes its sample
 into slot k of preallocated draw buffers (k a device index), and replay
 them: the host issues one replay a sweep. Everywhere else a thinning
-interval is a Python loop of sweeps.
+interval is a Python loop of sweeps. A plan with a CG random term cannot be
+captured (its solver stops on a host check): the runners raise
+NotImplementedError for it with a capturable stream rather than fall back
+to eager sweeps.
 """
 from __future__ import annotations
 
@@ -29,9 +34,10 @@ from ..utils import replace
 from .plan import (
     METHOD_B, METHOD_C, METHOD_LV, METHOD_R, METHOD_RCPI, METHOD_RCPLUS, SweepPlan,
 )
-from .rng import STAGE_FIXED, STAGE_MARKER, STAGE_VAR_E, Site
+from .rng import STAGE_FIXED, STAGE_MARKER, STAGE_RANDOM, STAGE_VAR_E, Site
 from .samplers.fixed import sample_fixed_block
 from .samplers.markers import sample_marker_set
+from .samplers.random_effects import sample_random_cg, sample_random_uni
 from .samplers.residual import sample_var_e
 from .state import ModelState
 
@@ -40,7 +46,9 @@ def make_sweep(plan: SweepPlan):
     """Build sweep(state, stream) -> state for the static plan. The draw
     sites are named by state.sweep_index (and, for a KeyedStream, by the
     same number in state.sweep_counter on the device), so a chain is a
-    function of the stream's seed and the starting state."""
+    function of the stream's seed and the starting state. After each call
+    `sweep.cg_iterations` maps each CG random term's index to the number of
+    CG iterations its solve took in that sweep."""
 
     def sweep(state: ModelState, stream) -> ModelState:
         s, c = state.sweep_index, state.sweep_counter
@@ -56,6 +64,17 @@ def make_sweep(plan: SweepPlan):
                                               var_e, fp.single)
             fixed.append(replace(fs, b=b))
 
+        random = []
+        for i, (rs, rp) in enumerate(zip(state.random, plan.random)):
+            site = Site(s, STAGE_RANDOM, i, counter=c)
+            with record_function(f"gibbs.random.{i}"):
+                if rp.sampler == "cg":
+                    u, var_u, ycorr, sweep.cg_iterations[i] = sample_random_cg(
+                        stream, site, rs, ycorr, var_e, rp.df, rp, d_inv=state.e.d_inv)
+                else:
+                    u, var_u, ycorr = sample_random_uni(stream, site, rs, ycorr, var_e, rp.df)
+            random.append(replace(rs, u=u, var_u=var_u))
+
         markers = []
         for i, (ms, mp) in enumerate(zip(state.markers, plan.markers)):
             with record_function(f"gibbs.marker.{mp.name}"):
@@ -64,20 +83,27 @@ def make_sweep(plan: SweepPlan):
             markers.append(ms)
 
         return replace(state, ycorr=ycorr, e=replace(state.e, var_e=var_e), fixed=tuple(fixed),
-                       markers=tuple(markers), sweep_index=s + 1, sweep_counter=c + 1)
+                       random=tuple(random), markers=tuple(markers), sweep_index=s + 1,
+                       sweep_counter=c + 1)
 
+    sweep.cg_iterations = {}
     return sweep
 
 
 def collect_sample(state: ModelState, plan: SweepPlan) -> Dict[str, Any]:
     """The tracked quantities the reference streams per kept iteration
-    (samplers.jl:56-104): b, varE, and beta/delta/var per marker set, with
+    (samplers.jl:56-104): b, varE, u/varU per random term (a correlated
+    group's names joined by "_"), and beta/delta/var per marker set, with
     the per-locus variances cut to p (BayesB, BayesLV), pi where the method
     has one (BayesB/C/R; flattened (A, K) for BayesRCpi/RCplus, with the
     annotation categories), and c and varZeta for BayesLV."""
     out: Dict[str, Any] = {"varE": state.e.var_e}
     if state.fixed:
         out["b"] = torch.cat([fs.b for fs in state.fixed])
+    for rs, rp in zip(state.random, plan.random):
+        nm = rp.name if isinstance(rp.name, str) else "_".join(rp.name)
+        out[f"u{nm}"] = rs.u
+        out[f"varU{nm}"] = rs.var_u
     for ms, mp in zip(state.markers, plan.markers):
         out[f"beta{mp.name}"] = ms.beta[: mp.p]
         out[f"delta{mp.name}"] = ms.delta[: mp.p]
@@ -122,6 +148,17 @@ def _with_leaves(obj, new, prefix=""):
     if isinstance(obj, tuple):
         return tuple(_with_leaves(x, new, f"{prefix}{i}.") for i, x in enumerate(obj))
     return obj
+
+
+def _no_cg(plan: SweepPlan) -> None:
+    """A CG random term stops its solve on a host check, which a CUDA graph
+    cannot hold: the replayed runners refuse such a plan."""
+    cg = [rp.name for rp in plan.random if rp.sampler == "cg"]
+    if cg:
+        raise NotImplementedError(
+            f"random term {cg[0]}: the CG sampler stops on a host check each iteration, so its "
+            "sweeps cannot be replayed as CUDA graphs yet (ROADMAP queue 2); run it with "
+            "eager sweeps (make_sweep, or run_lmem with a PhiloxStream)")
 
 
 def _replayed(plan: SweepPlan, stream) -> bool:
@@ -224,7 +261,10 @@ def scan_chain(plan: SweepPlan, state: ModelState, stream, n_burn: int, n_keep: 
     leading n_keep, on the plan's device. On the card the sweeps are graph
     replays (the stream must be capturable: KeyedStream; any other raises),
     and the state returned holds the graphs' static buffers; on the CPU they
-    are a loop of sweeps."""
+    are a loop of sweeps. A plan with a CG random term raises with a
+    capturable stream, on the CPU too, as it would on the card."""
+    if getattr(stream, "capturable", False):
+        _no_cg(plan)
     if _replayed(plan, stream):
         rep = ReplayedSweep(plan, state, stream, n_keep)
         rep.run(n_burn, n_keep, thin)
@@ -249,13 +289,15 @@ def make_chain_runner(plan: SweepPlan, thin: int):
     or the state's constant tensors change), as the JAX package jits its
     runner once; the state and the sample returned then live in the
     runner's buffers and the next call overwrites them, as the JAX runner
-    donates its state. Otherwise (the CPU, or the card with PhiloxStream or
-    HostStream) a loop of eager sweeps."""
+    donates its state (a plan with a CG random term raises there).
+    Otherwise (the CPU, or the card with PhiloxStream or HostStream) a loop
+    of eager sweeps."""
     sweep = make_sweep(plan)
     cache = []
 
     def run_thin(state, stream):
         if plan.device.type == "cuda" and getattr(stream, "capturable", False):
+            _no_cg(plan)
             if not cache or not cache[0].holds(state, stream):
                 cache[:] = [ReplayedSweep(plan, state, stream, n_keep=1)]
             rep = cache[0]
@@ -277,7 +319,8 @@ def make_scan_sampler(plan: SweepPlan, n_keep: int, thin: int):
     the plan's device. On the card it replays CUDA graphs (one sweep per
     replay) and needs a stream that can be captured (KeyedStream): any
     other raises, naming the stream; it never falls back to eager sweeps.
-    On the CPU it runs the same sweeps as a loop."""
+    On the CPU it runs the same sweeps as a loop. A plan with a CG random
+    term raises NotImplementedError with a capturable stream."""
 
     def run(state, stream):
         return scan_chain(plan, state, stream, 0, n_keep, thin)

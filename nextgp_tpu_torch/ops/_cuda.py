@@ -34,7 +34,7 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
-            "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0}
+            "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0}
 
 _lib = None
 
@@ -119,11 +119,12 @@ def lib() -> ctypes.CDLL:
         L.ngt_fused_step.argtypes = [P] * 8 + [I] * 3 + [S]
         L.ngt_keyed_rng.argtypes = [P, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong), I, I,
                                     P, P, P, I, S]
+        L.ngt_level_scan.argtypes = [P, I, P, P, P, P, P, P, P, S]
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
-                   L.ngt_keyed_rng):
+                   L.ngt_keyed_rng, L.ngt_level_scan):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

@@ -1,0 +1,82 @@
+"""The level scan of an uncorrelated random effect (RE1, csrc/level_scan.cu).
+
+Counterpart of the `lax.scan` over levels in the JAX package's
+`sample_random_uni` (nextgp_tpu/engine/samplers/random_effects.py:29-37;
+NextGP.jl's sampleU, functions.jl:57-72). It replaces no Pallas kernel: the
+JAX package runs the loop as one compiled scan on the device, and written
+as plain PyTorch on the card it would be q dependent steps of several
+launches each. `level_scan` launches the kernel for CUDA tensors (float32;
+it raises on what the kernel does not take) and runs the plain version for
+CPU tensors. Both run the levels in tiles of `TILE`: the strict upper
+triangle's sums first, then per tile its levels in order with right-looking
+in-tile sums, then the tile's new values into the later rows' sums.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+TILE = 1024  # levels per tile: one thread block of the skeleton
+
+
+def level_scan_plain(ivstr, yi, zpz, z, u, ive, ivu, tile=TILE):
+    """The level scan in the kernel's order: returns the new u (q,).
+
+    For each level i in order, with the levels before i at their new values
+    and those after i at their old ones:
+        rhs  = yi[i] - ivu * sum_{k != i} ivstr[i, k] u[k]
+        lhs  = zpz[i] * ive + ivstr[i, i] * ivu
+        u[i] = rhs / lhs + z[i] * sqrt(1 / lhs)
+    computed as the kernel does, u[i] = c[i] - b[i] * pre[i] with
+    a = 1 / lhs, c = yi * a + z * sqrt(a), b = ivu * a (pre the sum above).
+    `tile` sets the blocking (the kernel's is TILE); the result is the same
+    up to the order of the sums."""
+    q = u.shape[0]
+    u = u.clone()
+    # what does not depend on the levels before: u[i] = c[i] - b[i] * pre[i]
+    a = 1.0 / (zpz * ive + torch.diagonal(ivstr) * ivu)
+    c = yi * a + z * torch.sqrt(a)
+    b = ivu * a
+    pre = torch.triu(ivstr, diagonal=1) @ u
+    for s in range(0, q, tile):
+        e = min(s + tile, q)
+        for j in range(s, e):
+            uj = c[j] - b[j] * pre[j]
+            u[j] = uj
+            pre[j + 1:e] += ivstr[j + 1:e, j] * uj
+        if e < q:
+            pre[e:] += ivstr[e:, s:e] @ u[s:e]
+    return u
+
+
+def level_scan_kernel(ivstr, yi, zpz, z, u, ive, ivu):
+    """RE1 on the card: one call, 2 * ceil(q / TILE) launches, new u (q,)."""
+    q = u.shape[0]
+    vecs = (yi, zpz, z, u)
+    _cuda.require(all(t.is_cuda and t.dtype == torch.float32 for t in (ivstr, *vecs, ive, ivu)),
+                  "level_scan: every input must be float32 on a CUDA device")
+    _cuda.require(len({t.device for t in (ivstr, *vecs, ive, ivu)}) == 1,
+                  "level_scan: every input must be on one device")
+    _cuda.require(ivstr.shape == (q, q) and ivstr.is_contiguous() and q >= 1,
+                  f"level_scan: ivstr must be a contiguous ({q}, {q}) matrix")
+    _cuda.require(all(t.shape == (q,) and t.is_contiguous() for t in vecs),
+                  f"level_scan: yi, zpz, z and u must be contiguous ({q},) vectors")
+    _cuda.require(ive.numel() == 1 and ivu.numel() == 1, "level_scan: ive and ivu are scalars")
+    out = u.clone()
+    pre = torch.empty_like(u)
+    ive, ivu = ive.contiguous(), ivu.contiguous()
+    err = _cuda.lib().ngt_level_scan(
+        ivstr.data_ptr(), q, yi.data_ptr(), zpz.data_ptr(), z.data_ptr(), out.data_ptr(),
+        pre.data_ptr(), ive.data_ptr(), ivu.data_ptr(), _cuda.stream_of(u))
+    _cuda.check(err, "level_scan")
+    _cuda.LAUNCHES["level_scan"] += 1
+    return out
+
+
+def level_scan(ivstr, yi, zpz, z, u, ive, ivu):
+    """The new u of one level scan: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if u.is_cuda:
+        return level_scan_kernel(ivstr, yi, zpz, z, u, ive, ivu)
+    return level_scan_plain(ivstr, yi, zpz, z, u, ive, ivu)

@@ -52,11 +52,14 @@ def run_lmem(
 
     Kept iterations are `(n_burn + n_thin) : n_thin : n_chain`
     (samplers.jl:26), for any (n_burn, n_thin). Draws are returned in
-    memory as stacked numpy arrays. `stream` overrides the default
+    memory as stacked numpy arrays (u<name> and varU<name> for each random
+    term among them). `stream` overrides the default
     PhiloxStream(seed) (engine/rng.py), whose chain runs as eager sweeps. A
     stream that can be captured (KeyedStream) runs burn-in and thinning
     through engine/sweep.scan_chain: on the card as CUDA-graph replays, with
-    the kept draws on the card until one copy to the host at the end.
+    the kept draws on the card until one copy to the host at the end; a
+    model with a CG random term raises NotImplementedError there (its
+    solver stops on a host check, which a graph cannot hold).
     vshards defaults to 1, the reference-sequential order: the H100 value of
     V has not been measured. `sweeps_per_sec` counts every sweep run, from
     the first to the device finishing the last.

@@ -7,6 +7,7 @@ type in which the port is held to the JAX reference (nextgp_tpu).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -33,3 +34,16 @@ def default_device() -> torch.device:
 def default_dtype(device) -> torch.dtype:
     """float32 on CUDA, float64 on the CPU."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Matrix products in full float32 inside the block: TF32 would put
+    ~1e-3 relative error into each product (PyTorch's default is off; this
+    holds it off whatever the caller set)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -20,7 +20,12 @@ wrapper's refusals; for the keyed draws (csrc/keyed_rng.cu) the plain
 version's numbers at the main path's sizes, a draw captured in a CUDA graph
 reading its sweep counter at replay, chains of all seven methods replayed
 by make_scan_sampler and make_chain_runner with the same bits as eager
-sweeps at V = 1 and 4, and the refusal of streams a graph cannot capture.
+sweeps at V = 1 and 4, and the refusal of streams a graph cannot capture;
+for the random effects' level scan (RE1, csrc/level_scan.cu) one level,
+either side of a warp and of a tile, q not a multiple of 4, the same bits
+from two launches and its refusals, an animal model replayed with the eager
+chain's bits and following the plain chain, and a CG animal effect in eager
+float64 sweeps (refused by the replayed runners).
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -761,3 +766,116 @@ def test_scan_sampler_refuses_streams_it_cannot_capture(dev, stream_cls):
     stream = getattr(R, stream_cls)(1, dev, torch.float32)
     with pytest.raises(TypeError, match=stream_cls):
         ngt.make_scan_sampler(plan, 2, 2)(st, stream)
+
+
+# ------------------------------------------------------------------ RE1, the level scan
+
+
+def _level_inputs(q, dev, seed=0):
+    """A symmetric positive-definite structure with unit-scale off-diagonal
+    coupling, and a first sweep's vectors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.randn(q, q, generator=g, device=dev) / q ** 0.5
+    ivstr = (m @ m.T + torch.eye(q, device=dev)).contiguous()
+    yi, z, u = (torch.randn(q, generator=g, device=dev) for _ in range(3))
+    zpz = torch.rand(q, generator=g, device=dev) * 3
+    return ivstr, yi, zpz, z, u, torch.tensor(1.7, device=dev), torch.tensor(0.6, device=dev)
+
+
+@pytest.mark.parametrize("q", [1, 31, 32, 33, 1000, 1024, 1025, 2049, 3001])
+def test_level_scan_matches_plain(dev, q):
+    """RE1 at one level, one level either side of a warp's 32, one tile and
+    one level past it (the first panel of one row), three tiles with one
+    level in the last, and q not a multiple of 4 (the scalar loads): within
+    1e-4 of u's scale of the plain version, the same bits from two launches,
+    one count per call."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    args = _level_inputs(q, dev, q)
+    before = _cuda.LAUNCHES["level_scan"]
+    out = random_scan.level_scan(*args)
+    ref = random_scan.level_scan_plain(*args)
+    assert _rel(out, ref) < 1e-4
+    assert torch.equal(out, random_scan.level_scan(*args))
+    assert _cuda.LAUNCHES["level_scan"] == before + 2
+    assert not torch.equal(out, args[4])  # u itself is left as it was
+
+
+def test_level_scan_refuses_what_it_does_not_take(dev):
+    from nextgp_tpu_torch.ops import random_scan
+
+    ivstr, yi, zpz, z, u, ive, ivu = _level_inputs(40, dev)
+    with pytest.raises(ValueError, match="float32"):
+        random_scan.level_scan(ivstr.double(), yi, zpz, z, u, ive, ivu)
+    with pytest.raises(ValueError, match="contiguous"):
+        random_scan.level_scan(ivstr.T, yi, zpz, z, u, ive, ivu)
+    with pytest.raises(ValueError, match="vectors"):
+        random_scan.level_scan(ivstr, yi[:39], zpz, z, u, ive, ivu)
+
+
+def _random_spec(sampler="scan"):
+    from nextgp_tpu_torch.data import pedigree as P
+
+    spec = _small_spec("BayesR")
+    n = spec.y.shape[0]
+    rng = np.random.default_rng(9)
+    ids = [f"a{i}" for i in range(n)]
+    sires = [None] * 20 + [ids[rng.integers(0, i)] for i in range(20, n)]
+    dams = [None] * 20 + [ids[rng.integers(0, i)] for i in range(20, n)]
+    ped = ngt.build_pedigree(ids, sires, dams)
+    z = np.zeros((n, n))
+    z[np.arange(n), ped.index_of(ids)] = 1.0
+    if sampler == "cg":
+        idx, val = P.a_inverse_padded(ped)
+        sire, dam, dsq = P.a_inverse_factor(ped)
+        term = ngt.RandomTerm("A", z, prior=ngt.Random("A", 0.3, sampler="cg"),
+                              sparse_struct=dict(iv_idx=idx, iv_val=val, sire=sire, dam=dam,
+                                                 dinv_sqrt=dsq))
+    else:
+        term = ngt.RandomTerm("A", z, prior=ngt.Random("A", 0.3), ivstr=P.a_inverse(ped))
+    spec.random = [term]
+    return spec
+
+
+def test_animal_model_replayed_equals_eager(dev):
+    """BayesR + an animal effect: the replayed chain (level scan inside the
+    graph) has the eager chain's bits; the plain chain on the CPU from the
+    same host draws follows the kernel chain."""
+    spec = _random_spec()
+    plan, st0 = ngt.assemble(spec, device=dev, vshards=4)
+    stream = ngt.KeyedStream(23, dev, torch.float32)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    assert {"uA", "varUA"} <= set(draws)
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+    chains = []
+    for device in (dev, "cpu"):
+        plan, st = ngt.assemble(spec, device=device, dtype=torch.float32, vshards=4)
+        sweep, draws = ngt.make_sweep(plan), HostStream(4, device, torch.float32)
+        for _ in range(3):
+            st = sweep(st, draws)
+        chains.append(st.random[0].u.cpu())
+    assert _rel(*chains) < 1e-3
+
+
+def test_cg_term_on_the_card(dev):
+    """A CG animal effect runs in eager sweeps on the card, in float64 to its
+    tolerance (beside the intercept alone: the marker kernels take float32);
+    the replayed runners refuse it."""
+    spec = _random_spec("cg")
+    spec.markers = []
+    plan, st = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=4)
+    sweep, stream = ngt.make_sweep(plan), ngt.PhiloxStream(3, dev, torch.float64)
+    for _ in range(3):
+        st = sweep(st, stream)
+        assert 0 < sweep.cg_iterations[0] < plan.random[0].cg_iters
+    assert torch.isfinite(st.random[0].u).all() and st.random[0].var_u > 0
+    plan, st = ngt.assemble(spec, device=dev, vshards=4)
+    with pytest.raises(NotImplementedError, match="random term A"):
+        ngt.make_scan_sampler(plan, 2, 1)(st, ngt.KeyedStream(1, dev, torch.float32))

@@ -3,7 +3,8 @@
 * `nextgp_tpu_torch` imports neither jax nor `nextgp_tpu` (the machine with
   the card has no jax), checked in a fresh interpreter over every module.
 * The host-side classes the port copies keep the JAX originals' dataclass
-  field names and defaults.
+  field names and defaults, and its state and plan dataclasses the JAX
+  field names.
 * `chip_smoke.py` has no CPU fallback: without a CUDA device it exits
   non-zero and prints no result.
 * Neither has the package: without a CUDA device `default_device()` raises,
@@ -46,9 +47,11 @@ def test_port_imports_no_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 26  # every module of the package was imported, the ladder and diag too
-    assert {"nextgp_tpu_torch.micro", "nextgp_tpu_torch.ops.micro", "nextgp_tpu_torch.diag"} <= set(
-        res.stdout.split("|")[1].split())
+    assert n_mods >= 31  # every module of the package was imported, the ladder and diag too
+    assert {"nextgp_tpu_torch.micro", "nextgp_tpu_torch.ops.micro", "nextgp_tpu_torch.diag",
+            "nextgp_tpu_torch.data.pedigree", "nextgp_tpu_torch.data.grm", "nextgp_tpu_torch.ops.cg",
+            "nextgp_tpu_torch.ops.random_scan",
+            "nextgp_tpu_torch.engine.samplers.random_effects"} <= set(res.stdout.split("|")[1].split())
 
 
 def test_importing_the_ladder_runs_nothing():
@@ -76,11 +79,38 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi",
                                   "BayesRCplus", "BayesLV", "SummaryStatistics", "RandomEffect",
-                                  "FixedTerm", "MarkerTerm", "ModelSpec", "MarkerData"])
+                                  "Random", "FixedTerm", "RandomTerm", "MarkerTerm", "ModelSpec",
+                                  "MarkerData"])
 def test_copied_dataclasses_match(name):
     jcls = getattr(j_ingest, name, None) or getattr(ng, name)
     tcls = getattr(t_ingest, name, None) or getattr(ngt, name)
     assert _fields(tcls) == _fields(jcls)
+
+
+@pytest.mark.parametrize("name", ["RandomState", "SparseRandomState", "ModelState", "Pedigree",
+                                  "RandomPlan"])
+def test_state_fields_match(name):
+    """The random effects' state and plan keep the JAX field names, so that
+    state_from_numpy reads a flattened JAX state at the same paths. The
+    port's ModelState adds sweep_counter (the device copy of sweep_index)
+    and has no corr_markers (correlated marker sets, ROADMAP M9); its
+    RandomPlan adds the CG sampler's static tables."""
+    from nextgp_tpu.data import pedigree as j_ped
+    from nextgp_tpu.engine import plan as j_plan
+    from nextgp_tpu.engine import state as j_state
+    from nextgp_tpu_torch.data import pedigree as t_ped
+    from nextgp_tpu_torch.engine import plan as t_plan
+    from nextgp_tpu_torch.engine import state as t_state
+
+    jmod, tmod = {"Pedigree": (j_ped, t_ped), "RandomPlan": (j_plan, t_plan)}.get(
+        name, (j_state, t_state))
+    jnames = [f.name for f in dataclasses.fields(getattr(jmod, name))]
+    tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
+    extra = {"ModelState": ["sweep_counter"], "RandomPlan": ["z_rows", "sire_kids", "dam_kids"]}
+    missing = {"ModelState": ["corr_markers"]}
+    assert tnames == [n for n in jnames if n not in missing.get(name, [])] + extra.get(name, [])
+    if name == "RandomPlan":
+        assert _fields(tmod.RandomPlan)[:8] == _fields(jmod.RandomPlan)
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -425,8 +425,11 @@ def test_unsupported_terms_raise():
                                                           ngt.BayesPR(9999, np.eye(2)))])
     with pytest.raises(NotImplementedError, match="M9"):
         ngt.assemble(bad, device="cpu")
-    bad = dataclasses.replace(ts, random=[js.markers[0]])
-    with pytest.raises(NotImplementedError, match="random term M"):
+    # random terms are ported; a correlated group (a tuple name) is M9's
+    z = np.eye(N)
+    bad = dataclasses.replace(ts, random=[ngt.RandomTerm(("u1", "u2"), (z, z),
+                                                         prior=ngt.Random("I", np.eye(2)))])
+    with pytest.raises(NotImplementedError, match=r"correlated random group \('u1', 'u2'\).*M9"):
         ngt.assemble(bad, device="cpu")
     with pytest.raises(NotImplementedError, match="out_folder"):
         ngt.run_lmem(ts, 2, 0, 1, out_folder="outMCMC", device="cpu")

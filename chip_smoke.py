@@ -9,6 +9,9 @@ and check them.
     python3 chip_smoke.py graph  # phases 1-2 and phase 7 alone
     python3 chip_smoke.py chains # phases 1-2 and phase 4's default chains, digested
     python3 chip_smoke.py random # phases 1-2 and phase 8 alone
+    python3 chip_smoke.py random DIR  # the same, and RE1 against DIR's (another
+                                 # tree's csrc/, e.g. a `git archive` of the parent
+                                 # under _checkout/) in turns P, C, C, P
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -81,7 +84,9 @@ Phases (any failed check raises and the script exits non-zero):
   8. random effects: RE1 (the level scan, csrc/level_scan.cu) against its
      plain version at q = 10,000 (the dense A^-1 of a simulated 10,000-animal,
      5-generation pedigree, a second sweep's inputs; within 1e-4 of u's scale,
-     two runs bit-identical) and at q = 1, 1,025 and 3,001; "BayesR+A", the
+     two runs bit-identical; beside it torch.linalg.solve_triangular on the
+     same system, the one PyTorch call that computes it) and at RE1_EDGES
+     (one level, the group and look-ahead edges, 1,025, 3,001); "BayesR+A", the
      main path (V=96) plus an animal effect over the panel's 10,000
      individuals (planted polygenic values by the Henderson recursion added
      to y), and "GBLUP", intercept + a genomic effect with G^-1 of the panel
@@ -100,15 +105,18 @@ Phases (any failed check raises and the script exits non-zero):
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
+import ctypes
 import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -206,7 +214,7 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
-def device_ms(fn, reps, records_per_launch=1):
+def device_ms(fn, reps, records_per_launch=1, calls=None):
     """Mean time the card spends in the kernels that one call of fn launches,
     from the profiler's device durations. An event pair around one call
     (median_ms) also holds what the host needs to get the launch out, which
@@ -216,20 +224,25 @@ def device_ms(fn, reps, records_per_launch=1):
     than were launched in the window, most often one short. A short spin
     kernel opens and one closes each window, so that a record lost at either
     end is theirs; they are not counted. A window counts only where it is
-    whole: each
-    kernel built from csrc/ has as many records as the wrappers' launch
-    counters rose in it (times records_per_launch, where one counted call
-    launches each of its kernels that many times, as RE1 does once per
-    tile), and every other kernel (PyTorch's own, for outputs) a multiple of
-    reps. Else the window is taken again; after five the time
-    is left out (None), which decides no check."""
+    whole: each kernel built from csrc/ has as many records as the wrappers'
+    launch counters rose in it (times records_per_launch, where one counted
+    call launches each of its kernels that many times), and every other
+    kernel (PyTorch's own, for outputs) a multiple of reps.
+    records_per_launch=0 times a PyTorch call (a library yardstick): no
+    counter may rise, and every kernel's records are a multiple of reps.
+    calls: for another tree's kernels, which no counter here counts, a
+    function giving the calls fn has made so far, read in place of the
+    counters.
+    Else the window is taken again; after five the time is left out (None),
+    which decides no check."""
     from torch.profiler import ProfilerActivity, profile
 
+    count = calls or (lambda: sum(_cuda.LAUNCHES.values()))
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(5):
-        before = sum(_cuda.LAUNCHES.values())
+        before = count()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(10_000)
             torch.cuda.synchronize()
@@ -237,15 +250,15 @@ def device_ms(fn, reps, records_per_launch=1):
                 fn()
             torch.cuda._sleep(10_000)
             torch.cuda.synchronize()
-        launched = sum(_cuda.LAUNCHES.values()) - before
+        launched = count() - before
         records = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.count and "spin_kernel" not in e.key]
         ours = [e.count for e in records if _built_here(e.key)]
-        whole = (launched > 0 and ours and all(n == launched * records_per_launch for n in ours)
-                 and all(e.count % reps == 0 for e in records))
-        if whole:
+        counted = (launched > 0 and ours and all(n == launched * records_per_launch for n in ours)
+                   if records_per_launch else launched == 0 and records)
+        if counted and all(e.count % reps == 0 for e in records):
             return sum(e.self_device_time_total for e in records) / reps / 1e3
-        seen.append(f"{launched} launched, records {sorted(ours)}")
+        seen.append(f"{launched} launched, records {sorted(e.count for e in records)}")
     print(f"chip_smoke: note: no whole profiler window of {reps} calls in five ({'; '.join(seen)});"
           " time on the card not measured")
     return None
@@ -265,23 +278,26 @@ TIMINGS = {}  # kernels-line name -> what `report` measured for it
 
 
 def report(name, err, scale, tol, ms_k, ms_p, work, note="", library_ms=None, phase="3 kernels",
-           dev_ms=None):
+           dev_ms=None, library_dev_ms=None):
     """Hold one kernel to its plain version and keep its numbers. work: (bytes
     moved with each input read and each output written once, operations) of
     one call, from its shapes. library_ms: the time of the one PyTorch call
-    that computes the same function, where there is one. dev_ms: the kernel's
-    time on the card alone (device_ms), where it was taken."""
+    that computes the same function, where there is one (event pair), and
+    library_dev_ms its time on the card alone. dev_ms: the kernel's time on
+    the card alone (device_ms), where it was taken."""
     t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / F32_FLOP_PER_S
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     lib = ("no single PyTorch call computes it" if library_ms is None
-           else f"the one PyTorch call {library_ms:.4f} ms")
+           else f"the one PyTorch call {library_ms:.4f} ms"
+           + ("" if library_dev_ms is None else f", {library_dev_ms:.4f} ms on the card"))
     on_card = "" if dev_ms is None else f" ({dev_ms:.4f} ms of it on the card)"
     print(f"[{phase}] {name}: max_abs_err {err:.3e} (scale {scale:.3e}, tol {tol:g} x scale), "
           f"kernel {ms_k:.4f} ms{on_card}, plain {ms_p:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
           f"({work[0]:,} bytes, {work[1]:,} operations; {lib}){note}")
     check(err <= tol * scale, f"{name} disagrees with its plain version")
     TIMINGS[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms)
+                         bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms,
+                         library_device_ms=library_dev_ms)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -422,11 +438,14 @@ class Step0:
         unif[glob] = torch.rand(glob.numel(), generator=gen, dtype=unif.dtype, device=DEV)
 
 
-def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note):
+def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, library=None):
     """Redraw the uniforms of loci near a decision edge until none is, then
     hold the kernel against its plain version: two runs give the same bits,
     delta exact (where the scan draws one; the Gaussian scan has none, and
-    no edge), u and beta within TOL_SCAN of their scale."""
+    no edge), u and beta within TOL_SCAN of their scale. library(pk_t), where
+    given, sets up the one PyTorch call that computes the scan's u (outside
+    the timed window) and returns it as a function; its u is held to the
+    plain version's at TOL_SCAN and it is timed beside the kernel."""
     for _ in range(20):
         pk_t = make_rows(unif)
         ref = plain(pk_t)
@@ -446,9 +465,16 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note):
     e_u, s_u = rel_err(got[1], ref[1])
     check(e_u <= TOL_SCAN * s_u, f"{name}: u differs by {e_u:.3e} (scale {s_u:.3e})")
     e_b, s_b = rel_err(got[0], ref[0])
+    lib_ms = lib_dev = None
+    if library is not None:
+        solve = library(pk_t)
+        e_l, _ = rel_err(solve(), ref[1])
+        check(e_l <= TOL_SCAN * s_u, f"{name}: the library call's u differs by {e_l:.3e}")
+        lib_ms, lib_dev = median_ms(solve, 20), device_ms(solve, 20, records_per_launch=0)
+        note += f"; library u max_abs_err {e_l:.3e}, its system built outside the timed window"
     report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20), median_ms(lambda: plain(pk_t), 3),
            work, f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; {note}{drawn})",
-           dev_ms=device_ms(lambda: kern(pk_t), 20))
+           library_ms=lib_ms, dev_ms=device_ms(lambda: kern(pk_t), 20), library_dev_ms=lib_dev)
 
 
 def wide_passes():
@@ -733,6 +759,12 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
             r_scan(f"r_block_scan_v_k{k}", *(x.to(dt) for x in r_classes(k)))
 
     ivb = torch.full_like(ms.beta, 1.0 / V_PR)
+
+    def gauss_library(pk_t):
+        """torch.linalg.solve_triangular on the V unit lower-triangular systems."""
+        mat, rhs = gibbs_kernels.gauss_block_system(gram0, pk_t)
+        return lambda: torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)[..., 0]
+
     held_scan(
         f"gauss_block_scan_v{tag}",
         lambda pk_t: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t),
@@ -741,7 +773,7 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
             torch.zeros_like(ms.beta), ms.beta, z, ivb, flat["mpm"], flat["lss"], flat["rss"],
             flat["mask"], ive)), unif, gen, step,
         lambda pk_t, uu: torch.zeros((), dtype=torch.bool, device=DEV), scan_work(V, B, 8, 1, 2, 4),
-        f"V={V}, B={B}")
+        f"V={V}, B={B}", library=gauss_library)
 
     vb = torch.full_like(ms.beta, V_BC)
     lp0, lp1 = np.log(1.0 - PI_BC), np.log(PI_BC)
@@ -1190,12 +1222,15 @@ def keyed_phase():
                   f"({dev_ms} ms on the card), plain {ms_p:.4f} ms, torch.rand "
                   f"{median_ms(lambda: torch.rand(n, device=DEV), 20):.4f} ms")
         elif kind == keyed.NORMAL:
-            lib = median_ms(lambda: torch.randn(n, device=DEV), 20)
+            draw = lambda: torch.randn(n, device=DEV)  # noqa: E731
+            lib, lib_dev = median_ms(draw, 20), device_ms(draw, 20, records_per_launch=0)
+            library_moments("torch.randn", draw(), 0.0, 1.0)
             e, sc = rel_err(got, ref)
             report("keyed_rng", e, sc, TOL_NORMAL, ms_k, ms_p, (bytes_, ops),
                    f" (normal x {n:,}, BayesR's z at p_pad; not a TPU kernel: the counterpart of "
-                   f"jax.random under fold_in; operations counted at the f32 rate)",
-                   library_ms=lib, phase=ph, dev_ms=dev_ms)
+                   f"jax.random under fold_in; operations counted at the f32 rate; the library's "
+                   "stream is another, so its draws are held to the moments only)",
+                   library_ms=lib, phase=ph, dev_ms=dev_ms, library_dev_ms=lib_dev)
             rec["max_abs_err"] = e
         else:
             same = att == ref_att
@@ -1203,7 +1238,13 @@ def keyed_phase():
                   "keyed_rng gamma: an element never accepted")
             rel = ((got - ref).abs() / ref.abs())[same].max().item()
             share = 1.0 - same.float().mean().item()
-            lib = median_ms(lambda: torch._standard_gamma(alpha), 20)
+            draw = lambda: torch._standard_gamma(alpha)  # noqa: E731
+            lib, lib_dev = median_ms(draw, 20), device_ms(draw, 20, records_per_launch=0)
+            lib_draws = draw()
+            for i, s in enumerate(GAMMA_SHAPES):
+                library_moments(f"torch._standard_gamma({s:g})",
+                                lib_draws[i * N_GAMMA:(i + 1) * N_GAMMA] / s ** 0.5, s ** 0.5, 1.0,
+                                6.0 / s)
             per_shape = ", ".join(
                 f"{s:g}: mean {got[i * N_GAMMA:(i + 1) * N_GAMMA].mean().item():.4f}, attempts "
                 f"{(att[i * N_GAMMA:(i + 1) * N_GAMMA] + 1).float().mean().item():.4f}"
@@ -1211,12 +1252,25 @@ def keyed_phase():
             print(f"[{ph}] gamma x {n:,}: max rel err {rel:.3e} where the attempts agree (tol "
                   f"{TOL_GAMMA:g}); accepting attempt differs for a share {share:.3e} (limit "
                   f"{MAX_ATTEMPT_SHARE:g}); kernel {ms_k:.4f} ms ({dev_ms} ms on the card), plain "
-                  f"{ms_p:.4f} ms, torch._standard_gamma {lib:.4f} ms; by shape {per_shape}")
+                  f"{ms_p:.4f} ms, torch._standard_gamma {lib:.4f} ms ({lib_dev} ms on the card); "
+                  f"by shape {per_shape}")
             check(rel <= TOL_GAMMA and share <= MAX_ATTEMPT_SHARE,
                   "keyed_rng gamma departs from its plain version")
-            rec.update(max_abs_err=rel, attempts_differ=share, library_ms=lib)
+            rec.update(max_abs_err=rel, attempts_differ=share, library_ms=lib, library_device_ms=lib_dev)
         out[name] = rec
     return out
+
+
+def library_moments(name, x, mean, var, kurt=0.0):
+    """A library's draws, whose stream is not the kernel's, held to the
+    distribution's mean and variance (excess kurtosis kurt) within 6
+    standard errors."""
+    n = x.numel()
+    m, v = x.double().mean().item(), x.double().var().item()
+    ok = abs(m - mean) <= 6 * (var / n) ** 0.5 and abs(v - var) <= 6 * var * ((2.0 + kurt) / n) ** 0.5
+    print(f"[7 graph keyed_rng] {name} x {n:,}: mean {m:.4f} (expected {mean:g}), variance {v:.4f} "
+          f"(expected {var:g})")
+    check(ok, f"{name}: moments off")
 
 
 def replay_window(rep, n):
@@ -1455,11 +1509,104 @@ def work_re1(q):
     return 4 * q * (q + 1) // 2 + 5 * 4 * q, q * (q + 1)
 
 
-def re1_phase(plan, st):
+# RE1's edges beside the main path's q: one level, a group of 32 and one
+# either side, the look-ahead's 32 (L + 1) levels and one either side, one
+# past the old tile of 1,024, and 3,001 (q not a multiple of 4)
+RE1_EDGES = tuple(sorted({1, 31, 33, 1025, 3001} | {32 * (random_scan.LOOKAHEAD + 1) + d for d in (-1, 1)}))
+
+
+def re1_inputs(q, ive, ivu):
+    """RE1's inputs at q on a random positive-definite structure, seeded by q."""
+    g = torch.Generator(device=DEV).manual_seed(q)
+    m = torch.randn(q, q, generator=g, device=DEV) / q ** 0.5
+    yi, z, u = (torch.randn(q, generator=g, device=DEV) for _ in range(3))
+    return ((m @ m.T + torch.eye(q, device=DEV)).contiguous(), yi,
+            torch.rand(q, generator=g, device=DEV) * 3, z, u, ive, ivu)
+
+
+def other_level_scan(src):
+    """Another tree's RE1, built alone from its csrc/ directory src with this
+    tree's nvcc flags: (a function of level_scan_kernel's arguments, a
+    function giving its calls so far, the kernel records one call makes at
+    q). A tree before the persistent design (no ngt_level_scan_scratch_words)
+    takes q words of scratch and launches each of its two kernels once per
+    tile of 1,024 levels."""
+    out = _cuda.BUILD_ROOT / "re1_other"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in [*Path(src).glob("*.cuh"), Path(src) / "level_scan.cu"]:
+        shutil.copy(f, out / f.name)
+    so = out / "lib.so"
+    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so),
+                          str(out / "level_scan.cu")], capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"nvcc of {src}/level_scan.cu ({res.returncode}):\n{res.stderr[-3000:]}")
+    lib = ctypes.CDLL(str(so))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.ngt_level_scan.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    persistent = hasattr(lib, "ngt_level_scan_scratch_words")
+    if persistent:
+        lib.ngt_level_scan_scratch_words.argtypes = [i64]
+        lib.ngt_level_scan_scratch_words.restype = i64
+    calls = [0]
+
+    def level_scan(ivstr, yi, zpz, z, u, ive, ivu):
+        q = u.shape[0]
+        out, scratch = u.clone(), torch.empty(
+            lib.ngt_level_scan_scratch_words(q) if persistent else q, dtype=torch.float32, device=u.device)
+        _cuda.check(lib.ngt_level_scan(ivstr.data_ptr(), q, yi.data_ptr(), zpz.data_ptr(), z.data_ptr(),
+                                       out.data_ptr(), scratch.data_ptr(), ive.data_ptr(), ivu.data_ptr(),
+                                       _cuda.stream_of(u)), f"{src}: ngt_level_scan")
+        calls[0] += 1
+        return out
+
+    return level_scan, lambda: calls[0], lambda q: 1 if persistent else -(-q // 1024)
+
+
+def re1_arms(other, cases):
+    """RE1 of another tree (P, other_level_scan) and of this one (C) on the
+    same inputs, in turns P, C, C, P: each arm first held to the plain
+    version within TOL_RE1 with two runs the same bits, then timed on the
+    card alone (device_ms, 20 calls) and by event pair; and the library's
+    triangular solve on the same inputs on the card alone. cases: (label,
+    args) pairs. Returns the numbers by label."""
+    fn_p, calls_p, records_p = other
+    arms = {"P": fn_p, "C": random_scan.level_scan_kernel}
+    out = {}
+    for label, args in cases:
+        q = args[4].shape[0]
+        ref = random_scan.level_scan_plain(*args)
+        for arm, fn in arms.items():
+            o = fn(*args)
+            e, sc = rel_err(o, ref)
+            check(torch.isfinite(o).all().item() and e <= TOL_RE1 * sc and torch.equal(o, fn(*args)),
+                  f"level_scan {arm} at {label}: max_abs_err {e:.3e} of {sc:.3e}, or two runs differ")
+        rows = []
+        for arm in "PCCP":
+            fn = arms[arm]
+            dev = (device_ms(lambda: fn(*args), 20, records_p(q), calls=calls_p) if arm == "P"
+                   else device_ms(lambda: fn(*args), 20))
+            ev = median_ms(lambda: fn(*args), 20)
+            rows.append(dict(arm=arm, device_ms=dev, event_ms=ev))
+        mat, rhs = random_scan.level_scan_system(*args)
+        lib_dev = device_ms(lambda: torch.linalg.solve_triangular(
+            mat, rhs, upper=False, unitriangular=True), 20, records_per_launch=0)
+        del mat, rhs
+        print(f"[8 random] level_scan at {label}, arms P, C, C, P on the card alone (event pair): "
+              + ", ".join(f"{r['arm']} {r['device_ms']} ({r['event_ms']:.4f})" for r in rows)
+              + f" ms; torch.linalg.solve_triangular {lib_dev} ms on the card alone")
+        out[label] = dict(arms=rows, library_device_ms=lib_dev)
+    return out
+
+
+def re1_phase(plan, st, other=None):
     """8.1: RE1 against its plain version on the card at the BayesR+A path's
     shapes (q = 10,000, the dense A^-1 of a 5-generation pedigree), with a
-    second sweep's inputs (u from a first level scan), then at q = 1,
-    q = 1,025 and q = 3,001 on small random structures."""
+    second sweep's inputs (u from a first level scan), beside the one
+    PyTorch call that computes the same function (torch.linalg.solve_triangular
+    on the unit lower-triangular system, built outside the timed window,
+    held to the plain version too); then at RE1_EDGES on small random
+    structures. other: another tree's RE1 (other_level_scan), which re1_arms
+    then holds and times beside this tree's at q = 10,000 and 3,001; its
+    numbers are returned."""
     rs = st.random[0]
     q = rs.u.shape[0]
     gen = torch.Generator(device=DEV).manual_seed(5)
@@ -1481,20 +1628,25 @@ def re1_phase(plan, st):
     check(torch.equal(out, kern()), "level_scan: two runs differ")
     check(torch.isfinite(out).all().item(), "level_scan: not finite")
     e, sc = rel_err(out, ref)
-    tiles = -(-q // random_scan.TILE)
+    mat, rhs = random_scan.level_scan_system(*args)
+
+    def library():
+        return torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)[:, 0]
+
+    e_l, _ = rel_err(library(), ref)
+    check(e_l <= TOL_RE1 * sc, f"level_scan: torch.linalg.solve_triangular differs by {e_l:.3e}")
     ms_k, ms_p = median_ms(kern, 20), median_ms(plain, 3)
-    dev_ms = device_ms(kern, 10, records_per_launch=tiles)
+    dev_ms = device_ms(kern, 10)  # a call launches prep and scan once each
     by_kernel(kern, 10, "8 random", "level_scan")
     report("level_scan", e, sc, TOL_RE1, ms_k, ms_p, work_re1(q),
            f" (q = {q:,}, the dense A^-1 of a {GENS}-generation pedigree, a second sweep's inputs, "
-           f"{2 * tiles} launches a call; not a TPU kernel: the counterpart of the "
-           "level lax.scan of sample_random_uni)", phase="8 random", dev_ms=dev_ms)
-    for qs in (1, 1025, 3001):
-        g = torch.Generator(device=DEV).manual_seed(qs)
-        m = torch.randn(qs, qs, generator=g, device=DEV) / qs ** 0.5
-        yi_s, z_s, u_s = (torch.randn(qs, generator=g, device=DEV) for _ in range(3))
-        small = ((m @ m.T + torch.eye(qs, device=DEV)).contiguous(), yi_s,
-                 torch.rand(qs, generator=g, device=DEV) * 3, z_s, u_s, ive, ivu)
+           f"2 launches a call; the library call's u max_abs_err {e_l:.3e}, its system built outside "
+           "the timed window; not a TPU kernel: the counterpart of the level lax.scan of "
+           "sample_random_uni)", phase="8 random", dev_ms=dev_ms, library_ms=median_ms(library, 20),
+           library_dev_ms=device_ms(library, 20, records_per_launch=0))
+    del mat, rhs
+    for qs in RE1_EDGES:
+        small = re1_inputs(qs, ive, ivu)
         o, r = random_scan.level_scan_kernel(*small), random_scan.level_scan_plain(*small)
         same = torch.equal(o, random_scan.level_scan_kernel(*small))
         e, sc = rel_err(o, r)
@@ -1502,6 +1654,9 @@ def re1_phase(plan, st):
               f"{TOL_RE1:g} x scale); two launches {'bit-identical' if same else 'DIFFER'}")
         check(e <= TOL_RE1 * sc and same,
               f"level_scan at q = {qs} disagrees with its plain version or with itself")
+    if other is not None:
+        return re1_arms(other, [(f"q = {q:,}", args), ("q = 3,001", re1_inputs(3001, ive, ivu))])
+    return None
 
 
 def by_kernel(fn, reps, ph, name):
@@ -1668,10 +1823,11 @@ def cg_phase():
     return out
 
 
-def random_phase(spec_for, sig):
-    """8: RE1 against its plain version (8.1), BayesR+A (8.2) and GBLUP (8.3)
-    at 10,000 x 49,152, A-cg on 100,000 animals (8.4). Returns the numbers
-    and the launch counts by run."""
+def random_phase(spec_for, sig, other=None):
+    """8: RE1 against its plain version (8.1; and against another tree's,
+    other, where given), BayesR+A (8.2) and GBLUP (8.3) at 10,000 x 49,152,
+    A-cg on 100,000 animals (8.4). Returns the numbers and the launch counts
+    by run."""
     spec = spec_for("BayesR")
     y, md = spec.y, spec.markers[0].data
     t0 = time.perf_counter()
@@ -1685,9 +1841,9 @@ def random_phase(spec_for, sig):
     spec_a = ngt.ModelSpec(y=y + u_true, fixed=spec.fixed, markers=spec.markers, block_size=BLOCK,
                            random=[ngt.RandomTerm("A", eye, prior=ngt.Random("A", VAR_A), ivstr=ainv)])
     plan, st = ngt.assemble(spec_a, vshards=V_MAIN)
-    re1_phase(plan, st)
+    arms = re1_phase(plan, st, other)
     del plan, st
-    counted, out = {}, {}
+    counted, out = {}, {} if arms is None else {"RE1 arms": arms}
     counted["BayesR+A"], counted["BayesR+A keyed"], out["BayesR+A"] = random_path(
         "BayesR+A", spec_a, u_dev, V_MAIN, "planted polygenic u", marker_truth=sig)
     del spec_a
@@ -1708,11 +1864,13 @@ def random_phase(spec_for, sig):
     return out, counted
 
 
-def random_only(spec_for, sig, card):
-    """`python3 chip_smoke.py random`: phase 8 alone, the quick form for
-    work on the random effects. One JSON line of its numbers, and no result
+def random_only(spec_for, sig, card, other_src=None):
+    """`python3 chip_smoke.py random [DIR]`: phase 8 alone, the quick form
+    for work on the random effects; with DIR, RE1 also against DIR's
+    (another tree's csrc/). One JSON line of its numbers, and no result
     line."""
-    out, counted = random_phase(spec_for, sig)
+    other = None if other_src is None else other_level_scan(other_src)
+    out, counted = random_phase(spec_for, sig, other)
     print(json.dumps({"card": card, "random": out, "launches": counted,
                       "level_scan": TIMINGS.get("level_scan")}))
 
@@ -1852,9 +2010,9 @@ def main(argv=()):
         return graph_only(spec_for, sig, card)
     if list(argv) == ["chains"]:
         return chains_only(spec_for, card)
-    if list(argv) == ["random"]:
-        return random_only(spec_for, sig, card)
-    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains or random")
+    if list(argv[:1]) == ["random"] and len(argv) <= 2:
+        return random_only(spec_for, sig, card, *argv[1:])
+    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains or random [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

@@ -10,153 +10,573 @@
 // where the levels before i hold their new u and those after i their old
 // one. A is the dense symmetric inverse structure (q, q) (I, A^-1 or
 // G^-1), ive = 1/varE and ivu = 1/varU are read on the card (so that a
-// replayed graph reads this sweep's values).
-//
-// Design: blocked right-looking, in tiles of up to 1,024 levels.
-//   pre[i] = sum_{k > i} A[i, k] u_old[k]   (the strict upper triangle, one
-//            launch over all rows, a warp per row)
-//   for each tile [s, e):
-//     the tile's levels in order on the scan skeleton (scan_skeleton.cuh):
-//       one block, a thread per level holding pre[i] plus its right-looking
-//       in-tile sum, a warp per 32 levels with the diagonal tile in shared
-//       memory and one barrier per group; the rule is the three lines above
-//       folded into u[i] = c[i] - b[i] * pre (LevelRule), K6's Gaussian rule
-//       with ivu * A as the coupling
-//     pre[r] += sum_{c in [s, e)} A[r, c] u_new[c] for every later row r
-//       (a warp per row, all rows of the later tiles at once)
-// so each level sees its earlier levels' new values and its later levels'
-// old ones, as the reference's loop does. Every sum has a fixed order and
-// nothing is atomic: two runs give the same bits. The plain version
-// (ops/random_scan.level_scan_plain) runs the same blocks in the same order.
+// replayed graph reads this sweep's values). With a = 1 / lhs,
+// c = yi * a + z * sqrt(a) and b = ivu * a, a level is one FMA,
+// u[i] = c[i] - b[i] * pre[i], pre[i] the sum above.
 //
 // Bound: bytes. The function needs A's lower triangle (by symmetry), once:
 // q^2 / 2 floats, 200 MB at q = 10,000 (0.060 ms at 3.35 TB/s). This form
-// reads all of A once, as the reference's loop does (0.119 ms), the upper
-// triangle in the first launch and the lower one in the panels, each at the
-// whole card's rate; the tiles' sequential chains (a shuffle and two
-// dependent FMAs per level) are latency. One call is 2 * ceil(q / 1024)
-// launches.
-#include "scan_skeleton.cuh"
+// reads all of A once, as the reference's loop does (0.119 ms); the chain of
+// q dependent levels is latency.
+//
+// Design: two launches, the second persistent with a look-ahead.
+//  1. prep, a warp per row: up[r] = sum_{k > r} A[r, k] u_old[k] (the strict
+//     upper triangle), the level's (c, b), the row's part of the band (its
+//     32 (L + 1) columns up to its group's end, copied 16-byte aligned
+//     whatever q), and the row's published u and far sum set to an empty
+//     mark.
+//  2. scan, one grid no larger than the card holds at once. The levels go in
+//     groups of 32; a row block is a group's 32 rows, a segment its 32
+//     columns. Block 0 runs the chain on one warp and feeds it from two
+//     others; every warp of the other blocks owns row blocks R > L (L =
+//     kLook) and adds into them, segment by segment as the chain publishes
+//     them, the new u of every segment s <= R - L - 1 ("far"). The chain's
+//     SM reads only the groups' bands, 32 x 32 (L + 1) floats a group; the
+//     rest of A goes through the other SMs. Row r of group g sums, in this
+//     order,
+//       ((up[r] + far[r]) + win[r]) + carry[r], then its group's new u's
+//     win: segments g - L .. g - 2, by block 0's window warp, all but the
+//     last before the chain ends group g - 2; carry: segment g - 1, added by
+//     the chain warp itself while it runs group g - 1 (an FMA per level
+//     beside the chain, off its dependent path). Block 0's warps:
+//       0 chain: a lane per level of the group, its pre in a register. The
+//         levels go four at a time: four shuffles fetch their pre's at once,
+//         and within the four, u[j + m] = (c - b pre) - sum_{l < m} e_ml u[j + l]
+//         with e_ml = b[j + m] A[j + m, j + l], so that the four cost one
+//         shuffle's latency and five FMAs on the dependent path. Lane 0
+//         keeps each four u's in shared memory (one 16-byte store: a select
+//         of its own u in every lane cost ~600 cycles a group on the
+//         in-order path of an H100), and the group's u go to device memory
+//         as it ends
+//       1 window
+//       2 stager: cp.async of the next groups' bands, (c, b) and up into a
+//         ring of kSlots, kSlots - 2 groups in flight, then the group's e
+//     meeting on counters in shared memory. The chain loads group g + 1's
+//     far sums while it runs group g, and an owner the next segment's u
+//     while it sums the last: a read of device memory is a round trip of
+//     ~700 cycles, and one a group on the chain's path capped it at ~1,900
+//     cycles a group (H100). An owner warp stages its 32 x 32 blocks through
+//     shared memory ahead of time (coalesced rows, padded to 36 words),
+//     waits for a segment's u, and when its last segment is in writes
+//     far[R]. No flag and no fence: a published word is its own flag. prep
+//     fills the published u's and far sums with an empty mark, a NaN that
+//     no arithmetic on the card yields (it returns the canonical NaN), and a
+//     reader polls its 32 words with relaxed loads at device scope until no
+//     lane sees the mark; each word is written once, so a word read is the
+//     word written. The marks are set in the call, so a replayed graph needs
+//     no reset from the host. Block 0 and the owners wait for each other,
+//     so every block of the grid must be resident at once: the scan is a
+//     cooperative launch, which the driver runs with all its blocks on the
+//     card or refuses with an error (a grid larger than the card holds), and
+//     which a stream capture takes as a cooperative graph node. A wait then
+//     only ever lasts for work in flight; one that outlasts ~1 s all the same
+//     traps (an error, never a hang).
+// Every sum has a fixed order and nothing is atomic: two runs give the same
+// bits, whatever the timing. The plain version
+// (ops/random_scan.level_scan_plain) runs the same blocks in the same order.
+// One call is two launches.
+#include <cuda_pipeline.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr long long kTileLevels = 1024;
-constexpr int kRowWarps = 8;  // rows per block of the row-dot launches
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowWarps = 8;   // rows per block of the prep launch
+constexpr int kLook = 5;       // L: groups between a segment's publication and its far rows' chain
+constexpr int kBand = kLook + 1;  // segments of a group's band: g - L .. g
+constexpr int kSlots = 7;      // block 0's ring of group bands
+constexpr int kInFlight = kSlots - 2;  // groups the stager keeps in flight
+constexpr int kURing = kLook + 2;  // groups of new u block 0 keeps
+constexpr int kOwnSlots = 4;   // an owner warp's ring of staged blocks
+constexpr int kMaxOwn = 16;    // row blocks per owner warp
+constexpr int kWarps = 4;      // warps per block of the scan launch: one per scheduler
+constexpr int kStride = 36;    // words per staged row: 16-byte aligned, conflict-free 16-byte reads
+constexpr int kBlockWords = 32 * kStride;
+constexpr int kEmpty = 0x7fbad0e5;  // a NaN: no arithmetic on the card yields it
+constexpr long long kSpinLimit = 1LL << 25;  // ~1 s of reads in shared memory
+constexpr long long kPollLimit = 1LL << 22;  // ~1 s of reads in device memory
+static_assert(kInFlight >= 1 && kInFlight <= kSlots - 1, "the chain reads two groups' bands");
+static_assert(kLook >= 2 && kURing >= kLook + 1, "the window is segments g - L .. g - 2");
 
-// pre[r] (=, or += when accumulate) sum_{c in [lo, c1)} A[r, c] * u[c] for
-// rows r0 <= r < r0 + nrows, lo = max(c0, r + 1) when strict (the strict
-// upper triangle), else c0. A warp per row: lane l sums the columns lo + l,
-// lo + l + 32, ... in four partial sums, then the warp's fixed shuffle tree.
-__global__ void __launch_bounds__(32 * kRowWarps)
-    row_dots_kernel(const float* __restrict__ A, long long ld, const float* __restrict__ u,
-                    float* __restrict__ pre, long long r0, long long nrows, long long c0,
-                    long long c1, bool strict, bool accumulate) {
-  const int lane = threadIdx.x & 31;
-  const long long r = r0 + (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
-  if (r >= r0 + nrows) return;
-  const long long lo = strict && r + 1 > c0 ? r + 1 : c0;
-  const float* row = A + r * ld;
+// A group's band in block 0: blocks j = 0 .. L of A[rows of g, segment
+// g - L + j] (j = L the diagonal block), the levels' (c, b), up, win,
+// and the e of its eight quads (e[8 k + m (m - 1) / 2 + l] for level 4 k + m).
+struct Slot {
+  float blk[kBand * kBlockWords];
+  float2 cb[32];
+  float e[64];
+  float up[32];
+  float win[32];
+};
+enum { kStaged, kWinOk, kDone, kCounters };
+
+constexpr size_t kChainBytes = kSlots * sizeof(Slot) + kURing * 32 * sizeof(float) + 32 * sizeof(int);
+constexpr size_t kOwnerWords = kOwnSlots * kBlockWords + kMaxOwn * 32;
+constexpr size_t kOwnerBytes = kWarps * kOwnerWords * sizeof(float);
+constexpr size_t kScanSmem = kChainBytes > kOwnerBytes ? kChainBytes : kOwnerBytes;
+
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.global.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
+}
+
+// Wait until a counter of block 0 reaches v, sleeping between reads (the
+// chain warp spins on its two counters itself, without sleeping).
+__device__ __forceinline__ void wait_ge(const volatile int* c, int v) {
+  long long n = 0;
+  while (*c < v) {
+    if (++n > kSpinLimit) __trap();
+    __nanosleep(32);
+  }
+  __threadfence_block();
+}
+
+// Raise a counter of block 0 to v once the warp's shared-memory writes are seen.
+__device__ __forceinline__ void raise(volatile int* c, int v, int lane) {
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) *c = v;
+}
+
+// The 32 published words p[0 .. 31], lane l's in lane l, once every lane
+// sees its word written. No sleep between reads: the readers are the chain
+// and the owners whose sums it waits for.
+__device__ __forceinline__ float wait_words(const float* p, int lane) {
+  long long n = 0;
+  for (;;) {
+    const float v = ld_relaxed(p + lane);
+    if (__all_sync(kFull, __float_as_int(v) != kEmpty)) return v;
+    if (++n > kPollLimit) __trap();
+  }
+}
+
+// Copy a group's band (kBand 32 x 32 blocks, rows 32 words apart) into dst
+// (rows kStride words apart) with 16-byte cp.async, eight lanes a row, four
+// rows a copy. Unrolled, every copy is one instruction at a constant offset
+// from the lane's first: with the offsets computed per copy the stager fell
+// behind the chain at L = 5 (H100).
+__device__ __forceinline__ void stage_band(float* dst, const float* src, int lane) {
+  float* d = dst + (lane >> 3) * kStride + (lane & 7) * 4;
+  const float* s = src + (lane >> 3) * 32 + (lane & 7) * 4;
+#pragma unroll
+  for (int b = 0; b < kBand; ++b) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      __pipeline_memcpy_async(d + b * kBlockWords + i * 4 * kStride, s + b * 1024 + i * 128, 16);
+    }
+  }
+}
+
+// A[r0 .. r0 + 31, c0 .. c0 + 31] from A itself: 16-byte copies where q % 4
+// == 0 and A is 16-byte aligned (wide), else 4-byte copies, a lane a column.
+// A block inside A takes the unrolled copies with no bounds checks (an
+// owner's blocks all do but in the last row block).
+__device__ __forceinline__ void stage_block(float* dst, const float* A, long long q, long long r0,
+                                            long long c0, bool wide, int lane) {
+  if (r0 + 32 <= q && c0 + 32 <= q) {
+    if (wide) {
+      const float* s = A + (r0 + (lane >> 3)) * q + c0 + (lane & 7) * 4;
+      float* d = dst + (lane >> 3) * kStride + (lane & 7) * 4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i, s += 4 * q) __pipeline_memcpy_async(d + i * 4 * kStride, s, 16);
+    } else {
+      const float* s = A + r0 * q + c0 + lane;
+#pragma unroll
+      for (int row = 0; row < 32; ++row, s += q) __pipeline_memcpy_async(dst + row * kStride + lane, s, 4);
+    }
+    return;
+  }
+  if (wide) {
+#pragma unroll
+    for (int t = lane; t < 256; t += 32) {
+      const int row = t >> 3, col = (t & 7) * 4;
+      float* d = dst + row * kStride + col;
+      if (r0 + row < q && c0 + col < q) {
+        __pipeline_memcpy_async(d, A + (r0 + row) * q + c0 + col, 16);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int row = 0; row < 32; ++row) {
+      float* d = dst + row * kStride + lane;
+      if (r0 + row < q && c0 + lane < q) {
+        __pipeline_memcpy_async(d, A + (r0 + row) * q + c0 + lane, 4);
+      } else {
+        *d = 0.f;
+      }
+    }
+  }
+}
+
+// sum_c row[c] * u_c; row: 32 floats in shared memory, u_c in lane c's uc;
+// four interleaved partial sums added in a fixed order.
+__device__ __forceinline__ float row_dot_lanes(const float* row, float uc) {
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-  long long c = lo + lane;
-  for (; c + 96 < c1; c += 128) {
+#pragma unroll
+  for (int c = 0; c < 32; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c);
+    s0 = fmaf(a.x, __shfl_sync(kFull, uc, c), s0);
+    s1 = fmaf(a.y, __shfl_sync(kFull, uc, c + 1), s1);
+    s2 = fmaf(a.z, __shfl_sync(kFull, uc, c + 2), s2);
+    s3 = fmaf(a.w, __shfl_sync(kFull, uc, c + 3), s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// sum_c row[c] * u[c], both 32 floats in shared memory (u read by every
+// lane alike), in four interleaved partial sums added in a fixed order.
+__device__ __forceinline__ float row_dot_shared(const float* row, const float* u) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c);
+    const float4 v = *reinterpret_cast<const float4*>(u + c);
+    s0 = fmaf(a.x, v.x, s0);
+    s1 = fmaf(a.y, v.y, s1);
+    s2 = fmaf(a.z, v.z, s2);
+    s3 = fmaf(a.w, v.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// 1. prep: a warp per row r < 32 G. Lane l sums the columns r + 1 + l,
+// r + 33 + l, ... in four partial sums, then the warp's fixed shuffle tree.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    prep_kernel(const float* __restrict__ A, long long q, int G, const float* __restrict__ u,
+                const float* __restrict__ yi, const float* __restrict__ zpz,
+                const float* __restrict__ z, const float* __restrict__ ive,
+                const float* __restrict__ ivu, float* __restrict__ up, float2* __restrict__ cb,
+                float* __restrict__ unew, float* __restrict__ far, float* __restrict__ band) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= 32LL * G) return;
+  const long long g = r >> 5;
+  float* brow = band + (g * kBand * 32 + (r & 31)) * 32;  // band[g][j][r & 31][c]
+  const float* row = A + r * q;
+#pragma unroll
+  for (int j = 0; j < kBand; ++j) {
+    const long long c = 32 * (g - kLook + j) + lane;
+    brow[j * 1024 + lane] = r < q && c >= 0 && c < q ? __ldg(row + c) : 0.f;
+  }
+  if (lane == 0) unew[r] = far[r] = __int_as_float(kEmpty);
+  if (r >= q) {  // a pad level: u = 0 - 0 * pre, and nothing added to it
+    if (lane == 0) {
+      up[r] = 0.f;
+      cb[r] = make_float2(0.f, 0.f);
+    }
+    return;
+  }
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  long long c = r + 1 + lane;
+  for (; c + 96 < q; c += 128) {
     s0 = fmaf(__ldg(row + c), __ldg(u + c), s0);
     s1 = fmaf(__ldg(row + c + 32), __ldg(u + c + 32), s1);
     s2 = fmaf(__ldg(row + c + 64), __ldg(u + c + 64), s2);
     s3 = fmaf(__ldg(row + c + 96), __ldg(u + c + 96), s3);
   }
-  for (; c < c1; c += 32) s0 = fmaf(__ldg(row + c), __ldg(u + c), s0);
+  for (; c < q; c += 32) s0 = fmaf(__ldg(row + c), __ldg(u + c), s0);
   const float s = ngt::warp_sum((s0 + s1) + (s2 + s3));
-  if (lane == 0) pre[r] = accumulate ? pre[r] + s : s;
+  if (lane == 0) {
+    up[r] = s;
+    const float iv = __ldg(ivu);
+    const float a = 1.f / (__ldg(zpz + r) * __ldg(ive) + __ldg(row + r) * iv);
+    cb[r] = make_float2(__ldg(yi + r) * a + __ldg(z + r) * sqrtf(a), iv * a);
+  }
 }
 
-int row_dots(const float* A, long long q, const float* u, float* pre, long long r0, long long nrows,
-             long long c0, long long c1, bool strict, bool accumulate, cudaStream_t stream) {
-  const long long blocks = (nrows + kRowWarps - 1) / kRowWarps;
-  row_dots_kernel<<<(unsigned)blocks, 32 * kRowWarps, 0, stream>>>(A, q, u, pre, r0, nrows, c0, c1,
-                                                                   strict, accumulate);
-  return (int)cudaGetLastError();
-}
-
-struct LevelParams {
-  const float* pre;   // (B,) at the tile's first level
-  const float* diag;  // A[s, s]: level i's diagonal is diag[i * (ld + 1)]
-  long long ld;       // A's row stride, q
-  const float* yi;    // (B,) Z' ycorr / varE
-  const float* zpz;   // (B,) diag of Z'Z (weighted)
-  const float* z;     // (B,) standard normals
-  float* u;           // (B,) the new u, written at the end
-  const float* ive;   // () 1 / varE
-  const float* ivu;   // () 1 / varU
+struct ScanArgs {
+  const float* A;
+  long long q;
+  int G;           // groups, ceil(q / 32)
+  int owners;      // owner warps: every warp of blocks 1 ..
+  bool wide;       // 16-byte copies of A's rows
+  const float* up;    // (32 G,) from prep
+  const float2* cb;   // (32 G,) from prep
+  const float* band;  // (G, L + 1, 32, 32) from prep
+  float* far;         // (32 G,) the owners' sums, published
+  float* unew;        // (32 G,) the new u, published
+  float* u;           // (q,) the new u
 };
 
-// The rule of one level on the skeleton. Nothing of a level's update but
-// its pre depends on the levels before it, so thread i folds the rest into
-// two numbers before the scan starts,
-//   a = 1 / (zpz[i] * ive + A[i, i] * ivu)
-//   c = yi[i] * a + z[i] * sqrt(a),   b = ivu * a,
-// and the level's turn is one FMA, u[i] = c - b * pre, where the division
-// and the square root would sit on the chain of every level. Thread i writes
-// its (c, b) into shared memory at i, and warp w runs the levels of its own
-// threads, so the skeleton's first __syncwarp orders the writes before the
-// reads. Nothing is staged per group.
-struct LevelRule {
-  static constexpr int kGrams = 1;
-  using Params = LevelParams;
+// Block 0, warp 0: the chain, four levels a step.
+__device__ __forceinline__ void chain_warp(const ScanArgs& a, Slot* slots, float (*uring)[32],
+                                           volatile int* ctr, int lane) {
+  // far of row block g (0 up to L: no segment is that far back), loaded a group ahead
+  auto far_load = [&](int g) { return g > kLook && g < a.G ? ld_relaxed(a.far + 32LL * g + lane) : 0.f; };
+  float carry = 0.f, far_next = 0.f;
+  for (int g = 0; g < a.G; ++g) {
+    const bool next = g + 1 < a.G;
+    long long n = 0;
+    while (ctr[kStaged] < (next ? g + 2 : g + 1) || ctr[kWinOk] < g + 1) {
+      if (++n > kSpinLimit) __trap();
+    }
+    __threadfence_block();
+    float far = far_next;
+    if (g > kLook && !__all_sync(kFull, __float_as_int(far) != kEmpty)) {
+      far = wait_words(a.far + 32LL * g, lane);
+    }
+    far_next = far_load(g + 1);
+    const Slot& s = slots[g % kSlots];
+    float acc = ((s.up[lane] + far) + s.win[lane]) + carry;
+    float d[32], dn[32];
+    const float* drow = s.blk + kLook * kBlockWords + lane * kStride;  // A[32 g + lane, 32 g + c]
+    const float* nrow = slots[(g + 1) % kSlots].blk + (kLook - 1) * kBlockWords + lane * kStride;
+#pragma unroll
+    for (int c = 0; c < 32; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(drow + c);
+      d[c] = x.x, d[c + 1] = x.y, d[c + 2] = x.z, d[c + 3] = x.w;
+      const float4 y = next ? *reinterpret_cast<const float4*>(nrow + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      dn[c] = y.x, dn[c + 1] = y.y, dn[c + 2] = y.z, dn[c + 3] = y.w;
+    }
+    carry = 0.f;
+    float* ug = uring[g % kURing];  // the window's reads of this slot's old group are done
+    const float4* cb4 = reinterpret_cast<const float4*>(s.cb);
+    const float4* e4 = reinterpret_cast<const float4*>(s.e);
+#pragma unroll
+    for (int j = 0; j < 32; j += 4) {
+      const float4 k01 = cb4[j / 2], k23 = cb4[j / 2 + 1];  // (c, b) of levels j .. j + 3
+      const float4 ea = e4[j / 2], eb = e4[j / 2 + 1];      // e10 e20 e21 e30, e31 e32
+      const float p0 = __shfl_sync(kFull, acc, j), p1 = __shfl_sync(kFull, acc, j + 1);
+      const float p2 = __shfl_sync(kFull, acc, j + 2), p3 = __shfl_sync(kFull, acc, j + 3);
+      const float u0 = fmaf(-k01.y, p0, k01.x);
+      float t1 = fmaf(-k01.w, p1, k01.z), t2 = fmaf(-k23.y, p2, k23.x), t3 = fmaf(-k23.w, p3, k23.z);
+      const float u1 = fmaf(-ea.x, u0, t1);
+      t2 = fmaf(-ea.y, u0, t2);
+      t3 = fmaf(-ea.w, u0, t3);
+      const float u2 = fmaf(-ea.z, u1, t2);
+      t3 = fmaf(-eb.x, u1, t3);
+      const float u3 = fmaf(-eb.y, u2, t3);
+      if (lane == 0) *reinterpret_cast<float4*>(ug + j) = make_float4(u0, u1, u2, u3);
+      acc = fmaf(d[j], u0, acc);  // the later levels of this group
+      acc = fmaf(d[j + 1], u1, acc);
+      acc = fmaf(d[j + 2], u2, acc);
+      acc = fmaf(d[j + 3], u3, acc);
+      carry = fmaf(dn[j], u0, carry);  // the next group's rows
+      carry = fmaf(dn[j + 1], u1, carry);
+      carry = fmaf(dn[j + 2], u2, carry);
+      carry = fmaf(dn[j + 3], u3, carry);
+    }
+    raise(ctr + kDone, g + 1, lane);
+    const float mine = ug[lane];
+    st_relaxed(a.unew + 32LL * g + lane, mine);
+    if (32LL * g + lane < a.q) a.u[32LL * g + lane] = mine;
+  }
+}
 
-  Params p;
-  const float2* cb;
-  float s0 = 0.f, uo = 0.f;
+// Block 0, warp 1: win of row block g, its sum over segments g - L .. g - 2
+// in order: the first L - 2 as soon as the band is in (groups up to g - 3
+// are done by then), the last once group g - 2 is, so that one block's sum
+// lies between the chain's end of group g - 2 and its start of group g.
+__device__ __forceinline__ void window_warp(const ScanArgs& a, Slot* slots, float (*uring)[32],
+                                            volatile int* ctr, int lane) {
+  for (int g = 0; g < 2 && g < a.G; ++g) slots[g].win[lane] = 0.f;
+  raise(ctr + kWinOk, a.G < 2 ? a.G : 2, lane);
+  for (int g = 2; g < a.G; ++g) {
+    wait_ge(ctr + kStaged, g + 1);
+    Slot& s = slots[g % kSlots];
+    float win = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLook - 2; ++j) {  // segments g - L .. g - 3
+      const int sg = g - kLook + j;
+      if (sg >= 0) win += row_dot_shared(s.blk + j * kBlockWords + lane * kStride, uring[sg % kURing]);
+    }
+    long long n = 0;
+    while (ctr[kDone] < g - 1) {  // group g - 2 done; no sleep: the chain is a group from its start
+      if (++n > kSpinLimit) __trap();
+    }
+    __threadfence_block();
+    s.win[lane] = win + row_dot_shared(s.blk + (kLook - 2) * kBlockWords + lane * kStride,
+                                       uring[(g - 2) % kURing]);
+    raise(ctr + kWinOk, g + 1, lane);
+  }
+}
 
-  __device__ __forceinline__ LevelRule(const Params& prm, float* smem, int, int B, int i)
-      : p(prm), cb(reinterpret_cast<const float2*>(smem)) {
-    if (i < B) {
-      s0 = __ldg(p.pre + i);
-      const float ive = __ldg(p.ive), ivu = __ldg(p.ivu);
-      const float a = 1.f / (__ldg(p.zpz + i) * ive + __ldg(p.diag + (size_t)i * (p.ld + 1)) * ivu);
-      reinterpret_cast<float2*>(smem)[i] =
-          make_float2(__ldg(p.yi + i) * a + __ldg(p.z + i) * sqrtf(a), ivu * a);
+// The e of a staged group's quads: lane r = 4 k + m (m >= 1) writes
+// e_ml = b[r] A[r, 4 k + l] for l < m.
+__device__ __forceinline__ void quad_coupling(Slot& s, int lane) {
+  const int m = lane & 3;
+  const float b = s.cb[lane].y;
+  const float* row = s.blk + kLook * kBlockWords + lane * kStride + (lane & ~3);
+  for (int l = 0; l < m; ++l) s.e[8 * (lane >> 2) + m * (m - 1) / 2 + l] = b * row[l];
+}
+
+// Block 0, warp 2: the bands of the groups ahead, into slot g % kSlots once
+// group g - kSlots is done, kInFlight groups in flight; "staged" counts the
+// groups whose copies are in and whose e is written.
+__device__ __forceinline__ void stager_warp(const ScanArgs& a, Slot* slots, volatile int* ctr, int lane) {
+  for (int g = 0; g < a.G; ++g) {
+    wait_ge(ctr + kDone, g - kSlots + 1);
+    Slot& s = slots[g % kSlots];
+    stage_band(s.blk, a.band + (size_t)g * kBand * 1024, lane);
+    if (lane < 16) {
+      __pipeline_memcpy_async(reinterpret_cast<float*>(s.cb) + 4 * lane,
+                              reinterpret_cast<const float*>(a.cb + 32LL * g) + 4 * lane, 16);
+    } else if (lane < 24) {
+      __pipeline_memcpy_async(s.up + 4 * (lane - 16), a.up + 32LL * g + 4 * (lane - 16), 16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(kInFlight - 1);
+    const int in = g - kInFlight + 1;  // the group now in
+    if (in >= 0) {
+      __syncwarp();
+      quad_coupling(slots[in % kSlots], lane);
+      raise(ctr + kStaged, in + 1, lane);
     }
   }
-
-  __device__ __forceinline__ float start(int) const { return s0; }
-  __device__ __forceinline__ float u() const { return uo; }
-  __device__ __forceinline__ void stage(int, int, int) {}
-  __device__ __forceinline__ void begin_group(int, int, int, int) {}
-
-  __device__ __forceinline__ float locus(int j0, int jj, const float (&pre)[1], float, int lane) {
-    const float2 k = cb[j0 + jj];
-    const float uj = fmaf(-k.y, pre[0], k.x);
-    if (lane == jj) uo = uj;
-    return uj;
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  for (int in = a.G - kInFlight + 1 > 0 ? a.G - kInFlight + 1 : 0; in < a.G; ++in) {
+    quad_coupling(slots[in % kSlots], lane);
   }
+  raise(ctr + kStaged, a.G, lane);
+}
 
-  __device__ __forceinline__ void finish(int i) const { p.u[i] = uo; }
-};
+// Every warp of blocks 1 ..: owner `ow` of the row blocks R = L + 1 + ow +
+// k * owners. Its work items (s, k) go in ascending s, then k: the segment
+// s's block of row block R_k for every R_k with s <= R_k - L - 1. They are
+// staged kOwnSlots - 1 ahead; a segment's u is awaited before its first
+// item is summed.
+__device__ __forceinline__ void owner_warp(const ScanArgs& a, float* smem, int ow, int lane) {
+  const int R0 = kLook + 1 + ow, W = a.owners;
+  if (R0 >= a.G) return;
+  const int nown = (a.G - 1 - R0) / W + 1;
+  const int s_end = R0 + (nown - 1) * W - kLook;  // items have s < s_end
+  float* ring = smem;
+  float* accs = smem + kOwnSlots * kBlockWords;
+  auto first_k = [&](int s) {
+    const int need = s + kLook + 1 - R0;
+    return need <= 0 ? 0 : (need + W - 1) / W;
+  };
+  int is = 0, ik = 0;  // the next item to stage
+  auto stage_next = [&](int slot) {
+    if (is < s_end) {
+      stage_block(ring + slot * kBlockWords, a.A, a.q, 32LL * (R0 + ik * W), 32LL * is, a.wide, lane);
+      if (++ik == nown) ik = first_k(++is);
+    }
+    __pipeline_commit();
+  };
+#pragma unroll 1
+  for (int t = 0; t < kOwnSlots - 1; ++t) stage_next(t);
+  int cs = 0, ck = 0, seen = -1;
+  float us = 0.f, us_next = __int_as_float(kEmpty);  // the next segment's u, loaded ahead
+#pragma unroll 1
+  for (int t = 0; cs < s_end; ++t) {
+    stage_next((t + kOwnSlots - 1) % kOwnSlots);
+    __pipeline_wait_prior(kOwnSlots - 1);
+    __syncwarp();
+    if (cs != seen) {
+      us = __all_sync(kFull, __float_as_int(us_next) != kEmpty) ? us_next
+                                                               : wait_words(a.unew + 32LL * cs, lane);
+      us_next = cs + 1 < s_end ? ld_relaxed(a.unew + 32LL * (cs + 1) + lane) : 0.f;
+      seen = cs;
+    }
+    const int R = R0 + ck * W;
+    const float dot = row_dot_lanes(ring + (t % kOwnSlots) * kBlockWords + lane * kStride, us);
+    const float acc = cs == 0 ? dot : accs[ck * 32 + lane] + dot;
+    if (cs == R - kLook - 1) {
+      st_relaxed(a.far + 32LL * R + lane, acc);  // pad rows: 0
+    } else {
+      accs[ck * 32 + lane] = acc;
+    }
+    __syncwarp();  // the slot is read; the next stage may refill it
+    if (++ck == nown) ck = first_k(++cs);
+  }
+}
+
+// 2. scan: block 0 the chain and its two feeders, the rest owners.
+__global__ void __launch_bounds__(32 * kWarps, 1) scan_kernel(const ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (blockIdx.x > 0) {
+    owner_warp(a, reinterpret_cast<float*>(sm) + warp * kOwnerWords,
+               (blockIdx.x - 1) * kWarps + warp, lane);
+    return;
+  }
+  Slot* slots = reinterpret_cast<Slot*>(sm);
+  float(*uring)[32] = reinterpret_cast<float(*)[32]>(sm + kSlots * sizeof(Slot));  // 16-byte aligned
+  volatile int* ctr = reinterpret_cast<volatile int*>(sm + kSlots * sizeof(Slot) +
+                                                      kURing * 32 * sizeof(float));
+  if (threadIdx.x < kCounters) ctr[threadIdx.x] = 0;
+  __syncthreads();
+  switch (warp) {
+    case 0: chain_warp(a, slots, uring, ctr, lane); break;
+    case 1: window_warp(a, slots, uring, ctr, lane); break;
+    case 2: stager_warp(a, slots, ctr, lane); break;
+    default: break;  // block 0's fourth warp: the owner blocks' shape, no role
+  }
+}
 
 }  // namespace
 
-// One level scan: u (q,) is updated in place from its old values; pre (q,)
-// is scratch. A (q, q) row-major, every pointer float32 on one device.
+// Scratch words one call needs: up, far, (c, b) and the published u per
+// padded level, and the band.
+extern "C" long long ngt_level_scan_scratch_words(long long q) {
+  const long long G = (q + 31) / 32;
+  return 5 * 32 * G + G * kBand * 1024;
+}
+
+// One level scan: u (q,) is updated in place from its old values; scratch
+// holds ngt_level_scan_scratch_words(q) floats. A (q, q) row-major, every
+// pointer float32 on one device.
 extern "C" int ngt_level_scan(const void* A, long long q, const void* yi, const void* zpz,
-                              const void* z, void* u, void* pre, const void* ive, const void* ivu,
-                              void* stream) {
-  const float* a = (const float*)A;
-  float* uu = (float*)u;
-  float* pp = (float*)pre;
+                              const void* z, void* u, void* scratch, const void* ive,
+                              const void* ivu, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = row_dots(a, q, uu, pp, 0, q, 0, q, true, false, st);
-  if (err) return err;
-  for (long long s = 0; s < q; s += kTileLevels) {
-    const long long e = s + kTileLevels < q ? s + kTileLevels : q;
-    const LevelParams prm{pp + s, a + s * q + s, q, (const float*)yi + s, (const float*)zpz + s,
-                          (const float*)z + s, uu + s, (const float*)ive, (const float*)ivu};
-    err = ngt::scan::launch_strided<LevelRule>(a + s * q + s, nullptr, prm, 1, e - s, q,
-                                               2 * (e - s), stream);
-    if (err) return err;
-    if (e < q) {
-      err = row_dots(a, q, uu, pp, e, q - e, s, e, false, true, st);
-      if (err) return err;
+  const int G = (int)((q + 31) / 32);
+  float* up = (float*)scratch;
+  float* far = up + 32LL * G;
+  float2* cb = reinterpret_cast<float2*>(far + 32LL * G);
+  float* unew = reinterpret_cast<float*>(cb + 32LL * G);
+  float* band = unew + 32LL * G;
+  const long long rows = 32LL * G;
+  prep_kernel<<<(unsigned)((rows + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, st>>>(
+      (const float*)A, q, G, (const float*)u, (const float*)yi, (const float*)zpz, (const float*)z,
+      (const float*)ive, (const float*)ivu, up, cb, unew, far, band);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // blocks the card holds at once, per device, asked once (before any capture)
+  static long long resident_on[64];
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident_on[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kScanSmem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel, 32 * kWarps, kScanSmem);
     }
+    if (err != cudaSuccess) return (int)err;
+    resident_on[dev] = (long long)sms * per_sm;
   }
-  return 0;
+  // owners for the row blocks with far sums, at most kMaxOwn each, in a
+  // grid the card holds at once (the cooperative launch refuses a larger one)
+  const long long resident = resident_on[dev];
+  const long long far_blocks = G > kLook + 1 ? G - kLook - 1 : 0;
+  const long long owner_blocks = (far_blocks + kWarps - 1) / kWarps;
+  const long long helpers = owner_blocks < resident - 1 ? owner_blocks : resident - 1;
+  if (resident < 1 || far_blocks > helpers * kWarps * kMaxOwn) return (int)cudaErrorInvalidValue;
+  ScanArgs a{(const float*)A, q, G, (int)(helpers * kWarps),
+             (q & 3) == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0,
+             up, cb, band, far, unew, (float*)u};
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(1 + helpers));
+  cfg.blockDim = dim3(32 * kWarps);
+  cfg.dynamicSmemBytes = kScanSmem;
+  cfg.stream = st;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, scan_kernel, a);
 }

@@ -9,9 +9,7 @@
 // turns the pre's and the locus's coefficient row into u_v[j] and the
 // locus's outputs. The Grams are locus-major (B, V, B): row j of chain v
 // starts at (j * V + v) * B. The step-indexed Gram ((T, B, V, B), t) is a
-// pointer offset made by the caller. `launch_strided` takes another row
-// stride: the level scan (level_scan.cu) runs one chain on a diagonal tile
-// of a (q, q) matrix, whose rows are q apart.
+// pointer offset made by the caller.
 //
 // Bound: latency. Each locus depends on the one before; the bytes are the
 // Grams' lower triangles and one coefficient row per locus, read once. What a
@@ -235,24 +233,19 @@ int launch_as(const float* g0, const float* g1, const typename Rule::Params& prm
 
 // Launch V blocks of the scan with the rule's `rule_words` of shared memory
 // after the skeleton's (the ops/gibbs_kernels.py *_smem_bytes functions state
-// the same sums), Gram rows `jstride` floats apart. 1 <= B <= 1024.
-template <class Rule>
-int launch_strided(const void* g0, const void* g1, const typename Rule::Params& prm, long long V,
-                   long long B, long long jstride, size_t rule_words, void* stream) {
-  const int threads = (int)((B + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (skeleton_words(threads, Rule::kGrams) + rule_words);
-  return threads <= 256
-             ? launch_as<Rule, 256>((const float*)g0, (const float*)g1, prm, (int)V, (int)B,
-                                    (size_t)jstride, threads, smem, (cudaStream_t)stream)
-             : launch_as<Rule, 1024>((const float*)g0, (const float*)g1, prm, (int)V, (int)B,
-                                     (size_t)jstride, threads, smem, (cudaStream_t)stream);
-}
-
-// The Grams of the V-batched scans: locus-major (B, V, B), rows V * B apart.
+// the same sums). The Grams are locus-major (B, V, B), rows V * B apart.
+// 1 <= B <= 1024.
 template <class Rule>
 int launch(const void* g0, const void* g1, const typename Rule::Params& prm, long long V,
            long long B, size_t rule_words, void* stream) {
-  return launch_strided<Rule>(g0, g1, prm, V, B, V * B, rule_words, stream);
+  const int threads = (int)((B + 31) / 32) * 32;
+  const size_t smem = sizeof(float) * (skeleton_words(threads, Rule::kGrams) + rule_words);
+  const size_t jstride = (size_t)(V * B);
+  return threads <= 256
+             ? launch_as<Rule, 256>((const float*)g0, (const float*)g1, prm, (int)V, (int)B, jstride,
+                                    threads, smem, (cudaStream_t)stream)
+             : launch_as<Rule, 1024>((const float*)g0, (const float*)g1, prm, (int)V, (int)B, jstride,
+                                     threads, smem, (cudaStream_t)stream);
 }
 
 // Maximum over the warp by one integer `redux`: floats map to integers of the

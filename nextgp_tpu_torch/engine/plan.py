@@ -236,12 +236,18 @@ def _build_random_sparse(term: RandomTerm, prior, dtype, device):
     return st, plan
 
 
+def _random_prior(term: RandomTerm):
+    """A random term's prior (the default where it names none) and whether
+    it is drawn by CG (else by the per-level scan)."""
+    prior = term.prior or P.RandomEffect("I", 100.0)
+    return prior, getattr(prior, "sampler", "scan") == "cg"
+
+
 def _build_random(term: RandomTerm, d_inv, dtype, device):
     """One random term (mme.jl:170-204): a correlated group (tuple name)
     raises; sampler 'cg' takes the sparse form, else Z, Z' (weighted by
     d_inv), diag(Z'Z) and the dense inverse structure for the scan."""
-    prior = term.prior or P.RandomEffect("I", 100.0)
-    cg = getattr(prior, "sampler", "scan") == "cg"
+    prior, cg = _random_prior(term)
     if cg and term.correlated:
         raise ValueError("sampler='cg' is not available for correlated groups")
     if term.correlated:
@@ -513,12 +519,30 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
     return ms, mp
 
 
+def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
+    """Refuse a float64 model on a CUDA device where a float32-only kernel
+    would meet it mid-sweep: marker sets (the panel passes and the scans)
+    and random terms drawn by the per-level scan (RE1). CG terms and fixed
+    effects run in float64 on the card."""
+    if torch.device(device).type != "cuda" or dtype != torch.float64:
+        return
+    scan = [t.name for t in spec.random if not _random_prior(t)[1]]
+    needs = ([f"marker sets {[t.name for t in spec.markers]}"] if spec.markers else []) + (
+        [f"scan random terms {scan}"] if scan else [])
+    if needs:
+        raise ValueError(
+            f"float64 on a CUDA device: {' and '.join(needs)} run in float32 kernels on the card; "
+            'pass dtype=torch.float32 for the card, or device="cpu" for float64')
+
+
 def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=1):
     """Build (SweepPlan, ModelState) from a validated ModelSpec.
 
     device: where the state lives and the sweep runs (default CUDA; without
     a CUDA device that raises, and only device="cpu" runs on the CPU).
     dtype: default float32 on CUDA, float64 on the CPU.
+    float64 on a CUDA device raises (check_card_dtype) where the model has
+    marker sets or a scan random term, before anything is placed on the card.
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its
@@ -528,6 +552,7 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
     spec.validate()
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
+    check_card_dtype(spec, dtype, device)
     for t in spec.corr_markers:
         raise NotImplementedError(f"correlated marker sets {t.names}: not ported yet")
     rng = np.random.default_rng(20240509)  # the JAX planner's host generator and seed

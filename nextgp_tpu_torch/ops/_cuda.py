@@ -120,6 +120,8 @@ def lib() -> ctypes.CDLL:
         L.ngt_keyed_rng.argtypes = [P, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong), I, I,
                                     P, P, P, I, S]
         L.ngt_level_scan.argtypes = [P, I, P, P, P, P, P, P, P, S]
+        L.ngt_level_scan_scratch_words.argtypes = [I]
+        L.ngt_level_scan_scratch_words.restype = ctypes.c_longlong
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,

@@ -208,6 +208,20 @@ def gauss_block_scan_v_plain(gram, pk):
     return beta, u
 
 
+def gauss_block_system(gram, pk):
+    """The Gaussian scan as V unit lower-triangular systems M_v u_v = rhs_v
+    (a Gauss-Seidel pass with fixed coefficients): M_v = I + diag(b_v)
+    tril(G_v, -1), rhs_v = bold_v - c_v - b_v * s0_v (pk slots 1, 3, 2, 0),
+    G_v[j, i] = gram[j, v, i]. A masked locus (b = c = 0) is an identity
+    row. gram (B, V, B), pk (V, B, 8) -> (V, B, B), (V, B, 1). One batched
+    torch.linalg.solve_triangular gives u (beta = bold - u): a yardstick on
+    the card (chip_smoke.py); no sweep path runs it."""
+    s0, bold, b, c = pk[..., 0], pk[..., 1], pk[..., 2], pk[..., 3]
+    eye = torch.eye(pk.shape[1], dtype=pk.dtype, device=pk.device)
+    mat = eye + b[..., None] * torch.tril(gram.permute(1, 0, 2), diagonal=-1)
+    return mat, (bold - c - b * s0)[..., None]
+
+
 def _bc_plain(gram, graw, pk):
     V, B, _ = pk.shape
     u = torch.zeros((V, B), dtype=pk.dtype, device=pk.device)

@@ -22,8 +22,9 @@ reading its sweep counter at replay, chains of all seven methods replayed
 by make_scan_sampler and make_chain_runner with the same bits as eager
 sweeps at V = 1 and 4, and the refusal of streams a graph cannot capture;
 for the random effects' level scan (RE1, csrc/level_scan.cu) one level,
-either side of a warp and of a tile, q not a multiple of 4, the same bits
-from two launches and its refusals, an animal model replayed with the eager
+either side of a group and of the look-ahead, owners of two row blocks, q
+not a multiple of 4, the same bits from two launches, a captured scan whose
+replays are the next sweeps' scans, its refusals, an animal model replayed with the eager
 chain's bits and following the plain chain, and a CG animal effect in eager
 float64 sweeps (refused by the replayed runners).
 CUDA kernels have no CPU mode, so every test here skips without
@@ -782,13 +783,20 @@ def _level_inputs(q, dev, seed=0):
     return ivstr, yi, zpz, z, u, torch.tensor(1.7, device=dev), torch.tensor(0.6, device=dev)
 
 
-@pytest.mark.parametrize("q", [1, 31, 32, 33, 1000, 1024, 1025, 2049, 3001])
+# RE1's edges: one level; a group of 32 levels, one either side; 32 (L + 1)
+# = 192 levels (L = 5), the most without an owner's far sums, one either
+# side; the old tile of 1,024 and one past it; q = 2,049 and 3,001; 25,000
+# levels, past one row block per owner warp on a card of 132 SMs (so an
+# owner interleaves two); q not a multiple of 4 (4-byte copies of A) at 31,
+# 33, 191, 193, 1,025, 2,049 and 3,001.
+LEVEL_QS = [1, 31, 32, 33, 191, 192, 193, 1000, 1024, 1025, 2049, 3001, 25_000]
+
+
+@pytest.mark.parametrize("q", LEVEL_QS)
 def test_level_scan_matches_plain(dev, q):
-    """RE1 at one level, one level either side of a warp's 32, one tile and
-    one level past it (the first panel of one row), three tiles with one
-    level in the last, and q not a multiple of 4 (the scalar loads): within
-    1e-4 of u's scale of the plain version, the same bits from two launches,
-    one count per call."""
+    """RE1 at its group, look-ahead and owner edges (LEVEL_QS): within 1e-4
+    of u's scale of the plain version, the same bits from two launches, one
+    count per call."""
     from nextgp_tpu_torch.ops import random_scan
 
     args = _level_inputs(q, dev, q)
@@ -799,6 +807,32 @@ def test_level_scan_matches_plain(dev, q):
     assert torch.equal(out, random_scan.level_scan(*args))
     assert _cuda.LAUNCHES["level_scan"] == before + 2
     assert not torch.equal(out, args[4])  # u itself is left as it was
+
+
+def test_level_scan_replayed_takes_the_next_sweep(dev):
+    """RE1 captured in a CUDA graph with its output copied back into u: each
+    replay is the next sweep's scan (the flags are set to 0 inside the
+    graph), with the bits of eager calls on the same inputs."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    ivstr, yi, zpz, z, u, ive, ivu = _level_inputs(1000, dev, 3)
+    eager = [u]
+    for _ in range(3):
+        eager.append(random_scan.level_scan(ivstr, yi, zpz, z, eager[-1], ive, ivu))
+    u_buf = u.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        random_scan.level_scan(ivstr, yi, zpz, z, u_buf, ive, ivu)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        u_buf.copy_(random_scan.level_scan(ivstr, yi, zpz, z, u_buf, ive, ivu))
+    u_buf.copy_(u)
+    for want in eager[1:]:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(u_buf, want)
 
 
 def test_level_scan_refuses_what_it_does_not_take(dev):

@@ -10,7 +10,10 @@ F32 name pointed at float64; the port's float64 result must agree to
 `bc_block_scan_wv`, `rcpi_block_scan_v`, `rcplus_block_scan_v`) must match
 the Pallas kernels in interpret mode (float32, atol 1e-5 on the continuous
 outputs; delta and the other discrete outputs exact), sliced and
-step-indexed, and at V=1 also the single-chain kernels. The annotation
+step-indexed, and at V=1 also the single-chain kernels. The Gaussian scan
+as one batched unit lower-triangular solve (`gauss_block_system` and the
+library call chip_smoke.py times beside K5/K6) equals the loop in
+float64. The annotation
 fixtures carry padded loci, annotations that are zero on some loci and a
 null class. The CUDA kernels are checked
 against these plain versions on the card (tests/test_torch_cuda.py,
@@ -196,6 +199,22 @@ def test_gauss_block_scan_v_matches_interpret(V, B):
         if V == 1:
             ref = jgk.gauss_block_scan(jnp.asarray(gram[t][:, 0]), jnp.asarray(pk[0]), interpret=True)
             _same2([x[0] for x in tgk.gauss_block_scan_v(gram_t[t], pk_t)], ref)
+
+
+@pytest.mark.parametrize("V,B", [(1, 8), (3, 40)])
+def test_gauss_block_scan_v_trisolve_matches_plain(V, B):
+    """The Gaussian scan as one batched unit lower-triangular solve equals
+    the loop in float64 (1e-9 relative), masked loci (b = c = 0) included."""
+    gram, _, pk = _scan8_inputs(np.random.default_rng(V + B), 1, V, B, "gauss")
+    pk = pk.astype(np.float64)
+    pk[:, -3:, 2:4] = 0.0  # masked loci: identity rows, u = bold
+    gram_t, pk_t = torch.from_numpy(gram[0].astype(np.float64)), torch.from_numpy(pk)
+    mat, rhs = tgk.gauss_block_system(gram_t, pk_t)
+    u = torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)[..., 0]
+    for out, ref in zip((pk_t[..., 1] - u, u), tgk.gauss_block_scan_v_plain(gram_t, pk_t)):
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-9,
+                                   atol=1e-9 * ref.abs().max().item())
+    assert torch.equal(u[:, -3:], pk_t[:, -3:, 1])
 
 
 @pytest.mark.parametrize("V,B", SCAN8_CASES)

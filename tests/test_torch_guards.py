@@ -9,6 +9,8 @@
   non-zero and prints no result.
 * Neither has the package: without a CUDA device `default_device()` raises,
   and so does every entry point that is not told `device="cpu"`.
+* `assemble` refuses float64 on a CUDA device up front where the model has
+  marker sets or a scan random term (float32-only kernels).
 """
 import dataclasses
 import os
@@ -155,6 +157,46 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     assert call(device="cpu").device.type == "cpu"
+
+
+def _card_dtype_spec(kind):
+    """An intercept and one more term: a marker set, a random term drawn by
+    the per-level scan, one drawn by CG, or none."""
+    import numpy as np
+
+    spec = _tiny_spec()
+    n = spec.y.shape[0]
+    if kind != "markers":
+        spec.markers = []
+    if kind == "scan":
+        spec.random = [ngt.RandomTerm("A", np.eye(n), prior=ngt.Random("A", 0.5))]
+    if kind == "cg":
+        spec.random = [ngt.RandomTerm("A", None, prior=ngt.Random("A", 0.5, sampler="cg"),
+                                      z_idx=np.arange(n), n_levels=n)]
+    return spec
+
+
+@pytest.mark.parametrize("kind", ["markers", "scan", "cg", "fixed"])
+def test_float64_on_the_card_is_refused_up_front(kind):
+    """float64 on a CUDA device is refused where a float32-only kernel would
+    meet it (marker sets, a scan random term), and taken with CG terms and
+    fixed effects alone; float32 on the card and float64 on the CPU always."""
+    import torch
+
+    from nextgp_tpu_torch.engine.plan import check_card_dtype
+
+    spec, cuda = _card_dtype_spec(kind), torch.device("cuda")
+    if kind in ("markers", "scan"):
+        with pytest.raises(ValueError, match='float64 on a CUDA device.*float32.*device="cpu"'):
+            check_card_dtype(spec, torch.float64, cuda)
+        # assemble asks before it places anything: with no card here, a tensor
+        # on "cuda" would fail with another error
+        with pytest.raises(ValueError, match="float64 on a CUDA device"):
+            ngt.assemble(spec, dtype=torch.float64, device="cuda")
+    else:
+        check_card_dtype(spec, torch.float64, cuda)
+    check_card_dtype(spec, torch.float32, cuda)
+    check_card_dtype(spec, torch.float64, torch.device("cpu"))
 
 
 def test_normalize_annot_matches():

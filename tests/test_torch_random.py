@@ -375,9 +375,12 @@ def _loop_scan(ivstr, yi, zpz, z, u, ive, ivu):
     return u
 
 
-@pytest.mark.parametrize("q,tile", [(1, 1024), (37, 1024), (37, 8), (64, 32), (65, 32), (100, 7)])
+@pytest.mark.parametrize("q,tile", [(1, 1024), (37, 1024), (37, 8), (64, 32), (65, 32), (100, 7),
+                                    (300, random_scan.GROUP)])
 def test_level_scan_plain_matches_loop(q, tile):
-    """One tile and several, q a multiple of the tile or not, q = 1."""
+    """One tile and several, q a multiple of the tile or not, q = 1; at the
+    kernel's group of 32, q = 300 has row blocks past the look-ahead (far
+    sums, a window and the last group each)."""
     rng = np.random.default_rng(q + tile)
     m = rng.normal(size=(q, q))
     ivstr = m @ m.T / q + np.eye(q)
@@ -391,6 +394,22 @@ def test_level_scan_plain_matches_loop(q, tile):
     assert torch.equal(random_scan.level_scan(t(ivstr), t(yi), t(zpz), t(z), t(u), t(ive), t(ivu)),
                        random_scan.level_scan_plain(t(ivstr), t(yi), t(zpz), t(z), t(u), t(ive),
                                                     t(ivu)))
+
+
+@pytest.mark.parametrize("q", [1, 37, 300])
+def test_level_scan_trisolve_matches_plain(q):
+    """The level scan as one unit lower-triangular solve (level_scan_system
+    and the library call chip_smoke.py times beside RE1) equals the plain
+    version in float64."""
+    rng = np.random.default_rng(q)
+    m = rng.normal(size=(q, q))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    args = (t(m @ m.T / q + np.eye(q)), t(rng.normal(size=q)), t(rng.uniform(0, 3, q)),
+            t(rng.normal(size=q)), t(rng.normal(size=q)), t(1.7), t(0.6))
+    ref = random_scan.level_scan_plain(*args)
+    mat, rhs = random_scan.level_scan_system(*args)
+    out = torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)[:, 0]
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-9, atol=1e-9 * ref.abs().max().item())
 
 
 # ------------------------------------------------------------------ CG, statistically

@@ -7,6 +7,9 @@ and check them.
     python3 chip_smoke.py passes # phases 1-2, phase 3's K1/K2/K1'/K2', the ladder's
                                  # frontier and fused, and the 50k BayesR path alone
     python3 chip_smoke.py graph  # phases 1-2 and phase 7 alone
+    python3 chip_smoke.py keyed [DIR ...]  # phases 1-2 and phase 7a alone; with DIRs
+                                 # (other trees' csrc/), their R1 timed beside this
+                                 # tree's in turns
     python3 chip_smoke.py chains # phases 1-2 and phase 4's default chains, digested
     python3 chip_smoke.py random # phases 1-2 and phase 8 alone
     python3 chip_smoke.py random DIR  # the same, and RE1 against DIR's (another
@@ -66,21 +69,25 @@ Phases (any failed check raises and the script exits non-zero):
      scatter, fused scatter||gather) against their plain versions on the same
      inputs, then `nextgp_tpu_torch.micro` through its entry point, one
      experiment at a time with launch counts: K1 and K2 over 16 fresh steps
-     of a 7.4 GB panel beside the read-only roof, the fused step (which runs
-     K1's and K2's bodies as they were before their redesign) against the
-     sequential pair of today's K2 and K1, load widths, dense against packed
-     (K1', K2')
+     of a 7.4 GB panel beside the read-only roof, the fused step (K1's and
+     K2's bodies in one launch, with their bits) against the sequential pair
+     of K2 and K1 and at other splits of its blocks between the roles, load
+     widths, dense against packed (K1', K2')
   7. the whole chain as CUDA-graph replays with a KeyedStream (draws keyed
      on the card from the state's sweep counter): keyed_rng against its plain
      version at the main path's shapes (uniforms the same bits, normals
      within 1e-6 of scale, gammas within 1e-5 relative where both accepted
-     at the same attempt, that share printed, at most 1e-4); BayesR at V=96
+     at the same attempt, that share printed, at most 1e-4), then on the card
+     alone at n = 1, 4 and 49,152 of each kind and at each of BayesR's six
+     draws beside the library call at the same n (torch.rand, torch.randn,
+     torch._standard_gamma), with the sum over a BayesR sweep; BayesR at V=96
      and V=1 (100 sweeps), the six other paths at V=96 (20 sweeps) and BayesR
      at 50,000 x 49,152 (30 sweeps), each run eagerly and through run_lmem's
      replays from the same state with the same stream: draws and final ycorr
      the same bits, drift, finite draws, BayesR's EBV limit at V=96; sweeps/s
-     and steady ms/sweep of both arms, launches per sweep, device busy from a
-     profiled window of replays and the idle share without the profiler
+     and steady ms/sweep of both arms, launches per sweep, device busy (and
+     R1's share of it) from a profiled window of replays and the idle share
+     without the profiler
   8. random effects: RE1 (the level scan, csrc/level_scan.cu) against its
      plain version at q = 10,000 (the dense A^-1 of a simulated 10,000-animal,
      5-generation pedigree, a second sweep's inputs; within 1e-4 of u's scale,
@@ -1042,6 +1049,9 @@ def ladder_kernels():
     (r0, dy), (ref_r0, ref_dy) = mk.fused_step(pk_all, 0, 1, u, y4), mk.fused_step_plain(pk_all, 0, 1, u, y4)
     again = mk.fused_step(pk_all, 0, 1, u, y4)
     check(torch.equal(r0, again[0]) and torch.equal(dy, again[1]), "fused_step: two runs differ")
+    check(torch.equal(r0, pack2.matvec_step(pk_all, 1, y4, rows))
+          and torch.equal(dy, pack2.rank_update_step(pk_all, 0, u)),
+          "fused_step: r0 lacks K1's bits or dy K2's on the same steps")
     e_d, s_d = rel_err(dy, ref_dy)
     check(e_d <= TOL_PASS * s_d, f"fused_step: dy differs by {e_d:.3e} (scale {s_d:.3e})")
     e_r, s_r = rel_err(r0, ref_r0)
@@ -1050,7 +1060,8 @@ def ladder_kernels():
            per_launch_ms(lambda: [mk.fused_step(pk_all, t, (t + 1) % T, u, y4) for t in range(T)], T),
            median_ms(lambda: mk.fused_step_plain(pk_all, 0, 1, u, y4), 3), (2 * g_b, 2 * g_o),
            f" (r0; dy max_abs_err {e_d:.3e} of scale {s_d:.3e}; gather of one {rows} x {q} step "
-           f"and scatter of another, T={T} fresh steps; two runs bit-identical)", phase=ph)
+           f"and scatter of another, T={T} fresh steps, one launch each; r0 K1's bits and dy K2's, "
+           "twice)", phase=ph)
     del pk_all, ref_r0, ref_dy
 
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1166,9 +1177,9 @@ N_CHAIN_OTHERS = 20  # sweeps of each other path in phase 7 (n_keep 4, thin 5)
 # operations a keyed draw does per element, counted as 32-bit operations at
 # the f32 rate (the data sheet lists no integer or float64 CUDA-core rate):
 # ~20 per splitmix64 fold of the key (one per sweep and tail value), ~100 per
-# Philox4x32-10 block, ~100 for Box-Muller's log, cos and sqrt in float64,
-# ~60 more per gamma attempt for its two logs and the acceptance test
-FOLD_OPS, PHILOX_OPS, BOX_MULLER_OPS, ACCEPT_OPS = 20, 100, 100, 60
+# Philox4x32-10 block, ~40 for Box-Muller's logf, cospif and sqrtf in
+# float32, ~60 more per gamma attempt for its acceptance test
+FOLD_OPS, PHILOX_OPS, BOX_MULLER_OPS, ACCEPT_OPS = 20, 100, 40, 60
 
 
 def keyed_work(kind, n, n_tail, attempts=None):
@@ -1184,7 +1195,7 @@ def keyed_work(kind, n, n_tail, attempts=None):
     return 8 * n, n * fold + tries * (PHILOX_OPS + BOX_MULLER_OPS + ACCEPT_OPS)
 
 
-def keyed_phase():
+def keyed_phase(others=None):
     """7a: keyed_rng against its plain version on the card at the main
     path's shapes (p_pad = 49,152 normals and uniforms; gammas at each of
     GAMMA_SHAPES x 4,096): uniforms the same bits, normals within TOL_NORMAL
@@ -1192,7 +1203,9 @@ def keyed_phase():
     the same attempt, the share of elements whose accepting attempt differs
     printed and at most MAX_ATTEMPT_SHARE; two launches the same bits. The
     normal draw of 49,152 is the kernels line's time (with torch.randn of
-    the same size as the library call)."""
+    the same size as the library call). Then keyed_arms: R1 on the card
+    alone at n = 1, 4 and 49,152 for each kind and at BayesR's six draws,
+    beside the library call at the same n (and others' R1, where given)."""
     h0, tail = keyed._splitmix64(7), (4, 0, 4, 0)  # BayesR's z: marker stage, set 0, split(4)[0]
     counter = torch.tensor(50, dtype=torch.int64, device=DEV)
     alpha = torch.tensor(GAMMA_SHAPES, device=DEV).repeat_interleave(N_GAMMA)
@@ -1258,6 +1271,147 @@ def keyed_phase():
                   "keyed_rng gamma departs from its plain version")
             rec.update(max_abs_err=rel, attempts_differ=share, library_ms=lib, library_device_ms=lib_dev)
         out[name] = rec
+    out["sizes"] = keyed_arms(others)
+    return out
+
+
+KEYED_SIZES = (1, 4, P)  # R1 on the card alone at each of these n, for each kind
+# The gammas of a BayesR sweep at 10,000 x 49,152: varE's chi2 has shape
+# (e_df + n) / 2, the class variance's (df + nonzero loci) / 2 at the prior's
+# 10 % of loci, the Dirichlet's the counts + 1 at the prior's shares.
+VAR_E_SHAPE, CLASS_VAR_SHAPE, DIRICHLET_SHAPES = (5002.0,), (2459.5,), (44238.0, 2459.0, 1476.0, 983.0)
+# A BayesR sweep's six keyed draws in sweep order: (draw, its keyed_cases label)
+BAYESR_DRAWS = (("varE chi2", "gamma x 1"), ("intercept", "normal x 1"), ("z", f"normal x {P:,}"),
+                ("u", f"uniform x {P:,}"), ("class variance chi2", "gamma x 1 (class variance)"),
+                ("Dirichlet", "gamma x 4"))
+
+
+def keyed_cases():
+    """R1's timed cases: (label, kind, n, alpha) for each kind at
+    KEYED_SIZES (gammas at n = 1 and 4 take varE's and the Dirichlet's
+    shapes, at p_pad GAMMA_SHAPES in turn), then BayesR's class-variance
+    draw, the one of its six not among them."""
+    def shapes(vals, n):
+        return torch.tensor(vals, device=DEV).repeat(-(-n // len(vals)))[:n].contiguous()
+
+    gam = {1: VAR_E_SHAPE, 4: DIRICHLET_SHAPES, P: GAMMA_SHAPES}
+    cases = [(f"{name} x {n:,}", kind, n, shapes(gam[n], n) if kind == keyed.GAMMA else None)
+             for kind, name in ((keyed.UNIFORM, "uniform"), (keyed.NORMAL, "normal"),
+                                (keyed.GAMMA, "gamma")) for n in KEYED_SIZES]
+    cases.append(("gamma x 1 (class variance)", keyed.GAMMA, 1, shapes(CLASS_VAR_SHAPE, 1)))
+    return cases
+
+
+def keyed_library(kind, n, alpha):
+    """The one PyTorch call that draws what a keyed draw draws (another stream)."""
+    if kind == keyed.UNIFORM:
+        return lambda: torch.rand(n, device=DEV)
+    if kind == keyed.NORMAL:
+        return lambda: torch.randn(n, device=DEV)
+    return lambda: torch._standard_gamma(alpha)
+
+
+def other_keyed_rng(srcs):
+    """Other trees' R1, each built alone from a csrc/ directory with this
+    tree's nvcc flags, all builds started together: {label: (draw, calls)}
+    with draw(kind, h0, counter, tail, n, alpha) -> float32 out, and calls()
+    the draws made so far. The label is the directory's parent's name (the
+    tree's), or the directory's where that is `nextgp_tpu_torch`."""
+    builds = []
+    for src in srcs:
+        src = Path(src).resolve()
+        label = src.parent.parent.name if src.parent.name == "nextgp_tpu_torch" else src.name
+        out = _cuda.BUILD_ROOT / f"keyed_{label}"
+        out.mkdir(parents=True, exist_ok=True)
+        for f in [*src.glob("*.cuh"), src / "keyed_rng.cu"]:
+            shutil.copy(f, out / f.name)
+        so = out / "lib.so"
+        builds.append((label, src, so, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so), str(out / "keyed_rng.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    arms = {}
+    for label, src, so, proc in builds:
+        log = proc.communicate(timeout=600)[0]
+        check(proc.returncode == 0, f"nvcc of {src}/keyed_rng.cu ({proc.returncode}):\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(so))
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.ngt_keyed_rng.argtypes = [ptr, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong),
+                                      i64, i64, ptr, ptr, ptr, i64, ptr]
+        lib.ngt_keyed_rng.restype = ctypes.c_int
+        calls = [0]
+
+        def draw(kind, h0, counter, tail, n, alpha, lib=lib, calls=calls, label=label):
+            out = torch.empty(n, dtype=torch.float32, device=DEV)
+            words = (ctypes.c_ulonglong * keyed.MAX_TAIL)(*tail)
+            _cuda.check(lib.ngt_keyed_rng(counter.data_ptr(), h0, words, len(tail), kind,
+                                          None if alpha is None else alpha.data_ptr(), out.data_ptr(),
+                                          None, n, _cuda.stream_of(counter)), f"{label}: ngt_keyed_rng")
+            calls[0] += 1
+            return out
+
+        arms[label] = (draw, lambda calls=calls: calls[0])
+    return arms
+
+
+def hold_keyed(label, kind, h0, counter, tail, n, alpha):
+    """This tree's R1 against its plain version on one case, under phase 7a's
+    tolerances, and two launches the same bits."""
+    got, att = keyed.keyed_draw(kind, h0, counter, tail, n, torch.float32, alpha, iters=True)
+    ref, ref_att = keyed.keyed_draw_plain(kind, h0, counter, tail, n, torch.float32, alpha, iters=True)
+    check(torch.equal(got, keyed.keyed_draw(kind, h0, counter, tail, n, torch.float32, alpha)),
+          f"keyed_rng {label}: two launches differ")
+    if kind == keyed.UNIFORM:
+        ok = torch.equal(got, ref)
+    elif kind == keyed.NORMAL:
+        ok = (got - ref).abs().max().item() <= TOL_NORMAL * ref.abs().max().item()
+    else:
+        same = att == ref_att
+        ok = ((att >= 0).all().item() and 1.0 - same.float().mean().item() <= MAX_ATTEMPT_SHARE
+              and ((got - ref).abs() / ref.abs())[same].max().item() <= TOL_GAMMA)
+    check(ok, f"keyed_rng {label} departs from its plain version")
+
+
+def keyed_arms(others=None, reps=20):
+    """R1 on the card alone (device_ms) at each of keyed_cases, beside the
+    library call at the same n. With others (other_keyed_rng), each of them
+    and this tree's R1 (C) in turns: others, C, C, others reversed; each
+    other's output is also compared with C's (same bits or not: printed,
+    not held). Prints one line a case and the sum over BAYESR_DRAWS for
+    each arm and the library; returns {case: {arm: [ms...], "library": ms}}."""
+    h0, tail = keyed._splitmix64(7), (4, 0, 4, 0)
+    counter = torch.tensor(50, dtype=torch.int64, device=DEV)
+    arms = {"C": (lambda kind, h0, counter, tail, n, alpha:
+                  keyed.keyed_draw(kind, h0, counter, tail, n, torch.float32, alpha), None)}
+    names = list(others or ())
+    order = names + ["C"] + (["C"] + names[::-1] if names else [])
+    if others:
+        arms.update(others)
+    out = {}
+    for label, kind, n, alpha in keyed_cases():
+        rec = {arm: [] for arm in arms}
+        hold_keyed(label, kind, h0, counter, tail, n, alpha)
+        ref = arms["C"][0](kind, h0, counter, tail, n, alpha)
+        same = {arm: torch.equal(arms[arm][0](kind, h0, counter, tail, n, alpha), ref) for arm in names}
+        for arm in order:
+            fn, calls = arms[arm]
+            rec[arm].append(device_ms(lambda: fn(kind, h0, counter, tail, n, alpha), reps, calls=calls))
+        rec["library"] = device_ms(keyed_library(kind, n, alpha), reps, records_per_launch=0)
+        out[label] = rec
+        arms_txt = ", ".join(f"{a} {rec[a]}" for a in dict.fromkeys(order))
+        bits = "".join(f"; {a} {'has' if same[a] else 'lacks'} C's bits" for a in names)
+        print(f"[7 keyed_rng] R1 {label}, on the card alone: {arms_txt} ms; library "
+              f"{rec['library']} ms{bits}")
+    def med(v):
+        return (None if None in v else statistics.median(v)) if isinstance(v, list) else v
+
+    six = [out[label] for _, label in BAYESR_DRAWS]
+    sums = {}
+    for arm in [*dict.fromkeys(order), "library"]:
+        vals = [med(rec[arm]) for rec in six]
+        sums[arm] = None if None in vals else sum(vals)
+    print("[7 keyed_rng] a BayesR sweep's six keyed draws (" + ", ".join(d[0] for d in BAYESR_DRAWS)
+          + "), summed on the card alone: " + ", ".join(f"{a} {v}" for a, v in sums.items()) + " ms")
+    out["bayesr_sweep_sum"] = sums
     return out
 
 
@@ -1276,7 +1430,8 @@ def library_moments(name, x, mean, var, kurt=0.0):
 def replay_window(rep, n):
     """Kernels on the card over n replays of the sweep graph, from the
     profiler: (device busy ms per sweep, kernels and copies per sweep, the
-    records the profiler missed, per sweep by name). A graph's kernels are
+    records the profiler missed, kernels per sweep by name, device ms per
+    sweep by name). A graph's kernels are
     counted here, not by the wrappers' counters, which count a capture once.
     Every node runs once a replay, so a name's count per sweep is its
     records over n, rounded, and its time its mean record times that count:
@@ -1291,9 +1446,9 @@ def replay_window(rep, n):
         torch.cuda.synchronize()
     recs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
     per = {e.key: round(e.count / n) for e in recs}
-    busy = sum(e.self_device_time_total / e.count * per[e.key] for e in recs) / 1e3
+    ms_by = {e.key: e.self_device_time_total / e.count * per[e.key] / 1e3 for e in recs}
     missed = n * sum(per.values()) - sum(e.count for e in recs)
-    return busy, sum(per.values()), missed, per
+    return sum(ms_by.values()), sum(per.values()), missed, per, ms_by
 
 
 def steady_ms(step, n):
@@ -1390,14 +1545,17 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
 
     ms_eager = steady_ms(eager_step, n_window)
     ms_replay = steady_ms(lambda: rep.run(1), n_window)
-    busy, per_sweep, missed, by_name = replay_window(rep, 10)
+    busy, per_sweep, missed, by_name, ms_by = replay_window(rep, 10)
     idle = 1.0 - busy / ms_replay
+    r1 = [k for k in by_name if "keyed_rng" in k]
+    r1_ms = sum(ms_by[k] for k in r1)
     eager_per_sweep = {k: v / n_chain for k, v in eager_launches.items() if v}
     print(f"[7 {name}] steady, {n_window} sweeps between CUDA events: eager {ms_eager:.4f} ms/sweep "
           f"({1e3 / ms_eager:.2f} sweeps/s), replayed {ms_replay:.4f} ms/sweep ({1e3 / ms_replay:.2f} "
           f"sweeps/s); 10 replays under the profiler: device busy {busy:.4f} ms/sweep, {per_sweep} "
           f"kernels and copies per sweep ({missed} records missed); idle share without the profiler "
-          f"{idle:.4f}")
+          f"{idle:.4f}; R1 (keyed_rng) {sum(by_name[k] for k in r1)} launches, {r1_ms:.4f} ms "
+          "of the replayed sweep's device time")
     print(f"[7 {name}] launches per sweep: eager by the wrappers {eager_per_sweep}; replayed, counted "
           f"by the wrappers at capture (one warm-up sweep and two captured sweeps) {captured}")
     for key, cnt in sorted(by_name.items(), key=lambda r: -r[1])[:6]:
@@ -1407,7 +1565,7 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     return dict(eager_sweeps_per_s=n_chain / eager_s, replay_run_lmem_sweeps_per_s=replay_rate,
                 eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay,
                 replay_busy_ms_per_sweep=busy, replay_kernels_per_sweep=per_sweep, idle_share=idle,
-                replay_event_ms=replay_ms, eager_launches=eager_launches, **fit)
+                replay_keyed_rng_ms_per_sweep=r1_ms, replay_event_ms=replay_ms, eager_launches=eager_launches, **fit)
 
 
 def graph_phase(spec_for, sig, wide_eager_ms=None):
@@ -1749,7 +1907,7 @@ def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=No
 
     ms_eager = steady_ms(eager_step, 20)
     ms_replay = steady_ms(lambda: rep.run(1), 20)
-    busy, per_sweep, missed, by_name = replay_window(rep, 10)
+    busy, per_sweep, missed, by_name, _ = replay_window(rep, 10)
     idle = 1.0 - busy / ms_replay
     print(f"[{ph}] KeyedStream: kept draws and final ycorr bit-identical eager and replayed; eager "
           f"{N_CHAIN_RE / eager_s:.2f} sweeps/s, replayed run_lmem {rres.sweeps_per_sec:.2f} sweeps/s "
@@ -1997,10 +2155,21 @@ def graph_only(spec_for, sig, card):
                       "keyed_rng": TIMINGS.get("keyed_rng")}))
 
 
+def keyed_only(card, srcs):
+    """`python3 chip_smoke.py keyed [DIR ...]`: phase 7a alone, the quick
+    form for work on R1; with DIRs (other trees' csrc/, e.g. a `git archive`
+    of the parent under _checkout/), their R1 timed beside this tree's in
+    turns. One JSON line of its numbers, and no result line."""
+    out = keyed_phase(other_keyed_rng(srcs) if srcs else None)
+    print(json.dumps({"card": card, "keyed_rng": out, "timing": TIMINGS.get("keyed_rng")}))
+
+
 def main(argv=()):
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
+    if list(argv[:1]) == ["keyed"]:
+        return keyed_only(card, argv[1:])
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -2012,7 +2181,8 @@ def main(argv=()):
         return chains_only(spec_for, card)
     if list(argv[:1]) == ["random"] and len(argv) <= 2:
         return random_only(spec_for, sig, card, *argv[1:])
-    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains or random [DIR]")
+    check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
+                    "keyed [DIR ...] or random [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

@@ -23,14 +23,40 @@
 //            takes G(alpha + 1) * U^(1/alpha). An element's value depends
 //            on (key, element) alone. The result is clamped below at the
 //            smallest normal float, as torch._standard_gamma does.
-// Everything after the integer steps runs in float64 with the rounding of
-// every product and sum written out (no contraction into FMAs), in the order
-// of the plain version (rng.keyed_draw_plain), and is rounded to float32 at
-// the store: the plain version on the card gives the same numbers.
+// The plain version (rng.keyed_draw_plain) defines the numbers in float64,
+// rounded to float32 at the end. Uniforms are its bits. Box-Muller runs here
+// in float32 (logf and cospif within an ulp, sqrtf and the products
+// correctly rounded): a normal is within a few ulp of the plain version's,
+// relatively. A gamma attempt takes that normal and runs the acceptance in
+// float64 as the plain version does, with the rounding of every product and
+// sum written out (no contraction into FMAs).
 //
-// Bound: bytes written (and alpha read), one thread per element; a draw is
-// a few hundred integer operations and, for a gamma, a few attempts. One
-// launch per draw site.
+// Bound: a draw is a dependent chain of a few hundred cycles (the counter's
+// load, 1 + n_tail splitmix64 folds, ten Philox rounds, Box-Muller), and the
+// main path's draws are of 1 to 49,152 elements: one thread's chain and the
+// launch set the time, not the bytes (PERF.md). What was measured to set it,
+// and what this design does about each:
+//   - the tail was indexed at run time, which put it in local memory: a store
+//     and a load per value in every thread. A kernel per tail length folds
+//     it in straight-line code, each value read from the launch's
+//     parameters; a gamma's shape is loaded before, so that its latency
+//     overlaps the folds. The folds themselves, 1 + n_tail dependent
+//     splitmix64s, stay on every draw's path (PERF.md §6);
+//   - Box-Muller in float64 (libdevice's log and cos are long dependent
+//     polynomials on the FP64 pipe, half the FP32 pipe's lanes) took half
+//     of a normal's chain: it runs in float32;
+//   - a gamma attempt's two float64 logs: the squeeze u < 1 - 0.0331 x^4
+//     accepts most attempts without them. Its bound lies below the full
+//     test's for every d >= 2/3, the least d here, so it accepts only
+//     attempts that the full test accepts, and the accepting attempt is
+//     the full test's;
+//   - a warp waited for its lane with the most attempts (one wave at the
+//     main path's sizes, so the slowest warp is the kernel's time): after
+//     each lane's first attempt, the warp shares its lanes among the
+//     elements still pending, 32 / k lanes each for k of them, each lane an
+//     attempt j0 + its offset; a ballot takes the lowest attempt that
+//     accepts, which is the serial loop's.
+// One launch per draw site.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -39,13 +65,13 @@
 namespace {
 
 constexpr int kMaxTail = 8;
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // 384 blocks at 49,152 draws: three an SM
 constexpr int kMaxAttempts = 1000;  // a gamma that has not accepted by then is NaN
+constexpr unsigned kFull = 0xFFFFFFFFu;
 enum Kind { kUniform = 0, kNormal = 1, kGamma = 2 };
 
 struct Tail {
   unsigned long long v[kMaxTail];
-  int n;
 };
 
 __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
@@ -78,66 +104,135 @@ __device__ __forceinline__ Words philox(uint32_t k0, uint32_t k1, uint32_t c0, u
   return Words{{c0, c1, c2, c3}};
 }
 
-__device__ __forceinline__ double unit(uint32_t w) {
-  return __dmul_rn((double)((w >> 8) + 1u), 0x1p-24);
+// 24 bits k of a word to (k + 1) * 2^-24, exactly, in float32 and float64.
+__device__ __forceinline__ float unit_f(uint32_t w) { return (float)((w >> 8) + 1u) * 0x1p-24f; }
+__device__ __forceinline__ double unit(uint32_t w) { return (double)unit_f(w); }
+
+__device__ __forceinline__ float box_muller(uint32_t w0, uint32_t w1) {
+  return sqrtf(-2.0f * logf(unit_f(w0))) * cospif(2.0f * unit_f(w1));
 }
 
-__device__ __forceinline__ double box_muller(uint32_t w0, uint32_t w1) {
-  const double r = sqrt(__dmul_rn(-2.0, log(unit(w0))));
-  return __dmul_rn(r, cos(__dmul_rn(6.283185307179586, unit(w1))));
+// Attempt j of Marsaglia-Tsang for the element (lo, hi) with d = a - 1/3
+// and c = 1/sqrt(9d): whether it accepts, and then g = d v^3.
+__device__ __forceinline__ bool attempt(uint32_t k0, uint32_t k1, uint32_t lo, uint32_t hi, int j,
+                                        double d, double c, double& g) {
+  const Words w = philox(k0, k1, lo, (uint32_t)j, 1u, hi);
+  const double x = (double)box_muller(w.w[0], w.w[1]);
+  double v = __dadd_rn(1.0, __dmul_rn(c, x));
+  if (!(v > 0.0)) return false;
+  v = __dmul_rn(__dmul_rn(v, v), v);
+  const double u = unit(w.w[2]);
+  const double x2 = __dmul_rn(x, x);
+  const bool acc = u < __dsub_rn(1.0, __dmul_rn(0.0331, __dmul_rn(x2, x2))) ||
+                   log(u) < __dadd_rn(__dmul_rn(__dmul_rn(0.5, x), x),
+                                      __dmul_rn(d, __dadd_rn(__dsub_rn(1.0, v), log(v))));
+  if (acc) g = __dmul_rn(d, v);
+  return acc;
 }
 
+// The position of the (s + 1)-th set bit of mask, s < popc(mask): the
+// largest p with at most s set bits below it.
+__device__ __forceinline__ int nth_set(unsigned mask, int s) {
+  int p = 0;
+#pragma unroll
+  for (int b = 16; b >= 1; b >>= 1)
+    if (__popc(mask & ((1u << (p + b)) - 1u)) <= s) p += b;
+  return p;
+}
+
+// The site's key: splitmix64 folded over the sweep (read from the device
+// counter) and the kTail tail values, each read from the launch's
+// parameters, and shifted right by one.
+template <int kTail>
+__device__ __forceinline__ uint64_t site_key(const long long* sweep, unsigned long long h0,
+                                             Tail tail) {
+  uint64_t h = splitmix64(h0 ^ (uint64_t)__ldg(sweep));
+#pragma unroll
+  for (int t = 0; t < kTail; ++t) h = splitmix64(h ^ tail.v[t]);
+  return h >> 1;
+}
+
+template <int kTail>
 __global__ void __launch_bounds__(kThreads)
 keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tail tail, int kind,
                  const float* __restrict__ alpha, float* __restrict__ out, int* __restrict__ iters,
                  long long n) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  uint64_t h = splitmix64(h0 ^ (uint64_t)*sweep);
-  for (int t = 0; t < tail.n; ++t) h = splitmix64(h ^ tail.v[t]);
-  h >>= 1;
-  const uint32_t k0 = (uint32_t)h, k1 = (uint32_t)(h >> 32);
   const uint32_t lo = (uint32_t)i, hi = (uint32_t)((unsigned long long)i >> 32);
-  if (kind == kUniform) {
-    out[i] = (float)unit(philox(k0, k1, lo, 0u, 0u, hi).w[0]);
+  if (kind != kGamma) {
+    if (i >= n) return;
+    const uint64_t h = site_key<kTail>(sweep, h0, tail);
+    const Words w = philox((uint32_t)h, (uint32_t)(h >> 32), lo, 0u, 0u, hi);
+    if (kind == kUniform)
+      out[i] = unit_f(w.w[0]);
+    else
+      out[i] = box_muller(w.w[0], w.w[1]);
     return;
   }
-  if (kind == kNormal) {
-    const Words w = philox(k0, k1, lo, 0u, 0u, hi);
-    out[i] = (float)box_muller(w.w[0], w.w[1]);
-    return;
-  }
-  const double a_in = (double)alpha[i];
-  if (!(a_in > 0.0) || isinf(a_in)) {  // NaN, zero, negative or infinite shape
-    out[i] = nanf("");
-    if (iters) iters[i] = -1;
-    return;
-  }
+  // A gamma's warp works whole (its lanes share attempts by shuffles). The
+  // shape is loaded before the key is folded, so that its latency and d and
+  // c's float64 square root and division overlap the folds.
+  const bool live = i < n;
+  const double a_in = live ? (double)__ldg(alpha + i) : 1.0;
+  const uint64_t h = site_key<kTail>(sweep, h0, tail);
+  const uint32_t k0 = (uint32_t)h, k1 = (uint32_t)(h >> 32);
+  const bool valid = live && a_in > 0.0 && !isinf(a_in);  // NaN fails a_in > 0
   const bool boost = a_in < 1.0;
   const double a = boost ? __dadd_rn(a_in, 1.0) : a_in;
   const double d = __dsub_rn(a, 1.0 / 3.0);
   const double c = 1.0 / sqrt(__dmul_rn(9.0, d));
   double g = nan("");
-  int j = 0;
-  for (; j < kMaxAttempts; ++j) {
-    const Words w = philox(k0, k1, lo, (uint32_t)j, 1u, hi);
-    const double x = box_muller(w.w[0], w.w[1]);
-    double v = __dadd_rn(1.0, __dmul_rn(c, x));
-    if (!(v > 0.0)) continue;
-    v = __dmul_rn(__dmul_rn(v, v), v);
-    const double rhs = __dadd_rn(__dmul_rn(__dmul_rn(0.5, x), x),
-                                 __dmul_rn(d, __dadd_rn(__dsub_rn(1.0, v), log(v))));
-    if (log(unit(w.w[2])) < rhs) {
-      g = __dmul_rn(d, v);
-      break;
+  int att = -1;
+  bool done = !valid;
+  if (valid && attempt(k0, k1, lo, hi, 0, d, c, g)) {
+    att = 0;
+    done = true;
+  }
+  // The warp's lanes take the pending elements' next attempts together:
+  // slot s of the k pending elements gets lanes s m .. s m + m - 1, m = 32 / k,
+  // lane s m + r its attempt next + r.
+  const int lane = threadIdx.x & 31;
+  int next = 1;
+  for (unsigned pending = __ballot_sync(kFull, !done); pending;
+       pending = __ballot_sync(kFull, !done)) {
+    const int k = __popc(pending), m = 32 / k;
+    const int slot = lane / m;
+    const int e = nth_set(pending, slot < k ? slot : 0);
+    const double ed = __shfl_sync(kFull, d, e), ec = __shfl_sync(kFull, c, e);
+    const uint32_t elo = __shfl_sync(kFull, lo, e), ehi = __shfl_sync(kFull, hi, e);
+    const int j = __shfl_sync(kFull, next, e) + lane % m;
+    double gv = 0.0;
+    const bool acc = slot < k && j < kMaxAttempts && attempt(k0, k1, elo, ehi, j, ed, ec, gv);
+    const unsigned accepted = __ballot_sync(kFull, acc);
+    const int mine = __popc(pending & ((1u << lane) - 1u));  // this lane's slot, if pending
+    const unsigned seg = done ? 0u : (accepted >> (mine * m)) & (m == 32 ? kFull : (1u << m) - 1u);
+    const int win = seg ? mine * m + __ffs(seg) - 1 : lane;
+    const double gw = __shfl_sync(kFull, gv, win);
+    if (!done) {
+      if (seg) {
+        g = gw;
+        att = next + win - mine * m;
+        done = true;
+      } else if ((next += m) >= kMaxAttempts) {
+        done = true;  // no attempt accepted: NaN
+      }
     }
   }
-  if (boost && j < kMaxAttempts) {
+  if (!live) return;
+  if (boost && att >= 0) {
     const double ub = unit(philox(k0, k1, lo, 0u, 2u, hi).w[0]);
     g = __dmul_rn(g, exp(__ddiv_rn(log(ub), a_in)));
   }
-  out[i] = j < kMaxAttempts ? fmaxf((float)g, FLT_MIN) : nanf("");
-  if (iters) iters[i] = j < kMaxAttempts ? j : -1;
+  out[i] = att >= 0 ? fmaxf((float)g, FLT_MIN) : nanf("");
+  if (iters) iters[i] = att;
+}
+
+template <int kTail>
+int launch(const void* sweep, unsigned long long h0, const Tail& t, long long kind,
+           const void* alpha, void* out, void* iters, long long n, cudaStream_t stream) {
+  keyed_rng_kernel<kTail><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      (const long long*)sweep, h0, t, (int)kind, (const float*)alpha, (float*)out, (int*)iters, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -147,7 +242,8 @@ extern "C" {
 // sweep: one int64 on the device (the sweep counter); h0 = splitmix64(seed);
 // tail: n_tail <= 8 host values (stage, index, path...); kind 0 uniform,
 // 1 normal, 2 gamma (alpha: n float32 shapes); out: n float32; iters: n
-// int32 accepting attempts of a gamma, or null. n >= 1.
+// int32 accepting attempts of a gamma (-1 where none accepted), or null.
+// n >= 1.
 int ngt_keyed_rng(const void* sweep, unsigned long long h0, const unsigned long long* tail,
                   long long n_tail, long long kind, const void* alpha, void* out, void* iters,
                   long long n, void* stream) {
@@ -155,11 +251,18 @@ int ngt_keyed_rng(const void* sweep, unsigned long long h0, const unsigned long 
     return (int)cudaErrorInvalidValue;
   Tail t{};
   for (int k = 0; k < n_tail; ++k) t.v[k] = tail[k];
-  t.n = (int)n_tail;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  keyed_rng_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)sweep, h0, t, (int)kind, (const float*)alpha, (float*)out, (int*)iters, n);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (n_tail) {  // one kernel per tail length: the fold is straight-line code
+    case 0: return launch<0>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 1: return launch<1>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 2: return launch<2>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 3: return launch<3>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 4: return launch<4>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 5: return launch<5>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 6: return launch<6>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    case 7: return launch<7>(sweep, h0, t, kind, alpha, out, iters, n, st);
+    default: return launch<8>(sweep, h0, t, kind, alpha, out, iters, n, st);
+  }
 }
 
 }  // extern "C"

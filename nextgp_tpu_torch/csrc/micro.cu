@@ -5,7 +5,8 @@
 // across a sequential grid axis; here a gather closes its column loop inside
 // one warp with a fixed-order reduction and a scatter sums row slices in a
 // second fixed-order pass, as K1 and K2 did before their redesign (pack2.cu
-// now closes K2's slices in the same launch). No float atomics:
+// now closes K2's slices in the same launch; the fused step runs K1's and
+// K2's bodies as they are now). No float atomics:
 // every output is bit-reproducible for a given shape. All are bound by the
 // device-memory bytes of the panel they stream.
 //
@@ -29,134 +30,28 @@
 // fused_step  replaces `make_fused_step` (scripts/micro_fused.py:64-129).
 //   One launch gathers step t1's rows (r0 = unpack(pk[t1]) @ y4) and scatters
 //   step t's rows (dy = u @ planes(pk[t])). The TPU version had to give both
-//   jobs one tile grid; here blocks are split by role, even blocks scatter
-//   and odd blocks gather, so both streams are in flight on every SM at
-//   once. The bodies are the sequential pair's as they were before K1 and K2
-//   were redesigned (below, kept verbatim: same outputs, same bits): the
-//   gather reads a transposed y from device memory (200 KB at q = 12,544:
-//   L1/L2 resident), the scatter gives each thread a 4-byte column word of a
-//   row slice and a second pass adds the slices.
-// The sequential pair's bodies as they were before K1 and K2 were redesigned
-// for this card (pack2.cu): the fused step runs them, so its outputs keep
-// their bits; dense_scatter shares the slice reduction.
-#include "common.cuh"
+//   jobs one tile grid; here blocks are split by role, spread evenly over
+//   the grid, so both streams are in flight on every SM at once. The bodies
+//   are K1's and K2's (pack2_body.cuh, the same code): gather blocks run K1's
+//   warp per four rows over a share of the row groups, scatter blocks K2's
+//   (tile, slice) blocks, and the last scatter block of each tile closes the
+//   tile's slices through an integer ticket of the fused step's own. So r0
+//   has K1's bits and dy K2's, and the split (a function of the shape,
+//   ops/micro.py) moves no bit.
+#include "pack2_body.cuh"
 
-namespace ngt {
+namespace {
 
+namespace packed = ngt::packed;
+using packed::word_of;
 constexpr int kRowsPerWarp = 4;
-
-__device__ __forceinline__ uint32_t word_of(const uint4& c, int w) {
-  return w == 0 ? c.x : w == 1 ? c.y : w == 2 ? c.z : c.w;
-}
-
-// Dot of one 4-byte word (columns col..col+3) against the y planes of those
-// columns; y[k] holds y4[k, col..col+3].
-__device__ __forceinline__ float word_dot(uint32_t w, const float4 (&y)[4]) {
-  float a = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    a = fmaf(small_u2f((w >> (2 * k)) & 3u), y[k].x, a);
-    a = fmaf(small_u2f((w >> (8 + 2 * k)) & 3u), y[k].y, a);
-    a = fmaf(small_u2f((w >> (16 + 2 * k)) & 3u), y[k].z, a);
-    a = fmaf(small_u2f((w >> (24 + 2 * k)) & 3u), y[k].w, a);
-  }
-  return a;
-}
-
-// yt[(k * 4 + w) * nchunk + c] = y4[k, 16c + 4w .. 16c + 4w + 3]
-__device__ __forceinline__ float4 y_chunk(const float* __restrict__ y4, int q, int nchunk,
-                                          int idx) {
-  const int c = idx % nchunk;
-  const int kw = idx / nchunk;
-  return *reinterpret_cast<const float4*>(y4 + (size_t)(kw >> 2) * q + 16 * c + 4 * (kw & 3));
-}
-
-static __global__ void y_transpose_kernel(const float* __restrict__ y4, float4* __restrict__ yt,
-                                          int q) {
-  const int nchunk = q >> 4;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < 16 * nchunk) yt[idx] = y_chunk(y4, q, nchunk, idx);
-}
-
-// The calling warp gathers the row groups first_row, first_row + row_stride,
-// ... (kRowsPerWarp rows each): out[r] = sum_k sum_j plane_k(pk[r, j]) * y4[k, j].
-// ys: the transposed y (y_chunk's order), in shared memory (kStaged) or in
-// device memory. Lanes read a row in 16-byte chunks; the chunk's y values are
-// loaded once for all rows of the group; a fixed-order warp reduction closes
-// the sum.
-template <bool kStaged>
-__device__ __forceinline__ void gather_rows(const uint8_t* __restrict__ pk,
-                                            const float4* __restrict__ ys,
-                                            float* __restrict__ out, long long rows, int q,
-                                            long long first_row, long long row_stride) {
-  const int nchunk = q >> 4;
-  const int lane = threadIdx.x & 31;
-  for (long long r0 = first_row; r0 < rows; r0 += row_stride) {  // warp-uniform loop
-    float acc[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] = 0.f;
-    for (int c = lane; c < nchunk; c += 32) {
-      uint4 ch[kRowsPerWarp];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr)
-        ch[rr] = (r0 + rr < rows)
-                     ? __ldg(reinterpret_cast<const uint4*>(pk + (r0 + rr) * q) + c)
-                     : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        float4 y[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int idx = (k * 4 + w) * nchunk + c;
-          y[k] = kStaged ? ys[idx] : __ldg(ys + idx);
-        }
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] += word_dot(word_of(ch[rr], w), y);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const float s = warp_sum(acc[rr]);
-      if (lane == 0 && r0 + rr < rows) out[r0 + rr] = s;
-    }
-  }
-}
-
-// The calling thread owns column word wi (16 outputs) over rows
-// [r_begin, r_end) and writes its partial sums to ps, one slice's (4, q):
-// ps[k, 4 wi + i] = sum_r u[r] * plane_k(pk[r, 4 wi + i]).
-__device__ __forceinline__ void scatter_slice(const uint8_t* __restrict__ pk,
-                                              const float* __restrict__ u,
-                                              float* __restrict__ ps, long long r_begin,
-                                              long long r_end, int q, int wi) {
-  const int nw = q >> 2;
-  float acc[16];  // acc[k * 4 + i]: plane k, column 4 * wi + i
-#pragma unroll
-  for (int a = 0; a < 16; ++a) acc[a] = 0.f;
-  const uint32_t* pw = reinterpret_cast<const uint32_t*>(pk) + wi;
-#pragma unroll 4
-  for (long long r = r_begin; r < r_end; ++r) {
-    const uint32_t w = __ldg(pw + r * nw);
-    const float ur = __ldg(u + r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[k * 4 + i] = fmaf(small_u2f((w >> (8 * i + 2 * k)) & 3u), ur, acc[k * 4 + i]);
-    }
-  }
-  ps += 4 * (size_t)wi;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    *reinterpret_cast<float4*>(ps + (size_t)k * q) =
-        make_float4(acc[k * 4], acc[k * 4 + 1], acc[k * 4 + 2], acc[k * 4 + 3]);
-}
-
+constexpr int kGatherThreads = 256;
 constexpr int kReduceThreads = 256;
+constexpr int kScatterThreads = 128;
 
 // out[i] = sum over slices, in slice order, of partial[s, i]: the second,
-// fixed-order pass of every scatter (no float atomics).
-static __global__ void __launch_bounds__(kReduceThreads)
+// fixed-order pass of dense_scatter (no float atomics).
+__global__ void __launch_bounds__(kReduceThreads)
 slice_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, long long slices,
                     long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -165,22 +60,6 @@ slice_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, 
   for (long long s = 0; s < slices; ++s) a += partial[s * n + i];
   out[i] = a;
 }
-
-inline cudaError_t launch_slice_reduce(const float* partial, float* out, long long slices,
-                                       long long n, cudaStream_t st) {
-  slice_reduce_kernel<<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads), kReduceThreads, 0,
-                        st>>>(partial, out, slices, n);
-  return cudaGetLastError();
-}
-
-}  // namespace ngt
-
-namespace {
-
-using ngt::kRowsPerWarp;
-constexpr int kGatherThreads = 256;
-constexpr int kScatterThreads = 128;
-constexpr int kFusedThreads = 256;
 
 template <typename Word>
 __global__ void __launch_bounds__(kGatherThreads)
@@ -256,7 +135,7 @@ read_step_kernel(const uint8_t* __restrict__ pk, int* __restrict__ out, long lon
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
 #pragma unroll
         for (int w = 0; w < 4; ++w)  // the four bytes of a word, each times 1
-          acc[rr] = __dp4a(ngt::word_of(ch[rr], w), 0x01010101u, acc[rr]);
+          acc[rr] = __dp4a(word_of(ch[rr], w), 0x01010101u, acc[rr]);
       }
     }
 #pragma unroll
@@ -305,7 +184,7 @@ dense_gather_kernel(const int8_t* __restrict__ mt, const float* __restrict__ y,
         const float4 yv = yt[w * nchunk + c];
 #pragma unroll
         for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          const uint32_t word = ngt::word_of(ch[rr], w);
+          const uint32_t word = word_of(ch[rr], w);
           float a = acc[rr];
           a = fmaf(s8_of(word, 0), yv.x, a);
           a = fmaf(s8_of(word, 1), yv.y, a);
@@ -345,27 +224,30 @@ dense_scatter_partial_kernel(const int8_t* __restrict__ mt, const float* __restr
       make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-// Block 2i scatters (column block i % col_blocks of row slice i / col_blocks
-// of pk_s), block 2i + 1 gathers (row groups i, i + gridDim.x / 2, ... of
-// pk_g).
-__global__ void __launch_bounds__(kFusedThreads)
+// Of the grid's blocks, `gather` run K1's body and the rest K2's, spread
+// evenly: block b gathers when floor((b + 1) G / blocks) > floor(b G / blocks),
+// as gather block floor(b G / blocks); else it is scatter block
+// b - floor(b G / blocks), tile-fastest as in K2's grid (tiles, slices).
+__global__ void __launch_bounds__(packed::kRankThreads, 2)
 fused_step_kernel(const uint8_t* __restrict__ pk_s, const uint8_t* __restrict__ pk_g,
-                  const float* __restrict__ u, const float4* __restrict__ yt,
-                  float* __restrict__ r0, float* __restrict__ partial, long long rows, int q,
-                  long long rows_per_slice, int col_blocks) {
-  const long long id = blockIdx.x >> 1;
-  if (blockIdx.x & 1) {
-    const long long wpb = blockDim.x >> 5;
-    ngt::gather_rows<false>(pk_g, yt, r0, rows, q, (id * wpb + (threadIdx.x >> 5)) * kRowsPerWarp,
-                            (long long)(gridDim.x >> 1) * wpb * kRowsPerWarp);
+                  const float* __restrict__ u, const float* __restrict__ y4,
+                  float* __restrict__ r0, float* __restrict__ partial, float* __restrict__ dy,
+                  int* __restrict__ tickets, long long rows, int q, long long rows_per_slice,
+                  int tiles, int slices, long long gather, uint32_t magic) {
+  static_assert(packed::kGatherThreads == packed::kRankThreads, "one block size for both roles");
+  __shared__ packed::RankShared sh;
+  const long long blocks = gridDim.x, b = blockIdx.x;
+  const long long g = b * gather / blocks;
+  if ((b + 1) * gather / blocks > g) {
+    const long long wpb = packed::kGatherThreads / 32;
+    packed::gather_groups(pk_g, y4, r0, rows, q, magic,
+                          (g * wpb + (threadIdx.x >> 5)) * packed::kGatherRows,
+                          gather * wpb * packed::kGatherRows);
     return;
   }
-  const int wi = (int)(id % col_blocks) * blockDim.x + threadIdx.x;
-  if (wi >= (q >> 2)) return;
-  const long long slice = id / col_blocks;
-  const long long r_begin = slice * rows_per_slice;
-  ngt::scatter_slice(pk_s, u, partial + (size_t)slice * 4 * q, r_begin,
-                     min(rows, r_begin + rows_per_slice), q, wi);
+  const long long s = b - g;
+  packed::rank_block(pk_s, u, partial, dy, tickets, rows, q, rows_per_slice, magic,
+                     (int)(s % tiles), s / tiles, slices, sh);
 }
 
 }  // namespace
@@ -418,30 +300,29 @@ int ngt_dense_scatter(const void* mt, const void* u, void* partial, void* out, l
       (const int8_t*)mt, (const float*)u, (float*)partial, rows, (int)n, rows_per_slice);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)ngt::launch_slice_reduce((const float*)partial, (float*)out, slices, n,
-                                       (cudaStream_t)stream);
+  slice_reduce_kernel<<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads), kReduceThreads, 0,
+                        (cudaStream_t)stream>>>((const float*)partial, (float*)out, slices, n);
+  return (int)cudaGetLastError();
 }
 
 // pk_s, pk_g: the (rows, q) uint8 steps to scatter and to gather; u: (rows,)
-// f32; y4: (4, q) f32; yt: (4, q) f32 scratch for the transposed y; r0:
-// (rows,) f32; partial: (slices, 4, q) f32 scratch; dy: (4, q) f32. q a
-// multiple of 16, everything 16-byte aligned.
-int ngt_fused_step(const void* pk_s, const void* pk_g, const void* u, const void* y4, void* yt,
-                   void* r0, void* partial, void* dy, long long rows, long long q,
-                   long long slices, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  ngt::y_transpose_kernel<<<(unsigned)((q + 255) / 256), 256, 0, st>>>((const float*)y4,
-                                                                       (float4*)yt, (int)q);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long col_blocks = (q / 4 + kFusedThreads - 1) / kFusedThreads;
-  const long long rows_per_slice = (rows + slices - 1) / slices;
-  fused_step_kernel<<<(unsigned)(2 * col_blocks * slices), kFusedThreads, 0, st>>>(
-      (const uint8_t*)pk_s, (const uint8_t*)pk_g, (const float*)u, (const float4*)yt, (float*)r0,
-      (float*)partial, rows, (int)q, rows_per_slice, (int)col_blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)ngt::launch_slice_reduce((const float*)partial, (float*)dy, slices, 4 * q, st);
+// f32; y4: (4, q) f32; r0: (rows,) f32; dy: (4, q) f32; q a multiple of 16,
+// everything 16-byte aligned, rows > 0. slices: K2's row slices of the step
+// (ceil(rows / 512)); with slices > 1, partial: (slices, 4, q) f32 scratch
+// and tickets: ceil(q / 512) int32 that are 0 (each launch leaves them 0),
+// else both may be null. gather: the blocks that gather, >= 1.
+int ngt_fused_step(const void* pk_s, const void* pk_g, const void* u, const void* y4, void* r0,
+                   void* partial, void* dy, void* tickets, long long rows, long long q,
+                   long long slices, long long gather, void* stream) {
+  const long long tiles = (q + packed::kRankTile - 1) / packed::kRankTile;
+  if (slices < 1 || gather < 1 || tiles * slices + gather >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  fused_step_kernel<<<(unsigned)(tiles * slices + gather), packed::kRankThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint8_t*)pk_s, (const uint8_t*)pk_g, (const float*)u, (const float*)y4, (float*)r0,
+      (float*)partial, (float*)dy, (int*)tickets, rows, (int)q, (rows + slices - 1) / slices,
+      (int)tiles, (int)slices, gather, packed::kMagic);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -269,9 +269,12 @@ class KeyedStream:
     function of (seed, site) alone, whatever the order of calls and whether
     it runs eagerly or in a CUDA-graph replay (`capturable`). Uniforms lie in
     (0, 1], normals are Box-Muller, gammas Marsaglia-Tsang with a retry per
-    element until it accepts (alpha < 1 boosted by U^(1/alpha)). On the card
-    one launch per draw (csrc/keyed_rng.cu, float32); on the CPU the plain
-    version, in float64 rounded to dtype."""
+    element until it accepts (alpha < 1 boosted by U^(1/alpha)). On the CPU
+    the plain version, in float64 rounded to dtype, defines the numbers; on
+    the card one launch per draw (csrc/keyed_rng.cu, float32) gives the
+    uniforms' bits and runs Box-Muller in float32, a few ulp from the plain
+    version's normals (and so from its gammas, whose acceptance it runs in
+    float64)."""
 
     capturable = True
 

@@ -14,8 +14,10 @@ one JSON line:
   frontier  a read-only pass in several grids (the card's achieved read
             bandwidth for K1's access pattern, beside the data sheet's), K1
             and K2 over T fresh steps, and the two-pass floor of a sweep
-  fused     the sequential K2 -> K1 pair against `fused_step`, timed in the
-            order pair, fused, fused, pair; WIN below 0.95x, LOSS above 1.05x
+  fused     the sequential K2 -> K1 pair against `fused_step` (K1's and
+            K2's bodies in one launch), timed in the order pair, fused,
+            fused, pair; WIN below 0.95x, LOSS above 1.05x; then the fused
+            step at other splits of its blocks between the two roles
   load32    the packed gather with 16-byte (K1), 4-byte and 1-byte loads
   matvec    dense int8 gather and scatter against the packed K1' and K2' on
             the same dosages
@@ -182,6 +184,9 @@ def fused(rows, q, T, device, seed=0, reps=5):
     again = K.fused_step(pk_all, 0, 1, u[:a], y4)
     _same_bits("fused_step r0", r0, again[0])
     _same_bits("fused_step dy", dy, again[1])
+    # K1's and K2's bodies: their bits on the same steps
+    _same_bits("fused_step r0 against K1", r0, pack2.matvec_step(pk_all, 1, y4, a))
+    _same_bits("fused_step dy against K2", dy, pack2.rank_update_step(pk_all, 0, u[:a]))
 
     def pair():
         for t in range(T):
@@ -199,7 +204,15 @@ def fused(rows, q, T, device, seed=0, reps=5):
     rec = _header("fused", device, rows=rows, q=q, T=T, panel_gb=nbytes / 2e9)
     rec.update(cases={"sequential K2 then K1": seq, "fused": fus},
                order_ms=[statistics.median(r) for r in runs], fused_over_sequential=ratio,
-               verdict="WIN" if ratio < 0.95 else "NEUTRAL" if ratio < 1.05 else "LOSS")
+               verdict="WIN" if ratio < 0.95 else "NEUTRAL" if ratio < 1.05 else "LOSS",
+               gather_blocks=K.fused_gather_blocks(rows))
+    if device.type == "cuda":  # the split between the roles, which moves no bit
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = sorted({sms, 2 * sms, 4 * sms, cdiv(rows, 128), cdiv(rows, 64),
+                         K.fused_gather_blocks(rows)})
+        rec["splits"] = {g: _case(walk_ms(lambda: [K.fused_step(pk_all, t, (t + 1) % T, u, y4, g)
+                                                   for t in range(T)], device, reps), T, nbytes)
+                         for g in splits}
     return rec
 
 

@@ -116,7 +116,7 @@ def lib() -> ctypes.CDLL:
         L.ngt_read_step.argtypes = [P, P, I, I, I, S]
         L.ngt_dense_gather.argtypes = [P, P, P, I, I, I, S]
         L.ngt_dense_scatter.argtypes = [P, P, P, P, I, I, I, S]
-        L.ngt_fused_step.argtypes = [P] * 8 + [I] * 3 + [S]
+        L.ngt_fused_step.argtypes = [P] * 8 + [I] * 4 + [S]
         L.ngt_keyed_rng.argtypes = [P, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong), I, I,
                                     P, P, P, I, S]
         L.ngt_level_scan.argtypes = [P, I, P, P, P, P, P, P, P, S]

@@ -8,8 +8,8 @@ scripts (`scripts/micro_load32.py`, `micro_matvec.py`, `micro_fused.py`,
     read_step      read-only pass, per-row byte sums           (make_dma_step)
     dense_gather   int8 dosages, out[l] = sum_n mt[l, n] y[n]  (pl_r0)
     dense_scatter  int8 dosages, out[n] = sum_l u[l] mt[l, n]  (pl_corr)
-    fused_step     gather of step t1 and scatter of step t in one launch
-                   (make_fused_step)
+    fused_step     gather of step t1 and scatter of step t in one launch, on
+                   K1's and K2's bodies (make_fused_step)
 
 The scripts' other kernels compute what K1 and K2 compute (`pl_r0p`,
 `pl_r0p8`, `pl_corrp`, `make_gather_step`, `make_scatter_step`), so the
@@ -179,11 +179,27 @@ def dense_scatter(mt: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fused_step(pk_all: torch.Tensor, t: int, t1: int, u: torch.Tensor, y4: torch.Tensor):
+_TICKETS = {}  # (device, stream) -> the fused step's own tile tickets (not K2's)
+
+
+def fused_gather_blocks(rows: int) -> int:
+    """The fused step's blocks that gather: one per 32 rows (a row group of
+    K1's four per warp), so that a gather block streams about as many bytes
+    as a scatter block (K2's 512 rows of a 512-byte tile) and the two roles
+    interleave over the whole launch. A function of the shape alone."""
+    return cdiv(rows, 32)
+
+
+def fused_step(pk_all: torch.Tensor, t: int, t1: int, u: torch.Tensor, y4: torch.Tensor,
+               gather_blocks: int | None = None):
     """One launch for both panel passes: r0 = unpack(step t1) @ y4planar and
     dy = u @ unpack(step t), steps of rows = len(u). Returns (r0 (rows,),
     dy planar (4, q)). The gather reads y4 as given, not y4 + dy: this is
-    the overlap of the two passes, not a step of the sweep."""
+    the overlap of the two passes, not a step of the sweep. On the card the
+    gather blocks run K1's body and the scatter blocks K2's, so r0 has the
+    bits of K1 on step t1 and dy those of K2 on step t. gather_blocks: the
+    blocks that gather (default `fused_gather_blocks`); the rest are K2's
+    grid. It moves no bit."""
     if not pk_all.is_cuda:
         return fused_step_plain(pk_all, t, t1, u, y4)
     name = "micro.fused_step"
@@ -195,17 +211,22 @@ def fused_step(pk_all: torch.Tensor, t: int, t1: int, u: torch.Tensor, y4: torch
     _cuda.require(rows > 0 and all(0 <= s and (s + 1) * rows <= pk_all.shape[0] for s in (t, t1)),
                   f"{name}: step rows out of range")
     _cuda.require(y4.data_ptr() % 16 == 0, f"{name}: y4 must be 16-byte aligned")
-    dev = pk_all.device
-    slices = pack2.rank_slices(rows, q, threads=256)
-    yt = torch.empty_like(y4)
+    gather = fused_gather_blocks(rows) if gather_blocks is None else gather_blocks
+    tiles, slices = pack2.rank_grid(rows, q)
+    _cuda.require(isinstance(gather, int) and 0 < gather and tiles * slices + gather < 2 ** 31,
+                  f"{name}: gather_blocks must be > 0 and the grid below 2^31 blocks")
+    dev, stream = pk_all.device, _cuda.stream_of(pk_all)
     r0 = torch.empty(rows, dtype=torch.float32, device=dev)
-    partial = torch.empty((slices, 4, q), dtype=torch.float32, device=dev)
     dy = torch.empty((4, q), dtype=torch.float32, device=dev)
+    partial = tick = None
+    if slices > 1:
+        partial = torch.empty((slices, 4, q), dtype=torch.float32, device=dev)
+        tick = pack2.tickets(_TICKETS, dev, stream, tiles)
     base = pk_all.data_ptr()
-    err = _cuda.lib().ngt_fused_step(base + t * rows * q, base + t1 * rows * q, u.data_ptr(),
-                                     y4.data_ptr(), yt.data_ptr(), r0.data_ptr(),
-                                     partial.data_ptr(), dy.data_ptr(), rows, q, slices,
-                                     _cuda.stream_of(pk_all))
+    err = _cuda.lib().ngt_fused_step(
+        base + t * rows * q, base + t1 * rows * q, u.data_ptr(), y4.data_ptr(), r0.data_ptr(),
+        None if partial is None else partial.data_ptr(), dy.data_ptr(),
+        None if tick is None else tick.data_ptr(), rows, q, slices, gather, stream)
     _cuda.check(err, name)
     _cuda.LAUNCHES["fused_step"] += 1
     return r0, dy

@@ -120,13 +120,13 @@ RANK_TILE = 512  # K2's column tile: packed bytes, 16 a lane
 RANK_SLICE_ROWS = 512  # K2's rows per slice: 64 a warp
 
 
-def rank_slices(rows: int, q: int, threads: int = 128) -> int:
-    """Row slices of the ladder's scatters (`dense_scatter`, `fused_step`),
-    which keep K2's earlier design: a 4-byte column word per thread,
-    `threads` a block, partials added by a second pass. About 1024 blocks in
-    all, each slice at least 32 rows. Depends on the shape only, so the
-    summation order (and the result) is the same on every run and card."""
-    col_blocks = cdiv(q // 4, threads)
+def rank_slices(rows: int, q: int) -> int:
+    """Row slices of the ladder's dense scatter (`micro.dense_scatter`),
+    which keeps K2's earlier design: a 4-byte column word per thread, 128 a
+    block, partials added by a second pass. About 1024 blocks in all, each
+    slice at least 32 rows. Depends on the shape only, so the summation
+    order (and the result) is the same on every run and card."""
+    col_blocks = cdiv(q // 4, 128)
     return max(1, min(cdiv(rows, 32), cdiv(1024, col_blocks)))
 
 
@@ -140,11 +140,14 @@ def rank_grid(rows: int, q: int) -> tuple[int, int]:
 _TICKETS = {}  # (device, stream) -> int32 tickets of K2's column tiles, 0 between launches
 
 
-def _tickets(device, stream, tiles):
+def tickets(store, device, stream, tiles):
+    """At least `tiles` int32 tickets from `store` (a dict of its kernel's
+    own, keyed by device and stream), 0 between launches: each launch that
+    takes them leaves them 0."""
     key = (device, stream)
-    t = _TICKETS.get(key)
+    t = store.get(key)
     if t is None or t.numel() < tiles:
-        t = _TICKETS[key] = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
+        t = store[key] = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
     return t
 
 
@@ -158,13 +161,13 @@ def _rank_kernel(pk_all, row0, u):
     _cuda.require(slices <= 65_535, f"pack2.rank_update: {rows} rows need more than 65,535 slices")
     dev, stream = pk_all.device, _cuda.stream_of(pk_all)
     out = torch.empty((4, q), dtype=torch.float32, device=dev)
-    partial = tickets = None
+    partial = tick = None
     if slices > 1:
         partial = torch.empty((slices, 4, q), dtype=torch.float32, device=dev)
-        tickets = _tickets(dev, stream, tiles)
+        tick = tickets(_TICKETS, dev, stream, tiles)
     err = _cuda.lib().ngt_pack2_rank_update(
         pk_all.data_ptr() + row0 * q, u.data_ptr(), None if partial is None else partial.data_ptr(),
-        out.data_ptr(), None if tickets is None else tickets.data_ptr(), rows, q, slices, stream)
+        out.data_ptr(), None if tick is None else tick.data_ptr(), rows, q, slices, stream)
     _cuda.check(err, "pack2.rank_update")
     _cuda.LAUNCHES["pack2_rank_update"] += 1
     return out

@@ -15,9 +15,13 @@ class, K = 16, A * K at, just past and twice a warp's 32 lanes, coefficient
 rows that no longer fit shared memory, a chain that is all padding, the same
 bits from two launches, and short BayesRCpi, BayesRCplus and BayesLV chains;
 for the measurement ladder's kernels odd row counts, q = 16, one step (T = 1),
-grids of one and of more blocks than row groups, signed dosages, and each
+grids of one and of more blocks than row groups, signed dosages, the fused
+step with K1's and K2's bits at their edges on any split and its tickets
+reset, and each
 wrapper's refusals; for the keyed draws (csrc/keyed_rng.cu) the plain
-version's numbers at the main path's sizes, a draw captured in a CUDA graph
+version's numbers at the main path's sizes (1, 4, either side of a warp,
+257, 49,152), gammas at shapes 1e-6, 0.5, 1 and 25,000 and the refusal of
+a shape that is not positive and finite, a draw captured in a CUDA graph
 reading its sweep counter at replay, chains of all seven methods replayed
 by make_scan_sampler and make_chain_runner with the same bits as eager
 sweeps at V = 1 and 4, and the refusal of streams a graph cannot capture;
@@ -575,6 +579,50 @@ def test_ladder_step_kernels_match_plain(dev, rows, q, T):
     assert _cuda.LAUNCHES["fused_step"] == before["fused_step"] + 2 * T
 
 
+PACK2_EDGES = [(1, 16), (3, 48), (5, 528), (7, 2560), (4095, 496), (4097, 16), (511, 12_544),
+               (513, 2560), (1025, 25_088)]
+
+
+@pytest.mark.parametrize("rows,q", PACK2_EDGES)
+def test_fused_step_has_k1_and_k2_bits_at_their_edges(dev, rows, q):
+    """The fused step runs K1's and K2's bodies: at K1's and K2's edge shapes
+    (test_pack2_kernels_at_their_edges), gathering step 2 and scattering
+    step 1 of three, r0 has K1's bits and dy K2's, twice, on its default
+    split and on splits of one gather block and of more gather blocks than
+    row groups; one launch a call."""
+    from nextgp_tpu_torch.ops import micro as mk
+
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + q)
+    pk = torch.randint(0, 256, (3 * rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev)
+    u = torch.randn(rows, generator=g, device=dev)
+    k1, k2 = pack2.matvec_step(pk, 2, y4, rows), pack2.rank_update_step(pk, 1, u)
+    for gather in (None, None, 1, rows + 7):
+        before = _cuda.LAUNCHES["fused_step"]
+        r0, dy = mk.fused_step(pk, 1, 2, u, y4, gather)
+        assert _cuda.LAUNCHES["fused_step"] == before + 1
+        assert torch.equal(r0, k1) and torch.equal(dy, k2), gather
+
+
+def test_fused_step_tickets_are_its_own_and_reset(dev):
+    """The fused step closes K2's slices with tickets of its own (not K2's):
+    after each launch every one of them is 0 again, K2's are untouched, and
+    a second launch on other inputs gives K2's bits again."""
+    from nextgp_tpu_torch.ops import micro as mk
+
+    rows, q = 1537, 2560  # four slices over five tiles
+    g = torch.Generator(device=dev).manual_seed(11)
+    pk = torch.randint(0, 256, (2 * rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev)
+    for t, t1 in ((0, 1), (1, 0)):
+        u = torch.randn(rows, generator=g, device=dev)
+        dy = mk.fused_step(pk, t, t1, u, y4)[1]
+        assert torch.equal(dy, pack2.rank_update_step(pk, t, u))
+        key = (pk.device, _cuda.stream_of(pk))
+        assert mk._TICKETS[key] is not pack2._TICKETS[key]
+        assert int(mk._TICKETS[key].abs().sum()) == 0 and int(pack2._TICKETS[key].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("rows,q", [(1, 16), (7, 48), (130, 256), (515, 12_544)])
 def test_gather_width_kernels_match_plain_and_k1(dev, rows, q):
     from nextgp_tpu_torch.ops import micro as mk
@@ -684,6 +732,58 @@ def test_keyed_rng_matches_plain(dev):
     before = _cuda.LAUNCHES["keyed_rng"]
     check_keyed_rng(dev, 49_152, 4096)
     assert _cuda.LAUNCHES["keyed_rng"] - before == 6
+
+
+@pytest.mark.parametrize("n", [1, 4, 31, 33, 257, 49_152])
+def test_keyed_rng_matches_plain_at_the_main_path_sizes(dev, n):
+    """R1 at a draw of one and four elements (the intercept, varE's and the
+    class variance's chi2, the Dirichlet), either side of a warp, past two
+    blocks and at p_pad: uniforms the plain version's bits, normals within
+    1e-6 of scale, gammas (shapes from 0.5 to 25,000 in turn) within 1e-5
+    where the accepting attempt agrees, two launches the same bits."""
+    from nextgp_tpu_torch.engine import rng as R
+
+    counter = torch.tensor(11, dtype=torch.int64, device=dev)
+    h0, tail = R._splitmix64(3), (4, 0, 4, 1)
+    alpha = torch.tensor(GAMMA_SHAPES, device=dev).repeat(n)[:n].contiguous()
+    for kind in (R.UNIFORM, R.NORMAL, R.GAMMA):
+        a = alpha if kind == R.GAMMA else None
+        got, att = R.keyed_draw(kind, h0, counter, tail, n, torch.float32, a, iters=True)
+        ref, ref_att = R.keyed_draw_plain(kind, h0, counter, tail, n, torch.float32, a, iters=True)
+        assert torch.equal(got, R.keyed_draw(kind, h0, counter, tail, n, torch.float32, a))
+        if kind == R.UNIFORM:
+            assert torch.equal(got, ref)
+        elif kind == R.NORMAL:
+            assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+        else:
+            same = att == ref_att
+            assert (att >= 0).all() and 1.0 - same.float().mean().item() <= 1e-4
+            assert (((got - ref).abs() / ref.abs())[same] <= 1e-5).all()
+
+
+@pytest.mark.parametrize("shape", [1e-6, 0.5, 1.0, 25_000.0])
+def test_keyed_rng_gamma_at_its_shape_edges(dev, shape):
+    """Gammas at a shape of 1e-6 (clamped at the smallest normal float),
+    0.5 (boosted), 1 and 25,000, 20,000 draws each, against the plain version
+    under phase 7a's tolerances; and a shape that is NaN, 0, negative or
+    infinite in any lane of a warp gives NaN and no attempt, its neighbours
+    their plain values."""
+    from nextgp_tpu_torch.engine import rng as R
+
+    counter = torch.tensor(4, dtype=torch.int64, device=dev)
+    h0, tail = R._splitmix64(8), (2, 0, 2, 1)
+    n = 20_000
+    alpha = torch.full((n,), shape, device=dev)
+    alpha[5::97] = torch.tensor([float("nan"), 0.0, -1.0, float("inf")], device=dev).repeat(52)[
+        :alpha[5::97].numel()]
+    got, att = R.keyed_draw(R.GAMMA, h0, counter, tail, n, torch.float32, alpha, iters=True)
+    ref, ref_att = R.keyed_draw_plain(R.GAMMA, h0, counter, tail, n, torch.float32, alpha, iters=True)
+    bad = ~(torch.isfinite(alpha) & (alpha > 0))
+    assert bad.sum() == 207 and got[bad].isnan().all() and (att[bad] == -1).all()
+    same = (att == ref_att) & ~bad
+    assert (att[~bad] >= 0).all() and 1.0 - same[~bad].float().mean().item() <= 1e-4
+    assert (((got - ref).abs() / ref.abs())[same] <= 1e-5).all()
+    assert (got[~bad] >= torch.finfo(torch.float32).tiny).all()
 
 
 def test_keyed_rng_reads_its_counter_at_replay(dev):

@@ -118,3 +118,68 @@ def test_gamma_attempts_and_refusals():
     assert abs(big.mean().item() / 25000.0 - 1.0) < 5 * (1.0 / (25000.0 * 400)) ** 0.5
     assert (g[alpha == 1e-6] >= torch.finfo(torch.float64).tiny).all()
     torch.testing.assert_close(s.gamma(site, alpha), g, rtol=0, atol=0, equal_nan=True)
+
+
+# ------------------------------------------------------------ the kernel's gamma shortcuts
+# csrc/keyed_rng.cu takes two shortcuts the plain version does not: the
+# Marsaglia-Tsang squeeze before the full test, and a warp's lanes shared
+# among its pending elements. Both must leave the accepting attempt the plain
+# version's sequential loop finds (the card holds the kernel itself to it).
+
+
+@pytest.mark.parametrize("d", [2.0 / 3.0, 0.7, 1.0, 2.5, 30.0, 983.0 - 1.0 / 3.0, 25_000.0])
+def test_squeeze_implies_the_full_test(d):
+    """log(1 - 0.0331 x^4) <= 0.5 x^2 + d (1 - v + log v), v = (1 + c x)^3,
+    c = 1/sqrt(9d), wherever the squeeze can accept (1 - 0.0331 x^4 > 0)
+    and v > 0, for the least d the kernel meets (2/3: alpha = 1, or alpha < 1
+    boosted) and above: the squeeze accepts no attempt the full test
+    rejects. Equality only at x = 0, where both sides are 0."""
+    c = 1.0 / np.sqrt(9.0 * d)
+    x = np.linspace(max(-1.0 / c, -(1.0 / 0.0331) ** 0.25) + 1e-9, (1.0 / 0.0331) ** 0.25 - 1e-9,
+                    400_001)
+    v = (1.0 + c * x) ** 3
+    rhs = 0.5 * x * x + d * ((1.0 - v) + np.log(v))
+    margin = rhs - np.log1p(-0.0331 * x ** 4)
+    assert margin.min() > -1e-15
+    assert (margin[np.abs(x) > 0.05] > 0).all()
+
+
+def _shared_attempts(accepts, first):
+    """A model of the kernel's gamma loop for one warp: accepts[e][j] whether
+    attempt j of lane e's element accepts (None for a lane without a live
+    element). Each lane tries attempt 0; then while k elements are pending
+    the warp gives the s-th of them lanes s m .. s m + m - 1, m = 32 // k,
+    lane s m + r its attempt next + r, and a pending element takes its
+    lowest accepting lane. Returns each lane's accepting attempt (-1: none
+    by `first` attempts)."""
+    att = [-1 if a is None or not a[0] else 0 for a in accepts]
+    done = [a is None or a[0] for a in accepts]
+    nxt = [1] * 32
+    while not all(done):
+        pending = [e for e in range(32) if not done[e]]
+        m = 32 // len(pending)
+        tried = {e: [nxt[e] + r < first and accepts[e][nxt[e] + r] for r in range(m)]
+                 for e in pending}
+        for e in pending:
+            if any(tried[e]):
+                att[e], done[e] = nxt[e] + tried[e].index(True), True
+            else:
+                nxt[e] += m
+                done[e] = nxt[e] >= first
+    return att
+
+
+@pytest.mark.parametrize("p_accept", [0.05, 0.5, 0.95, 0.999])
+def test_shared_attempts_take_the_sequential_loops_attempt(p_accept):
+    """Over 200 warps of random acceptances (rates from nearly none, where
+    most lanes stay pending round after round and 32 // k leaves lanes
+    idle, to nearly all), with lanes without a live element and a limit of
+    attempts, the shared loop gives every element the first attempt that
+    accepts, as the sequential loop does, or none where none does."""
+    rs = np.random.default_rng(int(p_accept * 1000))
+    for _ in range(200):
+        first = int(rs.integers(2, 200))
+        accepts = [None if rs.random() < 0.1 else list(rs.random(first) < p_accept)
+                   for _ in range(32)]
+        seq = [-1 if a is None or not any(a) else a.index(True) for a in accepts]
+        assert _shared_attempts(accepts, first) == seq

@@ -10,6 +10,9 @@ and check them.
     python3 chip_smoke.py keyed [DIR ...]  # phases 1-2 and phase 7a alone; with DIRs
                                  # (other trees' csrc/), their R1 timed beside this
                                  # tree's in turns
+    python3 chip_smoke.py gathers [DIR ...]  # phases 1-2 and phase 6's S1a, S1b and K1
+                                 # alone; with DIRs (other trees' csrc/), theirs
+                                 # timed beside this tree's in turns
     python3 chip_smoke.py chains # phases 1-2 and phase 4's default chains, digested
     python3 chip_smoke.py random # phases 1-2 and phase 8 alone
     python3 chip_smoke.py random DIR  # the same, and RE1 against DIR's (another
@@ -67,7 +70,10 @@ Phases (any failed check raises and the script exits non-zero):
   6. the measurement ladder at the JAX scripts' full sizes: its six kernels
      (read-only pass, 1- and 4-byte-load gathers, dense int8 gather and
      scatter, fused scatter||gather) against their plain versions on the same
-     inputs, then `nextgp_tpu_torch.micro` through its entry point, one
+     inputs (the gathers, S1a and S1b, also against K1's plain version, the
+     same bits twice and on grids of 1 and 7 blocks, their time on the card
+     alone beside it, and again at q = 25,088, past the shared memory they
+     once staged y in), then `nextgp_tpu_torch.micro` through its entry point, one
      experiment at a time with launch counts: K1 and K2 over 16 fresh steps
      of a 7.4 GB panel beside the read-only roof, the fused step (K1's and
      K2's bodies in one launch, with their bits) against the sequential pair
@@ -1022,6 +1028,42 @@ def chain_phase():
 # ------------------------------------------------------------------ phase 6
 
 LADDER = dict(rows=36_864, q=12_544, T=16, load_rows=24_576, L=16_384, N=10_240)  # the scripts' sizes
+LOAD_Q_BIG = pack2.packed_q(N_BIG)  # 25,088: past the 16 q bytes of shared memory S1 once staged y in
+
+
+def gather_inputs(rows, q, seed):
+    """load32's inputs on the card: bytes uniform in 0..255 and y4 normal.
+    {"S1a": (the bytes, y4), "S1b": (their int32 view, y_words(y4, 4))}."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    pk = micro.panel(rows, q, DEV, gen, high=256)
+    y4 = torch.randn((4, q), generator=gen, device=DEV)
+    return {"S1a": (pk, y4), "S1b": (pk.view(torch.int32), mk.y_words(y4, 4))}
+
+
+def held_gathers(rows, q, seed):
+    """S1a and S1b on a (rows, q) panel: each within TOL_PASS of its plain
+    version and of K1's plain version on the same bytes, the same bits from
+    a second launch and on grids of 1 and 7 blocks, one launch counted per
+    call. Returns the inputs and {case: (max_abs_err, scale)}."""
+    cases = gather_inputs(rows, q, seed)
+    ref = pack2.matvec_plain(*cases["S1a"])
+    errs = {}
+    for width, (name, (pkw, yw)) in zip((1, 4), cases.items()):
+        before = _cuda.LAUNCHES[f"gather_width{width}"]
+        got = mk.gather_width(pkw, yw)
+        check(_cuda.LAUNCHES[f"gather_width{width}"] == before + 1, f"{name}: not one launch counted")
+        errs[name] = e, s = rel_err(got, mk.gather_width_plain(pkw, yw))
+        e_k1, s_k1 = rel_err(got, ref)
+        check(e <= TOL_PASS * s and e_k1 <= TOL_PASS * s_k1,
+              f"{name} at {rows} x {q}: {e:.3e} of {s:.3e} from its plain version, "
+              f"{e_k1:.3e} of {s_k1:.3e} from K1's")
+        for blocks in (0, 1, 7):  # 0: as many as are resident, the default
+            check(torch.equal(got, mk.gather_width(pkw, yw, blocks=blocks)),
+                  f"{name} at {rows} x {q}: other bits on a second launch or another grid")
+        print(f"[6 ladder kernels] {name} at {rows} x {q}: max_abs_err {e:.3e} (scale {s:.3e}), "
+              f"{e_k1:.3e} from K1's plain version (tol {TOL_PASS:g} x scale); the same bits twice "
+              "and on 1 and 7 blocks")
+    return cases, errs
 
 
 def per_launch_ms(walk, launches):
@@ -1064,18 +1106,19 @@ def ladder_kernels():
            "twice)", phase=ph)
     del pk_all, ref_r0, ref_dy
 
-    gen = torch.Generator(device=DEV).manual_seed(0)
     R = LADDER["load_rows"]
-    pk = micro.panel(R, q, DEV, gen, high=256)
-    yb = torch.randn((4, q), generator=gen, device=DEV)
-    for width, pkw in ((1, pk), (4, pk.view(torch.int32))):
-        yw = mk.y_words(yb, width)
-        e, s = rel_err(mk.gather_width(pkw, yw), mk.gather_width_plain(pkw, yw))
-        report(f"gather_width{width}", e, s, TOL_PASS, median_ms(lambda: mk.gather_width(pkw, yw), 10),
-               median_ms(lambda: mk.gather_width_plain(pkw, yw), 3), pass_work(R, q),
-               f" ({R} x {q} bytes, {width}-byte loads)", phase=ph)
-    del pk, pkw
+    cases, errs = held_gathers(R, q, 0)
+    for width, (name, (pkw, yw)) in zip((1, 4), cases.items()):
+        def kern(pkw=pkw, yw=yw):
+            return mk.gather_width(pkw, yw)
 
+        report(f"gather_width{width}", *errs[name], TOL_PASS, median_ms(kern, 10),
+               median_ms(lambda: mk.gather_width_plain(pkw, yw), 3), pass_work(R, q),
+               f" ({name}: {R} x {q} bytes, {width}-byte loads)", phase=ph, dev_ms=device_ms(kern, 20))
+    del cases
+    held_gathers(ROWS_BIG, LOAD_Q_BIG, 1)
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
     L, Nn = LADDER["L"], LADDER["N"]
     mt = torch.randint(0, 3, (L, Nn), generator=gen, device=DEV, dtype=torch.int8)
     yv, uv = torch.randn(Nn, generator=gen, device=DEV), torch.randn(L, generator=gen, device=DEV)
@@ -1109,6 +1152,108 @@ def ladder_phase(card):
         times = [c["ms_per_launch"] for c in rec["cases"].values()]
         check(all(np.isfinite(t) and t > 0 for t in times), f"ladder {name}: a case has no time")
     return counted
+
+
+def other_gathers(srcs):
+    """Other trees' S1 and K1: each tree's micro.cu and pack2.cu built alone
+    into one library with this tree's nvcc flags, all builds started
+    together. {label: (gather(pk, yw), matvec(pk, y4), calls)}: gather runs
+    on the grid S1 had before it took K1's rule (gather_blocks, which every
+    tree's S1 takes); matvec is K1 on its resident grid; calls() counts
+    both."""
+    builds = [start_build(src, "gathers", ("micro.cu", "pack2.cu")) for src in srcs]
+    arms = {}
+    for label, so, proc in builds:
+        lib = finish_build(label, so, proc, "gather_width")
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.ngt_gather_width.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+        lib.ngt_pack2_matvec.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+        calls = [0]
+
+        def gather(pk, yw, lib=lib, calls=calls, label=label):
+            rows, nword = pk.shape
+            out = torch.empty(rows, dtype=torch.float32, device=DEV)
+            _cuda.check(lib.ngt_gather_width(pk.data_ptr(), yw.data_ptr(), out.data_ptr(), rows, nword,
+                                             pk.element_size(), mk.gather_blocks(rows, DEV),
+                                             _cuda.stream_of(pk)), f"{label}: ngt_gather_width")
+            calls[0] += 1
+            return out
+
+        def matvec(pk, y4, lib=lib, calls=calls, label=label):
+            rows, q = pk.shape
+            out = torch.empty(rows, dtype=torch.float32, device=DEV)
+            _cuda.check(lib.ngt_pack2_matvec(pk.data_ptr(), y4.data_ptr(), out.data_ptr(), rows, q, 0,
+                                             _cuda.stream_of(pk)), f"{label}: ngt_pack2_matvec")
+            calls[0] += 1
+            return out
+
+        arms[label] = (gather, matvec, lambda calls=calls: calls[0])
+    return arms
+
+
+def gather_arms(others, reps=20):
+    """S1a, S1b and K1 at load32's panel (24,576 x 12,544) for this tree (C)
+    and each of others (other_gathers), on the card alone (device_ms, reps
+    calls), in turns others, C, C, others reversed. C is first held as phase
+    6 holds it, each other arm to the plain versions (whether it has C's bits
+    is printed). Last, C is held at q = 25,088 and each other arm tried
+    there. Returns the JSON record."""
+    R, q = LADDER["load_rows"], LADDER["q"]
+    cases, _ = held_gathers(R, q, 0)
+    cases["K1"] = cases["S1a"]
+    arms = {"C": (mk.gather_width, pack2.matvec, None), **others}
+    names = list(others)
+    order = names + ["C"] + (["C"] + names[::-1] if names else [])
+
+    def call(arm, case):
+        gather, matvec, _ = arms[arm]
+        return (matvec if case == "K1" else gather)(*cases[case])
+
+    plain = {case: (pack2.matvec_plain if case == "K1" else mk.gather_width_plain)(*args)
+             for case, args in cases.items()}
+    mine = {case: call("C", case) for case in cases}
+    same = {}
+    for arm in names:
+        for case in cases:
+            got = call(arm, case)
+            e, s = rel_err(got, plain[case])
+            check(e <= TOL_PASS * s, f"{arm} {case}: {e:.3e} of {s:.3e} from its plain version")
+            same[f"{arm} {case}"] = torch.equal(got, mine[case])
+    del plain, mine
+    ms = {case: {arm: [] for arm in arms} for case in cases}
+    for arm in order:
+        for case in cases:
+            ms[case][arm].append(device_ms(lambda: call(arm, case), reps, calls=arms[arm][2]))
+    bound_ms = 1e3 * pass_work(R, q)[0] / HBM_BYTES_PER_S
+    for case, by_arm in ms.items():
+        print(f"[6 gathers] {case} at {R} x {q}, on the card alone, in turns "
+              f"{', '.join(order)}: " + "; ".join(f"{a} {v}" for a, v in by_arm.items())
+              + f" ms; byte bound {bound_ms:.6f} ms; "
+              + ", ".join(f"{k} {'has' if v else 'lacks'} C's bits" for k, v in same.items()
+                          if k.endswith(case)))
+    del cases
+    held_gathers(ROWS_BIG, LOAD_Q_BIG, 1)
+    big = gather_inputs(ROWS_BIG, LOAD_Q_BIG, 1)
+    at_big = {}
+    for arm in names:  # last: a tree that refuses may leave its runtime's last error set
+        for case in ("S1a", "S1b"):
+            try:
+                e, s = rel_err(arms[arm][0](*big[case]), mk.gather_width_plain(*big[case]))
+                at_big[f"{arm} {case}"] = f"max_abs_err {e:.3e} of scale {s:.3e}"
+            except (RuntimeError, ValueError) as err:
+                at_big[f"{arm} {case}"] = f"refused: {err}"
+    print(f"[6 gathers] at {ROWS_BIG} x {LOAD_Q_BIG}: C held; {json.dumps(at_big)}")
+    return dict(order=order, ms=ms, bound_ms=bound_ms, same_bits_as_c=same, at_q_25088=at_big)
+
+
+def gathers_only(card, srcs):
+    """`python3 chip_smoke.py gathers [DIR ...]`: S1a, S1b and K1 alone
+    (gather_arms), the quick form for work on the ladder's gathers; with
+    DIRs (other trees' csrc/, e.g. a `git archive` of the parent under
+    _checkout/), theirs in turns beside this tree's. One JSON line, and no
+    result line."""
+    out = gather_arms(other_gathers(srcs) if srcs else {})
+    print(json.dumps({"card": card, "gathers": out}))
 
 
 def stage_phase(path, res, n_sweeps=10):
@@ -1311,29 +1456,48 @@ def keyed_library(kind, n, alpha):
     return lambda: torch._standard_gamma(alpha)
 
 
+def start_build(src, kind, sources):
+    """Start nvcc on `sources` of another tree's csrc/ directory src, copied
+    beside its headers, into one library with this tree's flags: (label,
+    the library's path, the process). The label is the tree's name
+    (src's grandparent, where src is a tree's nextgp_tpu_torch/csrc), or
+    src's own name."""
+    src = Path(src).resolve()
+    label = src.parent.parent.name if src.parent.name == "nextgp_tpu_torch" else src.name
+    out = _cuda.BUILD_ROOT / f"{kind}_{label}"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in [*src.glob("*.cuh"), *(src / s for s in sources)]:
+        shutil.copy(f, out / f.name)
+    so = out / "lib.so"
+    return label, so, subprocess.Popen(
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so), *(str(out / s) for s in sources)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(label, so, proc, kernel=None):
+    """Wait for start_build's nvcc and load its library; print ptxas's
+    register and spill lines for the entries whose names hold `kernel`."""
+    log = proc.communicate(timeout=600)[0]
+    check(proc.returncode == 0, f"nvcc of {label}'s sources ({proc.returncode}):\n{log[-3000:]}")
+    entry = ""
+    for line in log.splitlines() if kernel else ():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif kernel in entry and ("Used" in line or "spill" in line):
+            print(f"  ptxas {label} {entry}: {line.strip()}")
+    return ctypes.CDLL(str(so))
+
+
 def other_keyed_rng(srcs):
     """Other trees' R1, each built alone from a csrc/ directory with this
     tree's nvcc flags, all builds started together: {label: (draw, calls)}
     with draw(kind, h0, counter, tail, n, alpha) -> float32 out, and calls()
     the draws made so far. The label is the directory's parent's name (the
     tree's), or the directory's where that is `nextgp_tpu_torch`."""
-    builds = []
-    for src in srcs:
-        src = Path(src).resolve()
-        label = src.parent.parent.name if src.parent.name == "nextgp_tpu_torch" else src.name
-        out = _cuda.BUILD_ROOT / f"keyed_{label}"
-        out.mkdir(parents=True, exist_ok=True)
-        for f in [*src.glob("*.cuh"), src / "keyed_rng.cu"]:
-            shutil.copy(f, out / f.name)
-        so = out / "lib.so"
-        builds.append((label, src, so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so), str(out / "keyed_rng.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    builds = [start_build(src, "keyed", ("keyed_rng.cu",)) for src in srcs]
     arms = {}
-    for label, src, so, proc in builds:
-        log = proc.communicate(timeout=600)[0]
-        check(proc.returncode == 0, f"nvcc of {src}/keyed_rng.cu ({proc.returncode}):\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(so))
+    for label, so, proc in builds:
+        lib = finish_build(label, so, proc)
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.ngt_keyed_rng.argtypes = [ptr, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong),
                                       i64, i64, ptr, ptr, ptr, i64, ptr]
@@ -2170,6 +2334,8 @@ def main(argv=()):
     build_phase()
     if list(argv[:1]) == ["keyed"]:
         return keyed_only(card, argv[1:])
+    if list(argv[:1]) == ["gathers"]:
+        return gathers_only(card, argv[1:])
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -2182,7 +2348,7 @@ def main(argv=()):
     if list(argv[:1]) == ["random"] and len(argv) <= 2:
         return random_only(spec_for, sig, card, *argv[1:])
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...] or random [DIR]")
+                    "keyed [DIR ...], gathers [DIR ...] or random [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

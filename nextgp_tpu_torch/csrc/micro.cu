@@ -7,16 +7,28 @@
 // second fixed-order pass, as K1 and K2 did before their redesign (pack2.cu
 // now closes K2's slices in the same launch; the fused step runs K1's and
 // K2's bodies as they are now). No float atomics:
-// every output is bit-reproducible for a given shape. All are bound by the
-// device-memory bytes of the panel they stream.
+// every output is bit-reproducible for a given shape. Each streams its
+// panel once; what binds each on the H100 is in PERF.md.
 //
 // gather_width<Word>  replaces `mv8` / `mv32` (scripts/micro_load32.py:38-104).
 //   out[r] = sum_j sum_m ((pk[r, j] >> 2m) & 3) * yw[m, j], m over the 4W
 //   two-bit fields of a W-byte word: W = 1 is the packed gather with one byte
 //   per thread per load, W = 4 the same bytes as little-endian 32-bit words
-//   with y as (16, q/4). Everything but the load is K1's earlier body: one warp per group
-//   of four rows, y staged in shared memory (16 q bytes either way), the
-//   fields' y values loaded once for the four rows, a warp reduction.
+//   with y as (16, q/4). Everything but the load is K1's body (pack2_body.cuh):
+//   a warp per group of four rows; panel words that do not allocate in L1,
+//   lane l loading words l, l + 32, ... of each row (a warp's load is 32 W
+//   contiguous bytes); a dosage one LOP3 and two FFMAs (`field`, summed 16
+//   dosages at a time in `word_dot`'s order); y read as given through L1, so
+//   no shared memory and no limit on q; K1's grid (as many blocks as are
+//   resident), each row summed in an order of the shape alone. A lane loads
+//   8 bytes of each of its four rows (8 loads at W = 1, 2 at W = 4) before
+//   it uses the first, and walks a pointer per row and one for y. So the
+//   cases differ in their loads: per 16 columns of a row group K1 makes
+//   four 16-byte panel loads and 16 float4 y loads, W = 4 sixteen 4-byte
+//   panel loads and 64 scalar y loads (from 16 rows of y), W = 1 64 of
+//   each.
+//   Bound, like K1, by the instructions it executes, not by the panel's bytes
+//   (PERF.md).
 // read_step  replaces `make_dma_step` (scripts/micro_frontier.py:62-92).
 //   out[r] = sum_j pk[r, j] as int32: a read-only pass, K1's access pattern
 //   (16-byte loads, four rows per warp) with one __dp4a per word so that
@@ -61,36 +73,110 @@ slice_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, 
   out[i] = a;
 }
 
-template <typename Word>
-__global__ void __launch_bounds__(kGatherThreads)
-gather_width_kernel(const Word* __restrict__ pk, const float* __restrict__ yw,
-                    float* __restrict__ out, long long rows, int nword) {
-  constexpr int kFields = 4 * (int)sizeof(Word);
-  extern __shared__ float ys[];  // (kFields, nword), as given
-  for (int idx = threadIdx.x; idx < kFields * nword; idx += blockDim.x) ys[idx] = yw[idx];
-  __syncthreads();
+// A panel word that does not allocate in L1, which keeps L1 for y: K1's
+// ld_stream16 at one byte and at four.
+__device__ __forceinline__ uint32_t ld_stream(const uint8_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
 
+__device__ __forceinline__ uint32_t ld_stream(const uint32_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// Dot of four bytes, each alone in a word (columns c0..c3), against y[k] =
+// yw[k, c0..c3]: word_dot's order, every field read in place.
+__device__ __forceinline__ float bytes_dot(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3,
+                                           const float4 (&y)[4], uint32_t magic) {
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a = fmaf(packed::field(b0, 2 * k, magic), y[k].x, a);
+    a = fmaf(packed::field(b1, 2 * k, magic), y[k].y, a);
+    a = fmaf(packed::field(b2, 2 * k, magic), y[k].z, a);
+    a = fmaf(packed::field(b3, 2 * k, magic), y[k].w, a);
+  }
+  return a;
+}
+
+// Panel words a lane keeps in flight of each of its four rows: 8 bytes a
+// row at either width.
+template <typename Word>
+constexpr int kWordsInFlight = 8 / (int)sizeof(Word);
+
+// One pass of a warp over its row group: lane words p[rr][32 u], u <
+// kWordsInFlight, all loaded before any is used, then summed 16 dosages at a
+// time (a 4-byte word, or four bytes) into acc against y at the same
+// columns: row m of y at yj + m nword (the offsets are the same for every
+// lane and stay in uniform registers, where 16 row pointers of y16 would not
+// fit beside the panel words at three blocks an SM). kTail: only the columns
+// with 32 u < left are in the panel; the others count as 0.
+template <typename Word, bool kTail>
+__device__ __forceinline__ void gather_pass(const Word* const (&p)[kRowsPerWarp],
+                                            const float* yj, size_t nword,
+                                            float (&acc)[kRowsPerWarp], int left, uint32_t magic) {
+  constexpr int W = sizeof(Word), kWords = kWordsInFlight<Word>;
+  uint32_t w[kRowsPerWarp][kWords];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) w[rr][u] = (!kTail || 32 * u < left) ? ld_stream(p[rr] + 32 * u) : 0u;
+  }
+#pragma unroll
+  for (int g = 0; g < kWords * W / 4; ++g) {
+    float4 y[4];  // y[k]: the factors of field k of the unit's bytes 0..3
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float v[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int c = 32 * (W == 4 ? g : 4 * g + b);
+        v[b] = (!kTail || c < left) ? __ldg(yj + (W == 4 ? 4 * b + k : k) * nword + c) : 0.f;
+      }
+      y[k] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      if constexpr (W == 4)
+        acc[rr] += packed::word_dot(w[rr][g], y, magic);
+      else
+        acc[rr] += bytes_dot(w[rr][4 * g], w[rr][4 * g + 1], w[rr][4 * g + 2], w[rr][4 * g + 3], y,
+                             magic);
+    }
+  }
+}
+
+template <typename Word>
+__global__ void __launch_bounds__(packed::kGatherThreads, 3)
+gather_width_kernel(const Word* __restrict__ pk, const float* __restrict__ yw,
+                    float* __restrict__ out, long long rows, int nword, uint32_t magic) {
+  constexpr int kSpan = 32 * kWordsInFlight<Word>;  // a warp's words of a row in one pass
   const int lane = threadIdx.x & 31;
+  const int whole = nword - nword % kSpan;  // words of whole passes
   const long long wpb = blockDim.x >> 5;
   const long long stride = (long long)gridDim.x * wpb * kRowsPerWarp;
   for (long long r0 = ((long long)blockIdx.x * wpb + (threadIdx.x >> 5)) * kRowsPerWarp;
        r0 < rows; r0 += stride) {  // warp-uniform loop
+    // pointers walked pass by pass; a row past the end reads the last row,
+    // and its sum is not stored
+    const Word* p[kRowsPerWarp];
+    const float* yj = yw + lane;
     float acc[kRowsPerWarp];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr] = 0.f;
-    for (int j = lane; j < nword; j += 32) {
-      uint32_t w[kRowsPerWarp];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr)
-        w[rr] = (r0 + rr < rows) ? (uint32_t)__ldg(pk + (r0 + rr) * nword + j) : 0u;
-#pragma unroll
-      for (int m = 0; m < kFields; ++m) {
-        const float y = ys[m * nword + j];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr)
-          acc[rr] = fmaf(ngt::small_u2f((w[rr] >> (2 * m)) & 3u), y, acc[rr]);
-      }
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      p[rr] = pk + min(r0 + rr, rows - 1) * nword + lane;
+      acc[rr] = 0.f;
     }
+    for (int j = 0; j < whole; j += kSpan) {  // warp-uniform: whole is a multiple of kSpan
+      gather_pass<Word, false>(p, yj, nword, acc, 0, magic);
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerWarp; ++rr) p[rr] += kSpan;
+      yj += kSpan;
+    }
+    if (whole < nword) gather_pass<Word, true>(p, yj, nword, acc, nword - whole - lane, magic);
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const float s = ngt::warp_sum(acc[rr]);
@@ -102,14 +188,11 @@ gather_width_kernel(const Word* __restrict__ pk, const float* __restrict__ yw,
 template <typename Word>
 int launch_gather_width(const void* pk, const void* yw, void* out, long long rows,
                         long long nword, long long blocks, cudaStream_t st) {
-  const size_t smem = 16 * sizeof(Word) * (size_t)nword;  // 4 W rows of nword floats
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(gather_width_kernel<Word>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gather_width_kernel<Word><<<(unsigned)blocks, kGatherThreads, smem, st>>>(
-      (const Word*)pk, (const float*)yw, (float*)out, rows, (int)nword);
+  static int resident[packed::kMaxDevices];
+  const int err = packed::gather_grid(gather_width_kernel<Word>, resident, rows, blocks);
+  if (err != 0) return err;
+  gather_width_kernel<Word><<<(unsigned)blocks, packed::kGatherThreads, 0, st>>>(
+      (const Word*)pk, (const float*)yw, (float*)out, rows, (int)nword, packed::kMagic);
   return (int)cudaGetLastError();
 }
 
@@ -255,8 +338,8 @@ fused_step_kernel(const uint8_t* __restrict__ pk_s, const uint8_t* __restrict__ 
 extern "C" {
 
 // pk: (rows, nword) words of `width` bytes (1: uint8, 4: int32), yw:
-// (4 width, nword) f32, out: (rows,) f32; 16 width nword bytes of shared
-// memory must fit a block; blocks > 0.
+// (4 width, nword) f32, out: (rows,) f32; rows > 0. blocks: the
+// grid, or 0 for as many blocks as are resident at once (K1's rule).
 int ngt_gather_width(const void* pk, const void* yw, void* out, long long rows, long long nword,
                      long long width, long long blocks, void* stream) {
   if (width == 1)

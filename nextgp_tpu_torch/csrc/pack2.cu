@@ -87,25 +87,9 @@ const char* ngt_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // blocks as are resident at once (at most one warp per row group).
 int ngt_pack2_matvec(const void* pk, const void* y4, void* out, long long rows, long long q,
                      long long blocks, void* stream) {
-  if (blocks <= 0) {
-    static int resident[64];  // per device: blocks resident at once, found at first use
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= 64) return (int)cudaErrorInvalidDevice;
-    if (resident[dev] == 0) {
-      int sms = 0, per_sm = 0;
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, matvec_kernel, kGatherThreads, 0);
-      if (err != cudaSuccess) return (int)err;
-      resident[dev] = per_sm * sms;
-    }
-    const long long groups = (rows + kGatherRows - 1) / kGatherRows;
-    const long long wpb = kGatherThreads / 32;
-    blocks = (groups + wpb - 1) / wpb;
-    if (blocks > resident[dev]) blocks = resident[dev];
-  }
+  static int resident[kMaxDevices];
+  const int err = gather_grid(matvec_kernel, resident, rows, blocks);
+  if (err != 0) return err;
   matvec_kernel<<<(unsigned)blocks, kGatherThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)pk, (const float*)y4, (float*)out, rows, (int)q, kMagic);
   return (int)cudaGetLastError();

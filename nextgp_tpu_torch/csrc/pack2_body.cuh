@@ -60,6 +60,35 @@ __device__ __forceinline__ float word_dot(uint32_t w, const float4 (&y)[4], uint
   return a;
 }
 
+constexpr int kMaxDevices = 64;
+
+// K1's grid rule, for the gathers that share its block: as many blocks of
+// kGatherThreads as `kernel` keeps resident on the current device at once
+// (found at first use and kept in `resident`, a slot a device), at most one
+// warp a row group of `rows`. A grid given by the caller (blocks > 0) stays.
+// Returns 0 or the CUDA error.
+template <typename Kernel>
+inline int gather_grid(Kernel kernel, int (&resident)[kMaxDevices], long long rows,
+                       long long& blocks) {
+  if (blocks > 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGatherThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident[dev] = per_sm * sms;
+  }
+  const long long wpb = kGatherThreads / 32;
+  blocks = ((rows + kGatherRows - 1) / kGatherRows + wpb - 1) / wpb;
+  if (blocks > resident[dev]) blocks = resident[dev];
+  return 0;
+}
+
 // K1's body: the calling warp gathers the row groups starting at rows
 // first, first + stride, ... (kGatherRows rows each): out[r] = sum_k sum_j
 // plane_k(pk[r, j]) * y4[k, j], each row in the same order whatever the

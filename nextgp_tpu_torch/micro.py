@@ -18,7 +18,8 @@ one JSON line:
             K2's bodies in one launch), timed in the order pair, fused,
             fused, pair; WIN below 0.95x, LOSS above 1.05x; then the fused
             step at other splits of its blocks between the two roles
-  load32    the packed gather with 16-byte (K1), 4-byte and 1-byte loads
+  load32    the packed gather with 16-byte (K1), 4-byte and 1-byte loads,
+            all three on K1's body: what the width of a load costs
   matvec    dense int8 gather and scatter against the packed K1' and K2' on
             the same dosages
 

@@ -5,6 +5,7 @@ scripts (`scripts/micro_load32.py`, `micro_matvec.py`, `micro_fused.py`,
 `micro_frontier.py`); `nextgp_tpu_torch.micro` runs them as those scripts do.
 
     gather_width   packed gather with 1-byte or 4-byte loads   (mv8 / mv32)
+                   on K1's body
     read_step      read-only pass, per-row byte sums           (make_dma_step)
     dense_gather   int8 dosages, out[l] = sum_n mt[l, n] y[n]  (pl_r0)
     dense_scatter  int8 dosages, out[n] = sum_l u[l] mt[l, n]  (pl_corr)
@@ -74,8 +75,9 @@ def fused_step_plain(pk_all, t, t1, u, y4):
 
 
 def gather_blocks(rows: int, device) -> int:
-    """The ladder's gathers' grid over `rows` rows (K1's before its redesign):
-    one warp per four rows, eight warps a block, at most four blocks per SM."""
+    """The grid of read_step and dense_gather over `rows` rows (K1's before
+    its redesign): one warp per four rows, eight warps a block, at most four
+    blocks per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return min(cdiv(cdiv(rows, 4), 8), 4 * sms)
 
@@ -87,11 +89,14 @@ def _check_vec(vec, like, shape, name):
                   f"device, got {vec.dtype} {tuple(vec.shape)}")
 
 
-def gather_width(pk: torch.Tensor, yw: torch.Tensor) -> torch.Tensor:
+def gather_width(pk: torch.Tensor, yw: torch.Tensor, blocks: int = 0) -> torch.Tensor:
     """The packed gather with one word per thread per load. pk: (R, q) uint8
     (one byte a load) with yw (4, q), or the same bytes viewed as (R, q/4)
-    int32 (one 4-byte word a load) with yw (16, q/4) = y_words(y4, 4). The
-    grid is `gather_blocks`'."""
+    int32 (one 4-byte word a load) with yw (16, q/4) = y_words(y4, 4); yw is
+    read as given, through L1, so q has no limit. On the card K1's body runs
+    with loads of that width. blocks: the grid, or 0 for as many blocks as
+    are resident (K1's rule); a row's sum, and so the result, does not
+    depend on it."""
     if not pk.is_cuda:
         return gather_width_plain(pk, yw)
     name = "micro.gather_width"
@@ -100,11 +105,11 @@ def gather_width(pk: torch.Tensor, yw: torch.Tensor) -> torch.Tensor:
     width = _WIDTH[pk.dtype]
     rows, nword = pk.shape
     _check_vec(yw, pk, (4 * width, nword), name)
-    _cuda.require(16 * width * nword <= SMEM_BYTES,
-                  f"{name}: {16 * width * nword} bytes of y exceed a block's shared memory")
+    _cuda.require(isinstance(blocks, int) and 0 <= blocks < 2 ** 31,
+                  f"{name}: blocks must be 0 (as many as are resident) or a grid size")
     out = torch.empty(rows, dtype=torch.float32, device=pk.device)
     err = _cuda.lib().ngt_gather_width(pk.data_ptr(), yw.data_ptr(), out.data_ptr(), rows, nword,
-                                       width, gather_blocks(rows, pk.device), _cuda.stream_of(pk))
+                                       width, blocks, _cuda.stream_of(pk))
     _cuda.check(err, name)
     _cuda.LAUNCHES[f"gather_width{width}"] += 1
     return out

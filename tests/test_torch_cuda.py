@@ -15,6 +15,8 @@ class, K = 16, A * K at, just past and twice a warp's 32 lanes, coefficient
 rows that no longer fit shared memory, a chain that is all padding, the same
 bits from two launches, and short BayesRCpi, BayesRCplus and BayesLV chains;
 for the measurement ladder's kernels odd row counts, q = 16, one step (T = 1),
+the 1- and 4-byte-load gathers at word counts past a whole pass and at
+n = 100,000 (past the shared memory they once staged y in),
 grids of one and of more blocks than row groups, signed dosages, the fused
 step with K1's and K2's bits at their edges on any split and its tickets
 reset, and each
@@ -623,8 +625,11 @@ def test_fused_step_tickets_are_its_own_and_reset(dev):
         assert int(mk._TICKETS[key].abs().sum()) == 0 and int(pack2._TICKETS[key].abs().sum()) == 0
 
 
-@pytest.mark.parametrize("rows,q", [(1, 16), (7, 48), (130, 256), (515, 12_544)])
+@pytest.mark.parametrize("rows,q", [(1, 16), (7, 48), (130, 256), (515, 12_544), (1030, 4100)])
 def test_gather_width_kernels_match_plain_and_k1(dev, rows, q):
+    """S1a and S1b against their plain versions and K1's: rows of 1, 7 and
+    1,030 (not a multiple of the warp's four), and word counts past a whole
+    pass (q = 4,100: 4,100 bytes and 1,025 words, neither a multiple of 32)."""
     from nextgp_tpu_torch.ops import micro as mk
 
     g = torch.Generator(device=dev).manual_seed(q)
@@ -638,6 +643,30 @@ def test_gather_width_kernels_match_plain_and_k1(dev, rows, q):
         assert _rel(out, plain) < 1e-5 and _rel(out, ref) < 1e-5
     assert _cuda.LAUNCHES["gather_width1"] == before["gather_width1"] + 1
     assert _cuda.LAUNCHES["gather_width4"] == before["gather_width4"] + 1
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_gather_width_past_the_old_shared_memory_cap(dev, width):
+    """n = 100,000 (q = 25,088): 16 q bytes of y are more than a block's
+    shared memory, where S1 staged y until it took K1's body. Within 1e-5 of
+    scale of its plain version and of K1's, the same bits from a second
+    launch and on grids of 1 and 7 blocks, one launch counted a call."""
+    from nextgp_tpu_torch.ops import micro as mk
+
+    n, rows = 100_000, 1000
+    q = pack2.packed_q(n)
+    assert q == 25_088 and 16 * q > gibbs_kernels.SMEM_BYTES
+    g = torch.Generator(device=dev).manual_seed(width)
+    pk = torch.randint(0, 256, (rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev)
+    pkw, yw = (pk, y4) if width == 1 else (pk.view(torch.int32), mk.y_words(y4, 4))
+    before = _cuda.LAUNCHES[f"gather_width{width}"]
+    out = mk.gather_width(pkw, yw)
+    assert _cuda.LAUNCHES[f"gather_width{width}"] == before + 1
+    assert _rel(out, mk.gather_width_plain(pkw, yw)) < 1e-5
+    assert _rel(out, pack2.matvec_plain(pk, y4)) < 1e-5
+    for blocks in (0, 1, 7):
+        assert torch.equal(out, mk.gather_width(pkw, yw, blocks=blocks))
 
 
 @pytest.mark.parametrize("rows,n", [(1, 16), (7, 48), (130, 1024), (2051, 10_240)])
@@ -675,9 +704,8 @@ def test_ladder_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         mk.gather_width(pk, torch.zeros(16, 64, device=dev))  # y16 with byte loads
     with pytest.raises(ValueError, match="uint8 or int32"):
         mk.gather_width(pk.to(torch.int16), y4)
-    with pytest.raises(ValueError, match="exceed a block's shared memory"):
-        mk.gather_width(torch.zeros(2, 16_000, dtype=torch.uint8, device=dev),
-                        torch.zeros(4, 16_000, device=dev))
+    with pytest.raises(ValueError, match="blocks must be"):
+        mk.gather_width(pk, y4, blocks=-1)
     mt = torch.zeros(8, 64, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="int8"):
         mk.dense_gather(pk, torch.zeros(64, device=dev))

@@ -117,8 +117,9 @@ def _k8_numpy(pk, y4):
     return acc.sum(axis=1)
 
 
-@pytest.mark.parametrize("seed,rows,q", [(0, 512, 256), (1, 37, 64)])
+@pytest.mark.parametrize("seed,rows,q", [(0, 512, 256), (1, 37, 64), (2, 3, 25_088)])
 def test_gather_width_matches_the_scripts_contractions(seed, rows, q):
+    """q = 25,088 is n = 100,000, past the shared memory S1 once staged y in."""
     rng = np.random.default_rng(seed)
     pk = rng.integers(0, 256, (rows, q), dtype=np.uint8)
     pk32 = pk.reshape(rows, q // 4, 4).view("<i4").reshape(rows, q // 4)  # micro_load32.py:112-113

@@ -18,6 +18,7 @@ and check them.
     python3 chip_smoke.py random DIR  # the same, and RE1 against DIR's (another
                                  # tree's csrc/, e.g. a `git archive` of the parent
                                  # under _checkout/) in turns P, C, C, P
+    python3 chip_smoke.py corr   # phases 1-2 and phase 9 alone
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -115,6 +116,24 @@ Phases (any failed check raises and the script exits non-zero):
      iterations and ms per sweep), 5 sweeps in float32 (iterations printed:
      float32 cannot reach the default tolerance of 1e-8) and the replayed
      run_lmem's refusal of the CG term
+  9. the correlated terms (ROADMAP M9): RE2 (the correlated level scan,
+     csrc/level_scan.cu) against its plain version at q = 10,000 on phase
+     8's A^-1 for nT = 1, 2, 3 (and at q = 1, 31, 33, 193, 3,001 for nT = 1,
+     2, 3, 5), beside RE1 on the same structure and the library's triangular
+     solve of the same system; CM1 (the correlated block scan,
+     csrc/corr_scan.cu) against its plain version at the MultiBreed path's
+     first step at V = 96 and V = 1, beside K6 on one set's Gram and the
+     library's batched solve; "MultiBreed", two 10,000 x 49,152 panels of
+     one set of loci (500 causal loci, effects correlated 0.5 between the
+     sets) under BayesPR with a 2 x 2 v and regions of 100 loci (492), at
+     V = 96 and V = 1, and "BayesR+A2", phase 8's BayesR path plus an
+     (intercept, slope) animal group on its 10,000-animal pedigree with one
+     shared incidence: each 100 sweeps of run_lmem with launch counts (K1,
+     CM1, K2; K1, K3, K2, RE2), drift, finite draws, every kept covariance
+     positive definite, then eager and replayed from one KeyedStream with
+     the same bits, steady ms/sweep, kernels a replayed sweep and the idle
+     share; EBV and u correlations with the planted values printed; last,
+     the kernel chains against the float64 plain chains on small models
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -142,8 +161,9 @@ from nextgp_tpu_torch.engine import rng as keyed
 from nextgp_tpu_torch.engine import sweep as engine_sweep
 from nextgp_tpu_torch.engine.rng import HostStream, PhiloxStream
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
-from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2, random_scan
+from nextgp_tpu_torch.ops import _cuda, corr_scan, gibbs_kernels, pack2, random_scan
 from nextgp_tpu_torch.ops import micro as mk
+from nextgp_tpu_torch.utils import replace
 
 N, P, BLOCK, V_MAIN = 10_000, 49_152, 256, 96
 N_CHAIN, N_BURN, N_THIN = 100, 50, 5
@@ -1797,13 +1817,19 @@ def simulate_pedigree(n_gen, size, seed, max_progeny=MAX_PROGENY):
     ped = ngt.build_pedigree(lbl, [None if s < 0 else lbl[s] for s in sire],
                              [None if d < 0 else lbl[d] for d in dam])
     check(ped.ids == lbl, "the simulated pedigree is listed parents first")
+    return ped, henderson_values(ped, n_gen, size, rng)
+
+
+def henderson_values(ped, n_gen, size, rng):
+    """Polygenic values on simulate_pedigree's pedigree by the Henderson
+    recursion, Mendelian sampling from rng."""
     _, _, dsq = pedigree.a_inverse_factor(ped)
-    u = np.zeros(n)
+    u = np.zeros(ped.n)
     for gen in range(n_gen):  # parents are in the generation before
         i = np.arange(gen * size, (gen + 1) * size)
         par = np.where(ped.sire[i] >= 0, u[ped.sire[i]], 0.0) + np.where(ped.dam[i] >= 0, u[ped.dam[i]], 0.0)
         u[i] = 0.5 * par + rng.normal(size=size) * np.sqrt(VAR_A) / dsq[i]
-    return ped, u
+    return u
 
 
 def residual_drift(plan, st):
@@ -1982,7 +2008,8 @@ def re1_phase(plan, st, other=None):
 
 
 def by_kernel(fn, reps, ph, name):
-    """Device ms per call of fn by kernel name, from one profiled window."""
+    """Device ms per call of fn by kernel name, from one profiled window,
+    printed; returns their sum."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1991,10 +2018,11 @@ def by_kernel(fn, reps, ph, name):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for e in sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count),
-                    key=lambda e: -e.self_device_time_total):
+    recs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+    for e in sorted(recs, key=lambda e: -e.self_device_time_total):
         print(f"[{ph}] {name} on the card, per call: {e.self_device_time_total / reps / 1e3:.4f} ms in "
               f"{e.count / reps:g} launches of {e.key[:80]}")
+    return sum(e.self_device_time_total for e in recs) / reps / 1e3
 
 
 def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=None):
@@ -2196,19 +2224,430 @@ def random_only(spec_for, sig, card, other_src=None):
     print(json.dumps({"card": card, "random": out, "launches": counted,
                       "level_scan": TIMINGS.get("level_scan")}))
 
+# ------------------------------------------------------------------ phase 9
+
+N_CHAIN_CM, N_BURN_CM, N_THIN_CM = 100, 50, 5
+REGION_CM = 100  # loci per BayesPR region of the correlated sets: 492 regions
+V_CM = 0.01 * np.array([[1.0, 0.5], [0.5, 1.0]])  # the correlated sets' prior (co)variance
+V_A2 = np.array([[1.0, 0.5], [0.5, 1.0]])  # the (intercept, slope) group's prior covariance
+TOL_CORR = 1e-4  # RE2 and CM1 against their plain versions, of the output's scale
+RE2_NTS = (1, 2, 3)
+
+
+def simulate_corr(n=N, p=P, chunk=8192):
+    """Two n x p panels of uniform {0, 1, 2} dosages on the card, the same
+    500 expected causal loci in both with N(0, 0.1^2) effects correlated 0.5
+    between the sets, N(0, 1) noise. Returns the spec (intercept and one
+    correlated pair under BayesPR, regions of REGION_CM loci on one
+    chromosome) and the planted signal."""
+    g = torch.Generator(device=DEV).manual_seed(21)
+    genos = [torch.randint(0, 3, (n, p), generator=g, device=DEV, dtype=torch.int8) for _ in range(2)]
+    causal = torch.rand(p, generator=g, device=DEV) < 500.0 / p
+    e1, e2 = (torch.randn(p, generator=g, device=DEV) for _ in range(2))
+    bts = [torch.where(causal, e1 * 0.1, 0.0),
+           torch.where(causal, (0.5 * e1 + 0.75 ** 0.5 * e2) * 0.1, 0.0)]
+    sig = sum(torch.cat([gt[i:i + chunk].float() @ bt for i in range(0, n, chunk)])
+              for gt, bt in zip(genos, bts))
+    sig = sig - sig.mean()
+    y = (sig + torch.randn(n, generator=g, device=DEV)).double().cpu().numpy()
+    chr_ids = np.ones(p, np.int64)
+    datas = tuple(ngt.MarkerData(genotypes=gt, center=gt.double().mean(0), snp_ids=[f"M{i}" for i in range(p)],
+                                 chr_ids=chr_ids) for gt in genos)
+    spec = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], block_size=BLOCK,
+                         corr_markers=[ngt.CorrMarkerTerm(("M1", "M2"), datas,
+                                                          ngt.BayesPR(REGION_CM, V_CM))])
+    return spec, sig
+
+
+def corr_values(plan, st):
+    """sum_t Mc_t beta_t of every correlated marker set, by K2 over its
+    (locus, set) rows (the check's own launches)."""
+    out = torch.zeros_like(st.ycorr)
+    for cs, cp in zip(st.corr_markers, plan.corr_markers):
+        T, V, B, n_t, q = cs.mt.shape
+        u = cs.beta.view(V, T, B, n_t).transpose(0, 1).reshape(-1).contiguous()
+        dy = pack2.rank_update(cs.mt.view(-1, q), u).reshape(-1)[: plan.n]
+        out = out + dy - (u * cs.center.reshape(-1)).sum()
+    return out
+
+
+def corr_drift(plan, st):
+    """max |ycorr - (y - Xb - Zu - Mc beta - sum_t Mc_t beta_t)| / max |y|."""
+    fit = sum(fs.x @ fs.b for fs in st.fixed)
+    for rs, rp in zip(st.random, plan.random):
+        fit = fit + (torch.einsum("tnl,tl->n", rs.zs, rs.u) if rp.correlated else rs.z @ rs.u)
+    if plan.markers:
+        fit = fit + ngt.genomic_values_state(plan, st)
+    fit = fit + corr_values(plan, st)
+    return ((st.ycorr - (st.y - fit)).abs().max() / st.y.abs().max()).item()
+
+
+def work_re2(q, n_t):
+    """(bytes, operations) of one correlated level scan: A's lower triangle
+    and the per-level rule (nT + nT^2 floats), yi, z, the old u read, the new
+    u written; nT multiply-adds per element of the triangle, 2 nT^2 per level."""
+    return 4 * q * (q + 1) // 2 + 4 * q * (n_t + n_t * n_t + 4 * n_t), q * (q + 1) * n_t + 2 * q * n_t * n_t
+
+
+def work_cm1(V, B, n_t):
+    """(bytes, operations) of one CM1 step: the Grams' lower triangles (with
+    the diagonal blocks, which the chain reads), the packed rows and the two
+    outputs; 2 nT^2 operations per Gram block and 2 nT^2 per locus."""
+    blocks = V * B * (B + 1) // 2
+    return 4 * (blocks * n_t * n_t + V * B * (3 * n_t + n_t * n_t) + 2 * V * B * n_t), \
+        2 * n_t * n_t * (blocks + V * B)
+
+
+def re2_inputs(q, n_t, ivstr=None, seed=0):
+    """RE2's inputs at q: the structure given (or RE1's random one), random
+    per-level cross-products, yi, z, an old u, varE and iVarU."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    if ivstr is None:
+        ivstr = re1_inputs(q, None, None)[0]
+    x = torch.randn(q, 3, n_t, generator=g, device=DEV)
+    zpz = (torch.einsum("lkt,lku->ltu", x, x) + 0.1 * torch.eye(n_t, device=DEV)).contiguous()
+    yi, u = (torch.randn(n_t, q, generator=g, device=DEV) for _ in range(2))
+    z = torch.randn(q, n_t, generator=g, device=DEV)
+    m = torch.randn(n_t, n_t, generator=g, device=DEV)
+    ivu = torch.linalg.inv(m @ m.T / n_t + torch.eye(n_t, device=DEV))
+    return ivstr, yi, zpz, z, u, torch.tensor(1.7, device=DEV), ivu
+
+
+def re2_phase(ainv):
+    """9.1: RE2 against its plain version at q = 10,000 (the dense A^-1 of
+    phase 8's pedigree) for nT = 1, 2, 3, the same bits twice, its time on
+    the card alone beside RE1's on the same structure in the same call and
+    the library's triangular solve of the same system; and at q = 1, 31,
+    33, 193 (past the look-ahead), 3,001 for nT = 1, 2, 3, 5 (5: the generic
+    form)."""
+    out = {}
+    q = ainv.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(30)
+    yi, z, u = (torch.randn(q, generator=g, device=DEV) for _ in range(3))
+    args1 = (ainv, yi, torch.rand(q, generator=g, device=DEV) * 3, z, u,
+             torch.tensor(1 / 1.7, device=DEV), torch.tensor(0.6, device=DEV))
+    re1_ms = device_ms(lambda: random_scan.level_scan_kernel(*args1), 20)
+    for n_t in RE2_NTS:
+        args = re2_inputs(q, n_t, ainv, seed=n_t)
+
+        def kern():
+            return random_scan.corr_level_scan_kernel(*args)
+
+        def plain():
+            return random_scan.corr_level_scan_plain(*args)
+
+        o, ref = kern(), plain()
+        check(torch.isfinite(o).all().item() and torch.equal(o, kern()),
+              f"corr_level_scan nT={n_t}: not finite, or two runs differ")
+        e, sc = rel_err(o, ref)
+        mat, rhs = random_scan.corr_level_scan_system(*args)
+
+        def library():
+            return torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)
+
+        e_l, _ = rel_err(library().view(q, n_t).T, ref)
+        check(e_l <= TOL_CORR * sc, f"corr_level_scan nT={n_t}: the library solve differs by {e_l:.3e}")
+        ms_k, ms_p = median_ms(kern, 10), median_ms(plain, 1)
+        # a call: the rule (batched torch.linalg calls, whose library kernels
+        # device_ms cannot tell from the port's), then RE2's two launches:
+        # the sum over one profiled window's names
+        dev = by_kernel(kern, 10, "9 corr", f"corr_level_scan nT={n_t}")
+        lib_dev = device_ms(library, 10, records_per_launch=0)
+        name = "corr_level_scan" if n_t == 2 else f"corr_level_scan_nt{n_t}"
+        report(name, e, sc, TOL_CORR, ms_k, ms_p, work_re2(q, n_t),
+               f" (q = {q:,}, nT = {n_t}, the dense A^-1 of phase 8's pedigree, random rule inputs; "
+               f"RE1 on the same A^-1 in this call {re1_ms} ms on the card alone; the library solve's "
+               f"max_abs_err {e_l:.3e}, its {q * n_t:,}-unknown system built outside the timed window; "
+               "not a TPU kernel: the counterpart of the level lax.scan of sample_random_corr)",
+               phase="9 corr", dev_ms=dev, library_ms=median_ms(library, 10), library_dev_ms=lib_dev)
+        out[f"nT={n_t}"] = dict(device_ms=dev, re1_device_ms=re1_ms, library_device_ms=lib_dev,
+                                max_abs_err=e, scale=sc)
+        del mat, rhs
+    for qs in (1, 31, 33, 193, 3001):
+        for n_t in (1, 2, 3, 5):
+            args = re2_inputs(qs, n_t, seed=qs + n_t)
+            o, r = random_scan.corr_level_scan_kernel(*args), random_scan.corr_level_scan_plain(*args)
+            e, sc = rel_err(o, r)
+            same = torch.equal(o, random_scan.corr_level_scan_kernel(*args))
+            print(f"[9 corr] corr_level_scan at q = {qs:,}, nT = {n_t}: max_abs_err {e:.3e} (scale "
+                  f"{sc:.3e}); two launches {'bit-identical' if same else 'DIFFER'}")
+            check(e <= TOL_CORR * sc and same, f"corr_level_scan at q = {qs}, nT = {n_t} disagrees")
+    return out
+
+
+def cm1_phase(plan, st):
+    """9.2: CM1 against its plain version at the MultiBreed path's first
+    step (its Gram, a first sweep's rule rows), at V as assembled, the same
+    bits twice, its time on the card alone beside K6 on the first set's
+    Gram at the same (V, B) in the same call and the library's batched
+    triangular solve of the same systems."""
+    cs, cp = st.corr_markers[0], plan.corr_markers[0]
+    n_t, V, B = cp.n_t, cp.vshards, cp.block
+    g = torch.Generator(device=DEV).manual_seed(31)
+    z = torch.randn(cp.p_pad, n_t, generator=g, device=DEV)
+    beta = torch.randn(cp.p_pad, n_t, generator=g, device=DEV) * 0.01
+    ivb = torch.linalg.inv(cs.var_beta)[torch.clamp(cs.region_id, 0, cp.n_regions - 1).long()]
+    var_e = st.ycorr.var()
+    pk = corr_scan.corr_block_pack(beta, z, ivb, cs.mpm.reshape(-1, n_t, n_t), cs.mask.reshape(-1),
+                                   1.0 / var_e)
+    pk_t = pk.view(V, -1, B, pk.shape[-1])[:, 0].clone()
+    pk_t[..., :n_t] += torch.randn(V, B, n_t, generator=g, device=DEV) * 30
+    gram_t = (cs.gram, 0)
+
+    def kern():
+        return corr_scan.corr_block_scan_v_kernel(gram_t, pk_t, n_t)
+
+    def plain():
+        return corr_scan.corr_block_scan_v_plain(cs.gram[0], pk_t, n_t)
+
+    (b, u), (rb, ru) = kern(), plain()
+    b2, u2 = kern()
+    check(torch.isfinite(b).all().item() and torch.equal(b, b2) and torch.equal(u, u2),
+          "corr_block_scan_v: not finite, or two runs differ")
+    e, sc = rel_err(b, rb)
+    eu, scu = rel_err(u, ru)
+    check(eu <= TOL_CORR * scu, f"corr_block_scan_v: u max_abs_err {eu:.3e} of {scu:.3e}")
+    mat, rhs = corr_scan.corr_block_system(cs.gram[0], pk_t, n_t)
+
+    def library():
+        return torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)
+
+    e_l, _ = rel_err(library().view(V, B, n_t), ru)
+    check(e_l <= TOL_CORR * scu, f"corr_block_scan_v: the library solve differs by {e_l:.3e}")
+    # K6 in the same call, on the first set's Gram at the same (V, B)
+    g6 = cs.gram[:, :, 0, :, :, 0].contiguous()  # (T, B, V, B)
+    pk6 = gibbs_kernels.gauss_block_pack(torch.zeros(cp.p_pad, device=DEV), beta[:, 0], z[:, 0],
+                                         ivb[:, 0, 0], cs.mpm[..., 0, 0].reshape(-1),
+                                         torch.zeros(cp.p_pad, device=DEV),
+                                         torch.zeros(cp.p_pad, device=DEV), cs.mask.reshape(-1),
+                                         1.0 / var_e)
+    pk6 = pk6.view(V, -1, B, 8)[:, 0].contiguous()
+    k6_ms = device_ms(lambda: gibbs_kernels.gauss_block_scan_v((g6, 0), pk6), 20)
+    ms_k, ms_p = median_ms(kern, 20), median_ms(plain, 3)
+    dev = device_ms(kern, 20)
+    tag = "" if V > 1 else "_v1"
+    report("corr_block_scan_v" + tag, e, sc, TOL_CORR, ms_k, ms_p, work_cm1(V, B, n_t),
+           f" (V = {V}, B = {B}, nT = {n_t}, the MultiBreed panels' Gram, random rule inputs; "
+           f"u max_abs_err {eu:.3e} of {scu:.3e}; K6 on the first set's Gram at the same V, B in this "
+           f"call {k6_ms} ms on the card alone; the library's batched solve's max_abs_err {e_l:.3e}, "
+           "its systems built outside the timed window; not a TPU kernel: the counterpart of the block "
+           "lax.scan of sample_corr_marker_set)", phase="9 corr", dev_ms=dev,
+           library_ms=median_ms(library, 20), library_dev_ms=device_ms(library, 20, records_per_launch=0))
+    return dict(device_ms=dev, k6_device_ms=k6_ms, max_abs_err=e, scale=sc)
+
+
+def corr_path(tag, spec, V, checks):
+    """One M9 path: run_lmem as it runs by default (PhiloxStream, eager;
+    launch counts from 0), then a loop of make_sweep and run_lmem's replays
+    from one KeyedStream (the same bits), then the steady ms/sweep of both
+    arms, the replays' kernels a sweep, device busy and idle share. Checks
+    drift, finite draws and every kept covariance draw positive definite
+    (cholesky_ex info 0); `checks(res)` prints the path's own numbers and
+    returns the expected launch counts."""
+    ph = f"9 {tag}"
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, seed=7, vshards=V)
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    expect = {k: 0 for k in launches}
+    expect.update(checks(res))
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
+    check(not bad, f"{tag}: kept draws of {bad} are not finite")
+    for k, a in res.draws.items():  # the (n_regions, 4) and (2, 2) covariance draws
+        if k.startswith("var") and a.ndim == 3:
+            mats = torch.from_numpy(a).reshape(-1, 2, 2).double()
+            check((torch.linalg.cholesky_ex(mats)[1] == 0).all().item(),
+                  f"{tag}: a kept {k} draw is not positive definite")
+    drift = corr_drift(res.plan, res.state)
+    print(f"[{ph}] run_lmem (PhiloxStream, eager) {N_CHAIN_CM} sweeps in {wall:.2f} s: "
+          f"{res.sweeps_per_sec:.2f} sweeps/s (host clock); launches "
+          f"{({k: v for k, v in launches.items() if v})}; drift {drift:.3e} of max|y| (limit 1e-2); "
+          f"varE {res.state.e.var_e.item():.4f}; every kept covariance positive definite")
+    check(drift < 1e-2, f"{tag}: ycorr drifted")
+    del res
+
+    plan, st0 = ngt.assemble(spec, vshards=V)
+    stream = keyed.KeyedStream(7, DEV, plan.dtype)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    st, kept = st0, []
+    t0 = time.perf_counter()
+    for i in range(1, N_CHAIN_CM + 1):
+        st = sweep(st, stream)
+        if i > N_BURN_CM and (i - N_BURN_CM) % N_THIN_CM == 0:
+            kept.append(ngt.collect_sample(st, plan))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    keyed_launches = dict(_cuda.LAUNCHES)
+    eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
+    rres = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, vshards=V,
+                        stream=stream)
+    differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), rres.draws[k])]
+    check(set(rres.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
+    check(torch.equal(rres.state.ycorr, st.ycorr), f"{tag}: replayed ycorr differs from eager")
+    r_drift = corr_drift(rres.plan, rres.state)
+    check(r_drift < 1e-2, f"{tag}: replayed ycorr drifted")
+    rep = engine_sweep.ReplayedSweep(plan, rres.state, stream)
+    state = [rres.state]
+
+    def eager_step():
+        state[0] = sweep(state[0], stream)
+
+    ms_eager = steady_ms(eager_step, 20)
+    ms_replay = steady_ms(lambda: rep.run(1), 20)
+    busy, per_sweep, missed, by_name, ms_by = replay_window(rep, 10)
+    idle = 1.0 - busy / ms_replay
+    print(f"[{ph}] KeyedStream: kept draws and final ycorr bit-identical eager and replayed (drift "
+          f"{r_drift:.3e}); eager {N_CHAIN_CM / eager_s:.2f} sweeps/s, replayed run_lmem "
+          f"{rres.sweeps_per_sec:.2f} sweeps/s (host clock); steady, 20 sweeps between CUDA events: eager "
+          f"{ms_eager:.4f} ms/sweep, replayed {ms_replay:.4f} ms/sweep; 10 replays under the profiler: "
+          f"device busy {busy:.4f} ms/sweep, {per_sweep} kernels and copies per sweep ({missed} records "
+          f"missed); idle share without the profiler {idle:.4f}; eager launches per sweep "
+          f"{({k: v / N_CHAIN_CM for k, v in keyed_launches.items() if v})}")
+    for key, cnt in sorted(ms_by.items(), key=lambda r: -r[1])[:6]:
+        print(f"  replayed {ms_by[key]:.4f} ms/sweep in x{by_name[key]:<4} {key[:90]}")
+    del rep, state, rres
+    return launches, keyed_launches, dict(eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay,
+                                          replay_busy_ms_per_sweep=busy, idle_share=idle, drift=drift,
+                                          kernels_per_sweep=per_sweep)
+
+
+def corr_chain_phase():
+    """9.5: the kernel chains against the float64 plain chains on a small
+    model of each path (3 sweeps, one HostStream): corr(beta or u) and
+    corr(ycorr) > 0.999, |dycorr| / scale < 0.05 (the packed rule of
+    bench.py:338-359), two kernel runs bit-identical."""
+    n, p = 512, 1024
+    rng = np.random.default_rng(17)
+    gs = [rng.integers(0, 3, (n, p)).astype(np.int8) for _ in range(2)]
+    y = sum((g - g.mean(0)) @ rng.normal(0, 0.05, p) for g in gs) + rng.normal(0, 1, n)
+    chr_ids = np.ones(p, np.int64)
+    ms = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], block_size=128, corr_markers=[
+        ngt.CorrMarkerTerm(("M1", "M2"), tuple(ngt.from_array(g, chr_ids=chr_ids) for g in gs),
+                           ngt.BayesPR(REGION_CM, V_CM))])
+    ped, _ = simulate_pedigree(4, n // 4, seed=19)
+    x = rng.normal(size=n)
+    rs = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], random=[
+        ngt.RandomTerm(("A", "S"), (np.eye(n), np.eye(n) * x[:, None]), prior=ngt.Random("A", V_A2),
+                       ivstr=pedigree.a_inverse(ped))])
+    for name, spec, V in (("MultiBreed", ms, 1), ("MultiBreed", ms, 4), ("A2", rs, 1)):
+        def run(device, dtype):
+            plan, st = ngt.assemble(spec, device=device, dtype=dtype, vshards=V)
+            sweep, draws = ngt.make_sweep(plan), HostStream(11, device, dtype)
+            for _ in range(3):
+                st = sweep(st, draws)
+            x = st.corr_markers[0].beta if plan.corr_markers else st.random[0].u
+            return x.reshape(-1).double().cpu().numpy(), st.ycorr.double().cpu().numpy()
+
+        (xk, yk), (xp, yp), xk2 = run(DEV, torch.float32), run("cpu", torch.float64), run(DEV, torch.float32)[0]
+        cx, cy = np.corrcoef(xk, xp)[0, 1], np.corrcoef(yk, yp)[0, 1]
+        dy = np.abs(yk - yp).max() / np.abs(yp).max()
+        print(f"[9 chain] {name} V={V}: float32 kernels against float64 plain: corr(effects) {cx:.6f}, "
+              f"corr(ycorr) {cy:.6f}, max|dycorr|/scale {dy:.3e} (limits 0.999, 0.999, 0.05); two kernel "
+              f"runs {'bit-identical' if np.array_equal(xk, xk2) else 'DIFFER'}")
+        check(cx > 0.999 and cy > 0.999 and dy < 0.05, f"{name} V={V}: kernel chain departs from plain")
+        check(np.array_equal(xk, xk2), f"{name} V={V}: two kernel runs differ")
+
+
+def corr_phase(spec_for, sig):
+    """9: the correlated terms (ROADMAP M9). RE2 (9.1) and CM1 (9.2) against
+    their plain versions; MultiBreed, two 10,000 x 49,152 panels correlated
+    under BayesPR with a 2 x 2 v and 492 regions, at V=96 and V=1 (9.3);
+    BayesR+A2, phase 8's BayesR path plus an (intercept, slope) animal group
+    on phase 8's 10,000-animal pedigree (9.4); each as corr_path runs it;
+    the kernel chains against the float64 plain chains (9.5). Returns the
+    numbers and the launch counts by run."""
+    out, counted = {}, {}
+    t0 = time.perf_counter()
+    ped, u1 = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
+    ainv = pedigree.a_inverse(ped)
+    ainv_dev = torch.as_tensor(ainv, dtype=torch.float32, device=DEV)
+    print(f"[9 corr] phase 8's pedigree and dense A^-1 in {time.perf_counter() - t0:.2f} s")
+    out["RE2"] = re2_phase(ainv_dev)
+
+    spec_m, sig_m = simulate_corr()
+    mem0 = torch.cuda.memory_allocated()
+    plan, st = ngt.assemble(spec_m, vshards=V_MAIN)
+    cs = st.corr_markers[0]
+    print(f"[9 MultiBreed] {plan.corr_markers[0].n_regions} regions; on the card: panels "
+          f"{cs.mt.numel() / 1e6:.1f} MB, Grams {4 * cs.gram.numel() / 1e6:.1f} MB (state "
+          f"{(torch.cuda.memory_allocated() - mem0) / 1e6:.1f} MB)")
+    out["CM1 V=96"] = cm1_phase(plan, st)
+    del plan, st, cs
+    plan, st = ngt.assemble(spec_m, vshards=1)
+    out["CM1 V=1"] = cm1_phase(plan, st)
+    del plan, st
+
+    for V in (V_MAIN, 1):
+        def checks(res, V=V):
+            cp, cs = res.plan.corr_markers[0], res.state.corr_markers[0]
+            mean = torch.zeros_like(cs.beta)
+            for t, nm in enumerate(cp.names):
+                mean[: cp.p, t] = torch.from_numpy(res.posterior_mean(f"beta{nm}")).to(DEV)
+            gv = corr_values(res.plan, replace(res.state, corr_markers=(replace(cs, beta=mean),)))
+            print(f"[9 MultiBreed V={V}] EBV corr (posterior-mean beta of both sets) with the planted "
+                  f"signal over 2,048 individuals {corr(gv[:2048], sig_m[:2048]):.4f} (printed only)")
+            n = cp.n_blocks // V * N_CHAIN_CM
+            return dict(pack2_matvec=n, pack2_rank_update=n, corr_block_scan_v=n)
+
+        launches, klaunches, rec = corr_path(f"MultiBreed V={V}", spec_m, V, checks)
+        counted[f"MultiBreed V={V}"], counted[f"MultiBreed keyed V={V}"] = launches, klaunches
+        out[f"MultiBreed V={V}"] = rec
+    del spec_m
+
+    spec = spec_for("BayesR")
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=N)
+    u2 = 0.5 * u1 + 0.75 ** 0.5 * henderson_values(ped, GENS, GEN_SIZE_A, np.random.default_rng(24))
+    eye = np.eye(N)
+    spec_a2 = ngt.ModelSpec(y=spec.y + u1 + x * u2, fixed=spec.fixed, markers=spec.markers,
+                            block_size=BLOCK, random=[ngt.RandomTerm(
+                                ("A", "S"), (eye, eye * x[:, None]), prior=ngt.Random("A", V_A2),
+                                ivstr=ainv_dev)])
+
+    def checks_a2(res):
+        T = res.plan.markers[0].n_blocks // V_MAIN
+        u = torch.from_numpy(res.posterior_mean("uA_S")).to(DEV)
+        print(f"[9 BayesR+A2] corr(posterior-mean u, planted) over 2,048 individuals: intercept "
+              f"{corr(u[0, :2048], torch.from_numpy(u1[:2048]).to(DEV)):.4f}, slope "
+              f"{corr(u[1, :2048], torch.from_numpy(u2[:2048]).to(DEV)):.4f} (printed only); varU mean "
+              f"{res.draws['varUA_S'].mean(0).round(4).tolist()}")
+        return dict(pack2_matvec=T * N_CHAIN_CM, pack2_rank_update=T * N_CHAIN_CM,
+                    r_block_scan_v=T * N_CHAIN_CM, corr_level_scan=N_CHAIN_CM)
+
+    counted["BayesR+A2"], counted["BayesR+A2 keyed"], out["BayesR+A2"] = corr_path(
+        "BayesR+A2", spec_a2, V_MAIN, checks_a2)
+    del spec_a2
+    corr_chain_phase()
+    return out, counted
+
+
+def corr_only(spec_for, sig, card):
+    """`python3 chip_smoke.py corr`: phase 9 alone, the quick form for work
+    on the correlated terms. One JSON line of its numbers, and no result
+    line."""
+    out, counted = corr_phase(spec_for, sig)
+    print(json.dumps({"card": card, "corr": out, "launches": counted,
+                      **{k: TIMINGS.get(k) for k in TIMINGS if k.startswith("corr_")}}))
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
+CORR_RUNS = (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "BayesR+A2")
 STEP_LADDER, PANEL_LADDER = ("ladder fused", "ladder frontier"), ("ladder load32", "ladder matvec")
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
 # K1 and K2 over a whole panel, which the ladder launches.
 SOURCES = {
-    "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", V96 + STEP_LADDER),
+    "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec",
+                     V96 + STEP_LADDER + CORR_RUNS),
     "pack2_matvec_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:171", "pack2_matvec", PANEL_LADDER),
     "pack2_rank_update": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
-                          V96 + STEP_LADDER),
+                          V96 + STEP_LADDER + CORR_RUNS),
     "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
                                 ("ladder matvec",)),
     "pack2_matvec_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", ("BayesR 50k",)),
@@ -2234,15 +2673,32 @@ SOURCES = {
     "read_step": (CU + "micro.cu", "scripts/micro_frontier.py:87", "read_step", ("ladder frontier",)),
     "keyed_rng": (CU + "keyed_rng.cu", "nextgp_tpu/engine/rng.py:31", "keyed_rng",
                   tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
-                                                                  f"BayesR 50k keyed V={V_MAIN}")),
+                                                                  f"BayesR 50k keyed V={V_MAIN}")
+                  + tuple(f"{r} keyed" if r == "BayesR+A2" else r.replace(" V=", " keyed V=")
+                          for r in CORR_RUNS)),
     "level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
                    "level_scan", ("BayesR+A", "GBLUP")),
+    "corr_level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
+                        "corr_level_scan", ("BayesR+A2",)),
+    "corr_block_scan_v": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
+                          "corr_block_scan_v", (f"MultiBreed V={V_MAIN}",)),
+    "corr_block_scan_v_v1": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
+                             "corr_block_scan_v", ("MultiBreed V=1",)),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of phase 7",
          "level_scan": "not a TPU kernel: the counterpart of the lax.scan over levels of "
                        "sample_random_uni (nextgp_tpu/engine/samplers/random_effects.py:29-37); "
-                       "launches from phase 8's run_lmem (PhiloxStream, eager) runs"}
+                       "launches from phase 8's run_lmem (PhiloxStream, eager) runs",
+         "corr_level_scan": "RE2; not a TPU kernel: the counterpart of the lax.scan over levels of "
+                            "sample_random_corr (nextgp_tpu/engine/samplers/random_effects.py:"
+                            "120-133); timed at nT = 2 (nT = 1, 3: corr_level_scan_nt1/_nt3 in "
+                            "phase 9's output); launches from phase 9's run_lmem (PhiloxStream, "
+                            "eager) run",
+         "corr_block_scan_v": "CM1; not a TPU kernel: the counterpart of the lax.scan over a block's "
+                              "loci of sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:"
+                              "898-916); launches from phase 9's run_lmem (PhiloxStream, eager) run",
+         "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v"}
 # the scripts' other kernels compute what these compute; the ladder launches these at their shapes
 ALSO_REPLACES = {
     "pack2_matvec": ["scripts/micro_frontier.py:111"],
@@ -2347,8 +2803,10 @@ def main(argv=()):
         return chains_only(spec_for, card)
     if list(argv[:1]) == ["random"] and len(argv) <= 2:
         return random_only(spec_for, sig, card, *argv[1:])
+    if list(argv) == ["corr"]:
+        return corr_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...], gathers [DIR ...] or random [DIR]")
+                    "keyed [DIR ...], gathers [DIR ...], random [DIR] or corr")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -2373,6 +2831,9 @@ def main(argv=()):
     random_out, by_run = random_phase(spec_for, sig)
     counted.update(by_run)
     print(f"[8 random] {json.dumps(random_out)}")
+    corr_out, by_run = corr_phase(spec_for, sig)
+    counted.update(by_run)
+    print(f"[9 corr] {json.dumps(corr_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

@@ -1,12 +1,13 @@
 """nextgp_tpu_torch: the PyTorch/CUDA port of nextgp_tpu.
 
 The slices ported so far: residual (plain "I" or weighted "D") + fixed
-effects + uncorrelated random effects (identity, pedigree A^-1 or genomic
-G^-1 structure, by the per-level scan or by perturbed CG) + the seven marker
-methods (BayesPR, BayesB, BayesC, BayesR, the annotation samplers BayesRCpi
-and BayesRCplus, and BayesLV) with summary statistics, genotypes stored
-2-bit planar-packed, V-batched block schedule. The packed passes, the
-in-block scans and the random effects' level scan run through hand-written
+effects + random effects (identity, pedigree A^-1 or genomic G^-1
+structure, by the per-level scan or by perturbed CG; correlated groups by
+their own level scan) + the seven marker methods (BayesPR, BayesB, BayesC,
+BayesR, the annotation samplers BayesRCpi and BayesRCplus, and BayesLV)
+with summary statistics + correlated marker sets (BayesPR), genotypes
+stored 2-bit planar-packed, V-batched block schedule. The packed passes,
+the in-block scans and the random effects' level scans run through hand-written
 CUDA kernels for Hopper (csrc/, built with nvcc at first use) on CUDA
 tensors and through their plain PyTorch versions on CPU tensors. The JAX
 package `nextgp_tpu` is the reference the port is held to; this package
@@ -16,7 +17,7 @@ from .api.priors import (  # noqa: F401
     BayesB, BayesC, BayesLV, BayesPR, BayesR, BayesRCpi, BayesRCplus, Random, RandomEffect,
     SummaryStatistics,
 )
-from .api.spec import FixedTerm, MarkerTerm, ModelSpec, RandomTerm  # noqa: F401
+from .api.spec import CorrMarkerTerm, FixedTerm, MarkerTerm, ModelSpec, RandomTerm  # noqa: F401
 from .data.grm import make_g, make_g_inverse  # noqa: F401
 from .data.ingest import MarkerData, from_array, from_packed  # noqa: F401
 from .data.pedigree import build_pedigree, make_a, read_pedigree  # noqa: F401

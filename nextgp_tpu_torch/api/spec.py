@@ -1,14 +1,14 @@
 """Programmatic model specification, the planner's input.
 
-Copies of `nextgp_tpu.api.spec.FixedTerm`, `RandomTerm`, `MarkerTerm` and
-`ModelSpec` with the same field names and defaults. The port's planner
-accepts the residual ("I" or weighted "D"), fixed terms, uncorrelated random
-terms (identity, pedigree A^-1 or genomic G^-1 structure; the per-level scan
-or the CG sampler), summary statistics and marker sets under any of the
+Copies of `nextgp_tpu.api.spec.FixedTerm`, `RandomTerm`, `MarkerTerm`,
+`CorrMarkerTerm` and `ModelSpec` with the same field names and defaults.
+The port's planner accepts the residual ("I" or weighted "D"), fixed terms,
+random terms (identity, pedigree A^-1 or genomic G^-1 structure; the
+per-level scan or the CG sampler; a correlated group, named by a tuple,
+by the per-level scan), summary statistics, marker sets under any of the
 seven marker priors (BayesPR, BayesB, BayesC, BayesR, BayesRCpi,
-BayesRCplus, BayesLV with a covariate matrix); a correlated random group
-(a tuple name) and `corr_markers` exist so a spec written for the JAX
-package carries over, and `assemble` raises NotImplementedError naming them.
+BayesRCplus, BayesLV with a covariate matrix) and correlated marker sets
+under BayesPR.
 """
 from __future__ import annotations
 
@@ -79,13 +79,24 @@ class MarkerTerm:
 
 
 @dataclasses.dataclass
+class CorrMarkerTerm:
+    """Correlated marker sets sharing loci (NextGP.jl's tuple key (M1, M2),
+    mme.jl:448-489): a joint (co)variance per region across sets. Only the
+    BayesPR prior applies (matrix-valued v), as in the reference."""
+
+    names: Tuple[str, ...]
+    datas: Tuple[MarkerData, ...]
+    prior: Any  # BayesPR with matrix v (nT x nT)
+
+
+@dataclasses.dataclass
 class ModelSpec:
     y: np.ndarray
     fixed: List[FixedTerm] = dataclasses.field(default_factory=list)
     blocks: List[Tuple[str, ...]] = dataclasses.field(default_factory=list)
     random: List[RandomTerm] = dataclasses.field(default_factory=list)
     markers: List[MarkerTerm] = dataclasses.field(default_factory=list)
-    corr_markers: List[Any] = dataclasses.field(default_factory=list)
+    corr_markers: List[CorrMarkerTerm] = dataclasses.field(default_factory=list)
     residual: Optional[RandomEffect] = None  # prior for "e"
     summary_stats: Dict[Any, Any] = dataclasses.field(default_factory=dict)
     block_size: int = 256
@@ -107,6 +118,13 @@ class ModelSpec:
         for t in self.markers:
             if t.data.n_ind != n:
                 raise ValueError(f"marker set {t.name}: {t.data.n_ind} rows != {n}")
+        for ct in self.corr_markers:
+            ps = {d.n_snp for d in ct.datas}
+            if len(ps) != 1:
+                raise ValueError(f"correlated marker sets {ct.names} must share loci")
+            for d in ct.datas:
+                if d.n_ind != n:
+                    raise ValueError(f"correlated marker sets {ct.names}: bad row count")
         names = [t.name for t in self.fixed]
         for blk in self.blocks:
             for b in blk:

@@ -56,7 +56,14 @@
 //     elements still pending, 32 / k lanes each for k of them, each lane an
 //     attempt j0 + its offset; a ballot takes the lowest attempt that
 //     accepts, which is the serial loop's.
-// One launch per draw site.
+// One launch per draw site. A split draw (ngt_keyed_rng_rows: the rows of
+// jax.random.split(key, rows)[r] below one site, e.g. every region's
+// inverse-Wishart of a correlated marker set) is one launch for all its
+// rows: element e is element e % n of row e / n, and its thread folds the
+// row index into the key at the tail's row slot. Its warps may span rows,
+// so a gamma's shared retries take the pending element's key with it. The
+// single-site entry point is the template's kRows = false instance, its
+// code and bits unchanged.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -152,29 +159,51 @@ __device__ __forceinline__ uint64_t site_key(const long long* sweep, unsigned lo
   return h >> 1;
 }
 
+// The key of a split draw's row: the tail's value at `slot` is the row.
 template <int kTail>
+__device__ __forceinline__ uint64_t row_key(const long long* sweep, unsigned long long h0,
+                                            Tail tail, int slot, unsigned long long row) {
+  uint64_t h = splitmix64(h0 ^ (uint64_t)__ldg(sweep));
+#pragma unroll
+  for (int t = 0; t < kTail; ++t) h = splitmix64(h ^ (t == slot ? row : tail.v[t]));
+  return h >> 1;
+}
+
+// kRows: a split draw of `rows` rows of n elements (the grid covers rows * n
+// threads); else one site's n elements.
+template <int kTail, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tail tail, int kind,
                  const float* __restrict__ alpha, float* __restrict__ out, int* __restrict__ iters,
-                 long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+                 long long n, int row_slot, long long rows) {
+  const long long el = (long long)blockIdx.x * kThreads + threadIdx.x;  // the output element
+  const long long i = kRows ? el % n : el;  // its index within its row
+  const unsigned long long row = kRows ? (unsigned long long)(el / n) : 0ull;
+  const long long total = kRows ? n * rows : n;
   const uint32_t lo = (uint32_t)i, hi = (uint32_t)((unsigned long long)i >> 32);
+  auto key = [&]() {
+    if constexpr (kRows) {
+      return row_key<kTail>(sweep, h0, tail, row_slot, row < (unsigned long long)rows ? row : 0ull);
+    } else {
+      return site_key<kTail>(sweep, h0, tail);
+    }
+  };
   if (kind != kGamma) {
-    if (i >= n) return;
-    const uint64_t h = site_key<kTail>(sweep, h0, tail);
+    if (el >= total) return;
+    const uint64_t h = key();
     const Words w = philox((uint32_t)h, (uint32_t)(h >> 32), lo, 0u, 0u, hi);
     if (kind == kUniform)
-      out[i] = unit_f(w.w[0]);
+      out[el] = unit_f(w.w[0]);
     else
-      out[i] = box_muller(w.w[0], w.w[1]);
+      out[el] = box_muller(w.w[0], w.w[1]);
     return;
   }
   // A gamma's warp works whole (its lanes share attempts by shuffles). The
   // shape is loaded before the key is folded, so that its latency and d and
   // c's float64 square root and division overlap the folds.
-  const bool live = i < n;
-  const double a_in = live ? (double)__ldg(alpha + i) : 1.0;
-  const uint64_t h = site_key<kTail>(sweep, h0, tail);
+  const bool live = el < total;
+  const double a_in = live ? (double)__ldg(alpha + el) : 1.0;
+  const uint64_t h = key();
   const uint32_t k0 = (uint32_t)h, k1 = (uint32_t)(h >> 32);
   const bool valid = live && a_in > 0.0 && !isinf(a_in);  // NaN fails a_in > 0
   const bool boost = a_in < 1.0;
@@ -201,8 +230,11 @@ keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tai
     const double ed = __shfl_sync(kFull, d, e), ec = __shfl_sync(kFull, c, e);
     const uint32_t elo = __shfl_sync(kFull, lo, e), ehi = __shfl_sync(kFull, hi, e);
     const int j = __shfl_sync(kFull, next, e) + lane % m;
+    // a split draw's warp may span rows: the element's key goes with it
+    const uint32_t ek0 = kRows ? __shfl_sync(kFull, k0, e) : k0;
+    const uint32_t ek1 = kRows ? __shfl_sync(kFull, k1, e) : k1;
     double gv = 0.0;
-    const bool acc = slot < k && j < kMaxAttempts && attempt(k0, k1, elo, ehi, j, ed, ec, gv);
+    const bool acc = slot < k && j < kMaxAttempts && attempt(ek0, ek1, elo, ehi, j, ed, ec, gv);
     const unsigned accepted = __ballot_sync(kFull, acc);
     const int mine = __popc(pending & ((1u << lane) - 1u));  // this lane's slot, if pending
     const unsigned seg = done ? 0u : (accepted >> (mine * m)) & (m == 32 ? kFull : (1u << m) - 1u);
@@ -223,16 +255,42 @@ keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tai
     const double ub = unit(philox(k0, k1, lo, 0u, 2u, hi).w[0]);
     g = __dmul_rn(g, exp(__ddiv_rn(log(ub), a_in)));
   }
-  out[i] = att >= 0 ? fmaxf((float)g, FLT_MIN) : nanf("");
-  if (iters) iters[i] = att;
+  out[el] = att >= 0 ? fmaxf((float)g, FLT_MIN) : nanf("");
+  if (iters) iters[el] = att;
 }
 
-template <int kTail>
+template <int kTail, bool kRows>
 int launch(const void* sweep, unsigned long long h0, const Tail& t, long long kind,
-           const void* alpha, void* out, void* iters, long long n, cudaStream_t stream) {
-  keyed_rng_kernel<kTail><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      (const long long*)sweep, h0, t, (int)kind, (const float*)alpha, (float*)out, (int*)iters, n);
+           const void* alpha, void* out, void* iters, long long n, int row_slot, long long rows,
+           cudaStream_t stream) {
+  const long long total = kRows ? n * rows : n;
+  keyed_rng_kernel<kTail, kRows><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      (const long long*)sweep, h0, t, (int)kind, (const float*)alpha, (float*)out, (int*)iters, n,
+      row_slot, rows);
   return (int)cudaGetLastError();
+}
+
+template <bool kRows>
+int launch_tail(const void* sweep, unsigned long long h0, const unsigned long long* tail,
+                long long n_tail, long long kind, const void* alpha, void* out, void* iters,
+                long long n, int row_slot, long long rows, void* stream) {
+  if (n_tail < 0 || n_tail > kMaxTail || n < 1 || rows < 1 || kind < kUniform || kind > kGamma ||
+      (kRows && (row_slot < 0 || row_slot >= n_tail || n * rows >= (1LL << 40))))
+    return (int)cudaErrorInvalidValue;
+  Tail t{};
+  for (int k = 0; k < n_tail; ++k) t.v[k] = tail[k];
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (n_tail) {  // one kernel per tail length: the fold is straight-line code
+    case 0: return launch<0, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 1: return launch<1, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 2: return launch<2, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 3: return launch<3, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 4: return launch<4, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 5: return launch<5, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 6: return launch<6, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 7: return launch<7, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    default: return launch<8, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+  }
 }
 
 }  // namespace
@@ -247,22 +305,16 @@ extern "C" {
 int ngt_keyed_rng(const void* sweep, unsigned long long h0, const unsigned long long* tail,
                   long long n_tail, long long kind, const void* alpha, void* out, void* iters,
                   long long n, void* stream) {
-  if (n_tail < 0 || n_tail > kMaxTail || n < 1 || kind < kUniform || kind > kGamma)
-    return (int)cudaErrorInvalidValue;
-  Tail t{};
-  for (int k = 0; k < n_tail; ++k) t.v[k] = tail[k];
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (n_tail) {  // one kernel per tail length: the fold is straight-line code
-    case 0: return launch<0>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 1: return launch<1>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 2: return launch<2>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 3: return launch<3>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 4: return launch<4>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 5: return launch<5>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 6: return launch<6>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    case 7: return launch<7>(sweep, h0, t, kind, alpha, out, iters, n, st);
-    default: return launch<8>(sweep, h0, t, kind, alpha, out, iters, n, st);
-  }
+  return launch_tail<false>(sweep, h0, tail, n_tail, kind, alpha, out, iters, n, 0, 1, stream);
+}
+
+// A split draw: `rows` rows of n draws each, row r keyed with tail[row_slot]
+// = r (alpha, out and iters rows x n, row-major).
+int ngt_keyed_rng_rows(const void* sweep, unsigned long long h0, const unsigned long long* tail,
+                       long long n_tail, long long row_slot, long long rows, long long kind,
+                       const void* alpha, void* out, void* iters, long long n, void* stream) {
+  return launch_tail<true>(sweep, h0, tail, n_tail, kind, alpha, out, iters, n, (int)row_slot, rows,
+                           stream);
 }
 
 }  // extern "C"

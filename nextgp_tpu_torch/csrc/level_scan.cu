@@ -1,4 +1,6 @@
-// The level scan of an uncorrelated random effect for Hopper (sm_90a): RE1.
+// The level scans of the random effects for Hopper (sm_90a): RE1, an
+// uncorrelated effect's, and RE2 (at the end of the file), a correlated
+// group's.
 //
 // Replaces no Pallas kernel. It is the counterpart of the `lax.scan` over
 // levels in `sample_random_uni` (nextgp_tpu/engine/samplers/random_effects.py:
@@ -78,6 +80,7 @@
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
+#include "scan_skeleton.cuh"  // RE2's staging helpers
 
 namespace {
 
@@ -579,4 +582,564 @@ extern "C" int ngt_level_scan(const void* A, long long q, const void* yi, const 
   cfg.attrs = &coop;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, scan_kernel, a);
+}
+
+// ---------------------------------------------------------------------------
+// RE2: the level scan of a correlated random group (nT effects per level).
+//
+// Replaces no Pallas kernel. It is the counterpart of the `lax.scan` over
+// levels in `sample_random_corr` (nextgp_tpu/engine/samplers/random_effects.py:
+// 120-133; NextGP.jl's tuple sampleU, functions.jl:75-88): levels i = 0 .. q-1
+// in order, with u[:, i] = 0,
+//   s_i  = sum_k A[i, k] u[:, k]          (nT sums sharing one read of row i)
+//   u[:, i] = m_i - W_i s_i
+// where the levels before i hold their new u and those after i their old
+// one. m_i = cov_i yi[:, i] / varE + chol(cov_i) z_i and W_i = cov_i iVarU,
+// cov_i = sym(inv(zpz_i / varE + A[i, i] iVarU)), depend on no u: the
+// caller computes them for every level before the call (ops/random_scan.
+// corr_level_rule, batched on the card, from this sweep's varE and varU) and
+// passes them packed per level as rule[i] = (m_i (nT), W_i (nT x nT, row-major)).
+//
+// Bound: bytes, A's lower triangle once (the sums are linear in u with scalar
+// A entries, so the nT channels share every read of A): q^2 / 2 floats,
+// 200 MB at q = 10,000 (0.060 ms at 3.35 TB/s), as for RE1; not nT times it.
+// The chain of q dependent levels is latency.
+//
+// Design, nT <= kFastNT: RE1's (above) with nT channels, templated over nT:
+// a prep launch (the band, the marks, nT upper-triangle sums a row, one
+// read of it), then one cooperative look-ahead launch whose block 0 runs the
+// chain on one warp, a level at a time (nT shuffles of its sums, then every
+// lane computes u_j = m_j - W_j s_j from the staged rule row, nT^2 FMAs),
+// while the other blocks' warps add each published group of u's into the
+// later rows for all nT channels from one read of each 32 x 32 block of A.
+// The first design, in tiles of 1,024 levels on one block each (RE1's first
+// design), spent 80 % of its time reading the tiles' rows through one SM:
+// 1.61 ms at q = 10,000, nT = 2, slower than the library's triangular solve
+// of the same system (1.25; H100 80GB HBM3, 700 W; PERF.md).
+// Above kFastNT, the generic form: the row sums one channel per grid row (A
+// read nT times) and, in tiles of kTile levels, the chain one level at a
+// time on one thread ("one thread a level's nT x nT work"), its sums in
+// device memory, a block barrier per level. Every sum has a fixed order and
+// nothing is atomic: two runs give the same bits.
+namespace re2 {
+
+constexpr int kTile = 1024;  // levels per tile: one block's chain
+constexpr int kRowWarps = 8;  // rows per block of the row-dot launches
+constexpr int kFastNT = 4;
+constexpr int kGenericThreads = 256;
+
+// pre[t][r] (=, or += when accumulate) sum_{c in [lo, c1)} A[r, c] u[t][c]
+// for rows r0 <= r < r0 + nrows and the channel t = blockIdx.y; lo =
+// max(c0, r + 1) when strict (the strict upper triangle), else c0. u and pre
+// are (nT, q) row-major. A warp per row: lane l sums the columns lo + l,
+// lo + l + 32, ... in two partial sums, then the warp's fixed shuffle tree.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    row_dots_kernel(const float* __restrict__ A, long long q, const float* __restrict__ u,
+                    float* __restrict__ pre, long long r0, long long nrows, long long c0,
+                    long long c1, bool strict, bool accumulate) {
+  const int lane = threadIdx.x & 31;
+  const long long r = r0 + (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= r0 + nrows) return;
+  const long long lo = strict && r + 1 > c0 ? r + 1 : c0;
+  const float* row = A + r * q;
+  const float* uc = u + blockIdx.y * q;
+  float s0 = 0.f, s1 = 0.f;
+  long long c = lo + lane;
+  for (; c + 32 < c1; c += 64) {
+    s0 = fmaf(__ldg(row + c), __ldg(uc + c), s0);
+    s1 = fmaf(__ldg(row + c + 32), __ldg(uc + c + 32), s1);
+  }
+  if (c < c1) s0 = fmaf(__ldg(row + c), __ldg(uc + c), s0);
+  const float sum = ngt::warp_sum(s0 + s1);
+  if (lane == 0) {
+    float* p = pre + blockIdx.y * q + r;
+    *p = accumulate ? *p + sum : sum;
+  }
+}
+
+int row_dots(const float* A, long long q, int nt, const float* u, float* pre, long long r0,
+             long long nrows, long long c0, long long c1, bool strict, bool accumulate,
+             cudaStream_t stream) {
+  const dim3 grid((unsigned)((nrows + kRowWarps - 1) / kRowWarps), (unsigned)nt);
+  row_dots_kernel<<<grid, 32 * kRowWarps, 0, stream>>>(A, q, u, pre, r0, nrows, c0, c1, strict,
+                                                       accumulate);
+  return (int)cudaGetLastError();
+}
+
+// The generic chain over one tile, any nT: level j's u on thread j (its nT x
+// nT rule from device memory), a barrier, then every later thread adds
+// A[i, j] u_j into its nT sums, kept in pre (its own column).
+__global__ void __launch_bounds__(kGenericThreads)
+    generic_chain_kernel(const float* __restrict__ A, long long q, int nt, long long s0, int nl,
+                         const float* __restrict__ rule, float* __restrict__ pre,
+                         float* __restrict__ unew) {
+  const long long K = nt + (long long)nt * nt;
+  for (int j = 0; j < nl; ++j) {
+    const long long lj = s0 + j;
+    if (threadIdx.x == 0) {
+      const float* rr = rule + lj * K;
+      for (int t = 0; t < nt; ++t) {
+        float v = rr[t];
+        for (int s = 0; s < nt; ++s) v = fmaf(-rr[nt + (long long)t * nt + s], pre[s * q + lj], v);
+        unew[t * q + lj] = v;
+      }
+    }
+    __syncthreads();
+    for (int i = j + 1 + threadIdx.x; i < nl; i += kGenericThreads) {
+      const float a = __ldg(A + (s0 + i) * q + lj);
+      for (int t = 0; t < nt; ++t) pre[t * q + s0 + i] = fmaf(a, unew[t * q + lj], pre[t * q + s0 + i]);
+    }
+    __syncthreads();
+  }
+}
+
+int scan_generic(const float* A, long long q, int nt, const float* rule, const float* u, float* unew,
+                 float* pre, cudaStream_t st) {
+  int err = row_dots(A, q, nt, u, pre, 0, q, 0, q, true, false, st);
+  if (err) return err;
+  for (long long s0 = 0; s0 < q; s0 += kTile) {
+    const int nl = (int)(q - s0 < kTile ? q - s0 : kTile);
+    generic_chain_kernel<<<1, kGenericThreads, 0, st>>>(A, q, nt, s0, nl, rule, pre, unew);
+    if ((err = (int)cudaGetLastError())) return err;
+    if (s0 + nl < q &&
+        (err = row_dots(A, q, nt, unew, pre, s0 + nl, q - s0 - nl, s0, s0 + nl, false, true, st)))
+      return err;
+  }
+  return 0;
+}
+
+
+// ---- the cooperative form (nT <= kFastNT): RE1's prep and look-ahead launch
+// with nT channels. The same roles, counters, marks and waits as RE1 (the
+// helpers above); what differs: every published word, far sum, up and win
+// is nT words (channel-major, (nT, 32 G)); a level's rule row (m, W) is
+// staged with its group's band in place of (c, b) and the quads' e; the
+// chain runs one level at a time: nT shuffles fetch its sums, every lane
+// computes u_j = m_j - W_j s_j from the staged row (nT^2 FMAs), and each
+// lane adds A[r, j] u_j into its nT sums and the next group's carry. The
+// window and the owners read each 32 x 32 block of A once for all nT
+// channels.
+
+template <int NT>
+struct CoopSlot {
+  static constexpr int K = NT + NT * NT;
+  float blk[kBand * kBlockWords];
+  float rule[32 * K];
+  float up[NT][32];
+  float win[NT][32];
+};
+
+template <int NT>
+struct CoopArgs {
+  const float* A;
+  long long q;
+  int G;
+  int owners;
+  bool wide;
+  const float* up;    // (NT, 32 G)
+  const float* rule;  // (32 G, NT + NT^2)
+  const float* band;  // (G, L + 1, 32, 32)
+  float* far;         // (NT, 32 G), published
+  float* unew;        // (NT, 32 G), published
+  float* u;           // (NT, q) the new u
+};
+
+template <int NT>
+__host__ __device__ constexpr size_t coop_chain_bytes() {
+  return kSlots * sizeof(CoopSlot<NT>) + (size_t)kURing * NT * 32 * sizeof(float) + 32 * sizeof(int);
+}
+template <int NT>
+__host__ __device__ constexpr size_t coop_owner_words() { return (size_t)kOwnSlots * kBlockWords + (size_t)kMaxOwn * NT * 32; }
+template <int NT>
+__host__ __device__ constexpr size_t coop_smem() {
+  return coop_chain_bytes<NT>() > kWarps * coop_owner_words<NT>() * sizeof(float)
+             ? coop_chain_bytes<NT>() : kWarps * coop_owner_words<NT>() * sizeof(float);
+}
+
+// prep: RE1's band and marks, the nT upper-triangle sums of each row
+template <int NT>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    coop_prep_kernel(const float* __restrict__ A, long long q, int G, const float* __restrict__ u,
+                     float* __restrict__ up, float* __restrict__ unew, float* __restrict__ far,
+                     float* __restrict__ band) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  const long long R = 32LL * G;
+  if (r >= R) return;
+  const long long g = r >> 5;
+  float* brow = band + (g * kBand * 32 + (r & 31)) * 32;
+  const float* row = A + r * q;
+#pragma unroll
+  for (int j = 0; j < kBand; ++j) {
+    const long long c = 32 * (g - kLook + j) + lane;
+    brow[j * 1024 + lane] = r < q && c >= 0 && c < q ? __ldg(row + c) : 0.f;
+  }
+  if (lane < NT) unew[lane * R + r] = far[lane * R + r] = __int_as_float(kEmpty);
+  if (r >= q) {  // a pad level: its rule row is zero, so u = 0
+    if (lane < NT) up[lane * R + r] = 0.f;
+    return;
+  }
+  float s0[NT], s1[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) s0[t] = s1[t] = 0.f;
+  long long c = r + 1 + lane;
+  for (; c + 32 < q; c += 64) {
+    const float a0 = __ldg(row + c), a1 = __ldg(row + c + 32);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      s0[t] = fmaf(a0, __ldg(u + t * q + c), s0[t]);
+      s1[t] = fmaf(a1, __ldg(u + t * q + c + 32), s1[t]);
+    }
+  }
+  if (c < q) {
+    const float a0 = __ldg(row + c);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) s0[t] = fmaf(a0, __ldg(u + t * q + c), s0[t]);
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const float sum = ngt::warp_sum(s0[t] + s1[t]);
+    if (lane == 0) up[t * R + r] = sum;
+  }
+}
+
+// sum_c row[c] * u_t[c] for the nT channels (u_t: 32 floats in shared
+// memory), one read of the row, four partial sums each, added into acc
+template <int NT>
+__device__ __forceinline__ void rows_dot_shared(const float* row, const float (*u)[32], float (&acc)[NT]) {
+  float s[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float4 v = *reinterpret_cast<const float4*>(u[t] + c);
+      s[t][0] = fmaf(a.x, v.x, s[t][0]);
+      s[t][1] = fmaf(a.y, v.y, s[t][1]);
+      s[t][2] = fmaf(a.z, v.z, s[t][2]);
+      s[t][3] = fmaf(a.w, v.w, s[t][3]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t] += (s[t][0] + s[t][1]) + (s[t][2] + s[t][3]);
+}
+
+// sum_c row[c] * u_t(c) for the nT channels, u_t(c) in lane c's uc[t]
+template <int NT>
+__device__ __forceinline__ void rows_dot_lanes(const float* row, const float (&uc)[NT], float (&out)[NT]) {
+  float s[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      s[t][0] = fmaf(a.x, __shfl_sync(kFull, uc[t], c), s[t][0]);
+      s[t][1] = fmaf(a.y, __shfl_sync(kFull, uc[t], c + 1), s[t][1]);
+      s[t][2] = fmaf(a.z, __shfl_sync(kFull, uc[t], c + 2), s[t][2]);
+      s[t][3] = fmaf(a.w, __shfl_sync(kFull, uc[t], c + 3), s[t][3]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) out[t] = (s[t][0] + s[t][1]) + (s[t][2] + s[t][3]);
+}
+
+// Block 0, warp 0: the chain, one level at a time
+template <int NT>
+__device__ __forceinline__ void coop_chain_warp(const CoopArgs<NT>& a, CoopSlot<NT>* slots,
+                                                float (*uring)[NT][32], volatile int* ctr, int lane) {
+  constexpr int K = CoopSlot<NT>::K;
+  const long long R = 32LL * a.G;
+  float carry[NT], far_next[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) carry[t] = far_next[t] = 0.f;
+  for (int g = 0; g < a.G; ++g) {
+    const bool next = g + 1 < a.G;
+    long long n = 0;
+    while (ctr[kStaged] < (next ? g + 2 : g + 1) || ctr[kWinOk] < g + 1) {
+      if (++n > kSpinLimit) __trap();
+    }
+    __threadfence_block();
+    float far[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      far[t] = far_next[t];
+      if (g > kLook && !__all_sync(kFull, __float_as_int(far[t]) != kEmpty)) {
+        far[t] = wait_words(a.far + t * R + 32LL * g, lane);
+      }
+      far_next[t] = g + 1 > kLook && g + 1 < a.G ? ld_relaxed(a.far + t * R + 32LL * (g + 1) + lane) : 0.f;
+    }
+    const CoopSlot<NT>& s = slots[g % kSlots];
+    float acc[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[t] = ((s.up[t][lane] + far[t]) + s.win[t][lane]) + carry[t];
+    float d[32], dn[32];
+    const float* drow = s.blk + kLook * kBlockWords + lane * kStride;
+    const float* nrow = slots[(g + 1) % kSlots].blk + (kLook - 1) * kBlockWords + lane * kStride;
+#pragma unroll
+    for (int c = 0; c < 32; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(drow + c);
+      d[c] = x.x, d[c + 1] = x.y, d[c + 2] = x.z, d[c + 3] = x.w;
+      const float4 y = next ? *reinterpret_cast<const float4*>(nrow + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      dn[c] = y.x, dn[c + 1] = y.y, dn[c + 2] = y.z, dn[c + 3] = y.w;
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) carry[t] = 0.f;
+    float(*ug)[32] = uring[g % kURing];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float* rr = s.rule + j * K;
+      float p[NT], uj[NT];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) p[t] = __shfl_sync(kFull, acc[t], j);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        float v = rr[t];
+#pragma unroll
+        for (int k = 0; k < NT; ++k) v = fmaf(-rr[NT + t * NT + k], p[k], v);
+        uj[t] = v;
+        if (lane == 0) ug[t][j] = v;
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        acc[t] = fmaf(d[j], uj[t], acc[t]);
+        carry[t] = fmaf(dn[j], uj[t], carry[t]);
+      }
+    }
+    raise(ctr + kDone, g + 1, lane);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float mine = ug[t][lane];
+      st_relaxed(a.unew + t * R + 32LL * g + lane, mine);
+      if (32LL * g + lane < a.q) a.u[t * a.q + 32LL * g + lane] = mine;
+    }
+  }
+}
+
+// Block 0, warp 1: win of row block g over segments g - L .. g - 2, as RE1's
+template <int NT>
+__device__ __forceinline__ void coop_window_warp(const CoopArgs<NT>& a, CoopSlot<NT>* slots,
+                                                 float (*uring)[NT][32], volatile int* ctr, int lane) {
+  for (int g = 0; g < 2 && g < a.G; ++g) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) slots[g].win[t][lane] = 0.f;
+  }
+  raise(ctr + kWinOk, a.G < 2 ? a.G : 2, lane);
+  for (int g = 2; g < a.G; ++g) {
+    wait_ge(ctr + kStaged, g + 1);
+    CoopSlot<NT>& s = slots[g % kSlots];
+    float win[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) win[t] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLook - 2; ++j) {
+      const int sg = g - kLook + j;
+      if (sg >= 0) rows_dot_shared<NT>(s.blk + j * kBlockWords + lane * kStride, uring[sg % kURing], win);
+    }
+    long long n = 0;
+    while (ctr[kDone] < g - 1) {
+      if (++n > kSpinLimit) __trap();
+    }
+    __threadfence_block();
+    rows_dot_shared<NT>(s.blk + (kLook - 2) * kBlockWords + lane * kStride, uring[(g - 2) % kURing], win);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) s.win[t][lane] = win[t];
+    raise(ctr + kWinOk, g + 1, lane);
+  }
+}
+
+// Block 0, warp 2: the bands, rule rows and up sums of the groups ahead
+template <int NT>
+__device__ __forceinline__ void coop_stager_warp(const CoopArgs<NT>& a, CoopSlot<NT>* slots,
+                                                 volatile int* ctr, int lane) {
+  constexpr int K = CoopSlot<NT>::K;
+  const long long R = 32LL * a.G;
+  for (int g = 0; g < a.G; ++g) {
+    wait_ge(ctr + kDone, g - kSlots + 1);
+    CoopSlot<NT>& s = slots[g % kSlots];
+    stage_band(s.blk, a.band + (size_t)g * kBand * 1024, lane);
+    for (int i = lane; i < 8 * K; i += 32) {  // 32 K floats, 16 bytes a copy
+      __pipeline_memcpy_async(s.rule + 4 * i, a.rule + 32LL * g * K + 4 * i, 16);
+    }
+    for (int i = lane; i < 8 * NT; i += 32) {
+      __pipeline_memcpy_async(&s.up[i >> 3][4 * (i & 7)], a.up + (i >> 3) * R + 32LL * g + 4 * (i & 7), 16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(kInFlight - 1);
+    const int in = g - kInFlight + 1;
+    if (in >= 0) {
+      __syncwarp();
+      raise(ctr + kStaged, in + 1, lane);
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  raise(ctr + kStaged, a.G, lane);
+}
+
+// Every warp of blocks 1 ..: owner `ow`, as RE1's, with nT sums a row
+template <int NT>
+__device__ __forceinline__ void coop_owner_warp(const CoopArgs<NT>& a, float* smem, int ow, int lane) {
+  const int R0 = kLook + 1 + ow, W = a.owners;
+  if (R0 >= a.G) return;
+  const long long RR = 32LL * a.G;
+  const int nown = (a.G - 1 - R0) / W + 1;
+  const int s_end = R0 + (nown - 1) * W - kLook;
+  float* ring = smem;
+  float* accs = smem + kOwnSlots * kBlockWords;  // accs[(k NT + t) 32 + lane]
+  auto first_k = [&](int s) {
+    const int need = s + kLook + 1 - R0;
+    return need <= 0 ? 0 : (need + W - 1) / W;
+  };
+  int is = 0, ik = 0;
+  auto stage_next = [&](int slot) {
+    if (is < s_end) {
+      stage_block(ring + slot * kBlockWords, a.A, a.q, 32LL * (R0 + ik * W), 32LL * is, a.wide, lane);
+      if (++ik == nown) ik = first_k(++is);
+    }
+    __pipeline_commit();
+  };
+#pragma unroll 1
+  for (int t = 0; t < kOwnSlots - 1; ++t) stage_next(t);
+  int cs = 0, ck = 0, seen = -1;
+  float us[NT], us_next[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) us[t] = 0.f, us_next[t] = __int_as_float(kEmpty);
+#pragma unroll 1
+  for (int it = 0; cs < s_end; ++it) {
+    stage_next((it + kOwnSlots - 1) % kOwnSlots);
+    __pipeline_wait_prior(kOwnSlots - 1);
+    __syncwarp();
+    if (cs != seen) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        us[t] = __all_sync(kFull, __float_as_int(us_next[t]) != kEmpty)
+                    ? us_next[t] : wait_words(a.unew + t * RR + 32LL * cs, lane);
+        us_next[t] = cs + 1 < s_end ? ld_relaxed(a.unew + t * RR + 32LL * (cs + 1) + lane) : 0.f;
+      }
+      seen = cs;
+    }
+    const int Rb = R0 + ck * W;
+    float dot[NT];
+    rows_dot_lanes<NT>(ring + (it % kOwnSlots) * kBlockWords + lane * kStride, us, dot);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      float* slot = accs + (ck * NT + t) * 32 + lane;
+      const float acc = cs == 0 ? dot[t] : *slot + dot[t];
+      if (cs == Rb - kLook - 1) {
+        st_relaxed(a.far + t * RR + 32LL * Rb + lane, acc);
+      } else {
+        *slot = acc;
+      }
+    }
+    __syncwarp();
+    if (++ck == nown) ck = first_k(++cs);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kWarps, 1) coop_scan_kernel(const CoopArgs<NT> a) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (blockIdx.x > 0) {
+    coop_owner_warp<NT>(a, reinterpret_cast<float*>(sm) + warp * coop_owner_words<NT>(),
+                        (blockIdx.x - 1) * kWarps + warp, lane);
+    return;
+  }
+  CoopSlot<NT>* slots = reinterpret_cast<CoopSlot<NT>*>(sm);
+  float(*uring)[NT][32] = reinterpret_cast<float(*)[NT][32]>(sm + kSlots * sizeof(CoopSlot<NT>));
+  volatile int* ctr = reinterpret_cast<volatile int*>(sm + kSlots * sizeof(CoopSlot<NT>) +
+                                                      (size_t)kURing * NT * 32 * sizeof(float));
+  if (threadIdx.x < kCounters) ctr[threadIdx.x] = 0;
+  __syncthreads();
+  switch (warp) {
+    case 0: coop_chain_warp<NT>(a, slots, uring, ctr, lane); break;
+    case 1: coop_window_warp<NT>(a, slots, uring, ctr, lane); break;
+    case 2: coop_stager_warp<NT>(a, slots, ctr, lane); break;
+    default: break;
+  }
+}
+
+// scratch: up, far, the published u (nT x 32 G each) and the band
+template <int NT>
+int scan_coop(const float* A, long long q, const float* rule, const float* u, float* unew,
+              float* scratch, cudaStream_t st) {
+  const int G = (int)((q + 31) / 32);
+  const long long R = 32LL * G;
+  float* up = scratch;
+  float* far = up + NT * R;
+  float* pub = far + NT * R;
+  float* band = pub + NT * R;
+  coop_prep_kernel<NT><<<(unsigned)((R + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, st>>>(
+      A, q, G, u, up, pub, far, band);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  static long long resident_on[64];  // blocks the card holds at once, per device, asked once
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  constexpr size_t smem = coop_smem<NT>();
+  if (resident_on[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(coop_scan_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, coop_scan_kernel<NT>, 32 * kWarps, smem);
+    }
+    if (err != cudaSuccess) return (int)err;
+    resident_on[dev] = (long long)sms * per_sm;
+  }
+  const long long resident = resident_on[dev];
+  const long long far_blocks = G > kLook + 1 ? G - kLook - 1 : 0;
+  const long long owner_blocks = (far_blocks + kWarps - 1) / kWarps;
+  const long long helpers = owner_blocks < resident - 1 ? owner_blocks : resident - 1;
+  if (resident < 1 || far_blocks > helpers * kWarps * kMaxOwn) return (int)cudaErrorInvalidValue;
+  CoopArgs<NT> a{A, q, G, (int)(helpers * kWarps),
+                 (q & 3) == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0,
+                 up, rule, band, far, pub, unew};
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(1 + helpers));
+  cfg.blockDim = dim3(32 * kWarps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, coop_scan_kernel<NT>, a);
+}
+
+}  // namespace re2
+
+// Scratch words one RE2 call needs: the cooperative form's up, far sums and
+// published u (nT per padded level) and its band; the generic form's sums.
+extern "C" long long ngt_corr_level_scan_scratch_words(long long q, long long nt) {
+  const long long G = (q + 31) / 32;
+  return nt <= re2::kFastNT ? 3 * nt * 32 * G + G * kBand * 1024 : nt * q;
+}
+
+// One correlated level scan (RE2): A (q, q) row-major; rule (ceil(q / 32) *
+// 32, nT + nT^2), rows past q zero; u the old (nT, q); unew the new (nT, q);
+// scratch ngt_corr_level_scan_scratch_words(q, nT) floats. Every pointer
+// float32 on one device. Two launches for nT <= 4, 2 ceil(q / 1024) above.
+extern "C" int ngt_corr_level_scan(const void* A, long long q, long long nt, const void* rule,
+                                   const void* u, void* unew, void* pre, void* stream) {
+  if (q < 1 || nt < 1 || q > (1LL << 31) / re2::kRowWarps) return (int)cudaErrorInvalidValue;
+  const float* a = (const float*)A;
+  const float* r = (const float*)rule;
+  const float* uo = (const float*)u;
+  float* un = (float*)unew;
+  float* p = (float*)pre;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (nt) {
+    case 1: return re2::scan_coop<1>(a, q, r, uo, un, p, st);
+    case 2: return re2::scan_coop<2>(a, q, r, uo, un, p, st);
+    case 3: return re2::scan_coop<3>(a, q, r, uo, un, p, st);
+    case 4: return re2::scan_coop<4>(a, q, r, uo, un, p, st);
+    default: return re2::scan_generic(a, q, (int)nt, r, uo, un, p, st);
+  }
 }

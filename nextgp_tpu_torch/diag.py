@@ -76,13 +76,14 @@ class RooflineReport:
 def _random_bytes(rp, n: int, dtype) -> float:
     """Bytes one random term's stage reads per sweep. The per-level scan
     reads Z twice (the old u added back, the new u taken out), Z' once and
-    the (q, q) structure twice (the level scan, RE1, reads all of it; the
-    quadratic form u'Ku for the variance). A CG term counts 0 here: its
+    the (q, q) structure twice (the level scan, RE1 or RE2, reads all of it;
+    the quadratic form u'Ku for the variance); a correlated group's nT
+    incidences each as often. A CG term counts 0 here: its
     bytes are those of one sparse matvec per iteration, and its iterations
     depend on the data (`make_sweep`'s `cg_iterations` gives them)."""
     if rp.sampler == "cg":
         return 0.0
-    return (torch.finfo(dtype).bits // 8) * (3.0 * n * rp.q + 2.0 * rp.q * rp.q)
+    return (torch.finfo(dtype).bits // 8) * (3.0 * rp.n_t * n * rp.q + 2.0 * rp.q * rp.q)
 
 
 def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> RooflineReport:
@@ -90,9 +91,10 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> Roofli
 
     Per marker set: mt is read twice per sweep (r0 matvec + correction
     rank-B update), the Gram blocks once, plus the in-block scan (p x B
-    MACs) — the formula of `nextgp_tpu.diag.roofline`, unchanged. Per
-    random term (which that formula does not count): the bytes its stage
-    reads (`_random_bytes`).
+    MACs) — the formula of `nextgp_tpu.diag.roofline`, unchanged; a
+    correlated marker set the same per (locus, set) row with nT x nT Gram
+    blocks. Per random term (which that formula does not count): the bytes
+    its stage reads (`_random_bytes`).
     """
     if device not in _DEVICE_PEAKS:
         raise ValueError(
@@ -108,6 +110,10 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> Roofli
         bytes_total += p_local * mp.block * 4  # Gram blocks (f32)
         flops += 2 * 2 * p_local * n  # matvec + rank-B update MACs
         flops += 2 * p_local * mp.block  # in-block Gram-row dots
+    for cp in plan.corr_markers:  # the same per (locus, set) row, and nT x nT Gram blocks
+        p_local = cp.p_pad * cp.n_t / max(1, n_shards)
+        bytes_total += 2 * p_local * n * 0.25 + p_local * cp.block * cp.n_t * 4
+        flops += 2 * 2 * p_local * n + 2 * p_local * cp.block * cp.n_t
     bytes_total += 20 * 4 * n  # ycorr/fixed traffic (minor)
     bytes_total += sum(_random_bytes(rp, n, plan.dtype) for rp in plan.random)
     t_bw = bytes_total / (hbm * 1e9)

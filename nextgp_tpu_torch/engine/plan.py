@@ -2,22 +2,25 @@
 
 Counterpart of `nextgp_tpu/engine/plan.py:assemble` for the terms the port
 carries: the residual ("I", or weighted "D" from a weight vector),
-fixed-effect blocks, uncorrelated random effects (a dense incidence and
-inverse structure for the per-level scan; a level index, padded sparse
-A^-1 rows and the Henderson factor for the CG sampler), marker sets of all
+fixed-effect blocks, random effects (a dense incidence and inverse
+structure for the per-level scan; a level index, padded sparse A^-1 rows
+and the Henderson factor for the CG sampler; stacked incidences and
+per-level cross-products for a correlated group), marker sets of all
 seven methods (BayesPR, BayesB,
 BayesC, BayesR, BayesRCpi, BayesRCplus, BayesLV with a covariate matrix)
 stored 2-bit planar-packed in the (T, V, B, q) layout of engine/state.py,
+correlated marker sets (BayesPR, one packed row per locus and set),
 and summary-statistic offsets on single fixed columns and marker sets.
 Defaults follow the JAX package (and NextGP.jl's mme.jl): residual df 4 and
-scale v*(df-2)/df with the 0.0005 zero-variance guard; marker df 3 + 1; a
+scale v*(df-2)/df with the 0.0005 zero-variance guard; marker df 3 + dim(v) and a matrix v's scale v * (df - nT - 1); a
 marker set without a prior is BayesPR(9999, 0.05); multi-column fixed
 blocks get the ridge jitter I * min|diag| / 10000. A weighted residual
 (d_inv = 1/weights) weights X'X, the Gram blocks and their diagonal mpm,
 and keeps the unweighted Gram beside the weighted one, and weights Z'
-and diag(Z'Z) of a random term. A missing random prior is Random("I", 100)
-(mme.jl:40-44), with df 3 + 1. Any other term raises NotImplementedError
-naming it.
+and diag(Z'Z) of an uncorrelated random term (correlated groups and
+correlated marker sets ignore the weights, as the JAX package does). A
+missing random prior is Random("I", 100) (mme.jl:40-44), with df 3 + 1.
+Any other term raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -29,12 +32,13 @@ import numpy as np
 import torch
 
 from ..api import priors as P
-from ..api.spec import MarkerTerm, ModelSpec, RandomTerm
+from ..api.spec import CorrMarkerTerm, MarkerTerm, ModelSpec, RandomTerm
 from ..data.regions import build_regions
 from ..ops import pack2
 from ..utils import cdiv, default_device, default_dtype, full_f32
 from .state import (
-    FixedState, MarkerState, ModelState, RandomState, ResidualState, SparseRandomState,
+    CorrMarkerState, CorrRandomState, FixedState, MarkerState, ModelState, RandomState,
+    ResidualState, SparseRandomState,
 )
 
 METHOD_PR = "BayesPR"
@@ -101,6 +105,25 @@ class MarkerPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class CorrMarkerPlan:
+    names: Tuple[str, ...]
+    n_t: int
+    p: int
+    p_pad: int
+    block: int
+    n_blocks: int
+    n_regions: int
+    df: float
+    # V block chains advance per block-step, as for MarkerPlan.vshards
+    vshards: int = 1
+    # the region sums without float atomics or a host sync, as for
+    # MarkerPlan: (n_regions, longest region) locus indices padded with p,
+    # and each region's size
+    region_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    region_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+
+
+@dataclasses.dataclass(frozen=True)
 class SweepPlan:
     n: int
     e_df: float
@@ -110,6 +133,7 @@ class SweepPlan:
     markers: Tuple[MarkerPlan, ...]
     dtype: torch.dtype
     device: torch.device
+    corr_markers: Tuple[CorrMarkerPlan, ...] = ()
 
 
 def _ss_offsets(k, ss):
@@ -154,8 +178,9 @@ def _build_fixed(term_mats, name, d_inv, ss, dtype, device):
 
 
 def _df_for(v):
-    """3 + dim(v) (mme.jl:264-272); a matrix v raised before this."""
-    return 3.0 + 1.0
+    """3 + dim(v) (mme.jl:264-272)."""
+    v = np.asarray(v, dtype=np.float64)
+    return 3.0 + (v.shape[0] if v.ndim == 2 else 1.0)
 
 
 def _segments(idx, n_seg, pad, device):
@@ -243,17 +268,55 @@ def _random_prior(term: RandomTerm):
     return prior, getattr(prior, "sampler", "scan") == "cg"
 
 
+def _build_corr_random(term: RandomTerm, prior, dtype, device):
+    """A correlated group (tuple name, mme.jl:207-239): the nT incidences
+    stacked (nT, n, q), per-level cross-products zpz (q, nT, nT), the dense
+    inverse structure, df 3 + nT and scale v * (df - nT - 1). Built on the
+    device in float64, stored in dtype."""
+    zs = torch.stack([_as_device(z, torch.float64, device) for z in term.z])  # (nT, n, q)
+    n_t, q = zs.shape[0], zs.shape[2]
+    # Parity footnote (the JAX planner's): NextGP.jl's tuple sampleU
+    # (functions.jl:75-88) computes Yi from the fully restored residual and
+    # never removes cross-level likelihood couplings, so its update is an
+    # exact Gibbs conditional only when every record hits the same level in
+    # all components. The port mirrors the reference and the warning.
+    if not all(torch.equal(zs[0] != 0.0, zt != 0.0) for zt in zs[1:]):
+        warnings.warn(
+            f"correlated random effect {term.name}: components have "
+            "different incidence patterns. The reference's tuple sampler "
+            "(functions.jl:75-88) omits cross-level likelihood couplings "
+            "and is NOT a valid Gibbs sampler in this case — variance "
+            "chains typically diverge. Use a shared incidence (same "
+            "factor) per component, or separate uncorrelated terms.",
+            stacklevel=3,
+        )
+    df = _df_for(prior.v)
+    vmat = np.asarray(prior.v, dtype=np.float64)
+    if vmat.ndim != 2 or vmat.shape != (n_t, n_t):
+        raise ValueError("correlated random effect needs an nT x nT prior v")
+    zpz = torch.einsum("tnl,unl->ltu", zs, zs)
+    ivstr = (torch.eye(q, dtype=dtype, device=device) if term.ivstr is None
+             else _as_device(term.ivstr, dtype, device))
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    st = CorrRandomState(zs=zs.to(dtype), zpz=zpz.to(dtype), ivstr=ivstr.contiguous(),
+                         u=torch.zeros((n_t, q), dtype=dtype, device=device), var_u=dev(vmat),
+                         scale=dev(_scale_for(vmat, df)))
+    return st, RandomPlan(term.name, q, float(df), True, n_t)
+
+
 def _build_random(term: RandomTerm, d_inv, dtype, device):
-    """One random term (mme.jl:170-204): a correlated group (tuple name)
-    raises; sampler 'cg' takes the sparse form, else Z, Z' (weighted by
-    d_inv), diag(Z'Z) and the dense inverse structure for the scan."""
+    """One random term (mme.jl:170-239): a correlated group (tuple name)
+    takes _build_corr_random; sampler 'cg' the sparse form; else Z, Z'
+    (weighted by d_inv), diag(Z'Z) and the dense inverse structure for the
+    scan."""
     prior, cg = _random_prior(term)
     if cg and term.correlated:
         raise ValueError("sampler='cg' is not available for correlated groups")
     if term.correlated:
-        raise NotImplementedError(
-            f"correlated random group {term.name}: correlated random effects (with their Wishart "
-            "draws) belong to ROADMAP M9, which is not ported yet")
+        return _build_corr_random(term, prior, dtype, device)
     if cg:
         return _build_random_sparse(term, prior, dtype, device)
     z = _as_device(term.z, torch.float64, device)
@@ -278,7 +341,11 @@ def _build_random(term: RandomTerm, d_inv, dtype, device):
 
 
 def _scale_for(v, df):
-    """Prior scale from a scalar variance and df (mme.jl:269-271, 498-505)."""
+    """Prior scale from a variance and df (mme.jl:269-271, 498-505): a
+    matrix v gives v * (df - nT - 1)."""
+    v = np.asarray(v, dtype=np.float64)
+    if v.ndim == 2:
+        return v * (df - v.shape[0] - 1.0)
     return float(v) * (df - 2.0) / df
 
 
@@ -309,9 +376,17 @@ def _resolve_vshards(vshards, nb, name):
 
 
 def _packed_rows(md, name, device):
-    """The marker set's (p, q) uint8 packed rows on `device`."""
+    """The marker set's (p, q) uint8 packed rows on `device`. Unpacked
+    dosages may be an (n, p) int8 array or tensor (packed on `device`)."""
     if md.packed:
         return torch.as_tensor(md.genotypes, device=device)
+    if isinstance(md.genotypes, torch.Tensor):
+        g = md.genotypes.to(device)
+        if not (g.dtype == torch.int8 and g.min().item() >= 0 and g.max().item() <= 3):
+            raise NotImplementedError(
+                f"marker set {name}: the port stores genotypes 2-bit packed only, which "
+                "needs int8 dosages in 0..3")
+        return pack2.pack2(g)
     g = np.asarray(md.genotypes)
     if not (g.dtype == np.int8 and g.min() >= 0 and g.max() <= 3):
         raise NotImplementedError(
@@ -379,9 +454,11 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
     md, prior = term.data, term.prior
     method = _method_of(prior, term.name)
     if prior is not None and np.ndim(prior.v) > 0:
-        raise NotImplementedError(
-            f"marker set {term.name}: a matrix v belongs to correlated marker sets "
-            "(ROADMAP M9), which are not ported yet")
+        # the JAX planner takes it, and its sweep then fails with a TypeError
+        # (a (1,) variance carried in, an (nT, nT) one drawn); say so up front
+        raise TypeError(
+            f"marker set {term.name}: a matrix v is the prior of correlated marker sets "
+            "(CorrMarkerTerm); a single set's v is a scalar")
     n, p = md.n_ind, md.n_snp
     block = min(block, max(8, 1 << (p - 1).bit_length()))  # don't over-pad tiny sets
     p_pad = cdiv(p, block) * block
@@ -519,16 +596,93 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
     return ms, mp
 
 
+def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
+    """Correlated marker sets (mme.jl:448-489): nT panels of one set of
+    loci under BayesPR with an (nT, nT) v; one packed row per (locus, set),
+    the (nT, nT) cross-Gram blocks and each locus's diagonal block mpm, a
+    region map shared by the sets. vshards "auto" is 1 (the JAX package's
+    rule for this term), an integer goes through _resolve_vshards."""
+    names = "+".join(term.names)
+    prior = term.prior
+    if not isinstance(prior, P.BayesPR):
+        raise ValueError("correlated marker sets support only the BayesPR prior")
+    datas = term.datas
+    if any(getattr(d, "packed", False) for d in datas):
+        raise ValueError(
+            f"correlated marker sets {names}: pre-packed "
+            "genotype inputs (from_packed) are not supported here — pass "
+            "unpacked dosage panels (from_array); eligible 0..3 dosages are "
+            "re-packed 2-bit internally")
+    n_t = len(datas)
+    n, p = datas[0].n_ind, datas[0].n_snp
+    chr_ids = datas[0].chr_ids
+    for d in datas[1:]:  # mme.jl:453 requires one shared map
+        m = d.chr_ids
+        if (m is None) != (chr_ids is None) or (m is not None and not np.array_equal(m, chr_ids)):
+            raise ValueError("correlated marker sets must have the same map file")
+    vmat = np.asarray(prior.v, dtype=np.float64)
+    if vmat.shape != (n_t, n_t):
+        raise ValueError("correlated marker prior v must be nT x nT")
+    df = 3.0 + n_t
+    block = min(block, max(8, 1 << (p - 1).bit_length()))
+    p_pad = cdiv(p, block) * block
+    nb = p_pad // block
+    V = 1 if vshards == "auto" else _resolve_vshards(vshards, nb, names)
+    T = nb // V
+    pad = p_pad - p
+    info = build_regions(p, prior.r, chr_ids)
+    region_id = np.concatenate([info.region_id, np.full(pad, info.n_regions, np.int32)])
+
+    rows = torch.stack([_packed_rows(d, names, device) for d in datas], dim=1)  # (p, nT, q)
+    q = rows.shape[2]
+    center = torch.stack([_as_device(d.center, dtype, device) for d in datas], dim=1)  # (p, nT)
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, n_t, q))])
+        center = torch.cat([center, center.new_zeros((pad, n_t))])
+
+    def tv(a):  # (p_pad, ...) in global locus order -> (T, V, B, ...)
+        return a.reshape((V, T, block) + a.shape[1:]).transpose(0, 1).contiguous()
+
+    mt, center_tv = tv(rows), tv(center)
+    R = block * n_t
+    gram, _ = _centered_grams(mt.view(T * V, R, q), center_tv.view(T * V, R), n, dtype)
+    g6 = gram.view(T, V, block, n_t, block, n_t)
+    mpm = torch.diagonal(g6, dim1=2, dim2=4).permute(1, 0, 4, 2, 3)  # (V, T, B, nT, nT)
+    mask = torch.zeros(p_pad, dtype=torch.bool, device=device)
+    mask[:p] = True
+    region_rows, region_len = _region_segments(info, device)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    st = CorrMarkerState(
+        mt=mt,
+        center=center_tv,
+        gram=g6.permute(0, 2, 3, 1, 4, 5).contiguous(),
+        mpm=mpm.reshape(nb, block, n_t, n_t).contiguous(),
+        mask=mask.reshape(nb, block),
+        region_id=torch.as_tensor(region_id, device=device),
+        beta=torch.zeros((p_pad, n_t), dtype=dtype, device=device),
+        var_beta=dev(np.broadcast_to(vmat, (info.n_regions, n_t, n_t)).copy()),
+        scale=dev(vmat * (df - n_t - 1.0)),
+    )
+    plan = CorrMarkerPlan(names=tuple(term.names), n_t=n_t, p=p, p_pad=p_pad, block=block,
+                          n_blocks=nb, n_regions=info.n_regions, df=df, vshards=V,
+                          region_rows=region_rows, region_len=region_len)
+    return st, plan
+
+
 def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
     """Refuse a float64 model on a CUDA device where a float32-only kernel
-    would meet it mid-sweep: marker sets (the panel passes and the scans)
-    and random terms drawn by the per-level scan (RE1). CG terms and fixed
-    effects run in float64 on the card."""
+    would meet it mid-sweep: marker sets and correlated marker sets (the
+    panel passes and the scans) and random terms drawn by a per-level scan
+    (RE1, RE2). CG terms and fixed effects run in float64 on the card."""
     if torch.device(device).type != "cuda" or dtype != torch.float64:
         return
     scan = [t.name for t in spec.random if not _random_prior(t)[1]]
     needs = ([f"marker sets {[t.name for t in spec.markers]}"] if spec.markers else []) + (
-        [f"scan random terms {scan}"] if scan else [])
+        [f"correlated marker sets {[t.names for t in spec.corr_markers]}"]
+        if spec.corr_markers else []) + ([f"scan random terms {scan}"] if scan else [])
     if needs:
         raise ValueError(
             f"float64 on a CUDA device: {' and '.join(needs)} run in float32 kernels on the card; "
@@ -546,15 +700,14 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its
-    largest divisor with a warning. "auto" raises: the H100 value has not
-    been measured.
+    largest divisor with a warning. "auto" raises for a marker set (the
+    H100 value has not been measured) and is 1 for correlated marker sets,
+    as in the JAX package.
     """
     spec.validate()
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     check_card_dtype(spec, dtype, device)
-    for t in spec.corr_markers:
-        raise NotImplementedError(f"correlated marker sets {t.names}: not ported yet")
     rng = np.random.default_rng(20240509)  # the JAX planner's host generator and seed
     y = np.asarray(spec.y, dtype=np.float64).ravel()
     res_prior = spec.residual or P.RandomEffect("I", 100.0)
@@ -598,6 +751,12 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
         marker_states.append(st)
         marker_plans.append(mp)
 
+    corr_states, corr_plans = [], []
+    for t in spec.corr_markers:
+        st, cp = _build_corr_marker(t, block_size or spec.block_size, dtype, device, vshards)
+        corr_states.append(st)
+        corr_plans.append(cp)
+
     # Keys that nothing consumed: single fixed columns and marker sets use
     # their offsets (mme.jl:144-147, 316-322); multi-column blocks ignore
     # them in the reference too (sampleb!, functions.jl:22-36). Warn, as the
@@ -625,9 +784,10 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
         random=tuple(random_states),
         markers=tuple(marker_states),
         sweep_index=0,
+        corr_markers=tuple(corr_states),
         sweep_counter=torch.zeros((), dtype=torch.int64, device=device),
     )
     plan = SweepPlan(n=y.size, e_df=e_df, weighted=d_inv is not None, fixed=tuple(fixed_plans),
                      random=tuple(random_plans), markers=tuple(marker_plans), dtype=dtype,
-                     device=device)
+                     device=device, corr_markers=tuple(corr_plans))
     return plan, state

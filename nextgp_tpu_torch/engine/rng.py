@@ -7,6 +7,13 @@ below that key. A stream turns a site into numbers:
 
     stream.normal(site, shape)   stream.uniform(site, shape)
     stream.gamma(site, alpha)    # alpha a tensor; the shape is alpha's
+    stream.normal_split(site, n, shape, then=())   # (n,) + shape
+    stream.gamma_split(site, n, alpha, then=())    # alpha (n, ...)
+
+where row r of a split draw is the plain draw at the site
+site.split(n)[r], extended by the splits `then` (the per-region draws of a
+correlated marker set, `jax.random.split(kv, n_regions)[r]` in the JAX
+package, and the Wishart's split below it).
 
 `PhiloxStream` is the default: torch's generator on the stream's device
 (Philox4x32-10 on CUDA, the Mersenne Twister on the CPU) seeded per site
@@ -61,6 +68,26 @@ class Stream(Protocol):
 
     def gamma(self, site: Site, alpha: torch.Tensor) -> torch.Tensor: ...
 
+    def normal_split(self, site: Site, n: int, shape, then=()) -> torch.Tensor: ...
+
+    def gamma_split(self, site: Site, n: int, alpha: torch.Tensor, then=()) -> torch.Tensor: ...
+
+
+def split_site(site: Site, n: int, r: int, then=()) -> Site:
+    """Row r's site of a split draw: site.split(n)[r], then the splits
+    `then` ((n, i) pairs) below it."""
+    return site._replace(path=site.path + ((n, r),) + tuple(then))
+
+
+class SplitByLoop:
+    """normal_split and gamma_split as one plain draw per row."""
+
+    def normal_split(self, site, n, shape, then=()):
+        return torch.stack([self.normal(split_site(site, n, r, then), shape) for r in range(n)])
+
+    def gamma_split(self, site, n, alpha, then=()):
+        return torch.stack([self.gamma(split_site(site, n, r, then), alpha[r]) for r in range(n)])
+
 
 _MASK64 = (1 << 64) - 1
 
@@ -80,7 +107,7 @@ def site_seed(seed: int, site: Site) -> int:
     return h >> 1
 
 
-class PhiloxStream:
+class PhiloxStream(SplitByLoop):
     """torch generator stream on `device`, reseeded per draw site."""
 
     def __init__(self, seed: int, device, dtype):
@@ -102,7 +129,7 @@ class PhiloxStream:
         return torch._standard_gamma(alpha, generator=self._at(site))
 
 
-class HostStream:
+class HostStream(SplitByLoop):
     """Draws made on the host by a float32 CPU PhiloxStream and copied to
     `device` as `dtype`. A chain on the card and a chain on the CPU that each
     take a HostStream of one seed see the same numbers, which is how a kernel
@@ -161,10 +188,12 @@ def site_tail(site: Site) -> Tuple[int, ...]:
 
 def site_key_plain(h0: int, sweep: torch.Tensor, tail) -> torch.Tensor:
     """site_seed as int64 tensor arithmetic: h0 = _splitmix64(seed), sweep a
-    0-d int64 tensor, tail = site_tail(site). Equals site_seed(seed, site)."""
+    0-d int64 tensor, tail = site_tail(site). Equals site_seed(seed, site).
+    A tail value may be an int64 tensor of non-negative values (a split
+    draw's row of each element): the key is then one per element."""
     h = _splitmix64_t(sweep.to(torch.int64) ^ _i64(h0))
     for v in tail:
-        h = _splitmix64_t(h ^ _i64(v))
+        h = _splitmix64_t(h ^ (v if isinstance(v, torch.Tensor) else _i64(v)))
     return _srl(h, 1)
 
 
@@ -189,15 +218,25 @@ def _box_muller(w0, w1):
     return torch.sqrt(-2.0 * torch.log(_unit(w0))) * torch.cos(2.0 * math.pi * _unit(w1))
 
 
-def keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False):
+def keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, rows=None):
     """Plain version of csrc/keyed_rng.cu: n draws of `kind` (UNIFORM, NORMAL
     or GAMMA with shapes alpha (n,)) at the site keyed by (h0, sweep, tail),
     on sweep's device, as float64 rounded to dtype at the end. iters: also
     return each gamma's accepting attempt (int32, -1 where none accepted;
-    None for the other kinds)."""
+    None for the other kinds). rows = (count, slot): a split draw, count
+    rows of n draws each (alpha (count * n,)), row r keyed with tail[slot]
+    = r; its elements are indexed 0 .. n-1 within their row, so row r is
+    the draw at that row's site."""
     dev = sweep.device
-    key = site_key_plain(h0, sweep, tail)
-    i = torch.arange(n, dtype=torch.int64, device=dev)
+    count = 1 if rows is None else rows[0]
+    e = torch.arange(count * n, dtype=torch.int64, device=dev)
+    if rows is None:
+        key, i = site_key_plain(h0, sweep, tail), e
+    else:
+        tail = list(tail)
+        tail[rows[1]] = e // n
+        key, i = site_key_plain(h0, sweep, tail), e % n
+    n = count * n
     lo, hi, zero = i & _M32, _srl(i, 32), torch.zeros_like(i)
     if kind != GAMMA:
         w = _philox_plain(key, lo, zero, zero, hi)
@@ -231,34 +270,51 @@ def keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False):
     return (out, att) if iters else out
 
 
-def _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False):
-    """csrc/keyed_rng.cu: one launch, float32 out, on sweep's device."""
+def _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, rows=None):
+    """csrc/keyed_rng.cu: one launch, float32 out, on sweep's device. rows =
+    (count, slot): the split-batched entry point, count * n draws."""
+    count = 1 if rows is None else rows[0]
     _cuda.require(sweep.is_cuda and sweep.dtype == torch.int64 and sweep.numel() == 1,
                   "keyed_rng: the sweep counter must be one int64 on a CUDA device")
     _cuda.require(dtype == torch.float32, f"keyed_rng: the kernel draws float32, not {dtype}")
     _cuda.require(len(tail) <= MAX_TAIL, f"keyed_rng: a site tail of at most {MAX_TAIL} values")
-    _cuda.require(n >= 1, "keyed_rng: at least one draw")
+    _cuda.require(n >= 1 and count >= 1, "keyed_rng: at least one draw")
+    _cuda.require(rows is None or 0 <= rows[1] < len(tail),
+                  "keyed_rng: a split draw's row slot must lie in the tail")
     if kind == GAMMA:
         _cuda.require(alpha.is_cuda and alpha.device == sweep.device and alpha.dtype == torch.float32
-                      and alpha.is_contiguous() and alpha.numel() == n,
-                      "keyed_rng: alpha must be n contiguous float32 on the counter's device")
-    out = torch.empty(n, dtype=torch.float32, device=sweep.device)
-    att = torch.empty(n, dtype=torch.int32, device=sweep.device) if iters and kind == GAMMA else None
+                      and alpha.is_contiguous() and alpha.numel() == count * n,
+                      "keyed_rng: alpha must be rows x n contiguous float32 on the counter's device")
+    out = torch.empty(count * n, dtype=torch.float32, device=sweep.device)
+    att = (torch.empty(count * n, dtype=torch.int32, device=sweep.device)
+           if iters and kind == GAMMA else None)
     words = (ctypes.c_ulonglong * MAX_TAIL)(*(v & _MASK64 for v in tail))
-    err = _cuda.lib().ngt_keyed_rng(
-        sweep.data_ptr(), h0, words, len(tail), kind, alpha.data_ptr() if kind == GAMMA else None,
-        out.data_ptr(), None if att is None else att.data_ptr(), n, _cuda.stream_of(sweep))
+    args = (alpha.data_ptr() if kind == GAMMA else None, out.data_ptr(),
+            None if att is None else att.data_ptr(), n, _cuda.stream_of(sweep))
+    if rows is None:
+        err = _cuda.lib().ngt_keyed_rng(sweep.data_ptr(), h0, words, len(tail), kind, *args)
+    else:
+        err = _cuda.lib().ngt_keyed_rng_rows(sweep.data_ptr(), h0, words, len(tail), rows[1],
+                                             count, kind, *args)
     _cuda.check(err, "keyed_rng")
     _cuda.LAUNCHES["keyed_rng"] += 1
     return (out, att) if iters else out
 
 
-def keyed_draw(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False):
-    """n keyed draws: the kernel for a counter on the card (float32; it
-    raises on what it does not take), the plain version on the CPU."""
+def keyed_draw(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, rows=None):
+    """n keyed draws (count * n for a split draw, rows = (count, slot)): the
+    kernel for a counter on the card (float32; it raises on what it does not
+    take), the plain version on the CPU."""
     if sweep.is_cuda:
-        return _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha, iters)
-    return keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha, iters)
+        return _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha, iters, rows)
+    return keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha, iters, rows)
+
+
+def split_tail(site: Site, n: int, then=()):
+    """(tail, slot) of a split draw: site_tail of split_site(site, n, r,
+    then) with r at index slot (0 there; the draw sets each row's)."""
+    head = site_tail(site)
+    return head + (n, 0) + tuple(x for ni in then for x in ni), len(head) + 1
 
 
 class KeyedStream:
@@ -274,7 +330,8 @@ class KeyedStream:
     the card one launch per draw (csrc/keyed_rng.cu, float32) gives the
     uniforms' bits and runs Box-Muller in float32, a few ulp from the plain
     version's normals (and so from its gammas, whose acceptance it runs in
-    float64)."""
+    float64). A split draw (normal_split, gamma_split) is one launch for all
+    its rows, each row's key folded on the card."""
 
     capturable = True
 
@@ -284,11 +341,14 @@ class KeyedStream:
         self.dtype = dtype
         self.h0 = _splitmix64(self.seed & _MASK64)
 
-    def _draw(self, kind, site, n, dtype, alpha=None):
+    def _draw(self, kind, site, n, dtype, alpha=None, split=None, then=()):
         sweep = site.counter
         if sweep is None:
             sweep = torch.tensor(site.sweep, dtype=torch.int64, device=self.device)
-        return keyed_draw(kind, self.h0, sweep, site_tail(site), n, dtype, alpha)
+        if split is None:
+            return keyed_draw(kind, self.h0, sweep, site_tail(site), n, dtype, alpha)
+        tail, slot = split_tail(site, split, then)
+        return keyed_draw(kind, self.h0, sweep, tail, n, dtype, alpha, rows=(split, slot))
 
     def normal(self, site, shape):
         shape = tuple(shape)
@@ -301,3 +361,15 @@ class KeyedStream:
     def gamma(self, site, alpha):
         a = alpha.contiguous()
         return self._draw(GAMMA, site, a.numel(), a.dtype, a).view(a.shape)
+
+    def normal_split(self, site, n, shape, then=()):
+        """All n rows in one draw (one launch on the card)."""
+        shape = tuple(shape)
+        return self._draw(NORMAL, site, math.prod(shape), self.dtype, split=n,
+                          then=then).view((n,) + shape)
+
+    def gamma_split(self, site, n, alpha, then=()):
+        """alpha (n, ...): all n rows in one draw (one launch on the card)."""
+        a = alpha.contiguous()
+        return self._draw(GAMMA, site, a[0].numel(), a.dtype, a.view(-1), split=n,
+                          then=then).view(a.shape)

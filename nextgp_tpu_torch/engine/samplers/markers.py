@@ -1,12 +1,13 @@
 """Blocked single-site Gibbs for marker effects: BayesPR, BayesB, BayesC,
 BayesR, BayesRCpi, BayesRCplus and BayesLV, with a plain or a weighted ("D")
 residual (sampleBayesPR!/B!/C!/R!/RCpi!/RCplus!/LV!, NextGP.jl
-functions.jl:118-486).
+functions.jl:118-486), and correlated marker sets (functions.jl:140-154).
 
 Counterpart of `nextgp_tpu/engine/samplers/markers.py` (`_blocked_sweep`,
 `_gauss_effect_sweep`, `_sweep_pr`, `_sweep_bc`, `_sweep_r`, `_sweep_rcpi`,
-`_sweep_rcplus`, `_sweep_lv`, `sample_marker_set`) for packed storage and
-the one (T, V, B, q) layout.
+`_sweep_rcplus`, `_sweep_lv`, `sample_marker_set`,
+`sample_corr_marker_set`) for packed storage and the one (T, V, B, q)
+layout.
 Each block-step t touches the residual through the packed passes of
 ops/pack2.py:
 
@@ -31,11 +32,14 @@ from __future__ import annotations
 
 import torch
 
-from ...ops import gibbs_kernels, pack2
-from ...ops.dists import sample_beta_dist, sample_chi2, sample_dirichlet
+from ...ops import corr_scan, gibbs_kernels, pack2
+from ...ops.dists import (
+    sample_beta_dist, sample_chi2, sample_dirichlet, sample_inv_wishart_split,
+)
 from ...utils import replace
 from ..plan import (
-    METHOD_B, METHOD_C, METHOD_LV, METHOD_PR, METHOD_R, METHOD_RCPI, METHOD_RCPLUS, MarkerPlan,
+    METHOD_B, METHOD_C, METHOD_LV, METHOD_PR, METHOD_R, METHOD_RCPI, METHOD_RCPLUS, CorrMarkerPlan,
+    MarkerPlan,
 )
 
 
@@ -371,6 +375,54 @@ def _sweep_lv(stream, site, ms, mp: MarkerPlan, ycorr, var_e, d_inv):
         var_zeta = mp.est_var_zeta * var_of(log_var)
     return replace(ms, beta=bi, var_beta=var_beta, log_var=log_var, lv_c=c, lv_resid=resid,
                    var_zeta=var_zeta), ycorr
+
+
+# ------------------------------------------------------------------ correlated marker sets
+
+
+def sample_corr_marker_set(stream, site, cs, cp: CorrMarkerPlan, ycorr, var_e):
+    """Correlated marker sets, BayesPR semantics (functions.jl:140-154): a
+    per-locus MvNormal across the nT sets and a per-region inverse-Wishart
+    covariance (sampleVarCovBetaPR, functions.jl:513-516). No weighting and
+    no summary statistics, as in the reference. A block-step is K1 over its
+    V * B * nT rows (one per locus and set), CM1 on the V chains, and K2 on
+    the same rows; the per-locus rule of every locus comes first
+    (ops/corr_scan.corr_block_pack). The region sums are fixed-order
+    gathers, and every region's inverse-Wishart is one split-batched draw
+    of normals and one of gammas. Returns (state, ycorr)."""
+    n_t = cp.n_t
+    kz, kv = site.split(2)
+    z = stream.normal(kz, (cp.p_pad, n_t))
+    ive = 1.0 / var_e
+    ivr = torch.linalg.inv_ex(cs.var_beta, check_errors=False)[0]  # (n_regions, nT, nT)
+    ivb = ivr[torch.clamp(cs.region_id, 0, cp.n_regions - 1).long()]
+    pk = corr_scan.corr_block_pack(cs.beta, z, ivb, cs.mpm.reshape(-1, n_t, n_t),
+                                   cs.mask.reshape(-1), ive)
+
+    T, V, B, _, q = cs.mt.shape
+    n = ycorr.shape[0]
+    y = _padded(ycorr, 4 * q)
+    mt_rows = cs.mt.view(T * V * B * n_t, q)
+    pk_g = pk.view(V, T, B, -1)  # global block g = v*T + t
+    beta = torch.empty((V, T, B, n_t), dtype=ycorr.dtype, device=ycorr.device)
+    for t in range(T):
+        cb = cs.center[t]  # (V, B, nT)
+        pk_t = pk_g[:, t].clone()
+        r0 = pack2.matvec_step(mt_rows, t, pack2.y_planar(y), V * B * n_t).view(V, B, n_t)
+        pk_t[..., :n_t] += r0 - cb * y.sum()
+        beta_t, u = corr_scan.corr_block_scan_v((cs.gram, t), pk_t, n_t)
+        corr = pack2.rank_update_step(mt_rows, t, u.reshape(-1)).reshape(-1) - (u * cb).sum()
+        y[:n] += corr[:n]  # the padded entries stay zero
+        beta[:, t] = beta_t
+    beta = beta.reshape(cp.p_pad, n_t)
+
+    # per-region InverseWishart (functions.jl:152, :513-516)
+    outer = (beta[:cp.p, :, None] * beta[:cp.p, None, :]).reshape(cp.p, -1)
+    sb = torch.cat([outer, outer.new_zeros((1, n_t * n_t))])[cp.region_rows].sum(dim=1)
+    s_full = cs.scale + sb.view(cp.n_regions, n_t, n_t)
+    s_full = (s_full + s_full.transpose(-1, -2)) / 2.0
+    var_beta = sample_inv_wishart_split(stream, kv, cp.df + cp.region_len.to(beta.dtype), s_full)
+    return replace(cs, beta=beta, var_beta=var_beta.to(cs.var_beta.dtype)), y[:n]
 
 
 # ------------------------------------------------------------------ dispatch

@@ -1,14 +1,15 @@
-"""Uncorrelated random-effect Gibbs stages (sampleZ!/sampleU, NextGP.jl
-functions.jl:57-72) with their variance draw (sampleVarU, functions.jl:
-498-501).
+"""Random-effect Gibbs stages (sampleZ!/sampleU, NextGP.jl functions.jl:
+57-110) with their variance draws (sampleVarU / sampleCoVarU, functions.jl:
+498-506).
 
-Counterparts of `sample_random_uni` and `sample_random_cg` in
-`nextgp_tpu/engine/samplers/random_effects.py`. The per-level scan is a
-Gauss-Seidel pass against the dense inverse structure (A^-1, G^-1 or I)
-through RE1 (ops/random_scan.py); the CG sampler draws u jointly by
-perturbed conjugate gradient over a level index and padded sparse rows.
-The whole-matrix products around the scan (Z u, Z' ycorr, u' K u) are
-torch.matmul in full float32. The CG sampler's segment sums (Z' v and the
+Counterparts of `sample_random_uni`, `sample_random_cg` and
+`sample_random_corr` in `nextgp_tpu/engine/samplers/random_effects.py`. The
+per-level scan is a Gauss-Seidel pass against the dense inverse structure
+(A^-1, G^-1 or I) through RE1 (ops/random_scan.py), and for a correlated
+group through RE2 with an inverse-Wishart covariance; the CG sampler draws
+u jointly by perturbed conjugate gradient over a level index and padded
+sparse rows. The whole-matrix products around the scans (Z u, Z' ycorr,
+u' K u) are torch.matmul in full float32. The CG sampler's segment sums (Z' v and the
 Henderson factor's (I - P)' x) are padded gathers over the plan's static
 level->records and parent->children tables, summed in a fixed order: no
 float atomics and no host sync.
@@ -18,8 +19,8 @@ from __future__ import annotations
 import torch
 
 from ...ops.cg import cg_solve
-from ...ops.dists import sample_scaled_inv_chi2
-from ...ops.random_scan import level_scan
+from ...ops.dists import sample_inv_wishart, sample_scaled_inv_chi2
+from ...ops.random_scan import corr_level_scan, level_scan
 from ...utils import full_f32
 
 
@@ -38,6 +39,29 @@ def sample_random_uni(stream, site, rs, ycorr, var_e, df):
         ycorr = ycorr - rs.z @ u
         ss = u @ rs.ivstr @ u
     var_u = sample_scaled_inv_chi2(stream, kv, df, rs.scale, ss, float(q))  # functions.jl:498-501
+    return u, var_u, ycorr
+
+
+def sample_random_corr(stream, site, rs, ycorr, var_e, df):
+    """A correlated group (tuple key): per-level MvNormal with Kronecker
+    structure (functions.jl:75-110), by the correlated level scan (RE2).
+    The covariance is drawn before the effects are taken out of ycorr, as
+    in the reference (functions.jl:105-106). Returns (u, var_u, ycorr)."""
+    n_t, q = rs.u.shape
+    kz, kv = site.split(2)
+    z = stream.normal(kz, (q, n_t))
+
+    def zu(u):  # sum_t Z_t u_t, one batched matrix-vector product over zs (nT, n, q)
+        return torch.matmul(rs.zs, u[..., None]).sum(dim=0)[:, 0]
+
+    with full_f32():
+        ycorr = ycorr + zu(rs.u)  # restore every component
+        yi = torch.matmul(ycorr, rs.zs)  # (nT, q): per-level Z_l' ycorr
+        ivu = torch.linalg.inv_ex(rs.var_u, check_errors=False)[0]
+        u = corr_level_scan(rs.ivstr, yi, rs.zpz, z, rs.u, var_e, ivu)
+        ss = u @ rs.ivstr @ u.T + rs.scale
+        var_u = sample_inv_wishart(stream, kv, df + q, (ss + ss.T) / 2.0)
+        ycorr = ycorr - zu(u)
     return u, var_u, ycorr
 
 

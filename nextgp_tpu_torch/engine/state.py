@@ -2,8 +2,9 @@
 
 Counterparts of the pytrees in `nextgp_tpu/engine/state.py`, with the same
 field names, for the terms the port carries: residual (plain or weighted),
-fixed blocks, uncorrelated random effects (dense for the per-level scan,
-sparse for the CG sampler) and marker sets of all seven methods. A sweep returns a new state
+fixed blocks, random effects (dense for the per-level scan, sparse for the
+CG sampler, and correlated groups), marker sets of all seven methods and
+correlated marker sets. A sweep returns a new state
 (`utils.replace`). A field that the JAX state leaves None for a model is
 None here too.
 
@@ -15,6 +16,17 @@ T = n_blocks / V block-steps and global block g = v*T + t:
     gram_raw (T, B, V, B) unweighted Gram blocks, weighted models only
 The JAX package stores V=1 as (nb, B, q) / (nb, B) / (nb, B, B); those are
 the same bytes, and `state_from_numpy` reshapes them.
+
+Correlated marker sets (nT sets of one panel's loci) keep one row per
+(locus, set), so that a block-step's V * B * nT rows are one contiguous
+step of the packed passes, and the Gram in the layout the correlated
+block scan (CM1) reads:
+    mt       (T, V, B, nT, q) uint8
+    center   (T, V, B, nT)
+    gram     (T, B, nT, V, B, nT): gram[t, j, u, v, k, w] = <Mc[j, u], Mc[k, w]>
+             of global block g = v*T + t
+The JAX package's (nb, B, nT, q), (nb, B, nT) and (nb, B, B, nT, nT) in
+global block order are laid out so by `state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -67,6 +79,20 @@ class SparseRandomState:
 
 
 @dataclasses.dataclass(frozen=True)
+class CorrRandomState:
+    """A correlated random group (NextGP.jl's tuple key, mme.jl:207-239;
+    samplers functions.jl:75-110): nT effects per level with a joint
+    (nT, nT) covariance."""
+
+    zs: torch.Tensor  # (nT, n, q) stacked component incidences
+    zpz: torch.Tensor  # (q, nT, nT) per-level cross-products
+    ivstr: torch.Tensor  # (q, q) inverse structure
+    u: torch.Tensor  # (nT, q)
+    var_u: torch.Tensor  # (nT, nT)
+    scale: torch.Tensor  # (nT, nT)
+
+
+@dataclasses.dataclass(frozen=True)
 class MarkerState:
     """One marker set. B = block size, nb = n_blocks."""
 
@@ -102,6 +128,24 @@ class MarkerState:
 
 
 @dataclasses.dataclass(frozen=True)
+class CorrMarkerState:
+    """Correlated marker sets, NextGP.jl's tuple key (M1, M2) (mme.jl:
+    448-489; sampler functions.jl:140-154): per locus the nT sets' columns,
+    with (nT, nT) cross-Gram blocks so that the in-block scan stays exact.
+    Layouts in the module docstring."""
+
+    mt: torch.Tensor  # (T, V, B, nT, q) uint8, 2-bit planar-packed
+    center: torch.Tensor  # (T, V, B, nT)
+    gram: torch.Tensor  # (T, B, nT, V, B, nT) centered cross-Grams
+    mpm: torch.Tensor  # (nb, B, nT, nT) per-locus M_l' M_l, global block order
+    mask: torch.Tensor  # (nb, B) bool
+    region_id: torch.Tensor  # (p_pad,) int32; padded loci -> n_regions
+    beta: torch.Tensor  # (p_pad, nT)
+    var_beta: torch.Tensor  # (n_regions, nT, nT)
+    scale: torch.Tensor  # (nT, nT)
+
+
+@dataclasses.dataclass(frozen=True)
 class ResidualState:
     scale: torch.Tensor  # ()
     d_inv: Optional[torch.Tensor]  # (n,) 1/weights of a weighted residual, else None
@@ -114,9 +158,10 @@ class ModelState:
     ycorr: torch.Tensor  # (n,) raw residual y - Xb - Mc beta, weighted or not
     e: ResidualState
     fixed: Tuple[FixedState, ...]
-    random: Tuple[Union[RandomState, SparseRandomState], ...]
+    random: Tuple[Union[RandomState, SparseRandomState, CorrRandomState], ...]
     markers: Tuple[MarkerState, ...]
     sweep_index: int  # host counter; names the draw sites of the next sweep
+    corr_markers: Tuple[CorrMarkerState, ...]
     # the same number as a 0-d int64 tensor on the state's device: the sweep
     # a KeyedStream keys its draws on, on the card inside a captured sweep
     sweep_counter: torch.Tensor
@@ -147,17 +192,18 @@ def _none_fields(plan):
 def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
     """Build a ModelState on plan.device from numpy arrays keyed by the JAX
     field paths ("ycorr", "e.var_e", "fixed.0.b", "random.0.u",
-    "markers.0.gram", ..., "sweep_index"), for instance a flattened JAX
-    ModelState. Every field
+    "markers.0.gram", "corr_markers.0.gram", ..., "sweep_index"), for
+    instance a flattened JAX ModelState. Every field
     must be given and no other, except that a field the plan leaves None
     (gram_raw and e.d_inv unweighted, log_pi/pi_hat/v_class for BayesPR and
     BayesLV, the annotation and log-variance fields of the other methods)
     must be absent; float fields take plan.dtype, and marker storage is
-    reshaped to the port's layout."""
+    laid out as the port keeps it (the module docstring)."""
     used = set()
     none = _none_fields(plan)
 
     def get(key, dtype=None, shape=None):
+        """shape: a shape to reshape to, or a function of the tensor."""
         if key in none:
             return None
         if key not in arrays:
@@ -165,6 +211,8 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
         used.add(key)
         t = torch.tensor(np.asarray(arrays[key]))  # a copy: the arrays may be read-only
         t = t.to(device=plan.device, dtype=dtype or plan.dtype)
+        if callable(shape):
+            return shape(t).contiguous()
         return t.reshape(shape) if shape is not None else t
 
     def fields(cls, prefix, shapes=None):
@@ -181,16 +229,31 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
         markers.append(fields(MarkerState, f"markers.{i}.", {
             "mt": (T, V, B, q), "center": (T, V, B), "gram": (T, B, V, B),
             "gram_raw": (T, B, V, B)}))
+    corr = []
+    for i, cp in enumerate(plan.corr_markers):
+        V, B, nT = cp.vshards, cp.block, cp.n_t
+        T = cp.n_blocks // V
+
+        def tv(t, V=V, T=T):  # (nb, ...) in global block order g = v*T + t -> (T, V, ...)
+            return t.reshape((V, T) + t.shape[1:]).transpose(0, 1)
+
+        def gram(t, V=V, T=T, B=B, nT=nT):  # (nb, B, B, nT, nT) -> (T, B, nT, V, B, nT)
+            return t.reshape(V, T, B, B, nT, nT).permute(1, 2, 4, 0, 3, 5)
+
+        corr.append(fields(CorrMarkerState, f"corr_markers.{i}.",
+                           {"mt": tv, "center": tv, "gram": gram}))
+    rand_cls = {"cg": SparseRandomState, "scan": RandomState}
     sweep_index = int(get("sweep_index", torch.int64))
     state = ModelState(
         y=get("y"),
         ycorr=get("ycorr"),
         e=fields(ResidualState, "e."),
         fixed=tuple(fields(FixedState, f"fixed.{i}.") for i in range(len(plan.fixed))),
-        random=tuple(fields(SparseRandomState if rp.sampler == "cg" else RandomState,
+        random=tuple(fields(CorrRandomState if rp.correlated else rand_cls[rp.sampler],
                             f"random.{i}.") for i, rp in enumerate(plan.random)),
         markers=tuple(markers),
         sweep_index=sweep_index,
+        corr_markers=tuple(corr),
         sweep_counter=torch.tensor(sweep_index, dtype=torch.int64, device=plan.device),
     )
     extra = set(arrays) - used

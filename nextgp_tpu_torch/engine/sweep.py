@@ -2,11 +2,13 @@
 
 Stage order as in `nextgp_tpu/engine/sweep.py` (and NextGP.jl's
 runSampler!, samplers.jl:29-53): residual variance -> fixed-effect blocks
--> random effects (with their variances) -> marker sets. PyTorch runs
+-> random effects (with their variances) -> marker sets -> correlated
+marker sets. PyTorch runs
 eagerly: a sweep launches its kernels on the current CUDA stream without
 waiting for them, except that a CG random term reads its stopping rule on
 the host each iteration. The stages carry the JAX package's scope names
-(`gibbs.var_e`, `gibbs.fixed.<i>`, `gibbs.random.<i>`, `gibbs.marker.<set>`)
+(`gibbs.var_e`, `gibbs.fixed.<i>`, `gibbs.random.<i>`, `gibbs.marker.<set>`,
+`gibbs.corr_marker`)
 as `torch.profiler.record_function` scopes, so a trace (`diag.trace`)
 attributes host and device time to them.
 
@@ -36,8 +38,8 @@ from .plan import (
 )
 from .rng import STAGE_FIXED, STAGE_MARKER, STAGE_RANDOM, STAGE_VAR_E, Site
 from .samplers.fixed import sample_fixed_block
-from .samplers.markers import sample_marker_set
-from .samplers.random_effects import sample_random_cg, sample_random_uni
+from .samplers.markers import sample_corr_marker_set, sample_marker_set
+from .samplers.random_effects import sample_random_cg, sample_random_corr, sample_random_uni
 from .samplers.residual import sample_var_e
 from .state import ModelState
 
@@ -68,7 +70,9 @@ def make_sweep(plan: SweepPlan):
         for i, (rs, rp) in enumerate(zip(state.random, plan.random)):
             site = Site(s, STAGE_RANDOM, i, counter=c)
             with record_function(f"gibbs.random.{i}"):
-                if rp.sampler == "cg":
+                if rp.correlated:
+                    u, var_u, ycorr = sample_random_corr(stream, site, rs, ycorr, var_e, rp.df)
+                elif rp.sampler == "cg":
                     u, var_u, ycorr, sweep.cg_iterations[i] = sample_random_cg(
                         stream, site, rs, ycorr, var_e, rp.df, rp, d_inv=state.e.d_inv)
                 else:
@@ -82,9 +86,16 @@ def make_sweep(plan: SweepPlan):
                                               ycorr, var_e, state.e.d_inv)
             markers.append(ms)
 
+        corr_markers = []
+        for i, (cs, cp) in enumerate(zip(state.corr_markers, plan.corr_markers)):
+            site = Site(s, STAGE_MARKER, len(plan.markers) + i, counter=c)
+            with record_function("gibbs.corr_marker"):
+                cs, ycorr = sample_corr_marker_set(stream, site, cs, cp, ycorr, var_e)
+            corr_markers.append(cs)
+
         return replace(state, ycorr=ycorr, e=replace(state.e, var_e=var_e), fixed=tuple(fixed),
                        random=tuple(random), markers=tuple(markers), sweep_index=s + 1,
-                       sweep_counter=c + 1)
+                       corr_markers=tuple(corr_markers), sweep_counter=c + 1)
 
     sweep.cg_iterations = {}
     return sweep
@@ -96,7 +107,9 @@ def collect_sample(state: ModelState, plan: SweepPlan) -> Dict[str, Any]:
     group's names joined by "_"), and beta/delta/var per marker set, with
     the per-locus variances cut to p (BayesB, BayesLV), pi where the method
     has one (BayesB/C/R; flattened (A, K) for BayesRCpi/RCplus, with the
-    annotation categories), and c and varZeta for BayesLV."""
+    annotation categories), and c and varZeta for BayesLV; per correlated
+    marker set, beta of each set and var (names joined by "_") as
+    (n_regions, nT^2)."""
     out: Dict[str, Any] = {"varE": state.e.var_e}
     if state.fixed:
         out["b"] = torch.cat([fs.b for fs in state.fixed])
@@ -116,6 +129,10 @@ def collect_sample(state: ModelState, plan: SweepPlan) -> Dict[str, Any]:
         if mp.method == METHOD_LV:
             out[f"c{mp.name}"] = ms.lv_c
             out[f"varZeta{mp.name}"] = ms.var_zeta
+    for cs, cp in zip(state.corr_markers, plan.corr_markers):
+        for t, nm in enumerate(cp.names):
+            out[f"beta{nm}"] = cs.beta[: cp.p, t]
+        out[f"var{'_'.join(cp.names)}"] = cs.var_beta.reshape(cp.n_regions, -1)
     return out
 
 

@@ -1,4 +1,5 @@
-"""The level scan of an uncorrelated random effect (RE1, csrc/level_scan.cu).
+"""The level scans of the random effects: RE1, an uncorrelated effect's, and
+RE2, a correlated group's (both csrc/level_scan.cu).
 
 Counterpart of the `lax.scan` over levels in the JAX package's
 `sample_random_uni` (nextgp_tpu/engine/samplers/random_effects.py:29-37;
@@ -17,6 +18,15 @@ order with right-looking in-group sums.
 system (a Gauss-Seidel pass with fixed coefficients is one), which
 `torch.linalg.solve_triangular` solves in one call: a yardstick on the card
 and on no sweep path.
+
+RE2 (`corr_level_scan`) is the counterpart of the `lax.scan` over levels in
+the JAX package's `sample_random_corr` (random_effects.py:120-133;
+NextGP.jl's tuple sampleU, functions.jl:75-88), nT effects per level. What
+does not depend on u, the per-level rule (m_i, W_i) with u[:, i] = m_i -
+W_i s_i, is computed for every level at once by `corr_level_rule` (batched
+torch.linalg calls on the card, without host checks), so that the chain
+carries an nT x nT matvec a level; the kernel then runs RE1's design with
+nT channels (csrc/level_scan.cu, `re2`). It replaces no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -104,3 +114,93 @@ def level_scan(ivstr, yi, zpz, z, u, ive, ivu):
     if u.is_cuda:
         return level_scan_kernel(ivstr, yi, zpz, z, u, ive, ivu)
     return level_scan_plain(ivstr, yi, zpz, z, u, ive, ivu)
+
+
+# ------------------------------------------------------------------ RE2
+
+
+def corr_level_rule(ivstr, yi, zpz, z, var_e, ivu):
+    """The per-level rule of the correlated level scan, for every level at
+    once: cov_i = sym(inv(zpz_i / varE + A[i, i] iVarU)),
+    m_i = cov_i yi[:, i] / varE + chol(cov_i) z_i and W_i = cov_i iVarU, so
+    that u[:, i] = m_i - W_i s_i (s_i = sum_{k != i} A[i, k] u[:, k]).
+    yi (nT, q), zpz (q, nT, nT), z (q, nT), ivu (nT, nT) -> m (q, nT),
+    W (q, nT, nT). A non-positive-definite level gives NaN, with no host
+    check (a captured sweep cannot sync)."""
+    lhs = zpz / var_e + torch.diagonal(ivstr)[:, None, None] * ivu
+    cov = torch.linalg.inv_ex(lhs, check_errors=False)[0]
+    cov = (cov + cov.transpose(-1, -2)) / 2.0
+    chol = torch.linalg.cholesky_ex(cov, check_errors=False)[0]
+    m = (cov @ (yi.T / var_e)[..., None] + chol @ z[..., None])[..., 0]
+    return m, cov @ ivu
+
+
+def corr_level_scan_plain(ivstr, yi, zpz, z, u, var_e, ivu):
+    """The correlated level scan: the loop of the JAX package's
+    sample_random_corr in the rule's form. For each level i in order, with
+    the levels before i at their new values and those after at their old:
+    s = sum_{k != i} ivstr[i, k] u[:, k], u[:, i] = m_i - W_i s.
+    u (nT, q) -> the new u (nT, q)."""
+    m, W = corr_level_rule(ivstr, yi, zpz, z, var_e, ivu)
+    up = u @ torch.triu(ivstr, diagonal=1).T  # the levels after i, at their old values
+    u = u.clone()
+    for i in range(u.shape[1]):
+        s = up[:, i] + u[:, :i] @ ivstr[i, :i]
+        u[:, i] = m[i] - W[i] @ s
+    return u
+
+
+def corr_level_scan_kernel(ivstr, yi, zpz, z, u, var_e, ivu):
+    """RE2 on the card: the rule batched on the card, then one call (two
+    launches for nT <= 4, RE1's prep and cooperative look-ahead launch; the
+    generic form 2 ceil(q / 1024) above); the new u (nT, q)."""
+    n_t, q = u.shape
+    ins = (ivstr, yi, zpz, z, u, var_e, ivu)
+    _cuda.require(all(t.is_cuda and t.dtype == torch.float32 for t in ins),
+                  "corr_level_scan: every input must be float32 on a CUDA device")
+    _cuda.require(len({t.device for t in ins}) == 1, "corr_level_scan: every input must be on one device")
+    _cuda.require(ivstr.shape == (q, q) and ivstr.is_contiguous() and q >= 1,
+                  f"corr_level_scan: ivstr must be a contiguous ({q}, {q}) matrix")
+    _cuda.require(yi.shape == (n_t, q) and zpz.shape == (q, n_t, n_t) and z.shape == (q, n_t)
+                  and ivu.shape == (n_t, n_t) and var_e.numel() == 1,
+                  "corr_level_scan: yi (nT, q), zpz (q, nT, nT), z (q, nT), ivu (nT, nT), var_e a scalar")
+    m, W = corr_level_rule(ivstr, yi, zpz, z, var_e, ivu)
+    k = n_t + n_t * n_t
+    rule = torch.zeros((-(-q // GROUP) * GROUP, k), dtype=torch.float32, device=u.device)
+    rule[:q, :n_t] = m
+    rule[:q, n_t:] = W.reshape(q, -1)
+    u_old = u.contiguous()
+    out = torch.empty_like(u_old)
+    lib = _cuda.lib()
+    scratch = torch.empty(lib.ngt_corr_level_scan_scratch_words(q, n_t), dtype=torch.float32,
+                          device=u.device)
+    err = lib.ngt_corr_level_scan(ivstr.data_ptr(), q, n_t, rule.data_ptr(), u_old.data_ptr(),
+                                  out.data_ptr(), scratch.data_ptr(), _cuda.stream_of(u))
+    _cuda.check(err, "corr_level_scan")
+    _cuda.LAUNCHES["corr_level_scan"] += 1
+    return out
+
+
+def corr_level_scan(ivstr, yi, zpz, z, u, var_e, ivu):
+    """The new u (nT, q) of one correlated level scan: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if u.is_cuda:
+        return corr_level_scan_kernel(ivstr, yi, zpz, z, u, var_e, ivu)
+    return corr_level_scan_plain(ivstr, yi, zpz, z, u, var_e, ivu)
+
+
+def corr_level_scan_system(ivstr, yi, zpz, z, u, var_e, ivu):
+    """The correlated level scan as one unit lower-triangular system of
+    q nT unknowns (level-major): u_i + W_i sum_{k<i} A[i, k] u_k =
+    m_i - W_i sum_{k>i} A[i, k] u_old_k, which torch.linalg.solve_triangular
+    solves in one call (a yardstick on the card, on no sweep path). Returns
+    (matrix, rhs (q nT, 1)); the solution reshaped (q, nT) and transposed is
+    the new u."""
+    n_t, q = u.shape
+    m, W = corr_level_rule(ivstr, yi, zpz, z, var_e, ivu)
+    low = torch.tril(ivstr, diagonal=-1)
+    mat = (W[:, :, None, :] * low[:, None, :, None]).reshape(q * n_t, q * n_t)
+    mat.diagonal().add_(1.0)
+    up = u @ torch.triu(ivstr, diagonal=1).T  # (nT, q)
+    rhs = m - (W @ up.T[..., None])[..., 0]
+    return mat, rhs.reshape(-1, 1)

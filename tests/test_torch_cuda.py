@@ -32,7 +32,13 @@ either side of a group and of the look-ahead, owners of two row blocks, q
 not a multiple of 4, the same bits from two launches, a captured scan whose
 replays are the next sweeps' scans, its refusals, an animal model replayed with the eager
 chain's bits and following the plain chain, and a CG animal effect in eager
-float64 sweeps (refused by the replayed runners).
+float64 sweeps (refused by the replayed runners); for the correlated terms
+RE2 (one level, either side of a group, three tiles at q = 3,001; nT = 1,
+2, 3 and the generic form at 5), CM1 (B = 16 and 256, V = 1 and 96, nT =
+1, 2 and the generic 5, with padded loci), each the same bits twice, R1's
+split entry point against its plain version and each row against the
+single-site entry point, and both paths replayed with the eager chain's
+bits and following the plain chain.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -1041,3 +1047,178 @@ def test_cg_term_on_the_card(dev):
     plan, st = ngt.assemble(spec, device=dev, vshards=4)
     with pytest.raises(NotImplementedError, match="random term A"):
         ngt.make_scan_sampler(plan, 2, 1)(st, ngt.KeyedStream(1, dev, torch.float32))
+
+
+# ------------------------------------------------------------------ M9: RE2, CM1, split draws
+
+
+def _corr_level_inputs(q, n_t, dev, seed=0):
+    """RE2's inputs: RE1's structure, yi (nT, q), per-level cross-products
+    (q, nT, nT), z (q, nT), an old u (nT, q), varE and iVarU."""
+    ivstr, *_ = _level_inputs(q, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(q, 3, n_t, generator=g, device=dev)
+    zpz = torch.einsum("lkt,lku->ltu", x, x) + 0.1 * torch.eye(n_t, device=dev)
+    yi, u = (torch.randn(n_t, q, generator=g, device=dev) for _ in range(2))
+    z = torch.randn(q, n_t, generator=g, device=dev)
+    m = torch.randn(n_t, n_t, generator=g, device=dev)
+    ivu = torch.linalg.inv(m @ m.T / n_t + torch.eye(n_t, device=dev))
+    return ivstr, yi, zpz.contiguous(), z, u, torch.tensor(1.7, device=dev), ivu
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 5])
+@pytest.mark.parametrize("q", [1, 31, 33, 193, 3001, 25_000])
+def test_corr_level_scan_matches_plain(dev, q, n_t):
+    """RE2 at one level, either side of a group, one past the look-ahead's
+    192 levels, at q = 3,001 (not a multiple of 4) and 25,000 (owners of two
+    row blocks), for nT = 1 .. 3 (the cooperative form) and 5 (the generic
+    form, three and 25 tiles): within 1e-4 of u's scale of the plain
+    version, the same bits from two launches, one count per call."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    args = _corr_level_inputs(q, n_t, dev, q + n_t)
+    before = _cuda.LAUNCHES["corr_level_scan"]
+    out = random_scan.corr_level_scan(*args)
+    ref = random_scan.corr_level_scan_plain(*args)
+    assert out.shape == (n_t, q) and torch.isfinite(out).all()
+    assert _rel(out, ref) < 1e-4
+    assert torch.equal(out, random_scan.corr_level_scan(*args))
+    assert _cuda.LAUNCHES["corr_level_scan"] == before + 2
+
+
+def _corr_block_inputs(V, B, n_t, dev, seed=0, pad=0):
+    """CM1's inputs: a step's (B, nT, V, B, nT) centered cross-Gram from
+    random dosages, and packed rows from corr_block_pack with r0 added; the
+    last `pad` loci of every chain padded."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randint(0, 3, (V, B, n_t, 200), generator=g, device=dev).float()
+    X = X - X.mean(-1, keepdim=True)
+    G = torch.einsum("vjtn,vkwn->jtvkw", X, X).contiguous()
+    mpm = torch.einsum("jtvjw->vjtw", G).reshape(-1, n_t, n_t)
+    bold, z, r0 = (torch.randn(V * B, n_t, generator=g, device=dev) * 0.1 for _ in range(3))
+    m = torch.randn(n_t, n_t, generator=g, device=dev)
+    ivb = torch.linalg.inv(m @ m.T / n_t * 0.01 + 0.01 * torch.eye(n_t, device=dev))
+    mask = (torch.arange(B, device=dev) < B - pad).repeat(V)
+    pk = corr_scan.corr_block_pack(bold, z, ivb.expand(V * B, n_t, n_t), mpm, mask,
+                                   torch.tensor(1 / 1.3, device=dev)).view(V, B, -1).clone()
+    pk[..., :n_t] += r0.view(V, B, n_t) * 20
+    return G, pk
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 5])
+@pytest.mark.parametrize("V,B", [(1, 16), (1, 256), (96, 16), (96, 256)])
+def test_corr_block_scan_matches_plain(dev, V, B, n_t):
+    """CM1 at B in {16, 256}, V in {1, 96}, nT = 1, 2 (register forms) and 5
+    (the generic form), with padded loci: beta and u within 1e-4 of their
+    scale of the plain version, padded loci's beta 0, the same bits from two
+    launches."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    G, pk = _corr_block_inputs(V, B, n_t, dev, V * B + n_t, pad=3)
+    before = _cuda.LAUNCHES["corr_block_scan_v"]
+    beta, u = corr_scan.corr_block_scan_v(G, pk, n_t)
+    rb, ru = corr_scan.corr_block_scan_v_plain(G, pk, n_t)
+    assert torch.isfinite(beta).all() and torch.isfinite(u).all()
+    assert _rel(beta, rb) < 1e-4 and _rel(u, ru) < 1e-4
+    assert (beta[:, B - 3:] == 0).all()
+    b2, u2 = corr_scan.corr_block_scan_v(G, pk, n_t)
+    assert torch.equal(beta, b2) and torch.equal(u, u2)
+    assert _cuda.LAUNCHES["corr_block_scan_v"] == before + 2
+
+
+def test_keyed_split_draw_matches_plain(dev):
+    """R1's split entry point (every region's draws in one launch) against
+    the plain version: uniforms its bits, normals within 1e-6 of scale,
+    gammas within 1e-5 where the accepting attempt agrees; one launch per
+    draw, the same bits twice; and R1's single-site entry point unchanged
+    (each row the single-site draw at that row's site)."""
+    from nextgp_tpu_torch.engine import rng as R
+
+    counter = torch.tensor(5, dtype=torch.int64, device=dev)
+    h0 = R._splitmix64(9)
+    tail, slot = R.split_tail(R.Site(0, 4, 1, ((2, 1),)), 492, ((2, 0),))
+    alpha = torch.tensor(GAMMA_SHAPES, device=dev).repeat(492 * 2)[:492 * 4].contiguous()
+    for kind, n in ((R.UNIFORM, 4), (R.NORMAL, 4), (R.GAMMA, 4)):
+        a = alpha if kind == R.GAMMA else None
+        before = _cuda.LAUNCHES["keyed_rng"]
+        got, att = R.keyed_draw(kind, h0, counter, tail, n, torch.float32, a, iters=True,
+                                rows=(492, slot))
+        assert _cuda.LAUNCHES["keyed_rng"] == before + 1
+        ref, ref_att = R.keyed_draw_plain(kind, h0, counter, tail, n, torch.float32, a, iters=True,
+                                          rows=(492, slot))
+        assert torch.equal(got, R.keyed_draw(kind, h0, counter, tail, n, torch.float32, a,
+                                             rows=(492, slot)))
+        if kind == R.UNIFORM:
+            assert torch.equal(got, ref)
+        elif kind == R.NORMAL:
+            assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+        else:
+            same = att == ref_att
+            assert (att >= 0).all() and 1.0 - same.float().mean().item() <= 1e-3
+            assert (((got - ref).abs() / ref.abs())[same] <= 1e-5).all()
+        for r in (0, 17, 491):
+            t = list(tail)
+            t[slot] = r
+            one = R.keyed_draw(kind, h0, counter, tuple(t), n, torch.float32,
+                               None if a is None else a[r * n:(r + 1) * n].contiguous())
+            assert torch.equal(one, got[r * n:(r + 1) * n])
+
+
+def _corr_specs(n=300, p=256):
+    """An intercept with two correlated marker sets (BayesPR, regions of 32
+    loci), and an intercept with an (intercept, slope) animal group on a
+    pedigree's A^-1."""
+    from nextgp_tpu_torch.data import pedigree as P
+
+    rng = np.random.default_rng(12)
+    g1, g2 = (rng.integers(0, 3, (n, p)) for _ in range(2))
+    y = (g1 - g1.mean(0)) @ rng.normal(0, 0.1, p) + (g2 - g2.mean(0)) @ rng.normal(0, 0.1, p) \
+        + rng.normal(0, 1, n)
+    chr_ids = np.ones(p, int)
+    v = np.array([[0.02, 0.01], [0.01, 0.02]])
+    ms = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], corr_markers=[
+        ngt.CorrMarkerTerm(("M1", "M2"), (ngt.from_array(g1, chr_ids=chr_ids),
+                                          ngt.from_array(g2, chr_ids=chr_ids)),
+                           ngt.BayesPR(32, v))], block_size=32)
+    ids = [f"a{i}" for i in range(n)]
+    ped = ngt.build_pedigree(ids, [None] * 30 + [ids[rng.integers(0, i)] for i in range(30, n)],
+                             [None] * 30 + [ids[rng.integers(0, i)] for i in range(30, n)])
+    z = np.zeros((n, n))
+    z[np.arange(n), ped.index_of(ids)] = 1.0
+    x = rng.normal(size=n)
+    rs = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], random=[
+        ngt.RandomTerm(("A", "S"), (z, z * x[:, None]), prior=ngt.Random("A", np.eye(2) * 0.3),
+                       ivstr=P.a_inverse(ped))])
+    return ms, rs
+
+
+@pytest.mark.parametrize("which,V", [("markers", 1), ("markers", 4), ("random", 1)])
+def test_corr_paths_replayed_equal_eager_and_follow_plain(dev, which, V):
+    """Both M9 paths through make_scan_sampler's graph replays with the
+    eager chain's bits (CM1, K1/K2 and R1's split draws, or RE2, inside the
+    graph); the plain chain on the CPU from the same host draws follows the
+    kernel chain; every drawn covariance is positive definite."""
+    spec = _corr_specs()[0 if which == "markers" else 1]
+    plan, st0 = ngt.assemble(spec, device=dev, vshards=V)
+    stream = ngt.KeyedStream(29, dev, torch.float32)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+    cov = (st.corr_markers[0].var_beta if which == "markers" else st.random[0].var_u[None])
+    assert (torch.linalg.cholesky_ex(cov)[1] == 0).all()
+    chains = []
+    for device in (dev, "cpu"):
+        plan, s = ngt.assemble(spec, device=device, dtype=torch.float32, vshards=V)
+        sw, hs = ngt.make_sweep(plan), HostStream(4, device, torch.float32)
+        for _ in range(3):
+            s = sw(s, hs)
+        chains.append((s.corr_markers[0].beta if which == "markers" else s.random[0].u).cpu())
+    assert _rel(*chains) < 1e-3

@@ -81,22 +81,23 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi",
                                   "BayesRCplus", "BayesLV", "SummaryStatistics", "RandomEffect",
-                                  "Random", "FixedTerm", "RandomTerm", "MarkerTerm", "ModelSpec",
-                                  "MarkerData"])
+                                  "Random", "FixedTerm", "RandomTerm", "MarkerTerm", "CorrMarkerTerm",
+                                  "ModelSpec", "MarkerData"])
 def test_copied_dataclasses_match(name):
     jcls = getattr(j_ingest, name, None) or getattr(ng, name)
     tcls = getattr(t_ingest, name, None) or getattr(ngt, name)
     assert _fields(tcls) == _fields(jcls)
 
 
-@pytest.mark.parametrize("name", ["RandomState", "SparseRandomState", "ModelState", "Pedigree",
-                                  "RandomPlan"])
+@pytest.mark.parametrize("name", ["RandomState", "SparseRandomState", "CorrRandomState",
+                                  "CorrMarkerState", "ModelState", "Pedigree", "RandomPlan",
+                                  "CorrMarkerPlan"])
 def test_state_fields_match(name):
-    """The random effects' state and plan keep the JAX field names, so that
-    state_from_numpy reads a flattened JAX state at the same paths. The
-    port's ModelState adds sweep_counter (the device copy of sweep_index)
-    and has no corr_markers (correlated marker sets, ROADMAP M9); its
-    RandomPlan adds the CG sampler's static tables."""
+    """The random effects' and correlated marker sets' state and plan keep
+    the JAX field names, so that state_from_numpy reads a flattened JAX
+    state at the same paths. The port's ModelState adds sweep_counter (the
+    device copy of sweep_index); its RandomPlan adds the CG sampler's static
+    tables and its CorrMarkerPlan the region sums' tables."""
     from nextgp_tpu.data import pedigree as j_ped
     from nextgp_tpu.engine import plan as j_plan
     from nextgp_tpu.engine import state as j_state
@@ -104,15 +105,16 @@ def test_state_fields_match(name):
     from nextgp_tpu_torch.engine import plan as t_plan
     from nextgp_tpu_torch.engine import state as t_state
 
-    jmod, tmod = {"Pedigree": (j_ped, t_ped), "RandomPlan": (j_plan, t_plan)}.get(
-        name, (j_state, t_state))
+    jmod, tmod = {"Pedigree": (j_ped, t_ped), "RandomPlan": (j_plan, t_plan),
+                  "CorrMarkerPlan": (j_plan, t_plan)}.get(name, (j_state, t_state))
     jnames = [f.name for f in dataclasses.fields(getattr(jmod, name))]
     tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
-    extra = {"ModelState": ["sweep_counter"], "RandomPlan": ["z_rows", "sire_kids", "dam_kids"]}
-    missing = {"ModelState": ["corr_markers"]}
-    assert tnames == [n for n in jnames if n not in missing.get(name, [])] + extra.get(name, [])
-    if name == "RandomPlan":
-        assert _fields(tmod.RandomPlan)[:8] == _fields(jmod.RandomPlan)
+    extra = {"ModelState": ["sweep_counter"], "RandomPlan": ["z_rows", "sire_kids", "dam_kids"],
+             "CorrMarkerPlan": ["region_rows", "region_len"]}
+    assert tnames == jnames + extra.get(name, [])
+    if name in ("RandomPlan", "CorrMarkerPlan"):
+        jf = _fields(getattr(jmod, name))
+        assert _fields(getattr(tmod, name))[:len(jf)] == jf
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -545,12 +545,21 @@ def test_replayed_runners_refuse_a_cg_term():
 
 
 def test_correlated_group_raises():
-    _, ts = _specs("I-scan")
+    """A correlated group is ported (tests/test_torch_corr.py); what the JAX
+    planner refuses for one, the port refuses too: a prior v that is not
+    nT x nT, and the CG sampler."""
+    js, ts = _specs("I-scan")
     z = ts.random[0].z
-    bad = dataclasses.replace(ts, random=[ngt.RandomTerm(("m1", "m2"), (z, z),
-                                                         prior=ngt.Random("I", np.eye(2)))])
-    with pytest.raises(NotImplementedError, match="M9"):
-        ngt.assemble(bad, device="cpu")
+    for v, sampler, match in ((np.eye(3), "scan", "nT x nT prior v"), (0.5, "scan", "nT x nT prior v"),
+                              (np.eye(2), "cg", "correlated groups")):
+        for mod, spec in ((ng, js), (ngt, ts)):
+            bad = dataclasses.replace(spec, random=[mod.RandomTerm(
+                ("m1", "m2"), (z, z), prior=mod.Random("I", v, sampler=sampler))])
+            with pytest.raises(ValueError, match=match):
+                if mod is ng:
+                    ng.assemble(bad, use_pallas=False)
+                else:
+                    ngt.assemble(bad, device="cpu")
 
 
 def test_trace_and_roofline_see_the_random_stage(tmp_path):

@@ -27,17 +27,18 @@ import nextgp_tpu as ng
 import nextgp_tpu_torch as ngt
 from nextgp_tpu.engine import rng as jrng
 from nextgp_tpu.ops import dists as jdists
-from nextgp_tpu_torch.engine.rng import Site
+from nextgp_tpu_torch.engine.rng import Site, SplitByLoop
 from nextgp_tpu_torch.ops import dists as tdists
 
 N, P, BLOCK = 120, 256, 16
 CHAIN_KEY = 9
 
 
-class JaxStream:
+class JaxStream(SplitByLoop):
     """The port's stream seam, answered with the JAX package's keys:
     site (sweep, stage, index, splits) -> stage_key(fold_in(chain, sweep),
-    stage, index), then jax.random.split(key, n)[i] along the path."""
+    stage, index), then jax.random.split(key, n)[i] along the path. Split
+    draws are one draw per row."""
 
     def __init__(self, chain_key, dtype=torch.float64):
         self.chain_key = chain_key
@@ -421,15 +422,21 @@ def test_unsupported_terms_raise():
                                                           ngt.RandomEffect("I", 1.0))])
     with pytest.raises(NotImplementedError, match="M2"):
         ngt.assemble(bad, device="cpu")
+    # a matrix v on a single marker set: the JAX planner takes it and its
+    # sweep raises a TypeError; the port raises the TypeError up front
+    bad_j = dataclasses.replace(js, markers=[ng.MarkerTerm("M3", ng.from_array(g),
+                                                           ng.BayesPR(9999, np.eye(2)))])
+    with pytest.raises(TypeError):
+        ng.run_lmem(bad_j, 1, 0, 1, out_folder=None)
     bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm("M3", ngt.from_array(g),
                                                           ngt.BayesPR(9999, np.eye(2)))])
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="M3.*CorrMarkerTerm"):
         ngt.assemble(bad, device="cpu")
-    # random terms are ported; a correlated group (a tuple name) is M9's
+    # a correlated group by CG raises as in the JAX package
     z = np.eye(N)
     bad = dataclasses.replace(ts, random=[ngt.RandomTerm(("u1", "u2"), (z, z),
-                                                         prior=ngt.Random("I", np.eye(2)))])
-    with pytest.raises(NotImplementedError, match=r"correlated random group \('u1', 'u2'\).*M9"):
+                                                         prior=ngt.Random("I", np.eye(2), sampler="cg"))])
+    with pytest.raises(ValueError, match="correlated groups"):
         ngt.assemble(bad, device="cpu")
     with pytest.raises(NotImplementedError, match="out_folder"):
         ngt.run_lmem(ts, 2, 0, 1, out_folder="outMCMC", device="cpu")

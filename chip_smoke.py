@@ -19,6 +19,7 @@ and check them.
                                  # tree's csrc/, e.g. a `git archive` of the parent
                                  # under _checkout/) in turns P, C, C, P
     python3 chip_smoke.py corr   # phases 1-2 and phase 9 alone
+    python3 chip_smoke.py cg     # phases 1-2 and phase 8.4 alone at 1,000,000 animals
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -111,11 +112,19 @@ Phases (any failed check raises and the script exits non-zero):
      the first 2,048 individuals, at least 0.8), then eager and replayed from
      one KeyedStream with the same bits, steady ms/sweep, device busy and
      idle share; "A-cg", an animal effect by perturbed CG on a simulated
-     100,000-animal pedigree with 60,000 records, eager in float64 (every
-     sweep's CG stopped by its tolerance; drift, finite draws, varU > 0;
-     iterations and ms per sweep), 5 sweeps in float32 (iterations printed:
-     float32 cannot reach the default tolerance of 1e-8) and the replayed
-     run_lmem's refusal of the CG term
+     100,000-animal pedigree with 60,000 records: CG1 (the whole solve in
+     one cooperative launch, csrc/cg_solve.cu) against its plain version at
+     a second sweep's system (the same iterations; x within 1e-6 of its
+     scale at the plan's tolerance of 1e-8 and within 1e-10 solved to
+     1e-12; the same bits twice), its time an iteration beside the plain
+     version's and the parent's eager solve (the generic cg_solve on the
+     long-form matvec); then 20 sweeps in float64 of run_lmem (PhiloxStream,
+     eager; one CG1 launch a sweep), eager and replayed from one KeyedStream
+     (the same bits, each replay's CG iterations the eager sweep's; every
+     sweep stopped by its tolerance; drift, finite draws, varU > 0), steady
+     ms/sweep, device busy and idle share; 5 sweeps in float32 (iterations
+     printed: float32 cannot reach the default tolerance of 1e-8). `cg` runs
+     the same at 1,000,000 animals
   9. the correlated terms (ROADMAP M9): RE2 (the correlated level scan,
      csrc/level_scan.cu) against its plain version at q = 10,000 on phase
      8's A^-1 for nT = 1, 2, 3 (and at q = 1, 31, 33, 193, 3,001 for nT = 1,
@@ -160,8 +169,9 @@ from nextgp_tpu_torch.data import pedigree
 from nextgp_tpu_torch.engine import rng as keyed
 from nextgp_tpu_torch.engine import sweep as engine_sweep
 from nextgp_tpu_torch.engine.rng import HostStream, PhiloxStream
+from nextgp_tpu_torch.engine.samplers import random_effects
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
-from nextgp_tpu_torch.ops import _cuda, corr_scan, gibbs_kernels, pack2, random_scan
+from nextgp_tpu_torch.ops import _cuda, cg, corr_scan, gibbs_kernels, pack2, random_scan
 from nextgp_tpu_torch.ops import micro as mk
 from nextgp_tpu_torch.utils import replace
 
@@ -1790,7 +1800,13 @@ N_CHAIN_RE, N_BURN_RE, N_THIN_RE = 100, 50, 5
 VAR_A = 1.0  # the planted polygenic variance, and the animal effects' prior variance
 GEN_SIZE_A, GENS = 2_000, 5  # the 10,000-animal pedigree over the panel's individuals
 CG_GEN_SIZE, CG_RECORDED_GENS, MAX_PROGENY = 20_000, 3, 50  # the 100,000-animal pedigree
-N_CG_SWEEPS, N_CG_F32 = 20, 5
+N_CG_CHAIN, N_CG_BURN, N_CG_THIN, N_CG_F32 = 20, 10, 5, 5
+CG_GEN_SIZE_1M = 200_000  # `cg`: 1,000,000 animals
+# CG1's x against its plain version's, of x's scale, float64, the same iterations: an
+# iterate CG stops on is up to ~cond * tol from the solution, and two solvers whose sums
+# round in other orders stop on iterates a fraction of that apart, so at the plan's 1e-8
+# x is held to 1e-6 and, solved to 1e-12, to 1e-10
+TOL_CG, TOL_CG_TIGHT, CG_TIGHT = 1e-6, 1e-10, 1e-12
 GBLUP_EBV_LIMIT = 0.8
 TOL_RE1 = 1e-4  # u relative to its scale: float32 sums in the kernel's order and the plain's
 
@@ -2115,20 +2131,202 @@ def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=No
                                           corr_u=c, kernels_per_sweep=per_sweep)
 
 
-def cg_phase():
+def cg_work(rp, iters, dtype):
+    """(bytes, operations) of a CG solve of `iters` iterations: each reads
+    the live entries of K (an int32 index and a value each) and, per row,
+    its live length, diag, p, r and x, and writes x, r and p; a multiply and
+    an add per live entry and ~12 operations a row."""
+    s = torch.finfo(dtype).bits // 8
+    nnz, q = int(rp.iv_len.sum()), rp.q
+    return iters * (nnz * (4 + s) + q * (4 + 7 * s)), iters * (2 * nnz + 12 * q)
+
+
+def parent_cg_solve(rp, rs, ive, ivu, b, x0):
+    """The parent tree's eager solve of the same system: the generic cg_solve
+    (its stopping rule read on the host each iteration) on the long-form
+    matvec sample_random_cg used before CG1: Z' (Z v) by a gather and a
+    padded sum over each level's records, K v over every padded slot."""
+    idx = torch.where(rs.z_idx >= 0, rs.z_idx, rp.q)
+
+    def matvec(v):
+        zv = torch.index_select(torch.cat([v, v.new_zeros(1)]), 0, idx)
+        kv = torch.sum(rs.iv_val * torch.index_select(v, 0, rs.iv_idx.reshape(-1)).view(
+            rs.iv_idx.shape), dim=1)
+        return random_effects._padded_sum(zv, rp.z_rows) * ive + kv * ivu
+
+    return cg.cg_solve(matvec, b, x0=x0, tol=rp.cg_tol, max_iter=rp.cg_iters)
+
+
+def second_sweep_solve(plan, st, stream):
+    """The arguments of the CG solve of the second sweep from st (the
+    sampler's cg_solve_sparse wrapped for two eager sweeps), and the state
+    after it."""
+    calls, orig = [], random_effects.cg_solve_sparse
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    random_effects.cg_solve_sparse = record
+    try:
+        sweep = ngt.make_sweep(plan)
+        st = sweep(sweep(st, stream), stream)
+    finally:
+        random_effects.cg_solve_sparse = orig
+    return calls[-1], st
+
+
+def cg1_check(plan, st, ph, name):
+    """8.4a CG1 against its plain version at a second sweep's inputs: the
+    same iteration count (stopped by the tolerance), x within TOL_CG of its
+    scale, two launches the same bits; solved to CG_TIGHT, the same count
+    and x within TOL_CG_TIGHT; its time (event pairs; the card alone) beside
+    the plain version's and the parent's eager solve of the same system (ms
+    an iteration)."""
+    (args, kw), st2 = second_sweep_solve(plan, st, keyed.KeyedStream(3, DEV, plan.dtype))
+    rp, rs = plan.random[0], st.random[0]
+
+    def kern():
+        return cg.cg_solve_sparse_kernel(*args, **kw)
+
+    x, it, res = kern()
+    x2, it2, res2 = kern()
+    check(torch.equal(x, x2) and torch.equal(it, it2) and torch.equal(res, res2),
+          f"{name}: two launches differ")
+    px, pit, _ = cg.cg_solve_sparse_plain(*args, **kw)
+    iters = int(it)
+    check(iters == int(pit), f"{name}: {iters} iterations, the plain version {int(pit)}")
+    check(0 < iters < rp.cg_iters, f"{name}: ran to its cap ({iters})")
+    err, scale = rel_err(x, px)
+    tight = dict(kw, tol=CG_TIGHT)
+    tx, tit, _ = cg.cg_solve_sparse_kernel(*args, **tight)
+    tpx, tpit, _ = cg.cg_solve_sparse_plain(*args, **tight)
+    terr, tscale = rel_err(tx, tpx)
+    print(f"[{ph}] {name} solved to {CG_TIGHT:g}: {int(tit)} iterations (plain {int(tpit)}), x within "
+          f"{terr:.3e} of the plain version's (scale {tscale:.3e}, tol {TOL_CG_TIGHT:g} x scale)")
+    check(int(tit) == int(tpit) and terr <= TOL_CG_TIGHT * tscale,
+          f"{name}: solved to {CG_TIGHT:g}, disagrees with its plain version")
+    ive = 1.0 / st2.e.var_e
+
+    def parent():
+        return parent_cg_solve(rp, rs, ive, args[4], args[5], args[6])
+
+    ox, oit, _ = parent()
+    ms_k, dev = median_ms(kern, 20), device_ms(kern, 10)
+    ms_p, ms_o = median_ms(lambda: cg.cg_solve_sparse_plain(*args, **kw), 3), median_ms(parent, 3)
+    nnz = int(rp.iv_len.sum())
+    on_card = "not measured" if dev is None else f"{dev / iters:.5f}"
+    report(name, err, scale, TOL_CG, ms_k, ms_p, cg_work(rp, iters, plan.dtype),
+           note=f" (q = {rp.q:,}, {nnz:,} live A^-1 entries of {rs.iv_idx.numel():,} padded, "
+                f"{plan.dtype}, a second sweep's system; {iters} iterations at tol {rp.cg_tol:g}: "
+                f"{ms_k / iters:.5f} ms an iteration, on the card alone {on_card}; plain "
+                f"{ms_p / iters:.5f} ms an iteration; the parent's eager solve (cg_solve on the "
+                f"long-form matvec) {ms_o:.4f} ms, {oit} iterations, {ms_o / oit:.5f} ms an "
+                f"iteration, x within {rel_err(ox, x)[0]:.2e} of CG1's; no single PyTorch call "
+                f"solves a sparse SPD system by CG)", phase=ph, dev_ms=dev)
+    TIMINGS[name].update(iterations=iters, parent_eager_ms=ms_o, parent_eager_iterations=oit,
+                         parent_eager_ms_per_iteration=ms_o / oit)
+    return TIMINGS[name]
+
+
+def cg_chains(spec, ph, tag):
+    """8.4b A-cg in float64: run_lmem as it runs by default (PhiloxStream,
+    eager; launch counts from 0), then a loop of make_sweep and run_lmem's
+    replays from one KeyedStream (kept draws and final ycorr the same bits)
+    and a ReplayedSweep from the same start, one replay at a time (each
+    sweep's CG iterations those of the eager sweep); every sweep stopped by
+    its tolerance, drift, finite draws, varU > 0; steady ms/sweep of both
+    arms, device busy and idle share of the replays."""
+    _cuda.reset_launches()
+    res = ngt.run_lmem(spec, n_chain=N_CG_CHAIN, n_burn=N_CG_BURN, n_thin=N_CG_THIN, seed=7,
+                       dtype=torch.float64)
+    launches = dict(_cuda.LAUNCHES)
+    expect = {k: 0 for k in launches}
+    expect["cg_solve"] = N_CG_CHAIN
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
+    check(not bad and (res.draws["varUA"] > 0).all(), f"{tag}: draws of {bad} not finite, or varU <= 0")
+    drift = residual_drift(res.plan, res.state)
+    check(drift < 1e-2, f"{tag}: ycorr drifted from y - Xb - Zu")
+    print(f"[{ph}] run_lmem (PhiloxStream, eager) {N_CG_CHAIN} sweeps: {res.sweeps_per_sec:.2f} "
+          f"sweeps/s (host clock); launches {({k: v for k, v in launches.items() if v})}; drift "
+          f"{drift:.3e} of max|y|; varU mean {res.draws['varUA'].mean():.4f}")
+    del res
+
+    plan, st0 = ngt.assemble(spec, dtype=torch.float64)
+    rp = plan.random[0]
+    stream = keyed.KeyedStream(7, DEV, torch.float64)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    st, kept, iters = st0, [], []
+    for i in range(1, N_CG_CHAIN + 1):
+        st = sweep(st, stream)
+        iters.append(sweep.cg_iterations[0])
+        if i > N_CG_BURN and (i - N_CG_BURN) % N_CG_THIN == 0:
+            kept.append(ngt.collect_sample(st, plan))
+    keyed_launches = dict(_cuda.LAUNCHES)
+    iters = [int(t) for t in iters]
+    check(keyed_launches["cg_solve"] == N_CG_CHAIN, f"{tag}: keyed eager launches {keyed_launches}")
+    check(0 < min(iters) and max(iters) < rp.cg_iters, f"{tag}: a sweep's CG ran to its cap ({iters})")
+    eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
+    rres = ngt.run_lmem(spec, n_chain=N_CG_CHAIN, n_burn=N_CG_BURN, n_thin=N_CG_THIN,
+                        dtype=torch.float64, stream=stream)
+    differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), rres.draws[k])]
+    check(set(rres.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
+    check(torch.equal(rres.state.ycorr, st.ycorr), f"{tag}: replayed ycorr differs from eager")
+    check(residual_drift(rres.plan, rres.state) < 1e-2, f"{tag}: replayed ycorr drifted")
+    check(all(torch.isfinite(v).all().item() for v in eager.values()) and (eager["varUA"] > 0).all().item(),
+          f"{tag}: KeyedStream draws not finite or varU <= 0")
+    rep = engine_sweep.ReplayedSweep(plan, st0, stream)
+    rep_iters = []
+    for _ in range(N_CG_CHAIN):
+        rep.run(1)
+        rep_iters.append(rep.cg_iterations[0].clone())
+    check([int(t) for t in rep_iters] == iters, f"{tag}: replayed iterations {rep_iters}, eager {iters}")
+    check(torch.equal(rep.static.ycorr, st.ycorr), f"{tag}: ReplayedSweep's ycorr differs from eager")
+    state = [st]
+
+    def eager_step():
+        state[0] = sweep(state[0], stream)
+
+    ms_eager = steady_ms(eager_step, 20)
+    ms_replay = steady_ms(lambda: rep.run(1), 20)
+    busy, per_sweep, missed, by_name, ms_by = replay_window(rep, 10)
+    idle = 1.0 - busy / ms_replay
+    cg1 = sum(v for k, v in ms_by.items() if "cg_kernel" in k)
+    mean_it = statistics.mean(iters)
+    print(f"[{ph}] KeyedStream, float64: kept draws and final ycorr bit-identical eager and replayed, "
+          f"every replay's CG iterations the eager sweep's {iters} (cap {rp.cg_iters}, tol "
+          f"{rp.cg_tol:g}); replayed run_lmem {rres.sweeps_per_sec:.2f} sweeps/s (host clock); steady, "
+          f"20 sweeps between CUDA events: eager {ms_eager:.4f} ms/sweep, replayed {ms_replay:.4f} "
+          f"ms/sweep ({ms_replay / mean_it:.5f} ms an iteration at their mean {mean_it:.1f}); 10 "
+          f"replays under the profiler: device busy {busy:.4f} ms/sweep, CG1 {cg1:.4f} of it, "
+          f"{per_sweep} kernels and copies per sweep ({missed} records missed); idle share without "
+          f"the profiler {idle:.4f}")
+    for key, cnt in sorted(by_name.items(), key=lambda r: -ms_by[r[0]])[:5]:
+        print(f"  replayed x{cnt:<4} {ms_by[key]:.4f} ms {key[:80]}")
+    out = dict(iterations=iters, eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay,
+               replay_busy_ms_per_sweep=busy, cg1_ms_per_sweep=cg1, idle_share=idle,
+               kernels_per_sweep=per_sweep, drift=drift)
+    del rep, state, rres
+    return out, launches, keyed_launches
+
+
+def cg_phase(gen_size=CG_GEN_SIZE, name="cg_solve"):
     """8.4 A-cg: intercept + an animal effect by perturbed CG over a
-    100,000-animal pedigree (5 generations of 20,000, at most 50 offspring
-    per sire), records on the last 3 generations (n = 60,000), eagerly in
-    float64: every sweep's CG stops by its tolerance, drift, finite draws,
-    varU > 0; iterations per sweep and ms/sweep. Then 5 sweeps in float32
-    (whose epsilon is above the default tolerance of 1e-8: the iterations
-    are printed, as a finding), and the replayed runner's refusal."""
-    ph = "8 A-cg"
+    5-generation pedigree of gen_size animals a generation (at most 50
+    offspring per sire), records on the last 3 generations: CG1 against its
+    plain version and the parent's eager solve (8.4a), the float64 chains
+    eager and replayed (8.4b), then 5 eager sweeps in float32 (whose
+    epsilon is above the default tolerance of 1e-8: the iterations are
+    printed, as a finding). Returns the numbers and the launch counts by
+    run."""
+    ph = "8 A-cg" if gen_size == CG_GEN_SIZE else f"8 A-cg {GENS * gen_size:,}"
     t0 = time.perf_counter()
-    ped, u_true = simulate_pedigree(GENS, CG_GEN_SIZE, seed=12)
+    ped, u_true = simulate_pedigree(GENS, gen_size, seed=12)
     idx, val = pedigree.a_inverse_padded(ped)
     sire, dam, dsq = pedigree.a_inverse_factor(ped)
-    first = (GENS - CG_RECORDED_GENS) * CG_GEN_SIZE
+    first = (GENS - CG_RECORDED_GENS) * gen_size
     animal = np.arange(first, ped.n)
     rng = np.random.default_rng(13)
     y = 1.0 + u_true[animal] + rng.normal(size=animal.size)
@@ -2136,41 +2334,31 @@ def cg_phase():
         ngt.RandomTerm("A", None, prior=ngt.Random("A", VAR_A, sampler="cg"), z_idx=animal,
                        n_levels=ped.n, sparse_struct=dict(iv_idx=idx, iv_val=val, sire=sire, dam=dam,
                                                           dinv_sqrt=dsq))])
-    print(f"[{ph}] pedigree of {ped.n:,} animals ({GENS} generations of {CG_GEN_SIZE:,}, max F "
-          f"{ped.inbreeding.max():.4f}), padded A^-1 width {idx.shape[1]}, {animal.size:,} records; "
-          f"built in {time.perf_counter() - t0:.2f} s")
-    out = {}
-    for dtype, n_sweeps in ((torch.float64, N_CG_SWEEPS), (torch.float32, N_CG_F32)):
-        plan, st = ngt.assemble(spec, dtype=dtype)
-        rp = plan.random[0]
-        sweep, stream = ngt.make_sweep(plan), PhiloxStream(7, DEV, dtype)
-        iters, times = [], []
-        for _ in range(n_sweeps):
-            t1 = time.perf_counter()
-            st = sweep(st, stream)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t1) * 1e3)
-            iters.append(sweep.cg_iterations[0])
-            check(torch.isfinite(st.random[0].u).all().item() and st.random[0].var_u.item() > 0,
-                  f"A-cg {dtype}: u not finite or varU not > 0")
-        drift = residual_drift(plan, st)
-        c = corr(st.random[0].u, torch.from_numpy(u_true).to(DEV))
-        ms = statistics.median(times)
-        print(f"[{ph}] {dtype}: {n_sweeps} sweeps, CG iterations per sweep {iters} (cap "
-              f"{rp.cg_iters}, tol {rp.cg_tol:g}); median {ms:.3f} ms/sweep ({ms / statistics.median(iters):.4f} "
-              f"ms per iteration); drift {drift:.3e} of max|y|; varU {st.random[0].var_u.item():.4f}; "
-              f"corr(last u, planted) over all animals {c:.4f}")
-        check(drift < 1e-2, f"A-cg {dtype}: ycorr drifted from y - Xb - Zu")
-        if dtype == torch.float64:
-            check(max(iters) < rp.cg_iters, f"A-cg: a sweep's CG ran to its cap ({iters})")
-        out[str(dtype)] = dict(iterations=iters, median_ms_per_sweep=ms, drift=drift, corr_u=c)
-    try:
-        ngt.run_lmem(spec, 2, 0, 1, stream=keyed.KeyedStream(1, DEV, torch.float32))
-    except NotImplementedError as err:
-        print(f"[{ph}] run_lmem with a KeyedStream refuses the CG term: {err}")
-    else:
-        check(False, "A-cg: the replayed run_lmem did not refuse the CG term")
-    return out
+    print(f"[{ph}] pedigree of {ped.n:,} animals ({GENS} generations of {gen_size:,}, max F "
+          f"{ped.inbreeding.max():.4f}), padded A^-1 width {idx.shape[1]}, {int((val != 0).sum()):,} "
+          f"nonzeros, {animal.size:,} records; built in {time.perf_counter() - t0:.2f} s")
+    del ped, idx, val
+    plan, st = ngt.assemble(spec, dtype=torch.float64)
+    out = {"CG1": cg1_check(plan, st, ph, name)}
+    del plan, st
+    out["float64"], launches, keyed_launches = cg_chains(spec, ph, f"A-cg {gen_size}")
+    plan, st = ngt.assemble(spec, dtype=torch.float32)
+    rp = plan.random[0]
+    sweep, stream = ngt.make_sweep(plan), PhiloxStream(7, DEV, torch.float32)
+    iters = []
+    for _ in range(N_CG_F32):
+        st = sweep(st, stream)
+        iters.append(int(sweep.cg_iterations[0]))
+        check(torch.isfinite(st.random[0].u).all().item() and st.random[0].var_u.item() > 0,
+              "A-cg float32: u not finite or varU not > 0")
+    drift = residual_drift(plan, st)
+    c = corr(st.random[0].u, torch.from_numpy(u_true).to(DEV))
+    print(f"[{ph}] float32: {N_CG_F32} sweeps, CG iterations per sweep {iters} (cap {rp.cg_iters}, tol "
+          f"{rp.cg_tol:g}); drift {drift:.3e} of max|y|; varU {st.random[0].var_u.item():.4f}; "
+          f"corr(last u, planted) over all animals {c:.4f}")
+    check(drift < 1e-2, "A-cg float32: ycorr drifted from y - Xb - Zu")
+    out["float32"] = dict(iterations=iters, drift=drift, corr_u=c)
+    return out, {"A-cg": launches, "A-cg keyed": keyed_launches}
 
 
 def random_phase(spec_for, sig, other=None):
@@ -2210,7 +2398,8 @@ def random_phase(spec_for, sig, other=None):
     counted["GBLUP"], counted["GBLUP keyed"], out["GBLUP"] = random_path(
         "GBLUP", spec_g, sig, 1, "the planted genetic value", GBLUP_EBV_LIMIT)
     del spec_g
-    out["A-cg"] = cg_phase()
+    out["A-cg"], by_run = cg_phase()
+    counted.update(by_run)
     return out, counted
 
 
@@ -2222,7 +2411,15 @@ def random_only(spec_for, sig, card, other_src=None):
     other = None if other_src is None else other_level_scan(other_src)
     out, counted = random_phase(spec_for, sig, other)
     print(json.dumps({"card": card, "random": out, "launches": counted,
-                      "level_scan": TIMINGS.get("level_scan")}))
+                      "level_scan": TIMINGS.get("level_scan"), "cg_solve": TIMINGS.get("cg_solve")}))
+
+
+def cg_only(card):
+    """`python3 chip_smoke.py cg`: phase 8.4 at 1,000,000 animals (5
+    generations of 200,000; minutes of host build), CG1 timed as
+    cg_solve_1m. One JSON line of its numbers, and no result line."""
+    out, counted = cg_phase(CG_GEN_SIZE_1M, "cg_solve_1m")
+    print(json.dumps({"card": card, "A-cg 1M": out, "launches": counted}))
 
 # ------------------------------------------------------------------ phase 9
 
@@ -2684,6 +2881,7 @@ SOURCES = {
                           "corr_block_scan_v", (f"MultiBreed V={V_MAIN}",)),
     "corr_block_scan_v_v1": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
                              "corr_block_scan_v", ("MultiBreed V=1",)),
+    "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg",)),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of phase 7",
@@ -2698,6 +2896,11 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
          "corr_block_scan_v": "CM1; not a TPU kernel: the counterpart of the lax.scan over a block's "
                               "loci of sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:"
                               "898-916); launches from phase 9's run_lmem (PhiloxStream, eager) run",
+         "cg_solve": "CG1; not a TPU kernel: the counterpart of the lax.while_loop of cg_solve "
+                     "(nextgp_tpu/ops/cg.py:49) under sample_random_cg (nextgp_tpu/engine/samplers/"
+                     "random_effects.py:45-106); timed at a second sweep's system of the "
+                     "100,000-animal model (float64); launches from phase 8.4's run_lmem "
+                     "(PhiloxStream, eager) run",
          "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v"}
 # the scripts' other kernels compute what these compute; the ladder launches these at their shapes
 ALSO_REPLACES = {
@@ -2792,6 +2995,8 @@ def main(argv=()):
         return keyed_only(card, argv[1:])
     if list(argv[:1]) == ["gathers"]:
         return gathers_only(card, argv[1:])
+    if list(argv) == ["cg"]:
+        return cg_only(card)
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -2806,7 +3011,7 @@ def main(argv=()):
     if list(argv) == ["corr"]:
         return corr_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...], gathers [DIR ...], random [DIR] or corr")
+                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg or corr")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

@@ -63,7 +63,12 @@
 // row index into the key at the tail's row slot. Its warps may span rows,
 // so a gamma's shared retries take the pending element's key with it. The
 // single-site entry point is the template's kRows = false instance, its
-// code and bits unchanged.
+// code and bits unchanged. A float64 draw (ngt_keyed_rng_f64,
+// ngt_keyed_rng_rows_f64, for a chain in float64) computes the same numbers
+// and stores them as float64, its gamma shapes read as float64: a uniform
+// or normal is the float32 draw widened, a gamma the float64 g the float32
+// draw rounds (clamped at the smallest normal double). No arithmetic
+// changes, so the float32 draws keep their bits.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -169,12 +174,21 @@ __device__ __forceinline__ uint64_t row_key(const long long* sweep, unsigned lon
   return h >> 1;
 }
 
+// A gamma's value stored as T (NaN where no attempt accepted).
+__device__ __forceinline__ float store_gamma(double g, bool ok, float) {
+  return ok ? fmaxf((float)g, FLT_MIN) : nanf("");
+}
+__device__ __forceinline__ double store_gamma(double g, bool ok, double) {
+  return ok ? fmax(g, DBL_MIN) : nan("");
+}
+
 // kRows: a split draw of `rows` rows of n elements (the grid covers rows * n
-// threads); else one site's n elements.
-template <int kTail, bool kRows>
+// threads); else one site's n elements. T: float or double, the output's
+// and the shapes' type.
+template <int kTail, bool kRows, typename T>
 __global__ void __launch_bounds__(kThreads)
 keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tail tail, int kind,
-                 const float* __restrict__ alpha, float* __restrict__ out, int* __restrict__ iters,
+                 const T* __restrict__ alpha, T* __restrict__ out, int* __restrict__ iters,
                  long long n, int row_slot, long long rows) {
   const long long el = (long long)blockIdx.x * kThreads + threadIdx.x;  // the output element
   const long long i = kRows ? el % n : el;  // its index within its row
@@ -193,9 +207,9 @@ keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tai
     const uint64_t h = key();
     const Words w = philox((uint32_t)h, (uint32_t)(h >> 32), lo, 0u, 0u, hi);
     if (kind == kUniform)
-      out[el] = unit_f(w.w[0]);
+      out[el] = (T)unit_f(w.w[0]);
     else
-      out[el] = box_muller(w.w[0], w.w[1]);
+      out[el] = (T)box_muller(w.w[0], w.w[1]);
     return;
   }
   // A gamma's warp works whole (its lanes share attempts by shuffles). The
@@ -255,22 +269,22 @@ keyed_rng_kernel(const long long* __restrict__ sweep, unsigned long long h0, Tai
     const double ub = unit(philox(k0, k1, lo, 0u, 2u, hi).w[0]);
     g = __dmul_rn(g, exp(__ddiv_rn(log(ub), a_in)));
   }
-  out[el] = att >= 0 ? fmaxf((float)g, FLT_MIN) : nanf("");
+  out[el] = store_gamma(g, att >= 0, T());
   if (iters) iters[el] = att;
 }
 
-template <int kTail, bool kRows>
+template <int kTail, bool kRows, typename T>
 int launch(const void* sweep, unsigned long long h0, const Tail& t, long long kind,
            const void* alpha, void* out, void* iters, long long n, int row_slot, long long rows,
            cudaStream_t stream) {
   const long long total = kRows ? n * rows : n;
-  keyed_rng_kernel<kTail, kRows><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      (const long long*)sweep, h0, t, (int)kind, (const float*)alpha, (float*)out, (int*)iters, n,
+  keyed_rng_kernel<kTail, kRows, T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      (const long long*)sweep, h0, t, (int)kind, (const T*)alpha, (T*)out, (int*)iters, n,
       row_slot, rows);
   return (int)cudaGetLastError();
 }
 
-template <bool kRows>
+template <bool kRows, typename T = float>
 int launch_tail(const void* sweep, unsigned long long h0, const unsigned long long* tail,
                 long long n_tail, long long kind, const void* alpha, void* out, void* iters,
                 long long n, int row_slot, long long rows, void* stream) {
@@ -281,15 +295,15 @@ int launch_tail(const void* sweep, unsigned long long h0, const unsigned long lo
   for (int k = 0; k < n_tail; ++k) t.v[k] = tail[k];
   const cudaStream_t st = (cudaStream_t)stream;
   switch (n_tail) {  // one kernel per tail length: the fold is straight-line code
-    case 0: return launch<0, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 1: return launch<1, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 2: return launch<2, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 3: return launch<3, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 4: return launch<4, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 5: return launch<5, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 6: return launch<6, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    case 7: return launch<7, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
-    default: return launch<8, kRows>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 0: return launch<0, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 1: return launch<1, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 2: return launch<2, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 3: return launch<3, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 4: return launch<4, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 5: return launch<5, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 6: return launch<6, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    case 7: return launch<7, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
+    default: return launch<8, kRows, T>(sweep, h0, t, kind, alpha, out, iters, n, row_slot, rows, st);
   }
 }
 
@@ -315,6 +329,21 @@ int ngt_keyed_rng_rows(const void* sweep, unsigned long long h0, const unsigned 
                        const void* alpha, void* out, void* iters, long long n, void* stream) {
   return launch_tail<true>(sweep, h0, tail, n_tail, kind, alpha, out, iters, n, (int)row_slot, rows,
                            stream);
+}
+
+// The same two draws stored as float64 (alpha: float64 shapes; out: float64).
+int ngt_keyed_rng_f64(const void* sweep, unsigned long long h0, const unsigned long long* tail,
+                      long long n_tail, long long kind, const void* alpha, void* out, void* iters,
+                      long long n, void* stream) {
+  return launch_tail<false, double>(sweep, h0, tail, n_tail, kind, alpha, out, iters, n, 0, 1,
+                                    stream);
+}
+
+int ngt_keyed_rng_rows_f64(const void* sweep, unsigned long long h0, const unsigned long long* tail,
+                           long long n_tail, long long row_slot, long long rows, long long kind,
+                           const void* alpha, void* out, void* iters, long long n, void* stream) {
+  return launch_tail<true, double>(sweep, h0, tail, n_tail, kind, alpha, out, iters, n,
+                                   (int)row_slot, rows, stream);
 }
 
 }  // extern "C"

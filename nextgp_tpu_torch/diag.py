@@ -79,8 +79,9 @@ def _random_bytes(rp, n: int, dtype) -> float:
     the (q, q) structure twice (the level scan, RE1 or RE2, reads all of it;
     the quadratic form u'Ku for the variance); a correlated group's nT
     incidences each as often. A CG term counts 0 here: its
-    bytes are those of one sparse matvec per iteration, and its iterations
-    depend on the data (`make_sweep`'s `cg_iterations` gives them)."""
+    bytes are those of one sparse matvec over the live entries of K per
+    iteration of CG1's solve, and its iterations depend on the data
+    (`make_sweep`'s `cg_iterations` gives them, a device tensor)."""
     if rp.sampler == "cg":
         return 0.0
     return (torch.finfo(dtype).bits // 8) * (3.0 * rp.n_t * n * rp.q + 2.0 * rp.q * rp.q)

@@ -74,6 +74,11 @@ class RandomPlan:
     z_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     sire_kids: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     dam_kids: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    # the CG solve's matvec (ops/cg.cg_solve_sparse): the live length of
+    # each padded inverse-structure row (q,) int32, and diag(Z'D^-1 Z) (q,)
+    # in the plan's dtype, which the one-hot Z makes the whole of Z'D^-1 Z
+    iv_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    z_diag: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,12 +212,31 @@ def _as_device(a, dtype, device):
     return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
 
 
-def _build_random_sparse(term: RandomTerm, prior, dtype, device):
+def _live_lengths(iv_idx, iv_val):
+    """(q,) int32: one past the last entry of each padded row that is not
+    the padding (idx 0, val 0); 0 for a row of padding alone."""
+    live = (np.asarray(iv_idx) != 0) | (np.asarray(iv_val) != 0.0)
+    k = live.shape[1]
+    return np.where(live.any(axis=1), k - np.argmax(live[:, ::-1], axis=1), 0).astype(np.int32)
+
+
+def _level_weights(z_idx, q, d_inv):
+    """(q,) float64 diag(Z'D^-1 Z) of a one-hot Z: each level's records
+    counted, or their d_inv summed in record order."""
+    w = np.ones(z_idx.size) if d_inv is None else np.asarray(d_inv, np.float64)
+    out = np.zeros(q)
+    hit = z_idx >= 0
+    np.add.at(out, z_idx[hit], w[hit])  # unbuffered: in record order
+    return out
+
+
+def _build_random_sparse(term: RandomTerm, prior, d_inv, dtype, device):
     """A random effect for the CG sampler (prior.sampler == 'cg'): a level
     index per record, the padded-sparse inverse structure and the Henderson
     factor; no dense (n, q) or (q, q) array. Identity structure unless
     term.sparse_struct gives one (data/pedigree.py: a_inverse_padded,
-    a_inverse_factor)."""
+    a_inverse_factor). The plan adds each row's live length and
+    diag(Z'D^-1 Z) for the CG solve."""
     if term.z_idx is not None:
         z_idx = np.asarray(term.z_idx, np.int64)
         q = int(term.n_levels if term.n_levels is not None else z_idx.max() + 1)
@@ -257,7 +281,9 @@ def _build_random_sparse(term: RandomTerm, prior, dtype, device):
     plan = RandomPlan(term.name, q, float(df), False, 1, sampler="cg",
                       z_rows=_segments(z_idx, q, z_idx.size, device),
                       sire_kids=_segments(ss["sire"], q, q, device),
-                      dam_kids=_segments(ss["dam"], q, q, device))
+                      dam_kids=_segments(ss["dam"], q, q, device),
+                      iv_len=dev(_live_lengths(ss["iv_idx"], ss["iv_val"]), True),
+                      z_diag=dev(_level_weights(z_idx, q, d_inv)))
     return st, plan
 
 
@@ -318,7 +344,7 @@ def _build_random(term: RandomTerm, d_inv, dtype, device):
     if term.correlated:
         return _build_corr_random(term, prior, dtype, device)
     if cg:
-        return _build_random_sparse(term, prior, dtype, device)
+        return _build_random_sparse(term, prior, d_inv, dtype, device)
     z = _as_device(term.z, torch.float64, device)
     q = z.shape[1]
     df = _df_for(prior.v)

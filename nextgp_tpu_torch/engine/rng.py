@@ -271,31 +271,36 @@ def keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, r
 
 
 def _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, rows=None):
-    """csrc/keyed_rng.cu: one launch, float32 out, on sweep's device. rows =
-    (count, slot): the split-batched entry point, count * n draws."""
+    """csrc/keyed_rng.cu: one launch, dtype (float32 or float64: the same
+    numbers stored wider) out, on sweep's device. rows = (count, slot): the
+    split-batched entry point, count * n draws."""
     count = 1 if rows is None else rows[0]
     _cuda.require(sweep.is_cuda and sweep.dtype == torch.int64 and sweep.numel() == 1,
                   "keyed_rng: the sweep counter must be one int64 on a CUDA device")
-    _cuda.require(dtype == torch.float32, f"keyed_rng: the kernel draws float32, not {dtype}")
+    _cuda.require(dtype in (torch.float32, torch.float64),
+                  f"keyed_rng: the kernel draws float32 or float64, not {dtype}")
     _cuda.require(len(tail) <= MAX_TAIL, f"keyed_rng: a site tail of at most {MAX_TAIL} values")
     _cuda.require(n >= 1 and count >= 1, "keyed_rng: at least one draw")
     _cuda.require(rows is None or 0 <= rows[1] < len(tail),
                   "keyed_rng: a split draw's row slot must lie in the tail")
     if kind == GAMMA:
-        _cuda.require(alpha.is_cuda and alpha.device == sweep.device and alpha.dtype == torch.float32
+        _cuda.require(alpha.is_cuda and alpha.device == sweep.device and alpha.dtype == dtype
                       and alpha.is_contiguous() and alpha.numel() == count * n,
-                      "keyed_rng: alpha must be rows x n contiguous float32 on the counter's device")
-    out = torch.empty(count * n, dtype=torch.float32, device=sweep.device)
+                      f"keyed_rng: alpha must be rows x n contiguous {dtype} on the counter's "
+                      "device")
+    out = torch.empty(count * n, dtype=dtype, device=sweep.device)
     att = (torch.empty(count * n, dtype=torch.int32, device=sweep.device)
            if iters and kind == GAMMA else None)
     words = (ctypes.c_ulonglong * MAX_TAIL)(*(v & _MASK64 for v in tail))
     args = (alpha.data_ptr() if kind == GAMMA else None, out.data_ptr(),
             None if att is None else att.data_ptr(), n, _cuda.stream_of(sweep))
+    lib, f64 = _cuda.lib(), dtype == torch.float64
     if rows is None:
-        err = _cuda.lib().ngt_keyed_rng(sweep.data_ptr(), h0, words, len(tail), kind, *args)
+        fn = lib.ngt_keyed_rng_f64 if f64 else lib.ngt_keyed_rng
+        err = fn(sweep.data_ptr(), h0, words, len(tail), kind, *args)
     else:
-        err = _cuda.lib().ngt_keyed_rng_rows(sweep.data_ptr(), h0, words, len(tail), rows[1],
-                                             count, kind, *args)
+        fn = lib.ngt_keyed_rng_rows_f64 if f64 else lib.ngt_keyed_rng_rows
+        err = fn(sweep.data_ptr(), h0, words, len(tail), rows[1], count, kind, *args)
     _cuda.check(err, "keyed_rng")
     _cuda.LAUNCHES["keyed_rng"] += 1
     return (out, att) if iters else out
@@ -303,8 +308,8 @@ def _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, rows
 
 def keyed_draw(kind, h0, sweep, tail, n, dtype, alpha=None, iters=False, rows=None):
     """n keyed draws (count * n for a split draw, rows = (count, slot)): the
-    kernel for a counter on the card (float32; it raises on what it does not
-    take), the plain version on the CPU."""
+    kernel for a counter on the card (float32 or float64; it raises on what
+    it does not take), the plain version on the CPU."""
     if sweep.is_cuda:
         return _keyed_kernel(kind, h0, sweep, tail, n, dtype, alpha, iters, rows)
     return keyed_draw_plain(kind, h0, sweep, tail, n, dtype, alpha, iters, rows)
@@ -327,11 +332,12 @@ class KeyedStream:
     (0, 1], normals are Box-Muller, gammas Marsaglia-Tsang with a retry per
     element until it accepts (alpha < 1 boosted by U^(1/alpha)). On the CPU
     the plain version, in float64 rounded to dtype, defines the numbers; on
-    the card one launch per draw (csrc/keyed_rng.cu, float32) gives the
-    uniforms' bits and runs Box-Muller in float32, a few ulp from the plain
-    version's normals (and so from its gammas, whose acceptance it runs in
-    float64). A split draw (normal_split, gamma_split) is one launch for all
-    its rows, each row's key folded on the card."""
+    the card one launch per draw (csrc/keyed_rng.cu, float32 or float64
+    out: the same numbers stored wider) gives the uniforms' bits and runs
+    Box-Muller in float32, a few ulp of float32 from the plain version's
+    normals (and so from its gammas, whose acceptance it runs in float64).
+    A split draw (normal_split, gamma_split) is one launch for all its rows,
+    each row's key folded on the card."""
 
     capturable = True
 

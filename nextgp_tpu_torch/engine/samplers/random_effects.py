@@ -9,8 +9,10 @@ per-level scan is a Gauss-Seidel pass against the dense inverse structure
 group through RE2 with an inverse-Wishart covariance; the CG sampler draws
 u jointly by perturbed conjugate gradient over a level index and padded
 sparse rows. The whole-matrix products around the scans (Z u, Z' ycorr,
-u' K u) are torch.matmul in full float32. The CG sampler's segment sums (Z' v and the
-Henderson factor's (I - P)' x) are padded gathers over the plan's static
+u' K u) are torch.matmul in full float32. The CG sampler's solve is one
+call of ops/cg.cg_solve_sparse (CG1 on the card, which decides its
+stopping rule there); its segment sums (Z' v and the Henderson factor's
+(I - P)' x, once a sweep) are padded gathers over the plan's static
 level->records and parent->children tables, summed in a fixed order: no
 float atomics and no host sync.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.cg import cg_solve
+from ...ops.cg import cg_solve_sparse
 from ...ops.dists import sample_inv_wishart, sample_scaled_inv_chi2
 from ...ops.random_scan import corr_level_scan, level_scan
 from ...utils import full_f32
@@ -81,9 +83,12 @@ def sample_random_cg(stream, site, rs, ycorr, var_e, df, rp, d_inv=None):
     has exactly the conditional distribution N(C^-1 Z'D^-1 ycorr / ve, C^-1)
     that the scan targets one coordinate at a time. s uses the Henderson
     factorization K = (I-P)' D_f^-1 (I-P) (data/pedigree.py:
-    a_inverse_factor), so no Cholesky of K is formed. Returns (u, var_u,
-    ycorr, iterations): CG's stopping rule is read on the host each
-    iteration, so this stage cannot be captured in a CUDA graph.
+    a_inverse_factor), so no Cholesky of K is formed. Z is one-hot, so
+    Z'D^-1 Z is the plan's diagonal z_diag and the solve's matvec is
+    (z_diag / ve + K / vu) v over the live entries of K's padded rows
+    (cg_solve_sparse). Returns (u, var_u, ycorr, iterations), the
+    iterations a 0-d int32 tensor on u's device: nothing is read back to the
+    host, so the stage can be captured in a CUDA graph.
     """
     q = rs.u.shape[0]
     n = ycorr.shape[0]
@@ -115,13 +120,8 @@ def sample_random_cg(stream, site, rs, ycorr, var_e, df, rp, d_inv=None):
     yp = ycorr + e1
     rhs = Zt(d_inv * yp if d_inv is not None else yp) * ive + s
 
-    def matvec(v):
-        zv = Z(v)
-        if d_inv is not None:
-            zv = d_inv * zv
-        return Zt(zv) * ive + ivmul(v) * ivu
-
-    u, iters, _ = cg_solve(matvec, rhs, x0=rs.u, tol=rp.cg_tol, max_iter=rp.cg_iters)
+    u, iters, _ = cg_solve_sparse(rp.z_diag * ive, rs.iv_idx, rs.iv_val, rp.iv_len, ivu, rhs, rs.u,
+                                  tol=rp.cg_tol, max_iter=rp.cg_iters)
     ycorr = ycorr - Z(u)
 
     ss = u @ ivmul(u)

@@ -5,11 +5,11 @@ runSampler!, samplers.jl:29-53): residual variance -> fixed-effect blocks
 -> random effects (with their variances) -> marker sets -> correlated
 marker sets. PyTorch runs
 eagerly: a sweep launches its kernels on the current CUDA stream without
-waiting for them, except that a CG random term reads its stopping rule on
-the host each iteration. The stages carry the JAX package's scope names
-(`gibbs.var_e`, `gibbs.fixed.<i>`, `gibbs.random.<i>`, `gibbs.marker.<set>`,
-`gibbs.corr_marker`)
-as `torch.profiler.record_function` scopes, so a trace (`diag.trace`)
+waiting for them (a CG random term's solve is one launch, CG1, which
+decides its stopping rule on the card). The stages carry the JAX package's
+scope names (`gibbs.var_e`, `gibbs.fixed.<i>`, `gibbs.random.<i>`,
+`gibbs.marker.<set>`, `gibbs.corr_marker`) as
+`torch.profiler.record_function` scopes, so a trace (`diag.trace`)
 attributes host and device time to them.
 
 The runners are the counterparts of the JAX package's `make_chain_runner`
@@ -19,10 +19,7 @@ whole chain on the device). On the card with a stream that can be captured
 capture one sweep in a CUDA graph, and one sweep that also writes its sample
 into slot k of preallocated draw buffers (k a device index), and replay
 them: the host issues one replay a sweep. Everywhere else a thinning
-interval is a Python loop of sweeps. A plan with a CG random term cannot be
-captured (its solver stops on a host check): the runners raise
-NotImplementedError for it with a capturable stream rather than fall back
-to eager sweeps.
+interval is a Python loop of sweeps.
 """
 from __future__ import annotations
 
@@ -50,7 +47,8 @@ def make_sweep(plan: SweepPlan):
     same number in state.sweep_counter on the device), so a chain is a
     function of the stream's seed and the starting state. After each call
     `sweep.cg_iterations` maps each CG random term's index to the number of
-    CG iterations its solve took in that sweep."""
+    CG iterations its solve took in that sweep, a 0-d int32 tensor on the
+    plan's device (reading it is the caller's sync)."""
 
     def sweep(state: ModelState, stream) -> ModelState:
         s, c = state.sweep_index, state.sweep_counter
@@ -167,17 +165,6 @@ def _with_leaves(obj, new, prefix=""):
     return obj
 
 
-def _no_cg(plan: SweepPlan) -> None:
-    """A CG random term stops its solve on a host check, which a CUDA graph
-    cannot hold: the replayed runners refuse such a plan."""
-    cg = [rp.name for rp in plan.random if rp.sampler == "cg"]
-    if cg:
-        raise NotImplementedError(
-            f"random term {cg[0]}: the CG sampler stops on a host check each iteration, so its "
-            "sweeps cannot be replayed as CUDA graphs yet (ROADMAP queue 2); run it with "
-            "eager sweeps (make_sweep, or run_lmem with a PhiloxStream)")
-
-
 def _replayed(plan: SweepPlan, stream) -> bool:
     """Whether the runners replay CUDA graphs: on the card, where the stream
     must be one that can be captured."""
@@ -203,7 +190,10 @@ class ReplayedSweep:
     Before capture one sweep runs eagerly on the capture stream, so that
     what the kernels allocate at first use (K2's tickets, keyed by stream)
     and the libraries' handles exist outside the graphs' memory. A capture
-    that fails raises: nothing falls back to eager sweeps."""
+    that fails raises: nothing falls back to eager sweeps.
+
+    `cg_iterations` maps each CG random term's index to a 0-d int32 buffer
+    that both graphs write: after a replay it holds that replay's count."""
 
     def __init__(self, plan: SweepPlan, state: ModelState, stream, n_keep: int = 0):
         if not _replayed(plan, stream):
@@ -223,6 +213,7 @@ class ReplayedSweep:
         self.fixed_leaves = {k: t for k, t in before.items() if k not in self.carried}
         self.draws = {nm: v.new_empty((n_keep,) + v.shape) for nm, v in sample.items()}
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.cg_iterations = {i: t.clone() for i, t in sweep.cg_iterations.items()}
         del warm, sample
         self.stream = stream
         self.sweep = self._capture(sweep, plan, keep=False)
@@ -235,6 +226,8 @@ class ReplayedSweep:
             out = _leaves(sweep(self.static, self.stream))
             for k in self.carried:
                 static[k].copy_(out[k])
+            for i, t in self.cg_iterations.items():
+                t.copy_(sweep.cg_iterations[i])
             if keep:
                 for nm, v in collect_sample(self.static, plan).items():
                     self.draws[nm].index_copy_(0, self.slot, v.unsqueeze(0))
@@ -278,10 +271,7 @@ def scan_chain(plan: SweepPlan, state: ModelState, stream, n_burn: int, n_keep: 
     leading n_keep, on the plan's device. On the card the sweeps are graph
     replays (the stream must be capturable: KeyedStream; any other raises),
     and the state returned holds the graphs' static buffers; on the CPU they
-    are a loop of sweeps. A plan with a CG random term raises with a
-    capturable stream, on the CPU too, as it would on the card."""
-    if getattr(stream, "capturable", False):
-        _no_cg(plan)
+    are a loop of sweeps."""
     if _replayed(plan, stream):
         rep = ReplayedSweep(plan, state, stream, n_keep)
         rep.run(n_burn, n_keep, thin)
@@ -306,15 +296,13 @@ def make_chain_runner(plan: SweepPlan, thin: int):
     or the state's constant tensors change), as the JAX package jits its
     runner once; the state and the sample returned then live in the
     runner's buffers and the next call overwrites them, as the JAX runner
-    donates its state (a plan with a CG random term raises there).
-    Otherwise (the CPU, or the card with PhiloxStream or HostStream) a loop
-    of eager sweeps."""
+    donates its state. Otherwise (the CPU, or the card with PhiloxStream or
+    HostStream) a loop of eager sweeps."""
     sweep = make_sweep(plan)
     cache = []
 
     def run_thin(state, stream):
         if plan.device.type == "cuda" and getattr(stream, "capturable", False):
-            _no_cg(plan)
             if not cache or not cache[0].holds(state, stream):
                 cache[:] = [ReplayedSweep(plan, state, stream, n_keep=1)]
             rep = cache[0]
@@ -336,8 +324,7 @@ def make_scan_sampler(plan: SweepPlan, n_keep: int, thin: int):
     the plan's device. On the card it replays CUDA graphs (one sweep per
     replay) and needs a stream that can be captured (KeyedStream): any
     other raises, naming the stream; it never falls back to eager sweeps.
-    On the CPU it runs the same sweeps as a loop. A plan with a CG random
-    term raises NotImplementedError with a capturable stream."""
+    On the CPU it runs the same sweeps as a loop."""
 
     def run(state, stream):
         return scan_chain(plan, state, stream, 0, n_keep, thin)

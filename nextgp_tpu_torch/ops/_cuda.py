@@ -35,7 +35,7 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
             "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0,
-            "corr_level_scan": 0, "corr_block_scan_v": 0}
+            "corr_level_scan": 0, "corr_block_scan_v": 0, "cg_solve": 0}
 
 _lib = None
 
@@ -129,12 +129,18 @@ def lib() -> ctypes.CDLL:
         L.ngt_corr_level_scan_scratch_words.argtypes = [I, I]
         L.ngt_corr_level_scan_scratch_words.restype = ctypes.c_longlong
         L.ngt_corr_block_scan_v.argtypes = [P] * 5 + [I] * 3 + [S]
+        L.ngt_keyed_rng_f64.argtypes = L.ngt_keyed_rng.argtypes
+        L.ngt_keyed_rng_rows_f64.argtypes = L.ngt_keyed_rng_rows.argtypes
+        L.ngt_cg_solve_grid.argtypes = [I, I]
+        L.ngt_cg_solve_grid.restype = ctypes.c_longlong
+        L.ngt_cg_solve.argtypes = [I, I, I] + [P] * 10 + [ctypes.c_double, I, I, S]
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
-                   L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_level_scan,
-                   L.ngt_corr_level_scan, L.ngt_corr_block_scan_v):
+                   L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_keyed_rng_f64,
+                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan, L.ngt_corr_level_scan,
+                   L.ngt_corr_block_scan_v, L.ngt_cg_solve):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

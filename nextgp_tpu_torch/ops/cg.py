@@ -1,13 +1,20 @@
 """Conjugate gradient for mixed-model-equation solves.
 
-Counterpart of `nextgp_tpu/ops/cg.py`: `cg_solve` (the CG sampler's solver,
-and the point solutions of `solve_mme`), `mme_matvec` and `solve_mme`.
-Matrix-free: the caller supplies the matvec. The JAX package runs the loop
-as a `lax.while_loop` on the device; here the stopping rule is read on the
-host once per iteration (a sync on the card), so a solve cannot be captured
-in a CUDA graph. The rule is the JAX one, checked before every iteration:
-go on while ||r|| > tol * max(||b||, 1e-30) and it < max_iter, so the
-iteration count matches the JAX one on the same system.
+Counterpart of `nextgp_tpu/ops/cg.py`: `cg_solve` (the point solutions of
+`solve_mme`), `mme_matvec` and `solve_mme`, and the CG sampler's solve,
+`cg_solve_sparse`. The JAX package runs the loop as a `lax.while_loop` on
+the device. The rule is the JAX one, checked before every iteration: go on
+while ||r|| > tol * max(||b||, 1e-30) and it < max_iter, so the iteration
+count matches the JAX one on the same system.
+
+`cg_solve` is matrix-free (the caller supplies the matvec) and reads its
+stopping rule on the host once per iteration (a sync on the card), so a
+solve cannot be captured in a CUDA graph: it serves `solve_mme` and, on the
+CPU, the CG sampler. `cg_solve_sparse` solves the CG sampler's system
+(diag + ivu K) x = b, K in padded sparse rows: on the card in one launch of
+CG1 (csrc/cg_solve.cu), which decides the stopping rule on the card, so a
+captured sweep holds the whole solve; on the CPU by its plain version,
+cg_solve on the same matvec.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from ..utils import full_f32
-from . import pack2
+from . import _cuda, pack2
 
 
 def cg_solve(
@@ -47,6 +54,73 @@ def cg_solve(
         rz = rz_new
         it += 1
     return x, it, torch.linalg.norm(r)
+
+
+def sparse_matvec_plain(diag, iv_idx, iv_val, iv_len, ivu, v):
+    """(diag + ivu K) v with K in padded rows, each row's first iv_len
+    entries read: diag_i v_i + ivu * sum_{k < len_i} val[i, k] v[idx[i, k]]."""
+    live = torch.arange(iv_idx.shape[1], device=v.device) < iv_len[:, None]
+    kv = torch.where(live, iv_val * v[iv_idx.long()], torch.zeros((), dtype=v.dtype,
+                                                                   device=v.device)).sum(dim=1)
+    return diag * v + ivu * kv
+
+
+def cg_solve_sparse_plain(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000):
+    """Plain version of CG1: cg_solve (the JAX recurrence and stopping rule,
+    read on the host each iteration) on sparse_matvec_plain. Returns (x,
+    iterations as a 0-d int32 tensor, ||r||)."""
+    x, it, res = cg_solve(lambda v: sparse_matvec_plain(diag, iv_idx, iv_val, iv_len, ivu, v), b,
+                          x0=x0, tol=tol, max_iter=max_iter)
+    return x, torch.tensor(it, dtype=torch.int32, device=b.device), res
+
+
+def cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000):
+    """CG1 on the card: the whole solve in one cooperative launch, float32
+    or float64. Returns (x, iterations as a 0-d int32 device tensor,
+    ||r||), written by the kernel: nothing is read back to the host."""
+    q, k = iv_idx.shape
+    dtype = b.dtype
+    vecs = (diag, b, x0)
+    _cuda.require(dtype in (torch.float32, torch.float64),
+                  f"cg_solve: the kernel takes float32 or float64, not {dtype}")
+    _cuda.require(all(t.is_cuda and t.dtype == dtype for t in (*vecs, iv_val, ivu))
+                  and iv_idx.is_cuda and iv_len.is_cuda,
+                  "cg_solve: every input must be on a CUDA device, the floats of one dtype")
+    _cuda.require(len({t.device for t in (*vecs, iv_val, ivu, iv_idx, iv_len)}) == 1,
+                  "cg_solve: every input must be on one device")
+    _cuda.require(q >= 1 and k >= 1 and iv_val.shape == (q, k) and iv_idx.dtype == torch.int32
+                  and iv_len.dtype == torch.int32 and iv_len.shape == (q,)
+                  and iv_idx.is_contiguous() and iv_val.is_contiguous() and iv_len.is_contiguous(),
+                  f"cg_solve: iv_idx (int32) and iv_val must be contiguous ({q}, {k}), iv_len "
+                  f"({q},) int32")
+    _cuda.require(all(t.shape == (q,) and t.is_contiguous() for t in vecs) and ivu.numel() == 1,
+                  f"cg_solve: diag, b and x0 must be contiguous ({q},) vectors, ivu a scalar")
+    _cuda.require(max_iter >= 0 and tol >= 0.0, "cg_solve: max_iter and tol must be >= 0")
+    lib = _cuda.lib()
+    f64 = int(dtype == torch.float64)
+    grid = lib.ngt_cg_solve_grid(q, f64)
+    _cuda.require(grid >= 1, "cg_solve: the card holds no block of CG1")
+    x = x0.clone()
+    scratch = torch.empty(3 * q + 3 * grid + 1, dtype=dtype, device=b.device)  # r, p, ap; sums; |r|
+    barrier = torch.zeros(1, dtype=torch.int64, device=b.device)
+    iters = torch.empty((), dtype=torch.int32, device=b.device)
+    err = lib.ngt_cg_solve(f64, q, k, diag.data_ptr(), iv_idx.data_ptr(), iv_val.data_ptr(),
+                           iv_len.data_ptr(), ivu.contiguous().data_ptr(), b.data_ptr(),
+                           x.data_ptr(), scratch.data_ptr(), barrier.data_ptr(), iters.data_ptr(),
+                           float(tol), int(max_iter), grid, _cuda.stream_of(b))
+    _cuda.check(err, "cg_solve")
+    _cuda.LAUNCHES["cg_solve"] += 1
+    return x, iters, scratch[-1]
+
+
+def cg_solve_sparse(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000):
+    """Solve (diag + ivu K) x = b from x0 by CG, K in padded sparse rows of
+    live lengths iv_len; diag (q,) and ivu (0-d) device tensors. Returns
+    (x, iterations as a 0-d int32 tensor, ||r||): CG1 for CUDA tensors (it
+    raises on what it does not take), the plain version for CPU tensors."""
+    if b.is_cuda:
+        return cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol, max_iter)
+    return cg_solve_sparse_plain(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol, max_iter)
 
 
 def _dosages(ms, n, dtype):

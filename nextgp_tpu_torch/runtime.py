@@ -57,9 +57,7 @@ def run_lmem(
     PhiloxStream(seed) (engine/rng.py), whose chain runs as eager sweeps. A
     stream that can be captured (KeyedStream) runs burn-in and thinning
     through engine/sweep.scan_chain: on the card as CUDA-graph replays, with
-    the kept draws on the card until one copy to the host at the end; a
-    model with a CG random term raises NotImplementedError there (its
-    solver stops on a host check, which a graph cannot hold).
+    the kept draws on the card until one copy to the host at the end.
     vshards defaults to 1, the reference-sequential order: the H100 value of
     V has not been measured. `sweeps_per_sec` counts every sweep run, from
     the first to the device finishing the last.

@@ -31,8 +31,13 @@ for the random effects' level scan (RE1, csrc/level_scan.cu) one level,
 either side of a group and of the look-ahead, owners of two row blocks, q
 not a multiple of 4, the same bits from two launches, a captured scan whose
 replays are the next sweeps' scans, its refusals, an animal model replayed with the eager
-chain's bits and following the plain chain, and a CG animal effect in eager
-float64 sweeps (refused by the replayed runners); for the correlated terms
+chain's bits and following the plain chain; for the CG sampler's solve (CG1,
+csrc/cg_solve.cu) the identity structure, a pedigree A^-1, weighted
+records, a level with no records, one level and a solve stopped by
+max_iter in float64 and float32 against the plain version, the same bits
+twice, its refusals, an eager float64 A-cg sweep under the sync debug mode
+"error", and A-cg chains replayed with the eager chain's bits and
+iteration counts; R1's float64 output against its plain version; for the correlated terms
 RE2 (one level, either side of a group, three tiles at q = 3,001; nT = 1,
 2, 3 and the generic form at 5), CM1 (B = 16 and 256, V = 1 and 96, nT =
 1, 2 and the generic 5, with padded loci), each the same bits twice, R1's
@@ -1032,21 +1037,212 @@ def test_animal_model_replayed_equals_eager(dev):
     assert _rel(*chains) < 1e-3
 
 
-def test_cg_term_on_the_card(dev):
-    """A CG animal effect runs in eager sweeps on the card, in float64 to its
-    tolerance (beside the intercept alone: the marker kernels take float32);
-    the replayed runners refuse it."""
+def _acg_spec():
+    """Intercept + a CG animal effect on _random_spec's pedigree, every
+    animal recorded (no marker set: its kernels take float32)."""
     spec = _random_spec("cg")
     spec.markers = []
-    plan, st = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=4)
+    return spec
+
+
+def test_cg_term_on_the_card(dev):
+    """A CG animal effect on the card, in float64: eager sweeps stop their
+    solves by the tolerance, each one CG1 launch, and the replayed scan
+    sampler runs the same plan with a KeyedStream."""
+    plan, st = ngt.assemble(_acg_spec(), device=dev, dtype=torch.float64, vshards=4)
     sweep, stream = ngt.make_sweep(plan), ngt.PhiloxStream(3, dev, torch.float64)
+    before = _cuda.LAUNCHES["cg_solve"]
     for _ in range(3):
         st = sweep(st, stream)
-        assert 0 < sweep.cg_iterations[0] < plan.random[0].cg_iters
+        assert 0 < int(sweep.cg_iterations[0]) < plan.random[0].cg_iters
+    assert _cuda.LAUNCHES["cg_solve"] - before == 3
     assert torch.isfinite(st.random[0].u).all() and st.random[0].var_u > 0
-    plan, st = ngt.assemble(spec, device=dev, vshards=4)
-    with pytest.raises(NotImplementedError, match="random term A"):
-        ngt.make_scan_sampler(plan, 2, 1)(st, ngt.KeyedStream(1, dev, torch.float32))
+    st, draws = ngt.make_scan_sampler(plan, 2, 1)(st, ngt.KeyedStream(1, dev, torch.float64))
+    assert torch.isfinite(draws["uA"]).all() and (draws["varUA"] > 0).all()
+
+
+def _cg_system(kind, dtype, dev, seed=0):
+    """A CG sampler's system of one of CG_CASES: the port's plan tables for
+    an intercept and a CG term on 60 levels (one level for "one-level"),
+    a right-hand side and a start, as cg_solve_sparse's arguments but tol
+    and max_iter, on dev in dtype."""
+    from nextgp_tpu_torch.data import pedigree as P
+
+    rng = np.random.default_rng(seed)
+    if kind == "one-level":
+        z_idx, q, weights, ss = np.zeros(5, np.int64), 1, None, None
+    else:
+        q, n = 60, 90
+        z_idx = rng.integers(0, q, n)
+        z_idx[rng.uniform(size=n) < 0.1] = -1
+        weights = rng.uniform(0.5, 2.0, n) if kind == "weighted" else None
+        if kind == "empty-level":
+            z_idx[z_idx == 7] = 3
+        ss = None
+        if kind != "identity":
+            ids = [f"a{i}" for i in range(q)]
+            sires, dams = [None] * q, [None] * q
+            for i in range(q // 5, q):
+                s, d = rng.integers(0, i // 2, 2)
+                sires[i] = ids[s] if rng.uniform() > 0.1 else None
+                dams[i] = ids[d] if s != d and rng.uniform() > 0.1 else None
+            ped = ngt.build_pedigree(ids, sires, dams)
+            idx, val = P.a_inverse_padded(ped)
+            sire, dam, dsq = P.a_inverse_factor(ped)
+            ss = dict(iv_idx=idx, iv_val=val, sire=sire, dam=dam, dinv_sqrt=dsq)
+    spec = ngt.ModelSpec(
+        y=rng.normal(size=z_idx.size), fixed=[ngt.FixedTerm("int", np.ones(z_idx.size))],
+        random=[ngt.RandomTerm("a", None, prior=ngt.Random("A" if ss else "I", 0.7, sampler="cg"),
+                               z_idx=z_idx, n_levels=q, sparse_struct=ss)],
+        residual=None if weights is None else ngt.RandomEffect(weights, 1.3))
+    plan, st = ngt.assemble(spec, device="cpu", dtype=torch.float64)
+    rp, rs = plan.random[0], st.random[0]
+
+    def to(t):
+        return t.to(dev, dtype if t.is_floating_point() else t.dtype)
+
+    return (to(rp.z_diag / 1.3), to(rs.iv_idx), to(rs.iv_val), to(rp.iv_len),
+            to(torch.tensor(1 / 0.7, dtype=torch.float64)), to(torch.from_numpy(rng.normal(size=q))),
+            to(torch.from_numpy(rng.normal(size=q))))
+
+
+CG_CASES = ("identity", "pedigree", "weighted", "empty-level", "one-level")
+
+
+@pytest.mark.parametrize("kind", CG_CASES + ("max-iter",))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_solve_kernel_matches_plain(dev, dtype, kind):
+    """CG1 against its plain version on the same system: the same iteration
+    count, x within 1e-10 of its scale in float64 and 1e-5 in float32, and
+    the same bits from two launches; "max-iter" is the pedigree system
+    stopped after 3 iterations. An iterate CG stops on is up to ~cond * tol
+    from the solution, and two solvers that round their sums in other orders
+    stop on iterates a fraction of that apart (2.2e-10 of x's scale at the
+    default 1e-8 on the empty-level system): float64 holds x where both
+    solved to 1e-12, and the counts at 1e-8 and 1e-12. In float32 the default
+    1e-8 lies in the residual's rounding noise, where the two can stop an
+    iteration apart (31 and 30 on the empty-level system): float32 holds
+    both at 1e-4, where the residual crosses its threshold clearly."""
+    from nextgp_tpu_torch.ops import cg
+
+    args = _cg_system("pedigree" if kind == "max-iter" else kind, dtype, dev)
+    if kind == "max-iter":
+        lims = [dict(tol=1e-30, max_iter=3)]
+    else:
+        lims = [dict(tol=1e-8), dict(tol=1e-12)] if dtype == torch.float64 else [dict(tol=1e-4)]
+    for lim in lims:
+        before = _cuda.LAUNCHES["cg_solve"]
+        x, it, res = cg.cg_solve_sparse(*args, **lim)
+        x2, it2, res2 = cg.cg_solve_sparse(*args, **lim)
+        assert _cuda.LAUNCHES["cg_solve"] - before == 2
+        assert it.is_cuda and it.dtype == torch.int32 and it.shape == ()
+        assert torch.equal(x, x2) and torch.equal(it, it2) and torch.equal(res, res2)
+        px, pit, pres = cg.cg_solve_sparse_plain(*(t.cpu() for t in args), **lim)
+        assert int(it) == int(pit)
+        if kind == "max-iter":
+            assert int(it) == 3
+        else:
+            limit = lim["tol"] * args[5].norm().item()
+            assert 0 < int(it) < 1000 and float(res) <= limit and float(pres) <= limit
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    assert (x.cpu() - px).abs().max().item() <= tol * px.abs().max().item()
+
+
+def test_cg_solve_refuses_what_it_does_not_take(dev):
+    from nextgp_tpu_torch.ops import cg
+
+    args = list(_cg_system("pedigree", torch.float64, dev))
+    with pytest.raises(ValueError, match="one dtype"):
+        cg.cg_solve_sparse(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="int32"):
+        cg.cg_solve_sparse(args[0], args[1].long(), *args[2:])
+    with pytest.raises(ValueError, match="vectors"):
+        cg.cg_solve_sparse(*args[:5], args[5][:10], args[6])
+    with pytest.raises(ValueError, match="float32 or float64"):
+        cg.cg_solve_sparse(*(t.half() if t.is_floating_point() else t for t in args))
+
+
+def test_eager_cg_sweep_makes_no_host_sync(dev):
+    """An eager A-cg sweep with a KeyedStream, float64, under
+    torch.cuda.set_sync_debug_mode("error"): no operation of the sweep
+    waits for the card (CG1 decides its stopping rule there)."""
+    plan, st = ngt.assemble(_acg_spec(), device=dev, dtype=torch.float64, vshards=4)
+    sweep, stream = ngt.make_sweep(plan), ngt.KeyedStream(2, dev, torch.float64)
+    st = sweep(st, stream)  # the first call builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st = sweep(st, stream)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert 0 < int(sweep.cg_iterations[0]) < plan.random[0].cg_iters
+    assert torch.isfinite(st.random[0].u).all()
+
+
+def test_acg_replayed_chain_equals_eager(dev):
+    """A-cg in float64 with a KeyedStream: make_scan_sampler's replays, and
+    a ReplayedSweep's, keep the eager chain's bits (draws, ycorr, and each
+    sweep's CG iteration count); make_chain_runner and run_lmem run it."""
+    from nextgp_tpu_torch.engine import sweep as engine_sweep
+
+    spec = _acg_spec()
+    plan, st0 = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=4)
+    stream = ngt.KeyedStream(23, dev, torch.float64)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept, iters = ngt.make_sweep(plan), st0, [], []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+            iters.append(int(sweep.cg_iterations[0]))
+        kept.append(ngt.collect_sample(eager, plan))
+    assert {"uA", "varUA"} <= set(draws)
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+    rep = engine_sweep.ReplayedSweep(plan, st0, stream)
+    for i in range(6):
+        rep.run(1)
+        assert int(rep.cg_iterations[0]) == iters[i]
+    assert torch.equal(rep.static.ycorr, eager.ycorr)
+    run_thin = ngt.make_chain_runner(plan, 2)
+    st, sample = run_thin(st0, stream)
+    assert torch.equal(sample["uA"], kept[0]["uA"])
+    res = ngt.run_lmem(spec, 6, 2, 2, device=dev, dtype=torch.float64, vshards=4, stream=stream)
+    assert np.array_equal(res.draws["uA"], torch.stack([k["uA"] for k in kept[1:]]).cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [1, 33, 49_152])
+def test_keyed_rng_float64_matches_plain(dev, n):
+    """R1's float64 output against keyed_draw_plain(..., float64): uniforms
+    the same bits, normals within 1e-6 of scale, gammas within 1e-5
+    relative where the accepting attempt agrees, for the single-site and
+    the split entry points; the float64 numbers are the float32 draw's
+    uniforms and normals widened."""
+    from nextgp_tpu_torch.engine import rng as R
+
+    counter = torch.tensor(11, dtype=torch.int64, device=dev)
+    h0, tail = R._splitmix64(3), (4, 0, 4, 1)
+    alpha = torch.tensor(GAMMA_SHAPES, device=dev, dtype=torch.float64).repeat(n)[:n].contiguous()
+    for rows in (None, (3, 1)):
+        count = 1 if rows is None else rows[0]
+        for kind in (R.UNIFORM, R.NORMAL, R.GAMMA):
+            a = alpha.repeat(count) if kind == R.GAMMA else None
+            got, att = R.keyed_draw(kind, h0, counter, tail, n, torch.float64, a, iters=True, rows=rows)
+            ref, ref_att = R.keyed_draw_plain(kind, h0, counter, tail, n, torch.float64, a, iters=True,
+                                              rows=rows)
+            assert got.dtype == torch.float64 and got.shape == (count * n,)
+            if kind == R.UNIFORM:
+                assert torch.equal(got, ref)
+            elif kind == R.NORMAL:
+                assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+            else:
+                same = att == ref_att
+                assert (att >= 0).all() and 1.0 - same.float().mean().item() <= 1e-4
+                assert (((got - ref).abs() / ref.abs())[same] <= 1e-5).all()
+            if kind != R.GAMMA:
+                f32 = R.keyed_draw(kind, h0, counter, tail, n, torch.float32, rows=rows)
+                assert torch.equal(got, f32.double())
 
 
 # ------------------------------------------------------------------ M9: RE2, CM1, split draws

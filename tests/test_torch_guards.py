@@ -109,7 +109,8 @@ def test_state_fields_match(name):
                   "CorrMarkerPlan": (j_plan, t_plan)}.get(name, (j_state, t_state))
     jnames = [f.name for f in dataclasses.fields(getattr(jmod, name))]
     tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
-    extra = {"ModelState": ["sweep_counter"], "RandomPlan": ["z_rows", "sire_kids", "dam_kids"],
+    extra = {"ModelState": ["sweep_counter"],
+             "RandomPlan": ["z_rows", "sire_kids", "dam_kids", "iv_len", "z_diag"],
              "CorrMarkerPlan": ["region_rows", "region_len"]}
     assert tnames == jnames + extra.get(name, [])
     if name in ("RandomPlan", "CorrMarkerPlan"):

@@ -24,10 +24,9 @@ Then single stages (one `sample_random_uni` call; one `sample_random_cg`
 call with its CG iteration count), `solve_mme` against the JAX `solve_mme`,
 RE1's plain version against a per-level loop, the CG draw against the
 analytic conditional and a CG chain against the scan chain's posterior (as
-tests/test_random_cg.py holds the JAX package), the replayed runners'
-refusal of a CG term and, with the plain KeyedStream, that
-`make_scan_sampler` and `run_lmem` keep the draws of a loop of `make_sweep`
-with a scan random term.
+tests/test_random_cg.py holds the JAX package) and, with the plain
+KeyedStream, that `make_scan_sampler` and `run_lmem` keep the draws of a
+loop of `make_sweep` with a scan random term and with a CG term.
 """
 import dataclasses
 
@@ -496,11 +495,9 @@ def test_cg_chain_matches_scan_posterior(small_ped):
 N_KEEP, THIN = 3, 2
 
 
-@pytest.mark.parametrize("kind", ["A-scan", "G-scan"])
-def test_runners_keep_the_loop_draws(kind):
-    """With the plain KeyedStream and a scan random term, make_scan_sampler
-    and run_lmem keep the draws of a loop of make_sweep from the same
-    stream, bit for bit."""
+def _runners_keep_the_loop_draws(kind):
+    """With the plain KeyedStream, make_scan_sampler and run_lmem keep the
+    draws of a loop of make_sweep from the same stream, bit for bit."""
     _, ts = _specs(kind)
     plan, st0 = ngt.assemble(ts, device="cpu", dtype=torch.float64, vshards=4)
     stream = ngt.KeyedStream(13, "cpu", torch.float64)
@@ -525,21 +522,27 @@ def test_runners_keep_the_loop_draws(kind):
             kept.append(ngt.collect_sample(loop, plan))
     for k, d in res.draws.items():
         np.testing.assert_array_equal(d, torch.stack([x[k] for x in kept]).numpy(), err_msg=k)
+    return sweep
+
+
+@pytest.mark.parametrize("kind", ["A-scan", "G-scan"])
+def test_runners_keep_the_loop_draws(kind):
+    """With the plain KeyedStream and a scan random term, the runners keep
+    the draws of a loop of make_sweep (_runners_keep_the_loop_draws)."""
+    _runners_keep_the_loop_draws(kind)
 
 
 def test_replayed_runners_refuse_a_cg_term():
-    """A CG term's solver stops on a host check, which no CUDA graph holds:
-    with a KeyedStream the scan sampler and run_lmem raise (on the CPU too,
-    as on the card), naming the term; eager sweeps and run_lmem with the
-    default stream run it."""
+    """The runners that replay on the card take a CG term too: on the CPU,
+    with a KeyedStream, make_scan_sampler and run_lmem run the A-cg plan
+    and keep the draws of a loop of make_sweep, bit for bit, and each sweep
+    leaves its CG iteration count as a 0-d int32 tensor; run_lmem with the
+    default stream runs it as well."""
+    sweep = _runners_keep_the_loop_draws("A-cg")
+    it = sweep.cg_iterations[0]
+    assert isinstance(it, torch.Tensor) and it.dtype == torch.int32 and it.shape == ()
+    assert 0 < int(it) < 1000
     _, ts = _specs("A-cg")
-    plan, st = ngt.assemble(ts, device="cpu")
-    stream = ngt.KeyedStream(1, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="random term ani.*CG"):
-        ngt.make_scan_sampler(plan, 2, 1)(st, stream)
-    with pytest.raises(NotImplementedError, match="random term ani"):
-        ngt.run_lmem(ts, 3, 1, 1, device="cpu", stream=stream)
-    st = ngt.make_sweep(plan)(st, stream)
     res = ngt.run_lmem(ts, 3, 1, 1, device="cpu", seed=2)
     assert res.draws["uani"].shape == (2, Q_ANIMALS) and np.isfinite(res.draws["varUani"]).all()
 

@@ -18,8 +18,15 @@ and check them.
     python3 chip_smoke.py random DIR  # the same, and RE1 against DIR's (another
                                  # tree's csrc/, e.g. a `git archive` of the parent
                                  # under _checkout/) in turns P, C, C, P
-    python3 chip_smoke.py corr   # phases 1-2 and phase 9 alone
-    python3 chip_smoke.py cg     # phases 1-2 and phase 8.4 alone at 1,000,000 animals
+    python3 chip_smoke.py corr [DIR]  # phases 1-2 and phase 9 alone; with DIR (another
+                                 # tree's csrc/ with this tree's C interface of RE2),
+                                 # RE2 and the BayesR+A2 replayed sweep also with
+                                 # DIR's RE2, in turns P, C, C, P
+    python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
+                                 # 1,000,000 animals, with CG1's ablation builds; with
+                                 # DIR (this tree's C interface of CG1), CG1 and the
+                                 # replayed A-cg sweep also with DIR's CG1, in turns
+                                 # P, C, C, P
 
 Phases (any failed check raises and the script exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
@@ -124,7 +131,10 @@ Phases (any failed check raises and the script exits non-zero):
      sweep stopped by its tolerance; drift, finite draws, varU > 0), steady
      ms/sweep, device busy and idle share; 5 sweeps in float32 (iterations
      printed: float32 cannot reach the default tolerance of 1e-8). `cg` runs
-     the same at 1,000,000 animals
+     the same at 100,000 and 1,000,000 animals, and beside CG1 its ablation
+     builds (scratch copies of this tree's csrc/cg_solve.cu: the whole
+     solve, and without the matvec, the grid barriers or the totals,
+     each for the solve's iterations), the split they give printed
   9. the correlated terms (ROADMAP M9): RE2 (the correlated level scan,
      csrc/level_scan.cu) against its plain version at q = 10,000 on phase
      8's A^-1 for nT = 1, 2, 3 (and at q = 1, 31, 33, 193, 3,001 for nT = 1,
@@ -1486,22 +1496,30 @@ def keyed_library(kind, n, alpha):
     return lambda: torch._standard_gamma(alpha)
 
 
-def start_build(src, kind, sources):
+def start_build(src, kind, sources, patches=(), label=None):
     """Start nvcc on `sources` of another tree's csrc/ directory src, copied
     beside its headers, into one library with this tree's flags: (label,
-    the library's path, the process). The label is the tree's name
-    (src's grandparent, where src is a tree's nextgp_tpu_torch/csrc), or
-    src's own name."""
+    the library's path, the process). patches: (old, new) text pairs, each
+    found exactly once in the copied sources and replaced there (a scratch
+    copy with one part taken out). The label, unless given, is the tree's
+    name (src's grandparent, where src is a tree's nextgp_tpu_torch/csrc),
+    or src's own name."""
     src = Path(src).resolve()
-    label = src.parent.parent.name if src.parent.name == "nextgp_tpu_torch" else src.name
-    out = _cuda.BUILD_ROOT / f"{kind}_{label}"
+    if label is None:
+        label = src.parent.parent.name if src.parent.name == "nextgp_tpu_torch" else src.name
+    out = _cuda.BUILD_ROOT / f"{kind}_{re.sub(r'[^A-Za-z0-9_.-]', '_', label)}"
     out.mkdir(parents=True, exist_ok=True)
     for f in [*src.glob("*.cuh"), *(src / s for s in sources)]:
         shutil.copy(f, out / f.name)
+    for old, new in patches:
+        hits = [(out / s) for s in sources if (out / s).read_text().count(old)]
+        check(len(hits) == 1 and hits[0].read_text().count(old) == 1,
+              f"{label}: the patch of {old!r} matches {len(hits)} sources, or more than once")
+        hits[0].write_text(hits[0].read_text().replace(old, new))
     so = out / "lib.so"
     return label, so, subprocess.Popen(
-        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so), *(str(out / s) for s in sources)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so),
+         *(str(out / s) for s in sources)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def finish_build(label, so, proc, kernel=None):
@@ -2023,9 +2041,9 @@ def re1_phase(plan, st, other=None):
     return None
 
 
-def by_kernel(fn, reps, ph, name):
+def by_kernel(fn, reps, ph, name, quiet=False):
     """Device ms per call of fn by kernel name, from one profiled window,
-    printed; returns their sum."""
+    printed unless quiet; returns their sum."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2035,7 +2053,7 @@ def by_kernel(fn, reps, ph, name):
             fn()
         torch.cuda.synchronize()
     recs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
-    for e in sorted(recs, key=lambda e: -e.self_device_time_total):
+    for e in sorted(recs, key=lambda e: -e.self_device_time_total) if not quiet else ():
         print(f"[{ph}] {name} on the card, per call: {e.self_device_time_total / reps / 1e3:.4f} ms in "
               f"{e.count / reps:g} launches of {e.key[:80]}")
     return sum(e.self_device_time_total for e in recs) / reps / 1e3
@@ -2132,13 +2150,9 @@ def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=No
 
 
 def cg_work(rp, iters, dtype):
-    """(bytes, operations) of a CG solve of `iters` iterations: each reads
-    the live entries of K (an int32 index and a value each) and, per row,
-    its live length, diag, p, r and x, and writes x, r and p; a multiply and
-    an add per live entry and ~12 operations a row."""
-    s = torch.finfo(dtype).bits // 8
-    nnz, q = int(rp.iv_len.sum()), rp.q
-    return iters * (nnz * (4 + s) + q * (4 + 7 * s)), iters * (2 * nnz + 12 * q)
+    """(bytes, operations) of a CG solve of `iters` iterations over rp's
+    live entries of K: diag.cg_work, the count diag.roofline makes too."""
+    return diag.cg_work(int(rp.iv_len.sum()), rp.q, dtype, iters)
 
 
 def parent_cg_solve(rp, rs, ive, ivu, b, x0):
@@ -2176,18 +2190,22 @@ def second_sweep_solve(plan, st, stream):
     return calls[-1], st
 
 
-def cg1_check(plan, st, ph, name):
+def cg1_check(plan, st, ph, name, other=None, ablations=None):
     """8.4a CG1 against its plain version at a second sweep's inputs: the
     same iteration count (stopped by the tolerance), x within TOL_CG of its
     scale, two launches the same bits; solved to CG_TIGHT, the same count
     and x within TOL_CG_TIGHT; its time (event pairs; the card alone) beside
     the plain version's and the parent's eager solve of the same system (ms
-    an iteration)."""
+    an iteration). other: another tree's CG1 (cg_lib_solver), timed beside
+    this tree's by cg_arms; ablations: {label: cg_lib_solver} of the
+    ablation builds, timed by cg_ablations."""
     (args, kw), st2 = second_sweep_solve(plan, st, keyed.KeyedStream(3, DEV, plan.dtype))
     rp, rs = plan.random[0], st.random[0]
+    layout = kw.pop("layout")
+    check(layout is rp.cg_layout, f"{name}: the sweep's solve was not given the plan's layout")
 
     def kern():
-        return cg.cg_solve_sparse_kernel(*args, **kw)
+        return cg.cg_solve_sparse_kernel(*args, **kw, layout=layout)
 
     x, it, res = kern()
     x2, it2, res2 = kern()
@@ -2199,7 +2217,7 @@ def cg1_check(plan, st, ph, name):
     check(0 < iters < rp.cg_iters, f"{name}: ran to its cap ({iters})")
     err, scale = rel_err(x, px)
     tight = dict(kw, tol=CG_TIGHT)
-    tx, tit, _ = cg.cg_solve_sparse_kernel(*args, **tight)
+    tx, tit, _ = cg.cg_solve_sparse_kernel(*args, **tight, layout=layout)
     tpx, tpit, _ = cg.cg_solve_sparse_plain(*args, **tight)
     terr, tscale = rel_err(tx, tpx)
     print(f"[{ph}] {name} solved to {CG_TIGHT:g}: {int(tit)} iterations (plain {int(tpit)}), x within "
@@ -2212,21 +2230,126 @@ def cg1_check(plan, st, ph, name):
         return parent_cg_solve(rp, rs, ive, args[4], args[5], args[6])
 
     ox, oit, _ = parent()
-    ms_k, dev = median_ms(kern, 20), device_ms(kern, 10)
+    ms_k, dev = median_ms(kern, 20), device_ms(kern, cg_reps(rp.q))  # None: windows lost records
     ms_p, ms_o = median_ms(lambda: cg.cg_solve_sparse_plain(*args, **kw), 3), median_ms(parent, 3)
     nnz = int(rp.iv_len.sum())
     on_card = "not measured" if dev is None else f"{dev / iters:.5f}"
+    f64, grid = int(plan.dtype == torch.float64), layout[0].numel() + 1
+    scratch = [_cuda.lib().ngt_cg_solve_scratch_bytes(f64, rp.q, slots, grid) / 2**20
+               for slots in (layout[2], rp.q * rs.iv_idx.shape[1] // cg.CHUNK + grid)]
     report(name, err, scale, TOL_CG, ms_k, ms_p, cg_work(rp, iters, plan.dtype),
            note=f" (q = {rp.q:,}, {nnz:,} live A^-1 entries of {rs.iv_idx.numel():,} padded, "
                 f"{plan.dtype}, a second sweep's system; {iters} iterations at tol {rp.cg_tol:g}: "
                 f"{ms_k / iters:.5f} ms an iteration, on the card alone {on_card}; plain "
                 f"{ms_p / iters:.5f} ms an iteration; the parent's eager solve (cg_solve on the "
                 f"long-form matvec) {ms_o:.4f} ms, {oit} iterations, {ms_o / oit:.5f} ms an "
-                f"iteration, x within {rel_err(ox, x)[0]:.2e} of CG1's; no single PyTorch call "
-                f"solves a sparse SPD system by CG)", phase=ph, dev_ms=dev)
+                f"iteration, x within {rel_err(ox, x)[0]:.2e} of CG1's; scratch {scratch[0]:.2f} MiB "
+                f"for the plan's {layout[2]:,} chunk slots ({scratch[1]:.2f} MiB sized by the padded "
+                f"width); no single PyTorch call solves a sparse SPD system by CG)", phase=ph, dev_ms=dev)
     TIMINGS[name].update(iterations=iters, parent_eager_ms=ms_o, parent_eager_iterations=oit,
-                         parent_eager_ms_per_iteration=ms_o / oit)
+                         parent_eager_ms_per_iteration=ms_o / oit, scratch_mib=scratch[0],
+                         scratch_mib_padded_width=scratch[1])
+    if ablations:
+        TIMINGS[name]["ablations"] = cg_ablations(ablations, args, layout, iters, ph, name)
+    if other is not None:
+        TIMINGS[name]["arms"] = cg_arms(other, args, kw, layout, iters, ph, name)
     return TIMINGS[name]
+
+
+# CG1's ablation builds: scratch copies of this tree's csrc/cg_solve.cu (start_build's
+# patches), each running exactly max_iter iterations (no stopping rule) with one part
+# taken out: the matvec's walk over the chunks (a row's K p sum read as 0), the grid
+# barriers (a block barrier left), the totals of the partials (each 1)
+_CG_NO_RULE = ("while (root(rz) > limit && it < a.max_iter)", "while (it < a.max_iter)")
+CG_ABLATIONS = (
+    ("whole", (_CG_NO_RULE,)),
+    ("no matvec", (_CG_NO_RULE,
+                   ("    walk(ch, E, NC, a.ap + R0, [&](long long j) { return p_of(__ldcg(prv + j)); });\n",
+                    ""),
+                   ("Row{a.ap[i], __ldcs", "Row{T(0), __ldcs"))),
+    ("no grid barriers", (_CG_NO_RULE,
+                          ("void grid_barrier(unsigned long long* bar, unsigned long long target) {\n"
+                           "  __syncthreads();\n",
+                           "void grid_barrier(unsigned long long* bar, unsigned long long target) {\n"
+                           "  __syncthreads();\n  return;\n"))),
+    ("no totals", (_CG_NO_RULE,
+                   ("__device__ __forceinline__ T grid_total(const T* part, int slot, T* red) {\n",
+                    "__device__ __forceinline__ T grid_total(const T* part, int slot, T* red) {\n"
+                    "  return T(1);\n"))),
+)
+
+
+def cg_lib_solver(lib, label):
+    """(solve, calls) for another build of CG1 (an ablation build, or another
+    tree's csrc/cg_solve.cu) with this tree's C interface: solve(args, tol,
+    max_iter, layout=None) -> (x, iterations, ||r||) on cg_solve_sparse's
+    args, through this tree's launcher; calls() counts the solves made. A
+    build without that interface (ngt_cg_solve_scratch_bytes: CG1 before
+    its row-owned design) is refused."""
+    check(hasattr(lib, "ngt_cg_solve_scratch_bytes"),
+          f"{label}: its CG1 lacks this tree's C interface (ngt_cg_solve_scratch_bytes)")
+    _cuda.bind_cg(lib)
+    calls = [0]
+
+    def solve(args, tol, max_iter, layout=None):
+        calls[0] += 1
+        return cg.solve_with(lib, *args, tol=tol, max_iter=max_iter, layout=layout)
+    return solve, lambda: calls[0]
+
+
+def cg_reps(q):
+    """Solves a profiler window of CG1 holds: at 1,000,000 rows a window of
+    10 kept 8 of each kernel's records (H100)."""
+    return 10 if q < 500_000 else 4
+
+
+def cg_ms(fn, q, calls=None):
+    """ms of one call of fn (a CG1 solve) on the card alone (device_ms), or,
+    where the profiler keeps no whole window (solves of tens of ms often),
+    the median of event pairs around single calls, whose host share is
+    microseconds; and which of the two it is."""
+    dev = device_ms(fn, cg_reps(q), calls=calls)
+    return (dev, "card alone") if dev is not None else (median_ms(fn, cg_reps(q)), "event pair")
+
+
+def cg_ablations(libs, args, layout, iters, ph, name):
+    """Step 1 of a CG1 redesign: each ablation build (CG_ABLATIONS) on the
+    same system and layout for exactly `iters` iterations, on the card
+    alone, and the split it gives: matvec, grid barriers and totals, each
+    the whole build's time less the build without it, an iteration."""
+    ms, how = {}, {}
+    for label, (solve, calls) in libs.items():
+        t, how[label] = cg_ms(lambda: solve(args, 0.0, iters, layout), args[5].shape[0], calls)
+        ms[label] = t / iters
+    whole = ms["whole"]
+    split = {label: whole - v for label, v in ms.items() if label != "whole"}
+    print(f"[{ph}] {name} ablations, {iters} iterations each, ms an iteration: "
+          + ", ".join(f"{k} {v:.6f} ({how[k]})" for k, v in ms.items()) + "; the part each takes out: "
+          + ", ".join(f"{k[3:]} {v:.6f}" for k, v in split.items()))
+    return dict(ms_per_iteration=ms, split_ms_per_iteration=split, timed_by=how)
+
+
+def cg_arms(other, args, kw, layout, iters, ph, name):
+    """Another tree's CG1 (P, cg_lib_solver) beside this tree's (C) on the
+    same system and layout: P held to the plain version (the same
+    iterations, x within TOL_CG of scale), then both timed (cg_ms) in turns
+    P, C, C, P, ms an iteration."""
+    solve_p, calls_p = other
+    px, pit, _ = cg.cg_solve_sparse_plain(*args, **kw)
+    x, it, _ = solve_p(args, **kw, layout=layout)
+    e, sc = rel_err(x, px)
+    check(int(it) == int(pit) == iters and e <= TOL_CG * sc,
+          f"{name}: the other tree's CG1 {int(it)} iterations (plain {int(pit)}), x within {e:.3e}")
+    rows = []
+    for arm in "PCCP":
+        if arm == "P":
+            t, how = cg_ms(lambda: solve_p(args, **kw, layout=layout), args[5].shape[0], calls_p)
+        else:
+            t, how = cg_ms(lambda: cg.cg_solve_sparse_kernel(*args, **kw, layout=layout), args[5].shape[0])
+        rows.append(dict(arm=arm, ms=t, timed_by=how, ms_per_iteration=t / iters))
+    print(f"[{ph}] {name} arms P, C, C, P, ms an iteration ({iters} iterations): "
+          + ", ".join(f"{r['arm']} {r['ms_per_iteration']:.6f} ({r['timed_by']})" for r in rows))
+    return rows
 
 
 def cg_chains(spec, ph, tag):
@@ -2312,15 +2435,11 @@ def cg_chains(spec, ph, tag):
     return out, launches, keyed_launches
 
 
-def cg_phase(gen_size=CG_GEN_SIZE, name="cg_solve"):
-    """8.4 A-cg: intercept + an animal effect by perturbed CG over a
-    5-generation pedigree of gen_size animals a generation (at most 50
-    offspring per sire), records on the last 3 generations: CG1 against its
-    plain version and the parent's eager solve (8.4a), the float64 chains
-    eager and replayed (8.4b), then 5 eager sweeps in float32 (whose
-    epsilon is above the default tolerance of 1e-8: the iterations are
-    printed, as a finding). Returns the numbers and the launch counts by
-    run."""
+def acg_spec(gen_size):
+    """A-cg's model at gen_size animals a generation: intercept + an animal
+    effect by perturbed CG over a 5-generation pedigree (at most 50
+    offspring per sire), records on the last 3 generations. Returns the
+    spec, the planted values and the printed phase tag."""
     ph = "8 A-cg" if gen_size == CG_GEN_SIZE else f"8 A-cg {GENS * gen_size:,}"
     t0 = time.perf_counter()
     ped, u_true = simulate_pedigree(GENS, gen_size, seed=12)
@@ -2337,11 +2456,57 @@ def cg_phase(gen_size=CG_GEN_SIZE, name="cg_solve"):
     print(f"[{ph}] pedigree of {ped.n:,} animals ({GENS} generations of {gen_size:,}, max F "
           f"{ped.inbreeding.max():.4f}), padded A^-1 width {idx.shape[1]}, {int((val != 0).sum()):,} "
           f"nonzeros, {animal.size:,} records; built in {time.perf_counter() - t0:.2f} s")
-    del ped, idx, val
+    return spec, u_true, ph
+
+
+def acg_replay_arms(spec, other, ph):
+    """A-cg's replayed sweep (float64, KeyedStream) with another tree's CG1
+    (P; sample_random_cg's solve swapped for it while the sweep is captured)
+    and this tree's (C) in turns P, C, C, P: steady ms/sweep (CUDA events
+    around 20 replays), device busy and CG1's share of it (10 profiled
+    replays), idle share."""
+    solve_p, _ = other
+    plan, st0 = ngt.assemble(spec, dtype=torch.float64)
+    stream = keyed.KeyedStream(7, DEV, torch.float64)
+    orig = random_effects.cg_solve_sparse
+
+    def p_solve(*args, tol, max_iter, layout):
+        return solve_p(args, tol, max_iter, layout)
+
+    rows = []
+    for arm in "PCCP":
+        random_effects.cg_solve_sparse = p_solve if arm == "P" else orig
+        try:
+            rep = engine_sweep.ReplayedSweep(plan, st0, stream)
+        finally:
+            random_effects.cg_solve_sparse = orig
+        ms = steady_ms(lambda: rep.run(1), 20)
+        busy, per_sweep, _, _, ms_by = replay_window(rep, 10)
+        cg1 = sum(v for k, v in ms_by.items() if "cg_kernel" in k)
+        rows.append(dict(arm=arm, replay_ms_per_sweep=ms, busy_ms=busy, cg1_ms=cg1,
+                         idle_share=1.0 - busy / ms, nodes=per_sweep))
+        del rep
+    print(f"[{ph}] replayed A-cg, arms P, C, C, P: " + "; ".join(
+        f"{r['arm']} {r['replay_ms_per_sweep']:.4f} ms/sweep (busy {r['busy_ms']:.4f}, CG1 "
+        f"{r['cg1_ms']:.4f}, idle share {r['idle_share']:.4f}, {r['nodes']} nodes)" for r in rows))
+    return rows
+
+
+def cg_phase(gen_size=CG_GEN_SIZE, name="cg_solve", other=None, ablations=None):
+    """8.4 A-cg (acg_spec): CG1 against its plain version and the parent's
+    eager solve (8.4a; and against another tree's CG1 and the ablation
+    builds where given), the float64 chains eager and replayed (8.4b; with
+    another tree's CG1 also the replayed sweep in turns), then 5 eager
+    sweeps in float32 (whose epsilon is above the default tolerance of
+    1e-8: the iterations are printed, as a finding). Returns the numbers
+    and the launch counts by run."""
+    spec, u_true, ph = acg_spec(gen_size)
     plan, st = ngt.assemble(spec, dtype=torch.float64)
-    out = {"CG1": cg1_check(plan, st, ph, name)}
+    out = {"CG1": cg1_check(plan, st, ph, name, other, ablations)}
     del plan, st
     out["float64"], launches, keyed_launches = cg_chains(spec, ph, f"A-cg {gen_size}")
+    if other is not None:
+        out["replay arms"] = acg_replay_arms(spec, other, ph)
     plan, st = ngt.assemble(spec, dtype=torch.float32)
     rp = plan.random[0]
     sweep, stream = ngt.make_sweep(plan), PhiloxStream(7, DEV, torch.float32)
@@ -2414,12 +2579,27 @@ def random_only(spec_for, sig, card, other_src=None):
                       "level_scan": TIMINGS.get("level_scan"), "cg_solve": TIMINGS.get("cg_solve")}))
 
 
-def cg_only(card):
-    """`python3 chip_smoke.py cg`: phase 8.4 at 1,000,000 animals (5
-    generations of 200,000; minutes of host build), CG1 timed as
-    cg_solve_1m. One JSON line of its numbers, and no result line."""
-    out, counted = cg_phase(CG_GEN_SIZE_1M, "cg_solve_1m")
-    print(json.dumps({"card": card, "A-cg 1M": out, "launches": counted}))
+def cg_only(card, other_src=None):
+    """`python3 chip_smoke.py cg [DIR]`: phase 8.4 at 100,000 animals and at
+    1,000,000 (5 generations of 200,000; minutes of host build), CG1 timed
+    as cg_solve and cg_solve_1m, each beside its ablation builds
+    (CG_ABLATIONS); with DIR (another tree's csrc/), DIR's CG1 also held to
+    the plain version and timed beside this tree's in turns P, C, C, P, on
+    its own and in the replayed sweep. One JSON line of its numbers, and no
+    result line."""
+    builds = [start_build(_cuda.CSRC, "cg_ablate", ["cg_solve.cu"], patches, label)
+              for label, patches in CG_ABLATIONS]
+    if other_src is not None:
+        builds.append(start_build(other_src, "cg_other", ["cg_solve.cu"]))
+    libs = {label: cg_lib_solver(finish_build(label, so, proc, "cg_kernel"), label)
+            for label, so, proc in builds}
+    other = None if other_src is None else libs.pop(builds[-1][0])
+    out, counted = {}, {}
+    for gen_size, name in ((CG_GEN_SIZE, "cg_solve"), (CG_GEN_SIZE_1M, "cg_solve_1m")):
+        key = f"A-cg {GENS * gen_size:,}"
+        out[key], by_run = cg_phase(gen_size, name, other, libs)
+        counted.update({f"{k} {GENS * gen_size:,}": v for k, v in by_run.items()})
+    print(json.dumps({"card": card, "cg": out, "launches": counted}))
 
 # ------------------------------------------------------------------ phase 9
 
@@ -2510,13 +2690,53 @@ def re2_inputs(q, n_t, ivstr=None, seed=0):
     return ivstr, yi, zpz, z, u, torch.tensor(1.7, device=DEV), ivu
 
 
-def re2_phase(ainv):
+def other_corr_level_scan(src):
+    """(scan, calls): another tree's RE2, built alone from its csrc/
+    directory src with this tree's nvcc flags; scan takes
+    corr_level_scan_kernel's arguments, through this tree's launcher. A
+    tree whose RE2 lacks this tree's C interface (the rule built on the
+    card, ngt_corr_level_scan_takes_rule: RE2 before its rule moved onto
+    the card) is refused."""
+    label, so, proc = start_build(src, "re2_other", ["level_scan.cu"])
+    lib = finish_build(label, so, proc, "coop_scan_kernel")
+    check(hasattr(lib, "ngt_corr_level_scan_takes_rule"),
+          f"{label}: its RE2 lacks this tree's C interface (ngt_corr_level_scan_takes_rule)")
+    _cuda.bind_re2(lib)
+    calls = [0]
+
+    def scan(*args):
+        calls[0] += 1
+        return random_scan.corr_level_scan_with(lib, *args)
+    return scan, lambda: calls[0]
+
+
+def re2_arms(other, args, n_t):
+    """Another tree's RE2 (P, other_corr_level_scan) and this tree's (C) on
+    the same inputs: P held to the plain version within TOL_CORR with two
+    runs the same bits, then both on the card alone (a profiled window of 10
+    calls, every launch of a call, the rule's included) in turns P, C, C, P."""
+    scan_p, calls_p = other
+    ref = random_scan.corr_level_scan_plain(*args)
+    o = scan_p(*args)
+    e, sc = rel_err(o, ref)
+    check(torch.isfinite(o).all().item() and e <= TOL_CORR * sc and torch.equal(o, scan_p(*args)),
+          f"corr_level_scan nT={n_t}: the other tree's RE2 within {e:.3e} of {sc:.3e}, or two runs differ")
+    rows = []
+    for arm in "PCCP":  # every kernel of a call, the library's for P's rule too: one window's sum
+        fn = scan_p if arm == "P" else random_scan.corr_level_scan_kernel
+        rows.append(dict(arm=arm, device_ms=by_kernel(lambda: fn(*args), 10, "9 corr", arm, quiet=True)))
+    print(f"[9 corr] corr_level_scan nT={n_t}, arms P, C, C, P on the card alone, rule included: "
+          + ", ".join(f"{r['arm']} {r['device_ms']}" for r in rows) + " ms")
+    return rows
+
+
+def re2_phase(ainv, other=None):
     """9.1: RE2 against its plain version at q = 10,000 (the dense A^-1 of
     phase 8's pedigree) for nT = 1, 2, 3, the same bits twice, its time on
     the card alone beside RE1's on the same structure in the same call and
-    the library's triangular solve of the same system; and at q = 1, 31,
-    33, 193 (past the look-ahead), 3,001 for nT = 1, 2, 3, 5 (5: the generic
-    form)."""
+    the library's triangular solve of the same system (and beside another
+    tree's RE2, other, in turns, where given); and at q = 1, 31, 33, 193
+    (past the look-ahead), 3,001 for nT = 1, 2, 3, 5 (5: the generic form)."""
     out = {}
     q = ainv.shape[0]
     g = torch.Generator(device=DEV).manual_seed(30)
@@ -2545,9 +2765,8 @@ def re2_phase(ainv):
         e_l, _ = rel_err(library().view(q, n_t).T, ref)
         check(e_l <= TOL_CORR * sc, f"corr_level_scan nT={n_t}: the library solve differs by {e_l:.3e}")
         ms_k, ms_p = median_ms(kern, 10), median_ms(plain, 1)
-        # a call: the rule (batched torch.linalg calls, whose library kernels
-        # device_ms cannot tell from the port's), then RE2's two launches:
-        # the sum over one profiled window's names
+        # a call: RE2's two launches (prep builds the rule) and the wrapper's
+        # output and scratch: the sum over one profiled window's names
         dev = by_kernel(kern, 10, "9 corr", f"corr_level_scan nT={n_t}")
         lib_dev = device_ms(library, 10, records_per_launch=0)
         name = "corr_level_scan" if n_t == 2 else f"corr_level_scan_nt{n_t}"
@@ -2559,6 +2778,8 @@ def re2_phase(ainv):
                phase="9 corr", dev_ms=dev, library_ms=median_ms(library, 10), library_dev_ms=lib_dev)
         out[f"nT={n_t}"] = dict(device_ms=dev, re1_device_ms=re1_ms, library_device_ms=lib_dev,
                                 max_abs_err=e, scale=sc)
+        if other is not None:
+            out[f"nT={n_t}"]["arms"] = re2_arms(other, args, n_t)
         del mat, rhs
     for qs in (1, 31, 33, 193, 3001):
         for n_t in (1, 2, 3, 5):
@@ -2748,21 +2969,53 @@ def corr_chain_phase():
         check(np.array_equal(xk, xk2), f"{name} V={V}: two kernel runs differ")
 
 
-def corr_phase(spec_for, sig):
+def corr_replay_arms(spec, other):
+    """BayesR+A2's replayed sweep (KeyedStream) with another tree's RE2 (P;
+    sample_random_corr's scan swapped for it while the sweep is captured)
+    and this tree's (C) in turns P, C, C, P: steady ms/sweep (CUDA events
+    around 20 replays), device busy, RE2's share of it (its kernels, and for
+    P the rule's torch.linalg launches are not counted in it) and the idle
+    share."""
+    scan_p, _ = other
+    plan, st0 = ngt.assemble(spec, vshards=V_MAIN)
+    stream = keyed.KeyedStream(7, DEV, torch.float32)
+    orig = random_effects.corr_level_scan
+    rows = []
+    for arm in "PCCP":
+        random_effects.corr_level_scan = scan_p if arm == "P" else orig
+        try:
+            rep = engine_sweep.ReplayedSweep(plan, st0, stream)
+        finally:
+            random_effects.corr_level_scan = orig
+        ms = steady_ms(lambda: rep.run(1), 20)
+        busy, per_sweep, _, _, ms_by = replay_window(rep, 10)
+        re2 = sum(v for k, v in ms_by.items() if "coop_" in k)
+        rows.append(dict(arm=arm, replay_ms_per_sweep=ms, busy_ms=busy, re2_ms=re2,
+                         idle_share=1.0 - busy / ms, nodes=per_sweep))
+        del rep
+    print("[9 BayesR+A2] replayed, arms P, C, C, P: " + "; ".join(
+        f"{r['arm']} {r['replay_ms_per_sweep']:.4f} ms/sweep (busy {r['busy_ms']:.4f}, RE2's kernels "
+        f"{r['re2_ms']:.4f}, idle share {r['idle_share']:.4f}, {r['nodes']} nodes)" for r in rows))
+    return rows
+
+
+def corr_phase(spec_for, sig, other=None):
     """9: the correlated terms (ROADMAP M9). RE2 (9.1) and CM1 (9.2) against
     their plain versions; MultiBreed, two 10,000 x 49,152 panels correlated
     under BayesPR with a 2 x 2 v and 492 regions, at V=96 and V=1 (9.3);
     BayesR+A2, phase 8's BayesR path plus an (intercept, slope) animal group
     on phase 8's 10,000-animal pedigree (9.4); each as corr_path runs it;
-    the kernel chains against the float64 plain chains (9.5). Returns the
-    numbers and the launch counts by run."""
+    the kernel chains against the float64 plain chains (9.5). With other
+    (another tree's RE2, other_corr_level_scan), RE2 and BayesR+A2's replayed
+    sweep also beside it in turns. Returns the numbers and the launch counts
+    by run."""
     out, counted = {}, {}
     t0 = time.perf_counter()
     ped, u1 = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
     ainv = pedigree.a_inverse(ped)
     ainv_dev = torch.as_tensor(ainv, dtype=torch.float32, device=DEV)
     print(f"[9 corr] phase 8's pedigree and dense A^-1 in {time.perf_counter() - t0:.2f} s")
-    out["RE2"] = re2_phase(ainv_dev)
+    out["RE2"] = re2_phase(ainv_dev, other)
 
     spec_m, sig_m = simulate_corr()
     mem0 = torch.cuda.memory_allocated()
@@ -2816,16 +3069,19 @@ def corr_phase(spec_for, sig):
 
     counted["BayesR+A2"], counted["BayesR+A2 keyed"], out["BayesR+A2"] = corr_path(
         "BayesR+A2", spec_a2, V_MAIN, checks_a2)
+    if other is not None:
+        out["BayesR+A2 replay arms"] = corr_replay_arms(spec_a2, other)
     del spec_a2
     corr_chain_phase()
     return out, counted
 
 
-def corr_only(spec_for, sig, card):
-    """`python3 chip_smoke.py corr`: phase 9 alone, the quick form for work
-    on the correlated terms. One JSON line of its numbers, and no result
-    line."""
-    out, counted = corr_phase(spec_for, sig)
+def corr_only(spec_for, sig, card, other_src=None):
+    """`python3 chip_smoke.py corr [DIR]`: phase 9 alone, the quick form for
+    work on the correlated terms; with DIR (another tree's csrc/), RE2 and
+    BayesR+A2's replayed sweep also against DIR's in turns P, C, C, P. One
+    JSON line of its numbers, and no result line."""
+    out, counted = corr_phase(spec_for, sig, None if other_src is None else other_corr_level_scan(other_src))
     print(json.dumps({"card": card, "corr": out, "launches": counted,
                       **{k: TIMINGS.get(k) for k in TIMINGS if k.startswith("corr_")}}))
 
@@ -2995,8 +3251,8 @@ def main(argv=()):
         return keyed_only(card, argv[1:])
     if list(argv[:1]) == ["gathers"]:
         return gathers_only(card, argv[1:])
-    if list(argv) == ["cg"]:
-        return cg_only(card)
+    if list(argv[:1]) == ["cg"] and len(argv) <= 2:
+        return cg_only(card, *argv[1:])
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -3008,10 +3264,10 @@ def main(argv=()):
         return chains_only(spec_for, card)
     if list(argv[:1]) == ["random"] and len(argv) <= 2:
         return random_only(spec_for, sig, card, *argv[1:])
-    if list(argv) == ["corr"]:
-        return corr_only(spec_for, sig, card)
+    if list(argv[:1]) == ["corr"] and len(argv) <= 2:
+        return corr_only(spec_for, sig, card, *argv[1:])
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg or corr")
+                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR] or corr [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

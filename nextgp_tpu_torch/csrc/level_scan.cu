@@ -595,10 +595,13 @@ extern "C" int ngt_level_scan(const void* A, long long q, const void* yi, const 
 //   u[:, i] = m_i - W_i s_i
 // where the levels before i hold their new u and those after i their old
 // one. m_i = cov_i yi[:, i] / varE + chol(cov_i) z_i and W_i = cov_i iVarU,
-// cov_i = sym(inv(zpz_i / varE + A[i, i] iVarU)), depend on no u: the
-// caller computes them for every level before the call (ops/random_scan.
-// corr_level_rule, batched on the card, from this sweep's varE and varU) and
-// passes them packed per level as rule[i] = (m_i (nT), W_i (nT x nT, row-major)).
+// cov_i = sym(inv(zpz_i / varE + A[i, i] iVarU)), depend on no u. For nT <=
+// kFastNT the prep launch builds them (one thread a level, in registers,
+// from yi, zpz, z, varE and iVarU read on the card, so that a replayed graph
+// reads this sweep's values); above, the caller computes them for every
+// level before the call (ops/random_scan.corr_level_rule, batched on the
+// card). Either way they are packed per level as rule[i] = (m_i (nT), W_i
+// (nT x nT, row-major)).
 //
 // Bound: bytes, A's lower triangle once (the sums are linear in u with scalar
 // A entries, so the nT channels share every read of A): q^2 / 2 floats,
@@ -607,20 +610,30 @@ extern "C" int ngt_level_scan(const void* A, long long q, const void* yi, const 
 //
 // Design, nT <= kFastNT: RE1's (above) with nT channels, templated over nT:
 // a prep launch (the band, the marks, nT upper-triangle sums a row, one
-// read of it), then one cooperative look-ahead launch whose block 0 runs the
-// chain on one warp, a level at a time (nT shuffles of its sums, then every
-// lane computes u_j = m_j - W_j s_j from the staged rule row, nT^2 FMAs),
-// while the other blocks' warps add each published group of u's into the
-// later rows for all nT channels from one read of each 32 x 32 block of A.
-// The first design, in tiles of 1,024 levels on one block each (RE1's first
-// design), spent 80 % of its time reading the tiles' rows through one SM:
-// 1.61 ms at q = 10,000, nT = 2, slower than the library's triangular solve
-// of the same system (1.25; H100 80GB HBM3, 700 W; PERF.md).
+// read of it, and the level's rule), then one cooperative look-ahead launch
+// whose block 0 runs the chain on one warp, four levels a step as RE1's:
+// 4 nT shuffles fetch the four levels' sums at once, and within the four
+// u_{j+m} = (m - W s)_{j+m} - sum_{l < m} e_ml u_{j+l}, e_ml =
+// A[j+m, j+l] W_{j+m} (nT x nT blocks the stager forms from the staged rule
+// rows and diagonal block, off the dependent path), so that the four cost
+// one shuffle latency and about 4 nT + 4 dependent FMAs; while the other
+// blocks' warps add each published group of u's into the later rows
+// for all nT channels from one read of each 32 x 32 block of A. The first
+// design, in tiles of 1,024 levels on one block each (RE1's first design),
+// spent 80 % of its time reading the tiles' rows through one SM: 1.61 ms at
+// q = 10,000, nT = 2; the second (the rule batched in torch, about 12
+// launches before the scan, and the chain a level a step) 0.77 (H100 80GB
+// HBM3, 700 W; PERF.md).
 // Above kFastNT, the generic form: the row sums one channel per grid row (A
 // read nT times) and, in tiles of kTile levels, the chain one level at a
 // time on one thread ("one thread a level's nT x nT work"), its sums in
 // device memory, a block barrier per level. Every sum has a fixed order and
 // nothing is atomic: two runs give the same bits.
+// Internal linkage, as RE1's: a template's static (scan_coop's resident_on)
+// in a named namespace is one object across every library loaded in a
+// process, so a second build of this file (chip_smoke.py's DIR) would skip
+// setting its own kernels' shared-memory limit.
+namespace {
 namespace re2 {
 
 constexpr int kTile = 1024;  // levels per tile: one block's chain
@@ -712,22 +725,25 @@ int scan_generic(const float* A, long long q, int nt, const float* rule, const f
 // ---- the cooperative form (nT <= kFastNT): RE1's prep and look-ahead launch
 // with nT channels. The same roles, counters, marks and waits as RE1 (the
 // helpers above); what differs: every published word, far sum, up and win
-// is nT words (channel-major, (nT, 32 G)); a level's rule row (m, W) is
-// staged with its group's band in place of (c, b) and the quads' e; the
-// chain runs one level at a time: nT shuffles fetch its sums, every lane
-// computes u_j = m_j - W_j s_j from the staged row (nT^2 FMAs), and each
-// lane adds A[r, j] u_j into its nT sums and the next group's carry. The
-// window and the owners read each 32 x 32 block of A once for all nT
-// channels.
+// is nT words (channel-major, (nT, 32 G)); prep also writes each level's
+// rule row (m, W), which is staged with its group's band in place of
+// (c, b), and the stager forms the quads' e as nT x nT blocks; the chain's
+// four levels of a step carry nT channels each. The window and the owners
+// read each 32 x 32 block of A once for all nT channels. At nT = 4 the
+// slots hold one group fewer, to fit shared memory.
 
 template <int NT>
 struct CoopSlot {
   static constexpr int K = NT + NT * NT;
   float blk[kBand * kBlockWords];
   float rule[32 * K];
+  float e[8 * 6 * NT * NT];  // quad k's e_ml at ((6 k + m (m - 1) / 2 + l) nT + t) nT + s
   float up[NT][32];
   float win[NT][32];
 };
+
+template <int NT>
+__host__ __device__ constexpr int coop_slots() { return NT <= 3 ? kSlots : kSlots - 1; }
 
 template <int NT>
 struct CoopArgs {
@@ -746,7 +762,8 @@ struct CoopArgs {
 
 template <int NT>
 __host__ __device__ constexpr size_t coop_chain_bytes() {
-  return kSlots * sizeof(CoopSlot<NT>) + (size_t)kURing * NT * 32 * sizeof(float) + 32 * sizeof(int);
+  return coop_slots<NT>() * sizeof(CoopSlot<NT>) + (size_t)kURing * NT * 32 * sizeof(float) +
+         32 * sizeof(int);
 }
 template <int NT>
 __host__ __device__ constexpr size_t coop_owner_words() { return (size_t)kOwnSlots * kBlockWords + (size_t)kMaxOwn * NT * 32; }
@@ -756,12 +773,93 @@ __host__ __device__ constexpr size_t coop_smem() {
              ? coop_chain_bytes<NT>() : kWarps * coop_owner_words<NT>() * sizeof(float);
 }
 
-// prep: RE1's band and marks, the nT upper-triangle sums of each row
+// The rule of level r, in one thread's registers: lhs = zpz_r / varE +
+// A[r, r] iVarU; cov = sym(inv(lhs)) (Gauss-Jordan without pivots: lhs is
+// positive definite); chol(cov), NaN from a pivot that is not positive (a
+// level that is not positive definite gives NaN, as no host check can
+// stop a captured sweep); m = cov yi[:, r] / varE + chol z[r], W = cov iVarU,
+// written as out = (m, W row-major).
+template <int NT>
+__device__ __forceinline__ void level_rule(const float* __restrict__ zpz, float arr,
+                                           const float* __restrict__ ivu, float ve,
+                                           const float* __restrict__ yi, long long q, long long r,
+                                           const float* __restrict__ z, float* __restrict__ out) {
+  float L[NT][NT], inv[NT][NT], cov[NT][NT], ch[NT][NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int s = 0; s < NT; ++s) {
+      L[t][s] = __ldg(zpz + t * NT + s) / ve + arr * __ldg(ivu + t * NT + s);
+      inv[t][s] = t == s ? 1.f : 0.f;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    const float piv = 1.f / L[c][c];
+#pragma unroll
+    for (int s = 0; s < NT; ++s) L[c][s] *= piv, inv[c][s] *= piv;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      if (t == c) continue;
+      const float f = L[t][c];
+#pragma unroll
+      for (int s = 0; s < NT; ++s) {
+        L[t][s] = fmaf(-f, L[c][s], L[t][s]);
+        inv[t][s] = fmaf(-f, inv[c][s], inv[t][s]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int s = 0; s < NT; ++s) cov[t][s] = (inv[t][s] + inv[s][t]) * 0.5f;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float d = cov[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) d = fmaf(-ch[j][k], ch[j][k], d);
+    ch[j][j] = d > 0.f ? sqrtf(d) : __int_as_float(0x7fffffff);
+#pragma unroll
+    for (int i = j + 1; i < NT; ++i) {
+      float v = cov[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) v = fmaf(-ch[i][k], ch[j][k], v);
+      ch[i][j] = v / ch[j][j];
+    }
+  }
+  float yv[NT], zv[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) yv[t] = __ldg(yi + t * q + r) / ve, zv[t] = __ldg(z + r * NT + t);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float m = 0.f;
+#pragma unroll
+    for (int s = 0; s < NT; ++s) m = fmaf(cov[t][s], yv[s], m);
+#pragma unroll
+    for (int s = 0; s <= t; ++s) m = fmaf(ch[t][s], zv[s], m);
+    out[t] = m;
+#pragma unroll
+    for (int s = 0; s < NT; ++s) {
+      float w = 0.f;
+#pragma unroll
+      for (int k = 0; k < NT; ++k) w = fmaf(cov[t][k], __ldg(ivu + k * NT + s), w);
+      out[NT + t * NT + s] = w;
+    }
+  }
+}
+
+// prep: RE1's band and marks, the nT upper-triangle sums of each row, and
+// the level's rule row (zero for a pad level)
 template <int NT>
 __global__ void __launch_bounds__(32 * kRowWarps)
     coop_prep_kernel(const float* __restrict__ A, long long q, int G, const float* __restrict__ u,
+                     const float* __restrict__ yi, const float* __restrict__ zpz,
+                     const float* __restrict__ z, const float* __restrict__ var_e,
+                     const float* __restrict__ ivu, float* __restrict__ rule,
                      float* __restrict__ up, float* __restrict__ unew, float* __restrict__ far,
                      float* __restrict__ band) {
+  constexpr int K = NT + NT * NT;
   const int lane = threadIdx.x & 31;
   const long long r = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const long long R = 32LL * G;
@@ -777,6 +875,7 @@ __global__ void __launch_bounds__(32 * kRowWarps)
   if (lane < NT) unew[lane * R + r] = far[lane * R + r] = __int_as_float(kEmpty);
   if (r >= q) {  // a pad level: its rule row is zero, so u = 0
     if (lane < NT) up[lane * R + r] = 0.f;
+    if (lane < K) rule[r * K + lane] = 0.f;
     return;
   }
   float s0[NT], s1[NT];
@@ -801,6 +900,7 @@ __global__ void __launch_bounds__(32 * kRowWarps)
     const float sum = ngt::warp_sum(s0[t] + s1[t]);
     if (lane == 0) up[t * R + r] = sum;
   }
+  if (lane == 0) level_rule<NT>(zpz + r * NT * NT, __ldg(row + r), ivu, __ldg(var_e), yi, q, r, z, rule + r * K);
 }
 
 // sum_c row[c] * u_t[c] for the nT channels (u_t: 32 floats in shared
@@ -847,11 +947,11 @@ __device__ __forceinline__ void rows_dot_lanes(const float* row, const float (&u
   for (int t = 0; t < NT; ++t) out[t] = (s[t][0] + s[t][1]) + (s[t][2] + s[t][3]);
 }
 
-// Block 0, warp 0: the chain, one level at a time
+// Block 0, warp 0: the chain, four levels a step
 template <int NT>
 __device__ __forceinline__ void coop_chain_warp(const CoopArgs<NT>& a, CoopSlot<NT>* slots,
                                                 float (*uring)[NT][32], volatile int* ctr, int lane) {
-  constexpr int K = CoopSlot<NT>::K;
+  constexpr int K = CoopSlot<NT>::K, S = coop_slots<NT>();
   const long long R = 32LL * a.G;
   float carry[NT], far_next[NT];
 #pragma unroll
@@ -872,13 +972,13 @@ __device__ __forceinline__ void coop_chain_warp(const CoopArgs<NT>& a, CoopSlot<
       }
       far_next[t] = g + 1 > kLook && g + 1 < a.G ? ld_relaxed(a.far + t * R + 32LL * (g + 1) + lane) : 0.f;
     }
-    const CoopSlot<NT>& s = slots[g % kSlots];
+    const CoopSlot<NT>& s = slots[g % S];
     float acc[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) acc[t] = ((s.up[t][lane] + far[t]) + s.win[t][lane]) + carry[t];
     float d[32], dn[32];
     const float* drow = s.blk + kLook * kBlockWords + lane * kStride;
-    const float* nrow = slots[(g + 1) % kSlots].blk + (kLook - 1) * kBlockWords + lane * kStride;
+    const float* nrow = slots[(g + 1) % S].blk + (kLook - 1) * kBlockWords + lane * kStride;
 #pragma unroll
     for (int c = 0; c < 32; c += 4) {
       const float4 x = *reinterpret_cast<const float4*>(drow + c);
@@ -890,23 +990,50 @@ __device__ __forceinline__ void coop_chain_warp(const CoopArgs<NT>& a, CoopSlot<
     for (int t = 0; t < NT; ++t) carry[t] = 0.f;
     float(*ug)[32] = uring[g % kURing];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float* rr = s.rule + j * K;
-      float p[NT], uj[NT];
+    for (int j = 0; j < 32; j += 4) {
+      const float* rr = s.rule + j * K;                 // rule rows of levels j .. j + 3
+      const float* ee = s.e + (j / 4) * 6 * NT * NT;    // their quad's e
+      float p[4][NT], u[4][NT];
 #pragma unroll
-      for (int t = 0; t < NT; ++t) p[t] = __shfl_sync(kFull, acc[t], j);
+      for (int m = 0; m < 4; ++m) {
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        float v = rr[t];
+        for (int t = 0; t < NT; ++t) p[m][t] = __shfl_sync(kFull, acc[t], j + m);
+      }
 #pragma unroll
-        for (int k = 0; k < NT; ++k) v = fmaf(-rr[NT + t * NT + k], p[k], v);
-        uj[t] = v;
-        if (lane == 0) ug[t][j] = v;
+      for (int m = 0; m < 4; ++m) {  // (m - W s) of each level, its sums from before the quad
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          float v = rr[m * K + t];
+#pragma unroll
+          for (int k = 0; k < NT; ++k) v = fmaf(-rr[m * K + NT + t * NT + k], p[m][k], v);
+          u[m][t] = v;
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < 4; ++m) {  // the quad's earlier levels
+#pragma unroll
+        for (int l = 0; l < m; ++l) {
+          const float* e = ee + (m * (m - 1) / 2 + l) * NT * NT;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+#pragma unroll
+            for (int k = 0; k < NT; ++k) u[m][t] = fmaf(-e[t * NT + k], u[l][k], u[m][t]);
+          }
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          *reinterpret_cast<float4*>(&ug[t][j]) = make_float4(u[0][t], u[1][t], u[2][t], u[3][t]);
+        }
       }
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
-        acc[t] = fmaf(d[j], uj[t], acc[t]);
-        carry[t] = fmaf(dn[j], uj[t], carry[t]);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          acc[t] = fmaf(d[j + m], u[m][t], acc[t]);  // the later levels of this group
+          carry[t] = fmaf(dn[j + m], u[m][t], carry[t]);  // the next group's rows
+        }
       }
     }
     raise(ctr + kDone, g + 1, lane);
@@ -930,7 +1057,7 @@ __device__ __forceinline__ void coop_window_warp(const CoopArgs<NT>& a, CoopSlot
   raise(ctr + kWinOk, a.G < 2 ? a.G : 2, lane);
   for (int g = 2; g < a.G; ++g) {
     wait_ge(ctr + kStaged, g + 1);
-    CoopSlot<NT>& s = slots[g % kSlots];
+    CoopSlot<NT>& s = slots[g % coop_slots<NT>()];
     float win[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) win[t] = 0.f;
@@ -951,15 +1078,33 @@ __device__ __forceinline__ void coop_window_warp(const CoopArgs<NT>& a, CoopSlot
   }
 }
 
-// Block 0, warp 2: the bands, rule rows and up sums of the groups ahead
+// The e of a staged group's quads: lane r = 4 k + m (m >= 1) writes
+// e_ml = A[r, 4 k + l] W_r for l < m.
+template <int NT>
+__device__ __forceinline__ void coop_quad_coupling(CoopSlot<NT>& s, int lane) {
+  constexpr int K = CoopSlot<NT>::K;
+  const int m = lane & 3;
+  const float* w = s.rule + lane * K + NT;
+  const float* row = s.blk + kLook * kBlockWords + lane * kStride + (lane & ~3);
+  for (int l = 0; l < m; ++l) {
+    const float a = row[l];
+    float* e = s.e + (6 * (lane >> 2) + m * (m - 1) / 2 + l) * NT * NT;
+#pragma unroll
+    for (int i = 0; i < NT * NT; ++i) e[i] = a * w[i];
+  }
+}
+
+// Block 0, warp 2: the bands, rule rows and up sums of the groups ahead,
+// then the quads' e; "staged" counts the groups whose copies are in and
+// whose e is written
 template <int NT>
 __device__ __forceinline__ void coop_stager_warp(const CoopArgs<NT>& a, CoopSlot<NT>* slots,
                                                  volatile int* ctr, int lane) {
-  constexpr int K = CoopSlot<NT>::K;
+  constexpr int K = CoopSlot<NT>::K, S = coop_slots<NT>(), in_flight = S - 2;
   const long long R = 32LL * a.G;
   for (int g = 0; g < a.G; ++g) {
-    wait_ge(ctr + kDone, g - kSlots + 1);
-    CoopSlot<NT>& s = slots[g % kSlots];
+    wait_ge(ctr + kDone, g - S + 1);
+    CoopSlot<NT>& s = slots[g % S];
     stage_band(s.blk, a.band + (size_t)g * kBand * 1024, lane);
     for (int i = lane; i < 8 * K; i += 32) {  // 32 K floats, 16 bytes a copy
       __pipeline_memcpy_async(s.rule + 4 * i, a.rule + 32LL * g * K + 4 * i, 16);
@@ -968,15 +1113,19 @@ __device__ __forceinline__ void coop_stager_warp(const CoopArgs<NT>& a, CoopSlot
       __pipeline_memcpy_async(&s.up[i >> 3][4 * (i & 7)], a.up + (i >> 3) * R + 32LL * g + 4 * (i & 7), 16);
     }
     __pipeline_commit();
-    __pipeline_wait_prior(kInFlight - 1);
-    const int in = g - kInFlight + 1;
+    __pipeline_wait_prior(in_flight - 1);
+    const int in = g - in_flight + 1;
     if (in >= 0) {
       __syncwarp();
+      coop_quad_coupling<NT>(slots[in % S], lane);
       raise(ctr + kStaged, in + 1, lane);
     }
   }
   __pipeline_wait_prior(0);
   __syncwarp();
+  for (int in = a.G - in_flight + 1 > 0 ? a.G - in_flight + 1 : 0; in < a.G; ++in) {
+    coop_quad_coupling<NT>(slots[in % S], lane);
+  }
   raise(ctr + kStaged, a.G, lane);
 }
 
@@ -1049,9 +1198,10 @@ __global__ void __launch_bounds__(32 * kWarps, 1) coop_scan_kernel(const CoopArg
                         (blockIdx.x - 1) * kWarps + warp, lane);
     return;
   }
+  constexpr int S = coop_slots<NT>();
   CoopSlot<NT>* slots = reinterpret_cast<CoopSlot<NT>*>(sm);
-  float(*uring)[NT][32] = reinterpret_cast<float(*)[NT][32]>(sm + kSlots * sizeof(CoopSlot<NT>));
-  volatile int* ctr = reinterpret_cast<volatile int*>(sm + kSlots * sizeof(CoopSlot<NT>) +
+  float(*uring)[NT][32] = reinterpret_cast<float(*)[NT][32]>(sm + S * sizeof(CoopSlot<NT>));
+  volatile int* ctr = reinterpret_cast<volatile int*>(sm + S * sizeof(CoopSlot<NT>) +
                                                       (size_t)kURing * NT * 32 * sizeof(float));
   if (threadIdx.x < kCounters) ctr[threadIdx.x] = 0;
   __syncthreads();
@@ -1063,18 +1213,21 @@ __global__ void __launch_bounds__(32 * kWarps, 1) coop_scan_kernel(const CoopArg
   }
 }
 
-// scratch: up, far, the published u (nT x 32 G each) and the band
+// scratch: up, far, the published u (nT x 32 G each), the band and the
+// rule rows (32 G x (nT + nT^2))
 template <int NT>
-int scan_coop(const float* A, long long q, const float* rule, const float* u, float* unew,
-              float* scratch, cudaStream_t st) {
+int scan_coop(const float* A, long long q, const float* yi, const float* zpz, const float* z,
+              const float* var_e, const float* ivu, const float* u, float* unew, float* scratch,
+              cudaStream_t st) {
   const int G = (int)((q + 31) / 32);
   const long long R = 32LL * G;
   float* up = scratch;
   float* far = up + NT * R;
   float* pub = far + NT * R;
   float* band = pub + NT * R;
+  float* rule = band + (long long)G * kBand * 1024;
   coop_prep_kernel<NT><<<(unsigned)((R + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, st>>>(
-      A, q, G, u, up, pub, far, band);
+      A, q, G, u, yi, zpz, z, var_e, ivu, rule, up, pub, far, band);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   static long long resident_on[64];  // blocks the card holds at once, per device, asked once
@@ -1114,32 +1267,47 @@ int scan_coop(const float* A, long long q, const float* rule, const float* u, fl
 }
 
 }  // namespace re2
+}  // namespace
+
+// Whether the caller passes RE2 its packed rule at nT (the generic form); for
+// nT <= kFastNT the prep launch builds it.
+extern "C" long long ngt_corr_level_scan_takes_rule(long long nt) { return nt > re2::kFastNT; }
 
 // Scratch words one RE2 call needs: the cooperative form's up, far sums and
-// published u (nT per padded level) and its band; the generic form's sums.
+// published u (nT per padded level), its band and its rule rows; the generic
+// form's sums.
 extern "C" long long ngt_corr_level_scan_scratch_words(long long q, long long nt) {
   const long long G = (q + 31) / 32;
-  return nt <= re2::kFastNT ? 3 * nt * 32 * G + G * kBand * 1024 : nt * q;
+  return nt <= re2::kFastNT ? 3 * nt * 32 * G + G * kBand * 1024 + 32 * G * (nt + nt * nt) : nt * q;
 }
 
-// One correlated level scan (RE2): A (q, q) row-major; rule (ceil(q / 32) *
-// 32, nT + nT^2), rows past q zero; u the old (nT, q); unew the new (nT, q);
+// One correlated level scan (RE2): A (q, q) row-major; yi (nT, q), zpz (q,
+// nT, nT), z (q, nT), var_e (one value) and ivu (nT, nT), from which the prep
+// launch builds the rule for nT <= 4; rule: for nT > 4 the packed rule
+// (ceil(q / 32) * 32, nT + nT^2), rows past q zero (ops/random_scan.
+// corr_level_rule), else unused; u the old (nT, q); unew the new (nT, q);
 // scratch ngt_corr_level_scan_scratch_words(q, nT) floats. Every pointer
 // float32 on one device. Two launches for nT <= 4, 2 ceil(q / 1024) above.
-extern "C" int ngt_corr_level_scan(const void* A, long long q, long long nt, const void* rule,
-                                   const void* u, void* unew, void* pre, void* stream) {
+extern "C" int ngt_corr_level_scan(const void* A, long long q, long long nt, const void* yi,
+                                   const void* zpz, const void* z, const void* var_e, const void* ivu,
+                                   const void* rule, const void* u, void* unew, void* pre,
+                                   void* stream) {
   if (q < 1 || nt < 1 || q > (1LL << 31) / re2::kRowWarps) return (int)cudaErrorInvalidValue;
   const float* a = (const float*)A;
-  const float* r = (const float*)rule;
+  const float* y = (const float*)yi;
+  const float* zz = (const float*)zpz;
+  const float* zs = (const float*)z;
+  const float* ve = (const float*)var_e;
+  const float* iv = (const float*)ivu;
   const float* uo = (const float*)u;
   float* un = (float*)unew;
   float* p = (float*)pre;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (nt) {
-    case 1: return re2::scan_coop<1>(a, q, r, uo, un, p, st);
-    case 2: return re2::scan_coop<2>(a, q, r, uo, un, p, st);
-    case 3: return re2::scan_coop<3>(a, q, r, uo, un, p, st);
-    case 4: return re2::scan_coop<4>(a, q, r, uo, un, p, st);
-    default: return re2::scan_generic(a, q, (int)nt, r, uo, un, p, st);
+    case 1: return re2::scan_coop<1>(a, q, y, zz, zs, ve, iv, uo, un, p, st);
+    case 2: return re2::scan_coop<2>(a, q, y, zz, zs, ve, iv, uo, un, p, st);
+    case 3: return re2::scan_coop<3>(a, q, y, zz, zs, ve, iv, uo, un, p, st);
+    case 4: return re2::scan_coop<4>(a, q, y, zz, zs, ve, iv, uo, un, p, st);
+    default: return re2::scan_generic(a, q, (int)nt, (const float*)rule, uo, un, p, st);
   }
 }

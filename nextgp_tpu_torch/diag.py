@@ -73,21 +73,39 @@ class RooflineReport:
         )
 
 
-def _random_bytes(rp, n: int, dtype) -> float:
+def cg_work(nnz: int, q: int, dtype, iterations: int):
+    """(bytes, operations) of a CG term's solve (CG1) of `iterations`
+    iterations over q rows with nnz live entries of K. Bytes: the live
+    entries (an int32 index and a value each) and the rows' live lengths,
+    read once a solve (CG1 keeps them on chip or streams its own compact
+    copy); then each iteration reads diag, p, r and x of a row and writes x,
+    r and p. Operations: a multiply and an add a live entry and ~12 a row,
+    each iteration."""
+    s = torch.finfo(dtype).bits // 8
+    return (nnz * (4 + s) + 4 * q + iterations * 7 * s * q,
+            iterations * (2 * nnz + 12 * q))
+
+
+def _random_bytes(rp, n: int, dtype, cg_iterations: Optional[int]) -> float:
     """Bytes one random term's stage reads per sweep. The per-level scan
     reads Z twice (the old u added back, the new u taken out), Z' once and
     the (q, q) structure twice (the level scan, RE1 or RE2, reads all of it;
     the quadratic form u'Ku for the variance); a correlated group's nT
-    incidences each as often. A CG term counts 0 here: its
-    bytes are those of one sparse matvec over the live entries of K per
-    iteration of CG1's solve, and its iterations depend on the data
-    (`make_sweep`'s `cg_iterations` gives them, a device tensor)."""
+    incidences each as often. A CG term: cg_iterations iterations of its
+    solve (cg_work over the live entries of K); its iterations depend on the
+    data (`make_sweep`'s `cg_iterations` gives a sweep's, a device tensor),
+    so a plan with a CG term needs them given."""
     if rp.sampler == "cg":
-        return 0.0
+        if cg_iterations is None:
+            raise ValueError(
+                f"roofline: random term {rp.name} is solved by CG, whose iterations depend on the "
+                "data; pass cg_iterations (a sweep's, from make_sweep's cg_iterations)")
+        return float(cg_work(int(rp.iv_len.sum()), rp.q, dtype, cg_iterations)[0])
     return (torch.finfo(dtype).bits // 8) * (3.0 * rp.n_t * n * rp.q + 2.0 * rp.q * rp.q)
 
 
-def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> RooflineReport:
+def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1,
+             cg_iterations: Optional[int] = None) -> RooflineReport:
     """Analytic per-sweep traffic/flops of the blocked marker sweep.
 
     Per marker set: mt is read twice per sweep (r0 matvec + correction
@@ -95,7 +113,9 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> Roofli
     MACs) — the formula of `nextgp_tpu.diag.roofline`, unchanged; a
     correlated marker set the same per (locus, set) row with nT x nT Gram
     blocks. Per random term (which that formula does not count): the bytes
-    its stage reads (`_random_bytes`).
+    its stage reads (`_random_bytes`; a CG term's for cg_iterations
+    iterations of its solve, which a plan with a CG term must give: it
+    raises ValueError without them).
     """
     if device not in _DEVICE_PEAKS:
         raise ValueError(
@@ -116,7 +136,7 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1) -> Roofli
         bytes_total += 2 * p_local * n * 0.25 + p_local * cp.block * cp.n_t * 4
         flops += 2 * 2 * p_local * n + 2 * p_local * cp.block * cp.n_t
     bytes_total += 20 * 4 * n  # ycorr/fixed traffic (minor)
-    bytes_total += sum(_random_bytes(rp, n, plan.dtype) for rp in plan.random)
+    bytes_total += sum(_random_bytes(rp, n, plan.dtype, cg_iterations) for rp in plan.random)
     t_bw = bytes_total / (hbm * 1e9)
     t_fl = flops / (f32_tflops * 1e12)
     bound = "bandwidth" if t_bw >= t_fl else "compute"

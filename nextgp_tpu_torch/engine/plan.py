@@ -34,7 +34,7 @@ import torch
 from ..api import priors as P
 from ..api.spec import CorrMarkerTerm, MarkerTerm, ModelSpec, RandomTerm
 from ..data.regions import build_regions
-from ..ops import pack2
+from ..ops import cg, pack2
 from ..utils import cdiv, default_device, default_dtype, full_f32
 from .state import (
     CorrMarkerState, CorrRandomState, FixedState, MarkerState, ModelState, RandomState,
@@ -79,6 +79,9 @@ class RandomPlan:
     # in the plan's dtype, which the one-hot Z makes the whole of Z'D^-1 Z
     iv_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     z_diag: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    # CG1's blocks on a CUDA device (ops/cg.plan_layout): their row cuts, their
+    # first chunk slots and the slots in all; None on the CPU
+    cg_layout: Optional[tuple] = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,7 +239,8 @@ def _build_random_sparse(term: RandomTerm, prior, d_inv, dtype, device):
     factor; no dense (n, q) or (q, q) array. Identity structure unless
     term.sparse_struct gives one (data/pedigree.py: a_inverse_padded,
     a_inverse_factor). The plan adds each row's live length and
-    diag(Z'D^-1 Z) for the CG solve."""
+    diag(Z'D^-1 Z) for the CG solve, and on a CUDA device CG1's layout of
+    its blocks for the card's grid."""
     if term.z_idx is not None:
         z_idx = np.asarray(term.z_idx, np.int64)
         q = int(term.n_levels if term.n_levels is not None else z_idx.max() + 1)
@@ -278,12 +282,15 @@ def _build_random_sparse(term: RandomTerm, prior, d_inv, dtype, device):
         var_u=torch.tensor(float(prior.v), dtype=dtype, device=device),
         scale=torch.tensor(_scale_for(prior.v, df), dtype=dtype, device=device),
     )
+    iv_len = torch.as_tensor(_live_lengths(ss["iv_idx"], ss["iv_val"]), dtype=torch.int32)
+    on_card = torch.device(device).type == "cuda"
     plan = RandomPlan(term.name, q, float(df), False, 1, sampler="cg",
                       z_rows=_segments(z_idx, q, z_idx.size, device),
                       sire_kids=_segments(ss["sire"], q, q, device),
                       dam_kids=_segments(ss["dam"], q, q, device),
-                      iv_len=dev(_live_lengths(ss["iv_idx"], ss["iv_val"]), True),
-                      z_diag=dev(_level_weights(z_idx, q, d_inv)))
+                      iv_len=iv_len.to(device),
+                      z_diag=dev(_level_weights(z_idx, q, d_inv)),
+                      cg_layout=cg.plan_layout(iv_len, dtype, device) if on_card else None)
     return st, plan
 
 

@@ -121,7 +121,7 @@ def sample_random_cg(stream, site, rs, ycorr, var_e, df, rp, d_inv=None):
     rhs = Zt(d_inv * yp if d_inv is not None else yp) * ive + s
 
     u, iters, _ = cg_solve_sparse(rp.z_diag * ive, rs.iv_idx, rs.iv_val, rp.iv_len, ivu, rhs, rs.u,
-                                  tol=rp.cg_tol, max_iter=rp.cg_iters)
+                                  tol=rp.cg_tol, max_iter=rp.cg_iters, layout=rp.cg_layout)
     ycorr = ycorr - Z(u)
 
     ss = u @ ivmul(u)

@@ -125,25 +125,43 @@ def lib() -> ctypes.CDLL:
         L.ngt_level_scan.argtypes = [P, I, P, P, P, P, P, P, P, S]
         L.ngt_level_scan_scratch_words.argtypes = [I]
         L.ngt_level_scan_scratch_words.restype = ctypes.c_longlong
-        L.ngt_corr_level_scan.argtypes = [P, I, I, P, P, P, P, S]
-        L.ngt_corr_level_scan_scratch_words.argtypes = [I, I]
-        L.ngt_corr_level_scan_scratch_words.restype = ctypes.c_longlong
+        bind_re2(L)
         L.ngt_corr_block_scan_v.argtypes = [P] * 5 + [I] * 3 + [S]
         L.ngt_keyed_rng_f64.argtypes = L.ngt_keyed_rng.argtypes
         L.ngt_keyed_rng_rows_f64.argtypes = L.ngt_keyed_rng_rows.argtypes
-        L.ngt_cg_solve_grid.argtypes = [I, I]
-        L.ngt_cg_solve_grid.restype = ctypes.c_longlong
-        L.ngt_cg_solve.argtypes = [I, I, I] + [P] * 10 + [ctypes.c_double, I, I, S]
+        bind_cg(L)
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
                    L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_keyed_rng_f64,
-                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan, L.ngt_corr_level_scan,
-                   L.ngt_corr_block_scan_v, L.ngt_cg_solve):
+                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan, L.ngt_corr_block_scan_v):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib
+
+
+def bind_re2(L: ctypes.CDLL) -> None:
+    """Bind RE2's C interface (csrc/level_scan.cu) in a loaded library: the
+    port's, or another build of that source."""
+    I = ctypes.c_longlong
+    L.ngt_corr_level_scan.argtypes = [ctypes.c_void_p, I, I] + [ctypes.c_void_p] * 10
+    L.ngt_corr_level_scan.restype = ctypes.c_int
+    L.ngt_corr_level_scan_takes_rule.argtypes = [I]
+    L.ngt_corr_level_scan_takes_rule.restype = I
+    L.ngt_corr_level_scan_scratch_words.argtypes = [I, I]
+    L.ngt_corr_level_scan_scratch_words.restype = I
+
+
+def bind_cg(L: ctypes.CDLL) -> None:
+    """Bind CG1's C interface (csrc/cg_solve.cu) in a loaded library: the
+    port's, or another build of that source."""
+    I = ctypes.c_longlong
+    for fn, args in ((L.ngt_cg_solve_grid, [I]), (L.ngt_cg_solve_scratch_bytes, [I] * 4)):
+        fn.argtypes, fn.restype = args, ctypes.c_longlong
+    L.ngt_cg_solve.argtypes = ([I] * 3 + [ctypes.c_void_p] * 13 + [ctypes.c_double] + [I] * 4
+                               + [ctypes.c_void_p])
+    L.ngt_cg_solve.restype = ctypes.c_int
 
 
 def check(err: int, name: str) -> None:

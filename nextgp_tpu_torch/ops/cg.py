@@ -13,8 +13,9 @@ solve cannot be captured in a CUDA graph: it serves `solve_mme` and, on the
 CPU, the CG sampler. `cg_solve_sparse` solves the CG sampler's system
 (diag + ivu K) x = b, K in padded sparse rows: on the card in one launch of
 CG1 (csrc/cg_solve.cu), which decides the stopping rule on the card, so a
-captured sweep holds the whole solve; on the CPU by its plain version,
-cg_solve on the same matvec.
+captured sweep holds the whole solve (its blocks own contiguous rows and
+regions of scratch, laid out by `cg_layout` once a plan); on the CPU by its
+plain version, cg_solve on the same matvec.
 """
 from __future__ import annotations
 
@@ -74,10 +75,58 @@ def cg_solve_sparse_plain(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, ma
     return x, torch.tensor(it, dtype=torch.int32, device=b.device), res
 
 
-def cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000):
-    """CG1 on the card: the whole solve in one cooperative launch, float32
-    or float64. Returns (x, iterations as a 0-d int32 device tensor,
-    ||r||), written by the kernel: nothing is read back to the host."""
+ROW_WEIGHT = 2  # a row's work in CG1 beside its entries: its vector loads and stores
+CHUNK = 12  # entries of one of CG1's chunks of K (kChunk of csrc/cg_solve.cu)
+
+
+def row_cuts(iv_len, grid):
+    """CG1's rows by block: block b owns rows cuts[b - 1] .. cuts[b] - 1
+    (cuts[-1] = 0, cuts[grid - 1] = q), cut so that each holds an equal share
+    of the rows' weights max(len, 1) + ROW_WEIGHT (its compacted entries, a
+    row of none holding one, and its vector work). (grid - 1,) int32 on
+    iv_len's device, computed there: nothing is read back."""
+    cum = torch.cumsum(torch.clamp(iv_len, min=1) + ROW_WEIGHT, 0, dtype=torch.int64)
+    targets = torch.arange(1, grid, device=iv_len.device, dtype=torch.int64) * cum[-1] // grid
+    return torch.searchsorted(cum, targets, right=True, out_int32=True)
+
+
+def cg_layout(iv_len, grid):
+    """CG1's blocks on a grid: (cuts, first), on iv_len's device. cuts:
+    row_cuts'; first (grid + 1,) int64: block b compacts its rows' max(len,
+    1) entries into ceil(that / CHUNK) chunks, which take chunk slots
+    first[b] .. first[b + 1] - 1 of the scratch, first[grid] of them in
+    all. Computed where iv_len lies: nothing is read back."""
+    cuts = row_cuts(iv_len, grid)
+    ent = torch.cumsum(torch.clamp(iv_len, min=1), 0, dtype=torch.int64)
+    before = torch.cat([ent.new_zeros(1), ent])  # entries of the rows before row i
+    rows = torch.cat([cuts.long(), ent.new_full((1,), iv_len.numel())])
+    per_block = torch.diff(before[rows], prepend=ent.new_zeros(1))
+    return cuts, torch.cat([ent.new_zeros(1), torch.cumsum((per_block + CHUNK - 1) // CHUNK, 0)])
+
+
+def plan_layout(iv_len, dtype, device):
+    """CG1's layout for a plan's CG term on a CUDA device, made once on the
+    host from its live lengths (a CPU tensor): (cuts, first, slots) for
+    cg_solve_sparse's `layout`, on the device, for the grid of a solve in
+    dtype there; slots = first[-1], the scratch's chunk slots."""
+    lib = _cuda.lib()
+    with torch.cuda.device(device):
+        grid = lib.ngt_cg_solve_grid(int(dtype == torch.float64))
+    _cuda.require(grid >= 1, "cg_solve: the card holds no block of CG1")
+    cuts, first = cg_layout(iv_len.cpu(), grid)
+    return cuts.to(device), first.to(device), int(first[-1])
+
+
+def solve_with(lib, diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000, staged=None,
+               layout=None):
+    """One CG1 solve through `lib` (the port's library, or another build of
+    csrc/cg_solve.cu with its C interface bound by _cuda.bind_cg); staged:
+    the chunks of K a block keeps in shared memory (None: as many as it
+    holds; fewer force the streamed path); layout: plan_layout's for these
+    rows (None: cg_layout's made here, a few launches, with scratch for the
+    most chunks q rows of width kw can need, as their count is not read
+    back). Returns (x, iterations as a 0-d int32 device tensor, ||r||),
+    written by the kernel."""
     q, k = iv_idx.shape
     dtype = b.dtype
     vecs = (diag, b, x0)
@@ -96,30 +145,54 @@ def cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, m
     _cuda.require(all(t.shape == (q,) and t.is_contiguous() for t in vecs) and ivu.numel() == 1,
                   f"cg_solve: diag, b and x0 must be contiguous ({q},) vectors, ivu a scalar")
     _cuda.require(max_iter >= 0 and tol >= 0.0, "cg_solve: max_iter and tol must be >= 0")
-    lib = _cuda.lib()
     f64 = int(dtype == torch.float64)
-    grid = lib.ngt_cg_solve_grid(q, f64)
+    grid = lib.ngt_cg_solve_grid(f64)
     _cuda.require(grid >= 1, "cg_solve: the card holds no block of CG1")
+    if layout is None:
+        cuts, first = cg_layout(iv_len, grid)
+        slots = q * k // CHUNK + grid
+    else:
+        cuts, first, slots = layout
+        _cuda.require(cuts.shape == (grid - 1,) and first.shape == (grid + 1,)
+                      and cuts.device == first.device == b.device,
+                      f"cg_solve: the layout is not one for this device's grid of {grid}")
     x = x0.clone()
-    scratch = torch.empty(3 * q + 3 * grid + 1, dtype=dtype, device=b.device)  # r, p, ap; sums; |r|
+    scratch = torch.empty(lib.ngt_cg_solve_scratch_bytes(f64, q, slots, grid), dtype=torch.uint8,
+                          device=b.device)
     barrier = torch.zeros(1, dtype=torch.int64, device=b.device)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
+    rnorm = torch.empty((), dtype=dtype, device=b.device)
     err = lib.ngt_cg_solve(f64, q, k, diag.data_ptr(), iv_idx.data_ptr(), iv_val.data_ptr(),
-                           iv_len.data_ptr(), ivu.contiguous().data_ptr(), b.data_ptr(),
-                           x.data_ptr(), scratch.data_ptr(), barrier.data_ptr(), iters.data_ptr(),
-                           float(tol), int(max_iter), grid, _cuda.stream_of(b))
+                           iv_len.data_ptr(), ivu.contiguous().data_ptr(), b.data_ptr(), x.data_ptr(),
+                           cuts.data_ptr(), first.data_ptr(), scratch.data_ptr(), barrier.data_ptr(),
+                           iters.data_ptr(), rnorm.data_ptr(), float(tol), int(max_iter), grid, slots,
+                           -1 if staged is None else int(staged), _cuda.stream_of(b))
     _cuda.check(err, "cg_solve")
+    return x, iters, rnorm
+
+
+def cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000,
+                           staged=None, layout=None):
+    """CG1 on the card: the whole solve in one cooperative launch (after
+    cg_layout's few where no layout is given), float32 or float64. Returns
+    (x, iterations as a 0-d int32 device tensor, ||r||), written by the
+    kernel: nothing is read back to the host. staged, layout: as
+    solve_with's (tests force the streamed path with staged)."""
+    out = solve_with(_cuda.lib(), diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol, max_iter, staged,
+                     layout)
     _cuda.LAUNCHES["cg_solve"] += 1
-    return x, iters, scratch[-1]
+    return out
 
 
-def cg_solve_sparse(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000):
+def cg_solve_sparse(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter=1000, layout=None):
     """Solve (diag + ivu K) x = b from x0 by CG, K in padded sparse rows of
     live lengths iv_len; diag (q,) and ivu (0-d) device tensors. Returns
     (x, iterations as a 0-d int32 tensor, ||r||): CG1 for CUDA tensors (it
-    raises on what it does not take), the plain version for CPU tensors."""
+    raises on what it does not take; layout: the plan's plan_layout, or
+    None), the plain version for CPU tensors."""
     if b.is_cuda:
-        return cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol, max_iter)
+        return cg_solve_sparse_kernel(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol, max_iter,
+                                      layout=layout)
     return cg_solve_sparse_plain(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol, max_iter)
 
 

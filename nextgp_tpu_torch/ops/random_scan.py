@@ -23,10 +23,12 @@ RE2 (`corr_level_scan`) is the counterpart of the `lax.scan` over levels in
 the JAX package's `sample_random_corr` (random_effects.py:120-133;
 NextGP.jl's tuple sampleU, functions.jl:75-88), nT effects per level. What
 does not depend on u, the per-level rule (m_i, W_i) with u[:, i] = m_i -
-W_i s_i, is computed for every level at once by `corr_level_rule` (batched
-torch.linalg calls on the card, without host checks), so that the chain
-carries an nT x nT matvec a level; the kernel then runs RE1's design with
-nT channels (csrc/level_scan.cu, `re2`). It replaces no Pallas kernel.
+W_i s_i, is computed for every level before the chain, so that the chain
+carries an nT x nT matvec a level: for nT <= 4 by the kernel's prep launch
+(one thread a level), above it and in the plain version by
+`corr_level_rule` (batched torch.linalg calls, without host checks); the
+kernel then runs RE1's design with nT channels (csrc/level_scan.cu, `re2`).
+It replaces no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -150,10 +152,11 @@ def corr_level_scan_plain(ivstr, yi, zpz, z, u, var_e, ivu):
     return u
 
 
-def corr_level_scan_kernel(ivstr, yi, zpz, z, u, var_e, ivu):
-    """RE2 on the card: the rule batched on the card, then one call (two
-    launches for nT <= 4, RE1's prep and cooperative look-ahead launch; the
-    generic form 2 ceil(q / 1024) above); the new u (nT, q)."""
+def corr_level_scan_with(lib, ivstr, yi, zpz, z, u, var_e, ivu):
+    """One RE2 call through `lib` (the port's library, or another build of
+    csrc/level_scan.cu with its C interface): for nT <= 4 the rule is built
+    in the kernel's prep launch, above it by corr_level_rule here; the new u
+    (nT, q)."""
     n_t, q = u.shape
     ins = (ivstr, yi, zpz, z, u, var_e, ivu)
     _cuda.require(all(t.is_cuda and t.dtype == torch.float32 for t in ins),
@@ -164,19 +167,30 @@ def corr_level_scan_kernel(ivstr, yi, zpz, z, u, var_e, ivu):
     _cuda.require(yi.shape == (n_t, q) and zpz.shape == (q, n_t, n_t) and z.shape == (q, n_t)
                   and ivu.shape == (n_t, n_t) and var_e.numel() == 1,
                   "corr_level_scan: yi (nT, q), zpz (q, nT, nT), z (q, nT), ivu (nT, nT), var_e a scalar")
-    m, W = corr_level_rule(ivstr, yi, zpz, z, var_e, ivu)
-    k = n_t + n_t * n_t
-    rule = torch.zeros((-(-q // GROUP) * GROUP, k), dtype=torch.float32, device=u.device)
-    rule[:q, :n_t] = m
-    rule[:q, n_t:] = W.reshape(q, -1)
-    u_old = u.contiguous()
+    rule = None
+    if lib.ngt_corr_level_scan_takes_rule(n_t):
+        m, W = corr_level_rule(ivstr, yi, zpz, z, var_e, ivu)
+        rule = torch.zeros((-(-q // GROUP) * GROUP, n_t + n_t * n_t), dtype=torch.float32,
+                           device=u.device)
+        rule[:q, :n_t] = m
+        rule[:q, n_t:] = W.reshape(q, -1)
+    yi, zpz, z, u_old, var_e, ivu = (t.contiguous() for t in (yi, zpz, z, u, var_e, ivu))
     out = torch.empty_like(u_old)
-    lib = _cuda.lib()
     scratch = torch.empty(lib.ngt_corr_level_scan_scratch_words(q, n_t), dtype=torch.float32,
                           device=u.device)
-    err = lib.ngt_corr_level_scan(ivstr.data_ptr(), q, n_t, rule.data_ptr(), u_old.data_ptr(),
-                                  out.data_ptr(), scratch.data_ptr(), _cuda.stream_of(u))
+    err = lib.ngt_corr_level_scan(ivstr.data_ptr(), q, n_t, yi.data_ptr(), zpz.data_ptr(), z.data_ptr(),
+                                  var_e.data_ptr(), ivu.data_ptr(), None if rule is None else rule.data_ptr(),
+                                  u_old.data_ptr(), out.data_ptr(), scratch.data_ptr(), _cuda.stream_of(u))
     _cuda.check(err, "corr_level_scan")
+    return out
+
+
+def corr_level_scan_kernel(ivstr, yi, zpz, z, u, var_e, ivu):
+    """RE2 on the card: one call (two launches for nT <= 4, RE1's prep, which
+    also builds the per-level rule, and its cooperative look-ahead launch;
+    the generic form, after the rule batched here, 2 ceil(q / 1024)); the new
+    u (nT, q)."""
+    out = corr_level_scan_with(_cuda.lib(), ivstr, yi, zpz, z, u, var_e, ivu)
     _cuda.LAUNCHES["corr_level_scan"] += 1
     return out
 

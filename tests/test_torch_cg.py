@@ -170,3 +170,138 @@ def test_sparse_solve_dispatches_to_the_plain_version_on_the_cpu():
     a = tcg.cg_solve_sparse(*port, tol=1e-10, max_iter=50)
     b = tcg.cg_solve_sparse_plain(*port, tol=1e-10, max_iter=50)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# ------------------------------------------------------------------ CG1's layout
+
+
+def _wide_tables(q=300, kw=100, seed=4):
+    """Padded tables with rows of 0 to kw live entries, a few past 8 x 8
+    (a row spanning more than five of CG1's chunks of 12)."""
+    rng = np.random.default_rng(seed)
+    ln = rng.integers(0, 6, q)
+    ln[rng.choice(q, 5, replace=False)] = rng.integers(65, kw + 1, 5)
+    ln[rng.choice(q, 5, replace=False)] = 0
+    idx = np.where(np.arange(kw) < ln[:, None], rng.integers(0, q, (q, kw)), 0).astype(np.int32)
+    val = np.where(np.arange(kw) < ln[:, None], rng.normal(size=(q, kw)), 0.0)
+    return idx, val, ln.astype(np.int32)
+
+
+def _tables(kind):
+    if kind == "wide":
+        return _wide_tables()
+    rp, rs, _, _ = _assembled(kind)
+    return rs.iv_idx.numpy(), rs.iv_val.numpy(), rp.iv_len.numpy()
+
+
+def _full_cuts(ln, grid):
+    return np.concatenate([[0], tcg.row_cuts(torch.from_numpy(ln), grid).numpy(), [ln.size]])
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("kind", CASES + ("wide",))
+def test_row_cuts_split_the_rows_by_weight(kind, grid):
+    """row_cuts against the padded tables: grid - 1 int32 cuts, in order,
+    that cover every row once, and each block's weight (max(len, 1) +
+    ROW_WEIGHT a row) within one row's weight of an equal share."""
+    _, _, ln = _tables(kind)
+    cuts = tcg.row_cuts(torch.from_numpy(ln), grid)
+    assert cuts.dtype == torch.int32 and cuts.shape == (grid - 1,)
+    full = _full_cuts(ln, grid)
+    assert (np.diff(full) >= 0).all() and full[0] == 0 and full[-1] == ln.size
+    w = np.maximum(ln, 1).astype(np.int64) + tcg.ROW_WEIGHT
+    share = w.sum() / grid
+    per_block = np.array([w[a:b].sum() for a, b in zip(full[:-1], full[1:])])
+    assert per_block.sum() == w.sum() and (per_block <= share + w.max()).all()
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("kind", CASES + ("wide",))
+def test_cg_layout_gives_each_block_its_chunks(kind, grid):
+    """cg_layout against the padded tables: row_cuts' cuts, and each block's
+    chunk slots (first, int64, from 0) as many as its rows' max(len, 1)
+    entries fill chunks of CHUNK, in all no more than the scratch the
+    wrapper sizes where it is given no layout (q kw / CHUNK + grid)."""
+    idx, _, ln = _tables(kind)
+    cuts, first = tcg.cg_layout(torch.from_numpy(ln), grid)
+    assert torch.equal(cuts, tcg.row_cuts(torch.from_numpy(ln), grid))
+    assert first.dtype == torch.int64 and first.shape == (grid + 1,) and int(first[0]) == 0
+    full = _full_cuts(ln, grid)
+    entries = np.array([np.maximum(ln[a:b], 1).sum() for a, b in zip(full[:-1], full[1:])])
+    np.testing.assert_array_equal(np.diff(first.numpy()), -(-entries // tcg.CHUNK))
+    assert int(first[-1]) <= ln.size * idx.shape[1] // tcg.CHUNK + grid
+
+
+def _chunks(idx, val, ln, r0, r1, chunk):
+    """CG1's compacted chunks of rows r0 .. r1 - 1 (csrc/cg_solve.cu,
+    stage_rows): (heads, backs, words, values), a row with no live entry
+    holding one (its own index, 0); a head is the first row (local) << 1,
+    | 1 where that row began in an earlier chunk; a back is how many chunks
+    back that row began where it also ends in this chunk, else 0; a word's
+    top bit marks a row's last entry."""
+    heads, backs, words, vals, e = [], [], [], [], 0
+    for i in range(r0, r1):
+        n = max(int(ln[i]), 1)
+        first, last = e // chunk, (e + n - 1) // chunk
+        for k in range(n):
+            if e % chunk == 0:
+                heads.append(((i - r0) << 1) | (k > 0))
+                backs.append(e // chunk - first if k > 0 and e // chunk == last else 0)
+                words.append([])
+                vals.append([])
+            words[-1].append((int(idx[i, k]) if ln[i] else i) | ((1 << 31) if k == n - 1 else 0))
+            vals[-1].append(float(val[i, k]) if ln[i] else 0.0)
+            e += 1
+    return heads, backs, words, vals
+
+
+def _walk(heads, backs, words, vals, v):
+    """CG1's matvec over one block's chunks (csrc/cg_solve.cu, walk and
+    chunk_runs): each row's sum, by row (local)."""
+    out, tails, late = {}, {}, {}
+    for c, (h, back) in enumerate(zip(heads, backs)):
+        row, first, run, s = h >> 1, True, False, 0.0
+        for w, a in zip(words[c], vals[c]):
+            s = s + a * v[w & 0x7FFFFFFF] if run else a * v[w & 0x7FFFFFFF]
+            run = True
+            if w >> 31:
+                if first and back:
+                    late[c] = s
+                else:
+                    out[row] = s
+                row, first, run = row + 1, False, False
+        if run:
+            tails[c] = s
+    for c, back in enumerate(backs):  # after the block's barrier
+        if back:
+            out[heads[c] >> 1] = sum((tails[cc] for cc in range(c - back + 1, c)), tails[c - back]) + late[c]
+    return out
+
+
+@pytest.mark.parametrize("chunk", [3, 12])
+@pytest.mark.parametrize("kind", CASES + ("wide",))
+def test_chunk_walk_sums_the_padded_rows(kind, chunk):
+    """CG1's layout held to the padded forms: the chunks of each block of
+    row_cuts (12 entries as the kernel's, as many as cg_layout gives the
+    block, or 3, so that most rows span chunks), walked as the kernel walks
+    them, give every row once, with K v over its live entries
+    (sparse_matvec_plain's sum) to rounding."""
+    idx, val, ln = _tables(kind)
+    q = ln.size
+    v = np.random.default_rng(9).normal(size=q)
+    ref = tcg.sparse_matvec_plain(torch.zeros(q, dtype=torch.float64), torch.from_numpy(idx),
+                                  torch.from_numpy(val), torch.from_numpy(ln), 1.0,
+                                  torch.from_numpy(v)).numpy()
+    got = np.full(q, np.nan)
+    full = _full_cuts(ln, 7)
+    first = tcg.cg_layout(torch.from_numpy(ln), 7)[1].numpy()
+    for b, (r0, r1) in enumerate(zip(full[:-1], full[1:])):
+        heads, backs, words, vals = _chunks(idx, val, ln, r0, r1, chunk)
+        assert sum(map(len, words)) == np.maximum(ln[r0:r1], 1).sum()
+        if chunk == tcg.CHUNK:  # the block's chunks fill its slots of the layout
+            assert len(words) == first[b + 1] - first[b]
+        rows = _walk(heads, backs, words, vals, v)
+        assert sorted(rows) == list(range(r1 - r0))
+        for row, s in rows.items():
+            got[r0 + row] = s
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)

@@ -1148,6 +1148,102 @@ def test_cg_solve_kernel_matches_plain(dev, dtype, kind):
     assert (x.cpu() - px).abs().max().item() <= tol * px.abs().max().item()
 
 
+def _wide_cg_system(dtype, dev, kids):
+    """A CG sampler's system on a pedigree in which one sire has `kids`
+    offspring by as many dams (his A^-1 row 1 + 2 kids entries: 91 past 8 x
+    8 at 45; 4,401 at 2,200, more chunks than a round of CG1's threads), so
+    that the blocks beside his row own no rows."""
+    from nextgp_tpu_torch.data import pedigree as P
+
+    rng = np.random.default_rng(7)
+    f = 50 + kids  # founders: sires 0 .. 49, dams 50 .. f - 1
+    q = f + kids + 55
+    ids = [f"a{i}" for i in range(q)]
+    sires, dams = [None] * q, [None] * q
+    for i in range(f, q):
+        first = i < f + kids
+        sires[i] = ids[0] if first else ids[rng.integers(1, 50)]
+        dams[i] = ids[50 + (i - f) if first else rng.integers(50, f)]
+    ped = ngt.build_pedigree(ids, sires, dams)
+    idx, val = P.a_inverse_padded(ped)
+    sire, dam, dsq = P.a_inverse_factor(ped)
+    z_idx = rng.integers(0, q, q + 100)
+    spec = ngt.ModelSpec(y=rng.normal(size=z_idx.size), fixed=[ngt.FixedTerm("int", np.ones(z_idx.size))],
+                         random=[ngt.RandomTerm("a", None, prior=ngt.Random("A", 0.7, sampler="cg"),
+                                                z_idx=z_idx, n_levels=q,
+                                                sparse_struct=dict(iv_idx=idx, iv_val=val, sire=sire,
+                                                                   dam=dam, dinv_sqrt=dsq))])
+    plan, st = ngt.assemble(spec, device="cpu", dtype=torch.float64)
+    rp, rs = plan.random[0], st.random[0]
+    assert int(rp.iv_len.max()) == 1 + 2 * kids
+
+    def to(t):
+        return t.to(dev, dtype if t.is_floating_point() else t.dtype)
+
+    return (to(rp.z_diag / 1.3), to(rs.iv_idx), to(rs.iv_val), to(rp.iv_len),
+            to(torch.tensor(1 / 0.7, dtype=torch.float64)), to(torch.from_numpy(rng.normal(size=q))),
+            to(torch.from_numpy(rng.normal(size=q))))
+
+
+@pytest.mark.parametrize("kids", [45, 2200])
+@pytest.mark.parametrize("staged", [0, 5])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_solve_streamed_chunks_match_staged(dev, dtype, staged, kids):
+    """CG1 on a system with a row wider than 8 x 8 entries (and one wider
+    than a round of chunks) and blocks that own no rows: with every chunk of
+    K in shared memory (the default here) and with none or 5 a block there,
+    the rest streamed from scratch, the same bits (one layout, one order of
+    sums), the plain version's iteration count, x within 1e-10 of scale
+    solved to 1e-12 in float64 (1e-5 in float32, solved to 1e-4 as in
+    test_cg_solve_kernel_matches_plain; the system with a row of 4,401
+    entries to 1e-3: at 1e-4 its float32 residual lies in rounding noise,
+    where the kernel stopped after 26 iterations and the plain version
+    after 27), and the same bits twice."""
+    from nextgp_tpu_torch.ops import cg
+
+    args = _wide_cg_system(dtype, dev, kids)
+    grid = _cuda.lib().ngt_cg_solve_grid(int(dtype == torch.float64))
+    full = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), cg.row_cuts(args[3], grid),
+                      torch.full((1,), args[3].numel(), dtype=torch.int32, device=dev)])
+    assert (full.diff() == 0).any()
+    lim = dict(tol=1e-12 if dtype == torch.float64 else 1e-4 if kids == 45 else 1e-3)
+    x, it, res = cg.cg_solve_sparse_kernel(*args, **lim)
+    sx, sit, sres = cg.cg_solve_sparse_kernel(*args, **lim, staged=staged)
+    sx2, _, _ = cg.cg_solve_sparse_kernel(*args, **lim, staged=staged)
+    assert torch.equal(x, sx) and torch.equal(it, sit) and torch.equal(res, sres) and torch.equal(sx, sx2)
+    px, pit, _ = cg.cg_solve_sparse_plain(*(t.cpu() for t in args), **lim)
+    assert int(it) == int(pit) and 0 < int(it) < 1000
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    assert (x.cpu() - px).abs().max().item() <= tol * px.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_plan_layout_sizes_scratch_by_live_entries(dev, dtype):
+    """plan_layout (made once on the host, as the plan makes it) against
+    cg_layout made on the card for the same grid: the same cuts and chunk
+    slots, fewer slots than the padded width's bound; a solve given it the
+    same bits as one without (the wrapper's own layout, its scratch sized by
+    the padded width); a layout for another grid refused; and an A-cg plan
+    assembled on the card carries the layout of its live lengths."""
+    from nextgp_tpu_torch.ops import cg
+
+    args = _wide_cg_system(dtype, dev, 45)
+    grid = _cuda.lib().ngt_cg_solve_grid(int(dtype == torch.float64))
+    cuts, first, slots = cg.plan_layout(args[3].cpu(), dtype, dev)
+    dcuts, dfirst = cg.cg_layout(args[3], grid)
+    assert torch.equal(cuts, dcuts) and torch.equal(first, dfirst) and slots == int(first[-1])
+    assert slots < args[3].numel() * args[1].shape[1] // cg.CHUNK + grid
+    lim = dict(tol=1e-12 if dtype == torch.float64 else 1e-4)
+    x, it, res = cg.cg_solve_sparse(*args, **lim)
+    lx, lit, lres = cg.cg_solve_sparse(*args, **lim, layout=(cuts, first, slots))
+    assert torch.equal(x, lx) and torch.equal(it, lit) and torch.equal(res, lres)
+    with pytest.raises(ValueError, match="grid"):
+        cg.cg_solve_sparse(*args, **lim, layout=(cuts[:-1], first[:-1], slots))
+    plan, _ = ngt.assemble(_acg_spec(), device=dev, dtype=dtype, vshards=4)
+    rp = plan.random[0]
+    assert all(torch.equal(a, b) for a, b in zip(rp.cg_layout, cg.cg_layout(rp.iv_len, grid)))
+
+
 def test_cg_solve_refuses_what_it_does_not_take(dev):
     from nextgp_tpu_torch.ops import cg
 
@@ -1262,14 +1358,15 @@ def _corr_level_inputs(q, n_t, dev, seed=0):
     return ivstr, yi, zpz.contiguous(), z, u, torch.tensor(1.7, device=dev), ivu
 
 
-@pytest.mark.parametrize("n_t", [1, 2, 3, 5])
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("q", [1, 31, 33, 193, 3001, 25_000])
 def test_corr_level_scan_matches_plain(dev, q, n_t):
     """RE2 at one level, either side of a group, one past the look-ahead's
     192 levels, at q = 3,001 (not a multiple of 4) and 25,000 (owners of two
-    row blocks), for nT = 1 .. 3 (the cooperative form) and 5 (the generic
-    form, three and 25 tiles): within 1e-4 of u's scale of the plain
-    version, the same bits from two launches, one count per call."""
+    row blocks), for nT = 1 .. 4 (the cooperative form, its rule built in
+    the kernel; at 4 one ring slot fewer) and 5 (the generic form, three
+    and 25 tiles): within 1e-4 of u's scale of the plain version, the same
+    bits from two launches, one count per call."""
     from nextgp_tpu_torch.ops import random_scan
 
     args = _corr_level_inputs(q, n_t, dev, q + n_t)
@@ -1280,6 +1377,26 @@ def test_corr_level_scan_matches_plain(dev, q, n_t):
     assert _rel(out, ref) < 1e-4
     assert torch.equal(out, random_scan.corr_level_scan(*args))
     assert _cuda.LAUNCHES["corr_level_scan"] == before + 2
+
+
+def test_corr_level_scan_non_positive_definite_level_gives_nan(dev):
+    """A level whose lhs is not positive definite (its cross-products made
+    negative definite): the rule the kernel builds gives NaN there (and so
+    in the levels after it, which it couples to), and the call makes no
+    host sync."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    args = list(_corr_level_inputs(100, 2, dev, 3))
+    args[2] = args[2].clone()
+    args[2][40] = -10.0 * torch.eye(2, device=dev)
+    random_scan.corr_level_scan(*args)  # the first call builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = random_scan.corr_level_scan(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out[:, :40]).all() and torch.isnan(out[:, 40]).all()
 
 
 def _corr_block_inputs(V, B, n_t, dev, seed=0, pad=0):

@@ -65,6 +65,43 @@ def test_roofline_devices():
             t_diag.roofline(plan, device=tpu)
 
 
+@pytest.mark.parametrize("iterations", [1, 120])
+def test_roofline_counts_a_cg_term(iterations):
+    """A CG term adds cg_work's bytes for the iterations given: a solve
+    reads the padded A^-1's live entries (an int32 index and a float64 value
+    each) and the rows' lengths once, and an iteration seven float64
+    vectors; without the iterations the roofline of a plan with a CG term
+    raises."""
+    from nextgp_tpu_torch.data import pedigree as tped
+
+    rng = np.random.default_rng(3)
+    q = 80
+    ids = [f"a{i}" for i in range(q)]
+    sires, dams = [None] * q, [None] * q
+    for i in range(16, q):
+        s, d = rng.integers(0, i // 2, 2)
+        sires[i], dams[i] = ids[s], ids[d] if s != d else None
+    ped = tped.build_pedigree(ids, sires, dams)
+    idx, val = tped.a_inverse_padded(ped)
+    sire, dam, dsq = tped.a_inverse_factor(ped)
+    y = rng.normal(size=N)
+    base = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))])
+    with_cg = ngt.ModelSpec(y=y, fixed=base.fixed, random=[ngt.RandomTerm(
+        "A", None, prior=ngt.Random("A", 0.5, sampler="cg"), z_idx=rng.integers(0, q, N), n_levels=q,
+        sparse_struct=dict(iv_idx=idx, iv_val=val, sire=sire, dam=dam, dinv_sqrt=dsq))])
+    plans = [ngt.assemble(s, device="cpu", dtype=torch.float64)[0] for s in (base, with_cg)]
+    got = (t_diag.roofline(plans[1], device="cpu", cg_iterations=iterations).bytes_per_sweep
+           - t_diag.roofline(plans[0], device="cpu", cg_iterations=iterations).bytes_per_sweep)
+    k = np.arange(idx.shape[1])
+    live = int(((idx != 0) | (val != 0.0)).sum())
+    assert live == int((k < plans[1].random[0].iv_len.numpy()[:, None]).sum())
+    assert got == live * (4 + 8) + q * 4 + iterations * q * 7 * 8
+    assert t_diag.cg_work(live, q, torch.float64, iterations)[0] == got
+    with pytest.raises(ValueError, match="cg_iterations"):
+        t_diag.roofline(plans[1], device="cpu")
+    assert t_diag.roofline(plans[0], device="cpu").bytes_per_sweep > 0  # no CG term: none needed
+
+
 def test_sweep_meter_counts():
     meter, ref = t_diag.SweepMeter(10), j_diag.SweepMeter(10)
     assert meter.eta_s is None and ref.eta_s is None

@@ -110,7 +110,7 @@ def test_state_fields_match(name):
     jnames = [f.name for f in dataclasses.fields(getattr(jmod, name))]
     tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
     extra = {"ModelState": ["sweep_counter"],
-             "RandomPlan": ["z_rows", "sire_kids", "dam_kids", "iv_len", "z_diag"],
+             "RandomPlan": ["z_rows", "sire_kids", "dam_kids", "iv_len", "z_diag", "cg_layout"],
              "CorrMarkerPlan": ["region_rows", "region_len"]}
     assert tnames == jnames + extra.get(name, [])
     if name in ("RandomPlan", "CorrMarkerPlan"):

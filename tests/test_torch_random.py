@@ -532,7 +532,7 @@ def test_runners_keep_the_loop_draws(kind):
     _runners_keep_the_loop_draws(kind)
 
 
-def test_replayed_runners_refuse_a_cg_term():
+def test_replayed_runners_take_a_cg_term():
     """The runners that replay on the card take a CG term too: on the CPU,
     with a KeyedStream, make_scan_sampler and run_lmem run the A-cg plan
     and keep the draws of a loop of make_sweep, bit for bit, and each sweep
@@ -568,8 +568,9 @@ def test_correlated_group_raises():
 def test_trace_and_roofline_see_the_random_stage(tmp_path):
     """The random stage runs under its `gibbs.random.<i>` scope, between the
     fixed blocks and the markers, and the roofline adds its bytes: Z twice,
-    Z' once, the structure twice (a CG term counts none: its iterations
-    depend on the data)."""
+    Z' once, the structure twice; a CG term the bytes of the iterations it
+    is given (diag.cg_work over the live entries of K; its iterations
+    depend on the data, so the roofline takes them from the caller)."""
     from nextgp_tpu_torch import diag
 
     _, ts = _specs("A-scan")
@@ -586,5 +587,8 @@ def test_trace_and_roofline_see_the_random_stage(tmp_path):
     extra = diag.roofline(plan).bytes_per_sweep - diag.roofline(bare).bytes_per_sweep
     assert extra == 8 * (3.0 * N * q + 2.0 * q * q)
     cg_plan, _ = ngt.assemble(_specs("A-cg")[1], device="cpu")
-    assert diag.roofline(cg_plan).bytes_per_sweep == diag.roofline(dataclasses.replace(
-        cg_plan, random=())).bytes_per_sweep
+    rp = cg_plan.random[0]
+    for iters in (1, 50):
+        extra = diag.roofline(cg_plan, cg_iterations=iters).bytes_per_sweep - diag.roofline(
+            dataclasses.replace(cg_plan, random=()), cg_iterations=iters).bytes_per_sweep
+        assert extra == diag.cg_work(int(rp.iv_len.sum()), rp.q, cg_plan.dtype, iters)[0] > 0

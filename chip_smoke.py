@@ -18,10 +18,12 @@ and check them.
     python3 chip_smoke.py random DIR  # the same, and RE1 against DIR's (another
                                  # tree's csrc/, e.g. a `git archive` of the parent
                                  # under _checkout/) in turns P, C, C, P
-    python3 chip_smoke.py corr [DIR]  # phases 1-2 and phase 9 alone; with DIR (another
-                                 # tree's csrc/ with this tree's C interface of RE2),
-                                 # RE2 and the BayesR+A2 replayed sweep also with
-                                 # DIR's RE2, in turns P, C, C, P
+    python3 chip_smoke.py corr [DIR]  # phases 1-2 and phase 9 alone, with CM1's ablation
+                                 # builds; with DIR (another tree's csrc/ with this
+                                 # tree's C interface of RE2 and CM1), RE2 and the BayesR+A2
+                                 # replayed sweep also with DIR's RE2, and CM1, its
+                                 # rule and the MultiBreed replayed sweeps with DIR's
+                                 # CM1, in turns P, C, C, P
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -139,16 +141,19 @@ Phases (any failed check raises and the script exits non-zero):
      csrc/level_scan.cu) against its plain version at q = 10,000 on phase
      8's A^-1 for nT = 1, 2, 3 (and at q = 1, 31, 33, 193, 3,001 for nT = 1,
      2, 3, 5), beside RE1 on the same structure and the library's triangular
-     solve of the same system; CM1 (the correlated block scan,
-     csrc/corr_scan.cu) against its plain version at the MultiBreed path's
-     first step at V = 96 and V = 1, beside K6 on one set's Gram and the
-     library's batched solve; "MultiBreed", two 10,000 x 49,152 panels of
+     solve of the same system; CM1 (the correlated block-step,
+     csrc/corr_scan.cu: rows read in place, r0, centres and sum(y) folded
+     in, beta written into the sweep's buffer) against its plain version at
+     the MultiBreed path's first step at V = 96 and V = 1, beside its byte
+     and dependent-chain bounds, K6 on one set's Gram and the library's
+     batched solve, and CM1's rule launch against the torch pack;
+     "MultiBreed", two 10,000 x 49,152 panels of
      one set of loci (500 causal loci, effects correlated 0.5 between the
      sets) under BayesPR with a 2 x 2 v and regions of 100 loci (492), at
      V = 96 and V = 1, and "BayesR+A2", phase 8's BayesR path plus an
      (intercept, slope) animal group on its 10,000-animal pedigree with one
      shared incidence: each 100 sweeps of run_lmem with launch counts (K1,
-     CM1, K2; K1, K3, K2, RE2), drift, finite draws, every kept covariance
+     CM1, K2, the rule; K1, K3, K2, RE2), drift, finite draws, every kept covariance
      positive definite, then eager and replayed from one KeyedStream with
      the same bits, steady ms/sweep, kernels a replayed sweep and the idle
      share; EBV and u correlations with the planted values printed; last,
@@ -2043,7 +2048,8 @@ def re1_phase(plan, st, other=None):
 
 def by_kernel(fn, reps, ph, name, quiet=False):
     """Device ms per call of fn by kernel name, from one profiled window,
-    printed unless quiet; returns their sum."""
+    printed unless quiet; returns their sum, or None (not measured) where
+    the window came back with no records."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2053,6 +2059,9 @@ def by_kernel(fn, reps, ph, name, quiet=False):
             fn()
         torch.cuda.synchronize()
     recs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+    if not recs:
+        print(f"chip_smoke: note: {name}: the profiled window of {reps} calls has no records; not measured")
+        return None
     for e in sorted(recs, key=lambda e: -e.self_device_time_total) if not quiet else ():
         print(f"[{ph}] {name} on the card, per call: {e.self_device_time_total / reps / 1e3:.4f} ms in "
               f"{e.count / reps:g} launches of {e.key[:80]}")
@@ -2793,65 +2802,306 @@ def re2_phase(ainv, other=None):
     return out
 
 
-def cm1_phase(plan, st):
-    """9.2: CM1 against its plain version at the MultiBreed path's first
-    step (its Gram, a first sweep's rule rows), at V as assembled, the same
-    bits twice, its time on the card alone beside K6 on the first set's
-    Gram at the same (V, B) in the same call and the library's batched
-    triangular solve of the same systems."""
-    cs, cp = st.corr_markers[0], plan.corr_markers[0]
-    n_t, V, B = cp.n_t, cp.vshards, cp.block
-    g = torch.Generator(device=DEV).manual_seed(31)
-    z = torch.randn(cp.p_pad, n_t, generator=g, device=DEV)
-    beta = torch.randn(cp.p_pad, n_t, generator=g, device=DEV) * 0.01
-    ivb = torch.linalg.inv(cs.var_beta)[torch.clamp(cs.region_id, 0, cp.n_regions - 1).long()]
-    var_e = st.ycorr.var()
-    pk = corr_scan.corr_block_pack(beta, z, ivb, cs.mpm.reshape(-1, n_t, n_t), cs.mask.reshape(-1),
-                                   1.0 / var_e)
-    pk_t = pk.view(V, -1, B, pk.shape[-1])[:, 0].clone()
-    pk_t[..., :n_t] += torch.randn(V, B, n_t, generator=g, device=DEV) * 30
-    gram_t = (cs.gram, 0)
+# CM1's ablation builds: scratch copies of a tree's csrc/corr_scan.cu (start_build's
+# patches), each with one part of its design taken out (four loci a chain step, the
+# chain handed on at a named barrier with look-ahead sums); a source in which a patch
+# does not match exactly once fails the run
+CM1_ABLATIONS = (
+    ("whole", ()),
+    ("no shuffles", (("p[q][t] = __shfl_sync(kFull, acc[t], k0 + q);", "p[q][t] = acc[t];"),)),
+    ("no waits", (("  while (*reinterpret_cast<const volatile int*>(pub) < n) __nanosleep(64);\n", ""),
+                  ("    named_sync(1 + ((g - 1) & 1), 64);\n    stage(", "    stage("),
+                  ("    if (g > 0) named_sync(1 + ((g - 1) & 1), 64);\n", ""))),
+    ("no far products", (("  if (kFarSmem && g >= 2) stage_far(0);\n", ""),
+                         ("      if (w + 2 < g) stage_far(w + 1);\n", ""),
+                         ("    if (mine) {\n      // group w", "    if (false) {\n      // group w"))),
+    ("no look-ahead", (("      if (has_next) {\n", "      if (false) {\n"),)),
+    ("no staging", (("    if (staged) stage(g, lane, 32);  // into the slot group w has left\n", ""),)),
+)
+
+
+def tree_name(src):
+    """The name of the tree whose csrc/ directory src is."""
+    return Path(src).resolve().parent.parent.name
+
+
+def start_cm1_ablations(src):
+    """Start the nvcc builds of CM1_ABLATIONS on src's corr_scan.cu (src a
+    tree's csrc/): [(name, start_build's triple)]."""
+    text = (Path(src) / "corr_scan.cu").read_text()
+    check(all(text.count(old) == 1 for _, patches in CM1_ABLATIONS for old, _ in patches),
+          f"{src}: CM1_ABLATIONS do not fit its corr_scan.cu")
+    return [(name, start_build(src, "cm1_ablation", ["corr_scan.cu"], patches,
+                               label=f"{tree_name(src)} {name}"))
+            for name, patches in CM1_ABLATIONS]
+
+
+def finish_cm1_ablations(started):
+    """{name: cm1_lib} of start_cm1_ablations's builds."""
+    return {name: cm1_lib(finish_build(*b, "corr_scan"), b[0]) for name, b in started}
+
+
+class CM1Case:
+    """One block-step's inputs at the MultiBreed path's shapes: its step-0
+    Gram, the rule's rows of a random state (pk_g (V, T, B, W)), a random r0,
+    the step's centres, sum(y) and a zeroed beta buffer (V, T, B, nT); rows,
+    the step's complete rows as the plain block-step forms them."""
+
+    def __init__(self, plan, st, seed=31):
+        cs, cp = st.corr_markers[0], plan.corr_markers[0]
+        self.n_t, self.V, self.B = n_t, V, B = cp.n_t, cp.vshards, cp.block
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        self.z = torch.randn(cp.p_pad, n_t, generator=g, device=DEV)
+        self.bold = torch.randn(cp.p_pad, n_t, generator=g, device=DEV) * 0.01
+        self.var_e = st.ycorr.var()
+        self.rule_args = (self.bold, self.z, cs.var_beta, cs.region_id, cs.mpm.reshape(-1, n_t, n_t),
+                          cs.mask.reshape(-1), self.var_e)
+        self.pk = corr_scan.corr_rule_plain(*self.rule_args)
+        self.pk_g = self.pk.view(V, -1, B, self.pk.shape[-1])
+        self.gram_t = (cs.gram, 0)
+        self.r0 = torch.randn(V, B, n_t, generator=g, device=DEV) * 30
+        self.cb = cs.center[0]
+        self.sum_y = st.ycorr.sum()
+        self.beta = torch.zeros((V, self.pk_g.shape[1], B, n_t), device=DEV)
+        self.rows = self.pk_g[:, 0].clone()
+        self.rows[..., :n_t] += self.r0 - self.cb * self.sum_y
+        self.ivb = torch.linalg.inv(cs.var_beta)[torch.clamp(cs.region_id, 0, cp.n_regions - 1).long()]
+
+    def fold(self):
+        return self.r0, self.cb, self.sum_y
+
+
+def cm1_lib(lib, label):
+    """(step, calls, swaps) for another build of CM1 (an ablation build, or
+    another tree's csrc/corr_scan.cu) with this tree's C interface:
+    step(case) -> u is its one launch of a block-step on a CM1Case, through
+    this tree's launcher; calls() counts the launches; swaps: the
+    ops.corr_scan functions the sampler calls (corr_rule, corr_block_step)
+    through that build. A build without that interface
+    (ngt_corr_block_step: CM1 before the block-step's fold) is refused."""
+    check(hasattr(lib, "ngt_corr_block_step"),
+          f"{label}: its CM1 lacks this tree's C interface (ngt_corr_block_step)")
+    _cuda.bind_cm1(lib)
+    calls = [0]
+
+    def block_step(*args):
+        calls[0] += 1
+        return corr_scan.corr_block_step_with(lib, *args)
+
+    def rule(*args):
+        return (corr_scan.corr_rule_with(lib, *args) if args[0].shape[1] <= corr_scan.FAST_NT
+                else corr_scan.corr_rule_plain(*args))
+
+    def step(c):
+        return block_step(c.gram_t, c.pk_g, *c.fold(), c.beta)
+    return step, lambda: calls[0], dict(corr_rule=rule, corr_block_step=block_step)
+
+
+def cm1_ablations(ablations, case, tag):
+    """Step 1 of a CM1 redesign: each tree's ablation builds (CM1_ABLATIONS)
+    on one step's inputs, each launch alone on the card, and the split they
+    give: each part, the whole build's time less the build without it."""
+    out = {}
+    for tree, libs in ablations.items():
+        ms = {name: device_ms(lambda: step(case), 20, calls=calls) for name, (step, calls, _) in libs.items()}
+        split = {name[3:]: (None if ms["whole"] is None or v is None else ms["whole"] - v)
+                 for name, v in ms.items() if name != "whole"}
+        print(f"[9 corr] CM1{tag} ablations of {tree}, ms a step on the card alone: "
+              + ", ".join(f"{k} {v}" for k, v in ms.items()) + "; the part each takes out: "
+              + ", ".join(f"{k} {v}" for k, v in split.items()))
+        out[tree] = dict(device_ms=ms, split_ms=split)
+    return out
+
+
+def sm_clocks_mhz():
+    """(the SM clock, its maximum) in MHz, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    cur, mx = (float(x) for x in smi.stdout.splitlines()[0].split(","))
+    return cur, mx
+
+
+def cm1_latency_ms(B, n_t, mhz):
+    """CM1's dependent-chain bound for one step: B loci one after another,
+    each 2 nT + 1 dependent operations (the shuffle of its sums, M_j's nT
+    multiply-adds, the next locus's nT) of 4 cycles, at mhz."""
+    return B * (2 * n_t + 1) * 4 / (mhz * 1e3)
+
+
+def work_rule(p, n_regions, n_t):
+    """(bytes, operations) of the rule launch: beta, z, mpm, the mask and the
+    region ids read and the packed rows written once a locus, the regions'
+    covariances and varE once; a locus's two Gauss-Jordan inverses (2 nT^3
+    multiply-adds each), its Cholesky (nT^3 / 3) and lhs, M, c, adj (4 nT^2),
+    two operations a multiply-add."""
+    per_locus = 4 * (2 * n_t + n_t * n_t + 1 + corr_scan.pack_width(n_t)) + 1
+    return (p * per_locus + 4 * n_regions * n_t * n_t + 4,
+            round(p * 2 * (4 * n_t ** 3 + n_t ** 3 / 3 + 4 * n_t * n_t)))
+
+
+def rule_phase(case, p, n_regions, other=None):
+    """9.2a: the rule launch against its plain version (the torch pack,
+    corr_rule_plain) on the MultiBreed set's regions and a random state:
+    adj, c and M each within 1e-5 of its scale, the same bits twice; both
+    times on the card alone; with other, in turns P (the torch pack, the
+    parent's rule), C, C, P."""
+    n_t = case.n_t
+    W = corr_scan.pack_width(n_t)
 
     def kern():
-        return corr_scan.corr_block_scan_v_kernel(gram_t, pk_t, n_t)
+        return corr_scan.corr_rule_kernel(*case.rule_args)
 
     def plain():
-        return corr_scan.corr_block_scan_v_plain(cs.gram[0], pk_t, n_t)
+        return corr_scan.corr_rule_plain(*case.rule_args)
 
-    (b, u), (rb, ru) = kern(), plain()
-    b2, u2 = kern()
-    check(torch.isfinite(b).all().item() and torch.equal(b, b2) and torch.equal(u, u2),
-          "corr_block_scan_v: not finite, or two runs differ")
+    o, ref = kern(), plain()
+    check(torch.equal(o, kern()) and torch.isfinite(o).all().item(), "corr_rule: not finite, or two runs differ")
+    errs = {}
+    for part, sl in (("adj", slice(0, n_t)), ("c", slice(2 * n_t, 3 * n_t)), ("M", slice(3 * n_t, W))):
+        errs[part] = rel_err(o[:, sl], ref[:, sl])
+        check(errs[part][0] <= 1e-5 * errs[part][1], f"corr_rule: {part} within {errs[part][0]:.3e}")
+    check(torch.equal(o[:, n_t:2 * n_t], ref[:, n_t:2 * n_t]), "corr_rule: bold not copied")
+    dev, dev_p = device_ms(kern, 20), device_ms(plain, 20, records_per_launch=0)
+    e, sc = max((v for v in errs.values()), key=lambda v: v[0] / v[1])
+    report("corr_rule", e, sc, 1e-5, median_ms(kern, 20), median_ms(plain, 20), work_rule(p, n_regions, n_t),
+           f" (p = {p:,} loci, {n_regions} regions, nT = {n_t}: adj, c, M within "
+           + ", ".join(f"{k} {v[0]:.3e} of {v[1]:.3e}" for k, v in errs.items())
+           + f"; the torch pack on the card alone {dev_p} ms; not a TPU kernel: the counterpart of the "
+           "per-locus rule in the block lax.scan of sample_corr_marker_set)", phase="9 corr", dev_ms=dev)
+    out = dict(device_ms=dev, plain_device_ms=dev_p, errors={k: v[0] for k, v in errs.items()})
+    if other is not None:
+        rows = [dict(arm=arm, device_ms=device_ms(plain, 20, records_per_launch=0) if arm == "P"
+                     else device_ms(kern, 20)) for arm in "PCCP"]
+        print("[9 corr] the rule, arms P (the torch pack), C, C, P on the card alone: "
+              + ", ".join(f"{r['arm']} {r['device_ms']}" for r in rows) + " ms")
+        out["arms"] = rows
+    return out
+
+
+def cm1_arms(other, case, tag):
+    """Another tree's CM1 (P, cm1_lib) and this tree's (C) on one
+    block-step, in turns P, C, C, P on the card alone. P is first held to
+    C's plain version."""
+    step_p, calls_p, _ = other
+    ref = torch.zeros_like(case.beta)
+    ru = corr_scan.corr_block_step_plain(case.gram_t[0][0], case.pk_g, 0, *case.fold(), ref)
+    u = step_p(case)
+    e, sc = rel_err(case.beta[:, 0], ref[:, 0])
+    check(e <= TOL_CORR * sc and rel_err(u, ru)[0] <= TOL_CORR * rel_err(u, ru)[1],
+          f"corr_block_scan_v{tag}: the other tree's CM1 within {e:.3e} of {sc:.3e}")
+    rows = [dict(arm=arm, device_ms=device_ms(lambda: step_p(case), 20, calls=calls_p) if arm == "P"
+                 else device_ms(lambda: corr_scan.corr_block_step_kernel(
+                     case.gram_t, case.pk_g, *case.fold(), case.beta), 20)) for arm in "PCCP"]
+    print(f"[9 corr] CM1{tag}, arms P, C, C, P on the card alone: "
+          + ", ".join(f"{r['arm']} {r['device_ms']}" for r in rows) + " ms")
+    return rows
+
+
+def cm1_phase(plan, st, ablations=None, other=None):
+    """9.2: CM1's block-step (the folded launch: rows read in place, r0,
+    centres and sum(y) added, beta written into the (V, T, B, nT) buffer)
+    against its plain version at the MultiBreed path's first step (its Gram,
+    the rule's rows of a random state), at V as assembled, the same bits
+    twice and the buffer's other steps untouched, its time on the card alone
+    beside its byte and dependent-chain bounds, K6 on the first set's Gram
+    at the same (V, B) and the library's batched triangular solve of the
+    same systems; ablations: {tree: {name: cm1_lib}}, timed by
+    cm1_ablations; other: another tree's CM1 (cm1_lib), by cm1_arms."""
+    case = CM1Case(plan, st)
+    cs, cp = st.corr_markers[0], plan.corr_markers[0]
+    n_t, V, B = case.n_t, case.V, case.B
+    tag = "" if V > 1 else "_v1"
+    name = "corr_block_scan_v" + tag
+
+    def kern():
+        return corr_scan.corr_block_step_kernel(case.gram_t, case.pk_g, *case.fold(), case.beta)
+
+    ref = torch.zeros_like(case.beta)
+
+    def plain():
+        return corr_scan.corr_block_step_plain(cs.gram[0], case.pk_g, 0, *case.fold(), ref)
+
+    u, ru = kern(), plain()
+    b, rb = case.beta[:, 0].clone(), ref[:, 0]
+    check(torch.isfinite(b).all().item() and torch.equal(u, kern()) and torch.equal(b, case.beta[:, 0]),
+          f"{name}: not finite, or two runs differ")
+    check(not case.beta[:, 1:].any().item(), f"{name}: wrote outside its step of the beta buffer")
     e, sc = rel_err(b, rb)
     eu, scu = rel_err(u, ru)
-    check(eu <= TOL_CORR * scu, f"corr_block_scan_v: u max_abs_err {eu:.3e} of {scu:.3e}")
-    mat, rhs = corr_scan.corr_block_system(cs.gram[0], pk_t, n_t)
+    check(eu <= TOL_CORR * scu, f"{name}: u max_abs_err {eu:.3e} of {scu:.3e}")
+    mat, rhs = corr_scan.corr_block_system(cs.gram[0], case.rows, n_t)
 
     def library():
         return torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)
 
     e_l, _ = rel_err(library().view(V, B, n_t), ru)
-    check(e_l <= TOL_CORR * scu, f"corr_block_scan_v: the library solve differs by {e_l:.3e}")
+    check(e_l <= TOL_CORR * scu, f"{name}: the library solve differs by {e_l:.3e}")
     # K6 in the same call, on the first set's Gram at the same (V, B)
     g6 = cs.gram[:, :, 0, :, :, 0].contiguous()  # (T, B, V, B)
-    pk6 = gibbs_kernels.gauss_block_pack(torch.zeros(cp.p_pad, device=DEV), beta[:, 0], z[:, 0],
-                                         ivb[:, 0, 0], cs.mpm[..., 0, 0].reshape(-1),
+    pk6 = gibbs_kernels.gauss_block_pack(torch.zeros(cp.p_pad, device=DEV), case.bold[:, 0], case.z[:, 0],
+                                         case.ivb[:, 0, 0], cs.mpm[..., 0, 0].reshape(-1),
                                          torch.zeros(cp.p_pad, device=DEV),
                                          torch.zeros(cp.p_pad, device=DEV), cs.mask.reshape(-1),
-                                         1.0 / var_e)
+                                         1.0 / case.var_e)
     pk6 = pk6.view(V, -1, B, 8)[:, 0].contiguous()
     k6_ms = device_ms(lambda: gibbs_kernels.gauss_block_scan_v((g6, 0), pk6), 20)
     ms_k, ms_p = median_ms(kern, 20), median_ms(plain, 3)
     dev = device_ms(kern, 20)
-    tag = "" if V > 1 else "_v1"
-    report("corr_block_scan_v" + tag, e, sc, TOL_CORR, ms_k, ms_p, work_cm1(V, B, n_t),
-           f" (V = {V}, B = {B}, nT = {n_t}, the MultiBreed panels' Gram, random rule inputs; "
-           f"u max_abs_err {eu:.3e} of {scu:.3e}; K6 on the first set's Gram at the same V, B in this "
-           f"call {k6_ms} ms on the card alone; the library's batched solve's max_abs_err {e_l:.3e}, "
-           "its systems built outside the timed window; not a TPU kernel: the counterpart of the block "
-           "lax.scan of sample_corr_marker_set)", phase="9 corr", dev_ms=dev,
+    mhz, mhz_max = sm_clocks_mhz()
+    lat = cm1_latency_ms(B, n_t, mhz)
+    report(name, e, sc, TOL_CORR, ms_k, ms_p, work_cm1(V, B, n_t),
+           f" (V = {V}, B = {B}, nT = {n_t}, the MultiBreed panels' Gram, the rule's rows of a random state "
+           f"with r0, the step's centres and sum(y) folded in; u max_abs_err {eu:.3e} of {scu:.3e}; the "
+           f"dependent-chain bound {lat:.6f} ms ({B} loci x {2 * n_t + 1} operations x 4 cycles at the "
+           f"{mhz:g} MHz SM clock nvidia-smi reports, maximum {mhz_max:g}); K6 on the first set's Gram at "
+           f"the same V, B in this call {k6_ms} ms on the card alone; the library's batched solve's "
+           f"max_abs_err {e_l:.3e}, its systems built outside the timed window; not a TPU kernel: the "
+           "counterpart of the block lax.scan of sample_corr_marker_set)", phase="9 corr", dev_ms=dev,
            library_ms=median_ms(library, 20), library_dev_ms=device_ms(library, 20, records_per_launch=0))
-    return dict(device_ms=dev, k6_device_ms=k6_ms, max_abs_err=e, scale=sc)
+    TIMINGS[name].update(latency_bound_ms=lat, sm_clock_mhz=mhz, sm_clock_max_mhz=mhz_max)
+    out = dict(device_ms=dev, k6_device_ms=k6_ms, max_abs_err=e, scale=sc, latency_bound_ms=lat)
+    if V > 1:
+        out["rule"] = rule_phase(case, cp.p_pad, cp.n_regions, other)
+    if ablations:
+        out["ablations"] = cm1_ablations(ablations, case, tag)
+    if other is not None:
+        out["arms"] = cm1_arms(other, case, tag)
+    return out
+
+
+def multibreed_arms(spec, V, other):
+    """MultiBreed's replayed sweep (KeyedStream) with another tree's CM1 (P:
+    the sampler's rule and block-step swapped for that tree's, cm1_lib's
+    swaps, while the sweep is captured) and this tree's (C) in turns P, C,
+    C, P: steady ms/sweep (CUDA events around 20 replays), device busy,
+    CM1's kernels and the rule launch's share of it, nodes and the idle
+    share."""
+    swaps = other[2]
+    plan, st0 = ngt.assemble(spec, vshards=V)
+    stream = keyed.KeyedStream(7, DEV, torch.float32)
+    orig = {k: getattr(corr_scan, k) for k in swaps}
+    rows = []
+    for arm in "PCCP":
+        for k in swaps:
+            setattr(corr_scan, k, swaps[k] if arm == "P" else orig[k])
+        try:
+            rep = engine_sweep.ReplayedSweep(plan, st0, stream)
+        finally:
+            for k in swaps:
+                setattr(corr_scan, k, orig[k])
+        ms = steady_ms(lambda: rep.run(1), 20)
+        busy, per_sweep, _, _, ms_by = replay_window(rep, 10)
+        cm1 = sum(v for k, v in ms_by.items() if "corr_scan_kernel" in k)
+        rule = sum(v for k, v in ms_by.items() if "corr_rule_kernel" in k)
+        rows.append(dict(arm=arm, replay_ms_per_sweep=ms, busy_ms=busy, cm1_ms=cm1, rule_ms=rule,
+                         idle_share=1.0 - busy / ms, nodes=per_sweep))
+        del rep
+    print(f"[9 MultiBreed V={V}] replayed, arms P, C, C, P: " + "; ".join(
+        f"{r['arm']} {r['replay_ms_per_sweep']:.4f} ms/sweep (busy {r['busy_ms']:.4f}, CM1's kernels "
+        f"{r['cm1_ms']:.4f}, the rule launch {r['rule_ms']:.4f}, idle share {r['idle_share']:.4f}, "
+        f"{r['nodes']} nodes)" for r in rows))
+    return rows
 
 
 def corr_path(tag, spec, V, checks):
@@ -2999,7 +3249,7 @@ def corr_replay_arms(spec, other):
     return rows
 
 
-def corr_phase(spec_for, sig, other=None):
+def corr_phase(spec_for, sig, other=None, ablations=None, other_cm1=None):
     """9: the correlated terms (ROADMAP M9). RE2 (9.1) and CM1 (9.2) against
     their plain versions; MultiBreed, two 10,000 x 49,152 panels correlated
     under BayesPR with a 2 x 2 v and 492 regions, at V=96 and V=1 (9.3);
@@ -3007,8 +3257,10 @@ def corr_phase(spec_for, sig, other=None):
     on phase 8's 10,000-animal pedigree (9.4); each as corr_path runs it;
     the kernel chains against the float64 plain chains (9.5). With other
     (another tree's RE2, other_corr_level_scan), RE2 and BayesR+A2's replayed
-    sweep also beside it in turns. Returns the numbers and the launch counts
-    by run."""
+    sweep also beside it in turns; with other_cm1 (another tree's CM1,
+    cm1_lib), CM1, the rule and MultiBreed's replayed sweep at both V;
+    ablations (CM1's, finish_cm1_ablations by tree) are timed at both V.
+    Returns the numbers and the launch counts by run."""
     out, counted = {}, {}
     t0 = time.perf_counter()
     ped, u1 = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
@@ -3024,10 +3276,10 @@ def corr_phase(spec_for, sig, other=None):
     print(f"[9 MultiBreed] {plan.corr_markers[0].n_regions} regions; on the card: panels "
           f"{cs.mt.numel() / 1e6:.1f} MB, Grams {4 * cs.gram.numel() / 1e6:.1f} MB (state "
           f"{(torch.cuda.memory_allocated() - mem0) / 1e6:.1f} MB)")
-    out["CM1 V=96"] = cm1_phase(plan, st)
+    out["CM1 V=96"] = cm1_phase(plan, st, ablations, other_cm1)
     del plan, st, cs
     plan, st = ngt.assemble(spec_m, vshards=1)
-    out["CM1 V=1"] = cm1_phase(plan, st)
+    out["CM1 V=1"] = cm1_phase(plan, st, ablations, other_cm1)
     del plan, st
 
     for V in (V_MAIN, 1):
@@ -3040,11 +3292,13 @@ def corr_phase(spec_for, sig, other=None):
             print(f"[9 MultiBreed V={V}] EBV corr (posterior-mean beta of both sets) with the planted "
                   f"signal over 2,048 individuals {corr(gv[:2048], sig_m[:2048]):.4f} (printed only)")
             n = cp.n_blocks // V * N_CHAIN_CM
-            return dict(pack2_matvec=n, pack2_rank_update=n, corr_block_scan_v=n)
+            return dict(pack2_matvec=n, pack2_rank_update=n, corr_block_scan_v=n, corr_rule=N_CHAIN_CM)
 
         launches, klaunches, rec = corr_path(f"MultiBreed V={V}", spec_m, V, checks)
         counted[f"MultiBreed V={V}"], counted[f"MultiBreed keyed V={V}"] = launches, klaunches
         out[f"MultiBreed V={V}"] = rec
+        if other_cm1 is not None:
+            out[f"MultiBreed V={V} replay arms"] = multibreed_arms(spec_m, V, other_cm1)
     del spec_m
 
     spec = spec_for("BayesR")
@@ -3078,10 +3332,20 @@ def corr_phase(spec_for, sig, other=None):
 
 def corr_only(spec_for, sig, card, other_src=None):
     """`python3 chip_smoke.py corr [DIR]`: phase 9 alone, the quick form for
-    work on the correlated terms; with DIR (another tree's csrc/), RE2 and
-    BayesR+A2's replayed sweep also against DIR's in turns P, C, C, P. One
-    JSON line of its numbers, and no result line."""
-    out, counted = corr_phase(spec_for, sig, None if other_src is None else other_corr_level_scan(other_src))
+    work on the correlated terms, with CM1's ablation builds of this tree
+    (CM1_ABLATIONS); with DIR (another tree's csrc/), DIR's ablation builds
+    too, and RE2, CM1, the rule, and the BayesR+A2 and MultiBreed replayed
+    sweeps also against DIR's in turns P, C, C, P. One JSON line of its
+    numbers, and no result line."""
+    srcs = [_cuda.CSRC] + ([] if other_src is None else [other_src])
+    started = [start_cm1_ablations(src) for src in srcs]
+    other = other_cm1 = None
+    if other_src is not None:
+        build = start_build(other_src, "cm1_other", ["corr_scan.cu"])
+        other = other_corr_level_scan(other_src)
+        other_cm1 = cm1_lib(finish_build(*build, "corr_scan"), build[0])
+    ablations = {tree_name(src): finish_cm1_ablations(st) for src, st in zip(srcs, started)}
+    out, counted = corr_phase(spec_for, sig, other, ablations, other_cm1)
     print(json.dumps({"card": card, "corr": out, "launches": counted,
                       **{k: TIMINGS.get(k) for k in TIMINGS if k.startswith("corr_")}}))
 
@@ -3137,6 +3401,8 @@ SOURCES = {
                           "corr_block_scan_v", (f"MultiBreed V={V_MAIN}",)),
     "corr_block_scan_v_v1": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
                              "corr_block_scan_v", ("MultiBreed V=1",)),
+    "corr_rule": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:901", "corr_rule",
+                  (f"MultiBreed V={V_MAIN}", "MultiBreed V=1")),
     "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg",)),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
@@ -3157,7 +3423,11 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
                      "random_effects.py:45-106); timed at a second sweep's system of the "
                      "100,000-animal model (float64); launches from phase 8.4's run_lmem "
                      "(PhiloxStream, eager) run",
-         "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v"}
+         "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v",
+         "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
+                      "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
+                      "sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:877-878, "
+                      "901-905); launches from phase 9's run_lmem (PhiloxStream, eager) runs"}
 # the scripts' other kernels compute what these compute; the ladder launches these at their shapes
 ALSO_REPLACES = {
     "pack2_matvec": ["scripts/micro_frontier.py:111"],

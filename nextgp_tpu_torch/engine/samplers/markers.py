@@ -385,19 +385,17 @@ def sample_corr_marker_set(stream, site, cs, cp: CorrMarkerPlan, ycorr, var_e):
     per-locus MvNormal across the nT sets and a per-region inverse-Wishart
     covariance (sampleVarCovBetaPR, functions.jl:513-516). No weighting and
     no summary statistics, as in the reference. A block-step is K1 over its
-    V * B * nT rows (one per locus and set), CM1 on the V chains, and K2 on
-    the same rows; the per-locus rule of every locus comes first
-    (ops/corr_scan.corr_block_pack). The region sums are fixed-order
+    V * B * nT rows (one per locus and set), CM1 on the V chains (which adds
+    r0 - centre * sum(y) to its rows and writes beta in place), and K2 on
+    the same rows; the per-locus rule of every locus comes first, one
+    launch (ops/corr_scan.corr_rule). The region sums are fixed-order
     gathers, and every region's inverse-Wishart is one split-batched draw
     of normals and one of gammas. Returns (state, ycorr)."""
     n_t = cp.n_t
     kz, kv = site.split(2)
     z = stream.normal(kz, (cp.p_pad, n_t))
-    ive = 1.0 / var_e
-    ivr = torch.linalg.inv_ex(cs.var_beta, check_errors=False)[0]  # (n_regions, nT, nT)
-    ivb = ivr[torch.clamp(cs.region_id, 0, cp.n_regions - 1).long()]
-    pk = corr_scan.corr_block_pack(cs.beta, z, ivb, cs.mpm.reshape(-1, n_t, n_t),
-                                   cs.mask.reshape(-1), ive)
+    pk = corr_scan.corr_rule(cs.beta, z, cs.var_beta.contiguous(), cs.region_id,
+                             cs.mpm.reshape(-1, n_t, n_t), cs.mask.reshape(-1), var_e)
 
     T, V, B, _, q = cs.mt.shape
     n = ycorr.shape[0]
@@ -407,13 +405,10 @@ def sample_corr_marker_set(stream, site, cs, cp: CorrMarkerPlan, ycorr, var_e):
     beta = torch.empty((V, T, B, n_t), dtype=ycorr.dtype, device=ycorr.device)
     for t in range(T):
         cb = cs.center[t]  # (V, B, nT)
-        pk_t = pk_g[:, t].clone()
         r0 = pack2.matvec_step(mt_rows, t, pack2.y_planar(y), V * B * n_t).view(V, B, n_t)
-        pk_t[..., :n_t] += r0 - cb * y.sum()
-        beta_t, u = corr_scan.corr_block_scan_v((cs.gram, t), pk_t, n_t)
+        u = corr_scan.corr_block_step((cs.gram, t), pk_g, r0, cb, y.sum(), beta)
         corr = pack2.rank_update_step(mt_rows, t, u.reshape(-1)).reshape(-1) - (u * cb).sum()
         y[:n] += corr[:n]  # the padded entries stay zero
-        beta[:, t] = beta_t
     beta = beta.reshape(cp.p_pad, n_t)
 
     # per-region InverseWishart (functions.jl:152, :513-516)

@@ -35,7 +35,7 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
             "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0,
-            "corr_level_scan": 0, "corr_block_scan_v": 0, "cg_solve": 0}
+            "corr_level_scan": 0, "corr_block_scan_v": 0, "corr_rule": 0, "cg_solve": 0}
 
 _lib = None
 
@@ -126,7 +126,7 @@ def lib() -> ctypes.CDLL:
         L.ngt_level_scan_scratch_words.argtypes = [I]
         L.ngt_level_scan_scratch_words.restype = ctypes.c_longlong
         bind_re2(L)
-        L.ngt_corr_block_scan_v.argtypes = [P] * 5 + [I] * 3 + [S]
+        bind_cm1(L)
         L.ngt_keyed_rng_f64.argtypes = L.ngt_keyed_rng.argtypes
         L.ngt_keyed_rng_rows_f64.argtypes = L.ngt_keyed_rng_rows.argtypes
         bind_cg(L)
@@ -135,7 +135,7 @@ def lib() -> ctypes.CDLL:
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
                    L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_keyed_rng_f64,
-                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan, L.ngt_corr_block_scan_v):
+                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib
@@ -151,6 +151,16 @@ def bind_re2(L: ctypes.CDLL) -> None:
     L.ngt_corr_level_scan_takes_rule.restype = I
     L.ngt_corr_level_scan_scratch_words.argtypes = [I, I]
     L.ngt_corr_level_scan_scratch_words.restype = I
+
+
+def bind_cm1(L: ctypes.CDLL) -> None:
+    """Bind CM1's C interface (csrc/corr_scan.cu: the block-step and the
+    rule launch) in a loaded library: the port's, or another build of that
+    source."""
+    I, P = ctypes.c_longlong, ctypes.c_void_p
+    L.ngt_corr_block_step.argtypes = [P, P, I, P, P, P, P, I, P, P, I, I, I, P]
+    L.ngt_corr_rule.argtypes = [P] * 8 + [I] * 3 + [P]
+    L.ngt_corr_block_step.restype = L.ngt_corr_rule.restype = ctypes.c_int
 
 
 def bind_cg(L: ctypes.CDLL) -> None:

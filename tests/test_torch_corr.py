@@ -354,9 +354,46 @@ def test_cm1_plain_matches_jax_loop(V):
                                    t(np.tile(mask, V)), t(ive)).view(V, B, -1).clone()
     pk[..., :n_t] += t(r0)
     gram = t(G).permute(1, 3, 0, 2, 4).contiguous()  # (B, nT, V, B, nT), the port's step layout
-    beta, u = corr_scan.corr_block_scan_v(gram, pk, n_t)
+    beta, u = corr_scan.corr_block_scan_v_plain(gram, pk, n_t)
     np.testing.assert_allclose(beta.numpy(), beta_ref, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(u.numpy(), bold - beta_ref, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("V,n_t", [(1, 2), (3, 3)])
+def test_cm1_step_plain_matches_composition(V, n_t):
+    """The block-step's plain route (corr_block_step on CPU tensors) and the
+    rule's (corr_rule) against the sampler's former composition, in float64
+    bit for bit: the regions' inverses gathered and packed by
+    corr_block_pack; then per step the step's rows cloned, r0 - cb * sum(y)
+    added, the scan, beta_t copied into the (V, T, B, nT) buffer."""
+    rng = np.random.default_rng(46 + V)
+    T, B, R = 3, 12, 4
+    p = V * T * B
+    X = rng.normal(size=(T, V, B, n_t, 20))
+    gram = torch.tensor(np.einsum("svjtn,svkwn->sjtvkw", X, X))  # (T, B, nT, V, B, nT)
+    mpm = torch.tensor(np.einsum("svjtn,svjwn->vsjtw", X, X).reshape(p, n_t, n_t))
+    bold, z = (torch.tensor(rng.normal(size=(p, n_t))) for _ in range(2))
+    m = rng.normal(size=(R, n_t, n_t))
+    var_beta = torch.tensor(m @ m.transpose(0, 2, 1) + np.eye(n_t))
+    region = torch.tensor(np.r_[rng.integers(0, R, p - 2), [R, R]], dtype=torch.int32)
+    mask = torch.arange(p) < p - 2
+    var_e = torch.tensor(1.7, dtype=torch.float64)
+    pk = corr_scan.corr_rule(bold, z, var_beta, region, mpm, mask, var_e)
+    ivr = torch.linalg.inv_ex(var_beta, check_errors=False)[0]
+    ivb = ivr[torch.clamp(region, 0, R - 1).long()]
+    assert torch.equal(pk, corr_scan.corr_block_pack(bold, z, ivb, mpm, mask, 1.0 / var_e))
+    pk_g = pk.view(V, T, B, -1)
+    y = torch.tensor(rng.normal(size=50))
+    beta, old = (torch.zeros((V, T, B, n_t), dtype=torch.float64) for _ in range(2))
+    for t in range(T):
+        r0, cb = (torch.tensor(rng.normal(size=(V, B, n_t))) for _ in range(2))
+        u = corr_scan.corr_block_step((gram, t), pk_g, r0, cb, y.sum(), beta)
+        pk_t = pk_g[:, t].clone()
+        pk_t[..., :n_t] += r0 - cb * y.sum()
+        beta_t, u_old = corr_scan.corr_block_scan_v_plain(gram[t], pk_t, n_t)
+        old[:, t] = beta_t
+        assert torch.equal(u, u_old)
+    assert torch.equal(beta, old)
 
 
 def test_single_stages_match():

@@ -39,8 +39,12 @@ twice, its refusals, an eager float64 A-cg sweep under the sync debug mode
 "error", and A-cg chains replayed with the eager chain's bits and
 iteration counts; R1's float64 output against its plain version; for the correlated terms
 RE2 (one level, either side of a group, three tiles at q = 3,001; nT = 1,
-2, 3 and the generic form at 5), CM1 (B = 16 and 256, V = 1 and 96, nT =
-1, 2 and the generic 5, with padded loci), each the same bits twice, R1's
+2, 3 and the generic form at 5), CM1's folded block-step (rows read in
+place, r0, centres and sum(y) added, beta written into the sweep's buffer;
+with them zero, against the plain scan on complete rows) and its rule
+launch (B = 16 and 256, V = 1 and 96, the block-step also at B = 100 and
+1000; nT = 1 .. 4 and the generic 5, with padded loci; NaN on a locus that
+is not positive definite), each the same bits twice, R1's
 split entry point against its plain version and each row against the
 single-site entry point, and both paths replayed with the eager chain's
 bits and following the plain chain.
@@ -1420,24 +1424,130 @@ def _corr_block_inputs(V, B, n_t, dev, seed=0, pad=0):
     return G, pk
 
 
-@pytest.mark.parametrize("n_t", [1, 2, 5])
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("V,B", [(1, 16), (1, 256), (96, 16), (96, 256)])
 def test_corr_block_scan_matches_plain(dev, V, B, n_t):
-    """CM1 at B in {16, 256}, V in {1, 96}, nT = 1, 2 (register forms) and 5
-    (the generic form), with padded loci: beta and u within 1e-4 of their
-    scale of the plain version, padded loci's beta 0, the same bits from two
-    launches."""
+    """CM1 on complete rows at B in {16, 256}, V in {1, 96}, nT = 1 .. 4
+    (register forms: three slots, two, one) and 5 (the generic form), with
+    padded loci: the folded block-step on a one-step (V, 1, B, W) pack with
+    r0, the centres and sum(y) zero against the plain scan
+    (corr_block_scan_v_plain): beta and u within 1e-4 of their scale,
+    padded loci's beta 0, the same bits from two launches."""
     from nextgp_tpu_torch.ops import corr_scan
 
     G, pk = _corr_block_inputs(V, B, n_t, dev, V * B + n_t, pad=3)
+    zero = torch.zeros((V, B, n_t), device=dev)
+    fold = (zero, zero, torch.zeros((), device=dev))
+    beta = torch.empty((V, 1, B, n_t), device=dev)
     before = _cuda.LAUNCHES["corr_block_scan_v"]
-    beta, u = corr_scan.corr_block_scan_v(G, pk, n_t)
+    u = corr_scan.corr_block_step((G[None], 0), pk[:, None], *fold, beta)
     rb, ru = corr_scan.corr_block_scan_v_plain(G, pk, n_t)
     assert torch.isfinite(beta).all() and torch.isfinite(u).all()
-    assert _rel(beta, rb) < 1e-4 and _rel(u, ru) < 1e-4
-    assert (beta[:, B - 3:] == 0).all()
-    b2, u2 = corr_scan.corr_block_scan_v(G, pk, n_t)
-    assert torch.equal(beta, b2) and torch.equal(u, u2)
+    assert _rel(beta[:, 0], rb) < 1e-4 and _rel(u, ru) < 1e-4
+    assert (beta[:, 0, B - 3:] == 0).all()
+    b1 = beta.clone()
+    u2 = corr_scan.corr_block_step((G[None], 0), pk[:, None], *fold, beta)
+    assert torch.equal(beta, b1) and torch.equal(u, u2)
+    assert _cuda.LAUNCHES["corr_block_scan_v"] == before + 2
+
+
+def _corr_rule_inputs(p, n_t, dev, seed=0, n_regions=7):
+    """The rule's inputs for p loci: beta, z, a positive definite mpm per
+    locus, seven regions' covariances, region ids (the last four loci past
+    the regions, as padded loci are), a mask with the last four loci
+    padded, varE."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bold, z = (torch.randn(p, n_t, generator=g, device=dev) * s for s in (0.1, 1.0))
+    x = torch.randn(p, 40, n_t, generator=g, device=dev)
+    mpm = torch.einsum("lkt,lku->ltu", x, x).contiguous()
+    m = torch.randn(n_regions, n_t, n_t, generator=g, device=dev)
+    var_beta = (m @ m.transpose(1, 2) / n_t * 0.01 + 0.01 * torch.eye(n_t, device=dev)).contiguous()
+    region = torch.randint(0, n_regions, (p,), generator=g, device=dev, dtype=torch.int32)
+    region[-4:] = n_regions
+    mask = torch.arange(p, device=dev) < p - 4
+    return bold, z, var_beta, region, mpm, mask, torch.tensor(1.3, device=dev)
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("V,B", [(1, 16), (1, 256), (96, 16), (96, 256)])
+def test_corr_rule_matches_pack(dev, V, B, n_t):
+    """CM1's rule launch on the rows of two steps of V chains of B loci
+    (nT = 1 .. 4) against its plain version (the regions' inverses gathered,
+    then corr_block_pack): adj, c and M each within 1e-5 of its scale, bold
+    copied, padded loci's c and M 0, the same bits twice, one count per
+    call; at nT = 5 the torch pack itself, with no launch."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    args = _corr_rule_inputs(V * 2 * B, n_t, dev, V + B + n_t)
+    before = _cuda.LAUNCHES["corr_rule"]
+    pk = corr_scan.corr_rule(*args)
+    ref = corr_scan.corr_rule_plain(*args)
+    if n_t > corr_scan.FAST_NT:
+        assert torch.equal(pk, ref) and _cuda.LAUNCHES["corr_rule"] == before
+        return
+    assert pk.shape == ref.shape and torch.isfinite(pk).all()
+    for sl in (slice(0, n_t), slice(2 * n_t, 3 * n_t), slice(3 * n_t, None)):
+        assert _rel(pk[:, sl], ref[:, sl]) < 1e-5
+    assert torch.equal(pk[:, n_t:2 * n_t], args[0])
+    assert (pk[-4:, 2 * n_t:] == 0).all()
+    assert torch.equal(pk, corr_scan.corr_rule(*args))
+    assert _cuda.LAUNCHES["corr_rule"] == before + 2
+
+
+def test_corr_rule_non_positive_definite_locus_gives_nan(dev):
+    """A locus whose lhs is not positive definite (its mpm made negative
+    definite): the rule launch gives NaN in its c, finite rows elsewhere,
+    and the call makes no host sync."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    args = list(_corr_rule_inputs(300, 2, dev, 5))
+    args[4] = args[4].clone()
+    args[4][40] = -1e3 * torch.eye(2, device=dev)
+    corr_scan.corr_rule(*args)  # the first call builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pk = corr_scan.corr_rule(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    others = torch.arange(300, device=dev) != 40
+    assert torch.isnan(pk[40, 4:6]).all() and torch.isfinite(pk[others]).all()
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("V,B", [(1, 16), (1, 256), (96, 16), (96, 256), (1, 100), (96, 100),
+                                 (1, 1000), (8, 1000)])
+def test_corr_block_step_matches_plain(dev, V, B, n_t):
+    """CM1's folded block-step at step 1 of two (B = 100 and 1000: a short
+    last group staged by 4-byte copies; B = 1000 the 1024-thread form, its
+    32 warps handing on at named barriers, its far products loaded from the
+    Gram): its rows read in place from the (V, 2, B, W) pack, K1's r0, the
+    step's centres and sum(y) (0-d) folded into adj, beta written into the (V, 2, B, nT) buffer; against
+    the plain block-step (clone, add, scan, copy): beta and u within 1e-4
+    of their scale, padded loci's beta exactly 0, step 0 of the buffer
+    untouched, step 0 of the Gram and of the rows never read (NaN there),
+    the same bits from two launches, one count per call."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    G, pk = _corr_block_inputs(V, B, n_t, dev, V * B + n_t + 7, pad=3)
+    gram = torch.stack([torch.full_like(G, float("nan")), G])
+    pk_g = torch.stack([torch.full_like(pk, float("nan")), pk], dim=1).contiguous()  # (V, 2, B, W)
+    g = torch.Generator(device=dev).manual_seed(B + n_t)
+    r0, cb = (torch.randn(V, B, n_t, generator=g, device=dev) for _ in range(2))
+    cb[:, B - 3:] = 0.0  # a padded locus has no centre
+    r0[:, B - 3:] = 0.0  # nor a K1 sum
+    sum_y = torch.tensor(2.5, device=dev)
+    beta = torch.full((V, 2, B, n_t), 7.0, device=dev)
+    ref = beta.clone()
+    before = _cuda.LAUNCHES["corr_block_scan_v"]
+    u = corr_scan.corr_block_step((gram, 1), pk_g, r0, cb, sum_y, beta)
+    ru = corr_scan.corr_block_step_plain(G, pk_g, 1, r0, cb, sum_y, ref)
+    assert torch.isfinite(beta).all() and torch.isfinite(u).all()
+    assert _rel(beta[:, 1], ref[:, 1]) < 1e-4 and _rel(u, ru) < 1e-4
+    assert (beta[:, 1, B - 3:] == 0).all() and (beta[:, 0] == 7.0).all()
+    b1 = beta.clone()
+    u2 = corr_scan.corr_block_step((gram, 1), pk_g, r0, cb, sum_y, beta)
+    assert torch.equal(u, u2) and torch.equal(beta, b1)
     assert _cuda.LAUNCHES["corr_block_scan_v"] == before + 2
 
 

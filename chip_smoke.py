@@ -24,6 +24,7 @@ and check them.
                                  # replayed sweep also with DIR's RE2, and CM1, its
                                  # rule and the MultiBreed replayed sweeps with DIR's
                                  # CM1, in turns P, C, C, P
+    python3 chip_smoke.py runtime  # phases 1-2 and phase 10 alone
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -158,6 +159,23 @@ Phases (any failed check raises and the script exits non-zero):
      the same bits, steady ms/sweep, kernels a replayed sweep and the idle
      share; EBV and u correlations with the planted values printed; last,
      the kernel chains against the float64 plain chains on small models
+ 10. the runtime (ROADMAP M10, M11), replayed with KeyedStreams, its output
+     folders in a temporary directory removed afterwards: (a) BayesR at
+     V=96 through run_lmem without files and with files and a checkpoint
+     every 2 kept samples (in turns N, F, F, N), and stopped at 75 sweeps
+     and resumed to 100 (files
+     byte for byte, draws and final state bit for bit, EBV >= 0.95; ms/sweep
+     of each arm, a checkpoint's bytes and seconds); (b) phase 8's A-cg in
+     float64, 20 sweeps with a checkpoint every 5, stopped at 17 and
+     resumed (every leaf bit for bit, files byte for byte); (c) run_chains,
+     two chains of (a) with their own KeyedStreams, each the same bits as
+     its run_lmem, R-hat of varE finite, and with per-chain files and a
+     checkpoint every 2 kept samples stopped at 75 sweeps and resumed (the
+     files byte for byte, draws and the batched state bit for bit); (d) the posterior-mean beta of (a)
+     served by genomic_values (host f64) against genomic_values_state (K2
+     over the panel, f32) within 1e-5 of scale, and predict on 1,000 panel
+     rows within 1e-9 of genomic_values. The kernels line counts K1, K3,
+     K2, R1 and CG1 in these runs as the wrappers count a capture (once)
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -874,7 +892,8 @@ def slice_phase(path, spec, sig, card, V, n_chain=N_CHAIN, n_burn=N_BURN, n_thin
     _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
     ebv_limit, var_e_limit = EBV_LIMITS.get((path + tag, V)), VAR_E_LIMITS.get((path, V))
     _cuda.reset_launches()
-    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, seed=7, vshards=V)
+    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, out_folder=None, seed=7,
+                       vshards=V)
     launches = dict(_cuda.LAUNCHES)
     plan, st = res.plan, res.state
     T = plan.markers[0].n_blocks // plan.markers[0].vshards
@@ -1737,7 +1756,8 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     _cuda.reset_launches()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, vshards=V, stream=stream)
+    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, out_folder=None, vshards=V,
+                       stream=stream)
     b.record()
     b.synchronize()
     captured = {k: v for k, v in _cuda.LAUNCHES.items() if v}
@@ -2079,7 +2099,8 @@ def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=No
     marker EBV with marker_truth, printed)."""
     ph = f"8 {tag}"
     _cuda.reset_launches()
-    res = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, seed=7, vshards=V)
+    res = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, out_folder=None,
+                       seed=7, vshards=V)
     launches = dict(_cuda.LAUNCHES)
     plan, st = res.plan, res.state
     name = plan.random[0].name
@@ -2128,7 +2149,8 @@ def random_path(tag, spec, truth, V, truth_name, ebv_limit=None, marker_truth=No
     check(keyed_launches["level_scan"] == N_CHAIN_RE, f"{tag}: keyed eager launches {keyed_launches}")
     eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
     check(len(kept) == n_keep, f"{tag}: kept {len(kept)}")
-    rres = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, vshards=V,
+    rres = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, out_folder=None,
+                        vshards=V,
                         stream=stream)
     differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), rres.draws[k])]
     check(set(rres.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
@@ -2370,7 +2392,7 @@ def cg_chains(spec, ph, tag):
     its tolerance, drift, finite draws, varU > 0; steady ms/sweep of both
     arms, device busy and idle share of the replays."""
     _cuda.reset_launches()
-    res = ngt.run_lmem(spec, n_chain=N_CG_CHAIN, n_burn=N_CG_BURN, n_thin=N_CG_THIN, seed=7,
+    res = ngt.run_lmem(spec, n_chain=N_CG_CHAIN, n_burn=N_CG_BURN, n_thin=N_CG_THIN, out_folder=None, seed=7,
                        dtype=torch.float64)
     launches = dict(_cuda.LAUNCHES)
     expect = {k: 0 for k in launches}
@@ -2401,7 +2423,7 @@ def cg_chains(spec, ph, tag):
     check(keyed_launches["cg_solve"] == N_CG_CHAIN, f"{tag}: keyed eager launches {keyed_launches}")
     check(0 < min(iters) and max(iters) < rp.cg_iters, f"{tag}: a sweep's CG ran to its cap ({iters})")
     eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
-    rres = ngt.run_lmem(spec, n_chain=N_CG_CHAIN, n_burn=N_CG_BURN, n_thin=N_CG_THIN,
+    rres = ngt.run_lmem(spec, n_chain=N_CG_CHAIN, n_burn=N_CG_BURN, n_thin=N_CG_THIN, out_folder=None,
                         dtype=torch.float64, stream=stream)
     differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), rres.draws[k])]
     check(set(rres.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
@@ -3115,7 +3137,8 @@ def corr_path(tag, spec, V, checks):
     ph = f"9 {tag}"
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    res = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, seed=7, vshards=V)
+    res = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, out_folder=None,
+                       seed=7, vshards=V)
     wall = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     expect = {k: 0 for k in launches}
@@ -3150,7 +3173,8 @@ def corr_path(tag, spec, V, checks):
     eager_s = time.perf_counter() - t0
     keyed_launches = dict(_cuda.LAUNCHES)
     eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
-    rres = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, vshards=V,
+    rres = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, out_folder=None,
+                        vshards=V,
                         stream=stream)
     differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), rres.draws[k])]
     check(set(rres.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
@@ -3350,27 +3374,259 @@ def corr_only(spec_for, sig, card, other_src=None):
                       **{k: TIMINGS.get(k) for k in TIMINGS if k.startswith("corr_")}}))
 
 
+# ------------------------------------------------------------------ phase 10
+
+RT_EVERY = 2  # (a): a checkpoint every 2 kept samples (10 sweeps)
+RT_STOP = 75  # (a): the interrupted run's n_chain (its last checkpoint at kept sample 4)
+RT_CG_CHAIN, RT_CG_EVERY, RT_CG_STOP = 20, 5, 17  # (b): sweeps, checkpoints, the interrupted run
+RT_PREDICT_ROWS = 1000  # (d): panel rows served through predict
+TOL_SERVE = 1e-5  # (d): K2 on the card (f32) against the host's f64, of the output's scale
+
+
+def same_leaves(tag, a, b):
+    """Every tensor of two states the same bits, and the same sweep index."""
+    la, lb = engine_sweep._leaves(a), engine_sweep._leaves(b)
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    check(la.keys() == lb.keys() and not differ and a.sweep_index == b.sweep_index,
+          f"{tag}: final states differ in {differ} (sweep {a.sweep_index} against {b.sweep_index})")
+
+
+def out_files(folder):
+    return {f: (Path(folder) / f).read_bytes() for f in sorted(os.listdir(folder)) if f.endswith("Out")}
+
+
+def runtime_bayesr(spec, sig, root):
+    """10a: BayesR at V=96 through run_lmem with a KeyedStream (replayed):
+    without files (N) and with files and a checkpoint every RT_EVERY kept
+    samples (F) in turns N, F, F, N, then stopped at RT_STOP sweeps and
+    resumed to N_CHAIN. Files byte for byte, draws and final state bit for
+    bit; EBV limit; ms/sweep of each turn; the checkpoint's bytes and
+    seconds."""
+    from nextgp_tpu_torch.io import checkpoint as ckpt
+
+    stream = keyed.KeyedStream(7, DEV, torch.float32)
+    kw = dict(n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, vshards=V_MAIN, stream=stream)
+    # the arms in turns without files (N) and with them (F): N, F, F, N
+    ref = ngt.run_lmem(spec, out_folder=None, **kw)
+    _cuda.reset_launches()
+    full = ngt.run_lmem(spec, out_folder=f"{root}/a", checkpoint_every=RT_EVERY, **kw)
+    launches = dict(_cuda.LAUNCHES)
+    again = ngt.run_lmem(spec, out_folder=f"{root}/a2", checkpoint_every=RT_EVERY, **kw)
+    last = ngt.run_lmem(spec, out_folder=None, **kw)
+    ngt.run_lmem(spec, out_folder=f"{root}/b", checkpoint_every=RT_EVERY, **{**kw, "n_chain": RT_STOP})
+    resumed = ngt.run_lmem(spec, out_folder=f"{root}/b", checkpoint_every=RT_EVERY, resume=True, **kw)
+    files = out_files(f"{root}/a")
+    check(files and files == out_files(f"{root}/b") == out_files(f"{root}/a2"),
+          "10a: resumed files differ from the unbroken run's")
+    kept_before = (RT_STOP - N_BURN) // N_THIN // RT_EVERY * RT_EVERY
+    for tag, res, first in (("files", full, 0), ("no files", last, 0), ("resumed", resumed, kept_before)):
+        differ = [k for k in ref.draws if not np.array_equal(ref.draws[k][first:], res.draws[k])]
+        check(res.draws.keys() == ref.draws.keys() and not differ, f"10a: {tag} draws {differ} differ")
+    same_leaves("10a resumed", full.state, resumed.state)
+    same_leaves("10a files", full.state, ref.state)
+    turns = [1e3 / r.sweeps_per_sec for r in (ref, full, again, last)]
+    plan, st = full.plan, full.state
+    check(plan.markers[0].vshards == V_MAIN, f"10a: V = {plan.markers[0].vshards}")
+    mean = ngt.genomic_values_state(plan, st, beta=full.posterior_mean("betaM1"))
+    ebv, tru = mean[:2048] - mean[:2048].mean(), sig[:2048].to(mean.dtype) - sig[:2048].mean()
+    corr = (torch.dot(ebv, tru) / (ebv.norm() * tru.norm())).item()
+    check(corr >= EBV_LIMITS[("BayesR", V_MAIN)], f"10a: EBV correlation {corr:.4f} below the limit")
+    path = f"{root}/a/chain.ckpt"
+    t0 = time.perf_counter()
+    digest = ckpt.constants_digest(st)
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(path, st, meta={"fingerprint": ckpt.plan_fingerprint(plan),
+                                         "kept_rows": full.draws["varE"].shape[0], "constants": digest})
+    save_s = time.perf_counter() - t0
+    out = dict(ms_per_sweep_turns=dict(zip(("N", "F", "F2", "N2"), turns)),
+               ms_per_sweep_resumed=1e3 / resumed.sweeps_per_sec, checkpoint_bytes=os.path.getsize(path),
+               checkpoint_s=save_s, constants_digest_s=digest_s,
+               file_bytes=sum(len(v) for v in files.values()), ebv_corr=corr)
+    print(f"[10a BayesR V={V_MAIN}] run_lmem, KeyedStream, replayed, {N_CHAIN} sweeps ({N_BURN} burn-in, "
+          f"thin {N_THIN}), ms/sweep in turns without files (N) and with {len(files)} files and a "
+          f"checkpoint every {RT_EVERY} kept samples (F): N {turns[0]:.4f}, F {turns[1]:.4f}, F "
+          f"{turns[2]:.4f}, N {turns[3]:.4f}; {out['ms_per_sweep_resumed']:.4f} resumed (host clock from "
+          f"the first capture to the device finishing); files ({out['file_bytes']:,} bytes) and draws the "
+          f"same bits after a stop at {RT_STOP} and a resume, final state bit for bit; EBV corr "
+          f"{corr:.4f} (limit {EBV_LIMITS[('BayesR', V_MAIN)]}); a checkpoint {out['checkpoint_bytes']:,} "
+          f"bytes in {save_s * 1e3:.2f} ms, the constants' digest once a run {digest_s * 1e3:.1f} ms")
+    print(f"[10a BayesR V={V_MAIN}] launches counted by the wrappers at capture: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return out, launches, ref, stream
+
+
+def runtime_acg(root):
+    """10b: A-cg on phase 8's 100,000 animals in float64, replayed with a
+    KeyedStream: RT_CG_CHAIN sweeps with a checkpoint every RT_CG_EVERY,
+    then a run stopped at RT_CG_STOP sweeps and resumed: u and ycorr (and
+    every other leaf) bit for bit, the files byte for byte."""
+    spec, _, _ = acg_spec(CG_GEN_SIZE)
+    stream = keyed.KeyedStream(11, DEV, torch.float64)
+    kw = dict(n_chain=RT_CG_CHAIN, n_burn=0, n_thin=1, dtype=torch.float64, stream=stream,
+              checkpoint_every=RT_CG_EVERY, keep_in_memory=False)
+    _cuda.reset_launches()
+    full = ngt.run_lmem(spec, out_folder=f"{root}/cg_a", **kw)
+    launches = dict(_cuda.LAUNCHES)
+    ngt.run_lmem(spec, out_folder=f"{root}/cg_b", **{**kw, "n_chain": RT_CG_STOP})
+    resumed = ngt.run_lmem(spec, out_folder=f"{root}/cg_b", resume=True, **kw)
+    check(out_files(f"{root}/cg_a") == out_files(f"{root}/cg_b"), "10b: resumed files differ")
+    same_leaves("10b resumed", full.state, resumed.state)
+    check(torch.isfinite(full.state.random[0].u).all().item() and residual_drift(full.plan, full.state) < 1e-2,
+          "10b: u not finite, or ycorr drifted")
+    print(f"[10b A-cg] {full.plan.random[0].q:,} animals, float64, KeyedStream, replayed: {RT_CG_CHAIN} "
+          f"sweeps with a checkpoint every {RT_CG_EVERY} ({1e3 / full.sweeps_per_sec:.4f} ms/sweep, host "
+          f"clock), stopped at {RT_CG_STOP} and resumed ({1e3 / resumed.sweeps_per_sec:.4f} ms/sweep): "
+          f"u, ycorr and every other leaf bit for bit, files byte for byte; launches counted at capture "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(ms_per_sweep=1e3 / full.sweeps_per_sec, ms_per_sweep_resumed=1e3 / resumed.sweeps_per_sec,
+                checkpoint_bytes=os.path.getsize(f"{root}/cg_a/chain.ckpt")), launches
+
+
+def runtime_chains(spec, ref, stream, root):
+    """10c: two chains of 10a through run_chains, each with its own
+    KeyedStream: chain 0 the same bits as 10a's run_lmem with its stream,
+    chain 1 as a run_lmem with the other; R-hat of varE finite. Then with
+    per-chain files and a checkpoint every RT_EVERY kept samples, unbroken
+    and stopped at RT_STOP sweeps and resumed: the draws of the run without
+    files, every chain's files byte for byte, the batched state bit for
+    bit."""
+    other = keyed.KeyedStream(8, DEV, torch.float32)
+    kw = dict(n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, vshards=V_MAIN)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = ngt.run_chains(spec, 2, track="all", streams=[stream, other], **kw)
+    plain_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    one = ngt.run_lmem(spec, out_folder=None, stream=other, **kw)
+    for c, res in enumerate((ref, one)):
+        differ = [k for k in res.draws if not np.array_equal(out["draws"][k][c], res.draws[k])]
+        check(out["draws"].keys() == res.draws.keys() and not differ, f"10c: chain {c}'s {differ} differ")
+    check(not np.array_equal(out["draws"]["varE"][0], out["draws"]["varE"][1]), "10c: the chains agree")
+    rhat = float(out["rhat"]["varE"][0])
+    check(np.isfinite(rhat), f"10c: R-hat of varE {rhat}")
+    check(out["state"].ycorr.shape[0] == 2 and out["state"].sweep_index.tolist() == [N_CHAIN] * 2,
+          "10c: the batched state")
+    fkw = dict(kw, track="all", streams=[stream, other], checkpoint_every=RT_EVERY)
+    runs_s = []
+
+    def timed(folder, **extra):
+        t0 = time.perf_counter()
+        res = ngt.run_chains(spec, 2, out_folder=f"{root}/{folder}", **{**fkw, **extra})
+        runs_s.append(time.perf_counter() - t0)
+        return res
+
+    full = timed("ch_a")
+    timed("ch_b", n_chain=RT_STOP)
+    resumed = timed("ch_b", resume=True)
+    kept_before = (RT_STOP - N_BURN) // N_THIN // RT_EVERY * RT_EVERY
+    for tag, res, first in (("files", full, 0), ("resumed", resumed, kept_before)):
+        differ = [k for k in out["draws"] if not np.array_equal(out["draws"][k][:, first:], res["draws"][k])]
+        check(res["draws"].keys() == out["draws"].keys() and not differ, f"10c: {tag} draws {differ} differ")
+    n_files = 0
+    for chain in ("chain1", "chain2"):
+        files = out_files(f"{root}/ch_a/{chain}")
+        n_files += len(files)
+        check(files and files == out_files(f"{root}/ch_b/{chain}"), f"10c: resumed {chain} files differ")
+    for tag, res in (("resumed", resumed), ("no files", out)):
+        la, lb = engine_sweep._leaves(full["state"]), engine_sweep._leaves(res["state"])
+        differ = [k for k in la if not torch.equal(la[k], lb[k])]
+        check(la.keys() == lb.keys() and not differ, f"10c: {tag} batched state differs in {differ}")
+    print(f"[10c run_chains] two chains of 10a in turn, each the same bits as its run_lmem; R-hat of "
+          f"varE {rhat:.4f}, ESS {float(out['ess']['varE'][0]):.2f}; with {n_files} per-chain files and "
+          f"a checkpoint every {RT_EVERY} kept samples, stopped at {RT_STOP} and resumed: files byte for "
+          f"byte, draws and the batched state bit for bit; seconds a call: {plain_s:.2f} without files, "
+          f"with files (unbroken, stopped, resumed) {', '.join(f'{t:.2f}' for t in runs_s)}")
+    return dict(rhat_var_e=rhat, ess_var_e=float(out["ess"]["varE"][0]), no_files_s=plain_s,
+                files_runs_s=runs_s), launches
+
+
+def runtime_serving(spec, ref):
+    """10d: the posterior-mean beta of 10a served on the host (genomic_values,
+    f64) and on the card (genomic_values_state, K2 over the whole panel,
+    f32); predict on RT_PREDICT_ROWS panel rows against genomic_values."""
+    md = spec.markers[0].data
+    beta = ref.posterior_mean("betaM1")
+    t0 = time.perf_counter()
+    host = ngt.genomic_values(md, beta)
+    host_s = time.perf_counter() - t0
+    _cuda.reset_launches()
+    card = ngt.genomic_values_state(ref.plan, ref.state, beta=beta)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    err = np.abs(card.double().cpu().numpy() - host).max() / np.abs(host).max()
+    check(err < TOL_SERVE, f"10d: genomic_values_state {err:.3e} of scale from genomic_values")
+    m = min(RT_PREDICT_ROWS, md.n_ind)
+    rows = pack2.unpack2(md.genotypes, torch.uint8)[:, :m].T.cpu().numpy()
+    pred = ngt.predict(md, beta, rows)
+    perr = np.abs(pred - host[:m]).max() / np.abs(host).max()
+    check(perr < 1e-9, f"10d: predict {perr:.3e} of scale from genomic_values")
+    print(f"[10d serving] genomic_values (host f64, {host_s:.3f} s) against genomic_values_state (K2, "
+          f"card f32): {err:.3e} of scale (limit {TOL_SERVE}); predict on {m:,} panel rows "
+          f"{perr:.3e} of scale (limit 1e-9)")
+    return dict(serve_err=err, predict_err=perr, genomic_values_host_s=host_s), launches
+
+
+def runtime_phase(spec_for, sig):
+    """10: the runtime (ROADMAP M10, M11) on the card: run_lmem's files,
+    checkpoints and exact resume (10a BayesR, 10b A-cg), run_chains (10c)
+    and serving (10d). Output folders live in a temporary directory removed
+    afterwards. Returns the numbers and the launch counts by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ngt_runtime_")
+    counted = {}
+    try:
+        spec = spec_for("BayesR")
+        out = {}
+        parts = {}
+        t1 = time.perf_counter()
+        out["BayesR"], counted["runtime BayesR"], ref, stream = runtime_bayesr(spec, sig, root)
+        parts["a"], t1 = time.perf_counter() - t1, time.perf_counter()
+        out["chains"], counted["runtime chains"] = runtime_chains(spec, ref, stream, root)
+        parts["c"], t1 = time.perf_counter() - t1, time.perf_counter()
+        out["serving"], counted["runtime serving"] = runtime_serving(spec, ref)
+        parts["d"], t1 = time.perf_counter() - t1, time.perf_counter()
+        del ref
+        out["A-cg"], counted["runtime A-cg"] = runtime_acg(root)
+        parts["b"] = time.perf_counter() - t1
+        out["part_seconds"] = parts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[10 runtime] every check passed in {out['seconds']:.1f} s (by part: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in out['part_seconds'].items())})")
+    return out, counted
+
+
+def runtime_only(spec_for, sig, card):
+    """`python3 chip_smoke.py runtime`: phase 10 alone. One JSON line of its
+    numbers and launch counts, and no result line."""
+    out, counted = runtime_phase(spec_for, sig)
+    print(json.dumps({"card": card, "runtime": out, "launches": counted}))
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
 CORR_RUNS = (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "BayesR+A2")
 STEP_LADDER, PANEL_LADDER = ("ladder fused", "ladder frontier"), ("ladder load32", "ladder matvec")
+RUNTIME_RUNS = ("runtime BayesR", "runtime chains")  # phase 10's replayed BayesR runs
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
 # K1 and K2 over a whole panel, which the ladder launches.
 SOURCES = {
     "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec",
-                     V96 + STEP_LADDER + CORR_RUNS),
+                     V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS),
     "pack2_matvec_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:171", "pack2_matvec", PANEL_LADDER),
     "pack2_rank_update": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
-                          V96 + STEP_LADDER + CORR_RUNS),
+                          V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS),
     "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
-                                ("ladder matvec",)),
+                                ("ladder matvec", "runtime serving")),
     "pack2_matvec_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", ("BayesR 50k",)),
     "pack2_rank_update_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
                               ("BayesR 50k",)),
-    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96),
+    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96 + RUNTIME_RUNS),
     "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1),
     "gauss_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v", V96),
     "gauss_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v", V1),
@@ -3392,7 +3648,7 @@ SOURCES = {
                   tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
                                                                   f"BayesR 50k keyed V={V_MAIN}")
                   + tuple(f"{r} keyed" if r == "BayesR+A2" else r.replace(" V=", " keyed V=")
-                          for r in CORR_RUNS)),
+                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",)),
     "level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
                    "level_scan", ("BayesR+A", "GBLUP")),
     "corr_level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
@@ -3403,10 +3659,11 @@ SOURCES = {
                              "corr_block_scan_v", ("MultiBreed V=1",)),
     "corr_rule": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:901", "corr_rule",
                   (f"MultiBreed V={V_MAIN}", "MultiBreed V=1")),
-    "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg",)),
+    "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg", "runtime A-cg")),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
-                      "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of phase 7",
+                      "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of "
+                      "phase 7 and, counted at capture, phase 10's replayed runs",
          "level_scan": "not a TPU kernel: the counterpart of the lax.scan over levels of "
                        "sample_random_uni (nextgp_tpu/engine/samplers/random_effects.py:29-37); "
                        "launches from phase 8's run_lmem (PhiloxStream, eager) runs",
@@ -3422,7 +3679,8 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
                      "(nextgp_tpu/ops/cg.py:49) under sample_random_cg (nextgp_tpu/engine/samplers/"
                      "random_effects.py:45-106); timed at a second sweep's system of the "
                      "100,000-animal model (float64); launches from phase 8.4's run_lmem "
-                     "(PhiloxStream, eager) run",
+                     "(PhiloxStream, eager) run and, counted at capture, phase 10's replayed A-cg "
+                     "runs with checkpoints and resume",
          "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v",
          "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
                       "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
@@ -3487,7 +3745,7 @@ def chains_only(spec_for, card):
     for V in (V_MAIN, 1):
         for path in PATHS:
             res = ngt.run_lmem(spec_for(path), n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, seed=7,
-                               vshards=V)
+                               out_folder=None, vshards=V)
             draws = [torch.from_numpy(np.ascontiguousarray(res.draws[k])) for k in sorted(res.draws)]
             out[f"{path} V={V}"] = dict(draws=digest(*draws), ycorr=digest(res.state.ycorr),
                                         sweeps_per_s=res.sweeps_per_sec)
@@ -3536,8 +3794,10 @@ def main(argv=()):
         return random_only(spec_for, sig, card, *argv[1:])
     if list(argv[:1]) == ["corr"] and len(argv) <= 2:
         return corr_only(spec_for, sig, card, *argv[1:])
+    if list(argv) == ["runtime"]:
+        return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR] or corr [DIR]")
+                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR] or runtime")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -3565,6 +3825,9 @@ def main(argv=()):
     corr_out, by_run = corr_phase(spec_for, sig)
     counted.update(by_run)
     print(f"[9 corr] {json.dumps(corr_out)}")
+    runtime_out, by_run = runtime_phase(spec_for, sig)
+    counted.update(by_run)
+    print(f"[10 runtime] {json.dumps(runtime_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

@@ -9,7 +9,11 @@ with summary statistics + correlated marker sets (BayesPR), genotypes
 stored 2-bit planar-packed, V-batched block schedule. The packed passes,
 the in-block scans and the random effects' level scans run through hand-written
 CUDA kernels for Hopper (csrc/, built with nvcc at first use) on CUDA
-tensors and through their plain PyTorch versions on CPU tensors. The JAX
+tensors and through their plain PyTorch versions on CPU tensors. The entry
+points (`run_lmem` with its output files, checkpoints and exact resume,
+`prep`, `run_chains`, `model_card`), the posterior summaries (`io/`) and
+serving (`genomic_values`, `predict`) keep the JAX package's names,
+signatures and file formats. The JAX
 package `nextgp_tpu` is the reference the port is held to; this package
 never imports it or jax.
 """
@@ -27,7 +31,8 @@ from .engine.state import state_from_numpy  # noqa: F401
 from .engine.sweep import (  # noqa: F401
     collect_sample, make_chain_runner, make_scan_sampler, make_sweep,
 )
-from .predict import genomic_values_state  # noqa: F401
-from .runtime import LMEMResult, run_lmem  # noqa: F401
+from .io.summary import ess_bulk, posterior_stats, split_rhat, summary_mcmc  # noqa: F401
+from .predict import genomic_values, genomic_values_state, predict  # noqa: F401
+from .runtime import LMEMResult, model_card, prep, run_chains, run_lmem  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """SNP region (variance-window) construction for BayesPR.
 
 Copy of `nextgp_tpu.data.regions` (`RegionInfo`, `regions_from_sentinel`,
-`regions_from_map`, `build_regions`), the semantics of NextGP.jl's
+`regions_from_map`, `build_regions`, `write_group_info`), the semantics of NextGP.jl's
 `prep2RegionData` (misc.jl:163-215) and the no-map sentinels of
 `mme.getMME!` (mme.jl:334-348):
 
@@ -18,6 +18,7 @@ The output is a per-locus region id (int32) and the region count.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -75,3 +76,20 @@ def build_regions(n_snp: int, r: int, chr_ids: Optional[np.ndarray] = None) -> R
     if len(chr_ids) != n_snp:
         raise ValueError("map length != nSNP")
     return regions_from_map(chr_ids, r)
+
+
+def write_group_info(path: str, marker_set: str, snp_ids, chr_ids, info: RegionInfo,
+                     r: Optional[int] = None):
+    """groupInfo_<set>.txt emission matching misc.jl:209 (tab-delimited).
+
+    For r == 99 the reference writes the actual CHROMOSOME id as groupID
+    (misc.jl:170-173), not a renumbered region index — chromosome labels
+    3 and 7 emit groupID 3 and 7. Window regions write 1-based region ids
+    (misc.jl:178-208)."""
+    fn = os.path.join(path, f"groupInfo_{marker_set}.txt")
+    with open(fn, "w") as fh:
+        fh.write("snpID\tsnpOrder\tchrID\tgroupID\n")
+        for i, (sid, cid) in enumerate(zip(snp_ids, chr_ids)):
+            gid = cid if r == 99 else int(info.region_id[i]) + 1
+            fh.write(f"{sid}\t{i + 1}\t{cid}\t{gid}\n")
+    return fn

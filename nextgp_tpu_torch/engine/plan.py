@@ -395,10 +395,12 @@ def _method_of(prior, name):
 
 
 def _resolve_vshards(vshards, nb, name):
+    """The V a marker set runs at: "auto" is 1, the reference-sequential
+    order, which is the JAX package's "auto" off its TPU kernel path (no
+    rule has been measured on the H100); an integer that does not divide
+    the block count falls back to its largest divisor."""
     if vshards == "auto":
-        raise ValueError(
-            "vshards='auto': the H100 value has not been measured yet; pass an integer "
-            "(1 is the reference-sequential order)")
+        return 1
     vreq = int(vshards)
     vsh = max(v for v in range(1, vreq + 1) if nb % v == 0) if vreq > 1 else 1
     if vreq > 1 and vsh != vreq:
@@ -633,8 +635,8 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     """Correlated marker sets (mme.jl:448-489): nT panels of one set of
     loci under BayesPR with an (nT, nT) v; one packed row per (locus, set),
     the (nT, nT) cross-Gram blocks and each locus's diagonal block mpm, a
-    region map shared by the sets. vshards "auto" is 1 (the JAX package's
-    rule for this term), an integer goes through _resolve_vshards."""
+    region map shared by the sets. vshards through _resolve_vshards ("auto"
+    is 1, the JAX package's rule for this term)."""
     names = "+".join(term.names)
     prior = term.prior
     if not isinstance(prior, P.BayesPR):
@@ -660,7 +662,7 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     block = min(block, max(8, 1 << (p - 1).bit_length()))
     p_pad = cdiv(p, block) * block
     nb = p_pad // block
-    V = 1 if vshards == "auto" else _resolve_vshards(vshards, nb, names)
+    V = _resolve_vshards(vshards, nb, names)
     T = nb // V
     pad = p_pad - p
     info = build_regions(p, prior.r, chr_ids)
@@ -733,9 +735,9 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its
-    largest divisor with a warning. "auto" raises for a marker set (the
-    H100 value has not been measured) and is 1 for correlated marker sets,
-    as in the JAX package.
+    largest divisor with a warning. "auto" is 1 for every marker set: the
+    JAX package's "auto" off its TPU kernel path, kept on the card too
+    until a rule for the H100 is measured (ROADMAP M6 part 3).
     """
     spec.validate()
     device = torch.device(device) if device is not None else default_device()

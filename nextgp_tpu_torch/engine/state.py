@@ -167,6 +167,43 @@ class ModelState:
     sweep_counter: torch.Tensor
 
 
+# The fields a sweep replaces, by class: a copy of the JAX package's
+# _CHAIN_FIELDS (nextgp_tpu/parallel/sharded.py:55-65), to which the
+# port's ModelState adds sweep_counter. run_chains stacks them on a leading
+# chain axis, and a checkpoint holds them (io/checkpoint.py).
+_CHAIN_FIELDS = {
+    ModelState: ("ycorr", "sweep_index", "sweep_counter"),
+    ResidualState: ("var_e",),
+    FixedState: ("b",),
+    RandomState: ("u", "var_u"),
+    SparseRandomState: ("u", "var_u"),
+    CorrRandomState: ("u", "var_u"),
+    MarkerState: ("beta", "delta", "var_beta", "log_pi", "pi_hat", "annot_prob",
+                  "annot_cat", "log_var", "lv_c", "lv_resid", "var_zeta"),
+    CorrMarkerState: ("beta", "var_beta"),
+}
+
+
+def chain_leaves(obj, prefix="") -> Dict[str, torch.Tensor]:
+    """The tensors of `obj` (a state, or a part of one) in the fields that
+    _CHAIN_FIELDS names, keyed as engine/sweep._leaves keys them
+    ("markers.0.beta.", ...); None fields and sweep_index (a host int, or
+    the chains' (C,) tensor of a batched state) left out."""
+    out = {}
+    if dataclasses.is_dataclass(obj):
+        names = _CHAIN_FIELDS.get(type(obj), ())
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if f.name not in names:
+                out.update(chain_leaves(v, f"{prefix}{f.name}."))
+            elif isinstance(v, torch.Tensor) and f.name != "sweep_index":
+                out[f"{prefix}{f.name}."] = v
+    elif isinstance(obj, tuple):
+        for i, x in enumerate(obj):
+            out.update(chain_leaves(x, f"{prefix}{i}."))
+    return out
+
+
 _INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32, "mt": torch.uint8,
                "mask": torch.bool, "annot_nz": torch.bool, "annot_cat": torch.int32,
                "z_idx": torch.int32, "iv_idx": torch.int32, "fac_sire": torch.int32,

@@ -19,7 +19,10 @@ whole chain on the device). On the card with a stream that can be captured
 capture one sweep in a CUDA graph, and one sweep that also writes its sample
 into slot k of preallocated draw buffers (k a device index), and replay
 them: the host issues one replay a sweep. Everywhere else a thinning
-interval is a Python loop of sweeps.
+interval is a Python loop of sweeps. `Chain` is the one driver of a whole
+chain: `scan_chain` (so `make_scan_sampler`) and the runtime's `run_lmem`
+and `run_chains` run through it, and `_replayed` makes its choice between
+replays and eager sweeps.
 """
 from __future__ import annotations
 
@@ -165,17 +168,20 @@ def _with_leaves(obj, new, prefix=""):
     return obj
 
 
-def _replayed(plan: SweepPlan, stream) -> bool:
-    """Whether the runners replay CUDA graphs: on the card, where the stream
-    must be one that can be captured."""
+def _replayed(plan: SweepPlan, stream, eager_ok: bool = False) -> bool:
+    """Whether a chain replays CUDA graphs: on the card, where the stream
+    must be one that can be captured. A stream that cannot is run as eager
+    sweeps where `eager_ok`, else refused."""
     if plan.device.type != "cuda":
         return False
-    if not getattr(stream, "capturable", False):
-        raise TypeError(
-            f"{type(stream).__name__} cannot be captured in a CUDA graph (its draws are seeded on "
-            "the host, so a replay would repeat the captured sweep's numbers): pass a KeyedStream "
-            "to run replayed sweeps on the card")
-    return True
+    if getattr(stream, "capturable", False):
+        return True
+    if eager_ok:
+        return False
+    raise TypeError(
+        f"{type(stream).__name__} cannot be captured in a CUDA graph (its draws are seeded on "
+        "the host, so a replay would repeat the captured sweep's numbers): pass a KeyedStream "
+        "to run replayed sweeps on the card")
 
 
 class ReplayedSweep:
@@ -265,28 +271,63 @@ class ReplayedSweep:
         return replace(self.static, sweep_index=sweep_index)
 
 
+class Chain:
+    """One chain of `plan` from `state` with `stream`, `thin` sweeps a kept
+    sample. On the card with a stream that can be captured (KeyedStream) the
+    sweeps are replays of a ReplayedSweep with room for `room` kept samples;
+    on the CPU, and on the card with another stream where `eager_ok`, they
+    are a loop of eager sweeps (without `eager_ok` such a stream raises).
+    `keep(m)` runs m thinning intervals and returns their samples, the keys
+    of collect_sample each stacked with a leading m, on the plan's device:
+    on the card views of the replays' buffers, which the next `keep`
+    overwrites."""
+
+    def __init__(self, plan: SweepPlan, state: ModelState, stream, thin: int, room: int,
+                 eager_ok: bool = False):
+        self.plan, self.stream, self.thin = plan, stream, thin
+        self.index = state.sweep_index
+        self.rep = None
+        if _replayed(plan, stream, eager_ok):
+            self.rep = ReplayedSweep(plan, state, stream, room)
+        else:
+            self.sweep, self._state = make_sweep(plan), state
+
+    def burn(self, n: int) -> None:
+        if self.rep is not None:
+            self.rep.run(n)
+        else:
+            for _ in range(n):
+                self._state = self.sweep(self._state, self.stream)
+        self.index += n
+
+    def keep(self, m: int) -> Dict[str, torch.Tensor]:
+        self.index += m * self.thin
+        if self.rep is not None:
+            self.rep.run(0, m, self.thin)
+            return {nm: v[:m] for nm, v in self.rep.draws.items()}
+        kept = []
+        for _ in range(m):
+            for _ in range(self.thin):
+                self._state = self.sweep(self._state, self.stream)
+            kept.append(collect_sample(self._state, self.plan))
+        return {nm: torch.stack([s[nm] for s in kept]) for nm in kept[0]} if kept else {}
+
+    @property
+    def state(self) -> ModelState:
+        return self.rep.state(self.index) if self.rep is not None else self._state
+
+
 def scan_chain(plan: SweepPlan, state: ModelState, stream, n_burn: int, n_keep: int, thin: int):
-    """n_burn sweeps, then n_keep thinning intervals of `thin` sweeps.
-    Returns (state, draws): the keys of collect_sample, each stacked with a
-    leading n_keep, on the plan's device. On the card the sweeps are graph
-    replays (the stream must be capturable: KeyedStream; any other raises),
-    and the state returned holds the graphs' static buffers; on the CPU they
-    are a loop of sweeps."""
-    if _replayed(plan, stream):
-        rep = ReplayedSweep(plan, state, stream, n_keep)
-        rep.run(n_burn, n_keep, thin)
-        return rep.state(state.sweep_index + n_burn + n_keep * thin), rep.draws
-    sweep = make_sweep(plan)
-    for _ in range(n_burn):
-        state = sweep(state, stream)
-    kept = []
-    for _ in range(n_keep):
-        for _ in range(thin):
-            state = sweep(state, stream)
-        kept.append(collect_sample(state, plan))
-    if not kept:
-        return state, {}
-    return state, {nm: torch.stack([s[nm] for s in kept]) for nm in kept[0]}
+    """n_burn sweeps, then n_keep thinning intervals of `thin` sweeps, as one
+    Chain. Returns (state, draws): the keys of collect_sample, each stacked
+    with a leading n_keep, on the plan's device. On the card the sweeps are
+    graph replays (the stream must be capturable: KeyedStream; any other
+    raises), and the state returned holds the graphs' static buffers; on the
+    CPU they are a loop of sweeps."""
+    chain = Chain(plan, state, stream, thin, n_keep)
+    chain.burn(n_burn)
+    draws = chain.keep(n_keep)
+    return chain.state, draws
 
 
 def make_chain_runner(plan: SweepPlan, thin: int):
@@ -302,7 +343,7 @@ def make_chain_runner(plan: SweepPlan, thin: int):
     cache = []
 
     def run_thin(state, stream):
-        if plan.device.type == "cuda" and getattr(stream, "capturable", False):
+        if _replayed(plan, stream, eager_ok=True):
             if not cache or not cache[0].holds(state, stream):
                 cache[:] = [ReplayedSweep(plan, state, stream, n_keep=1)]
             rep = cache[0]

@@ -184,7 +184,7 @@ def test_run_lmem_keys_match():
     varU<a_b> with the JAX package's values and shapes."""
     for js, ts in (_marker_specs(2), _random_specs("I")):
         jres = ng.run_lmem(js, n_chain=4, n_burn=2, n_thin=1, out_folder=None, seed=5, vshards=1)
-        tres = ngt.run_lmem(ts, n_chain=4, n_burn=2, n_thin=1, seed=5, device="cpu",
+        tres = ngt.run_lmem(ts, n_chain=4, n_burn=2, n_thin=1, out_folder=None, seed=5, device="cpu",
                             stream=JaxStream(jax.random.key(5)))
         assert set(tres.draws) == set(jres.draws)
         for name in jres.draws:
@@ -192,7 +192,7 @@ def test_run_lmem_keys_match():
             np.testing.assert_allclose(tres.draws[name], jres.draws[name], rtol=1e-9, atol=1e-12,
                                        err_msg=name)
     assert {"betaM1", "betaM2", "varM1_M2"} <= set(ngt.run_lmem(
-        _marker_specs(2)[1], 1, 0, 1, device="cpu").draws)
+        _marker_specs(2)[1], 1, 0, 1, out_folder=None, device="cpu").draws)
 
 
 # ------------------------------------------------------------------ draws

@@ -47,13 +47,17 @@ launch (B = 16 and 256, V = 1 and 96, the block-step also at B = 100 and
 is not positive definite), each the same bits twice, R1's
 split entry point against its plain version and each row against the
 single-site entry point, and both paths replayed with the eager chain's
-bits and following the plain chain.
+bits and following the plain chain; run_lmem replayed with files,
+checkpoints and a resume, and two chains of run_chains, each with the bits
+of its run_lmem.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1308,7 +1312,8 @@ def test_acg_replayed_chain_equals_eager(dev):
     run_thin = ngt.make_chain_runner(plan, 2)
     st, sample = run_thin(st0, stream)
     assert torch.equal(sample["uA"], kept[0]["uA"])
-    res = ngt.run_lmem(spec, 6, 2, 2, device=dev, dtype=torch.float64, vshards=4, stream=stream)
+    res = ngt.run_lmem(spec, 6, 2, 2, out_folder=None, device=dev, dtype=torch.float64, vshards=4,
+                       stream=stream)
     assert np.array_equal(res.draws["uA"], torch.stack([k["uA"] for k in kept[1:]]).cpu().numpy())
 
 
@@ -1645,3 +1650,82 @@ def test_corr_paths_replayed_equal_eager_and_follow_plain(dev, which, V):
             s = sw(s, hs)
         chains.append((s.corr_markers[0].beta if which == "markers" else s.random[0].u).cpu())
     assert _rel(*chains) < 1e-3
+
+
+# ------------------------------------------------------------------ the runtime (M10)
+
+
+def _leaves_equal(a, b):
+    from nextgp_tpu_torch.engine import sweep as engine_sweep
+
+    la, lb = engine_sweep._leaves(a), engine_sweep._leaves(b)
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la) \
+        and a.sweep_index == b.sweep_index
+
+
+def test_replayed_run_lmem_files_checkpoints_and_resume(dev, tmp_path):
+    """run_lmem replayed (KeyedStream) with files and a checkpoint every 2
+    kept samples, the kept samples copied a chunk at a time: the draws of
+    the run without files; a run stopped at 21 sweeps (9 kept, the last
+    checkpoint at kept 8) and resumed: the files byte for byte, the draws and every leaf
+    of the final state bit for bit."""
+    spec, stream = _small_spec("BayesR"), ngt.KeyedStream(31, dev, torch.float32)
+    kw = dict(n_chain=29, n_burn=3, n_thin=2, vshards=4, stream=stream)  # 13 kept
+    ref = ngt.run_lmem(spec, out_folder=None, device=dev, **kw)
+    full = ngt.run_lmem(spec, out_folder=str(tmp_path / "a"), checkpoint_every=2, device=dev, **kw)
+    ngt.run_lmem(spec, out_folder=str(tmp_path / "b"), checkpoint_every=2, device=dev,
+                 **{**kw, "n_chain": 21})
+    resumed = ngt.run_lmem(spec, out_folder=str(tmp_path / "b"), checkpoint_every=2, resume=True,
+                           device=dev, **kw)
+    for name, d in ref.draws.items():
+        assert np.array_equal(full.draws[name], d) and np.array_equal(resumed.draws[name], d[8:]), name
+    outs = sorted(f for f in os.listdir(tmp_path / "a") if f.endswith("Out"))
+    assert outs and all((tmp_path / "a" / f).read_bytes() == (tmp_path / "b" / f).read_bytes()
+                        for f in outs)
+    assert _leaves_equal(full.state, resumed.state) and _leaves_equal(full.state, ref.state)
+    assert full.state.ycorr.is_cuda and int(full.state.sweep_counter) == 29
+
+
+def test_replayed_run_chains_equal_run_lmem(dev):
+    """Two chains through run_chains, each replayed with its own KeyedStream
+    on one assembled state: each the same bits as run_lmem with its stream,
+    and the batched state stacks their final states."""
+    spec = _small_spec("BayesR")
+    streams = [ngt.KeyedStream(s, dev, torch.float32) for s in (41, 42)]
+    kw = dict(n_chain=17, n_burn=3, n_thin=2, vshards=4)
+    out = ngt.run_chains(spec, 2, track="all", device=dev, streams=streams, **kw)
+    for c, stream in enumerate(streams):
+        one = ngt.run_lmem(spec, out_folder=None, device=dev, stream=stream, **kw)
+        for name, d in one.draws.items():
+            assert np.array_equal(out["draws"][name][c], d), (c, name)
+        assert torch.equal(out["state"].ycorr[c], one.state.ycorr)
+    assert out["state"].sweep_index.tolist() == [17, 17] and np.isfinite(out["rhat"]["varE"]).all()
+
+
+def test_replayed_run_chains_files_checkpoints_and_resume(dev, tmp_path):
+    """run_chains replayed (a KeyedStream a chain) with per-chain files and
+    a checkpoint every 2 kept samples: the draws of the run without files;
+    a run stopped at 21 sweeps (9 kept, the last checkpoint at kept 8) and
+    resumed: every chain's files byte for byte, the draws and every leaf of
+    the batched state bit for bit."""
+    from nextgp_tpu_torch.engine import sweep as engine_sweep
+
+    spec = _small_spec("BayesR")
+    streams = [ngt.KeyedStream(s, dev, torch.float32) for s in (41, 42)]
+    kw = dict(n_chain=29, n_burn=3, n_thin=2, vshards=4, track="all", device=dev, streams=streams)
+    ref = ngt.run_chains(spec, 2, **kw)  # 13 kept
+    full = ngt.run_chains(spec, 2, out_folder=str(tmp_path / "a"), checkpoint_every=2, **kw)
+    ngt.run_chains(spec, 2, out_folder=str(tmp_path / "b"), checkpoint_every=2, **{**kw, "n_chain": 21})
+    resumed = ngt.run_chains(spec, 2, out_folder=str(tmp_path / "b"), checkpoint_every=2, resume=True,
+                             **kw)
+    for name, d in ref["draws"].items():
+        assert np.array_equal(full["draws"][name], d), name
+        assert np.array_equal(resumed["draws"][name], d[:, 8:]), name
+    for chain in ("chain1", "chain2"):
+        a, b = tmp_path / "a" / chain, tmp_path / "b" / chain
+        outs = sorted(f for f in os.listdir(a) if f.endswith("Out"))
+        assert outs and all((a / f).read_bytes() == (b / f).read_bytes() for f in outs), chain
+    for other in (resumed, ref):
+        la, lb = engine_sweep._leaves(full["state"]), engine_sweep._leaves(other["state"])
+        assert la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+    assert full["state"].sweep_index.tolist() == [29, 29]

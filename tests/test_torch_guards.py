@@ -53,7 +53,9 @@ def test_port_imports_no_jax():
     assert {"nextgp_tpu_torch.micro", "nextgp_tpu_torch.ops.micro", "nextgp_tpu_torch.diag",
             "nextgp_tpu_torch.data.pedigree", "nextgp_tpu_torch.data.grm", "nextgp_tpu_torch.ops.cg",
             "nextgp_tpu_torch.ops.random_scan",
-            "nextgp_tpu_torch.engine.samplers.random_effects"} <= set(res.stdout.split("|")[1].split())
+            "nextgp_tpu_torch.engine.samplers.random_effects", "nextgp_tpu_torch.io.writer",
+            "nextgp_tpu_torch.io.checkpoint", "nextgp_tpu_torch.io.summary"} <= set(
+        res.stdout.split("|")[1].split())
 
 
 def test_importing_the_ladder_runs_nothing():
@@ -82,7 +84,7 @@ def _fields(cls):
 @pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi",
                                   "BayesRCplus", "BayesLV", "SummaryStatistics", "RandomEffect",
                                   "Random", "FixedTerm", "RandomTerm", "MarkerTerm", "CorrMarkerTerm",
-                                  "ModelSpec", "MarkerData"])
+                                  "ModelSpec", "MarkerData", "LMEMResult"])
 def test_copied_dataclasses_match(name):
     jcls = getattr(j_ingest, name, None) or getattr(ng, name)
     tcls = getattr(t_ingest, name, None) or getattr(ngt, name)
@@ -118,6 +120,37 @@ def test_state_fields_match(name):
         assert _fields(getattr(tmod, name))[:len(jf)] == jf
 
 
+def test_chain_fields_match():
+    """The port's _CHAIN_FIELDS (the fields a sweep replaces: run_chains
+    batches them, a checkpoint holds them) name the JAX package's classes
+    and fields; the port's ModelState adds sweep_counter."""
+    from nextgp_tpu.parallel import sharded
+    from nextgp_tpu_torch.engine import state as t_state
+
+    jax_fields = {cls.__name__: fields for cls, fields in sharded._CHAIN_FIELDS.items()}
+    jax_fields["ModelState"] += ("sweep_counter",)
+    assert {cls.__name__: fields for cls, fields in t_state._CHAIN_FIELDS.items()} == jax_fields
+
+
+# parameters the port adds to an entry point: where it runs, and its draw streams
+PORT_ONLY = ("device", "stream", "streams")
+
+
+@pytest.mark.parametrize("name", ["run_lmem", "run_chains", "prep", "model_card", "summary_mcmc",
+                                  "genomic_values", "predict"])
+def test_entry_point_signatures_match(name):
+    """A script written for the JAX package calls the port's entry points
+    with the same arguments: names, order and defaults equal, the port's
+    additions (PORT_ONLY) left out."""
+    import inspect
+
+    def params(fn, drop=()):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()
+                if p.name not in drop]
+
+    assert params(getattr(ngt, name), PORT_ONLY) == params(getattr(ng, name))
+
+
 def test_chip_smoke_fails_without_gpu():
     res = _run(["chip_smoke.py"], timeout=300, CUDA_VISIBLE_DEVICES="")  # no card, wherever it runs
     assert res.returncode != 0
@@ -147,18 +180,27 @@ def test_default_device_is_the_card_or_an_error(monkeypatch):
     assert utils.default_device() == torch.device("cuda")
 
 
-@pytest.mark.parametrize("entry", ["assemble", "run_lmem"])
-def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, entry):
+@pytest.mark.parametrize("entry", ["assemble", "run_lmem", "prep", "run_chains"])
+def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
     """Without a CUDA device and without device="cpu" nothing is built on the
-    CPU; with device="cpu" the same call goes through."""
+    CPU, and the output folder that run_lmem and run_chains wipe is left as
+    it was; with device="cpu" the same call goes through."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = _tiny_spec()
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "kept").write_text("")
     call = {"assemble": lambda **kw: ngt.assemble(spec, **kw)[1].ycorr,
-            "run_lmem": lambda **kw: ngt.run_lmem(spec, 2, 0, 1, seed=1, **kw).state.ycorr}[entry]
+            "prep": lambda **kw: ngt.prep(spec, **kw)[1].ycorr,
+            "run_lmem": lambda **kw: ngt.run_lmem(spec, 2, 0, 1, out_folder=str(out), seed=1,
+                                                  **kw).state.ycorr,
+            "run_chains": lambda **kw: ngt.run_chains(spec, 2, 2, 0, 1, out_folder=str(out),
+                                                      **kw)["state"].ycorr}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+    assert (out / "kept").exists()
     assert call(device="cpu").device.type == "cpu"
 
 

@@ -205,7 +205,7 @@ def test_run_lmem_matches(kind):
     """run_lmem keeps u<name> and varU<name> with the JAX package's values."""
     js, ts = _specs(kind)
     jres = ng.run_lmem(js, n_chain=7, n_burn=3, n_thin=2, out_folder=None, seed=5)
-    tres = ngt.run_lmem(ts, n_chain=7, n_burn=3, n_thin=2, seed=5, device="cpu",
+    tres = ngt.run_lmem(ts, n_chain=7, n_burn=3, n_thin=2, out_folder=None, seed=5, device="cpu",
                         stream=JaxStream(jax.random.key(5)))
     name = ts.random[0].name
     assert set(tres.draws) == set(jres.draws) >= {f"u{name}", f"varU{name}"}
@@ -512,7 +512,7 @@ def _runners_keep_the_loop_draws(kind):
     for k, d in draws.items():
         assert torch.equal(d, torch.stack([x[k] for x in kept])), k
     assert torch.equal(st.ycorr, loop.ycorr) and torch.equal(st.random[0].u, loop.random[0].u)
-    res = ngt.run_lmem(ts, n_chain=9, n_burn=3, n_thin=2, device="cpu", vshards=4,
+    res = ngt.run_lmem(ts, n_chain=9, n_burn=3, n_thin=2, out_folder=None, device="cpu", vshards=4,
                        stream=ngt.KeyedStream(5, "cpu", torch.float64))
     loop, kept = ngt.assemble(ts, device="cpu", vshards=4)[1], []
     stream = ngt.KeyedStream(5, "cpu", torch.float64)
@@ -543,7 +543,7 @@ def test_replayed_runners_take_a_cg_term():
     assert isinstance(it, torch.Tensor) and it.dtype == torch.int32 and it.shape == ()
     assert 0 < int(it) < 1000
     _, ts = _specs("A-cg")
-    res = ngt.run_lmem(ts, 3, 1, 1, device="cpu", seed=2)
+    res = ngt.run_lmem(ts, 3, 1, 1, out_folder=None, device="cpu", seed=2)
     assert res.draws["uani"].shape == (2, Q_ANIMALS) and np.isfinite(res.draws["varUani"]).all()
 
 

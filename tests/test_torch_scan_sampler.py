@@ -80,7 +80,7 @@ def test_run_lmem_with_keyed_stream(method):
     eager sweeps from the same seed gives, at iterations (n_burn + n_thin)
     : n_thin : n_chain."""
     _, ts = _specs(method)
-    res = ngt.run_lmem(ts, n_chain=9, n_burn=3, n_thin=2, device="cpu", vshards=4,
+    res = ngt.run_lmem(ts, n_chain=9, n_burn=3, n_thin=2, out_folder=None, device="cpu", vshards=4,
                        stream=ngt.KeyedStream(5, "cpu", torch.float64))
     plan, st = ngt.assemble(ts, device="cpu", vshards=4)
     sweep, stream, kept = ngt.make_sweep(plan), ngt.KeyedStream(5, "cpu", torch.float64), []

@@ -25,6 +25,7 @@ and check them.
                                  # rule and the MultiBreed replayed sweeps with DIR's
                                  # CM1, in turns P, C, C, P
     python3 chip_smoke.py runtime  # phases 1-2 and phase 10 alone
+    python3 chip_smoke.py storage  # phases 1-2 and phase 11 alone
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -176,6 +177,31 @@ Phases (any failed check raises and the script exits non-zero):
      over the panel, f32) within 1e-5 of scale, and predict on 1,000 panel
      rows within 1e-9 of genomic_values. The kernels line counts K1, K3,
      K2, R1 and CG1 in these runs as the wrappers count a capture (once)
+ 11. unpacked marker storage and the command line (ROADMAP M7c, M12), in a
+     temporary directory removed afterwards: (a) phase 4's panel written as
+     a PLINK fileset (encoded on the card) and read back with read_plink
+     (timed; the dosages equal); BayesR (estimatePi, V=96) on its int8 rows
+     (assemble(pack2=False); replayed by scan_chain, the runner run_lmem
+     drives: run_lmem has no pack2 in either package) and on the packed
+     rows run_lmem makes of the same data, each 100 sweeps eager (launch
+     counts: no K1 or K2 on int8 rows) and replayed from one KeyedStream
+     with the same bits, drift, EBV >= 0.95, the peak memory of each arm,
+     steady ms/sweep, busy, nodes and idle share; the two chains' first 3
+     sweeps held by the packed rule; BayesC+D on int8 rows; on one V=96
+     step the product route (the cast, the gather and scatter products, TF32
+     off) beside the ladder's S2a/S2b on the same rows, each held to the
+     product's output, on the card alone; (b) the panel with 5 % of its
+     dosages imputed (fractional, uniform in [0, 2]) through
+     from_float_array: BayesR at V=96 as in (a) (float32 rows), serving
+     (genomic_values_state, a float32 product, within 1e-5 of scale of
+     genomic_values) and MultiBreed on two such panels at V=1 ("auto") as
+     phase 9 runs it (drift, every kept covariance positive definite);
+     (c) the CLI on a generated 2,000 x 8,192 text panel, a 2,000-animal
+     pedigree and a phenotype CSV (y ~ 1 + x + PED(ID) + SNP(M), BayesR):
+     `run` with two chains on KeyedStreams, `diag`, `summary`, `predict`
+     and `roofline` run as `python -m nextgp_tpu_torch` does (runpy, in
+     this process, so that the launch counters show K3, RE1 and R1), each
+     returning 0, and `summary` again in a child `python -m`
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -206,7 +232,7 @@ from nextgp_tpu_torch.engine.samplers import random_effects
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
 from nextgp_tpu_torch.ops import _cuda, cg, corr_scan, gibbs_kernels, pack2, random_scan
 from nextgp_tpu_torch.ops import micro as mk
-from nextgp_tpu_torch.utils import replace
+from nextgp_tpu_torch.utils import full_f32, replace
 
 N, P, BLOCK, V_MAIN = 10_000, 49_152, 256, 96
 N_CHAIN, N_BURN, N_THIN = 100, 50, 5
@@ -404,12 +430,12 @@ def build_phase():
 # ------------------------------------------------------------------ data
 
 
-def simulate(n=N, p=P, chunk=8192):
-    """n x p dosages on the card (10,000 x 49,152 unless asked), 500 expected
-    causal loci with N(0, 0.1^2) effects and N(0, 1) noise (as bench.py
-    does); packed once with the port's packer. The signal and the column
-    means are taken `chunk` individuals at a time (50,000 x 49,152 floats
-    would be 9.8 GB). Returns spec_for(path) and the planted signal."""
+def simulate_panel(n=N, p=P, chunk=8192):
+    """n x p int8 dosages on the card (10,000 x 49,152 unless asked), 500
+    expected causal loci with N(0, 0.1^2) effects and N(0, 1) noise (as
+    bench.py does). The signal and the column means are taken `chunk`
+    individuals at a time (50,000 x 49,152 floats would be 9.8 GB). Returns
+    (dosages, effects, y on the host, the planted signal, the column means)."""
     g = torch.Generator(device=DEV).manual_seed(0)
     geno = torch.randint(0, 3, (n, p), generator=g, device=DEV, dtype=torch.int8)
     bt = torch.where(torch.rand(p, generator=g, device=DEV) < 500.0 / p,
@@ -418,6 +444,13 @@ def simulate(n=N, p=P, chunk=8192):
     sig = sig - sig.mean()
     y = (sig + torch.randn(n, generator=g, device=DEV)).double().cpu().numpy()
     center = sum(geno[i:i + chunk].sum(0, dtype=torch.int64) for i in range(0, n, chunk)).double() / n
+    return geno, bt, y, sig, center
+
+
+def simulate(n=N, p=P, chunk=8192):
+    """simulate_panel's dosages, packed once with the port's packer. Returns
+    spec_for(path) and the planted signal."""
+    geno, _, y, sig, center = simulate_panel(n, p, chunk)
     md = ngt.from_packed(pack2.pack2(geno), n, center)
     del geno
     weights = np.random.default_rng(3).uniform(0.5, 2.0, n)
@@ -1700,7 +1733,7 @@ def steady_ms(step, n):
     return a.elapsed_time(b) / n
 
 
-def fit_checks(tag, plan, st, draws, sig, ebv_limit=None):
+def fit_checks(tag, plan, st, draws, sig, ebv_limit=None, phase="7"):
     """Drift of ycorr from y - Xb - Mc beta, finite draws, and the EBV
     correlation of the posterior mean of beta with the planted signal."""
     bad = [k for k, a in draws.items() if not torch.isfinite(a.double()).all().item()]
@@ -1711,7 +1744,7 @@ def fit_checks(tag, plan, st, draws, sig, ebv_limit=None):
     ebv, tru = mean[:2048] - mean[:2048].mean(), sig[:2048].to(mean.dtype) - sig[:2048].mean()
     corr = (torch.dot(ebv, tru) / (ebv.norm() * tru.norm())).item()
     limit = "printed only" if ebv_limit is None else f"limit {ebv_limit}"
-    print(f"[7 {tag}] ycorr drift {drift:.3e} of max|y| (limit 1e-2); EBV corr {corr:.4f} ({limit})")
+    print(f"[{phase} {tag}] ycorr drift {drift:.3e} of max|y| (limit 1e-2); EBV corr {corr:.4f} ({limit})")
     check(drift < 1e-2, f"{tag}: ycorr drifted from y - Xb - Mc beta")
     check(ebv_limit is None or corr >= ebv_limit, f"{tag}: EBV correlation below {ebv_limit}")
     return dict(drift=drift, ebv_corr=corr)
@@ -2669,12 +2702,17 @@ def simulate_corr(n=N, p=P, chunk=8192):
 
 def corr_values(plan, st):
     """sum_t Mc_t beta_t of every correlated marker set, by K2 over its
-    (locus, set) rows (the check's own launches)."""
+    packed (locus, set) rows (the check's own launches), or as a product
+    over int8 or float rows."""
     out = torch.zeros_like(st.ycorr)
     for cs, cp in zip(st.corr_markers, plan.corr_markers):
         T, V, B, n_t, q = cs.mt.shape
         u = cs.beta.view(V, T, B, n_t).transpose(0, 1).reshape(-1).contiguous()
-        dy = pack2.rank_update(cs.mt.view(-1, q), u).reshape(-1)[: plan.n]
+        if cs.mt.dtype == torch.uint8:
+            dy = pack2.rank_update(cs.mt.view(-1, q), u).reshape(-1)[: plan.n]
+        else:
+            with full_f32():
+                dy = u @ cs.mt.view(-1, q).to(u.dtype)
         out = out + dy - (u * cs.center.reshape(-1)).sum()
     return out
 
@@ -3126,7 +3164,7 @@ def multibreed_arms(spec, V, other):
     return rows
 
 
-def corr_path(tag, spec, V, checks):
+def corr_path(tag, spec, V, checks, phase="9"):
     """One M9 path: run_lmem as it runs by default (PhiloxStream, eager;
     launch counts from 0), then a loop of make_sweep and run_lmem's replays
     from one KeyedStream (the same bits), then the steady ms/sweep of both
@@ -3134,7 +3172,7 @@ def corr_path(tag, spec, V, checks):
     drift, finite draws and every kept covariance draw positive definite
     (cholesky_ex info 0); `checks(res)` prints the path's own numbers and
     returns the expected launch counts."""
-    ph = f"9 {tag}"
+    ph = f"{phase} {tag}"
     _cuda.reset_launches()
     t0 = time.perf_counter()
     res = ngt.run_lmem(spec, n_chain=N_CHAIN_CM, n_burn=N_BURN_CM, n_thin=N_THIN_CM, out_folder=None,
@@ -3605,34 +3643,453 @@ def runtime_only(spec_for, sig, card):
     print(json.dumps({"card": card, "runtime": out, "launches": counted}))
 
 
+# ------------------------------------------------------------------ phase 11
+
+FRACTION_IMPUTED = 0.05  # (b): the share of dosages replaced by imputed (fractional) ones
+CLI_N, CLI_P, CLI_GEN = 2_000, 8_192, 500  # (c): the CLI's data; its pedigree 4 generations of 500
+CLI_CHAIN = dict(length=400, burnin=200, thin=4, seed=3, chains=2)
+ST_PACKED_RULE = 3  # (a): sweeps of the int8 and packed chains held by the packed rule
+
+
+def plink_write(geno, prefix):
+    """geno (n, p) int8 dosages in {0, 1, 2} on the card -> a PLINK v1.0
+    SNP-major fileset `prefix`.bed/.bim/.fam (A1-allele dosages: 2 -> 00,
+    1 -> 10, 0 -> 11), the .bed encoded on the card."""
+    n, p = geno.shape
+    bps = (n + 3) // 4
+    codes = torch.zeros((4 * bps, p), dtype=torch.uint8, device=geno.device)
+    codes[:n] = torch.where(geno == 2, 0, torch.where(geno == 1, 2, 3)).to(torch.uint8)
+    f = codes.view(bps, 4, p)
+    body = (f[:, 0] | (f[:, 1] << 2) | (f[:, 2] << 4) | (f[:, 3] << 6)).t().contiguous()
+    with open(f"{prefix}.bed", "wb") as fh:
+        fh.write(bytes([0x6C, 0x1B, 0x01]))
+        fh.write(body.cpu().numpy().tobytes())
+    Path(f"{prefix}.bim").write_text("".join(f"{1 + j * 10 // p}\trs{j}\t0\t{j}\tA\tG\n" for j in range(p)))
+    Path(f"{prefix}.fam").write_text("".join(f"F{i} I{i} 0 0 0 -9\n" for i in range(n)))
+
+
+def storage_path(tag, spec, sig, pack, scan, n_gathers, n_window=20):
+    """One marker path at V=96 on the storage `pack` gives (pack2=False:
+    int8; None: what the data allow, through run_lmem), 100 sweeps from one
+    KeyedStream: eager (a loop of make_sweep; launches counted) and replayed
+    (run_lmem under pack2=None, else scan_chain, the runner run_lmem drives,
+    on assemble(pack2=False)): the same bits. Checks the launches (K1 and K2
+    none on unpacked storage), drift, finite draws and the EBV limit of
+    BayesR; prints the peak memory of each arm, steady ms/sweep of both, the
+    replays' busy time, nodes and idle share. Returns (eager launches, the
+    numbers, the state after ST_PACKED_RULE sweeps, the replayed result's
+    plan, state and posterior-mean beta)."""
+    ph = f"11 {tag}"
+    n_keep = (N_CHAIN - N_BURN) // N_THIN
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan, st0 = ngt.assemble(spec, vshards=V_MAIN, pack2=pack)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    mp, ms0 = plan.markers[0], st0.markers[0]
+    unpacked = ms0.mt.dtype != torch.uint8
+    T = mp.n_blocks // V_MAIN
+    stream = keyed.KeyedStream(7, DEV, plan.dtype)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    st, kept, early = st0, [], None
+    t0 = time.perf_counter()
+    for i in range(1, N_CHAIN + 1):
+        st = sweep(st, stream)
+        if i == ST_PACKED_RULE:
+            early = (st.markers[0].beta.clone(), st.ycorr.clone())
+        if i > N_BURN and (i - N_BURN) % N_THIN == 0:
+            kept.append(ngt.collect_sample(st, plan))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    expect = {k: 0 for k in launches}
+    expect.update({scan: N_CHAIN * T, "keyed_rng": launches["keyed_rng"]})
+    if not unpacked:
+        expect.update({"pack2_matvec": n_gathers * N_CHAIN * T, "pack2_rank_update": N_CHAIN * T})
+    check(launches == expect and launches["keyed_rng"] > 0, f"{tag}: eager launches {launches}, "
+          f"expected {expect}")
+    eager = {k: torch.stack([x[k] for x in kept]).cpu().numpy() for k in kept[0]}
+    del st0, kept
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if pack is None:
+        res = ngt.run_lmem(spec, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, out_folder=None,
+                           vshards=V_MAIN, stream=stream)
+        rplan, rst, draws = res.plan, res.state, res.draws
+    else:
+        rplan, rst0 = ngt.assemble(spec, vshards=V_MAIN, pack2=pack)
+        rst, rdraws = engine_sweep.scan_chain(rplan, rst0, stream, N_BURN, n_keep, N_THIN)
+        draws = {k: v.cpu().numpy() for k, v in rdraws.items()}
+        del rst0
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated() - base
+    check(rplan.markers[0].packed == (not unpacked), f"{tag}: the replayed arm's storage differs")
+    differ = [k for k in eager if not np.array_equal(eager[k], draws[k])]
+    check(set(draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
+    check(torch.equal(rst.ycorr, st.ycorr), f"{tag}: replayed ycorr differs from eager")
+    fit = fit_checks(f"{tag} V={V_MAIN}", rplan, rst, {k: torch.from_numpy(v) for k, v in draws.items()},
+                     sig, EBV_LIMITS.get((tag.split()[0], V_MAIN)) if tag.startswith("BayesR") else None,
+                     phase="11")
+    rep = engine_sweep.ReplayedSweep(rplan, rst, stream)
+    state = [rst]
+
+    def eager_step():
+        state[0] = sweep(state[0], stream)
+
+    ms_eager = steady_ms(eager_step, n_window)
+    ms_replay = steady_ms(lambda: rep.run(1), n_window)
+    busy, per_sweep, missed, by_name, ms_by = replay_window(rep, 10)
+    idle = 1.0 - busy / ms_replay
+    storage = str(ms0.mt.dtype).removeprefix("torch.") + ("" if unpacked else " (2-bit packed)")
+    print(f"[{ph}] storage {storage}, mt {tuple(ms0.mt.shape)}, {mp.dosage_bytes} bytes a dosage; "
+          f"assemble {assemble_s:.2f} s; eager {N_CHAIN} sweeps {N_CHAIN / eager_s:.2f} sweeps/s, launches "
+          f"{({k: v for k, v in launches.items() if v})}; replayed ({'run_lmem' if pack is None else 'scan_chain'}) "
+          f"the same bits; peak memory above the data before it: eager {eager_peak / 2**30:.3f} GiB, "
+          f"replayed {replay_peak / 2**30:.3f} GiB; steady, {n_window} sweeps between CUDA events: "
+          f"eager {ms_eager:.4f} ms/sweep, replayed {ms_replay:.4f}; 10 replays under the profiler: busy "
+          f"{busy:.4f} ms/sweep, {per_sweep} kernels and copies a sweep ({missed} records missed); idle "
+          f"share {idle:.4f}")
+    for key, cnt in sorted(ms_by.items(), key=lambda r: -r[1])[:6]:
+        print(f"  replayed {ms_by[key]:.4f} ms/sweep in x{by_name[key]:<4} {key[:90]}")
+    beta = draws["betaM1"].mean(0)
+    del rep, state
+    return launches, dict(storage=storage, assemble_s=assemble_s, eager_sweeps_per_s=N_CHAIN / eager_s,
+                          eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay,
+                          replay_busy_ms_per_sweep=busy, replay_kernels_per_sweep=per_sweep,
+                          idle_share=idle, eager_peak_gib=eager_peak / 2**30,
+                          replay_peak_gib=replay_peak / 2**30, **fit), early, (rplan, rst, beta)
+
+
+def packed_rule(tag, a, b):
+    """bench.py:338-359's rule for two chains of one stream: corr of beta
+    and of ycorr > 0.999 and max |dycorr| / max |ycorr| < 0.05."""
+    (ba, ya), (bb, yb) = a, b
+    cb, cy = corr(ba, bb), corr(ya, yb)
+    dy = ((ya - yb).abs().max() / yb.abs().max()).item()
+    print(f"[11 {tag}] after {ST_PACKED_RULE} sweeps of one KeyedStream: corr(beta) {cb:.6f}, "
+          f"corr(ycorr) {cy:.6f}, max|dycorr|/scale {dy:.3e} (the packed rule: > 0.999, > 0.999, < 0.05)")
+    check(cb > 0.999 and cy > 0.999 and dy < 0.05, f"{tag}: the chains part by the packed rule")
+    return dict(corr_beta=cb, corr_ycorr=cy, dycorr=dy)
+
+
+def route_phase(plan, st):
+    """One V=96 step of int8 rows (step 0: 24,576 x 10,000): the port's
+    product route (a cast to float32 and torch.matmul for the gather and the
+    scatter, TF32 off) beside the ladder's S2a/S2b (`micro.dense_gather` /
+    `dense_scatter`, hand-written int8 passes) on the same rows, each held
+    to the route's output and timed on the card alone."""
+    T, V, B, n = st.markers[0].mt.shape
+    rows = st.markers[0].mt[0].reshape(V * B, n)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    y = torch.randn(n, generator=g, device=DEV)
+    u = torch.randn(V * B, generator=g, device=DEV) * 1e-2
+    with full_f32():
+        dense = rows.to(torch.float32)
+        r0, dy = dense @ y, u @ dense
+    for name, out, ref in (("S2a gather", mk.dense_gather(rows, y), r0),
+                           ("S2b scatter", mk.dense_scatter(rows, u), dy)):
+        err, scale = rel_err(out, ref)
+        check(err < TOL_PASS * scale, f"11 route: {name} {err / scale:.3e} of scale from the product")
+
+    def cast():
+        return rows.to(torch.float32)
+
+    def gather():
+        with full_f32():
+            return dense @ y
+
+    def scatter():
+        with full_f32():
+            return u @ dense
+
+    def step():
+        with full_f32():
+            d = rows.to(torch.float32)
+            return d @ y, u @ d
+
+    reps = 20
+    ms = {"cast": device_ms(cast, reps, 0), "product gather": device_ms(gather, reps, 0),
+          "product scatter": device_ms(scatter, reps, 0), "product step (cast, both)": device_ms(step, reps, 0),
+          "S2a dense_gather": device_ms(lambda: mk.dense_gather(rows, y), reps),
+          "S2b dense_scatter": device_ms(lambda: mk.dense_scatter(rows, u), reps)}
+    int8_bound = (rows.numel() + 4 * (n + V * B)) / HBM_BYTES_PER_S * 1e3
+    f32_bound = (4 * rows.numel() + 4 * (n + V * B)) / HBM_BYTES_PER_S * 1e3
+    print(f"[11 route] one V={V} step of int8 rows ({V * B:,} x {n:,}), ms on the card alone: "
+          + ", ".join(f"{k} {'n/a' if v is None else f'{v:.4f}'}" for k, v in ms.items())
+          + f"; a pass's bound by bytes {int8_bound:.4f} (int8 rows), {f32_bound:.4f} (the cast rows)")
+    return dict(device_ms=ms, int8_bound_ms=int8_bound, f32_bound_ms=f32_bound)
+
+
+def imputed(geno, bt, seed=23, chunk=8192):
+    """simulate_panel's dosages with FRACTION_IMPUTED of the entries
+    replaced by fractional dosages uniform in [0, 2], as float32 on the
+    card, and y from the same effects and N(0, 1) noise. Returns (panel,
+    y on the host, planted signal)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    gf = geno.to(torch.float32)
+    for i in range(0, gf.shape[0], chunk):
+        blk = gf[i:i + chunk]
+        hit = torch.rand(blk.shape, generator=g, device=DEV) < FRACTION_IMPUTED
+        blk[hit] = 2.0 * torch.rand(int(hit.sum()), generator=g, device=DEV)
+    sig = torch.cat([gf[i:i + chunk] @ bt for i in range(0, gf.shape[0], chunk)])
+    sig = sig - sig.mean()
+    y = (sig + torch.randn(gf.shape[0], generator=g, device=DEV)).double().cpu().numpy()
+    return gf, y, sig
+
+
+def host_float(gf):
+    """A float32 panel on the card as from_float_array's float64 host array."""
+    return gf.cpu().numpy().astype(np.float64)
+
+
+def multibreed_float():
+    """Two imputed panels of one set of loci (the effects of simulate_corr:
+    500 expected causal loci, correlated 0.5 between the sets) through
+    from_float_array, under BayesPR with a 2 x 2 v and regions of REGION_CM
+    loci. Returns the spec."""
+    g = torch.Generator(device=DEV).manual_seed(21)
+    genos = [torch.randint(0, 3, (N, P), generator=g, device=DEV, dtype=torch.int8) for _ in range(2)]
+    causal = torch.rand(P, generator=g, device=DEV) < 500.0 / P
+    e1, e2 = (torch.randn(P, generator=g, device=DEV) for _ in range(2))
+    bts = [torch.where(causal, e1 * 0.1, 0.0), torch.where(causal, (0.5 * e1 + 0.75 ** 0.5 * e2) * 0.1, 0.0)]
+    panels = [imputed(gt, bt, seed=30 + i) for i, (gt, bt) in enumerate(zip(genos, bts))]
+    del genos
+    sig = sum(s for _, _, s in panels)
+    y = (sig + torch.randn(N, generator=g, device=DEV)).double().cpu().numpy()
+    chr_ids = np.ones(P, np.int64)
+    datas = tuple(ngt.from_float_array(host_float(gf), chr_ids=chr_ids) for gf, _, _ in panels)
+    del panels
+    return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))], block_size=BLOCK,
+                         corr_markers=[ngt.CorrMarkerTerm(("M1", "M2"), datas, ngt.BayesPR(REGION_CM, V_CM))])
+
+
+def multibreed_float_checks(res):
+    """The float MultiBreed run's storage and expected launches (V=1: T =
+    192 block-steps, CM1 each, no K1 or K2)."""
+    cs, cp = res.state.corr_markers[0], res.plan.corr_markers[0]
+    check(cs.mt.dtype == torch.float32 and cp.dosage_bytes == 4 and cp.vshards == 1,
+          f"11 MultiBreed: storage {cs.mt.dtype}, V = {cp.vshards}")
+    T = cp.n_blocks
+    return {"corr_block_scan_v": N_CHAIN_CM * T, "corr_rule": N_CHAIN_CM}
+
+
+def cli_data(root):
+    """A CLI analysis in `root`: a CLI_N x CLI_P text genotype file (a
+    digit and a space a dosage), a pedigree of 4 generations of CLI_GEN
+    animals (simulate_pedigree's), a phenotype CSV over every animal in
+    pedigree order (an intercept, a covariate x, the planted polygenic
+    values, 200 causal loci and N(0, 1) noise) and the config: y ~ 1 + x +
+    PED(ID) + SNP(M) under BayesR, two chains on KeyedStreams."""
+    rng = np.random.default_rng(40)
+    ped, u = simulate_pedigree(4, CLI_GEN, 41)
+    lbl = [f"A{i + 1}" for i in range(ped.n)]
+    Path(f"{root}/ped.txt").write_text("".join(
+        f"{lbl[i]} {lbl[ped.sire[i]] if ped.sire[i] >= 0 else 0} {lbl[ped.dam[i]] if ped.dam[i] >= 0 else 0}\n"
+        for i in range(ped.n)))
+    g = rng.integers(0, 3, (CLI_N, CLI_P)).astype(np.uint8)
+    text = np.full((CLI_N, 2 * CLI_P), ord(" "), np.uint8)
+    text[:, 0::2] = g + ord("0")
+    text[:, -1] = ord("\n")
+    text.tofile(f"{root}/geno.txt")
+    bt = np.where(rng.random(CLI_P) < 200 / CLI_P, rng.normal(0, 0.1, CLI_P), 0.0)
+    x = rng.normal(0, 1, CLI_N)
+    y = 1.0 + 0.3 * x + u * np.sqrt(0.3) + (g - g.mean(0)) @ bt + rng.normal(0, 1, CLI_N)
+    Path(f"{root}/pheno.csv").write_text("ID,x,y\n" + "".join(
+        f"{lbl[i]},{float(x[i])!r},{float(y[i])!r}\n" for i in range(CLI_N)))
+    cfg = {"formula": "y ~ 1 + x + PED(ID) + SNP(M)", "data": "pheno.csv", "pedigree": "ped.txt",
+           "genotypes": {"M": "geno.txt"},
+           "priors": {"M": {"type": "BayesR", **{k.rstrip("_"): v for k, v in PRIOR_R.items()}},
+                      "ID": {"type": "Random", "str": "A", "v": 0.3}},
+           "chain": CLI_CHAIN, "block_size": BLOCK, "out_folder": "out"}
+    Path(f"{root}/run.json").write_text(json.dumps(cfg))
+    return f"{root}/run.json"
+
+
+def cli_main(*argv):
+    """`python -m nextgp_tpu_torch ARGV` in this process (runpy runs the
+    package's __main__ as -m does), so that the wrappers' launch counters
+    can be read. Returns (exit code, seconds)."""
+    import runpy
+
+    saved = sys.argv
+    sys.argv = ["nextgp_tpu_torch", *argv]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("nextgp_tpu_torch", run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as stop:
+        code = stop.code if isinstance(stop.code, int) else (0 if stop.code is None else 1)
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    return code, time.perf_counter() - t0
+
+
+def cli_phase(root):
+    """11c: the command line on the card: `run` (two chains, KeyedStream,
+    replayed), `diag`, `summary`, `predict` and `roofline` on a generated
+    config, each returning 0; the output files; the launches of `run` (K3 at
+    V = 1, RE1, R1); `summary` also through a child `python -m`."""
+    cfg = cli_data(root)
+    out = f"{root}/out"
+    t0 = time.perf_counter()
+    md = ngt.read_genotype_file(f"{root}/geno.txt")
+    parse_s = time.perf_counter() - t0
+    check(md.genotypes.shape == (CLI_N, CLI_P) and md.genotypes.dtype == np.int8, "11c: the text panel")
+    _cuda.reset_launches()
+    rc, run_s = cli_main("run", cfg, "--quiet")
+    launches = dict(_cuda.LAUNCHES)
+    check(rc == 0, f"11c: run returned {rc}")
+    for name in ("r_block_scan_v", "level_scan", "keyed_rng"):
+        check(launches[name] > 0, f"11c: run launched no {name}: {launches}")
+    chains = [f"{out}/chain{c + 1}" for c in range(CLI_CHAIN["chains"])]
+    for folder in chains:
+        for f in ("varEOut", "betaMOut", "uIDOut", "varUIDOut", "piMOut"):
+            check(os.path.getsize(f"{folder}/{f}") > 0, f"11c: {folder}/{f} is missing or empty")
+    secs = {"parse": parse_s, "run": run_s}
+    for cmd, argv in (("diag", ("diag", "varE", "--out-folder", out)),
+                      ("summary", ("summary", "varE", "--out-folder", chains[0])),
+                      ("predict", ("predict", cfg, "--set", "M", "--out-folder", chains[0],
+                                   "--output", f"{root}/ebv.txt")),
+                      ("roofline", ("roofline", cfg))):
+        rc, secs[cmd] = cli_main(*argv)
+        check(rc == 0, f"11c: {cmd} returned {rc}")
+    ebv = np.loadtxt(f"{root}/ebv.txt")
+    check(ebv.shape == (CLI_N,) and np.isfinite(ebv).all(), "11c: predict's genomic values")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "nextgp_tpu_torch", "summary", "varUID", "--out-folder",
+                            chains[0]], capture_output=True, text=True, timeout=300, env=env)
+    secs["summary (python -m)"] = time.perf_counter() - t0
+    check(child.returncode == 0 and np.isfinite(float(child.stdout.split()[-1])),
+          f"11c: python -m nextgp_tpu_torch summary: {child.returncode} {child.stderr[-300:]}")
+    print(f"[11c CLI] {CLI_N:,} x {CLI_P:,} text panel parsed in {parse_s:.2f} s (host); `run` (2 chains of "
+          f"{CLI_CHAIN['length']} sweeps, KeyedStream, replayed, V=1) {run_s:.2f} s with its parse, pedigree "
+          f"and A^-1; launches counted at capture {({k: v for k, v in launches.items() if v})}; diag, summary, "
+          f"predict and roofline returned 0; seconds {({k: round(v, 3) for k, v in secs.items()})}")
+    return dict(seconds=secs), launches
+
+
+def storage_phase():
+    """11: unpacked marker storage at full width (ROADMAP M7c) and the
+    command line (M12). (a) int8: the 10k x 49,152 panel written as a PLINK
+    fileset and read back (timed), BayesR (estimatePi, V=96) on int8 rows
+    (pack2=False) and on the packed rows pack2=None gives the same data,
+    their first sweeps held by the packed rule, BayesC+D on int8 rows, and
+    one step's product route beside S2a/S2b; (b) float: the panel with 5 %
+    imputed dosages through from_float_array, BayesR at V=96, MultiBreed on
+    two such panels at V=1 ("auto"), serving on the float storage; (c) the
+    CLI. Returns the numbers and the launch counts by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ngt_storage_")
+    out, counted = {}, {}
+    try:
+        geno, bt, y, sig, _ = simulate_panel()
+        t1 = time.perf_counter()
+        plink_write(geno, f"{root}/panel")
+        write_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        md = ngt.read_plink(f"{root}/panel")
+        read_s = time.perf_counter() - t1
+        check(np.array_equal(md.genotypes, geno.cpu().numpy()), "11a: read_plink's dosages differ")
+        bed = os.path.getsize(f"{root}/panel.bed")
+        print(f"[11a PLINK] {N:,} x {P:,} written in {write_s:.2f} s ({bed:,} bytes of .bed), read_plink "
+              f"{read_s:.2f} s (host numpy decode), the dosages equal")
+        out["plink"] = dict(write_s=write_s, read_s=read_s, bed_bytes=bed)
+
+        def spec(data, path="BayesR", yy=y):
+            prior, weighted = PATHS[path][:2]
+            w = np.random.default_rng(3).uniform(0.5, 2.0, N) if weighted else None
+            return ngt.ModelSpec(y=yy, fixed=[ngt.FixedTerm("int", np.ones(N))],
+                                 markers=[ngt.MarkerTerm("M1", data, prior)],
+                                 residual=None if w is None else ngt.RandomEffect(w, 1.0), block_size=BLOCK)
+
+        counted["storage BayesR int8"], out["BayesR int8"], early8, _ = storage_path(
+            "BayesR int8", spec(md), sig, False, "r_block_scan_v", 1)
+        counted["storage BayesR packed"], out["BayesR packed"], early_pk, _ = storage_path(
+            "BayesR packed", spec(md), sig, None, "r_block_scan_v", 1)
+        out["packed rule"] = packed_rule("BayesR int8 / packed", early8, early_pk)
+        counted["storage BayesC+D int8"], out["BayesC+D int8"], _, _ = storage_path(
+            "BayesC+D int8", spec(md, "BayesC+D"), sig, False, "bc_block_scan_wv", 2)
+        plan, st = ngt.assemble(spec(md), vshards=V_MAIN, pack2=False)
+        out["route"] = route_phase(plan, st)
+        del plan, st, md
+
+        gf, yf, sig_f = imputed(geno, bt)
+        del geno
+        t1 = time.perf_counter()
+        mdf = ngt.from_float_array(host_float(gf))
+        float_s = time.perf_counter() - t1
+        del gf
+        counted["storage BayesR float"], out["BayesR float"], _, (fplan, fst, beta) = storage_path(
+            "BayesR float", spec(mdf, yy=yf), sig_f, None, "r_block_scan_v", 1)
+        out["BayesR float"]["from_float_array_s"] = float_s
+        t1 = time.perf_counter()
+        host = ngt.genomic_values(mdf, beta)
+        host_s = time.perf_counter() - t1
+        card = ngt.genomic_values_state(fplan, fst, beta=beta)
+        err = np.abs(card.double().cpu().numpy() - host).max() / np.abs(host).max()
+        check(err < TOL_SERVE, f"11b: genomic_values_state {err:.3e} of scale from genomic_values")
+        print(f"[11b serving] float storage: genomic_values_state (a float32 product on the card) within "
+              f"{err:.3e} of scale of genomic_values (host f64, {host_s:.2f} s; limit {TOL_SERVE})")
+        out["serving float"] = dict(serve_err=err, genomic_values_host_s=host_s)
+        del fplan, fst, mdf
+
+        launches, _, out["MultiBreed float V=1"] = corr_path(
+            "MultiBreed float V=1", multibreed_float(), "auto", multibreed_float_checks, phase="11")
+        counted["storage MultiBreed float V=1"] = launches
+        out["CLI"], counted["storage CLI"] = cli_phase(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[11 storage] every check passed in {out['seconds']:.1f} s")
+    return out, counted
+
+
+def storage_only(card):
+    """`python3 chip_smoke.py storage`: phase 11 alone. One JSON line of its
+    numbers and launch counts, and no result line."""
+    out, counted = storage_phase()
+    print(json.dumps({"card": card, "storage": out, "launches": counted}))
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
 CORR_RUNS = (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "BayesR+A2")
 STEP_LADDER, PANEL_LADDER = ("ladder fused", "ladder frontier"), ("ladder load32", "ladder matvec")
 RUNTIME_RUNS = ("runtime BayesR", "runtime chains")  # phase 10's replayed BayesR runs
+# phase 11's eager runs of BayesR at V=96 on int8, packed and float storage
+STORAGE_R = ("storage BayesR int8", "storage BayesR packed", "storage BayesR float")
+STORAGE_KEYED = STORAGE_R + ("storage BayesC+D int8", "storage CLI")
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
 # K1 and K2 over a whole panel, which the ladder launches.
 SOURCES = {
     "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec",
-                     V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS),
+                     V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",)),
     "pack2_matvec_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:171", "pack2_matvec", PANEL_LADDER),
     "pack2_rank_update": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
-                          V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS),
+                          V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",)),
     "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
                                 ("ladder matvec", "runtime serving")),
     "pack2_matvec_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", ("BayesR 50k",)),
     "pack2_rank_update_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
                               ("BayesR 50k",)),
-    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96 + RUNTIME_RUNS),
-    "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1),
+    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96 + RUNTIME_RUNS + STORAGE_R),
+    "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1 + ("storage CLI",)),
     "gauss_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v", V96),
     "gauss_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v", V1),
     "bc_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "422", "bc_block_scan_v", V96),
     "bc_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v", V1),
-    "bc_block_scan_wv": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv", V96),
+    "bc_block_scan_wv": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv",
+                         V96 + ("storage BayesC+D int8",)),
     "bc_block_scan_wv_v1": (CU + "gauss_bc_scan.cu", GK + "189", "bc_block_scan_wv", V1),
     "rcpi_block_scan_v": (CU + "rc_scan.cu", GK + "718", "rcpi_block_scan_v", V96),
     "rcpi_block_scan_v_v1": (CU + "rc_scan.cu", GK + "627", "rcpi_block_scan_v", V1),
@@ -3648,17 +4105,17 @@ SOURCES = {
                   tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
                                                                   f"BayesR 50k keyed V={V_MAIN}")
                   + tuple(f"{r} keyed" if r == "BayesR+A2" else r.replace(" V=", " keyed V=")
-                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",)),
+                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",) + STORAGE_KEYED),
     "level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
-                   "level_scan", ("BayesR+A", "GBLUP")),
+                   "level_scan", ("BayesR+A", "GBLUP", "storage CLI")),
     "corr_level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
                         "corr_level_scan", ("BayesR+A2",)),
     "corr_block_scan_v": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
                           "corr_block_scan_v", (f"MultiBreed V={V_MAIN}",)),
     "corr_block_scan_v_v1": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
-                             "corr_block_scan_v", ("MultiBreed V=1",)),
+                             "corr_block_scan_v", ("MultiBreed V=1", "storage MultiBreed float V=1")),
     "corr_rule": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:901", "corr_rule",
-                  (f"MultiBreed V={V_MAIN}", "MultiBreed V=1")),
+                  (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "storage MultiBreed float V=1")),
     "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg", "runtime A-cg")),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
@@ -3781,6 +4238,8 @@ def main(argv=()):
         return gathers_only(card, argv[1:])
     if list(argv[:1]) == ["cg"] and len(argv) <= 2:
         return cg_only(card, *argv[1:])
+    if list(argv) == ["storage"]:
+        return storage_only(card)
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -3797,7 +4256,8 @@ def main(argv=()):
     if list(argv) == ["runtime"]:
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR] or runtime")
+                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime "
+                    "or storage")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -3828,6 +4288,10 @@ def main(argv=()):
     runtime_out, by_run = runtime_phase(spec_for, sig)
     counted.update(by_run)
     print(f"[10 runtime] {json.dumps(runtime_out)}")
+    del spec_for, sig
+    storage_out, by_run = storage_phase()
+    counted.update(by_run)
+    print(f"[11 storage] {json.dumps(storage_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

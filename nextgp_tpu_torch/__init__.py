@@ -6,14 +6,17 @@ structure, by the per-level scan or by perturbed CG; correlated groups by
 their own level scan) + the seven marker methods (BayesPR, BayesB, BayesC,
 BayesR, the annotation samplers BayesRCpi and BayesRCplus, and BayesLV)
 with summary statistics + correlated marker sets (BayesPR), genotypes
-stored 2-bit planar-packed, V-batched block schedule. The packed passes,
+stored 2-bit planar-packed where the dosages allow it and int8 or float
+otherwise (imputed dosages), V-batched block schedule. The packed passes,
 the in-block scans and the random effects' level scans run through hand-written
 CUDA kernels for Hopper (csrc/, built with nvcc at first use) on CUDA
 tensors and through their plain PyTorch versions on CPU tensors. The entry
 points (`run_lmem` with its output files, checkpoints and exact resume,
 `prep`, `run_chains`, `model_card`), the posterior summaries (`io/`) and
-serving (`genomic_values`, `predict`) keep the JAX package's names,
-signatures and file formats. The JAX
+serving (`genomic_values`, `predict`), the readers (text genotype files,
+PLINK .bed filesets, map files), the formula front end (`parse_formula`)
+and the command line (`python -m nextgp_tpu_torch run|summary|diag|predict|
+roofline`) keep the JAX package's names, signatures and file formats. The JAX
 package `nextgp_tpu` is the reference the port is held to; this package
 never imports it or jax.
 """
@@ -21,9 +24,13 @@ from .api.priors import (  # noqa: F401
     BayesB, BayesC, BayesLV, BayesPR, BayesR, BayesRCpi, BayesRCplus, Random, RandomEffect,
     SummaryStatistics,
 )
+from .api.formula import parse_formula  # noqa: F401
 from .api.spec import CorrMarkerTerm, FixedTerm, MarkerTerm, ModelSpec, RandomTerm  # noqa: F401
 from .data.grm import make_g, make_g_inverse  # noqa: F401
-from .data.ingest import MarkerData, from_array, from_packed  # noqa: F401
+from .data.ingest import (  # noqa: F401
+    MarkerData, from_array, from_device_array, from_float_array, from_packed, read_genotype_file,
+    read_plink,
+)
 from .data.pedigree import build_pedigree, make_a, read_pedigree  # noqa: F401
 from .engine.plan import assemble  # noqa: F401
 from .engine.rng import KeyedStream, PhiloxStream, Site  # noqa: F401

@@ -2,8 +2,9 @@
 
 Copies of `nextgp_tpu.api.priors.BayesPR`, `BayesB`, `BayesC`, `BayesR`,
 `BayesRCpi`, `BayesRCplus`, `BayesLV`, `RandomEffect` (and its alias
-`Random`), `SummaryStatistics` and `normalize_annot` with the same field
-names and defaults
+`Random`), `SummaryStatistics`, `normalize_annot`, the aliases
+`bayes_alias_BayesA` and `bayes_alias_ridge`, `MARKER_PRIORS` and
+`is_marker_prior` with the same field names and defaults
 (tests/test_torch_guards.py holds them to the originals). They are copied
 rather than imported because importing any `nextgp_tpu` submodule runs
 `nextgp_tpu/__init__.py`, which imports jax.
@@ -29,8 +30,8 @@ class BayesPR:
     """Region-variance Bayesian regression (runTime.jl:30-45).
 
     r: region size sentinel (see module docstring).
-    v: prior variance of marker effects (a scalar; a matrix v belongs to
-    correlated marker sets, which the port does not carry yet).
+    v: prior variance of marker effects (a scalar; an nT x nT matrix for
+    correlated marker sets, CorrMarkerTerm).
     """
 
     r: int
@@ -105,10 +106,14 @@ class BayesLV:
     """Log-linear variance model: log sigma2_j = C_j c + zeta_j
     (runTime.jl:116-133; sampler functions.jl:421-486).
 
-    covariates: the variance-model design, a prebuilt (nSNP, k) matrix used
-    raw (no centering). The JAX package also takes an R-style formula
-    string built against `covariate_table`; the port raises
-    NotImplementedError for that form until the formula front end is ported.
+    covariates: the variance-model design — either a prebuilt (nSNP, k)
+    matrix, or an R-style RHS formula string (e.g. "1 + x1 + x2") built
+    against `covariate_table` at assemble time (api/formula.build_lv_design),
+    matching the reference's `BayesLV(v, f::TermOrTerms, covariates::DataFrame,
+    varZeta)` front-end (runTime.jl:133; design via modelmatrix at
+    mme.jl:426). Columns are used raw (no centering); "1" adds an
+    intercept; string/int columns are dummy-coded with the first level
+    dropped.
     estimateVarZeta: False = keep varZeta fixed; True = varZeta <- var(resid);
     float f = varZeta <- f * var(logVar)  (functions.jl:479-485).
     """
@@ -131,8 +136,8 @@ class RandomEffect:
           is the term's `ivstr` (`RandomTerm`); for the residual "I" or a
           per-record weight vector (the weighted "D" residual,
           var(e_i) = varE * w_i).
-    v: prior variance (a scalar; a matrix belongs to correlated groups,
-       which the port does not carry yet).
+    v: prior variance (a scalar, or an nT x nT matrix for a correlated
+       group).
     type: vanRaden method when str_ == "G" (1 or 2).
     sampler: "scan" = the reference's per-level sequential Gibbs
              (functions.jl:57-72); "cg" = the exact joint draw by perturbed
@@ -167,3 +172,20 @@ def normalize_annot(annot) -> np.ndarray:
     if a.ndim != 2:
         raise ValueError("annot must be (nSNP, nAnnot)")
     return a.astype(np.int32)
+
+
+def bayes_alias_BayesA(v: float) -> BayesPR:
+    """BayesA == BayesPR with per-SNP regions (reference docs equivalence)."""
+    return BayesPR(1, v)
+
+
+def bayes_alias_ridge(v: float) -> BayesPR:
+    """BRR / ridge == BayesPR whole-genome region (runTime.jl:41)."""
+    return BayesPR(9999, v)
+
+
+MARKER_PRIORS = (BayesPR, BayesB, BayesC, BayesR, BayesRCpi, BayesRCplus, BayesLV)
+
+
+def is_marker_prior(p) -> bool:
+    return isinstance(p, MARKER_PRIORS)

@@ -18,12 +18,12 @@ from ..utils import default_device
 
 def make_g(m, method: int = 1, ridge: float = 0.001, device=None) -> torch.Tensor:
     """vanRaden GRM, (nInd, nInd) float64 on `device`, from an (nInd, nSNP)
-    0/1/2 dosage matrix (numpy or torch). NextGP.jl's file overload needs
-    the genotype-file readers, which the port does not carry yet."""
+    0/1/2 dosage matrix (numpy or torch), or from a genotype file path (the
+    reference's file overload, misc.jl:145-160)."""
     if isinstance(m, str):
-        raise NotImplementedError(
-            "make_g from a genotype file needs the file readers (ROADMAP M7c), which are not "
-            "ported yet; pass the (nInd, nSNP) dosage matrix")
+        from .ingest import read_genotype_file
+
+        m = read_genotype_file(m).genotypes
     device = torch.device(device) if device is not None else default_device()
     m = torch.as_tensor(m).to(device=device, dtype=torch.float64)
     mean = m.mean(dim=0)

@@ -110,8 +110,11 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1,
 
     Per marker set: mt is read twice per sweep (r0 matvec + correction
     rank-B update), the Gram blocks once, plus the in-block scan (p x B
-    MACs) — the formula of `nextgp_tpu.diag.roofline`, unchanged; a
-    correlated marker set the same per (locus, set) row with nT x nT Gram
+    MACs) — the formula of `nextgp_tpu.diag.roofline`, except that a
+    dosage counts the bytes the plan stores it in (`dosage_bytes`: 0.25
+    packed, 1 int8, 4 or 8 for a float panel), where the JAX formula
+    counts 1 byte for any unpacked panel and 0.25 for every correlated set;
+    a correlated marker set the same per (locus, set) row with nT x nT Gram
     blocks. Per random term (which that formula does not count): the bytes
     its stage reads (`_random_bytes`; a CG term's for cg_iterations
     iterations of its solve, which a plan with a CG term must give: it
@@ -126,14 +129,13 @@ def roofline(plan: SweepPlan, device: str = "h100", n_shards: int = 1,
     flops = 0.0
     for mp in plan.markers:
         p_local = mp.p_pad / max(1, n_shards)
-        itemsize = 0.25 if mp.packed else 1  # pack2 / int8
-        bytes_total += 2 * p_local * n * itemsize  # two passes over mt
+        bytes_total += 2 * p_local * n * mp.dosage_bytes  # two passes over mt
         bytes_total += p_local * mp.block * 4  # Gram blocks (f32)
         flops += 2 * 2 * p_local * n  # matvec + rank-B update MACs
         flops += 2 * p_local * mp.block  # in-block Gram-row dots
     for cp in plan.corr_markers:  # the same per (locus, set) row, and nT x nT Gram blocks
         p_local = cp.p_pad * cp.n_t / max(1, n_shards)
-        bytes_total += 2 * p_local * n * 0.25 + p_local * cp.block * cp.n_t * 4
+        bytes_total += 2 * p_local * n * cp.dosage_bytes + p_local * cp.block * cp.n_t * 4
         flops += 2 * 2 * p_local * n + 2 * p_local * cp.block * cp.n_t
     bytes_total += 20 * 4 * n  # ycorr/fixed traffic (minor)
     bytes_total += sum(_random_bytes(rp, n, plan.dtype, cg_iterations) for rp in plan.random)

@@ -7,9 +7,11 @@ structure for the per-level scan; a level index, padded sparse A^-1 rows
 and the Henderson factor for the CG sampler; stacked incidences and
 per-level cross-products for a correlated group), marker sets of all
 seven methods (BayesPR, BayesB,
-BayesC, BayesR, BayesRCpi, BayesRCplus, BayesLV with a covariate matrix)
-stored 2-bit planar-packed in the (T, V, B, q) layout of engine/state.py,
-correlated marker sets (BayesPR, one packed row per locus and set),
+BayesC, BayesR, BayesRCpi, BayesRCplus, BayesLV with a covariate matrix
+or a formula string) in the (T, V, B, W) layout of engine/state.py, stored
+2-bit planar-packed where the dosages allow it and int8 or float otherwise
+(the JAX planner's rule, `pack2=`), correlated marker sets (BayesPR, one
+row per locus and set, packed when every set allows it),
 and summary-statistic offsets on single fixed columns and marker sets.
 Defaults follow the JAX package (and NextGP.jl's mme.jl): residual df 4 and
 scale v*(df-2)/df with the 0.0005 zero-variance guard; marker df 3 + dim(v) and a matrix v's scale v * (df - nT - 1); a
@@ -34,7 +36,8 @@ import torch
 from ..api import priors as P
 from ..api.spec import CorrMarkerTerm, MarkerTerm, ModelSpec, RandomTerm
 from ..data.regions import build_regions
-from ..ops import cg, pack2
+from ..ops import cg
+from ..ops import pack2 as p2
 from ..utils import cdiv, default_device, default_dtype, full_f32
 from .state import (
     CorrMarkerState, CorrRandomState, FixedState, MarkerState, ModelState, RandomState,
@@ -104,7 +107,8 @@ class MarkerPlan:
     n_annot: int = 0  # annotations A (BayesRCpi/RCplus)
     n_lv_cov: int = 0  # columns of BayesLV's variance-model design
     est_var_zeta: Union[bool, float] = False  # BayesLV: False | True | float
-    packed: bool = True  # mt is 2-bit planar-packed uint8 (T, V, B, q): the port's only storage
+    packed: bool = False  # mt is 2-bit planar-packed uint8 (T, V, B, q); else int8 or float (T, V, B, n)
+    dosage_bytes: float = 0.25  # bytes a stored dosage takes: 0.25 packed, 1 int8, a float's size
     # BayesPR's region sums without float atomics or a host sync: (n_regions,
     # longest region) indices of each region's loci, padded with p, and each
     # region's size (constant)
@@ -124,6 +128,7 @@ class CorrMarkerPlan:
     df: float
     # V block chains advance per block-step, as for MarkerPlan.vshards
     vshards: int = 1
+    dosage_bytes: float = 0.25  # as for MarkerPlan: 0.25 packed, 1 int8, a float's size
     # the region sums without float atomics or a host sync, as for
     # MarkerPlan: (n_regions, longest region) locus indices padded with p,
     # and each region's size
@@ -410,41 +415,75 @@ def _resolve_vshards(vshards, nb, name):
     return vsh
 
 
-def _packed_rows(md, name, device):
-    """The marker set's (p, q) uint8 packed rows on `device`. Unpacked
-    dosages may be an (n, p) int8 array or tensor (packed on `device`)."""
+def _pack_eligible(g) -> bool:
+    """2-bit packing is lossless iff the dosages are int8 in 0..3."""
+    if isinstance(g, torch.Tensor):
+        if g.dtype != torch.int8:
+            return False
+        lo, hi = torch.aminmax(g)
+        return bool(lo >= 0) and bool(hi <= 3)
+    g = np.asarray(g)
+    return g.dtype == np.int8 and g.min() >= 0 and g.max() <= 3
+
+
+def _packs(md, name, pack):
+    """Whether a marker set is stored 2-bit packed, by the JAX planner's rule
+    (`nextgp_tpu/engine/plan.py:_build_marker`): rows that arrived packed
+    stay packed (pack2=False raises), eligible dosages are packed unless
+    pack2=False, and pack2=True on dosages that are not raises."""
     if md.packed:
-        return torch.as_tensor(md.genotypes, device=device)
-    if isinstance(md.genotypes, torch.Tensor):
-        g = md.genotypes.to(device)
-        if not (g.dtype == torch.int8 and g.min().item() >= 0 and g.max().item() <= 3):
-            raise NotImplementedError(
-                f"marker set {name}: the port stores genotypes 2-bit packed only, which "
-                "needs int8 dosages in 0..3")
-        return pack2.pack2(g)
-    g = np.asarray(md.genotypes)
-    if not (g.dtype == np.int8 and g.min() >= 0 and g.max() <= 3):
-        raise NotImplementedError(
-            f"marker set {name}: the port stores genotypes 2-bit packed only, which "
-            "needs int8 dosages in 0..3")
-    return torch.as_tensor(pack2.pack2_np(g), device=device)
+        if pack is False:
+            raise ValueError(
+                f"marker set {name}: genotypes arrived 2-bit packed "
+                "(from_packed); pack2=False would need the unpacked panel")
+        return True
+    eligible = _pack_eligible(md.genotypes)
+    if pack and not eligible:  # explicit request on non-0..3 dosages is an error
+        raise ValueError(
+            f"marker set {name}: pack2 storage needs int8 dosages "
+            "in 0..3 (fractional/negative values cannot be packed)")
+    return eligible if pack is None else bool(pack)
 
 
-_GRAM_CHUNK = 16  # blocks unpacked at a time while building the Grams
+def _storage_dtype(g, dtype):
+    """The dtype of unpacked rows: int8 dosages stay int8, any other panel
+    is stored in the engine dtype."""
+    int8 = g.dtype == torch.int8 if isinstance(g, torch.Tensor) else g.dtype == np.int8
+    return torch.int8 if int8 else dtype
+
+
+def _marker_rows(md, packed, dtype, device):
+    """A marker set's (p, W) rows on `device`: (p, q) uint8 packed rows, or
+    (p, n) int8 or engine-dtype dosages. A tensor is laid out (and packed)
+    on its own device, then moved."""
+    g = md.genotypes
+    if md.packed:
+        return torch.as_tensor(g, device=device)
+    if isinstance(g, torch.Tensor):
+        rows = p2.pack2(g) if packed else g.t().to(_storage_dtype(g, dtype))
+        return rows.to(device).contiguous()
+    g = np.asarray(g)
+    if packed:
+        return torch.as_tensor(p2.pack2_np(g), device=device)
+    return torch.as_tensor(g, device=device).to(_storage_dtype(g, dtype)).t().contiguous()
+
+
+_GRAM_CHUNK = 16  # blocks unpacked or cast at a time while building the Grams
 
 
 def _centered_grams(mt_blocks, center_blocks, n, dtype, d_inv=None):
-    """Centered Gram blocks (nb, B, B) from packed (nb, B, q) rows: returns
-    (weighted (Mc*d_inv) Mc', raw Mc Mc') when d_inv (n,) is given, else
-    (Mc Mc', None). TF32 is turned off for the products: it would put ~1e-3
-    relative error into every Gram entry and so into every conditional."""
+    """Centered Gram blocks (nb, B, B) from stored (nb, B, W) rows, packed or
+    not: returns (weighted (Mc*d_inv) Mc', raw Mc Mc') when d_inv (n,) is
+    given, else (Mc Mc', None). TF32 is turned off for the products: it
+    would put ~1e-3 relative error into every Gram entry and so into every
+    conditional."""
     out = torch.empty(mt_blocks.shape[:2] + (mt_blocks.shape[1],), dtype=dtype,
                       device=mt_blocks.device)
     raw = None if d_inv is None else torch.empty_like(out)
     with full_f32():
         for i in range(0, mt_blocks.shape[0], _GRAM_CHUNK):
             sl = slice(i, i + _GRAM_CHUNK)
-            mcb = pack2.unpack2(mt_blocks[sl], dtype)[..., :n] - center_blocks[sl, :, None]
+            mcb = p2.dosages(mt_blocks[sl], dtype, n) - center_blocks[sl, :, None]
             mct = mcb.transpose(1, 2)
             if d_inv is None:
                 out[sl] = torch.bmm(mcb, mct)
@@ -468,14 +507,21 @@ def _pad_rows(a, p_pad):
     return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]) if pad else a
 
 
-def _lv_design(prior, p, name):
-    """BayesLV's (p, kC) variance-model design from a covariate matrix."""
+def _lv_design(prior, p):
+    """BayesLV's (p, kC) variance-model design: a covariate matrix, or a
+    formula string built against `covariate_table` (runTime.jl:133; design
+    via mme.jl:426), as the JAX planner builds it."""
     if isinstance(prior.covariates, str):
-        raise NotImplementedError(
-            f"marker set {name}: BayesLV covariates given as a formula string need the "
-            "formula front end (ROADMAP M12), which is not ported yet; pass the (nSNP, k) "
-            "design matrix")
-    C = np.asarray(prior.covariates, dtype=np.float64)
+        from ..api.formula import build_lv_design
+
+        if prior.covariate_table is None:
+            raise ValueError(
+                "BayesLV with a formula string needs covariate_table="
+            )
+        C, _ = build_lv_design(prior.covariates, prior.covariate_table)
+    else:
+        C = prior.covariates
+    C = np.asarray(C, dtype=np.float64)
     if C.ndim == 1:
         C = C[:, None]
     if C.shape[0] != p:
@@ -483,9 +529,10 @@ def _lv_design(prior, p, name):
     return C
 
 
-def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rng):
+def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rng, pack):
     """rng: the host generator BayesLV's starting c and residuals come from
-    (the reference draws them from its global RNG, mme.jl:429-430)."""
+    (the reference draws them from its global RNG, mme.jl:429-430); pack:
+    assemble's pack2 (see _packs)."""
     md, prior = term.data, term.prior
     method = _method_of(prior, term.name)
     if prior is not None and np.ndim(prior.v) > 0:
@@ -502,12 +549,14 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
     T = nb // V
     pad = p_pad - p
 
-    rows = _packed_rows(md, term.name, device)
-    q = rows.shape[1]
+    packed = _packs(md, term.name, pack)
+    rows = _marker_rows(md, packed, dtype, device)
+    q = rows.shape[1]  # packed lanes, or n individuals
     if pad:
         rows = torch.cat([rows, rows.new_zeros((pad, q))])
     # global block g = v*T + t  ->  storage (t, v)
     mt = rows.reshape(V, T, block, q).transpose(0, 1).contiguous()
+    del rows
     center = torch.as_tensor(md.center, device=device).to(dtype)
     if pad:
         center = torch.cat([center, center.new_zeros(pad)])
@@ -575,7 +624,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
                      annot_nz=torch.as_tensor(annot_input != 0, device=device),
                      annot_cat=torch.zeros(p_pad, dtype=torch.int32, device=device))
     elif method == METHOD_LV:
-        C = _lv_design(prior, p, term.name)
+        C = _lv_design(prior, p)
         n_lv_cov = C.shape[1]
         icpc = C.T @ C
         if n_lv_cov > 1:
@@ -626,17 +675,19 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
         n_var=n_var, n_regions=n_var, n_classes=n_classes,
         est_pi=bool(getattr(prior, "estimatePi", False)), df=df, weighted=d_inv is not None,
         vshards=V, n_annot=n_annot, n_lv_cov=n_lv_cov, est_var_zeta=est_var_zeta,
-        region_rows=rows, region_len=lengths,
+        packed=packed, dosage_bytes=p2.dosage_bytes(mt), region_rows=rows, region_len=lengths,
     )
     return ms, mp
 
 
 def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     """Correlated marker sets (mme.jl:448-489): nT panels of one set of
-    loci under BayesPR with an (nT, nT) v; one packed row per (locus, set),
-    the (nT, nT) cross-Gram blocks and each locus's diagonal block mpm, a
-    region map shared by the sets. vshards through _resolve_vshards ("auto"
-    is 1, the JAX package's rule for this term)."""
+    loci under BayesPR with an (nT, nT) v; one row per (locus, set), 2-bit
+    packed when every set's dosages allow it and else int8 (every set int8)
+    or the engine dtype, as the JAX planner stores them (it has no pack2
+    switch here); the (nT, nT) cross-Gram blocks and each locus's diagonal
+    block mpm, a region map shared by the sets. vshards through
+    _resolve_vshards ("auto" is 1, the JAX package's rule for this term)."""
     names = "+".join(term.names)
     prior = term.prior
     if not isinstance(prior, P.BayesPR):
@@ -668,7 +719,11 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     info = build_regions(p, prior.r, chr_ids)
     region_id = np.concatenate([info.region_id, np.full(pad, info.n_regions, np.int32)])
 
-    rows = torch.stack([_packed_rows(d, names, device) for d in datas], dim=1)  # (p, nT, q)
+    packed = all(_pack_eligible(d.genotypes) for d in datas)
+    rows = [_marker_rows(d, packed, dtype, device) for d in datas]
+    if not packed and any(r.dtype != torch.int8 for r in rows):  # one float set: all float
+        rows = [r.to(dtype) for r in rows]
+    rows = torch.stack(rows, dim=1)  # (p, nT, W)
     q = rows.shape[2]
     center = torch.stack([_as_device(d.center, dtype, device) for d in datas], dim=1)  # (p, nT)
     if pad:
@@ -703,7 +758,8 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     )
     plan = CorrMarkerPlan(names=tuple(term.names), n_t=n_t, p=p, p_pad=p_pad, block=block,
                           n_blocks=nb, n_regions=info.n_regions, df=df, vshards=V,
-                          region_rows=region_rows, region_len=region_len)
+                          dosage_bytes=p2.dosage_bytes(mt), region_rows=region_rows,
+                          region_len=region_len)
     return st, plan
 
 
@@ -724,12 +780,24 @@ def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
             'pass dtype=torch.float32 for the card, or device="cpu" for float64')
 
 
-def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=1):
+def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
+             vshards: Union[int, str] = 1, pack2: Optional[bool] = None, device=None):
     """Build (SweepPlan, ModelState) from a validated ModelSpec.
 
-    device: where the state lives and the sweep runs (default CUDA; without
-    a CUDA device that raises, and only device="cpu" runs on the CPU).
+    The JAX package's arguments in its order, without `use_pallas` (no
+    meaning on the card), and the port's `device`: where the state lives
+    and the sweep runs (default CUDA; without a CUDA device that raises,
+    and only device="cpu" runs on the CPU).
     dtype: default float32 on CUDA, float64 on the CPU.
+    pack2: a marker set's storage. None packs int8 dosages in 0..3 2-bit
+    and keeps any other panel unpacked, int8 or in the engine dtype; True
+    asks for packed storage (ValueError on dosages that cannot be packed);
+    False keeps int8 or float rows (ValueError on rows that arrived packed,
+    from_packed). The JAX package packs under None only on its TPU path;
+    the port packs on the CPU too, because its CPU path is the plain
+    version of its card path, and the JAX chain is the same for packed and
+    int8 storage. Correlated marker sets have no switch: packed when every
+    set can be.
     float64 on a CUDA device raises (check_card_dtype) where the model has
     marker sets or a scan random term, before anything is placed on the card.
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
@@ -782,7 +850,7 @@ def assemble(spec: ModelSpec, dtype=None, device=None, block_size=None, vshards=
     marker_states, marker_plans = [], []
     for t in spec.markers:
         st, mp = _build_marker(t, d_inv, spec.summary_stats.get(t.name),
-                               block_size or spec.block_size, dtype, device, vshards, rng)
+                               block_size or spec.block_size, dtype, device, vshards, rng, pack2)
         marker_states.append(st)
         marker_plans.append(mp)
 

@@ -6,24 +6,26 @@ functions.jl:118-486), and correlated marker sets (functions.jl:140-154).
 Counterpart of `nextgp_tpu/engine/samplers/markers.py` (`_blocked_sweep`,
 `_gauss_effect_sweep`, `_sweep_pr`, `_sweep_bc`, `_sweep_r`, `_sweep_rcpi`,
 `_sweep_rcplus`, `_sweep_lv`, `sample_marker_set`,
-`sample_corr_marker_set`) for packed storage and the one (T, V, B, q)
-layout.
-Each block-step t touches the residual through the packed passes of
-ops/pack2.py:
+`sample_corr_marker_set`) for packed, int8 and float storage and the one
+(T, V, B, W) layout.
+Each block-step t touches the residual through two passes over its rows:
 
-    r0 = Mc_t @ (d_inv * ycorr)  (gather, K1; d_inv = 1 unweighted)
+    r0 = Mc_t @ (d_inv * ycorr)  (gather; d_inv = 1 unweighted)
     r0_raw = Mc_t @ ycorr        (a second gather, weighted B/C only)
     scan the V blocks' B loci    (ops/gibbs_kernels, K3 / K6 / K8 / K10 / K12 / K14)
-    ycorr += u @ Mc_t            (scatter, K2)
+    ycorr += u @ Mc_t            (scatter)
 
 and the in-block chain stays exact through the centered Gram blocks (see
 the JAX module's docstring for the algebra); a weighted model keeps the
 weighted Gram for rhs and the raw one for B/C's indicator. V block chains
 advance per step: chain v owns the contiguous blocks [v*T, (v+1)*T), and the
-residual synchronizes between steps. The residual is carried padded to
-n4 = 4q; the padded entries are genotype 0 and stay pinned at zero (d_inv
-is padded with zeros), so sums and gathers over the padded vectors equal
-the unpadded ones. ycorr is the raw residual in every model.
+residual synchronizes between steps. On packed rows the passes are K1 and
+K2 of ops/pack2.py, and the residual is carried padded to n4 = 4q; the
+padded entries are genotype 0 and stay pinned at zero (d_inv is padded
+with zeros), so sums and gathers over the padded vectors equal the
+unpadded ones. On int8 or float rows (W = n, no padding) they are a cast
+and a matrix product, as in the JAX package, whose unpacked branch has no
+kernel; the scans are the same. ycorr is the raw residual in every model.
 
 All randomness is drawn per sweep up front from the marker set's site and
 consumed by position, so an injected stream reproduces the JAX chain.
@@ -36,7 +38,7 @@ from ...ops import corr_scan, gibbs_kernels, pack2
 from ...ops.dists import (
     sample_beta_dist, sample_chi2, sample_dirichlet, sample_inv_wishart_split,
 )
-from ...utils import replace
+from ...utils import full_f32, replace
 from ..plan import (
     METHOD_B, METHOD_C, METHOD_LV, METHOD_PR, METHOD_R, METHOD_RCPI, METHOD_RCPLUS, CorrMarkerPlan,
     MarkerPlan,
@@ -47,6 +49,51 @@ def _padded(v, n4):
     out = v.new_zeros(n4)
     out[:v.shape[0]] = v
     return out
+
+
+class _Passes:
+    """The residual passes of one marker set's block-steps over its stored
+    rows (T * V * B * nT, W), each step `rows` of them. Packed rows go
+    through K1 (gather) and K2 (scatter) on a residual carried padded to
+    n4 = 4q; int8 or float rows are cast to the residual's dtype once a
+    step and multiplied (`torch.matmul`, TF32 off: it would put ~1e-3
+    relative error into every r0), the JAX package's unpacked branch,
+    which has no kernel either. `y` is the residual the sweep carries."""
+
+    def __init__(self, mt_rows, rows, ycorr):
+        self.mt_rows, self.rows, self.n = mt_rows, rows, ycorr.shape[0]
+        self.packed = mt_rows.dtype == torch.uint8
+        self.y = _padded(ycorr, 4 * mt_rows.shape[1]) if self.packed else ycorr.clone()
+        self.dense = None
+
+    def pad(self, v):
+        """A per-individual vector (d_inv) on the carried residual's length."""
+        return _padded(v, self.y.shape[0]) if self.packed else v
+
+    def step(self, t):
+        if not self.packed:  # one cast a step, shared by its gathers and its scatter
+            self.dense = self.mt_rows[t * self.rows:(t + 1) * self.rows].to(self.y.dtype)
+
+    def gather(self, t, yv):
+        """Mc_t's raw products rows @ yv, (rows,), before the centre term."""
+        if self.packed:
+            return pack2.matvec_step(self.mt_rows, t, pack2.y_planar(yv), self.rows)
+        with full_f32():
+            return self.dense @ yv
+
+    def scatter(self, t, u, cb):
+        """ycorr += u @ Mc_t; the padded entries stay zero."""
+        if self.packed:
+            corr = pack2.rank_update_step(self.mt_rows, t, u.reshape(-1)).reshape(-1)
+            self.y[:self.n] += corr[:self.n] - (u * cb).sum()
+            return
+        with full_f32():
+            corr = u.reshape(-1) @ self.dense
+        self.y += corr - (u * cb).sum()
+
+    def result(self):
+        self.dense = None
+        return self.y[:self.n]
 
 
 def _blocked_sweep(ms, ycorr, pk, scan, d_inv=None, need_raw=False):
@@ -60,35 +107,34 @@ def _blocked_sweep(ms, ycorr, pk, scan, d_inv=None, need_raw=False):
     (weighted B/C). Returns (ycorr, beta (p_pad,), more) with beta and every
     further output (p_pad, ...) in global flat locus order.
     """
-    T, V, B, q = ms.mt.shape
-    n = ycorr.shape[0]
-    y = _padded(ycorr, 4 * q)
-    dw = None if d_inv is None else _padded(d_inv, 4 * q)
-    mt_rows = ms.mt.view(T * V * B, q)
-    rows = V * B
+    T, V, B, W = ms.mt.shape
+    passes = _Passes(ms.mt.view(T * V * B, W), V * B, ycorr)
+    y = passes.y
+    dw = None if d_inv is None else passes.pad(d_inv)
     # (nb, B, W) in global block order g = v*T + t  ->  per step (V, B, W)
     pk_g = pk.view(V, T, B, -1)
     beta = torch.empty((V, T, B), dtype=ycorr.dtype, device=ycorr.device)
     more = None
 
     def gather(t, yv, cb):
-        return pack2.matvec_step(mt_rows, t, pack2.y_planar(yv), rows).view(V, B) - cb * yv.sum()
+        return passes.gather(t, yv).view(V, B) - cb * yv.sum()
 
     for t in range(T):
         cb = ms.center[t]  # (V, B)
+        passes.step(t)
         pk_t = pk_g[:, t].clone()
         pk_t[:, :, 0] += gather(t, y if dw is None else dw * y, cb)
         if need_raw and dw is not None:
             pk_t[:, :, 7] += gather(t, y, cb)
         beta_t, u, *more_t = scan(t, pk_t)
-        corr = pack2.rank_update_step(mt_rows, t, u.reshape(-1)).reshape(-1) - (u * cb).sum()
-        y[:n] += corr[:n]  # the padded entries stay zero
+        passes.scatter(t, u, cb)
         beta[:, t] = beta_t
         if more is None:
             more = [x.new_empty((V, T) + x.shape[1:]) for x in more_t]
         for buf, x in zip(more, more_t):
             buf[:, t] = x
-    return y[:n], beta.reshape(-1), tuple(x.reshape((V * T * B,) + x.shape[3:]) for x in more)
+    return (passes.result(), beta.reshape(-1),
+            tuple(x.reshape((V * T * B,) + x.shape[3:]) for x in more))
 
 
 def _gram_raw_diag(ms):
@@ -397,18 +443,17 @@ def sample_corr_marker_set(stream, site, cs, cp: CorrMarkerPlan, ycorr, var_e):
     pk = corr_scan.corr_rule(cs.beta, z, cs.var_beta.contiguous(), cs.region_id,
                              cs.mpm.reshape(-1, n_t, n_t), cs.mask.reshape(-1), var_e)
 
-    T, V, B, _, q = cs.mt.shape
-    n = ycorr.shape[0]
-    y = _padded(ycorr, 4 * q)
-    mt_rows = cs.mt.view(T * V * B * n_t, q)
+    T, V, B, _, W = cs.mt.shape
+    passes = _Passes(cs.mt.view(T * V * B * n_t, W), V * B * n_t, ycorr)
+    y = passes.y
     pk_g = pk.view(V, T, B, -1)  # global block g = v*T + t
     beta = torch.empty((V, T, B, n_t), dtype=ycorr.dtype, device=ycorr.device)
     for t in range(T):
         cb = cs.center[t]  # (V, B, nT)
-        r0 = pack2.matvec_step(mt_rows, t, pack2.y_planar(y), V * B * n_t).view(V, B, n_t)
+        passes.step(t)
+        r0 = passes.gather(t, y).view(V, B, n_t)
         u = corr_scan.corr_block_step((cs.gram, t), pk_g, r0, cb, y.sum(), beta)
-        corr = pack2.rank_update_step(mt_rows, t, u.reshape(-1)).reshape(-1) - (u * cb).sum()
-        y[:n] += corr[:n]  # the padded entries stay zero
+        passes.scatter(t, u, cb)
     beta = beta.reshape(cp.p_pad, n_t)
 
     # per-region InverseWishart (functions.jl:152, :513-516)
@@ -417,7 +462,7 @@ def sample_corr_marker_set(stream, site, cs, cp: CorrMarkerPlan, ycorr, var_e):
     s_full = cs.scale + sb.view(cp.n_regions, n_t, n_t)
     s_full = (s_full + s_full.transpose(-1, -2)) / 2.0
     var_beta = sample_inv_wishart_split(stream, kv, cp.df + cp.region_len.to(beta.dtype), s_full)
-    return replace(cs, beta=beta, var_beta=var_beta.to(cs.var_beta.dtype)), y[:n]
+    return replace(cs, beta=beta, var_beta=var_beta.to(cs.var_beta.dtype)), passes.result()
 
 
 # ------------------------------------------------------------------ dispatch

@@ -10,7 +10,8 @@ None here too.
 
 Marker storage has one layout for every V (V=1 included), with
 T = n_blocks / V block-steps and global block g = v*T + t:
-    mt       (T, V, B, q) uint8, 2-bit planar-packed rows
+    mt       (T, V, B, q) uint8, 2-bit planar-packed rows, or (T, V, B, n)
+             int8 or float (the engine dtype) dosages
     center   (T, V, B)
     gram     (T, B, V, B) centered (weighted) Gram blocks, locus-major
     gram_raw (T, B, V, B) unweighted Gram blocks, weighted models only
@@ -21,7 +22,7 @@ Correlated marker sets (nT sets of one panel's loci) keep one row per
 (locus, set), so that a block-step's V * B * nT rows are one contiguous
 step of the packed passes, and the Gram in the layout the correlated
 block scan (CM1) reads:
-    mt       (T, V, B, nT, q) uint8
+    mt       (T, V, B, nT, q) uint8, or (T, V, B, nT, n) int8 or float
     center   (T, V, B, nT)
     gram     (T, B, nT, V, B, nT): gram[t, j, u, v, k, w] = <Mc[j, u], Mc[k, w]>
              of global block g = v*T + t
@@ -96,7 +97,7 @@ class CorrRandomState:
 class MarkerState:
     """One marker set. B = block size, nb = n_blocks."""
 
-    mt: torch.Tensor  # (T, V, B, q) uint8
+    mt: torch.Tensor  # (T, V, B, q) uint8 packed, or (T, V, B, n) int8 or float
     center: torch.Tensor  # (T, V, B)
     gram: torch.Tensor  # (T, B, V, B), weighted (Mc D^-1 Mc') when the residual is
     gram_raw: Optional[torch.Tensor]  # (T, B, V, B) Mc Mc' when weighted, else None
@@ -134,7 +135,7 @@ class CorrMarkerState:
     with (nT, nT) cross-Gram blocks so that the in-block scan stays exact.
     Layouts in the module docstring."""
 
-    mt: torch.Tensor  # (T, V, B, nT, q) uint8, 2-bit planar-packed
+    mt: torch.Tensor  # (T, V, B, nT, q) uint8 2-bit planar-packed, or (T, V, B, nT, n) unpacked
     center: torch.Tensor  # (T, V, B, nT)
     gram: torch.Tensor  # (T, B, nT, V, B, nT) centered cross-Grams
     mpm: torch.Tensor  # (nb, B, nT, nT) per-locus M_l' M_l, global block order
@@ -204,7 +205,7 @@ def chain_leaves(obj, prefix="") -> Dict[str, torch.Tensor]:
     return out
 
 
-_INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32, "mt": torch.uint8,
+_INT_FIELDS = {"region_id": torch.int32, "delta": torch.int32,
                "mask": torch.bool, "annot_nz": torch.bool, "annot_cat": torch.int32,
                "z_idx": torch.int32, "iv_idx": torch.int32, "fac_sire": torch.int32,
                "fac_dam": torch.int32}
@@ -255,8 +256,17 @@ def state_from_numpy(plan, arrays: Dict[str, np.ndarray]) -> ModelState:
     def fields(cls, prefix, shapes=None):
         shapes = shapes or {}
         return cls(**{
-            f.name: get(prefix + f.name, _INT_FIELDS.get(f.name), shapes.get(f.name))
+            f.name: get(prefix + f.name, _INT_FIELDS.get(f.name) or _mt_dtype(f.name, prefix),
+                        shapes.get(f.name))
             for f in dataclasses.fields(cls)})
+
+    def _mt_dtype(name, prefix):
+        """Marker storage keeps its own type: packed uint8, int8, or float
+        rows in plan.dtype."""
+        if name != "mt" or prefix + "mt" not in arrays:
+            return None
+        a = np.asarray(arrays[prefix + "mt"])
+        return {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8}.get(a.dtype)
 
     markers = []
     for i, mp in enumerate(plan.markers):

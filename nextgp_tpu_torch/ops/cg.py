@@ -24,7 +24,8 @@ from typing import Callable, Optional
 import torch
 
 from ..utils import full_f32
-from . import _cuda, pack2
+from . import _cuda
+from .pack2 import dosages
 
 
 def cg_solve(
@@ -198,11 +199,11 @@ def cg_solve_sparse(diag, iv_idx, iv_val, iv_len, ivu, b, x0, tol=1e-8, max_iter
 
 def _dosages(ms, n, dtype):
     """A marker set's (p_pad, n) dosages and (p_pad,) centers in global locus
-    order. The port stores block g = v*T + t at (t, v) of its (T, V, B, q)
-    packed layout, so chain v's T blocks are contiguous once V leads."""
-    T, V, B, q = ms.mt.shape
-    rows = ms.mt.transpose(0, 1).reshape(V * T * B, q)
-    return pack2.unpack2(rows, dtype)[:, :n], ms.center.transpose(0, 1).reshape(-1)
+    order. The port stores block g = v*T + t at (t, v) of its (T, V, B, W)
+    layout (packed or not), so chain v's T blocks are contiguous once V leads."""
+    T, V, B, W = ms.mt.shape
+    rows = ms.mt.transpose(0, 1).reshape(V * T * B, W)
+    return dosages(rows, dtype, n), ms.center.transpose(0, 1).reshape(-1)
 
 
 def mme_matvec(plan, state, var_e, jitter=0.0):

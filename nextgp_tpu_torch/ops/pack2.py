@@ -67,6 +67,20 @@ def unpack2(pk: torch.Tensor, dtype) -> torch.Tensor:
     return torch.cat([(pk >> (2 * k)) & 3 for k in range(4)], dim=-1).to(dtype)
 
 
+def dosages(rows: torch.Tensor, dtype, n: int) -> torch.Tensor:
+    """(..., R, W) stored marker rows -> (..., R, n) dosages in dtype: the
+    2-bit planes unpacked (their padded individuals cut off), or int8 /
+    float rows cast (a no-op for rows already in dtype)."""
+    if rows.dtype == torch.uint8:
+        return unpack2(rows, dtype)[..., :n]
+    return rows.to(dtype)
+
+
+def dosage_bytes(rows: torch.Tensor) -> float:
+    """Bytes a stored row holds per dosage: 0.25 packed, else the element's."""
+    return 0.25 if rows.dtype == torch.uint8 else rows.element_size()
+
+
 def y_planar(yp: torch.Tensor) -> torch.Tensor:
     """(4q,) padded residual -> (4, q) planar view (no copy)."""
     return yp.view(4, -1)

@@ -9,8 +9,9 @@ Counterparts of `nextgp_tpu/predict.py`:
   unpacking the panel).
 * `predict(md_train, beta, new_genotypes)`: (new_genotypes - training
   centers) @ beta for new individuals, in host float64.
-* `genomic_values_state(plan, state)`: Mc @ beta off the packed panel
-  already on the device, through the scatter pass (K2 on CUDA).
+* `genomic_values_state(plan, state)`: Mc @ beta off the panel already
+  on the device: through the scatter pass (K2 on CUDA) on packed storage,
+  as a matrix product in the state's dtype on int8 or float storage.
 
 `assemble` reads a MarkerData's panel without consuming it (the JAX
 package donates a `from_packed` device panel to its storage and then
@@ -24,6 +25,7 @@ import torch
 
 from .data.ingest import MarkerData
 from .ops import pack2
+from .utils import full_f32
 
 
 def _host(a) -> np.ndarray:
@@ -63,10 +65,12 @@ def genomic_values(md: MarkerData, beta, chunk: int = 8192) -> np.ndarray:
 
 
 def genomic_values_state(plan, state, marker: int = 0, beta=None):
-    """g = Mc @ beta computed off the packed panel already on the device,
-    through the scatter pass (K2 on CUDA) over the whole panel. beta=None
+    """g = Mc @ beta computed off the panel already on the device. beta=None
     takes the current draw; otherwise any (p,) vector, e.g. a posterior
-    mean. Returns an (n,) tensor in the state's dtype on its device."""
+    mean. Packed storage goes through the scatter pass (K2 on CUDA, which
+    contracts in float32) over the whole panel; int8 or float storage is
+    one product in the state's dtype (TF32 off), the JAX package's branch.
+    Returns an (n,) tensor in the state's dtype on its device."""
     mp = plan.markers[marker]
     ms = state.markers[marker]
     dtype = state.ycorr.dtype
@@ -75,12 +79,17 @@ def genomic_values_state(plan, state, marker: int = 0, beta=None):
     else:
         b_flat = torch.zeros(mp.p_pad, dtype=dtype, device=ms.beta.device)
         b_flat[: mp.p] = torch.as_tensor(beta, dtype=dtype).reshape(-1)[: mp.p]
-    T, V, B, q = ms.mt.shape
+    T, V, B, W = ms.mt.shape
     # global locus order (v, t, b) -> storage row order (t, v, b)
     u = b_flat.view(V, T, B).transpose(0, 1).reshape(-1)
     offset = torch.dot(ms.center.reshape(-1), u)
-    g = pack2.rank_update(ms.mt.view(-1, q), u).reshape(-1)[: plan.n]
-    return g - offset
+    rows = ms.mt.view(-1, W)
+    if mp.packed:
+        g = pack2.rank_update(rows, u).reshape(-1)
+    else:
+        with full_f32():
+            g = u @ rows.to(dtype)
+    return g[: plan.n] - offset
 
 
 def predict(md_train: MarkerData, beta, new_genotypes) -> np.ndarray:

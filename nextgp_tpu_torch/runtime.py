@@ -97,8 +97,9 @@ def model_card(spec: ModelSpec, plan: SweepPlan, state=None) -> str:
     silently-substituted default is spelled out. With `state` (the
     assembled ModelState) the resolved prior scales are shown too — the
     reference's analysis-summary `scale` column (mme.jl:537-538). The text
-    is the JAX package's, line for line; the port has no Pallas flag, and
-    its marker sets are always 2-bit packed."""
+    is the JAX package's, line for line, for packed, int8 and float
+    storage (a correlated set says "2-bit packed" where it is); the port
+    has no Pallas flag."""
 
     def _sc(container, i):
         if state is None:

@@ -449,8 +449,8 @@ def test_distinct_incidence_warns():
 
 def test_corr_refusals_match():
     """What stays refused, as in the JAX package: a prior other than BayesPR
-    and pre-packed panels (ValueError), and the port's non-packable dosages
-    (NotImplementedError)."""
+    and pre-packed panels (ValueError). Dosages that cannot be packed are
+    not refused: they are stored int8, as the JAX package stores them."""
     js, ts = _marker_specs(2)
     ct = ts.corr_markers[0]
     bad = ngt.ModelSpec(y=ts.y, corr_markers=[ngt.CorrMarkerTerm(ct.names, ct.datas,
@@ -464,9 +464,9 @@ def test_corr_refusals_match():
     with pytest.raises(ValueError, match="pre-packed"):
         ngt.assemble(bad, device="cpu")
     wide = ngt.from_array(g + 2)  # dosages up to 4: not 2-bit packable
-    bad = ngt.ModelSpec(y=ts.y, corr_markers=[ngt.CorrMarkerTerm(ct.names, (wide, wide), ct.prior)])
-    with pytest.raises(NotImplementedError, match="packed"):
-        ngt.assemble(bad, device="cpu")
+    ok = ngt.ModelSpec(y=ts.y, corr_markers=[ngt.CorrMarkerTerm(ct.names, (wide, wide), ct.prior)])
+    plan, st = ngt.assemble(ok, device="cpu")
+    assert st.corr_markers[0].mt.dtype == torch.int8 and plan.corr_markers[0].dosage_bytes == 1
 
 
 def _packed(g):

@@ -49,7 +49,10 @@ split entry point against its plain version and each row against the
 single-site entry point, and both paths replayed with the eager chain's
 bits and following the plain chain; run_lmem replayed with files,
 checkpoints and a resume, and two chains of run_chains, each with the bits
-of its run_lmem.
+of its run_lmem; BayesR on int8 rows (pack2=False) and on an imputed float
+panel, and MultiBreed on float panels, at V = 1 and 4: no K1 or K2 launch,
+replays with the eager chain's bits, the card chain following the plain
+chain, and genomic_values_state on the card against genomic_values.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -1729,3 +1732,74 @@ def test_replayed_run_chains_files_checkpoints_and_resume(dev, tmp_path):
         la, lb = engine_sweep._leaves(full["state"]), engine_sweep._leaves(other["state"])
         assert la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
     assert full["state"].sweep_index.tolist() == [29, 29]
+
+
+# ------------------------------------------------------------------ unpacked storage (M7c)
+
+
+def _storage_spec(kind, corr=False, n=300, p=512):
+    """An intercept and a BayesR marker set (or a correlated pair under
+    BayesPR) over int8 dosages or an imputed panel (5 % fractional dosages,
+    from_float_array)."""
+    rng = np.random.default_rng(14)
+    gs = [rng.integers(0, 3, (n, p)).astype(float) for _ in range(2 if corr else 1)]
+    if kind == "float":
+        for g in gs:
+            hit = rng.random(g.shape) < 0.05
+            g[hit] = rng.uniform(0, 2, int(hit.sum()))
+    y = sum((g - g.mean(0)) @ rng.normal(0, 0.1, p) for g in gs) + rng.normal(0, 1, n)
+    datas = [ngt.from_float_array(g, chr_ids=np.ones(p, int)) if kind == "float"
+             else ngt.from_array(g, chr_ids=np.ones(p, int)) for g in gs]
+    if corr:
+        return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], block_size=32,
+                             corr_markers=[ngt.CorrMarkerTerm(("M1", "M2"), tuple(datas), ngt.BayesPR(
+                                 32, np.array([[0.02, 0.01], [0.01, 0.02]])))])
+    return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))], block_size=32,
+                         markers=[ngt.MarkerTerm("M", datas[0], ngt.BayesR(
+                             [0.9, 0.05, 0.03, 0.02], [0.0, 1e-4, 1e-3, 1e-2], 1.0, estimatePi=True))])
+
+
+@pytest.mark.parametrize("V", [1, 4])
+@pytest.mark.parametrize("kind,corr", [("int8", False), ("float", False), ("float", True)],
+                         ids=["BayesR-int8", "BayesR-float", "MultiBreed-float"])
+def test_unpacked_storage_on_the_card(dev, kind, corr, V):
+    """int8 (pack2=False) and float rows on the card: the sweep's gather and
+    scatter are products (K1 and K2 never launch), the scans (K3, or CM1 and
+    its rule) run as on packed rows; make_scan_sampler's replays give the
+    eager chain's bits; the float32 card chain follows the plain chain on
+    the CPU from the same host draws; genomic_values_state on the card (a
+    float32 product) is within 1e-5 of scale of genomic_values (host
+    float64)."""
+    spec = _storage_spec(kind, corr)
+    plan, st0 = ngt.assemble(spec, device=dev, vshards=V, pack2=False if kind == "int8" else None)
+    mt = (st0.corr_markers if corr else st0.markers)[0].mt
+    assert mt.dtype == (torch.int8 if kind == "int8" else torch.float32)
+    before = dict(_cuda.LAUNCHES)
+    stream = ngt.KeyedStream(31, dev, torch.float32)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    T = 512 // 32 // V
+    assert ran["pack2_matvec"] == ran["pack2_rank_update"] == 0
+    assert ran["corr_block_scan_v" if corr else "r_block_scan_v"] == 6 * T
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+    chains = []
+    for device in (dev, "cpu"):
+        p_, s = ngt.assemble(spec, device=device, dtype=torch.float32, vshards=V,
+                             pack2=False if kind == "int8" else None)
+        sw, hs = ngt.make_sweep(p_), HostStream(4, device, torch.float32)
+        for _ in range(3):
+            s = sw(s, hs)
+        chains.append(((s.corr_markers if corr else s.markers)[0].beta.cpu(), s.ycorr.cpu()))
+    assert _rel(chains[0][0], chains[1][0]) < 1e-3 and _rel(chains[0][1], chains[1][1]) < 1e-4
+    if not corr:
+        beta = draws["betaM"].mean(0).cpu().numpy()
+        host = ngt.genomic_values(spec.markers[0].data, beta)
+        card = ngt.genomic_values_state(plan, st, beta=beta).double().cpu().numpy()
+        assert np.abs(card - host).max() / np.abs(host).max() < 1e-5

@@ -8,7 +8,8 @@
 * `chip_smoke.py` has no CPU fallback: without a CUDA device it exits
   non-zero and prints no result.
 * Neither has the package: without a CUDA device `default_device()` raises,
-  and so does every entry point that is not told `device="cpu"`.
+  and so does every entry point that is not told `device="cpu"`, the
+  command line's `run` among them.
 * `assemble` refuses float64 on a CUDA device up front where the model has
   marker sets or a scan random term (float32-only kernels).
 """
@@ -49,12 +50,14 @@ def test_port_imports_no_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 31  # every module of the package was imported, the ladder and diag too
+    assert n_mods >= 34  # every module of the package was imported, the ladder, diag and the CLI too
     assert {"nextgp_tpu_torch.micro", "nextgp_tpu_torch.ops.micro", "nextgp_tpu_torch.diag",
             "nextgp_tpu_torch.data.pedigree", "nextgp_tpu_torch.data.grm", "nextgp_tpu_torch.ops.cg",
             "nextgp_tpu_torch.ops.random_scan",
             "nextgp_tpu_torch.engine.samplers.random_effects", "nextgp_tpu_torch.io.writer",
-            "nextgp_tpu_torch.io.checkpoint", "nextgp_tpu_torch.io.summary"} <= set(
+            "nextgp_tpu_torch.io.checkpoint", "nextgp_tpu_torch.io.summary",
+            "nextgp_tpu_torch.data.ingest", "nextgp_tpu_torch.api.formula", "nextgp_tpu_torch.cli",
+            "nextgp_tpu_torch.__main__"} <= set(
         res.stdout.split("|")[1].split())
 
 
@@ -99,7 +102,9 @@ def test_state_fields_match(name):
     the JAX field names, so that state_from_numpy reads a flattened JAX
     state at the same paths. The port's ModelState adds sweep_counter (the
     device copy of sweep_index); its RandomPlan adds the CG sampler's static
-    tables and its CorrMarkerPlan the region sums' tables."""
+    tables and its CorrMarkerPlan the bytes of a stored dosage (the JAX
+    roofline counts 0.25 for every correlated set) and the region sums'
+    tables."""
     from nextgp_tpu.data import pedigree as j_ped
     from nextgp_tpu.engine import plan as j_plan
     from nextgp_tpu.engine import state as j_state
@@ -113,7 +118,7 @@ def test_state_fields_match(name):
     tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
     extra = {"ModelState": ["sweep_counter"],
              "RandomPlan": ["z_rows", "sire_kids", "dam_kids", "iv_len", "z_diag", "cg_layout"],
-             "CorrMarkerPlan": ["region_rows", "region_len"]}
+             "CorrMarkerPlan": ["dosage_bytes", "region_rows", "region_len"]}
     assert tnames == jnames + extra.get(name, [])
     if name in ("RandomPlan", "CorrMarkerPlan"):
         jf = _fields(getattr(jmod, name))
@@ -134,21 +139,37 @@ def test_chain_fields_match():
 
 # parameters the port adds to an entry point: where it runs, and its draw streams
 PORT_ONLY = ("device", "stream", "streams")
+# parameters of the JAX package's that the port leaves out: `assemble`'s
+# use_pallas (its Pallas switch has no meaning on the card)
+JAX_ONLY = ("use_pallas",)
+# the entry points that the packages' top levels do not export: their modules
+MODULES = {"build_lv_design": "api.formula", "from_device_array": "data.ingest",
+           "read_map_file": "data.ingest"}
 
 
 @pytest.mark.parametrize("name", ["run_lmem", "run_chains", "prep", "model_card", "summary_mcmc",
-                                  "genomic_values", "predict"])
+                                  "genomic_values", "predict", "assemble", "parse_formula",
+                                  "build_lv_design", "from_array", "from_float_array",
+                                  "from_device_array", "from_packed", "read_genotype_file",
+                                  "read_plink", "read_map_file"])
 def test_entry_point_signatures_match(name):
     """A script written for the JAX package calls the port's entry points
     with the same arguments: names, order and defaults equal, the port's
-    additions (PORT_ONLY) left out."""
+    additions (PORT_ONLY) left out, and `assemble`'s use_pallas (JAX_ONLY)
+    dropped from the JAX side."""
+    import importlib
     import inspect
 
     def params(fn, drop=()):
         return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()
                 if p.name not in drop]
 
-    assert params(getattr(ngt, name), PORT_ONLY) == params(getattr(ng, name))
+    if name in MODULES:
+        jfn = getattr(importlib.import_module(f"nextgp_tpu.{MODULES[name]}"), name)
+        tfn = getattr(importlib.import_module(f"nextgp_tpu_torch.{MODULES[name]}"), name)
+    else:
+        jfn, tfn = getattr(ng, name), getattr(ngt, name)
+    assert params(tfn, PORT_ONLY) == params(jfn, JAX_ONLY)
 
 
 def test_chip_smoke_fails_without_gpu():
@@ -180,18 +201,49 @@ def test_default_device_is_the_card_or_an_error(monkeypatch):
     assert utils.default_device() == torch.device("cuda")
 
 
-@pytest.mark.parametrize("entry", ["assemble", "run_lmem", "prep", "run_chains"])
+def _cli_config(tmp_path, out, **extra):
+    """A CLI config over _tiny_spec's data written to tmp_path: a phenotype
+    CSV, a genotype file, y ~ 1 + SNP(M) under BayesC."""
+    import json
+
+    import numpy as np
+
+    spec = _tiny_spec()
+    g = spec.markers[0].data.genotypes
+    (tmp_path / "geno.txt").write_text("\n".join(" ".join(map(str, r)) for r in g) + "\n")
+    (tmp_path / "pheno.csv").write_text(
+        "ID,y\n" + "\n".join(f"a{i},{float(v)!r}" for i, v in enumerate(np.asarray(spec.y))) + "\n")
+    cfg = {"formula": "y ~ 1 + SNP(M)", "data": "pheno.csv", "genotypes": {"M": "geno.txt"},
+           "priors": {"M": {"type": "BayesC", "pi": 0.9, "v": 0.05}}, "block_size": 8,
+           "chain": {"length": 2, "burnin": 0, "thin": 1, "seed": 1}, "out_folder": str(out),
+           **extra}
+    path = tmp_path / "run.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+@pytest.mark.parametrize("entry", ["assemble", "run_lmem", "prep", "run_chains", "cli_run"])
 def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
     """Without a CUDA device and without device="cpu" nothing is built on the
-    CPU, and the output folder that run_lmem and run_chains wipe is left as
-    it was; with device="cpu" the same call goes through."""
+    CPU, and the output folder that run_lmem, run_chains and the CLI's run
+    wipe is left as it was; with device="cpu" (the CLI: the config's
+    "device": "cpu") the same call goes through."""
     import torch
+
+    from nextgp_tpu_torch import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = _tiny_spec()
     out = tmp_path / "out"
     out.mkdir()
     (out / "kept").write_text("")
+    if entry == "cli_run":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["run", _cli_config(tmp_path, out), "--quiet"])
+        assert (out / "kept").exists()
+        assert cli.main(["run", _cli_config(tmp_path, out, device="cpu"), "--quiet"]) == 0
+        assert not (out / "kept").exists() and (out / "varEOut").exists()
+        return
     call = {"assemble": lambda **kw: ngt.assemble(spec, **kw)[1].ycorr,
             "prep": lambda **kw: ngt.prep(spec, **kw)[1].ycorr,
             "run_lmem": lambda **kw: ngt.run_lmem(spec, 2, 0, 1, out_folder=str(out), seed=1,

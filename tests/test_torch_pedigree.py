@@ -130,9 +130,18 @@ def test_grm_matches(method):
         ngt.make_g(m, method=3, device="cpu")
 
 
-def test_grm_needs_the_card_or_the_cpu(monkeypatch):
+def test_grm_needs_the_card_or_the_cpu(monkeypatch, tmp_path):
+    """Without a card make_g raises unless told device="cpu", from a matrix
+    or from a genotype file (the file overload, through the port's reader:
+    the JAX package's G on the same file)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ngt.make_g(np.ones((3, 4)))
-    with pytest.raises(NotImplementedError, match="M7c"):
-        ngt.make_g("genotypes.txt", device="cpu")
+    m = np.random.default_rng(8).integers(0, 3, (12, 30))
+    path = tmp_path / "genotypes.txt"
+    path.write_text("\n".join(" ".join(str(v) for v in row) for row in m) + "\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ngt.make_g(str(path))
+    ref = jgrm.make_g(str(path))
+    np.testing.assert_allclose(ngt.make_g(str(path), device="cpu").numpy(), ref, rtol=1e-12,
+                               atol=1e-12 * np.abs(ref).max())

@@ -352,13 +352,14 @@ def test_padded_loci_match(method):
 
 
 def test_bayeslv_formula_string_raises():
-    """The formula-string form of BayesLV's covariates belongs to the formula
-    front end, which the port does not carry yet."""
+    """What BayesLV's covariates refuse, as in the JAX package: a formula
+    string without its covariate_table, and a design without nSNP rows. (A
+    formula string with its table runs: tests/test_torch_formula.py.)"""
     _, ts = _specs()
     g, _ = _data()
     bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm(
-        "M", ngt.from_array(g), ngt.BayesLV(0.01, "1 + x1", 0.01, covariate_table={"x1": g[0]}))])
-    with pytest.raises(NotImplementedError, match="M12"):
+        "M", ngt.from_array(g), ngt.BayesLV(0.01, "1 + x1", 0.01))])
+    with pytest.raises(ValueError, match="needs covariate_table="):
         ngt.assemble(bad, device="cpu")
     bad = dataclasses.replace(ts, markers=[ngt.MarkerTerm(
         "M", ngt.from_array(g), ngt.BayesLV(0.01, np.ones((P - 1, 2)), 0.01))])

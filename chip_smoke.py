@@ -26,6 +26,7 @@ and check them.
                                  # CM1, in turns P, C, C, P
     python3 chip_smoke.py runtime  # phases 1-2 and phase 10 alone
     python3 chip_smoke.py storage  # phases 1-2 and phase 11 alone
+    python3 chip_smoke.py grn    # phases 1-2 and phase 12 alone
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -202,6 +203,25 @@ Phases (any failed check raises and the script exits non-zero):
      and `roofline` run as `python -m nextgp_tpu_torch` does (runpy, in
      this process, so that the launch counters show K3, RE1 and R1), each
      returning 0, and `summary` again in a child `python -m`
+ 12. the GRN vertical (ROADMAP M13): (a) GRN1 (csrc/grn_scan.cu, the
+     per-gene SNP scan, one forward substitution with G right-hand sides
+     on one triangle) against its plain version in float32 (1e-4 of d's
+     scale) and float64 (1e-10), the same bits twice, at
+     scripts/bench_grn.py's (G, S) = (10, 20), (30, 60), (100, 200) on the
+     Gram of that shape's panel, timed beside its byte and dependent-chain
+     bounds and the library's triangular solve, at S = 1, 31, 33, 1,025,
+     2,000 for G = 1, 3, 100, either side of its register limits (256,
+     2,048) and with a monomorphic SNP, and its SASS checked (no LDL/STL, no
+     predicated LDS); (b) the chain at 100 genes x 200 SNPs x 10,000
+     individuals (bench_grn's generator, start_lam1 0.1): float32 eager and
+     replayed from one KeyedStream for 300 iterations (the same bits; accept
+     > 0; corr(posterior-mean Lambda2, planted) >= 0.7; varE within 0.5-2x
+     of 0.25; Lambda1's correlation printed), ms/iteration of both arms,
+     busy, idle share and nodes of a replayed step and GRN1's share; float64
+     with GRN1 against float64 with the plain scan on the card over 20
+     iterations (1e-9 relative, the same accept count); (c) est_grn with a
+     KeyedStream: its six *Out files in a temporary folder equal to its
+     draws, and out_folder=None writing nothing
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -230,7 +250,8 @@ from nextgp_tpu_torch.engine import sweep as engine_sweep
 from nextgp_tpu_torch.engine.rng import HostStream, PhiloxStream
 from nextgp_tpu_torch.engine.samplers import random_effects
 from nextgp_tpu_torch.engine.samplers.markers import _gram_raw_diag
-from nextgp_tpu_torch.ops import _cuda, cg, corr_scan, gibbs_kernels, pack2, random_scan
+from nextgp_tpu_torch.grn import sampler as tgrn
+from nextgp_tpu_torch.ops import _cuda, cg, corr_scan, gibbs_kernels, grn_scan, pack2, random_scan
 from nextgp_tpu_torch.ops import micro as mk
 from nextgp_tpu_torch.utils import full_f32, replace
 
@@ -4058,6 +4079,375 @@ def storage_only(card):
     print(json.dumps({"card": card, "storage": out, "launches": counted}))
 
 
+# ------------------------------------------------------------------ phase 12
+
+GRN_LADDER = ((10, 20, 2_000), (30, 60, 5_000), (100, 200, 10_000))  # scripts/bench_grn.py's (G, S, N)
+GRN_EDGES = tuple((G, S) for S in (1, 31, 33, 1025, 2000) for G in (1, 3, 100))
+GRN_LIMITS = (256, 257, 2048, 2049)  # GRN1: one SNP a thread to 256, eight to 2,048, scratch past it
+TOL_GRN = {torch.float32: 1e-4, torch.float64: 1e-10}  # GRN1 against its plain version, of d's scale
+GRN_CHAIN_OPS = 4  # a chain step of GRN1: the multiply-add into the owner's sum, the add of r0,
+#                    the divide and the subtract
+GRN_ITERS, GRN_BURN = 300, 100  # (b): iterations of the float32 chains, and the ones not averaged
+GRN_F64_ITERS = 20  # (b): iterations of the float64 chains, GRN1's and the plain scan's
+GRN_TOL_CHAIN = 1e-9  # (b): the float64 GRN1 chain against the float64 plain chain, relative
+GRN_VAR_E = 0.25  # bench_grn's noise sd 0.5
+GRN_EST = dict(chain_length=60, burn_in=20, output_freq=10)  # (c): 4 kept rows
+GRN_FILES = ("Lambda1", "varLambda1", "Lambda2", "varBeta", "varE", "means")
+F64_FLOP_PER_S = 34e12  # the H100 SXM data sheet's float64 rate outside the tensor cores
+
+
+def grn_data(G, S, N, seed=1):
+    """scripts/bench_grn.py's generator (copied: that script imports jax):
+    dosages uniform in {0, 1, 2}, the planted Lambda1 on the subdiagonal
+    (+-0.3 by turns), a sparse Lambda2 (10 % of entries, sd 0.3), gene
+    means sd 1, noise sd 0.5. Returns (x, y, lam1, lam2) in numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 3, (S, N)).astype(np.float64)
+    l1 = np.zeros((G, G))
+    for g in range(1, G):
+        l1[g, g - 1] = 0.3 * (1 if g % 2 else -1)
+    l2 = rng.normal(0, 0.3, (G, S)) * (rng.uniform(size=(G, S)) < 0.1)
+    mu = rng.normal(0, 1, G)
+    e = rng.normal(0, 0.5, (G, N))
+    xc = x - x.mean(axis=1, keepdims=True)
+    y = np.linalg.solve(np.eye(G) - l1, mu[:, None] + l2 @ xc + e)
+    return x, y, l1, l2
+
+
+def grn_inputs(G, S, dtype, n=2000, zero_snp=None, xc=None):
+    """GRN1's inputs: the Gram of S centred dosage rows of n individuals (xc
+    where given; a row constant where zero_snp names it), r0 at the scale
+    x'ycorr has, normal z and bold, var_e 0.25; seeded by (G, S)."""
+    g = torch.Generator(device=DEV).manual_seed(1000 * G + S)
+    if xc is None:
+        x = torch.randint(0, 3, (S, n), generator=g, device=DEV).double()
+        if zero_snp is not None:
+            x[zero_snp] = 1.0
+        xc = x - x.mean(1, keepdim=True)
+    gram = (xc @ xc.T).to(dtype)
+    r0, z, bold = (torch.randn(G, S, generator=g, device=DEV, dtype=torch.float64).to(dtype) for _ in range(3))
+    return gram.contiguous(), r0 * 20.0, z, bold * 0.05, torch.tensor(GRN_VAR_E, dtype=dtype, device=DEV)
+
+
+def grn_held(tag, args, dtype):
+    """GRN1 against grn_scan_plain on args: d and bnew within TOL_GRN of
+    scale, non-finite where the plain version's are, bnew = bold - d, the
+    same bits twice. Returns (max_abs_err of d, its scale)."""
+    bnew, d = grn_scan.grn_scan_kernel(*args)
+    rb, rd = grn_scan.grn_scan_plain(*args)
+    errs = []
+    for out, ref, what in ((d, rd, "d"), (bnew, rb, "bnew")):
+        fin = torch.isfinite(ref)
+        check(torch.equal(torch.isfinite(out), fin), f"grn_scan {tag}: {what} finite where the plain is not")
+        e, sc = rel_err(out[fin], ref[fin]) if fin.any() else (0.0, 0.0)
+        check(e <= TOL_GRN[dtype] * sc, f"grn_scan {tag}: {what} max_abs_err {e:.3e} of {sc:.3e}")
+        errs.append((e, sc))
+    b2, d2 = grn_scan.grn_scan_kernel(*args)
+    check(same_or_nan(bnew, args[3] - d) and same_or_nan(b2, bnew) and same_or_nan(d2, d),
+          f"grn_scan {tag}: bnew is not bold - d, or two runs differ")
+    return errs[0]
+
+
+def same_or_nan(a, b):
+    """torch.equal, NaN taken as equal to NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all().item())
+
+
+def grn_latency_ms(S, mhz):
+    """GRN1's dependent-chain bound: S steps of GRN_CHAIN_OPS dependent
+    operations of 4 cycles at mhz (the card's maximum SM clock: an idle
+    card reports its resting clock)."""
+    return S * GRN_CHAIN_OPS * 4 / (mhz * 1e3)
+
+
+def grn_sass():
+    """GRN1's SASS (cuobjdump of the built library): its register instances
+    (scan_kernel, S <= 2,048) hold no local-memory load or store (LDL, STL)
+    and no shared-memory load behind a predicate; the scratch form's
+    (scan_wide_kernel, above 2,048 SNPs) are counted and printed."""
+    so = _cuda.build()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    funcs = [f for f in re.split(r"\n\s*Function : ", res.stdout)[1:] if "grn" in f.split("\n", 1)[0]]
+    check(funcs, "no GRN1 function in the library's SASS")
+    wide = {}
+    for f in funcs:
+        name = f.split("\n", 1)[0].strip()
+        local = [ln.strip() for ln in f.splitlines() if re.search(r"\b(LDL|STL)\b", ln)]
+        pred = [ln.strip() for ln in f.splitlines() if re.search(r"@!?P\d+\s+LDS\b", ln)]
+        if "scan_wide_kernel" in name:
+            wide[name] = len(local)
+            continue
+        check(not local and not pred, f"GRN1's SASS of {name}: {(local + pred)[:4]}")
+    print(f"[12 grn] SASS of {len(funcs) - len(wide)} GRN1 register instances: no LDL/STL, no predicated LDS; "
+          f"the scratch form's local loads and stores: {wide}")
+    return dict(functions=len(funcs), wide_local=wide)
+
+
+def grn_kernel_phase():
+    """12a: GRN1 against its plain version in float32 and float64, at
+    bench_grn's three shapes (the Gram of that shape's panel) with times
+    beside the bounds, the plain version and the library's triangular
+    solve, at GRN_EDGES and with a monomorphic SNP; the SASS check."""
+    out = {"sass_functions": grn_sass()}
+    mhz, mhz_max = sm_clocks_mhz()
+    for dtype, tag in ((torch.float32, ""), (torch.float64, "_f64")):
+        for G, S, N in GRN_LADDER:
+            x = torch.as_tensor(grn_data(G, S, N)[0], device=DEV)
+            args = grn_inputs(G, S, dtype, xc=x - x.mean(1, keepdim=True))
+            del x
+            e, sc = grn_held(f"{G} x {S}", args, dtype)
+
+            def kern():
+                return grn_scan.grn_scan_kernel(*args)
+
+            def plain():
+                return grn_scan.grn_scan_plain(*args)
+
+            mat, rhs = grn_scan.grn_system(args[0], args[1], args[2], args[4])
+
+            def library():
+                return torch.linalg.solve_triangular(mat, rhs, upper=False)
+
+            e_l, _ = rel_err(library().T, plain()[1])
+            check(e_l <= TOL_GRN[dtype] * sc, f"grn_scan {G} x {S}: the library solve differs by {e_l:.3e}")
+            work = diag.grn_work(G, S, torch.finfo(dtype).bits // 8)
+            lat = grn_latency_ms(S, mhz_max)
+            ms_k, ms_p, dev_ms = median_ms(kern, 20), median_ms(plain, 3), device_ms(kern, 20)
+            lib_ms, lib_dev = median_ms(library, 20), device_ms(library, 20, records_per_launch=0)
+            name = f"grn_scan_{G}x{S}{tag}"
+            if (G, S, dtype) == (100, 200, torch.float32):
+                name = "grn_scan"
+            note = (f" (G = {G}, S = {S}, the Gram of bench_grn's {N:,}-individual panel, {dtype}; one launch; "
+                    f"the dependent-chain bound {lat:.6f} ms ({S} steps x {GRN_CHAIN_OPS} operations x 4 "
+                    f"cycles at the {mhz_max:g} MHz maximum SM clock nvidia-smi reports, {mhz:g} before the "
+                    "phase); the "
+                    f"library solve's max_abs_err {e_l:.3e}, its system built outside the timed window; not "
+                    "a TPU kernel: the counterpart of the lax.scan of gene_scan)")
+            if dtype == torch.float64:  # report's operations bound is the float32 rate
+                note += f"; float64 operations bound {1e3 * work[1] / F64_FLOP_PER_S:.6f} ms at 34 TFLOP/s"
+            report(name, e, sc, TOL_GRN[dtype], ms_k, ms_p, work[:2], note, library_ms=lib_ms,
+                   phase="12 grn", dev_ms=dev_ms, library_dev_ms=lib_dev)
+            TIMINGS[name].update(latency_bound_ms=lat, sm_clock_mhz=mhz, sm_clock_max_mhz=mhz_max)
+            out[name] = dict(TIMINGS[name])
+            del mat, rhs, args
+        for G, S in GRN_EDGES:
+            e, sc = grn_held(f"{G} x {S} {dtype}", grn_inputs(G, S, dtype), dtype)
+            print(f"[12 grn] grn_scan at G = {G}, S = {S:,}, {dtype}: max_abs_err {e:.3e} (scale {sc:.3e}, "
+                  f"tol {TOL_GRN[dtype]:g} x scale), two launches bit-identical")
+        for S in GRN_LIMITS:
+            grn_held(f"5 x {S} {dtype}", grn_inputs(5, S, dtype), dtype)
+        for S in (200, 2000, 2100):
+            args = grn_inputs(3, S, dtype, zero_snp=S // 3)
+            d = grn_scan.grn_scan_kernel(*args)[1]
+            check(not torch.isfinite(d[:, S // 3:]).any().item() and torch.isfinite(d[:, :S // 3]).all().item(),
+                  f"grn_scan at S = {S}: the monomorphic SNP is not where the draws stop being finite")
+            grn_held(f"3 x {S} monomorphic {dtype}", args, dtype)
+        print(f"[12 grn] {dtype}: held either side of the register limits (S = {GRN_LIMITS}); a monomorphic "
+              "SNP at S = 200, 2,000 and 2,100 gives non-finite draws from it on, as the plain version does")
+    return out
+
+
+class GRNRun:
+    """One GRN chain on the card from prepare_grn's state: its step, state,
+    stream, the running sums of Lambda1 and Lambda2 after GRN_BURN and the
+    varE draws."""
+
+    def __init__(self, data, dtype, stream, replayed):
+        x, y, _, _ = data
+        G = y.shape[0]
+        _, self.state0, self.step = tgrn.prepare_grn(x, y, G, start_lam1=np.full(G * G - G, 0.1), dtype=dtype,
+                                                     device=DEV)
+        self.chain = tgrn.GRNChain(self.step, self.state0, stream) if replayed else None
+        self.state, self.stream, self.done = self.state0, stream, 0
+        self.lam1 = self.lam2 = None
+        self.var_e = []
+
+    def run(self, n, keep=False):
+        for _ in range(n):
+            if self.chain is not None:
+                self.chain.run(1)
+                st = self.chain.state
+            else:
+                st = self.state = self.step(self.state, self.stream)
+            self.done += 1
+            if keep and self.done > GRN_BURN:
+                lam1 = self.step.lam_matrix(st.lam1).double()
+                self.lam1 = lam1 if self.lam1 is None else self.lam1 + lam1
+                self.lam2 = st.lam2.double() if self.lam2 is None else self.lam2 + st.lam2
+                self.var_e.append(st.var_e.clone())
+        if self.chain is not None:
+            self.state = self.chain.state
+
+
+def grn_leaves_equal(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in tgrn._TENSORS) and a.it == b.it
+
+
+def grn_chain_phase(data):
+    """12b: the chain at bench_grn's full width: float32 eager and replayed
+    from one KeyedStream (the same bits, accept count included), the
+    posterior means against the planted matrices, varE, ms/iteration of
+    both arms, busy, idle and nodes of a replayed step, GRN1's share; then
+    float64 with GRN1 against float64 with the plain scan on the card."""
+    _, y, l1, l2 = data
+    G = y.shape[0]
+    out, counted = {}, {}
+    arms = {}
+    for arm, replayed in (("eager", False), ("replayed", True)):
+        _cuda.reset_launches()
+        run = GRNRun(data, torch.float32, keyed.KeyedStream(12, DEV, torch.float32), replayed)
+        run.run(GRN_ITERS, keep=True)
+        torch.cuda.synchronize()
+        counted[f"GRN f32 {arm}"] = dict(_cuda.LAUNCHES)
+        arms[arm] = run
+    e, r = arms["eager"], arms["replayed"]
+    check(grn_leaves_equal(e.state, r.state) and torch.equal(e.lam2, r.lam2) and torch.equal(e.lam1, r.lam1),
+          "GRN f32: the replayed chain's bits differ from the eager chain's")
+    st = r.state
+    finite = all(torch.isfinite(getattr(st, f)).all().item() for f in ("mu", "lam1", "lam2", "var_lam1",
+                                                                       "var_beta", "var_e", "ycorr"))
+    accept = int(st.accept)
+    kept = GRN_ITERS - GRN_BURN
+    lam2_corr = corr(r.lam2.flatten() / kept, torch.as_tensor(l2, device=DEV).flatten())
+    off = ~torch.eye(G, dtype=torch.bool, device=DEV)
+    lam1_corr = corr((r.lam1 / kept)[off], torch.as_tensor(l1, device=DEV)[off])
+    var_e = torch.stack(r.var_e).double().mean().item()
+    print(f"[12 grn] {G} x {l2.shape[1]} x {y.shape[1]:,}, float32, start_lam1 0.1, {GRN_ITERS} iterations eager "
+          f"and replayed from one KeyedStream: the same bits; accept {accept}; corr(posterior-mean Lambda2, "
+          f"planted) {lam2_corr:.4f} (limit 0.7); corr(Lambda1, planted) {lam1_corr:.4f} (printed); varE "
+          f"{var_e:.5f} (limits {GRN_VAR_E / 2:g}-{GRN_VAR_E * 2:g}); launches a run: GRN1 "
+          f"{counted['GRN f32 eager']['grn_scan']} eager, {counted['GRN f32 replayed']['grn_scan']} replayed "
+          "(the warm step and the capture)")
+    check(finite, "GRN f32: the final state is not finite")
+    check(accept > 0, "GRN f32: no Metropolis-Hastings move accepted")
+    check(lam2_corr >= 0.7, f"GRN f32: corr(Lambda2, planted) {lam2_corr:.4f} below 0.7")
+    check(GRN_VAR_E / 2 <= var_e <= GRN_VAR_E * 2, f"GRN f32: varE {var_e:.5f} off the simulated {GRN_VAR_E}")
+    ms_eager = steady_ms(lambda: e.run(1), 50)
+    ms_replay = steady_ms(lambda: r.chain.run(1), 50)
+    busy, nodes, missed, by_name, ms_by = replay_window(r.chain, 10)
+    grn_ms = sum(v for k, v in ms_by.items() if "grn" in k)
+    idle = 1.0 - busy / ms_replay
+    top = sorted(ms_by.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[12 grn] float32 ms/iteration (CUDA events around 50): eager {ms_eager:.4f}, replayed "
+          f"{ms_replay:.4f}; 10 replays under the profiler: device busy {busy:.4f} ms/iteration, {nodes} kernels "
+          f"and copies a step ({missed} records missed), idle share without the profiler {idle:.4f}; GRN1 "
+          f"{grn_ms:.4f} ms a step ({grn_ms / busy:.4f} of busy); the largest: "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+    out["f32"] = dict(accept=accept, lam2_corr=lam2_corr, lam1_corr=lam1_corr, var_e=var_e,
+                      eager_ms_per_iteration=ms_eager, replayed_ms_per_iteration=ms_replay, busy_ms=busy,
+                      nodes=nodes, idle_share=idle, grn_scan_ms=grn_ms, grn_scan_share=grn_ms / busy,
+                      largest=dict(top))
+    del arms, e, r
+    runs = {}
+    for arm in ("kernel", "plain"):
+        _cuda.reset_launches()
+        scan = tgrn.grn_scan
+        if arm == "plain":
+            tgrn.grn_scan = grn_scan.grn_scan_plain
+        try:
+            run = GRNRun(data, torch.float64, keyed.KeyedStream(13, DEV, torch.float64), False)
+            run.run(GRN_F64_ITERS)
+            torch.cuda.synchronize()
+        finally:
+            tgrn.grn_scan = scan
+        counted[f"GRN f64 {arm}"] = dict(_cuda.LAUNCHES)
+        runs[arm] = run.state
+    k, p = runs["kernel"], runs["plain"]
+    check(counted["GRN f64 kernel"]["grn_scan"] == GRN_F64_ITERS and counted["GRN f64 plain"]["grn_scan"] == 0,
+          "GRN f64: GRN1 did not launch once an iteration in the kernel arm, or launched in the plain arm")
+    worst = max(rel_err(getattr(k, f).double(), getattr(p, f).double())[0]
+                / max(getattr(p, f).double().abs().max().item(), 1e-300)
+                for f in ("mu", "lam1", "lam2", "var_lam1", "var_beta", "var_e", "ycorr"))
+    print(f"[12 grn] float64, {GRN_F64_ITERS} iterations with GRN1 and with the plain scan on the card, one "
+          f"KeyedStream: largest difference {worst:.3e} of a field's scale (limit {GRN_TOL_CHAIN:g}); accept "
+          f"{int(k.accept)} and {int(p.accept)}")
+    check(worst <= GRN_TOL_CHAIN and int(k.accept) == int(p.accept),
+          "GRN f64: the GRN1 chain departs from the plain chain")
+    out["f64"] = dict(largest_rel_diff=worst, accept=int(k.accept))
+    return out, counted
+
+
+def grn_out_rows(path):
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        return header, np.array([[float(v) for v in ln.split("\t")] for ln in fh.read().splitlines()])
+
+
+def grn_est_phase(data, root):
+    """12c: est_grn on the same data with a KeyedStream (replayed), its six
+    *Out files in a temporary folder: there, with the kept rows, equal to
+    the draws; out_folder=None writes nothing."""
+    x, y, _, _ = data
+    G, S = y.shape[0], x.shape[0]
+    folder = os.path.join(root, "grn_out")
+    kw = dict(start_lam1=np.full(G * G - G, 0.1), device=DEV, dtype=torch.float32, **GRN_EST)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    acc, draws, st = ngt.est_grn(x, y, G, 2, out_folder=folder, stream=keyed.KeyedStream(14, DEV, torch.float32),
+                                 **kw)
+    sec = time.perf_counter() - t0
+    counted = dict(_cuda.LAUNCHES)
+    n_keep = (GRN_EST["chain_length"] - GRN_EST["burn_in"]) // GRN_EST["output_freq"]
+    widths = dict(Lambda1=G * G, varLambda1=1, Lambda2=G * S, varBeta=G, varE=1, means=G)
+    check(sorted(os.listdir(folder)) == sorted(f"{n}Out" for n in GRN_FILES), f"est_grn: files {os.listdir(folder)}")
+    for n in GRN_FILES:
+        header, rows = grn_out_rows(os.path.join(folder, f"{n}Out"))
+        check(header == [f"{n}{i + 1}" for i in range(widths[n])] and rows.shape == (n_keep, widths[n])
+              and draws[n].shape == rows.shape and np.array_equal(rows, draws[n].astype(np.float64)),
+              f"est_grn: {n}Out does not hold the kept draws")
+    empty = os.path.join(root, "empty")
+    os.makedirs(empty)
+    cwd = os.getcwd()
+    os.chdir(empty)
+    try:
+        ngt.est_grn(x, y, G, 2, out_folder=None, stream=keyed.KeyedStream(14, DEV, torch.float32), **kw)
+    finally:
+        os.chdir(cwd)
+    check(os.listdir(empty) == [], "est_grn with out_folder=None wrote files")
+    check(counted["grn_scan"] > 0, "est_grn: GRN1 was not launched")
+    print(f"[12 grn] est_grn ({GRN_EST['chain_length']} iterations, KeyedStream, replayed) in {sec:.2f} s: "
+          f"accept {acc}; six *Out files of {n_keep} rows, equal to the draws; out_folder=None writes nothing; "
+          f"launches {dict((k, v) for k, v in counted.items() if v)}")
+    return dict(accept=acc, seconds=sec, kept=n_keep), counted
+
+
+def grn_phase():
+    """12: the GRN vertical (ROADMAP M13): GRN1 (12a), the chain at
+    bench_grn's full width (12b) and est_grn with its files (12c). Returns
+    the numbers and the launch counts by run."""
+    t0 = time.perf_counter()
+    out, counted = {}, {}
+    t1 = time.perf_counter()
+    out["kernel"] = grn_kernel_phase()
+    parts = {"a": time.perf_counter() - t1}
+    data = grn_data(*GRN_LADDER[-1])
+    t1 = time.perf_counter()
+    out["chain"], by_run = grn_chain_phase(data)
+    counted.update(by_run)
+    parts["b"] = time.perf_counter() - t1
+    root = tempfile.mkdtemp(prefix="ngt_grn_")
+    t1 = time.perf_counter()
+    try:
+        out["est_grn"], counted["GRN est_grn"] = grn_est_phase(data, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parts["c"] = time.perf_counter() - t1
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[12 grn] every check passed in {out['seconds']:.1f} s (by part: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in parts.items())})")
+    return out, counted
+
+
+def grn_only(card):
+    """`python3 chip_smoke.py grn`: phase 12 alone. One JSON line of its
+    numbers and launch counts, and no result line."""
+    out, counted = grn_phase()
+    print(json.dumps({"card": card, "grn": out, "launches": counted}))
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
@@ -4067,6 +4457,7 @@ RUNTIME_RUNS = ("runtime BayesR", "runtime chains")  # phase 10's replayed Bayes
 # phase 11's eager runs of BayesR at V=96 on int8, packed and float storage
 STORAGE_R = ("storage BayesR int8", "storage BayesR packed", "storage BayesR float")
 STORAGE_KEYED = STORAGE_R + ("storage BayesC+D int8", "storage CLI")
+GRN_RUNS = ("GRN f32 eager", "GRN f32 replayed", "GRN f64 kernel", "GRN est_grn")  # phase 12's GRN1 runs
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
@@ -4105,7 +4496,7 @@ SOURCES = {
                   tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
                                                                   f"BayesR 50k keyed V={V_MAIN}")
                   + tuple(f"{r} keyed" if r == "BayesR+A2" else r.replace(" V=", " keyed V=")
-                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",) + STORAGE_KEYED),
+                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",) + STORAGE_KEYED + GRN_RUNS),
     "level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
                    "level_scan", ("BayesR+A", "GBLUP", "storage CLI")),
     "corr_level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
@@ -4117,6 +4508,7 @@ SOURCES = {
     "corr_rule": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:901", "corr_rule",
                   (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "storage MultiBreed float V=1")),
     "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg", "runtime A-cg")),
+    "grn_scan": (CU + "grn_scan.cu", "nextgp_tpu/grn/sampler.py:183", "grn_scan", GRN_RUNS),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of "
@@ -4138,6 +4530,11 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
                      "100,000-animal model (float64); launches from phase 8.4's run_lmem "
                      "(PhiloxStream, eager) run and, counted at capture, phase 10's replayed A-cg "
                      "runs with checkpoints and resume",
+         "grn_scan": "GRN1; not a TPU kernel: the counterpart of the lax.scan of gene_scan "
+                     "(nextgp_tpu/grn/sampler.py:169-188), vmapped over genes; timed at G = 100, S = 200 "
+                     "in float32 (bench_grn's other shapes and float64 as grn_scan_<G>x<S>[_f64] in "
+                     "phase 12's output); launches from phase 12's eager runs (one an iteration) and, "
+                     "counted at capture, its replayed runs and est_grn",
          "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v",
          "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
                       "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
@@ -4240,6 +4637,8 @@ def main(argv=()):
         return cg_only(card, *argv[1:])
     if list(argv) == ["storage"]:
         return storage_only(card)
+    if list(argv) == ["grn"]:
+        return grn_only(card)
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -4256,8 +4655,8 @@ def main(argv=()):
     if list(argv) == ["runtime"]:
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
-                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime "
-                    "or storage")
+                    "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
+                    "storage or grn")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -4292,6 +4691,9 @@ def main(argv=()):
     storage_out, by_run = storage_phase()
     counted.update(by_run)
     print(f"[11 storage] {json.dumps(storage_out)}")
+    grn_out, by_run = grn_phase()
+    counted.update(by_run)
+    print(f"[12 grn] {json.dumps(grn_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

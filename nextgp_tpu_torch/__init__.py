@@ -5,13 +5,14 @@ effects + random effects (identity, pedigree A^-1 or genomic G^-1
 structure, by the per-level scan or by perturbed CG; correlated groups by
 their own level scan) + the seven marker methods (BayesPR, BayesB, BayesC,
 BayesR, the annotation samplers BayesRCpi and BayesRCplus, and BayesLV)
-with summary statistics + correlated marker sets (BayesPR), genotypes
+with summary statistics + correlated marker sets (BayesPR), the GRN
+structural-equation sampler (`est_grn`, its Lambda2 scan GRN1), genotypes
 stored 2-bit planar-packed where the dosages allow it and int8 or float
 otherwise (imputed dosages), V-batched block schedule. The packed passes,
 the in-block scans and the random effects' level scans run through hand-written
 CUDA kernels for Hopper (csrc/, built with nvcc at first use) on CUDA
 tensors and through their plain PyTorch versions on CPU tensors. The entry
-points (`run_lmem` with its output files, checkpoints and exact resume,
+points (`est_grn`, `run_lmem` with its output files, checkpoints and exact resume,
 `prep`, `run_chains`, `model_card`), the posterior summaries (`io/`) and
 serving (`genomic_values`, `predict`), the readers (text genotype files,
 PLINK .bed filesets, map files), the formula front end (`parse_formula`)
@@ -38,6 +39,7 @@ from .engine.state import state_from_numpy  # noqa: F401
 from .engine.sweep import (  # noqa: F401
     collect_sample, make_chain_runner, make_scan_sampler, make_sweep,
 )
+from .grn.sampler import est_grn  # noqa: F401
 from .io.summary import ess_bulk, posterior_stats, split_rhat, summary_mcmc  # noqa: F401
 from .predict import genomic_values, genomic_values_state, predict  # noqa: F401
 from .runtime import LMEMResult, model_card, prep, run_chains, run_lmem  # noqa: F401

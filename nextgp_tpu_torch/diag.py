@@ -86,6 +86,17 @@ def cg_work(nnz: int, q: int, dtype, iterations: int):
             iterations * (2 * nnz + 12 * q))
 
 
+def grn_work(G: int, S: int, itemsize: int):
+    """(bytes, operations, dependent steps) of one GRN1 call (the GRN
+    sampler's SNP scan, ops/grn_scan) over G genes and S SNPs of itemsize
+    bytes a value. Bytes: gram's lower triangle read once (every gene's
+    block shares it through L2), r0, z and bold read and d and bnew written,
+    var_e read. Operations: a multiply-add (two) a gene and pair j < q, and
+    seven a gene and SNP (two divides, a root, a multiply, an add, two
+    subtracts). The chain: S steps, each waiting on the one before."""
+    return itemsize * (S * (S + 1) // 2 + 5 * G * S + 1), G * (S * (S - 1) + 7 * S), S
+
+
 def _random_bytes(rp, n: int, dtype, cg_iterations: Optional[int]) -> float:
     """Bytes one random term's stage reads per sweep. The per-level scan
     reads Z twice (the old u added back, the new u taken out), Z' once and

@@ -39,12 +39,13 @@ from ..ops import _cuda
 
 # Stage identifiers, numbered as in the JAX package. A random term's
 # variance is drawn from a split of its STAGE_RANDOM site, as the JAX sweep
-# does, so STAGE_RANDOM_VAR (3) stays unused there too; GRN (9) is not
-# ported yet and keeps its number.
+# does, so STAGE_RANDOM_VAR (3) stays unused there too. The GRN sampler's
+# draws are the sites (it, STAGE_GRN, i) of its iteration `it`.
 STAGE_VAR_E = 0
 STAGE_FIXED = 1
 STAGE_RANDOM = 2
 STAGE_MARKER = 4
+STAGE_GRN = 9
 
 
 class Site(NamedTuple):

@@ -172,7 +172,12 @@ def _replayed(plan: SweepPlan, stream, eager_ok: bool = False) -> bool:
     """Whether a chain replays CUDA graphs: on the card, where the stream
     must be one that can be captured. A stream that cannot is run as eager
     sweeps where `eager_ok`, else refused."""
-    if plan.device.type != "cuda":
+    return replays_on(plan.device, stream, eager_ok)
+
+
+def replays_on(device: torch.device, stream, eager_ok: bool = False) -> bool:
+    """_replayed for a chain on `device` (the GRN sampler's too)."""
+    if device.type != "cuda":
         return False
     if getattr(stream, "capturable", False):
         return True

@@ -35,7 +35,8 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
             "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0,
-            "corr_level_scan": 0, "corr_block_scan_v": 0, "corr_rule": 0, "cg_solve": 0}
+            "corr_level_scan": 0, "corr_block_scan_v": 0, "corr_rule": 0, "cg_solve": 0,
+            "grn_scan": 0}
 
 _lib = None
 
@@ -130,6 +131,7 @@ def lib() -> ctypes.CDLL:
         L.ngt_keyed_rng_f64.argtypes = L.ngt_keyed_rng.argtypes
         L.ngt_keyed_rng_rows_f64.argtypes = L.ngt_keyed_rng_rows.argtypes
         bind_cg(L)
+        bind_grn(L)
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
@@ -172,6 +174,15 @@ def bind_cg(L: ctypes.CDLL) -> None:
     L.ngt_cg_solve.argtypes = ([I] * 3 + [ctypes.c_void_p] * 13 + [ctypes.c_double] + [I] * 4
                                + [ctypes.c_void_p])
     L.ngt_cg_solve.restype = ctypes.c_int
+
+
+def bind_grn(L: ctypes.CDLL) -> None:
+    """Bind GRN1's C interface (csrc/grn_scan.cu) in a loaded library."""
+    I, P = ctypes.c_longlong, ctypes.c_void_p
+    L.ngt_grn_scan.argtypes = [P] * 8 + [I] * 3 + [P]
+    L.ngt_grn_scan.restype = ctypes.c_int
+    L.ngt_grn_scan_scratch_words.argtypes = [I, I]
+    L.ngt_grn_scan_scratch_words.restype = I
 
 
 def check(err: int, name: str) -> None:

@@ -52,7 +52,11 @@ checkpoints and a resume, and two chains of run_chains, each with the bits
 of its run_lmem; BayesR on int8 rows (pack2=False) and on an imputed float
 panel, and MultiBreed on float panels, at V = 1 and 4: no K1 or K2 launch,
 replays with the eager chain's bits, the card chain following the plain
-chain, and genomic_values_state on the card against genomic_values.
+chain, and genomic_values_state on the card against genomic_values; for
+the GRN sampler's scan (GRN1, csrc/grn_scan.cu) bench_grn's shapes and its
+edges in float32 and float64, either side of its register limits, a
+monomorphic SNP and its refusals, an eager GRN step under the sync debug
+mode "error", and est_grn replayed with the eager chain's bits.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -1803,3 +1807,168 @@ def test_unpacked_storage_on_the_card(dev, kind, corr, V):
         host = ngt.genomic_values(spec.markers[0].data, beta)
         card = ngt.genomic_values_state(plan, st, beta=beta).double().cpu().numpy()
         assert np.abs(card - host).max() / np.abs(host).max() < 1e-5
+
+
+# ------------------------------------------------------------------ GRN1 and the GRN step
+
+# bench_grn's three (G, S), then GRN1's edges: one SNP, either side of a
+# warp, past one block's 256 threads x 4, 2,000 SNPs; one gene, three, 100
+GRN_SHAPES = [(10, 20), (30, 60), (100, 200)] + [(G, S) for S in (1, 31, 33, 1025, 2000)
+                                                 for G in (1, 3, 100)]
+GRN_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of d's scale: the sums in another order
+
+
+def _grn_inputs(dev, G, S, dtype, n=2000, zero_snp=None):
+    """GRN1's inputs: the Gram of S centred dosage rows of n individuals
+    (a row constant where zero_snp names it), r0 at the scale x'ycorr has,
+    normal z and bold, var_e 0.25."""
+    g = torch.Generator(device=dev).manual_seed(1000 * G + S)
+    x = torch.randint(0, 3, (S, n), generator=g, device=dev).double()
+    if zero_snp is not None:
+        x[zero_snp] = 1.0
+    xc = x - x.mean(1, keepdim=True)
+    gram = (xc @ xc.T).to(dtype)
+    r0, z, bold = (torch.randn(G, S, generator=g, device=dev, dtype=torch.float64).to(dtype)
+                   for _ in range(3))
+    return gram, r0 * 20.0, z, bold * 0.05, torch.tensor(0.25, dtype=dtype, device=dev)
+
+
+def _grn_held(out, ref, dtype):
+    """d (or bnew) within GRN_TOL of its scale, non-finite where ref is."""
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), fin)
+    if fin.any():
+        o, r = out[fin], ref[fin]
+        assert (o - r).abs().max().item() <= GRN_TOL[dtype] * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G,S", GRN_SHAPES)
+def test_grn_scan_kernel_matches_plain(dev, G, S, dtype):
+    """GRN1 against grn_scan_plain: d and bnew within GRN_TOL of scale,
+    bnew = bold - d exactly, the same bits from two launches."""
+    from nextgp_tpu_torch.ops import grn_scan
+
+    args = _grn_inputs(dev, G, S, dtype)
+    bnew, d = grn_scan.grn_scan_kernel(*args)
+    rb, rd = grn_scan.grn_scan_plain(*args)
+    _grn_held(d, rd, dtype)
+    _grn_held(bnew, rb, dtype)
+    assert torch.equal(bnew, args[3] - d)
+    b2, d2 = grn_scan.grn_scan_kernel(*args)
+    assert torch.equal(b2, bnew) and torch.equal(d2, d)
+    assert torch.equal(grn_scan.grn_scan(*args)[1], d)  # the dispatcher launches it
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [256, 257, 2048, 2049])
+def test_grn_scan_kernel_either_side_of_its_register_limits(dtype, dev, S):
+    """One SNP a thread up to 256 SNPs, two past it; eight a thread at
+    2,048, the sums in scratch past it: each held to the plain version, the
+    same bits twice."""
+    from nextgp_tpu_torch.ops import grn_scan
+
+    args = _grn_inputs(dev, 5, S, dtype)
+    bnew, d = grn_scan.grn_scan_kernel(*args)
+    rb, rd = grn_scan.grn_scan_plain(*args)
+    _grn_held(d, rd, dtype)
+    _grn_held(bnew, rb, dtype)
+    assert torch.equal(grn_scan.grn_scan_kernel(*args)[1], d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [200, 2000, 2100])
+def test_grn_scan_kernel_on_a_monomorphic_snp(dev, S, dtype):
+    """A SNP whose centred row is zero (gram[q, q] = 0): the kernel divides
+    by it as the JAX package does, so that SNP's draw and every later one
+    of each gene are not finite, where the plain version's are; nothing
+    before it changes."""
+    from nextgp_tpu_torch.ops import grn_scan
+
+    q0 = S // 3
+    args = _grn_inputs(dev, 3, S, dtype, zero_snp=q0)
+    bnew, d = grn_scan.grn_scan_kernel(*args)
+    rb, rd = grn_scan.grn_scan_plain(*args)
+    assert not torch.isfinite(d[:, q0:]).any() and torch.isfinite(d[:, :q0]).all()
+    _grn_held(d, rd, dtype)
+    _grn_held(bnew, rb, dtype)
+
+
+def test_grn_scan_refuses_what_it_does_not_take(dev):
+    from nextgp_tpu_torch.ops import grn_scan
+
+    gram, r0, z, bold, ve = _grn_inputs(dev, 3, 40, torch.float32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        grn_scan.grn_scan_kernel(gram.cpu(), r0, z, bold, ve)
+    with pytest.raises(ValueError, match="float32, or every input float64"):
+        grn_scan.grn_scan_kernel(gram.double(), r0, z, bold, ve)
+    with pytest.raises(ValueError, match="float32, or every input float64"):
+        grn_scan.grn_scan_kernel(gram.half(), r0.half(), z.half(), bold.half(), ve.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        grn_scan.grn_scan_kernel(gram[:39, :39], r0, z, bold, ve)
+    with pytest.raises(ValueError, match="contiguous"):
+        grn_scan.grn_scan_kernel(gram, r0, z.T.contiguous().T, bold, ve)
+    with pytest.raises(ValueError, match="one value"):
+        grn_scan.grn_scan_kernel(gram, r0, z, bold, ve.expand(2))
+
+
+def _grn_data(G=6, spg=5, N=400, seed=4):
+    """A small GRN problem: test_grn.py's design on G genes."""
+    rng = np.random.default_rng(seed)
+    S = G * spg
+    x = rng.integers(0, 3, (S, N)).astype(float)
+    xc = x - x.mean(axis=1, keepdims=True)
+    lam1 = np.zeros((G, G))
+    lam1[1, 0], lam1[3, 2] = 0.5, -0.4
+    lam2 = np.zeros((G, S))
+    for g in range(G):
+        lam2[g, g * spg:(g + 1) * spg] = rng.normal(0, 0.4, spg)
+    y = np.linalg.solve(np.eye(G) - lam1, rng.normal(0, 1, (G, 1)) + lam2 @ xc + rng.normal(0, 0.3, (G, N)))
+    return x, y, G
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eager_grn_step_makes_no_host_sync(dev, dtype):
+    """An eager GRN step with a KeyedStream under
+    torch.cuda.set_sync_debug_mode("error"): no operation of the step waits
+    for the card (the Metropolis-Hastings choice is made there)."""
+    from nextgp_tpu_torch.grn import sampler as tgrn
+
+    x, y, G = _grn_data()
+    _, state, step = tgrn.prepare_grn(x, y, G, start_lam1=np.full(G * G - G, 0.1), dtype=dtype, device=dev)
+    stream = ngt.KeyedStream(3, dev, dtype)
+    state = step(state, stream)  # the first call builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state = step(state, stream)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(state.lam2).all() and torch.isfinite(state.lam1).all()
+    assert state.it == 4 and int(state.it_counter) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grn_replayed_chain_equals_eager(dev, dtype):
+    """est_grn with a KeyedStream on the card replays one captured step;
+    its draws, accept count and final state are the bits of eager steps
+    with the same stream; GRN1 launches once an eager step."""
+    from nextgp_tpu_torch.grn import sampler as tgrn
+
+    x, y, G = _grn_data()
+    kw = dict(start_lam1=np.full(G * G - G, 0.1), dtype=dtype, device=dev)
+    stream = ngt.KeyedStream(9, dev, dtype)
+    acc, draws, st = ngt.est_grn(x, y, G, 5, 14, 4, 2, out_folder=None, stream=stream, **kw)
+    _, state, step = tgrn.prepare_grn(x, y, G, **kw)
+    before, kept = _cuda.LAUNCHES["grn_scan"], []
+    for it in range(1, 15):
+        state = step(state, stream)
+        if it >= 6 and it % 2 == 0:
+            kept.append(tgrn.grn_sample(state, step))
+    assert _cuda.LAUNCHES["grn_scan"] - before == 14
+    assert acc == int(state.accept) and st.it == state.it == 14
+    for name, d in draws.items():
+        assert np.array_equal(d, torch.stack([k[name] for k in kept]).cpu().numpy()), name
+    for f in ("mu", "lam1", "lam2", "var_lam1", "var_beta", "var_e", "ycorr", "accept", "it_counter"):
+        assert torch.equal(getattr(st, f), getattr(state, f)), f

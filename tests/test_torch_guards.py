@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
             "nextgp_tpu_torch.engine.samplers.random_effects", "nextgp_tpu_torch.io.writer",
             "nextgp_tpu_torch.io.checkpoint", "nextgp_tpu_torch.io.summary",
             "nextgp_tpu_torch.data.ingest", "nextgp_tpu_torch.api.formula", "nextgp_tpu_torch.cli",
-            "nextgp_tpu_torch.__main__"} <= set(
+            "nextgp_tpu_torch.__main__", "nextgp_tpu_torch.grn.sampler",
+            "nextgp_tpu_torch.ops.grn_scan"} <= set(
         res.stdout.split("|")[1].split())
 
 
@@ -84,19 +85,29 @@ def _fields(cls):
     return out
 
 
+# copied classes that the packages' top levels do not export: their modules
+COPIED_MODULES = {"GRNPlan": "grn.sampler"}
+
+
 @pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi",
                                   "BayesRCplus", "BayesLV", "SummaryStatistics", "RandomEffect",
                                   "Random", "FixedTerm", "RandomTerm", "MarkerTerm", "CorrMarkerTerm",
-                                  "ModelSpec", "MarkerData", "LMEMResult"])
+                                  "ModelSpec", "MarkerData", "LMEMResult", "GRNPlan"])
 def test_copied_dataclasses_match(name):
-    jcls = getattr(j_ingest, name, None) or getattr(ng, name)
-    tcls = getattr(t_ingest, name, None) or getattr(ngt, name)
+    import importlib
+
+    if name in COPIED_MODULES:
+        jcls = getattr(importlib.import_module(f"nextgp_tpu.{COPIED_MODULES[name]}"), name)
+        tcls = getattr(importlib.import_module(f"nextgp_tpu_torch.{COPIED_MODULES[name]}"), name)
+    else:
+        jcls = getattr(j_ingest, name, None) or getattr(ng, name)
+        tcls = getattr(t_ingest, name, None) or getattr(ngt, name)
     assert _fields(tcls) == _fields(jcls)
 
 
 @pytest.mark.parametrize("name", ["RandomState", "SparseRandomState", "CorrRandomState",
                                   "CorrMarkerState", "ModelState", "Pedigree", "RandomPlan",
-                                  "CorrMarkerPlan"])
+                                  "CorrMarkerPlan", "GRNState"])
 def test_state_fields_match(name):
     """The random effects' and correlated marker sets' state and plan keep
     the JAX field names, so that state_from_numpy reads a flattened JAX
@@ -104,19 +115,22 @@ def test_state_fields_match(name):
     device copy of sweep_index); its RandomPlan adds the CG sampler's static
     tables and its CorrMarkerPlan the bytes of a stored dosage (the JAX
     roofline counts 0.25 for every correlated set) and the region sums'
-    tables."""
+    tables. The port's GRNState adds it_counter (the device copy of it, which
+    the port keeps on the host)."""
     from nextgp_tpu.data import pedigree as j_ped
+    from nextgp_tpu.grn import sampler as j_grn
     from nextgp_tpu.engine import plan as j_plan
     from nextgp_tpu.engine import state as j_state
     from nextgp_tpu_torch.data import pedigree as t_ped
     from nextgp_tpu_torch.engine import plan as t_plan
     from nextgp_tpu_torch.engine import state as t_state
+    from nextgp_tpu_torch.grn import sampler as t_grn
 
     jmod, tmod = {"Pedigree": (j_ped, t_ped), "RandomPlan": (j_plan, t_plan),
-                  "CorrMarkerPlan": (j_plan, t_plan)}.get(name, (j_state, t_state))
+                  "CorrMarkerPlan": (j_plan, t_plan), "GRNState": (j_grn, t_grn)}.get(name, (j_state, t_state))
     jnames = [f.name for f in dataclasses.fields(getattr(jmod, name))]
     tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
-    extra = {"ModelState": ["sweep_counter"],
+    extra = {"ModelState": ["sweep_counter"], "GRNState": ["it_counter"],
              "RandomPlan": ["z_rows", "sire_kids", "dam_kids", "iv_len", "z_diag", "cg_layout"],
              "CorrMarkerPlan": ["dosage_bytes", "region_rows", "region_len"]}
     assert tnames == jnames + extra.get(name, [])
@@ -151,7 +165,7 @@ MODULES = {"build_lv_design": "api.formula", "from_device_array": "data.ingest",
                                   "genomic_values", "predict", "assemble", "parse_formula",
                                   "build_lv_design", "from_array", "from_float_array",
                                   "from_device_array", "from_packed", "read_genotype_file",
-                                  "read_plink", "read_map_file"])
+                                  "read_plink", "read_map_file", "est_grn"])
 def test_entry_point_signatures_match(name):
     """A script written for the JAX package calls the port's entry points
     with the same arguments: names, order and defaults equal, the port's
@@ -222,7 +236,7 @@ def _cli_config(tmp_path, out, **extra):
     return str(path)
 
 
-@pytest.mark.parametrize("entry", ["assemble", "run_lmem", "prep", "run_chains", "cli_run"])
+@pytest.mark.parametrize("entry", ["assemble", "run_lmem", "prep", "run_chains", "cli_run", "est_grn"])
 def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
     """Without a CUDA device and without device="cpu" nothing is built on the
     CPU, and the output folder that run_lmem, run_chains and the CLI's run
@@ -244,7 +258,12 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
         assert cli.main(["run", _cli_config(tmp_path, out, device="cpu"), "--quiet"]) == 0
         assert not (out / "kept").exists() and (out / "varEOut").exists()
         return
-    call = {"assemble": lambda **kw: ngt.assemble(spec, **kw)[1].ycorr,
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    x, y = rng.integers(0, 3, (6, 30)).astype(float), rng.normal(size=(2, 30))
+    call = {"est_grn": lambda **kw: ngt.est_grn(x, y, 2, 3, 2, 0, 1, out_folder=str(out), **kw)[2].ycorr,
+            "assemble": lambda **kw: ngt.assemble(spec, **kw)[1].ycorr,
             "prep": lambda **kw: ngt.prep(spec, **kw)[1].ycorr,
             "run_lmem": lambda **kw: ngt.run_lmem(spec, 2, 0, 1, out_folder=str(out), seed=1,
                                                   **kw).state.ycorr,
@@ -307,3 +326,11 @@ def test_normalize_annot_matches():
     assert out.dtype == ref.dtype and (out == ref).all()
     with pytest.raises(ValueError, match="nSNP, nAnnot"):
         t_priors.normalize_annot(annot[:, 0])
+
+
+def test_grn_stage_number_matches():
+    """The GRN sampler's draws are keyed at the JAX package's stage."""
+    from nextgp_tpu.engine import rng as j_rng
+    from nextgp_tpu_torch.engine import rng as t_rng
+
+    assert t_rng.STAGE_GRN == j_rng.STAGE_GRN == 9

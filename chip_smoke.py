@@ -26,7 +26,10 @@ and check them.
                                  # CM1, in turns P, C, C, P
     python3 chip_smoke.py runtime  # phases 1-2 and phase 10 alone
     python3 chip_smoke.py storage  # phases 1-2 and phase 11 alone
-    python3 chip_smoke.py grn    # phases 1-2 and phase 12 alone
+    python3 chip_smoke.py grn [DIR]  # phases 1-2 and phase 12 alone, with GRN1's ablation
+                                 # builds; with DIR (another tree's csrc/, built alone
+                                 # with its own C interface), GRN1 and the replayed GRN
+                                 # step also with DIR's GRN1, in turns P, C, C, P
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -205,26 +208,31 @@ Phases (any failed check raises and the script exits non-zero):
      returning 0, and `summary` again in a child `python -m`
  12. the GRN vertical (ROADMAP M13): (a) GRN1 (csrc/grn_scan.cu, the
      per-gene SNP scan, one forward substitution with G right-hand sides
-     on one triangle) against its plain version in float32 (1e-4 of d's
-     scale) and float64 (1e-10), the same bits twice, at
-     scripts/bench_grn.py's (G, S) = (10, 20), (30, 60), (100, 200) on the
-     Gram of that shape's panel, timed beside its byte and dependent-chain
-     bounds and the library's triangular solve, at S = 1, 31, 33, 1,025,
-     2,000 for G = 1, 3, 100, either side of its register limits (256,
-     2,048) and with a monomorphic SNP, and its SASS checked (no LDL/STL, no
-     predicated LDS); (b) the chain at 100 genes x 200 SNPs x 10,000
-     individuals (bench_grn's generator, start_lam1 0.1): float32 eager and
-     replayed from one KeyedStream for 300 iterations (the same bits; accept
-     > 0; corr(posterior-mean Lambda2, planted) >= 0.7; varE within 0.5-2x
-     of 0.25; Lambda1's correlation printed), ms/iteration of both arms,
-     busy, idle share and nodes of a replayed step and GRN1's share; float64
-     with GRN1 against float64 with the plain scan on the card over 20
+     on one triangle, read from the layout made once a chain) against its
+     plain version in float32 (1e-4 of d's scale) and float64 (1e-10), the
+     same bits twice, at scripts/bench_grn.py's (G, S) = (10, 20), (30,
+     60), (100, 200) and at (100, 1,000), (100, 2,000), (100, 3,000) on
+     the Gram of that shape's panel, timed beside its byte and
+     dependent-chain bounds and the library's triangular solve, at S = 1,
+     31, 32, 33, 63, 64, 65, 2,000, 3,000 for G = 1, 3, 100, either side of
+     its shared-memory limit (past it the d's in scratch; a gene the bits
+     of a call on it alone) and with a monomorphic SNP, and its SASS
+     checked (no LDL/STL, no predicated LDS,
+     no SR_CgaCtaId read in a loop); (b) the chains at 100 genes x 200 SNPs
+     and at 100 x 1,000, each of 10,000 individuals (bench_grn's generator,
+     start_lam1 0.1): float32 eager and replayed from one KeyedStream for
+     300 iterations (the same bits; accept > 0; corr(posterior-mean
+     Lambda2, planted) >= 0.7; varE within 0.5-2x of 0.25; Lambda1's
+     correlation printed), ms/iteration of both arms, busy, idle share and
+     nodes of a replayed step and GRN1's share; at 200 SNPs float64 with
+     GRN1 against float64 with the plain scan on the card over 20
      iterations (1e-9 relative, the same accept count); (c) est_grn with a
      KeyedStream: its six *Out files in a temporary folder equal to its
      draws, and out_folder=None writing nothing
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -4082,11 +4090,18 @@ def storage_only(card):
 # ------------------------------------------------------------------ phase 12
 
 GRN_LADDER = ((10, 20, 2_000), (30, 60, 5_000), (100, 200, 10_000))  # scripts/bench_grn.py's (G, S, N)
-GRN_EDGES = tuple((G, S) for S in (1, 31, 33, 1025, 2000) for G in (1, 3, 100))
-GRN_LIMITS = (256, 257, 2048, 2049)  # GRN1: one SNP a thread to 256, eight to 2,048, scratch past it
+GRN_WIDE = (100, 1_000, 10_000)  # (b)'s wide chain: 1,000 SNPs, the top of the users' range (PERF.md §1)
+GRN_WIDTHS = (GRN_LADDER[-1], GRN_WIDE)
+# (a): GRN1 timed at bench_grn's shapes (the Gram of that shape's panel) and at 1,000-3,000 SNPs
+# (10,000 individuals)
+GRN_TIMED = tuple((G, S, N) for G, S, N in GRN_LADDER) + tuple((100, S, 10_000) for S in (1_000, 2_000, 3_000))
+GRN_EDGES = tuple((G, S) for S in (1, 31, 32, 33, 63, 64, 65, 2000, 3000) for G in (1, 3, 100))
+GRN_LIMIT_G = 3  # GRN1 at its shared-memory limit and one past it (its d's in scratch) for this many genes
 TOL_GRN = {torch.float32: 1e-4, torch.float64: 1e-10}  # GRN1 against its plain version, of d's scale
-GRN_CHAIN_OPS = 4  # a chain step of GRN1: the multiply-add into the owner's sum, the add of r0,
-#                    the divide and the subtract
+GRN_ROUND = 4  # SNPs a chain round of GRN1 (kRound in csrc/grn_scan.cu)
+GRN_CHAIN_OPS = 5  # dependent operations a round: the shuffle of its w's, the three multiply-adds
+#                    that finish its d's one from the next, and the one that adds its last d into
+#                    the next round's w's
 GRN_ITERS, GRN_BURN = 300, 100  # (b): iterations of the float32 chains, and the ones not averaged
 GRN_F64_ITERS = 20  # (b): iterations of the float64 chains, GRN1's and the plain scan's
 GRN_TOL_CHAIN = 1e-9  # (b): the float64 GRN1 chain against the float64 plain chain, relative
@@ -4094,6 +4109,21 @@ GRN_VAR_E = 0.25  # bench_grn's noise sd 0.5
 GRN_EST = dict(chain_length=60, burn_in=20, output_freq=10)  # (c): 4 kept rows
 GRN_FILES = ("Lambda1", "varLambda1", "Lambda2", "varBeta", "varE", "means")
 F64_FLOP_PER_S = 34e12  # the H100 SXM data sheet's float64 rate outside the tensor cores
+# GRN1's ablation builds (`grn` mode): scratch copies of this tree's csrc/grn_scan.cu
+# (start_build's patches): whole; without the far sums (the far-sum warps skip their
+# tiles) or the chain (the chain warp skips its 32 steps), for the split; the chain one
+# SNP a shuffle (not four), or the far sums' tiles read one ahead or three (two in
+# float64; not two, one). A patch that no longer matches fails the run.
+GRN_ABLATIONS = (
+    ("whole", ()),
+    ("no far sums", (("for (int k = wk; k < i; k += kWorkers)", "for (int k = wk; k < 0; k += kWorkers)"),)),
+    ("no chain", (("for (int s0 = 0; s0 < kT; s0 += kRound) {", "for (int s0 = 0; s0 < 0; s0 += kRound) {"),)),
+    ("1 SNP a round", (("constexpr int kRound = 4;", "constexpr int kRound = 1;"),)),
+    ("1 tile ahead", (("kAhead = sizeof(T) == 4 ? 2 : 1;", "kAhead = 1;"),)),
+    ("3 tiles ahead", (("kAhead = sizeof(T) == 4 ? 2 : 1;", "kAhead = sizeof(T) == 4 ? 3 : 2;"),)),
+)
+GRN_ABL_SHAPES = {torch.float32: ((10, 200), (100, 200), (10, 1_000), (100, 1_000), (100, 2_000), (100, 3_000)),
+                  torch.float64: ((100, 200), (100, 1_000), (100, 2_000))}
 
 
 def grn_data(G, S, N, seed=1):
@@ -4129,11 +4159,18 @@ def grn_inputs(G, S, dtype, n=2000, zero_snp=None, xc=None):
     return gram.contiguous(), r0 * 20.0, z, bold * 0.05, torch.tensor(GRN_VAR_E, dtype=dtype, device=DEV)
 
 
-def grn_held(tag, args, dtype):
-    """GRN1 against grn_scan_plain on args: d and bnew within TOL_GRN of
-    scale, non-finite where the plain version's are, bnew = bold - d, the
-    same bits twice. Returns (max_abs_err of d, its scale)."""
-    bnew, d = grn_scan.grn_scan_kernel(*args)
+def grn_panel_inputs(G, S, N, dtype):
+    """grn_inputs on the Gram of bench_grn's panel of that shape."""
+    x = torch.as_tensor(grn_data(G, S, N)[0], device=DEV)
+    return grn_inputs(G, S, dtype, xc=x - x.mean(1, keepdim=True))
+
+
+def grn_held(tag, args, dtype, layout=None):
+    """GRN1 (on layout, or its own) against grn_scan_plain on args: d and
+    bnew within TOL_GRN of scale, non-finite where the plain version's are,
+    bnew = bold - d, the same bits twice. Returns (max_abs_err of d, its
+    scale, d)."""
+    bnew, d = grn_scan.grn_scan_kernel(*args, layout)
     rb, rd = grn_scan.grn_scan_plain(*args)
     errs = []
     for out, ref, what in ((d, rd, "d"), (bnew, rb, "bnew")):
@@ -4142,10 +4179,10 @@ def grn_held(tag, args, dtype):
         e, sc = rel_err(out[fin], ref[fin]) if fin.any() else (0.0, 0.0)
         check(e <= TOL_GRN[dtype] * sc, f"grn_scan {tag}: {what} max_abs_err {e:.3e} of {sc:.3e}")
         errs.append((e, sc))
-    b2, d2 = grn_scan.grn_scan_kernel(*args)
+    b2, d2 = grn_scan.grn_scan_kernel(*args, layout)
     check(same_or_nan(bnew, args[3] - d) and same_or_nan(b2, bnew) and same_or_nan(d2, d),
           f"grn_scan {tag}: bnew is not bold - d, or two runs differ")
-    return errs[0]
+    return errs[0] + (d,)
 
 
 def same_or_nan(a, b):
@@ -4154,53 +4191,150 @@ def same_or_nan(a, b):
 
 
 def grn_latency_ms(S, mhz):
-    """GRN1's dependent-chain bound: S steps of GRN_CHAIN_OPS dependent
-    operations of 4 cycles at mhz (the card's maximum SM clock: an idle
-    card reports its resting clock)."""
-    return S * GRN_CHAIN_OPS * 4 / (mhz * 1e3)
+    """GRN1's dependent-chain bound: ceil(S / GRN_ROUND) rounds of
+    GRN_CHAIN_OPS dependent operations, each of at least 4 cycles, at mhz
+    (the card's maximum SM clock: an idle card reports its resting
+    clock)."""
+    return -(-S // GRN_ROUND) * GRN_CHAIN_OPS * 4 / (mhz * 1e3)
 
 
 def grn_sass():
-    """GRN1's SASS (cuobjdump of the built library): its register instances
-    (scan_kernel, S <= 2,048) hold no local-memory load or store (LDL, STL)
-    and no shared-memory load behind a predicate; the scratch form's
-    (scan_wide_kernel, above 2,048 SNPs) are counted and printed."""
+    """GRN1's SASS (cuobjdump of the built library), every instance (float32
+    and float64, shared memory or scratch): no
+    local-memory load or store (LDL, STL), no shared-memory load behind a
+    predicate, and no read of SR_CgaCtaId inside a loop (between a branch
+    and the earlier instruction it jumps back to)."""
     so = _cuda.build()
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
     funcs = [f for f in re.split(r"\n\s*Function : ", res.stdout)[1:] if "grn" in f.split("\n", 1)[0]]
     check(funcs, "no GRN1 function in the library's SASS")
-    wide = {}
+    loops, bad = 0, {}
     for f in funcs:
-        name = f.split("\n", 1)[0].strip()
-        local = [ln.strip() for ln in f.splitlines() if re.search(r"\b(LDL|STL)\b", ln)]
-        pred = [ln.strip() for ln in f.splitlines() if re.search(r"@!?P\d+\s+LDS\b", ln)]
-        if "scan_wide_kernel" in name:
-            wide[name] = len(local)
-            continue
-        check(not local and not pred, f"GRN1's SASS of {name}: {(local + pred)[:4]}")
-    print(f"[12 grn] SASS of {len(funcs) - len(wide)} GRN1 register instances: no LDL/STL, no predicated LDS; "
-          f"the scratch form's local loads and stores: {wide}")
-    return dict(functions=len(funcs), wide_local=wide)
+        name, lines = f.split("\n", 1)[0].strip(), f.splitlines()
+        local = [ln.strip() for ln in lines if re.search(r"\b(LDL|STL)\b", ln)]
+        pred = [ln.strip() for ln in lines if re.search(r"@!?P\d+\s+LDS\b", ln)]
+        where = {}  # a label or an address -> its line
+        for i, ln in enumerate(lines):
+            m = re.match(r"\s*(\.L_x_\d+):", ln) or re.search(r"/\*([0-9a-f]{4,})\*/", ln)
+            if m:
+                key = m.group(1)
+                where.setdefault(key if key.startswith(".") else int(key, 16), i)
+        cga = []
+        for i, ln in enumerate(lines):
+            m = re.search(r"\bBRA\b[^;]*?(?:`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b)", ln)
+            target = None if m is None else where.get(m.group(1) or int(m.group(2), 16))
+            if target is not None and target < i:
+                loops += 1
+                cga += [lines[j].strip() for j in range(target, i) if "SR_CgaCtaId" in lines[j]]
+        if local or pred or cga:
+            bad[name] = (local + pred + cga)[:4]
+    check(not bad, f"GRN1's SASS: {bad}")
+    print(f"[12 grn] SASS of {len(funcs)} GRN1 instances: no LDL/STL, no predicated LDS, no SR_CgaCtaId "
+          f"read in any of their {loops} loops")
+    return dict(functions=len(funcs), loops=loops)
 
 
-def grn_kernel_phase():
+def grn_lib_scan(lib, label):
+    """(scan, calls) for another build of GRN1 (an ablation build, or another
+    tree's csrc/grn_scan.cu) through that build's own C interface:
+    scan(gram, r0, z, bold, var_e, layout) -> (bnew, d), on the layout where
+    the build takes one (this tree's interface, with ngt_grn_scan_smem_snps),
+    else on gram row-major (the interface before the layout, with
+    ngt_grn_scan_scratch_words(G, S)); calls() counts the scans made."""
+    takes_layout = hasattr(lib, "ngt_grn_scan_smem_snps")
+    I, P = ctypes.c_longlong, ctypes.c_void_p
+    if takes_layout:
+        _cuda.bind_grn(lib)
+    else:
+        lib.ngt_grn_scan.argtypes, lib.ngt_grn_scan.restype = [P] * 8 + [I] * 3 + [P], ctypes.c_int
+        lib.ngt_grn_scan_scratch_words.argtypes, lib.ngt_grn_scan_scratch_words.restype = [I, I], I
+    calls = [0]
+
+    def scan(gram, r0, z, bold, var_e, layout=None):
+        G, S = r0.shape
+        f64 = int(r0.dtype == torch.float64)
+        if takes_layout:
+            first = (grn_scan.grn_layout(gram) if layout is None else layout).buf
+            words = grn_scan.scratch_words(G, S, lib.ngt_grn_scan_smem_snps(f64))
+        else:
+            first, words = gram, lib.ngt_grn_scan_scratch_words(G, S)
+        scratch = torch.empty(words, dtype=r0.dtype, device=r0.device) if words else None
+        bnew, d = torch.empty_like(r0), torch.empty_like(r0)
+        _cuda.check(lib.ngt_grn_scan(first.data_ptr(), r0.data_ptr(), z.data_ptr(), bold.data_ptr(), var_e.data_ptr(),
+                                     bnew.data_ptr(), d.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                                     G, S, f64, _cuda.stream_of(r0)), f"{label}: ngt_grn_scan")
+        calls[0] += 1
+        return bnew, d
+    return scan, lambda: calls[0]
+
+
+def graph_ms(fn, reps=20, rounds=5):
+    """ms of one call of fn on the card: CUDA events around replays of a
+    graph that captured reps calls back to back (the median of rounds
+    replays), so no host time and a graph's launch between two calls.
+    Late in a long process the profiler drops records, and device_ms then
+    times nothing; this times every call."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def grn_arms(other, args, lay, dtype, name):
+    """Another tree's GRN1 (P, grn_lib_scan) beside this tree's (C) on one
+    case: P held to the plain version, then both timed (graph_ms) in turns
+    P, C, C, P."""
+    scan_p, _ = other
+    e, sc = rel_err(scan_p(*args, lay)[1], grn_scan.grn_scan_plain(*args)[1])
+    check(e <= TOL_GRN[args[0].dtype] * sc, f"{name}: the other tree's GRN1 is {e:.3e} off the plain version")
+    rows = []
+    for arm in "PCCP":
+        fn = (lambda: scan_p(*args, lay)) if arm == "P" else (lambda: grn_scan.grn_scan_kernel(*args, lay))
+        rows.append(dict(arm=arm, graph_ms=graph_ms(fn)))
+    print(f"[12 grn] {name} in graph replays, arms P, C, C, P: "
+          + ", ".join(f"{r['arm']} {r['graph_ms']:.6f}" for r in rows) + f" ms (P held to the plain version: {e:.3e})")
+    return rows
+
+
+def grn_kernel_phase(other=None):
     """12a: GRN1 against its plain version in float32 and float64, at
-    bench_grn's three shapes (the Gram of that shape's panel) with times
+    GRN_TIMED (the Gram of bench_grn's panel of that shape) with times
     beside the bounds, the plain version and the library's triangular
-    solve, at GRN_EDGES and with a monomorphic SNP; the SASS check."""
-    out = {"sass_functions": grn_sass()}
+    solve (and with other, another tree's GRN1, in turns P, C, C, P), the
+    layout's time once a chain; at GRN_EDGES, either side of its
+    shared-memory limit and with a monomorphic SNP; the SASS check."""
+    out = {"sass": grn_sass()}
+    lib = _cuda.lib()
+    out["smem_snps"] = {"float32": lib.ngt_grn_scan_smem_snps(0), "float64": lib.ngt_grn_scan_smem_snps(1)}
+    print(f"[12 grn] GRN1 keeps the d's in shared memory up to {out['smem_snps']['float32']:,} SNPs in float32 and "
+          f"{out['smem_snps']['float64']:,} in float64, in scratch past it")
     mhz, mhz_max = sm_clocks_mhz()
     for dtype, tag in ((torch.float32, ""), (torch.float64, "_f64")):
-        for G, S, N in GRN_LADDER:
-            x = torch.as_tensor(grn_data(G, S, N)[0], device=DEV)
-            args = grn_inputs(G, S, dtype, xc=x - x.mean(1, keepdim=True))
-            del x
-            e, sc = grn_held(f"{G} x {S}", args, dtype)
+        for G, S, N in GRN_TIMED:
+            args = grn_panel_inputs(G, S, N, dtype)
+            lay_ms = median_ms(lambda: grn_scan.grn_layout(args[0]), 3)
+            lay = grn_scan.grn_layout(args[0])
+            e, sc, _ = grn_held(f"{G} x {S}", args, dtype, lay)
 
             def kern():
-                return grn_scan.grn_scan_kernel(*args)
+                return grn_scan.grn_scan_kernel(*args, lay)
 
             def plain():
                 return grn_scan.grn_scan_plain(*args)
@@ -4219,33 +4353,46 @@ def grn_kernel_phase():
             name = f"grn_scan_{G}x{S}{tag}"
             if (G, S, dtype) == (100, 200, torch.float32):
                 name = "grn_scan"
-            note = (f" (G = {G}, S = {S}, the Gram of bench_grn's {N:,}-individual panel, {dtype}; one launch; "
-                    f"the dependent-chain bound {lat:.6f} ms ({S} steps x {GRN_CHAIN_OPS} operations x 4 "
-                    f"cycles at the {mhz_max:g} MHz maximum SM clock nvidia-smi reports, {mhz:g} before the "
-                    "phase); the "
+            note = (f" (G = {G}, S = {S}, the Gram of bench_grn's {N:,}-individual panel, {dtype}; one launch, "
+                    f"a block a gene; the layout made once a chain in {lay_ms:.4f} ms (event pair); the "
+                    f"dependent-chain bound {lat:.6f} ms ({-(-S // GRN_ROUND)} rounds x {GRN_CHAIN_OPS} operations x 4 cycles at the "
+                    f"{mhz_max:g} MHz maximum SM clock nvidia-smi reports, {mhz:g} before the phase); the "
                     f"library solve's max_abs_err {e_l:.3e}, its system built outside the timed window; not "
                     "a TPU kernel: the counterpart of the lax.scan of gene_scan)")
             if dtype == torch.float64:  # report's operations bound is the float32 rate
                 note += f"; float64 operations bound {1e3 * work[1] / F64_FLOP_PER_S:.6f} ms at 34 TFLOP/s"
             report(name, e, sc, TOL_GRN[dtype], ms_k, ms_p, work[:2], note, library_ms=lib_ms,
                    phase="12 grn", dev_ms=dev_ms, library_dev_ms=lib_dev)
-            TIMINGS[name].update(latency_bound_ms=lat, sm_clock_mhz=mhz, sm_clock_max_mhz=mhz_max)
+            TIMINGS[name].update(latency_bound_ms=lat, sm_clock_mhz=mhz, sm_clock_max_mhz=mhz_max,
+                                 layout_ms=lay_ms, graph_ms=graph_ms(kern))
+            print(f"[12 grn] {name}: {TIMINGS[name]['graph_ms']:.6f} ms a call in graph replays")
+            if other is not None:
+                TIMINGS[name]["arms"] = grn_arms(other, args, lay, dtype, name)
             out[name] = dict(TIMINGS[name])
-            del mat, rhs, args
+            del mat, rhs, args, lay
         for G, S in GRN_EDGES:
-            e, sc = grn_held(f"{G} x {S} {dtype}", grn_inputs(G, S, dtype), dtype)
-            print(f"[12 grn] grn_scan at G = {G}, S = {S:,}, {dtype}: max_abs_err {e:.3e} (scale {sc:.3e}, "
-                  f"tol {TOL_GRN[dtype]:g} x scale), two launches bit-identical")
-        for S in GRN_LIMITS:
-            grn_held(f"5 x {S} {dtype}", grn_inputs(5, S, dtype), dtype)
-        for S in (200, 2000, 2100):
+            e, sc, _ = grn_held(f"{G} x {S} {dtype}", grn_inputs(G, S, dtype), dtype)
+        print(f"[12 grn] {dtype}: held at (G, S) = {GRN_EDGES} (tol {TOL_GRN[dtype]:g} x scale), two launches "
+              "bit-identical each")
+        limit = out["smem_snps"][str(dtype).split(".")[1]]
+        for S in (limit, limit + 1):
+            args = grn_inputs(GRN_LIMIT_G, S, dtype, n=200)
+            lay = grn_scan.grn_layout(args[0])
+            d = grn_held(f"{GRN_LIMIT_G} x {S} {dtype}", args, dtype, lay)[2]
+            one = [args[0]] + [t[-1:].contiguous() for t in args[1:4]] + [args[4]]
+            check(torch.equal(grn_scan.grn_scan_kernel(*one, lay)[1][0], d[-1]),
+                  f"grn_scan {GRN_LIMIT_G} x {S} {dtype}: the last gene differs from a call on it alone")
+            del args, lay, one, d
+        for S in (200, 2000, 3000):
             args = grn_inputs(3, S, dtype, zero_snp=S // 3)
             d = grn_scan.grn_scan_kernel(*args)[1]
             check(not torch.isfinite(d[:, S // 3:]).any().item() and torch.isfinite(d[:, :S // 3]).all().item(),
                   f"grn_scan at S = {S}: the monomorphic SNP is not where the draws stop being finite")
             grn_held(f"3 x {S} monomorphic {dtype}", args, dtype)
-        print(f"[12 grn] {dtype}: held either side of the register limits (S = {GRN_LIMITS}); a monomorphic "
-              "SNP at S = 200, 2,000 and 2,100 gives non-finite draws from it on, as the plain version does")
+        print(f"[12 grn] {dtype}: at its shared-memory limit and one past it (G = {GRN_LIMIT_G}, S = {limit:,} "
+              f"and {limit + 1:,}, the d's in scratch past it; the last gene the bits of a call on it alone), "
+              "a monomorphic SNP at S = 200, 2,000 and 3,000 giving non-finite draws "
+              "from it on, as the plain version does")
     return out
 
 
@@ -4285,73 +4432,118 @@ def grn_leaves_equal(a, b):
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in tgrn._TENSORS) and a.it == b.it
 
 
-def grn_chain_phase(data):
-    """12b: the chain at bench_grn's full width: float32 eager and replayed
-    from one KeyedStream (the same bits, accept count included), the
-    posterior means against the planted matrices, varE, ms/iteration of
-    both arms, busy, idle and nodes of a replayed step, GRN1's share; then
-    float64 with GRN1 against float64 with the plain scan on the card."""
+def grn_fit(run, data):
+    """(finite, accept, corr(posterior-mean Lambda2, planted), corr(Lambda1,
+    planted), mean varE) of a float32 run after GRN_ITERS iterations."""
     _, y, l1, l2 = data
-    G = y.shape[0]
-    out, counted = {}, {}
-    arms = {}
+    G, st, kept = y.shape[0], run.state, GRN_ITERS - GRN_BURN
+    finite = all(torch.isfinite(getattr(st, f)).all().item() for f in ("mu", "lam1", "lam2", "var_lam1",
+                                                                       "var_beta", "var_e", "ycorr"))
+    off = ~torch.eye(G, dtype=torch.bool, device=DEV)
+    return (finite, int(st.accept), corr(run.lam2.flatten() / kept, torch.as_tensor(l2, device=DEV).flatten()),
+            corr((run.lam1 / kept)[off], torch.as_tensor(l1, device=DEV)[off]),
+            torch.stack(run.var_e).double().mean().item())
+
+
+@contextlib.contextmanager
+def grn_scan_as(scan):
+    """make_grn_step's steps call scan for GRN1 within the block."""
+    saved = tgrn.grn_scan
+    tgrn.grn_scan = scan
+    try:
+        yield
+    finally:
+        tgrn.grn_scan = saved
+
+
+def grn_f32_chains(data, wide, other=None):
+    """12b at one width: float32 eager and replayed from one KeyedStream (the
+    same bits, accept count included), the posterior means against the
+    planted matrices, varE, ms/iteration of both arms, busy, idle and nodes
+    of a replayed step, GRN1's share. With other (another tree's GRN1), its
+    replayed chain first, from the same stream (its limits printed, not
+    held), then the replayed step with it (P) and with this tree's (C) in
+    turns P, C, C, P."""
+    _, y, _, l2 = data
+    G, S, N = y.shape[0], l2.shape[1], y.shape[1]
+    label = " wide" if wide else ""
+    out, counted, arms = {}, {}, {}
+    if other is not None:
+        with grn_scan_as(other[0]):
+            p = GRNRun(data, torch.float32, keyed.KeyedStream(12, DEV, torch.float32), True)
+        p.run(GRN_ITERS, keep=True)
+        fin, acc, c2, c1, ve = grn_fit(p, data)
+        print(f"[12 grn] {G} x {S} x {N:,}, the other tree's GRN1 in the replayed chain, {GRN_ITERS} iterations: "
+              f"finite {fin}, accept {acc}, corr(Lambda2, planted) {c2:.4f}, corr(Lambda1, planted) {c1:.4f}, "
+              f"varE {ve:.5f} (printed)")
+        out["other_chain"] = dict(finite=fin, accept=acc, lam2_corr=c2, lam1_corr=c1, var_e=ve)
     for arm, replayed in (("eager", False), ("replayed", True)):
         _cuda.reset_launches()
         run = GRNRun(data, torch.float32, keyed.KeyedStream(12, DEV, torch.float32), replayed)
         run.run(GRN_ITERS, keep=True)
         torch.cuda.synchronize()
-        counted[f"GRN f32 {arm}"] = dict(_cuda.LAUNCHES)
+        counted[f"GRN f32 {arm}{label}"] = dict(_cuda.LAUNCHES)
         arms[arm] = run
     e, r = arms["eager"], arms["replayed"]
     check(grn_leaves_equal(e.state, r.state) and torch.equal(e.lam2, r.lam2) and torch.equal(e.lam1, r.lam1),
-          "GRN f32: the replayed chain's bits differ from the eager chain's")
-    st = r.state
-    finite = all(torch.isfinite(getattr(st, f)).all().item() for f in ("mu", "lam1", "lam2", "var_lam1",
-                                                                       "var_beta", "var_e", "ycorr"))
-    accept = int(st.accept)
-    kept = GRN_ITERS - GRN_BURN
-    lam2_corr = corr(r.lam2.flatten() / kept, torch.as_tensor(l2, device=DEV).flatten())
-    off = ~torch.eye(G, dtype=torch.bool, device=DEV)
-    lam1_corr = corr((r.lam1 / kept)[off], torch.as_tensor(l1, device=DEV)[off])
-    var_e = torch.stack(r.var_e).double().mean().item()
-    print(f"[12 grn] {G} x {l2.shape[1]} x {y.shape[1]:,}, float32, start_lam1 0.1, {GRN_ITERS} iterations eager "
-          f"and replayed from one KeyedStream: the same bits; accept {accept}; corr(posterior-mean Lambda2, "
-          f"planted) {lam2_corr:.4f} (limit 0.7); corr(Lambda1, planted) {lam1_corr:.4f} (printed); varE "
-          f"{var_e:.5f} (limits {GRN_VAR_E / 2:g}-{GRN_VAR_E * 2:g}); launches a run: GRN1 "
-          f"{counted['GRN f32 eager']['grn_scan']} eager, {counted['GRN f32 replayed']['grn_scan']} replayed "
-          "(the warm step and the capture)")
-    check(finite, "GRN f32: the final state is not finite")
-    check(accept > 0, "GRN f32: no Metropolis-Hastings move accepted")
-    check(lam2_corr >= 0.7, f"GRN f32: corr(Lambda2, planted) {lam2_corr:.4f} below 0.7")
-    check(GRN_VAR_E / 2 <= var_e <= GRN_VAR_E * 2, f"GRN f32: varE {var_e:.5f} off the simulated {GRN_VAR_E}")
+          f"GRN f32 {G} x {S}: the replayed chain's bits differ from the eager chain's")
+    finite, accept, lam2_corr, lam1_corr, var_e = grn_fit(r, data)
+    print(f"[12 grn] {G} x {S} x {N:,}, float32, start_lam1 0.1, {GRN_ITERS} iterations eager and replayed from "
+          f"one KeyedStream: the same bits; accept {accept}; corr(posterior-mean Lambda2, planted) {lam2_corr:.4f} "
+          f"(limit 0.7); corr(Lambda1, planted) {lam1_corr:.4f} (printed); varE {var_e:.5f} (limits "
+          f"{GRN_VAR_E / 2:g}-{GRN_VAR_E * 2:g}); launches a run: GRN1 {counted[f'GRN f32 eager{label}']['grn_scan']} "
+          f"eager, {counted[f'GRN f32 replayed{label}']['grn_scan']} replayed (the warm step and the capture)")
+    check(finite, f"GRN f32 {G} x {S}: the final state is not finite")
+    check(accept > 0, f"GRN f32 {G} x {S}: no Metropolis-Hastings move accepted")
+    check(lam2_corr >= 0.7, f"GRN f32 {G} x {S}: corr(Lambda2, planted) {lam2_corr:.4f} below 0.7")
+    check(GRN_VAR_E / 2 <= var_e <= GRN_VAR_E * 2, f"GRN f32 {G} x {S}: varE {var_e:.5f} off the simulated "
+                                                    f"{GRN_VAR_E}")
     ms_eager = steady_ms(lambda: e.run(1), 50)
     ms_replay = steady_ms(lambda: r.chain.run(1), 50)
     busy, nodes, missed, by_name, ms_by = replay_window(r.chain, 10)
     grn_ms = sum(v for k, v in ms_by.items() if "grn" in k)
     idle = 1.0 - busy / ms_replay
     top = sorted(ms_by.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[12 grn] float32 ms/iteration (CUDA events around 50): eager {ms_eager:.4f}, replayed "
+    print(f"[12 grn] {G} x {S}, float32 ms/iteration (CUDA events around 50): eager {ms_eager:.4f}, replayed "
           f"{ms_replay:.4f}; 10 replays under the profiler: device busy {busy:.4f} ms/iteration, {nodes} kernels "
           f"and copies a step ({missed} records missed), idle share without the profiler {idle:.4f}; GRN1 "
           f"{grn_ms:.4f} ms a step ({grn_ms / busy:.4f} of busy); the largest: "
           + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
-    out["f32"] = dict(accept=accept, lam2_corr=lam2_corr, lam1_corr=lam1_corr, var_e=var_e,
-                      eager_ms_per_iteration=ms_eager, replayed_ms_per_iteration=ms_replay, busy_ms=busy,
-                      nodes=nodes, idle_share=idle, grn_scan_ms=grn_ms, grn_scan_share=grn_ms / busy,
-                      largest=dict(top))
-    del arms, e, r
+    out.update(accept=accept, lam2_corr=lam2_corr, lam1_corr=lam1_corr, var_e=var_e,
+               eager_ms_per_iteration=ms_eager, replayed_ms_per_iteration=ms_replay, busy_ms=busy, nodes=nodes,
+               idle_share=idle, grn_scan_ms=grn_ms, grn_scan_share=grn_ms / busy, largest=dict(top))
+    if other is not None:
+        rows = []
+        for arm in "PCCP":
+            chain = p.chain if arm == "P" else r.chain
+            ms = steady_ms(lambda: chain.run(1), 50)
+            b, _, _, _, by = replay_window(chain, 10)
+            rows.append(dict(arm=arm, replayed_ms_per_iteration=ms, busy_ms=b,
+                             grn_scan_ms=sum(v for k, v in by.items() if "grn" in k)))
+        print(f"[12 grn] {G} x {S}, the replayed step in turns P, C, C, P (ms/iteration, busy, GRN1's ms): "
+              + "; ".join(f"{w['arm']} {w['replayed_ms_per_iteration']:.4f}, {w['busy_ms']:.4f}, "
+                          f"{w['grn_scan_ms']:.4f}" for w in rows))
+        out["arms"] = rows
+    return out, counted
+
+
+def grn_chain_phase(data_by_width, other=None):
+    """12b: the float32 chains at GRN_WIDTHS (grn_f32_chains), then at
+    bench_grn's width float64 with GRN1 against float64 with the plain scan
+    on the card."""
+    out, counted = {}, {}
+    for (G, S, N), data in data_by_width.items():
+        out[f"f32 {G}x{S}"], by_run = grn_f32_chains(data, (G, S, N) == GRN_WIDE, other)
+        counted.update(by_run)
     runs = {}
     for arm in ("kernel", "plain"):
         _cuda.reset_launches()
-        scan = tgrn.grn_scan
-        if arm == "plain":
-            tgrn.grn_scan = grn_scan.grn_scan_plain
-        try:
-            run = GRNRun(data, torch.float64, keyed.KeyedStream(13, DEV, torch.float64), False)
+        with grn_scan_as(tgrn.grn_scan if arm == "kernel" else
+                         lambda gram, r0, z, bold, var_e, layout: grn_scan.grn_scan_plain(gram, r0, z, bold, var_e)):
+            run = GRNRun(data_by_width[GRN_LADDER[-1]], torch.float64, keyed.KeyedStream(13, DEV, torch.float64),
+                         False)
             run.run(GRN_F64_ITERS)
             torch.cuda.synchronize()
-        finally:
-            tgrn.grn_scan = scan
         counted[f"GRN f64 {arm}"] = dict(_cuda.LAUNCHES)
         runs[arm] = run.state
     k, p = runs["kernel"], runs["plain"]
@@ -4413,24 +4605,25 @@ def grn_est_phase(data, root):
     return dict(accept=acc, seconds=sec, kept=n_keep), counted
 
 
-def grn_phase():
-    """12: the GRN vertical (ROADMAP M13): GRN1 (12a), the chain at
-    bench_grn's full width (12b) and est_grn with its files (12c). Returns
-    the numbers and the launch counts by run."""
+def grn_phase(other=None):
+    """12: the GRN vertical (ROADMAP M13): GRN1 (12a), the chains at
+    bench_grn's full width and at 1,000 SNPs (12b) and est_grn with its
+    files (12c); with other (another tree's GRN1, grn_lib_scan), that GRN1
+    beside this tree's. Returns the numbers and the launch counts by run."""
     t0 = time.perf_counter()
     out, counted = {}, {}
     t1 = time.perf_counter()
-    out["kernel"] = grn_kernel_phase()
+    out["kernel"] = grn_kernel_phase(other)
     parts = {"a": time.perf_counter() - t1}
-    data = grn_data(*GRN_LADDER[-1])
+    data = {shape: grn_data(*shape) for shape in GRN_WIDTHS}
     t1 = time.perf_counter()
-    out["chain"], by_run = grn_chain_phase(data)
+    out["chain"], by_run = grn_chain_phase(data, other)
     counted.update(by_run)
     parts["b"] = time.perf_counter() - t1
     root = tempfile.mkdtemp(prefix="ngt_grn_")
     t1 = time.perf_counter()
     try:
-        out["est_grn"], counted["GRN est_grn"] = grn_est_phase(data, root)
+        out["est_grn"], counted["GRN est_grn"] = grn_est_phase(data[GRN_LADDER[-1]], root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     parts["c"] = time.perf_counter() - t1
@@ -4441,10 +4634,47 @@ def grn_phase():
     return out, counted
 
 
-def grn_only(card):
-    """`python3 chip_smoke.py grn`: phase 12 alone. One JSON line of its
-    numbers and launch counts, and no result line."""
-    out, counted = grn_phase()
+def grn_ablations(libs):
+    """GRN1's split (`grn` mode): each ablation build (GRN_ABLATIONS) timed
+    (graph_ms) at GRN_ABL_SHAPES; the far sums' and the chain's parts are
+    the whole build's time less the build's without them. The builds with
+    one SNP a round or other tiles ahead give the whole build's bits."""
+    out = {}
+    for dtype, shapes in GRN_ABL_SHAPES.items():
+        for G, S in shapes:
+            args = grn_inputs(G, S, dtype)
+            lay = grn_scan.grn_layout(args[0])
+            ref = libs["whole"][0](*args, lay)[1]
+            ms = {}
+            for label, (scan, _) in libs.items():
+                d = scan(*args, lay)[1]
+                if label != "whole" and "no " not in label:
+                    check(torch.equal(d, ref), f"GRN1 ablation {label} at {G} x {S}: not the whole build's bits")
+                ms[label] = graph_ms(lambda: scan(*args, lay))
+            split = {k: ms["whole"] - ms[k] for k in ("no far sums", "no chain")}
+            key = f"{G}x{S}{'' if dtype == torch.float32 else '_f64'}"
+            print(f"[12 grn ablations] {key}, ms a call in graph replays: "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in ms.items()) + "; the part each of the first two takes "
+                  "out: " + ", ".join(f"{k[3:]} {v:.6f}" for k, v in split.items()))
+            out[key] = dict(graph_ms=ms, split_ms=split)
+            del args, lay
+    return out
+
+
+def grn_only(card, other_src=None):
+    """`python3 chip_smoke.py grn [DIR]`: phase 12 alone, then GRN1's ablation
+    builds (GRN_ABLATIONS); with DIR (another tree's csrc/, built alone with
+    its own C interface), DIR's GRN1 beside this tree's in turns P, C, C, P
+    at GRN_TIMED and in the replayed step at both widths. One JSON line of
+    its numbers and launch counts, and no result line."""
+    builds = [start_build(_cuda.CSRC, "grn_ablate", ["grn_scan.cu"], patches, label)
+              for label, patches in GRN_ABLATIONS]
+    if other_src is not None:
+        builds.append(start_build(other_src, "grn_other", ["grn_scan.cu"]))
+    libs = {label: grn_lib_scan(finish_build(label, so, proc, "grn"), label) for label, so, proc in builds}
+    other = None if other_src is None else libs.pop(builds[-1][0])
+    out, counted = grn_phase(other)
+    out["ablations"] = grn_ablations(libs)
     print(json.dumps({"card": card, "grn": out, "launches": counted}))
 
 
@@ -4457,7 +4687,8 @@ RUNTIME_RUNS = ("runtime BayesR", "runtime chains")  # phase 10's replayed Bayes
 # phase 11's eager runs of BayesR at V=96 on int8, packed and float storage
 STORAGE_R = ("storage BayesR int8", "storage BayesR packed", "storage BayesR float")
 STORAGE_KEYED = STORAGE_R + ("storage BayesC+D int8", "storage CLI")
-GRN_RUNS = ("GRN f32 eager", "GRN f32 replayed", "GRN f64 kernel", "GRN est_grn")  # phase 12's GRN1 runs
+GRN_RUNS = ("GRN f32 eager", "GRN f32 replayed", "GRN f32 eager wide", "GRN f32 replayed wide", "GRN f64 kernel",
+            "GRN est_grn")  # phase 12's GRN1 runs
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
@@ -4637,8 +4868,8 @@ def main(argv=()):
         return cg_only(card, *argv[1:])
     if list(argv) == ["storage"]:
         return storage_only(card)
-    if list(argv) == ["grn"]:
-        return grn_only(card)
+    if list(argv[:1]) == ["grn"] and len(argv) <= 2:
+        return grn_only(card, *argv[1:])
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -4656,7 +4887,7 @@ def main(argv=()):
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
                     "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
-                    "storage or grn")
+                    "storage or grn [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

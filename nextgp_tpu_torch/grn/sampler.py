@@ -8,7 +8,8 @@ effects Lambda2 (single-site Gibbs over all SNPs of every gene). The step
 keeps the JAX package's algebra, its order of stages and its draw sites
 (it, STAGE_GRN, i): Lambda1's proposal from G batched (G-1) x (G-1)
 inverses of YY' blocks, Lambda2's scan as GRN1 (`ops/grn_scan`, one launch
-for all genes on the card) and the large products as `torch.matmul` in
+for all genes on the card, on the triangle that `grn_layout` packs once a
+chain) and the large products as `torch.matmul` in
 full float32 (TF32 off) or float64. A step reads nothing back to the host:
 the Metropolis-Hastings choice is a `torch.where` on the card, and `accept`
 is a device tensor. On the card a chain with a KeyedStream replays one
@@ -31,7 +32,7 @@ import torch
 from ..engine.rng import STAGE_GRN, PhiloxStream, Site
 from ..engine.sweep import replays_on
 from ..io.writer import MCMCWriter, folder_handler
-from ..ops.grn_scan import grn_scan
+from ..ops.grn_scan import grn_layout, grn_scan
 from ..utils import default_device, default_dtype, full_f32, replace
 
 KEEP_CHUNK = 32  # kept samples copied to the host at once
@@ -130,6 +131,7 @@ def make_grn_step(plan: GRNPlan, xc, ytil, dtype=torch.float64):
     with full_f32():
         yy = ytil @ ytil.T  # (G, G)
         gram_x = xc @ xc.T  # (S, S)
+    layout = grn_layout(gram_x) if dev.type == "cuda" else None  # GRN1's, once a chain
     yy_sub = yy[excl[:, :, None], excl[:, None, :]].to(dtype)  # (G, G-1, G-1)
     pair_g = torch.as_tensor(pairs[:, 0], device=dev)
     pair_k = torch.as_tensor(pairs[:, 1], device=dev)
@@ -200,7 +202,7 @@ def make_grn_step(plan: GRNPlan, xc, ytil, dtype=torch.float64):
             # (GRN.jl:128,150-164); the reference's prior-mean shift is
             # identically zero (GRN.jl:72,153-156), as in the JAX package
             z2 = stream.normal(site(5), (G, S))
-            lam2, u = grn_scan(gram_x, ycorr @ xc.T, z2, state.lam2, var_e)
+            lam2, u = grn_scan(gram_x, ycorr @ xc.T, z2, state.lam2, var_e, layout)
             ycorr = ycorr + u @ xc
 
             # 6) per-gene SNP-effect variances (GRN.jl:131-133, :242-244)

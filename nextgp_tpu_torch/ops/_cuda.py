@@ -177,12 +177,12 @@ def bind_cg(L: ctypes.CDLL) -> None:
 
 
 def bind_grn(L: ctypes.CDLL) -> None:
-    """Bind GRN1's C interface (csrc/grn_scan.cu) in a loaded library."""
+    """Bind GRN1's C interface (csrc/grn_scan.cu) in a loaded library: the
+    port's, or another build of that source."""
     I, P = ctypes.c_longlong, ctypes.c_void_p
     L.ngt_grn_scan.argtypes = [P] * 8 + [I] * 3 + [P]
     L.ngt_grn_scan.restype = ctypes.c_int
-    L.ngt_grn_scan_scratch_words.argtypes = [I, I]
-    L.ngt_grn_scan_scratch_words.restype = I
+    L.ngt_grn_scan_smem_snps.argtypes, L.ngt_grn_scan_smem_snps.restype = [I], I
 
 
 def check(err: int, name: str) -> None:

@@ -54,9 +54,10 @@ panel, and MultiBreed on float panels, at V = 1 and 4: no K1 or K2 launch,
 replays with the eager chain's bits, the card chain following the plain
 chain, and genomic_values_state on the card against genomic_values; for
 the GRN sampler's scan (GRN1, csrc/grn_scan.cu) bench_grn's shapes and its
-edges in float32 and float64, either side of its register limits, a
-monomorphic SNP and its refusals, an eager GRN step under the sync debug
-mode "error", and est_grn replayed with the eager chain's bits.
+edges in float32 and float64 (either side of a tile, 3,000 SNPs, either
+side of its shared-memory limit, where the d's go to scratch), a
+monomorphic SNP and its refusals, an eager GRN step under the sync debug mode "error", and
+est_grn replayed with the eager chain's bits.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -1811,10 +1812,12 @@ def test_unpacked_storage_on_the_card(dev, kind, corr, V):
 
 # ------------------------------------------------------------------ GRN1 and the GRN step
 
-# bench_grn's three (G, S), then GRN1's edges: one SNP, either side of a
-# warp, past one block's 256 threads x 4, 2,000 SNPs; one gene, three, 100
-GRN_SHAPES = [(10, 20), (30, 60), (100, 200)] + [(G, S) for S in (1, 31, 33, 1025, 2000)
-                                                 for G in (1, 3, 100)]
+# bench_grn's three (G, S), then GRN1's edges: one SNP, either side of one
+# and two tiles of 32, 2,000 and 3,000 SNPs (tens of tiles); one gene, three,
+# 100; 2,048 and 2,049 (the old kernel's register limit)
+GRN_SHAPES = ([(10, 20), (30, 60), (100, 200)]
+              + [(G, S) for S in (1, 31, 32, 33, 63, 64, 65, 2000, 3000) for G in (1, 3, 100)]
+              + [(5, 2048), (5, 2049)])
 GRN_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of d's scale: the sums in another order
 
 
@@ -1846,43 +1849,53 @@ def _grn_held(out, ref, dtype):
 @pytest.mark.parametrize("G,S", GRN_SHAPES)
 def test_grn_scan_kernel_matches_plain(dev, G, S, dtype):
     """GRN1 against grn_scan_plain: d and bnew within GRN_TOL of scale,
-    bnew = bold - d exactly, the same bits from two launches."""
+    bnew = bold - d exactly, the same bits from two launches, with the
+    layout made once or by the call."""
     from nextgp_tpu_torch.ops import grn_scan
 
     args = _grn_inputs(dev, G, S, dtype)
-    bnew, d = grn_scan.grn_scan_kernel(*args)
+    lay = grn_scan.grn_layout(args[0])
+    bnew, d = grn_scan.grn_scan_kernel(*args, lay)
     rb, rd = grn_scan.grn_scan_plain(*args)
     _grn_held(d, rd, dtype)
     _grn_held(bnew, rb, dtype)
     assert torch.equal(bnew, args[3] - d)
     b2, d2 = grn_scan.grn_scan_kernel(*args)
     assert torch.equal(b2, bnew) and torch.equal(d2, d)
-    assert torch.equal(grn_scan.grn_scan(*args)[1], d)  # the dispatcher launches it
+    assert torch.equal(grn_scan.grn_scan(*args, lay)[1], d)  # the dispatcher launches it
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S", [256, 257, 2048, 2049])
-def test_grn_scan_kernel_either_side_of_its_register_limits(dtype, dev, S):
-    """One SNP a thread up to 256 SNPs, two past it; eight a thread at
-    2,048, the sums in scratch past it: each held to the plain version, the
-    same bits twice."""
+@pytest.mark.parametrize("past", [0, 1], ids=["at", "past"])
+def test_grn_scan_kernel_at_its_shared_memory_limit(dev, past, dtype):
+    """At the most SNPs whose d's shared memory holds (24,384 in float64,
+    53,440 in float32 on an H100) and one past it, where the call takes
+    scratch: held to the plain version, the same bits twice, and each gene
+    the bits of a call on it alone."""
     from nextgp_tpu_torch.ops import grn_scan
 
-    args = _grn_inputs(dev, 5, S, dtype)
-    bnew, d = grn_scan.grn_scan_kernel(*args)
+    f64 = int(dtype == torch.float64)
+    limit = grn_scan.smem_snps(dev, f64)
+    S = limit + past
+    assert S > 3000 and (grn_scan.scratch_words(3, S, limit) > 0) == bool(past)
+    args = _grn_inputs(dev, 3, S, dtype, n=200)
+    lay = grn_scan.grn_layout(args[0])
+    bnew, d = grn_scan.grn_scan_kernel(*args, lay)
     rb, rd = grn_scan.grn_scan_plain(*args)
     _grn_held(d, rd, dtype)
     _grn_held(bnew, rb, dtype)
-    assert torch.equal(grn_scan.grn_scan_kernel(*args)[1], d)
+    assert torch.equal(grn_scan.grn_scan_kernel(*args, lay)[1], d)
+    one = [args[0]] + [t[2:3].contiguous() for t in args[1:4]] + [args[4]]
+    assert torch.equal(grn_scan.grn_scan_kernel(*one, lay)[1][0], d[2])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S", [200, 2000, 2100])
+@pytest.mark.parametrize("S", [200, 2000, 3000])
 def test_grn_scan_kernel_on_a_monomorphic_snp(dev, S, dtype):
-    """A SNP whose centred row is zero (gram[q, q] = 0): the kernel divides
-    by it as the JAX package does, so that SNP's draw and every later one
-    of each gene are not finite, where the plain version's are; nothing
-    before it changes."""
+    """A SNP whose centred row is zero (gram[q, q] = 0): its reciprocal is
+    infinite, as the JAX package divides by it, so that SNP's draw and every
+    later one of each gene are not finite, where the plain version's are;
+    nothing before it changes."""
     from nextgp_tpu_torch.ops import grn_scan
 
     q0 = S // 3
@@ -1910,6 +1923,10 @@ def test_grn_scan_refuses_what_it_does_not_take(dev):
         grn_scan.grn_scan_kernel(gram, r0, z.T.contiguous().T, bold, ve)
     with pytest.raises(ValueError, match="one value"):
         grn_scan.grn_scan_kernel(gram, r0, z, bold, ve.expand(2))
+    with pytest.raises(ValueError, match="layout"):
+        grn_scan.grn_scan_kernel(gram, r0, z, bold, ve, grn_scan.grn_layout(gram[:33, :33].contiguous()))
+    with pytest.raises(ValueError, match="layout"):
+        grn_scan.grn_scan_kernel(gram, r0, z, bold, ve, grn_scan.grn_layout(gram.double()))
 
 
 def _grn_data(G=6, spg=5, N=400, seed=4):

@@ -24,6 +24,10 @@ reproduces the JAX package's keys, so both chains see the same numbers.
 * The port's `est_grn` with its default stream (PhiloxStream) recovers the
   planted structure with test_grn.py's thresholds.
 * `diag.grn_work` counts a GRN1 call's bytes, operations and steps.
+* `grn_layout` (GRN1's packed triangle, made once a chain) holds exactly
+  tril(gram)'s entries where GRN1 reads them, zeros elsewhere, and the
+  diagonal's reciprocals and their square roots; `grn_scan` on CPU tensors
+  with a layout still runs the plain version.
 """
 import os
 
@@ -209,3 +213,81 @@ def test_grn_work_counts_the_call():
     pairs = int(torch.tril(gram, diagonal=-1).count_nonzero())
     assert diag.grn_work(G, S, 4) == (4 * words, G * (2 * pairs + 7 * S), S)
     assert diag.grn_work(G, S, 8)[0] == 8 * words
+
+
+def _unpack(buf, S, word):
+    """grn_layout's buffer read back entry by entry as GRN1 walks it:
+    (tril(gram) from the row blocks and the diagonal tiles, the tiles below
+    the diagonal from the chain area, rinv, srinv)."""
+    T = tscan.TILE
+    nt = -(-S // T)
+    sp, v = T * nt, 16 // word
+    low, below = np.zeros((sp, sp)), np.zeros((sp, sp))
+    at = 0
+    for i in range(1, nt):
+        for k in range(i):
+            for m in range(T // v):
+                for r in range(T):
+                    low[T * i + r, T * k + v * m:T * k + v * m + v] = buf[at:at + v]
+                    at += v
+    for i in range(nt):
+        for s in range(T):
+            low[T * i:T * i + T, T * i + s] = buf[at:at + T]
+            at += T
+        for s in range(T):
+            if i + 1 < nt:
+                below[T * (i + 1):T * (i + 2), T * i + s] = buf[at:at + T]
+            else:
+                assert not buf[at:at + T].any()  # no tile below the last
+            at += T
+    rinv, srinv = buf[at:at + sp], buf[at + sp:at + 2 * sp]
+    assert at + 2 * sp == len(buf)
+    return low, below, rinv, srinv
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 65, 70])
+def test_grn_layout_holds_the_triangle_and_reciprocals(S, dtype):
+    rng = np.random.default_rng(S)
+    m = rng.integers(0, 3, (S, 50)).astype(float)
+    m -= m.mean(1, keepdims=True)
+    gram = torch.as_tensor(m @ m.T, dtype=dtype)
+    lay = tscan.grn_layout(gram)
+    assert lay.n_snps == S and lay.buf.dtype == dtype and lay.buf.numel() == tscan.layout_words(S)
+    low, below, rinv, srinv = _unpack(lay.buf.numpy().astype(np.float64), S, gram.element_size())
+    sp = low.shape[0]
+    want = np.zeros((sp, sp))
+    want[:S, :S] = np.tril(gram.numpy().astype(np.float64))
+    np.testing.assert_array_equal(low, want)
+    T = tscan.TILE
+    band = np.zeros((sp, sp), bool)
+    for i in range(sp // T - 1):
+        band[T * (i + 1):T * (i + 2), T * i:T * (i + 1)] = True
+    np.testing.assert_array_equal(below, np.where(band, want, 0.0))
+    diag = torch.diagonal(gram)
+    np.testing.assert_array_equal(rinv[:S], (1.0 / diag).numpy())
+    np.testing.assert_array_equal(srinv[:S], torch.sqrt(1.0 / diag).numpy())
+    assert not rinv[S:].any() and not srinv[S:].any()
+
+
+def test_grn_scan_takes_the_plain_version_on_the_cpu_with_a_layout():
+    rng = np.random.default_rng(9)
+    G, S = 3, 40
+    m = rng.normal(size=(S, 60))
+    gram = torch.as_tensor(m @ m.T)
+    r0, z, bold = (torch.as_tensor(rng.normal(size=(G, S))) for _ in range(3))
+    var_e = torch.tensor(0.3, dtype=torch.float64)
+    ref = tscan.grn_scan_plain(gram, r0, z, bold, var_e)
+    got = tscan.grn_scan(gram, r0, z, bold, var_e, tscan.grn_layout(gram))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_make_grn_step_makes_no_layout_on_the_cpu(monkeypatch):
+    """The layout is GRN1's: a chain on the CPU runs the plain scan and
+    packs nothing (on the card make_grn_step packs it once, not a step)."""
+    calls = []
+    monkeypatch.setattr(tgrn, "grn_layout", lambda gram: calls.append(gram))
+    x, y, _, _ = _simulate(np.random.default_rng(42))
+    _, state, step = tgrn.prepare_grn(x, y, 4, device="cpu")
+    step(step(state, JaxStream(jax.random.key(1))), JaxStream(jax.random.key(2)))
+    assert calls == []

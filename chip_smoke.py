@@ -30,6 +30,7 @@ and check them.
                                  # builds; with DIR (another tree's csrc/, built alone
                                  # with its own C interface), GRN1 and the replayed GRN
                                  # step also with DIR's GRN1, in turns P, C, C, P
+    python3 chip_smoke.py shards # phases 1-2 and phase 13 alone
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -229,6 +230,29 @@ Phases (any failed check raises and the script exits non-zero):
      iterations (1e-9 relative, the same accept count); (c) est_grn with a
      KeyedStream: its six *Out files in a temporary folder equal to its
      draws, and out_folder=None writing nothing
+ 13. the chains x shards mesh (ROADMAP M14), its ranks child processes of
+     this one (`shard-rank` mode) that each write back a JSON file, the
+     kernels built once before: (a) one rank through init_distributed
+     (NCCL, a world of one): BayesR at the main path (V=96, estimatePi)
+     through make_sharded_sweep on global_mesh(1, 1) and through make_sweep,
+     20 eager sweeps each from one PhiloxStream seed, ycorr, beta, delta,
+     varE and pi the same bits, K1, K3 and K2 counted on the sharded run;
+     (b) four ranks on this card in a gloo world, global_mesh(2, 2): each
+     builds the panel from the seed and keeps its share through distribute
+     (V = 48 of 96: K1 and K2 on 12,288 rows a step, K3 on 48 blocks), K1,
+     K2 and K3 held to their plain versions at the share's shapes, each
+     chain's first 3 sweeps (KeyedStream) held to the single-rank V=96 chain
+     of its stream by the packed rule, 20 sweeps: drift < 1e-2, finite
+     draws, the row's two ranks the same replicated bits (chain_checksum and
+     a digest), the chains different; run_chains over the mesh (30 sweeps,
+     KeyedStreams): the same draws, R-hat and ESS on every rank, R-hat of
+     varE finite, rank 0 writing both chains' files; (c) ranks 0 and 1 of
+     (b) on a (1 x 2) mesh: MultiBreed on two 2,000 x 8,192 panels (phase
+     9's generator) at V = 8 (4 a rank), CM1 and its rule held at the
+     share's shapes, 3 sweeps held by the packed rule, 20 sweeps with every
+     covariance positive definite; ms/sweep of each arm and each rank, and
+     each rank's psum route. NCCL with two or more ranks needs a card a
+     rank, which one card cannot give
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -576,14 +600,17 @@ class Step0:
         unif[glob] = torch.rand(glob.numel(), generator=gen, dtype=unif.dtype, device=DEV)
 
 
-def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, library=None):
+def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, library=None,
+              card_alone=True, phase="3 kernels"):
     """Redraw the uniforms of loci near a decision edge until none is, then
     hold the kernel against its plain version: two runs give the same bits,
     delta exact (where the scan draws one; the Gaussian scan has none, and
     no edge), u and beta within TOL_SCAN of their scale. library(pk_t), where
     given, sets up the one PyTorch call that computes the scan's u (outside
     the timed window) and returns it as a function; its u is held to the
-    plain version's at TOL_SCAN and it is timed beside the kernel."""
+    plain version's at TOL_SCAN and it is timed beside the kernel. card_alone
+    False leaves out the time on the card alone (a card other processes
+    share)."""
     for _ in range(20):
         pk_t = make_rows(unif)
         ref = plain(pk_t)
@@ -612,7 +639,8 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, l
         note += f"; library u max_abs_err {e_l:.3e}, its system built outside the timed window"
     report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20), median_ms(lambda: plain(pk_t), 3),
            work, f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; {note}{drawn})",
-           library_ms=lib_ms, dev_ms=device_ms(lambda: kern(pk_t), 20), library_dev_ms=lib_dev)
+           library_ms=lib_ms, dev_ms=device_ms(lambda: kern(pk_t), 20) if card_alone else None,
+           library_dev_ms=lib_dev, phase=phase)
 
 
 def wide_passes():
@@ -4678,6 +4706,397 @@ def grn_only(card, other_src=None):
     print(json.dumps({"card": card, "grn": out, "launches": counted}))
 
 
+# ------------------------------------------------------------------ phase 13
+
+SHARD_SWEEPS = 20  # 13a-13c: eager sweeps of each sharded chain
+SHARD_RULE = 3  # 13b, 13c: sweeps held to the single-rank chain by the packed rule
+SHARD_SEED = 7
+SHARD_CHAINS = dict(n_chain=30, n_burn=10, n_thin=2)  # 13b's run_chains: 10 kept a chain
+CORR_SHARD = dict(n=2_000, p=8_192, V=8)  # 13c: phase 9's generator at a smaller depth
+SHARD_TIMEOUT = 300  # seconds a group of ranks may take
+SHARED_CARD = ("the ranks of 13b and 13c are processes time-sharing one card, and gloo stages each "
+               "psum through the host: these times are no speed of a multi-GPU run")
+
+
+def shard_route(ctx, t):
+    """Which collective a rank's psum takes: its group's backend on t's device."""
+    import torch.distributed as dist
+
+    return f"{dist.get_backend(ctx.group)} all_reduce on {t.device.type} tensors ({ctx.n_shards} in the row)"
+
+
+def psum_ms(ctx, t, reps=50):
+    """ms of one psum of t over the row, on the host clock to the device
+    finishing (every rank of the row runs it together)."""
+    ctx.psum(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ctx.psum(t)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def psum_costs(ctx, st):
+    """The psums a sweep makes, timed alone: one over the residual (a
+    block-step's correction) and one over a scalar (a count)."""
+    return dict(psum_ms_vector=psum_ms(ctx, st.ycorr), psum_ms_scalar=psum_ms(ctx, st.e.var_e.reshape(1)))
+
+
+def sweeps_ms(step, state, stream, n):
+    """(state after n sweeps of step, ms a sweep over the last n - 1: the
+    first is left out, it allocates what later sweeps reuse)."""
+    state = step(state, stream)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        state = step(state, stream)
+    torch.cuda.synchronize()
+    return state, 1e3 * (time.perf_counter() - t0) / (n - 1)
+
+
+def rule_vs(tag, got, ref):
+    """bench.py:338-359's packed rule between a sharded chain and the
+    single-rank chain of the same stream after SHARD_RULE sweeps: corr of
+    beta and of ycorr > 0.999, max |dycorr| / max |ycorr| < 0.05."""
+    cb, cy = corr(got[0].reshape(-1), ref[0].reshape(-1)), corr(got[1], ref[1])
+    dy = ((got[1] - ref[1]).abs().max() / ref[1].abs().max()).item()
+    print(f"[13 {tag}] after {SHARD_RULE} sweeps of one stream against the single-rank chain: corr(beta) "
+          f"{cb:.6f}, corr(ycorr) {cy:.6f}, max|dycorr|/scale {dy:.3e} (the packed rule: > 0.999, > 0.999, "
+          "< 0.05)")
+    check(cb > 0.999 and cy > 0.999 and dy < 0.05, f"{tag}: the sharded chain parts from the single-rank "
+                                                   "chain by the packed rule")
+    return dict(corr_beta=cb, corr_ycorr=cy, dycorr=dy)
+
+
+def held_share(plan, loc, tag):
+    """K1, K2 and K3 against their plain versions at a rank's share: its
+    contiguous (T, V/S, B, q) rows and (T, B, V/S, B) Gram, step 0 of its
+    own blocks with its real r0, as phase 3 holds them at the whole panel's
+    shapes (the event-pair times beside the plain versions'; nothing timed on
+    the card alone: the other ranks share it)."""
+    ms, mp = loc.markers[0], plan.markers[0]
+    T, V, B, q = ms.mt.shape
+    rows, K, dt = V * B, mp.n_classes, loc.ycorr.dtype
+    step = Step0(loc)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    y4 = pack2.y_planar(step.y)
+    u = torch.randn(rows, generator=gen, dtype=dt, device=DEV) * 0.01
+    t = T - 1  # the last of the rank's steps: a real offset into its rows
+    sl = slice(t * rows, (t + 1) * rows)
+    note = f" ({rows} x {q}: the rank's step {t} of {T}, V = {V} of the chain's {mp.vshards})"
+    for name, kern, plain in (
+            ("pack2_matvec", lambda: pack2.matvec_step(step.mt_rows, t, y4, rows),
+             lambda: pack2.matvec_plain(step.mt_rows[sl], y4)),
+            ("pack2_rank_update", lambda: pack2.rank_update_step(step.mt_rows, t, u),
+             lambda: pack2.rank_update_plain(step.mt_rows[sl], u))):
+        e, s = rel_err(kern(), plain())
+        check(torch.equal(kern(), kern()), f"{name}{tag}: two runs differ")
+        report(name + tag, e, s, TOL_PASS, median_ms(kern, 20), median_ms(plain, 3), pass_work(rows, q), note,
+               phase="13 shards")
+    var_e = loc.ycorr.var()
+    unif = torch.rand(ms.beta.shape[0], generator=gen, dtype=dt, device=DEV)
+    z = torch.randn(ms.beta.shape[0], generator=gen, dtype=dt, device=DEV)
+    flat = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
+                mask=ms.mask.reshape(-1))
+    varc = ms.var_beta[0] * ms.v_class
+    held_scan(f"r_block_scan_v{tag}", lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, K),
+              lambda pk_t: gibbs_kernels.r_block_scan_v_plain(ms.gram[0], pk_t, K),
+              lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc,
+                                                              logpi=ms.log_pi, ive=1.0 / var_e, var_e=var_e)),
+              unif, gen, step, lambda pk_t, uu: cdf_near(ms.gram[0], pk_t, uu, K),
+              scan_work(V, B, 8 + 4 * K, 1, 3, 10 * K), f"V={V} of {mp.vshards}, B={B}, K={K}, the rank's Gram",
+              card_alone=False, phase="13 shards")
+
+
+def held_corr_share(plan, loc, tag):
+    """CM1's block-step and its rule (CM1r) against their plain versions at
+    a rank's share of a correlated set (its V/S block chains, its loci), as
+    phase 9 holds them at the whole set's shapes."""
+    cs, cp = loc.corr_markers[0], plan.corr_markers[0]
+    local = replace(cp, vshards=cs.mt.shape[1], p_pad=cs.beta.shape[0])
+    case = CM1Case(replace(plan, corr_markers=(local,)), loc)
+    n_t, V, B = case.n_t, case.V, case.B
+    ref = torch.zeros_like(case.beta)
+
+    def kern():
+        return corr_scan.corr_block_step_kernel(case.gram_t, case.pk_g, *case.fold(), case.beta)
+
+    def plain():
+        return corr_scan.corr_block_step_plain(cs.gram[0], case.pk_g, 0, *case.fold(), ref)
+
+    u, ru = kern(), plain()
+    check(torch.equal(u, kern()) and torch.isfinite(u).all().item(), f"corr_block_scan_v{tag}: two runs differ")
+    eu, scu = rel_err(u, ru)
+    check(eu <= TOL_CORR * scu, f"corr_block_scan_v{tag}: u max_abs_err {eu:.3e} of {scu:.3e}")
+    e, sc = rel_err(case.beta[:, 0], ref[:, 0])
+    report(f"corr_block_scan_v{tag}", e, sc, TOL_CORR, median_ms(kern, 20), median_ms(plain, 3),
+           work_cm1(V, B, n_t), f" (V = {V} of {cp.vshards}, B = {B}, nT = {n_t}, the rank's Gram and rows; "
+           f"u max_abs_err {eu:.3e} of {scu:.3e})", phase="13 shards")
+
+    def rule():
+        return corr_scan.corr_rule_kernel(*case.rule_args)
+
+    o, r = rule(), corr_scan.corr_rule_plain(*case.rule_args)
+    check(torch.equal(o, rule()), f"corr_rule{tag}: two runs differ")
+    e, sc = rel_err(o, r)
+    report(f"corr_rule{tag}", e, sc, 1e-5, median_ms(rule, 20),
+           median_ms(lambda: corr_scan.corr_rule_plain(*case.rule_args), 3),
+           work_rule(local.p_pad, cp.n_regions, n_t), f" (the rank's {local.p_pad:,} loci)", phase="13 shards")
+
+
+def replicated(st):
+    """The fields every rank of a row holds alike after a sweep."""
+    ms = st.markers[0]
+    return (st.ycorr, st.e.var_e, st.fixed[0].b, ms.var_beta, ms.pi_hat, ms.log_pi)
+
+
+def rank_nccl(port):
+    """13a: a world of one through init_distributed (NCCL, the card), BayesR
+    at the main path through make_sharded_sweep on global_mesh(1, 1) and
+    through make_sweep, SHARD_SWEEPS eager sweeps each from one PhiloxStream
+    seed: the same bits."""
+    import torch.distributed as dist
+
+    from nextgp_tpu_torch.parallel import multihost, sharded
+
+    check(multihost.init_distributed(f"127.0.0.1:{port}", 1, 0), "init_distributed: no process group")
+    check(dist.get_backend() == "nccl", f"13a: the backend is {dist.get_backend()}, not nccl")
+    spec_for, _ = simulate()
+    plan, st = ngt.assemble(spec_for("BayesR"), vshards=V_MAIN)
+    mesh = multihost.global_mesh(1, 1)
+    step = sharded.make_sharded_sweep(plan, mesh)
+    local = sharded.distribute(plan, st, mesh, 1)
+    out, ends, counted = {}, {}, {}
+    for arm, sweep, s0 in (("sharded", step, local), ("make_sweep", ngt.make_sweep(plan), st)):
+        _cuda.reset_launches()
+        ends[arm], out[f"ms_{arm}"] = sweeps_ms(sweep, s0, PhiloxStream(SHARD_SEED, DEV, torch.float32),
+                                                SHARD_SWEEPS)
+        counted[arm] = dict(_cuda.LAUNCHES)
+    a, b = ends["sharded"], ends["make_sweep"]
+    pairs = dict(ycorr=(a.ycorr, b.ycorr), beta=(a.markers[0].beta, b.markers[0].beta),
+                 delta=(a.markers[0].delta, b.markers[0].delta), var_e=(a.e.var_e, b.e.var_e),
+                 pi=(a.markers[0].pi_hat, b.markers[0].pi_hat))
+    for name, (x, y) in pairs.items():
+        check(torch.equal(x, y), f"13a: {name} of the 1 x 1 mesh differs from make_sweep's")
+    for counter in ("pack2_matvec", "r_block_scan_v", "pack2_rank_update"):
+        check(counted["sharded"][counter] > 0, f"13a: {counter} not launched on the sharded run")
+    out["route"] = shard_route(step.ctx, a.ycorr)
+    out.update(psum_costs(step.ctx, a))
+    print(f"[13a] NCCL world of one: {SHARD_SWEEPS} sweeps through make_sharded_sweep and make_sweep the same "
+          f"bits (ycorr, beta, delta, varE, pi); psum route {out['route']}; ms/sweep sharded "
+          f"{out['ms_sharded']:.4f}, make_sweep {out['ms_make_sweep']:.4f}; a psum of {a.ycorr.numel():,} "
+          f"floats {out['psum_ms_vector']:.4f} ms, of one {out['psum_ms_scalar']:.4f}")
+    dist.destroy_process_group()
+    return dict(out, counted={"shards NCCL 1x1": counted["sharded"]})
+
+
+def rank_mesh(rank, world, port, root):
+    """13b on every rank of a gloo world of four on the card, a (2 x 2)
+    mesh, then 13c on ranks 0 and 1, a (1 x 2) mesh."""
+    import torch.distributed as dist
+
+    from nextgp_tpu_torch.parallel import multihost, sharded
+    from nextgp_tpu_torch.runtime import chain_seed
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    out, counted, tag = {}, {}, f" rank{rank}"
+    spec = simulate()[0]("BayesR")
+    plan, st = ngt.assemble(spec, vshards=V_MAIN)
+    mesh = multihost.global_mesh(2, 2)
+    c, s = mesh.coords()
+
+    def stream():
+        return keyed.KeyedStream(chain_seed(SHARD_SEED, c), DEV, torch.float32)
+
+    ref, out["ms_single"] = sweeps_ms(ngt.make_sweep(plan), st, stream(), SHARD_RULE)
+    local = sharded.distribute(plan, st, mesh, 2)
+    del st
+    ms = local.markers[0]
+    check(ms.mt.shape[1] == V_MAIN // 2 and ms.mt.is_contiguous() and ms.gram.shape[2] == V_MAIN // 2,
+          f"13b: the share's layout {tuple(ms.mt.shape)}")
+    held_share(plan, local, "_shard" + tag.replace(" ", "_"))
+    step = sharded.make_sharded_sweep(plan, mesh)
+    _cuda.reset_launches()
+    strm = stream()
+    loc = step(local, strm)
+    for _ in range(SHARD_RULE - 1):
+        loc = step(loc, strm)
+    g = sharded.gather_chain(loc, plan, step.ctx)
+    out["rule"] = rule_vs(f"13b chain {c} shard {s}", (g.markers[0].beta, g.ycorr),
+                          (ref.markers[0].beta, ref.ycorr))
+    loc, out["ms_sharded"] = sweeps_ms(step, loc, strm, SHARD_SWEEPS - SHARD_RULE)
+    counted[f"shards 2x2{tag}"] = dict(_cuda.LAUNCHES)
+    for counter in ("pack2_matvec", "r_block_scan_v", "pack2_rank_update", "keyed_rng"):
+        check(counted[f"shards 2x2{tag}"][counter] > 0, f"13b: {counter} not launched on rank {rank}")
+    fit = loc.fixed[0].x @ loc.fixed[0].b + step.ctx.psum(ngt.genomic_values_state(plan, loc))
+    out["drift"] = ((loc.ycorr - (loc.y - fit)).abs().max() / loc.y.abs().max()).item()
+    check(out["drift"] < 1e-2, f"13b: ycorr drift {out['drift']:.3e} after {SHARD_SWEEPS} sweeps")
+    finite = [loc.markers[0].beta, *replicated(loc)]
+    check(all(torch.isfinite(x).all().item() for x in finite), "13b: a draw is not finite")
+    out["route"] = shard_route(step.ctx, loc.ycorr)
+    out.update(psum_costs(step.ctx, loc))
+    out["checksum"] = multihost.chain_checksum(replicated(loc))
+    out["digest"] = digest(*replicated(loc))
+    print(f"[13b rank {rank}] chain {c} shard {s}: V = {loc.markers[0].mt.shape[1]} of {V_MAIN} "
+          f"({loc.markers[0].mt.shape[1] * BLOCK:,} rows a step), drift {out['drift']:.3e}, psum route "
+          f"{out['route']} ({out['psum_ms_vector']:.4f} ms over the residual, {out['psum_ms_scalar']:.4f} over a "
+          f"scalar), checksum of the replicated fields {out['checksum']!r}")
+    rows = [None] * world
+    dist.all_gather_object(rows, (c, out["checksum"], out["digest"]))
+    for c2, sum2, dig2 in rows:
+        if c2 == c:
+            check(sum2 == out["checksum"] and dig2 == out["digest"],
+                  f"13b: the ranks of chain {c} hold different replicated fields")
+        else:
+            check(sum2 != out["checksum"], "13b: the two chains hold the same fields")
+    del loc, local, ref, g
+
+    _cuda.reset_launches()
+    res = ngt.run_chains(spec, n_chains=2, mesh=mesh, vshards=V_MAIN, out_folder=os.path.join(root, "chains"),
+                         streams=[keyed.KeyedStream(chain_seed(SHARD_SEED, k), DEV, torch.float32)
+                                  for k in range(2)], **SHARD_CHAINS)
+    counted[f"shards run_chains{tag}"] = dict(_cuda.LAUNCHES)
+    flat = [np.ascontiguousarray(v) for what in ("draws", "rhat", "ess") for _, v in sorted(res[what].items())]
+    out["run_chains"] = dict(rhat_varE=float(np.asarray(res["rhat"]["varE"]).reshape(-1)[0]),
+                             digest=hashlib.sha256(b"".join(a.tobytes() for a in flat)).hexdigest()[:16])
+    check(np.isfinite(out["run_chains"]["rhat_varE"]), "13b: run_chains' R-hat of varE is not finite")
+    rows = [None] * world
+    dist.all_gather_object(rows, out["run_chains"]["digest"])
+    check(len(set(rows)) == 1, f"13b: the ranks' run_chains results differ: {rows}")
+    del res
+
+    mesh_c = sharded.make_mesh(1, 2, ranks=[0, 1])  # every rank makes the row's group
+    if rank < 2:
+        counted.update(rank_corr(rank, mesh_c, tag))
+    dist.barrier()
+    dist.destroy_process_group()
+    return dict(out, counted=counted)
+
+
+def rank_corr(rank, mesh, tag):
+    """13c on one rank of a (1 x 2) mesh: MultiBreed at CORR_SHARD, its
+    share held (CM1, CM1r), SHARD_RULE sweeps held to the single-rank V
+    chain by the packed rule, then to SHARD_SWEEPS: every covariance
+    positive definite, the draws finite."""
+    from nextgp_tpu_torch.parallel import sharded
+
+    spec, _ = simulate_corr(CORR_SHARD["n"], CORR_SHARD["p"])
+    plan, st = ngt.assemble(spec, vshards=CORR_SHARD["V"])
+    ref, _ = sweeps_ms(ngt.make_sweep(plan), st, PhiloxStream(SHARD_SEED, DEV, torch.float32), SHARD_RULE)
+    local = sharded.distribute(plan, st, mesh, 1)
+    del st
+    check(local.corr_markers[0].mt.shape[1] == CORR_SHARD["V"] // 2, "13c: the share's layout")
+    held_corr_share(plan, local, "_shard" + tag.replace(" ", "_"))
+    step = sharded.make_sharded_sweep(plan, mesh)
+    stream = PhiloxStream(SHARD_SEED, DEV, torch.float32)
+    _cuda.reset_launches()
+    loc, covs = local, []
+    for i in range(SHARD_SWEEPS):
+        loc = step(loc, stream)
+        covs.append(loc.corr_markers[0].var_beta)
+        if i + 1 == SHARD_RULE:
+            g = sharded.gather_chain(loc, plan, step.ctx)
+            rule_vs(f"13c rank {rank}", (g.corr_markers[0].beta, g.ycorr), (ref.corr_markers[0].beta, ref.ycorr))
+    counts = dict(_cuda.LAUNCHES)
+    for counter in ("pack2_matvec", "corr_rule", "corr_block_scan_v", "pack2_rank_update"):
+        check(counts[counter] > 0, f"13c: {counter} not launched on rank {rank}")
+    eig = torch.linalg.eigvalsh(torch.stack(covs).double())
+    check(torch.isfinite(eig).all().item() and (eig > 0).all().item(),
+          "13c: a kept covariance is not positive definite")
+    check(torch.isfinite(loc.corr_markers[0].beta).all().item() and torch.isfinite(loc.ycorr).all().item(),
+          "13c: a draw is not finite")
+    print(f"[13c rank {rank}] MultiBreed {CORR_SHARD['n']:,} x {CORR_SHARD['p']:,} x 2 at V = "
+          f"{CORR_SHARD['V']} (local {loc.corr_markers[0].mt.shape[1]}): {SHARD_SWEEPS} sweeps, "
+          f"{len(covs) * covs[0].shape[0]} covariances positive definite (smallest eigenvalue "
+          f"{eig.min().item():.3e})")
+    return {f"shards corr{tag}": counts}
+
+
+def shard_rank(role, rank, world, port, out_file):
+    """A rank's process (`chip_smoke.py shard-rank ROLE RANK WORLD PORT
+    FILE`, started by shards_phase): its part of phase 13 on the card, its
+    numbers and launch counters written to FILE as JSON. It never builds:
+    the parent built the kernels before any rank started."""
+    check(torch.cuda.is_available(), "a rank without a CUDA device: no rank runs on the CPU")
+    check(any(_cuda.BUILD_ROOT.glob("*/libnextgp_torch_kernels.so")), "the parent did not build the kernels")
+    rank, world = int(rank), int(world)
+    if role == "nccl":
+        out = rank_nccl(port)
+    else:
+        out = rank_mesh(rank, world, port, os.path.dirname(out_file))
+    out["timings"] = {k: v for k, v in TIMINGS.items() if "_shard" in k}
+    Path(out_file).write_text(json.dumps(out))
+
+
+def start_ranks(role, world, root):
+    """Start a group of ranks (this script's shard-rank mode) on a free
+    localhost port; returns their processes and output files."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo") if role == "nccl" else dict(os.environ)
+    files = [os.path.join(root, f"{role}{r}.json") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "shard-rank", role, str(r),
+                               str(world), str(port), files[r]], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    return procs, files
+
+
+def wait_ranks(role, procs, files):
+    """Each rank's output printed and its JSON read; the phase fails if any
+    rank exits non-zero or outlasts SHARD_TIMEOUT (all are killed then)."""
+    try:
+        outs = [p.communicate(timeout=SHARD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            print(f"  [{role} rank {r}] {line}")
+        check(p.returncode == 0, f"13 {role}: rank {r} exited {p.returncode}")
+    return [json.loads(Path(f).read_text()) for f in files]
+
+
+def shards_phase(card):
+    """Phase 13: the chains x shards mesh (ROADMAP M14). The kernels are
+    built (phase 2) before any rank starts; each group of ranks runs as
+    child processes of this one, which reads back a JSON file from each.
+    13a: one rank, NCCL, a world of one; 13b: four ranks, a gloo world on
+    this one card, a (2 x 2) mesh; 13c: ranks 0 and 1 of it, a (1 x 2) mesh
+    over a correlated set. NCCL with two or more ranks needs a card a rank,
+    which this machine does not have."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="shards-")
+    try:
+        (a,) = wait_ranks("nccl", *start_ranks("nccl", 1, root))
+        ranks = wait_ranks("mesh", *start_ranks("mesh", 4, root))
+        folders = sorted(os.listdir(os.path.join(root, "chains")))
+        check(folders == ["chain1", "chain2"], f"13b: run_chains wrote {folders}")
+        kept = SHARD_CHAINS["n_chain"] - SHARD_CHAINS["n_burn"]
+        for f in folders:
+            lines = Path(root, "chains", f, "varEOut").read_text().splitlines()
+            check(len(lines) == 1 + kept // SHARD_CHAINS["n_thin"], f"13b: {f}/varEOut has {len(lines)} lines")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counted = dict(a.pop("counted"))
+    for r in ranks:
+        counted.update(r.pop("counted"))
+    out = {"13a": a, "13b": ranks, "seconds": time.perf_counter() - t0}
+    print(f"[13 shards] {card}: ms/sweep 13a make_sweep {a['ms_make_sweep']:.4f}, make_sharded_sweep "
+          f"{a['ms_sharded']:.4f} (NCCL world of one); 13b single-rank V={V_MAIN} "
+          + ", ".join(f"{r['ms_single']:.4f}" for r in ranks) + f", sharded V={V_MAIN // 2} a rank "
+          + ", ".join(f"{r['ms_sharded']:.4f}" for r in ranks) + f" (ranks 0-3). Note: {SHARED_CARD}")
+    print(f"[13 shards] psum routes and ms a psum (the residual, a scalar): 13a {a['route']} "
+          f"{a['psum_ms_vector']:.4f}, {a['psum_ms_scalar']:.4f}; 13b "
+          + "; ".join(f"{r['route']} {r['psum_ms_vector']:.4f}, {r['psum_ms_scalar']:.4f}" for r in ranks))
+    print(f"[13 shards] phase 13 passed in {out['seconds']:.1f} s")
+    return out, counted
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
@@ -4689,22 +5108,30 @@ STORAGE_R = ("storage BayesR int8", "storage BayesR packed", "storage BayesR flo
 STORAGE_KEYED = STORAGE_R + ("storage BayesC+D int8", "storage CLI")
 GRN_RUNS = ("GRN f32 eager", "GRN f32 replayed", "GRN f32 eager wide", "GRN f32 replayed wide", "GRN f64 kernel",
             "GRN est_grn")  # phase 12's GRN1 runs
+# phase 13's runs: 13a's sharded sweeps, each 13b rank's sweeps (KeyedStream) and
+# run_chains, each 13c rank's MultiBreed sweeps
+SHARD_MESH = tuple(f"shards 2x2 rank{r}" for r in range(4)) + tuple(f"shards run_chains rank{r}" for r in range(4))
+SHARD_CORR = ("shards corr rank0", "shards corr rank1")
+SHARD_RUNS = ("shards NCCL 1x1",) + SHARD_MESH
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
 # K1 and K2 over a whole panel, which the ladder launches.
 SOURCES = {
     "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec",
-                     V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",)),
+                     V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",) + SHARD_RUNS
+                     + SHARD_CORR),
     "pack2_matvec_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:171", "pack2_matvec", PANEL_LADDER),
     "pack2_rank_update": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
-                          V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",)),
+                          V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",) + SHARD_RUNS
+                          + SHARD_CORR),
     "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
                                 ("ladder matvec", "runtime serving")),
     "pack2_matvec_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", ("BayesR 50k",)),
     "pack2_rank_update_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
                               ("BayesR 50k",)),
-    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v", V96 + RUNTIME_RUNS + STORAGE_R),
+    "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v",
+                       V96 + RUNTIME_RUNS + STORAGE_R + SHARD_RUNS),
     "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1 + ("storage CLI",)),
     "gauss_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v", V96),
     "gauss_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v", V1),
@@ -4727,17 +5154,18 @@ SOURCES = {
                   tuple(f"{p} keyed V={V_MAIN}" for p in PATHS) + ("BayesR keyed V=1",
                                                                   f"BayesR 50k keyed V={V_MAIN}")
                   + tuple(f"{r} keyed" if r == "BayesR+A2" else r.replace(" V=", " keyed V=")
-                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",) + STORAGE_KEYED + GRN_RUNS),
+                          for r in CORR_RUNS) + RUNTIME_RUNS + ("runtime A-cg",) + STORAGE_KEYED + GRN_RUNS
+                  + SHARD_MESH),
     "level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
                    "level_scan", ("BayesR+A", "GBLUP", "storage CLI")),
     "corr_level_scan": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
                         "corr_level_scan", ("BayesR+A2",)),
     "corr_block_scan_v": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
-                          "corr_block_scan_v", (f"MultiBreed V={V_MAIN}",)),
+                          "corr_block_scan_v", (f"MultiBreed V={V_MAIN}",) + SHARD_CORR),
     "corr_block_scan_v_v1": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
                              "corr_block_scan_v", ("MultiBreed V=1", "storage MultiBreed float V=1")),
     "corr_rule": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:901", "corr_rule",
-                  (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "storage MultiBreed float V=1")),
+                  (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "storage MultiBreed float V=1") + SHARD_CORR),
     "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg", "runtime A-cg")),
     "grn_scan": (CU + "grn_scan.cu", "nextgp_tpu/grn/sampler.py:183", "grn_scan", GRN_RUNS),
 }
@@ -4856,10 +5284,21 @@ def keyed_only(card, srcs):
     print(json.dumps({"card": card, "keyed_rng": out, "timing": TIMINGS.get("keyed_rng")}))
 
 
+def shards_only(card):
+    """`python3 chip_smoke.py shards`: phase 13 alone. One JSON line of its
+    numbers and launch counts, and no result line."""
+    out, counted = shards_phase(card)
+    print(json.dumps({"card": card, "shards": out, "launches": counted}))
+
+
 def main(argv=()):
+    if list(argv[:1]) == ["shard-rank"]:
+        return shard_rank(*argv[1:])
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
+    if list(argv) == ["shards"]:
+        return shards_only(card)
     if list(argv[:1]) == ["keyed"]:
         return keyed_only(card, argv[1:])
     if list(argv[:1]) == ["gathers"]:
@@ -4887,7 +5326,7 @@ def main(argv=()):
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
                     "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
-                    "storage or grn [DIR]")
+                    "storage, grn [DIR] or shards")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -4925,6 +5364,9 @@ def main(argv=()):
     grn_out, by_run = grn_phase()
     counted.update(by_run)
     print(f"[12 grn] {json.dumps(grn_out)}")
+    shards_out, by_run = shards_phase(card)
+    counted.update(by_run)
+    print(f"[13 shards] {json.dumps(shards_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

@@ -8,7 +8,10 @@ BayesR, the annotation samplers BayesRCpi and BayesRCplus, and BayesLV)
 with summary statistics + correlated marker sets (BayesPR), the GRN
 structural-equation sampler (`est_grn`, its Lambda2 scan GRN1), genotypes
 stored 2-bit planar-packed where the dosages allow it and int8 or float
-otherwise (imputed dosages), V-batched block schedule. The packed passes,
+otherwise (imputed dosages), V-batched block schedule, and the chains x
+shards mesh of ranks on torch.distributed (`parallel/`, as the JAX
+package's `parallel/`, which its top level does not export either). The
+packed passes,
 the in-block scans and the random effects' level scans run through hand-written
 CUDA kernels for Hopper (csrc/, built with nvcc at first use) on CUDA
 tensors and through their plain PyTorch versions on CPU tensors. The entry

@@ -114,6 +114,9 @@ class MarkerPlan:
     # region's size (constant)
     region_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     region_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    # the V the caller asked for ("auto" is 1); vshards is its largest
+    # divisor of n_blocks, which parallel/sharded.distribute checks
+    vshards_asked: int = dataclasses.field(default=1, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +137,7 @@ class CorrMarkerPlan:
     # and each region's size
     region_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     region_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    vshards_asked: int = dataclasses.field(default=1, compare=False)  # as for MarkerPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,11 +403,18 @@ def _method_of(prior, name):
         f"marker set {name}: prior {type(prior).__name__} is not a marker prior")
 
 
+def _asked_vshards(vshards) -> int:
+    """The V a caller asked for: "auto" is 1."""
+    return 1 if vshards == "auto" else max(1, int(vshards))
+
+
 def _resolve_vshards(vshards, nb, name):
     """The V a marker set runs at: "auto" is 1, the reference-sequential
     order, which is the JAX package's "auto" off its TPU kernel path (no
     rule has been measured on the H100); an integer that does not divide
-    the block count falls back to its largest divisor."""
+    the block count falls back to its largest divisor (with a warning; a
+    sharded run refuses such a V where the shards do not divide it,
+    parallel/sharded.distribute)."""
     if vshards == "auto":
         return 1
     vreq = int(vshards)
@@ -676,6 +687,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
         est_pi=bool(getattr(prior, "estimatePi", False)), df=df, weighted=d_inv is not None,
         vshards=V, n_annot=n_annot, n_lv_cov=n_lv_cov, est_var_zeta=est_var_zeta,
         packed=packed, dosage_bytes=p2.dosage_bytes(mt), region_rows=rows, region_len=lengths,
+        vshards_asked=_asked_vshards(vshards),
     )
     return ms, mp
 
@@ -759,7 +771,7 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     plan = CorrMarkerPlan(names=tuple(term.names), n_t=n_t, p=p, p_pad=p_pad, block=block,
                           n_blocks=nb, n_regions=info.n_regions, df=df, vshards=V,
                           dosage_bytes=p2.dosage_bytes(mt), region_rows=region_rows,
-                          region_len=region_len)
+                          region_len=region_len, vshards_asked=_asked_vshards(vshards))
     return st, plan
 
 

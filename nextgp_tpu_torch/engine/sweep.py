@@ -41,14 +41,21 @@ from .samplers.fixed import sample_fixed_block
 from .samplers.markers import sample_corr_marker_set, sample_marker_set
 from .samplers.random_effects import sample_random_cg, sample_random_corr, sample_random_uni
 from .samplers.residual import sample_var_e
+from .sharding import UNSHARDED, ShardCtx
 from .state import ModelState
 
 
-def make_sweep(plan: SweepPlan):
+def make_sweep(plan: SweepPlan, ctx: ShardCtx = UNSHARDED):
     """Build sweep(state, stream) -> state for the static plan. The draw
     sites are named by state.sweep_index (and, for a KeyedStream, by the
     same number in state.sweep_counter on the device), so a chain is a
-    function of the stream's seed and the starting state. After each call
+    function of the stream's seed and the starting state. `ctx` goes to the
+    marker stages only (parallel/sharded.py: the state then holds one rank's
+    share of the marker blocks); every other stage runs on the replicated
+    residual, the same on every rank of the row. A sweep with a sharded ctx
+    is only ever run eagerly: the runners below (Chain, ReplayedSweep)
+    build their own unsharded sweeps, and no collective is captured. After
+    each call
     `sweep.cg_iterations` maps each CG random term's index to the number of
     CG iterations its solve took in that sweep, a 0-d int32 tensor on the
     plan's device (reading it is the caller's sync)."""
@@ -84,14 +91,14 @@ def make_sweep(plan: SweepPlan):
         for i, (ms, mp) in enumerate(zip(state.markers, plan.markers)):
             with record_function(f"gibbs.marker.{mp.name}"):
                 ms, ycorr = sample_marker_set(stream, Site(s, STAGE_MARKER, i, counter=c), ms, mp,
-                                              ycorr, var_e, state.e.d_inv)
+                                              ycorr, var_e, state.e.d_inv, ctx)
             markers.append(ms)
 
         corr_markers = []
         for i, (cs, cp) in enumerate(zip(state.corr_markers, plan.corr_markers)):
             site = Site(s, STAGE_MARKER, len(plan.markers) + i, counter=c)
             with record_function("gibbs.corr_marker"):
-                cs, ycorr = sample_corr_marker_set(stream, site, cs, cp, ycorr, var_e)
+                cs, ycorr = sample_corr_marker_set(stream, site, cs, cp, ycorr, var_e, ctx)
             corr_markers.append(cs)
 
         return replace(state, ycorr=ycorr, e=replace(state.e, var_e=var_e), fixed=tuple(fixed),

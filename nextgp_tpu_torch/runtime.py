@@ -14,7 +14,9 @@ Each chain runs as an engine/sweep.Chain: on the card with a stream that
 can be captured (KeyedStream), CUDA-graph replays that keep their samples
 on the card. The host copies the quantities it keeps once a chunk of kept
 samples, never once a sweep: once at the end where nothing is written,
-else every `_CHUNK` kept samples and at every checkpoint.
+else every `_CHUNK` kept samples and at every checkpoint. `run_chains` over
+a mesh of ranks (parallel/sharded.py) runs each rank's share eagerly;
+rank 0 writes the files and checkpoints.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from .io.checkpoint import (
 )
 from .io.summary import ess_bulk, split_rhat
 from .io.writer import MCMCWriter, folder_handler, truncate_outputs
+from .parallel import sharded
+from .parallel.sharded import pick_chain, stack_chains
 from .utils import default_device, replace
 
 _CHUNK = 32  # kept samples between host copies of a replayed chain that writes files
@@ -368,22 +372,125 @@ def chain_seed(seed: int, c: int) -> int:
     return _splitmix64(_splitmix64(seed & ((1 << 64) - 1)) ^ c)
 
 
-def _stack(states: List[ModelState]) -> ModelState:
-    """One ModelState whose _CHAIN_FIELDS hold the chains' values stacked on
-    a leading chain axis (sweep_index a (C,) int64 tensor); the other
-    fields are the first chain's, which every chain shares."""
-    leaves = [chain_leaves(s) for s in states]
-    new = {k: torch.stack([lv[k] for lv in leaves]) for k in leaves[0]}
-    index = torch.tensor([s.sweep_index for s in states], dtype=torch.int64,
-                         device=states[0].ycorr.device)
-    return replace(_with_leaves(states[0], new), sweep_index=index)
+def _default_shards(plan: SweepPlan, n_chains: int, world: int) -> int:
+    """The JAX package's default shard count over the world's ranks: the
+    largest one up to ranks/chains that every marker set's block or vshard
+    layout divides."""
+    cap = max(1, world // n_chains) if n_chains <= world else 1
+    return next((s for s in range(cap, 0, -1)
+                 if all((p.vshards % s == 0) if p.vshards > 1 else (p.n_blocks % s == 0)
+                        for p in plan.markers + plan.corr_markers)), 1)
 
 
-def _pick(batched: ModelState, c: int) -> ModelState:
-    """Chain c of a chains-batched state (the inverse of `_stack`): chain c
-    of every _CHAIN_FIELDS tensor, and its sweep index."""
-    leaves = {k: v[c] for k, v in chain_leaves(batched).items()}
-    return replace(_with_leaves(batched, leaves), sweep_index=int(batched.sweep_index[c]))
+def _all_gather(obj) -> list:
+    """Every rank's obj, by rank (the world's object all-gather)."""
+    if sharded._world()[1] == 1:
+        return [obj]
+    out = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(out, obj)
+    return out
+
+
+def _host_fields(state: ModelState) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in chain_leaves(state).items()}
+
+
+def _on_mesh(spec, plan, state, mesh, n_chains, n_chain, n_burn, n_thin, *, streams, seed, track,
+             out_folder, resuming, ckpt_path, fingerprint, digest, every, progress):
+    """run_chains over a mesh of ranks: chain c on row c, each rank sweeping
+    its share (eager sweeps, psums over the row). After each kept interval
+    a row gathers its chain's fields (gather_chain) and collects the
+    sample; the rows' first ranks hand their chunk of samples to every rank
+    (one object all-gather a chunk), so that every rank returns the same
+    draws, and rank 0, standing in for the JAX package's single
+    controller, writes the files and the checkpoints (the chains' fields in
+    global locus order, gathered the same way). Ranks that the mesh does not
+    hold take part in the gathers only. Returns (each chain's draws
+    {name: (n_keep, ...)}, the batched state)."""
+    rank = sharded._world()[0]
+    at = mesh.coords()
+    if resuming:  # every rank reads the checkpoint and slices its chain out of it
+        state = load_checkpoint(ckpt_path, sharded.batch_state(plan, state, n_chains),
+                                fingerprint=fingerprint, constants=digest)
+        meta = read_meta(ckpt_path)
+        if "kept_rows" in meta and rank == 0:
+            for c in range(n_chains):
+                truncate_outputs(os.path.join(out_folder, f"chain{c + 1}"), int(meta["kept_rows"]))
+    done = int(state.sweep_index[0]) if isinstance(state.sweep_index, torch.Tensor) \
+        else state.sweep_index
+    if progress and rank == 0 and resuming:
+        print(f"  resumed at sweep {done}")
+    local = sharded.distribute(plan, state, mesh, n_chains)
+    if at is not None:
+        del state  # this rank keeps its share only
+        step = sharded.make_sharded_sweep(plan, mesh)
+        stream = streams[at[0]] if streams is not None else PhiloxStream(
+            chain_seed(seed, at[0]), plan.device, plan.dtype)
+    leader = at is not None and at[1] == 0  # the row's rank that hands on its samples
+    writers = []
+    if out_folder and rank == 0:
+        headers = _headers(spec, plan)
+        writers = [MCMCWriter(os.path.join(out_folder, f"chain{c + 1}"),
+                              None if resuming else headers) for c in range(n_chains)]
+
+    def gathered():
+        return sharded.gather_chain(local, plan, step.ctx)
+
+    def fields_by_chain():
+        mine = _host_fields(gathered()) if at is not None else None
+        by_rank = _all_gather(mine if leader else None)
+        return [by_rank[int(mesh.devices[c, 0])] for c in range(n_chains)]
+
+    def batched(fields, index):  # the chains' fields over this rank's constants
+        template = state if at is None else local
+        new = {k: torch.stack([torch.from_numpy(f[k]) for f in fields]).to(plan.device)
+               for k in fields[0]}
+        return replace(_with_leaves(template, new), sweep_index=torch.full(
+            (n_chains,), index, dtype=torch.int64, device=plan.device))
+
+    n_keep = (n_chain - n_burn) // n_thin
+    k = max(0, done - n_burn) // n_thin
+    cap = _CHUNK if (out_folder or every) else max(1, n_keep - k)
+    if at is not None:
+        for _ in range(max(0, n_burn - done)):
+            local = step(local, stream)
+    draws: List[Dict[str, list]] = [{} for _ in range(n_chains)]
+    try:
+        while k < n_keep:
+            end = min(n_keep, k + cap)
+            if every:
+                end = min(end, (k // every + 1) * every)
+            rows = []
+            for _ in range(end - k if at is not None else 0):
+                for _ in range(n_thin):
+                    local = step(local, stream)
+                sample = collect_sample(gathered(), plan)
+                names = list(sample) if track == "all" else [nm for nm in track if nm in sample]
+                rows.append({nm: sample[nm].cpu().numpy() for nm in names})
+            by_rank = _all_gather(rows if leader else None)
+            for c in range(n_chains):
+                for row in by_rank[int(mesh.devices[c, 0])]:
+                    if writers:
+                        writers[c].put(row)
+                    for nm, v in row.items():
+                        draws[c].setdefault(nm, []).append(v)
+            if progress and rank == 0:
+                for j in range(k + 1, end + 1):
+                    if j % max(1, n_keep // 10) == 0:
+                        print(f"  kept {j}/{n_keep}")
+            k = end
+            if every and k % every == 0:
+                fields = fields_by_chain()
+                if rank == 0:
+                    for w in writers:
+                        w.flush()
+                    save_checkpoint(ckpt_path, batched(fields, n_burn + k * n_thin), meta={
+                        "fingerprint": fingerprint, "kept_rows": k, "constants": digest})
+    finally:
+        for w in writers:
+            w.close()
+    final = batched(fields_by_chain(), max(done, n_burn + n_keep * n_thin))
+    return [{nm: np.stack(v) for nm, v in d.items()} for d in draws], final
 
 
 def run_chains(
@@ -409,11 +516,20 @@ def run_chains(
     diagnostics — the reference runs one chain and defers diagnostics to
     user-side MCMCChains scripts (docs/src/index.md:62-88).
 
-    On one card the chains run in turn, a chunk of kept samples each, on
-    one assembled state (the constant tensors are shared), each with its own
-    runner (on the card with KeyedStreams, its own CUDA graphs). Batching
-    the chains into one launch of each kernel, and the JAX package's mesh
-    (n_shards > 1, mesh), are not ported (ROADMAP M14): they raise.
+    In a world of one rank (no process group, or one of one) with
+    n_shards 1, the chains run in turn, a chunk of kept samples at a time,
+    on one assembled state (the constant tensors are shared), each with its
+    own runner (on the card with KeyedStreams, its own CUDA graphs).
+    Otherwise they run over a (chains, shards) mesh of ranks, as the JAX
+    package runs them over its devices: `mesh` (parallel/sharded.make_mesh),
+    or one over the first n_chains * n_shards ranks of the world, n_shards
+    by default the largest up to ranks/chains that every marker set's
+    layout divides. Every rank of the world calls run_chains alike; chain c
+    draws from the stream it draws from in turn, so a (C x 1) mesh gives the
+    in-turn run's bits, and every rank returns the same draws, R-hat and
+    ESS. Rank 0 writes the files and checkpoints; on resume every rank
+    reads the checkpoint. Batching the chains into one launch of each
+    kernel is not ported.
 
     track: quantity names to keep in memory for R̂/ESS, or "all".
     out_folder: when set, every tracked quantity streams to
@@ -425,18 +541,16 @@ def run_chains(
 
     Returns {"draws": {name: (n_chains, n_keep, ...)}, "rhat": {...},
     "ess": {...}, "state": the chains' ModelState, batched on a leading
-    chain axis}.
+    chain axis}; over a mesh its chain fields are gathered in global locus
+    order and its other fields are this rank's share.
     """
-    if n_shards not in (None, 1) or mesh is not None:
-        raise NotImplementedError(
-            "run_chains: n_shards > 1 and mesh (chains x shards over devices) are not ported yet "
-            "(ROADMAP M14); on one card the chains run in turn")
     device = torch.device(device) if device is not None else default_device()
     if streams is not None and len(streams) != n_chains:
         raise ValueError(f"run_chains: {len(streams)} streams for {n_chains} chains")
+    rank, world = sharded._world()
     ckpt_path = os.path.join(out_folder, "chains.ckpt") if out_folder else None
     resuming = bool(resume and ckpt_path and os.path.exists(ckpt_path))
-    if out_folder and not resuming:
+    if out_folder and not resuming and rank == 0:
         folder_handler(out_folder)
         _write_group_infos(spec, out_folder)
 
@@ -444,14 +558,26 @@ def run_chains(
     fingerprint = plan_fingerprint(plan)
     saves = bool(checkpoint_every and ckpt_path)
     digest = constants_digest(state) if (saves or resuming) else None
+    if mesh is None:
+        n_shards = n_shards or _default_shards(plan, n_chains, world)
+        if world > 1 or n_shards > 1:
+            mesh = sharded.make_mesh(n_chains, n_shards, ranks=range(world)[:n_chains * n_shards])
+    n_keep = (n_chain - n_burn) // n_thin
+    if mesh is not None:
+        draws, batched = _on_mesh(
+            spec, plan, state, mesh, n_chains, n_chain, n_burn, n_thin, streams=streams,
+            seed=seed, track=track, out_folder=out_folder, resuming=resuming,
+            ckpt_path=ckpt_path, fingerprint=fingerprint, digest=digest,
+            every=checkpoint_every if saves else 0, progress=progress)
+        return _summarised(draws, batched)
     streams = list(streams) if streams is not None else [
         PhiloxStream(chain_seed(seed, c), plan.device, plan.dtype) for c in range(n_chains)]
     states = [state] * n_chains
 
     if resuming:
-        batched = load_checkpoint(ckpt_path, _stack(states), fingerprint=fingerprint,
+        batched = load_checkpoint(ckpt_path, stack_chains(states), fingerprint=fingerprint,
                                   constants=digest)
-        states = [_pick(batched, c) for c in range(n_chains)]
+        states = [pick_chain(batched, c) for c in range(n_chains)]
         meta = read_meta(ckpt_path)
         if "kept_rows" in meta:
             for c in range(n_chains):
@@ -460,7 +586,7 @@ def run_chains(
             print(f"  resumed at sweep {states[0].sweep_index}")
 
     def checkpoint(states, kept_rows):
-        save_checkpoint(ckpt_path, _stack(states), meta={
+        save_checkpoint(ckpt_path, stack_chains(states), meta={
             "fingerprint": fingerprint, "kept_rows": kept_rows, "constants": digest})
 
     writers = []
@@ -468,7 +594,6 @@ def run_chains(
         headers = _headers(spec, plan)
         writers = [MCMCWriter(os.path.join(out_folder, f"chain{c + 1}"),
                               None if resuming else headers) for c in range(n_chains)]
-    n_keep = (n_chain - n_burn) // n_thin
     try:
         states, draws, _ = _drive(
             plan, states, streams, n_burn, n_keep, n_thin, writers=writers, track=track,
@@ -477,10 +602,16 @@ def run_chains(
     finally:
         for w in writers:
             w.close()
-    out_draws = {k: np.stack([np.concatenate(d[k]) for d in draws]) for k in draws[0]}
+    return _summarised([{k: np.concatenate(v) for k, v in d.items()} for d in draws],
+                       stack_chains(states))
+
+
+def _summarised(draws: List[Dict[str, np.ndarray]], state: ModelState) -> Dict[str, Any]:
+    """run_chains' result from each chain's kept draws {name: (n_keep, ...)}."""
+    out_draws = {k: np.stack([d[k] for d in draws]) for k in draws[0]}
     rhat = {k: split_rhat(v if v.ndim > 2 else v[..., None]) for k, v in out_draws.items()}
     ess = {k: ess_bulk(v if v.ndim > 2 else v[..., None]) for k, v in out_draws.items()}
-    return {"draws": out_draws, "rhat": rhat, "ess": ess, "state": _stack(states)}
+    return {"draws": out_draws, "rhat": rhat, "ess": ess, "state": state}
 
 
 def _collect_batched(batched, plan) -> Dict[str, Any]:
@@ -490,7 +621,7 @@ def _collect_batched(batched, plan) -> Dict[str, Any]:
     n_chains = batched.ycorr.shape[0]
     out: Dict[str, Any] = {}
     for c in range(n_chains):
-        sample = collect_sample(_pick(batched, c), plan)
+        sample = collect_sample(pick_chain(batched, c), plan)
         for k, v in sample.items():
             out.setdefault(k, []).append(v.cpu().numpy())
     return {k: np.stack(v) for k, v in out.items()}

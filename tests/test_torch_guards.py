@@ -58,7 +58,8 @@ def test_port_imports_no_jax():
             "nextgp_tpu_torch.io.checkpoint", "nextgp_tpu_torch.io.summary",
             "nextgp_tpu_torch.data.ingest", "nextgp_tpu_torch.api.formula", "nextgp_tpu_torch.cli",
             "nextgp_tpu_torch.__main__", "nextgp_tpu_torch.grn.sampler",
-            "nextgp_tpu_torch.ops.grn_scan"} <= set(
+            "nextgp_tpu_torch.ops.grn_scan", "nextgp_tpu_torch.engine.sharding",
+            "nextgp_tpu_torch.parallel.sharded", "nextgp_tpu_torch.parallel.multihost"} <= set(
         res.stdout.split("|")[1].split())
 
 
@@ -86,13 +87,15 @@ def _fields(cls):
 
 
 # copied classes that the packages' top levels do not export: their modules
-COPIED_MODULES = {"GRNPlan": "grn.sampler"}
+COPIED_MODULES = {"GRNPlan": "grn.sampler", "ShardCtx": "engine.sharding"}
+# fields the port renames: ShardCtx's mesh axis is a process group there
+RENAMED_FIELDS = {"ShardCtx": {"axis": "group"}}
 
 
 @pytest.mark.parametrize("name", ["BayesPR", "BayesB", "BayesC", "BayesR", "BayesRCpi",
                                   "BayesRCplus", "BayesLV", "SummaryStatistics", "RandomEffect",
                                   "Random", "FixedTerm", "RandomTerm", "MarkerTerm", "CorrMarkerTerm",
-                                  "ModelSpec", "MarkerData", "LMEMResult", "GRNPlan"])
+                                  "ModelSpec", "MarkerData", "LMEMResult", "GRNPlan", "ShardCtx"])
 def test_copied_dataclasses_match(name):
     import importlib
 
@@ -102,7 +105,8 @@ def test_copied_dataclasses_match(name):
     else:
         jcls = getattr(j_ingest, name, None) or getattr(ng, name)
         tcls = getattr(t_ingest, name, None) or getattr(ngt, name)
-    assert _fields(tcls) == _fields(jcls)
+    renamed = RENAMED_FIELDS.get(name, {})
+    assert _fields(tcls) == [(renamed.get(f, f), d) for f, d in _fields(jcls)]
 
 
 @pytest.mark.parametrize("name", ["RandomState", "SparseRandomState", "CorrRandomState",
@@ -114,8 +118,9 @@ def test_state_fields_match(name):
     state at the same paths. The port's ModelState adds sweep_counter (the
     device copy of sweep_index); its RandomPlan adds the CG sampler's static
     tables and its CorrMarkerPlan the bytes of a stored dosage (the JAX
-    roofline counts 0.25 for every correlated set) and the region sums'
-    tables. The port's GRNState adds it_counter (the device copy of it, which
+    roofline counts 0.25 for every correlated set), the region sums'
+    tables and the vshards asked for (a sharded run refuses one that
+    assemble lowered to a V the shards do not divide). The port's GRNState adds it_counter (the device copy of it, which
     the port keeps on the host)."""
     from nextgp_tpu.data import pedigree as j_ped
     from nextgp_tpu.grn import sampler as j_grn
@@ -132,7 +137,7 @@ def test_state_fields_match(name):
     tnames = [f.name for f in dataclasses.fields(getattr(tmod, name))]
     extra = {"ModelState": ["sweep_counter"], "GRNState": ["it_counter"],
              "RandomPlan": ["z_rows", "sire_kids", "dam_kids", "iv_len", "z_diag", "cg_layout"],
-             "CorrMarkerPlan": ["dosage_bytes", "region_rows", "region_len"]}
+             "CorrMarkerPlan": ["dosage_bytes", "region_rows", "region_len", "vshards_asked"]}
     assert tnames == jnames + extra.get(name, [])
     if name in ("RandomPlan", "CorrMarkerPlan"):
         jf = _fields(getattr(jmod, name))
@@ -156,27 +161,36 @@ PORT_ONLY = ("device", "stream", "streams")
 # parameters of the JAX package's that the port leaves out: `assemble`'s
 # use_pallas (its Pallas switch has no meaning on the card)
 JAX_ONLY = ("use_pallas",)
+# parameters the port renames: make_mesh lays out ranks, not devices
+RENAMED_PARAMS = {"devices": "ranks"}
 # the entry points that the packages' top levels do not export: their modules
 MODULES = {"build_lv_design": "api.formula", "from_device_array": "data.ingest",
-           "read_map_file": "data.ingest"}
+           "read_map_file": "data.ingest", "make_mesh": "parallel.sharded",
+           "distribute": "parallel.sharded", "make_sharded_sweep": "parallel.sharded",
+           "global_mesh": "parallel.multihost", "init_distributed": "parallel.multihost",
+           "chain_checksum": "parallel.multihost"}
 
 
 @pytest.mark.parametrize("name", ["run_lmem", "run_chains", "prep", "model_card", "summary_mcmc",
                                   "genomic_values", "predict", "assemble", "parse_formula",
                                   "build_lv_design", "from_array", "from_float_array",
                                   "from_device_array", "from_packed", "read_genotype_file",
-                                  "read_plink", "read_map_file", "est_grn"])
+                                  "read_plink", "read_map_file", "est_grn", "make_mesh",
+                                  "global_mesh", "init_distributed", "distribute",
+                                  "make_sharded_sweep", "chain_checksum"])
 def test_entry_point_signatures_match(name):
     """A script written for the JAX package calls the port's entry points
     with the same arguments: names, order and defaults equal, the port's
-    additions (PORT_ONLY) left out, and `assemble`'s use_pallas (JAX_ONLY)
-    dropped from the JAX side."""
+    additions (PORT_ONLY) left out, `assemble`'s use_pallas (JAX_ONLY)
+    dropped from the JAX side, and make_mesh's devices named ranks
+    (RENAMED_PARAMS). make_sharded_sweep's step takes a stream where the
+    JAX function's takes the chains' keys."""
     import importlib
     import inspect
 
     def params(fn, drop=()):
-        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()
-                if p.name not in drop]
+        return [(RENAMED_PARAMS.get(p.name, p.name), p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values() if p.name not in drop]
 
     if name in MODULES:
         jfn = getattr(importlib.import_module(f"nextgp_tpu.{MODULES[name]}"), name)
@@ -184,6 +198,28 @@ def test_entry_point_signatures_match(name):
     else:
         jfn, tfn = getattr(ng, name), getattr(ngt, name)
     assert params(tfn, PORT_ONLY) == params(jfn, JAX_ONLY)
+
+
+@pytest.mark.parametrize("model", ["BayesRCpi-D-V4", "corr-V2"])
+def test_chain_checksum_matches(model):
+    """chain_checksum of a JAX state carried across (state_from_numpy)
+    equals the JAX function's: the same leaves in the same order, the
+    port's sweep_counter left out (the storage's other layout sums the
+    same values in another order)."""
+    from nextgp_tpu.parallel import multihost as j_multihost
+    from nextgp_tpu_torch.parallel import multihost as t_multihost
+    from test_torch_corr import _marker_specs
+    from test_torch_sweep import _flatten
+    from test_torch_sweep import _specs as marker_specs
+
+    js, ts = marker_specs("BayesRCpi", True) if model.startswith("BayesRCpi") else _marker_specs(2)
+    V = int(model[-1])
+    jplan, jstate = ng.assemble(js, use_pallas=False, vshards=V)
+    tplan, _ = ngt.assemble(ts, device="cpu", vshards=V)
+    tstate = ngt.state_from_numpy(tplan, _flatten(jstate))
+    want = j_multihost.chain_checksum(jstate)
+    assert want > 0
+    assert abs(t_multihost.chain_checksum(tstate) - want) <= 1e-12 * want
 
 
 def test_chip_smoke_fails_without_gpu():

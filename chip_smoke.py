@@ -31,6 +31,7 @@ and check them.
                                  # with its own C interface), GRN1 and the replayed GRN
                                  # step also with DIR's GRN1, in turns P, C, C, P
     python3 chip_smoke.py shards # phases 1-2 and phase 13 alone
+    python3 chip_smoke.py f64    # phases 1-2 and phase 14 alone
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -253,6 +254,25 @@ Phases (any failed check raises and the script exits non-zero):
      covariance positive definite; ms/sweep of each arm and each rank, and
      each rank's psum route. NCCL with two or more ranks needs a card a
      rank, which one card cannot give
+ 14. float64 on the card through the float64 instances of K1, K2 and K3,
+     at bench.py:131-144's configuration (phase 4's panel, simulated again
+     and kept as int8 dosages on the card; BayesR with estimatePi, packed,
+     V=96), nothing cut: (a) K1, K2 (a V=96 step), K1', K2' (the whole
+     panel) and K3 at V=96 and V=1 against their plain versions (float64
+     too) within 1e-12 of scale, delta exact, twice the same bits, timed
+     beside their bounds (the vectors and the Gram in 8 bytes, operations
+     at 34 TFLOP/s); (b) 20 float64 sweeps of the kernel chain against the
+     float64 plain chain (the same sweep with K1, K2 and K3 swapped for
+     their plain versions on the card) on one KeyedStream, ycorr and beta
+     within 1e-9 of scale, delta identical, and 10 at V=1 on a 2,000 x
+     8,192 panel; (c) 100 float64 sweeps eager and through run_lmem's
+     replays with one KeyedStream: the same bits, drift < 1e-9 of max|y|,
+     EBV >= 0.95, ms/sweep, busy and idle share; (d) the float32 kernel
+     chain held to the float64 kernel chain by the packed rule after 3
+     sweeps; (e) float64 on int8 rows (pack2=False: K3 alone) held to the
+     packed float64 chain by the same rule; K2' on the float64 state; (f)
+     in turns f32 / f64 / f64 / f32, K1, K2 and K3 on the card alone on one
+     step, and the replayed sweep's ms, busy and idle share
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -433,14 +453,15 @@ TIMINGS = {}  # kernels-line name -> what `report` measured for it
 
 
 def report(name, err, scale, tol, ms_k, ms_p, work, note="", library_ms=None, phase="3 kernels",
-           dev_ms=None, library_dev_ms=None):
+           dev_ms=None, library_dev_ms=None, flops=F32_FLOP_PER_S):
     """Hold one kernel to its plain version and keep its numbers. work: (bytes
     moved with each input read and each output written once, operations) of
     one call, from its shapes. library_ms: the time of the one PyTorch call
     that computes the same function, where there is one (event pair), and
     library_dev_ms its time on the card alone. dev_ms: the kernel's time on
-    the card alone (device_ms), where it was taken."""
-    t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / F32_FLOP_PER_S
+    the card alone (device_ms), where it was taken. flops: the card's peak
+    rate for the operations' type (F64_FLOP_PER_S for a float64 instance)."""
+    t_bytes, t_ops = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / flops
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     lib = ("no single PyTorch call computes it" if library_ms is None
            else f"the one PyTorch call {library_ms:.4f} ms"
@@ -520,23 +541,26 @@ def simulate(n=N, p=P, chunk=8192):
 # ------------------------------------------------------------------ phase 3
 
 
-def pass_work(rows, q):
+def pass_work(rows, q, itemsize=4):
     """K1/K2 on a (rows, q) packed step: the packed bytes, the vector of 4q
-    floats and the rows floats (one read, one written); a multiply and an
-    add per genotype."""
-    return rows * q + 16 * q + 4 * rows, 2 * rows * 4 * q
+    elements and the rows elements (one read, one written; itemsize bytes
+    each: 8 for the float64 instances); a multiply and an add per
+    genotype."""
+    return rows * q + itemsize * (4 * q + rows), 2 * rows * 4 * q
 
 
-def scan_work(V, B, width, grams, out_words, rule_ops, diag=False):
-    """A V-batched scan over `grams` (B, V, B) float32 Gram steps and the
-    (V, B, width) coefficient rows, out_words 4-byte outputs per locus
-    written. u starts at 0 and u[j] is set only once locus j has run, so the
-    dot of locus j needs G[j, :j] alone: B(B-1)/2 Gram words per chain and
-    Gram, a multiply and an add for each, plus the B diagonal words where
-    the rule reads G[j, j] (diag: K14), and rule_ops per locus."""
+def scan_work(V, B, width, grams, out_words, rule_ops, diag=False, itemsize=4):
+    """A V-batched scan over `grams` (B, V, B) Gram steps and the (V, B,
+    width) coefficient rows, out_words outputs per locus written, in words
+    of itemsize bytes (4; 8 for K3's float64 instance, whose int32 delta is
+    half a word). u starts at 0 and u[j] is set only once locus j has run,
+    so the dot of locus j needs G[j, :j] alone: B(B-1)/2 Gram words per
+    chain and Gram, a multiply and an add for each, plus the B diagonal
+    words where the rule reads G[j, j] (diag: K14), and rule_ops per
+    locus."""
     tri = B * (B - 1) // 2
     words = grams * tri + (B if diag else 0) + B * (width + out_words)
-    return 4 * V * words, V * (grams * 2 * tri + B * rule_ops)
+    return int(itemsize * V * words), V * (grams * 2 * tri + B * rule_ops)
 
 
 def locus_pre(gram_t, pk_t, u, slot):
@@ -601,11 +625,11 @@ class Step0:
 
 
 def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, library=None,
-              card_alone=True, phase="3 kernels"):
+              card_alone=True, phase="3 kernels", tol=TOL_SCAN, flops=F32_FLOP_PER_S):
     """Redraw the uniforms of loci near a decision edge until none is, then
     hold the kernel against its plain version: two runs give the same bits,
     delta exact (where the scan draws one; the Gaussian scan has none, and
-    no edge), u and beta within TOL_SCAN of their scale. library(pk_t), where
+    no edge), u and beta within tol (TOL_SCAN) of their scale. library(pk_t), where
     given, sets up the one PyTorch call that computes the scan's u (outside
     the timed window) and returns it as a function; its u is held to the
     plain version's at TOL_SCAN and it is timed beside the kernel. card_alone
@@ -628,7 +652,7 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, l
         check(torch.equal(got[2], ref[2]), f"{name}: delta differs from the plain version")
         drawn = f"; delta exact, counts {torch.bincount(got[2].reshape(-1)).tolist()}"
     e_u, s_u = rel_err(got[1], ref[1])
-    check(e_u <= TOL_SCAN * s_u, f"{name}: u differs by {e_u:.3e} (scale {s_u:.3e})")
+    check(e_u <= tol * s_u, f"{name}: u differs by {e_u:.3e} (scale {s_u:.3e})")
     e_b, s_b = rel_err(got[0], ref[0])
     lib_ms = lib_dev = None
     if library is not None:
@@ -637,10 +661,10 @@ def held_scan(name, kern, plain, make_rows, unif, gen, step, near, work, note, l
         check(e_l <= TOL_SCAN * s_u, f"{name}: the library call's u differs by {e_l:.3e}")
         lib_ms, lib_dev = median_ms(solve, 20), device_ms(solve, 20, records_per_launch=0)
         note += f"; library u max_abs_err {e_l:.3e}, its system built outside the timed window"
-    report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20), median_ms(lambda: plain(pk_t), 3),
+    report(name, e_b, s_b, tol, median_ms(lambda: kern(pk_t), 20), median_ms(lambda: plain(pk_t), 3),
            work, f" (beta; u max_abs_err {e_u:.3e} of scale {s_u:.3e}; {note}{drawn})",
            library_ms=lib_ms, dev_ms=device_ms(lambda: kern(pk_t), 20) if card_alone else None,
-           library_dev_ms=lib_dev, phase=phase)
+           library_dev_ms=lib_dev, phase=phase, flops=flops)
 
 
 def wide_passes():
@@ -1790,8 +1814,9 @@ def steady_ms(step, n):
     return a.elapsed_time(b) / n
 
 
-def fit_checks(tag, plan, st, draws, sig, ebv_limit=None, phase="7"):
-    """Drift of ycorr from y - Xb - Mc beta, finite draws, and the EBV
+def fit_checks(tag, plan, st, draws, sig, ebv_limit=None, phase="7", drift_limit=1e-2):
+    """Drift of ycorr from y - Xb - Mc beta (below drift_limit of max|y|:
+    1e-2 in float32, 1e-9 in float64), finite draws, and the EBV
     correlation of the posterior mean of beta with the planted signal."""
     bad = [k for k, a in draws.items() if not torch.isfinite(a.double()).all().item()]
     check(not bad, f"{tag}: kept draws of {bad} are not finite")
@@ -1801,13 +1826,15 @@ def fit_checks(tag, plan, st, draws, sig, ebv_limit=None, phase="7"):
     ebv, tru = mean[:2048] - mean[:2048].mean(), sig[:2048].to(mean.dtype) - sig[:2048].mean()
     corr = (torch.dot(ebv, tru) / (ebv.norm() * tru.norm())).item()
     limit = "printed only" if ebv_limit is None else f"limit {ebv_limit}"
-    print(f"[{phase} {tag}] ycorr drift {drift:.3e} of max|y| (limit 1e-2); EBV corr {corr:.4f} ({limit})")
-    check(drift < 1e-2, f"{tag}: ycorr drifted from y - Xb - Mc beta")
+    print(f"[{phase} {tag}] ycorr drift {drift:.3e} of max|y| (limit {drift_limit:g}); EBV corr "
+          f"{corr:.4f} ({limit})")
+    check(drift < drift_limit, f"{tag}: ycorr drifted from y - Xb - Mc beta")
     check(ebv_limit is None or corr >= ebv_limit, f"{tag}: EBV correlation below {ebv_limit}")
     return dict(drift=drift, ebv_corr=corr)
 
 
-def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag="", n_window=50):
+def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag="", n_window=50,
+               dtype=None, phase="7", drift_limit=1e-2):
     """One path eagerly and replayed with the same KeyedStream from the same
     state: the eager chain a loop of make_sweep (launches counted by the
     wrappers), the replayed chain run_lmem with the KeyedStream (burn-in and
@@ -1815,10 +1842,13 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     the final ycorr must be the same bits. Then each arm's steady ms/sweep
     (events around n_window sweeps), the replays' device busy per sweep and
     kernels per sweep from a profiled window, and the device's idle share
-    without the profiler: 1 - busy / (event ms per sweep)."""
+    without the profiler: 1 - busy / (event ms per sweep). dtype: the
+    engine's (float32 unless given; float64 counts the kernels' float64
+    instances)."""
     name = f"{path}{tag} V={V}"
     n_keep = (n_chain - n_burn) // n_thin
-    plan, st0 = ngt.assemble(spec, vshards=V)
+    plan, st0 = ngt.assemble(spec, vshards=V, dtype=dtype)
+    f64 = "_f64" if plan.dtype == torch.float64 else ""
     stream = keyed.KeyedStream(7, DEV, plan.dtype)
     sweep = ngt.make_sweep(plan)
     _cuda.reset_launches()
@@ -1838,8 +1868,8 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     _, _, scan, gathers = PATHS[path]
     T = plan.markers[0].n_blocks // V
     expect = {k: 0 for k in eager_launches}
-    expect.update({"pack2_matvec": gathers * n_chain * T, "pack2_rank_update": n_chain * T,
-                   scan: n_chain * T, "keyed_rng": eager_launches["keyed_rng"]})
+    expect.update({"pack2_matvec" + f64: gathers * n_chain * T, "pack2_rank_update" + f64: n_chain * T,
+                   scan + f64: n_chain * T, "keyed_rng": eager_launches["keyed_rng"]})
     check(eager_launches == expect and eager_launches["keyed_rng"] % n_chain == 0
           and eager_launches["keyed_rng"] > 0, f"{name}: eager launches {eager_launches}")
 
@@ -1847,7 +1877,7 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, out_folder=None, vshards=V,
-                       stream=stream)
+                       stream=stream, dtype=dtype)
     b.record()
     b.synchronize()
     captured = {k: v for k, v in _cuda.LAUNCHES.items() if v}
@@ -1858,8 +1888,8 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     check(res.state.sweep_index == st.sweep_index == n_chain and int(res.state.sweep_counter) == n_chain,
           f"{name}: sweep index {res.state.sweep_index}, counter {int(res.state.sweep_counter)}")
     fit = fit_checks(name, res.plan, res.state, {k: torch.from_numpy(v) for k, v in res.draws.items()},
-                     sig, ebv_limit)
-    print(f"[7 {name}] {n_chain} sweeps ({n_burn} burn-in, thin {n_thin}), the same KeyedStream: "
+                     sig, ebv_limit, phase=phase, drift_limit=drift_limit)
+    print(f"[{phase} {name}] {n_chain} sweeps ({n_burn} burn-in, thin {n_thin}), the same KeyedStream: "
           f"kept draws and final ycorr bit-identical eager and replayed; eager {n_chain / eager_s:.2f} "
           f"sweeps/s (host clock), replayed run_lmem {res.sweeps_per_sec:.2f} sweeps/s (host clock; "
           f"CUDA events around it {replay_ms:.3f} ms, capture of two graphs and one warm-up sweep in it)")
@@ -1877,13 +1907,13 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     r1 = [k for k in by_name if "keyed_rng" in k]
     r1_ms = sum(ms_by[k] for k in r1)
     eager_per_sweep = {k: v / n_chain for k, v in eager_launches.items() if v}
-    print(f"[7 {name}] steady, {n_window} sweeps between CUDA events: eager {ms_eager:.4f} ms/sweep "
+    print(f"[{phase} {name}] steady, {n_window} sweeps between CUDA events: eager {ms_eager:.4f} ms/sweep "
           f"({1e3 / ms_eager:.2f} sweeps/s), replayed {ms_replay:.4f} ms/sweep ({1e3 / ms_replay:.2f} "
           f"sweeps/s); 10 replays under the profiler: device busy {busy:.4f} ms/sweep, {per_sweep} "
           f"kernels and copies per sweep ({missed} records missed); idle share without the profiler "
           f"{idle:.4f}; R1 (keyed_rng) {sum(by_name[k] for k in r1)} launches, {r1_ms:.4f} ms "
           "of the replayed sweep's device time")
-    print(f"[7 {name}] launches per sweep: eager by the wrappers {eager_per_sweep}; replayed, counted "
+    print(f"[{phase} {name}] launches per sweep: eager by the wrappers {eager_per_sweep}; replayed, counted "
           f"by the wrappers at capture (one warm-up sweep and two captured sweeps) {captured}")
     for key, cnt in sorted(by_name.items(), key=lambda r: -r[1])[:6]:
         print(f"  replayed x{cnt:<4} {key[:90]}")
@@ -3822,13 +3852,13 @@ def storage_path(tag, spec, sig, pack, scan, n_gathers, n_window=20):
                           replay_peak_gib=replay_peak / 2**30, **fit), early, (rplan, rst, beta)
 
 
-def packed_rule(tag, a, b):
+def packed_rule(tag, a, b, phase="11"):
     """bench.py:338-359's rule for two chains of one stream: corr of beta
     and of ycorr > 0.999 and max |dycorr| / max |ycorr| < 0.05."""
     (ba, ya), (bb, yb) = a, b
     cb, cy = corr(ba, bb), corr(ya, yb)
     dy = ((ya - yb).abs().max() / yb.abs().max()).item()
-    print(f"[11 {tag}] after {ST_PACKED_RULE} sweeps of one KeyedStream: corr(beta) {cb:.6f}, "
+    print(f"[{phase} {tag}] after {ST_PACKED_RULE} sweeps of one KeyedStream: corr(beta) {cb:.6f}, "
           f"corr(ycorr) {cy:.6f}, max|dycorr|/scale {dy:.3e} (the packed rule: > 0.999, > 0.999, < 0.05)")
     check(cb > 0.999 and cy > 0.999 and dy < 0.05, f"{tag}: the chains part by the packed rule")
     return dict(corr_beta=cb, corr_ycorr=cy, dycorr=dy)
@@ -5097,6 +5127,269 @@ def shards_phase(card):
     return out, counted
 
 
+# ------------------------------------------------------------------ phase 14
+
+TOL_F64 = 1e-12  # K1, K2, K3 float64 against their plain versions (float64 too), of the output's scale
+TOL_F64_CHAIN = 1e-9  # 14b: the float64 kernel chain against the float64 plain chain, of scale
+F64_SWEEPS = 20  # 14b: sweeps of both chains at V=96
+F64_SMALL = dict(n=2_000, p=8_192, sweeps=10)  # 14b at V=1: a smaller panel, the plain scan's loop
+F64_RULE = 3  # 14d, 14e: sweeps held by the packed rule
+
+
+def f64_passes(st):
+    """14a: K1, K2, K1' and K2' float64 on the BayesR model's panel (a V=96
+    step, t = 1, and the whole panel), each twice the same bits."""
+    ms = st.markers[0]
+    T, V, B, q = ms.mt.shape
+    rows = V * B
+    mt_rows = ms.mt.view(-1, q)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    y4 = pack2.y_planar(Step0(st).y)
+    u = torch.randn(rows, generator=g, dtype=torch.float64, device=DEV) * 0.01
+    u_all = torch.randn(T * rows, generator=g, dtype=torch.float64, device=DEV) * 0.01
+    sl = mt_rows[rows:2 * rows]
+    for name, kern, plain, n_rows in (
+            ("pack2_matvec_f64", lambda: pack2.matvec_step(mt_rows, 1, y4, rows),
+             lambda: pack2.matvec_plain(sl, y4), rows),
+            ("pack2_rank_update_f64", lambda: pack2.rank_update_step(mt_rows, 1, u),
+             lambda: pack2.rank_update_plain(sl, u), rows),
+            ("pack2_matvec_panel_f64", lambda: pack2.matvec(mt_rows, y4),
+             lambda: pack2.matvec_plain(mt_rows, y4), T * rows),
+            ("pack2_rank_update_panel_f64", lambda: pack2.rank_update(mt_rows, u_all),
+             lambda: pack2.rank_update_plain(mt_rows, u_all), T * rows)):
+        got = kern()
+        check(got.dtype == torch.float64 and torch.equal(got, kern()), f"{name}: two runs differ")
+        DIGESTS[name] = dict(outputs=digest(got))
+        e, s = rel_err(got, plain())
+        report(name, e, s, TOL_F64, median_ms(kern, 20), median_ms(plain, 5), pass_work(n_rows, q, 8),
+               f" ({n_rows} x {q}, float64)", dev_ms=device_ms(kern, 20), phase="14 f64",
+               flops=F64_FLOP_PER_S)
+
+
+def f64_scan_rows(st, seed=2):
+    """A first sweep's BayesR coefficient rows at step 0 of st's marker set
+    (Step0), their uniforms and generator: (step, make_rows, unif, gen, K)."""
+    ms, dt = st.markers[0], st.ycorr.dtype
+    step = Step0(st)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    var_e = st.ycorr.var()
+    p_pad = ms.beta.shape[0]
+    unif = torch.rand(p_pad, generator=gen, dtype=dt, device=DEV)
+    z = torch.randn(p_pad, generator=gen, dtype=dt, device=DEV)
+    flat = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
+                mask=ms.mask.reshape(-1))
+
+    def make_rows(un):
+        return step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=ms.var_beta[0] * ms.v_class,
+                                                    logpi=ms.log_pi, ive=1.0 / var_e, var_e=var_e))
+    return step, make_rows, unif, gen, ms.v_class.numel()
+
+
+def f64_kernels(spec):
+    """14a: the float64 instances of K1, K2 (and K1', K2') and K3 against
+    their plain versions at the main path's shapes, K3 at V=96 and at V=1
+    (K4), within TOL_F64 of scale, delta exact, twice the same bits, timed
+    beside their bounds (the same bytes with the vectors and the Gram in 8
+    bytes, the operations at the float64 rate)."""
+    for V, tag in ((V_MAIN, ""), (1, "_v1")):
+        plan, st = ngt.assemble(spec, vshards=V, dtype=torch.float64)
+        ms = st.markers[0]
+        T, _, B, q = ms.mt.shape
+        check(st.ycorr.dtype == ms.gram.dtype == torch.float64 and ms.mt.dtype == torch.uint8,
+              "14a: the float64 model is not float64 on packed rows")
+        if V == V_MAIN:
+            f64_passes(st)
+        step, make_rows, unif, gen, K = f64_scan_rows(st)
+        gram0 = ms.gram[0]
+        held_scan(f"r_block_scan_v{tag}_f64", lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, K),
+                  lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, K), make_rows, unif, gen, step,
+                  lambda pk_t, uu: cdf_near(gram0, pk_t, uu, K),
+                  scan_work(V, B, 8 + 4 * K, 1, 2.5, 10 * K, itemsize=8), f"V={V}, B={B}, K={K}, float64",
+                  phase="14 f64", tol=TOL_F64, flops=F64_FLOP_PER_S)
+        del plan, st, step
+
+
+def instance_turns(spec):
+    """14f: K1, K2 and K3 on the card alone on one V=96 step of the main
+    path, the float32 instance (P) and the float64 one (C) in turns P, C, C,
+    P (device_ms, 20 calls a window). Returns {kernel: [P, C, C, P]}."""
+    arms = {}
+    for dt in (torch.float32, torch.float64):
+        _, st = ngt.assemble(spec, vshards=V_MAIN, dtype=dt)
+        ms = st.markers[0]
+        T, V, B, q = ms.mt.shape
+        rows, mt_rows = V * B, ms.mt.view(-1, q)
+        y4 = pack2.y_planar(Step0(st).y)
+        u = torch.randn(rows, generator=torch.Generator(device=DEV).manual_seed(1), dtype=dt,
+                        device=DEV) * 0.01
+        _, make_rows, unif, _, K = f64_scan_rows(st)
+        pk_t = make_rows(unif)
+        arms[dt] = {"K1": lambda m=mt_rows, y=y4, r=rows: pack2.matvec_step(m, 1, y, r),
+                    "K2": lambda m=mt_rows, uu=u: pack2.rank_update_step(m, 1, uu),
+                    "K3": lambda ms=ms, p=pk_t, k=K: gibbs_kernels.r_block_scan_v((ms.gram, 0), p, k)}
+    out = {}
+    for name in ("K1", "K2", "K3"):
+        out[name] = [device_ms(arms[dt][name], 20)
+                     for dt in (torch.float32, torch.float64, torch.float64, torch.float32)]
+        shown = ", ".join("not measured" if t is None else f"{t:.4f}" for t in out[name])
+        print(f"[14 f64] {name} on the card alone, turns f32 / f64 / f64 / f32 (ms): {shown}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_bayesr_kernels():
+    """The sweep's K1, K2 and K3 calls (engine/samplers/markers.py calls them
+    through these module attributes) go to their plain versions on the
+    card's tensors: the plain chain of the same stream."""
+    saved = pack2.matvec_step, pack2.rank_update_step, gibbs_kernels.r_block_scan_v
+    pack2.matvec_step = lambda pk_all, t, y4, rows: pack2.matvec_plain(pk_all[t * rows:(t + 1) * rows], y4)
+    pack2.rank_update_step = lambda pk_all, t, u: pack2.rank_update_plain(
+        pk_all[t * u.shape[0]:(t + 1) * u.shape[0]], u)
+    gibbs_kernels.r_block_scan_v = lambda gram_t, pk, K: gibbs_kernels.r_block_scan_v_plain(
+        gram_t[0][gram_t[1]], pk, K)
+    try:
+        yield
+    finally:
+        pack2.matvec_step, pack2.rank_update_step, gibbs_kernels.r_block_scan_v = saved
+
+
+def f64_sweeps(spec, V, n, stream_seed=5, dtype=torch.float64, pack=None):
+    """n eager sweeps of the model from a fresh assemble with one
+    KeyedStream; returns (plan, state, launches counted from 0)."""
+    plan, st = ngt.assemble(spec, vshards=V, dtype=dtype, pack2=pack)
+    stream = keyed.KeyedStream(stream_seed, DEV, dtype)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    for _ in range(n):
+        st = sweep(st, stream)
+    torch.cuda.synchronize()
+    return plan, st, dict(_cuda.LAUNCHES)
+
+
+def f64_chain_vs_plain(spec, V, n, tag):
+    """14b: n float64 sweeps of the kernel chain against the float64 plain
+    chain (plain_bayesr_kernels) on one KeyedStream: delta the same, beta
+    and ycorr within TOL_F64_CHAIN of scale; the kernel chain launches K1,
+    K2 and K3 as float64 alone, the plain chain none of them."""
+    plan, st, counted = f64_sweeps(spec, V, n)
+    T = plan.markers[0].n_blocks // V
+    path = {"pack2_matvec_f64": n * T, "pack2_rank_update_f64": n * T, "r_block_scan_v_f64": n * T}
+    f32 = ("pack2_matvec", "pack2_rank_update", "r_block_scan_v")
+    check(all(counted[k] == c for k, c in path.items()) and not any(counted[k] for k in f32),
+          f"{tag}: kernel chain launches {counted}")
+    t0 = time.perf_counter()
+    with plain_bayesr_kernels():
+        _, sp, plain_counted = f64_sweeps(spec, V, n)
+    plain_s = time.perf_counter() - t0
+    check(not any(plain_counted[k] for k in (*path, *f32)), f"{tag}: the plain chain launched {plain_counted}")
+    mk, mp_ = st.markers[0], sp.markers[0]
+    e_b, s_b = rel_err(mk.beta, mp_.beta)
+    e_y, s_y = rel_err(st.ycorr, sp.ycorr)
+    same = torch.equal(mk.delta, mp_.delta)
+    print(f"[14 {tag}] {n} float64 sweeps of one KeyedStream, kernel chain against plain chain: beta "
+          f"{e_b:.3e} of scale {s_b:.3e}, ycorr {e_y:.3e} of scale {s_y:.3e} (limit {TOL_F64_CHAIN:g} x "
+          f"scale), delta {'identical' if same else 'DIFFERS'} ({int((mk.delta > 0).sum())} loci in a "
+          f"non-null class); the plain chain took {plain_s:.1f} s; kernel launches {path}")
+    check(same, f"{tag}: delta differs between the float64 kernel and plain chains")
+    check(e_b <= TOL_F64_CHAIN * s_b and e_y <= TOL_F64_CHAIN * s_y,
+          f"{tag}: the float64 kernel chain departs from the float64 plain chain")
+    return counted, dict(beta_err=e_b, beta_scale=s_b, ycorr_err=e_y, ycorr_scale=s_y, plain_s=plain_s)
+
+
+def replay_turns(spec):
+    """14f: the replayed BayesR sweep (KeyedStream, V=96) in float32 (P) and
+    float64 (C) in turns P, C, C, P: ms/sweep (CUDA events around
+    F64_TURN_WINDOW replays), device busy from 10 profiled replays, and the
+    idle share 1 - busy / ms."""
+    reps = {}
+    for dt in (torch.float32, torch.float64):
+        plan, st = ngt.assemble(spec, vshards=V_MAIN, dtype=dt)
+        reps[dt] = engine_sweep.ReplayedSweep(plan, st, keyed.KeyedStream(7, DEV, dt))
+    out = []
+    for dt in (torch.float32, torch.float64, torch.float64, torch.float32):
+        ms = steady_ms(lambda r=reps[dt]: r.run(1), 50)
+        busy, nodes, missed, _, _ = replay_window(reps[dt], 10)
+        out.append(dict(dtype=str(dt).removeprefix("torch."), ms_per_sweep=ms, busy_ms=busy, nodes=nodes,
+                        missed=missed, idle_share=1.0 - busy / ms))
+    print("[14 f64] replayed BayesR V=96, turns f32 / f64 / f64 / f32: ms/sweep "
+          + " / ".join(f"{r['ms_per_sweep']:.4f}" for r in out) + "; busy ms "
+          + " / ".join(f"{r['busy_ms']:.4f}" for r in out) + "; idle share "
+          + " / ".join(f"{r['idle_share']:.4f}" for r in out) + "; nodes "
+          + " / ".join(str(r["nodes"]) for r in out))
+    del reps
+    return out
+
+
+def bayesr_spec(geno, y):
+    """BayesR (estimatePi) over dosages on the card (from_device_array:
+    packed by assemble, or int8 rows under pack2=False), as phase 4's."""
+    return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(geno.shape[0]))],
+                         markers=[ngt.MarkerTerm("M1", ngt.from_device_array(geno), ngt.BayesR(**PRIOR_R))],
+                         block_size=BLOCK)
+
+
+def f64_phase():
+    """14: float64 on the card through K1, K2 and K3's float64 instances, at
+    bench.py:131-144's configuration (10,000 x 49,152, packed, V=96,
+    estimatePi; phase 4's simulated panel, kept as int8 dosages on the card
+    so that the same data also runs on int8 rows), nothing cut: (a) the
+    kernels against their plain versions;
+    (b) 20 float64 sweeps of the kernel chain against the float64 plain
+    chain on one KeyedStream, and 10 at V=1 on a 2,000 x 8,192 panel; (c)
+    100 float64 sweeps through run_lmem, eager and replayed with the same
+    bits, drift < 1e-9 of max|y|, EBV >= 0.95; (d) the float32 kernel chain
+    held to the float64 one by the packed rule after 3 sweeps; (e) float64
+    on int8 rows (pack2=False) held to the packed float64 chain by the same
+    rule; (f) in turns f32 / f64 / f64 / f32, K1, K2 and K3 on the card alone
+    and the replayed sweep. Returns (numbers, launches by run)."""
+    t0 = time.perf_counter()
+    out, counted = {}, {}
+    geno, _, y, sig, _ = simulate_panel()
+    spec = bayesr_spec(geno, y)
+    f64_kernels(spec)
+    counted["f64 V=96"], out["14b V=96"] = f64_chain_vs_plain(spec, V_MAIN, F64_SWEEPS, f"f64 V={V_MAIN}")
+    small, _, y_small, _, _ = simulate_panel(F64_SMALL["n"], F64_SMALL["p"])
+    counted["f64 V=1"], out["14b V=1"] = f64_chain_vs_plain(
+        bayesr_spec(small, y_small), 1, F64_SMALL["sweeps"], f"f64 V=1 {F64_SMALL['n']:,} x {F64_SMALL['p']:,}")
+    del small
+    rec = graph_path("BayesR", spec, sig, V_MAIN, N_CHAIN, N_BURN, N_THIN, EBV_LIMITS[("BayesR", V_MAIN)],
+                     tag=" f64", dtype=torch.float64, phase="14", drift_limit=1e-9)
+    counted[f"f64 keyed V={V_MAIN}"] = rec.pop("eager_launches")
+    out["14c"] = rec
+    plan64, st64, _ = f64_sweeps(spec, V_MAIN, F64_RULE)
+    _, st32, _ = f64_sweeps(spec, V_MAIN, F64_RULE, dtype=torch.float32)
+    out["14d"] = packed_rule("float32 / float64 kernel chains", (st32.markers[0].beta, st32.ycorr),
+                             (st64.markers[0].beta, st64.ycorr), phase="14")
+    _, st8, counted["f64 int8"] = f64_sweeps(spec, V_MAIN, F64_RULE, pack=False)
+    check(st8.markers[0].mt.dtype == torch.int8 and counted["f64 int8"]["r_block_scan_v_f64"] > 0
+          and not counted["f64 int8"]["pack2_matvec_f64"], f"14e: int8 launches {counted['f64 int8']}")
+    out["14e"] = packed_rule("float64 int8 / packed chains", (st8.markers[0].beta, st8.ycorr),
+                             (st64.markers[0].beta, st64.ycorr), phase="14")
+    e_y, s_y = rel_err(st8.ycorr, st64.ycorr)
+    print(f"[14 f64 int8 / packed] ycorr {e_y:.3e} of scale {s_y:.3e} apart after {F64_RULE} sweeps")
+    _cuda.reset_launches()
+    gv = ngt.genomic_values_state(plan64, st64)
+    torch.cuda.synchronize()
+    counted["f64 serving"] = dict(_cuda.LAUNCHES)
+    check(gv.dtype == torch.float64 and counted["f64 serving"]["pack2_rank_update_f64"] == 1,
+          f"14: serving in float64 launches {counted['f64 serving']}")
+    del plan64, st64, st32, st8, gv
+    out["14f kernels"] = instance_turns(spec)
+    out["14f replayed"] = replay_turns(spec)
+    del geno, spec
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[14 f64] phase 14 in {out['seconds']:.1f} s")
+    return out, counted
+
+
+def f64_only(card):
+    """`python3 chip_smoke.py f64`: phase 14 alone. One JSON line of its
+    numbers, the kernels' times and launch counts, and no result line."""
+    out, counted = f64_phase()
+    print(json.dumps({"card": card, "f64": out, "launches": counted,
+                      "timings": {k: v for k, v in TIMINGS.items() if k.endswith("_f64")}}))
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
@@ -5113,6 +5406,7 @@ GRN_RUNS = ("GRN f32 eager", "GRN f32 replayed", "GRN f32 eager wide", "GRN f32 
 SHARD_MESH = tuple(f"shards 2x2 rank{r}" for r in range(4)) + tuple(f"shards run_chains rank{r}" for r in range(4))
 SHARD_CORR = ("shards corr rank0", "shards corr rank1")
 SHARD_RUNS = ("shards NCCL 1x1",) + SHARD_MESH
+F64_PATH_RUNS = ("f64 V=96", "f64 V=1", f"f64 keyed V={V_MAIN}")  # phase 14's runs on packed rows
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
@@ -5168,6 +5462,16 @@ SOURCES = {
                   (f"MultiBreed V={V_MAIN}", "MultiBreed V=1", "storage MultiBreed float V=1") + SHARD_CORR),
     "cg_solve": (CU + "cg_solve.cu", "nextgp_tpu/ops/cg.py:49", "cg_solve", ("A-cg", "runtime A-cg")),
     "grn_scan": (CU + "grn_scan.cu", "nextgp_tpu/grn/sampler.py:183", "grn_scan", GRN_RUNS),
+    # the float64 instances (phase 14); K1' in float64 runs on no path, so it is timed in
+    # phase 14 and left out of this line
+    "pack2_matvec_f64": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec_f64", F64_PATH_RUNS),
+    "pack2_rank_update_f64": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update_f64",
+                              F64_PATH_RUNS),
+    "pack2_rank_update_panel_f64": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update_f64",
+                                    ("f64 serving",)),
+    "r_block_scan_v_f64": (CU + "r_scan.cu", GK + "518", "r_block_scan_v_f64",
+                           ("f64 V=96", f"f64 keyed V={V_MAIN}", "f64 int8")),
+    "r_block_scan_v_v1_f64": (CU + "r_scan.cu", GK + "265", "r_block_scan_v_f64", ("f64 V=1",)),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of "
@@ -5195,6 +5499,14 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
                      "phase 12's output); launches from phase 12's eager runs (one an iteration) and, "
                      "counted at capture, its replayed runs and est_grn",
          "corr_block_scan_v_v1": "CM1 at V = 1, as corr_block_scan_v",
+         "pack2_matvec_f64": "K1's float64 instance (ngt_pack2_matvec_f64); launches from phase 14's "
+                             "float64 runs",
+         "pack2_rank_update_f64": "K2's float64 instance (ngt_pack2_rank_update_f64); launches from "
+                                  "phase 14's float64 runs",
+         "pack2_rank_update_panel_f64": "K2' in float64: genomic_values_state on a float64 state",
+         "r_block_scan_v_f64": "K3's float64 instance (ngt_r_block_scan_v_f64); launches from phase 14's "
+                               "float64 runs, the replayed one counted at capture",
+         "r_block_scan_v_v1_f64": "K4 in float64: K3's float64 instance at V = 1",
          "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
                       "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
                       "sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:877-878, "
@@ -5307,6 +5619,8 @@ def main(argv=()):
         return cg_only(card, *argv[1:])
     if list(argv) == ["storage"]:
         return storage_only(card)
+    if list(argv) == ["f64"]:
+        return f64_only(card)
     if list(argv[:1]) == ["grn"] and len(argv) <= 2:
         return grn_only(card, *argv[1:])
     spec_for, sig = simulate()
@@ -5326,7 +5640,7 @@ def main(argv=()):
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
                     "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
-                    "storage, grn [DIR] or shards")
+                    "storage, grn [DIR], shards or f64")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -5367,6 +5681,9 @@ def main(argv=()):
     shards_out, by_run = shards_phase(card)
     counted.update(by_run)
     print(f"[13 shards] {json.dumps(shards_out)}")
+    f64_out, by_run = f64_phase()
+    counted.update(by_run)
+    print(f"[14 f64] {json.dumps(f64_out)}")
     kernels = []
     for name, (src, rep, counter, runs) in SOURCES.items():
         by_path = {run: counted[run][counter] for run in runs if counted[run][counter]}

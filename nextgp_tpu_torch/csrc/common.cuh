@@ -14,6 +14,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ double warp_sum(double x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// a * b + c rounded once, in the operands' type.
+__device__ __forceinline__ float mad(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double mad(double a, double b, double c) { return fma(a, b, c); }
+
 // Exact float of a small unsigned integer (v < 2^23) without the
 // integer-to-float conversion unit: OR it into the mantissa of 2^23 and
 // subtract 2^23. Two full-rate ALU ops instead of one quarter-rate I2F.

@@ -50,6 +50,16 @@
 //   ticket. So there is one launch, and the result depends on the shape
 //   alone.
 //
+// Float64 (the `_f64` entry points): the same bodies on double y, u and
+// outputs, every product and sum taken in double; the panel stays 2-bit, so
+// both read the same packed bytes and twice the vector bytes. A dosage is
+// one LOP3 and one DFMA (`field64`: the field in the low word of 2^52), its
+// product a second DFMA. The H100 issues a DFMA at half the FFMA's rate, so
+// each pass runs up to about twice its float32 time. K1's float64 instance
+// keeps two blocks an SM (a lane's y quads take twice the registers); K2's
+// lane owns 8 bytes of a 256-byte tile, so its 32 double sums take the
+// registers and shared memory the float instance's 64 take.
+//
 // The bodies live in pack2_body.cuh, which the ladder's fused step
 // (micro.cu) runs too.
 #include "pack2_body.cuh"
@@ -58,22 +68,46 @@ namespace {
 
 using namespace ngt::packed;
 
-__global__ void __launch_bounds__(kGatherThreads, 3)
-matvec_kernel(const uint8_t* __restrict__ pk, const float* __restrict__ y4,
-              float* __restrict__ out, long long rows, int q, uint32_t magic) {
+template <typename T, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kGatherThreads, MIN_BLOCKS)
+matvec_kernel(const uint8_t* __restrict__ pk, const T* __restrict__ y4, T* __restrict__ out,
+              long long rows, int q, uint32_t magic) {
   const long long wpb = blockDim.x >> 5;
   gather_groups(pk, y4, out, rows, q, magic,
                 ((long long)blockIdx.x * wpb + (threadIdx.x >> 5)) * kGatherRows,
                 (long long)gridDim.x * wpb * kGatherRows);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kRankThreads, 2)
-rank_kernel(const uint8_t* __restrict__ pk, const float* __restrict__ u,
-            float* __restrict__ partial, float* __restrict__ out, int* __restrict__ tickets,
-            long long rows, int q, long long rows_per_slice, uint32_t magic) {
-  __shared__ RankShared sh;
+rank_kernel(const uint8_t* __restrict__ pk, const T* __restrict__ u, T* __restrict__ partial,
+            T* __restrict__ out, int* __restrict__ tickets, long long rows, int q,
+            long long rows_per_slice, uint32_t magic) {
+  __shared__ RankSharedOf<T> sh;
   rank_block(pk, u, partial, out, tickets, rows, q, rows_per_slice, magic, blockIdx.x, blockIdx.y,
              gridDim.y, sh);
+}
+
+template <typename T, int MIN_BLOCKS>
+int matvec(const void* pk, const void* y4, void* out, long long rows, long long q, long long blocks,
+           void* stream, uint32_t magic) {
+  static int resident[kMaxDevices];  // one per instance
+  const int err = gather_grid(matvec_kernel<T, MIN_BLOCKS>, resident, rows, blocks);
+  if (err != 0) return err;
+  matvec_kernel<T, MIN_BLOCKS><<<(unsigned)blocks, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)pk, (const T*)y4, (T*)out, rows, (int)q, magic);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int rank_update(const void* pk, const void* u, void* partial, void* out, void* tickets,
+                long long rows, long long q, long long slices, void* stream, uint32_t magic) {
+  constexpr int tile = RankLane<T>::kTile;
+  const dim3 grid((unsigned)((q + tile - 1) / tile), (unsigned)slices);
+  rank_kernel<T><<<grid, kRankThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)pk, (const T*)u, (T*)partial, (T*)out, (int*)tickets, rows, (int)q,
+      (rows + slices - 1) / slices, magic);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -87,12 +121,13 @@ const char* ngt_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // blocks as are resident at once (at most one warp per row group).
 int ngt_pack2_matvec(const void* pk, const void* y4, void* out, long long rows, long long q,
                      long long blocks, void* stream) {
-  static int resident[kMaxDevices];
-  const int err = gather_grid(matvec_kernel, resident, rows, blocks);
-  if (err != 0) return err;
-  matvec_kernel<<<(unsigned)blocks, kGatherThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)pk, (const float*)y4, (float*)out, rows, (int)q, kMagic);
-  return (int)cudaGetLastError();
+  return matvec<float, 3>(pk, y4, out, rows, q, blocks, stream, kMagic);
+}
+
+// The same with y4 and out f64.
+int ngt_pack2_matvec_f64(const void* pk, const void* y4, void* out, long long rows, long long q,
+                         long long blocks, void* stream) {
+  return matvec<double, 2>(pk, y4, out, rows, q, blocks, stream, kMagic64);
 }
 
 // pk: (rows, q) uint8, u: (rows,) f32, out: (4, q) f32; q a multiple of 16,
@@ -101,11 +136,14 @@ int ngt_pack2_matvec(const void* pk, const void* y4, void* out, long long rows, 
 // are 0 (each launch leaves them 0); else both may be null.
 int ngt_pack2_rank_update(const void* pk, const void* u, void* partial, void* out, void* tickets,
                           long long rows, long long q, long long slices, void* stream) {
-  const dim3 grid((unsigned)((q + kRankTile - 1) / kRankTile), (unsigned)slices);
-  rank_kernel<<<grid, kRankThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)pk, (const float*)u, (float*)partial, (float*)out, (int*)tickets, rows,
-      (int)q, (rows + slices - 1) / slices, kMagic);
-  return (int)cudaGetLastError();
+  return rank_update<float>(pk, u, partial, out, tickets, rows, q, slices, stream, kMagic);
+}
+
+// The same with u, partial and out f64 and ceil(q / 256) tickets.
+int ngt_pack2_rank_update_f64(const void* pk, const void* u, void* partial, void* out,
+                              void* tickets, long long rows, long long q, long long slices,
+                              void* stream) {
+  return rank_update<double>(pk, u, partial, out, tickets, rows, q, slices, stream, kMagic64);
 }
 
 }  // extern "C"

@@ -37,6 +37,11 @@
 // a draw can differ only where a uniform lies within rounding of a CDF edge.
 // Coefficients are staged per group or per locus, so no chain's rows need fit
 // shared memory, and K has no cap.
+//
+// Float64 (`ngt_r_block_scan_v_f64`): the same rules and skeleton on double
+// Grams, rows and outputs (fma, fmax, exp; no fast math). The Gram's bytes
+// double, the tiles take twice the shared memory at the same 33-element
+// stride, and a thread's 32 prefetched Gram words take 64 registers.
 #include <math.h>
 
 #include "scan_skeleton.cuh"
@@ -47,39 +52,49 @@ using ngt::scan::kFull;
 
 constexpr int kLaneMaxK = 8;  // the largest K whose rule runs in one lane's registers
 
+using ngt::mad;
+__device__ __forceinline__ float maxof(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double maxof(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float expof(float x) { return expf(x); }
+__device__ __forceinline__ double expof(double x) { return exp(x); }
+
+// T: float or double, the type of the Gram, the rows and the outputs.
+template <typename T>
 struct RParams {
-  const float* pk;  // (V, B, 8 + 4K)
-  float* beta;      // (V, B)
-  float* u;         // (V, B)
-  int* delta;       // (V, B)
+  const T* pk;  // (V, B, 8 + 4K)
+  T* beta;      // (V, B)
+  T* u;         // (V, B)
+  int* delta;   // (V, B)
   int K;
   bool wide;  // pk is 16-byte aligned
 };
 
 // What every form shares: the thread's own slot 0, its outputs, the writes.
+template <typename T>
 struct RBase {
   static constexpr int kGrams = 1;
-  using Params = RParams;
+  using Real = T;
+  using Params = RParams<T>;
 
   Params p;
-  const float* pkv;
-  float* sm;
+  const T* pkv;
+  T* sm;
   int v, B, W;
-  float s0;
-  float beta = 0.f, uo = 0.f;
+  T s0;
+  T beta = T(0), uo = T(0);
   int delta = 0;
 
-  __device__ __forceinline__ RBase(const Params& prm, float* smem, int v_, int B_, int i)
+  __device__ __forceinline__ RBase(const Params& prm, T* smem, int v_, int B_, int i)
       : p(prm), sm(smem), v(v_), B(B_) {
     W = 8 + 4 * p.K;
     pkv = p.pk + (size_t)v * B * W;
-    s0 = i < B ? __ldg(pkv + (size_t)i * W) : 0.f;
+    s0 = i < B ? __ldg(pkv + (size_t)i * W) : T(0);
   }
 
-  __device__ __forceinline__ float start(int) const { return s0; }
-  __device__ __forceinline__ float u() const { return uo; }
+  __device__ __forceinline__ T start(int) const { return s0; }
+  __device__ __forceinline__ T u() const { return uo; }
 
-  __device__ __forceinline__ void keep(int lane, int jj, float bnew, float uj, int dj) {
+  __device__ __forceinline__ void keep(int lane, int jj, T bnew, T uj, int dj) {
     if (lane == jj) {
       beta = bnew;
       uo = uj;
@@ -97,9 +112,16 @@ struct RBase {
 
 // The rule in every lane's registers, KC = K classes; the group's rows in
 // one of two slots of 32 rows.
-template <int KC>
-struct RLane : RBase {
-  using RBase::RBase;
+template <typename T, int KC>
+struct RLane : RBase<T> {
+  using Base = RBase<T>;
+  using Base::Base;
+  using Base::B;
+  using Base::keep;
+  using Base::p;
+  using Base::pkv;
+  using Base::sm;
+  using Base::W;
   int slot = 0;  // of the group that runs
 
   __device__ __forceinline__ void stage(int slot, int j0, int lane) {
@@ -109,52 +131,59 @@ struct RLane : RBase {
 
   __device__ __forceinline__ void begin_group(int slot_, int, int, int) { slot = slot_; }
 
-  __device__ __forceinline__ float locus(int, int jj, const float (&pre_g)[1], float, int lane) {
-    const float* s = sm + (slot * 32 + jj) * W;
-    const float pre = pre_g[0];
-    const float pre2 = pre * pre;
-    float t[KC], e[KC];
+  __device__ __forceinline__ T locus(int, int jj, const T (&pre_g)[1], T, int lane) {
+    const T* s = sm + (slot * 32 + jj) * W;
+    const T pre = pre_g[0];
+    const T pre2 = pre * pre;
+    T t[KC], e[KC];
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
-      e[k] = fmaf(s[8 + KC + k], pre2, s[8 + k]);
+      e[k] = mad(s[8 + KC + k], pre2, s[8 + k]);
       t[k] = e[k];
     }
 #pragma unroll
     for (int step = 1; step < KC; step *= 2) {
 #pragma unroll
-      for (int k = 0; k + step < KC; k += 2 * step) t[k] = fmaxf(t[k], t[k + step]);
+      for (int k = 0; k + step < KC; k += 2 * step) t[k] = maxof(t[k], t[k + step]);
     }
-    const float m = t[0];
-    float cum[KC];
+    const T m = t[0];
+    T cum[KC];
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
-      const float x = expf(e[k] - m);
+      const T x = expof(e[k] - m);
       if (k == 0) {
         cum[0] = x;
       } else {
         cum[k] = cum[k - 1] + x;
       }
     }
-    const float thr = s[2] * cum[KC - 1];
+    const T thr = s[2] * cum[KC - 1];
     int cls = KC - 1;
-    float bnew = fmaf(s[8 + 2 * KC + KC - 1], pre, s[8 + 3 * KC + KC - 1]);
+    T bnew = mad(s[8 + 2 * KC + KC - 1], pre, s[8 + 3 * KC + KC - 1]);
 #pragma unroll
     for (int k = KC - 2; k >= 0; --k) {
       if (!(cum[k] < thr)) {
         cls = k;
-        bnew = fmaf(s[8 + 2 * KC + k], pre, s[8 + 3 * KC + k]);
+        bnew = mad(s[8 + 2 * KC + k], pre, s[8 + 3 * KC + k]);
       }
     }
-    const float uj = s[1] - bnew;
-    keep(lane, jj, bnew, uj, s[3] != 0.f ? cls + 1 : 0);
+    const T uj = s[1] - bnew;
+    keep(lane, jj, bnew, uj, s[3] != T(0) ? cls + 1 : 0);
     return uj;
   }
 };
 
 // The rule on lane 0 (K > kLaneMaxK), one row at a time through two slots,
 // K words of scratch after them.
-struct RSerial : RBase {
-  using RBase::RBase;
+template <typename T>
+struct RSerial : RBase<T> {
+  using Base = RBase<T>;
+  using Base::Base;
+  using Base::keep;
+  using Base::p;
+  using Base::pkv;
+  using Base::sm;
+  using Base::W;
   int nj = 0;
 
   __device__ __forceinline__ void stage(int, int, int) {}
@@ -162,49 +191,49 @@ struct RSerial : RBase {
   __device__ __forceinline__ void begin_group(int, int j0, int nj_, int lane) {
     nj = nj_;
     for (int idx = lane; idx < W; idx += 32)
-      __pipeline_memcpy_async(sm + idx, pkv + (size_t)j0 * W + idx, 4);
+      __pipeline_memcpy_async(sm + idx, pkv + (size_t)j0 * W + idx, sizeof(T));
     __pipeline_commit();
   }
 
-  __device__ __forceinline__ float locus(int j0, int jj, const float (&pre_g)[1], float, int lane) {
+  __device__ __forceinline__ T locus(int j0, int jj, const T (&pre_g)[1], T, int lane) {
     const int K = p.K;
     // row j has arrived; row j + 1 goes into the other slot meanwhile
     __pipeline_wait_prior(0);
     __syncwarp();
-    const float* s = sm + (jj & 1) * W;
+    const T* s = sm + (jj & 1) * W;
     if (jj + 1 < nj) {
-      float* dst = sm + ((jj + 1) & 1) * W;
+      T* dst = sm + ((jj + 1) & 1) * W;
       for (int idx = lane; idx < W; idx += 32)
-        __pipeline_memcpy_async(dst + idx, pkv + (size_t)(j0 + jj + 1) * W + idx, 4);
+        __pipeline_memcpy_async(dst + idx, pkv + (size_t)(j0 + jj + 1) * W + idx, sizeof(T));
     }
     __pipeline_commit();
-    float bnew = 0.f, uj = 0.f;
+    T bnew = T(0), uj = T(0);
     int dj = 0;
     if (lane == 0) {
-      float* e = sm + 2 * W;
-      const float pre = pre_g[0];
-      const float pre2 = pre * pre;
-      float m = -INFINITY;
+      T* e = sm + 2 * W;
+      const T pre = pre_g[0];
+      const T pre2 = pre * pre;
+      T m = T(-INFINITY);
       for (int k = 0; k < K; ++k) {
-        e[k] = fmaf(s[8 + K + k], pre2, s[8 + k]);
-        m = fmaxf(m, e[k]);
+        e[k] = mad(s[8 + K + k], pre2, s[8 + k]);
+        m = maxof(m, e[k]);
       }
-      float tot = 0.f;
+      T tot = T(0);
       for (int k = 0; k < K; ++k) {
-        e[k] = expf(e[k] - m);
+        e[k] = expof(e[k] - m);
         tot += e[k];
       }
-      const float thr = s[2] * tot;
+      const T thr = s[2] * tot;
       int cls = 0;
-      float cum = 0.f;
+      T cum = T(0);
       for (int k = 0; k < K; ++k) {
         cum += e[k];
         cls += (cum < thr) ? 1 : 0;
       }
       cls = min(cls, K - 1);
-      bnew = fmaf(s[8 + 2 * K + cls], pre, s[8 + 3 * K + cls]);
+      bnew = mad(s[8 + 2 * K + cls], pre, s[8 + 3 * K + cls]);
       uj = s[1] - bnew;
-      dj = s[3] != 0.f ? cls + 1 : 0;
+      dj = s[3] != T(0) ? cls + 1 : 0;
     }
     bnew = __shfl_sync(kFull, bnew, 0);
     uj = __shfl_sync(kFull, uj, 0);
@@ -215,9 +244,29 @@ struct RSerial : RBase {
 };
 
 template <class Rule>
-int launch(const void* gram, const RParams& prm, long long V, long long B, size_t rule_words,
-           void* stream) {
+int launch(const void* gram, const typename Rule::Params& prm, long long V, long long B,
+           size_t rule_words, void* stream) {
   return ngt::scan::launch<Rule>(gram, nullptr, prm, V, B, rule_words, stream);
+}
+
+template <typename T>
+int r_scan(const void* gram, const void* pk, void* beta, void* u, void* delta, long long V,
+           long long B, long long K, void* stream) {
+  const RParams<T> prm{(const T*)pk, (T*)beta, (T*)u, (int*)delta, (int)K,
+                       (reinterpret_cast<uintptr_t>(pk) & 15) == 0};
+  const long long W = 8 + 4 * K;
+  const size_t staged = (size_t)(2 * 32 * W);
+  switch (K <= kLaneMaxK ? K : 0) {
+    case 1: return launch<RLane<T, 1>>(gram, prm, V, B, staged, stream);
+    case 2: return launch<RLane<T, 2>>(gram, prm, V, B, staged, stream);
+    case 3: return launch<RLane<T, 3>>(gram, prm, V, B, staged, stream);
+    case 4: return launch<RLane<T, 4>>(gram, prm, V, B, staged, stream);
+    case 5: return launch<RLane<T, 5>>(gram, prm, V, B, staged, stream);
+    case 6: return launch<RLane<T, 6>>(gram, prm, V, B, staged, stream);
+    case 7: return launch<RLane<T, 7>>(gram, prm, V, B, staged, stream);
+    case 8: return launch<RLane<T, 8>>(gram, prm, V, B, staged, stream);
+    default: return launch<RSerial<T>>(gram, prm, V, B, (size_t)(2 * W + K), stream);
+  }
 }
 
 }  // namespace
@@ -229,21 +278,13 @@ extern "C" {
 // gibbs_kernels.r_scan_smem_bytes states the shared memory each form takes.
 int ngt_r_block_scan_v(const void* gram, const void* pk, void* beta, void* u, void* delta,
                        long long V, long long B, long long K, void* stream) {
-  const RParams prm{(const float*)pk, (float*)beta, (float*)u, (int*)delta, (int)K,
-                   (reinterpret_cast<uintptr_t>(pk) & 15) == 0};
-  const long long W = 8 + 4 * K;
-  const size_t staged = (size_t)(2 * 32 * W);
-  switch (K <= kLaneMaxK ? K : 0) {
-    case 1: return launch<RLane<1>>(gram, prm, V, B, staged, stream);
-    case 2: return launch<RLane<2>>(gram, prm, V, B, staged, stream);
-    case 3: return launch<RLane<3>>(gram, prm, V, B, staged, stream);
-    case 4: return launch<RLane<4>>(gram, prm, V, B, staged, stream);
-    case 5: return launch<RLane<5>>(gram, prm, V, B, staged, stream);
-    case 6: return launch<RLane<6>>(gram, prm, V, B, staged, stream);
-    case 7: return launch<RLane<7>>(gram, prm, V, B, staged, stream);
-    case 8: return launch<RLane<8>>(gram, prm, V, B, staged, stream);
-    default: return launch<RSerial>(gram, prm, V, B, (size_t)(2 * W + K), stream);
-  }
+  return r_scan<float>(gram, pk, beta, u, delta, V, B, K, stream);
+}
+
+// The same with gram, pk, beta and u f64.
+int ngt_r_block_scan_v_f64(const void* gram, const void* pk, void* beta, void* u, void* delta,
+                           long long V, long long B, long long K, void* stream) {
+  return r_scan<double>(gram, pk, beta, u, delta, V, B, K, stream);
 }
 
 }  // extern "C"

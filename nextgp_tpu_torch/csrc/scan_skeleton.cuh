@@ -61,10 +61,17 @@
 //                               steps its reads on to the next locus
 //   u()                         the thread's own u
 //   finish(i)                   writes the thread's outputs (i < B)
-// and its shared memory follows the skeleton's (skeleton_words).
+// and its shared memory follows the skeleton's (skeleton_words). A rule may
+// name its element type `Real` (K3 has a float and a double instance); the
+// Grams, the sums, the u's and the tiles are then in that type, else in
+// float. Double tiles keep the 33-element rows: a warp's 8-byte shared loads
+// are served a half-warp at a time, whose 16 lanes at a stride of 33 doubles
+// fall on 16 distinct bank pairs.
 #pragma once
 
 #include <cuda_pipeline.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -72,66 +79,103 @@ namespace ngt {
 namespace scan {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 32 * 33;  // a 32 x 32 Gram tile, rows padded to 33 words
+constexpr int kTile = 32 * 33;  // a 32 x 32 Gram tile, rows padded to 33 elements
 
-// The skeleton's shared memory in words: the chain's u's (one per thread) and
-// two rotating slots of `grams` diagonal tiles. The rule's words follow.
+// A rule's element type: its `Real`, or float.
+template <class Rule, class = void>
+struct RealOf {
+  using type = float;
+};
+template <class Rule>
+struct RealOf<Rule, std::void_t<typename Rule::Real>> {
+  using type = typename Rule::Real;
+};
+
+// The skeleton's shared memory in elements: the chain's u's (one per thread)
+// and two rotating slots of `grams` diagonal tiles. The rule's elements follow.
 inline size_t skeleton_words(int threads, int grams) {
   return (size_t)threads + 2 * (size_t)grams * kTile;
 }
 
-// Copy `words` consecutive floats (a multiple of 4) from device memory into
-// shared memory with cp.async, 16 bytes a copy where both are 16-byte
-// aligned (wide). The caller commits and waits.
-__device__ __forceinline__ void stage_words(float* dst, const float* src, int words, bool wide,
-                                            int lane) {
+// Copy `words` consecutive elements (a multiple of 16 bytes) from device
+// memory into shared memory with cp.async, 16 bytes a copy where both are
+// 16-byte aligned (wide). The caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage_words(T* dst, const T* src, int words, bool wide, int lane) {
+  constexpr int per = 16 / (int)sizeof(T);  // elements a 16-byte copy
   if (wide) {
-    for (int idx = 4 * lane; idx < words; idx += 128) __pipeline_memcpy_async(dst + idx, src + idx, 16);
+    for (int idx = per * lane; idx < words; idx += 32 * per)
+      __pipeline_memcpy_async(dst + idx, src + idx, 16);
   } else {
-    for (int idx = lane; idx < words; idx += 32) __pipeline_memcpy_async(dst + idx, src + idx, 4);
+    for (int idx = lane; idx < words; idx += 32)
+      __pipeline_memcpy_async(dst + idx, src + idx, sizeof(T));
   }
 }
 
 // The diagonal tiles of the group j0 .. j0 + 31: tile_g[r * 33 + c] =
 // G_g[j0 + r, v, j0 + c], 0 past B. Lane c copies column c, so each row is
 // one coalesced read.
-template <int G>
-__device__ __forceinline__ void stage_tiles(float* tiles, const float* const (&gv)[G],
-                                            size_t jstride, int j0, int B, int lane) {
+template <int G, typename T>
+__device__ __forceinline__ void stage_tiles(T* tiles, const T* const (&gv)[G], size_t jstride,
+                                            int j0, int B, int lane) {
   const int col = j0 + lane;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll 8
     for (int r = 0; r < 32; ++r) {
-      float* d = tiles + g * kTile + r * 33 + lane;
+      T* d = tiles + g * kTile + r * 33 + lane;
       if (j0 + r < B && col < B) {
-        __pipeline_memcpy_async(d, gv[g] + (size_t)(j0 + r) * jstride + col, 4);
+        __pipeline_memcpy_async(d, gv[g] + (size_t)(j0 + r) * jstride + col, sizeof(T));
       } else {
-        *d = 0.f;
+        *d = T(0);
       }
     }
   }
 }
 
+// A thread's 32 Gram words of a group, from a 16-byte aligned row: eight
+// 16-byte loads in float, sixteen in double.
+__device__ __forceinline__ void load_row(float (&gp)[32], const float* row) {
+  const float4* src = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 q = __ldg(src + c);
+    gp[4 * c] = q.x;
+    gp[4 * c + 1] = q.y;
+    gp[4 * c + 2] = q.z;
+    gp[4 * c + 3] = q.w;
+  }
+}
+
+__device__ __forceinline__ void load_row(double (&gp)[32], const double* row) {
+  const double2* src = reinterpret_cast<const double2*>(row);
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const double2 q = __ldg(src + c);
+    gp[2 * c] = q.x;
+    gp[2 * c + 1] = q.y;
+  }
+}
+
 // The loci j0 .. j0 + nj - 1 on the calling warp; acc holds each lane's
 // right-looking sums.
-template <class Rule, int G>
-__device__ __forceinline__ void run_group(Rule& rule, const float* tiles, int slot, int j0, int nj,
-                                          int lane, float (&acc)[G]) {
+template <class Rule, int G, typename T>
+__device__ __forceinline__ void run_group(Rule& rule, const T* tiles, int slot, int j0, int nj,
+                                          int lane, T (&acc)[G]) {
   rule.begin_group(slot, j0, nj, lane);
-  const float* col = tiles + lane * 33;  // col[g * kTile] = G_g[j0 + lane, v, j0 + jj]
-  const float* dg = tiles;               // *dg = G_0[j0 + jj, v, j0 + jj]
+  const T* col = tiles + lane * 33;  // col[g * kTile] = G_g[j0 + lane, v, j0 + jj]
+  const T* dg = tiles;               // *dg = G_0[j0 + jj, v, j0 + jj]
   for (int jj = 0; jj < nj; ++jj) {
-    float gcol[G], pre[G];
+    T gcol[G], pre[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       gcol[g] = col[g * kTile];
       pre[g] = __shfl_sync(kFull, acc[g], jj);
     }
-    const float gjj = *dg;
-    const float uj = rule.locus(j0, jj, pre, gjj, lane);
+    const T gjj = *dg;
+    const T uj = rule.locus(j0, jj, pre, gjj, lane);
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = fmaf(gcol[g], uj, acc[g]);
+    for (int g = 0; g < G; ++g) acc[g] = mad(gcol[g], uj, acc[g]);
     ++col;
     dg += 34;
   }
@@ -140,26 +184,27 @@ __device__ __forceinline__ void run_group(Rule& rule, const float* tiles, int sl
 // One thread per locus of the block. MAXT bounds the block: at 1024 threads a
 // thread has 64 registers and part of the prefetched panel spills; blocks of
 // up to 256 loci take the instance that leaves the compiler free.
-template <class Rule, int MAXT>
+template <class Rule, int MAXT, typename T = typename RealOf<Rule>::type>
 __global__ void __launch_bounds__(MAXT, 1)
-    scan_v_kernel(const float* __restrict__ g0, const float* __restrict__ g1,
+    scan_v_kernel(const T* __restrict__ g0, const T* __restrict__ g1,
                   const typename Rule::Params prm, int V, int B, size_t jstride) {
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* sm = reinterpret_cast<T*>(smem_bytes);
   constexpr int G = Rule::kGrams;
   const int v = blockIdx.x;
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
   const int nwarps = blockDim.x >> 5;
-  float* us = sm;                   // blockDim.x: the chain's u_v
-  float* tiles = us + blockDim.x;   // two slots of G diagonal tiles
-  float* rsm = tiles + 2 * G * kTile;  // the rule's
-  const float* gv[G];
+  T* us = sm;                   // blockDim.x: the chain's u_v
+  T* tiles = us + blockDim.x;   // two slots of G diagonal tiles
+  T* rsm = tiles + 2 * G * kTile;  // the rule's
+  const T* gv[G];
   gv[0] = g0 + (size_t)v * B;
   if constexpr (G == 2) gv[1] = g1 + (size_t)v * B;
 
   Rule rule(prm, rsm, v, B, i);
-  float acc[G];
+  T acc[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = rule.start(g);
   if (warp == 0) {
@@ -171,11 +216,12 @@ __global__ void __launch_bounds__(MAXT, 1)
   __syncwarp();
 
   // rows are 16-byte aligned
-  bool wide = (B & 3) == 0 && (jstride & 3) == 0;
+  constexpr int per = 16 / (int)sizeof(T);  // elements a 16-byte load
+  bool wide = B % per == 0 && jstride % per == 0;
 #pragma unroll
   for (int g = 0; g < G; ++g) wide = wide && (reinterpret_cast<uintptr_t>(gv[g]) & 15) == 0;
   for (int w = 0; w < nwarps; ++w) {
-    float gp[G][32];  // G_g[i, v, 32 w .. 32 w + 31], for the threads after group w
+    T gp[G][32];  // G_g[i, v, 32 w .. 32 w + 31], for the threads after group w
     if (warp == w) {
       const int j0 = 32 * w;
       run_group<Rule, G>(rule, tiles + (w & 1) * G * kTile, w & 1, j0, min(32, B - j0), lane, acc);
@@ -188,17 +234,9 @@ __global__ void __launch_bounds__(MAXT, 1)
     if (warp > w && i < B) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float* row = gv[g] + (size_t)i * jstride + 32 * w;  // this thread's Gram row
+        const T* row = gv[g] + (size_t)i * jstride + 32 * w;  // this thread's Gram row
         if (wide) {
-          const float4* src = reinterpret_cast<const float4*>(row);
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const float4 q = __ldg(src + c);
-            gp[g][4 * c] = q.x;
-            gp[g][4 * c + 1] = q.y;
-            gp[g][4 * c + 2] = q.z;
-            gp[g][4 * c + 3] = q.w;
-          }
+          load_row(gp[g], row);
         } else {
 #pragma unroll
           for (int c = 0; c < 32; ++c) gp[g][c] = __ldg(row + c);
@@ -212,15 +250,15 @@ __global__ void __launch_bounds__(MAXT, 1)
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
-        for (int c = 0; c < 32; ++c) acc[g] = fmaf(gp[g][c], us[32 * w + c], acc[g]);
+        for (int c = 0; c < 32; ++c) acc[g] = mad(gp[g][c], us[32 * w + c], acc[g]);
       }
     }
   }
   if (i < B) rule.finish(i);
 }
 
-template <class Rule, int MAXT>
-int launch_as(const float* g0, const float* g1, const typename Rule::Params& prm, int V, int B,
+template <class Rule, int MAXT, typename T = typename RealOf<Rule>::type>
+int launch_as(const T* g0, const T* g1, const typename Rule::Params& prm, int V, int B,
               size_t jstride, int threads, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -238,13 +276,14 @@ int launch_as(const float* g0, const float* g1, const typename Rule::Params& prm
 template <class Rule>
 int launch(const void* g0, const void* g1, const typename Rule::Params& prm, long long V,
            long long B, size_t rule_words, void* stream) {
+  using T = typename RealOf<Rule>::type;
   const int threads = (int)((B + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (skeleton_words(threads, Rule::kGrams) + rule_words);
+  const size_t smem = sizeof(T) * (skeleton_words(threads, Rule::kGrams) + rule_words);
   const size_t jstride = (size_t)(V * B);
   return threads <= 256
-             ? launch_as<Rule, 256>((const float*)g0, (const float*)g1, prm, (int)V, (int)B, jstride,
+             ? launch_as<Rule, 256>((const T*)g0, (const T*)g1, prm, (int)V, (int)B, jstride,
                                     threads, smem, (cudaStream_t)stream)
-             : launch_as<Rule, 1024>((const float*)g0, (const float*)g1, prm, (int)V, (int)B, jstride,
+             : launch_as<Rule, 1024>((const T*)g0, (const T*)g1, prm, (int)V, (int)B, jstride,
                                      threads, smem, (cudaStream_t)stream);
 }
 

@@ -10,6 +10,7 @@ a failed build or a failed launch raises.
 
 `LAUNCHES` counts kernel launches per kernel; each wrapper adds one where
 it launches, so a run can show which kernels its path went through. A
+kernel's float64 instance has a counter of its own (`<name>_f64`). A
 launch captured in a CUDA graph counts once, at capture: the graph's
 replays run on the card without the wrappers.
 """
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
+            "pack2_matvec_f64": 0, "pack2_rank_update_f64": 0, "r_block_scan_v_f64": 0,
             "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
@@ -109,6 +111,9 @@ def lib() -> ctypes.CDLL:
         L.ngt_pack2_matvec.argtypes = [P, P, P, I, I, I, S]
         L.ngt_pack2_rank_update.argtypes = [P, P, P, P, P, I, I, I, S]
         L.ngt_r_block_scan_v.argtypes = [P, P, P, P, P, I, I, I, S]
+        L.ngt_pack2_matvec_f64.argtypes = L.ngt_pack2_matvec.argtypes
+        L.ngt_pack2_rank_update_f64.argtypes = L.ngt_pack2_rank_update.argtypes
+        L.ngt_r_block_scan_v_f64.argtypes = L.ngt_r_block_scan_v.argtypes
         L.ngt_gauss_block_scan_v.argtypes = [P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_v.argtypes = [P, P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_wv.argtypes = [P, P, P, P, P, P, I, I, S]
@@ -133,6 +138,7 @@ def lib() -> ctypes.CDLL:
         bind_cg(L)
         bind_grn(L)
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
+                   L.ngt_pack2_matvec_f64, L.ngt_pack2_rank_update_f64, L.ngt_r_block_scan_v_f64,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,

@@ -361,29 +361,37 @@ def rcplus_block_scan_v_plain(gram, pk, n_annot, n_classes):
     return beta, u, delta, cls_out, bs_out, nz_out
 
 
-def _launch(name, entry, grams, pk, width, more_outs, *extra):
+def _launch(name, entry, grams, pk, width, more_outs, *extra, entry_f64=None):
     """Launch one V-batched scan kernel. grams: the step-indexed
     ((T, B, V, B), t) pairs the kernel reads. more_outs: (trailing shape,
-    dtype) of each output after beta and u (V, B), all (V, B, ...).
-    Returns (beta, u, *more)."""
+    dtype) of each output after beta and u (V, B), all (V, B, ...); a
+    float32 there is the scan's own type. entry_f64: the kernel's float64
+    instance, where it has one (float64 gram and pk, counted as
+    `<name>_f64`); a scan without one takes float32 alone. Returns (beta,
+    u, *more)."""
     tensors = [g for g, _ in grams] + [pk]
     _cuda.require(all(x.is_cuda and x.device == pk.device for x in tensors),
                   f"{name}: gram and pk must be on one CUDA device")
-    _cuda.require(all(x.dtype == torch.float32 for x in tensors),
-                  f"{name}: gram and pk must be float32")
+    f64 = entry_f64 is not None and all(x.dtype == torch.float64 for x in tensors)
+    _cuda.require(f64 or all(x.dtype == torch.float32 for x in tensors),
+                  f"{name}: gram and pk must be float32"
+                  + (", or both float64" if entry_f64 is not None else
+                     " (no float64 instance of this kernel yet)"))
     _cuda.require(all(x.is_contiguous() for x in tensors), f"{name}: gram and pk must be contiguous")
     T, B, V, B2 = grams[0][0].shape
     _cuda.require(B == B2 and all(g.shape == (T, B, V, B) and 0 <= t < T for g, t in grams),
                   f"{name}: gram must be (T, B, V, B) and 0 <= t < T")
     _cuda.require(pk.shape == (V, B, width), f"{name}: pk must be ({V}, {B}, {width})")
     _cuda.require(B <= 1024, f"{name}: needs B <= 1024")
-    outs = [torch.empty((V, B) + tuple(tail), dtype=dtype, device=pk.device)
+    real = pk.dtype
+    outs = [torch.empty((V, B) + tuple(tail), dtype=real if dtype == torch.float32 else dtype,
+                        device=pk.device)
             for tail, dtype in [((), torch.float32)] * 2 + list(more_outs)]
-    ptrs = [g.data_ptr() + t * B * V * B * 4 for g, t in grams]
-    err = entry(_cuda.lib())(*ptrs, pk.data_ptr(), *(o.data_ptr() for o in outs), V, B, *extra,
-                             _cuda.stream_of(pk))
+    ptrs = [g.data_ptr() + t * B * V * B * pk.element_size() for g, t in grams]
+    err = (entry_f64 if f64 else entry)(_cuda.lib())(
+        *ptrs, pk.data_ptr(), *(o.data_ptr() for o in outs), V, B, *extra, _cuda.stream_of(pk))
     _cuda.check(err, f"gibbs_kernels.{name}")
-    _cuda.LAUNCHES[name] += 1
+    _cuda.LAUNCHES[name + "_f64" if f64 else name] += 1
     return tuple(outs)
 
 
@@ -402,22 +410,23 @@ _DELTA = [((), torch.int32)]  # the one extra output of K3, K8 and K10
 
 def _skeleton_words(B, grams):
     """Shared memory of the scans' skeleton (`csrc/scan_skeleton.cuh`) in
-    4-byte words: the chain's u's, one per thread of the block, and two
-    rotating slots of `grams` diagonal 32 x 33 Gram tiles."""
+    elements of the scan's type: the chain's u's, one per thread of the
+    block, and two rotating slots of `grams` diagonal 32 x 33 Gram tiles."""
     return 32 * -(-B // 32) + 2 * grams * 32 * 33
 
 
 R_LANE_MAX_K = 8  # csrc/r_scan.cu's kLaneMaxK: the largest K whose rule runs in one lane
 
 
-def r_scan_smem_bytes(B, K):
+def r_scan_smem_bytes(B, K, itemsize=4):
     """Shared memory one block of K3 needs, as `csrc/r_scan.cu` lays it
     out after the skeleton's: for the rule in one lane's registers
     (K <= R_LANE_MAX_K) two groups' whole coefficient rows (2 x 32 rows of
-    8 + 4K floats), above that two rows and K words of the serial rule's
-    scratch."""
+    8 + 4K elements), above that two rows and K elements of the serial
+    rule's scratch. itemsize: 4 for the float32 instance, 8 for float64,
+    whose every element (the skeleton's too) takes 8 bytes."""
     W = 8 + 4 * K
-    return 4 * (_skeleton_words(B, 1) + (2 * 32 * W if K <= R_LANE_MAX_K else 2 * W + K))
+    return itemsize * (_skeleton_words(B, 1) + (2 * 32 * W if K <= R_LANE_MAX_K else 2 * W + K))
 
 
 def r_block_scan_v(gram_t, pk, n_classes):
@@ -425,15 +434,16 @@ def r_block_scan_v(gram_t, pk, n_classes):
     block or the step-indexed pair ((T, B, V, B), t); pk (V, B, 8 + 4K).
     Returns beta (V, B), u (V, B), delta (V, B) int32. The kernel stages
     each group's coefficients as it goes, so no chain's rows need fit shared
-    memory and K has no cap; sums and comparisons as in rcpi_block_scan_v."""
+    memory and K has no cap; sums and comparisons as in rcpi_block_scan_v.
+    It has a float32 and a float64 instance (gram and pk in one of them)."""
     K = n_classes
     if pk.is_cuda:
         _cuda.require(K >= 1, "r_block_scan_v: needs K >= 1")
         B = pk.shape[1]
-        _cuda.require(r_scan_smem_bytes(B, K) <= SMEM_BYTES,
+        _cuda.require(r_scan_smem_bytes(B, K, pk.element_size()) <= SMEM_BYTES,
                       f"r_block_scan_v: B={B}, K={K}: two coefficient rows exceed shared memory")
         return _launch("r_block_scan_v", lambda L: L.ngt_r_block_scan_v, [_step(gram_t, True)],
-                       pk, 8 + 4 * K, _DELTA, K)
+                       pk, 8 + 4 * K, _DELTA, K, entry_f64=lambda L: L.ngt_r_block_scan_v_f64)
     return r_block_scan_v_plain(_step(gram_t, False), pk, K)
 
 

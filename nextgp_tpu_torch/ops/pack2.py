@@ -15,7 +15,8 @@ Two passes per marker block carry the sweep's device-memory traffic:
   scatter dy[n]    = sum_r u[r] * unpack(pk)[r, n]      (`rank_update*`, K2)
 
 Each has a plain PyTorch version (`*_plain`) and a CUDA kernel
-(csrc/pack2.cu). The tensor's device decides: CPU tensors take the plain
+(csrc/pack2.cu) with a float32 and a float64 instance, chosen by the
+vector's dtype. The tensor's device decides: CPU tensors take the plain
 version, CUDA tensors the kernel (which raises on what it does not take).
 """
 from __future__ import annotations
@@ -101,14 +102,16 @@ def rank_update_plain(pk: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ kernel wrappers
 
+_F64 = {torch.float32: False, torch.float64: True}  # the kernels' vector types: is it float64
+
 
 def _check_panel(pk, vec, name):
     _cuda.require(pk.is_cuda and vec.device == pk.device,
                   f"{name}: panel and vector must be on one CUDA device")
     _cuda.require(pk.dtype == torch.uint8 and pk.dim() == 2 and pk.is_contiguous(),
                   f"{name}: panel must be a contiguous (rows, q) uint8 tensor")
-    _cuda.require(vec.dtype == torch.float32 and vec.is_contiguous(),
-                  f"{name}: vector must be contiguous float32, got {vec.dtype}")
+    _cuda.require(vec.dtype in _F64 and vec.is_contiguous(),
+                  f"{name}: vector must be contiguous float32 or float64, got {vec.dtype}")
     _cuda.require(pk.shape[1] % 16 == 0 and pk.data_ptr() % 16 == 0,
                   f"{name}: q must be a multiple of 16 and the panel 16-byte aligned")
 
@@ -122,15 +125,18 @@ def _matvec_kernel(pk_all, row0, rows, y4, blocks=0):
                   "pack2.matvec: step rows out of range")
     _cuda.require(isinstance(blocks, int) and 0 <= blocks < 2 ** 31,
                   "pack2.matvec: blocks must be 0 (as many as are resident) or a grid size")
-    out = torch.empty(rows, dtype=torch.float32, device=pk_all.device)
-    err = _cuda.lib().ngt_pack2_matvec(pk_all.data_ptr() + row0 * q, y4.data_ptr(), out.data_ptr(),
-                                       rows, q, blocks, _cuda.stream_of(pk_all))
+    out = torch.empty(rows, dtype=y4.dtype, device=pk_all.device)
+    f64 = _F64[y4.dtype]
+    entry = _cuda.lib().ngt_pack2_matvec_f64 if f64 else _cuda.lib().ngt_pack2_matvec
+    err = entry(pk_all.data_ptr() + row0 * q, y4.data_ptr(), out.data_ptr(), rows, q, blocks,
+                _cuda.stream_of(pk_all))
     _cuda.check(err, "pack2.matvec")
-    _cuda.LAUNCHES["pack2_matvec"] += 1
+    _cuda.LAUNCHES["pack2_matvec_f64" if f64 else "pack2_matvec"] += 1
     return out
 
 
 RANK_TILE = 512  # K2's column tile: packed bytes, 16 a lane
+RANK_TILE_F64 = 256  # its float64 instance's: 8 a lane
 RANK_SLICE_ROWS = 512  # K2's rows per slice: 64 a warp
 
 
@@ -144,11 +150,12 @@ def rank_slices(rows: int, q: int) -> int:
     return max(1, min(cdiv(rows, 32), cdiv(1024, col_blocks)))
 
 
-def rank_grid(rows: int, q: int) -> tuple[int, int]:
+def rank_grid(rows: int, q: int, dtype=torch.float32) -> tuple[int, int]:
     """K2's grid, (column tiles, row slices): a block adds RANK_SLICE_ROWS
-    rows of one RANK_TILE-byte column tile. A function of the shape alone, so
-    the summation order (and the result) is the same on every run and card."""
-    return cdiv(q, RANK_TILE), cdiv(rows, RANK_SLICE_ROWS)
+    rows of one column tile of RANK_TILE bytes (RANK_TILE_F64 for the
+    float64 instance). A function of the shape and dtype alone, so the
+    summation order (and the result) is the same on every run and card."""
+    return cdiv(q, RANK_TILE_F64 if _F64[dtype] else RANK_TILE), cdiv(rows, RANK_SLICE_ROWS)
 
 
 _TICKETS = {}  # (device, stream) -> int32 tickets of K2's column tiles, 0 between launches
@@ -171,19 +178,21 @@ def _rank_kernel(pk_all, row0, u):
     q = pk_all.shape[1]
     _cuda.require(u.dim() == 1 and 0 < rows and 0 <= row0 and row0 + rows <= pk_all.shape[0],
                   "pack2.rank_update: u must be (rows,) within the panel")
-    tiles, slices = rank_grid(rows, q)
+    tiles, slices = rank_grid(rows, q, u.dtype)
     _cuda.require(slices <= 65_535, f"pack2.rank_update: {rows} rows need more than 65,535 slices")
     dev, stream = pk_all.device, _cuda.stream_of(pk_all)
-    out = torch.empty((4, q), dtype=torch.float32, device=dev)
+    out = torch.empty((4, q), dtype=u.dtype, device=dev)
     partial = tick = None
     if slices > 1:
-        partial = torch.empty((slices, 4, q), dtype=torch.float32, device=dev)
+        partial = torch.empty((slices, 4, q), dtype=u.dtype, device=dev)
         tick = tickets(_TICKETS, dev, stream, tiles)
-    err = _cuda.lib().ngt_pack2_rank_update(
-        pk_all.data_ptr() + row0 * q, u.data_ptr(), None if partial is None else partial.data_ptr(),
-        out.data_ptr(), None if tick is None else tick.data_ptr(), rows, q, slices, stream)
+    f64 = _F64[u.dtype]
+    entry = _cuda.lib().ngt_pack2_rank_update_f64 if f64 else _cuda.lib().ngt_pack2_rank_update
+    err = entry(pk_all.data_ptr() + row0 * q, u.data_ptr(),
+                None if partial is None else partial.data_ptr(), out.data_ptr(),
+                None if tick is None else tick.data_ptr(), rows, q, slices, stream)
     _cuda.check(err, "pack2.rank_update")
-    _cuda.LAUNCHES["pack2_rank_update"] += 1
+    _cuda.LAUNCHES["pack2_rank_update_f64" if f64 else "pack2_rank_update"] += 1
     return out
 
 

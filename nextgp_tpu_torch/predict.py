@@ -67,9 +67,10 @@ def genomic_values(md: MarkerData, beta, chunk: int = 8192) -> np.ndarray:
 def genomic_values_state(plan, state, marker: int = 0, beta=None):
     """g = Mc @ beta computed off the panel already on the device. beta=None
     takes the current draw; otherwise any (p,) vector, e.g. a posterior
-    mean. Packed storage goes through the scatter pass (K2 on CUDA, which
-    contracts in float32) over the whole panel; int8 or float storage is
-    one product in the state's dtype (TF32 off), the JAX package's branch.
+    mean. Packed storage goes through the scatter pass (K2 on CUDA, in the
+    state's dtype: its float32 or float64 instance) over the whole panel;
+    int8 or float storage is one product in the state's dtype (TF32 off),
+    the JAX package's branch.
     Returns an (n,) tensor in the state's dtype on its device."""
     mp = plan.markers[marker]
     ms = state.markers[marker]

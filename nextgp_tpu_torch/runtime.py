@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .api.spec import ModelSpec
-from .engine.plan import SweepPlan, assemble
+from .engine.plan import SweepPlan, assemble, check_card_dtype
 from .engine.rng import PhiloxStream, _splitmix64
 from .engine.state import ModelState, chain_leaves
 from .engine.sweep import Chain, _with_leaves, collect_sample
@@ -40,7 +40,7 @@ from .io.summary import ess_bulk, split_rhat
 from .io.writer import MCMCWriter, folder_handler, truncate_outputs
 from .parallel import sharded
 from .parallel.sharded import pick_chain, stack_chains
-from .utils import default_device, replace
+from .utils import default_device, default_dtype, replace
 
 _CHUNK = 32  # kept samples between host copies of a replayed chain that writes files
 
@@ -300,7 +300,11 @@ def run_lmem(
     PhiloxStream(seed) (engine/rng.py), whose chain runs as eager sweeps; a
     KeyedStream runs on the card as CUDA-graph replays. `device`: where the
     model is assembled and swept (the card unless "cpu"; without a card
-    this raises before the output folder is touched).
+    this raises before the output folder is touched). `dtype`: float32 on
+    the card and float64 on the CPU unless given; float64 on the card runs
+    BayesR marker sets (packed, int8 or float rows, any V), CG terms and
+    fixed effects, and raises before the output folder is touched where a
+    term needs a kernel with a float32 instance only (`check_card_dtype`).
 
     checkpoint_every=k writes `<out_folder>/chain.ckpt` every k kept samples
     (atomic, exact-resume: every draw is keyed by its sweep, io/checkpoint.py).
@@ -310,6 +314,7 @@ def run_lmem(
     finishing the last.
     """
     device = torch.device(device) if device is not None else default_device()
+    check_card_dtype(spec, dtype or default_dtype(device), device)
     ckpt_path = os.path.join(out_folder, "chain.ckpt") if out_folder else None
     resuming = bool(resume and ckpt_path and os.path.exists(ckpt_path))
     if out_folder and not resuming:

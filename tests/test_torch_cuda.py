@@ -57,7 +57,10 @@ the GRN sampler's scan (GRN1, csrc/grn_scan.cu) bench_grn's shapes and its
 edges in float32 and float64 (either side of a tile, 3,000 SNPs, either
 side of its shared-memory limit, where the d's go to scratch), a
 monomorphic SNP and its refusals, an eager GRN step under the sync debug mode "error", and
-est_grn replayed with the eager chain's bits.
+est_grn replayed with the eager chain's bits; the float64 instances of K1, K2 and K3
+at the float32 instances' edges (1e-12 of scale of the plain versions, the same bits
+twice) and float64 BayesR chains on packed, int8 and float rows (following the plain
+chain at 1e-9, replays with the eager chain's bits, through run_lmem).
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -478,8 +481,10 @@ def test_rc_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     pk = torch.zeros(4, 128, dtype=torch.uint8, device=dev)
-    with pytest.raises(ValueError, match="float32"):
-        pack2.matvec(pk, torch.zeros(4, 128, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        pack2.matvec(pk, torch.zeros(4, 128, dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        pack2.rank_update(pk, torch.zeros(4, dtype=torch.float16, device=dev))
     with pytest.raises(ValueError, match="one CUDA device"):
         pack2.rank_update(pk, torch.zeros(4))
     with pytest.raises(ValueError, match="out of range"):
@@ -491,6 +496,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 8, device=dev), 0)
     with pytest.raises(ValueError, match="two coefficient rows exceed shared memory"):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 8 + 4 * 6600, device=dev), 6600)
+    # K3 takes float64 gram and pk together, not one of each
+    with pytest.raises(ValueError, match="float32, or both float64"):
+        gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 12, dtype=torch.float64, device=dev), 1)
+    # a scan with a float32 instance only refuses float64 by name
+    with pytest.raises(ValueError, match="bc_block_scan_v: .*float32 .*no float64 instance"):
+        gibbs_kernels.bc_block_scan_v((gram.double(), 0), torch.zeros(2, 8, 8, dtype=torch.float64,
+                                                                      device=dev))
+    with pytest.raises(ValueError, match="gauss_block_scan_v: .*no float64 instance"):
+        gibbs_kernels.gauss_block_scan_v((gram.double(), 0),
+                                         torch.zeros(2, 8, 8, dtype=torch.float64, device=dev))
 
 
 N_SMALL, P_SMALL = 300, 512
@@ -1989,3 +2004,152 @@ def test_grn_replayed_chain_equals_eager(dev, dtype):
         assert np.array_equal(d, torch.stack([k[name] for k in kept]).cpu().numpy()), name
     for f in ("mu", "lam1", "lam2", "var_lam1", "var_beta", "var_e", "ycorr", "accept", "it_counter"):
         assert torch.equal(getattr(st, f), getattr(state, f)), f
+
+
+# ------------------------------------------------------------------ float64: K1, K2, K3
+
+TOL_F64 = 1e-12  # of the output's scale: float64 sums in another order than the plain version's
+
+
+@pytest.mark.parametrize("rows,q", [(1, 16), (3, 48), (5, 528), (7, 2560), (4095, 496),
+                                    (4097, 16), (511, 12_544), (513, 2560), (1025, 25_088),
+                                    (24_576, 2560)])
+def test_pack2_f64_kernels_match_plain(dev, rows, q):
+    """K1's and K2's float64 instances at the float32 instances' edges (and
+    the main path's 24,576 x 2,560 step), on step t = 1 of three, and K1'
+    and K2' over the whole panel: within 1e-12 of scale of the plain
+    versions (which sum in float64 too), the same bits on a second call,
+    float64 out, each launch counted as float64 and none as float32. K2's
+    float64 tile is 256 bytes, so q = 16, 48 and 496 also fall either side
+    of it."""
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + q)
+    pk = torch.randint(0, 256, (3 * rows, q), generator=g, device=dev, dtype=torch.uint8)
+    y4 = torch.randn((4, q), generator=g, device=dev, dtype=torch.float64)
+    u = torch.randn(rows, generator=g, device=dev, dtype=torch.float64)
+    u_all = torch.randn(3 * rows, generator=g, device=dev, dtype=torch.float64)
+    sl = pk[rows:2 * rows]
+    before = dict(_cuda.LAUNCHES)
+    r0 = pack2.matvec_step(pk, 1, y4, rows)
+    dy = pack2.rank_update_step(pk, 1, u)
+    r0_all, dy_all = pack2.matvec(pk, y4), pack2.rank_update(pk, u_all)
+    ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    assert ran["pack2_matvec_f64"] == ran["pack2_rank_update_f64"] == 2
+    assert ran["pack2_matvec"] == ran["pack2_rank_update"] == 0
+    assert all(x.dtype == torch.float64 for x in (r0, dy, r0_all, dy_all))
+    assert _rel(r0, pack2.matvec_plain(sl, y4)) < TOL_F64
+    assert _rel(dy, pack2.rank_update_plain(sl, u)) < TOL_F64
+    assert _rel(r0_all, pack2.matvec_plain(pk, y4)) < TOL_F64
+    assert _rel(dy_all, pack2.rank_update_plain(pk, u_all)) < TOL_F64
+    assert torch.equal(r0, pack2.matvec_step(pk, 1, y4, rows))
+    assert torch.equal(dy, pack2.rank_update_step(pk, 1, u))
+    for blocks in (1, 3, 1000):
+        assert torch.equal(r0, pack2._matvec_kernel(pk, rows, rows, y4, blocks))
+
+
+@pytest.mark.parametrize("V,B,K", [
+    (1, 8, 4), (4, 33, 4), (96, 256, 4), (1, 1024, 4), (2, 40, 1), (3, 70, 5),
+    (4, 96, 8),  # the largest rule in one lane's registers
+    (1, 256, 9), (4, 256, 9), (96, 256, 9),  # one class past it: the serial rule
+    (1, 256, 20), (4, 64, 20), (96, 256, 20), (1, 1024, 16),
+])
+def test_scan_f64_kernel_matches_plain(dev, V, B, K):
+    """K3's float64 instance against its plain version in float64,
+    step-indexed and sliced, every uniform kept 1e-4 off the CDF edges:
+    delta (the class) exactly, beta and u within 1e-12 of their scale, the
+    same bits on a second launch, counted as float64."""
+    T = 2
+    gram, pk, g = _r_inputs(dev, T, V, B, K, V * 1000 + B + K + 7)
+    gram, pk = gram.double(), pk.double()
+    for t in range(T):
+        rb, ru, rd = _keep_off_cdf_edges(pk, lambda p: gibbs_kernels.r_block_scan_v_plain(gram[t], p, K),
+                                         [2], (2,), g)
+        before = dict(_cuda.LAUNCHES)
+        beta, u, delta = gibbs_kernels.r_block_scan_v((gram, t), pk, K)
+        assert _cuda.LAUNCHES["r_block_scan_v_f64"] == before["r_block_scan_v_f64"] + 1
+        assert _cuda.LAUNCHES["r_block_scan_v"] == before["r_block_scan_v"]
+        assert beta.dtype == u.dtype == torch.float64 and delta.dtype == torch.int32
+        assert torch.equal(delta, rd)
+        assert _rel(beta, rb) < TOL_F64 and _rel(u, ru) < TOL_F64
+        again = gibbs_kernels.r_block_scan_v((gram, t), pk, K)
+        sliced = gibbs_kernels.r_block_scan_v(gram[t].contiguous(), pk, K)
+        for other in (again, sliced):
+            assert all(torch.equal(x, y) for x, y in zip(other, (beta, u, delta)))
+
+
+def _f64_spec(kind):
+    """The BayesR model of _small_spec on 0..2 dosages (packed, or int8 rows
+    under pack2=False) or on float rows."""
+    spec = _small_spec("BayesR")
+    if kind == "float":
+        rng = np.random.default_rng(9)
+        g = rng.integers(0, 3, (N_SMALL, P_SMALL)) + rng.uniform(0, 0.5, (N_SMALL, P_SMALL))
+        spec.markers = [ngt.MarkerTerm("M", ngt.from_float_array(g), spec.markers[0].prior)]
+    return spec
+
+
+@pytest.mark.parametrize("V", [1, 4])
+@pytest.mark.parametrize("kind", ["packed", "int8", "float"])
+def test_bayesr_f64_chain_on_the_card(dev, kind, V):
+    """A float64 BayesR chain on the card (assemble takes it): on packed rows
+    K1, K3 and K2 run as their float64 instances and no float32 one runs;
+    on int8 or float rows K3 alone (the passes are products); the card
+    chain follows the float64 plain chain on the CPU from the same host
+    draws (3 sweeps: beta and ycorr within 1e-9 of scale, delta equal);
+    make_scan_sampler's replays of a float64 KeyedStream give the eager
+    chain's bits; genomic_values_state (K2' in float64 on packed rows)
+    within 1e-12 of scale of genomic_values."""
+    spec = _f64_spec(kind)
+    pack = False if kind == "int8" else None
+    chains = []
+    for device in (dev, "cpu"):
+        plan, st = ngt.assemble(spec, device=device, dtype=torch.float64, vshards=V, pack2=pack)
+        assert st.ycorr.dtype == torch.float64
+        sw, hs = ngt.make_sweep(plan), HostStream(4, device, torch.float64)
+        before = dict(_cuda.LAUNCHES)
+        for _ in range(3):
+            st = sw(st, hs)
+        ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        if device == dev:
+            T = 512 // 32 // V
+            assert ran["r_block_scan_v_f64"] == 3 * T
+            packed = 3 * T if kind == "packed" else 0
+            assert ran["pack2_matvec_f64"] == ran["pack2_rank_update_f64"] == packed
+            assert not any(ran[k] for k in ("pack2_matvec", "pack2_rank_update", "r_block_scan_v"))
+        chains.append((st.markers[0].beta.cpu(), st.markers[0].delta.cpu(), st.ycorr.cpu()))
+    assert torch.equal(chains[0][1], chains[1][1])
+    assert _rel(chains[0][0], chains[1][0]) < 1e-9 and _rel(chains[0][2], chains[1][2]) < 1e-9
+    plan, st0 = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=V, pack2=pack)
+    stream = ngt.KeyedStream(21, dev, torch.float64)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    for name, d in draws.items():
+        assert d.dtype in (torch.float64, torch.int32, torch.int64, torch.bool), name
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+    beta = draws["betaM"].mean(0).cpu().numpy()
+    host = ngt.genomic_values(spec.markers[0].data, beta)
+    card = ngt.genomic_values_state(plan, st, beta=beta).cpu().numpy()
+    assert np.abs(card - host).max() / np.abs(host).max() < 1e-12
+
+
+def test_run_lmem_f64_on_the_card(dev):
+    """run_lmem in float64 on the card through the float64 instances, with
+    a KeyedStream (replays) and the default PhiloxStream (eager sweeps):
+    finite draws, the residual identity within 1e-9 of max|y|."""
+    spec = _small_spec("BayesR")
+    for stream in (ngt.KeyedStream(3, dev, torch.float64), None):
+        before = dict(_cuda.LAUNCHES)
+        res = ngt.run_lmem(spec, 20, 10, 2, out_folder=None, device=dev, dtype=torch.float64,
+                           vshards=4, stream=stream)
+        ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        assert ran["r_block_scan_v_f64"] > 0 and ran["pack2_matvec_f64"] > 0
+        assert ran["r_block_scan_v"] == ran["pack2_matvec"] == 0
+        assert all(np.isfinite(d).all() for d in res.draws.values())
+        st, plan = res.state, ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=4)[0]
+        gv = ngt.genomic_values_state(plan, st)
+        drift = (st.ycorr - (st.y - st.fixed[0].b[0] - gv)).abs().max() / st.y.abs().max()
+        assert drift.item() < 1e-9

@@ -1,0 +1,79 @@
+"""The float64 instances of K1, K2 and K3 as far as the CPU reaches them:
+the shapes and sizes their wrappers compute (K2's float64 grid, K3's
+float64 shared memory), the CPU path of every wrapper in float64 (the plain
+version, no launch), and the launch counters that tell a float64 launch
+from a float32 one. The kernels themselves run in tests/test_torch_cuda.py
+on the card; a float64 BayesR chain on the CPU is held to the JAX package
+by tests/test_torch_sweep.py (`test_five_sweeps_match[BayesR-I-V4]` and
+the rest of its cases)."""
+import numpy as np
+import pytest
+import torch
+
+from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2
+
+
+@pytest.mark.parametrize("rows,q", [(1, 16), (255, 240), (511, 256), (512, 272), (513, 528),
+                                    (24_576, 2_560), (24_576, 12_544), (1000, 25_088)])
+def test_rank_grid_f64_covers_the_panel(rows, q):
+    """K2's float64 grid: column tiles of RANK_TILE_F64 (256) bytes cover the
+    q bytes with less than one tile to spare, twice the float32 grid's
+    tiles (within one), and the same row slices."""
+    tiles, slices = pack2.rank_grid(rows, q, torch.float64)
+    assert pack2.RANK_TILE_F64 == 256 == pack2.RANK_TILE // 2
+    assert (tiles - 1) * pack2.RANK_TILE_F64 < q <= tiles * pack2.RANK_TILE_F64
+    tiles32, slices32 = pack2.rank_grid(rows, q)
+    assert slices == slices32 and 2 * tiles32 - 1 <= tiles <= 2 * tiles32
+    assert pack2.rank_grid(rows, q, torch.float32) == (tiles32, slices32)
+
+
+@pytest.mark.parametrize("B,K,need,fits", [
+    (256, 4, 31_232, True),  # the main path's shape
+    (1024, 8, 45_568, True),  # the largest rule in one lane
+    (1024, 9, 25_864, True),  # the serial rule
+    (1024, 16, 26_368, True),
+    (32, 3500, 269_280, False),  # fits in float32 (134,640 bytes), not in float64
+    (32, 6_600, 492_480, False),
+])
+def test_r_scan_f64_shared_memory_need(B, K, need, fits):
+    """K3's float64 instance takes 8 bytes for every element of the float32
+    instance's layout: the u's, the two Gram tile slots and the rule's rows."""
+    assert gibbs_kernels.r_scan_smem_bytes(B, K, 8) == need == 2 * gibbs_kernels.r_scan_smem_bytes(B, K)
+    assert (need <= gibbs_kernels.SMEM_BYTES) == fits
+
+
+def test_cpu_wrappers_take_float64_as_the_plain_versions():
+    """On CPU tensors every wrapper is its plain version, in float64 as in
+    float32, and counts no launch."""
+    rng = np.random.default_rng(4)
+    rows, n, V, B, K = 12, 70, 3, 16, 4
+    pk = torch.from_numpy(pack2.pack2_np(rng.integers(0, 3, (n, 2 * rows), dtype=np.int8)))
+    q = pk.shape[1]
+    y4 = torch.from_numpy(rng.normal(size=(4, q)))
+    u = torch.from_numpy(rng.normal(size=rows))
+    gram = torch.from_numpy(rng.normal(size=(2, B, V, B))) / B
+    rows_k = torch.zeros(V, B, 8 + 4 * K, dtype=torch.float64)
+    rows_k[..., 0] = torch.from_numpy(rng.normal(size=(V, B)))
+    rows_k[..., 2] = torch.from_numpy(rng.uniform(size=(V, B)))
+    rows_k[..., 3] = 1.0
+    rows_k[..., 8 + K + 1:8 + 2 * K] = 0.3
+    rows_k[..., 8 + 2 * K + 1:8 + 3 * K] = 0.2
+    before = dict(_cuda.LAUNCHES)
+    r0 = pack2.matvec_step(pk, 1, y4, rows)
+    dy = pack2.rank_update_step(pk, 1, u)
+    assert r0.dtype == dy.dtype == torch.float64
+    assert torch.equal(r0, pack2.matvec_plain(pk[rows:], y4))
+    assert torch.equal(dy, pack2.rank_update_plain(pk[rows:], u))
+    got = gibbs_kernels.r_block_scan_v((gram, 1), rows_k, K)
+    ref = gibbs_kernels.r_block_scan_v_plain(gram[1], rows_k, K)
+    assert got[0].dtype == torch.float64 and all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert _cuda.LAUNCHES == before
+
+
+def test_launch_counters_tell_float64_from_float32():
+    """K1, K2 and K3 count their float64 launches apart (`<name>_f64`), so a
+    run can show which instance its path went through; no other kernel has
+    a float64 counter of its own."""
+    f64 = sorted(k for k in _cuda.LAUNCHES if k.endswith("_f64"))
+    assert f64 == ["pack2_matvec_f64", "pack2_rank_update_f64", "r_block_scan_v_f64"]
+    assert all(k.removesuffix("_f64") in _cuda.LAUNCHES for k in f64)

@@ -311,35 +311,73 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
     assert call(device="cpu").device.type == "cpu"
 
 
+# kind -> the kernel that refuses float64 on the card (None: taken there)
+CARD_DTYPE_CASES = {
+    "markers": "K8", "BayesB": "K8", "BayesC+D": "K10", "BayesPR": "K6", "BayesLV": "K6",
+    "BayesRCpi": "K12", "BayesRCplus": "K14", "corr_markers": "CM1", "scan": "RE1",
+    "corr_random": "RE2", "BayesR+scan": "RE1",
+    "BayesR": None, "BayesR+D": None, "BayesR_float": None, "cg": None, "fixed": None,
+}
+
+
 def _card_dtype_spec(kind):
-    """An intercept and one more term: a marker set, a random term drawn by
-    the per-level scan, one drawn by CG, or none."""
+    """An intercept and one more term: a marker set of one method ("markers"
+    is BayesC; "BayesR_float" on float rows, the others on 0..2 dosages,
+    packed or int8 as assemble's pack2 says), a correlated pair of marker
+    sets, a random term drawn by the per-level scan, a correlated group, one
+    drawn by CG, or none; "+D" with a weighted residual."""
     import numpy as np
 
     spec = _tiny_spec()
-    n = spec.y.shape[0]
-    if kind != "markers":
+    n, p = spec.y.shape[0], 16
+    rng = np.random.default_rng(1)
+    g = rng.integers(0, 3, (n, p))
+    annot = rng.integers(0, 2, (p, 2)) | np.array([1, 0])
+    method = kind.split("+")[0].removesuffix("_float")
+    priors = {"BayesB": ngt.BayesB(0.9, 0.05), "BayesC": ngt.BayesC(0.9, 0.05),
+              "BayesPR": ngt.BayesPR(8, 0.05), "BayesLV": ngt.BayesLV(0.01, rng.normal(size=(p, 2)), 0.01),
+              "BayesRCpi": ngt.BayesRCpi([0.9, 0.1], [0.0, 0.01], 1.0, annot),
+              "BayesRCplus": ngt.BayesRCplus([0.9, 0.1], [0.0, 0.01], 1.0, annot),
+              "BayesR": ngt.BayesR([0.9, 0.05, 0.05], [0.0, 1e-3, 1e-2], 1.0, estimatePi=True)}
+    if method in priors:
+        data = ngt.from_float_array(g + 0.5) if kind.endswith("_float") else ngt.from_array(g)
+        spec.markers = [ngt.MarkerTerm("M", data, priors[method])]
+    elif kind != "markers":
         spec.markers = []
-    if kind == "scan":
+    if kind.endswith("+D"):
+        spec.residual = ngt.RandomEffect(rng.uniform(0.5, 2.0, n), 1.0)
+    if kind == "corr_markers":
+        spec.corr_markers = [ngt.CorrMarkerTerm(("M1", "M2"), (ngt.from_array(g), ngt.from_array(g)),
+                                                ngt.BayesPR(8, 0.01 * np.eye(2)))]
+    if kind.endswith("scan"):
         spec.random = [ngt.RandomTerm("A", np.eye(n), prior=ngt.Random("A", 0.5))]
+    if kind == "corr_random":
+        spec.random = [ngt.RandomTerm(("a", "b"), (np.eye(n), np.eye(n)),
+                                      prior=ngt.Random("I", 0.1 * np.eye(2)))]
     if kind == "cg":
         spec.random = [ngt.RandomTerm("A", None, prior=ngt.Random("A", 0.5, sampler="cg"),
                                       z_idx=np.arange(n), n_levels=n)]
     return spec
 
 
-@pytest.mark.parametrize("kind", ["markers", "scan", "cg", "fixed"])
+@pytest.mark.parametrize("kind", list(CARD_DTYPE_CASES))
 def test_float64_on_the_card_is_refused_up_front(kind):
-    """float64 on a CUDA device is refused where a float32-only kernel would
-    meet it (marker sets, a scan random term), and taken with CG terms and
-    fixed effects alone; float32 on the card and float64 on the CPU always."""
+    """float64 on a CUDA device is refused where a kernel with a float32
+    instance only would meet it (every marker method but BayesR, correlated
+    marker sets, scan random terms), naming that kernel, and taken with
+    BayesR marker sets (K1, K2, K3 have float64 instances, whatever the
+    storage), CG terms and fixed effects alone; float32 on the card and
+    float64 on the CPU always."""
     import torch
 
     from nextgp_tpu_torch.engine.plan import check_card_dtype
 
     spec, cuda = _card_dtype_spec(kind), torch.device("cuda")
-    if kind in ("markers", "scan"):
-        with pytest.raises(ValueError, match='float64 on a CUDA device.*float32.*device="cpu"'):
+    spec.validate()
+    kernel = CARD_DTYPE_CASES[kind]
+    if kernel is not None:
+        with pytest.raises(ValueError, match=rf'float64 on a CUDA device: .*{kernel} .*float32 '
+                                             r'instance only.*device="cpu"'):
             check_card_dtype(spec, torch.float64, cuda)
         # assemble asks before it places anything: with no card here, a tensor
         # on "cuda" would fail with another error
@@ -349,6 +387,19 @@ def test_float64_on_the_card_is_refused_up_front(kind):
         check_card_dtype(spec, torch.float64, cuda)
     check_card_dtype(spec, torch.float32, cuda)
     check_card_dtype(spec, torch.float64, torch.device("cpu"))
+
+
+def test_float64_refusal_comes_before_the_output_folder(tmp_path):
+    """run_lmem refuses float64 on the card before it touches out_folder."""
+    import torch
+
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "kept").write_text("x")
+    with pytest.raises(ValueError, match="K8"):
+        ngt.run_lmem(_card_dtype_spec("markers"), 2, 0, 1, out_folder=str(out), device="cuda",
+                     dtype=torch.float64)
+    assert (out / "kept").exists()
 
 
 def test_normalize_annot_matches():

@@ -254,25 +254,32 @@ Phases (any failed check raises and the script exits non-zero):
      covariance positive definite; ms/sweep of each arm and each rank, and
      each rank's psum route. NCCL with two or more ranks needs a card a
      rank, which one card cannot give
- 14. float64 on the card through the float64 instances of K1, K2 and K3,
-     at bench.py:131-144's configuration (phase 4's panel, simulated again
-     and kept as int8 dosages on the card; BayesR with estimatePi, packed,
-     V=96), nothing cut: (a) K1, K2 (a V=96 step), K1', K2' (the whole
-     panel) and K3 at V=96 and V=1 against their plain versions (float64
-     too) within 1e-12 of scale, delta exact, twice the same bits, timed
-     beside their bounds (the vectors and the Gram in 8 bytes, operations
-     at 34 TFLOP/s); (b) 20 float64 sweeps of the kernel chain against the
-     float64 plain chain (the same sweep with K1, K2 and K3 swapped for
-     their plain versions on the card) on one KeyedStream, ycorr and beta
-     within 1e-9 of scale, delta identical, and 10 at V=1 on a 2,000 x
-     8,192 panel; (c) 100 float64 sweeps eager and through run_lmem's
-     replays with one KeyedStream: the same bits, drift < 1e-9 of max|y|,
-     EBV >= 0.95, ms/sweep, busy and idle share; (d) the float32 kernel
-     chain held to the float64 kernel chain by the packed rule after 3
-     sweeps; (e) float64 on int8 rows (pack2=False: K3 alone) held to the
-     packed float64 chain by the same rule; K2' on the float64 state; (f)
-     in turns f32 / f64 / f64 / f32, K1, K2 and K3 on the card alone on one
-     step, and the replayed sweep's ms, busy and idle share
+ 14. float64 on the card through the float64 instances of K1, K2, K3, K6,
+     K8 and K10, at bench.py:131-144's configuration (phase 4's panel,
+     simulated again and kept as int8 dosages on the card; packed, V=96),
+     nothing cut but the V=1 chains' depth: (a) ptxas's registers and
+     spills and the SASS's predicated shared loads of K6, K8 and K10 (a
+     float64 instance no more than its float32 one); K1, K2 (a V=96 step),
+     K1', K2' (the whole panel), K3, K6, K8 and K10 at V=96 and V=1 against
+     their plain versions (float64 too) within 1e-12 of scale, delta exact,
+     twice the same bits, timed beside their bounds (the vectors, the Gram,
+     the rows and the outputs in 8 bytes, operations at 34 TFLOP/s; K6 also
+     beside the float64 triangular solve); (b) 20 float64 sweeps of the
+     kernel chain against the float64 plain chain (the same sweep with K1,
+     K2 and the scans swapped for their plain versions on the card) on one
+     KeyedStream, ycorr and beta within 1e-9 of scale, delta identical, for
+     BayesR, BayesB, BayesC, BayesC+D and BayesPR, and 5 at V=1 on a 2,000 x
+     8,192 panel for BayesR and BayesLV; (c) 100 float64 sweeps eager and
+     through run_lmem's replays with one KeyedStream for BayesR, BayesB,
+     BayesC+D, BayesPR (V=96), BayesC and BayesLV (V=1): the same bits,
+     drift < 1e-9 of max|y|, phase 4's EBV and varE limits (BayesR at V=96,
+     BayesC and BayesLV at V=1), ms/sweep, busy and idle share; (d) the
+     float32 BayesR kernel chain held to the float64 kernel chain by the
+     packed rule after 3 sweeps; (e) float64 on int8 rows (pack2=False: the
+     scan alone) held to the packed float64 chain by the same rule, for
+     BayesR and BayesC+D; K2' on the float64 state; (f) in turns f32 / f64
+     / f64 / f32, K1, K2, K3, K6, K8 and K10 on the card alone on one step,
+     and the replayed BayesR sweep's ms, busy and idle share
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -344,7 +351,10 @@ PATHS = {
 # the same sweep does when the design can carry the mean log-variance.
 LV_ONES = "BayesLV+1"
 EXTRA_PATHS = {LV_ONES: (ngt.BayesLV(V_LV, np.column_stack([np.ones(P), LVCOV]), VZETA_LV), False,
-                         "gauss_block_scan_v", 1)}
+                         "gauss_block_scan_v", 1),
+               # not a main path either: BayesB (scripts/bench_methods.py:44), K8 as BayesC's,
+               # run in float64 alone (phase 14)
+               "BayesB": (ngt.BayesB(PI_BC, V_BC, estimatePi=True), False, "bc_block_scan_v", 1)}
 # (path, V) -> EBV correlation limit; every other run prints its correlation
 EBV_LIMITS = {("BayesR", V_MAIN): 0.95, ("BayesC", 1): 0.95, ("BayesRCpi", 1): 0.95,
               ("BayesLV", 1): 0.8, (LV_ONES, 1): 0.85}
@@ -904,6 +914,77 @@ def r_classes(K):
     return varc, torch.log(torch.tensor([0.62] + [0.38 / (K - 1)] * (K - 1), device=DEV))
 
 
+def scan8_cases(st, z, var_e):
+    """The Gaussian and B/C scans at step t = 0 of st's marker set with the
+    coefficients of a first sweep on the real data (z, var_e): K6 and K8 on
+    an unweighted model, K10 on a weighted one (the weighted and the raw
+    Gram). Returns (Step0(st), [(name, kernel(pk_t), plain(pk_t),
+    make_rows(unif), near(pk_t, u), work, note, library)]): the names
+    without the V=1 tag or `_f64`, the work in 8-byte words (int32 delta
+    half a word) where st is float64."""
+    ms = st.markers[0]
+    _, V, B, _ = ms.mt.shape
+    step = Step0(st)
+    f64 = st.ycorr.dtype == torch.float64
+    isz, kind = (8, ", float64") if f64 else (4, "")
+    delta_words = 4 / isz  # an int32 delta in words of isz bytes
+    ive = 1.0 / var_e
+    flat = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
+                mask=ms.mask.reshape(-1))
+    gram0 = ms.gram[0]
+    vb = torch.full_like(ms.beta, V_BC)
+    lp0, lp1 = np.log(1.0 - PI_BC), np.log(PI_BC)
+
+    def bc_rows(un, mpm_raw=None):
+        return step.rows(gibbs_kernels.bc_block_pack(
+            ms.beta, z, un, vb, 1.0 / vb, ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1),
+            ms.rhs_ss.reshape(-1), ms.mask.reshape(-1), ive, var_e, lp0, lp1, True,
+            mpm_raw=mpm_raw), raw=mpm_raw is not None)
+
+    if st.e.d_inv is not None:
+        raw_diag = _gram_raw_diag(ms)
+        return step, [(
+            "bc_block_scan_wv",
+            lambda pk_t: gibbs_kernels.bc_block_scan_wv((ms.gram, 0), (ms.gram_raw, 0), pk_t),
+            lambda pk_t: gibbs_kernels.bc_block_scan_wv_plain(gram0, ms.gram_raw[0], pk_t),
+            lambda un: bc_rows(un, raw_diag), lambda pk_t, uu: bc_near(ms.gram_raw[0], pk_t, uu, 7),
+            scan_work(V, B, 8, 2, 2 + delta_words, 8, itemsize=isz),
+            f"V={V}, B={B}, weighted and raw Gram{kind}", None)]
+
+    ivb = torch.full_like(ms.beta, 1.0 / V_PR)
+
+    def gauss_library(pk_t):
+        """torch.linalg.solve_triangular on the V unit lower-triangular systems."""
+        mat, rhs = gibbs_kernels.gauss_block_system(gram0, pk_t)
+        return lambda: torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)[..., 0]
+
+    return step, [(
+        "gauss_block_scan_v",
+        lambda pk_t: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t),
+        lambda pk_t: gibbs_kernels.gauss_block_scan_v_plain(gram0, pk_t),
+        lambda un: step.rows(gibbs_kernels.gauss_block_pack(
+            torch.zeros_like(ms.beta), ms.beta, z, ivb, flat["mpm"], flat["lss"], flat["rss"],
+            flat["mask"], ive)),
+        lambda pk_t, uu: torch.zeros((), dtype=torch.bool, device=DEV),
+        scan_work(V, B, 8, 1, 2, 4, itemsize=isz), f"V={V}, B={B}{kind}", gauss_library), (
+        "bc_block_scan_v",
+        lambda pk_t: gibbs_kernels.bc_block_scan_v((ms.gram, 0), pk_t),
+        lambda pk_t: gibbs_kernels.bc_block_scan_v_plain(gram0, pk_t),
+        bc_rows, lambda pk_t, uu: bc_near(gram0, pk_t, uu, 0),
+        scan_work(V, B, 8, 1, 2 + delta_words, 8, itemsize=isz), f"V={V}, B={B}{kind}", None)]
+
+
+def scan8_kernels(st, z, var_e, unif, gen, tag, phase="3 kernels", tol=TOL_SCAN, flops=F32_FLOP_PER_S):
+    """K6 and K8 (st unweighted) or K10 (st weighted) held to their plain
+    versions and timed by held_scan, in st's dtype; the kernels-line name is
+    the scan's with the V=1 tag before any `_f64`."""
+    step, cases = scan8_cases(st, z, var_e)
+    sfx = "_f64" if st.ycorr.dtype == torch.float64 else ""
+    for name, kern, plain, make_rows, near, work, note, library in cases:
+        held_scan(f"{name}{tag}{sfx}", kern, plain, make_rows, unif, gen, step, near, work, note,
+                  library=library, phase=phase, tol=tol, flops=flops)
+
+
 def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
     """Every kernel of the sweep against its plain version at the paths'
     shapes for this V; with V = 1 (tag "_v1") the single-chain launches of
@@ -948,53 +1029,11 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
         for k in (8, 9, 20) if full else (8, 9):
             r_scan(f"r_block_scan_v_k{k}", *(x.to(dt) for x in r_classes(k)))
 
-    ivb = torch.full_like(ms.beta, 1.0 / V_PR)
-
-    def gauss_library(pk_t):
-        """torch.linalg.solve_triangular on the V unit lower-triangular systems."""
-        mat, rhs = gibbs_kernels.gauss_block_system(gram0, pk_t)
-        return lambda: torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)[..., 0]
-
-    held_scan(
-        f"gauss_block_scan_v{tag}",
-        lambda pk_t: gibbs_kernels.gauss_block_scan_v((ms.gram, 0), pk_t),
-        lambda pk_t: gibbs_kernels.gauss_block_scan_v_plain(gram0, pk_t),
-        lambda un: step.rows(gibbs_kernels.gauss_block_pack(
-            torch.zeros_like(ms.beta), ms.beta, z, ivb, flat["mpm"], flat["lss"], flat["rss"],
-            flat["mask"], ive)), unif, gen, step,
-        lambda pk_t, uu: torch.zeros((), dtype=torch.bool, device=DEV), scan_work(V, B, 8, 1, 2, 4),
-        f"V={V}, B={B}", library=gauss_library)
-
-    vb = torch.full_like(ms.beta, V_BC)
-    lp0, lp1 = np.log(1.0 - PI_BC), np.log(PI_BC)
-
-    def bc_rows(stp, m, un, mpm_raw=None):
-        return stp.rows(gibbs_kernels.bc_block_pack(
-            m.beta, z, un, vb, 1.0 / vb, m.mpm.reshape(-1), m.lhs_ss.reshape(-1),
-            m.rhs_ss.reshape(-1), m.mask.reshape(-1), ive, var_e, lp0, lp1, True,
-            mpm_raw=mpm_raw), raw=mpm_raw is not None)
-
-    held_scan(
-        f"bc_block_scan_v{tag}",
-        lambda pk_t: gibbs_kernels.bc_block_scan_v((ms.gram, 0), pk_t),
-        lambda pk_t: gibbs_kernels.bc_block_scan_v_plain(gram0, pk_t),
-        lambda un: bc_rows(step, ms, un), unif, gen, step,
-        lambda pk_t, uu: bc_near(gram0, pk_t, uu, 0), scan_work(V, B, 8, 1, 3, 8),
-        f"V={V}, B={B}")
+    scan8_kernels(st, z, var_e, unif, gen, tag)
     del plan, st, step
-
     _, st_w = ngt.assemble(spec_for("BayesC+D"), vshards=V)
-    mw = st_w.markers[0]
-    step_w = Step0(st_w)
-    raw_diag = _gram_raw_diag(mw)
-    held_scan(
-        f"bc_block_scan_wv{tag}",
-        lambda pk_t: gibbs_kernels.bc_block_scan_wv((mw.gram, 0), (mw.gram_raw, 0), pk_t),
-        lambda pk_t: gibbs_kernels.bc_block_scan_wv_plain(mw.gram[0], mw.gram_raw[0], pk_t),
-        lambda un: bc_rows(step_w, mw, un, raw_diag), unif, gen, step_w,
-        lambda pk_t, uu: bc_near(mw.gram_raw[0], pk_t, uu, 7), scan_work(V, B, 8, 2, 3, 8),
-        f"V={V}, B={B}, weighted and raw Gram")
-    del st_w, mw, step_w
+    scan8_kernels(st_w, z, var_e, unif, gen, tag)
+    del st_w
     rc_kernels(spec_for, z, V, tag)
 
 
@@ -1834,7 +1873,7 @@ def fit_checks(tag, plan, st, draws, sig, ebv_limit=None, phase="7", drift_limit
 
 
 def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag="", n_window=50,
-               dtype=None, phase="7", drift_limit=1e-2):
+               dtype=None, phase="7", drift_limit=1e-2, var_e_limit=None):
     """One path eagerly and replayed with the same KeyedStream from the same
     state: the eager chain a loop of make_sweep (launches counted by the
     wrappers), the replayed chain run_lmem with the KeyedStream (burn-in and
@@ -1844,7 +1883,8 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     kernels per sweep from a profiled window, and the device's idle share
     without the profiler: 1 - busy / (event ms per sweep). dtype: the
     engine's (float32 unless given; float64 counts the kernels' float64
-    instances)."""
+    instances). var_e_limit: a ceiling on the final residual variance
+    (VAR_E_LIMITS), which is printed in any case."""
     name = f"{path}{tag} V={V}"
     n_keep = (n_chain - n_burn) // n_thin
     plan, st0 = ngt.assemble(spec, vshards=V, dtype=dtype)
@@ -1865,7 +1905,7 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
     eager_s = time.perf_counter() - t0
     eager_launches = dict(_cuda.LAUNCHES)
     eager = {k: torch.stack([x[k] for x in kept]) for k in kept[0]}
-    _, _, scan, gathers = PATHS[path]
+    _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
     T = plan.markers[0].n_blocks // V
     expect = {k: 0 for k in eager_launches}
     expect.update({"pack2_matvec" + f64: gathers * n_chain * T, "pack2_rank_update" + f64: n_chain * T,
@@ -1889,6 +1929,10 @@ def graph_path(path, spec, sig, V, n_chain, n_burn, n_thin, ebv_limit=None, tag=
           f"{name}: sweep index {res.state.sweep_index}, counter {int(res.state.sweep_counter)}")
     fit = fit_checks(name, res.plan, res.state, {k: torch.from_numpy(v) for k, v in res.draws.items()},
                      sig, ebv_limit, phase=phase, drift_limit=drift_limit)
+    fit["var_e"] = res.state.e.var_e.item()
+    print(f"[{phase} {name}] varE {fit['var_e']:.4f}"
+          + ("" if var_e_limit is None else f" (limit {var_e_limit})"))
+    check(var_e_limit is None or fit["var_e"] <= var_e_limit, f"{name}: varE above {var_e_limit}")
     print(f"[{phase} {name}] {n_chain} sweeps ({n_burn} burn-in, thin {n_thin}), the same KeyedStream: "
           f"kept draws and final ycorr bit-identical eager and replayed; eager {n_chain / eager_s:.2f} "
           f"sweeps/s (host clock), replayed run_lmem {res.sweeps_per_sec:.2f} sweeps/s (host clock; "
@@ -4256,17 +4300,22 @@ def grn_latency_ms(S, mhz):
     return -(-S // GRN_ROUND) * GRN_CHAIN_OPS * 4 / (mhz * 1e3)
 
 
+def library_sass():
+    """The built library's SASS (cuobjdump), one string a function, its
+    mangled name on the first line."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(_cuda.build())], capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    return re.split(r"\n\s*Function : ", res.stdout)[1:]
+
+
 def grn_sass():
     """GRN1's SASS (cuobjdump of the built library), every instance (float32
     and float64, shared memory or scratch): no
     local-memory load or store (LDL, STL), no shared-memory load behind a
     predicate, and no read of SR_CgaCtaId inside a loop (between a branch
     and the earlier instruction it jumps back to)."""
-    so = _cuda.build()
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    res = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
-    funcs = [f for f in re.split(r"\n\s*Function : ", res.stdout)[1:] if "grn" in f.split("\n", 1)[0]]
+    funcs = [f for f in library_sass() if "grn" in f.split("\n", 1)[0]]
     check(funcs, "no GRN1 function in the library's SASS")
     loops, bad = 0, {}
     for f in funcs:
@@ -5129,11 +5178,14 @@ def shards_phase(card):
 
 # ------------------------------------------------------------------ phase 14
 
-TOL_F64 = 1e-12  # K1, K2, K3 float64 against their plain versions (float64 too), of the output's scale
+TOL_F64 = 1e-12  # the float64 instances against their plain versions (float64 too), of the output's scale
 TOL_F64_CHAIN = 1e-9  # 14b: the float64 kernel chain against the float64 plain chain, of scale
 F64_SWEEPS = 20  # 14b: sweeps of both chains at V=96
-F64_SMALL = dict(n=2_000, p=8_192, sweeps=10)  # 14b at V=1: a smaller panel, the plain scan's loop
+F64_SMALL = dict(n=2_000, p=8_192, sweeps=5)  # 14b at V=1: a smaller panel and 5 sweeps, the plain scans' loops
 F64_RULE = 3  # 14d, 14e: sweeps held by the packed rule
+F64_PATHS_V96 = ("BayesB", "BayesC", "BayesC+D", "BayesPR")  # 14b beside BayesR at V=96
+# 14c beside BayesR at V=96: (path, V); BayesC and BayesLV at V=1, where phase 4 holds their EBV
+F64_REPLAYED = (("BayesB", V_MAIN), ("BayesC", 1), ("BayesC+D", V_MAIN), ("BayesPR", V_MAIN), ("BayesLV", 1))
 
 
 def f64_passes(st):
@@ -5185,12 +5237,15 @@ def f64_scan_rows(st, seed=2):
     return step, make_rows, unif, gen, ms.v_class.numel()
 
 
-def f64_kernels(spec):
-    """14a: the float64 instances of K1, K2 (and K1', K2') and K3 against
-    their plain versions at the main path's shapes, K3 at V=96 and at V=1
-    (K4), within TOL_F64 of scale, delta exact, twice the same bits, timed
-    beside their bounds (the same bytes with the vectors and the Gram in 8
-    bytes, the operations at the float64 rate)."""
+def f64_kernels(spec, spec_w):
+    """14a: the float64 instances of K1, K2 (and K1', K2'), K3, K6, K8 and
+    K10 against their plain versions at the main path's shapes, the scans at
+    V=96 and at V=1 (K4, K5, K7, K9), within TOL_F64 of scale, delta exact,
+    twice the same bits, timed beside their bounds (the same bytes with the
+    vectors, the Gram, the rows and the outputs in 8 bytes, the operations
+    at the float64 rate; K6 also beside the float64 triangular solve). K6
+    and K8 run on the BayesR model's Gram (spec), K10 on the weighted
+    model's two (spec_w)."""
     for V, tag in ((V_MAIN, ""), (1, "_v1")):
         plan, st = ngt.assemble(spec, vshards=V, dtype=torch.float64)
         ms = st.markers[0]
@@ -5206,29 +5261,85 @@ def f64_kernels(spec):
                   lambda pk_t, uu: cdf_near(gram0, pk_t, uu, K),
                   scan_work(V, B, 8 + 4 * K, 1, 2.5, 10 * K, itemsize=8), f"V={V}, B={B}, K={K}, float64",
                   phase="14 f64", tol=TOL_F64, flops=F64_FLOP_PER_S)
+        z = torch.randn(ms.beta.shape[0], generator=gen, dtype=torch.float64, device=DEV)
+        var_e = st.ycorr.var()
+        f64_scan8 = dict(phase="14 f64", tol=TOL_F64, flops=F64_FLOP_PER_S)
+        scan8_kernels(st, z, var_e, unif, gen, tag, **f64_scan8)
         del plan, st, step
+        _, st_w = ngt.assemble(spec_w, vshards=V, dtype=torch.float64)
+        scan8_kernels(st_w, z, var_e, unif, gen, tag, **f64_scan8)
+        del st_w
 
 
-def instance_turns(spec):
-    """14f: K1, K2 and K3 on the card alone on one V=96 step of the main
-    path, the float32 instance (P) and the float64 one (C) in turns P, C, C,
-    P (device_ms, 20 calls a window). Returns {kernel: [P, C, C, P]}."""
+def scan8_build():
+    """14a: what ptxas and the SASS say of K6's, K8's and K10's instances
+    (float32 and float64, blocks of up to 256 and of 1,024 threads):
+    registers, spill bytes, local-memory loads and stores (LDL, STL) and
+    shared-memory loads behind a predicate (@P LDS). A float64 instance may
+    hold no more predicated shared loads than its float32 instance, which
+    loads a row's words before the rule's compare. Returns {instance: ...}."""
+    so = _cuda.build()
+    out, cur = {}, None
+
+    def instance(mangled):
+        m = re.search(r"(GaussRule|BcRule)I([fd])(?:Li(\d)E)?E+Li(\d+)E", mangled)
+        if m is None:
+            return None
+        kernel = {"GaussRule": "K6", "BcRule": "K8" if m.group(3) == "1" else "K10"}[m.group(1)]
+        return f"{kernel} {'f64' if m.group(2) == 'd' else 'f32'} MAXT={m.group(4)}"
+
+    for line in (so.parent / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = instance(m.group(1))
+            if cur:
+                out[cur] = {}
+        elif cur and "spill" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            out[cur].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif cur and "Used" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    for f in library_sass():
+        name = instance(f.split("\n", 1)[0])
+        if name:
+            lines = f.splitlines()
+            out[name]["predicated_lds"] = sum(1 for ln in lines if re.search(r"@!?P\d+\s+LDS\b", ln))
+            out[name]["ldl_stl"] = sum(1 for ln in lines if re.search(r"\b(LDL|STL)\b", ln))
+    check(len(out) == 12 and all(len(v) == 5 for v in out.values()),
+          f"14a: K6/K8/K10 instances in ptxas.log and the SASS: {out}")
+    for name in sorted(out):
+        print(f"[14 f64] {name}: {out[name]}")
+    more = [n for n in out if "f64" in n and out[n]["predicated_lds"] > out[n.replace("f64", "f32")]["predicated_lds"]]
+    check(not more, f"14a: float64 instances with more predicated shared loads than float32: {more}")
+    return out
+
+
+def instance_turns(spec, spec_w):
+    """14f: K1, K2, K3, K6, K8 and K10 on the card alone on one V=96 step
+    of the main path, the float32 instance (P) and the float64 one (C) in
+    turns P, C, C, P (device_ms, 20 calls a window). Returns {kernel: [P,
+    C, C, P]}."""
     arms = {}
     for dt in (torch.float32, torch.float64):
         _, st = ngt.assemble(spec, vshards=V_MAIN, dtype=dt)
+        _, st_w = ngt.assemble(spec_w, vshards=V_MAIN, dtype=dt)
         ms = st.markers[0]
         T, V, B, q = ms.mt.shape
         rows, mt_rows = V * B, ms.mt.view(-1, q)
         y4 = pack2.y_planar(Step0(st).y)
         u = torch.randn(rows, generator=torch.Generator(device=DEV).manual_seed(1), dtype=dt,
                         device=DEV) * 0.01
-        _, make_rows, unif, _, K = f64_scan_rows(st)
+        _, make_rows, unif, gen, K = f64_scan_rows(st)
         pk_t = make_rows(unif)
         arms[dt] = {"K1": lambda m=mt_rows, y=y4, r=rows: pack2.matvec_step(m, 1, y, r),
                     "K2": lambda m=mt_rows, uu=u: pack2.rank_update_step(m, 1, uu),
                     "K3": lambda ms=ms, p=pk_t, k=K: gibbs_kernels.r_block_scan_v((ms.gram, 0), p, k)}
+        z = torch.randn(ms.beta.shape[0], generator=gen, dtype=dt, device=DEV)
+        cases = scan8_cases(st, z, st.ycorr.var())[1] + scan8_cases(st_w, z, st.ycorr.var())[1]
+        for (_, kern, _, rows_of, *_), name in zip(cases, ("K6", "K8", "K10")):
+            arms[dt][name] = lambda kern=kern, p=rows_of(unif): kern(p)
     out = {}
-    for name in ("K1", "K2", "K3"):
+    for name in ("K1", "K2", "K3", "K6", "K8", "K10"):
         out[name] = [device_ms(arms[dt][name], 20)
                      for dt in (torch.float32, torch.float64, torch.float64, torch.float32)]
         shown = ", ".join("not measured" if t is None else f"{t:.4f}" for t in out[name])
@@ -5237,20 +5348,36 @@ def instance_turns(spec):
 
 
 @contextlib.contextmanager
-def plain_bayesr_kernels():
-    """The sweep's K1, K2 and K3 calls (engine/samplers/markers.py calls them
-    through these module attributes) go to their plain versions on the
-    card's tensors: the plain chain of the same stream."""
-    saved = pack2.matvec_step, pack2.rank_update_step, gibbs_kernels.r_block_scan_v
-    pack2.matvec_step = lambda pk_all, t, y4, rows: pack2.matvec_plain(pk_all[t * rows:(t + 1) * rows], y4)
-    pack2.rank_update_step = lambda pk_all, t, u: pack2.rank_update_plain(
-        pk_all[t * u.shape[0]:(t + 1) * u.shape[0]], u)
-    gibbs_kernels.r_block_scan_v = lambda gram_t, pk, K: gibbs_kernels.r_block_scan_v_plain(
-        gram_t[0][gram_t[1]], pk, K)
+def plain_sweep_kernels():
+    """The sweep's six kernels, K1, K2, K3, K6, K8 and K10
+    (engine/samplers/markers.py calls them through these module
+    attributes), go to their plain versions on the card's tensors: the plain
+    chain of the same stream."""
+    def step_of(gram_t):
+        return gram_t[0][gram_t[1]]
+
+    plain = {
+        (pack2, "matvec_step"): lambda pk_all, t, y4, rows: pack2.matvec_plain(
+            pk_all[t * rows:(t + 1) * rows], y4),
+        (pack2, "rank_update_step"): lambda pk_all, t, u: pack2.rank_update_plain(
+            pk_all[t * u.shape[0]:(t + 1) * u.shape[0]], u),
+        (gibbs_kernels, "r_block_scan_v"): lambda gram_t, pk, K: gibbs_kernels.r_block_scan_v_plain(
+            step_of(gram_t), pk, K),
+        (gibbs_kernels, "gauss_block_scan_v"): lambda gram_t, pk: gibbs_kernels.gauss_block_scan_v_plain(
+            step_of(gram_t), pk),
+        (gibbs_kernels, "bc_block_scan_v"): lambda gram_t, pk: gibbs_kernels.bc_block_scan_v_plain(
+            step_of(gram_t), pk),
+        (gibbs_kernels, "bc_block_scan_wv"): lambda gram_t, graw_t, pk: gibbs_kernels.bc_block_scan_wv_plain(
+            step_of(gram_t), step_of(graw_t), pk),
+    }
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        pack2.matvec_step, pack2.rank_update_step, gibbs_kernels.r_block_scan_v = saved
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
 def f64_sweeps(spec, V, n, stream_seed=5, dtype=torch.float64, pack=None):
@@ -5266,30 +5393,33 @@ def f64_sweeps(spec, V, n, stream_seed=5, dtype=torch.float64, pack=None):
     return plan, st, dict(_cuda.LAUNCHES)
 
 
-def f64_chain_vs_plain(spec, V, n, tag):
-    """14b: n float64 sweeps of the kernel chain against the float64 plain
-    chain (plain_bayesr_kernels) on one KeyedStream: delta the same, beta
-    and ycorr within TOL_F64_CHAIN of scale; the kernel chain launches K1,
-    K2 and K3 as float64 alone, the plain chain none of them."""
+def f64_chain_vs_plain(spec, V, n, tag, path="BayesR"):
+    """14b: n float64 sweeps of the path's kernel chain against its float64
+    plain chain (plain_sweep_kernels) on one KeyedStream: delta the same,
+    beta and ycorr within TOL_F64_CHAIN of scale; the kernel chain launches
+    K1, K2 (on packed rows) and the path's scan as float64 alone, and
+    nothing else but R1, the plain chain none of the sweep's kernels."""
+    _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
     plan, st, counted = f64_sweeps(spec, V, n)
     T = plan.markers[0].n_blocks // V
-    path = {"pack2_matvec_f64": n * T, "pack2_rank_update_f64": n * T, "r_block_scan_v_f64": n * T}
-    f32 = ("pack2_matvec", "pack2_rank_update", "r_block_scan_v")
-    check(all(counted[k] == c for k, c in path.items()) and not any(counted[k] for k in f32),
-          f"{tag}: kernel chain launches {counted}")
+    path_kernels = {"pack2_matvec_f64": gathers * n * T, "pack2_rank_update_f64": n * T, scan + "_f64": n * T}
+    expect = {k: 0 for k in counted}
+    expect.update(path_kernels, keyed_rng=counted["keyed_rng"])
+    check(counted == expect, f"{tag}: kernel chain launches {counted}")
     t0 = time.perf_counter()
-    with plain_bayesr_kernels():
+    with plain_sweep_kernels():
         _, sp, plain_counted = f64_sweeps(spec, V, n)
     plain_s = time.perf_counter() - t0
-    check(not any(plain_counted[k] for k in (*path, *f32)), f"{tag}: the plain chain launched {plain_counted}")
+    check(not any(v for k, v in plain_counted.items() if k != "keyed_rng"),
+          f"{tag}: the plain chain launched {plain_counted}")
     mk, mp_ = st.markers[0], sp.markers[0]
     e_b, s_b = rel_err(mk.beta, mp_.beta)
     e_y, s_y = rel_err(st.ycorr, sp.ycorr)
     same = torch.equal(mk.delta, mp_.delta)
     print(f"[14 {tag}] {n} float64 sweeps of one KeyedStream, kernel chain against plain chain: beta "
           f"{e_b:.3e} of scale {s_b:.3e}, ycorr {e_y:.3e} of scale {s_y:.3e} (limit {TOL_F64_CHAIN:g} x "
-          f"scale), delta {'identical' if same else 'DIFFERS'} ({int((mk.delta > 0).sum())} loci in a "
-          f"non-null class); the plain chain took {plain_s:.1f} s; kernel launches {path}")
+          f"scale), delta {'identical' if same else 'DIFFERS'} ({int((mk.delta > 0).sum())} loci with "
+          f"delta > 0); the plain chain took {plain_s:.1f} s; kernel launches {path_kernels}")
     check(same, f"{tag}: delta differs between the float64 kernel and plain chains")
     check(e_b <= TOL_F64_CHAIN * s_b and e_y <= TOL_F64_CHAIN * s_y,
           f"{tag}: the float64 kernel chain departs from the float64 plain chain")
@@ -5320,63 +5450,97 @@ def replay_turns(spec):
     return out
 
 
-def bayesr_spec(geno, y):
-    """BayesR (estimatePi) over dosages on the card (from_device_array:
-    packed by assemble, or int8 rows under pack2=False), as phase 4's."""
-    return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(geno.shape[0]))],
-                         markers=[ngt.MarkerTerm("M1", ngt.from_device_array(geno), ngt.BayesR(**PRIOR_R))],
-                         block_size=BLOCK)
+def method_spec(geno, y, path, prior=None):
+    """The path's model over dosages on the card (from_device_array: packed
+    by assemble, or int8 rows under pack2=False), as phase 4's (the weighted
+    residual of simulate for "+D"); prior, where given, replaces the path's
+    (BayesLV's covariates on another panel's loci)."""
+    path_prior, weighted = {**PATHS, **EXTRA_PATHS}[path][:2]
+    n = geno.shape[0]
+    return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))],
+                         markers=[ngt.MarkerTerm("M1", ngt.from_device_array(geno), prior or path_prior)],
+                         residual=ngt.RandomEffect(np.random.default_rng(3).uniform(0.5, 2.0, n), 1.0)
+                         if weighted else None, block_size=BLOCK)
 
 
 def f64_phase():
-    """14: float64 on the card through K1, K2 and K3's float64 instances, at
-    bench.py:131-144's configuration (10,000 x 49,152, packed, V=96,
-    estimatePi; phase 4's simulated panel, kept as int8 dosages on the card
-    so that the same data also runs on int8 rows), nothing cut: (a) the
-    kernels against their plain versions;
-    (b) 20 float64 sweeps of the kernel chain against the float64 plain
-    chain on one KeyedStream, and 10 at V=1 on a 2,000 x 8,192 panel; (c)
-    100 float64 sweeps through run_lmem, eager and replayed with the same
-    bits, drift < 1e-9 of max|y|, EBV >= 0.95; (d) the float32 kernel chain
-    held to the float64 one by the packed rule after 3 sweeps; (e) float64
-    on int8 rows (pack2=False) held to the packed float64 chain by the same
-    rule; (f) in turns f32 / f64 / f64 / f32, K1, K2 and K3 on the card alone
-    and the replayed sweep. Returns (numbers, launches by run)."""
+    """14: float64 on the card through the float64 instances of K1, K2, K3,
+    K6, K8 and K10, at bench.py:131-144's configuration (10,000 x 49,152,
+    packed, V=96, estimatePi; phase 4's simulated panel, kept as int8
+    dosages on the card so that the same data also runs on int8 rows),
+    nothing cut: (a) the kernels against their plain versions, and what
+    ptxas and the SASS say of K6's, K8's and K10's instances; (b) 20 float64
+    sweeps of the kernel chain against the float64 plain chain on one
+    KeyedStream for BayesR, BayesB, BayesC, BayesC+D and BayesPR at V=96,
+    and 5 at V=1 on a 2,000 x 8,192 panel for BayesR and BayesLV (BayesLV
+    departs from its V=1 chain at V=96 by design); (c) 100 float64 sweeps
+    of BayesR, BayesB, BayesC+D, BayesPR (V=96), BayesC and BayesLV (V=1)
+    through run_lmem, eager and replayed with the same bits, drift < 1e-9
+    of max|y|, phase 4's EBV and varE limits where it has them; (d) the
+    float32 BayesR kernel chain held to the float64 one by the packed rule
+    after 3 sweeps; (e) float64 on int8 rows (pack2=False) held to the
+    packed float64 chain by the same rule, for BayesR and BayesC+D; (f) in
+    turns f32 / f64 / f64 / f32, K1, K2, K3, K6, K8 and K10 on the card
+    alone and the replayed BayesR sweep. Returns (numbers, launches by
+    run)."""
     t0 = time.perf_counter()
     out, counted = {}, {}
     geno, _, y, sig, _ = simulate_panel()
-    spec = bayesr_spec(geno, y)
-    f64_kernels(spec)
+    spec, spec_w = method_spec(geno, y, "BayesR"), method_spec(geno, y, "BayesC+D")
+    out["14a build"] = scan8_build()
+    f64_kernels(spec, spec_w)
     counted["f64 V=96"], out["14b V=96"] = f64_chain_vs_plain(spec, V_MAIN, F64_SWEEPS, f"f64 V={V_MAIN}")
-    small, _, y_small, _, _ = simulate_panel(F64_SMALL["n"], F64_SMALL["p"])
+    for path in F64_PATHS_V96:
+        counted[f"f64 {path} V={V_MAIN}"], out[f"14b {path} V=96"] = f64_chain_vs_plain(
+            spec_w if path == "BayesC+D" else method_spec(geno, y, path), V_MAIN, F64_SWEEPS,
+            f"f64 {path} V={V_MAIN}", path)
+    n_s, p_s = F64_SMALL["n"], F64_SMALL["p"]
+    small, _, y_small, _, _ = simulate_panel(n_s, p_s)
     counted["f64 V=1"], out["14b V=1"] = f64_chain_vs_plain(
-        bayesr_spec(small, y_small), 1, F64_SMALL["sweeps"], f"f64 V=1 {F64_SMALL['n']:,} x {F64_SMALL['p']:,}")
+        method_spec(small, y_small, "BayesR"), 1, F64_SMALL["sweeps"], f"f64 V=1 {n_s:,} x {p_s:,}")
+    lv_small = ngt.BayesLV(V_LV, annotations(p_s)[1], VZETA_LV)
+    counted["f64 BayesLV V=1"], out["14b BayesLV V=1"] = f64_chain_vs_plain(
+        method_spec(small, y_small, "BayesLV", lv_small), 1, F64_SMALL["sweeps"],
+        f"f64 BayesLV V=1 {n_s:,} x {p_s:,}", "BayesLV")
     del small
     rec = graph_path("BayesR", spec, sig, V_MAIN, N_CHAIN, N_BURN, N_THIN, EBV_LIMITS[("BayesR", V_MAIN)],
                      tag=" f64", dtype=torch.float64, phase="14", drift_limit=1e-9)
     counted[f"f64 keyed V={V_MAIN}"] = rec.pop("eager_launches")
     out["14c"] = rec
+    for path, V in F64_REPLAYED:
+        rec = graph_path(path, spec_w if path == "BayesC+D" else method_spec(geno, y, path), sig, V, N_CHAIN,
+                         N_BURN, N_THIN, EBV_LIMITS.get((path, V)), tag=" f64", dtype=torch.float64, phase="14",
+                         drift_limit=1e-9, var_e_limit=VAR_E_LIMITS.get((path, V)),
+                         n_window=50 if V == V_MAIN else 20)
+        counted[f"f64 keyed {path} V={V}"] = rec.pop("eager_launches")
+        out[f"14c {path} V={V}"] = rec
     plan64, st64, _ = f64_sweeps(spec, V_MAIN, F64_RULE)
     _, st32, _ = f64_sweeps(spec, V_MAIN, F64_RULE, dtype=torch.float32)
     out["14d"] = packed_rule("float32 / float64 kernel chains", (st32.markers[0].beta, st32.ycorr),
                              (st64.markers[0].beta, st64.ycorr), phase="14")
-    _, st8, counted["f64 int8"] = f64_sweeps(spec, V_MAIN, F64_RULE, pack=False)
-    check(st8.markers[0].mt.dtype == torch.int8 and counted["f64 int8"]["r_block_scan_v_f64"] > 0
-          and not counted["f64 int8"]["pack2_matvec_f64"], f"14e: int8 launches {counted['f64 int8']}")
-    out["14e"] = packed_rule("float64 int8 / packed chains", (st8.markers[0].beta, st8.ycorr),
-                             (st64.markers[0].beta, st64.ycorr), phase="14")
-    e_y, s_y = rel_err(st8.ycorr, st64.ycorr)
-    print(f"[14 f64 int8 / packed] ycorr {e_y:.3e} of scale {s_y:.3e} apart after {F64_RULE} sweeps")
+    for path, sp, scan in (("BayesR", spec, "r_block_scan_v_f64"), ("BayesC+D", spec_w, "bc_block_scan_wv_f64")):
+        key = "f64 int8" if path == "BayesR" else f"f64 {path} int8"
+        _, st8, counted[key] = f64_sweeps(sp, V_MAIN, F64_RULE, pack=False)
+        _, stp, _ = (None, st64, None) if path == "BayesR" else f64_sweeps(sp, V_MAIN, F64_RULE)
+        check(st8.markers[0].mt.dtype == torch.int8 and counted[key][scan] > 0
+              and not counted[key]["pack2_matvec_f64"] and not counted[key]["pack2_rank_update_f64"],
+              f"14e: {path} int8 launches {counted[key]}")
+        out["14e" if path == "BayesR" else f"14e {path}"] = packed_rule(
+            f"float64 {path} int8 / packed chains", (st8.markers[0].beta, st8.ycorr),
+            (stp.markers[0].beta, stp.ycorr), phase="14")
+        e_y, s_y = rel_err(st8.ycorr, stp.ycorr)
+        print(f"[14 f64 {path} int8 / packed] ycorr {e_y:.3e} of scale {s_y:.3e} apart after {F64_RULE} sweeps")
+        del st8, stp
     _cuda.reset_launches()
     gv = ngt.genomic_values_state(plan64, st64)
     torch.cuda.synchronize()
     counted["f64 serving"] = dict(_cuda.LAUNCHES)
     check(gv.dtype == torch.float64 and counted["f64 serving"]["pack2_rank_update_f64"] == 1,
           f"14: serving in float64 launches {counted['f64 serving']}")
-    del plan64, st64, st32, st8, gv
-    out["14f kernels"] = instance_turns(spec)
+    del plan64, st64, st32, gv
+    out["14f kernels"] = instance_turns(spec, spec_w)
     out["14f replayed"] = replay_turns(spec)
-    del geno, spec
+    del geno, spec, spec_w
     out["seconds"] = time.perf_counter() - t0
     print(f"[14 f64] phase 14 in {out['seconds']:.1f} s")
     return out, counted
@@ -5406,7 +5570,18 @@ GRN_RUNS = ("GRN f32 eager", "GRN f32 replayed", "GRN f32 eager wide", "GRN f32 
 SHARD_MESH = tuple(f"shards 2x2 rank{r}" for r in range(4)) + tuple(f"shards run_chains rank{r}" for r in range(4))
 SHARD_CORR = ("shards corr rank0", "shards corr rank1")
 SHARD_RUNS = ("shards NCCL 1x1",) + SHARD_MESH
-F64_PATH_RUNS = ("f64 V=96", "f64 V=1", f"f64 keyed V={V_MAIN}")  # phase 14's runs on packed rows
+# phase 14's runs: BayesR's and the other paths' (14b, 14c), all on packed rows
+F64_R_RUNS = ("f64 V=96", "f64 V=1", f"f64 keyed V={V_MAIN}")
+F64_OTHER_RUNS = (tuple(f"f64 {p} V={V_MAIN}" for p in F64_PATHS_V96) + ("f64 BayesLV V=1",)
+                  + tuple(f"f64 keyed {p} V={V}" for p, V in F64_REPLAYED))
+F64_PATH_RUNS = F64_R_RUNS + F64_OTHER_RUNS
+
+
+def f64_runs(path, V):
+    """Phase 14's runs of a path at V (V_MAIN, or 1 for V=1)."""
+    return tuple(r for r in F64_OTHER_RUNS if r.split()[-2] == path and r.endswith(f"V={V}"))
+
+
 # kernels-line name -> (source, the TPU kernel it replaces, its launch counter,
 # the runs whose launches count for it). The single-chain scans (K4, K5, K7,
 # K9, K11, K13) are the V=1 launches of the batched kernels; K1' and K2' are
@@ -5472,6 +5647,16 @@ SOURCES = {
     "r_block_scan_v_f64": (CU + "r_scan.cu", GK + "518", "r_block_scan_v_f64",
                            ("f64 V=96", f"f64 keyed V={V_MAIN}", "f64 int8")),
     "r_block_scan_v_v1_f64": (CU + "r_scan.cu", GK + "265", "r_block_scan_v_f64", ("f64 V=1",)),
+    # K10 in float64 at V=1 runs on no path, so it is timed in phase 14 and left out of this line
+    "gauss_block_scan_v_f64": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v_f64",
+                               f64_runs("BayesPR", V_MAIN)),
+    "gauss_block_scan_v_v1_f64": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v_f64",
+                                  f64_runs("BayesLV", 1)),
+    "bc_block_scan_v_f64": (CU + "gauss_bc_scan.cu", GK + "422", "bc_block_scan_v_f64",
+                            f64_runs("BayesB", V_MAIN) + f64_runs("BayesC", V_MAIN)),
+    "bc_block_scan_v_v1_f64": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v_f64", f64_runs("BayesC", 1)),
+    "bc_block_scan_wv_f64": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv_f64",
+                             f64_runs("BayesC+D", V_MAIN) + ("f64 BayesC+D int8",)),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of "
@@ -5507,6 +5692,14 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
          "r_block_scan_v_f64": "K3's float64 instance (ngt_r_block_scan_v_f64); launches from phase 14's "
                                "float64 runs, the replayed one counted at capture",
          "r_block_scan_v_v1_f64": "K4 in float64: K3's float64 instance at V = 1",
+         "gauss_block_scan_v_f64": "K6's float64 instance (ngt_gauss_block_scan_v_f64); launches from "
+                                   "phase 14's float64 BayesPR runs, the replayed one counted at capture",
+         "gauss_block_scan_v_v1_f64": "K5 in float64: K6's float64 instance at V = 1, BayesLV's",
+         "bc_block_scan_v_f64": "K8's float64 instance (ngt_bc_block_scan_v_f64); launches from phase 14's "
+                                "float64 BayesB and BayesC runs",
+         "bc_block_scan_v_v1_f64": "K7 in float64: K8's float64 instance at V = 1, BayesC's",
+         "bc_block_scan_wv_f64": "K10's float64 instance (ngt_bc_block_scan_wv_f64); launches from phase "
+                                 "14's float64 BayesC+D runs on packed and int8 rows",
          "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
                       "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
                       "sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:877-878, "

@@ -43,36 +43,76 @@
 //
 // Padded loci carry q0 = +inf and a uniform at 0 gives w = +inf, so the
 // comparison must stay IEEE: no fast-math.
+//
+// Float64 (`ngt_*_f64`): the same rules and skeleton on double Grams, rows,
+// beta and u (delta stays int32), one body templated on the element type. A
+// row is 64 bytes, read as four 16-byte words, every one loaded before the
+// rule's compare. In both types the compare's last multiply and its add are
+// contracted into one FMA, where the plain version rounds twice. The tiles
+// and the staged rows take twice the shared memory (46 KB at B = 1,024 with
+// two Grams), and a thread's prefetched Gram rows twice the registers: 64 a
+// Gram. Up to 256 threads no instance spills; at 1,024 every float64
+// instance spills part of its prefetched rows (K10's most).
 #include "scan_skeleton.cuh"
 
 namespace {
 
 constexpr int kW = 8;  // coefficient row width
 
+// T: float or double, the type of the Gram, the rows, beta and u.
+template <typename T>
 struct Params8 {
-  const float* pk;  // (V, B, 8)
-  float* beta;      // (V, B)
-  float* u;         // (V, B)
-  int* delta;       // (V, B); none for the Gaussian scan
-  bool wide;        // pk is 16-byte aligned
+  const T* pk;  // (V, B, 8)
+  T* beta;      // (V, B)
+  T* u;         // (V, B)
+  int* delta;   // (V, B); none for the Gaussian scan
+  bool wide;    // pk is 16-byte aligned
 };
+
+// A staged row's eight elements from 16-byte words: two in float, four in
+// double.
+__device__ __forceinline__ void load_row8(float (&s)[kW], const float* at) {
+  const float4* w = reinterpret_cast<const float4*>(at);
+  const float4 lo = w[0], hi = w[1];
+  s[0] = lo.x;
+  s[1] = lo.y;
+  s[2] = lo.z;
+  s[3] = lo.w;
+  s[4] = hi.x;
+  s[5] = hi.y;
+  s[6] = hi.z;
+  s[7] = hi.w;
+}
+
+__device__ __forceinline__ void load_row8(double (&s)[kW], const double* at) {
+  const double2* w = reinterpret_cast<const double2*>(at);
+  double2 q[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) q[c] = w[c];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    s[2 * c] = q[c].x;
+    s[2 * c + 1] = q[c].y;
+  }
+}
 
 // What the rules share: the thread's own offsets (slot 0, and slot 7 for the
 // raw Gram), the group's rows in one of two slots of 32 rows, beta and u.
-template <int G>
+template <typename T, int G>
 struct Rows8 {
   static constexpr int kGrams = G;
-  using Params = Params8;
+  using Real = T;
+  using Params = Params8<T>;
 
   Params p;
-  const float* pkv;
-  float* sm;     // two slots of 32 rows
+  const T* pkv;
+  T* sm;         // two slots of 32 rows
   int slot = 0;  // of the group that runs
   int v, B;
-  float s0 = 0.f, s7 = 0.f;
-  float beta = 0.f, uo = 0.f;
+  T s0 = T(0), s7 = T(0);
+  T beta = T(0), uo = T(0);
 
-  __device__ __forceinline__ Rows8(const Params& prm, float* smem, int v_, int B_, int i)
+  __device__ __forceinline__ Rows8(const Params& prm, T* smem, int v_, int B_, int i)
       : p(prm), sm(smem), v(v_), B(B_) {
     pkv = p.pk + (size_t)v * B * kW;
     if (i < B) {
@@ -81,8 +121,8 @@ struct Rows8 {
     }
   }
 
-  __device__ __forceinline__ float start(int g) const { return g == 0 ? s0 : s7; }
-  __device__ __forceinline__ float u() const { return uo; }
+  __device__ __forceinline__ T start(int g) const { return g == 0 ? s0 : s7; }
+  __device__ __forceinline__ T u() const { return uo; }
 
   __device__ __forceinline__ void stage(int slot, int j0, int lane) {
     const int nj = min(32, B - j0);
@@ -91,13 +131,11 @@ struct Rows8 {
 
   __device__ __forceinline__ void begin_group(int slot_, int, int, int) { slot = slot_; }
 
-  // Locus jj's staged row as two 16-byte words, [adj, bold, s2, s3] and
-  // [s4, s5, s6, adj_raw]: every word the rule may need is in a register
-  // before the rule's compare, none is loaded behind it.
-  __device__ __forceinline__ void row(int jj, float4& lo, float4& hi) const {
-    const float4* s = reinterpret_cast<const float4*>(sm + (slot * 32 + jj) * kW);
-    lo = s[0];
-    hi = s[1];
+  // Locus jj's staged row, [adj, bold, s2, s3, s4, s5, s6, adj_raw], as
+  // broadcast 16-byte words: every element the rule may need is in a
+  // register before the rule's compare, none is loaded behind it.
+  __device__ __forceinline__ void row(int jj, T (&s)[kW]) const {
+    load_row8(s, sm + (slot * 32 + jj) * kW);
   }
 
   __device__ __forceinline__ void write(int i) const {
@@ -108,37 +146,38 @@ struct Rows8 {
 };
 
 // K6: beta = c + b * pre.
-struct GaussRule : Rows8<1> {
-  using Rows8::Rows8;
+template <typename T>
+struct GaussRule : Rows8<T, 1> {
+  using Rows8<T, 1>::Rows8;
 
-  __device__ __forceinline__ float locus(int, int jj, const float (&pre)[1], float, int lane) {
-    float4 lo, hi;
-    row(jj, lo, hi);
-    const float bnew = lo.w + lo.z * pre[0];
-    const float uj = lo.y - bnew;
+  __device__ __forceinline__ T locus(int, int jj, const T (&pre)[1], T, int lane) {
+    T s[kW];
+    this->row(jj, s);
+    const T bnew = s[3] + s[2] * pre[0];
+    const T uj = s[1] - bnew;
     if (lane == jj) {
-      beta = bnew;
-      uo = uj;
+      this->beta = bnew;
+      this->uo = uj;
     }
     return uj;
   }
 
-  __device__ __forceinline__ void finish(int i) const { write(i); }
+  __device__ __forceinline__ void finish(int i) const { this->write(i); }
 };
 
 // K8 (G = 1) and K10 (G = 2, the indicator from the raw Gram's sum).
-template <int G>
-struct BcRule : Rows8<G> {
-  using Rows8<G>::Rows8;
+template <typename T, int G>
+struct BcRule : Rows8<T, G> {
+  using Rows8<T, G>::Rows8;
   int delta = 0;
 
-  __device__ __forceinline__ float locus(int, int jj, const float (&pre)[G], float, int lane) {
-    float4 lo, hi;
-    this->row(jj, lo, hi);
-    const float prer = pre[G - 1];
-    const bool inc = lo.z + lo.w * prer * prer < hi.x;
-    const float bnew = inc ? hi.z + hi.y * pre[0] : 0.f;
-    const float uj = lo.y - bnew;
+  __device__ __forceinline__ T locus(int, int jj, const T (&pre)[G], T, int lane) {
+    T s[kW];
+    this->row(jj, s);
+    const T prer = pre[G - 1];
+    const bool inc = s[2] + s[3] * prer * prer < s[4];
+    const T bnew = inc ? s[6] + s[5] * pre[0] : T(0);
+    const T uj = s[1] - bnew;
     if (lane == jj) {
       this->beta = bnew;
       this->uo = uj;
@@ -156,8 +195,9 @@ struct BcRule : Rows8<G> {
 template <class Rule>
 int launch(const void* gram, const void* graw, const void* pk, void* beta, void* u, void* delta,
            long long V, long long B, void* stream) {
-  const Params8 prm{(const float*)pk, (float*)beta, (float*)u, (int*)delta,
-                    (reinterpret_cast<uintptr_t>(pk) & 15) == 0};
+  using T = typename Rule::Real;
+  const Params8<T> prm{(const T*)pk, (T*)beta, (T*)u, (int*)delta,
+                       (reinterpret_cast<uintptr_t>(pk) & 15) == 0};
   return ngt::scan::launch<Rule>(gram, graw, prm, V, B, (size_t)(2 * 32 * kW), stream);
 }
 
@@ -168,20 +208,37 @@ extern "C" {
 // gram, graw: (B, V, B) f32 (already offset to step t); pk: (V, B, 8) f32;
 // beta, u: (V, B) f32; delta: (V, B) int32. 1 <= B <= 1024 (shared memory:
 // the skeleton's and two groups' rows, 15 KB at B = 1,024 with one Gram and
-// 23 KB with two).
+// 23 KB with two; gibbs_kernels.scan8_smem_bytes states the sums).
 int ngt_gauss_block_scan_v(const void* gram, const void* pk, void* beta, void* u, long long V,
                            long long B, void* stream) {
-  return launch<GaussRule>(gram, nullptr, pk, beta, u, nullptr, V, B, stream);
+  return launch<GaussRule<float>>(gram, nullptr, pk, beta, u, nullptr, V, B, stream);
 }
 
 int ngt_bc_block_scan_v(const void* gram, const void* pk, void* beta, void* u, void* delta,
                         long long V, long long B, void* stream) {
-  return launch<BcRule<1>>(gram, nullptr, pk, beta, u, delta, V, B, stream);
+  return launch<BcRule<float, 1>>(gram, nullptr, pk, beta, u, delta, V, B, stream);
 }
 
 int ngt_bc_block_scan_wv(const void* gram, const void* graw, const void* pk, void* beta, void* u,
                          void* delta, long long V, long long B, void* stream) {
-  return launch<BcRule<2>>(gram, graw, pk, beta, u, delta, V, B, stream);
+  return launch<BcRule<float, 2>>(gram, graw, pk, beta, u, delta, V, B, stream);
+}
+
+// The same with gram, graw, pk, beta and u f64 (delta int32): twice the
+// shared memory, 29 KB at B = 1,024 with one Gram and 46 KB with two.
+int ngt_gauss_block_scan_v_f64(const void* gram, const void* pk, void* beta, void* u, long long V,
+                               long long B, void* stream) {
+  return launch<GaussRule<double>>(gram, nullptr, pk, beta, u, nullptr, V, B, stream);
+}
+
+int ngt_bc_block_scan_v_f64(const void* gram, const void* pk, void* beta, void* u, void* delta,
+                            long long V, long long B, void* stream) {
+  return launch<BcRule<double, 1>>(gram, nullptr, pk, beta, u, delta, V, B, stream);
+}
+
+int ngt_bc_block_scan_wv_f64(const void* gram, const void* graw, const void* pk, void* beta,
+                             void* u, void* delta, long long V, long long B, void* stream) {
+  return launch<BcRule<double, 2>>(gram, graw, pk, beta, u, delta, V, B, stream);
 }
 
 }  // extern "C"

@@ -776,32 +776,27 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
 
 
 # The card's kernels that a term runs through and that have no float64
-# instance yet (K1, K2 and K3, BayesR's path, have one; so have R1, CG1 and
-# GRN1).
-_F32_ONLY = {METHOD_PR: "K6 (gauss_block_scan_v)", METHOD_LV: "K6 (gauss_block_scan_v)",
-             METHOD_B: "K8 (bc_block_scan_v)", METHOD_C: "K8 (bc_block_scan_v)",
-             METHOD_RCPI: "K12 (rcpi_block_scan_v)", METHOD_RCPLUS: "K14 (rcplus_block_scan_v)"}
-_F32_ONLY_WEIGHTED_BC = "K10 (bc_block_scan_wv)"
+# instance yet (K1, K2 and K3, BayesR's path, have one; so have K6, K8 and
+# K10, BayesPR's, BayesLV's and BayesB/C's with or without a weighted
+# residual, and R1, CG1 and GRN1).
+_F32_ONLY = {METHOD_RCPI: "K12 (rcpi_block_scan_v)", METHOD_RCPLUS: "K14 (rcplus_block_scan_v)"}
 
 
 def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
     """Refuse a float64 model on a CUDA device where a kernel without a
-    float64 instance would meet it mid-sweep: marker sets of every method
-    but BayesR (K6, K8, K10, K12, K14), correlated marker sets (CM1, CM1r)
-    and random terms drawn by a per-level scan (RE1, RE2). BayesR marker
-    sets (any storage, any V: K1, K2, K3), CG terms and fixed effects run
-    in float64 on the card."""
+    float64 instance would meet it mid-sweep: BayesRCpi and BayesRCplus
+    marker sets (K12, K14), correlated marker sets (CM1, CM1r) and random
+    terms drawn by a per-level scan (RE1, RE2). Marker sets of BayesR,
+    BayesB, BayesC (weighted residual or not), BayesPR and BayesLV (any
+    storage, any V: K1, K2, K3, K6, K8, K10), CG terms and fixed effects
+    run in float64 on the card."""
     if torch.device(device).type != "cuda" or dtype != torch.float64:
         return
-    res = spec.residual
-    weighted = res is not None and isinstance(res.str_, (list, np.ndarray))
     needs = []
     for t in spec.markers:
         method = _method_of(t.prior, t.name)
         if method in _F32_ONLY:
-            kernel = (_F32_ONLY_WEIGHTED_BC if weighted and method in (METHOD_B, METHOD_C)
-                      else _F32_ONLY[method])
-            needs.append(f"marker set {t.name!r} ({method}) runs through {kernel}")
+            needs.append(f"marker set {t.name!r} ({method}) runs through {_F32_ONLY[method]}")
     for t in spec.corr_markers:
         needs.append(f"correlated marker set {t.names} runs through CM1 (corr_block_scan_v) "
                      "and CM1r (corr_rule)")
@@ -833,11 +828,12 @@ def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
     version of its card path, and the JAX chain is the same for packed and
     int8 storage. Correlated marker sets have no switch: packed when every
     set can be.
-    float64 on a CUDA device runs BayesR marker sets (packed, int8 or float
-    rows, any V), CG terms and fixed effects; it raises (check_card_dtype)
-    where a term needs a kernel with a float32 instance only (any other
-    marker method, a correlated marker set, a scan random term), before
-    anything is placed on the card.
+    float64 on a CUDA device runs BayesR, BayesB, BayesC (weighted
+    residual or not), BayesPR and BayesLV marker sets (packed, int8 or
+    float rows, any V), CG terms and fixed effects; it raises
+    (check_card_dtype) where a term needs a kernel with a float32 instance
+    only (a BayesRCpi or BayesRCplus marker set, a correlated marker set, a
+    scan random term), before anything is placed on the card.
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "pack2_matvec_f64": 0, "pack2_rank_update_f64": 0, "r_block_scan_v_f64": 0,
             "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
+            "gauss_block_scan_v_f64": 0, "bc_block_scan_v_f64": 0, "bc_block_scan_wv_f64": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
             "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0,
@@ -117,6 +118,9 @@ def lib() -> ctypes.CDLL:
         L.ngt_gauss_block_scan_v.argtypes = [P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_v.argtypes = [P, P, P, P, P, I, I, S]
         L.ngt_bc_block_scan_wv.argtypes = [P, P, P, P, P, P, I, I, S]
+        L.ngt_gauss_block_scan_v_f64.argtypes = L.ngt_gauss_block_scan_v.argtypes
+        L.ngt_bc_block_scan_v_f64.argtypes = L.ngt_bc_block_scan_v.argtypes
+        L.ngt_bc_block_scan_wv_f64.argtypes = L.ngt_bc_block_scan_wv.argtypes
         L.ngt_rcpi_block_scan_v.argtypes = [P] * 7 + [I] * 4 + [S]
         L.ngt_rcplus_block_scan_v.argtypes = [P] * 8 + [I] * 4 + [S]
         L.ngt_gather_width.argtypes = [P, P, P, I, I, I, I, S]
@@ -140,6 +144,8 @@ def lib() -> ctypes.CDLL:
         for fn in (L.ngt_pack2_matvec, L.ngt_pack2_rank_update, L.ngt_r_block_scan_v,
                    L.ngt_pack2_matvec_f64, L.ngt_pack2_rank_update_f64, L.ngt_r_block_scan_v_f64,
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
+                   L.ngt_gauss_block_scan_v_f64, L.ngt_bc_block_scan_v_f64,
+                   L.ngt_bc_block_scan_wv_f64,
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
                    L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_keyed_rng_f64,

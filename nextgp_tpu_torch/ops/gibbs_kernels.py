@@ -447,24 +447,41 @@ def r_block_scan_v(gram_t, pk, n_classes):
     return r_block_scan_v_plain(_step(gram_t, False), pk, K)
 
 
+def scan8_smem_bytes(B, grams, itemsize=4):
+    """Shared memory one block of K6, K8 (grams = 1) or K10 (grams = 2)
+    needs, as `csrc/gauss_bc_scan.cu` lays it out after the skeleton's: two
+    groups' rows (2 x 32 rows of 8 elements). itemsize: 4 for the float32
+    instances, 8 for float64, whose every element takes 8 bytes: 14,592 and
+    23,040 bytes at B = 1,024 in float32, 29,184 and 46,080 in float64."""
+    return itemsize * (_skeleton_words(B, grams) + 2 * 32 * 8)
+
+
+def _scan8(name, grams, pk, more_outs):
+    """K6, K8 and K10: the float32 instance, or the float64 one where the
+    Gram(s) and pk are all float64 (counted as `<name>_f64`)."""
+    B = pk.shape[1]
+    _cuda.require(scan8_smem_bytes(B, len(grams), pk.element_size()) <= SMEM_BYTES,
+                  f"{name}: B={B}: the scan's shared memory exceeds a block's")
+    return _launch(name, lambda L: getattr(L, f"ngt_{name}"), grams, pk, 8, more_outs,
+                   entry_f64=lambda L: getattr(L, f"ngt_{name}_f64"))
+
+
 def gauss_block_scan_v(gram_t, pk):
     """V-batched Gaussian scan (K6), BayesPR and BayesLV. gram_t as for
     r_block_scan_v; pk (V, B, 8). Returns beta (V, B), u (V, B). The kernel
-    stages each group's 32 rows as it goes (the skeleton's shared memory and
-    2 KB of rows: 15 KB at B = 1,024)."""
+    stages each group's 32 rows as it goes (scan8_smem_bytes). It has a
+    float32 and a float64 instance (gram and pk in one of them)."""
     if pk.is_cuda:
-        return _launch("gauss_block_scan_v", lambda L: L.ngt_gauss_block_scan_v,
-                       [_step(gram_t, True)], pk, 8, [])
+        return _scan8("gauss_block_scan_v", [_step(gram_t, True)], pk, [])
     return gauss_block_scan_v_plain(_step(gram_t, False), pk)
 
 
 def bc_block_scan_v(gram_t, pk):
     """V-batched BayesB/C scan (K8): K10's rule with one Gram, whose sum
     both draws the indicator and gives beta. Returns beta, u, delta (V, B);
-    shared memory as for gauss_block_scan_v."""
+    shared memory and instances as for gauss_block_scan_v."""
     if pk.is_cuda:
-        return _launch("bc_block_scan_v", lambda L: L.ngt_bc_block_scan_v, [_step(gram_t, True)],
-                       pk, 8, _DELTA)
+        return _scan8("bc_block_scan_v", [_step(gram_t, True)], pk, _DELTA)
     return bc_block_scan_v_plain(_step(gram_t, False), pk)
 
 
@@ -472,12 +489,12 @@ def bc_block_scan_wv(gram_t, graw_t, pk):
     """V-batched weighted BayesB/C scan (K10): two Gram streams, the
     weighted gram_t and the raw graw_t, each a (B, V, B) block or a
     step-indexed pair; the raw sum draws the indicator, the weighted one
-    gives beta. Returns beta, u, delta (V, B). The kernel's shared
-    memory (the skeleton's with two Grams and two groups' rows, 23 KB at
-    B = 1,024) fits whatever B the scans take."""
+    gives beta. Returns beta, u, delta (V, B). The kernel's shared memory
+    (the skeleton's with two Grams and two groups' rows, scan8_smem_bytes)
+    fits whatever B the scans take, in float32 and in float64 (both Grams
+    and pk float64)."""
     if pk.is_cuda:
-        return _launch("bc_block_scan_wv", lambda L: L.ngt_bc_block_scan_wv,
-                       [_step(gram_t, True), _step(graw_t, True)], pk, 8, _DELTA)
+        return _scan8("bc_block_scan_wv", [_step(gram_t, True), _step(graw_t, True)], pk, _DELTA)
     return bc_block_scan_wv_plain(_step(gram_t, False), _step(graw_t, False), pk)
 
 

@@ -302,9 +302,11 @@ def run_lmem(
     model is assembled and swept (the card unless "cpu"; without a card
     this raises before the output folder is touched). `dtype`: float32 on
     the card and float64 on the CPU unless given; float64 on the card runs
-    BayesR marker sets (packed, int8 or float rows, any V), CG terms and
-    fixed effects, and raises before the output folder is touched where a
-    term needs a kernel with a float32 instance only (`check_card_dtype`).
+    BayesR, BayesB, BayesC (weighted residual or not), BayesPR and BayesLV
+    marker sets (packed, int8 or float rows, any V), CG terms and fixed
+    effects, and raises before the output folder is touched where a term
+    needs a kernel with a float32 instance only (`check_card_dtype`:
+    BayesRCpi, BayesRCplus, correlated marker sets, scan random terms).
 
     checkpoint_every=k writes `<out_folder>/chain.ckpt` every k kept samples
     (atomic, exact-resume: every draw is keyed by its sweep, io/checkpoint.py).

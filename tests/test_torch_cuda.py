@@ -60,7 +60,9 @@ monomorphic SNP and its refusals, an eager GRN step under the sync debug mode "e
 est_grn replayed with the eager chain's bits; the float64 instances of K1, K2 and K3
 at the float32 instances' edges (1e-12 of scale of the plain versions, the same bits
 twice) and float64 BayesR chains on packed, int8 and float rows (following the plain
-chain at 1e-9, replays with the eager chain's bits, through run_lmem).
+chain at 1e-9, replays with the eager chain's bits, through run_lmem); the float64
+instances of K6, K8 and K10 at V in {1, 4, 96} and B in {8, 40, 256, 1,024}, and
+float64 chains of BayesB, BayesC, BayesC+D, BayesPR and BayesLV on the card.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -240,7 +242,7 @@ def _keep_off_threshold(gram, graw, pk, plain, margin=1e-3):
     q0 + q1*pre_raw^2 in the plain scan, so a rounding difference cannot
     flip an indicator. Locus j saw u masked to the loci before it."""
     B = pk.shape[1]
-    tri = torch.tril(torch.ones(B, B, device=pk.device), diagonal=-1)
+    tri = torch.tril(torch.ones(B, B, dtype=pk.dtype, device=pk.device), diagonal=-1)
     g, slot = (gram, 0) if graw is None else (graw, 7)
     for _ in range(20):
         _, u, _ = plain(pk)
@@ -496,16 +498,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 8, device=dev), 0)
     with pytest.raises(ValueError, match="two coefficient rows exceed shared memory"):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 8 + 4 * 6600, device=dev), 6600)
-    # K3 takes float64 gram and pk together, not one of each
+    # K3 and K8 take float64 gram and pk together, not one of each; K10 both Grams too
     with pytest.raises(ValueError, match="float32, or both float64"):
         gibbs_kernels.r_block_scan_v((gram, 0), torch.zeros(2, 8, 12, dtype=torch.float64, device=dev), 1)
+    with pytest.raises(ValueError, match="bc_block_scan_v: .*float32, or both float64"):
+        gibbs_kernels.bc_block_scan_v((gram, 0), torch.zeros(2, 8, 8, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="bc_block_scan_wv: .*float32, or both float64"):
+        gibbs_kernels.bc_block_scan_wv((gram.double(), 0), (gram, 0),
+                                       torch.zeros(2, 8, 8, dtype=torch.float64, device=dev))
     # a scan with a float32 instance only refuses float64 by name
-    with pytest.raises(ValueError, match="bc_block_scan_v: .*float32 .*no float64 instance"):
-        gibbs_kernels.bc_block_scan_v((gram.double(), 0), torch.zeros(2, 8, 8, dtype=torch.float64,
-                                                                      device=dev))
-    with pytest.raises(ValueError, match="gauss_block_scan_v: .*no float64 instance"):
-        gibbs_kernels.gauss_block_scan_v((gram.double(), 0),
-                                         torch.zeros(2, 8, 8, dtype=torch.float64, device=dev))
+    pk_rc = torch.zeros(2, 8, 8 + 8 * 6, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="rcpi_block_scan_v: .*float32 .*no float64 instance"):
+        gibbs_kernels.rcpi_block_scan_v((gram.double(), 0), pk_rc, 2, 3)
+    with pytest.raises(ValueError, match="rcplus_block_scan_v: .*no float64 instance"):
+        gibbs_kernels.rcplus_block_scan_v((gram.double(), 0), pk_rc[..., :8 + 6 * 6].contiguous(), 2, 3)
 
 
 N_SMALL, P_SMALL = 300, 512
@@ -2006,7 +2012,7 @@ def test_grn_replayed_chain_equals_eager(dev, dtype):
         assert torch.equal(getattr(st, f), getattr(state, f)), f
 
 
-# ------------------------------------------------------------------ float64: K1, K2, K3
+# ------------------------------------------------------------ float64: K1, K2, K3, K6, K8, K10
 
 TOL_F64 = 1e-12  # of the output's scale: float64 sums in another order than the plain version's
 
@@ -2074,6 +2080,98 @@ def test_scan_f64_kernel_matches_plain(dev, V, B, K):
         sliced = gibbs_kernels.r_block_scan_v(gram[t].contiguous(), pk, K)
         for other in (again, sliced):
             assert all(torch.equal(x, y) for x, y in zip(other, (beta, u, delta)))
+
+
+SCAN8_F64 = {  # kind -> (its launch counter, the wrapper, the plain version)
+    "gauss": ("gauss_block_scan_v", lambda gt, rt, p: gibbs_kernels.gauss_block_scan_v(gt, p),
+              lambda g, r, p: gibbs_kernels.gauss_block_scan_v_plain(g, p)),
+    "bc": ("bc_block_scan_v", lambda gt, rt, p: gibbs_kernels.bc_block_scan_v(gt, p),
+           lambda g, r, p: gibbs_kernels.bc_block_scan_v_plain(g, p)),
+    "bc_w": ("bc_block_scan_wv", gibbs_kernels.bc_block_scan_wv, gibbs_kernels.bc_block_scan_wv_plain),
+}
+
+
+@pytest.mark.parametrize("V", [1, 4, 96])
+@pytest.mark.parametrize("B", [8, 40, 256, 1024])
+@pytest.mark.parametrize("kind", list(SCAN8_F64))
+def test_scan8_f64_kernels_match_plain(dev, kind, B, V):
+    """K6's, K8's and K10's float64 instances against their plain versions
+    in float64, step-indexed and sliced, every w kept off its threshold:
+    delta exactly, beta and u within 1e-12 of their scale, the same bits on
+    a second launch, each launch counted as float64 and none as float32."""
+    name, scan, plain = SCAN8_F64[kind]
+    T = 2
+    gram, graw, pk = (x.double() for x in _scan8_inputs(dev, T, V, B, V * 10_000 + B + 3, kind))
+    for t in range(T):
+        if kind != "gauss":
+            pk = _keep_off_threshold(gram[t], graw[t] if kind == "bc_w" else None, pk,
+                                     lambda p: plain(gram[t], graw[t], p))
+        ref = plain(gram[t], graw[t], pk)
+        before = dict(_cuda.LAUNCHES)
+        got = scan((gram, t), (graw, t), pk)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name + "_f64"] == before[name + "_f64"] + 1
+        assert _cuda.LAUNCHES[name] == before[name]
+        assert got[0].dtype == got[1].dtype == torch.float64
+        if kind != "gauss":
+            assert got[2].dtype == torch.int32 and torch.equal(got[2], ref[2])
+            assert (got[2][:, -1] == 0).all() and (got[2][:, 0] == 1).all()
+        assert _rel(got[0], ref[0]) < TOL_F64 and _rel(got[1], ref[1]) < TOL_F64
+        again = scan((gram, t), (graw, t), pk)
+        sliced = scan(gram[t].contiguous(), graw[t].contiguous(), pk)
+        for other in (again, sliced):
+            assert all(torch.equal(x, y) for x, y in zip(other, got))
+
+
+F64_METHODS = {  # method -> (its _small_spec method, weighted residual, its scan's launch counter)
+    "BayesB": ("BayesB", False, "bc_block_scan_v"), "BayesC": ("BayesC", False, "bc_block_scan_v"),
+    "BayesC+D": ("BayesC", True, "bc_block_scan_wv"), "BayesPR": ("BayesPR", False, "gauss_block_scan_v"),
+    "BayesLV": ("BayesLV", False, "gauss_block_scan_v"),
+}
+
+
+@pytest.mark.parametrize("method", list(F64_METHODS))
+def test_f64_chain_on_the_card(dev, method):
+    """A float64 chain of BayesB, BayesC, BayesC+D (weighted residual),
+    BayesPR and BayesLV on the card at V = 4 (assemble takes it): K1, its
+    scan and K2 run as their float64 instances and no float32 one runs; the
+    card chain follows the float64 plain chain on the CPU from the same host
+    draws (3 sweeps: beta and ycorr within 1e-9 of scale, delta equal); and
+    make_scan_sampler's replays of a float64 KeyedStream give the eager
+    chain's bits."""
+    base, weighted, scan = F64_METHODS[method]
+    spec = _small_spec(base)
+    if weighted:
+        spec.residual = ngt.RandomEffect(np.random.default_rng(3).uniform(0.5, 2.0, N_SMALL), 1.0)
+    V, T = 4, P_SMALL // 32 // 4
+    chains = []
+    for device in (dev, "cpu"):
+        plan, st = ngt.assemble(spec, device=device, dtype=torch.float64, vshards=V)
+        sw, hs = ngt.make_sweep(plan), HostStream(4, device, torch.float64)
+        before = dict(_cuda.LAUNCHES)
+        for _ in range(3):
+            st = sw(st, hs)
+        ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        if device == dev:
+            assert ran[scan + "_f64"] == 3 * T
+            assert ran["pack2_matvec_f64"] == (2 if weighted else 1) * 3 * T
+            assert ran["pack2_rank_update_f64"] == 3 * T
+            assert not any(v for k, v in ran.items() if not k.endswith("_f64"))
+        m = st.markers[0]
+        chains.append((m.beta.cpu(), m.delta.cpu(), st.ycorr.cpu()))
+    assert torch.equal(chains[0][1], chains[1][1])
+    assert _rel(chains[0][0], chains[1][0]) < 1e-9 and _rel(chains[0][2], chains[1][2]) < 1e-9
+    plan, st0 = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=V)
+    stream = ngt.KeyedStream(21, dev, torch.float64)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
 
 
 def _f64_spec(kind):

@@ -1,11 +1,12 @@
-"""The float64 instances of K1, K2 and K3 as far as the CPU reaches them:
-the shapes and sizes their wrappers compute (K2's float64 grid, K3's
-float64 shared memory), the CPU path of every wrapper in float64 (the plain
-version, no launch), and the launch counters that tell a float64 launch
-from a float32 one. The kernels themselves run in tests/test_torch_cuda.py
-on the card; a float64 BayesR chain on the CPU is held to the JAX package
-by tests/test_torch_sweep.py (`test_five_sweeps_match[BayesR-I-V4]` and
-the rest of its cases)."""
+"""The float64 instances of K1, K2, K3, K6, K8 and K10 as far as the CPU
+reaches them: the shapes and sizes their wrappers compute (K2's float64
+grid, the scans' float64 shared memory), the CPU path of every wrapper in
+float64 (the plain version, no launch), and the launch counters that tell
+a float64 launch from a float32 one. The kernels themselves run in
+tests/test_torch_cuda.py on the card; float64 chains of BayesR, BayesB,
+BayesC, BayesC with a weighted residual, BayesPR and BayesLV on the CPU are
+held to the JAX package by tests/test_torch_sweep.py
+(`test_five_sweeps_match` and its cases)."""
 import numpy as np
 import pytest
 import torch
@@ -42,6 +43,52 @@ def test_r_scan_f64_shared_memory_need(B, K, need, fits):
     assert (need <= gibbs_kernels.SMEM_BYTES) == fits
 
 
+@pytest.mark.parametrize("B", [32, 256, 1024])
+@pytest.mark.parametrize("grams", [1, 2])
+def test_scan8_f64_shared_memory_need(B, grams):
+    """K6, K8 (one Gram) and K10's (two) float64 instances take 8 bytes for
+    every element of the float32 instances' layout: the u's, the two Gram
+    tile slots and two groups' rows. K10 in float64 at B = 1,024 needs
+    46,080 bytes, well within a block's shared memory."""
+    need = gibbs_kernels.scan8_smem_bytes(B, grams, 8)
+    assert need == 2 * gibbs_kernels.scan8_smem_bytes(B, grams)
+    assert need == 8 * (B + 2 * grams * 32 * 33 + 2 * 32 * 8)
+    assert need <= 46_080 < gibbs_kernels.SMEM_BYTES
+
+
+@pytest.mark.parametrize("kind", ["gauss", "bc", "bc_w"])
+def test_cpu_scan8_wrappers_take_float64_as_the_plain_versions(kind):
+    """On CPU tensors the wrappers of K6, K8 and K10 are their plain
+    versions in float64, step-indexed or on one block, and count no
+    launch."""
+    rng = np.random.default_rng(5)
+    V, B = 3, 40
+    gram = torch.from_numpy(rng.normal(size=(2, B, V, B))) / B
+    graw = torch.from_numpy(rng.normal(size=(2, B, V, B))) / B
+    pk = torch.from_numpy(rng.normal(size=(V, B, 8)))
+    pk[..., 3] = -0.3 * pk[..., 3].abs()
+    pk[:, -1, 2] = float("inf")  # a padded locus
+    before = dict(_cuda.LAUNCHES)
+    if kind == "gauss":
+        got = gibbs_kernels.gauss_block_scan_v((gram, 1), pk)
+        ref = gibbs_kernels.gauss_block_scan_v_plain(gram[1], pk)
+        one = gibbs_kernels.gauss_block_scan_v(gram[1], pk)
+    elif kind == "bc":
+        got = gibbs_kernels.bc_block_scan_v((gram, 1), pk)
+        ref = gibbs_kernels.bc_block_scan_v_plain(gram[1], pk)
+        one = gibbs_kernels.bc_block_scan_v(gram[1], pk)
+    else:
+        got = gibbs_kernels.bc_block_scan_wv((gram, 1), (graw, 1), pk)
+        ref = gibbs_kernels.bc_block_scan_wv_plain(gram[1], graw[1], pk)
+        one = gibbs_kernels.bc_block_scan_wv(gram[1], graw[1], pk)
+    assert got[0].dtype == got[1].dtype == torch.float64
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(one, ref))
+    if kind != "gauss":
+        assert got[2].dtype == torch.int32 and (got[2][:, -1] == 0).all()
+    assert _cuda.LAUNCHES == before
+
+
 def test_cpu_wrappers_take_float64_as_the_plain_versions():
     """On CPU tensors every wrapper is its plain version, in float64 as in
     float32, and counts no launch."""
@@ -71,9 +118,10 @@ def test_cpu_wrappers_take_float64_as_the_plain_versions():
 
 
 def test_launch_counters_tell_float64_from_float32():
-    """K1, K2 and K3 count their float64 launches apart (`<name>_f64`), so a
-    run can show which instance its path went through; no other kernel has
-    a float64 counter of its own."""
+    """K1, K2, K3, K6, K8 and K10 count their float64 launches apart
+    (`<name>_f64`), so a run can show which instance its path went through;
+    no other kernel has a float64 counter of its own."""
     f64 = sorted(k for k in _cuda.LAUNCHES if k.endswith("_f64"))
-    assert f64 == ["pack2_matvec_f64", "pack2_rank_update_f64", "r_block_scan_v_f64"]
+    assert f64 == ["bc_block_scan_v_f64", "bc_block_scan_wv_f64", "gauss_block_scan_v_f64",
+                   "pack2_matvec_f64", "pack2_rank_update_f64", "r_block_scan_v_f64"]
     assert all(k.removesuffix("_f64") in _cuda.LAUNCHES for k in f64)

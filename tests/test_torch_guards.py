@@ -313,9 +313,9 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
 
 # kind -> the kernel that refuses float64 on the card (None: taken there)
 CARD_DTYPE_CASES = {
-    "markers": "K8", "BayesB": "K8", "BayesC+D": "K10", "BayesPR": "K6", "BayesLV": "K6",
     "BayesRCpi": "K12", "BayesRCplus": "K14", "corr_markers": "CM1", "scan": "RE1",
     "corr_random": "RE2", "BayesR+scan": "RE1",
+    "markers": None, "BayesB": None, "BayesC+D": None, "BayesPR": None, "BayesLV": None,
     "BayesR": None, "BayesR+D": None, "BayesR_float": None, "cg": None, "fixed": None,
 }
 
@@ -363,11 +363,12 @@ def _card_dtype_spec(kind):
 @pytest.mark.parametrize("kind", list(CARD_DTYPE_CASES))
 def test_float64_on_the_card_is_refused_up_front(kind):
     """float64 on a CUDA device is refused where a kernel with a float32
-    instance only would meet it (every marker method but BayesR, correlated
-    marker sets, scan random terms), naming that kernel, and taken with
-    BayesR marker sets (K1, K2, K3 have float64 instances, whatever the
-    storage), CG terms and fixed effects alone; float32 on the card and
-    float64 on the CPU always."""
+    instance only would meet it (BayesRCpi and BayesRCplus marker sets,
+    correlated marker sets, scan random terms), naming that kernel, and
+    taken with BayesR, BayesB, BayesC (weighted residual or not), BayesPR
+    and BayesLV marker sets (K1, K2, K3, K6, K8 and K10 have float64
+    instances, whatever the storage), CG terms and fixed effects alone;
+    float32 on the card and float64 on the CPU always."""
     import torch
 
     from nextgp_tpu_torch.engine.plan import check_card_dtype
@@ -396,8 +397,8 @@ def test_float64_refusal_comes_before_the_output_folder(tmp_path):
     out = tmp_path / "out"
     out.mkdir()
     (out / "kept").write_text("x")
-    with pytest.raises(ValueError, match="K8"):
-        ngt.run_lmem(_card_dtype_spec("markers"), 2, 0, 1, out_folder=str(out), device="cuda",
+    with pytest.raises(ValueError, match="K12"):
+        ngt.run_lmem(_card_dtype_spec("BayesRCpi"), 2, 0, 1, out_folder=str(out), device="cuda",
                      dtype=torch.float64)
     assert (out / "kept").exists()
 

@@ -32,6 +32,10 @@ and check them.
                                  # step also with DIR's GRN1, in turns P, C, C, P
     python3 chip_smoke.py shards # phases 1-2 and phase 13 alone
     python3 chip_smoke.py f64    # phases 1-2 and phase 14 alone
+    python3 chip_smoke.py levels [DIR]  # phases 1-2, RE2's phase 9.1 and 14g: RE1 and
+                                 # RE2 in float32 and float64 against their plain
+                                 # versions; with DIR (another tree's csrc/), RE1 and
+                                 # RE2 in float32 also against DIR's, bit for bit
     python3 chip_smoke.py cg [DIR]  # phases 1-2 and phase 8.4 alone at 100,000 and
                                  # 1,000,000 animals, with CG1's ablation builds; with
                                  # DIR (this tree's C interface of CG1), CG1 and the
@@ -279,7 +283,23 @@ Phases (any failed check raises and the script exits non-zero):
      scan alone) held to the packed float64 chain by the same rule, for
      BayesR and BayesC+D; K2' on the float64 state; (f) in turns f32 / f64
      / f64 / f32, K1, K2, K3, K6, K8 and K10 on the card alone on one step,
-     and the replayed BayesR sweep's ms, busy and idle share
+     and the replayed BayesR sweep's ms, busy and idle share; then the
+     float64 level scans (RE1, RE2): (g) ptxas's registers and
+     spills and the SASS's LDL/STL and predicated shared loads of every
+     instance, RE1 and RE2 (nT = 1 .. 4, and 5 in the generic form) in
+     float64 against their float64 plain versions at q = 10,000 on phase 8's
+     A^-1 and at phases 8's and 9's edges, within 1e-12 of scale, twice the
+     same bits, timed beside the float64 byte bound and the library's
+     float64 triangular solve (nT <= 3); (h) BayesR+A and BayesR+A2 (V=96)
+     at 2,000 animals: 20 float64 sweeps of the kernel chain against the
+     plain chain (RE1 and RE2 swapped for their plain versions too), u,
+     beta and ycorr within 1e-9 of scale, delta identical, only float64
+     level scans launched; (i) BayesR+A, GBLUP and BayesR+A2 at full width,
+     100 float64 sweeps eager and replayed from one KeyedStream: the same
+     bits, drift < 1e-9, finite draws, varU > 0 or positive definite, GBLUP's
+     u against the planted value >= 0.8, ms/sweep, busy and idle share beside
+     the float32 replayed sweep; (j) RE1 and RE2 (nT = 2) on the card alone
+     in turns f32 / f64 / f64 / f32
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -2043,6 +2063,19 @@ def simulate_pedigree(n_gen, size, seed, max_progeny=MAX_PROGENY):
     return ped, henderson_values(ped, n_gen, size, rng)
 
 
+_PED8 = {}  # phase 8's pedigree, planted values and dense A^-1, made once a process
+
+
+def phase8_pedigree():
+    """Phase 8's 10,000-animal pedigree (GENS generations of GEN_SIZE_A,
+    seed 11), its planted polygenic values and its dense A^-1 (host
+    float64), made once a process and shared by phases 8, 9 and 14."""
+    if not _PED8:
+        ped, u = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
+        _PED8.update(ped=ped, u=u, ainv=pedigree.a_inverse(ped))
+    return _PED8["ped"], _PED8["u"], _PED8["ainv"]
+
+
 def henderson_values(ped, n_gen, size, rng):
     """Polygenic values on simulate_pedigree's pedigree by the Henderson
     recursion, Mendelian sampling from rng."""
@@ -2073,11 +2106,12 @@ def corr(a, b):
     return (torch.dot(a, b) / (a.norm() * b.norm())).item()
 
 
-def work_re1(q):
+def work_re1(q, itemsize=4):
     """(bytes, operations) of one level scan: the structure's lower triangle
     (all the function needs, by symmetry) and yi, zpz, z, the old u read, the
-    new u written; a multiply-add per element of the triangle."""
-    return 4 * q * (q + 1) // 2 + 5 * 4 * q, q * (q + 1)
+    new u written, each element `itemsize` bytes (8 for the float64
+    instance); a multiply-add per element of the triangle."""
+    return itemsize * q * (q + 1) // 2 + 5 * itemsize * q, q * (q + 1)
 
 
 # RE1's edges beside the main path's q: one level, a group of 32 and one
@@ -2145,11 +2179,15 @@ def re1_arms(other, cases):
     for label, args in cases:
         q = args[4].shape[0]
         ref = random_scan.level_scan_plain(*args)
+        outs = {}
         for arm, fn in arms.items():
-            o = fn(*args)
+            o = outs[arm] = fn(*args)
             e, sc = rel_err(o, ref)
             check(torch.isfinite(o).all().item() and e <= TOL_RE1 * sc and torch.equal(o, fn(*args)),
                   f"level_scan {arm} at {label}: max_abs_err {e:.3e} of {sc:.3e}, or two runs differ")
+        same = torch.equal(outs["P"], outs["C"])
+        print(f"[8 random] level_scan at {label}: P's and C's u {'bit-identical' if same else 'DIFFER'} "
+              f"(digests {digest(outs['P'])}, {digest(outs['C'])})")
         rows = []
         for arm in "PCCP":
             fn = arms[arm]
@@ -2164,7 +2202,7 @@ def re1_arms(other, cases):
         print(f"[8 random] level_scan at {label}, arms P, C, C, P on the card alone (event pair): "
               + ", ".join(f"{r['arm']} {r['device_ms']} ({r['event_ms']:.4f})" for r in rows)
               + f" ms; torch.linalg.solve_triangular {lib_dev} ms on the card alone")
-        out[label] = dict(arms=rows, library_device_ms=lib_dev)
+        out[label] = dict(arms=rows, library_device_ms=lib_dev, same_bits=same)
     return out
 
 
@@ -2729,9 +2767,8 @@ def random_phase(spec_for, sig, other=None):
     spec = spec_for("BayesR")
     y, md = spec.y, spec.markers[0].data
     t0 = time.perf_counter()
-    ped, u_true = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
+    ped, u_true, ainv = phase8_pedigree()
     check(ped.n == N, "one animal per individual of the panel")
-    ainv = pedigree.a_inverse(ped)
     print(f"[8 random] pedigree of {ped.n:,} animals ({GENS} generations of {GEN_SIZE_A:,}, max F "
           f"{ped.inbreeding.max():.4f}), dense A^-1 in {time.perf_counter() - t0:.2f} s")
     u_dev = torch.from_numpy(u_true).to(DEV)
@@ -2859,11 +2896,13 @@ def corr_drift(plan, st):
     return ((st.ycorr - (st.y - fit)).abs().max() / st.y.abs().max()).item()
 
 
-def work_re2(q, n_t):
+def work_re2(q, n_t, itemsize=4):
     """(bytes, operations) of one correlated level scan: A's lower triangle
-    and the per-level rule (nT + nT^2 floats), yi, z, the old u read, the new
-    u written; nT multiply-adds per element of the triangle, 2 nT^2 per level."""
-    return 4 * q * (q + 1) // 2 + 4 * q * (n_t + n_t * n_t + 4 * n_t), q * (q + 1) * n_t + 2 * q * n_t * n_t
+    and the per-level rule (nT + nT^2 elements), yi, z, the old u read, the
+    new u written, each element `itemsize` bytes; nT multiply-adds per
+    element of the triangle, 2 nT^2 per level."""
+    return (itemsize * q * (q + 1) // 2 + itemsize * q * (n_t + n_t * n_t + 4 * n_t),
+            q * (q + 1) * n_t + 2 * q * n_t * n_t)
 
 
 def work_cm1(V, B, n_t):
@@ -2921,6 +2960,9 @@ def re2_arms(other, args, n_t):
     e, sc = rel_err(o, ref)
     check(torch.isfinite(o).all().item() and e <= TOL_CORR * sc and torch.equal(o, scan_p(*args)),
           f"corr_level_scan nT={n_t}: the other tree's RE2 within {e:.3e} of {sc:.3e}, or two runs differ")
+    mine = random_scan.corr_level_scan_kernel(*args)
+    print(f"[9 corr] corr_level_scan nT={n_t}: P's and C's u {'bit-identical' if torch.equal(o, mine) else 'DIFFER'} "
+          f"(digests {digest(o)}, {digest(mine)})")
     rows = []
     for arm in "PCCP":  # every kernel of a call, the library's for P's rule too: one window's sum
         fn = scan_p if arm == "P" else random_scan.corr_level_scan_kernel
@@ -3456,8 +3498,7 @@ def corr_phase(spec_for, sig, other=None, ablations=None, other_cm1=None):
     Returns the numbers and the launch counts by run."""
     out, counted = {}, {}
     t0 = time.perf_counter()
-    ped, u1 = simulate_pedigree(GENS, GEN_SIZE_A, seed=11)
-    ainv = pedigree.a_inverse(ped)
+    ped, u1, ainv = phase8_pedigree()
     ainv_dev = torch.as_tensor(ainv, dtype=torch.float32, device=DEV)
     print(f"[9 corr] phase 8's pedigree and dense A^-1 in {time.perf_counter() - t0:.2f} s")
     out["RE2"] = re2_phase(ainv_dev, other)
@@ -5271,23 +5312,16 @@ def f64_kernels(spec, spec_w):
         del st_w
 
 
-def scan8_build():
-    """14a: what ptxas and the SASS say of K6's, K8's and K10's instances
-    (float32 and float64, blocks of up to 256 and of 1,024 threads):
+def build_report(instance, tag, n):
+    """What ptxas and the SASS say of the built library's kernels whose
+    mangled names `instance` maps to a name (the rest map to None):
     registers, spill bytes, local-memory loads and stores (LDL, STL) and
-    shared-memory loads behind a predicate (@P LDS). A float64 instance may
-    hold no more predicated shared loads than its float32 instance, which
-    loads a row's words before the rule's compare. Returns {instance: ...}."""
+    shared-memory loads behind a predicate (@P LDS), each printed. There
+    must be n such instances, and a float64 instance may hold no more
+    predicated shared loads than its float32 counterpart. Returns
+    {instance: ...}."""
     so = _cuda.build()
     out, cur = {}, None
-
-    def instance(mangled):
-        m = re.search(r"(GaussRule|BcRule)I([fd])(?:Li(\d)E)?E+Li(\d+)E", mangled)
-        if m is None:
-            return None
-        kernel = {"GaussRule": "K6", "BcRule": "K8" if m.group(3) == "1" else "K10"}[m.group(1)]
-        return f"{kernel} {'f64' if m.group(2) == 'd' else 'f32'} MAXT={m.group(4)}"
-
     for line in (so.parent / "ptxas.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -5305,13 +5339,27 @@ def scan8_build():
             lines = f.splitlines()
             out[name]["predicated_lds"] = sum(1 for ln in lines if re.search(r"@!?P\d+\s+LDS\b", ln))
             out[name]["ldl_stl"] = sum(1 for ln in lines if re.search(r"\b(LDL|STL)\b", ln))
-    check(len(out) == 12 and all(len(v) == 5 for v in out.values()),
-          f"14a: K6/K8/K10 instances in ptxas.log and the SASS: {out}")
+    check(len(out) == n and all(len(v) == 5 for v in out.values()),
+          f"{tag}: the instances in ptxas.log and the SASS: {out}")
     for name in sorted(out):
         print(f"[14 f64] {name}: {out[name]}")
     more = [n for n in out if "f64" in n and out[n]["predicated_lds"] > out[n.replace("f64", "f32")]["predicated_lds"]]
-    check(not more, f"14a: float64 instances with more predicated shared loads than float32: {more}")
+    check(not more, f"{tag}: float64 instances with more predicated shared loads than float32: {more}")
     return out
+
+
+def scan8_build():
+    """14a: build_report of K6's, K8's and K10's instances (float32 and
+    float64, blocks of up to 256 and of 1,024 threads); a float64 instance
+    loads a row's words before the rule's compare, as its float32 one."""
+    def instance(mangled):
+        m = re.search(r"(GaussRule|BcRule)I([fd])(?:Li(\d)E)?E+Li(\d+)E", mangled)
+        if m is None:
+            return None
+        kernel = {"GaussRule": "K6", "BcRule": "K8" if m.group(3) == "1" else "K10"}[m.group(1)]
+        return f"{kernel} {'f64' if m.group(2) == 'd' else 'f32'} MAXT={m.group(4)}"
+
+    return build_report(instance, "14a K6/K8/K10", 12)
 
 
 def instance_turns(spec, spec_w):
@@ -5349,10 +5397,10 @@ def instance_turns(spec, spec_w):
 
 @contextlib.contextmanager
 def plain_sweep_kernels():
-    """The sweep's six kernels, K1, K2, K3, K6, K8 and K10
-    (engine/samplers/markers.py calls them through these module
-    attributes), go to their plain versions on the card's tensors: the plain
-    chain of the same stream."""
+    """The sweep's kernels, K1, K2, K3, K6, K8, K10, RE1 and RE2
+    (engine/samplers/markers.py and random_effects.py call them through
+    these module attributes), go to their plain versions on the card's
+    tensors: the plain chain of the same stream."""
     def step_of(gram_t):
         return gram_t[0][gram_t[1]]
 
@@ -5369,6 +5417,8 @@ def plain_sweep_kernels():
             step_of(gram_t), pk),
         (gibbs_kernels, "bc_block_scan_wv"): lambda gram_t, graw_t, pk: gibbs_kernels.bc_block_scan_wv_plain(
             step_of(gram_t), step_of(graw_t), pk),
+        (random_effects, "level_scan"): random_scan.level_scan_plain,
+        (random_effects, "corr_level_scan"): random_scan.corr_level_scan_plain,
     }
     saved = {key: getattr(*key) for key in plain}
     for (mod, name), fn in plain.items():
@@ -5393,16 +5443,20 @@ def f64_sweeps(spec, V, n, stream_seed=5, dtype=torch.float64, pack=None):
     return plan, st, dict(_cuda.LAUNCHES)
 
 
-def f64_chain_vs_plain(spec, V, n, tag, path="BayesR"):
-    """14b: n float64 sweeps of the path's kernel chain against its float64
-    plain chain (plain_sweep_kernels) on one KeyedStream: delta the same,
-    beta and ycorr within TOL_F64_CHAIN of scale; the kernel chain launches
-    K1, K2 (on packed rows) and the path's scan as float64 alone, and
+def f64_chain_vs_plain(spec, V, n, tag, path="BayesR", random=None):
+    """14b, 14h: n float64 sweeps of the path's kernel chain against its
+    float64 plain chain (plain_sweep_kernels) on one KeyedStream: delta the
+    same, beta and ycorr (and the random term's u) within TOL_F64_CHAIN of
+    scale; the kernel chain launches K1, K2 (on packed rows), the path's
+    scan and the random term's level scan (random: "level_scan" or
+    "corr_level_scan", where the model has one) as float64 alone, and
     nothing else but R1, the plain chain none of the sweep's kernels."""
     _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
     plan, st, counted = f64_sweeps(spec, V, n)
     T = plan.markers[0].n_blocks // V
     path_kernels = {"pack2_matvec_f64": gathers * n * T, "pack2_rank_update_f64": n * T, scan + "_f64": n * T}
+    if random:
+        path_kernels[random + "_f64"] = n
     expect = {k: 0 for k in counted}
     expect.update(path_kernels, keyed_rng=counted["keyed_rng"])
     check(counted == expect, f"{tag}: kernel chain launches {counted}")
@@ -5415,15 +5469,20 @@ def f64_chain_vs_plain(spec, V, n, tag, path="BayesR"):
     mk, mp_ = st.markers[0], sp.markers[0]
     e_b, s_b = rel_err(mk.beta, mp_.beta)
     e_y, s_y = rel_err(st.ycorr, sp.ycorr)
+    e_u, s_u = rel_err(st.random[0].u, sp.random[0].u) if random else (0.0, 1.0)
     same = torch.equal(mk.delta, mp_.delta)
+    u_shown = f"u {e_u:.3e} of scale {s_u:.3e}, " if random else ""
     print(f"[14 {tag}] {n} float64 sweeps of one KeyedStream, kernel chain against plain chain: beta "
-          f"{e_b:.3e} of scale {s_b:.3e}, ycorr {e_y:.3e} of scale {s_y:.3e} (limit {TOL_F64_CHAIN:g} x "
-          f"scale), delta {'identical' if same else 'DIFFERS'} ({int((mk.delta > 0).sum())} loci with "
-          f"delta > 0); the plain chain took {plain_s:.1f} s; kernel launches {path_kernels}")
+          f"{e_b:.3e} of scale {s_b:.3e}, ycorr {e_y:.3e} of scale {s_y:.3e}, {u_shown}(limit "
+          f"{TOL_F64_CHAIN:g} x scale), delta {'identical' if same else 'DIFFERS'} ({int((mk.delta > 0).sum())} "
+          f"loci with delta > 0); the plain chain took {plain_s:.1f} s; kernel launches {path_kernels}")
     check(same, f"{tag}: delta differs between the float64 kernel and plain chains")
-    check(e_b <= TOL_F64_CHAIN * s_b and e_y <= TOL_F64_CHAIN * s_y,
+    check(e_b <= TOL_F64_CHAIN * s_b and e_y <= TOL_F64_CHAIN * s_y and e_u <= TOL_F64_CHAIN * s_u,
           f"{tag}: the float64 kernel chain departs from the float64 plain chain")
-    return counted, dict(beta_err=e_b, beta_scale=s_b, ycorr_err=e_y, ycorr_scale=s_y, plain_s=plain_s)
+    out = dict(beta_err=e_b, beta_scale=s_b, ycorr_err=e_y, ycorr_scale=s_y, plain_s=plain_s)
+    if random:
+        out.update(u_err=e_u, u_scale=s_u)
+    return counted, out
 
 
 def replay_turns(spec):
@@ -5481,8 +5540,13 @@ def f64_phase():
     after 3 sweeps; (e) float64 on int8 rows (pack2=False) held to the
     packed float64 chain by the same rule, for BayesR and BayesC+D; (f) in
     turns f32 / f64 / f64 / f32, K1, K2, K3, K6, K8 and K10 on the card
-    alone and the replayed BayesR sweep. Returns (numbers, launches by
-    run)."""
+    alone and the replayed BayesR sweep; (g)-(j) the float64 level scans,
+    RE1 and RE2, and the random-effect models through them
+    (f64_random_phase: the instances against their plain versions, timed;
+    BayesR+A and BayesR+A2 kernel chains against plain chains at 2,000
+    animals; BayesR+A, GBLUP and BayesR+A2 at full width eager and
+    replayed; RE1 and RE2 in turns f32 / f64 / f64 / f32). Returns
+    (numbers, launches by run)."""
     t0 = time.perf_counter()
     out, counted = {}, {}
     geno, _, y, sig, _ = simulate_panel()
@@ -5540,10 +5604,360 @@ def f64_phase():
     del plan64, st64, st32, gv
     out["14f kernels"] = instance_turns(spec, spec_w)
     out["14f replayed"] = replay_turns(spec)
-    del geno, spec, spec_w
+    del spec, spec_w
+    re_out, by_run = f64_random_phase(geno, y, sig)
+    out.update(re_out)
+    counted.update(by_run)
+    del geno
     out["seconds"] = time.perf_counter() - t0
     print(f"[14 f64] phase 14 in {out['seconds']:.1f} s")
     return out, counted
+
+
+# 14g-14j: RE1 and RE2 in float64
+RE2_F64_NTS = (1, 2, 3, 4, 5)  # 14g at q = 10,000: the cooperative form's nT and the generic form's 5
+# 14g: the library's float64 solve at nT <= 3; its (q nT)^2 matrix takes 12.8 GB at nT = 4, 20 GB at 5
+RE2_F64_LIBRARY = (1, 2, 3)
+RE2_F64_EDGES = (1, 31, 33, 193, 3001)  # 14g: phase 9's edges
+F64_RANDOM = dict(gen_size=400, sweeps=20)  # 14h: 5 generations of 400 animals (2,000), 20 sweeps
+LEVEL_KERNELS = ("coop_prep_kernel", "coop_scan_kernel", "generic_chain_kernel", "row_dots_kernel",
+                 "prep_kernel", "scan_kernel")  # csrc/level_scan.cu's entries, longest names first
+
+
+def level_build():
+    """14g: build_report of every RE1 and RE2 instance (float32 and float64;
+    RE2's cooperative form at nT = 1 .. 4 and its generic form); the
+    float64 chain loads the next group's row before it selects, as the
+    float32 one. Then the scan launch's shared memory as the kernel states
+    it (ngt_level_scan_smem_bytes) against ops/random_scan's helper."""
+    def instance(mangled):
+        m = re.search(r"\d+(" + "|".join(LEVEL_KERNELS) + r")I([fd])(?:Li(\d)E)?E", mangled)
+        if m is None or (m.group(1) == "scan_kernel" and "ScanArgs" not in mangled):
+            return None  # grn_scan.cu has a scan_kernel of its own
+        return f"{m.group(1)} {'f64' if m.group(2) == 'd' else 'f32'}" + (f" nT={m.group(3)}" if m.group(3) else "")
+
+    out = build_report(instance, "14g RE1/RE2", 24)
+    smem = {(n_t, f64): _cuda.lib().ngt_level_scan_smem_bytes(n_t, f64) for n_t in range(6) for f64 in (0, 1)}
+    check(all(v == random_scan.level_scan_smem_bytes(n_t, 8 if f64 else 4) for (n_t, f64), v in smem.items()),
+          f"14g: the scan launch's shared memory in csrc/level_scan.cu {smem} is not what "
+          "ops/random_scan.level_scan_smem_bytes states")
+    print(f"[14 f64] the scan launch's shared memory by (nT, float64), as the kernel and the wrapper state it: {smem}")
+    return out
+
+
+def timed_once(fn):
+    """(fn's output, ms between CUDA events around the one call)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def held_level(name, kern, plain, system, view, work, note, dev_ms_of, with_library=True):
+    """14g: one float64 level scan against its float64 plain version on the
+    same inputs (within TOL_F64 of u's scale, twice the same bits), timed
+    beside its bound and, where with_library, the library's float64
+    triangular solve of the same system (built outside the timed window,
+    held to the plain version within TOL_F64_CHAIN); view turns the solve's
+    (q nT, 1) into u's shape. Times on the card alone: dev_ms_of(kern), and
+    graph_ms for the library (late in the whole run the profiler drops
+    records)."""
+    out = kern()
+    check(out.dtype == torch.float64 and torch.isfinite(out).all().item() and torch.equal(out, kern()),
+          f"{name}: not float64 and finite, or two runs differ")
+    ref, ms_p = timed_once(plain)  # the plain version loops over levels: one call
+    e, sc = rel_err(out, ref)
+    lib_ms = lib_dev = None
+    e_l = "not measured"
+    if with_library:
+        mat, rhs = system()
+
+        def library():
+            return torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)
+
+        err_l, _ = rel_err(view(library()), ref)
+        check(err_l <= TOL_F64_CHAIN * sc, f"{name}: the library's float64 solve differs by {err_l:.3e}")
+        lib_ms, lib_dev, e_l = median_ms(library, 10), graph_ms(library, 10, 3), f"{err_l:.3e}"
+        del mat, rhs
+    report(name, e, sc, TOL_F64, median_ms(kern, 10), ms_p, work,
+           f"{note}; the library's float64 solve's max_abs_err {e_l})", phase="14 f64", dev_ms=dev_ms_of(kern),
+           library_ms=lib_ms, library_dev_ms=lib_dev, flops=F64_FLOP_PER_S)
+    return dict(device_ms=TIMINGS[name]["device_ms"], library_device_ms=lib_dev, max_abs_err=e, scale=sc)
+
+
+def f64_level_kernels(ainv):
+    """14g: RE1's and RE2's float64 instances against their float64 plain
+    versions at q = 10,000 on phase 8's A^-1 (RE2 at nT = 1 .. 4 and 5, the
+    generic form) and at phase 8's and phase 9's edges on random
+    structures, each within TOL_F64 of u's scale and twice the same bits;
+    at q = 10,000 timed on the card alone beside the float64 byte bound (A's
+    lower triangle in 8 bytes) and the library's float64 triangular solve.
+    Returns the numbers by name."""
+    q, dt, out = ainv.shape[0], torch.float64, {}
+    g = torch.Generator(device=DEV).manual_seed(30)
+    yi, z, u = (torch.randn(q, generator=g, dtype=dt, device=DEV) for _ in range(3))
+    args = (ainv, yi, torch.rand(q, generator=g, dtype=dt, device=DEV) * 3, z, u,
+            torch.tensor(1 / 1.7, dtype=dt, device=DEV), torch.tensor(0.6, dtype=dt, device=DEV))
+    out["level_scan_f64"] = held_level(
+        "level_scan_f64", lambda: random_scan.level_scan_kernel(*args), lambda: random_scan.level_scan_plain(*args),
+        lambda: random_scan.level_scan_system(*args), lambda x: x[:, 0], work_re1(q, 8),
+        f" (q = {q:,}, float64, the dense A^-1 of phase 8's pedigree, random inputs; 2 launches a call; on "
+        "the card alone: CUDA events around a graph of 20 calls", graph_ms)
+    for qs in RE1_EDGES:
+        small = tuple(t.double() for t in re1_inputs(qs, *args[5:]))
+        o, r = random_scan.level_scan_kernel(*small), random_scan.level_scan_plain(*small)
+        e, sc = rel_err(o, r)
+        same = torch.equal(o, random_scan.level_scan_kernel(*small))
+        print(f"[14 f64] level_scan_f64 at q = {qs:,}: max_abs_err {e:.3e} (scale {sc:.3e}, tol {TOL_F64:g} x "
+              f"scale); two launches {'bit-identical' if same else 'DIFFER'}")
+        check(e <= TOL_F64 * sc and same, f"level_scan_f64 at q = {qs} disagrees with its plain version or itself")
+    for n_t in RE2_F64_NTS:
+        a2 = tuple(t.to(dt) for t in re2_inputs(q, n_t, ainv, seed=n_t))
+        name = "corr_level_scan_f64" if n_t == 2 else f"corr_level_scan_nt{n_t}_f64"
+        out[name] = held_level(
+            name, lambda a2=a2: random_scan.corr_level_scan_kernel(*a2),
+            lambda a2=a2: random_scan.corr_level_scan_plain(*a2),
+            lambda a2=a2: random_scan.corr_level_scan_system(*a2), lambda x, n_t=n_t: x.view(q, n_t).T,
+            work_re2(q, n_t, 8),
+            f" (q = {q:,}, nT = {n_t}, float64, the dense A^-1 of phase 8's pedigree, random rule inputs; "
+            + ("the generic form, its rule in torch; on the card alone: the sum of one profiled window's "
+               "kernels over 10 calls" if n_t > random_scan.FAST_NT
+               else "the cooperative form, its rule built in the prep launch; on the card alone: CUDA events "
+               "around a graph of 20 calls"),
+            graph_ms if n_t <= random_scan.FAST_NT else
+            lambda kern: by_kernel(kern, 10, "14 f64", "corr_level_scan_f64 nT=5", quiet=True),
+            with_library=n_t in RE2_F64_LIBRARY)
+    for qs in RE2_F64_EDGES:
+        for n_t in RE2_F64_NTS:
+            a2 = tuple(t.double() for t in re2_inputs(qs, n_t, seed=qs + n_t))
+            o, r = random_scan.corr_level_scan_kernel(*a2), random_scan.corr_level_scan_plain(*a2)
+            e, sc = rel_err(o, r)
+            same = torch.equal(o, random_scan.corr_level_scan_kernel(*a2))
+            print(f"[14 f64] corr_level_scan_f64 at q = {qs:,}, nT = {n_t}: max_abs_err {e:.3e} (scale {sc:.3e}); "
+                  f"two launches {'bit-identical' if same else 'DIFFER'}")
+            check(e <= TOL_F64 * sc and same, f"corr_level_scan_f64 at q = {qs}, nT = {n_t} disagrees")
+    return out
+
+
+def f64_random_specs(geno, y, ainv, u1, x, u2, prior_a2=V_A2):
+    """BayesR+A (y + u1, an animal effect on ainv) and BayesR+A2 (y + u1 + x
+    u2, an (intercept, slope) animal group on ainv) over the panel geno,
+    one animal a row."""
+    base = method_spec(geno, y, "BayesR")
+    eye = np.eye(geno.shape[0])
+    spec_a = replace(base, y=y + u1, random=[ngt.RandomTerm("A", eye, prior=ngt.Random("A", VAR_A), ivstr=ainv)])
+    spec_a2 = replace(base, y=y + u1 + x * u2, random=[ngt.RandomTerm(
+        ("A", "S"), (eye, eye * x[:, None]), prior=ngt.Random("A", prior_a2), ivstr=ainv)])
+    return spec_a, spec_a2
+
+
+def f64_random_chains():
+    """14h: BayesR+A and BayesR+A2 (V=96) at a smaller depth, 2,000
+    individuals on phase 4's generator (49,152 loci) and a pedigree of 2,000
+    animals (five generations of F64_RANDOM's 400): 20 float64 sweeps of
+    the kernel chain against the float64 plain chain on one KeyedStream
+    (f64_chain_vs_plain). Returns {run: (launches, numbers)}."""
+    gs = F64_RANDOM["gen_size"]
+    n = GENS * gs
+    small, _, y_small, _, _ = simulate_panel(n, P)
+    ped, u1 = simulate_pedigree(GENS, gs, seed=13)
+    u2 = 0.5 * u1 + 0.75 ** 0.5 * henderson_values(ped, GENS, gs, np.random.default_rng(14))
+    x = np.random.default_rng(15).normal(size=n)
+    spec_a, spec_a2 = f64_random_specs(small, y_small, pedigree.a_inverse(ped), u1, x, u2)
+    out = {}
+    for tag, spec, scan in (("BayesR+A", spec_a, "level_scan"), ("BayesR+A2", spec_a2, "corr_level_scan")):
+        out[tag] = f64_chain_vs_plain(spec, V_MAIN, F64_RANDOM["sweeps"], f"f64 {tag} {n:,} x {P:,}",
+                                      random=scan)
+    return out
+
+
+def f64_random_path(tag, spec, V, truth, truth_name, corr_group=False, ebv_limit=None, marker_truth=None):
+    """14i: one random-effect path in float64 at full width, as random_path
+    and corr_path run it from one KeyedStream: N_CHAIN_RE sweeps eager (a
+    loop of make_sweep, launches counted) and replayed (run_lmem), the same
+    bits; drift < 1e-9 of max|y|, finite draws, varU > 0 (every kept
+    covariance positive definite for a group), the posterior-mean u against
+    the planted values (held to ebv_limit where given, else printed), the
+    marker EBV printed; then the steady ms/sweep of both arms, the replays'
+    device busy and idle share, and the float32 replayed sweep of the same
+    model beside them. Returns (eager launches, numbers)."""
+    ph, dt = f"14 {tag}", torch.float64
+    plan, st0 = ngt.assemble(spec, vshards=V, dtype=dt)
+    name = plan.random[0].name if isinstance(plan.random[0].name, str) else "_".join(plan.random[0].name)
+    scan = "corr_level_scan_f64" if corr_group else "level_scan_f64"
+    stream = keyed.KeyedStream(7, DEV, dt)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    st, kept = st0, []
+    t0 = time.perf_counter()
+    for i in range(1, N_CHAIN_RE + 1):
+        st = sweep(st, stream)
+        if i > N_BURN_RE and (i - N_BURN_RE) % N_THIN_RE == 0:
+            kept.append(ngt.collect_sample(st, plan))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    check(launches[scan] == N_CHAIN_RE and not any(v for k, v in launches.items()
+                                                   if v and not k.endswith("_f64") and k != "keyed_rng"),
+          f"{tag}: float64 eager launches {launches}")
+    eager = {k: torch.stack([s[k] for s in kept]) for k in kept[0]}
+    res = ngt.run_lmem(spec, n_chain=N_CHAIN_RE, n_burn=N_BURN_RE, n_thin=N_THIN_RE, out_folder=None, vshards=V,
+                       stream=stream, dtype=dt)
+    differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), res.draws[k])]
+    check(set(res.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
+    check(torch.equal(res.state.ycorr, st.ycorr), f"{tag}: replayed ycorr differs from eager")
+    bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
+    check(not bad, f"{tag}: kept draws of {bad} are not finite")
+    var_u = res.draws[f"varU{name}"]
+    if corr_group:
+        pd = (torch.linalg.cholesky_ex(torch.from_numpy(var_u).reshape(-1, 2, 2))[1] == 0).all().item()
+        check(pd, f"{tag}: a kept varU draw is not positive definite")
+    else:
+        check((var_u > 0).all(), f"{tag}: varU not > 0")
+    drift = (corr_drift if corr_group else residual_drift)(res.plan, res.state)
+    check(drift < 1e-9, f"{tag}: float64 ycorr drifted {drift:.3e} of max|y|")
+    u_mean = torch.from_numpy(res.posterior_mean(f"u{name}")).to(DEV)
+    cs = [corr(u_mean[t, :2048] if corr_group else u_mean[:2048], tr[:2048]) for t, tr in enumerate(truth)]
+    shown = ", ".join(f"{c:.4f}" for c in cs)
+    print(f"[{ph}] float64, {N_CHAIN_RE} sweeps eager and replayed from one KeyedStream: kept draws and ycorr "
+          f"bit-identical; drift {drift:.3e} of max|y| (limit 1e-9); varU mean {np.round(var_u.mean(0), 4).tolist()}; "
+          f"corr(posterior-mean u, {truth_name}) over 2,048 individuals {shown} "
+          f"({'printed only' if ebv_limit is None else f'limit {ebv_limit}'}); eager launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    check(ebv_limit is None or min(cs) >= ebv_limit, f"{tag}: u correlation {shown} below {ebv_limit}")
+    if plan.markers:
+        gv = ngt.genomic_values_state(plan, res.state, beta=res.posterior_mean("betaM1"))
+        print(f"[{ph}] marker EBV corr with the planted marker signal over 2,048 individuals "
+              f"{corr(gv[:2048], marker_truth[:2048]):.4f} (printed only)")
+    rep = engine_sweep.ReplayedSweep(plan, res.state, stream)
+    state = [res.state]
+
+    def eager_step():
+        state[0] = sweep(state[0], stream)
+
+    ms_eager = steady_ms(eager_step, 20)
+    ms_replay = steady_ms(lambda: rep.run(1), 20)
+    busy, per_sweep, missed, _, ms_by = replay_window(rep, 10)
+    scan_ms = sum(v for k, v in ms_by.items() if "prep_kernel" in k or "scan_kernel" in k)
+    del rep, state, res, st, st0, plan
+    plan32, st32 = ngt.assemble(spec, vshards=V, dtype=torch.float32)
+    rep32 = engine_sweep.ReplayedSweep(plan32, st32, keyed.KeyedStream(7, DEV, torch.float32))
+    ms32 = steady_ms(lambda: rep32.run(1), 20)
+    busy32 = replay_window(rep32, 10)[0]
+    del rep32, plan32, st32
+    print(f"[{ph}] steady, 20 sweeps between CUDA events: float64 eager {ms_eager:.4f} ms/sweep, replayed "
+          f"{ms_replay:.4f} ms/sweep (eager loop {N_CHAIN_RE / eager_s:.2f} sweeps/s, host clock); 10 replays "
+          f"under the profiler: device busy {busy:.4f} ms/sweep ({scan_ms:.4f} of it in the level scan's "
+          f"launches), {per_sweep} kernels and copies a sweep ({missed} records missed), idle share "
+          f"{1.0 - busy / ms_replay:.4f}; the float32 replayed sweep of the same model in this call "
+          f"{ms32:.4f} ms/sweep, busy {busy32:.4f}")
+    return launches, dict(eager_ms_per_sweep=ms_eager, replay_ms_per_sweep=ms_replay, replay_busy_ms_per_sweep=busy,
+                          level_scan_busy_ms=scan_ms, idle_share=1.0 - busy / ms_replay, drift=drift, corr_u=cs,
+                          f32_replay_ms_per_sweep=ms32, f32_replay_busy_ms_per_sweep=busy32)
+
+
+def f64_random_paths(geno, y, sig, ped, ainv, u1):
+    """14i: BayesR+A and GBLUP on phase 8's 10,000 animals and BayesR+A2 on
+    phase 9's group, each f64_random_path at full width (BayesR+A and
+    BayesR+A2 at V=96, GBLUP at V=1). Returns ({run: launches}, numbers)."""
+    counted, out = {}, {}
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=N)
+    u2 = 0.5 * u1 + 0.75 ** 0.5 * henderson_values(ped, GENS, GEN_SIZE_A, np.random.default_rng(24))
+    spec_a, spec_a2 = f64_random_specs(geno, y, ainv, u1, x, u2)
+    u1_dev, u2_dev = (torch.from_numpy(v).to(DEV) for v in (u1, u2))
+    counted["f64 keyed BayesR+A"], out["BayesR+A"] = f64_random_path(
+        "BayesR+A", spec_a, V_MAIN, (u1_dev,), "planted polygenic u", marker_truth=sig)
+    counted["f64 keyed BayesR+A2"], out["BayesR+A2"] = f64_random_path(
+        "BayesR+A2", spec_a2, V_MAIN, (u1_dev, u2_dev), "planted intercept and slope", corr_group=True,
+        marker_truth=sig)
+    del spec_a, spec_a2
+    t0 = time.perf_counter()
+    ginv = ngt.make_g_inverse(geno.double())
+    torch.cuda.synchronize()
+    print(f"[14 GBLUP] G^-1 of the {N:,} x {P:,} panel (make_g_inverse, float64 on the card) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    spec_g = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(N))], random=[
+        ngt.RandomTerm("G", np.eye(N), prior=ngt.Random("G", VAR_A), ivstr=ginv)])
+    del ginv
+    counted["f64 keyed GBLUP"], out["GBLUP"] = f64_random_path(
+        "GBLUP", spec_g, 1, (sig,), "the planted genetic value", ebv_limit=GBLUP_EBV_LIMIT)
+    return counted, out
+
+
+def level_turns(ainv32, ainv64):
+    """14j: RE1 and RE2 (nT = 2) on the card alone at q = 10,000 on phase 8's
+    A^-1, the float32 instance (P) and the float64 one (C) in turns P, C, C, P
+    (graph_ms: CUDA events around a graph of 20 calls). Returns {kernel: [P,
+    C, C, P]}."""
+    arms = {}
+    for dt, ainv in ((torch.float32, ainv32), (torch.float64, ainv64)):
+        q = ainv.shape[0]
+        g = torch.Generator(device=DEV).manual_seed(30)
+        yi, z, u = (torch.randn(q, generator=g, dtype=dt, device=DEV) for _ in range(3))
+        a1 = (ainv, yi, torch.rand(q, generator=g, dtype=dt, device=DEV) * 3, z, u,
+              torch.tensor(1 / 1.7, dtype=dt, device=DEV), torch.tensor(0.6, dtype=dt, device=DEV))
+        a2 = tuple(t.to(dt) for t in re2_inputs(q, 2, ainv, seed=2))
+        arms[dt] = {"RE1": lambda a1=a1: random_scan.level_scan_kernel(*a1),
+                    "RE2 nT=2": lambda a2=a2: random_scan.corr_level_scan_kernel(*a2)}
+    out = {}
+    for name in ("RE1", "RE2 nT=2"):
+        out[name] = [graph_ms(arms[dt][name]) for dt in (torch.float32, torch.float64, torch.float64, torch.float32)]
+        shown = ", ".join(f"{t:.4f}" for t in out[name])
+        print(f"[14 f64] {name} on the card alone (a graph of 20 calls), q = 10,000, turns f32 / f64 / f64 / f32 "
+              f"(ms): {shown}")
+    return out
+
+
+def f64_random_phase(geno, y, sig):
+    """14g-14j: the float64 level scans (RE1, RE2) and the random-effect
+    models through them. Returns (numbers, launches by run)."""
+    t0 = time.perf_counter()
+    out, counted = {}, {}
+    out["14g build"] = level_build()
+    t1 = time.perf_counter()
+    ped, u1, ainv = phase8_pedigree()
+    ainv64 = torch.as_tensor(ainv, dtype=torch.float64, device=DEV)
+    print(f"[14 f64] the build's report in {t1 - t0:.2f} s; phase 8's pedigree and dense A^-1 in "
+          f"{time.perf_counter() - t1:.2f} s")
+    out["14g"] = f64_level_kernels(ainv64)
+    for tag, (launches, rec) in f64_random_chains().items():
+        counted[f"f64 {tag} small"], out[f"14h {tag}"] = launches, rec
+    by_run, out["14i"] = f64_random_paths(geno, y, sig, ped, ainv, u1)
+    counted.update(by_run)
+    out["14j"] = level_turns(ainv64.float(), ainv64)
+    out["seconds 14g-14j"] = time.perf_counter() - t0
+    print(f"[14 f64] 14g-14j in {out['seconds 14g-14j']:.1f} s")
+    return out, counted
+
+
+def levels_only(card, other_src=None):
+    """`python3 chip_smoke.py levels [DIR]`: RE1 and RE2 alone, the quick form
+    for work on csrc/level_scan.cu: ptxas's and the SASS's report of every
+    instance (14g), phase 9.1 (RE2 in float32 at q = 10,000 on phase 8's
+    A^-1 for nT = 1, 2, 3 and at its edges, beside RE1) and 14g (both
+    float64 instances); with DIR (another tree's csrc/, built alone with its
+    own C interface), RE1 at q = 10,000 and 3,001 and RE2 at nT = 1, 2, 3
+    also against DIR's in float32, bit for bit, and in turns P, C, C, P. One
+    JSON line of its numbers, and no result line."""
+    _, _, ainv_np = phase8_pedigree()
+    ainv = torch.as_tensor(ainv_np, dtype=torch.float32, device=DEV)
+    out = {"build": level_build()}
+    other2 = None if other_src is None else other_corr_level_scan(other_src)
+    out["RE2"] = re2_phase(ainv, other2)
+    if other_src is not None:
+        q = ainv.shape[0]
+        g = torch.Generator(device=DEV).manual_seed(30)
+        yi, z, u = (torch.randn(q, generator=g, device=DEV) for _ in range(3))
+        args = (ainv, yi, torch.rand(q, generator=g, device=DEV) * 3, z, u, torch.tensor(1 / 1.7, device=DEV),
+                torch.tensor(0.6, device=DEV))
+        out["RE1 arms"] = re1_arms(other_level_scan(other_src),
+                                   [(f"q = {q:,}", args), ("q = 3,001", re1_inputs(3001, *args[5:]))])
+    out["14g"] = f64_level_kernels(torch.as_tensor(ainv_np, dtype=torch.float64, device=DEV))
+    print(json.dumps({"card": card, "levels": out,
+                      "timings": {k: v for k, v in TIMINGS.items() if "level_scan" in k}}))
 
 
 def f64_only(card):
@@ -5575,6 +5989,9 @@ F64_R_RUNS = ("f64 V=96", "f64 V=1", f"f64 keyed V={V_MAIN}")
 F64_OTHER_RUNS = (tuple(f"f64 {p} V={V_MAIN}" for p in F64_PATHS_V96) + ("f64 BayesLV V=1",)
                   + tuple(f"f64 keyed {p} V={V}" for p, V in F64_REPLAYED))
 F64_PATH_RUNS = F64_R_RUNS + F64_OTHER_RUNS
+# phase 14's random-effect runs (14h at 2,000 animals, 14i at full width)
+F64_RE1_RUNS = ("f64 BayesR+A small", "f64 keyed BayesR+A", "f64 keyed GBLUP")
+F64_RE2_RUNS = ("f64 BayesR+A2 small", "f64 keyed BayesR+A2")
 
 
 def f64_runs(path, V):
@@ -5657,6 +6074,10 @@ SOURCES = {
     "bc_block_scan_v_v1_f64": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v_f64", f64_runs("BayesC", 1)),
     "bc_block_scan_wv_f64": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv_f64",
                              f64_runs("BayesC+D", V_MAIN) + ("f64 BayesC+D int8",)),
+    "level_scan_f64": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:29",
+                       "level_scan_f64", F64_RE1_RUNS),
+    "corr_level_scan_f64": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
+                            "corr_level_scan_f64", F64_RE2_RUNS),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of "
@@ -5700,6 +6121,13 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
          "bc_block_scan_v_v1_f64": "K7 in float64: K8's float64 instance at V = 1, BayesC's",
          "bc_block_scan_wv_f64": "K10's float64 instance (ngt_bc_block_scan_wv_f64); launches from phase "
                                  "14's float64 BayesC+D runs on packed and int8 rows",
+         "level_scan_f64": "RE1's float64 instance (ngt_level_scan_f64); not a TPU kernel (see "
+                           "level_scan); launches from phase 14's float64 BayesR+A and GBLUP runs, "
+                           "eager",
+         "corr_level_scan_f64": "RE2's float64 instance (ngt_corr_level_scan_f64); not a TPU kernel (see "
+                                "corr_level_scan); timed at nT = 2 (nT = 1, 3, 4, 5: "
+                                "corr_level_scan_nt<n>_f64 in phase 14's output); launches from phase "
+                                "14's float64 BayesR+A2 runs, eager",
          "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
                       "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
                       "sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:877-878, "
@@ -5814,6 +6242,8 @@ def main(argv=()):
         return storage_only(card)
     if list(argv) == ["f64"]:
         return f64_only(card)
+    if list(argv[:1]) == ["levels"] and len(argv) <= 2:
+        return levels_only(card, *argv[1:])
     if list(argv[:1]) == ["grn"] and len(argv) <= 2:
         return grn_only(card, *argv[1:])
     spec_for, sig = simulate()
@@ -5833,7 +6263,7 @@ def main(argv=()):
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
                     "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
-                    "storage, grn [DIR], shards or f64")
+                    "storage, grn [DIR], shards, f64 or levels [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

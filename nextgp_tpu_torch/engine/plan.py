@@ -778,18 +778,19 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
 # The card's kernels that a term runs through and that have no float64
 # instance yet (K1, K2 and K3, BayesR's path, have one; so have K6, K8 and
 # K10, BayesPR's, BayesLV's and BayesB/C's with or without a weighted
-# residual, and R1, CG1 and GRN1).
+# residual, RE1 and RE2, the random terms' level scans, and R1, CG1 and
+# GRN1).
 _F32_ONLY = {METHOD_RCPI: "K12 (rcpi_block_scan_v)", METHOD_RCPLUS: "K14 (rcplus_block_scan_v)"}
 
 
 def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
     """Refuse a float64 model on a CUDA device where a kernel without a
     float64 instance would meet it mid-sweep: BayesRCpi and BayesRCplus
-    marker sets (K12, K14), correlated marker sets (CM1, CM1r) and random
-    terms drawn by a per-level scan (RE1, RE2). Marker sets of BayesR,
-    BayesB, BayesC (weighted residual or not), BayesPR and BayesLV (any
-    storage, any V: K1, K2, K3, K6, K8, K10), CG terms and fixed effects
-    run in float64 on the card."""
+    marker sets (K12, K14) and correlated marker sets (CM1, CM1r). Marker
+    sets of BayesR, BayesB, BayesC (weighted residual or not), BayesPR and
+    BayesLV (any storage, any V: K1, K2, K3, K6, K8, K10), random terms
+    (by the per-level scan, RE1, or by CG, CG1), correlated random groups
+    (RE2) and fixed effects run in float64 on the card."""
     if torch.device(device).type != "cuda" or dtype != torch.float64:
         return
     needs = []
@@ -800,10 +801,6 @@ def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
     for t in spec.corr_markers:
         needs.append(f"correlated marker set {t.names} runs through CM1 (corr_block_scan_v) "
                      "and CM1r (corr_rule)")
-    for t in spec.random:
-        if not _random_prior(t)[1]:
-            kernel = "RE2 (corr_level_scan)" if t.correlated else "RE1 (level_scan)"
-            needs.append(f"random term {t.name!r} runs through {kernel}")
     if needs:
         raise ValueError(
             f"float64 on a CUDA device: {'; '.join(needs)}, a kernel with a float32 instance "
@@ -830,10 +827,11 @@ def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
     set can be.
     float64 on a CUDA device runs BayesR, BayesB, BayesC (weighted
     residual or not), BayesPR and BayesLV marker sets (packed, int8 or
-    float rows, any V), CG terms and fixed effects; it raises
-    (check_card_dtype) where a term needs a kernel with a float32 instance
-    only (a BayesRCpi or BayesRCplus marker set, a correlated marker set, a
-    scan random term), before anything is placed on the card.
+    float rows, any V), random terms (by the scan or by CG), correlated
+    random groups and fixed effects; it raises (check_card_dtype) where a
+    term needs a kernel with a float32 instance only (a BayesRCpi or
+    BayesRCplus marker set, a correlated marker set), before anything is
+    placed on the card.
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its

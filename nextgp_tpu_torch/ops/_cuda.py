@@ -38,8 +38,8 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
             "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0,
-            "corr_level_scan": 0, "corr_block_scan_v": 0, "corr_rule": 0, "cg_solve": 0,
-            "grn_scan": 0}
+            "corr_level_scan": 0, "level_scan_f64": 0, "corr_level_scan_f64": 0,
+            "corr_block_scan_v": 0, "corr_rule": 0, "cg_solve": 0, "grn_scan": 0}
 
 _lib = None
 
@@ -133,8 +133,13 @@ def lib() -> ctypes.CDLL:
         L.ngt_keyed_rng_rows.argtypes = [P, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong),
                                          I, I, I, I, P, P, P, I, S]
         L.ngt_level_scan.argtypes = [P, I, P, P, P, P, P, P, P, S]
+        L.ngt_level_scan_f64.argtypes = L.ngt_level_scan.argtypes
         L.ngt_level_scan_scratch_words.argtypes = [I]
         L.ngt_level_scan_scratch_words.restype = ctypes.c_longlong
+        L.ngt_level_scan_smem_bytes.argtypes = [I, I]
+        L.ngt_level_scan_smem_bytes.restype = ctypes.c_longlong
+        L.ngt_smem_optin_bytes.argtypes = []
+        L.ngt_smem_optin_bytes.restype = ctypes.c_longlong
         bind_re2(L)
         bind_cm1(L)
         L.ngt_keyed_rng_f64.argtypes = L.ngt_keyed_rng.argtypes
@@ -149,7 +154,7 @@ def lib() -> ctypes.CDLL:
                    L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
                    L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_keyed_rng_f64,
-                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan):
+                   L.ngt_keyed_rng_rows_f64, L.ngt_level_scan, L.ngt_level_scan_f64):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib
@@ -157,10 +162,14 @@ def lib() -> ctypes.CDLL:
 
 def bind_re2(L: ctypes.CDLL) -> None:
     """Bind RE2's C interface (csrc/level_scan.cu) in a loaded library: the
-    port's, or another build of that source."""
+    port's, or another build of that source (whose float64 entry, where it
+    has one, is bound too)."""
     I = ctypes.c_longlong
     L.ngt_corr_level_scan.argtypes = [ctypes.c_void_p, I, I] + [ctypes.c_void_p] * 10
     L.ngt_corr_level_scan.restype = ctypes.c_int
+    if hasattr(L, "ngt_corr_level_scan_f64"):
+        L.ngt_corr_level_scan_f64.argtypes = L.ngt_corr_level_scan.argtypes
+        L.ngt_corr_level_scan_f64.restype = ctypes.c_int
     L.ngt_corr_level_scan_takes_rule.argtypes = [I]
     L.ngt_corr_level_scan_takes_rule.restype = I
     L.ngt_corr_level_scan_scratch_words.argtypes = [I, I]

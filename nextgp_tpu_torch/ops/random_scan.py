@@ -6,13 +6,15 @@ Counterpart of the `lax.scan` over levels in the JAX package's
 NextGP.jl's sampleU, functions.jl:57-72). It replaces no Pallas kernel: the
 JAX package runs the loop as one compiled scan on the device, and written
 as plain PyTorch on the card it would be q dependent steps of several
-launches each. `level_scan` launches the kernel for CUDA tensors (float32;
-it raises on what the kernel does not take) and runs the plain version for
-CPU tensors. Both run the levels in groups of `GROUP`: the strict upper
-triangle's sums first, then per group the earlier groups' new values into
-its rows (the segments more than `LOOKAHEAD` groups back, then the rest of
-the window but the last group, then the last group), then its levels in
-order with right-looking in-group sums.
+launches each. `level_scan` launches the kernel for CUDA tensors (its
+float32 instance, or its float64 one where every input is float64,
+counted as `level_scan_f64`; it raises on what the kernel does not take)
+and runs the plain version for CPU tensors. Both run the levels in groups
+of `GROUP`: the strict upper triangle's sums first, then per group the
+earlier groups' new values into its rows (the segments more than
+`LOOKAHEAD` groups back, then the rest of the window but the last group,
+then the last group), then its levels in order with right-looking
+in-group sums.
 
 `level_scan_system` states the same function as one unit lower-triangular
 system (a Gauss-Seidel pass with fixed coefficients is one), which
@@ -27,8 +29,14 @@ W_i s_i, is computed for every level before the chain, so that the chain
 carries an nT x nT matvec a level: for nT <= 4 by the kernel's prep launch
 (one thread a level), above it and in the plain version by
 `corr_level_rule` (batched torch.linalg calls, without host checks); the
-kernel then runs RE1's design with nT channels (csrc/level_scan.cu, `re2`).
-It replaces no Pallas kernel.
+kernel then runs RE1's design with nT channels (csrc/level_scan.cu, `re2`),
+in float32 or, where every input is float64, in float64 (counted as
+`corr_level_scan_f64`). It replaces no Pallas kernel.
+
+`level_scan_smem_bytes` states the shared memory a block of each
+instance's scan launch takes, as csrc/level_scan.cu lays it out; the
+wrappers hold it against the card's opt-in limit (read once a process)
+before they launch.
 """
 from __future__ import annotations
 
@@ -38,6 +46,59 @@ from . import _cuda
 
 GROUP = 32  # levels per group: one warp's chain in the kernel
 LOOKAHEAD = 5  # csrc/level_scan.cu's kLook
+SMEM_LIMIT = 232_448  # csrc/level_scan.cu's kSmemLimit: the shared memory an H100 block may opt in to
+MAX_SLOTS = 7  # csrc/level_scan.cu's kMaxSlots: the chain's ring of group bands, at most
+FAST_NT = 4  # csrc/level_scan.cu's re2::kFastNT: the largest nT of RE2's cooperative form
+
+
+def level_scan_smem_bytes(n_t=0, itemsize=4):
+    """Shared memory one block of the scan launch takes, as csrc/level_scan.cu
+    lays it out: RE1's (n_t = 0) or RE2's cooperative form's at n_t <= 4 (0
+    for the generic form, which takes none), in the float32 instance
+    (itemsize 4) or the float64 one (8). The chain's block holds a ring of
+    slots, each a group's band (L + 1 blocks of 32 rows, 36 elements apart
+    in float32 and 34 in float64), its (c, b) or rule rows, the quads' e,
+    up and win; then L + 2 groups of new u and 32 counters. The ring takes
+    the most slots, up to MAX_SLOTS, that fit SMEM_LIMIT. An owner warp
+    holds four staged blocks and 16 row blocks' sums; a block, four warps.
+    The need is the larger of the two sides."""
+    if n_t > FAST_NT:
+        return 0
+    stride = 36 if itemsize == 4 else 34
+    blk = (LOOKAHEAD + 1) * 32 * stride
+    ch = max(n_t, 1)
+    slot = blk + (64 + 64 + 64 if n_t == 0 else 32 * (n_t + n_t * n_t) + 48 * n_t * n_t + 64 * n_t)
+    chain = [itemsize * (s * slot + (LOOKAHEAD + 2) * 32 * ch) + 128 for s in range(MAX_SLOTS, 2, -1)]
+    fits = [c for c in chain if c <= SMEM_LIMIT]
+    owners = 4 * itemsize * (4 * 32 * stride + 16 * 32 * ch)
+    return max(fits[0] if fits else chain[-1], owners)
+
+
+_OPTIN: dict = {}  # CUDA device -> the shared memory a block may opt in to, read once a process
+
+
+def _require_smem(name, n_t, t):
+    """Raise, naming the instance, where the scan launch's shared memory
+    exceeds what t's card lets a block opt in to."""
+    need = level_scan_smem_bytes(n_t, t.element_size())
+    if t.device not in _OPTIN:
+        with torch.cuda.device(t.device):
+            _OPTIN[t.device] = _cuda.lib().ngt_smem_optin_bytes()
+    inst = f"{name}{'_f64' if t.dtype == torch.float64 else ''}" + (f" at nT = {n_t}" if n_t else "")
+    _cuda.require(need <= _OPTIN[t.device],
+                  f"{inst}: needs {need:,} bytes of shared memory a block, the card lets a block "
+                  f"opt in to {_OPTIN[t.device]:,}")
+
+
+def _real_of(name, tensors):
+    """float32 or float64: the one type of every input on one CUDA device,
+    else a ValueError."""
+    dt = tensors[0].dtype
+    _cuda.require(all(t.is_cuda for t in tensors) and dt in (torch.float32, torch.float64)
+                  and all(t.dtype == dt for t in tensors),
+                  f"{name}: every input must be float32, or every one float64, on a CUDA device")
+    _cuda.require(len({t.device for t in tensors}) == 1, f"{name}: every input must be on one device")
+    return dt
 
 
 def _rule(ivstr, yi, zpz, z, ive, ivu):
@@ -86,27 +147,27 @@ def level_scan_system(ivstr, yi, zpz, z, u, ive, ivu):
 
 
 def level_scan_kernel(ivstr, yi, zpz, z, u, ive, ivu):
-    """RE1 on the card: one call, two launches, new u (q,)."""
+    """RE1 on the card: one call, two launches, new u (q,). Every input
+    float32 (the float32 instance) or every one float64 (the float64
+    instance, counted as `level_scan_f64`)."""
     q = u.shape[0]
     vecs = (yi, zpz, z, u)
-    _cuda.require(all(t.is_cuda and t.dtype == torch.float32 for t in (ivstr, *vecs, ive, ivu)),
-                  "level_scan: every input must be float32 on a CUDA device")
-    _cuda.require(len({t.device for t in (ivstr, *vecs, ive, ivu)}) == 1,
-                  "level_scan: every input must be on one device")
+    dt = _real_of("level_scan", (ivstr, *vecs, ive, ivu))
     _cuda.require(ivstr.shape == (q, q) and ivstr.is_contiguous() and q >= 1,
                   f"level_scan: ivstr must be a contiguous ({q}, {q}) matrix")
     _cuda.require(all(t.shape == (q,) and t.is_contiguous() for t in vecs),
                   f"level_scan: yi, zpz, z and u must be contiguous ({q},) vectors")
     _cuda.require(ive.numel() == 1 and ivu.numel() == 1, "level_scan: ive and ivu are scalars")
-    lib = _cuda.lib()
+    lib, f64 = _cuda.lib(), dt == torch.float64
+    _require_smem("level_scan", 0, u)
     out = u.clone()
-    scratch = torch.empty(lib.ngt_level_scan_scratch_words(q), dtype=torch.float32, device=u.device)
+    scratch = torch.empty(lib.ngt_level_scan_scratch_words(q), dtype=dt, device=u.device)
     ive, ivu = ive.contiguous(), ivu.contiguous()
-    err = lib.ngt_level_scan(
+    err = (lib.ngt_level_scan_f64 if f64 else lib.ngt_level_scan)(
         ivstr.data_ptr(), q, yi.data_ptr(), zpz.data_ptr(), z.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), ive.data_ptr(), ivu.data_ptr(), _cuda.stream_of(u))
     _cuda.check(err, "level_scan")
-    _cuda.LAUNCHES["level_scan"] += 1
+    _cuda.LAUNCHES["level_scan_f64" if f64 else "level_scan"] += 1
     return out
 
 
@@ -156,31 +217,29 @@ def corr_level_scan_with(lib, ivstr, yi, zpz, z, u, var_e, ivu):
     """One RE2 call through `lib` (the port's library, or another build of
     csrc/level_scan.cu with its C interface): for nT <= 4 the rule is built
     in the kernel's prep launch, above it by corr_level_rule here; the new u
-    (nT, q)."""
+    (nT, q). Every input float32, or every one float64 (the float64
+    instance, `ngt_corr_level_scan_f64`)."""
     n_t, q = u.shape
-    ins = (ivstr, yi, zpz, z, u, var_e, ivu)
-    _cuda.require(all(t.is_cuda and t.dtype == torch.float32 for t in ins),
-                  "corr_level_scan: every input must be float32 on a CUDA device")
-    _cuda.require(len({t.device for t in ins}) == 1, "corr_level_scan: every input must be on one device")
+    dt = _real_of("corr_level_scan", (ivstr, yi, zpz, z, u, var_e, ivu))
     _cuda.require(ivstr.shape == (q, q) and ivstr.is_contiguous() and q >= 1,
                   f"corr_level_scan: ivstr must be a contiguous ({q}, {q}) matrix")
     _cuda.require(yi.shape == (n_t, q) and zpz.shape == (q, n_t, n_t) and z.shape == (q, n_t)
                   and ivu.shape == (n_t, n_t) and var_e.numel() == 1,
                   "corr_level_scan: yi (nT, q), zpz (q, nT, nT), z (q, nT), ivu (nT, nT), var_e a scalar")
+    _require_smem("corr_level_scan", n_t, u)
     rule = None
     if lib.ngt_corr_level_scan_takes_rule(n_t):
         m, W = corr_level_rule(ivstr, yi, zpz, z, var_e, ivu)
-        rule = torch.zeros((-(-q // GROUP) * GROUP, n_t + n_t * n_t), dtype=torch.float32,
-                           device=u.device)
+        rule = torch.zeros((-(-q // GROUP) * GROUP, n_t + n_t * n_t), dtype=dt, device=u.device)
         rule[:q, :n_t] = m
         rule[:q, n_t:] = W.reshape(q, -1)
     yi, zpz, z, u_old, var_e, ivu = (t.contiguous() for t in (yi, zpz, z, u, var_e, ivu))
     out = torch.empty_like(u_old)
-    scratch = torch.empty(lib.ngt_corr_level_scan_scratch_words(q, n_t), dtype=torch.float32,
-                          device=u.device)
-    err = lib.ngt_corr_level_scan(ivstr.data_ptr(), q, n_t, yi.data_ptr(), zpz.data_ptr(), z.data_ptr(),
-                                  var_e.data_ptr(), ivu.data_ptr(), None if rule is None else rule.data_ptr(),
-                                  u_old.data_ptr(), out.data_ptr(), scratch.data_ptr(), _cuda.stream_of(u))
+    scratch = torch.empty(lib.ngt_corr_level_scan_scratch_words(q, n_t), dtype=dt, device=u.device)
+    entry = lib.ngt_corr_level_scan_f64 if dt == torch.float64 else lib.ngt_corr_level_scan
+    err = entry(ivstr.data_ptr(), q, n_t, yi.data_ptr(), zpz.data_ptr(), z.data_ptr(), var_e.data_ptr(),
+                ivu.data_ptr(), None if rule is None else rule.data_ptr(), u_old.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), _cuda.stream_of(u))
     _cuda.check(err, "corr_level_scan")
     return out
 
@@ -189,9 +248,10 @@ def corr_level_scan_kernel(ivstr, yi, zpz, z, u, var_e, ivu):
     """RE2 on the card: one call (two launches for nT <= 4, RE1's prep, which
     also builds the per-level rule, and its cooperative look-ahead launch;
     the generic form, after the rule batched here, 2 ceil(q / 1024)); the new
-    u (nT, q)."""
+    u (nT, q). float64 inputs run the float64 instance, counted as
+    `corr_level_scan_f64`."""
     out = corr_level_scan_with(_cuda.lib(), ivstr, yi, zpz, z, u, var_e, ivu)
-    _cuda.LAUNCHES["corr_level_scan"] += 1
+    _cuda.LAUNCHES["corr_level_scan_f64" if out.dtype == torch.float64 else "corr_level_scan"] += 1
     return out
 
 

@@ -303,10 +303,11 @@ def run_lmem(
     this raises before the output folder is touched). `dtype`: float32 on
     the card and float64 on the CPU unless given; float64 on the card runs
     BayesR, BayesB, BayesC (weighted residual or not), BayesPR and BayesLV
-    marker sets (packed, int8 or float rows, any V), CG terms and fixed
-    effects, and raises before the output folder is touched where a term
-    needs a kernel with a float32 instance only (`check_card_dtype`:
-    BayesRCpi, BayesRCplus, correlated marker sets, scan random terms).
+    marker sets (packed, int8 or float rows, any V), random terms (by the
+    scan or by CG), correlated random groups and fixed effects, and raises
+    before the output folder is touched where a term needs a kernel with a
+    float32 instance only (`check_card_dtype`: BayesRCpi, BayesRCplus,
+    correlated marker sets).
 
     checkpoint_every=k writes `<out_folder>/chain.ckpt` every k kept samples
     (atomic, exact-resume: every draw is keyed by its sweep, io/checkpoint.py).

@@ -62,7 +62,12 @@ at the float32 instances' edges (1e-12 of scale of the plain versions, the same 
 twice) and float64 BayesR chains on packed, int8 and float rows (following the plain
 chain at 1e-9, replays with the eager chain's bits, through run_lmem); the float64
 instances of K6, K8 and K10 at V in {1, 4, 96} and B in {8, 40, 256, 1,024}, and
-float64 chains of BayesB, BayesC, BayesC+D, BayesPR and BayesLV on the card.
+float64 chains of BayesB, BayesC, BayesC+D, BayesPR and BayesLV on the card; the
+float64 instances of RE1 and RE2 (nT = 1 .. 4 and the generic 5) at q = 1, 33,
+1,025 and 3,001 (1e-12 of scale of the plain versions, the same bits twice), a
+float64 RE1 captured in a graph whose replays are the next sweeps' scans, RE2's
+refusal of mixed types, and float64 chains of BayesR with an animal effect and
+with an (intercept, slope) animal group on the card.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -2251,3 +2256,139 @@ def test_run_lmem_f64_on_the_card(dev):
         gv = ngt.genomic_values_state(plan, st)
         drift = (st.ycorr - (st.y - st.fixed[0].b[0] - gv)).abs().max() / st.y.abs().max()
         assert drift.item() < 1e-9
+
+
+# ------------------------------------------------------------------ float64 RE1 and RE2
+
+F64_LEVEL_QS = [1, 33, 1025, 3001]  # one level, one past a group, past the old tile, q not even
+TOL_F64 = 1e-12  # of u's scale: float64 sums in the kernel's order and the plain's
+
+
+@pytest.mark.parametrize("q", F64_LEVEL_QS)
+def test_level_scan_f64_matches_plain(dev, q):
+    """RE1's float64 instance within 1e-12 of u's scale of the float64
+    plain version, the same bits from two launches, counted as
+    level_scan_f64 and not as level_scan."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    args = [t.double() for t in _level_inputs(q, dev, q)]
+    before = dict(_cuda.LAUNCHES)
+    out = random_scan.level_scan(*args)
+    ref = random_scan.level_scan_plain(*args)
+    assert out.dtype == torch.float64 and _rel(out, ref) < TOL_F64
+    assert torch.equal(out, random_scan.level_scan(*args))
+    assert _cuda.LAUNCHES["level_scan_f64"] == before["level_scan_f64"] + 2
+    assert _cuda.LAUNCHES["level_scan"] == before["level_scan"]
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("q", F64_LEVEL_QS)
+def test_corr_level_scan_f64_matches_plain(dev, q, n_t):
+    """RE2's float64 instance, the cooperative form (nT = 1 .. 4, its rule
+    built in double in the kernel) and the generic one (5), within 1e-12 of
+    u's scale of the float64 plain version, the same bits from two
+    launches, counted as corr_level_scan_f64."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    args = [t.double() for t in _corr_level_inputs(q, n_t, dev, q + n_t)]
+    before = dict(_cuda.LAUNCHES)
+    out = random_scan.corr_level_scan(*args)
+    ref = random_scan.corr_level_scan_plain(*args)
+    assert out.dtype == torch.float64 and out.shape == (n_t, q) and torch.isfinite(out).all()
+    assert _rel(out, ref) < TOL_F64
+    assert torch.equal(out, random_scan.corr_level_scan(*args))
+    assert _cuda.LAUNCHES["corr_level_scan_f64"] == before["corr_level_scan_f64"] + 2
+    assert _cuda.LAUNCHES["corr_level_scan"] == before["corr_level_scan"]
+
+
+def test_level_scan_f64_replayed_takes_the_next_sweep(dev):
+    """RE1's float64 instance captured in a CUDA graph with its output copied
+    back into u: each replay is the next sweep's scan (the 64-bit marks are
+    set inside the graph), with the bits of eager calls on the same inputs."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    ivstr, yi, zpz, z, u, ive, ivu = (t.double() for t in _level_inputs(1000, dev, 3))
+    eager = [u]
+    for _ in range(3):
+        eager.append(random_scan.level_scan(ivstr, yi, zpz, z, eager[-1], ive, ivu))
+    u_buf = u.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        random_scan.level_scan(ivstr, yi, zpz, z, u_buf, ive, ivu)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        u_buf.copy_(random_scan.level_scan(ivstr, yi, zpz, z, u_buf, ive, ivu))
+    u_buf.copy_(u)
+    for want in eager[1:]:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(u_buf, want)
+
+
+def test_corr_level_scan_refuses_mixed_types(dev):
+    """RE2 takes every input float32 or every one float64, nothing between."""
+    from nextgp_tpu_torch.ops import random_scan
+
+    ivstr, yi, zpz, z, u, var_e, ivu = _corr_level_inputs(40, 2, dev)
+    with pytest.raises(ValueError, match="float32"):
+        random_scan.corr_level_scan(ivstr.double(), yi, zpz, z, u, var_e, ivu)
+    with pytest.raises(ValueError, match="float64"):
+        random_scan.corr_level_scan(ivstr.double(), yi.double(), zpz.double(), z.double(), u.double(),
+                                    var_e, ivu.double())
+
+
+def _random_f64_spec(kind):
+    """BayesR with an animal effect on a pedigree's A^-1 ("A", _random_spec's
+    model), or with an (intercept, slope) animal group on the same A^-1
+    ("A2")."""
+    from nextgp_tpu_torch.data import pedigree as P
+
+    spec = _random_spec()
+    if kind == "A2":
+        term = spec.random[0]
+        x = np.random.default_rng(10).normal(size=spec.y.shape[0])
+        spec.random = [ngt.RandomTerm(("A", "S"), (term.z, term.z * x[:, None]),
+                                      prior=ngt.Random("A", np.eye(2) * 0.3), ivstr=term.ivstr)]
+    return spec
+
+
+@pytest.mark.parametrize("kind", ["A", "A2"])
+def test_random_f64_chain_on_the_card(dev, kind):
+    """A float64 chain of BayesR with an animal effect (RE1) or an
+    (intercept, slope) animal group (RE2) on the card (assemble takes it):
+    the level scan, K1, K2 and K3 run as their float64 instances and no
+    float32 one runs; the card chain follows the float64 plain chain on
+    the CPU from the same host draws (3 sweeps: u, beta and ycorr within
+    1e-9 of scale, delta equal); make_scan_sampler's replays of a float64
+    KeyedStream give the eager chain's bits."""
+    spec = _random_f64_spec(kind)
+    scan = "level_scan_f64" if kind == "A" else "corr_level_scan_f64"
+    chains = []
+    for device in (dev, "cpu"):
+        plan, st = ngt.assemble(spec, device=device, dtype=torch.float64, vshards=4)
+        sw, hs = ngt.make_sweep(plan), HostStream(4, device, torch.float64)
+        before = dict(_cuda.LAUNCHES)
+        for _ in range(3):
+            st = sw(st, hs)
+        ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        if device == dev:
+            assert ran[scan] == 3 and ran["r_block_scan_v_f64"] > 0
+            assert not any(v for k, v in ran.items() if not k.endswith("_f64"))
+        chains.append((st.random[0].u.cpu(), st.markers[0].beta.cpu(), st.markers[0].delta.cpu(),
+                       st.ycorr.cpu()))
+    assert torch.equal(chains[0][2], chains[1][2])
+    for i in (0, 1, 3):
+        assert _rel(chains[0][i], chains[1][i]) < 1e-9
+    plan, st0 = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=4)
+    stream = ngt.KeyedStream(21, dev, torch.float64)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)

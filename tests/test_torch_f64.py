@@ -1,17 +1,20 @@
-"""The float64 instances of K1, K2, K3, K6, K8 and K10 as far as the CPU
-reaches them: the shapes and sizes their wrappers compute (K2's float64
-grid, the scans' float64 shared memory), the CPU path of every wrapper in
-float64 (the plain version, no launch), and the launch counters that tell
-a float64 launch from a float32 one. The kernels themselves run in
-tests/test_torch_cuda.py on the card; float64 chains of BayesR, BayesB,
-BayesC, BayesC with a weighted residual, BayesPR and BayesLV on the CPU are
-held to the JAX package by tests/test_torch_sweep.py
-(`test_five_sweeps_match` and its cases)."""
+"""The float64 instances of K1, K2, K3, K6, K8, K10, RE1 and RE2 as far as
+the CPU reaches them: the shapes and sizes their wrappers compute (K2's
+float64 grid, the scans' and the level scans' float64 shared memory), the
+CPU path of every wrapper in float64 (the plain version, no launch), and
+the launch counters that tell a float64 launch from a float32 one. The
+kernels themselves run in tests/test_torch_cuda.py on the card; float64
+chains of BayesR, BayesB, BayesC, BayesC with a weighted residual, BayesPR
+and BayesLV on the CPU are held to the JAX package by
+tests/test_torch_sweep.py (`test_five_sweeps_match` and its cases), the
+float64 level scans' samplers by tests/test_torch_random.py
+(`test_sample_random_uni_matches`) and tests/test_torch_corr.py
+(`test_single_stages_match`, `test_four_sweeps_match`)."""
 import numpy as np
 import pytest
 import torch
 
-from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2
+from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2, random_scan
 
 
 @pytest.mark.parametrize("rows,q", [(1, 16), (255, 240), (511, 256), (512, 272), (513, 528),
@@ -118,10 +121,71 @@ def test_cpu_wrappers_take_float64_as_the_plain_versions():
 
 
 def test_launch_counters_tell_float64_from_float32():
-    """K1, K2, K3, K6, K8 and K10 count their float64 launches apart
-    (`<name>_f64`), so a run can show which instance its path went through;
-    no other kernel has a float64 counter of its own."""
+    """K1, K2, K3, K6, K8, K10, RE1 and RE2 count their float64 launches
+    apart (`<name>_f64`), so a run can show which instance its path went
+    through; no other kernel has a float64 counter of its own."""
     f64 = sorted(k for k in _cuda.LAUNCHES if k.endswith("_f64"))
-    assert f64 == ["bc_block_scan_v_f64", "bc_block_scan_wv_f64", "gauss_block_scan_v_f64",
-                   "pack2_matvec_f64", "pack2_rank_update_f64", "r_block_scan_v_f64"]
+    assert f64 == ["bc_block_scan_v_f64", "bc_block_scan_wv_f64", "corr_level_scan_f64",
+                   "gauss_block_scan_v_f64", "level_scan_f64", "pack2_matvec_f64",
+                   "pack2_rank_update_f64", "r_block_scan_v_f64"]
     assert all(k.removesuffix("_f64") in _cuda.LAUNCHES for k in f64)
+
+
+# RE1 (n_t = 0) and RE2's cooperative form (n_t = 1 .. 4): the scan launch's
+# shared memory in the float32 instances before float64 existed (kScanSmem
+# and coop_smem<NT> of csrc/level_scan.cu), and in the float64 instances
+LEVEL_SMEM = {(0, 4): 199_936, (1, 4): 199_488, (2, 4): 209_792, (3, 4): 224_576, (4, 4): 209_536,
+              (0, 8): 216_960, (1, 8): 216_448, (2, 8): 228_992, (3, 8): 188_416, (4, 8): 204_800}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["float32", "float64"])
+@pytest.mark.parametrize("n_t", [0, 1, 2, 3, 4], ids=["RE1", "nT=1", "nT=2", "nT=3", "nT=4"])
+def test_level_scan_shared_memory_need(n_t, itemsize):
+    """Each instance's need fits the 232,448 bytes an H100 block may opt in
+    to; float32's equals the need before the float64 instances (its ring of
+    7 slots, 6 at nT = 4); float64's ring is shallower (4 slots at nT <= 2,
+    3 at nT = 3 and 4, where the owners' staging decides the need)."""
+    need = random_scan.level_scan_smem_bytes(n_t, itemsize)
+    assert need == LEVEL_SMEM[(n_t, itemsize)]
+    assert need <= random_scan.SMEM_LIMIT == gibbs_kernels.SMEM_BYTES
+    assert random_scan.level_scan_smem_bytes(5, itemsize) == 0  # RE2's generic form
+
+
+def test_cpu_level_scan_takes_float64_as_the_plain_version():
+    """On float64 CPU tensors RE1's wrapper is its plain version and counts
+    no launch."""
+    rng = np.random.default_rng(6)
+    q = 70
+    m = rng.normal(size=(q, q)) / q ** 0.5
+    ivstr = torch.from_numpy(m @ m.T + np.eye(q))
+    yi, z, u = (torch.from_numpy(rng.normal(size=q)) for _ in range(3))
+    zpz = torch.from_numpy(rng.uniform(0, 3, q))
+    ive, ivu = torch.tensor(1.7, dtype=torch.float64), torch.tensor(0.6, dtype=torch.float64)
+    before = dict(_cuda.LAUNCHES)
+    got = random_scan.level_scan(ivstr, yi, zpz, z, u, ive, ivu)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, random_scan.level_scan_plain(ivstr, yi, zpz, z, u, ive, ivu))
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
+def test_cpu_corr_level_scan_takes_float64_as_the_plain_version(n_t):
+    """On float64 CPU tensors RE2's wrapper (nT = 1 .. 4, the cooperative
+    form's on the card, and 5, the generic form's) is its plain version and
+    counts no launch."""
+    rng = np.random.default_rng(7 + n_t)
+    q = 45
+    m = rng.normal(size=(q, q)) / q ** 0.5
+    ivstr = torch.from_numpy(m @ m.T + np.eye(q))
+    x = rng.normal(size=(q, 3, n_t))
+    zpz = torch.from_numpy(np.einsum("lkt,lku->ltu", x, x) + 0.1 * np.eye(n_t))
+    yi, u = (torch.from_numpy(rng.normal(size=(n_t, q))) for _ in range(2))
+    z = torch.from_numpy(rng.normal(size=(q, n_t)))
+    a = rng.normal(size=(n_t, n_t))
+    ivu = torch.from_numpy(np.linalg.inv(a @ a.T / n_t + np.eye(n_t)))
+    var_e = torch.tensor(1.7, dtype=torch.float64)
+    before = dict(_cuda.LAUNCHES)
+    got = random_scan.corr_level_scan(ivstr, yi, zpz, z, u, var_e, ivu)
+    assert got.dtype == torch.float64 and got.shape == (n_t, q) and torch.isfinite(got).all()
+    assert torch.equal(got, random_scan.corr_level_scan_plain(ivstr, yi, zpz, z, u, var_e, ivu))
+    assert _cuda.LAUNCHES == before

@@ -313,8 +313,8 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
 
 # kind -> the kernel that refuses float64 on the card (None: taken there)
 CARD_DTYPE_CASES = {
-    "BayesRCpi": "K12", "BayesRCplus": "K14", "corr_markers": "CM1", "scan": "RE1",
-    "corr_random": "RE2", "BayesR+scan": "RE1",
+    "BayesRCpi": "K12", "BayesRCplus": "K14", "corr_markers": "CM1", "scan": None,
+    "corr_random": None, "BayesR+scan": None,
     "markers": None, "BayesB": None, "BayesC+D": None, "BayesPR": None, "BayesLV": None,
     "BayesR": None, "BayesR+D": None, "BayesR_float": None, "cg": None, "fixed": None,
 }
@@ -364,11 +364,12 @@ def _card_dtype_spec(kind):
 def test_float64_on_the_card_is_refused_up_front(kind):
     """float64 on a CUDA device is refused where a kernel with a float32
     instance only would meet it (BayesRCpi and BayesRCplus marker sets,
-    correlated marker sets, scan random terms), naming that kernel, and
-    taken with BayesR, BayesB, BayesC (weighted residual or not), BayesPR
-    and BayesLV marker sets (K1, K2, K3, K6, K8 and K10 have float64
-    instances, whatever the storage), CG terms and fixed effects alone;
-    float32 on the card and float64 on the CPU always."""
+    correlated marker sets), naming that kernel, and taken with BayesR,
+    BayesB, BayesC (weighted residual or not), BayesPR and BayesLV marker
+    sets (K1, K2, K3, K6, K8 and K10 have float64 instances, whatever the
+    storage), random terms drawn by the per-level scan alone or beside
+    BayesR (RE1) or by CG, correlated random groups (RE2) and fixed effects
+    alone; float32 on the card and float64 on the CPU always."""
     import torch
 
     from nextgp_tpu_torch.engine.plan import check_card_dtype

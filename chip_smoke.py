@@ -272,7 +272,7 @@ Phases (any failed check raises and the script exits non-zero):
      kernel chain against the float64 plain chain (the same sweep with K1,
      K2 and the scans swapped for their plain versions on the card) on one
      KeyedStream, ycorr and beta within 1e-9 of scale, delta identical, for
-     BayesR, BayesB, BayesC, BayesC+D and BayesPR, and 5 at V=1 on a 2,000 x
+     BayesR, BayesB, BayesC, BayesC+D and BayesPR, and 3 at V=1 on a 2,000 x
      8,192 panel for BayesR and BayesLV; (c) 100 float64 sweeps eager and
      through run_lmem's replays with one KeyedStream for BayesR, BayesB,
      BayesC+D, BayesPR (V=96), BayesC and BayesLV (V=1): the same bits,
@@ -291,7 +291,7 @@ Phases (any failed check raises and the script exits non-zero):
      A^-1 and at phases 8's and 9's edges, within 1e-12 of scale, twice the
      same bits, timed beside the float64 byte bound and the library's
      float64 triangular solve (nT <= 3); (h) BayesR+A and BayesR+A2 (V=96)
-     at 2,000 animals: 20 float64 sweeps of the kernel chain against the
+     at 2,000 animals: 10 float64 sweeps of the kernel chain against the
      plain chain (RE1 and RE2 swapped for their plain versions too), u,
      beta and ycorr within 1e-9 of scale, delta identical, only float64
      level scans launched; (i) BayesR+A, GBLUP and BayesR+A2 at full width,
@@ -740,7 +740,8 @@ def k1_grids(st):
     print("[3 kernels] pack2_matvec: grids of 1, 7, 4096 blocks and the default give the same bits")
 
 
-def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
+def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note, tol=TOL_SCAN, phase="3 kernels",
+                 flops=F32_FLOP_PER_S):
     """K12/K14 against their plain versions. The plain version runs on the
     rows, on the rows with every uniform (the `slots` of a row) lowered by
     RC_MARGIN and on the rows with every uniform raised by it; a locus whose
@@ -749,7 +750,10 @@ def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
     When the three agree everywhere no uniform is near an edge (the draws
     are monotone in the uniform, and equal draws give every later locus and
     component the same edges), so the kernel's discrete outputs must be
-    exactly equal and its continuous ones within TOL_SCAN of their scale."""
+    exactly equal and its continuous ones within tol (TOL_SCAN; TOL_F64 for
+    a float64 instance) of their scale. A float64 instance is timed on the
+    card alone twice, by the profiler (device_ms) and by events around a
+    graph of 20 calls (graph_ms), and its plain version by one call."""
     V, B, _ = pk_t.shape
 
     def shifted(d):
@@ -777,32 +781,44 @@ def held_rc_scan(name, kern, plain, pk_t, slots, discrete, gen, work, note):
         if i in discrete:
             check(torch.equal(g, r), f"{name}: discrete output {i} differs from the plain version")
         else:
-            check(torch.isfinite(g).all().item(), f"{name}: output {i} is not finite")
+            check(g.dtype == pk_t.dtype and torch.isfinite(g).all().item(), f"{name}: output {i} is not finite")
             e, sc = rel_err(g, r)
-            check(e <= TOL_SCAN * sc, f"{name}: output {i} differs by {e:.3e} (scale {sc:.3e})")
+            check(e <= tol * sc, f"{name}: output {i} differs by {e:.3e} (scale {sc:.3e})")
             errs.append((i, e, sc))
     (_, e_b, s_b), rest = errs[0], errs[1:]
     others = "; ".join(f"output {i} max_abs_err {e:.3e} of scale {sc:.3e}" for i, e, sc in rest)
-    report(name, e_b, s_b, TOL_SCAN, median_ms(lambda: kern(pk_t), 20),
-           median_ms(lambda: plain(pk_t), 3), work,
+    f64 = pk_t.dtype == torch.float64
+    ms_p = timed_once(lambda: plain(pk_t))[1] if f64 else median_ms(lambda: plain(pk_t), 3)
+    report(name, e_b, s_b, tol, median_ms(lambda: kern(pk_t), 20), ms_p, work,
            f" (beta; {others}; {note}; discrete outputs {list(discrete)} exact, delta counts "
-           f"{torch.bincount(got[2].reshape(-1)).tolist()})", dev_ms=device_ms(lambda: kern(pk_t), 20))
+           f"{torch.bincount(got[2].reshape(-1)).tolist()})", dev_ms=device_ms(lambda: kern(pk_t), 20),
+           phase=phase, flops=flops)
+    if f64:
+        TIMINGS[name]["graph_ms"] = graph_ms(lambda: kern(pk_t))
+        print(f"[{phase}] {name} on the card alone: profiler {TIMINGS[name]['device_ms']} ms, events around a "
+              f"graph of 20 calls {TIMINGS[name]['graph_ms']:.4f} ms")
     return pk_t, got
 
 
-def rc_kernels(spec_for, z, V, tag):
+def rc_kernels(spec_for, z, V, tag, dtype=None, full=True):
     """K12 and K14 at step t = 0 of the BayesRCpi model, a first sweep's
     coefficients on the real data (both methods start from the same state);
-    then, at the main paths' V, K12 with A = 8, K = 4 on the same Gram blocks,
-    where a chain's rows exceed a block's shared memory (the kernel holds two
-    rows at a time)."""
-    plan, st = ngt.assemble(spec_for("BayesRCpi"), vshards=V)
+    then the floors (A = K = 1) and, at the main paths' V, K12 with A = 8,
+    K = 4 on the same Gram blocks, where a chain's rows exceed a block's
+    shared memory (the kernel holds two rows at a time). dtype float64:
+    the float64 instances (`<name>_f64`, within TOL_F64, the bound in 8-byte
+    words at the float64 rate); full=False: the first two alone."""
+    plan, st = ngt.assemble(spec_for("BayesRCpi"), vshards=V, dtype=dtype)
     ms, mp = st.markers[0], plan.markers[0]
     T, V, B, _ = ms.mt.shape
     A, K = mp.n_annot, mp.n_classes
     step = Step0(st)
     gen = torch.Generator(device=DEV).manual_seed(5)
     dt = st.ycorr.dtype
+    f64 = dt == torch.float64
+    suf, size = ("_f64", 8) if f64 else ("", 4)
+    held = dict(tol=TOL_F64, phase="14 f64", flops=F64_FLOP_PER_S) if f64 else {}
+    z = z.to(dt)
     var_e = st.ycorr.var()
     coef = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
                 mask=ms.mask.reshape(-1), ive=1.0 / var_e, var_e=var_e)
@@ -826,9 +842,10 @@ def rc_kernels(spec_for, z, V, tag):
 
     varc = ms.var_beta[:, None] * ms.v_class[None, :]
     _, got_pi = held_rc_scan(
-        f"rcpi_block_scan_v{tag}", *rcpi(A, K),
+        f"rcpi_block_scan_v{tag}{suf}", *rcpi(A, K),
         rcpi_rows(ms.annot_input, ms.annot_prob, ms.annot_nz, varc, ms.log_pi), [2, 3], (2, 3),
-        gen, scan_work(V, B, 8 + 8 * A * K, 1, 4 + A, 12 * A * K), f"V={V}, B={B}, A={A}, K={K}")
+        gen, scan_work(V, B, 8 + 8 * A * K, 1, 4 + A, 12 * A * K, itemsize=size),
+        f"V={V}, B={B}, A={A}, K={K}" + (", float64" if f64 else ""), **held)
     on = ms.mask.view(V, T, B)[:, 0]
     acat, aprob = got_pi[3], got_pi[4]
     picked = ms.annot_nz.view(V, T, B, A)[:, 0].gather(-1, (acat.long() - 1).clamp(min=0)[..., None])
@@ -841,28 +858,31 @@ def rc_kernels(spec_for, z, V, tag):
         ms.beta, torch.randn((mp.p_pad, A), generator=gen, dtype=dt, device=DEV),
         rand(mp.p_pad, A), ms.annot_nz, varc=varc, logpi=ms.log_pi, **coef))
     held_rc_scan(
-        f"rcplus_block_scan_v{tag}",
+        f"rcplus_block_scan_v{tag}{suf}",
         lambda pk_t: gibbs_kernels.rcplus_block_scan_v((ms.gram, 0), pk_t, A, K),
         lambda pk_t: gibbs_kernels.rcplus_block_scan_v_plain(gram0, pk_t, A, K),
         pk_plus, [8 + a * K for a in range(A)], (2, 3, 5), gen,
-        scan_work(V, B, 8 + 6 * A * K, 1, 3 + 3 * A, 14 * A * K, diag=True),
-        f"V={V}, B={B}, A={A}, K={K}")
+        scan_work(V, B, 8 + 6 * A * K, 1, 3 + 3 * A, 14 * A * K, diag=True, itemsize=size),
+        f"V={V}, B={B}, A={A}, K={K}" + (", float64" if f64 else ""), **held)
+    if not full:
+        return
     # one annotation and one class: nothing left of the rule but its fixed steps,
     # so this is what the scans' skeleton costs per locus
     one = torch.ones((1, 1), dtype=dt, device=DEV)
     on1 = coef["mask"][:, None]
     held_rc_scan(
-        f"rcpi_block_scan_v_floor{tag}", *rcpi(1, 1),
+        f"rcpi_block_scan_v_floor{tag}{suf}", *rcpi(1, 1),
         rcpi_rows(on1.to(dt), on1.to(dt), on1, varc[:1, -1:].contiguous(), 0.0 * one), [2, 3],
-        (2, 3), gen, scan_work(V, B, 16, 1, 5, 12), f"V={V}, B={B}, A=1, K=1")
+        (2, 3), gen, scan_work(V, B, 16, 1, 5, 12, itemsize=size), f"V={V}, B={B}, A=1, K=1", **held)
     held_rc_scan(
-        f"rcplus_block_scan_v_floor{tag}",
+        f"rcplus_block_scan_v_floor{tag}{suf}",
         lambda pk_t: gibbs_kernels.rcplus_block_scan_v((ms.gram, 0), pk_t, 1, 1),
         lambda pk_t: gibbs_kernels.rcplus_block_scan_v_plain(gram0, pk_t, 1, 1),
         step.rows(gibbs_kernels.rcplus_block_pack(
             ms.beta, torch.randn((mp.p_pad, 1), generator=gen, dtype=dt, device=DEV),
             rand(mp.p_pad, 1), on1, varc=varc[:1, -1:].contiguous(), logpi=0.0 * one, **coef)),
-        [8], (2, 3, 5), gen, scan_work(V, B, 14, 1, 6, 14, diag=True), f"V={V}, B={B}, A=1, K=1")
+        [8], (2, 3, 5), gen, scan_work(V, B, 14, 1, 6, 14, diag=True, itemsize=size), f"V={V}, B={B}, A=1, K=1",
+        **held)
     if V != V_MAIN:
         return
 
@@ -875,11 +895,11 @@ def rc_kernels(spec_for, z, V, tag):
     logpi8 = torch.log(torch.tensor(PRIOR_R["pi"], dtype=dt, device=DEV)).expand(A8, K8)
     varc8 = ms.var_beta[0] * torch.tensor(PRIOR_R["class_"], dtype=dt, device=DEV).expand(A8, K8)
     held_rc_scan(
-        "rcpi_block_scan_v_wide", *rcpi(A8, K8),
+        f"rcpi_block_scan_v_wide{suf}", *rcpi(A8, K8),
         rcpi_rows(anz8.to(dt), anz8 / count.clamp(min=1.0), anz8, varc8.contiguous(), logpi8.contiguous()),
-        [2, 3], (2, 3), gen, scan_work(V, B, 8 + 8 * A8 * K8, 1, 4 + A8, 12 * A8 * K8),
-        f"V={V}, B={B}, A={A8}, K={K8}: {4 * B * (8 + 8 * A8 * K8):,} bytes of rows per chain, "
-        f"more than shared memory holds")
+        [2, 3], (2, 3), gen, scan_work(V, B, 8 + 8 * A8 * K8, 1, 4 + A8, 12 * A8 * K8, itemsize=size),
+        f"V={V}, B={B}, A={A8}, K={K8}: {size * B * (8 + 8 * A8 * K8):,} bytes of rows per chain, "
+        f"more than shared memory holds", **held)
 
 
 def pass_kernels(st):
@@ -2905,12 +2925,13 @@ def work_re2(q, n_t, itemsize=4):
             q * (q + 1) * n_t + 2 * q * n_t * n_t)
 
 
-def work_cm1(V, B, n_t):
+def work_cm1(V, B, n_t, itemsize=4):
     """(bytes, operations) of one CM1 step: the Grams' lower triangles (with
     the diagonal blocks, which the chain reads), the packed rows and the two
-    outputs; 2 nT^2 operations per Gram block and 2 nT^2 per locus."""
+    outputs, in elements of itemsize bytes; 2 nT^2 operations per Gram
+    block and 2 nT^2 per locus."""
     blocks = V * B * (B + 1) // 2
-    return 4 * (blocks * n_t * n_t + V * B * (3 * n_t + n_t * n_t) + 2 * V * B * n_t), \
+    return itemsize * (blocks * n_t * n_t + V * B * (3 * n_t + n_t * n_t) + 2 * V * B * n_t), \
         2 * n_t * n_t * (blocks + V * B)
 
 
@@ -3078,24 +3099,26 @@ class CM1Case:
     """One block-step's inputs at the MultiBreed path's shapes: its step-0
     Gram, the rule's rows of a random state (pk_g (V, T, B, W)), a random r0,
     the step's centres, sum(y) and a zeroed beta buffer (V, T, B, nT); rows,
-    the step's complete rows as the plain block-step forms them."""
+    the step's complete rows as the plain block-step forms them. All in the
+    state's type."""
 
     def __init__(self, plan, st, seed=31):
         cs, cp = st.corr_markers[0], plan.corr_markers[0]
         self.n_t, self.V, self.B = n_t, V, B = cp.n_t, cp.vshards, cp.block
+        dt = st.ycorr.dtype
         g = torch.Generator(device=DEV).manual_seed(seed)
-        self.z = torch.randn(cp.p_pad, n_t, generator=g, device=DEV)
-        self.bold = torch.randn(cp.p_pad, n_t, generator=g, device=DEV) * 0.01
+        self.z = torch.randn(cp.p_pad, n_t, generator=g, device=DEV).to(dt)
+        self.bold = torch.randn(cp.p_pad, n_t, generator=g, device=DEV).to(dt) * 0.01
         self.var_e = st.ycorr.var()
         self.rule_args = (self.bold, self.z, cs.var_beta, cs.region_id, cs.mpm.reshape(-1, n_t, n_t),
                           cs.mask.reshape(-1), self.var_e)
         self.pk = corr_scan.corr_rule_plain(*self.rule_args)
         self.pk_g = self.pk.view(V, -1, B, self.pk.shape[-1])
         self.gram_t = (cs.gram, 0)
-        self.r0 = torch.randn(V, B, n_t, generator=g, device=DEV) * 30
+        self.r0 = torch.randn(V, B, n_t, generator=g, device=DEV).to(dt) * 30
         self.cb = cs.center[0]
         self.sum_y = st.ycorr.sum()
-        self.beta = torch.zeros((V, self.pk_g.shape[1], B, n_t), device=DEV)
+        self.beta = torch.zeros((V, self.pk_g.shape[1], B, n_t), dtype=dt, device=DEV)
         self.rows = self.pk_g[:, 0].clone()
         self.rows[..., :n_t] += self.r0 - self.cb * self.sum_y
         self.ivb = torch.linalg.inv(cs.var_beta)[torch.clamp(cs.region_id, 0, cp.n_regions - 1).long()]
@@ -3162,14 +3185,15 @@ def cm1_latency_ms(B, n_t, mhz):
     return B * (2 * n_t + 1) * 4 / (mhz * 1e3)
 
 
-def work_rule(p, n_regions, n_t):
+def work_rule(p, n_regions, n_t, itemsize=4):
     """(bytes, operations) of the rule launch: beta, z, mpm, the mask and the
     region ids read and the packed rows written once a locus, the regions'
-    covariances and varE once; a locus's two Gauss-Jordan inverses (2 nT^3
-    multiply-adds each), its Cholesky (nT^3 / 3) and lhs, M, c, adj (4 nT^2),
-    two operations a multiply-add."""
-    per_locus = 4 * (2 * n_t + n_t * n_t + 1 + corr_scan.pack_width(n_t)) + 1
-    return (p * per_locus + 4 * n_regions * n_t * n_t + 4,
+    covariances and varE once (values of itemsize bytes, the region id 4,
+    the mask 1); a locus's two Gauss-Jordan inverses (2 nT^3 multiply-adds
+    each), its Cholesky (nT^3 / 3) and lhs, M, c, adj (4 nT^2), two
+    operations a multiply-add."""
+    per_locus = itemsize * (2 * n_t + n_t * n_t + corr_scan.pack_width(n_t)) + 4 + 1
+    return (p * per_locus + itemsize * (n_regions * n_t * n_t + 1),
             round(p * 2 * (4 * n_t ** 3 + n_t ** 3 / 3 + 4 * n_t * n_t)))
 
 
@@ -4341,13 +4365,19 @@ def grn_latency_ms(S, mhz):
     return -(-S // GRN_ROUND) * GRN_CHAIN_OPS * 4 / (mhz * 1e3)
 
 
+_SASS = {}  # the built library -> its SASS by function
+
+
 def library_sass():
-    """The built library's SASS (cuobjdump), one string a function, its
-    mangled name on the first line."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    res = subprocess.run([tool, "-sass", str(_cuda.build())], capture_output=True, text=True, timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
-    return re.split(r"\n\s*Function : ", res.stdout)[1:]
+    """The built library's SASS (cuobjdump, ~20 s, once a process), one
+    string a function, its mangled name on the first line."""
+    so = _cuda.build()
+    if so not in _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        res = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+        _SASS[so] = re.split(r"\n\s*Function : ", res.stdout)[1:]
+    return _SASS[so]
 
 
 def grn_sass():
@@ -5222,7 +5252,7 @@ def shards_phase(card):
 TOL_F64 = 1e-12  # the float64 instances against their plain versions (float64 too), of the output's scale
 TOL_F64_CHAIN = 1e-9  # 14b: the float64 kernel chain against the float64 plain chain, of scale
 F64_SWEEPS = 20  # 14b: sweeps of both chains at V=96
-F64_SMALL = dict(n=2_000, p=8_192, sweeps=5)  # 14b at V=1: a smaller panel and 5 sweeps, the plain scans' loops
+F64_SMALL = dict(n=2_000, p=8_192, sweeps=3)  # 14b at V=1: a smaller panel and 3 sweeps, the plain scans' loops
 F64_RULE = 3  # 14d, 14e: sweeps held by the packed rule
 F64_PATHS_V96 = ("BayesB", "BayesC", "BayesC+D", "BayesPR")  # 14b beside BayesR at V=96
 # 14c beside BayesR at V=96: (path, V); BayesC and BayesLV at V=1, where phase 4 holds their EBV
@@ -5390,17 +5420,23 @@ def instance_turns(spec, spec_w):
     for name in ("K1", "K2", "K3", "K6", "K8", "K10"):
         out[name] = [device_ms(arms[dt][name], 20)
                      for dt in (torch.float32, torch.float64, torch.float64, torch.float32)]
+        out[name + " graph_ms"] = [graph_ms(arms[dt][name]) for dt in (torch.float32, torch.float64)]
         shown = ", ".join("not measured" if t is None else f"{t:.4f}" for t in out[name])
-        print(f"[14 f64] {name} on the card alone, turns f32 / f64 / f64 / f32 (ms): {shown}")
+        print(f"[14 f64] {name} on the card alone, turns f32 / f64 / f64 / f32 (ms): {shown}; events around a "
+              "graph of 20 calls f32 / f64: " + " / ".join(f"{t:.4f}" for t in out[name + " graph_ms"]))
+    for name, line in (("K2", "pack2_rank_update_f64"), ("K10", "bc_block_scan_wv_f64")):
+        print(f"[14 f64] {name} f64 on the card alone, ms: the kernels line's profiler window "
+              f"{TIMINGS[line]['device_ms']}, the turns' windows {out[name][1]} / {out[name][2]}, events around "
+              f"a graph of 20 calls {out[name + ' graph_ms'][1]:.4f}")
     return out
 
 
 @contextlib.contextmanager
 def plain_sweep_kernels():
-    """The sweep's kernels, K1, K2, K3, K6, K8, K10, RE1 and RE2
-    (engine/samplers/markers.py and random_effects.py call them through
-    these module attributes), go to their plain versions on the card's
-    tensors: the plain chain of the same stream."""
+    """The sweep's kernels, K1, K2, K3, K6, K8, K10, K12, K14, CM1, CM1r,
+    RE1 and RE2 (engine/samplers/markers.py and random_effects.py call them
+    through these module attributes), go to their plain versions on the
+    card's tensors: the plain chain of the same stream."""
     def step_of(gram_t):
         return gram_t[0][gram_t[1]]
 
@@ -5417,6 +5453,13 @@ def plain_sweep_kernels():
             step_of(gram_t), pk),
         (gibbs_kernels, "bc_block_scan_wv"): lambda gram_t, graw_t, pk: gibbs_kernels.bc_block_scan_wv_plain(
             step_of(gram_t), step_of(graw_t), pk),
+        (gibbs_kernels, "rcpi_block_scan_v"): lambda gram_t, pk, A, K: gibbs_kernels.rcpi_block_scan_v_plain(
+            step_of(gram_t), pk, A, K),
+        (gibbs_kernels, "rcplus_block_scan_v"): lambda gram_t, pk, A, K: gibbs_kernels.rcplus_block_scan_v_plain(
+            step_of(gram_t), pk, A, K),
+        (corr_scan, "corr_rule"): corr_scan.corr_rule_plain,
+        (corr_scan, "corr_block_step"): lambda gram_t, pk_g, r0, cb, sum_y, beta: corr_scan.corr_block_step_plain(
+            step_of(gram_t), pk_g, gram_t[1], r0, cb, sum_y, beta),
         (random_effects, "level_scan"): random_scan.level_scan_plain,
         (random_effects, "corr_level_scan"): random_scan.corr_level_scan_plain,
     }
@@ -5531,7 +5574,7 @@ def f64_phase():
     ptxas and the SASS say of K6's, K8's and K10's instances; (b) 20 float64
     sweeps of the kernel chain against the float64 plain chain on one
     KeyedStream for BayesR, BayesB, BayesC, BayesC+D and BayesPR at V=96,
-    and 5 at V=1 on a 2,000 x 8,192 panel for BayesR and BayesLV (BayesLV
+    and 3 at V=1 on a 2,000 x 8,192 panel for BayesR and BayesLV (BayesLV
     departs from its V=1 chain at V=96 by design); (c) 100 float64 sweeps
     of BayesR, BayesB, BayesC+D, BayesPR (V=96), BayesC and BayesLV (V=1)
     through run_lmem, eager and replayed with the same bits, drift < 1e-9
@@ -5540,13 +5583,18 @@ def f64_phase():
     after 3 sweeps; (e) float64 on int8 rows (pack2=False) held to the
     packed float64 chain by the same rule, for BayesR and BayesC+D; (f) in
     turns f32 / f64 / f64 / f32, K1, K2, K3, K6, K8 and K10 on the card
-    alone and the replayed BayesR sweep; (g)-(j) the float64 level scans,
-    RE1 and RE2, and the random-effect models through them
-    (f64_random_phase: the instances against their plain versions, timed;
-    BayesR+A and BayesR+A2 kernel chains against plain chains at 2,000
-    animals; BayesR+A, GBLUP and BayesR+A2 at full width eager and
-    replayed; RE1 and RE2 in turns f32 / f64 / f64 / f32). Returns
-    (numbers, launches by run)."""
+    alone (and each by events around a graph of 20 calls) and the replayed
+    BayesR sweep; (g)-(j) the float64 level scans, RE1 and RE2, and the
+    random-effect models through them (f64_random_phase: the instances
+    against their plain versions, timed; BayesR+A and BayesR+A2 kernel
+    chains against plain chains at 2,000 animals; BayesR+A, GBLUP and
+    BayesR+A2 at full width eager and replayed; RE1 and RE2 in turns f32 /
+    f64 / f64 / f32); (k)-(n) K12, K14, CM1 and CM1r in float64 and the
+    models through them (f64_rc_corr_phase: the build's report, the
+    instances against their plain versions at phase 3's and phase 9's
+    shapes, kernel chains against plain chains of BayesRCpi, BayesRCplus
+    and MultiBreed, and those models eager and replayed at full width).
+    Returns (numbers, launches by run)."""
     t0 = time.perf_counter()
     out, counted = {}, {}
     geno, _, y, sig, _ = simulate_panel()
@@ -5608,6 +5656,9 @@ def f64_phase():
     re_out, by_run = f64_random_phase(geno, y, sig)
     out.update(re_out)
     counted.update(by_run)
+    rc_out, by_run = f64_rc_corr_phase(geno, y, sig)
+    out.update(rc_out)
+    counted.update(by_run)
     del geno
     out["seconds"] = time.perf_counter() - t0
     print(f"[14 f64] phase 14 in {out['seconds']:.1f} s")
@@ -5619,7 +5670,7 @@ RE2_F64_NTS = (1, 2, 3, 4, 5)  # 14g at q = 10,000: the cooperative form's nT an
 # 14g: the library's float64 solve at nT <= 3; its (q nT)^2 matrix takes 12.8 GB at nT = 4, 20 GB at 5
 RE2_F64_LIBRARY = (1, 2, 3)
 RE2_F64_EDGES = (1, 31, 33, 193, 3001)  # 14g: phase 9's edges
-F64_RANDOM = dict(gen_size=400, sweeps=20)  # 14h: 5 generations of 400 animals (2,000), 20 sweeps
+F64_RANDOM = dict(gen_size=400, sweeps=10)  # 14h: 5 generations of 400 animals (2,000), 10 sweeps
 LEVEL_KERNELS = ("coop_prep_kernel", "coop_scan_kernel", "generic_chain_kernel", "row_dots_kernel",
                  "prep_kernel", "scan_kernel")  # csrc/level_scan.cu's entries, longest names first
 
@@ -5756,7 +5807,7 @@ def f64_random_specs(geno, y, ainv, u1, x, u2, prior_a2=V_A2):
 def f64_random_chains():
     """14h: BayesR+A and BayesR+A2 (V=96) at a smaller depth, 2,000
     individuals on phase 4's generator (49,152 loci) and a pedigree of 2,000
-    animals (five generations of F64_RANDOM's 400): 20 float64 sweeps of
+    animals (five generations of F64_RANDOM's 400): 10 float64 sweeps of
     the kernel chain against the float64 plain chain on one KeyedStream
     (f64_chain_vs_plain). Returns {run: (launches, numbers)}."""
     gs = F64_RANDOM["gen_size"]
@@ -5933,6 +5984,463 @@ def f64_random_phase(geno, y, sig):
     return out, counted
 
 
+# 14k-14o: K12, K14, CM1 and CM1r in float64
+F64_SMALL_RC = dict(n=2_000, p=V_MAIN * BLOCK)  # 14m: BayesRCpi and BayesRCplus at V=96, one step of 96 blocks
+F64_CORR = dict(n=2_000, p_v96=V_MAIN * BLOCK, p_v1=8_192)  # 14m: MultiBreed at V=96 (one step) and at V=1 (32)
+F64_RC_REPLAYED = (("BayesRCpi", V_MAIN), ("BayesRCplus", V_MAIN), ("BayesRCpi", 1))  # 14n, at full width
+F64_CORR_CHAIN = dict(n_chain=40, n_burn=20, n_thin=5)  # 14n: MultiBreed at full width, eager and replayed
+RC_BITS_SHAPES = ((V_MAIN, 256, 3, 3), (V_MAIN, 256, 1, 1), (V_MAIN, 256, 8, 4), (1, 256, 3, 3), (3, 40, 11, 3))
+CM1_BITS_SHAPES = ((V_MAIN, 256), (1, 256), (8, 1000))  # 14o: (V, B) of CM1 at nT = 1 .. 5 and CM1r at 1 .. 4
+
+
+def rc_corr_build():
+    """14k: build_report of K12's and K14's instances (float32 and float64,
+    blocks of up to 256 and of 1,024 threads), CM1's (nT = 1 .. 4 by block
+    size, and its generic form) and CM1r's (nT = 1 .. 4); then CM1's shared
+    memory as the library states it (ngt_corr_block_step_smem_bytes)
+    against ops/corr_scan's counterpart."""
+    def instance(mangled):
+        tp = {"f": "f32", "d": "f64"}
+        m = re.search(r"RcRuleILi([01])E([fd])E+Li(\d+)E", mangled)
+        if m:
+            return f"{'K12' if m.group(1) == '0' else 'K14'} {tp[m.group(2)]} MAXT={m.group(3)}"
+        m = re.search(r"corr_scan_kernelILi(\d)ELi(\d+)E([fd])E", mangled)
+        if m:
+            return f"CM1 {tp[m.group(3)]} nT={m.group(1)} MAXT={m.group(2)}"
+        m = re.search(r"corr_scan_generic_kernelI([fd])E", mangled)
+        if m:
+            return f"CM1 generic {tp[m.group(1)]}"
+        m = re.search(r"corr_rule_kernelILi(\d)E([fd])E", mangled)
+        return f"CM1r {tp[m.group(2)]} nT={m.group(1)}" if m else None
+
+    out = build_report(instance, "14k K12/K14/CM1/CM1r", 34)
+    lib = _cuda.lib()
+    smem = {(n_t, B, f64): lib.ngt_corr_block_step_smem_bytes(n_t, B, f64)
+            for n_t in range(1, 6) for B in (32, 96, 256, 1000, 1024) for f64 in (0, 1)}
+    bad = {k: v for k, v in smem.items() if v != corr_scan.block_step_smem_bytes(k[0], k[1], 8 if k[2] else 4)}
+    check(not bad, f"14k: CM1's shared memory in csrc/corr_scan.cu {bad} is not what "
+                   "ops/corr_scan.block_step_smem_bytes states")
+    print(f"[14 f64] CM1's shared memory by (nT, B, float64), as the kernel and the wrapper state it: {smem}")
+    return out
+
+
+def f64_cm1(plan, st, tag):
+    """14l: CM1's float64 instance against its float64 plain block-step on a
+    CM1Case of the float64 MultiBreed state (V as assembled), within TOL_F64
+    of beta's and u's scale, the same bits twice and the buffer's other
+    steps untouched, timed on the card alone (profiler and a graph of 20
+    calls) beside its float64 bound and the library's batched float64
+    triangular solve of the same systems; at V > 1 also CM1r's float64
+    instance against the float64 torch pack. Returns the numbers."""
+    case = CM1Case(plan, st)
+    cs, cp = st.corr_markers[0], plan.corr_markers[0]
+    n_t, V, B = case.n_t, case.V, case.B
+    name = f"corr_block_scan_v{tag}_f64"
+    ref = torch.zeros_like(case.beta)
+
+    def kern():
+        return corr_scan.corr_block_step_kernel(case.gram_t, case.pk_g, *case.fold(), case.beta)
+
+    def plain():
+        return corr_scan.corr_block_step_plain(cs.gram[0], case.pk_g, 0, *case.fold(), ref)
+
+    u, (ru, ms_p) = kern(), timed_once(plain)
+    b = case.beta[:, 0].clone()
+    check(u.dtype == b.dtype == torch.float64 and torch.isfinite(b).all().item() and torch.equal(u, kern())
+          and torch.equal(b, case.beta[:, 0]), f"{name}: not float64 and finite, or two runs differ")
+    check(not case.beta[:, 1:].any().item(), f"{name}: wrote outside its step of the beta buffer")
+    e, sc = rel_err(b, ref[:, 0])
+    eu, scu = rel_err(u, ru)
+    check(eu <= TOL_F64 * scu, f"{name}: u max_abs_err {eu:.3e} of {scu:.3e}")
+    mat, rhs = corr_scan.corr_block_system(cs.gram[0], case.rows, n_t)
+
+    def library():
+        return torch.linalg.solve_triangular(mat, rhs, upper=False, unitriangular=True)
+
+    e_l, _ = rel_err(library().view(V, B, n_t), ru)
+    check(mat.dtype == torch.float64 and e_l <= TOL_F64 * scu, f"{name}: the library solve differs by {e_l:.3e}")
+    report(name, e, sc, TOL_F64, median_ms(kern, 20), ms_p, work_cm1(V, B, n_t, 8),
+           f" (V = {V}, B = {B}, nT = {n_t}, float64, the MultiBreed panels' Gram, the rule's rows of a random "
+           f"state with r0, the step's centres and sum(y) folded in; u max_abs_err {eu:.3e} of {scu:.3e}; the "
+           f"plain version timed by one call; the library's batched float64 solve's max_abs_err {e_l:.3e}, its "
+           "systems built outside the timed window)", phase="14 f64", dev_ms=device_ms(kern, 20),
+           flops=F64_FLOP_PER_S, library_ms=median_ms(library, 20),
+           library_dev_ms=device_ms(library, 20, records_per_launch=0))
+    TIMINGS[name]["graph_ms"] = graph_ms(kern)
+    print(f"[14 f64] {name} on the card alone: profiler {TIMINGS[name]['device_ms']} ms, events around a graph "
+          f"of 20 calls {TIMINGS[name]['graph_ms']:.4f} ms")
+    out = {name: dict(device_ms=TIMINGS[name]["device_ms"], graph_ms=TIMINGS[name]["graph_ms"], max_abs_err=e,
+                      scale=sc, library_device_ms=TIMINGS[name]["library_device_ms"])}
+    if V == 1:
+        return out
+
+    def rule():
+        return corr_scan.corr_rule_kernel(*case.rule_args)
+
+    def rule_plain():
+        return corr_scan.corr_rule_plain(*case.rule_args)
+
+    W = corr_scan.pack_width(n_t)
+    o, r = rule(), rule_plain()
+    check(o.dtype == torch.float64 and torch.equal(o, rule()) and torch.isfinite(o).all().item(),
+          "corr_rule_f64: not float64 and finite, or two runs differ")
+    check(torch.equal(o[:, n_t:2 * n_t], r[:, n_t:2 * n_t]), "corr_rule_f64: bold not copied")
+    errs = {part: rel_err(o[:, sl], r[:, sl])
+            for part, sl in (("adj", slice(0, n_t)), ("c", slice(2 * n_t, 3 * n_t)), ("M", slice(3 * n_t, W)))}
+    for part, (ep, sp) in errs.items():
+        check(ep <= TOL_F64 * sp, f"corr_rule_f64: {part} within {ep:.3e} of {sp:.3e}")
+    e_r, s_r = max(errs.values(), key=lambda v: v[0] / v[1])
+    dev_p = device_ms(rule_plain, 20, records_per_launch=0)
+    report("corr_rule_f64", e_r, s_r, TOL_F64, median_ms(rule, 20), median_ms(rule_plain, 20),
+           work_rule(cp.p_pad, cp.n_regions, n_t, 8),
+           f" (p = {cp.p_pad:,} loci, {cp.n_regions} regions, nT = {n_t}, float64: adj, c, M within "
+           + ", ".join(f"{k} {v[0]:.3e} of {v[1]:.3e}" for k, v in errs.items())
+           + f"; the float64 torch pack on the card alone {dev_p} ms)", phase="14 f64", dev_ms=device_ms(rule, 20),
+           flops=F64_FLOP_PER_S)
+    TIMINGS["corr_rule_f64"]["graph_ms"] = graph_ms(rule)
+    print(f"[14 f64] corr_rule_f64 on the card alone: profiler {TIMINGS['corr_rule_f64']['device_ms']} ms, events "
+          f"around a graph of 20 calls {TIMINGS['corr_rule_f64']['graph_ms']:.4f} ms")
+    out["corr_rule_f64"] = dict(device_ms=TIMINGS["corr_rule_f64"]["device_ms"],
+                                graph_ms=TIMINGS["corr_rule_f64"]["graph_ms"], plain_device_ms=dev_p,
+                                errors={k: v[0] for k, v in errs.items()})
+    return out
+
+
+def f64_rc_corr_kernels(geno, y, spec_corr):
+    """14l: K12's and K14's float64 instances at phase 3's shapes (rc_kernels:
+    V=96 with the floors and A = 8, K = 4, and V=1) on the BayesRCpi model of
+    phase 14's panel, and CM1's and CM1r's at phase 9's (f64_cm1 on
+    MultiBreed's 10,000 x 49,152 panels at V=96 and V=1)."""
+    z = torch.randn(P, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV)
+    for V, tag in ((V_MAIN, ""), (1, "_v1")):
+        rc_kernels(lambda path: method_spec(geno, y, path), z, V, tag, dtype=torch.float64, full=V == V_MAIN)
+    out = {}
+    for V, tag in ((V_MAIN, ""), (1, "_v1")):
+        plan, st = ngt.assemble(spec_corr, vshards=V, dtype=torch.float64)
+        check(st.corr_markers[0].gram.dtype == torch.float64, "14l: the float64 MultiBreed Gram is not float64")
+        out.update(f64_cm1(plan, st, tag))
+        del plan, st
+    return out
+
+
+def f64_corr_chain_vs_plain(spec, V, n, tag):
+    """14m: n float64 sweeps of MultiBreed's kernel chain against its float64
+    plain chain (plain_sweep_kernels) on one KeyedStream: both sets' beta
+    and ycorr within TOL_F64_CHAIN of scale; the kernel chain launches K1,
+    CM1 and K2 a block-step and CM1r a sweep, all float64, and nothing else
+    but R1; the plain chain none of them."""
+    plan, st, counted = f64_sweeps(spec, V, n)
+    T = plan.corr_markers[0].n_blocks // V
+    path_kernels = {"pack2_matvec_f64": n * T, "pack2_rank_update_f64": n * T, "corr_block_scan_v_f64": n * T,
+                    "corr_rule_f64": n}
+    expect = {k: 0 for k in counted}
+    expect.update(path_kernels, keyed_rng=counted["keyed_rng"])
+    check(counted == expect, f"{tag}: kernel chain launches {counted}")
+    t0 = time.perf_counter()
+    with plain_sweep_kernels():
+        _, sp, plain_counted = f64_sweeps(spec, V, n)
+    plain_s = time.perf_counter() - t0
+    check(not any(v for k, v in plain_counted.items() if k != "keyed_rng"),
+          f"{tag}: the plain chain launched {plain_counted}")
+    e_b, s_b = rel_err(st.corr_markers[0].beta, sp.corr_markers[0].beta)
+    e_y, s_y = rel_err(st.ycorr, sp.ycorr)
+    e_v, s_v = rel_err(st.corr_markers[0].var_beta, sp.corr_markers[0].var_beta)
+    print(f"[14 {tag}] {n} float64 sweeps of one KeyedStream, kernel chain against plain chain: beta {e_b:.3e} "
+          f"of scale {s_b:.3e}, ycorr {e_y:.3e} of scale {s_y:.3e}, the regions' covariances {e_v:.3e} of scale "
+          f"{s_v:.3e} (limit {TOL_F64_CHAIN:g} x scale); the plain chain took {plain_s:.1f} s; kernel launches "
+          f"{path_kernels}")
+    check(e_b <= TOL_F64_CHAIN * s_b and e_y <= TOL_F64_CHAIN * s_y and e_v <= TOL_F64_CHAIN * s_v,
+          f"{tag}: the float64 kernel chain departs from the float64 plain chain")
+    return counted, dict(beta_err=e_b, beta_scale=s_b, ycorr_err=e_y, ycorr_scale=s_y, var_beta_err=e_v,
+                         plain_s=plain_s)
+
+
+def f64_rc_corr_chains():
+    """14m: 20 float64 sweeps of the kernel chain against the float64 plain
+    chain for BayesRCpi and BayesRCplus at V=96 on a 2,000 x 24,576 panel
+    (one step of 96 blocks: the plain scans loop over 256 loci a step) and
+    MultiBreed at V=96 on two 2,000 x 24,576 panels and at V=1 on two
+    2,000 x 8,192. Returns ({run: launches}, numbers)."""
+    counted, out = {}, {}
+    n, p = F64_SMALL_RC["n"], F64_SMALL_RC["p"]
+    small, _, y_small, _, _ = simulate_panel(n, p)
+    annot = annotations(p)[0]
+    for path in ("BayesRCpi", "BayesRCplus"):
+        prior = (ngt.BayesRCpi(annot=annot, estimatePi=True, **PRIOR_RC) if path == "BayesRCpi"
+                 else ngt.BayesRCplus(annot=annot, **PRIOR_RC))
+        counted[f"f64 {path} V={V_MAIN}"], out[f"14m {path} V={V_MAIN}"] = f64_chain_vs_plain(
+            method_spec(small, y_small, path, prior), V_MAIN, F64_SWEEPS, f"f64 {path} V={V_MAIN} {n:,} x {p:,}", path)
+    del small
+    for V, p in ((V_MAIN, F64_CORR["p_v96"]), (1, F64_CORR["p_v1"])):
+        spec, _ = simulate_corr(F64_CORR["n"], p)
+        counted[f"f64 MultiBreed V={V}"], out[f"14m MultiBreed V={V}"] = f64_corr_chain_vs_plain(
+            spec, V, F64_SWEEPS, f"f64 MultiBreed V={V} {F64_CORR['n']:,} x {p:,}")
+        del spec
+    return counted, out
+
+
+def replayed_f32(spec, V):
+    """The float32 replayed sweep of the model (KeyedStream): steady ms/sweep
+    (events around 20 replays) and device busy (10 profiled replays)."""
+    plan, st = ngt.assemble(spec, vshards=V, dtype=torch.float32)
+    rep = engine_sweep.ReplayedSweep(plan, st, keyed.KeyedStream(7, DEV, torch.float32))
+    ms = steady_ms(lambda: rep.run(1), 20)
+    busy = replay_window(rep, 10)[0]
+    del rep, plan, st
+    return ms, busy
+
+
+def f64_corr_replayed(tag, spec, V):
+    """14n: MultiBreed in float64 at full width from one KeyedStream:
+    F64_CORR_CHAIN's sweeps eager (a loop of make_sweep, launches counted)
+    and replayed (run_lmem) with the same bits; drift < 1e-9 of max|y|,
+    finite draws, every kept covariance positive definite; the steady
+    replayed ms/sweep and device busy beside the float32 replayed sweep's.
+    Returns (eager launches, numbers)."""
+    ph, dt = f"14 {tag}", torch.float64
+    n_chain, n_burn, n_thin = F64_CORR_CHAIN["n_chain"], F64_CORR_CHAIN["n_burn"], F64_CORR_CHAIN["n_thin"]
+    plan, st0 = ngt.assemble(spec, vshards=V, dtype=dt)
+    T = plan.corr_markers[0].n_blocks // V
+    stream = keyed.KeyedStream(7, DEV, dt)
+    sweep = ngt.make_sweep(plan)
+    _cuda.reset_launches()
+    st, kept = st0, []
+    t0 = time.perf_counter()
+    for i in range(1, n_chain + 1):
+        st = sweep(st, stream)
+        if i > n_burn and (i - n_burn) % n_thin == 0:
+            kept.append(ngt.collect_sample(st, plan))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    expect = {k: 0 for k in launches}
+    expect.update({"pack2_matvec_f64": n_chain * T, "pack2_rank_update_f64": n_chain * T,
+                   "corr_block_scan_v_f64": n_chain * T, "corr_rule_f64": n_chain,
+                   "keyed_rng": launches["keyed_rng"]})
+    check(launches == expect and launches["keyed_rng"] > 0, f"{tag}: float64 eager launches {launches}")
+    eager = {k: torch.stack([s[k] for s in kept]) for k in kept[0]}
+    res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, out_folder=None, vshards=V,
+                       stream=stream, dtype=dt)
+    differ = [k for k in eager if not np.array_equal(eager[k].cpu().numpy(), res.draws[k])]
+    check(set(res.draws) == set(eager) and not differ, f"{tag}: replayed draws {differ} differ from eager")
+    check(torch.equal(res.state.ycorr, st.ycorr), f"{tag}: replayed ycorr differs from eager")
+    bad = [k for k, a in res.draws.items() if not np.isfinite(a).all()]
+    check(not bad, f"{tag}: kept draws of {bad} are not finite")
+    for k, a in res.draws.items():
+        if k.startswith("var") and a.ndim == 3:
+            mats = torch.from_numpy(a).reshape(-1, 2, 2)
+            check((torch.linalg.cholesky_ex(mats)[1] == 0).all().item(), f"{tag}: a kept {k} draw is not positive definite")
+    drift = corr_drift(res.plan, res.state)
+    check(drift < 1e-9, f"{tag}: float64 ycorr drifted {drift:.3e} of max|y|")
+    rep = engine_sweep.ReplayedSweep(plan, res.state, stream)
+    ms_replay = steady_ms(lambda: rep.run(1), 20)
+    busy, per_sweep, missed, _, ms_by = replay_window(rep, 10)
+    cm1_ms = sum(v for k, v in ms_by.items() if "corr_scan" in k or "corr_rule" in k)
+    del rep, res, st, st0, plan
+    ms32, busy32 = replayed_f32(spec, V)
+    print(f"[{ph}] float64, {n_chain} sweeps eager and replayed from one KeyedStream: kept draws and ycorr "
+          f"bit-identical; drift {drift:.3e} of max|y| (limit 1e-9); every kept covariance positive definite; "
+          f"eager {n_chain / eager_s:.2f} sweeps/s (host clock); replayed {ms_replay:.4f} ms/sweep (events around "
+          f"20 replays), device busy {busy:.4f} ms/sweep ({cm1_ms:.4f} of it in CM1 and CM1r), {per_sweep} kernels "
+          f"and copies a sweep ({missed} records missed), idle share {1.0 - busy / ms_replay:.4f}; the float32 "
+          f"replayed sweep of the same model in this call {ms32:.4f} ms/sweep, busy {busy32:.4f}")
+    return launches, dict(replay_ms_per_sweep=ms_replay, replay_busy_ms_per_sweep=busy, cm1_busy_ms=cm1_ms,
+                          idle_share=1.0 - busy / ms_replay, drift=drift, f32_replay_ms_per_sweep=ms32,
+                          f32_replay_busy_ms_per_sweep=busy32)
+
+
+def f64_rc_corr_replayed(geno, y, sig, spec_corr):
+    """14n: BayesRCpi and BayesRCplus at V=96 and BayesRCpi at V=1 (phase 4's
+    EBV limit 0.95) through graph_path in float64 at full width, each beside
+    its float32 replayed sweep; MultiBreed at V=96 and V=1 through
+    f64_corr_replayed. Returns ({run: launches}, numbers)."""
+    counted, out = {}, {}
+    for path, V in F64_RC_REPLAYED:
+        spec = method_spec(geno, y, path)
+        rec = graph_path(path, spec, sig, V, N_CHAIN, N_BURN, N_THIN, EBV_LIMITS.get((path, V)), tag=" f64",
+                         dtype=torch.float64, phase="14", drift_limit=1e-9, n_window=50 if V == V_MAIN else 20)
+        counted[f"f64 keyed {path} V={V}"] = rec.pop("eager_launches")
+        rec["f32_replay_ms_per_sweep"], rec["f32_replay_busy_ms_per_sweep"] = replayed_f32(spec, V)
+        print(f"[14 {path} f64 V={V}] replayed ms/sweep float64 {rec['replay_ms_per_sweep']:.4f}, float32 in this "
+              f"call {rec['f32_replay_ms_per_sweep']:.4f} (busy {rec['replay_busy_ms_per_sweep']:.4f} / "
+              f"{rec['f32_replay_busy_ms_per_sweep']:.4f})")
+        out[f"14n {path} V={V}"] = rec
+    for V in (V_MAIN, 1):
+        counted[f"f64 keyed MultiBreed V={V}"], out[f"14n MultiBreed V={V}"] = f64_corr_replayed(
+            f"MultiBreed f64 V={V}", spec_corr, V)
+    return counted, out
+
+
+def f64_rc_corr_phase(geno, y, sig):
+    """14k-14n: the float64 instances of K12, K14, CM1 and CM1r and the
+    models through them. Returns (numbers, launches by run)."""
+    t0 = time.perf_counter()
+    out, counted = {"14k build": rc_corr_build()}, {}
+    spec_corr, _ = simulate_corr()
+    out["14l"] = f64_rc_corr_kernels(geno, y, spec_corr)
+    by_run, out["14m"] = f64_rc_corr_chains()
+    counted.update(by_run)
+    by_run, out["14n"] = f64_rc_corr_replayed(geno, y, sig, spec_corr)
+    counted.update(by_run)
+    out["seconds 14k-14n"] = time.perf_counter() - t0
+    print(f"[14 f64] 14k-14n in {out['seconds 14k-14n']:.1f} s")
+    return out, counted
+
+
+def rc_bits_inputs(V, B, A, K, kind, seed):
+    """Random float32 inputs of K12 (kind "rcpi") or K14 ("rcplus") at (V, B,
+    A, K): a (1, B, V, B) Gram from random normals with a diagonal near 30,
+    and coefficient rows from the port's pack (the first annotation on every
+    locus, the last three loci of each chain padded)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=DEV)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    m = min(2 * B, 256)
+    a = randn(V, B, m)
+    gram = (torch.einsum("vbn,vcn->bvc", a, a) * (30.0 / m))[None].contiguous()
+    p = V * B
+    mask = (torch.arange(B, device=DEV) < B - 3).repeat(V)
+    anz = rand(p, A) < 0.5
+    anz[:, 0] = True
+    anz &= mask[:, None]
+    varc = (0.5 + 1.5 * rand(A, 1)) * torch.cat([torch.zeros(1, device=DEV), 1e-3 + 0.1 * rand(K - 1)])
+    common = dict(beta_old=0.1 * randn(p) * mask, mpm=torch.einsum("bvb->vb", gram[0]).reshape(-1) * mask,
+                  lss=rand(p), rss=0.1 * randn(p), mask=mask, varc=varc,
+                  logpi=torch.log_softmax(randn(A, K), dim=-1), ive=torch.tensor(0.7, device=DEV),
+                  var_e=torch.tensor(1 / 0.7, device=DEV))
+    if kind == "rcpi":
+        pk = gibbs_kernels.rcpi_block_pack(
+            z=randn(p), ua=rand(p), uv=rand(p), g1=torch._standard_gamma(anz.float().clamp(min=1e-6), generator=g),
+            g2=torch._standard_gamma(anz.float() + 1.0, generator=g), aprob=anz / anz.sum(-1, keepdim=True).clamp(min=1),
+            anz=anz, **common)
+    else:
+        pk = gibbs_kernels.rcplus_block_pack(z=randn(p, A), ua=rand(p, A), anz=anz, **common)
+    pk = pk.reshape(V, B, -1).contiguous()
+    pk[:, :, 0] += 5.0 * randn(V, B)
+    return gram, pk
+
+
+def cm1_bits_inputs(V, B, n_t, seed):
+    """Random float32 inputs of CM1 and CM1r at (V, B, nT): the rule's
+    arguments for V B loci (seven regions, the last four loci padded), a
+    step's (B, nT, V, B, nT) Gram from random dosages, and the fold's r0,
+    centres and sum(y)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    p = V * B
+    bold, z = (torch.randn(p, n_t, generator=g, device=DEV) * s for s in (0.1, 1.0))
+    x = torch.randn(p, 40, n_t, generator=g, device=DEV)
+    mpm = torch.einsum("lkt,lku->ltu", x, x).contiguous()
+    m = torch.randn(7, n_t, n_t, generator=g, device=DEV)
+    var_beta = (m @ m.transpose(1, 2) / n_t * 0.01 + 0.01 * torch.eye(n_t, device=DEV)).contiguous()
+    region = torch.randint(0, 8, (p,), generator=g, device=DEV, dtype=torch.int32)
+    mask = torch.arange(p, device=DEV) < p - 4
+    rule = (bold, z, var_beta, region, mpm, mask, torch.tensor(1.3, device=DEV))
+    X = torch.randint(0, 3, (V, B, n_t, 200), generator=g, device=DEV).float()
+    X = X - X.mean(-1, keepdim=True)
+    gram = torch.einsum("vjtn,vkwn->jtvkw", X, X)[None].contiguous()
+    r0, cb = (torch.randn(V, B, n_t, generator=g, device=DEV) for _ in range(2))
+    return rule, gram, (r0, cb, torch.tensor(2.5, device=DEV))
+
+
+@contextlib.contextmanager
+def kernels_of(lib):
+    """The scan wrappers (gibbs_kernels) launch through lib's C interface."""
+    saved, _cuda._lib = _cuda._lib, lib
+    try:
+        yield
+    finally:
+        _cuda._lib = saved
+
+
+def f32_turns(lib):
+    """14o: this tree's float32 K12 and K14 (phase 3's A = K = 3 at B = 256,
+    V = 96 and 1), CM1 (nT = 2, MultiBreed's, V = 96 and 1) and CM1r (nT =
+    2, 96 x 256 loci) and another build's (lib), each through this tree's
+    launcher on the same inputs, in turns P (lib), C, C, P: the mean time
+    on the card alone of 20 calls. Returns {kernel: [P, C, C, P] ms}."""
+    calls = [0]
+    arms = {}
+    for V in (V_MAIN, 1):
+        for kind in ("rcpi", "rcplus"):
+            gram, pk = rc_bits_inputs(V, 256, 3, 3, kind, V + 7)
+            scan = getattr(gibbs_kernels, f"{kind}_block_scan_v")
+
+            def rc(L, scan=scan, gram=gram, pk=pk):
+                with kernels_of(L):
+                    return scan((gram, 0), pk, 3, 3)
+            arms[f"{kind} V={V}"] = rc
+        rule, gram, fold = cm1_bits_inputs(V, 256, 2, V + 2)
+        pk_g = corr_scan.corr_rule_plain(*rule).view(V, 1, 256, -1)
+        beta = torch.zeros((V, 1, 256, 2), device=DEV)
+        step = ((gram, 0), pk_g, *fold, beta)
+        arms[f"CM1 V={V}"] = lambda L, step=step: corr_scan.corr_block_step_with(L, *step)
+        if V > 1:
+            arms[f"CM1r V={V}"] = lambda L, rule=rule: corr_scan.corr_rule_with(L, *rule)
+    out = {}
+    for name, go in arms.items():
+        out[name] = []
+        for arm in "PCCP":
+            L = lib if arm == "P" else _cuda.lib()
+
+            def fn(go=go, L=L):
+                calls[0] += 1
+                return go(L)
+            out[name].append(device_ms(fn, 20, calls=lambda: calls[0]))
+    print("[14o] float32 K12, K14, CM1 and CM1r, ms on the card alone in turns P (the other build), C, C, P: "
+          + "; ".join(f"{k} " + " / ".join(str(v) for v in rows) for k, rows in out.items()))
+    return out
+
+
+def f32_bits_vs(src):
+    """14o (`f64 DIR`): this tree's float32 K12, K14, CM1 and CM1r against
+    DIR's (another tree's csrc/, rc_scan.cu and corr_scan.cu built alone
+    with this tree's flags and called through its own C interface), on the
+    same inputs: every output bit for bit. K12 and K14 at RC_BITS_SHAPES
+    (phase 3's main shape, the floors, A = 8, K = 4, V=1, the rule on one
+    thread), CM1 (nT = 1 .. 5) and CM1r (nT = 1 .. 4) at CM1_BITS_SHAPES;
+    then both timed in turns (f32_turns)."""
+    label, so, proc = start_build(src, "f32_bits", ["rc_scan.cu", "corr_scan.cu"])
+    lib = finish_build(label, so, proc)
+    ptr, num = ctypes.c_void_p, ctypes.c_longlong
+    lib.ngt_rcpi_block_scan_v.argtypes = [ptr] * 7 + [num] * 4 + [ptr]
+    lib.ngt_rcplus_block_scan_v.argtypes = [ptr] * 8 + [num] * 4 + [ptr]
+    _cuda.bind_cm1(lib)
+    same = {}
+    for V, B, A, K in RC_BITS_SHAPES:
+        for kind in ("rcpi", "rcplus"):
+            gram, pk = rc_bits_inputs(V, B, A, K, kind, V + B + A + K)
+            scan = getattr(gibbs_kernels, f"{kind}_block_scan_v")
+            ours = scan((gram, 0), pk, A, K)
+            with kernels_of(lib):
+                theirs = scan((gram, 0), pk, A, K)
+            torch.cuda.synchronize()
+            same[f"{kind} V={V} B={B} A={A} K={K}"] = all(torch.equal(a, b) for a, b in zip(ours, theirs))
+    for V, B in CM1_BITS_SHAPES:
+        for n_t in range(1, 6):
+            rule, gram, fold = cm1_bits_inputs(V, B, n_t, V + B + n_t)
+            pk = corr_scan.corr_rule_plain(*rule)
+            if n_t <= corr_scan.FAST_NT:
+                ours, theirs = (corr_scan.corr_rule_with(L, *rule) for L in (_cuda.lib(), lib))
+                same[f"rule V={V} B={B} nT={n_t}"] = torch.equal(ours, theirs)
+                pk = ours
+            pk_g = pk.view(V, 1, B, -1)
+            outs = []
+            for L in (_cuda.lib(), lib):
+                beta = torch.zeros((V, 1, B, n_t), device=DEV)
+                outs.append((corr_scan.corr_block_step_with(L, (gram, 0), pk_g, *fold, beta), beta))
+            torch.cuda.synchronize()
+            same[f"CM1 V={V} B={B} nT={n_t}"] = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"[14o] float32 K12, K14, CM1 and CM1r of this tree against {label}'s build, on the same inputs: "
+          + ", ".join(f"{k} {'bit-identical' if v else 'DIFFER'}" for k, v in same.items()))
+    check(all(same.values()), f"14o: float32 outputs differ from {label}'s: {[k for k, v in same.items() if not v]}")
+    return dict(bits=same, turns_ms=f32_turns(lib))
+
+
 def levels_only(card, other_src=None):
     """`python3 chip_smoke.py levels [DIR]`: RE1 and RE2 alone, the quick form
     for work on csrc/level_scan.cu: ptxas's and the SASS's report of every
@@ -5960,10 +6468,16 @@ def levels_only(card, other_src=None):
                       "timings": {k: v for k, v in TIMINGS.items() if "level_scan" in k}}))
 
 
-def f64_only(card):
-    """`python3 chip_smoke.py f64`: phase 14 alone. One JSON line of its
-    numbers, the kernels' times and launch counts, and no result line."""
+def f64_only(card, other_src=None):
+    """`python3 chip_smoke.py f64 [DIR]`: phase 14 alone; with DIR (another
+    tree's csrc/, e.g. a `git archive` of the parent under `_checkout/`),
+    first 14o: this tree's float32 K12, K14, CM1 and CM1r against DIR's, bit
+    for bit and in turns (f32_bits_vs). One JSON line of its numbers, the kernels' times
+    and launch counts, and no result line."""
+    bits = None if other_src is None else f32_bits_vs(other_src)
     out, counted = f64_phase()
+    if bits is not None:
+        out["14o"] = bits
     print(json.dumps({"card": card, "f64": out, "launches": counted,
                       "timings": {k: v for k, v in TIMINGS.items() if k.endswith("_f64")}}))
 
@@ -5992,6 +6506,9 @@ F64_PATH_RUNS = F64_R_RUNS + F64_OTHER_RUNS
 # phase 14's random-effect runs (14h at 2,000 animals, 14i at full width)
 F64_RE1_RUNS = ("f64 BayesR+A small", "f64 keyed BayesR+A", "f64 keyed GBLUP")
 F64_RE2_RUNS = ("f64 BayesR+A2 small", "f64 keyed BayesR+A2")
+# phase 14's K12, K14 and CM1 runs (14m on the small panels, 14n at full width)
+F64_CORR_V96 = (f"f64 MultiBreed V={V_MAIN}", f"f64 keyed MultiBreed V={V_MAIN}")
+F64_CORR_V1 = ("f64 MultiBreed V=1", "f64 keyed MultiBreed V=1")
 
 
 def f64_runs(path, V):
@@ -6078,6 +6595,18 @@ SOURCES = {
                        "level_scan_f64", F64_RE1_RUNS),
     "corr_level_scan_f64": (CU + "level_scan.cu", "nextgp_tpu/engine/samplers/random_effects.py:133",
                             "corr_level_scan_f64", F64_RE2_RUNS),
+    # K14 in float64 at V=1 (K13) runs on no path, so it is timed in phase 14 and left out of this line
+    "rcpi_block_scan_v_f64": (CU + "rc_scan.cu", GK + "718", "rcpi_block_scan_v_f64",
+                              (f"f64 BayesRCpi V={V_MAIN}", f"f64 keyed BayesRCpi V={V_MAIN}")),
+    "rcpi_block_scan_v_v1_f64": (CU + "rc_scan.cu", GK + "627", "rcpi_block_scan_v_f64", ("f64 keyed BayesRCpi V=1",)),
+    "rcplus_block_scan_v_f64": (CU + "rc_scan.cu", GK + "952", "rcplus_block_scan_v_f64",
+                                (f"f64 BayesRCplus V={V_MAIN}", f"f64 keyed BayesRCplus V={V_MAIN}")),
+    "corr_block_scan_v_f64": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
+                              "corr_block_scan_v_f64", F64_CORR_V96),
+    "corr_block_scan_v_v1_f64": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:911",
+                                 "corr_block_scan_v_f64", F64_CORR_V1),
+    "corr_rule_f64": (CU + "corr_scan.cu", "nextgp_tpu/engine/samplers/markers.py:901", "corr_rule_f64",
+                      F64_CORR_V96 + F64_CORR_V1),
 }
 NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fold_in "
                       "(nextgp_tpu/engine/rng.py:31-36); launches from the eager KeyedStream runs of "
@@ -6128,6 +6657,16 @@ NOTES = {"keyed_rng": "not a TPU kernel: the counterpart of jax.random under fol
                                 "corr_level_scan); timed at nT = 2 (nT = 1, 3, 4, 5: "
                                 "corr_level_scan_nt<n>_f64 in phase 14's output); launches from phase "
                                 "14's float64 BayesR+A2 runs, eager",
+         "rcpi_block_scan_v_f64": "K12's float64 instance (ngt_rcpi_block_scan_v_f64); launches from phase "
+                                  "14's float64 BayesRCpi runs, the replayed one counted at capture",
+         "rcpi_block_scan_v_v1_f64": "K11 in float64: K12's float64 instance at V = 1",
+         "rcplus_block_scan_v_f64": "K14's float64 instance (ngt_rcplus_block_scan_v_f64); launches from "
+                                    "phase 14's float64 BayesRCplus runs",
+         "corr_block_scan_v_f64": "CM1's float64 instance (ngt_corr_block_step_f64); not a TPU kernel (see "
+                                  "corr_block_scan_v); launches from phase 14's float64 MultiBreed runs, eager",
+         "corr_block_scan_v_v1_f64": "CM1's float64 instance at V = 1",
+         "corr_rule_f64": "CM1r's float64 instance (ngt_corr_rule_f64); not a TPU kernel (see corr_rule); "
+                          "launches from phase 14's float64 MultiBreed runs, eager",
          "corr_rule": "CM1's rule launch; not a TPU kernel: the counterpart of the per-locus rule "
                       "(the region inverse, inv, sym, cholesky) in the block lax.scan of "
                       "sample_corr_marker_set (nextgp_tpu/engine/samplers/markers.py:877-878, "
@@ -6240,8 +6779,8 @@ def main(argv=()):
         return cg_only(card, *argv[1:])
     if list(argv) == ["storage"]:
         return storage_only(card)
-    if list(argv) == ["f64"]:
-        return f64_only(card)
+    if list(argv[:1]) == ["f64"] and len(argv) <= 2:
+        return f64_only(card, *argv[1:])
     if list(argv[:1]) == ["levels"] and len(argv) <= 2:
         return levels_only(card, *argv[1:])
     if list(argv[:1]) == ["grn"] and len(argv) <= 2:
@@ -6263,7 +6802,7 @@ def main(argv=()):
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
                     "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
-                    "storage, grn [DIR], shards, f64 or levels [DIR]")
+                    "storage, grn [DIR], shards, f64 [DIR] or levels [DIR]")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")

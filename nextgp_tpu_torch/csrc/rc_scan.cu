@@ -69,30 +69,49 @@
 //  * rcpi's new annotation probabilities are formed by each locus's owner at
 //    the end, off the chain. rcplus's three per-annotation outputs go out from
 //    A lanes at once.
+//
+// Float64 (`ngt_rcpi_block_scan_v_f64`, `ngt_rcplus_block_scan_v_f64`): the
+// same rules and skeleton on double Grams, rows, beta, u, aprob and bs
+// (delta, acat, cls and nz stay int32), one body templated on the element
+// type (exp, fma, fmax; no fast math). The warp's maximum is a butterfly of
+// fmax over __shfl_xor_sync (scan_skeleton.cuh's warp_max), as `redux` has
+// no 64-bit form; a maximum is exact in any order, so the draws stay
+// deterministic. The staged coefficients (six a lane and locus), the serial
+// rule's scratch and rows take twice the bytes: 123,392 at B = 1,024 with the
+// rule on a warp (gibbs_kernels.rc_scan_smem_bytes).
 #include <math.h>
 
 #include "scan_skeleton.cuh"
 
 namespace {
 
+using ngt::mad;
 using ngt::scan::kFull;
 using ngt::scan::scan_up;
 using ngt::scan::warp_max;
 
 enum Rule { kRCpi = 0, kRCplus = 1 };
 
+__device__ __forceinline__ float expof(float x) { return expf(x); }
+__device__ __forceinline__ double expof(double x) { return exp(x); }
+__device__ __forceinline__ float maxof(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double maxof(double a, double b) { return fmax(a, b); }
+
+// T: float or double, the type of the Gram, the rows and the real outputs.
+template <typename T>
 struct Outs {
-  float* beta;  // (V, B)
-  float* u;     // (V, B)
-  int* delta;   // (V, B)
-  int* ia;      // rcpi: acat (V, B);     rcplus: cls (V, B, A)
-  float* fa;    // rcpi: aprob (V, B, A); rcplus: bs (V, B, A)
-  int* ib;      // rcplus: nz (V, B, A)
+  T* beta;    // (V, B)
+  T* u;       // (V, B)
+  int* delta;  // (V, B)
+  int* ia;     // rcpi: acat (V, B);     rcplus: cls (V, B, A)
+  T* fa;       // rcpi: aprob (V, B, A); rcplus: bs (V, B, A)
+  int* ib;     // rcplus: nz (V, B, A)
 };
 
 // What the owner of a locus keeps until the end of the kernel.
+template <typename T>
 struct Mine {
-  float beta, u;
+  T beta, u;
   int delta, a_sel;
 };
 
@@ -100,39 +119,41 @@ struct Mine {
 // (A, K) section the rule reads, and its annotation's x0 (aprob for rcpi, ua
 // for rcplus) and non-zero flag nz. A per-annotation value is read at slot
 // a * K, its first copy, as the row's layout has it.
+template <typename T>
 struct Coef {
-  float x0, nz, q0, q1, b, c;
+  T x0, nz, q0, q1, b, c;
 };
-constexpr int kCoefWords = 6 * 32;           // one locus's Coefs, lane-major per field
+constexpr int kCoefWords = 6 * 32;           // one locus's Coefs, lane-major per field (elements)
 constexpr int kCoefGroup = 32 * kCoefWords;  // a group's
 
 // Copy the Coefs of the loci j0 .. j0 + 31 into buf with cp.async; each lane
-// copies the words it will read itself, so once it has waited for its own
+// copies the elements it will read itself, so once it has waited for its own
 // copies it needs no barrier. The caller commits and waits.
-template <int R>
-__device__ __forceinline__ void stage_coefs(const float* __restrict__ pkv, float* buf, int j0,
-                                            int B, int W, int AK, int K, int lane) {
+template <int R, typename T>
+__device__ __forceinline__ void stage_coefs(const T* __restrict__ pkv, T* buf, int j0, int B, int W,
+                                            int AK, int K, int lane) {
   if (lane >= AK) return;
   const int first = lane / K * K;
   const int nz_at = (R == kRCpi ? 3 : 1) * AK + first;
   const int cls_at = (R == kRCpi ? 4 : 2) * AK + lane;
   const int nj = min(32, B - j0);
   for (int jj = 0; jj < nj; ++jj) {
-    const float* s = pkv + (size_t)(j0 + jj) * W + 8;
-    float* d = buf + jj * kCoefWords + lane;
-    __pipeline_memcpy_async(d, s + first, 4);
-    __pipeline_memcpy_async(d + 32, s + nz_at, 4);
-    __pipeline_memcpy_async(d + 64, s + cls_at, 4);
-    __pipeline_memcpy_async(d + 96, s + cls_at + AK, 4);
-    __pipeline_memcpy_async(d + 128, s + cls_at + 2 * AK, 4);
-    __pipeline_memcpy_async(d + 160, s + cls_at + 3 * AK, 4);
+    const T* s = pkv + (size_t)(j0 + jj) * W + 8;
+    T* d = buf + jj * kCoefWords + lane;
+    __pipeline_memcpy_async(d, s + first, sizeof(T));
+    __pipeline_memcpy_async(d + 32, s + nz_at, sizeof(T));
+    __pipeline_memcpy_async(d + 64, s + cls_at, sizeof(T));
+    __pipeline_memcpy_async(d + 96, s + cls_at + AK, sizeof(T));
+    __pipeline_memcpy_async(d + 128, s + cls_at + 2 * AK, sizeof(T));
+    __pipeline_memcpy_async(d + 160, s + cls_at + 3 * AK, sizeof(T));
   }
 }
 
-__device__ __forceinline__ Coef read_coef(const float* buf, int jj, int AK, int lane) {
-  Coef r{0.f, 0.f, -INFINITY, 0.f, 0.f, 0.f};  // a lane past A * K takes no part
+template <typename T>
+__device__ __forceinline__ Coef<T> read_coef(const T* buf, int jj, int AK, int lane) {
+  Coef<T> r{T(0), T(0), T(-INFINITY), T(0), T(0), T(0)};  // a lane past A * K takes no part
   if (lane < AK) {
-    const float* d = buf + jj * kCoefWords + lane;
+    const T* d = buf + jj * kCoefWords + lane;
     r.x0 = d[0];
     r.nz = d[32];
     r.q0 = d[64];
@@ -150,18 +171,18 @@ struct Grid {
 };
 
 // One BayesRCpi locus on the warp. Returns beta to every lane.
-__device__ __forceinline__ float rcpi_warp(const Coef& s, const Grid& g, int lane, float pre,
-                                           float ua, float uv, int A, int K, int* a_sel_out,
-                                           int* cls_out) {
+template <typename T>
+__device__ __forceinline__ T rcpi_warp(const Coef<T>& s, const Grid& g, int lane, T pre, T ua, T uv,
+                                       int A, int K, int* a_sel_out, int* cls_out) {
   const int AK = A * K;
-  const float e = fmaf(s.q1, pre * pre, s.q0);
-  const float bl = fmaf(s.b, pre, s.c);
-  const float m = warp_max(e);
-  const float x = (s.nz != 0.f) ? expf(e - m) : 0.f;
-  const float cum = scan_up(x, 1, K, g.k);  // within the annotation
-  const float rs = __shfl_sync(kFull, cum, g.valid ? g.a * K + K - 1 : lane);
-  const float wcum = scan_up(s.x0 * rs, K, AK, lane);  // over the annotations
-  const float wsum = __shfl_sync(kFull, wcum, AK - 1);
+  const T e = mad(s.q1, pre * pre, s.q0);
+  const T bl = mad(s.b, pre, s.c);
+  const T m = warp_max(e);
+  const T x = (s.nz != T(0)) ? expof(e - m) : T(0);
+  const T cum = scan_up(x, 1, K, g.k);  // within the annotation
+  const T rs = __shfl_sync(kFull, cum, g.valid ? g.a * K + K - 1 : lane);
+  const T wcum = scan_up(s.x0 * rs, K, AK, lane);  // over the annotations
+  const T wsum = __shfl_sync(kFull, wcum, AK - 1);
   const unsigned ba = __ballot_sync(kFull, g.valid && g.k == 0 && wcum < ua * wsum);
   const unsigned bc = __ballot_sync(kFull, g.valid && cum < uv * rs);
   const int a_sel = min(__popc(ba), A - 1);
@@ -175,25 +196,26 @@ __device__ __forceinline__ float rcpi_warp(const Coef& s, const Grid& g, int lan
 // One BayesRCplus locus on the warp: the A components in turn, each on the
 // lanes of its annotation. Lane a keeps component a's outputs and lanes < A
 // write them. Returns beta; *u_j is the locus's u.
-__device__ __forceinline__ float rcplus_warp(const Coef& s, const Grid& g, int lane, float base,
-                                             float gjj, float bold, bool on, int A, int K,
-                                             size_t at, const Outs& o, float* u_j, int* delta) {
-  const unsigned act = __ballot_sync(kFull, g.valid && g.k == 0 && s.nz != 0.f);
-  float ujc = bold, total = 0.f, my_bs = 0.f;
+template <typename T>
+__device__ __forceinline__ T rcplus_warp(const Coef<T>& s, const Grid& g, int lane, T base, T gjj,
+                                         T bold, bool on, int A, int K, size_t at, const Outs<T>& o,
+                                         T* u_j, int* delta) {
+  const unsigned act = __ballot_sync(kFull, g.valid && g.k == 0 && s.nz != T(0));
+  T ujc = bold, total = T(0), my_bs = T(0);
   int dj = 0, my_cls = 0, my_nz = 0;
   for (int a = 0; a < A; ++a) {
     const int first = a * K;
     const bool mine = g.valid && g.a == a;
-    const float prea = fmaf(gjj, ujc, base);
-    const float e = mine ? fmaf(s.q1, prea * prea, s.q0) : -INFINITY;
-    const float bl = fmaf(s.b, prea, s.c);
-    const float m = warp_max(e);
-    const float x = mine ? expf(e - m) : 0.f;
-    const float cum = scan_up(x, 1, K, g.k);
-    const float tot = __shfl_sync(kFull, cum, first + K - 1);
+    const T prea = mad(gjj, ujc, base);
+    const T e = mine ? mad(s.q1, prea * prea, s.q0) : T(-INFINITY);
+    const T bl = mad(s.b, prea, s.c);
+    const T m = warp_max(e);
+    const T x = mine ? expof(e - m) : T(0);
+    const T cum = scan_up(x, 1, K, g.k);
+    const T tot = __shfl_sync(kFull, cum, first + K - 1);
     const int cls = min(__popc(__ballot_sync(kFull, mine && cum < s.x0 * tot)), K - 1);
-    const float bs = __shfl_sync(kFull, bl, first + cls);
-    const float bsel = __shfl_sync(kFull, s.b, first + cls);  // 0: null class or inactive
+    const T bs = __shfl_sync(kFull, bl, first + cls);
+    const T bsel = __shfl_sync(kFull, s.b, first + cls);  // 0: null class or inactive
     const bool active = on && ((act >> first) & 1u);
     ujc -= bs;
     total += bs;
@@ -201,7 +223,7 @@ __device__ __forceinline__ float rcplus_warp(const Coef& s, const Grid& g, int l
     if (lane == a) {
       my_cls = active ? cls + 1 : 0;
       my_bs = bs;
-      my_nz = (bsel > 0.f) ? 1 : 0;
+      my_nz = (bsel > T(0)) ? 1 : 0;
     }
   }
   if (lane < A) {
@@ -216,27 +238,28 @@ __device__ __forceinline__ float rcplus_warp(const Coef& s, const Grid& g, int l
 
 // One BayesRCpi locus on one thread (A * K > 32), from the row s in shared
 // memory. e (AK) and rowsum (A) are shared-memory scratch. Returns beta.
-__device__ __forceinline__ float rcpi_serial(const float* s, float pre, int A, int K, float* e,
-                                             float* rowsum, int* a_sel_out, int* cls_out) {
+template <typename T>
+__device__ __forceinline__ T rcpi_serial(const T* s, T pre, int A, int K, T* e, T* rowsum,
+                                         int* a_sel_out, int* cls_out) {
   const int AK = A * K;
-  const float* aprob = s + 8;
-  const float* anz = aprob + 3 * AK;
-  const float* q0 = anz + AK;
-  const float* q1 = q0 + AK;
-  const float* bco = q1 + AK;
-  const float* cco = bco + AK;
-  const float pre2 = pre * pre;
-  float m = -INFINITY;
+  const T* aprob = s + 8;
+  const T* anz = aprob + 3 * AK;
+  const T* q0 = anz + AK;
+  const T* q1 = q0 + AK;
+  const T* bco = q1 + AK;
+  const T* cco = bco + AK;
+  const T pre2 = pre * pre;
+  T m = T(-INFINITY);
   for (int i = 0; i < AK; ++i) {
     e[i] = q0[i] + q1[i] * pre2;
-    m = fmaxf(m, e[i]);
+    m = maxof(m, e[i]);
   }
-  float wsum = 0.f;
+  T wsum = T(0);
   for (int a = 0; a < A; ++a) {
-    const bool nz = anz[a * K] != 0.f;
-    float rs = 0.f;
+    const bool nz = anz[a * K] != T(0);
+    T rs = T(0);
     for (int k = 0; k < K; ++k) {
-      const float x = nz ? expf(e[a * K + k] - m) : 0.f;
+      const T x = nz ? expof(e[a * K + k] - m) : T(0);
       e[a * K + k] = x;
       rs += x;
     }
@@ -244,15 +267,15 @@ __device__ __forceinline__ float rcpi_serial(const float* s, float pre, int A, i
     wsum += aprob[a * K] * rs;
   }
   int a_sel = 0;
-  float cum = 0.f;
+  T cum = T(0);
   for (int a = 0; a < A; ++a) {
     cum += aprob[a * K] * rowsum[a];
     a_sel += (cum < s[2] * wsum) ? 1 : 0;
   }
   a_sel = min(a_sel, A - 1);
-  const float rs = rowsum[a_sel];
+  const T rs = rowsum[a_sel];
   int cls = 0;
-  cum = 0.f;
+  cum = T(0);
   for (int k = 0; k < K; ++k) {
     cum += e[a_sel * K + k];
     cls += (cum < s[3] * rs) ? 1 : 0;
@@ -266,50 +289,50 @@ __device__ __forceinline__ float rcpi_serial(const float* s, float pre, int A, i
 
 // One BayesRCplus locus on one thread (A * K > 32). e (K) is shared-memory
 // scratch; gjj the Gram diagonal of the locus. Returns beta.
-__device__ __forceinline__ float rcplus_serial(const float* s, float base, float gjj, int A, int K,
-                                               float* e, size_t at, const Outs& o, float* u_j,
-                                               int* delta) {
+template <typename T>
+__device__ __forceinline__ T rcplus_serial(const T* s, T base, T gjj, int A, int K, T* e, size_t at,
+                                           const Outs<T>& o, T* u_j, int* delta) {
   const int AK = A * K;
-  const float* ua = s + 8;
-  const float* anz = ua + AK;
-  const float* q0 = anz + AK;
-  const float* q1 = q0 + AK;
-  const float* bco = q1 + AK;
-  const float* cco = bco + AK;
-  const bool on = s[2] != 0.f;
-  float ujc = s[1];
-  float total = 0.f;
+  const T* ua = s + 8;
+  const T* anz = ua + AK;
+  const T* q0 = anz + AK;
+  const T* q1 = q0 + AK;
+  const T* bco = q1 + AK;
+  const T* cco = bco + AK;
+  const bool on = s[2] != T(0);
+  T ujc = s[1];
+  T total = T(0);
   int dj = 0;
   for (int a = 0; a < A; ++a) {
     const int r = a * K;
-    const float prea = fmaf(gjj, ujc, base);
-    const float pre2 = prea * prea;
-    float m = -INFINITY;
+    const T prea = mad(gjj, ujc, base);
+    const T pre2 = prea * prea;
+    T m = T(-INFINITY);
     for (int k = 0; k < K; ++k) {
       e[k] = q0[r + k] + q1[r + k] * pre2;
-      m = fmaxf(m, e[k]);
+      m = maxof(m, e[k]);
     }
-    float tot = 0.f;
+    T tot = T(0);
     for (int k = 0; k < K; ++k) {
-      e[k] = expf(e[k] - m);
+      e[k] = expof(e[k] - m);
       tot += e[k];
     }
     int cls = 0;
-    float cum = 0.f;
+    T cum = T(0);
     for (int k = 0; k < K; ++k) {
       cum += e[k];
       cls += (cum < ua[r] * tot) ? 1 : 0;
     }
     cls = min(cls, K - 1);
-    const float bsel = bco[r + cls];  // 0 for a null class and for an inactive component
-    const float bs = cco[r + cls] + bsel * prea;
-    const bool active = on && anz[r] != 0.f;
+    const T bsel = bco[r + cls];  // 0 for a null class and for an inactive component
+    const T bs = cco[r + cls] + bsel * prea;
+    const bool active = on && anz[r] != T(0);
     ujc -= bs;
     total += bs;
     if (active) dj = cls + 1;
     o.ia[at * A + a] = active ? cls + 1 : 0;
     o.fa[at * A + a] = bs;
-    o.ib[at * A + a] = (bsel > 0.f) ? 1 : 0;
+    o.ib[at * A + a] = (bsel > T(0)) ? 1 : 0;
   }
   *delta = dj;
   *u_j = ujc;
@@ -318,47 +341,49 @@ __device__ __forceinline__ float rcplus_serial(const float* s, float base, float
 
 // rcpi's new annotation probabilities of one locus, by the thread that owns
 // it, from its row in device memory.
-__device__ __forceinline__ void rcpi_aprob(const float* __restrict__ s, int A, int K, int a_sel,
-                                           float* __restrict__ out) {
+template <typename T>
+__device__ __forceinline__ void rcpi_aprob(const T* __restrict__ s, int A, int K, int a_sel,
+                                           T* __restrict__ out) {
   const int AK = A * K;
-  const float* aprob = s + 8;
-  const float* g1 = aprob + AK;
-  const float* g2 = g1 + AK;
-  const float* anz = g2 + AK;
-  if (s[4] == 0.f) {
+  const T* aprob = s + 8;
+  const T* g1 = aprob + AK;
+  const T* g2 = g1 + AK;
+  const T* anz = g2 + AK;
+  if (s[4] == T(0)) {
     for (int a = 0; a < A; ++a) out[a] = aprob[a * K];
     return;
   }
-  float gsum = 0.f;
+  T gsum = T(0);
   for (int a = 0; a < A; ++a) gsum += ((a == a_sel) ? g2[a * K] : g1[a * K]) * anz[a * K];
   for (int a = 0; a < A; ++a) out[a] = ((a == a_sel) ? g2[a * K] : g1[a * K]) * anz[a * K] / gsum;
 }
 
-// The rules of K12 and K14 on the scan skeleton (csrc/scan_skeleton.cuh).
-// head (bold, ua, uv, mask) is the head of the thread's own row; the rule's
-// shared memory is two groups' staged Coefs (A * K <= 32) or the serial
-// rule's scratch and two rows (A * K > 32).
-template <int R>
+// The rules of K12 and K14 on the scan skeleton (csrc/scan_skeleton.cuh), in
+// T. head (bold, ua, uv, mask) is the head of the thread's own row; the
+// rule's shared memory is two groups' staged Coefs (A * K <= 32) or the
+// serial rule's scratch and two rows (A * K > 32).
+template <int R, typename T>
 struct RcRule {
   static constexpr int kGrams = 1;
+  using Real = T;
   struct Params {
-    const float* pk;  // (V, B, W)
-    Outs o;
+    const T* pk;  // (V, B, W)
+    Outs<T> o;
     int A, K;
   };
 
-  const float* pkv;
-  Outs o;
-  float* sm;
-  const float* coefs = nullptr;  // the staged Coefs of the locus that runs next
+  const T* pkv;
+  Outs<T> o;
+  T* sm;
+  const T* coefs = nullptr;  // the staged Coefs of the locus that runs next
   int v, B, A, K, AK, W;
   bool on_warp;
   Grid g;
-  float s0;
-  float4 head;  // bold, ua, uv, mask of the thread's locus
-  Mine mine;
+  T s0;
+  T bold, ua, uv, mask;  // the head of the thread's locus
+  Mine<T> mine;
 
-  __device__ __forceinline__ RcRule(const Params& p, float* smem, int v_, int B_, int i)
+  __device__ __forceinline__ RcRule(const Params& p, T* smem, int v_, int B_, int i)
       : o(p.o), sm(smem), v(v_), B(B_), A(p.A), K(p.K) {
     AK = A * K;
     W = 8 + (R == kRCpi ? 8 : 6) * AK;
@@ -368,24 +393,23 @@ struct RcRule {
     g.a = lane / K;
     g.k = lane - g.a * K;
     pkv = p.pk + (size_t)v * B * W;
-    s0 = 0.f;
-    head = make_float4(0.f, 0.f, 0.f, 0.f);
+    s0 = bold = ua = uv = mask = T(0);
     if (i < B) {
-      const float* s = pkv + (size_t)i * W;
+      const T* s = pkv + (size_t)i * W;
       s0 = __ldg(s);
-      head.x = __ldg(s + 1);
+      bold = __ldg(s + 1);
       if (R == kRCpi) {
-        head.y = __ldg(s + 2);
-        head.z = __ldg(s + 3);
-        head.w = __ldg(s + 4);
+        ua = __ldg(s + 2);
+        uv = __ldg(s + 3);
+        mask = __ldg(s + 4);
       } else {
-        head.w = __ldg(s + 2);
+        mask = __ldg(s + 2);
       }
     }
-    mine = Mine{0.f, 0.f, 0, 0};
+    mine = Mine<T>{T(0), T(0), 0, 0};
   }
 
-  __device__ __forceinline__ float start(int) const { return s0; }
+  __device__ __forceinline__ T start(int) const { return s0; }
 
   __device__ __forceinline__ void stage(int slot, int j0, int lane) {
     if (on_warp) stage_coefs<R>(pkv, sm + slot * kCoefGroup, j0, B, W, AK, K, lane);
@@ -395,52 +419,51 @@ struct RcRule {
   __device__ __forceinline__ void begin_group(int slot, int j0, int, int lane) {
     coefs = sm + slot * kCoefGroup;
     if (!on_warp) {
-      float* rows = sm + AK + A;
+      T* rows = sm + AK + A;
       for (int idx = lane; idx < W; idx += 32)
-        __pipeline_memcpy_async(rows + idx, pkv + (size_t)j0 * W + idx, 4);
+        __pipeline_memcpy_async(rows + idx, pkv + (size_t)j0 * W + idx, sizeof(T));
       __pipeline_commit();
     }
   }
 
-  __device__ __forceinline__ float locus(int j0, int jj, const float (&pre_g)[1], float gjj,
-                                         int lane) {
+  __device__ __forceinline__ T locus(int j0, int jj, const T (&pre_g)[1], T gjj, int lane) {
     const int j = j0 + jj;
     const size_t at = (size_t)v * B + j;
-    const float pre = pre_g[0];
-    const float bold = __shfl_sync(kFull, head.x, jj);
-    const bool on = __shfl_sync(kFull, head.w, jj) != 0.f;
-    float bnew = 0.f, uj = 0.f;
+    const T pre = pre_g[0];
+    const T bold_j = __shfl_sync(kFull, bold, jj);
+    const bool on = __shfl_sync(kFull, mask, jj) != T(0);
+    T bnew = T(0), uj = T(0);
     int a_sel = 0, cls = 0, dj = 0;
     if (on_warp) {
-      const Coef c0 = read_coef(coefs, 0, AK, lane);
+      const Coef<T> c0 = read_coef(coefs, 0, AK, lane);
       coefs += kCoefWords;
       if (R == kRCpi) {
-        const float ua = __shfl_sync(kFull, head.y, jj);
-        const float uv = __shfl_sync(kFull, head.z, jj);
-        bnew = rcpi_warp(c0, g, lane, pre, ua, uv, A, K, &a_sel, &cls);
-        uj = bold - bnew;
+        const T ua_j = __shfl_sync(kFull, ua, jj);
+        const T uv_j = __shfl_sync(kFull, uv, jj);
+        bnew = rcpi_warp(c0, g, lane, pre, ua_j, uv_j, A, K, &a_sel, &cls);
+        uj = bold_j - bnew;
         dj = on ? cls + 1 : 0;
       } else {
-        bnew = rcplus_warp(c0, g, lane, pre, gjj, bold, on, A, K, at, o, &uj, &dj);
+        bnew = rcplus_warp(c0, g, lane, pre, gjj, bold_j, on, A, K, at, o, &uj, &dj);
       }
     } else {
-      float* e = sm;             // AK
-      float* rowsum = e + AK;    // A
-      float* rows = rowsum + A;  // 2 * W
+      T* e = sm;             // AK
+      T* rowsum = e + AK;    // A
+      T* rows = rowsum + A;  // 2 * W
       // row j has arrived; row j + 1 goes into the other slot meanwhile
       __pipeline_wait_prior(0);
       __syncwarp();
-      const float* s = rows + (jj & 1) * W;
+      const T* s = rows + (jj & 1) * W;
       if (j + 1 < min(B, j0 + 32)) {
-        float* dst = rows + ((jj + 1) & 1) * W;
+        T* dst = rows + ((jj + 1) & 1) * W;
         for (int idx = lane; idx < W; idx += 32)
-          __pipeline_memcpy_async(dst + idx, pkv + (size_t)(j + 1) * W + idx, 4);
+          __pipeline_memcpy_async(dst + idx, pkv + (size_t)(j + 1) * W + idx, sizeof(T));
       }
       __pipeline_commit();
       if (lane == 0) {
         if (R == kRCpi) {
           bnew = rcpi_serial(s, pre, A, K, e, rowsum, &a_sel, &cls);
-          uj = bold - bnew;
+          uj = bold_j - bnew;
           dj = on ? cls + 1 : 0;
         } else {
           bnew = rcplus_serial(s, pre, gjj, A, K, e, at, o, &uj, &dj);
@@ -460,7 +483,7 @@ struct RcRule {
     return uj;
   }
 
-  __device__ __forceinline__ float u() const { return mine.u; }
+  __device__ __forceinline__ T u() const { return mine.u; }
 
   __device__ __forceinline__ void finish(int i) {
     const size_t at = (size_t)v * B + i;
@@ -468,21 +491,35 @@ struct RcRule {
     o.u[at] = mine.u;
     o.delta[at] = mine.delta;
     if (R == kRCpi) {
-      o.ia[at] = head.w != 0.f ? mine.a_sel + 1 : 0;
+      o.ia[at] = mask != T(0) ? mine.a_sel + 1 : 0;
       rcpi_aprob(pkv + (size_t)i * W, A, K, mine.a_sel, o.fa + at * A);
     }
   }
 };
 
-template <int R>
-int launch(const void* gram, const void* pk, const Outs& o, long long V, long long B, long long A,
+template <int R, typename T>
+int launch(const void* gram, const void* pk, const Outs<T>& o, long long V, long long B, long long A,
            long long K, void* stream) {
   const long long AK = A * K;
   const long long W = 8 + (R == kRCpi ? 8 : 6) * AK;
-  // gibbs_kernels.rc_scan_smem_bytes is the skeleton's words and these
+  // gibbs_kernels.rc_scan_smem_bytes is the skeleton's elements and these
   const size_t rule_words = AK <= 32 ? (size_t)(2 * kCoefGroup) : (size_t)(AK + A + 2 * W);
-  const typename RcRule<R>::Params prm{(const float*)pk, o, (int)A, (int)K};
-  return ngt::scan::launch<RcRule<R>>(gram, nullptr, prm, V, B, rule_words, stream);
+  const typename RcRule<R, T>::Params prm{(const T*)pk, o, (int)A, (int)K};
+  return ngt::scan::launch<RcRule<R, T>>(gram, nullptr, prm, V, B, rule_words, stream);
+}
+
+template <typename T>
+int rcpi(const void* gram, const void* pk, void* beta, void* u, void* delta, void* acat, void* aprob,
+         long long V, long long B, long long A, long long K, void* stream) {
+  const Outs<T> o{(T*)beta, (T*)u, (int*)delta, (int*)acat, (T*)aprob, nullptr};
+  return launch<kRCpi>(gram, pk, o, V, B, A, K, stream);
+}
+
+template <typename T>
+int rcplus(const void* gram, const void* pk, void* beta, void* u, void* delta, void* cls, void* bs,
+           void* nz, long long V, long long B, long long A, long long K, void* stream) {
+  const Outs<T> o{(T*)beta, (T*)u, (int*)delta, (int*)cls, (T*)bs, (int*)nz};
+  return launch<kRCplus>(gram, pk, o, V, B, A, K, stream);
 }
 
 }  // namespace
@@ -495,8 +532,14 @@ extern "C" {
 int ngt_rcpi_block_scan_v(const void* gram, const void* pk, void* beta, void* u, void* delta,
                           void* acat, void* aprob, long long V, long long B, long long A,
                           long long K, void* stream) {
-  const Outs o{(float*)beta, (float*)u, (int*)delta, (int*)acat, (float*)aprob, nullptr};
-  return launch<kRCpi>(gram, pk, o, V, B, A, K, stream);
+  return rcpi<float>(gram, pk, beta, u, delta, acat, aprob, V, B, A, K, stream);
+}
+
+// The same with gram, pk, beta, u and aprob f64.
+int ngt_rcpi_block_scan_v_f64(const void* gram, const void* pk, void* beta, void* u, void* delta,
+                              void* acat, void* aprob, long long V, long long B, long long A,
+                              long long K, void* stream) {
+  return rcpi<double>(gram, pk, beta, u, delta, acat, aprob, V, B, A, K, stream);
 }
 
 // pk: (V, B, 8 + 6AK) f32; beta, u: (V, B) f32; delta: (V, B) int32; cls, nz:
@@ -504,8 +547,14 @@ int ngt_rcpi_block_scan_v(const void* gram, const void* pk, void* beta, void* u,
 int ngt_rcplus_block_scan_v(const void* gram, const void* pk, void* beta, void* u, void* delta,
                             void* cls, void* bs, void* nz, long long V, long long B, long long A,
                             long long K, void* stream) {
-  const Outs o{(float*)beta, (float*)u, (int*)delta, (int*)cls, (float*)bs, (int*)nz};
-  return launch<kRCplus>(gram, pk, o, V, B, A, K, stream);
+  return rcplus<float>(gram, pk, beta, u, delta, cls, bs, nz, V, B, A, K, stream);
+}
+
+// The same with gram, pk, beta, u and bs f64.
+int ngt_rcplus_block_scan_v_f64(const void* gram, const void* pk, void* beta, void* u, void* delta,
+                                void* cls, void* bs, void* nz, long long V, long long B, long long A,
+                                long long K, void* stream) {
+  return rcplus<double>(gram, pk, beta, u, delta, cls, bs, nz, V, B, A, K, stream);
 }
 
 }  // extern "C"

@@ -295,12 +295,21 @@ __device__ __forceinline__ float warp_max(float x) {
   return __int_as_float(ordered(__reduce_max_sync(kFull, ordered(__float_as_int(x)))));
 }
 
+// `redux` has no 64-bit form: doubles take a butterfly of fmax. A maximum is
+// exact in any order, so every lane holds the same value.
+__device__ __forceinline__ double warp_max(double x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmax(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
 // Inclusive sums over the lanes l, l - step, l - 2 * step, ... >= l - pos.
 // step = 1 with pos = k sums within a run of K lanes; step = K with pos =
 // lane sums one class over the annotations.
-__device__ __forceinline__ float scan_up(float x, int step, int end, int pos) {
+template <typename T>
+__device__ __forceinline__ T scan_up(T x, int step, int end, int pos) {
   for (int off = step; off < end; off <<= 1) {
-    const float t = __shfl_up_sync(kFull, x, off);
+    const T t = __shfl_up_sync(kFull, x, off);
     if (pos >= off) x += t;
   }
   return x;

@@ -775,38 +775,6 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     return st, plan
 
 
-# The card's kernels that a term runs through and that have no float64
-# instance yet (K1, K2 and K3, BayesR's path, have one; so have K6, K8 and
-# K10, BayesPR's, BayesLV's and BayesB/C's with or without a weighted
-# residual, RE1 and RE2, the random terms' level scans, and R1, CG1 and
-# GRN1).
-_F32_ONLY = {METHOD_RCPI: "K12 (rcpi_block_scan_v)", METHOD_RCPLUS: "K14 (rcplus_block_scan_v)"}
-
-
-def check_card_dtype(spec: ModelSpec, dtype, device) -> None:
-    """Refuse a float64 model on a CUDA device where a kernel without a
-    float64 instance would meet it mid-sweep: BayesRCpi and BayesRCplus
-    marker sets (K12, K14) and correlated marker sets (CM1, CM1r). Marker
-    sets of BayesR, BayesB, BayesC (weighted residual or not), BayesPR and
-    BayesLV (any storage, any V: K1, K2, K3, K6, K8, K10), random terms
-    (by the per-level scan, RE1, or by CG, CG1), correlated random groups
-    (RE2) and fixed effects run in float64 on the card."""
-    if torch.device(device).type != "cuda" or dtype != torch.float64:
-        return
-    needs = []
-    for t in spec.markers:
-        method = _method_of(t.prior, t.name)
-        if method in _F32_ONLY:
-            needs.append(f"marker set {t.name!r} ({method}) runs through {_F32_ONLY[method]}")
-    for t in spec.corr_markers:
-        needs.append(f"correlated marker set {t.names} runs through CM1 (corr_block_scan_v) "
-                     "and CM1r (corr_rule)")
-    if needs:
-        raise ValueError(
-            f"float64 on a CUDA device: {'; '.join(needs)}, a kernel with a float32 instance "
-            'only; pass dtype=torch.float32 for the card, or device="cpu" for float64')
-
-
 def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
              vshards: Union[int, str] = 1, pack2: Optional[bool] = None, device=None):
     """Build (SweepPlan, ModelState) from a validated ModelSpec.
@@ -825,13 +793,8 @@ def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
     version of its card path, and the JAX chain is the same for packed and
     int8 storage. Correlated marker sets have no switch: packed when every
     set can be.
-    float64 on a CUDA device runs BayesR, BayesB, BayesC (weighted
-    residual or not), BayesPR and BayesLV marker sets (packed, int8 or
-    float rows, any V), random terms (by the scan or by CG), correlated
-    random groups and fixed effects; it raises (check_card_dtype) where a
-    term needs a kernel with a float32 instance only (a BayesRCpi or
-    BayesRCplus marker set, a correlated marker set), before anything is
-    placed on the card.
+    Every kernel has a float32 and a float64 instance, so any model runs in
+    either type on a CUDA device as on the CPU.
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its
@@ -842,7 +805,6 @@ def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
     spec.validate()
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
-    check_card_dtype(spec, dtype, device)
     rng = np.random.default_rng(20240509)  # the JAX planner's host generator and seed
     y = np.asarray(spec.y, dtype=np.float64).ravel()
     res_prior = spec.residual or P.RandomEffect("I", 100.0)

@@ -36,10 +36,12 @@ LAUNCHES = {"pack2_matvec": 0, "pack2_rank_update": 0, "r_block_scan_v": 0,
             "gauss_block_scan_v": 0, "bc_block_scan_v": 0, "bc_block_scan_wv": 0,
             "gauss_block_scan_v_f64": 0, "bc_block_scan_v_f64": 0, "bc_block_scan_wv_f64": 0,
             "rcpi_block_scan_v": 0, "rcplus_block_scan_v": 0,
+            "rcpi_block_scan_v_f64": 0, "rcplus_block_scan_v_f64": 0,
             "gather_width1": 0, "gather_width4": 0, "read_step": 0, "dense_gather": 0,
             "dense_scatter": 0, "fused_step": 0, "keyed_rng": 0, "level_scan": 0,
             "corr_level_scan": 0, "level_scan_f64": 0, "corr_level_scan_f64": 0,
-            "corr_block_scan_v": 0, "corr_rule": 0, "cg_solve": 0, "grn_scan": 0}
+            "corr_block_scan_v": 0, "corr_rule": 0, "corr_block_scan_v_f64": 0, "corr_rule_f64": 0,
+            "cg_solve": 0, "grn_scan": 0}
 
 _lib = None
 
@@ -123,6 +125,8 @@ def lib() -> ctypes.CDLL:
         L.ngt_bc_block_scan_wv_f64.argtypes = L.ngt_bc_block_scan_wv.argtypes
         L.ngt_rcpi_block_scan_v.argtypes = [P] * 7 + [I] * 4 + [S]
         L.ngt_rcplus_block_scan_v.argtypes = [P] * 8 + [I] * 4 + [S]
+        L.ngt_rcpi_block_scan_v_f64.argtypes = L.ngt_rcpi_block_scan_v.argtypes
+        L.ngt_rcplus_block_scan_v_f64.argtypes = L.ngt_rcplus_block_scan_v.argtypes
         L.ngt_gather_width.argtypes = [P, P, P, I, I, I, I, S]
         L.ngt_read_step.argtypes = [P, P, I, I, I, S]
         L.ngt_dense_gather.argtypes = [P, P, P, I, I, I, S]
@@ -151,7 +155,8 @@ def lib() -> ctypes.CDLL:
                    L.ngt_gauss_block_scan_v, L.ngt_bc_block_scan_v, L.ngt_bc_block_scan_wv,
                    L.ngt_gauss_block_scan_v_f64, L.ngt_bc_block_scan_v_f64,
                    L.ngt_bc_block_scan_wv_f64,
-                   L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_gather_width,
+                   L.ngt_rcpi_block_scan_v, L.ngt_rcplus_block_scan_v, L.ngt_rcpi_block_scan_v_f64,
+                   L.ngt_rcplus_block_scan_v_f64, L.ngt_gather_width,
                    L.ngt_read_step, L.ngt_dense_gather, L.ngt_dense_scatter, L.ngt_fused_step,
                    L.ngt_keyed_rng, L.ngt_keyed_rng_rows, L.ngt_keyed_rng_f64,
                    L.ngt_keyed_rng_rows_f64, L.ngt_level_scan, L.ngt_level_scan_f64):
@@ -179,11 +184,18 @@ def bind_re2(L: ctypes.CDLL) -> None:
 def bind_cm1(L: ctypes.CDLL) -> None:
     """Bind CM1's C interface (csrc/corr_scan.cu: the block-step and the
     rule launch) in a loaded library: the port's, or another build of that
-    source."""
+    source (whose float64 entries and shared-memory export, where it has
+    them, are bound too)."""
     I, P = ctypes.c_longlong, ctypes.c_void_p
     L.ngt_corr_block_step.argtypes = [P, P, I, P, P, P, P, I, P, P, I, I, I, P]
     L.ngt_corr_rule.argtypes = [P] * 8 + [I] * 3 + [P]
     L.ngt_corr_block_step.restype = L.ngt_corr_rule.restype = ctypes.c_int
+    if hasattr(L, "ngt_corr_block_step_f64"):
+        L.ngt_corr_block_step_f64.argtypes = L.ngt_corr_block_step.argtypes
+        L.ngt_corr_rule_f64.argtypes = L.ngt_corr_rule.argtypes
+        L.ngt_corr_block_step_f64.restype = L.ngt_corr_rule_f64.restype = ctypes.c_int
+        L.ngt_corr_block_step_smem_bytes.argtypes = [I] * 3
+        L.ngt_corr_block_step_smem_bytes.restype = I
 
 
 def bind_cg(L: ctypes.CDLL) -> None:

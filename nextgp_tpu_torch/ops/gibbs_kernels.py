@@ -361,22 +361,20 @@ def rcplus_block_scan_v_plain(gram, pk, n_annot, n_classes):
     return beta, u, delta, cls_out, bs_out, nz_out
 
 
-def _launch(name, entry, grams, pk, width, more_outs, *extra, entry_f64=None):
-    """Launch one V-batched scan kernel. grams: the step-indexed
-    ((T, B, V, B), t) pairs the kernel reads. more_outs: (trailing shape,
-    dtype) of each output after beta and u (V, B), all (V, B, ...); a
-    float32 there is the scan's own type. entry_f64: the kernel's float64
-    instance, where it has one (float64 gram and pk, counted as
-    `<name>_f64`); a scan without one takes float32 alone. Returns (beta,
-    u, *more)."""
+def _launch(name, grams, pk, width, more_outs, *extra):
+    """Launch one V-batched scan kernel, `ngt_<name>` in float32 or its
+    float64 instance `ngt_<name>_f64` where the Grams and pk are all
+    float64 (counted as `<name>_f64`); anything else (float16, or float32
+    beside float64) raises. grams: the step-indexed ((T, B, V, B), t) pairs
+    the kernel reads. more_outs: (trailing shape, dtype) of each output
+    after beta and u (V, B), all (V, B, ...); a float32 there is the scan's
+    own type. Returns (beta, u, *more)."""
     tensors = [g for g, _ in grams] + [pk]
     _cuda.require(all(x.is_cuda and x.device == pk.device for x in tensors),
                   f"{name}: gram and pk must be on one CUDA device")
-    f64 = entry_f64 is not None and all(x.dtype == torch.float64 for x in tensors)
+    f64 = all(x.dtype == torch.float64 for x in tensors)
     _cuda.require(f64 or all(x.dtype == torch.float32 for x in tensors),
-                  f"{name}: gram and pk must be float32"
-                  + (", or both float64" if entry_f64 is not None else
-                     " (no float64 instance of this kernel yet)"))
+                  f"{name}: gram and pk must be float32, or both float64")
     _cuda.require(all(x.is_contiguous() for x in tensors), f"{name}: gram and pk must be contiguous")
     T, B, V, B2 = grams[0][0].shape
     _cuda.require(B == B2 and all(g.shape == (T, B, V, B) and 0 <= t < T for g, t in grams),
@@ -388,7 +386,7 @@ def _launch(name, entry, grams, pk, width, more_outs, *extra, entry_f64=None):
                         device=pk.device)
             for tail, dtype in [((), torch.float32)] * 2 + list(more_outs)]
     ptrs = [g.data_ptr() + t * B * V * B * pk.element_size() for g, t in grams]
-    err = (entry_f64 if f64 else entry)(_cuda.lib())(
+    err = getattr(_cuda.lib(), f"ngt_{name}_f64" if f64 else f"ngt_{name}")(
         *ptrs, pk.data_ptr(), *(o.data_ptr() for o in outs), V, B, *extra, _cuda.stream_of(pk))
     _cuda.check(err, f"gibbs_kernels.{name}")
     _cuda.LAUNCHES[name + "_f64" if f64 else name] += 1
@@ -442,8 +440,7 @@ def r_block_scan_v(gram_t, pk, n_classes):
         B = pk.shape[1]
         _cuda.require(r_scan_smem_bytes(B, K, pk.element_size()) <= SMEM_BYTES,
                       f"r_block_scan_v: B={B}, K={K}: two coefficient rows exceed shared memory")
-        return _launch("r_block_scan_v", lambda L: L.ngt_r_block_scan_v, [_step(gram_t, True)],
-                       pk, 8 + 4 * K, _DELTA, K, entry_f64=lambda L: L.ngt_r_block_scan_v_f64)
+        return _launch("r_block_scan_v", [_step(gram_t, True)], pk, 8 + 4 * K, _DELTA, K)
     return r_block_scan_v_plain(_step(gram_t, False), pk, K)
 
 
@@ -462,8 +459,7 @@ def _scan8(name, grams, pk, more_outs):
     B = pk.shape[1]
     _cuda.require(scan8_smem_bytes(B, len(grams), pk.element_size()) <= SMEM_BYTES,
                   f"{name}: B={B}: the scan's shared memory exceeds a block's")
-    return _launch(name, lambda L: getattr(L, f"ngt_{name}"), grams, pk, 8, more_outs,
-                   entry_f64=lambda L: getattr(L, f"ngt_{name}_f64"))
+    return _launch(name, grams, pk, 8, more_outs)
 
 
 def gauss_block_scan_v(gram_t, pk):
@@ -498,29 +494,34 @@ def bc_block_scan_wv(gram_t, graw_t, pk):
     return bc_block_scan_wv_plain(_step(gram_t, False), _step(graw_t, False), pk)
 
 
-def rc_scan_smem_bytes(B, A, K, sections):
+def rc_scan_smem_bytes(B, A, K, sections, itemsize=4):
     """Shared memory one block of K12 (sections = 8) or K14 (6) needs, as
     `csrc/rc_scan.cu` lays it out after the skeleton's: up to A * K = 32 (the
-    rule on a warp), two groups' coefficients at 6 words per lane and locus
-    whatever A and K are, and above that the serial rule's scratch
-    (A * K + A) and two coefficient rows of 8 + sections * A * K floats."""
+    rule on a warp), two groups' coefficients at 6 elements per lane and
+    locus whatever A and K are, and above that the serial rule's scratch
+    (A * K + A) and two coefficient rows of 8 + sections * A * K elements.
+    itemsize: 4 for the float32 instances, 8 for float64, whose every
+    element (the skeleton's too) takes 8 bytes: 61,696 and 123,392 bytes at
+    B = 1,024 with the rule on a warp."""
     words = _skeleton_words(B, 1)
     if A * K <= 32:
         words += 2 * 32 * 6 * 32
     else:
         words += A * K + A + 2 * (8 + sections * A * K)
-    return 4 * words
+    return itemsize * words
 
 
-def _rc_launch(name, entry, gram_t, pk, A, K, sections, more_outs):
-    """K12 and K14: rows of 8 + sections*A*K floats, which the kernel reads
+def _rc_launch(name, gram_t, pk, A, K, sections, more_outs):
+    """K12 and K14: rows of 8 + sections*A*K elements, which the kernel reads
     from device memory ahead of the locus they belong to, so no chain's rows
-    need fit shared memory whatever B is."""
+    need fit shared memory whatever B is. The float32 instance, or the
+    float64 one where the Gram and pk are both float64 (counted as
+    `<name>_f64`)."""
     _cuda.require(A >= 1 and K >= 1, f"{name}: needs A >= 1 and K >= 1")
     B = pk.shape[1]
-    _cuda.require(rc_scan_smem_bytes(B, A, K, sections) <= SMEM_BYTES,
+    _cuda.require(rc_scan_smem_bytes(B, A, K, sections, pk.element_size()) <= SMEM_BYTES,
                   f"{name}: B={B}, A={A}, K={K}: two coefficient rows exceed shared memory")
-    return _launch(name, entry, [_step(gram_t, True)], pk, 8 + sections * A * K, more_outs, A, K)
+    return _launch(name, [_step(gram_t, True)], pk, 8 + sections * A * K, more_outs, A, K)
 
 
 def rcpi_block_scan_v(gram_t, pk, n_annot, n_classes):
@@ -531,22 +532,22 @@ def rcpi_block_scan_v(gram_t, pk, n_annot, n_classes):
     ascending column order, and compares `cum < u * total` where the plain
     version compares `cum / total < u`: results agree to rounding, and a
     draw can differ only where a uniform lies within rounding of a CDF
-    edge. A * K <= 32 runs the rule on a warp, above that on one thread."""
+    edge. A * K <= 32 runs the rule on a warp, above that on one thread.
+    It has a float32 and a float64 instance (gram and pk in one of them)."""
     A, K = n_annot, n_classes
     if pk.is_cuda:
-        return _rc_launch("rcpi_block_scan_v", lambda L: L.ngt_rcpi_block_scan_v, gram_t, pk, A, K,
-                          8, [((), torch.int32), ((), torch.int32), ((A,), torch.float32)])
+        return _rc_launch("rcpi_block_scan_v", gram_t, pk, A, K, 8,
+                          [((), torch.int32), ((), torch.int32), ((A,), torch.float32)])
     return rcpi_block_scan_v_plain(_step(gram_t, False), pk, A, K)
 
 
 def rcplus_block_scan_v(gram_t, pk, n_annot, n_classes):
     """V-batched BayesRCplus scan (K14). gram_t as for r_block_scan_v; pk
     (V, B, 8 + 6AK). Returns beta, u, delta (V, B) and cls, bs, nz
-    (V, B, A) (cls, nz int32). Sums and comparisons as in
+    (V, B, A) (cls, nz int32). Sums, comparisons and instances as in
     rcpi_block_scan_v."""
     A, K = n_annot, n_classes
     if pk.is_cuda:
-        return _rc_launch("rcplus_block_scan_v", lambda L: L.ngt_rcplus_block_scan_v, gram_t, pk,
-                          A, K, 6, [((), torch.int32), ((A,), torch.int32), ((A,), torch.float32),
-                                    ((A,), torch.int32)])
+        return _rc_launch("rcplus_block_scan_v", gram_t, pk, A, K, 6,
+                          [((), torch.int32), ((A,), torch.int32), ((A,), torch.float32), ((A,), torch.int32)])
     return rcplus_block_scan_v_plain(_step(gram_t, False), pk, A, K)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .api.spec import ModelSpec
-from .engine.plan import SweepPlan, assemble, check_card_dtype
+from .engine.plan import SweepPlan, assemble
 from .engine.rng import PhiloxStream, _splitmix64
 from .engine.state import ModelState, chain_leaves
 from .engine.sweep import Chain, _with_leaves, collect_sample
@@ -40,7 +40,7 @@ from .io.summary import ess_bulk, split_rhat
 from .io.writer import MCMCWriter, folder_handler, truncate_outputs
 from .parallel import sharded
 from .parallel.sharded import pick_chain, stack_chains
-from .utils import default_device, default_dtype, replace
+from .utils import default_device, replace
 
 _CHUNK = 32  # kept samples between host copies of a replayed chain that writes files
 
@@ -301,13 +301,8 @@ def run_lmem(
     KeyedStream runs on the card as CUDA-graph replays. `device`: where the
     model is assembled and swept (the card unless "cpu"; without a card
     this raises before the output folder is touched). `dtype`: float32 on
-    the card and float64 on the CPU unless given; float64 on the card runs
-    BayesR, BayesB, BayesC (weighted residual or not), BayesPR and BayesLV
-    marker sets (packed, int8 or float rows, any V), random terms (by the
-    scan or by CG), correlated random groups and fixed effects, and raises
-    before the output folder is touched where a term needs a kernel with a
-    float32 instance only (`check_card_dtype`: BayesRCpi, BayesRCplus,
-    correlated marker sets).
+    the card and float64 on the CPU unless given; either runs any model on
+    either device (every kernel has a float64 instance).
 
     checkpoint_every=k writes `<out_folder>/chain.ckpt` every k kept samples
     (atomic, exact-resume: every draw is keyed by its sweep, io/checkpoint.py).
@@ -317,7 +312,6 @@ def run_lmem(
     finishing the last.
     """
     device = torch.device(device) if device is not None else default_device()
-    check_card_dtype(spec, dtype or default_dtype(device), device)
     ckpt_path = os.path.join(out_folder, "chain.ckpt") if out_folder else None
     resuming = bool(resume and ckpt_path and os.path.exists(ckpt_path))
     if out_folder and not resuming:

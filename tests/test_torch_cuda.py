@@ -67,7 +67,12 @@ float64 instances of RE1 and RE2 (nT = 1 .. 4 and the generic 5) at q = 1, 33,
 1,025 and 3,001 (1e-12 of scale of the plain versions, the same bits twice), a
 float64 RE1 captured in a graph whose replays are the next sweeps' scans, RE2's
 refusal of mixed types, and float64 chains of BayesR with an animal effect and
-with an (intercept, slope) animal group on the card.
+with an (intercept, slope) animal group on the card; the float64 instances of
+K12 and K14 (the rule on a warp at A = 8, K = 4 and at A = K = 1, on one thread
+at A * K = 33) and of CM1 (nT = 1 .. 4 and the generic 5) and CM1r (1e-12 of
+scale, discrete outputs identical), CM1's shared memory as the library and
+its wrapper state it, the refusal of mixed types, and float64 chains of
+BayesRCpi, BayesRCplus and MultiBreed on the card.
 CUDA kernels have no CPU mode, so every test here skips without
 a card. Run on the card (tests/conftest.py imports jax, which the card's
 machine does not have):
@@ -511,12 +516,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="bc_block_scan_wv: .*float32, or both float64"):
         gibbs_kernels.bc_block_scan_wv((gram.double(), 0), (gram, 0),
                                        torch.zeros(2, 8, 8, dtype=torch.float64, device=dev))
-    # a scan with a float32 instance only refuses float64 by name
+    # K12 and K14 take float32 or float64 gram and pk, not one of each nor float16
     pk_rc = torch.zeros(2, 8, 8 + 8 * 6, dtype=torch.float64, device=dev)
-    with pytest.raises(ValueError, match="rcpi_block_scan_v: .*float32 .*no float64 instance"):
-        gibbs_kernels.rcpi_block_scan_v((gram.double(), 0), pk_rc, 2, 3)
-    with pytest.raises(ValueError, match="rcplus_block_scan_v: .*no float64 instance"):
-        gibbs_kernels.rcplus_block_scan_v((gram.double(), 0), pk_rc[..., :8 + 6 * 6].contiguous(), 2, 3)
+    with pytest.raises(ValueError, match="rcpi_block_scan_v: .*float32, or both float64"):
+        gibbs_kernels.rcpi_block_scan_v((gram, 0), pk_rc, 2, 3)
+    with pytest.raises(ValueError, match="rcplus_block_scan_v: .*float32, or both float64"):
+        gibbs_kernels.rcplus_block_scan_v((gram.double(), 0), pk_rc[..., :8 + 6 * 6].float().contiguous(), 2, 3)
+    with pytest.raises(ValueError, match="rcpi_block_scan_v: .*float32, or both float64"):
+        gibbs_kernels.rcpi_block_scan_v((gram.half(), 0), pk_rc.half(), 2, 3)
 
 
 N_SMALL, P_SMALL = 300, 512
@@ -2382,6 +2389,192 @@ def test_random_f64_chain_on_the_card(dev, kind):
     for i in (0, 1, 3):
         assert _rel(chains[0][i], chains[1][i]) < 1e-9
     plan, st0 = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=4)
+    stream = ngt.KeyedStream(21, dev, torch.float64)
+    st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
+    sweep, eager, kept = ngt.make_sweep(plan), st0, []
+    for _ in range(3):
+        for _ in range(2):
+            eager = sweep(eager, stream)
+        kept.append(ngt.collect_sample(eager, plan))
+    for name, d in draws.items():
+        assert torch.equal(d, torch.stack([k[name] for k in kept])), name
+    assert torch.equal(st.ycorr, eager.ycorr)
+
+
+# ------------------------------------------------------------------ float64 K12, K14, CM1 and CM1r
+
+
+@pytest.mark.parametrize("V,B,A,K", [
+    (96, 256, 3, 3),  # the main path's shape
+    (2, 256, 8, 4),  # A * K = 32, the widest rule on a warp
+    (3, 1024, 8, 4),  # and the widest block
+    (3, 33, 1, 1),  # the skeleton's floor
+    (2, 40, 11, 3),  # A * K = 33: the rule on one thread
+    (1, 8, 3, 3),  # a single chain (K11, K13), narrower than a warp
+])
+@pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
+def test_rc_scan_f64_kernels_match_plain(dev, kind, V, B, A, K):
+    """K12's and K14's float64 instances against their float64 plain
+    versions on inputs kept off the CDF edges: beta, u and the real
+    per-annotation output within 1e-12 of their scale, delta, acat, cls and
+    nz identical, the same bits twice, counted as <name>_f64 alone."""
+    _, scan, plain_fn, _, slots, discrete = RC_SCANS[kind]
+    gram, pk, gen = _rc_inputs(dev, kind, 1, V, B, A, K, V * 1000 + B + A + K)
+    gram, pk = gram.double(), pk.double()
+    ref = _keep_off_cdf_edges(pk, lambda p: plain_fn(gram[0], p, A, K), slots(A, K), discrete, gen)
+    name = f"{kind}_block_scan_v"
+    before = dict(_cuda.LAUNCHES)
+    got = scan((gram, 0), pk, A, K)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name + "_f64"] == before[name + "_f64"] + 1 and _cuda.LAUNCHES[name] == before[name]
+    for i, (x, r) in enumerate(zip(got, ref)):
+        if i in discrete:
+            assert x.dtype == torch.int32 and torch.equal(x, r), f"output {i}"
+        else:
+            assert x.dtype == torch.float64 and torch.isfinite(x).all() and _rel(x, r) < TOL_F64, f"output {i}"
+    assert all(torch.equal(x, y) for x, y in zip(got, scan((gram, 0), pk, A, K)))
+
+
+def test_rcpi_scan_f64_kernel_clamps_the_annotation_draw(dev):
+    """K12's float64 instance, like its float32 one, draws the last
+    annotation for a uniform past the annotation CDF's last entry."""
+    V, B, A, K = 2, 16, 3, 3
+    gram, pk, _ = _rc_inputs(dev, "rcpi", 1, V, B, A, K, 11)
+    gram, pk = gram.double(), pk.double()
+    pk[..., 2] = 2.0
+    got = gibbs_kernels.rcpi_block_scan_v((gram, 0), pk, A, K)
+    ref = gibbs_kernels.rcpi_block_scan_v_plain(gram[0], pk, A, K)
+    on = pk[..., 4] != 0
+    assert (got[3][on] == A).all() and (got[3][~on] == 0).all()
+    assert torch.equal(got[3], ref[3]) and all(torch.isfinite(x).all() for x in got)
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("V,B", [(1, 16), (96, 256), (1, 100), (8, 1000)])
+def test_corr_block_step_f64_matches_plain(dev, V, B, n_t):
+    """CM1's float64 instance (the fast form at nT = 1 .. 4, each cut to its
+    float64 shape, and the generic form at 5) at step 1 of two, as
+    test_corr_block_step_matches_plain holds the float32 one: beta and u
+    within 1e-12 of their scale of the float64 plain block-step, padded
+    loci's beta 0, step 0 untouched and never read, the same bits twice,
+    counted as corr_block_scan_v_f64 alone."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    G, pk = (x.double() for x in _corr_block_inputs(V, B, n_t, dev, V * B + n_t + 7, pad=3))
+    gram = torch.stack([torch.full_like(G, float("nan")), G])
+    pk_g = torch.stack([torch.full_like(pk, float("nan")), pk], dim=1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(B + n_t)
+    r0, cb = (torch.randn(V, B, n_t, generator=g, device=dev, dtype=torch.float64) for _ in range(2))
+    cb[:, B - 3:] = 0.0
+    r0[:, B - 3:] = 0.0
+    sum_y = torch.tensor(2.5, dtype=torch.float64, device=dev)
+    beta = torch.full((V, 2, B, n_t), 7.0, dtype=torch.float64, device=dev)
+    ref = beta.clone()
+    before = dict(_cuda.LAUNCHES)
+    u = corr_scan.corr_block_step((gram, 1), pk_g, r0, cb, sum_y, beta)
+    ru = corr_scan.corr_block_step_plain(G, pk_g, 1, r0, cb, sum_y, ref)
+    assert u.dtype == torch.float64 and torch.isfinite(beta).all() and torch.isfinite(u).all()
+    assert _rel(beta[:, 1], ref[:, 1]) < TOL_F64 and _rel(u, ru) < TOL_F64
+    assert (beta[:, 1, B - 3:] == 0).all() and (beta[:, 0] == 7.0).all()
+    b1 = beta.clone()
+    assert torch.equal(u, corr_scan.corr_block_step((gram, 1), pk_g, r0, cb, sum_y, beta))
+    assert torch.equal(beta, b1)
+    assert _cuda.LAUNCHES["corr_block_scan_v_f64"] == before["corr_block_scan_v_f64"] + 2
+    assert _cuda.LAUNCHES["corr_block_scan_v"] == before["corr_block_scan_v"]
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4])
+def test_corr_rule_f64_matches_pack(dev, n_t):
+    """CM1r's float64 instance on 4,096 loci against the float64 torch pack:
+    adj, c and M within 1e-12 of their scale, bold copied, padded loci's c
+    and M 0, the same bits twice, counted as corr_rule_f64 alone; a locus
+    whose lhs is not positive definite gives NaN in its c."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    args = [a.double() if a.is_floating_point() else a for a in _corr_rule_inputs(4096, n_t, dev, 40 + n_t)]
+    before = dict(_cuda.LAUNCHES)
+    pk = corr_scan.corr_rule(*args)
+    ref = corr_scan.corr_rule_plain(*args)
+    assert pk.dtype == torch.float64 and pk.shape == ref.shape and torch.isfinite(pk).all()
+    for sl in (slice(0, n_t), slice(2 * n_t, 3 * n_t), slice(3 * n_t, None)):
+        assert _rel(pk[:, sl], ref[:, sl]) < TOL_F64
+    assert torch.equal(pk[:, n_t:2 * n_t], args[0]) and (pk[-4:, 2 * n_t:] == 0).all()
+    assert torch.equal(pk, corr_scan.corr_rule(*args))
+    assert _cuda.LAUNCHES["corr_rule_f64"] == before["corr_rule_f64"] + 2
+    assert _cuda.LAUNCHES["corr_rule"] == before["corr_rule"]
+    args[4] = args[4].clone()
+    args[4][40] = -1e3 * torch.eye(n_t, dtype=torch.float64, device=dev)
+    pk = corr_scan.corr_rule(*args)
+    others = torch.arange(4096, device=dev) != 40
+    assert torch.isnan(pk[40, 2 * n_t:3 * n_t]).any() and torch.isfinite(pk[others]).all()
+
+
+def test_corr_block_step_smem_matches_the_library(dev):
+    """CM1's shared memory as the library states it
+    (ngt_corr_block_step_smem_bytes) equals ops/corr_scan's counterpart at
+    every nT, B and type, and fits a block."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    lib = _cuda.lib()
+    for n_t in range(1, 6):
+        for B in (1, 16, 64, 65, 96, 256, 257, 1000, 1024):
+            for f64 in (0, 1):
+                need = corr_scan.block_step_smem_bytes(n_t, B, 8 if f64 else 4)
+                assert lib.ngt_corr_block_step_smem_bytes(n_t, B, f64) == need <= gibbs_kernels.SMEM_BYTES
+
+
+def test_corr_wrappers_refuse_mixed_types(dev):
+    """CM1 and CM1r take every value float32 or every one float64, nothing
+    between and no float16."""
+    from nextgp_tpu_torch.ops import corr_scan
+
+    args = list(_corr_rule_inputs(64, 2, dev, 3))
+    with pytest.raises(ValueError, match="corr_rule: every value float32, or every one float64"):
+        corr_scan.corr_rule(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="corr_rule: every value float32, or every one float64"):
+        corr_scan.corr_rule(*[a.half() if a.is_floating_point() else a for a in args])
+    G, pk = _corr_block_inputs(2, 32, 2, dev)
+    zero = torch.zeros((2, 32, 2), device=dev)
+    beta = torch.zeros((2, 1, 32, 2), device=dev)
+    with pytest.raises(ValueError, match="corr_block_step: every value float32, or every one float64"):
+        corr_scan.corr_block_step((G[None].double(), 0), pk[:, None].double(), zero, zero,
+                                  torch.zeros((), device=dev), beta.double())
+    with pytest.raises(ValueError, match="corr_block_step: every value float32, or every one float64"):
+        corr_scan.corr_block_step((G[None], 0), pk[:, None], zero, zero, torch.zeros((), device=dev),
+                                  beta.double())
+
+
+@pytest.mark.parametrize("method", ["BayesRCpi", "BayesRCplus", "MultiBreed"])
+def test_f64_annotation_and_corr_chains_on_the_card(dev, method):
+    """A float64 chain of BayesRCpi, BayesRCplus or MultiBreed (two
+    correlated BayesPR marker sets) on the card at V = 4 (assemble takes
+    it): the scan (K12, K14, or CM1 with its rule CM1r), K1 and K2 run as
+    their float64 instances and no float32 one runs; the card chain follows
+    the float64 plain chain on the CPU from the same host draws (3 sweeps:
+    beta and ycorr within 1e-9 of scale, delta equal); make_scan_sampler's
+    replays of a float64 KeyedStream give the eager chain's bits."""
+    corr = method == "MultiBreed"
+    spec = _corr_specs()[0] if corr else _small_spec(method)
+    scan = {"BayesRCpi": "rcpi_block_scan_v", "BayesRCplus": "rcplus_block_scan_v",
+            "MultiBreed": "corr_block_scan_v"}[method]
+    V, T = 4, 256 // 32 // 4 if corr else P_SMALL // 32 // 4
+    chains = []
+    for device in (dev, "cpu"):
+        plan, st = ngt.assemble(spec, device=device, dtype=torch.float64, vshards=V)
+        sw, hs = ngt.make_sweep(plan), HostStream(4, device, torch.float64)
+        before = dict(_cuda.LAUNCHES)
+        for _ in range(3):
+            st = sw(st, hs)
+        ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        if device == dev:
+            assert ran[scan + "_f64"] == 3 * T and ran["pack2_rank_update_f64"] == 3 * T
+            assert not corr or ran["corr_rule_f64"] == 3
+            assert not any(v for k, v in ran.items() if not k.endswith("_f64"))
+        m = st.corr_markers[0] if corr else st.markers[0]
+        chains.append((m.beta.cpu(), None if corr else m.delta.cpu(), st.ycorr.cpu()))
+    assert corr or torch.equal(chains[0][1], chains[1][1])
+    assert _rel(chains[0][0], chains[1][0]) < 1e-9 and _rel(chains[0][2], chains[1][2]) < 1e-9
+    plan, st0 = ngt.assemble(spec, device=dev, dtype=torch.float64, vshards=V)
     stream = ngt.KeyedStream(21, dev, torch.float64)
     st, draws = ngt.make_scan_sampler(plan, 3, 2)(st0, stream)
     sweep, eager, kept = ngt.make_sweep(plan), st0, []

@@ -1,20 +1,21 @@
-"""The float64 instances of K1, K2, K3, K6, K8, K10, RE1 and RE2 as far as
-the CPU reaches them: the shapes and sizes their wrappers compute (K2's
-float64 grid, the scans' and the level scans' float64 shared memory), the
-CPU path of every wrapper in float64 (the plain version, no launch), and
-the launch counters that tell a float64 launch from a float32 one. The
-kernels themselves run in tests/test_torch_cuda.py on the card; float64
-chains of BayesR, BayesB, BayesC, BayesC with a weighted residual, BayesPR
-and BayesLV on the CPU are held to the JAX package by
-tests/test_torch_sweep.py (`test_five_sweeps_match` and its cases), the
-float64 level scans' samplers by tests/test_torch_random.py
-(`test_sample_random_uni_matches`) and tests/test_torch_corr.py
-(`test_single_stages_match`, `test_four_sweeps_match`)."""
+"""The float64 instances of K1, K2, K3, K6, K8, K10, K12, K14, RE1, RE2,
+CM1 and CM1r as far as the CPU reaches them: the shapes and sizes their
+wrappers compute (K2's float64 grid, the scans', the level scans' and CM1's
+float64 shared memory), the CPU path of every wrapper in float64 (the plain
+version, no launch), and the launch counters that tell a float64 launch
+from a float32 one. The kernels themselves run in tests/test_torch_cuda.py
+on the card; float64 chains of BayesR, BayesB, BayesC, BayesC with a
+weighted residual, BayesPR, BayesLV, BayesRCpi and BayesRCplus on the CPU
+are held to the JAX package by tests/test_torch_sweep.py
+(`test_five_sweeps_match` and its cases), the float64 level scans' samplers
+by tests/test_torch_random.py (`test_sample_random_uni_matches`) and
+tests/test_torch_corr.py (`test_single_stages_match`,
+`test_four_sweeps_match`, which hold correlated marker sets too)."""
 import numpy as np
 import pytest
 import torch
 
-from nextgp_tpu_torch.ops import _cuda, gibbs_kernels, pack2, random_scan
+from nextgp_tpu_torch.ops import _cuda, corr_scan, gibbs_kernels, pack2, random_scan
 
 
 @pytest.mark.parametrize("rows,q", [(1, 16), (255, 240), (511, 256), (512, 272), (513, 528),
@@ -121,13 +122,15 @@ def test_cpu_wrappers_take_float64_as_the_plain_versions():
 
 
 def test_launch_counters_tell_float64_from_float32():
-    """K1, K2, K3, K6, K8, K10, RE1 and RE2 count their float64 launches
-    apart (`<name>_f64`), so a run can show which instance its path went
-    through; no other kernel has a float64 counter of its own."""
+    """K1, K2, K3, K6, K8, K10, K12, K14, RE1, RE2, CM1 and CM1r count their
+    float64 launches apart (`<name>_f64`), so a run can show which instance
+    its path went through; no other kernel has a float64 counter of its
+    own."""
     f64 = sorted(k for k in _cuda.LAUNCHES if k.endswith("_f64"))
-    assert f64 == ["bc_block_scan_v_f64", "bc_block_scan_wv_f64", "corr_level_scan_f64",
-                   "gauss_block_scan_v_f64", "level_scan_f64", "pack2_matvec_f64",
-                   "pack2_rank_update_f64", "r_block_scan_v_f64"]
+    assert f64 == ["bc_block_scan_v_f64", "bc_block_scan_wv_f64", "corr_block_scan_v_f64",
+                   "corr_level_scan_f64", "corr_rule_f64", "gauss_block_scan_v_f64", "level_scan_f64",
+                   "pack2_matvec_f64", "pack2_rank_update_f64", "r_block_scan_v_f64",
+                   "rcpi_block_scan_v_f64", "rcplus_block_scan_v_f64"]
     assert all(k.removesuffix("_f64") in _cuda.LAUNCHES for k in f64)
 
 
@@ -188,4 +191,142 @@ def test_cpu_corr_level_scan_takes_float64_as_the_plain_version(n_t):
     got = random_scan.corr_level_scan(ivstr, yi, zpz, z, u, var_e, ivu)
     assert got.dtype == torch.float64 and got.shape == (n_t, q) and torch.isfinite(got).all()
     assert torch.equal(got, random_scan.corr_level_scan_plain(ivstr, yi, zpz, z, u, var_e, ivu))
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("B,A,K,sections,need", [
+    (256, 3, 3, 8, 117_248),  # the main path's shape, K12
+    (256, 3, 3, 6, 117_248),  # K14: the same staged Coefs
+    (1024, 8, 4, 8, 123_392),  # the largest shape phase 3 runs, A * K = 32: the rule on a warp
+    (1024, 11, 3, 8, 29_792),  # A * K = 33: the serial rule's scratch and two rows
+    (256, 16, 4, 6, 25_856),  # K14's serial rule, A * K = 64
+    (32, 500, 16, 8, 1_109_280),  # rows that fit in no block
+])
+def test_rc_scan_f64_shared_memory_need(B, A, K, sections, need):
+    """K12's and K14's float64 instances take 8 bytes for every element of
+    the float32 instances' layout: the u's, the two Gram tile slots, and
+    two groups' staged coefficients (A * K <= 32) or the serial rule's
+    scratch and two rows; every shape the scans run fits a block."""
+    got = gibbs_kernels.rc_scan_smem_bytes(B, A, K, sections, 8)
+    assert got == need == 2 * gibbs_kernels.rc_scan_smem_bytes(B, A, K, sections)
+    assert (need <= gibbs_kernels.SMEM_BYTES) == (A < 500)
+
+
+# CM1's fast form at B = 256 and 1,024: the float32 bytes are the layout's
+# before float64 existed (three slots up to nT = 2, two at 3, one at 4; far
+# buffers up to nT = 2 at 96 .. 256 loci); the float64 shapes are cut to fit
+CM1_SMEM = {
+    (1, 256, 4): 55_696, (2, 256, 4): 211_984, (3, 256, 4): 159_632, (4, 256, 4): 142_352,
+    (1, 1024, 4): 31_120, (2, 1024, 4): 113_680, (3, 1024, 4): 168_848, (4, 1024, 4): 154_640,
+    (1, 256, 8): 111_392, (2, 256, 8): 215_072, (3, 256, 8): 163_104, (4, 256, 8): 153_632,
+    (1, 1024, 8): 62_240, (2, 1024, 8): 227_360, (3, 1024, 8): 181_536, (4, 1024, 8): 178_208,
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["float32", "float64"])
+@pytest.mark.parametrize("B", [256, 1024])
+@pytest.mark.parametrize("n_t", [1, 2, 3, 4])
+def test_corr_block_step_shared_memory_need(n_t, B, itemsize):
+    """CM1's fast form needs what its layout states at every nT <= 4, in
+    both types, and fits the 232,448 bytes a block may opt in to; float64
+    would not fit as float32 lays it out at nT = 2 (far buffers), 3 (two
+    slots) and 4 (a slot with the next group's columns). The generic form
+    (nT = 5) takes none."""
+    need = corr_scan.block_step_smem_bytes(n_t, B, itemsize)
+    assert need == CM1_SMEM[(n_t, B, itemsize)] <= gibbs_kernels.SMEM_BYTES == 232_448
+    if itemsize == 8 and (n_t, B) in {(2, 256), (3, 256), (4, 256)}:
+        assert 2 * CM1_SMEM[(n_t, B, 4)] > gibbs_kernels.SMEM_BYTES
+    assert corr_scan.block_step_smem_bytes(5, B, itemsize) == 0
+
+
+def _rc_rows(kind, V, B, A, K, seed):
+    """A float64 Gram block (B, V, B) and coefficient rows from the port's
+    own pack (the first annotation on every locus, the last locus of each
+    chain padded)."""
+    rng = np.random.default_rng(seed)
+    p = V * B
+    x = rng.normal(size=(V, B, 64))
+    gram = torch.from_numpy(np.einsum("vbn,vcn->bvc", x, x) / 64)
+    mask = torch.from_numpy(np.tile(np.arange(B) < B - 1, V))
+    anz = torch.from_numpy(rng.uniform(size=(p, A)) < 0.5)
+    anz[:, 0] = True
+    anz &= mask[:, None]
+    varc = torch.from_numpy(rng.uniform(0.5, 2.0, (A, 1)) * np.r_[0.0, rng.uniform(1e-3, 0.1, K - 1)])
+    logpi = torch.log_softmax(torch.from_numpy(rng.normal(size=(A, K))), dim=-1)
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape))
+
+    common = dict(beta_old=0.1 * f(p) * mask, mpm=torch.einsum("bvb->vb", gram).reshape(-1) * mask,
+                  lss=torch.from_numpy(rng.uniform(size=p)), rss=0.1 * f(p), mask=mask, varc=varc,
+                  logpi=logpi, ive=torch.tensor(0.7, dtype=torch.float64),
+                  var_e=torch.tensor(1 / 0.7, dtype=torch.float64))
+    if kind == "rcpi":
+        aprob = anz / anz.sum(-1, keepdim=True).clamp(min=1)
+        pk = gibbs_kernels.rcpi_block_pack(
+            z=f(p), ua=torch.from_numpy(rng.uniform(size=p)), uv=torch.from_numpy(rng.uniform(size=p)),
+            g1=torch.from_numpy(rng.gamma(1.0, size=(p, A))), g2=torch.from_numpy(rng.gamma(2.0, size=(p, A))),
+            aprob=aprob.double(), anz=anz, **common)
+    else:
+        pk = gibbs_kernels.rcplus_block_pack(z=f(p, A), ua=torch.from_numpy(rng.uniform(size=(p, A))), anz=anz,
+                                             **common)
+    return gram, pk.reshape(V, B, -1).contiguous()
+
+
+@pytest.mark.parametrize("A,K", [(3, 3), (1, 1), (11, 3)], ids=["warp", "floor", "serial"])
+@pytest.mark.parametrize("kind", ["rcpi", "rcplus"])
+def test_cpu_rc_wrappers_take_float64_as_the_plain_versions(kind, A, K):
+    """On float64 CPU tensors the wrappers of K12 and K14 are their plain
+    versions, step-indexed or on one block, with float64 real outputs and
+    int32 discrete ones, and count no launch."""
+    V, B = 3, 40
+    gram, pk = _rc_rows(kind, V, B, A, K, 11 + A + K)
+    steps = torch.stack([torch.zeros_like(gram), gram])
+    scan = getattr(gibbs_kernels, f"{kind}_block_scan_v")
+    plain = getattr(gibbs_kernels, f"{kind}_block_scan_v_plain")
+    before = dict(_cuda.LAUNCHES)
+    got, one, ref = scan((steps, 1), pk, A, K), scan(gram, pk, A, K), plain(gram, pk, A, K)
+    assert got[0].dtype == got[1].dtype == torch.float64 and got[2].dtype == torch.int32
+    assert all(torch.isfinite(x).all() for x in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(one, ref))
+    assert (got[2][:, -1] == 0).all()
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 4, 5])
+def test_cpu_corr_wrappers_take_float64_as_the_plain_versions(n_t):
+    """On float64 CPU tensors CM1r's wrapper (corr_rule) and CM1's
+    (corr_block_step) are their plain versions: the packed rows, and the
+    block-step's u and beta written at its step of the buffer, the other
+    step untouched; no launch is counted."""
+    rng = np.random.default_rng(20 + n_t)
+    V, T, B, n_regions = 2, 2, 24, 3
+    p = V * T * B
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape))
+
+    x = f(p, 30, n_t)
+    mpm = torch.einsum("lkt,lku->ltu", x, x).contiguous()
+    m = f(n_regions, n_t, n_t)
+    var_beta = (m @ m.transpose(1, 2) / n_t * 0.01 + 0.01 * torch.eye(n_t, dtype=torch.float64)).contiguous()
+    region = torch.from_numpy(rng.integers(0, n_regions, p).astype(np.int32))
+    mask = torch.arange(p) % B < B - 2
+    rule = (0.1 * f(p, n_t), f(p, n_t), var_beta, region, mpm, mask, torch.tensor(1.3, dtype=torch.float64))
+    before = dict(_cuda.LAUNCHES)
+    pk = corr_scan.corr_rule(*rule)
+    assert pk.dtype == torch.float64 and torch.isfinite(pk).all()
+    assert torch.equal(pk, corr_scan.corr_rule_plain(*rule))
+    X = f(V, B, n_t, 50)
+    G = torch.einsum("vjtn,vkwn->jtvkw", X, X).contiguous()
+    gram = torch.stack([torch.full_like(G, float("nan")), G])
+    pk_g = pk.view(V, T, B, -1)
+    r0, cb = f(V, B, n_t), f(V, B, n_t)
+    sum_y = torch.tensor(2.5, dtype=torch.float64)
+    beta, ref = (torch.full((V, T, B, n_t), 7.0, dtype=torch.float64) for _ in range(2))
+    u = corr_scan.corr_block_step((gram, 1), pk_g, r0, cb, sum_y, beta)
+    ru = corr_scan.corr_block_step_plain(G, pk_g, 1, r0, cb, sum_y, ref)
+    assert u.dtype == beta.dtype == torch.float64 and torch.isfinite(u).all()
+    assert torch.equal(u, ru) and torch.equal(beta, ref) and (beta[:, 0] == 7.0).all()
     assert _cuda.LAUNCHES == before

@@ -311,13 +311,12 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, entry):
     assert call(device="cpu").device.type == "cpu"
 
 
-# kind -> the kernel that refuses float64 on the card (None: taken there)
-CARD_DTYPE_CASES = {
-    "BayesRCpi": "K12", "BayesRCplus": "K14", "corr_markers": "CM1", "scan": None,
-    "corr_random": None, "BayesR+scan": None,
-    "markers": None, "BayesB": None, "BayesC+D": None, "BayesPR": None, "BayesLV": None,
-    "BayesR": None, "BayesR+D": None, "BayesR_float": None, "cg": None, "fixed": None,
-}
+# every kind of term, BayesRCpi, BayesRCplus and correlated marker sets
+# among them: each kernel has a float64 instance
+CARD_DTYPE_CASES = (
+    "BayesRCpi", "BayesRCplus", "corr_markers", "scan", "corr_random", "BayesR+scan",
+    "markers", "BayesB", "BayesC+D", "BayesPR", "BayesLV", "BayesR", "BayesR+D", "BayesR_float", "cg", "fixed",
+)
 
 
 def _card_dtype_spec(kind):
@@ -335,7 +334,7 @@ def _card_dtype_spec(kind):
     annot = rng.integers(0, 2, (p, 2)) | np.array([1, 0])
     method = kind.split("+")[0].removesuffix("_float")
     priors = {"BayesB": ngt.BayesB(0.9, 0.05), "BayesC": ngt.BayesC(0.9, 0.05),
-              "BayesPR": ngt.BayesPR(8, 0.05), "BayesLV": ngt.BayesLV(0.01, rng.normal(size=(p, 2)), 0.01),
+              "BayesPR": ngt.BayesPR(9999, 0.05), "BayesLV": ngt.BayesLV(0.01, rng.normal(size=(p, 2)), 0.01),
               "BayesRCpi": ngt.BayesRCpi([0.9, 0.1], [0.0, 0.01], 1.0, annot),
               "BayesRCplus": ngt.BayesRCplus([0.9, 0.1], [0.0, 0.01], 1.0, annot),
               "BayesR": ngt.BayesR([0.9, 0.05, 0.05], [0.0, 1e-3, 1e-2], 1.0, estimatePi=True)}
@@ -348,7 +347,7 @@ def _card_dtype_spec(kind):
         spec.residual = ngt.RandomEffect(rng.uniform(0.5, 2.0, n), 1.0)
     if kind == "corr_markers":
         spec.corr_markers = [ngt.CorrMarkerTerm(("M1", "M2"), (ngt.from_array(g), ngt.from_array(g)),
-                                                ngt.BayesPR(8, 0.01 * np.eye(2)))]
+                                                ngt.BayesPR(9999, 0.01 * np.eye(2)))]
     if kind.endswith("scan"):
         spec.random = [ngt.RandomTerm("A", np.eye(n), prior=ngt.Random("A", 0.5))]
     if kind == "corr_random":
@@ -360,48 +359,47 @@ def _card_dtype_spec(kind):
     return spec
 
 
-@pytest.mark.parametrize("kind", list(CARD_DTYPE_CASES))
-def test_float64_on_the_card_is_refused_up_front(kind):
-    """float64 on a CUDA device is refused where a kernel with a float32
-    instance only would meet it (BayesRCpi and BayesRCplus marker sets,
-    correlated marker sets), naming that kernel, and taken with BayesR,
-    BayesB, BayesC (weighted residual or not), BayesPR and BayesLV marker
-    sets (K1, K2, K3, K6, K8 and K10 have float64 instances, whatever the
-    storage), random terms drawn by the per-level scan alone or beside
-    BayesR (RE1) or by CG, correlated random groups (RE2) and fixed effects
-    alone; float32 on the card and float64 on the CPU always."""
+@pytest.mark.parametrize("kind", CARD_DTYPE_CASES)
+def test_float64_on_the_card_meets_no_dtype_refusal(kind):
+    """float64 with device="cuda" is taken for every kind of term: BayesRCpi
+    and BayesRCplus marker sets (K12, K14), correlated marker sets (CM1,
+    CM1r), BayesR, BayesB, BayesC (weighted residual or not), BayesPR and
+    BayesLV marker sets on any storage, random terms drawn by the per-level
+    scan alone or beside BayesR or by CG, correlated random groups and fixed
+    effects alone. Without a card assemble fails only for want of the card
+    (no ValueError); with one it assembles the model in float64 there. The
+    same spec assembles in float64 on the CPU."""
     import torch
 
-    from nextgp_tpu_torch.engine.plan import check_card_dtype
-
-    spec, cuda = _card_dtype_spec(kind), torch.device("cuda")
+    spec = _card_dtype_spec(kind)
     spec.validate()
-    kernel = CARD_DTYPE_CASES[kind]
-    if kernel is not None:
-        with pytest.raises(ValueError, match=rf'float64 on a CUDA device: .*{kernel} .*float32 '
-                                             r'instance only.*device="cpu"'):
-            check_card_dtype(spec, torch.float64, cuda)
-        # assemble asks before it places anything: with no card here, a tensor
-        # on "cuda" would fail with another error
-        with pytest.raises(ValueError, match="float64 on a CUDA device"):
-            ngt.assemble(spec, dtype=torch.float64, device="cuda")
+    if torch.cuda.is_available():
+        _, st = ngt.assemble(spec, dtype=torch.float64, device="cuda")
+        assert st.ycorr.dtype == torch.float64 and st.ycorr.is_cuda
     else:
-        check_card_dtype(spec, torch.float64, cuda)
-    check_card_dtype(spec, torch.float32, cuda)
-    check_card_dtype(spec, torch.float64, torch.device("cpu"))
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            ngt.assemble(spec, dtype=torch.float64, device="cuda")
+    _, st = ngt.assemble(spec, dtype=torch.float64, device="cpu")
+    assert st.ycorr.dtype == torch.float64
 
 
-def test_float64_refusal_comes_before_the_output_folder(tmp_path):
-    """run_lmem refuses float64 on the card before it touches out_folder."""
+def test_float64_without_a_card_leaves_the_output_folder(monkeypatch, tmp_path):
+    """A float64 BayesRCpi run_lmem without a CUDA device and without
+    device="cpu" raises for want of the card before it touches out_folder;
+    with device="cpu" the same call runs in float64 and writes there."""
     import torch
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = _card_dtype_spec("BayesRCpi")
     out = tmp_path / "out"
     out.mkdir()
     (out / "kept").write_text("x")
-    with pytest.raises(ValueError, match="K12"):
-        ngt.run_lmem(_card_dtype_spec("BayesRCpi"), 2, 0, 1, out_folder=str(out), device="cuda",
-                     dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ngt.run_lmem(spec, 2, 0, 1, out_folder=str(out), dtype=torch.float64)
     assert (out / "kept").exists()
+    res = ngt.run_lmem(spec, 2, 0, 1, out_folder=str(out), device="cpu", dtype=torch.float64)
+    assert res.state.ycorr.dtype == torch.float64
+    assert not (out / "kept").exists() and (out / "varEOut").exists()
 
 
 def test_normalize_annot_matches():

@@ -31,6 +31,8 @@ and check them.
                                  # with its own C interface), GRN1 and the replayed GRN
                                  # step also with DIR's GRN1, in turns P, C, C, P
     python3 chip_smoke.py shards # phases 1-2 and phase 13 alone
+    python3 chip_smoke.py vrule  # phases 1-2 and phase 15: the measurement vshards="auto"
+                                 # is read from, and the rule held to it
     python3 chip_smoke.py f64    # phases 1-2 and phase 14 alone
     python3 chip_smoke.py levels [DIR]  # phases 1-2, RE2's phase 9.1 and 14g: RE1 and
                                  # RE2 in float32 and float64 against their plain
@@ -211,7 +213,8 @@ Phases (any failed check raises and the script exits non-zero):
      `run` with two chains on KeyedStreams, `diag`, `summary`, `predict`
      and `roofline` run as `python -m nextgp_tpu_torch` does (runpy, in
      this process, so that the launch counters show K3, RE1 and R1), each
-     returning 0, and `summary` again in a child `python -m`
+     returning 0, and `summary` again in a child `python -m`; `run` at the
+     V "auto" gives (2) held to phase 15's gate against `run` at vshards 1
  12. the GRN vertical (ROADMAP M13): (a) GRN1 (csrc/grn_scan.cu, the
      per-gene SNP scan, one forward substitution with G right-hand sides
      on one triangle, read from the layout made once a chain) against its
@@ -300,6 +303,24 @@ Phases (any failed check raises and the script exits non-zero):
      u against the planted value >= 0.8, ms/sweep, busy and idle share beside
      the float32 replayed sweep; (j) RE1 and RE2 (nT = 2) on the card alone
      in turns f32 / f64 / f64 / f32
+ 15. vshards="auto" on the card (engine/plan._card_vshards): (c) run_lmem's
+     default for BayesR at the main path (the rule's V, phase 4's limits and
+     launch counts) and for BayesC (its prior's cap), each held to the gate
+     below against its V = 1 chain, then K1, K2 and K3 at the rule's V and
+     the B/C scans at each V "auto" gives them, against their plain
+     versions at phase 3's tolerances. `vrule` runs phase 15 alone with what
+     the rule was read from: (a) replayed BayesR sweeps at every divisor V
+     of the block count at 10,000 and 50,000 x 49,152, 10,000 x 50,000 and
+     10,000 x 589,824 (from V = 8) and at the main path in float64 (the
+     median of 3 runs of CUDA events around 20 replays, busy, nodes,
+     capture seconds), with K1, K2 and K3 at BayesR's V by the rule at the
+     other shapes, (b) 100 replayed sweeps of each method and BayesC+D at V
+     = 1, 8, 32, 96, 192 on the main path's panel and V = 1-32 on 2,000 x
+     8,192 (posterior-mean varE, EBV correlation, admitted where both stay
+     within the gate of the V = 1 chain), then (c) with the scans at every V
+     below T = 1 the gate admits for B/C; it fails where the V the rule
+     gives a method at a gate panel is not admitted there, or at the main
+     path is not the largest V admitted below T = 1
 The last three lines are the card line, the kernels JSON and the result JSON.
 There is no CPU path: without a CUDA device the script fails.
 """
@@ -399,6 +420,7 @@ def digest(*tensors):
 
 
 DIGESTS = {}  # scan name -> digests of its inputs and of its outputs
+FITS = {}  # slice_phase's run ("BayesR V=1") -> (posterior-mean varE, EBV correlation)
 
 
 def check(cond, msg):
@@ -553,14 +575,16 @@ def simulate_panel(n=N, p=P, chunk=8192):
 
 def simulate(n=N, p=P, chunk=8192):
     """simulate_panel's dosages, packed once with the port's packer. Returns
-    spec_for(path) and the planted signal."""
+    spec_for(path) and the planted signal (on a panel of other than P loci
+    spec_for takes method_priors' paths)."""
     geno, _, y, sig, center = simulate_panel(n, p, chunk)
     md = ngt.from_packed(pack2.pack2(geno), n, center)
     del geno
     weights = np.random.default_rng(3).uniform(0.5, 2.0, n)
+    priors = {k: v[:2] for k, v in {**PATHS, **EXTRA_PATHS}.items()} if p == P else method_priors(p)
 
     def spec_for(path):
-        prior, weighted = {**PATHS, **EXTRA_PATHS}[path][:2]
+        prior, weighted = priors[path]
         return ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))],
                              markers=[ngt.MarkerTerm("M1", md, prior)],
                              residual=ngt.RandomEffect(weights, 1.0) if weighted else None,
@@ -629,12 +653,13 @@ class Step0:
         self.ms = st.markers[0]
         self.T, self.V, self.B, q = self.ms.mt.shape
         self.mt_rows = self.ms.mt.view(-1, q)
+        n = st.ycorr.shape[0]
         self.y = torch.zeros(4 * q, dtype=st.ycorr.dtype, device=DEV)
-        self.y[:N] = st.ycorr
+        self.y[:n] = st.ycorr
         self.dw = None
         if st.e.d_inv is not None:
             self.dw = torch.zeros_like(self.y)
-            self.dw[:N] = st.e.d_inv
+            self.dw[:n] = st.e.d_inv
 
     def gather(self, yv):
         r0 = pack2.matvec_step(self.mt_rows, 0, pack2.y_planar(yv), self.V * self.B)
@@ -954,6 +979,22 @@ def r_classes(K):
     return varc, torch.log(torch.tensor([0.62] + [0.38 / (K - 1)] * (K - 1), device=DEV))
 
 
+def r_chain_ops(K):
+    """The dependent operations of one locus on K3's chain (csrc/r_scan.cu's
+    lane rule): the shuffle of pre, pre^2, the K multiply-adds (side by
+    side), the maximum tree, the subtraction and expf (~6), the K - 1
+    running sums, the threshold and its compare, the K - 1 selects of the
+    class, u = beta_old - beta and the next locus's multiply-add into its
+    sum."""
+    return 14 + (K - 1).bit_length() + 2 * (K - 1)
+
+
+def r_latency_ms(B, K, mhz):
+    """K3's (and K4's) dependent-chain bound for one step: B loci one after
+    another, r_chain_ops(K) dependent operations of 4 cycles each, at mhz."""
+    return B * r_chain_ops(K) * 4 / (mhz * 1e3)
+
+
 def scan8_cases(st, z, var_e):
     """The Gaussian and B/C scans at step t = 0 of st's marker set with the
     coefficients of a first sweep on the real data (z, var_e): K6 and K8 on
@@ -1025,6 +1066,24 @@ def scan8_kernels(st, z, var_e, unif, gen, tag, phase="3 kernels", tol=TOL_SCAN,
                   library=library, phase=phase, tol=tol, flops=flops)
 
 
+def r_scan_held(name, st, step, unif, z, gen, varc, logpi, phase="3 kernels"):
+    """K3 against its plain version at step t = 0 of st's marker set
+    (held_scan), with the coefficients of a first sweep on the real data:
+    varc and logpi the K classes' variances and log prior probabilities."""
+    ms = st.markers[0]
+    _, V, B, _ = ms.mt.shape
+    k, gram0, var_e = varc.numel(), ms.gram[0], st.ycorr.var()
+    flat = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
+                mask=ms.mask.reshape(-1))
+    held_scan(
+        name, lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, k),
+        lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, k),
+        lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc, logpi=logpi,
+                                                        ive=1.0 / var_e, var_e=var_e)),
+        unif, gen, step, lambda pk_t, uu: cdf_near(gram0, pk_t, uu, k),
+        scan_work(V, B, 8 + 4 * k, 1, 3, 10 * k), f"V={V}, B={B}, K={k}", phase=phase)
+
+
 def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
     """Every kernel of the sweep against its plain version at the paths'
     shapes for this V; with V = 1 (tag "_v1") the single-chain launches of
@@ -1044,24 +1103,19 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
     # the scans at step t=0 with the coefficients of a first sweep on the real data
     gen = torch.Generator(device=DEV).manual_seed(2)
     var_e = st.ycorr.var()
-    ive = 1.0 / var_e
     unif = torch.rand(mp.p_pad, generator=gen, dtype=dt, device=DEV)
     z = torch.randn(mp.p_pad, generator=gen, dtype=dt, device=DEV)
-    flat = dict(mpm=ms.mpm.reshape(-1), lss=ms.lhs_ss.reshape(-1), rss=ms.rhs_ss.reshape(-1),
-                mask=ms.mask.reshape(-1))
-    gram0 = ms.gram[0]
 
     def r_scan(name, varc, logpi):
-        k = varc.numel()
-        held_scan(
-            name, lambda pk_t: gibbs_kernels.r_block_scan_v((ms.gram, 0), pk_t, k),
-            lambda pk_t: gibbs_kernels.r_block_scan_v_plain(gram0, pk_t, k),
-            lambda un: step.rows(gibbs_kernels.r_block_pack(ms.beta, z, un, **flat, varc=varc,
-                                                            logpi=logpi, ive=ive, var_e=var_e)),
-            unif, gen, step, lambda pk_t, uu: cdf_near(gram0, pk_t, uu, k),
-            scan_work(V, B, 8 + 4 * k, 1, 3, 10 * k), f"V={V}, B={B}, K={k}")
+        r_scan_held(name, st, step, unif, z, gen, varc, logpi)
 
     r_scan(f"r_block_scan_v{tag}", ms.var_beta[0] * ms.v_class, ms.log_pi)
+    mhz, mhz_max = sm_clocks_mhz()
+    lat = r_latency_ms(B, K, mhz)
+    TIMINGS[f"r_block_scan_v{tag}"].update(latency_bound_ms=lat, sm_clock_mhz=mhz, sm_clock_max_mhz=mhz_max)
+    print(f"[3 kernels] r_block_scan_v{tag}: the dependent-chain bound {lat:.6f} ms ({B} loci x "
+          f"{r_chain_ops(K)} operations x 4 cycles at the {mhz:g} MHz SM clock nvidia-smi reports, maximum "
+          f"{mhz_max:g}) beside the byte bound {TIMINGS[f'r_block_scan_v{tag}']['bound_ms']:.6f} ms")
     # one class: nothing left of the rule but a multiply-add, so this is what
     # the skeleton costs per locus
     r_scan(f"r_block_scan_v_floor{tag}", *(x.to(dt) for x in r_classes(1)))
@@ -1080,17 +1134,22 @@ def kernels_phase(spec_for, V=V_MAIN, tag="", full=True):
 # ------------------------------------------------------------------ phase 4
 
 
-def slice_phase(path, spec, sig, card, V, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, tag=""):
-    """One path through run_lmem at full size, launch counts read from 0."""
+def slice_phase(path, spec, sig, card, V, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, tag="",
+                ebv_limit=None, auto=False):
+    """One path through run_lmem at full size, launch counts read from 0.
+    auto: run_lmem's default vshards ("auto"), which must resolve to V;
+    ebv_limit: the EBV limit where EBV_LIMITS has none for (path + tag, V)."""
     _, _, scan, gathers = {**PATHS, **EXTRA_PATHS}[path]
-    ebv_limit, var_e_limit = EBV_LIMITS.get((path + tag, V)), VAR_E_LIMITS.get((path, V))
+    ebv_limit = ebv_limit or EBV_LIMITS.get((path + tag, V))
+    var_e_limit = VAR_E_LIMITS.get((path, V))
     _cuda.reset_launches()
     res = ngt.run_lmem(spec, n_chain=n_chain, n_burn=n_burn, n_thin=n_thin, out_folder=None, seed=7,
-                       vshards=V)
+                       **({} if auto else {"vshards": V}))
     launches = dict(_cuda.LAUNCHES)
     plan, st = res.plan, res.state
     T = plan.markers[0].n_blocks // plan.markers[0].vshards
-    check(plan.markers[0].vshards == V, f"{path}: V = {plan.markers[0].vshards}, asked for {V}")
+    check(plan.markers[0].vshards == V,
+          f"{path}: V = {plan.markers[0].vshards}, {'auto should give' if auto else 'asked for'} {V}")
     path = f"{path}{tag} V={V}"
     n, p = st.y.shape[0], plan.markers[0].p
     print(f"[4 {path}] {n} x {p}, V={plan.markers[0].vshards} (T={T} block-steps), "
@@ -1109,13 +1168,9 @@ def slice_phase(path, spec, sig, card, V, n_chain=N_CHAIN, n_burn=N_BURN, n_thin
     gv = ngt.genomic_values_state(plan, st)
     drift = ((st.ycorr - (st.y - st.fixed[0].b[0] - gv)).abs().max() / st.y.abs().max()).item()
 
-    def ebv_corr(g):
-        ebv = g[:2048] - g[:2048].mean()
-        tru = sig[:2048].to(ebv.dtype) - sig[:2048].mean()
-        return (torch.dot(ebv, tru) / (ebv.norm() * tru.norm())).item()
-
-    corr_draw = ebv_corr(gv)
-    corr = ebv_corr(ngt.genomic_values_state(plan, st, beta=res.posterior_mean("betaM1")))
+    corr_draw = ebv_corr(gv, sig)
+    corr = ebv_corr(ngt.genomic_values_state(plan, st, beta=res.posterior_mean("betaM1")), sig)
+    FITS[path] = (float(np.mean(res.draws["varE"])), corr)
     pi = st.markers[0].pi_hat
     limit = "printed only" if ebv_limit is None else f"limit {ebv_limit}"
     print(f"[4 {path}] ycorr drift {drift:.3e} of max|y| (limit 1e-2); EBV corr over 2,048 "
@@ -1133,6 +1188,13 @@ def slice_phase(path, spec, sig, card, V, n_chain=N_CHAIN, n_burn=N_BURN, n_thin
           f"{path}: pi does not sum to 1")
     method_checks(path, plan.markers[0], st.markers[0], res)
     return launches, res
+
+
+def ebv_corr(g, sig):
+    """The correlation of genomic values g with the planted signal over the
+    first 2,048 individuals."""
+    ebv, tru = g[:2048] - g[:2048].mean(), sig[:2048].to(g.dtype) - sig[:2048].mean()
+    return (torch.dot(ebv, tru) / (ebv.norm() * tru.norm())).item()
 
 
 def method_checks(path, mp, ms, res):
@@ -1225,23 +1287,28 @@ def wide_phase(card):
 # ------------------------------------------------------------------ phase 5
 
 
+def method_priors(p):
+    """The seven methods' priors, BayesB's and BayesC+D's on a panel of p
+    loci: path -> (prior, weighted residual)."""
+    annot, lvcov = annotations(p)
+    return {"BayesR": (ngt.BayesR(**PRIOR_R), False),
+            "BayesB": (ngt.BayesB(PI_BC, V_BC, estimatePi=True), False),
+            "BayesC": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), False),
+            "BayesC+D": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), True),
+            "BayesPR": (ngt.BayesPR(9999, V_PR), False),
+            "BayesRCpi": (ngt.BayesRCpi(annot=annot, estimatePi=True, **PRIOR_RC), False),
+            "BayesRCplus": (ngt.BayesRCplus(annot=annot, **PRIOR_RC), False),
+            "BayesLV": (ngt.BayesLV(V_LV, lvcov, VZETA_LV), False)}
+
+
 def chain_phase():
     n, p, block, sweeps = 512, 1024, 128, 3
     rng = np.random.default_rng(7)
     g = rng.integers(0, 3, (n, p))
     y = (g - g.mean(0)) @ rng.normal(0, 0.1, p) + rng.normal(0, 1, n)
     weights = rng.uniform(0.5, 2.0, n)
-    annot, lvcov = annotations(p)
-    methods = {"BayesR": (ngt.BayesR(**PRIOR_R), False),
-               "BayesB": (ngt.BayesB(PI_BC, V_BC, estimatePi=True), False),
-               "BayesC": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), False),
-               "BayesC+D": (ngt.BayesC(PI_BC, V_BC, estimatePi=True), True),
-               "BayesPR": (ngt.BayesPR(9999, V_PR), False),
-               "BayesRCpi": (ngt.BayesRCpi(annot=annot, estimatePi=True, **PRIOR_RC), False),
-               "BayesRCplus": (ngt.BayesRCplus(annot=annot, **PRIOR_RC), False),
-               "BayesLV": (ngt.BayesLV(V_LV, lvcov, VZETA_LV), False)}
 
-    for name, (prior, weighted) in methods.items():
+    for name, (prior, weighted) in method_priors(p).items():
         spec = ngt.ModelSpec(y=y, fixed=[ngt.FixedTerm("int", np.ones(n))],
                              markers=[ngt.MarkerTerm("M1", ngt.from_array(g), prior)],
                              residual=ngt.RandomEffect(weights, 1.0) if weighted else None,
@@ -3843,7 +3910,10 @@ def runtime_only(spec_for, sig, card):
 
 FRACTION_IMPUTED = 0.05  # (b): the share of dosages replaced by imputed (fractional) ones
 CLI_N, CLI_P, CLI_GEN = 2_000, 8_192, 500  # (c): the CLI's data; its pedigree 4 generations of 500
-CLI_CHAIN = dict(length=400, burnin=200, thin=4, seed=3, chains=2)
+# (c): 200 kept draws a chain, so that `diag`'s R-hat < 1.05 rests on more than
+# chance: over 2 x 50 draws varE's R-hat read 0.98-1.06 between seeds at V = 1
+# and at V = 2 alike (ESS 16-74)
+CLI_CHAIN = dict(length=1_000, burnin=200, thin=4, seed=3, chains=2)
 ST_PACKED_RULE = 3  # (a): sweeps of the int8 and packed chains held by the packed rule
 
 
@@ -4080,7 +4150,9 @@ def cli_data(root):
     animals (simulate_pedigree's), a phenotype CSV over every animal in
     pedigree order (an intercept, a covariate x, the planted polygenic
     values, 200 causal loci and N(0, 1) noise) and the config: y ~ 1 + x +
-    PED(ID) + SNP(M) under BayesR, two chains on KeyedStreams."""
+    PED(ID) + SNP(M) under BayesR, two chains on KeyedStreams, with
+    vshards "auto" (run.json, out/) and 1 (run_v1.json, out_v1/). Returns
+    the two configs' paths and the planted genomic values."""
     rng = np.random.default_rng(40)
     ped, u = simulate_pedigree(4, CLI_GEN, 41)
     lbl = [f"A{i + 1}" for i in range(ped.n)]
@@ -4103,7 +4175,8 @@ def cli_data(root):
                       "ID": {"type": "Random", "str": "A", "v": 0.3}},
            "chain": CLI_CHAIN, "block_size": BLOCK, "out_folder": "out"}
     Path(f"{root}/run.json").write_text(json.dumps(cfg))
-    return f"{root}/run.json"
+    Path(f"{root}/run_v1.json").write_text(json.dumps({**cfg, "vshards": 1, "out_folder": "out_v1"}))
+    return f"{root}/run.json", f"{root}/run_v1.json", (g - g.mean(0)) @ bt
 
 
 def cli_main(*argv):
@@ -4129,9 +4202,18 @@ def cli_main(*argv):
 def cli_phase(root):
     """11c: the command line on the card: `run` (two chains, KeyedStream,
     replayed), `diag`, `summary`, `predict` and `roofline` on a generated
-    config, each returning 0; the output files; the launches of `run` (K3 at
-    V = 1, RE1, R1); `summary` also through a child `python -m`."""
-    cfg = cli_data(root)
+    config, each returning 0; the output files; the launches of `run` (K1,
+    K3 and K2 alike, T = nb / V block-steps a captured sweep at the V that
+    "auto" gives the set on this card; RE1, R1); `summary` also through a
+    child `python -m`. Then `run` with vshards 1: the "auto" chains'
+    posterior-mean varE and chain 1's EBV correlation (`predict`) held to
+    phase 15's gate against it."""
+    from nextgp_tpu_torch.engine import plan as engine_plan
+    from nextgp_tpu_torch.io.summary import summary_mcmc
+
+    nb = CLI_P // BLOCK
+    V = engine_plan._card_vshards(nb, BLOCK, CLI_N, "BayesR")
+    cfg, cfg_v1, tbv = cli_data(root)
     out = f"{root}/out"
     t0 = time.perf_counter()
     md = ngt.read_genotype_file(f"{root}/geno.txt")
@@ -4143,6 +4225,9 @@ def cli_phase(root):
     check(rc == 0, f"11c: run returned {rc}")
     for name in ("r_block_scan_v", "level_scan", "keyed_rng"):
         check(launches[name] > 0, f"11c: run launched no {name}: {launches}")
+    steps = launches["r_block_scan_v"]
+    check(steps % (nb // V) == 0 and launches["pack2_matvec"] == launches["pack2_rank_update"] == steps,
+          f"11c: run's launches {launches} are not whole sweeps of {nb // V} block-steps (V={V})")
     chains = [f"{out}/chain{c + 1}" for c in range(CLI_CHAIN["chains"])]
     for folder in chains:
         for f in ("varEOut", "betaMOut", "uIDOut", "varUIDOut", "piMOut"):
@@ -4157,6 +4242,21 @@ def cli_phase(root):
         check(rc == 0, f"11c: {cmd} returned {rc}")
     ebv = np.loadtxt(f"{root}/ebv.txt")
     check(ebv.shape == (CLI_N,) and np.isfinite(ebv).all(), "11c: predict's genomic values")
+    rc, secs["run V=1"] = cli_main("run", cfg_v1, "--quiet")
+    check(rc == 0, f"11c: run with vshards 1 returned {rc}")
+    rc, _ = cli_main("predict", cfg_v1, "--set", "M", "--out-folder", f"{root}/out_v1/chain1",
+                     "--output", f"{root}/ebv_v1.txt")
+    check(rc == 0, f"11c: predict on the vshards 1 chain returned {rc}")
+    fit = {}
+    for label, folder, ebv_file in (("auto", out, "ebv.txt"), ("V=1", f"{root}/out_v1", "ebv_v1.txt")):
+        var_e = np.mean([summary_mcmc("varE", f"{folder}/chain{c + 1}")[0] for c in range(CLI_CHAIN["chains"])])
+        fit[label] = (float(var_e), float(np.corrcoef(np.loadtxt(f"{root}/{ebv_file}"), tbv)[0, 1]))
+    (e, c), (e1, c1) = fit["auto"], fit["V=1"]
+    print(f"[11c CLI] the \"auto\" chains at V={V}: posterior-mean varE {e:.4f}, chain 1's EBV correlation with "
+          f"the planted values {c:.4f}; at V=1 {e1:.4f}, {c1:.4f} (the gate: varE within {GATE_VAR_E:.0%}, EBV at "
+          f"least V=1's - {GATE_EBV})")
+    check(abs(e - e1) <= GATE_VAR_E * e1 and c >= c1 - GATE_EBV,
+          f"11c: the \"auto\" chains at V={V} fall outside the gate against V=1: {fit}")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     t0 = time.perf_counter()
     child = subprocess.run([sys.executable, "-m", "nextgp_tpu_torch", "summary", "varUID", "--out-folder",
@@ -4165,9 +4265,9 @@ def cli_phase(root):
     check(child.returncode == 0 and np.isfinite(float(child.stdout.split()[-1])),
           f"11c: python -m nextgp_tpu_torch summary: {child.returncode} {child.stderr[-300:]}")
     print(f"[11c CLI] {CLI_N:,} x {CLI_P:,} text panel parsed in {parse_s:.2f} s (host); `run` (2 chains of "
-          f"{CLI_CHAIN['length']} sweeps, KeyedStream, replayed, V=1) {run_s:.2f} s with its parse, pedigree "
-          f"and A^-1; launches counted at capture {({k: v for k, v in launches.items() if v})}; diag, summary, "
-          f"predict and roofline returned 0; seconds {({k: round(v, 3) for k, v in secs.items()})}")
+          f"{CLI_CHAIN['length']} sweeps, KeyedStream, replayed, V={V} by \"auto\") {run_s:.2f} s with its "
+          f"parse, pedigree and A^-1; launches counted at capture {({k: v for k, v in launches.items() if v})}; "
+          f"diag, summary, predict and roofline returned 0; seconds {({k: round(v, 3) for k, v in secs.items()})}")
     return dict(seconds=secs), launches
 
 
@@ -6482,6 +6582,241 @@ def f64_only(card, other_src=None):
                       "timings": {k: v for k, v in TIMINGS.items() if k.endswith("_f64")}}))
 
 
+# ------------------------------------------------------------------ phase 15
+
+# 15a: replayed BayesR sweeps at every divisor V of the block count, at these
+# (n, p): the main path, 50,000 individuals, a block count with odd divisors
+# (196 = 2^2 7^2) and a wide panel (nb = 2,304), taken from V = VRULE_WIDE_FROM
+# (below it a sweep runs 288 and more block-steps: plainly slower); then the
+# main path in float64. The table the rule's cost is read from: the rule has
+# no speed part (a block-step costs ~0.06 ms wherever it runs, so the fastest
+# V is at or next to T = 1, which the gate refuses)
+VRULE_SHAPES = ((N, P), (N_50K, P), (N, 50_000), (N, 589_824))
+VRULE_WIDE_P, VRULE_WIDE_FROM = 589_824, 8
+VRULE_REPLAYS, VRULE_RUNS = 20, 3  # replays between CUDA events a run; runs a V, their median kept
+# 15b: 100 replayed sweeps of each method at these V on the main path's panel,
+# which the caps are read from, and on the CLI's 2,000 x 8,192 (nb 32), which
+# holds the rule's scaling by records; (method, V) is admitted where the
+# posterior-mean varE is within GATE_VAR_E (relative) of the V = 1 chain's
+# and the EBV correlation at least V = 1's minus GATE_EBV (fixed before the
+# first run)
+VRULE_GATES = {(N, P): (1, 8, 32, V_MAIN, P // BLOCK), (CLI_N, CLI_P): (1, 2, 4, 8, 16, CLI_P // BLOCK)}
+VRULE_METHODS = ("BayesR", "BayesB", "BayesC", "BayesC+D", "BayesPR", "BayesRCpi", "BayesRCplus", "BayesLV")
+GATE_VAR_E, GATE_EBV = 0.10, 0.01
+
+
+def divisors(nb, least=1):
+    return [v for v in range(least, nb + 1) if nb % v == 0]
+
+
+def rule_picks(nb, n):
+    """What vshards="auto" gives each method for a set of nb blocks of
+    BLOCK loci on n records (engine/plan._card_vshards)."""
+    from nextgp_tpu_torch.engine import plan as engine_plan
+
+    return {path: engine_plan._card_vshards(nb, BLOCK, n, path) for path in VRULE_METHODS}
+
+
+def vrule_speed(spec, nb, tag, dtype=None, least=1):
+    """15a: the replayed sweep (KeyedStream, ReplayedSweep) of spec's marker
+    set at every divisor V >= least of its block count: the capture's
+    seconds (one eager sweep and the capture), the median of VRULE_RUNS runs
+    of CUDA events around VRULE_REPLAYS replays, and the device busy and
+    nodes a sweep from 10 replays under the profiler. Returns ({V: numbers},
+    the fastest V)."""
+    rows = {}
+    for V in divisors(nb, least):
+        plan, st = ngt.assemble(spec, vshards=V, dtype=dtype)
+        check(plan.markers[0].vshards == V, f"15a {tag}: V = {plan.markers[0].vshards}, asked for {V}")
+        stream = keyed.KeyedStream(7, DEV, plan.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = engine_sweep.ReplayedSweep(plan, st, stream)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        runs = [steady_ms(lambda: rep.run(1), VRULE_REPLAYS) for _ in range(VRULE_RUNS)]
+        busy, nodes, missed, _, _ = replay_window(rep, 10)
+        ms = statistics.median(runs)
+        rows[V] = dict(ms=ms, runs=runs, busy_ms=busy, busy_share=busy / ms, nodes=nodes, capture_s=capture_s)
+        print(f"[15a {tag}] V={V} (T={nb // V}): replayed {ms:.4f} ms/sweep (runs "
+              f"{', '.join(f'{r:.4f}' for r in runs)}), device busy {busy:.4f} ms ({busy / ms:.3f}), {nodes} "
+              f"nodes a sweep ({missed} records missed), capture {capture_s:.2f} s")
+        del rep, plan, st
+        torch.cuda.empty_cache()
+    fastest = min(rows, key=lambda v: rows[v]["ms"])
+    print(f"[15a {tag}] fastest V={fastest} ({rows[fastest]['ms']:.4f} ms/sweep)")
+    return rows, fastest
+
+
+def vrule_chain(spec, V, sig):
+    """15b: one 100-sweep chain replayed from one KeyedStream: its
+    posterior-mean varE and EBV correlation."""
+    res = ngt.run_lmem(spec, n_chain=N_CHAIN, n_burn=N_BURN, n_thin=N_THIN, out_folder=None, vshards=V,
+                       dtype=torch.float32, stream=keyed.KeyedStream(7, DEV, torch.float32))
+    check(res.plan.markers[0].vshards == V, f"15b: V = {res.plan.markers[0].vshards}, asked for {V}")
+    var_e = float(np.mean(res.draws["varE"]))
+    return var_e, ebv_corr(ngt.genomic_values_state(res.plan, res.state, beta=res.posterior_mean("betaM1")), sig)
+
+
+def vrule_quality(spec_for, sig, vs, tag):
+    """15b: each method (and BayesC+D) at each V of vs: posterior-mean varE,
+    EBV correlation and whether the gate admitted it against the V = 1 chain.
+    Returns {method: {"rows": {V: (varE, EBV, admitted)}, "cap": the
+    largest V admitted}}."""
+    out = {}
+    for path in VRULE_METHODS:
+        spec = spec_for(path)
+        got = {V: vrule_chain(spec, V, sig) for V in vs}
+        e1, c1 = got[1]
+        rows = {V: (e, c, bool(abs(e - e1) <= GATE_VAR_E * e1 and c >= c1 - GATE_EBV)) for V, (e, c) in got.items()}
+        cap = max(V for V, r in rows.items() if r[2])
+        out[path] = dict(rows=rows, cap=cap)
+        print(f"[15b {tag} {path}] " + "; ".join(f"V={V} varE {e:.4f} EBV {c:.4f} {'admitted' if a else 'refused'}"
+                                                 for V, (e, c, a) in rows.items()) + f"; largest admitted V={cap}")
+    return out
+
+
+def step_passes(st, tag):
+    """K1 and K2 on the last block-step of st's marker set (an offset into
+    the panel where T > 1) against their plain versions, as phase 3 holds
+    them."""
+    ms = st.markers[0]
+    T, V, B, q = ms.mt.shape
+    rows, t = V * B, T - 1
+    mt_rows = ms.mt.view(-1, q)
+    y4 = pack2.y_planar(Step0(st).y)
+    u = torch.randn(rows, generator=torch.Generator(device=DEV).manual_seed(1), device=DEV) * 0.01
+    sl = mt_rows[t * rows:(t + 1) * rows]
+    for name, kern, plain in ((f"pack2_matvec{tag}", lambda: pack2.matvec_step(mt_rows, t, y4, rows),
+                               lambda: pack2.matvec_plain(sl, y4)),
+                              (f"pack2_rank_update{tag}", lambda: pack2.rank_update_step(mt_rows, t, u),
+                               lambda: pack2.rank_update_plain(sl, u))):
+        got = kern()
+        check(torch.equal(got, kern()), f"{name}: two runs differ")
+        DIGESTS[name] = dict(outputs=digest(got))
+        e, s = rel_err(got, plain())
+        report(name, e, s, TOL_PASS, median_ms(kern, 20), median_ms(plain, 5), pass_work(rows, q),
+               f" ({rows} x {q} step t = {t} of T = {T})", dev_ms=device_ms(kern, 20), phase="15 kernels")
+
+
+def rule_kernels(spec_for, pass_vs, scan_vs):
+    """K1 and K2 at each V of pass_vs (BayesR's V at the main path's block
+    count) and every scan of phase 3 at those V and at each V of scan_vs
+    (the Vs that "auto" gives the other methods, or that the gate
+    admitted), against their plain versions at phase 3's tolerances. Phase
+    3 holds V = 1 and V_MAIN already."""
+    for V in sorted(set(pass_vs) - {1, V_MAIN}):
+        plan, st = ngt.assemble(spec_for("BayesR"), vshards=V)
+        step_passes(st, f"_v{V}")
+        k1_grids(st)
+        del plan, st
+    for V in sorted((set(pass_vs) | set(scan_vs)) - {1, V_MAIN}):
+        kernels_phase(spec_for, V, f"_v{V}", full=False)
+
+
+def shape_kernels(spec, vs, tag):
+    """K1, K2 and K3 against their plain versions at each V of vs on spec's
+    BayesR set (a shape other than the main path's)."""
+    for V in sorted(vs):
+        plan, st = ngt.assemble(spec, vshards=V)
+        step_passes(st, f"_{tag}_v{V}")
+        gen = torch.Generator(device=DEV).manual_seed(2)
+        unif = torch.rand(plan.markers[0].p_pad, generator=gen, device=DEV)
+        z = torch.randn(plan.markers[0].p_pad, generator=gen, device=DEV)
+        ms = st.markers[0]
+        r_scan_held(f"r_block_scan_v_{tag}_v{V}", st, Step0(st), unif, z, gen, ms.var_beta[0] * ms.v_class,
+                    ms.log_pi, phase="15 kernels")
+        del plan, st, ms
+
+
+def auto_phase(spec_for, sig, card, scan_vs=()):
+    """15c: run_lmem's default vshards ("auto") on the card at the main
+    path: BayesR resolves to the rule's V (> 1) and passes phase 4's limits
+    (EBV >= 0.95, drift < 1e-2) with n_chain * nb / V launches of K3;
+    BayesC resolves to its cap; each chain held to the gate against the V =
+    1 chain of its stream (phase 4's, or run here). A correlated set stays
+    at V = 1 (phase 11's MultiBreed). Then K1 and K2 at BayesR's V, and
+    every scan at each V the rule gives a method and at scan_vs. Returns
+    the resolved V by method and the launch counts by run."""
+    nb = P // BLOCK
+    picked = rule_picks(nb, N)
+    check(picked["BayesR"] > 1, f"15c: the rule gives BayesR V = {picked['BayesR']} at nb = {nb}")
+    print(f"[15c auto] nb = {nb}, {N:,} records, B = {BLOCK}: the rule gives {picked}")
+    counted = {}
+    for path in ("BayesR", "BayesC"):
+        if f"{path} V=1" not in FITS:
+            slice_phase(path, spec_for(path), sig, card, 1)
+        V = picked[path]
+        launches, res = slice_phase(path, spec_for(path), sig, card, V, tag=" auto",
+                                    ebv_limit=EBV_LIMITS[("BayesR", V_MAIN)] if path == "BayesR" else None,
+                                    auto=True)
+        del res
+        (e, c), (e1, c1) = FITS[f"{path} auto V={V}"], FITS[f"{path} V=1"]
+        print(f"[15c auto] {path} at V={V}: posterior-mean varE {e:.4f}, EBV {c:.4f}; at V=1 {e1:.4f}, {c1:.4f} "
+              f"(the gate: varE within {GATE_VAR_E:.0%}, EBV at least V=1's - {GATE_EBV})")
+        check(abs(e - e1) <= GATE_VAR_E * e1 and c >= c1 - GATE_EBV,
+              f"15c: {path} at V={V} falls outside the gate against V=1")
+        # the kernels line counts a V = 1 run under the single-chain kernels' rows
+        ran, other = (f"auto {path}", f"auto {path} V=1")[::1 if V > 1 else -1]
+        counted[ran], counted[other] = launches, dict.fromkeys(launches, 0)
+    rule_kernels(spec_for, {picked["BayesR"]}, set(picked.values()) | set(scan_vs))
+    return picked, counted
+
+
+def vrule_only(card):
+    """`python3 chip_smoke.py vrule`: phase 15 alone. 15a the table of
+    replayed ms/sweep by V (VRULE_SHAPES, then the main path in float64),
+    with K1, K2 and K3 at BayesR's V by the rule at the other shapes; 15b
+    the quality gate on the main path's panel and on the CLI's (VRULE_GATES);
+    15c run_lmem's default and the kernels at the rule's V and at each V
+    the gate admits for B/C. Then the rule held to the gate: at each gate
+    panel the V it gives each method admitted there, and at the main path
+    the largest V admitted below T = 1. One JSON line of its numbers, and
+    no result line."""
+    speed, quality, misses = {}, {}, []
+    for n, p in VRULE_SHAPES + tuple(sh for sh in VRULE_GATES if sh not in VRULE_SHAPES):
+        wide = p == VRULE_WIDE_P
+        t0 = time.perf_counter()
+        spec_for, sig = simulate(n, p, chunk=1024 if wide else 8192)
+        print(f"[15 {n:,} x {p:,}] simulated in {time.perf_counter() - t0:.1f} s")
+        nb = -(-p // BLOCK)
+        picked = rule_picks(nb, n)
+        if (n, p) in VRULE_SHAPES:
+            shapes = [(f"{n:,} x {p:,}", None)] + ([(f"{n:,} x {p:,} f64", torch.float64)] if (n, p) == (N, P)
+                                                   else [])
+            for tag, dtype in shapes:
+                rows, fastest = vrule_speed(spec_for("BayesR"), nb, tag, dtype, VRULE_WIDE_FROM if wide else 1)
+                v_r = picked["BayesR"]
+                print(f"[15a {tag}] BayesR's V by the rule {v_r}: "
+                      + (f"{rows[v_r]['ms']:.4f} ms/sweep, {rows[v_r]['ms'] / rows[fastest]['ms']:.3f}x the "
+                         f"fastest" if v_r in rows else "not measured"))
+                speed[tag] = dict(nb=nb, rows=rows, fastest=fastest, bayesr=v_r)
+        if (n, p) in VRULE_GATES:
+            tag = f"{n:,} x {p:,}"
+            quality[tag] = got = vrule_quality(spec_for, sig, VRULE_GATES[n, p], tag)
+            for path, q in got.items():
+                rows, v = q["rows"], picked[path]
+                if v not in rows or not rows[v][2]:
+                    misses.append(f"{tag} {path}: the rule's V={v} is " + ("not measured" if v not in rows
+                                                                           else "refused by the gate"))
+                want = max(V for V, r in rows.items() if r[2] and V < nb)
+                if (n, p) == (N, P) and v != want:
+                    misses.append(f"{tag} {path}: the rule gives V={v}, the gate's largest admitted V below "
+                                  f"T = 1 is {want}")
+        if (n, p) == (N, P):
+            auto, counted = auto_phase(spec_for, sig, card, scan_vs={
+                v for path in ("BayesB", "BayesC", "BayesC+D") for v, r in got[path]["rows"].items()
+                if r[2] and v < nb})
+        else:
+            shape_kernels(spec_for("BayesR"), {picked["BayesR"]}, f"{n // 1000}k_{p}")
+        del spec_for, sig
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "speed": speed, "quality": quality, "auto": auto,
+                      "launches": {run: {k: v for k, v in c.items() if v} for run, c in counted.items()},
+                      "misses": misses}))
+    check(not misses, "15: the rule does not follow the gate: " + "; ".join(misses))
+
+
 CU = "nextgp_tpu_torch/csrc/"
 GK = "nextgp_tpu/ops/gibbs_kernels.py:"
 V96, V1 = tuple(PATHS), tuple(f"{p} V=1" for p in PATHS)
@@ -6509,6 +6844,7 @@ F64_RE2_RUNS = ("f64 BayesR+A2 small", "f64 keyed BayesR+A2")
 # phase 14's K12, K14 and CM1 runs (14m on the small panels, 14n at full width)
 F64_CORR_V96 = (f"f64 MultiBreed V={V_MAIN}", f"f64 keyed MultiBreed V={V_MAIN}")
 F64_CORR_V1 = ("f64 MultiBreed V=1", "f64 keyed MultiBreed V=1")
+AUTO_RUNS = ("auto BayesR", "auto BayesC")  # phase 15c's run_lmem with vshards="auto" where it gave V > 1
 
 
 def f64_runs(path, V):
@@ -6523,23 +6859,23 @@ def f64_runs(path, V):
 SOURCES = {
     "pack2_matvec": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec",
                      V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",) + SHARD_RUNS
-                     + SHARD_CORR),
+                     + SHARD_CORR + AUTO_RUNS),
     "pack2_matvec_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:171", "pack2_matvec", PANEL_LADDER),
     "pack2_rank_update": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
                           V96 + STEP_LADDER + CORR_RUNS + RUNTIME_RUNS + ("storage BayesR packed",) + SHARD_RUNS
-                          + SHARD_CORR),
+                          + SHARD_CORR + AUTO_RUNS),
     "pack2_rank_update_panel": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:261", "pack2_rank_update",
                                 ("ladder matvec", "runtime serving")),
     "pack2_matvec_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:302", "pack2_matvec", ("BayesR 50k",)),
     "pack2_rank_update_50k": (CU + "pack2.cu", "nextgp_tpu/ops/pack2.py:329", "pack2_rank_update",
                               ("BayesR 50k",)),
     "r_block_scan_v": (CU + "r_scan.cu", GK + "518", "r_block_scan_v",
-                       V96 + RUNTIME_RUNS + STORAGE_R + SHARD_RUNS),
-    "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1 + ("storage CLI",)),
+                       V96 + RUNTIME_RUNS + STORAGE_R + SHARD_RUNS + ("auto BayesR", "storage CLI")),
+    "r_block_scan_v_v1": (CU + "r_scan.cu", GK + "265", "r_block_scan_v", V1 + ("auto BayesR V=1",)),
     "gauss_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "389", "gauss_block_scan_v", V96),
     "gauss_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "107", "gauss_block_scan_v", V1),
-    "bc_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "422", "bc_block_scan_v", V96),
-    "bc_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v", V1),
+    "bc_block_scan_v": (CU + "gauss_bc_scan.cu", GK + "422", "bc_block_scan_v", V96 + ("auto BayesC",)),
+    "bc_block_scan_v_v1": (CU + "gauss_bc_scan.cu", GK + "162", "bc_block_scan_v", V1 + ("auto BayesC V=1",)),
     "bc_block_scan_wv": (CU + "gauss_bc_scan.cu", GK + "457", "bc_block_scan_wv",
                          V96 + ("storage BayesC+D int8",)),
     "bc_block_scan_wv_v1": (CU + "gauss_bc_scan.cu", GK + "189", "bc_block_scan_wv", V1),
@@ -6785,6 +7121,8 @@ def main(argv=()):
         return levels_only(card, *argv[1:])
     if list(argv[:1]) == ["grn"] and len(argv) <= 2:
         return grn_only(card, *argv[1:])
+    if list(argv) == ["vrule"]:
+        return vrule_only(card)
     spec_for, sig = simulate()
     if list(argv) in (["scans"], ["rc"]):
         return scans_only(spec_for, card, argv[0])
@@ -6802,7 +7140,7 @@ def main(argv=()):
         return runtime_only(spec_for, sig, card)
     check(not argv, f"unknown arguments {list(argv)}: none, scans, rc, passes, graph, chains, "
                     "keyed [DIR ...], gathers [DIR ...], random [DIR], cg [DIR], corr [DIR], runtime, "
-                    "storage, grn [DIR], shards, f64 [DIR] or levels [DIR]")
+                    "storage, grn [DIR], shards, f64 [DIR], levels [DIR] or vrule")
     kernels_phase(spec_for)
     kernels_phase(spec_for, V=1, tag="_v1")
     print(f"[3 digests] {json.dumps(DIGESTS)}")
@@ -6833,6 +7171,9 @@ def main(argv=()):
     runtime_out, by_run = runtime_phase(spec_for, sig)
     counted.update(by_run)
     print(f"[10 runtime] {json.dumps(runtime_out)}")
+    auto_out, by_run = auto_phase(spec_for, sig, card)
+    counted.update(by_run)
+    print(f"[15c auto] {json.dumps(auto_out)}")
     del spec_for, sig
     storage_out, by_run = storage_phase()
     counted.update(by_run)

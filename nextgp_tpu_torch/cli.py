@@ -27,7 +27,7 @@ Config schema (all paths relative to the config file):
       "chain":     {"length": 50000, "burnin": 5000, "thin": 10, "seed": 1,
                     "chains": 4},               # >1 = run_chains + R-hat/ESS
       "block_size": 512,
-      "vshards":   "auto",                       # or an int; "auto" is 1 in the port
+      "vshards":   "auto",                       # or an int; "auto": see _parse_vshards
       "out_folder": "outMCMC",
       "device":    "cuda"                        # port only: where the chain runs
     }
@@ -145,8 +145,10 @@ def _spec_from_config(cfg: Dict[str, Any], base: str, device=None):
 
 
 def _parse_vshards(v):
-    """Config `vshards`: "auto" (default; V = 1 in the port until a rule for
-    the H100 is measured) or an explicit integer."""
+    """Config `vshards`: "auto" (default: V = 1 on the CPU and for
+    correlated marker sets; on a CUDA device a single marker set takes the
+    rule measured on an H100 from its block count, block size, records and
+    prior) or an explicit integer (1: the sequential order)."""
     return "auto" if isinstance(v, str) and v.lower() == "auto" else int(v)
 
 

@@ -114,8 +114,8 @@ class MarkerPlan:
     # region's size (constant)
     region_rows: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     region_len: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
-    # the V the caller asked for ("auto" is 1); vshards is its largest
-    # divisor of n_blocks, which parallel/sharded.distribute checks
+    # the V the caller asked for ("auto": the V it resolved to); vshards is
+    # its largest divisor of n_blocks, which parallel/sharded.distribute checks
     vshards_asked: int = dataclasses.field(default=1, compare=False)
 
 
@@ -403,22 +403,60 @@ def _method_of(prior, name):
         f"marker set {name}: prior {type(prior).__name__} is not a marker prior")
 
 
-def _asked_vshards(vshards) -> int:
-    """The V a caller asked for: "auto" is 1."""
-    return 1 if vshards == "auto" else max(1, int(vshards))
+# vshards="auto" on a CUDA device, read from `python3 chip_smoke.py vrule` on
+# an H100 (PERF.md §5). A block-step's V blocks each update against a
+# residual without the others' updates, V * B loci at a time; how many a
+# chain stands depends on the prior and falls with the records n.
+# _CARD_VSHARDS_CAP, by method ("+D": a weighted residual): the largest V
+# whose 100-sweep chain on _GATE_N records x 49,152 loci in blocks of
+# _GATE_BLOCK kept its posterior-mean varE within 10 % of the V = 1 chain's
+# and its EBV correlation within 0.01 of it; a kind not measured, or
+# admitted at no V > 1, takes 1. On 2,000 records x 8,192 loci the largest
+# V admitted fell 24x for BayesR and BayesRCpi (96 -> 4), 4-8x for BayesB
+# and BayesC: hence V * B held to the cap's loci times (n / _GATE_N)^2
+# below _GATE_N, and never raised above it. T = 1 (all blocks in one step)
+# diverged for every method.
+_GATE_N, _GATE_BLOCK = 10_000, 256
+_CARD_VSHARDS_CAP = {"BayesR": 96, "BayesRCpi": 96, "BayesB": 32, "BayesC": 8}
 
 
-def _resolve_vshards(vshards, nb, name):
-    """The V a marker set runs at: "auto" is 1, the reference-sequential
-    order, which is the JAX package's "auto" off its TPU kernel path (no
-    rule has been measured on the H100); an integer that does not divide
-    the block count falls back to its largest divisor (with a warning; a
-    sharded run refuses such a V where the shards do not divide it,
-    parallel/sharded.distribute)."""
-    if vshards == "auto":
+def _asked_vshards(vshards, V) -> int:
+    """The V a caller asked for: "auto" asks for the V it resolved to."""
+    return V if vshards == "auto" else max(1, int(vshards))
+
+
+def _largest_divisor(nb: int, limit: int) -> int:
+    return max(v for v in range(1, min(nb, limit) + 1) if nb % v == 0)
+
+
+def _card_vshards(nb: int, block: int, n: int, method: str) -> int:
+    """vshards="auto" for a single marker set of nb blocks of `block` loci
+    on n records on a CUDA device: the largest divisor of nb that leaves at
+    least two block-steps a sweep, is at most the method's cap and keeps
+    the concurrent loci V * block at most the cap's at the gate times
+    min(1, (n / _GATE_N)^2); 1 for a method without a cap."""
+    cap = _CARD_VSHARDS_CAP.get(method, 1)
+    if cap == 1 or nb < 2:
         return 1
+    loci = cap * _GATE_BLOCK * min(n, _GATE_N) ** 2 // _GATE_N ** 2
+    return _largest_divisor(nb, max(1, min(nb // 2, cap, loci // block)))
+
+
+def _resolve_vshards(vshards, nb, name, device=None, method=None, block=None, n=None):
+    """The V a marker set runs at. "auto" is 1 on the CPU, which is the JAX
+    package's "auto" off its TPU kernel path (the reference-sequential
+    order), and for correlated marker sets (method None), as in the JAX
+    package; on a CUDA device it is _card_vshards for the set's blocks,
+    records and method (with "+D" for a weighted residual). An integer
+    that does not divide the block count falls back to its largest divisor
+    (with a warning; a sharded run refuses such a V where the shards do not
+    divide it, parallel/sharded.distribute)."""
+    if vshards == "auto":
+        if method is None or torch.device(device).type != "cuda":
+            return 1
+        return _card_vshards(nb, block, n, method)
     vreq = int(vshards)
-    vsh = max(v for v in range(1, vreq + 1) if nb % v == 0) if vreq > 1 else 1
+    vsh = _largest_divisor(nb, vreq) if vreq > 1 else 1
     if vreq > 1 and vsh != vreq:
         warnings.warn(
             f"marker set {name}: vshards={vreq} does not divide the block count "
@@ -556,7 +594,8 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
     block = min(block, max(8, 1 << (p - 1).bit_length()))  # don't over-pad tiny sets
     p_pad = cdiv(p, block) * block
     nb = p_pad // block
-    V = _resolve_vshards(vshards, nb, term.name)
+    V = _resolve_vshards(vshards, nb, term.name, device,
+                         method + ("+D" if d_inv is not None else ""), block, n)
     T = nb // V
     pad = p_pad - p
 
@@ -687,7 +726,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, device, vshards, rn
         est_pi=bool(getattr(prior, "estimatePi", False)), df=df, weighted=d_inv is not None,
         vshards=V, n_annot=n_annot, n_lv_cov=n_lv_cov, est_var_zeta=est_var_zeta,
         packed=packed, dosage_bytes=p2.dosage_bytes(mt), region_rows=rows, region_len=lengths,
-        vshards_asked=_asked_vshards(vshards),
+        vshards_asked=_asked_vshards(vshards, V),
     )
     return ms, mp
 
@@ -699,7 +738,8 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     or the engine dtype, as the JAX planner stores them (it has no pack2
     switch here); the (nT, nT) cross-Gram blocks and each locus's diagonal
     block mpm, a region map shared by the sets. vshards through
-    _resolve_vshards ("auto" is 1, the JAX package's rule for this term)."""
+    _resolve_vshards ("auto" is 1 on every device, the JAX package's rule
+    for this term)."""
     names = "+".join(term.names)
     prior = term.prior
     if not isinstance(prior, P.BayesPR):
@@ -771,7 +811,7 @@ def _build_corr_marker(term: CorrMarkerTerm, block, dtype, device, vshards):
     plan = CorrMarkerPlan(names=tuple(term.names), n_t=n_t, p=p, p_pad=p_pad, block=block,
                           n_blocks=nb, n_regions=info.n_regions, df=df, vshards=V,
                           dosage_bytes=p2.dosage_bytes(mt), region_rows=region_rows,
-                          region_len=region_len, vshards_asked=_asked_vshards(vshards))
+                          region_len=region_len, vshards_asked=_asked_vshards(vshards, V))
     return st, plan
 
 
@@ -798,9 +838,14 @@ def assemble(spec: ModelSpec, dtype=None, block_size: Optional[int] = None,
     vshards: V > 1 advances V marker blocks per block-step (the schedule a
     V-device run would use); the chain then differs from the V=1 order by
     design. A V that does not divide the block count falls back to its
-    largest divisor with a warning. "auto" is 1 for every marker set: the
-    JAX package's "auto" off its TPU kernel path, kept on the card too
-    until a rule for the H100 is measured (ROADMAP M6 part 3).
+    largest divisor with a warning. "auto" is 1 on the CPU (the JAX
+    package's "auto" off its TPU kernel path) and for correlated marker
+    sets on every device (the JAX package's rule for them); on a CUDA
+    device a single marker set takes _card_vshards: the rule measured on
+    an H100 from its block count, block size, records and prior (`python3
+    chip_smoke.py vrule`). The measurement's panel has no
+    linkage, which makes V > 1 err less than on a real panel: vshards=1
+    gives the sequential order anywhere.
     """
     spec.validate()
     device = torch.device(device) if device is not None else default_device()

@@ -127,8 +127,12 @@ def load_checkpoint(path: str, template: Any, fingerprint: Optional[str] = None,
         meta = json.loads(bytes(data[_META_KEY]).decode()) if _META_KEY in data.files else {}
         stored = meta.get("fingerprint")
         if fingerprint is not None and stored is not None and stored != fingerprint:
-            raise ValueError(f"checkpoint at {path!r} was written by a different model "
-                             f"(plan fingerprint {stored} != {fingerprint})")
+            raise ValueError(
+                f"checkpoint at {path!r} was written by a different model (plan fingerprint {stored} "
+                f"!= {fingerprint}): its shapes, settings, dtype, device or block chains (V) differ. "
+                "A chain is not continued at another V: vshards=\"auto\" on a CUDA device "
+                "resolves by the card's rule (it was 1 before that rule), so resume with the "
+                "vshards the checkpoint was written with")
         stored = meta.get("constants")
         if constants is not None and stored is not None and stored != constants:
             raise ValueError(f"checkpoint at {path!r} was written on different data "

@@ -294,9 +294,14 @@ def run_lmem(
     is wiped first, and groupInfo_<set>.txt written for mapped BayesPR
     sets).
 
-    vshards defaults to "auto", which is 1 (the reference-sequential
-    order), as the JAX package resolves it off its TPU kernel path: the
-    H100's rule has not been measured. `stream` overrides the default
+    vshards defaults to "auto" (engine/plan.assemble): on the CPU 1, the
+    reference-sequential order, as the JAX package resolves it off its TPU
+    kernel path; on a CUDA device the rule measured on an H100 for each
+    single marker set (from its block count, block size, records and prior:
+    1 where the prior did not keep its fit at V > 1), and 1 for correlated
+    marker sets. vshards=1 gives the sequential order on any
+    device. A checkpoint resumes only at the V it was written at
+    (plan_fingerprint). `stream` overrides the default
     PhiloxStream(seed) (engine/rng.py), whose chain runs as eager sweeps; a
     KeyedStream runs on the card as CUDA-graph replays. `device`: where the
     model is assembled and swept (the card unless "cpu"; without a card
@@ -538,6 +543,9 @@ def run_chains(
     `<out_folder>/chain<i>/<q>Out` TSVs in the reference layout, and
     `checkpoint_every`/`resume` give the run the same exact-resume
     semantics as `run_lmem` (`<out_folder>/chains.ckpt`).
+    vshards: as for `run_lmem` ("auto": 1 on the CPU and for correlated
+    marker sets, the card's measured rule for a single set on CUDA); the
+    default shard count divides the V it resolves to.
     streams: one draw stream per chain; by default chain c draws from
     PhiloxStream(chain_seed(seed, c)).
 

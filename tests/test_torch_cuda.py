@@ -896,9 +896,8 @@ def test_keyed_rng_reads_its_counter_at_replay(dev):
         assert torch.equal(drawn, s.normal(ngt.Site(sweep, 4, 2, ((4, 1),)), (1000,)))
 
 
-def _small_spec(method):
+def _small_spec(method, n=N_SMALL, p=P_SMALL):
     rng = np.random.default_rng(8)
-    n, p = N_SMALL, P_SMALL
     g = rng.integers(0, 3, (n, p))
     y = (g - g.mean(0)) @ rng.normal(0, 0.1, p) + rng.normal(0, 1, n)
     rc = ([0.9, 0.05, 0.05], [0.0, 1e-3, 1e-2], 1.0, _annot())
@@ -2585,3 +2584,50 @@ def test_f64_annotation_and_corr_chains_on_the_card(dev, method):
     for name, d in draws.items():
         assert torch.equal(d, torch.stack([k[name] for k in kept])), name
     assert torch.equal(st.ycorr, eager.ycorr)
+
+
+# ------------------------------------------------------------------ vshards="auto" on the card
+
+N_AUTO, P_AUTO = 2_000, 2_048  # records enough that "auto" gives BayesR a V > 1 in blocks of 32
+
+
+@pytest.mark.parametrize("method", ["BayesR", "BayesC", "MultiBreed"])
+def test_auto_vshards_on_the_card(dev, method):
+    """vshards="auto" on the card: a single marker set takes _card_vshards
+    for its blocks, records and method (BayesR a V > 1, BayesC at most its
+    cap), a correlated set V = 1; each plan records the V it resolved to as
+    the V asked for."""
+    from nextgp_tpu_torch.engine import plan as t_plan
+
+    if method == "MultiBreed":
+        plan, _ = ngt.assemble(_corr_specs()[0], device=dev, vshards="auto")
+        cp = plan.corr_markers[0]
+        assert cp.n_blocks > 1 and cp.vshards == cp.vshards_asked == 1
+        return
+    plan, _ = ngt.assemble(_small_spec(method, N_AUTO, P_AUTO), device=dev, vshards="auto")
+    mp = plan.markers[0]
+    want = t_plan._card_vshards(mp.n_blocks, mp.block, N_AUTO, method)
+    assert mp.vshards == mp.vshards_asked == want
+    assert want > 1 if method == "BayesR" else want <= t_plan._CARD_VSHARDS_CAP.get(method, 1)
+
+
+def test_run_lmem_default_runs_the_card_rule(dev):
+    """run_lmem with its default vshards on BayesR runs at the rule's V > 1:
+    K1, K3 and K2 launched n_chain * nb / V times (eager sweeps)."""
+    before = dict(_cuda.LAUNCHES)
+    res = ngt.run_lmem(_small_spec("BayesR", N_AUTO, P_AUTO), 10, 4, 2, out_folder=None, device=dev)
+    ran = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    mp = res.plan.markers[0]
+    assert mp.vshards > 1
+    assert ran["r_block_scan_v"] == ran["pack2_matvec"] == ran["pack2_rank_update"] == 10 * (mp.n_blocks // mp.vshards)
+
+
+def test_checkpoint_at_one_is_refused_under_auto_on_the_card(dev, tmp_path):
+    """A checkpoint taken at V = 1 does not resume under "auto" on the card,
+    which gives BayesR another V: the plan's fingerprint refuses it and the
+    message says why."""
+    spec = _small_spec("BayesR", N_AUTO, P_AUTO)
+    kw = dict(n_chain=8, n_burn=2, n_thin=2, device=dev, out_folder=str(tmp_path / "out"), checkpoint_every=1)
+    ngt.run_lmem(spec, vshards=1, **{**kw, "n_chain": 4})
+    with pytest.raises(ValueError, match=r"block chains \(V\) differ\. A chain is not continued at another V"):
+        ngt.run_lmem(spec, resume=True, **kw)
